@@ -1,0 +1,7 @@
+from spatialflink_tpu_torch.operators.query_config import (  # noqa: F401
+    QueryConfiguration,
+    QueryType,
+)
+from spatialflink_tpu_torch.operators.knn_query import (  # noqa: F401
+    PointPointKNNQuery,
+)

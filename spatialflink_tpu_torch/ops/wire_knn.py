@@ -1,0 +1,82 @@
+"""Wire-plane kNN pane digest: the step ``run_wire_panes`` runs per pane.
+
+One pane of 6 B/pt wire records (``streams/wire.py``) → the per-object
+digest (``ops/knn.py``). On a card the step is the hand kernel
+(``ops/wire_digest_kernel.py``); on the CPU it is the kernel's plain
+PyTorch version. ``select_wire_digest_step`` checks the kernel against
+its plain version on the first pane and raises if they differ: the card
+path never quietly runs the plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spatialflink_tpu_torch.ops.wire_digest_kernel import (  # noqa: F401
+    wire_digest,
+    wire_digest_cuda,
+    wire_digest_plain,
+    wire_plane_coords,
+)
+
+#: Strategy values per device. "auto" takes the device's own step.
+STRATEGIES = {"cuda": ("auto", "cuda"), "cpu": ("auto", "torch")}
+
+
+def digests_agree(seg_a, rep_a, seg_b, rep_b) -> bool:
+    """The reference's self-check predicate: identical in-radius object
+    SETS, distances within 1 ulp, and identical representatives wherever
+    the distances agree exactly. Host-side (copies both digests)."""
+    sa, sb = seg_a.cpu().numpy(), seg_b.cpu().numpy()
+    ra, rb = rep_a.cpu().numpy(), rep_b.cpu().numpy()
+    big = np.asarray(np.finfo(sa.dtype).max, sa.dtype)
+    live_a, live_b = sa != big, sb != big
+    if not np.array_equal(live_a, live_b):
+        return False
+    if live_a.any():
+        la, lb = sa[live_a], sb[live_a]
+        ulp = np.spacing(np.maximum(np.abs(la), np.abs(lb)))
+        if not np.all(np.abs(la - lb) <= ulp):
+            return False
+        exact = live_a & (sa == sb)
+        if not np.array_equal(ra[exact], rb[exact]):
+            return False
+    return True
+
+
+def select_wire_digest_step(sample_wire: torch.Tensor, sample_n: int,
+                            query_xy, scale, origin, radius, *,
+                            num_segments: int, strategy: str = "auto"):
+    """Pick the digest step for ``sample_wire``'s device.
+
+    Returns ``(kind, step)`` with ``step(wire, n_valid) -> KnnPaneDigest``.
+    On a card, kind is ``"cuda"``: the kernel runs on the sample pane
+    beside its plain version, and a digest that is not bit-identical
+    raises ``RuntimeError``. On the CPU, kind is ``"torch"``. A strategy
+    that names the other device's step raises ``ValueError``.
+    """
+    dev = sample_wire.device.type
+    if strategy not in STRATEGIES[dev]:
+        raise ValueError(
+            f"strategy {strategy!r} is not available on {dev} "
+            f"(choose from {STRATEGIES[dev]})"
+        )
+    consts = (query_xy, scale, origin, radius)
+
+    def step(wire, n_valid):
+        return wire_digest(wire, n_valid, *consts, num_segments)[0]
+
+    if dev == "cpu":
+        return "torch", step
+    d_k, c_k = wire_digest_cuda(sample_wire, sample_n, *consts, num_segments)
+    d_p, c_p = wire_digest_plain(sample_wire, sample_n, *consts,
+                                 num_segments)
+    if not (torch.equal(d_k.seg_min, d_p.seg_min)
+            and torch.equal(d_k.rep, d_p.rep) and torch.equal(c_k, c_p)):
+        raise RuntimeError(
+            "wire-digest self-check failed: the CUDA kernel's digest of the "
+            "first pane differs from its plain PyTorch version"
+        )
+    return "cuda", step
+

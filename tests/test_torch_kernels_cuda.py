@@ -1,0 +1,49 @@
+"""The port's hand kernels against their plain PyTorch versions, on the
+card. Without a card these tests skip (the kernels have no CPU mode).
+
+The machine with the card has no JAX, and ``tests/conftest.py`` imports
+it, so run this file there without the conftest::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+``python3 chip_smoke.py`` runs the same checks at the headline shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spatialflink_tpu_torch.ops import wire_codec as twc
+
+NSEG = 512
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    """Both kernels bit-exact against their plain versions on the card
+    (``python3 chip_smoke.py`` runs the full set at headline shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import (
+        wire_digest_cuda,
+        wire_digest_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    wire_np = rng.integers(0, 65536, (3, 4096)).astype(np.uint16)
+    wire_np[2] %= NSEG
+    wire = torch.from_numpy(wire_np).to(dev)
+    consts = (np.float32([0.5, 0.5]), np.float32([1e-5, 1e-5]),
+              np.float32([0.0, 0.0]), np.float32(0.3))
+    a, ca = wire_digest_cuda(wire, 4000, *consts, NSEG)
+    b, cb = wire_digest_plain(wire, 4000, *consts, NSEG)
+    assert torch.equal(a.seg_min, b.seg_min) and torch.equal(a.rep, b.rep)
+    assert torch.equal(ca, cb)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, 6000, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+    px = torch.from_numpy(rng.integers(0, 65536, NSEG).astype(np.uint16))
+    args = (words, 4000, 7, 9, 9, px.to(dev), px.to(dev))
+    got = twc.decode_wire_pane_cuda(*args, n=4096, num_segments=NSEG)
+    want = twc.decode_wire_pane_plain(*args, n=4096, num_segments=NSEG)
+    assert twc.codec_decodes_agree(got, want)
