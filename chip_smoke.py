@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``spatialflink_tpu_torch``) on one
 NVIDIA card.
 
-    python3 chip_smoke.py            # every phase, headline sizes
-    python3 chip_smoke.py --quick    # phases 1-4 only: build and check
+    python3 chip_smoke.py            # every phase, full sizes
+    python3 chip_smoke.py --quick    # phases 1-4 and 7 only: build and check
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -24,8 +24,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    operator run on the CPU through the plain versions (starts, ends,
    ``nv`` and ids exact, distances bit-equal) and fill its top-50, and
    both kernels' launch counts must have moved;
-6. time each kernel (CUDA events, median of 30 launches at the headline
-   shape) beside its bound and its plain version.
+6. time B1 and B2 (CUDA events, median of 30 launches at the headline
+   shape) beside their bounds and plain versions;
+7. hold the join-extraction kernel (B3) bit-exact against its plain
+   version at the join's full shape (the JAX package's suite config 4:
+   Beijing grid n=100, two 131,072-point sides from seeds 1 and 2,
+   r=0.002, cap 48, 262,144 pairs): the headline, points exactly on the
+   radius, over budget, a clustered side that overflows ``cap``, two
+   candidate layers (r=0.03), an empty side, and out-of-grid points;
+8. run ``PointPointJoinQuery.run_soa`` at full width (two streams of
+   16 × 131,072 points, one-second tumbling windows) through B3; every
+   window must equal the same operator run on the CPU (starts, ends,
+   ``count``, ``overflow``, index arrays in order, distance bits), and
+   B3's launch count must rise by at least 16;
+9. run ``PointPointJoinQuery.run`` on ``Point`` objects (2 windows ×
+   20,000 points a side), WindowBased and RealTimeNaive, each equal to
+   its CPU run as multisets of (left id, left ts, right id, right ts)
+   with distances bit-equal;
+10. time B3 beside its bound and plain version, the ``run_soa`` rate, and
+   a profiler pass over one ``run_soa`` run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -54,6 +71,16 @@ RADIUS = 0.05
 BEIJING = dict(num_partitions=100, min_x=115.5, max_x=117.6, min_y=39.6,
                max_y=41.1)
 QUERY = (116.40, 40.19)
+
+# The join's full shape: the JAX package's suite config 4
+# (bench_suite.py:423-492).
+JOIN_WIN = 131_072
+JOIN_WINDOWS = 16
+JOIN_R = 0.002
+JOIN_CAP = 48
+JOIN_MAX_PAIRS = 262_144
+JOIN_OBJ_POINTS = 20_000  # per side per window on the object path
+JOIN_OBJ_WINDOWS = 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -140,10 +167,14 @@ def time_ms(fn):
     return device, statistics.median(calls)
 
 
-def profile_run(run, card):
-    """Device busy share and kernel time by name over one ``run()``
-    (torch.profiler, CUDA activity)."""
+def profile_run(run, card, label="sync run"):
+    """Device busy share and device time by kernel over one ``run()``
+    (torch.profiler, CUDA activity). Busy time is the union of the
+    device-side intervals (kernels, copies, memsets): summing every
+    profiler row would count each kernel twice, once under the operator
+    that launched it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -158,15 +189,28 @@ def profile_run(run, card):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    busy_us = sum(dev_us(e) for e in rows)
-    print(f"profile sync run: wall {wall_us / 1e3:.3f} ms, device busy "
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    print(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
           f"{100 - 100 * busy_us / wall_us:.1f}%) [{card}]")
     for e in rows[:8]:
-        if dev_us(e) > 0:
-            print(f"  {dev_us(e) / 1e3:.3f} ms device, {e.count} calls: "
-                  f"{e.key[:90]}")
+        print(f"  {dev_us(e) / 1e3:.3f} ms device, {e.count} calls: "
+              f"{e.key[:90]}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in host[:6]:
+        print(f"  {e.self_cpu_time_total / 1e3:.3f} ms host (self), "
+              f"{e.count} calls: {e.key[:90]}")
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -340,10 +384,276 @@ def check_windows(got, want, mode):
             raise AssertionError(f"{mode}: window {g[:2]} malformed")
 
 
+def join_stream(n, seed):
+    """Positions of bench_suite.py:47-54's stream (float32, as there)."""
+    rng = np.random.default_rng(seed)
+    return np.stack(
+        [rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)], axis=1
+    ).astype(np.float32)
+
+
+def expected_pairs(n, radius):
+    """Pairs two uniform n-point sides of the join extent hold within
+    ``radius`` (edge effects aside): n² · πr² / area."""
+    return n * n * np.pi * radius ** 2 / ((117.6 - 115.5) * (41.1 - 39.6))
+
+
+def join_side(grid, xy, valid=None, centered=False):
+    """Host lanes (centred float32 xy, valid, cell) of one join side.
+    ``centered``: ``xy`` is already the centred float32 input (cells
+    come from it plus the grid centre, in float64)."""
+    from spatialflink_tpu_torch.operators.base import center_coords
+
+    center = np.array([(grid.min_x + grid.max_x) / 2.0,
+                       (grid.min_y + grid.max_y) / 2.0])
+    if centered:
+        xy_c = np.asarray(xy, np.float32)
+        xy64 = xy_c.astype(np.float64) + center
+    else:
+        xy64 = np.asarray(xy, np.float64)
+        xy_c = center_coords(grid, xy64)
+    n = len(xy64)
+    return (xy_c, np.ones(n, bool) if valid is None else valid,
+            grid.assign_cells_np(xy64))
+
+
+def join_case(dev, grid, left, right, radius, max_pairs, card, label,
+              cap=JOIN_CAP):
+    """B3 against its plain version on one pair of sides: planes built on
+    the card once, both extractions on them, compared bit for bit.
+    Returns (kernel result, planes, overflow, max_abs_err)."""
+    import torch
+
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+
+    layers = grid.candidate_layers(radius)
+    lanes = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (*left, *right)]
+    planes, over = join_planes(*lanes, grid_n=grid.n, layers=layers,
+                               cap_left=cap, cap_right=cap)
+    got = join_extract_cuda(*planes, grid.n, layers, radius, max_pairs)
+    want = join_extract_plain(*planes, grid.n, layers, radius, max_pairs)
+    torch.cuda.synchronize()
+    ok = all(same_bits(g, w) for g, w in zip(got, want))
+    count = int(got[3])
+    print(f"B3 join_extract {label}: layers={layers} count={count} "
+          f"budget={len(got[0])} overflow={int(over)} bit_exact={ok} "
+          f"[{card}]")
+    if not ok:
+        raise AssertionError(f"B3 {label}: kernel != plain version")
+    return got, planes, int(over), max_abs_err(got[2], want[2])
+
+
+def check_join(dev, card):
+    """Phase 7: B3 against its plain version at the join's full shape."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    grid = UniformGrid(**BEIJING)
+    a, b = join_stream(JOIN_WIN, 1), join_stream(JOIN_WIN, 2)
+    left, right = join_side(grid, a), join_side(grid, b)
+    err = 0.0
+
+    head, planes, over, e = join_case(dev, grid, left, right, JOIN_R,
+                                      JOIN_MAX_PAIRS, card, "headline")
+    err = max(err, e)
+    count = int(head[3])
+    if over != 0 or not (0.8 * expected_pairs(JOIN_WIN, JOIN_R) < count
+                         <= JOIN_MAX_PAIRS):
+        raise AssertionError(f"B3 headline: count {count}, overflow {over}")
+
+    # Points exactly on the radius: centred left points on the 2^-23
+    # lattice and right points at +(delta, 0), so that d2 == r2 in float32
+    # with r = delta (lattice differences below 2 are exact).
+    k = 20_000
+    delta = np.float32(round(JOIN_R * 2**23) / 2**23)
+    lq = np.round(left[0].astype(np.float64) * 2**23) / 2**23
+    lq = lq.astype(np.float32)
+    rq = right[0].copy()
+    rq[:k] = lq[:k] + np.array([delta, 0], np.float32)
+    got, _, _, e = join_case(
+        dev, grid, join_side(grid, lq, centered=True),
+        join_side(grid, rq, centered=True), float(delta), JOIN_MAX_PAIRS,
+        card, "on_radius")
+    err = max(err, e)
+    n = int(got[3])
+    li, ri, dd = (t[:n].cpu().numpy() for t in got[:3])
+    on = (li == ri) & (li < k)
+    in_grid = ((join_side(grid, lq, centered=True)[2][:k] < grid.num_cells)
+               & (join_side(grid, rq, centered=True)[2][:k]
+                  < grid.num_cells))
+    if on.sum() != in_grid.sum() or not np.all(dd[on] == delta):
+        raise AssertionError("B3 on_radius lost points exactly on the radius")
+
+    under = min(1024, count // 2)
+    for budget in (under, count - under):
+        got, _, _, e = join_case(dev, grid, left, right, JOIN_R, budget,
+                                 card, f"over_budget_{budget}")
+        err = max(err, e)
+        m = len(got[0])
+        if int(got[3]) != count or not all(
+                same_bits(g[:m], h[:m]) for g, h in zip(got[:3], head[:3])):
+            raise AssertionError("B3 over budget: not the first pairs")
+
+    clustered = a.copy()
+    clustered[:5000] = np.float32([116.40, 40.19])  # one cell, 5,000 points
+    _, _, over, e = join_case(dev, grid, join_side(grid, clustered), right,
+                              JOIN_R, JOIN_MAX_PAIRS, card, "clustered")
+    err = max(err, e)
+    if over < 5000 - JOIN_CAP:
+        raise AssertionError(f"B3 clustered: overflow {over}")
+
+    got, _, _, e = join_case(dev, grid, left, right, 0.03, JOIN_MAX_PAIRS,
+                             card, "two_layers_over_budget")
+    err = max(err, e)
+    need = int(2 ** np.ceil(np.log2(int(got[3]))))
+    got, _, _, e = join_case(dev, grid, left, right, 0.03, need, card,
+                             "two_layers")
+    err = max(err, e)
+
+    none = np.zeros(JOIN_WIN, bool)
+    got, _, _, e = join_case(dev, grid, left, join_side(grid, b, none),
+                             JOIN_R, JOIN_MAX_PAIRS, card, "empty_side")
+    if int(got[3]) != 0:
+        raise AssertionError("B3 empty side has pairs")
+
+    outside = a.copy()
+    outside[::10, 0] += 3.0  # a tenth of the left side east of the grid
+    got, _, _, e = join_case(dev, grid, join_side(grid, outside), right,
+                             JOIN_R, JOIN_MAX_PAIRS, card, "out_of_grid")
+    err = max(err, e)
+    n = int(got[3])
+    if not 0 < n < count or np.any(got[0][:n].cpu().numpy() % 10 == 0):
+        raise AssertionError("B3 out_of_grid: an out-of-grid point joined")
+    torch.cuda.synchronize()
+    return err, planes, (left, right)
+
+
+def join_candidate_pairs(grid, left, right, cap=JOIN_CAP):
+    """Pair tests the headline's data needs: for each cell, its left
+    points (at most ``cap``) times the right points (at most ``cap`` a
+    cell) of its 3 × 3 neighbourhood."""
+    n = grid.n
+
+    def occupancy(cells):
+        c = np.bincount(cells, minlength=grid.num_cells + 1)[:grid.num_cells]
+        return np.minimum(c, cap).reshape(n, n).astype(np.int64)
+
+    cl, cr = occupancy(left[2]), occupancy(right[2])
+    crp = np.pad(cr, 1)
+    nb = sum(crp[1 + dx:1 + dx + n, 1 + dy:1 + dy + n]
+             for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+    return int((cl * nb).sum())
+
+
+def soa_join_chunks(seed):
+    """One run_soa input stream: 16 × 131,072 points, ts = i·1000 //
+    131,072 ms, one chunk per window."""
+    xy = join_stream(JOIN_WIN * JOIN_WINDOWS, seed)
+    ts = (np.arange(JOIN_WIN * JOIN_WINDOWS, dtype=np.int64) * 1000) \
+        // JOIN_WIN
+    return [{"ts": ts[s:s + JOIN_WIN], "x": xy[s:s + JOIN_WIN, 0],
+             "y": xy[s:s + JOIN_WIN, 1]}
+            for s in range(0, JOIN_WIN * JOIN_WINDOWS, JOIN_WIN)]
+
+
+def run_soa_path(device, chunks):
+    """One run_soa at full width; returns (windows, seconds)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        QueryConfiguration,
+    )
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    op = PointPointJoinQuery(conf, UniformGrid(**BEIJING), cap=JOIN_CAP,
+                             device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(chunks[0], chunks[1], JOIN_R,
+                          max_pairs=JOIN_MAX_PAIRS))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_soa_join(got, want):
+    import torch
+
+    if len(got) != len(want) or len(got) != JOIN_WINDOWS:
+        raise AssertionError(f"run_soa: {len(got)} windows vs {len(want)}")
+    for g, w in zip(got, want):
+        if g[0] != w[0] or g[1] != w[1] or g[5] != w[5] or g[6] != w[6]:
+            raise AssertionError(f"run_soa: window {g[:2]} differs")
+        if not all(same_bits(torch.from_numpy(x), torch.from_numpy(y))
+                   for x, y in zip(g[2:5], w[2:5])):
+            raise AssertionError(f"run_soa: arrays differ in {g[:2]}")
+        n = g[5]
+        if not (0.8 * expected_pairs(JOIN_WIN, JOIN_R) < n <= len(g[2])
+                and g[6] == 0
+                and np.all(g[2][:n] >= 0) and np.all(g[4][:n] <= JOIN_R)):
+            raise AssertionError(f"run_soa: window {g[:2]} malformed")
+
+
+def join_objects():
+    """Point streams of the object path: JOIN_OBJ_WINDOWS seconds of
+    JOIN_OBJ_POINTS points a second per side."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    n = JOIN_OBJ_POINTS * JOIN_OBJ_WINDOWS
+    out = []
+    for side, seed in (("l", 3), ("r", 4)):
+        xy = join_stream(n, seed).astype(np.float64)
+        ts = (np.arange(n, dtype=np.int64) * 1000) // JOIN_OBJ_POINTS
+        out.append([Point(obj_id=f"{side}{i}", timestamp=int(t),
+                          x=float(x), y=float(y))
+                    for i, (t, (x, y)) in enumerate(zip(ts, xy))])
+    return out
+
+
+def run_objects(device, query_type, streams):
+    """One ``run`` over Point objects; returns the pair multiset with
+    distance bits, the windows' (start, end, overflow, count) and
+    seconds."""
+    import collections
+
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        QueryConfiguration,
+        QueryType,
+    )
+
+    conf = QueryConfiguration(query_type=QueryType[query_type],
+                              window_size=1.0, slide_step=1.0,
+                              realtime_batch_ms=100)
+    op = PointPointJoinQuery(conf, UniformGrid(**BEIJING), cap=JOIN_CAP,
+                             device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(streams[0], streams[1], JOIN_R))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pairs = collections.Counter(
+        (p.obj_id, p.timestamp, q.obj_id, q.timestamp,
+         int(np.float32(d).view(np.uint32)))
+        for r in res for p, q, d in r.pairs)
+    wins = [(r.start, r.end, r.overflow, r.window_count) for r in res]
+    return pairs, wins, secs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="phases 1-4 only (build and check the kernels)")
+                    help="phases 1-4 and 7 only (build and check the kernels)")
     args = ap.parse_args(argv)
 
     import torch
@@ -388,6 +698,8 @@ def main(argv=None) -> int:
     # Phases 3-4
     err_b1 = check_digest(dev, wf, panes, card)
     err_b2, codec_args = check_codec(dev, panes, card)
+    # Phase 7
+    err_b3, join_planes_, join_sides = check_join(dev, card)
     if args.quick:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -447,6 +759,82 @@ def main(argv=None) -> int:
               f"{bnd:.6f} ms ({by_}), medians of {REPEATS} calls at the "
               f"headline shape [{card}]")
 
+    # Phase 8: the join's main path, run_soa at full width, against its
+    # CPU twin.
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract,
+        join_extract_cuda,
+        join_extract_plain,
+    )
+
+    t0 = time.perf_counter()
+    chunks = (soa_join_chunks(1), soa_join_chunks(2))
+    print(f"data: 2 x {JOIN_WINDOWS} x {JOIN_WIN} join points in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    n_join = 2 * JOIN_WINDOWS * JOIN_WIN
+    join_extract.launches = 0
+    got, secs = run_soa_path("cuda", chunks)
+    soa_launches = join_extract.launches
+    want, cpu_secs = run_soa_path("cpu", chunks)
+    check_soa_join(got, want)
+    if soa_launches < JOIN_WINDOWS:
+        raise AssertionError(f"run_soa: {soa_launches} B3 launches")
+    print(f"e2e run_soa: {len(got)} windows, pairs per window "
+          f"{[w[5] for w in got]}, {n_join} points in {secs:.6f} s = "
+          f"{n_join / secs:.1f} points/s; launches join_extract="
+          f"{soa_launches}; windows equal the CPU plain run "
+          f"({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+    # Phase 9: run on Point objects, two query types, against the CPU.
+    t0 = time.perf_counter()
+    streams = join_objects()
+    print(f"data: 2 x {len(streams[0])} Point objects in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    obj_launches = 0
+    for qt in ("WindowBased", "RealTimeNaive"):
+        join_extract.launches = 0
+        pairs, wins, o_secs = run_objects("cuda", qt, streams)
+        run_launches = join_extract.launches
+        obj_launches += run_launches
+        c_pairs, c_wins, c_secs = run_objects("cpu", qt, streams)
+        if pairs != c_pairs or wins != c_wins or not pairs:
+            raise AssertionError(f"run {qt}: differs from the CPU run")
+        if qt == "WindowBased" and run_launches < JOIN_OBJ_WINDOWS:
+            raise AssertionError(f"run {qt}: {run_launches} B3 launches")
+        print(f"e2e run {qt}: {len(wins)} windows, "
+              f"{sum(pairs.values())} pairs in {o_secs:.6f} s; launches "
+              f"join_extract={run_launches}; equal to the CPU run "
+              f"({c_secs:.3f} s) [{card}]")
+
+    profile_run(lambda: run_soa_path("cuda", chunks), card, "run_soa")
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+    from spatialflink_tpu_torch.operators.base import soa_point_batches
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    t0 = time.perf_counter()
+    for side in chunks:
+        for _ in soa_point_batches(UniformGrid(**BEIJING), side, conf):
+            pass
+    asm_secs = time.perf_counter() - t0
+    print(f"host SoA assembly alone (windows, cells, centring, padding) of "
+          f"both streams: {asm_secs:.6f} s, {100 * asm_secs / secs:.1f}% of "
+          f"the run_soa wall above [{card}]")
+
+    # Phase 10: B3's time at the join's full shape.
+    b3 = (*join_planes_, BEIJING["num_partitions"], 1, JOIN_R,
+          JOIN_MAX_PAIRS)
+    b3_ms, b3_call = time_ms(lambda: join_extract_cuda(*b3))
+    b3_plain, _ = time_ms(lambda: join_extract_plain(*b3))
+    pair_tests = join_candidate_pairs(UniformGrid(**BEIJING), *join_sides)
+    b3_bytes = sum(t.numel() * t.element_size() for t in join_planes_) \
+        + 12 * JOIN_MAX_PAIRS + 4
+    b3_bound, b3_by = bound_ms(b3_bytes, 6 * pair_tests)
+    print(f"time join_extract: kernel {b3_ms:.6f} ms device ({b3_call:.6f} "
+          f"ms per call with its launches), plain PyTorch {b3_plain:.6f} ms, "
+          f"bound {b3_bound:.6f} ms ({b3_by}: {b3_bytes} B, {pair_tests} "
+          f"candidate pair tests x 6 operations), medians of {REPEATS} "
+          f"calls at the join's full shape [{card}]")
+
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -460,6 +848,12 @@ def main(argv=None) -> int:
          "launches": launches["wire_codec_decode"], "max_abs_err": err_b2,
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
+        {"name": "join_extract", "route": "cuda",
+         "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
+         "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
+         "launches": soa_launches + obj_launches, "max_abs_err": err_b3,
+         "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
+         "bound_by": b3_by, "library_ms": None},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

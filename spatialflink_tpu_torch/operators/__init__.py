@@ -5,3 +5,6 @@ from spatialflink_tpu_torch.operators.query_config import (  # noqa: F401
 from spatialflink_tpu_torch.operators.knn_query import (  # noqa: F401
     PointPointKNNQuery,
 )
+from spatialflink_tpu_torch.operators.join_query import (  # noqa: F401
+    PointPointJoinQuery,
+)

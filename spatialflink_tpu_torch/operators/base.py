@@ -1,29 +1,150 @@
-"""Shared operator machinery: configuration, device and the host→device
-ship."""
+"""Shared operator machinery: configuration, device, window planning,
+batching and the host→device ship.
+
+Per window an operator assembles its events into a padded batch on the
+host (``models/batch.py``), centres the coordinates in float64 and casts
+them to float32 (``center_coords``), ships the lanes to its device and
+runs its kernels there. RealTime query types run as tumbling micro-batches
+of ``realtime_batch_ms``; CountBased uses count windows.
+"""
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.grid import UniformGrid
-from spatialflink_tpu_torch.operators.query_config import QueryConfiguration
+from spatialflink_tpu_torch.models.batch import PointBatch
+from spatialflink_tpu_torch.models.objects import Point
+from spatialflink_tpu_torch.operators.query_config import (
+    QueryConfiguration,
+    QueryType,
+)
+from spatialflink_tpu_torch.streams.soa import SoaWindowAssembler
+from spatialflink_tpu_torch.streams.windows import (
+    CountWindows,
+    SlidingEventTimeWindows,
+    TumblingEventTimeWindows,
+    WindowAssembler,
+    WindowBatch,
+)
+from spatialflink_tpu_torch.utils.interning import Interner
+from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
+
+
+def window_assigner_for(conf: QueryConfiguration) -> SlidingEventTimeWindows:
+    if conf.query_type in (QueryType.RealTime, QueryType.RealTimeNaive):
+        return TumblingEventTimeWindows(conf.realtime_batch_ms)
+    return SlidingEventTimeWindows(conf.window_size_ms, conf.slide_step_ms)
+
+
+def count_window_batches(
+    events: Iterable, size: int, slide: int
+) -> Iterator[WindowBatch]:
+    """CountBased mode: fixed-count windows over arrival order. A
+    window's span is the event-time extent of its slice."""
+    cw = CountWindows(size, slide)
+    buf: list = []
+    for ev in events:
+        for slice_ in cw.feed(buf, ev):
+            yield WindowBatch(slice_[0].timestamp, slice_[-1].timestamp + 1,
+                              list(slice_))
+    if buf:
+        yield WindowBatch(buf[0].timestamp, buf[-1].timestamp + 1, list(buf))
 
 
 class SpatialOperator:
-    """Base: holds the query configuration, the grid and the device the
-    operator's kernels run on (``cuda`` unless the caller asks for the
-    CPU; a missing card raises, see ``device.py``)."""
+    """Base: holds the query configuration, the grid, the object-id
+    interner and the device the operator's kernels run on (``cuda``
+    unless the caller asks for the CPU; a missing card raises, see
+    ``device.py``)."""
 
     def __init__(self, conf: QueryConfiguration, grid: UniformGrid,
                  device="cuda"):
         self.conf = conf
         self.grid = grid
         self.device = resolve_device(device)
+        self.interner = Interner()
+
+    def _assembler(self) -> WindowAssembler:
+        return WindowAssembler(
+            window_assigner_for(self.conf),
+            timestamp_fn=lambda e: e.timestamp,
+            max_out_of_orderness_ms=self.conf.allowed_lateness_ms,
+            allowed_lateness_ms=self.conf.allowed_lateness_ms,
+        )
+
+    def windows(self, stream: Iterable) -> Iterator[WindowBatch]:
+        if self.conf.query_type == QueryType.CountBased:
+            yield from count_window_batches(
+                stream, self.conf.count_window_size,
+                self.conf.count_window_size,
+            )
+        else:
+            yield from self._assembler().stream(stream)
+
+    def point_batch(self, events: Sequence[Point]) -> PointBatch:
+        # Host batches stay float64; the float32 cast happens after
+        # centring (center_coords), so ~116° magnitudes lose nothing.
+        batch = PointBatch.from_points(events, interner=self.interner,
+                                       dtype=np.float64)
+        return batch.with_cells(self.grid)
+
+
+def center_coords(grid: UniformGrid, xy, dtype=np.float32) -> np.ndarray:
+    """Coordinates minus the grid centre, taken in float64, then cast to
+    float32.
+
+    Degree-scale values (~116°) have float32 ulps of ~7.6e-6°, so nearby
+    points would lose metres to cancellation; centred values have
+    magnitudes of the extent's span, with ulps of ~1e-7°. Distances are
+    translation-invariant; cells come from the original coordinates.
+    The port always computes in float32 on the device, as the JAX package
+    does on its accelerator (x64 off), so ``dtype`` is accepted only for
+    the JAX signature and does not change the result."""
+    del dtype
+    cx = (grid.min_x + grid.max_x) / 2.0
+    cy = (grid.min_y + grid.max_y) / 2.0
+    return (np.asarray(xy, np.float64) - np.array([cx, cy])).astype(np.float32)
+
+
+def device_point_args(grid: UniformGrid, xy64: np.ndarray, oid):
+    """One SoA point slice → host-padded (xy, valid, cell, oid) lanes.
+
+    Bucket padding, float64 centring before the float32 cast, and invalid
+    lanes in the out-of-grid cell ``grid.num_cells``: the same lanes as
+    ``PointBatch.from_arrays(...).with_cells(grid)``."""
+    n = len(xy64)
+    b = next_bucket(n)
+    cell = grid.assign_cells_np(xy64)
+    return (
+        pad_to_bucket(center_coords(grid, xy64), b),
+        pad_to_bucket(np.ones(n, bool), b, fill=False),
+        pad_to_bucket(cell, b, fill=grid.num_cells),
+        None if oid is None else pad_to_bucket(np.asarray(oid, np.int32), b,
+                                               fill=0),
+    )
+
+
+def soa_point_batches(grid: UniformGrid, chunks, conf: QueryConfiguration,
+                      asm=None):
+    """SoA chunks → (window, xy, valid, cell, oid) per fired window, the
+    lanes padded per ``device_point_args``. ``asm``: the sliding
+    assembler to feed (a resumed one); a fresh one by default."""
+    if asm is None:
+        asm = SoaWindowAssembler(conf.window_size_ms, conf.slide_step_ms,
+                                 ooo_ms=conf.allowed_lateness_ms)
+    for win in asm.stream(chunks):
+        xy64 = np.stack(
+            [np.asarray(win.arrays["x"], np.float64),
+             np.asarray(win.arrays["y"], np.float64)],
+            axis=1,
+        )
+        yield (win, *device_point_args(grid, xy64, win.arrays.get("oid")))
 
 
 def check_oid_range(oid, num_segments: int) -> None:

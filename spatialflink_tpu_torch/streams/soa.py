@@ -1,0 +1,152 @@
+"""Structure-of-arrays streaming: chunked ingest → vectorized windows.
+
+The high-rate path. Sources deliver chunks of SoA arrays (``{"ts", "x",
+"y", ...}``); the assembler buffers them as arrays, and each fired window
+is a slice of a ts-sorted consolidation, with no per-event Python object.
+
+Semantics are the JAX package's ``streams/soa.py``: watermark = max_ts −
+ooo; a window fires once when the watermark passes its end; every window
+holding at least one event fires exactly once; events older than every
+live window at consolidation time are dropped and counted
+(``dropped_late``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def earliest_window_of(ts_val: int, size: int, slide: int) -> int:
+    """Start of the earliest sliding window containing ``ts_val``."""
+    last = ts_val - ((ts_val % slide) + slide) % slide
+    return last - size + slide
+
+
+@dataclass
+class SoaWindow:
+    """One fired window: [start, end) and its event arrays."""
+
+    start: int
+    end: int
+    arrays: Dict[str, np.ndarray]  # each (n,), same order, incl. "ts"
+
+    @property
+    def count(self) -> int:
+        return len(self.arrays["ts"])
+
+
+class _SlidingAssemblerBase:
+    """The sliding-window watermark state machine. Subclasses supply the
+    payload: ``_ingest`` (store a chunk, return its ts array),
+    ``_consolidate`` (merge and ts-sort, return the sorted ts),
+    ``_window`` (rows [lo:hi) as a fired window) and ``_evict`` (drop rows
+    below ``keep_from``)."""
+
+    def __init__(self, size_ms: int, slide_ms: int, ooo_ms: int = 0):
+        if size_ms <= 0 or slide_ms <= 0:
+            raise ValueError("size and slide must be positive")
+        self.size = int(size_ms)
+        self.slide = int(slide_ms)
+        self.ooo = int(ooo_ms)
+        self._max_ts: Optional[int] = None
+        self._next_start: Optional[int] = None  # earliest unfired window start
+        self.dropped_late = 0
+
+    def feed(self, chunk):
+        """Add one chunk; return the windows that fire."""
+        ts = self._ingest(chunk)
+        if ts is None or len(ts) == 0:
+            return []
+        mx = int(ts.max())
+        if self._max_ts is None or mx > self._max_ts:
+            self._max_ts = mx
+        if self._next_start is None:
+            # Earliest window that could ever hold a non-late event: bounded
+            # by both the first observed timestamp and the initial watermark.
+            horizon = min(int(ts.min()), self._max_ts - self.ooo)
+            self._next_start = earliest_window_of(horizon, self.size, self.slide)
+        return self._fire(self._max_ts - self.ooo)
+
+    def flush(self):
+        """End of stream: fire everything up to the last event."""
+        if self._max_ts is None:
+            return []
+        return self._fire(self._max_ts + self.size + 1)
+
+    def stream(self, chunks):
+        for c in chunks:
+            yield from self.feed(c)
+        yield from self.flush()
+
+    def _fire(self, wm: int):
+        out = []
+        if self._next_start is None or self._next_start + self.size > wm:
+            return out
+        ts = self._consolidate()
+        # Events older than the earliest live window start are late beyond
+        # every remaining window: count (eviction below trims them).
+        self.dropped_late += int(np.searchsorted(ts, self._next_start,
+                                                 side="left"))
+        while self._next_start + self.size <= wm:
+            s, e = self._next_start, self._next_start + self.size
+            lo = int(np.searchsorted(ts, s, side="left"))
+            hi = int(np.searchsorted(ts, e, side="left"))
+            if hi > lo:
+                out.append(self._window(s, e, lo, hi))
+                self._next_start += self.slide
+            elif lo < len(ts):
+                # Empty window: jump to the earliest window holding the
+                # next buffered event.
+                self._next_start = max(
+                    self._next_start + self.slide,
+                    earliest_window_of(int(ts[lo]), self.size, self.slide),
+                )
+            else:
+                # No buffered events at/after s: wait for more data.
+                self._next_start += self.slide
+                break
+        # Evict rows no live window can need.
+        keep_from = int(np.searchsorted(ts, self._next_start, side="left"))
+        if keep_from:
+            self._evict(keep_from)
+        return out
+
+
+class SoaWindowAssembler(_SlidingAssemblerBase):
+    """Sliding event-time windows over SoA chunks."""
+
+    def __init__(self, size_ms: int, slide_ms: int, ooo_ms: int = 0):
+        super().__init__(size_ms, slide_ms, ooo_ms)
+        self._chunks: List[Dict[str, np.ndarray]] = []
+
+    def _ingest(self, chunk: Dict[str, np.ndarray]):
+        ts = np.asarray(chunk["ts"], np.int64)
+        if len(ts) == 0:
+            return None
+        self._chunks.append({k: np.asarray(v) for k, v in chunk.items()})
+        return ts
+
+    def _consolidate(self) -> np.ndarray:
+        if len(self._chunks) == 1:
+            merged = self._chunks[0]
+        else:
+            merged = {
+                k: np.concatenate([c[k] for c in self._chunks])
+                for k in self._chunks[0]
+            }
+        ts = merged["ts"]
+        if np.any(ts[:-1] > ts[1:]):  # in-order streams skip the sort
+            order = np.argsort(ts, kind="stable")
+            merged = {k: v[order] for k, v in merged.items()}
+        self._chunks = [merged]
+        return merged["ts"]
+
+    def _window(self, s, e, lo, hi) -> SoaWindow:
+        merged = self._chunks[0]
+        return SoaWindow(s, e, {k: v[lo:hi] for k, v in merged.items()})
+
+    def _evict(self, keep_from: int) -> None:
+        self._chunks = [{k: v[keep_from:] for k, v in self._chunks[0].items()}]

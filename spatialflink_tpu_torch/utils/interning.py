@@ -1,0 +1,45 @@
+"""Host-side string→dense-int interning for object IDs.
+
+The reference keys everything on string objIDs; batches carry dense
+int32 ids instead, interned once at ingest and decoded at egress.
+"""
+
+from __future__ import annotations
+
+from typing import Hashable, Iterable, List
+
+import numpy as np
+
+
+class Interner:
+    """Bidirectional Hashable↔int32 mapping, append-only."""
+
+    def __init__(self):
+        self._to_int: dict = {}
+        self._to_key: List[Hashable] = []
+
+    def __len__(self) -> int:
+        return len(self._to_key)
+
+    def intern(self, key: Hashable) -> int:
+        i = self._to_int.get(key)
+        if i is None:
+            i = len(self._to_key)
+            self._to_int[key] = i
+            self._to_key.append(key)
+        return i
+
+    def intern_many(self, keys: Iterable[Hashable]) -> np.ndarray:
+        return np.fromiter(
+            (self.intern(k) for k in keys), dtype=np.int32, count=-1
+        )
+
+    def lookup(self, i: int) -> Hashable:
+        return self._to_key[i]
+
+    def decode(self, ids: Iterable[int]) -> List[Hashable]:
+        return [self._to_key[i] for i in ids]
+
+    @property
+    def num_segments(self) -> int:
+        return len(self._to_key)

@@ -47,3 +47,41 @@ def test_kernels_match_plain_versions_on_card():
     got = twc.decode_wire_pane_cuda(*args, n=4096, num_segments=NSEG)
     want = twc.decode_wire_pane_plain(*args, n=4096, num_segments=NSEG)
     assert twc.codec_decodes_agree(got, want)
+
+
+@pytest.mark.cuda
+def test_join_extract_matches_plain_version_on_card():
+    """B3 bit-exact against its plain version on the card, in order,
+    within and over budget (``python3 chip_smoke.py`` runs the full set
+    at the join's full shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+    gn, n = 16, 3000
+    lanes = []
+    for _ in range(2):
+        xy = rng.uniform(-0.2, gn + 0.2, (n, 2)).astype(np.float32)
+        ci = np.floor(xy).astype(np.int64)
+        inside = ((ci >= 0) & (ci < gn)).all(axis=1)
+        cells = np.where(inside, ci[:, 0] * gn + ci[:, 1], gn * gn)
+        lanes += [torch.from_numpy(xy), torch.from_numpy(rng.random(n) > 0.1),
+                  torch.from_numpy(cells.astype(np.int32))]
+    for radius, layers, cap, budget in ((0.4, 1, 24, 8192), (0.4, 1, 24, 256),
+                                        (1.5, 2, 8, 1 << 16)):
+        planes, _ = join_planes(*(t.to(dev) for t in lanes), grid_n=gn,
+                                layers=layers, cap_left=cap, cap_right=cap)
+        got = join_extract_cuda(*planes, gn, layers, radius, budget)
+        want = join_extract_plain(*planes, gn, layers, radius, budget)
+        torch.cuda.synchronize()
+        assert int(want[3]) > 200
+        for g, w in zip(got, want):
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g.cpu(), w.cpu())
