@@ -3,7 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py            # every phase, full sizes
-    python3 chip_smoke.py --quick    # phases 1-4 and 7 only: build and check
+    python3 chip_smoke.py --quick    # phases 1-4, 7 and 11: build and check
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -42,7 +42,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    its CPU run as multisets of (left id, left ts, right id, right ts)
    with distances bit-equal;
 10. time B3 beside its bound and plain version, the ``run_soa`` rate, and
-   a profiler pass over one ``run_soa`` run.
+   a profiler pass over one ``run_soa`` run;
+11. hold the point→polyline min-distance kernel (B4) bit-exact against
+   its plain version: the JAX package's suite config 3 (1,000 query
+   polygons, a 262,144-point window), dense and gathered through the
+   pruned path's real candidates; points on edges and at d² = r² on the
+   2⁻²³ lattice; zero-length edges; multi-ring seams; boundaries of
+   4,096 vertices (shared-memory tiles, and a set too large to stage);
+   an all-invalid boundary (FLT_MAX); N not a multiple of the block;
+12. run ``PointPolygonRangeQuery.run_soa`` at full width (config 3: 10 ×
+   262,144 points, 1,000 polygons, the bbox-pruned path) through B4, each
+   window equal to the same operator run on the CPU, and B4's launch
+   count up by at least 10; then, at 2–3 windows each and against the
+   CPU: the dense path (32 polygons), the compact path (64), linestrings
+   (32), approximate mode, ``PointPointRangeQuery.run_soa`` at suite
+   config 1's width, and ``run`` on ``Point`` objects;
+13. time B4 (gathered at config 3, dense at 32 polygons) beside its bound
+   and plain version, the range window's parts, the full-width
+   ``run_soa`` rate, and a profiler pass over it.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -82,6 +99,19 @@ JOIN_MAX_PAIRS = 262_144
 JOIN_OBJ_POINTS = 20_000  # per side per window on the object path
 JOIN_OBJ_WINDOWS = 2
 
+# The range family's full width: the JAX package's suite config 3
+# (bench_suite.py:357-420) and, for point queries, config 1
+# (bench_suite.py:182-232).
+RANGE_WIN = 262_144
+RANGE_WINDOWS = 10
+RANGE_R = 0.002
+RANGE_POLYS = 1000
+RANGE_CUT_WINDOWS = 3
+PP_WIN = 500_000
+PP_R = 0.005
+RANGE_OBJ_POINTS = 20_000
+RANGE_OBJ_WINDOWS = 2
+
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
 HBM_BYTES_PER_S = 3.35e12
@@ -99,18 +129,20 @@ def card_line() -> str:
 
 
 def same_bits(a, b) -> bool:
-    """Bit-equality of two tensors (float distances compared as bits)."""
+    """Bit-equality of two tensors on one device (float distances
+    compared as bits)."""
     import torch
 
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
-    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+    return a.shape == b.shape and bool(torch.equal(a, b))
 
 
 def max_abs_err(a, b) -> float:
+    """Max |a - b| on the tensors' device; float32 entries at FLT_MAX in
+    both (no valid edge, no candidate) are left out."""
     import torch
 
-    a, b = a.cpu(), b.cpu()
     if a.dtype == torch.float32:
         live = (a < torch.finfo(torch.float32).max) | \
             (b < torch.finfo(torch.float32).max)
@@ -650,6 +682,370 @@ def run_objects(device, query_type, streams):
     return pairs, wins, secs
 
 
+def range_polygons():
+    """Suite config 3's query set: 1,000 polygons from seed 3."""
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    return generate_query_polygons(RANGE_POLYS, 115.5, 39.6, 117.6, 41.1,
+                                   grid_size=100, seed=3)
+
+
+def packed_queries(grid, queries):
+    """(centred float32 vertices, edge flags) of a query set, as the
+    operators pack and ship it."""
+    from spatialflink_tpu_torch.operators.base import (
+        center_coords,
+        pack_query_geometries,
+    )
+
+    verts, ev = pack_query_geometries(queries)
+    return center_coords(grid, verts), ev
+
+
+def range_chunks(n_win, per_win, seed):
+    """A run_soa stream: bench_suite.py:47-54's positions from ``seed``,
+    one-second tumbling windows (ts = i·1000 // per_win ms), one chunk a
+    window."""
+    xy = join_stream(n_win * per_win, seed)
+    ts = (np.arange(n_win * per_win, dtype=np.int64) * 1000) // per_win
+    return [{"ts": ts[s:s + per_win], "x": xy[s:s + per_win, 0],
+             "y": xy[s:s + per_win, 1]}
+            for s in range(0, n_win * per_win, per_win)]
+
+
+def b4_case(dev, xy, verts, ev, sel, card, label):
+    """B4 against its plain version on one input set, bit for bit.
+    Returns (kernel output, max_abs_err)."""
+    import torch
+
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    def dev_t(a):
+        if torch.is_tensor(a):
+            return a.to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (dev_t(xy), dev_t(verts), dev_t(ev),
+            None if sel is None else dev_t(sel))
+    got = polyline_min_dist_cuda(*args)
+    want = polyline_min_dist_plain(*args)
+    torch.cuda.synchronize()
+    ok = same_bits(got, want)
+    err = max_abs_err(got, want)
+    n, c = got.shape
+    print(f"B4 polyline_min_dist {label}: N={n} C={c} "
+          f"G={args[1].shape[0]} V={args[1].shape[1]} "
+          f"mode={'dense' if sel is None else 'gathered'} bit_exact={ok} "
+          f"[{card}]")
+    if not ok:
+        raise AssertionError(f"B4 {label}: kernel != plain version")
+    return got, err
+
+
+def check_polyline(dev, card):
+    """Phase 11: B4 against its plain version. Returns (max_abs_err, the
+    config-3 window's device lanes and candidates for phase 13)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators.base import center_coords
+    from spatialflink_tpu_torch.ops.polygon import pack_rings
+    from spatialflink_tpu_torch.ops.range import bbox_candidates
+
+    grid = UniformGrid(**BEIJING)
+    polys = range_polygons()
+    qv, qe = packed_queries(grid, polys)
+    xy64 = join_stream(RANGE_WIN, 7).astype(np.float64)
+    xy = center_coords(grid, xy64)
+    err = 0.0
+
+    _, e = b4_case(dev, xy, qv, qe, None, card, "config3_dense")
+    err = max(err, e)
+    xy_d = torch.from_numpy(xy).to(dev)
+    qv_d, qe_d = (torch.from_numpy(a).to(dev) for a in (qv, qe))
+    lanes = torch.ones(RANGE_WIN, dtype=torch.bool, device=dev)
+    sel, _ = bbox_candidates(xy_d, lanes, qv_d, qe_d, RANGE_R, 8, 8192)
+    _, e = b4_case(dev, xy_d, qv_d, qe_d, sel, card, "config3_gathered")
+    err = max(err, e)
+    n_odd = RANGE_WIN - 77
+    _, e = b4_case(dev, xy[:n_odd], qv, qe, sel[:n_odd], card,
+                   "n_not_multiple_of_block")
+    err = max(err, e)
+
+    # Boundaries on the 2^-20 lattice (centred, so exact in float32):
+    # vertices and edge midpoints lie on the boundary (d = 0), and points
+    # at -delta along a horizontal edge from its first vertex are at
+    # d^2 == delta^2 == r^2 exactly (delta = 2^-9, about RANGE_R).
+    lat = np.round(qv[:64] * 2**20) / 2**20
+    lat = lat.astype(np.float32)
+    delta = np.float32(2.0 ** -9)
+    first = lat[:, 0]
+    on_edge = np.concatenate([
+        lat[:, :4].reshape(-1, 2),
+        ((lat[:, :4] + lat[:, 1:5]) / 2).reshape(-1, 2),
+        first - np.array([delta, 0], np.float32)])
+    got, e = b4_case(dev, on_edge, lat, qe[:64], None, card,
+                     "on_edge_and_on_radius")
+    err = max(err, e)
+    m = 64 * 4
+    own = torch.arange(64, device=dev)
+    if not (torch.all(got[:2 * m].min(dim=1).values == 0)
+            and torch.all(got[2 * m + own, own] == delta)):
+        raise AssertionError("B4 on-edge / on-radius points off their "
+                             "exact distances")
+
+    rng = np.random.default_rng(31)
+    ring = rng.uniform(-0.5, 0.5, (40, 2)).astype(np.float32)
+    ring[5] = ring[4]
+    ring[17:20] = ring[16]  # zero-length edges
+    rings = [ring, rng.uniform(-0.2, 0.2, (9, 2)),
+             rng.uniform(0.3, 0.6, (7, 2))]  # multi-ring seams
+    v, e_ = pack_rings(rings, pad_to=64)
+    pts = rng.uniform(-0.7, 0.7, (50_001, 2)).astype(np.float32)
+    pts[:40] = ring
+    _, e = b4_case(dev, pts, v[None].astype(np.float32), e_[None], None,
+                   card, "degenerate_edges_and_seams")
+    err = max(err, e)
+
+    # Eight boundaries of 4,096 vertices (a noisy circle each, the last
+    # with no valid edge): dense mode tiles them through shared memory,
+    # and the set (295 KB) is too large to stage for the gathered mode.
+    t = np.linspace(0, 2 * np.pi, 4096)
+    big = np.stack([np.stack([0.4 * np.cos(t + k), 0.3 * np.sin(t + k)],
+                             axis=1) + rng.normal(0, 1e-3, (4096, 2))
+                    for k in range(8)]).astype(np.float32)
+    big_ev = np.ones((8, 4095), bool)
+    big_ev[7] = False
+    pts = rng.uniform(-0.6, 0.6, (20_000, 2)).astype(np.float32)
+    got, e = b4_case(dev, pts, big, big_ev, None, card, "v4096_dense")
+    err = max(err, e)
+    if not torch.all(got[:, 7] == torch.finfo(torch.float32).max):
+        raise AssertionError("B4 all-invalid boundary is not FLT_MAX")
+    sel_big = rng.integers(0, 8, (20_000, 3)).astype(np.int32)
+    _, e = b4_case(dev, pts, big, big_ev, sel_big, card,
+                   "v4096_gathered_unstaged")
+    err = max(err, e)
+    return err, (xy_d, qv_d, qe_d, sel)
+
+
+def run_range(device, cls, chunks, queries, radius, **conf_kw):
+    """One ``run_soa`` of a range operator; returns (windows, seconds,
+    operator)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0, **conf_kw)
+    op = cls(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(chunks, queries, radius))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, op
+
+
+def check_range_windows(got, want, label, radius, exact=True):
+    """Window for window: starts, ends, matched arrays exact, distance
+    bits equal; matches finite and, in exact mode, within the radius.
+    Returns the matches per window."""
+    if len(got) < len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} windows vs {len(want)}")
+    for g, w in zip(got, want):
+        if g[:2] != w[:2] or g[2].keys() != w[2].keys():
+            raise AssertionError(f"{label}: window {g[:2]} differs")
+        if not all(np.array_equal(g[2][k], w[2][k]) for k in g[2]):
+            raise AssertionError(f"{label}: matches differ in {g[:2]}")
+        if not np.array_equal(g[3].view(np.uint32), w[3].view(np.uint32)):
+            raise AssertionError(f"{label}: distances differ in {g[:2]}")
+        if not np.all(np.isfinite(g[3])) or (
+                exact and not np.all(g[3] <= np.float32(radius))):
+            raise AssertionError(f"{label}: window {g[:2]} malformed")
+    return [len(g[3]) for g in got]
+
+
+def range_objects(n_windows, per_win, seed):
+    """``Point`` objects of ``n_windows`` seconds of ``per_win`` points."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    xy = join_stream(n_windows * per_win, seed).astype(np.float64)
+    ts = (np.arange(len(xy), dtype=np.int64) * 1000) // per_win
+    return [Point(obj_id=f"p{i}", timestamp=int(t), x=float(x), y=float(y))
+            for i, (t, (x, y)) in enumerate(zip(ts, xy))]
+
+
+def run_range_objects(device, stream, queries):
+    """One ``PointPolygonRangeQuery.run`` over Point objects; returns the
+    windows as (start, end, window_count, ids, distance bits), seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    op = PointPolygonRangeQuery(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(iter(stream), queries, RANGE_R))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return [(r.start, r.end, r.window_count,
+             [o.obj_id for o in r.objects],
+             np.asarray(r.dists, np.float32).view(np.uint32).tolist())
+            for r in res], secs
+
+
+def check_range(dev, card, b4_inputs, gpu="cuda"):
+    """Phases 12 and 13: the range family's main path, run_soa at full
+    width, then its other paths at a cut depth, each against its CPU
+    twin; B4's times and the range window's parts. ``gpu`` is the device
+    of the runs under test (``cpu`` only to rehearse the script's logic
+    without a card). Returns (B4 launches, the gathered timing row)."""
+    import torch
+
+    # Phase 12: the range family's main path, run_soa at full width, then
+    # its other paths at a cut depth, each against its CPU twin.
+    from spatialflink_tpu_torch.models.objects import LineString, Point
+    from spatialflink_tpu_torch.operators import (
+        PointLineStringRangeQuery,
+        PointPointRangeQuery,
+        PointPolygonRangeQuery,
+    )
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist,
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    t0 = time.perf_counter()
+    polys = range_polygons()
+    r_chunks = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)
+    print(f"data: {RANGE_WINDOWS} x {RANGE_WIN} range points and "
+          f"{len(polys)} query polygons in {time.perf_counter() - t0:.3f} s "
+          f"(host set-up)")
+    n_range = RANGE_WINDOWS * RANGE_WIN
+    polyline_min_dist.launches = 0
+    got, r_secs, op = run_range(gpu, PointPolygonRangeQuery, r_chunks,
+                                polys, RANGE_R)
+    b4_launches = polyline_min_dist.launches
+    path = ("compact" if hasattr(op, "_cand_budget") else "pruned")
+    want, cpu_secs, cpu_op = run_range("cpu", PointPolygonRangeQuery,
+                                       r_chunks, polys, RANGE_R)
+    hits = check_range_windows(got, want, "range run_soa", RANGE_R)
+    if b4_launches < RANGE_WINDOWS or len(got) != RANGE_WINDOWS \
+            or path != "pruned" or min(hits) == 0:
+        raise AssertionError(f"range run_soa: {len(got)} windows, path "
+                             f"{path}, {b4_launches} B4 launches")
+    if (op._ncand,) != (cpu_op._ncand,):
+        raise AssertionError("range run_soa: candidate counts differ")
+    print(f"e2e range run_soa (config 3, {path} path, cand {op._ncand}): "
+          f"{len(got)} windows, matches per window {hits}, {n_range} points "
+          f"in {r_secs:.6f} s = {n_range / r_secs:.1f} points/s; launches "
+          f"polyline_min_dist={b4_launches}; {len(want)} windows equal the "
+          f"CPU plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+    lines = [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
+             for i, p in enumerate(polys[:32])]
+    cut = r_chunks[:RANGE_CUT_WINDOWS]
+    cases = [
+        ("dense, 32 polygons", PointPolygonRangeQuery, cut, polys[:32],
+         RANGE_R, {}),
+        ("compact, 64 polygons", PointPolygonRangeQuery, cut, polys[:64],
+         RANGE_R, {}),
+        ("linestrings, 32", PointLineStringRangeQuery, cut, lines, RANGE_R,
+         {}),
+        ("approximate, 64 polygons", PointPolygonRangeQuery, cut, polys[:64],
+         RANGE_R, {"approximate_query": True}),
+        ("points, config 1", PointPointRangeQuery,
+         range_chunks(RANGE_CUT_WINDOWS, PP_WIN, 42),
+         [Point(x=QUERY[0], y=QUERY[1])], PP_R, {}),
+    ]
+    for label, cls, ch, qs, r, kw in cases:
+        polyline_min_dist.launches = 0
+        g, g_secs, g_op = run_range(gpu, cls, ch, qs, r, **kw)
+        launched = polyline_min_dist.launches
+        b4_launches += launched
+        w, w_secs, _ = run_range("cpu", cls, ch, qs, r, **kw)
+        h = check_range_windows(g, w, label, r,
+                                exact=not kw.get("approximate_query"))
+        if len(g) != len(ch) or sum(h) == 0:
+            raise AssertionError(f"range {label}: {len(g)} windows, {h}")
+        if cls is not PointPointRangeQuery and launched < len(ch):
+            raise AssertionError(f"range {label}: {launched} B4 launches")
+        if label.startswith("compact") and not hasattr(g_op, "_cand_budget"):
+            raise AssertionError("range compact case took another path")
+        print(f"e2e range run_soa {label}: {len(g)} windows, matches "
+              f"{h}, {sum(len(c['ts']) for c in ch)} points in "
+              f"{g_secs:.6f} s; launches polyline_min_dist={launched}; "
+              f"equal to the CPU run ({w_secs:.3f} s) [{card}]")
+
+    stream = range_objects(RANGE_OBJ_WINDOWS, RANGE_OBJ_POINTS, 9)
+    polyline_min_dist.launches = 0
+    g, o_secs = run_range_objects(gpu, stream, polys)
+    launched = polyline_min_dist.launches
+    b4_launches += launched
+    w, c_secs = run_range_objects("cpu", stream, polys)
+    if g != w or len(g) != RANGE_OBJ_WINDOWS or launched < len(g) \
+            or not any(x[3] for x in g):
+        raise AssertionError("range run on Point objects differs from the "
+                             "CPU run")
+    print(f"e2e range run (Point objects, 1,000 polygons): {len(g)} windows, "
+          f"matches {[len(x[3]) for x in g]} in {o_secs:.6f} s; launches "
+          f"polyline_min_dist={launched}; equal to the CPU run "
+          f"({c_secs:.3f} s) [{card}]")
+
+    # Phase 13: B4's time, the range window's parts, a profiler pass.
+    xy_d, qv_d, qe_d, sel = b4_inputs
+    n_valid_edges = qe_d.sum(dim=1)
+    b4g = (xy_d, qv_d, qe_d, sel)
+    b4g_ms, b4g_call = time_ms(lambda: polyline_min_dist_cuda(*b4g))
+    b4g_plain, _ = time_ms(lambda: polyline_min_dist_plain(*b4g))
+    g_bytes = (8 * RANGE_WIN + 8 * sel.numel() + qv_d.numel() * 4
+               + qe_d.numel())
+    g_ops = 20 * int(n_valid_edges[sel.long()].sum())
+    b4g_bound, b4g_by = bound_ms(g_bytes, g_ops)
+    b4d = (xy_d, qv_d[:32].contiguous(), qe_d[:32].contiguous(), None)
+    b4d_ms, b4d_call = time_ms(lambda: polyline_min_dist_cuda(*b4d))
+    b4d_plain, _ = time_ms(lambda: polyline_min_dist_plain(*b4d))
+    d_bytes = 8 * RANGE_WIN + 4 * RANGE_WIN * 32 + b4d[1].numel() * 4 \
+        + b4d[2].numel()
+    b4d_bound, b4d_by = bound_ms(
+        d_bytes, 20 * RANGE_WIN * int(n_valid_edges[:32].sum()))
+    for label, ms, call, plain, bnd, by_, nb, no in (
+            ("gathered (config 3, N=262,144, C=8)", b4g_ms, b4g_call,
+             b4g_plain, b4g_bound, b4g_by, g_bytes, g_ops),
+            ("dense (32 polygons, N=262,144)", b4d_ms, b4d_call, b4d_plain,
+             b4d_bound, b4d_by, d_bytes,
+             20 * RANGE_WIN * int(n_valid_edges[:32].sum()))):
+        print(f"time polyline_min_dist {label}: kernel {ms:.6f} ms device "
+              f"({call:.6f} ms per call with its launch), plain PyTorch "
+              f"{plain:.6f} ms, bound {bnd:.6f} ms ({by_}: {nb} B, {no} "
+              f"operations), library none, medians of {REPEATS} calls "
+              f"[{card}]")
+
+    from spatialflink_tpu_torch.ops.polygon import points_in_polygons
+    from spatialflink_tpu_torch.ops.range import bbox_candidates
+
+    lanes = torch.ones(RANGE_WIN, dtype=torch.bool, device=dev)
+    bbox_ms, _ = time_ms(lambda: bbox_candidates(
+        xy_d, lanes, qv_d, qe_d, RANGE_R, 8, 8192))
+    pip_ms, _ = time_ms(lambda: points_in_polygons(xy_d, qv_d, qe_d, sel))
+    print(f"range window parts (config 3, one window, device ms, medians "
+          f"of {REPEATS}): bbox pass + top-8 {bbox_ms:.6f}, B4 gathered "
+          f"{b4g_ms:.6f}, containment gathered {pip_ms:.6f}; the window's "
+          f"wall in run_soa {1e3 * r_secs / RANGE_WINDOWS:.6f} ms [{card}]")
+    profile_run(lambda: run_range(gpu, PointPolygonRangeQuery, r_chunks,
+                                  polys, RANGE_R), card, "range run_soa")
+
+    return b4_launches, (b4g_ms, b4g_plain, b4g_bound, b4g_by)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -700,6 +1096,8 @@ def main(argv=None) -> int:
     err_b2, codec_args = check_codec(dev, panes, card)
     # Phase 7
     err_b3, join_planes_, join_sides = check_join(dev, card)
+    # Phase 11
+    err_b4, b4_inputs = check_polyline(dev, card)
     if args.quick:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -835,6 +1233,9 @@ def main(argv=None) -> int:
           f"candidate pair tests x 6 operations), medians of {REPEATS} "
           f"calls at the join's full shape [{card}]")
 
+    # Phases 12-13
+    b4_launches, (b4g_ms, b4g_plain, b4g_bound, b4g_by) = check_range(
+        dev, card, b4_inputs)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -854,6 +1255,12 @@ def main(argv=None) -> int:
          "launches": soa_launches + obj_launches, "max_abs_err": err_b3,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None},
+        {"name": "polyline_min_dist", "route": "cuda",
+         "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
+         "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
+         "launches": b4_launches, "max_abs_err": err_b4,
+         "ms": b4g_ms, "plain_ms": b4g_plain, "bound_ms": b4g_bound,
+         "bound_by": b4g_by, "library_ms": None},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

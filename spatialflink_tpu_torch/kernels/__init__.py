@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 #: Kernel sources by name.
-SOURCES = ("wire_digest", "wire_codec", "join_extract")
+SOURCES = ("wire_digest", "wire_codec", "join_extract", "polyline_min_dist")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register and spill report) per kernel built in

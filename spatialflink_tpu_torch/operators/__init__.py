@@ -8,3 +8,9 @@ from spatialflink_tpu_torch.operators.knn_query import (  # noqa: F401
 from spatialflink_tpu_torch.operators.join_query import (  # noqa: F401
     PointPointJoinQuery,
 )
+from spatialflink_tpu_torch.operators.range_query import (  # noqa: F401
+    PointLineStringRangeQuery,
+    PointPointRangeQuery,
+    PointPolygonRangeQuery,
+    RangeResult,
+)

@@ -4,14 +4,17 @@ batching and the host→device ship.
 Per window an operator assembles its events into a padded batch on the
 host (``models/batch.py``), centres the coordinates in float64 and casts
 them to float32 (``center_coords``), ships the lanes to its device and
-runs its kernels there. RealTime query types run as tumbling micro-batches
-of ``realtime_batch_ms``; CountBased uses count windows.
+runs its kernels there. Query sets are packed once per run
+(``pack_query_points``, ``pack_query_geometries``) with the flag table of
+their cells (``flags_for_queries``). RealTime query types run as
+tumbling micro-batches of ``realtime_batch_ms``; CountBased uses count
+windows.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterable, Iterator, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +96,48 @@ class SpatialOperator:
         batch = PointBatch.from_points(events, interner=self.interner,
                                        dtype=np.float64)
         return batch.with_cells(self.grid)
+
+    def device_q(self, coords) -> torch.Tensor:
+        """Coordinates (any (..., 2) array-like: query points, packed
+        boundary vertices) centred and cast to float32 (``center_coords``)
+        and shipped to the operator's device."""
+        host = center_coords(self.grid, np.asarray(coords, np.float64))
+        return ship(host, device=self.device).arrive()[0]
+
+
+def query_cells_of(grid: UniformGrid, query_obj) -> List[int]:
+    """Flat cells a query object overlaps: a point's cell, a polygon's or
+    linestring's bbox cells (the reference's gridIDsSet)."""
+    if hasattr(query_obj, "grid_cells"):
+        return list(query_obj.grid_cells(grid))
+    raise TypeError(type(query_obj).__name__)
+
+
+def flags_for_queries(grid: UniformGrid, radius: float,
+                      query_objs: Sequence) -> np.ndarray:
+    """The union flag table over all query objects (guaranteed wins)."""
+    cells: List[int] = []
+    for q in query_objs:
+        cells.extend(query_cells_of(grid, q))
+    return grid.neighbor_flags(radius, cells)
+
+
+def pack_query_points(query_objs: Sequence[Point]) -> np.ndarray:
+    """(Q, 2) float64 query coordinates."""
+    return np.array([[q.x, q.y] for q in query_objs], np.float64)
+
+
+def pack_query_geometries(query_objs: Sequence
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """(Q, V, 2) float64 vertices + (Q, V-1) edge_valid, padded to a
+    shared V (a power of two, at least 8)."""
+    vmax = max(q.num_vertices_packed() for q in query_objs)
+    v = next_bucket(vmax, minimum=8)
+    verts = np.zeros((len(query_objs), v, 2), np.float64)
+    ev = np.zeros((len(query_objs), v - 1), bool)
+    for i, q in enumerate(query_objs):
+        verts[i], ev[i] = q.packed(pad_to=v)
+    return verts, ev
 
 
 def center_coords(grid: UniformGrid, xy, dtype=np.float32) -> np.ndarray:

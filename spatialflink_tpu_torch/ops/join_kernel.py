@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from spatialflink_tpu_torch import kernels
+from spatialflink_tpu_torch.ops.distances import sqrt_rn
 from spatialflink_tpu_torch.ops.join import CompactJoinResult, bucketize_planes
 
 #: Lanes (cells × cap_left × k_cand) the plain version tests per block of
@@ -147,10 +148,8 @@ def join_extract_plain(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
             a, b, lane, c = h[:, 0], h[:, 1], h[:, 2], h[:, 3]
             outl[total:total + room] = lidx[r0 + a, b, lane]
             outr[total:total + room] = sidx[a, b, c]
-            # The float64 root of a float32 value, rounded once, is the
-            # correctly rounded float32 root (the kernel's __fsqrt_rn).
-            outd[total:total + room] = torch.sqrt(
-                d2[a, b, lane, c].to(torch.float64)).to(torch.float32)
+            # The correctly rounded root, as the kernel's __fsqrt_rn.
+            outd[total:total + room] = sqrt_rn(d2[a, b, lane, c])
         total += hits.shape[0]
     count = torch.tensor(total, dtype=torch.int32, device=dev)
     return outl, outr, outd, count

@@ -1,0 +1,244 @@
+"""Point-stream range-query kernels: the port of the JAX package's
+``ops/range.py`` point paths.
+
+Per window: gather each point's cell flag → guaranteed cells emit,
+candidate cells emit when the exact distance is within the radius
+(range/PointPointRangeQuery.java:152-186), computed for every lane and
+masked, not compacted. ``approximate`` emits candidate cells with no
+distance test (PointPolygonRangeQuery.java:76-80); distances are still
+reported.
+
+Every point→edge distance of the polygon and linestring paths goes
+through B4 (``ops/polyline_kernel.py:polyline_min_dist``): one launch per
+evaluation, dense over the query set or gathered over each point's
+bbox candidates. Containment (``ops/polygon.py:points_in_polygons``) and
+the min over geometries are plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spatialflink_tpu_torch.ops.cells import gather_cell_flags
+from spatialflink_tpu_torch.ops.distances import pairwise_distance, sqrt_rn
+from spatialflink_tpu_torch.ops.polygon import points_in_polygons
+from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+_BIG = torch.finfo(torch.float32).max
+
+
+def _r32(radius, like: torch.Tensor) -> torch.Tensor:
+    """The radius as a scalar of ``like``'s dtype and device (the JAX
+    kernels compare against a weakly typed radius, i.e. in float32)."""
+    return torch.tensor(np.float32(radius), dtype=like.dtype,
+                        device=like.device)
+
+
+def _emit_mask(valid, flags, min_dist, radius, approximate: bool):
+    guaranteed = flags == 2
+    candidate = flags == 1
+    if approximate:
+        hit = candidate
+    else:
+        hit = candidate & (min_dist <= _r32(radius, min_dist))
+    return valid & (guaranteed | hit)
+
+
+def range_query_kernel(xy, valid, flags, query_xy, radius,
+                       approximate: bool = False):
+    """Point stream vs point query set: ``xy`` (N, 2), ``valid`` (N,)
+    bool, ``flags`` (N,) uint8, ``query_xy`` (Q, 2) → (keep (N,) bool,
+    min_dist (N,)); the distance is exact for every lane."""
+    min_dist = pairwise_distance(xy, query_xy).min(dim=1).values
+    return _emit_mask(valid, flags, min_dist, radius, approximate), min_dist
+
+
+def _chunked_min_over_geoms(xy, edge_d, verts, edge_valid, chunk: int):
+    """min over polygons (columns of ``edge_d`` (N, P)) of the distance,
+    0 for a point inside, with containment evaluated in blocks of
+    ``chunk`` polygons."""
+    p = edge_d.shape[1]
+    out = None
+    for g0 in range(0, p, chunk):
+        g1 = min(p, g0 + chunk)
+        inside = points_in_polygons(xy, verts[g0:g1], edge_valid[g0:g1])
+        m = torch.where(inside, 0.0, edge_d[:, g0:g1]).min(dim=1).values
+        out = m if out is None else torch.minimum(out, m)
+    return out
+
+
+def range_query_polygons_kernel(xy, valid, flags, poly_verts,
+                                poly_edge_valid, radius,
+                                approximate: bool = False,
+                                poly_chunk: int = 32):
+    """Point stream vs polygon query set, JTS semantics (0 inside):
+    ``poly_verts`` (P, V, 2), ``poly_edge_valid`` (P, V-1). The edge
+    distances to all P polygons come from one B4 launch; containment and
+    the min run in ``poly_chunk``-polygon blocks."""
+    edge_d = polyline_min_dist(xy, poly_verts, poly_edge_valid)
+    min_dist = _chunked_min_over_geoms(xy, edge_d, poly_verts,
+                                       poly_edge_valid, poly_chunk)
+    return _emit_mask(valid, flags, min_dist, radius, approximate), min_dist
+
+
+def range_query_polylines_kernel(xy, valid, flags, line_verts,
+                                 line_edge_valid, radius,
+                                 approximate: bool = False):
+    """Point stream vs linestring query set: the min edge distance over
+    all lines, from one B4 launch."""
+    min_dist = polyline_min_dist(xy, line_verts,
+                                 line_edge_valid).min(dim=1).values
+    return _emit_mask(valid, flags, min_dist, radius, approximate), min_dist
+
+
+def _vert_valid(edge_valid: torch.Tensor) -> torch.Tensor:
+    """(..., V-1) edge mask → (..., V) vertex mask (a vertex is real if it
+    bounds a real edge)."""
+    ev = edge_valid.bool()
+    z = torch.zeros(ev.shape[:-1] + (1,), dtype=torch.bool, device=ev.device)
+    return torch.cat([ev, z], dim=-1) | torch.cat([z, ev], dim=-1)
+
+
+def bbox_candidates(xy, lanes, poly_verts, poly_edge_valid, radius,
+                    cand: int, point_chunk: int):
+    """The bbox pass of the pruned kernel, in blocks of ``point_chunk``
+    points: per point, the ``cand`` polygons nearest by bbox distance
+    (ties to the lower index, as ``jax.lax.top_k``) as (N, cand) int32,
+    and the candidate overflow: over flagged ``lanes``, the count of
+    polygon bboxes within the radius beyond ``cand``.
+
+    The bbox distance is the float32 ``hypot`` of the clamped offsets,
+    its root taken in float64 and rounded to float32 (``sqrt_rn``: the
+    same bits on the CPU and the card). The selection keys on (distance
+    bits << 32 | index), which has no ties, so it is deterministic on
+    every device."""
+    n = xy.shape[0]
+    p = poly_verts.shape[0]
+    vmask = _vert_valid(poly_edge_valid)
+    vx, vy = poly_verts[..., 0], poly_verts[..., 1]
+    minx = torch.where(vmask, vx, _BIG).min(dim=1).values
+    maxx = torch.where(vmask, vx, -_BIG).max(dim=1).values
+    miny = torch.where(vmask, vy, _BIG).min(dim=1).values
+    maxy = torch.where(vmask, vy, -_BIG).max(dim=1).values
+    dead = ~vmask.any(dim=1)
+    r = _r32(radius, xy)
+    pidx = torch.arange(p, dtype=torch.int64, device=xy.device)
+    idx = torch.empty((n, cand), dtype=torch.int32, device=xy.device)
+    over = torch.zeros((), dtype=torch.int64, device=xy.device)
+    for i0 in range(0, n, point_chunk):
+        i1 = min(n, i0 + point_chunk)
+        x, y = xy[i0:i1, 0:1], xy[i0:i1, 1:2]
+        dx = torch.clamp(torch.maximum(minx[None, :] - x, x - maxx[None, :]),
+                         min=0.0)
+        dy = torch.clamp(torch.maximum(miny[None, :] - y, y - maxy[None, :]),
+                         min=0.0)
+        dx64, dy64 = dx.to(torch.float64), dy.to(torch.float64)
+        hyp = sqrt_rn(dx64 * dx64 + dy64 * dy64, torch.float32)
+        bbox_d = torch.where(dead[None, :], _BIG, hyp)
+        key = (bbox_d.view(torch.int32).to(torch.int64) << 32) | pidx
+        sel = torch.topk(key, cand, dim=1, largest=False, sorted=True).indices
+        idx[i0:i1] = sel.to(torch.int32)
+        within = (bbox_d <= r).sum(dim=1)
+        over += torch.where(lanes[i0:i1], torch.clamp(within - cand, min=0),
+                            0).sum()
+    return idx, over
+
+
+def range_query_polygons_pruned_kernel(xy, valid, flags, poly_verts,
+                                       poly_edge_valid, radius,
+                                       cand: int = 8,
+                                       point_chunk: int = 8192,
+                                       approximate: bool = False):
+    """Large-query-set point–polygon range via bbox-candidate pruning:
+    a (N, P) bbox-distance pass, each point's ``cand`` nearest polygons
+    by bbox, and exact distances for those only (one gathered B4 launch
+    and a gathered containment). Returns (keep, min_dist, overflow).
+
+    Exactness, as in the JAX package: the bbox distance bounds the exact
+    one from below, so every polygon within the radius is a candidate
+    unless more than ``cand`` bboxes are, which ``overflow`` counts. With
+    ``overflow == 0`` the kept lanes are exact; a dropped lane reports
+    the min over its candidates only."""
+    p = poly_verts.shape[0]
+    cand = min(cand, p)
+    lanes = valid & (flags > 0)
+    sel, over = bbox_candidates(xy, lanes, poly_verts, poly_edge_valid,
+                                radius, cand, point_chunk)
+    edge_d = polyline_min_dist(xy, poly_verts, poly_edge_valid, sel)
+    inside = points_in_polygons(xy, poly_verts, poly_edge_valid, sel)
+    min_d = torch.where(inside, 0.0, edge_d).min(dim=1).values
+    keep = _emit_mask(valid, flags, min_d, radius, approximate)
+    return keep, min_d, over
+
+
+def range_query_polygons_pruned_compact_kernel(xy, valid, flags, poly_verts,
+                                               poly_edge_valid, radius,
+                                               budget: int, cand: int = 8,
+                                               point_chunk: int = 8192):
+    """The pruned kernel on the flagged lanes only: the first ``budget``
+    lanes with ``valid & flags > 0`` (ascending, as ``jnp.nonzero(size=
+    budget)``) are gathered, evaluated and scattered back through their
+    own indices (no padding lane exists to clip). Lanes not evaluated get
+    ``finfo.max``. Returns (keep, min_dist, cand_overflow,
+    budget_overflow), the last a host int (``nonzero`` has already waited
+    for the device); both overflows 0 ⇒ the kept lanes are exact."""
+    n = xy.shape[0]
+    lanes = valid & (flags > 0)
+    idx = torch.nonzero(lanes).flatten()
+    n_cand = idx.numel()
+    idx = idx[:budget]
+    keep_c, dist_c, cand_over = range_query_polygons_pruned_kernel(
+        xy[idx], torch.ones_like(idx, dtype=torch.bool), flags[idx],
+        poly_verts, poly_edge_valid, radius, cand=cand,
+        point_chunk=point_chunk,
+    )
+    keep = torch.zeros(n, dtype=torch.bool, device=xy.device)
+    dist = torch.full((n,), _BIG, dtype=torch.float32, device=xy.device)
+    keep[idx] = keep_c
+    dist[idx] = dist_c
+    return keep, dist, cand_over, max(n_cand - budget, 0)
+
+
+# Fused variants: the cell-flag gather and the query in one call, the
+# signatures of the JAX package's ``*_fused`` programs.
+
+
+def range_points_fused(xy, valid, cell, flags_table, query_xy, radius,
+                       approximate: bool = False):
+    return range_query_kernel(xy, valid, gather_cell_flags(cell, flags_table),
+                              query_xy, radius, approximate=approximate)
+
+
+def range_polygons_fused(xy, valid, cell, flags_table, poly_verts,
+                         poly_edge_valid, radius, approximate: bool = False):
+    return range_query_polygons_kernel(
+        xy, valid, gather_cell_flags(cell, flags_table), poly_verts,
+        poly_edge_valid, radius, approximate=approximate)
+
+
+def range_polylines_fused(xy, valid, cell, flags_table, line_verts,
+                          line_edge_valid, radius, approximate: bool = False):
+    return range_query_polylines_kernel(
+        xy, valid, gather_cell_flags(cell, flags_table), line_verts,
+        line_edge_valid, radius, approximate=approximate)
+
+
+def range_polygons_pruned_fused(xy, valid, cell, flags_table, poly_verts,
+                                poly_edge_valid, radius, cand: int = 8,
+                                point_chunk: int = 8192,
+                                approximate: bool = False):
+    return range_query_polygons_pruned_kernel(
+        xy, valid, gather_cell_flags(cell, flags_table), poly_verts,
+        poly_edge_valid, radius, cand=cand, point_chunk=point_chunk,
+        approximate=approximate)
+
+
+def range_polygons_pruned_compact_fused(xy, valid, cell, flags_table,
+                                        poly_verts, poly_edge_valid, radius,
+                                        budget: int, cand: int = 8,
+                                        point_chunk: int = 8192):
+    return range_query_polygons_pruned_compact_kernel(
+        xy, valid, gather_cell_flags(cell, flags_table), poly_verts,
+        poly_edge_valid, radius, budget=budget, cand=cand,
+        point_chunk=point_chunk)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from spatialflink_tpu_torch import kernels
+from spatialflink_tpu_torch.ops.distances import sqrt_rn
 from spatialflink_tpu_torch.ops.knn import KnnPaneDigest, _digest_from_point_dists
 
 
@@ -82,12 +83,9 @@ def wire_digest_plain(wire: torch.Tensor, n_valid: int, query_xy, scale,
     q_t = torch.from_numpy(q.copy()).to(dev)
     dx = xf - q_t[0]
     dy = yf - q_t[1]
-    # torch.sqrt in float32 is not correctly rounded on every CPU build
-    # (1 ulp off on ~0.7% of inputs on one x86 build); the float64 root
-    # of a float32 value rounds to the correctly rounded float32 root,
-    # which is what the kernel's __fsqrt_rn gives.
-    dist = torch.sqrt((dx * dx + dy * dy).to(torch.float64)).to(
-        torch.float32)
+    # The correctly rounded root on every device, as the kernel's
+    # __fsqrt_rn (torch's CPU root is not, see ops/distances.py:sqrt_rn).
+    dist = sqrt_rn(dx * dx + dy * dy)
     valid = torch.arange(wire.shape[1], device=dev) < n_valid
     radius_t = torch.tensor(r, device=dev)
     count = (valid & (dist <= radius_t)).sum().to(torch.int32)

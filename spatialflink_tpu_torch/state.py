@@ -9,16 +9,21 @@ port operator resumes mid-window where the JAX one stopped.
 A join deployment holds its two SoA window assemblers (and its pair
 budget, a constructor argument of ``PointPointJoinQuery``);
 ``soa_assembler_from_jax`` turns a JAX assembler snapshot into the port's.
+
+A range deployment holds its query set and, on the pruned polygon paths,
+the grown candidate count and candidate-lane budget;
+``range_state_from_jax`` turns both into the port's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from spatialflink_tpu_torch.device import resolve_device
+from spatialflink_tpu_torch.models import objects
 from spatialflink_tpu_torch.streams.soa import SoaWindowAssembler
 
 
@@ -72,3 +77,44 @@ def soa_assembler_from_jax(state: dict, size_ms: int, slide_ms: int,
     asm._chunks = [{k: np.array(v, copy=True) for k, v in c.items()}
                    for c in state["chunks"]]
     return asm
+
+
+def _query_from_jax(q):
+    kind = type(q).__name__
+    meta = dict(obj_id=q.obj_id, timestamp=int(q.timestamp))
+    if kind == "Point":
+        return objects.Point(x=float(q.x), y=float(q.y), **meta)
+    if kind == "MultiPolygon":
+        return objects.MultiPolygon(
+            rings=[np.array(r, np.float64) for r in q.rings],
+            parts=[int(n) for n in q.parts], **meta)
+    if kind == "Polygon":
+        return objects.Polygon(
+            rings=[np.array(r, np.float64) for r in q.rings], **meta)
+    if kind == "MultiLineString":
+        return objects.MultiLineString(
+            coords=np.array(q.coords, np.float64),
+            parts=[np.array(p, np.float64) for p in q.parts], **meta)
+    if kind == "LineString":
+        return objects.LineString(coords=np.array(q.coords, np.float64),
+                                  **meta)
+    raise TypeError(f"no port counterpart for query object {kind}")
+
+
+def range_state_from_jax(query_set, jax_op=None) -> Tuple[List, dict]:
+    """A JAX range query set (``Point``, ``Polygon``, ``LineString`` and
+    their Multi forms, read through their numpy arrays) → the port's
+    objects, and the keyword arguments that start a port range operator
+    where ``jax_op`` (a JAX ``PointPolygonRangeQuery`` or sibling) stands:
+    its persisted ``_ncand`` and ``_cand_budget``, where it has them::
+
+        queries, kw = range_state_from_jax(jax_queries, jax_op)
+        op = PointPolygonRangeQuery(conf, grid, **kw)
+    """
+    if not isinstance(query_set, (list, tuple)):
+        query_set = [query_set]
+    kw = {}
+    for attr, key in (("_ncand", "ncand"), ("_cand_budget", "cand_budget")):
+        if jax_op is not None and hasattr(jax_op, attr):
+            kw[key] = int(getattr(jax_op, attr))
+    return [_query_from_jax(q) for q in query_set], kw

@@ -85,3 +85,37 @@ def test_join_extract_matches_plain_version_on_card():
             if g.dtype == torch.float32:
                 g, w = g.view(torch.int32), w.view(torch.int32)
             assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_polyline_min_dist_matches_plain_version_on_card():
+    """B4 bit-exact against its plain version on the card: dense mode
+    (boundaries of 4,096 vertices tile through shared memory), gathered
+    mode with the query set staged in shared memory and with a set too
+    large to stage, an all-invalid boundary (FLT_MAX) and N not a
+    multiple of the block (``python3 chip_smoke.py`` runs the full set at
+    the range family's full shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rng = np.random.default_rng(8)
+    dev = torch.device("cuda")
+    for g, v, n in ((40, 8, 3001), (8, 4096, 2000), (3, 64, 777)):
+        verts = rng.uniform(-1, 1, (g, v, 2)).astype(np.float32)
+        verts[:, 3] = verts[:, 2]  # zero-length edges
+        ev = rng.random((g, v - 1)) > 0.2
+        ev[-1] = False
+        pts = rng.uniform(-1.2, 1.2, (n, 2)).astype(np.float32)
+        sel = rng.integers(0, g, (n, 5)).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (pts, verts, ev)]
+        for s in (None, torch.from_numpy(sel).to(dev)):
+            got = polyline_min_dist_cuda(*args, s)
+            want = polyline_min_dist_plain(*args, s)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        dead = torch.from_numpy(sel[:, 0] == g - 1).to(dev)
+        assert torch.all(got[dead][:, 0] == torch.finfo(torch.float32).max)
