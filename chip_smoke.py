@@ -32,6 +32,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    r=0.002, cap 48, 262,144 pairs): the headline, points exactly on the
    radius, over budget, a clustered side that overflows ``cap``, two
    candidate layers (r=0.03), an empty side, and out-of-grid points;
+   then the cases the one-pass design could get wrong: planes with holes
+   (live slots not a prefix), a saturated cell (48 × 432 pairs at
+   r = +inf), budgets that cut inside a cell, exactly at a cell's end
+   and at zero, a 101 × 101 grid, and five calls in a row array-equal;
 8. run ``PointPointJoinQuery.run_soa`` at full width (two streams of
    16 × 131,072 points, one-second tumbling windows) through B3; every
    window must equal the same operator run on the CPU (starts, ends,
@@ -41,8 +45,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    20,000 points a side), WindowBased and RealTimeNaive, each equal to
    its CPU run as multisets of (left id, left ts, right id, right ts)
    with distances bit-equal;
-10. time B3 beside its bound and plain version, the ``run_soa`` rate, and
-   a profiler pass over one ``run_soa`` run;
+10. time B3 beside its bound and plain version, with its launches per
+   call read from a profiler trace (at most two kernels), the
+   ``run_soa`` rate, and a profiler pass over one ``run_soa`` run;
 11. hold the point→polyline min-distance kernel (B4) bit-exact against
    its plain version: the JAX package's suite config 3 (1,000 query
    polygons, a 262,144-point window), dense and gathered through the
@@ -50,6 +55,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    2⁻²³ lattice; zero-length edges; multi-ring seams; boundaries of
    4,096 vertices (shared-memory tiles, and a set too large to stage);
    an all-invalid boundary (FLT_MAX); N not a multiple of the block;
+   dense at G = 33, gathered at C = 3, and invalid edges between valid
+   ones, dense and gathered;
 12. run ``PointPolygonRangeQuery.run_soa`` at full width (config 3: 10 ×
    262,144 points, 1,000 polygons, the bbox-pruned path) through B4, each
    window equal to the same operator run on the CPU, and B4's launch
@@ -58,7 +65,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (32), approximate mode, ``PointPointRangeQuery.run_soa`` at suite
    config 1's width, and ``run`` on ``Point`` objects;
 13. time B4 (gathered at config 3, dense at 32 polygons) beside its bound
-   and plain version, the range window's parts, the full-width
+   and plain version, with its launches per call, the range window's
+   parts, the full-width
    ``run_soa`` rate, and a profiler pass over it.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -117,6 +125,7 @@ RANGE_OBJ_WINDOWS = 2
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 REPEATS = 30
+LAUNCH_CALLS = 20
 
 
 def card_line() -> str:
@@ -197,6 +206,33 @@ def time_ms(fn):
         end.synchronize()
         calls.append(start.elapsed_time(end))
     return device, statistics.median(calls)
+
+
+def launches_per_call(fn):
+    """(kernel launches, memsets) that one call of ``fn`` puts on the card:
+    the device activities of ``LAUNCH_CALLS`` calls in a profiler trace
+    (torch.profiler, CUDA activity), per call; the most of three traces,
+    since a trace can lose activities but never adds any."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LAUNCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        memsets = sum(n.startswith("Memset") for n in names)
+        copies = sum(n.startswith("Memcpy") for n in names)
+        counts.append((len(names) - memsets - copies, memsets))
+    kern, mems = max(counts)
+    return kern / LAUNCH_CALLS, mems / LAUNCH_CALLS
 
 
 def profile_run(run, card, label="sync run"):
@@ -449,35 +485,73 @@ def join_side(grid, xy, valid=None, centered=False):
             grid.assign_cells_np(xy64))
 
 
-def join_case(dev, grid, left, right, radius, max_pairs, card, label,
-              cap=JOIN_CAP):
-    """B3 against its plain version on one pair of sides: planes built on
-    the card once, both extractions on them, compared bit for bit.
-    Returns (kernel result, planes, overflow, max_abs_err)."""
+def b3_compare(planes, grid_n, layers, radius, max_pairs, card, label,
+               over=0):
+    """B3 against its plain version on given planes, bit for bit.
+    Returns (kernel result, max_abs_err)."""
     import torch
 
     from spatialflink_tpu_torch.ops.join_kernel import (
         join_extract_cuda,
         join_extract_plain,
-        join_planes,
     )
 
-    layers = grid.candidate_layers(radius)
-    lanes = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-             for a in (*left, *right)]
-    planes, over = join_planes(*lanes, grid_n=grid.n, layers=layers,
-                               cap_left=cap, cap_right=cap)
-    got = join_extract_cuda(*planes, grid.n, layers, radius, max_pairs)
-    want = join_extract_plain(*planes, grid.n, layers, radius, max_pairs)
+    got = join_extract_cuda(*planes, grid_n, layers, radius, max_pairs)
+    want = join_extract_plain(*planes, grid_n, layers, radius, max_pairs)
     torch.cuda.synchronize()
     ok = all(same_bits(g, w) for g, w in zip(got, want))
-    count = int(got[3])
-    print(f"B3 join_extract {label}: layers={layers} count={count} "
+    print(f"B3 join_extract {label}: layers={layers} count={int(got[3])} "
           f"budget={len(got[0])} overflow={int(over)} bit_exact={ok} "
           f"[{card}]")
     if not ok:
         raise AssertionError(f"B3 {label}: kernel != plain version")
-    return got, planes, int(over), max_abs_err(got[2], want[2])
+    return got, max_abs_err(got[2], want[2])
+
+
+def join_case(dev, grid, left, right, radius, max_pairs, card, label,
+              cap=JOIN_CAP, layers=None):
+    """B3 against its plain version on one pair of sides: planes built on
+    the card once, both extractions on them, compared bit for bit.
+    Returns (kernel result, planes, overflow, max_abs_err)."""
+    import torch
+
+    from spatialflink_tpu_torch.ops.join_kernel import join_planes
+
+    if layers is None:
+        layers = grid.candidate_layers(radius)
+    lanes = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (*left, *right)]
+    planes, over = join_planes(*lanes, grid_n=grid.n, layers=layers,
+                               cap_left=cap, cap_right=cap)
+    got, err = b3_compare(planes, grid.n, layers, radius, max_pairs, card,
+                          label, int(over))
+    return got, planes, int(over), err
+
+
+def holed_planes(planes, seed):
+    """The planes with each side's bucket slots permuted (one permutation
+    a side) and a quarter of the slots emptied at random, so that live
+    slots no longer form a prefix of their bucket."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for side in (planes[:3], planes[3:]):
+        cap = side[0].shape[-1]
+        perm = torch.from_numpy(rng.permutation(cap)).to(side[0].device)
+        x, y, idx = (t[..., perm].contiguous() for t in side)
+        holes = torch.from_numpy(rng.random(tuple(idx.shape)) < 0.25)
+        idx[holes.to(idx.device)] = -1
+        out += [x, y, idx]
+    return tuple(out)
+
+
+def cluster_at(grid, cell_ij, n, rng):
+    """``n`` points spread over the middle of grid cell (i, j)."""
+    c = np.array([grid.min_x, grid.min_y]) + \
+        (np.asarray(cell_ij, np.float64) + 0.5) * grid.cell_length
+    return (c + rng.uniform(-0.3, 0.3, (n, 2)) * grid.cell_length).astype(
+        np.float32)
 
 
 def check_join(dev, card):
@@ -562,6 +636,76 @@ def check_join(dev, card):
     n = int(got[3])
     if not 0 < n < count or np.any(got[0][:n].cpu().numpy() % 10 == 0):
         raise AssertionError("B3 out_of_grid: an out-of-grid point joined")
+
+    # The cases the one-pass design could get wrong. Live slots that are
+    # not a prefix of their bucket:
+    holed = holed_planes(planes, 11)
+    got, e = b3_compare(holed, grid.n, 1, JOIN_R, JOIN_MAX_PAIRS, card,
+                        "holes_not_prefix")
+    err = max(err, e)
+    if not 0 < int(got[3]) < count:
+        raise AssertionError("B3 holes_not_prefix: no pairs, or no hole")
+
+    # A saturated cell: 48 left slots x 432 live right candidates, all
+    # pairs within r = +inf (approximate mode), in one cell.
+    rng = np.random.default_rng(12)
+    ci = grid.cell_indices(*QUERY)
+    sat_l = a.copy()
+    sat_l[:JOIN_CAP] = cluster_at(grid, ci, JOIN_CAP, rng)
+    sat_r = b.copy()
+    for k, (dx, dy) in enumerate((dx, dy) for dx in (-1, 0, 1)
+                                 for dy in (-1, 0, 1)):
+        sat_r[k * 60:(k + 1) * 60] = cluster_at(
+            grid, (ci[0] + dx, ci[1] + dy), 60, rng)
+    only = np.zeros(JOIN_WIN, bool)
+    only[:JOIN_CAP] = True
+    got, _, _, e = join_case(dev, grid, join_side(grid, sat_l, only),
+                             join_side(grid, sat_r), float("inf"),
+                             JOIN_MAX_PAIRS, card, "saturated_cell_r_inf",
+                             layers=1)
+    err = max(err, e)
+    if int(got[3]) != JOIN_CAP * 9 * JOIN_CAP:
+        raise AssertionError(f"B3 saturated cell: count {int(got[3])}")
+
+    # Budgets that cut inside a cell and exactly at a cell's end (budgets
+    # are whole 128-slot rows), and a zero budget.
+    cell_of = left[2][head[0][:count].cpu().numpy()]
+    rows = np.arange(128, count, 128)
+    ends = rows[cell_of[rows - 1] != cell_of[rows]]
+    inside = rows[cell_of[rows - 1] == cell_of[rows]]
+    if not len(ends) or not len(inside):
+        raise AssertionError("B3: no 128-slot row at (or inside) a cell end")
+    for budget, label in ((int(inside[0]), "budget_inside_a_cell"),
+                          (int(ends[0]), "budget_at_a_cell_end"),
+                          (0, "budget_zero")):
+        got, e = b3_compare(planes, grid.n, 1, JOIN_R, budget, card,
+                            f"{label}_{budget}")
+        err = max(err, e)
+        if int(got[3]) != count or len(got[0]) != budget or not all(
+                same_bits(g, h[:budget]) for g, h in zip(got[:3], head[:3])):
+            raise AssertionError(f"B3 {label}: not the first pairs")
+
+    # A grid whose cell count (101² = 10,201) is no multiple of the cells
+    # a block takes.
+    g101 = UniformGrid(**dict(BEIJING, num_partitions=101))
+    got, _, _, e = join_case(dev, g101, join_side(g101, a),
+                             join_side(g101, b), JOIN_R, JOIN_MAX_PAIRS,
+                             card, "grid_101")
+    err = max(err, e)
+    if not 0.8 * expected_pairs(JOIN_WIN, JOIN_R) < int(got[3]):
+        raise AssertionError("B3 grid_101: too few pairs")
+
+    # Five calls in a row on the same planes: the scan's status words and
+    # ticket start afresh each call.
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract_cuda
+
+    runs = [join_extract_cuda(*planes, grid.n, 1, JOIN_R, JOIN_MAX_PAIRS)
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    if not all(same_bits(g, h) for r in runs for g, h in zip(r, head)):
+        raise AssertionError("B3: repeated calls differ")
+    print(f"B3 join_extract five_repeats: 5 calls array-equal to the "
+          f"headline [{card}]")
     torch.cuda.synchronize()
     return err, planes, (left, right)
 
@@ -773,6 +917,25 @@ def check_polyline(dev, card):
     n_odd = RANGE_WIN - 77
     _, e = b4_case(dev, xy[:n_odd], qv, qe, sel[:n_odd], card,
                    "n_not_multiple_of_block")
+    err = max(err, e)
+    # The cases the redesign could get wrong: G not a multiple of the 32
+    # boundaries a dense block takes (config3_dense is G = 1,000), C not a
+    # multiple of the 4-slot vectors, and invalid edges between valid ones.
+    _, e = b4_case(dev, xy, qv[:33], qe[:33], None, card, "dense_g33")
+    err = max(err, e)
+    _, e = b4_case(dev, xy_d, qv_d, qe_d, sel[:, :3].contiguous(), card,
+                   "gathered_c3")
+    err = max(err, e)
+    gaps = qe.copy()
+    gaps[::2, 1] = False  # edges 0, 2, 3 valid
+    gaps[1::3, 2] = False  # edges 0, 1, 3 (or 0, 3) valid
+    if not (gaps[:, 0] & ~gaps[:, 1] & gaps[:, 2]).any():
+        raise AssertionError("B4 gaps case has no invalid edge between "
+                             "valid ones")
+    _, e = b4_case(dev, xy, qv, gaps, None, card, "dense_invalid_mid_edges")
+    err = max(err, e)
+    _, e = b4_case(dev, xy_d, qv_d, torch.from_numpy(gaps).to(dev), sel, card,
+                   "gathered_invalid_mid_edges")
     err = max(err, e)
 
     # Boundaries on the 2^-20 lattice (centred, so exact in float32):
@@ -1017,14 +1180,17 @@ def check_range(dev, card, b4_inputs, gpu="cuda"):
         + b4d[2].numel()
     b4d_bound, b4d_by = bound_ms(
         d_bytes, 20 * RANGE_WIN * int(n_valid_edges[:32].sum()))
-    for label, ms, call, plain, bnd, by_, nb, no in (
-            ("gathered (config 3, N=262,144, C=8)", b4g_ms, b4g_call,
+    for label, args, ms, call, plain, bnd, by_, nb, no in (
+            ("gathered (config 3, N=262,144, C=8)", b4g, b4g_ms, b4g_call,
              b4g_plain, b4g_bound, b4g_by, g_bytes, g_ops),
-            ("dense (32 polygons, N=262,144)", b4d_ms, b4d_call, b4d_plain,
-             b4d_bound, b4d_by, d_bytes,
+            ("dense (32 polygons, N=262,144)", b4d, b4d_ms, b4d_call,
+             b4d_plain, b4d_bound, b4d_by, d_bytes,
              20 * RANGE_WIN * int(n_valid_edges[:32].sum()))):
+        kern, mems = launches_per_call(
+            lambda: polyline_min_dist_cuda(*args))
         print(f"time polyline_min_dist {label}: kernel {ms:.6f} ms device "
-              f"({call:.6f} ms per call with its launch), plain PyTorch "
+              f"({call:.6f} ms per call with its launch), {kern:g} kernel "
+              f"launches and {mems:g} memsets per call, plain PyTorch "
               f"{plain:.6f} ms, bound {bnd:.6f} ms ({by_}: {nb} B, {no} "
               f"operations), library none, medians of {REPEATS} calls "
               f"[{card}]")
@@ -1227,11 +1393,15 @@ def main(argv=None) -> int:
     b3_bytes = sum(t.numel() * t.element_size() for t in join_planes_) \
         + 12 * JOIN_MAX_PAIRS + 4
     b3_bound, b3_by = bound_ms(b3_bytes, 6 * pair_tests)
+    b3_kernels, b3_memsets = launches_per_call(lambda: join_extract_cuda(*b3))
     print(f"time join_extract: kernel {b3_ms:.6f} ms device ({b3_call:.6f} "
-          f"ms per call with its launches), plain PyTorch {b3_plain:.6f} ms, "
+          f"ms per call with its launches), {b3_kernels:g} kernel launches and "
+          f"{b3_memsets:g} memsets per call, plain PyTorch {b3_plain:.6f} ms, "
           f"bound {b3_bound:.6f} ms ({b3_by}: {b3_bytes} B, {pair_tests} "
           f"candidate pair tests x 6 operations), medians of {REPEATS} "
           f"calls at the join's full shape [{card}]")
+    if b3_kernels > 2:
+        raise AssertionError(f"B3 takes {b3_kernels} kernel launches a call")
 
     # Phases 12-13
     b4_launches, (b4g_ms, b4g_plain, b4g_bound, b4g_by) = check_range(

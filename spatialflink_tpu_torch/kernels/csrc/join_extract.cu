@@ -14,22 +14,35 @@
 // c = ((dx+L)*span + (dy+L)) * cap_right + r_lane and k_cand = span^2 *
 // cap_right.
 //
-// Design for Hopper. The TPU's sequential grid carried one output cursor from
-// cell to cell; CTAs run in no order, so the cursor becomes a scan:
-//   1. count_hits: one CTA per cell stages the cell's cap_left left slots and
-//      its k_cand right candidates in shared memory (12*(cap_left + k_cand)
-//      bytes, 5,760 B at cap 48, L = 1) and counts the cell's hits;
-//   2. scan_counts: one CTA scans the grid_n^2 counts exclusively into
-//      per-cell output offsets; the total is the true pair count, returned
-//      even when it exceeds max_pairs (the caller's retry signal);
-//   3. pad_tail: slots from the total to max_pairs get -1, -1, +inf;
-//   4. extract_hits: one CTA per cell re-tests its pairs in code order, a
-//      block-wide chunk at a time, and ranks each hit with a block prefix
-//      (warp __ballot_sync + __popc, warp sums in shared memory); a hit goes
-//      to offset + rank when that is below max_pairs.
-// No atomics decide the order, so two runs give the same arrays. A left slot
-// that is empty has no hit, so its whole candidate row is skipped, and a CTA
-// whose cell has no hit (or starts past max_pairs) returns at once.
+// Design for Hopper: one ordered pass, one warp per cell, four cells to a
+// 128-thread block. The TPU's sequential grid carried one output cursor from
+// cell to cell; here the cursor is a single-pass scan with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", the design of CUB's device scan):
+//   1. each warp takes its cell from an atomic ticket, so cells start in
+//      row-major order and a warp only ever waits on cells whose warps are
+//      already running (forward progress without relying on block order);
+//   2. it stages the cell's live left slots and live right candidates in its
+//      own shared memory: the index and coordinates of every slot in one
+//      batch of independent loads, then the live ones compacted in order
+//      with __ballot_sync/__popc, so compacted order is code order (live
+//      slots need not form a prefix of the bucket);
+//   3. it tests live x live pairs only, a chunk of 32 candidates (one a
+//      lane) against each live left slot, keeps each (slot, chunk) ballot
+//      as a hit mask, and publishes the cell's count in its 64-bit status
+//      word (flag and value in one store);
+//   4. it looks back over its predecessors 32 at a time with the whole warp,
+//      summing their counts until it meets an inclusive prefix, and
+//      publishes its own inclusive prefix; the last cell's is `count`, the
+//      true total even past max_pairs (the caller's retry signal);
+//   5. it walks the nonzero hit masks in code order and writes each hit at
+//      offset + rank (popcount of the mask below the lane) while that is
+//      below max_pairs.
+// No block barrier anywhere. The status words and the ticket are zeroed by
+// one cudaMemsetAsync; a second kernel fills slots count..max_pairs with
+// -1, -1, +inf, reading count on the device. Two kernel launches a call, no
+// host synchronisation, and no atomics decide the order: two runs give the
+// same arrays.
 //
 // Arithmetic, operation by operation as the TPU kernel: ddx = lx - rx,
 // ddy = ly - ry, d2 = ddx*ddx + ddy*ddy, r2 = r*r (r = +inf in approximate
@@ -40,254 +53,319 @@
 //
 // Bound on the H100 at the full join shape (grid 100, cap 48, L = 1, two
 // 131,072-point sides): bytes. ~11.8 MB of planes in and 3.1 MB of pairs out
-// take ~4.4 us at 3.35 TB/s; the data's ~2e7 candidate pairs at ~6 float32
-// operations each take ~2 us at 67 TFLOP/s. The kernel tests every slot pair
-// of a non-empty cell (2.07e8 at cap 48), twice, so it sits well above the
-// bound: a first port, right first and fast later.
+// take ~4.4 us at 3.35 TB/s; the data's ~2e7 candidate pair tests at ~6
+// float32 operations each take ~2 us at 67 TFLOP/s. The kernel tests only
+// live x live pairs (~1,550 a cell there, against 20,736 slot pairs) once,
+// and writes from the kept masks. What keeps it above the bound is latency:
+// a cell's warp stages, counts and then waits for its predecessors' counts,
+// and the 8.4 KB of shared memory a warp takes (candidates and masks) keeps
+// 24 warps resident per multiprocessor, so the 10,000 cells run in about
+// three waves.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
-// Dynamic shared memory above this needs the opt-in attribute (the default
-// limit is 48 KB per block, static shared memory included).
-constexpr size_t kDefaultShared = 32 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsPerBlock = 4;  // cells per block, one warp each
+constexpr int kTailThreads = 256;
+constexpr int kTailBlocks = 1024;
+constexpr int kGroup = 16;  // chunks of 32 slots staged in one batch of loads
+// Shared memory a block may take (the H100's 232,448 B opt-in, less 1 KB).
+constexpr size_t kMaxShared = 232448 - 1024;
+constexpr size_t kDefaultShared = 48 * 1024;
 
-struct Cell {
-  const float* lx;
-  const float* ly;
-  const int* li;
-  const float* rx;
-  const float* ry;
-  const int* ri;
-};
+// Status word of a cell: flag in bits 32-33, value in bits 0-31.
+constexpr unsigned long long kAggregate = 1ull << 32;  // value: the cell's hits
+constexpr unsigned long long kPrefix = 2ull << 32;     // value: inclusive prefix
 
-// Stage cell `cell`'s left slots and right candidates into shared memory.
-// Returns whether any left slot is live (uniform across the block).
-__device__ bool stage(const float* __restrict__ lx, const float* __restrict__ ly,
-                      const int* __restrict__ lidx,
-                      const float* __restrict__ rxp,
-                      const float* __restrict__ ryp,
-                      const int* __restrict__ ridxp, int grid_n, int layers,
-                      int cap_l, int cap_r, int cell, Cell* s) {
-  extern __shared__ float smem[];
-  const int span = 2 * layers + 1;
-  const int k_cand = span * span * cap_r;
-  const int gp = grid_n + 2 * layers;
-  float* s_lx = smem;
-  float* s_ly = s_lx + cap_l;
-  int* s_li = reinterpret_cast<int*>(s_ly + cap_l);
-  float* s_rx = reinterpret_cast<float*>(s_li + cap_l);
-  float* s_ry = s_rx + k_cand;
-  int* s_ri = reinterpret_cast<int*>(s_ry + k_cand);
-
-  const size_t lbase = (size_t)cell * cap_l;
-  int live = 0;
-  for (int t = threadIdx.x; t < cap_l; t += blockDim.x) {
-    s_lx[t] = lx[lbase + t];
-    s_ly[t] = ly[lbase + t];
-    int v = lidx[lbase + t];
-    s_li[t] = v;
-    live |= v >= 0;
-  }
-  if (!__syncthreads_or(live)) return false;
-
-  const int i = cell / grid_n, j = cell % grid_n;
-  for (int c = threadIdx.x; c < k_cand; c += blockDim.x) {
-    const int nb = c / cap_r, lane = c - nb * cap_r;
-    const int di = nb / span, dj = nb - di * span;
-    // Padded plane row i + L + dx = i + di, column j + L + dy = j + dj.
-    const size_t src = ((size_t)(i + di) * gp + (j + dj)) * cap_r + lane;
-    s_rx[c] = rxp[src];
-    s_ry[c] = ryp[src];
-    s_ri[c] = ridxp[src];
-  }
-  __syncthreads();
-  *s = Cell{s_lx, s_ly, s_li, s_rx, s_ry, s_ri};
-  return true;
+// A status word carries its whole message (flag and value in one 64-bit
+// access) and guards no other data, so device-scope relaxed accesses (one
+// atomic access each, seen by every multiprocessor) are enough.
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-__device__ __forceinline__ bool pair_hit(const Cell& s, int l, int c, float r2,
-                                         float* d2_out) {
-  const float ddx = __fsub_rn(s.lx[l], s.rx[c]);
-  const float ddy = __fsub_rn(s.ly[l], s.ry[c]);
-  const float d2 = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
-  *d2_out = d2;
-  return s.ri[c] >= 0 && d2 <= r2;
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-count_hits(const float* __restrict__ lx, const float* __restrict__ ly,
-           const int* __restrict__ lidx, const float* __restrict__ rxp,
-           const float* __restrict__ ryp, const int* __restrict__ ridxp,
-           int grid_n, int layers, int cap_l, int cap_r, float radius,
-           int* __restrict__ cell_counts) {
-  __shared__ int s_warp[kWarps];
-  const int cell = blockIdx.x;
-  Cell s;
-  if (!stage(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l, cap_r,
-             cell, &s)) {
-    if (threadIdx.x == 0) cell_counts[cell] = 0;
-    return;
+// Shared memory of one warp: right (x, y) then left (x, y) as float2, right
+// and left indices, then one 32-bit hit mask per (live left slot, chunk of
+// 32 live candidates); rounded up to 16 B so every warp's float2s align.
+__host__ __device__ inline size_t warp_bytes(int cap_l, int k_cand) {
+  const size_t b = 12 * ((size_t)cap_l + (size_t)k_cand) +
+                   4 * (size_t)cap_l * ((k_cand + 31) / 32);
+  return (b + 15) & ~(size_t)15;
+}
+
+// Walks a cell's candidates c = lane, lane + 32, ... in order and gives the
+// offset of each in the padded right planes without a division a step:
+// bucket nb = c / cap_r is neighbour (dx, dy) = (nb / span - L,
+// nb % span - L), at padded row i + L + dx, column j + L + dy.
+struct CandWalk {
+  int t, di, dj;  // slot in the bucket, bucket row and column
+  int row0, gp_cap, cap_r, span;
+  __device__ CandWalk(int c, int i, int j, int gp, int cap_r_, int span_)
+      : row0((i * gp + j) * cap_r_), gp_cap(gp * cap_r_), cap_r(cap_r_),
+        span(span_) {
+    const int nb = c / cap_r;
+    t = c - nb * cap_r;
+    di = nb / span;
+    dj = nb - di * span;
   }
-  const float r2 = __fmul_rn(radius, radius);
-  const int span = 2 * layers + 1;
-  const int k_cand = span * span * cap_r;
-  int hits = 0;
-  for (int l = 0; l < cap_l; ++l) {
-    if (s.li[l] < 0) continue;  // an empty left slot has no hit
-    for (int c = threadIdx.x; c < k_cand; c += blockDim.x) {
-      float d2;
-      hits += pair_hit(s, l, c, r2, &d2);
+  __device__ int offset() const { return row0 + di * gp_cap + dj * cap_r + t; }
+  __device__ void advance() {
+    for (t += 32; t >= cap_r; t -= cap_r) {
+      if (++dj == span) {
+        dj = 0;
+        ++di;
+      }
     }
   }
-  for (int off = 16; off > 0; off >>= 1)
-    hits += __shfl_down_sync(0xffffffffu, hits, off);
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = hits;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += s_warp[w];
-    cell_counts[cell] = total;
+};
+
+// Walks a cell's left slots t = lane, lane + 32, ... (offset lbase + t).
+struct LeftWalk {
+  int at;
+  __device__ explicit LeftWalk(int lbase) : at(lbase + (threadIdx.x & 31)) {}
+  __device__ int offset() const { return at; }
+  __device__ void advance() { at += 32; }
+};
+
+// The warp stages the live slots among n (plane offsets given by walk, in
+// order): their (x, y) to s_xy and their index to s_idx, compacted in slot
+// order. Returns how many (the same in every lane).
+template <typename Walk>
+__device__ int stage_live(const float* __restrict__ x,
+                          const float* __restrict__ y,
+                          const int* __restrict__ idx, int n, Walk walk,
+                          float2* s_xy, int* s_idx) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  int live = 0;
+  for (int g0 = 0; g0 < n; g0 += 32 * kGroup) {
+    int v[kGroup];
+    float2 p[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k, walk.advance()) {
+      const bool in = g0 + 32 * k + lane < n;
+      const int o = walk.offset();
+      v[k] = in ? idx[o] : -1;
+      p[k] = in ? make_float2(x[o], y[o]) : make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      if (g0 + 32 * k >= n) break;
+      const unsigned m = __ballot_sync(kFull, v[k] >= 0);
+      if (v[k] >= 0) {
+        const int at = live + __popc(m & lower);
+        s_xy[at] = p[k];
+        s_idx[at] = v[k];
+      }
+      live += __popc(m);
+    }
+  }
+  return live;
+}
+
+__device__ __forceinline__ float pair_d2(float2 a, float2 b) {
+  const float ddx = __fsub_rn(a.x, b.x);
+  const float ddy = __fsub_rn(a.y, b.y);
+  return __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+}
+
+// The whole warp sums the status words of cells end, end - 1, ..., nearest
+// first, 32 a round (one a lane), and stops at the nearest inclusive prefix,
+// which it includes; before cell 0 lies an inclusive prefix of 0. A round
+// waits while a cell before its nearest prefix has not counted yet, backing
+// off so that waiting warps do not crowd the memory system.
+__device__ unsigned sum_back(const unsigned long long* status, int end) {
+  const int lane = threadIdx.x & 31;
+  unsigned total = 0;
+  for (;; end -= 32) {
+    const int k = end - lane;  // lane 0: the nearest
+    unsigned long long v;
+    unsigned upto, prefix;
+    for (int ns = 32;; ns = min(2 * ns, 512)) {
+      v = k >= 0 ? peek(&status[k]) : kPrefix;
+      prefix = __ballot_sync(kFull, (v >> 32) == 2);
+      upto = prefix ? __ffs(prefix) - 1 : 31;
+      const unsigned waiting = __ballot_sync(kFull, (v >> 32) == 0);
+      if (!(waiting & (0xffffffffu >> (31 - upto)))) break;
+      __nanosleep(ns);
+    }
+    total += __reduce_add_sync(
+        kFull, lane <= (int)upto ? (unsigned)(v & 0xffffffffu) : 0u);
+    if (prefix) return total;
   }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-scan_counts(const int* __restrict__ cell_counts, int ncell,
-            int* __restrict__ cell_offsets, int* __restrict__ total) {
-  __shared__ int s[kScanThreads];
-  const int per = (ncell + kScanThreads - 1) / kScanThreads;
-  const int lo = min(ncell, (int)threadIdx.x * per);
-  const int hi = min(ncell, lo + per);
-  int sum = 0;
-  for (int k = lo; k < hi; ++k) sum += cell_counts[k];
-  s[threadIdx.x] = sum;
-  __syncthreads();
-  // Inclusive Hillis-Steele scan of the per-thread sums.
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const int v = threadIdx.x >= off ? s[threadIdx.x - off] : 0;
-    __syncthreads();
-    s[threadIdx.x] += v;
-    __syncthreads();
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    join_pass(const float* __restrict__ lx, const float* __restrict__ ly,
+              const int* __restrict__ lidx, const float* __restrict__ rxp,
+              const float* __restrict__ ryp, const int* __restrict__ ridxp,
+              int grid_n, int layers, int cap_l, int cap_r, float radius,
+              int max_pairs, unsigned int* __restrict__ ticket,
+              unsigned long long* __restrict__ status, int* __restrict__ count,
+              int* __restrict__ outl, int* __restrict__ outr,
+              float* __restrict__ outd) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  const int span = 2 * layers + 1;
+  const int k_cand = span * span * cap_r;
+  const int ncell = grid_n * grid_n;
+
+  int cell = 0;
+  if (lane == 0) cell = (int)atomicAdd(ticket, 1u);
+  cell = __shfl_sync(kFull, cell, 0);
+  if (cell >= ncell) return;  // uniform: the grid rounds up to whole blocks
+
+  unsigned char* mine = smem + warp * warp_bytes(cap_l, k_cand);
+  float2* s_r = reinterpret_cast<float2*>(mine);
+  float2* s_l = s_r + k_cand;
+  int* s_ri = reinterpret_cast<int*>(s_l + cap_l);
+  int* s_li = s_ri + k_cand;
+  unsigned* s_m = reinterpret_cast<unsigned*>(s_li + cap_l);
+
+  // Staging: one batch of independent loads (index and coordinates of
+  // every slot, up to kGroup chunks of 32 at a time), not a chain of
+  // dependent ones; then the live slots are compacted, in order, with a
+  // ballot straight from the registers. Left slots first, then the
+  // candidates of the neighbour buckets.
+  const int lbase = cell * cap_l;
+  const int i = cell / grid_n, j = cell - i * grid_n;
+  const int nl = stage_live(lx, ly, lidx, cap_l, LeftWalk{lbase}, s_l, s_li);
+  const int nr = stage_live(rxp, ryp, ridxp, k_cand,
+                            CandWalk(lane, i, j, grid_n + 2 * layers, cap_r,
+                                     span),
+                            s_r, s_ri);
+  __syncwarp();
+
+  // Count: live x live pairs, a chunk of 32 candidates (one a lane, NaN
+  // past the last: never a hit) against each live left slot. The ballot of
+  // (slot l, chunk k) is kept: lane l % 32 holds it, then stores it.
+  const float r2 = __fmul_rn(radius, radius);
+  const int nch = nl > 0 ? (nr + 31) / 32 : 0;
+  unsigned lane_hits = 0;
+  for (int k = 0; k < nch; ++k) {
+    const int c = k * 32 + lane;
+    const float2 b = c < nr ? s_r[c] : make_float2(NAN, NAN);
+    for (int l0 = 0; l0 < nl; l0 += 32) {
+      const int l1 = min(nl, l0 + 32);
+      unsigned held = 0;
+#pragma unroll 4
+      for (int l = l0; l < l1; ++l) {
+        const unsigned m = __ballot_sync(kFull, pair_d2(s_l[l], b) <= r2);
+        held = lane == l - l0 ? m : held;
+      }
+      if (l0 + lane < l1) s_m[(l0 + lane) * nch + k] = held;
+      lane_hits += __popc(held);
+    }
   }
-  int run = s[threadIdx.x] - sum;
-  for (int k = lo; k < hi; ++k) {
-    cell_offsets[k] = run;
-    run += cell_counts[k];
+  const int hits = (int)__reduce_add_sync(kFull, lane_hits);
+
+  // Look back: the hits of every cell before this one.
+  int before = 0;
+  if (cell == 0) {
+    if (lane == 0) publish(&status[0], kPrefix | (unsigned)hits);
+  } else {
+    if (lane == 0) publish(&status[cell], kAggregate | (unsigned)hits);
+    before = (int)sum_back(status, cell - 1);
+    if (lane == 0) publish(&status[cell], kPrefix | (unsigned)(before + hits));
   }
-  if (threadIdx.x == kScanThreads - 1) *total = s[threadIdx.x];
+  if (cell == ncell - 1 && lane == 0) *count = before + hits;
+
+  // Extract: the kept masks in code order (slot-major, then chunk), 32 at a
+  // time, skipping empty ones; each hit goes to before + its rank.
+  if (hits == 0 || before >= max_pairs) return;
+  __syncwarp();  // the masks written by lane 0 are visible
+  int run = before;
+  const int nm = nl * nch;
+  for (int m0 = 0; m0 < nm && run < max_pairs; m0 += 32) {
+    const unsigned mine_m = m0 + lane < nm ? s_m[m0 + lane] : 0u;
+    for (unsigned nz = __ballot_sync(kFull, mine_m != 0);
+         nz && run < max_pairs; nz &= nz - 1) {
+      const int src = __ffs(nz) - 1;
+      const unsigned m = __shfl_sync(kFull, mine_m, src);
+      const int l = (m0 + src) / nch, c = (m0 + src - l * nch) * 32 + lane;
+      const int pos = run + __popc(m & lower);
+      if ((m >> lane & 1u) && pos < max_pairs) {
+        outl[pos] = s_li[l];
+        outr[pos] = s_ri[c];
+        outd[pos] = __fsqrt_rn(pair_d2(s_l[l], s_r[c]));
+      }
+      run += __popc(m);
+    }
+  }
 }
 
-__global__ void pad_tail(const int* __restrict__ total, int max_pairs,
-                         int* __restrict__ outl, int* __restrict__ outr,
-                         float* __restrict__ outd) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < max_pairs && p >= *total) {
+__global__ void __launch_bounds__(kTailThreads)
+    pad_tail(const int* __restrict__ count, int max_pairs,
+             int* __restrict__ outl, int* __restrict__ outr,
+             float* __restrict__ outd) {
+  const int total = *count;
+  if (total >= max_pairs) return;
+  for (int p = total + blockIdx.x * blockDim.x + threadIdx.x; p < max_pairs;
+       p += gridDim.x * blockDim.x) {
     outl[p] = -1;
     outr[p] = -1;
     outd[p] = INFINITY;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-extract_hits(const float* __restrict__ lx, const float* __restrict__ ly,
-             const int* __restrict__ lidx, const float* __restrict__ rxp,
-             const float* __restrict__ ryp, const int* __restrict__ ridxp,
-             int grid_n, int layers, int cap_l, int cap_r, float radius,
-             const int* __restrict__ cell_counts,
-             const int* __restrict__ cell_offsets, int max_pairs,
-             int* __restrict__ outl, int* __restrict__ outr,
-             float* __restrict__ outd) {
-  __shared__ int s_warp[kWarps];
-  const int cell = blockIdx.x;
-  const int base = cell_offsets[cell];
-  if (cell_counts[cell] == 0 || base >= max_pairs) return;  // uniform
-  Cell s;
-  if (!stage(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l, cap_r,
-             cell, &s))
-    return;
-  const float r2 = __fmul_rn(radius, radius);
-  const int span = 2 * layers + 1;
-  const int k_cand = span * span * cap_r;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned lower = (1u << lane) - 1u;
-  int running = 0;  // hits of this cell already ranked
-  for (int l = 0; l < cap_l; ++l) {
-    if (s.li[l] < 0) continue;  // uniform: the slot lies in shared memory
-    const int left = s.li[l];
-    for (int c0 = 0; c0 < k_cand; c0 += blockDim.x) {
-      const int c = c0 + threadIdx.x;
-      float d2 = 0.0f;
-      const bool hit = c < k_cand && pair_hit(s, l, c, r2, &d2);
-      const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) s_warp[warp] = __popc(ballot);
-      __syncthreads();
-      int before = 0, chunk = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        const int v = s_warp[w];
-        before += w < warp ? v : 0;
-        chunk += v;
-      }
-      if (hit) {
-        const int pos = base + running + before + __popc(ballot & lower);
-        if (pos < max_pairs) {
-          outl[pos] = left;
-          outr[pos] = s.ri[c];
-          outd[pos] = __fsqrt_rn(d2);
-        }
-      }
-      running += chunk;
-      __syncthreads();  // s_warp is rewritten by the next chunk
-    }
-  }
-}
-
-inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
-
 }  // namespace
 
 // lx, ly, lidx: (grid_n, grid_n, cap_l) left planes (f32, f32, i32).
 // rxp, ryp, ridxp: (grid_n + 2L, grid_n + 2L, cap_r) right planes, padded by
-// L rows and columns on each side with idx -1. All contiguous.
-// cell_counts, cell_offsets: (grid_n^2,) i32 scratch. count: one i32, the
-// true pair count. outl, outr, outd: (max_pairs,) outputs.
-// Launches on `stream`, does not synchronise, returns cudaGetLastError().
+// L rows and columns on each side with idx -1. All contiguous, grid_n >= 1.
+// scratch: grid_n^2 + 1 u64 (the cells' status words, then the ticket),
+// zeroed here.
+// count: one i32, the true pair count. outl, outr, outd: (max_pairs,).
+// Launches on `stream`, does not synchronise, returns the first CUDA error.
 extern "C" int sft_join_extract(const float* lx, const float* ly,
                                 const int* lidx, const float* rxp,
                                 const float* ryp, const int* ridxp, int grid_n,
                                 int layers, int cap_l, int cap_r, float radius,
-                                int max_pairs, int* cell_counts,
-                                int* cell_offsets, int* count, int* outl,
-                                int* outr, float* outd, void* stream) {
+                                int max_pairs, void* scratch, int* count,
+                                int* outl, int* outr, float* outd,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int span = 2 * layers + 1;
   const int ncell = grid_n * grid_n;
-  const size_t smem = 12 * ((size_t)cap_l + (size_t)span * span * cap_r);
+  const size_t per_warp = warp_bytes(cap_l, span * span * cap_r);
+  if (ncell < 1 || per_warp > kMaxShared) return (int)cudaErrorInvalidValue;
+  const int warps = (int)std::min<size_t>(kWarpsPerBlock, kMaxShared / per_warp);
+  const size_t smem = warps * per_warp;
   if (smem > kDefaultShared) {
-    cudaError_t e = cudaFuncSetAttribute(
-        count_hits, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(extract_hits,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        join_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  count_hits<<<ncell, kThreads, smem, st>>>(lx, ly, lidx, rxp, ryp, ridxp,
-                                            grid_n, layers, cap_l, cap_r,
-                                            radius, cell_counts);
-  scan_counts<<<1, kScanThreads, 0, st>>>(cell_counts, ncell, cell_offsets,
-                                          count);
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(status + ncell);
+  const cudaError_t e = cudaMemsetAsync(
+      scratch, 0, ((size_t)ncell + 1) * sizeof(*status), st);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (ncell + warps - 1) / warps;
+  join_pass<<<blocks, warps * 32, smem, st>>>(
+      lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l, cap_r, radius,
+      max_pairs, ticket, status, count, outl, outr, outd);
   if (max_pairs > 0) {
-    pad_tail<<<blocks_for(max_pairs, kThreads), kThreads, 0, st>>>(
+    const int need = (max_pairs + kTailThreads - 1) / kTailThreads;
+    pad_tail<<<std::min(need, kTailBlocks), kTailThreads, 0, st>>>(
         count, max_pairs, outl, outr, outd);
   }
-  extract_hits<<<ncell, kThreads, smem, st>>>(
-      lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l, cap_r, radius,
-      cell_counts, cell_offsets, max_pairs, outl, outr, outd);
   return (int)cudaGetLastError();
 }

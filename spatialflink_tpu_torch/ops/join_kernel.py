@@ -15,17 +15,33 @@ and within a cell the hits ascending by the code ``l_lane · k_cand +
 span²·cap_right``. Keeping that order makes the result deterministic and
 equal, array for array, to ``join_window_pallas``.
 
-On Hopper (``kernels/csrc/join_extract.cu``) the peel becomes two passes
-over the cells, one CTA per cell with the cell's left slots and right
-candidates staged in shared memory (~6 KB at cap 48, L = 1): the first
-counts each cell's hits, an exclusive scan of the counts gives each cell
-its output offset and the true total, and the second re-tests the pairs
-in code order and ranks each hit with a block prefix (warp ballot +
-popcount, warp sums in shared memory). There is no budget other than
-memory: the outputs live in device memory, so the TPU's 524,288-pair
-VMEM cap and its fallbacks are gone. Bound at the full join shape
-(grid 100, cap 48, L = 1, 131,072 points a side): bytes, ~15 MB of
-planes and pairs, ~4.4 µs; four launches per window.
+On Hopper (``kernels/csrc/join_extract.cu``) the peel becomes one
+ordered pass, one warp per cell (four cells a block, no block barrier):
+- the warp takes its cell from an atomic ticket, so cells start in
+  row-major order and a warp waits only on cells already running;
+- it stages the cell's live left slots and live right candidates in its
+  shared memory (every slot's index and coordinates in one batch of
+  loads, the live ones compacted in order with a ballot and a popcount),
+  so that compacted order is code order whatever slots are live;
+- it tests live × live pairs only (~1,550 a cell at the full join shape,
+  not 20,736), a chunk of 32 candidates against each live left slot,
+  and keeps each ballot as a hit mask;
+- a single-pass scan with decoupled look-back (Merrill & Garland) gives
+  each cell its output offset: the warp publishes its count in a 64-bit
+  status word, sums its predecessors' 32 at a time until it meets an
+  inclusive prefix, and publishes its own; the last cell's is the true
+  total;
+- it walks the nonzero hit masks in code order and writes each hit at
+  offset + rank while that is below the budget.
+The status words are zeroed by one memset and a second launch fills the
+tail past ``count`` on the device: two kernel launches a call and no host
+synchronisation. There is no budget other than memory: the outputs live
+in device memory, so the TPU's 524,288-pair VMEM cap and its fallbacks
+are gone. Bound at the full join shape (grid 100, cap 48, L = 1, 131,072
+points a side): bytes, ~15 MB of planes and pairs, ~4.4 µs; the kernel
+stays above it on latency (a warp stages, counts, then waits for its
+predecessors' counts, and 8.4 KB of shared memory a warp keeps 24 warps
+resident per multiprocessor).
 
 ``join_extract`` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (``join_extract_plain``) for CPU tensors; nothing falls
@@ -47,9 +63,9 @@ from spatialflink_tpu_torch.ops.join import CompactJoinResult, bucketize_planes
 #: grid rows; bounds its temporaries to a few hundred MB.
 PLAIN_BLOCK_LANES = 1 << 24
 
-#: The kernel stages a cell's buckets in at most this much dynamic shared
-#: memory (the H100's 232,448 B per block, less 1 KB for its static
-#: shared memory).
+#: One warp's cell (``warp_shared_bytes``) fits in at most this much
+#: dynamic shared memory (the H100's 232,448 B per block, less 1 KB);
+#: the kernel puts as many cells in a block as fit, up to four.
 MAX_SHARED_BYTES = 232_448 - 1024
 
 
@@ -160,9 +176,20 @@ def _lib():
     fn = lib.sft_join_extract
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def warp_shared_bytes(cap_left: int, cap_right: int, layers: int) -> int:
+    """Shared memory the kernel's warp takes for one cell: the compacted
+    left slots and right candidates, 12 B each (x, y, idx), and a 32-bit
+    hit mask per (left slot, chunk of 32 candidates), rounded up to
+    16 B."""
+    span = 2 * layers + 1
+    k_cand = span * span * cap_right
+    b = 12 * (cap_left + k_cand) + 4 * cap_left * -(-k_cand // 32)
+    return b + (-b) % 16
 
 
 def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
@@ -173,10 +200,13 @@ def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
     planes = (lx, ly, lidx, rxp, ryp, ridxp)
     if not all(t.is_cuda and t.is_contiguous() for t in planes):
         raise ValueError("join_extract_cuda needs contiguous CUDA planes")
+    if grid_n < 1 or max(lx.numel(), rxp.numel()) >= 2**31:
+        raise ValueError(f"join_extract_cuda takes grid_n >= 1 and planes "
+                         f"of fewer than 2**31 slots (32-bit offsets), got "
+                         f"grid_n={grid_n}")
     max_pairs = _round_pairs(max_pairs)
     cap_l, cap_r = lx.shape[-1], rxp.shape[-1]
-    span = 2 * layers + 1
-    smem = 12 * (cap_l + span * span * cap_r)
+    smem = warp_shared_bytes(cap_l, cap_r, layers)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"cap_left={cap_l}, cap_right={cap_r}, layers={layers} need "
@@ -188,8 +218,9 @@ def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
     outr = torch.empty(max_pairs, dtype=torch.int32, device=dev)
     outd = torch.empty(max_pairs, dtype=torch.float32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    cell_counts = torch.empty(ncell, dtype=torch.int32, device=dev)
-    cell_offsets = torch.empty(ncell, dtype=torch.int32, device=dev)
+    # The scan's status words, one a cell, and the cell ticket; the
+    # kernel's entry zeroes them on the stream.
+    scratch = torch.empty(ncell + 1, dtype=torch.int64, device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -197,9 +228,8 @@ def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
                 rxp.data_ptr(), ryp.data_ptr(), ridxp.data_ptr(),
                 int(grid_n), int(layers), int(cap_l), int(cap_r),
                 float(np.float32(radius)), int(max_pairs),
-                cell_counts.data_ptr(), cell_offsets.data_ptr(),
-                count.data_ptr(), outl.data_ptr(), outr.data_ptr(),
-                outd.data_ptr(), stream)
+                scratch.data_ptr(), count.data_ptr(), outl.data_ptr(),
+                outr.data_ptr(), outd.data_ptr(), stream)
     kernels.check(rc, "join_extract")
     join_extract.launches += 1
     return outl, outr, outd, count

@@ -217,6 +217,36 @@ def _on_radius_data():
     return axy, av, bxy, bv
 
 
+def _spread(rng, i, j, n):
+    """``n`` points inside unit cell (i, j), away from its edges."""
+    return (np.float32([i, j]) + rng.uniform(0.1, 0.9, (n, 2))).astype(
+        np.float32)
+
+
+def _saturated_data():
+    """A saturated cell: 16 left points (the bucket cap) in cell (3, 3) and
+    16 right points in each of its 9 neighbour cells, so that at r = inf
+    all 16 × 144 slot pairs of the cell are hits."""
+    rng = np.random.default_rng(8)
+    axy = _spread(rng, 3, 3, 16)
+    bxy = np.concatenate([_spread(rng, 3 + dx, 3 + dy, 16)
+                          for dx in (-1, 0, 1) for dy in (-1, 0, 1)])
+    return axy, np.ones(len(axy), bool), bxy, np.ones(len(bxy), bool)
+
+
+def _cell_end_data():
+    """Cell (0, 0) holds left points 0–7 and its in-grid neighbourhood 16
+    right points, so at r = inf its 8 × 16 = 128 pairs come first and a
+    128-pair budget ends exactly at the cell's end; cell (5, 5)'s 10 × 12
+    pairs follow."""
+    rng = np.random.default_rng(9)
+    axy = np.concatenate([_spread(rng, 0, 0, 8), _spread(rng, 5, 5, 10)])
+    bxy = np.concatenate([_spread(rng, i, j, 4)
+                          for i, j in ((0, 0), (0, 1), (1, 0), (1, 1))]
+                         + [_spread(rng, 5, 5, 6), _spread(rng, 6, 6, 6)])
+    return axy, np.ones(len(axy), bool), bxy, np.ones(len(bxy), bool)
+
+
 JOIN_CASES = {
     "one_layer": dict(r=0.7),
     "on_radius": dict(r=0.5, data=_on_radius_data),
@@ -225,6 +255,8 @@ JOIN_CASES = {
     "overflow": dict(r=0.7, cap=2),
     "empty_side": dict(r=1.0, empty=True),
     "infinite_radius": dict(r=np.inf),
+    "saturated_cell": dict(r=np.inf, data=_saturated_data),
+    "budget_at_cell_end": dict(r=np.inf, data=_cell_end_data, max_pairs=128),
 }
 
 
@@ -257,6 +289,11 @@ def test_join_window_matches_pallas_in_order(case):
         got.dist.numpy()[count:]))
     if case == "over_budget":
         assert count > budget and np.all(li >= 0)
+    elif case == "saturated_cell":
+        assert count == 16 * 9 * 16 and int(got.overflow) == 0
+    elif case == "budget_at_cell_end":
+        assert count == 8 * 16 + 10 * 12 and budget == 128
+        assert np.all((li >= 0) & (li < 8))  # exactly cell (0, 0)'s pairs
     elif case == "overflow":
         assert int(got.overflow) > 0
     elif case == "empty_side":

@@ -119,3 +119,140 @@ def test_polyline_min_dist_matches_plain_version_on_card():
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         dead = torch.from_numpy(sel[:, 0] == g - 1).to(dev)
         assert torch.all(got[dead][:, 0] == torch.finfo(torch.float32).max)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bit_equal(got, want):
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def _unit_grid_lanes(xys, gn, dev):
+    """(xy, valid, cell) lanes of each side on a gn × gn unit grid."""
+    lanes = []
+    for xy in xys:
+        ci = np.floor(xy).astype(np.int64)
+        inside = ((ci >= 0) & (ci < gn)).all(axis=1)
+        cells = np.where(inside, ci[:, 0] * gn + ci[:, 1], gn * gn)
+        lanes += [torch.from_numpy(xy.astype(np.float32)).to(dev),
+                  torch.ones(len(xy), dtype=torch.bool, device=dev),
+                  torch.from_numpy(cells.astype(np.int32)).to(dev)]
+    return lanes
+
+
+def _spread(rng, i, j, n):
+    return np.float32([i, j]) + rng.uniform(0.1, 0.9, (n, 2))
+
+
+JOIN_CARD_CASES = ["holes_not_prefix", "saturated_cell", "budget_at_cell_end",
+                   "budget_zero", "grid_not_multiple_of_block",
+                   "repeated_calls"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", JOIN_CARD_CASES)
+def test_join_extract_one_pass_cases_on_card(case):
+    """B3's one-pass design bit-exact against its plain version where it
+    could go wrong: live slots that are not a prefix of their bucket, a
+    saturated cell, budgets that end at a cell's end or are 0, a cell count
+    that is no multiple of the cells a block takes, repeated calls."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+
+    rng = np.random.default_rng(7)
+    gn, cap, radius, budget = 16, 24, 0.4, 8192
+    sides = [rng.uniform(0, gn, (3000, 2)) for _ in range(2)]
+    if case == "grid_not_multiple_of_block":
+        gn = 15  # 225 cells
+    elif case in ("saturated_cell", "budget_at_cell_end"):
+        radius = float("inf")
+        if case == "saturated_cell":
+            sides = [_spread(rng, 5, 5, cap),
+                     np.concatenate([_spread(rng, 5 + dx, 5 + dy, cap + 6)
+                                     for dx in (-1, 0, 1)
+                                     for dy in (-1, 0, 1)])]
+        else:  # cell (0, 0): 8 left x 16 right = 128 pairs, first
+            sides = [np.concatenate([_spread(rng, 0, 0, 8),
+                                     _spread(rng, 5, 5, 10)]),
+                     np.concatenate([_spread(rng, i, j, 4) for i, j in
+                                     ((0, 0), (0, 1), (1, 0), (1, 1))]
+                                    + [_spread(rng, 5, 5, 6)])]
+            budget = 128
+    elif case == "budget_zero":
+        budget = 0
+    planes, _ = join_planes(*_unit_grid_lanes(sides, gn, dev), grid_n=gn,
+                            layers=1, cap_left=cap, cap_right=cap)
+    if case == "holes_not_prefix":
+        out = []
+        for side in (planes[:3], planes[3:]):
+            perm = torch.from_numpy(rng.permutation(cap)).to(dev)
+            x, y, idx = (t[..., perm].contiguous() for t in side)
+            idx[torch.from_numpy(rng.random(tuple(idx.shape)) < 0.25)
+                .to(dev)] = -1
+            out += [x, y, idx]
+        planes = tuple(out)
+    want = join_extract_plain(*planes, gn, 1, radius, budget)
+    calls = 5 if case == "repeated_calls" else 1
+    for _ in range(calls):
+        got = join_extract_cuda(*planes, gn, 1, radius, budget)
+        torch.cuda.synchronize()
+        _bit_equal(got, want)
+    count = int(want[3])
+    if case == "saturated_cell":
+        assert count == cap * 9 * cap
+    elif case == "budget_at_cell_end":
+        assert count == 8 * 16 + 10 * 6 and len(got[0]) == 128
+        assert torch.all((got[0] >= 0) & (got[0] < 8))
+    elif case == "budget_zero":
+        assert len(got[0]) == 0 and count > 0
+    else:
+        assert count > 200
+
+
+B4_CARD_CASES = ["dense_g33", "dense_g1000", "gathered_c3",
+                 "invalid_mid_edges"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B4_CARD_CASES)
+def test_polyline_min_dist_redesign_cases_on_card(case):
+    """B4's edge-table design bit-exact against its plain version where it
+    could go wrong: G not a multiple of the 32 boundaries a dense block
+    takes, C not a multiple of the 4-slot vectors, invalid edges between
+    valid ones (dense and gathered)."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rng = np.random.default_rng(9)
+    g = {"dense_g33": 33, "dense_g1000": 1000}.get(case, 200)
+    verts = rng.uniform(-1, 1, (g, 8, 2)).astype(np.float32)
+    ev = np.ones((g, 7), bool)
+    if case == "invalid_mid_edges":
+        ev[::2, 1] = False
+        ev[1::3, 2:4] = False
+    pts = rng.uniform(-1.2, 1.2, (3001, 2)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (pts, verts, ev)]
+    sels = {"dense_g33": [None], "dense_g1000": [None],
+            "gathered_c3": [rng.integers(0, g, (3001, 3))],
+            "invalid_mid_edges": [None, rng.integers(0, g, (3001, 8))]}[case]
+    for sel in sels:
+        s = None if sel is None else \
+            torch.from_numpy(sel.astype(np.int32)).to(dev)
+        got = polyline_min_dist_cuda(*args, s)
+        want = polyline_min_dist_plain(*args, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -310,6 +310,49 @@ def test_polyline_min_dist_plain_matches_pallas_and_jax(name):
     assert np.array_equal(got, plain_one.numpy())
 
 
+def _b4_batch(name, rng):
+    """Boundary sets for the kernel's redesigned modes: G not a multiple
+    of the 32 boundaries a dense block takes, invalid edges between valid
+    ones, and a gathered C that is not a multiple of 4."""
+    g = 33 if name == "dense_g33" else 40
+    verts = np.stack([pack_rings([rng.uniform(0, 10, (7, 2))], pad_to=8)[0]
+                      for _ in range(g)]).astype(np.float32)
+    ev = np.ones((g, 7), bool)
+    if name != "dense_g33":
+        ev[::2, 1] = False  # edges 0, 2.. valid around an invalid one
+        ev[1::3, 3] = False
+        ev[2::5, 1:3] = False
+    pts = rng.uniform(-2, 12, (400, 2)).astype(np.float32)
+    sel = rng.integers(0, g, (400, 3)).astype(np.int32) \
+        if name == "gathered_c3" else None
+    return pts, verts, ev, sel
+
+
+@pytest.mark.parametrize("name", ["dense_g33", "invalid_mid_edges",
+                                  "gathered_c3"])
+def test_polyline_min_dist_plain_batched_matches_pallas(name):
+    """The batched plain version, column for column, against the Pallas
+    kernel run per boundary (within ``tests/test_pallas.py``'s 2e-6) and
+    against ``point_polyline_distance`` (within 1 ulp)."""
+    rng = np.random.default_rng(10)
+    pts, verts, ev, sel = _b4_batch(name, rng)
+    got = polyline_min_dist_plain(_t(pts), _t(verts), _t(ev),
+                                  None if sel is None else _t(sel)).numpy()
+    assert (ev[:, 0] & ~ev[:, 1] & ev[:, 2]).any() or name == "dense_g33"
+    for j in range(got.shape[1]):
+        col = np.full(len(pts), j) if sel is None else sel[:, j]
+        for b in np.unique(col):
+            at = col == b
+            pallas = np.asarray(point_polyline_min_dist_pallas(
+                jnp.asarray(pts[at]), jnp.asarray(verts[b]),
+                jnp.asarray(ev[b]), interpret=True))
+            np.testing.assert_allclose(got[at, j], pallas, atol=2e-6)
+            ref = np.asarray(jd.point_polyline_distance(
+                jnp.asarray(pts[at]), jnp.asarray(verts[b]),
+                jnp.asarray(ev[b])))
+            assert _within_ulp(got[at, j], ref)
+
+
 def test_polyline_min_dist_batched_modes_and_sentinel():
     """Dense over G boundaries, gathered through ``sel``, the per-boundary
     function, and FLT_MAX (not the Pallas kernel's +inf) for a boundary
