@@ -13,10 +13,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
 3. hold the wire-digest kernel (B1) bit-exact against its plain PyTorch
    version at the headline shape: a random pane, points exactly on the
    radius, many objects at equal distance, ``n_valid`` below the
-   bucket, zero hits, and more than 16,384 hits;
+   bucket, zero hits, and more than 16,384 hits; then the cases the
+   one-launch design could get wrong: five calls in a row with the
+   radius 0.5 → 0.05 → 0.5 → 0.05 → 0.5 and a zero-hit call after them,
+   ``num_segments`` alternating 16,384 and 512, ``n_pad`` not a multiple
+   of 8 and a view 2 bytes past a 16-byte boundary;
 4. hold the codec-decode kernel (B2) bit-exact against its plain version
-   at every bit width 0..16 (word-straddling fields included) and on a
-   delta-coded headline pane;
+   at every bit width 0..16 (word-straddling fields included), on
+   payloads of 1 and 7 words (shorter than their streams), at
+   ``n_valid`` 0, at ``n % 8 != 0``, with ``num_segments`` alternating,
+   on a delta-coded headline pane and on a pane after it in which half
+   of the oids are absent (their predictors must stay);
 5. run ``PointPointKNNQuery.run_wire_panes`` at the headline width (1M
    window, 500k slide, 16,384 objects, k=50, r=0.05, Beijing extent, 21
    panes from numpy seed 42) three ways: synchronous, pipelined raw, and
@@ -25,7 +32,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``nv`` and ids exact, distances bit-equal) and fill its top-50, and
    both kernels' launch counts must have moved;
 6. time B1 and B2 (CUDA events, median of 30 launches at the headline
-   shape) beside their bounds and plain versions;
+   shape) beside their bounds and plain versions, with their launches
+   per call read from a profiler trace (one kernel and no memset each),
+   and the timing method's floor: one near-empty kernel timed the same
+   way;
 7. hold the join-extraction kernel (B3) bit-exact against its plain
    version at the join's full shape (the JAX package's suite config 4:
    Beijing grid n=100, two 131,072-point sides from seeds 1 and 2,
@@ -344,6 +354,39 @@ def check_digest(dev, wf, panes, card):
             raise AssertionError("B1 over_16384_hits case has too few hits")
         if name == "on_radius" and int(c_k) < 1001:
             raise AssertionError("B1 on_radius lost the points on the radius")
+
+    # What the one-launch design could get wrong, all calls queued before
+    # any is checked: keys or a count left by the call before (the radius
+    # up and down, then no hit), the scratch cache (num_segments
+    # alternating), and the 2-byte path (n_pad % 8 != 0; a view 2 bytes
+    # past a 16-byte boundary).
+    odd = full[:, :nb - 3].contiguous()
+    flat = torch.empty(3 * nb + 1, dtype=torch.uint16, device=dev)
+    shifted = flat[1:].view(3, nb)
+    shifted.copy_(wire)
+    far = np.float32([100.0, 20.0])
+    seq = [(f"repeat r={r}", wire, SLIDE, q, r, NUM_SEGMENTS)
+           for r in (0.5, 0.05, 0.5, 0.05, 0.5)]
+    seq.append(("repeat zero_hits", wire, SLIDE, far, 0.5, NUM_SEGMENTS))
+    seq += [(f"num_segments={s}", wire, SLIDE, q, 0.5, s)
+            for s in (NUM_SEGMENTS, 512, NUM_SEGMENTS, 512)]
+    seq += [("n_pad%8=5", odd, SLIDE, q, 0.5, NUM_SEGMENTS),
+            ("n_pad%8=5 all valid", odd, nb - 3, q, RADIUS, NUM_SEGMENTS),
+            ("offset 2 bytes", shifted, SLIDE, q, 0.5, NUM_SEGMENTS)]
+    got = [wire_digest_cuda(w, n_valid, qq, wf.scale, wf.origin, r, s)
+           for _, w, n_valid, qq, r, s in seq]
+    for (name, w, n_valid, qq, r, s), (d_k, c_k) in zip(seq, got):
+        d_p, c_p = wire_digest_plain(w, n_valid, qq, wf.scale, wf.origin, r,
+                                     s)
+        ok = (same_bits(d_k.seg_min, d_p.seg_min)
+              and same_bits(d_k.rep, d_p.rep) and same_bits(c_k, c_p))
+        err = max(err, max_abs_err(d_k.seg_min, d_p.seg_min))
+        print(f"B1 wire_digest {name}: hits={int(c_k)} bit_exact={ok} "
+              f"[{card}]")
+        if not ok:
+            raise AssertionError(f"B1 {name}: kernel != plain version")
+        if "zero_hits" in name and int(c_k) != 0:
+            raise AssertionError("B1 repeat zero_hits case has hits")
     return err
 
 
@@ -365,23 +408,38 @@ def check_codec(dev, panes, card):
         rng.integers(0, 65536, NUM_SEGMENTS).astype(np.uint16)).to(dev)
     err = 0.0
 
-    def one(args, label):
+    def one(args, label, n=nb, segments=NUM_SEGMENTS):
         nonlocal err
-        got = wc.decode_wire_pane_cuda(*args, n=nb,
-                                       num_segments=NUM_SEGMENTS)
-        want = wc.decode_wire_pane_plain(*args, n=nb,
-                                         num_segments=NUM_SEGMENTS)
+        got = wc.decode_wire_pane_cuda(*args, n=n, num_segments=segments)
+        want = wc.decode_wire_pane_plain(*args, n=n, num_segments=segments)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             err = max(err, max_abs_err(g.to(torch.int32),
                                        w.to(torch.int32)))
         if not all(same_bits(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"B2 {label}: kernel != plain version")
+        return got
 
     for b in range(17):
         one((words, SLIDE, b, b, b, px, py), f"width {b}")
         one((words, SLIDE - 1, b, (b + 5) % 17, 14, px, py),
             f"widths {b}/{(b + 5) % 17}/14")
+    # What the one-launch design could get wrong: a payload shorter than
+    # its streams (every word index clamps to the last word), no valid
+    # lane, the 2-byte path (n % 8 != 0), the scratch cache (num_segments
+    # alternating).
+    for n_words in (1, 7):
+        for widths in ((16, 16, 14), (5, 9, 3)):
+            one((words[:n_words], SLIDE, *widths, px, py),
+                f"{n_words} words, widths {widths}")
+    one((words, 0, 7, 9, 14, px, py), "n_valid 0")
+    one((words, SLIDE - 1, 7, 9, 14, px, py), "n % 8 == 5", n=nb - 3)
+    for segments in (NUM_SEGMENTS, 512, NUM_SEGMENTS, 512):
+        one((words, SLIDE, 7, 9, 9, px[:segments], py[:segments]),
+            f"num_segments {segments}", segments=segments)
+    print(f"B2 wire_codec_decode: payloads of 1 and 7 words, n_valid 0, "
+          f"n % 8 != 0, num_segments 16,384/512 alternating bit_exact=True "
+          f"[{card}]")
     enc = wc.WirePaneEncoder(NUM_SEGMENTS)
     enc.encode(panes[0])
     tables = [torch.from_numpy(t.copy()).to(dev)
@@ -391,14 +449,30 @@ def check_codec(dev, panes, card):
     coded = torch.from_numpy(
         wc.pad_words(e.words, wb).view(np.int32).copy()).to(dev)
     args = (coded, e.n, e.bx, e.by, e.bo, *tables)
-    one(args, "headline pane")
-    pane, _, _ = wc.decode_wire_pane_cuda(*args, n=nb,
-                                          num_segments=NUM_SEGMENTS)
+    pane, px2, py2 = one(args, "headline pane")
     if not np.array_equal(pane[:, :SLIDE].cpu().numpy(), panes[1]):
         raise AssertionError("B2 headline pane does not decode to the raw pane")
-    print(f"B2 wire_codec_decode: widths 0..16 and a headline pane "
-          f"(bx={e.bx} by={e.by} bo={e.bo}, {len(e.words)} words) "
-          f"bit_exact=True [{card}]")
+    # The next pane holds only the lower half of the oids: the upper
+    # half's predictors must stay as they were.
+    half = NUM_SEGMENTS // 2
+    sub = np.ascontiguousarray(panes[2][:, panes[2][2] < half])
+    e3 = enc.encode(sub)
+    nb3 = wire_pane_bucket(e3.n)
+    coded3 = torch.from_numpy(wc.pad_words(
+        e3.words, wc.wire_word_bucket(len(e3.words), nb3))
+        .view(np.int32).copy()).to(dev)
+    pane3, px3, py3 = one((coded3, e3.n, e3.bx, e3.by, e3.bo, px2, py2),
+                          "pane with absent oids", n=nb3)
+    if not (np.array_equal(pane3[:, :e3.n].cpu().numpy(), sub)
+            and torch.equal(px3[half:], px2[half:])
+            and torch.equal(py3[half:], py2[half:])
+            and np.array_equal(px3.cpu().numpy(), enc.pred_x)
+            and np.array_equal(py3.cpu().numpy(), enc.pred_y)):
+        raise AssertionError("B2 pane with absent oids: tables differ from "
+                             "the encoder's")
+    print(f"B2 wire_codec_decode: widths 0..16, a headline pane "
+          f"(bx={e.bx} by={e.by} bo={e.bo}, {len(e.words)} words) and a "
+          f"pane of {e3.n} points over half the oids bit_exact=True [{card}]")
     return err, args
 
 
@@ -1314,14 +1388,29 @@ def main(argv=None) -> int:
         *codec_args, n=nb, num_segments=NUM_SEGMENTS))
     b2_bound, b2_by = bound_ms(
         4 * used_words + 6 * nb + 8 * NUM_SEGMENTS, 40 * nb)
+    per_call = {
+        "wire_digest": launches_per_call(lambda: wire_digest_cuda(*b1)),
+        "wire_codec_decode": launches_per_call(
+            lambda: wc.decode_wire_pane_cuda(*codec_args, n=nb,
+                                             num_segments=NUM_SEGMENTS)),
+    }
     for name, ms, call, plain, bnd, by_ in (
             ("wire_digest", b1_ms, b1_call, b1_plain, b1_bound, b1_by),
             ("wire_codec_decode", b2_ms, b2_call, b2_plain, b2_bound,
              b2_by)):
+        kern, mems = per_call[name]
         print(f"time {name}: kernel {ms:.6f} ms device ({call:.6f} ms per "
-              f"call with its launch), plain PyTorch {plain:.6f} ms, bound "
-              f"{bnd:.6f} ms ({by_}), medians of {REPEATS} calls at the "
-              f"headline shape [{card}]")
+              f"call with its launch), {kern:g} kernel launches and "
+              f"{mems:g} memsets per call, plain PyTorch {plain:.6f} ms, "
+              f"bound {bnd:.6f} ms ({by_}), medians of {REPEATS} calls at "
+              f"the headline shape [{card}]")
+        if kern > 1 or mems > 0:
+            raise AssertionError(f"{name} takes {kern:g} kernel launches and "
+                                 f"{mems:g} memsets a call")
+    floor_ms, floor_call = time_ms(lambda: torch.cuda._sleep(1))
+    print(f"time floor: one near-empty kernel (torch.cuda._sleep(1)) "
+          f"{floor_ms:.6f} ms device ({floor_call:.6f} ms per call), the "
+          f"same method [{card}]")
 
     # Phase 8: the join's main path, run_soa at full width, against its
     # CPU twin.
@@ -1412,13 +1501,17 @@ def main(argv=None) -> int:
          "replaces": "spatialflink_tpu/ops/pallas_digest.py:48",
          "launches": launches["wire_digest"], "max_abs_err": err_b1,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
-         "bound_by": b1_by, "library_ms": None},
+         "bound_by": b1_by, "library_ms": None,
+         "kernels_per_call": per_call["wire_digest"][0],
+         "memsets_per_call": per_call["wire_digest"][1]},
         {"name": "wire_codec_decode", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_codec.cu",
          "replaces": "spatialflink_tpu/ops/wire_codec.py:361",
          "launches": launches["wire_codec_decode"], "max_abs_err": err_b2,
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": None},
+         "bound_by": b2_by, "library_ms": None,
+         "kernels_per_call": per_call["wire_codec_decode"][0],
+         "memsets_per_call": per_call["wire_codec_decode"][1]},
         {"name": "join_extract", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Any, Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -40,6 +40,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas register and spill report) per kernel built in
 #: this process.
 build_logs: Dict[str, str] = {}
+#: Scratch buffers that a kernel leaves as it found them, by (kernel,
+#: device index, stream, size): see ``scratch``.
+_scratch: Dict[tuple, Any] = {}
 
 
 def _nvcc() -> str:
@@ -96,6 +99,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _libs[name] = lib
     return lib
+
+
+def scratch(key: tuple, make: Callable[[], Any]) -> Any:
+    """The scratch buffer for ``key``, made by ``make()`` at its first use.
+
+    For a kernel that resets its scratch before it returns, so the buffer
+    is filled once and never again. The key names the stream: calls on
+    one stream run in order, calls on two streams could overlap and must
+    not share a buffer."""
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = make()
+    return buf
 
 
 def check(rc: int, what: str) -> None:

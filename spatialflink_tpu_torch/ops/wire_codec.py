@@ -22,11 +22,18 @@ the rule the host encoder mirrors.
 
 The CUDA kernel replaces the TPU kernel ``spatialflink_tpu/ops/
 wire_codec.py:_extract_kernel`` (driven by ``make_pallas_extract``),
-which only extracted the three bit streams. Here one thread per lane
-also does the unzigzag, the predictor add and the u16 wrap, and writes
-the pane; an ``atomicMax`` of the lane index per oid and a gather update
-the tables. Bound: bytes, at most 3 MB of payload in and 3 MB of pane
-out per 500,000-point pane, about 2 µs at 3.35 TB/s.
+which only extracted the three bit streams. Here the kernel also does
+the unzigzag, the predictor add and the u16 wrap, and writes the pane;
+an ``atomicMax`` of the lane index per oid and a gather update the
+tables. Bound: bytes, at most 3 MB of payload in and 3 MB of pane out
+per 500,000-point pane, about 2 µs at 3.35 TB/s, so at this size
+launches cost more than the bytes. The kernel is one cooperative launch
+a pane: a thread decodes 8 lanes from the at most 5 words they span,
+each loaded once at the reference's clamped index, and writes them as
+one 16-byte store a plane (2-byte stores when ``n % 8 != 0``); after a
+grid-wide barrier the same blocks update the tables and reset the
+per-oid scratch, which is made and filled once per (device, stream,
+``num_segments``) and reused.
 """
 
 from __future__ import annotations
@@ -312,9 +319,25 @@ def _lib():
     return fn
 
 
+#: Ints per oid in the kernel's ``last`` scratch: one 32-byte sector each.
+LAST_STRIDE = 8
+
+
+def _last_scratch(dev: torch.device, stream: int, num_segments: int):
+    """The kernel's per-oid last-lane scratch on ``stream``, all -1; the
+    kernel leaves it so."""
+    return kernels.scratch(
+        ("wire_codec", dev.index, stream, num_segments),
+        lambda: torch.full((num_segments * LAST_STRIDE,), -1,
+                           dtype=torch.int32, device=dev))
+
+
 def decode_wire_pane_cuda(words, n_valid: int, bx: int, by: int, bo: int,
                           pred_x, pred_y, *, n: int, num_segments: int):
-    """Launch the kernel on the current stream (no synchronisation)."""
+    """Launch the kernel on the current stream (no synchronisation).
+
+    The pane and both tables are new tensors at every call: ``pred_x``
+    and ``pred_y`` are read only."""
     _check_args(words, n_valid, (bx, by, bo), pred_x, pred_y, n,
                 num_segments)
     for t in (words, pred_x, pred_y):
@@ -323,12 +346,12 @@ def decode_wire_pane_cuda(words, n_valid: int, bx: int, by: int, bo: int,
                              "tensors")
     dev = words.device
     pane = torch.empty((3, n), dtype=torch.uint16, device=dev)
-    last = torch.empty(num_segments, dtype=torch.int32, device=dev)
     px2 = torch.empty(num_segments, dtype=torch.uint16, device=dev)
     py2 = torch.empty(num_segments, dtype=torch.uint16, device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        last = _last_scratch(dev, stream, num_segments)
         rc = fn(words.data_ptr(), words.shape[0], int(n), int(n_valid),
                 int(bx), int(by), int(bo), pred_x.data_ptr(),
                 pred_y.data_ptr(), int(num_segments), pane.data_ptr(),

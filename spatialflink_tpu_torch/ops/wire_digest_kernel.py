@@ -8,13 +8,18 @@ a 16,384-slot candidate buffer, with an in-program fallback to the full
 scatter digest when the hit count overflows it.
 
 On Hopper the digest is built directly (``kernels/csrc/wire_digest.cu``):
-the per-object minimum is order-free, so one thread per point reads its
-three u16 planes, dequantizes, measures the distance and, on a hit, does
-one 64-bit ``atomicMin`` on its object's key ``(f32 bits(dist) << 32) |
-idx``. There is no candidate buffer, so no overflow and no fallback: the
-result is exact at any hit count. Bound: bytes. A 500,000-point pane is
-3 MB of u16 planes in and 128 KB of digest out, about 1 µs at 3.35 TB/s;
-at this size launch latency dominates.
+the per-object minimum is order-free, so each point's three u16 planes
+are dequantized, its distance measured and, on a hit, one 64-bit
+``atomicMin`` done on its object's key ``(f32 bits(dist) << 32) | idx``.
+There is no candidate buffer, so no overflow and no fallback: the result
+is exact at any hit count. Bound: bytes. A 500,000-point pane is 3 MB of
+u16 planes in and 128 KB of digest out, about 1 µs at 3.35 TB/s, so at
+this size launches cost more than the bytes. The kernel is one
+cooperative launch a pane: a thread scans 8 lanes with one 16-byte load
+a plane (2-byte loads where the planes are not 16-byte aligned), and
+after a grid-wide barrier the same blocks unpack the keys and reset them.
+The key scratch is therefore made and filled once per (device, stream,
+``num_segments``) and reused; a call allocates only its outputs.
 
 ``wire_digest`` launches the kernel for a CUDA tensor and runs the plain
 PyTorch version (``wire_digest_plain``) for a CPU tensor. Nothing falls
@@ -103,10 +108,26 @@ def _lib():
     return fn
 
 
+def _key_scratch(dev: torch.device, stream: int, num_segments: int):
+    """The kernel's scratch on ``stream``: every key ~0 (empty) and one
+    more word, 0, for the hit-count accumulator. The kernel leaves it
+    so."""
+    def make():
+        keys = torch.full((num_segments + 1,), -1, dtype=torch.int64,
+                          device=dev)
+        keys[num_segments] = 0
+        return keys
+    return kernels.scratch(("wire_digest", dev.index, stream, num_segments),
+                           make)
+
+
 def wire_digest_cuda(wire: torch.Tensor, n_valid: int, query_xy, scale,
                      origin, radius, num_segments: int
                      ) -> Tuple[KnnPaneDigest, torch.Tensor]:
-    """Launch the kernel on the current stream (no synchronisation)."""
+    """Launch the kernel on the current stream (no synchronisation).
+
+    ``seg_min``, ``rep`` and the count are new tensors at every call:
+    callers keep earlier panes' digests."""
     _check_pane(wire, n_valid)
     if not wire.is_cuda or not wire.is_contiguous():
         raise ValueError("wire_digest_cuda needs a contiguous CUDA tensor")
@@ -114,13 +135,13 @@ def wire_digest_cuda(wire: torch.Tensor, n_valid: int, query_xy, scale,
         raise ValueError(f"num_segments must be >= 1, got {num_segments}")
     q, s, o, r = _consts(query_xy, scale, origin, radius)
     dev = wire.device
-    keys = torch.empty(num_segments, dtype=torch.int64, device=dev)
     seg_min = torch.empty(num_segments, dtype=torch.float32, device=dev)
     rep = torch.empty(num_segments, dtype=torch.int32, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        keys = _key_scratch(dev, stream, num_segments)
         rc = fn(wire.data_ptr(), wire.shape[1], int(n_valid),
                 float(q[0]), float(q[1]), float(s[0]), float(s[1]),
                 float(o[0]), float(o[1]), float(r), int(num_segments),

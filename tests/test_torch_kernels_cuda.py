@@ -256,3 +256,111 @@ def test_polyline_min_dist_redesign_cases_on_card(case):
         want = polyline_min_dist_plain(*args, s)
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+B1_CARD_CASES = ["width_2051", "offset_2_bytes", "radius_up_and_down",
+                 "num_segments_alternating"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B1_CARD_CASES)
+def test_wire_digest_one_launch_cases_on_card(case):
+    """B1's one-launch design bit-exact against its plain version where it
+    could go wrong: the 2-byte path (a pane width that is no multiple of
+    8; a view 2 bytes past a 16-byte boundary) and scratch that an earlier
+    call must have reset (the radius up and down, then no hit;
+    ``num_segments`` alternating)."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import (
+        wire_digest_cuda,
+        wire_digest_plain,
+    )
+
+    rng = np.random.default_rng(10)
+    n = 2051 if case == "width_2051" else 4096
+    wire_np = rng.integers(0, 65536, (3, n)).astype(np.uint16)
+    wire_np[2] %= NSEG
+    wire = torch.from_numpy(wire_np).to(dev)
+    if case == "offset_2_bytes":
+        flat = torch.empty(3 * n + 1, dtype=torch.uint16, device=dev)
+        wire = flat[1:].view(3, n)
+        wire.copy_(torch.from_numpy(wire_np).to(dev))
+        assert wire.data_ptr() % 16 == 2
+    q, s, o = (np.float32([0.5, 0.5]), np.float32([1e-5, 1e-5]),
+               np.float32([0.0, 0.0]))
+    calls = [(q, 0.3, NSEG)]
+    if case == "radius_up_and_down":
+        calls = [(q, r, NSEG) for r in (0.5, 0.05, 0.5, 0.05, 0.5)]
+        calls.append((np.float32([5.0, 5.0]), 0.5, NSEG))
+    elif case == "num_segments_alternating":
+        calls = [(q, 0.3, segs) for segs in (NSEG, 64, NSEG, 64)]
+    n_valid = n - 2
+    got = [wire_digest_cuda(wire, n_valid, qq, s, o, r, segs)
+           for qq, r, segs in calls]
+    for (qq, r, segs), (d_k, c_k) in zip(calls, got):
+        d_p, c_p = wire_digest_plain(wire, n_valid, qq, s, o, r, segs)
+        _bit_equal((d_k.seg_min, d_k.rep, c_k), (d_p.seg_min, d_p.rep, c_p))
+    if case == "radius_up_and_down":
+        assert int(got[-1][1]) == 0
+    else:
+        assert int(got[-1][1]) > 100
+
+
+B2_CARD_CASES = ["payload_1_word", "payload_7_words", "n_valid_0",
+                 "n_not_multiple_of_8", "absent_oids",
+                 "num_segments_alternating"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B2_CARD_CASES)
+def test_wire_codec_one_launch_cases_on_card(case):
+    """B2's one-launch design bit-exact against its plain version where it
+    could go wrong: payloads shorter than their streams (every word index
+    clamps to the last word), no valid lane, the 2-byte path, a pane in
+    which some oids are absent (their predictors stay), and the ``last``
+    scratch across ``num_segments`` alternating."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, 6000, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+    px = torch.from_numpy(rng.integers(0, 65536, NSEG).astype(np.uint16))
+    py = torch.from_numpy(rng.integers(0, 65536, NSEG).astype(np.uint16))
+    px, py = px.to(dev), py.to(dev)
+    n, segs = 4096, NSEG
+    runs = []
+    if case.startswith("payload"):
+        w = words[:1] if case == "payload_1_word" else words[:7]
+        runs = [((w, 4000, *widths, px, py), n, segs)
+                for widths in ((16, 16, 14), (5, 9, 3))]
+    elif case == "n_valid_0":
+        runs = [((words, 0, 7, 9, 9, px, py), n, segs)]
+    elif case == "n_not_multiple_of_8":
+        runs = [((words, 4000, 7, 9, 9, px, py), 4093, segs)]
+    elif case == "num_segments_alternating":
+        runs = [((words, 4000, 7, 9, 6, px[:s].contiguous(),
+                  py[:s].contiguous()), n, s) for s in (NSEG, 64, NSEG, 64)]
+    if case == "absent_oids":
+        enc = twc.WirePaneEncoder(NSEG)
+        tables = (torch.zeros(NSEG, dtype=torch.uint16, device=dev),) * 2
+        for oids in (np.arange(3000) % NSEG, np.arange(3000) % (NSEG // 2)):
+            pane = np.stack([rng.integers(0, 65536, 3000),
+                             rng.integers(0, 65536, 3000),
+                             oids]).astype(np.uint16)
+            e = enc.encode(pane)
+            coded = torch.from_numpy(twc.pad_words(e.words, len(e.words) + 16)
+                                     .view(np.int32).copy()).to(dev)
+            args = (coded, e.n, e.bx, e.by, e.bo, *tables)
+            got = twc.decode_wire_pane_cuda(*args, n=n, num_segments=NSEG)
+            want = twc.decode_wire_pane_plain(*args, n=n, num_segments=NSEG)
+            _bit_equal(got, want)
+            assert torch.equal(got[0][:, :3000].cpu(),
+                               torch.from_numpy(pane))
+            prev, tables = tables, got[1:]
+        assert torch.equal(tables[0][NSEG // 2:], prev[0][NSEG // 2:])
+        assert np.array_equal(tables[0].cpu().numpy(), enc.pred_x)
+        assert np.array_equal(tables[1].cpu().numpy(), enc.pred_y)
+        return
+    for args, nn, s in runs:
+        got = twc.decode_wire_pane_cuda(*args, n=nn, num_segments=s)
+        want = twc.decode_wire_pane_plain(*args, n=nn, num_segments=s)
+        _bit_equal(got, want)

@@ -112,6 +112,28 @@ def test_decode_every_width_random_payload(b):
             assert np.array_equal(g, w), widths
 
 
+@pytest.mark.parametrize("widths", [(16, 16, 14), (5, 9, 3)],
+                         ids=lambda w: "/".join(map(str, w)))
+@pytest.mark.parametrize("n_words", [1, 7])
+def test_decode_payload_shorter_than_streams(n_words, widths):
+    """A payload of 1 or 7 words under streams that need hundreds: every
+    word index past the payload clamps to its last word, in the port as
+    in the Pallas extraction (a loader that read zeros there would
+    differ)."""
+    rng = np.random.default_rng(200 + n_words)
+    nb, n_valid = 1024, 1000
+    words = rng.integers(1, 1 << 32, n_words,
+                         dtype=np.uint64).astype(np.uint32)
+    px = rng.integers(0, 65536, NSEG).astype(np.uint16)
+    py = rng.integers(0, 65536, NSEG).astype(np.uint16)
+    got = _port_decode(words, n_valid, *widths, px, py, nb, NSEG)
+    want = _jax_decode(words, n_valid, *widths, px, py, nb, NSEG)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    # lanes far past the payload still read its last word
+    assert got[0][2, n_valid - 100:n_valid].any()
+
+
 def test_decode_np_reference_agrees():
     rng = np.random.default_rng(3)
     enc = twc.WirePaneEncoder(NSEG)

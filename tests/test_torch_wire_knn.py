@@ -154,12 +154,17 @@ def test_wire_panes_match_jax():
 
 @pytest.mark.parametrize("case", [
     "full", "n_valid_lt_bucket", "zero_hits", "all_hits",
+    "width_not_multiple_of_8",
 ])
 def test_digest_matches_jax_pallas_step(case):
+    """``width_not_multiple_of_8``: a 2051-lane pane (the kernel's 2-byte
+    path on the card; the JAX step pads to its block internally)."""
     rng = np.random.default_rng(11)
     n, bucket, q, radius = 2048, 2048, Q, RADIUS
     if case == "n_valid_lt_bucket":
         n = 1500
+    if case == "width_not_multiple_of_8":
+        n, bucket = 2049, 2051
     if case == "zero_hits":
         q = np.asarray([0.0, 0.0], np.float32)
     if case == "all_hits":
