@@ -77,7 +77,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
 13. time B4 (gathered at config 3, dense at 32 polygons) beside its bound
    and plain version, with its launches per call, the range window's
    parts, the full-width
-   ``run_soa`` rate, and a profiler pass over it.
+   ``run_soa`` rate, and a profiler pass over it;
+14. run ``PolygonPolygonRangeQuery.run_soa`` at full width (4 one-second
+   windows of 131,072 polygon objects, the JAX suite's window width of
+   config 4: closed rings of 4-11 distinct vertices about uniform centres
+   over the Beijing extent at radii up to 0.01 deg, seed 11, oids over
+   16,384 objects; the first 32 polygons of config 3's set; r = 0.002),
+   each window equal to the same operator run on the CPU (starts, ends,
+   kept indices and oids, distance bits) and B4's launch count up by at
+   least 2 a window (one launch a direction); then, at 2 windows of 8,192
+   objects each and against the CPU, the other five geometry-stream
+   classes (linestrings are the same rings opened), approximate mode, a
+   multi-ring stream with edge-mask seams, and ``run`` on ``Polygon``
+   objects;
+15. run the point-stream kNN ``run`` on ``Point`` objects at full width
+   (3 one-second windows of 200,000 points, config 2's event rate; 16,384
+   objIDs, k = 50, r = 0.05) for a polygon query (polygon 0 of config 3's
+   set), its outline opened as a linestring query, and ``QUERY`` as a
+   point query, each window equal to the CPU run (objIDs in order,
+   distance bits, representative events), the polygon and linestring
+   runs filling their top-50 through B4; then, at 20,000 points,
+   approximate mode, CountBased windows, and k = 100 over 32 objIDs
+   raising ``ValueError`` on the card as on the CPU;
+16. time the parts of one full-width geometry window (both B4
+   directions, both containments, the reductions), B4 at this slice's
+   three shapes (a->b at N·V x Q, b->a at Q·Vq x N, the kNN query at
+   G = 1) beside its bound and plain version, the e2e rates of phases 14
+   and 15, and a profiler pass over phase 14's run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -129,6 +155,24 @@ PP_WIN = 500_000
 PP_R = 0.005
 RANGE_OBJ_POINTS = 20_000
 RANGE_OBJ_WINDOWS = 2
+
+# The geometry-stream range path at the JAX suite's window width of
+# config 4 (bench_suite.py:423-492; the suite has no geometry-stream
+# configuration of its own), and the point-stream kNN run at its config 2
+# event rate of 200,000 points a second (bench_suite.py:235-354).
+GEOM_WIN = 131_072
+GEOM_WINDOWS = 4
+GEOM_OBJECTS = 16_384
+GEOM_QUERIES = 32
+GEOM_R = 0.002
+GEOM_CUT_WIN = 8_192
+GEOM_CUT_WINDOWS = 2
+KNN_RUN_WIN = 200_000
+KNN_RUN_WINDOWS = 3
+KNN_RUN_IDS = 16_384
+KNN_RUN_K = 50
+KNN_RUN_R = 0.05
+KNN_RUN_CUT = 20_000
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -1286,6 +1330,521 @@ def check_range(dev, card, b4_inputs, gpu="cuda"):
     return b4_launches, (b4g_ms, b4g_plain, b4g_bound, b4g_by)
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-16: the geometry-stream range path and the point-stream kNN run.
+
+
+def geometry_rings(n, seed):
+    """``n`` closed rings of 4-11 distinct vertices (lengths 5-12) about
+    uniform centres over the Beijing extent, at radii up to 0.01 deg:
+    (rings (n, 12, 2) float64, closed at lane m, distinct counts m)."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(4, 12, n)
+    centre = np.stack([rng.uniform(115.5, 117.6, n),
+                       rng.uniform(39.6, 41.1, n)], axis=1)
+    lanes = np.arange(11)
+    ang = np.sort(np.where(lanes < m[:, None],
+                           rng.uniform(0, 2 * np.pi, (n, 11)), np.inf),
+                  axis=1)
+    ang = np.where(np.isfinite(ang), ang, 0.0)
+    rad = rng.uniform(0.3, 1.0, (n, 11)) * 0.01
+    ring = centre[:, None] + rad[..., None] * np.stack(
+        [np.cos(ang), np.sin(ang)], axis=-1)
+    closed = np.concatenate([ring, np.zeros((n, 1, 2))], axis=1)
+    closed[np.arange(n), m] = ring[:, 0]
+    return closed, m
+
+
+def geometry_chunks(n_win, per_win, seed=11, polygonal=True, holes=False):
+    """A ragged ``run_soa`` stream: one chunk a one-second tumbling window
+    (ts = i·1000 // per_win ms), oids over ``GEOM_OBJECTS``; polygons as
+    closed rings, linestrings as the same rings opened. ``holes``: every
+    polygon gets a hole (the ring shrunk to 0.3 about its first vertex's
+    centre), the two rings packed with a seam, and the chunks carry the
+    edge masks."""
+    n = n_win * per_win
+    rings, m = geometry_rings(n, seed)
+    oid = np.random.default_rng(seed + 1).integers(
+        0, GEOM_OBJECTS, n).astype(np.int32)
+    ts = (np.arange(n, dtype=np.int64) * 1000) // per_win
+    lengths = m + 1 if polygonal else m
+    lanes = np.arange(rings.shape[1])
+    verts = rings[lanes[None, :] < lengths[:, None]]
+    edges = None
+    if holes:
+        c = np.stack([rings[i, :m[i]].mean(axis=0) for i in range(n)])
+        inner = c[:, None] + 0.3 * (rings - c[:, None])
+        parts, edge_parts = [], []
+        for i in range(n):
+            k = m[i] + 1
+            parts += [rings[i, :k], inner[i, :k]]
+            e = np.ones(2 * k - 1, bool)
+            e[k - 1] = False  # the seam between the rings
+            edge_parts.append(e)
+        verts = np.concatenate(parts)
+        lengths = 2 * (m + 1)
+        edges = np.concatenate(edge_parts)
+    off = np.concatenate([[0], np.cumsum(lengths)])
+    e_off = np.concatenate([[0], np.cumsum(lengths - 1)])
+    chunks = []
+    for s in range(0, n, per_win):
+        e = s + per_win
+        c = {"ts": ts[s:e], "oid": oid[s:e], "lengths": lengths[s:e],
+             "verts": verts[off[s]:off[e]]}
+        if edges is not None:
+            c["edge_valid"] = edges[e_off[s]:e_off[e]]
+        chunks.append(c)
+    return chunks
+
+
+def geometry_objects(chunks):
+    """The ``Polygon`` objects of a (closed-ring) ragged stream."""
+    from spatialflink_tpu_torch.models.objects import Polygon
+
+    out = []
+    for c in chunks:
+        off = np.concatenate([[0], np.cumsum(c["lengths"])])
+        for i, (t, o) in enumerate(zip(c["ts"], c["oid"])):
+            out.append(Polygon(obj_id=f"g{o}", timestamp=int(t),
+                               rings=[c["verts"][off[i]:off[i + 1]]]))
+    return out
+
+
+def geometry_queries(kind):
+    """The first ``GEOM_QUERIES`` polygons of config 3's set, their
+    outlines opened, or their first vertices as points."""
+    from spatialflink_tpu_torch.models.objects import LineString, Point
+
+    polys = range_polygons()[:GEOM_QUERIES]
+    if kind == "polygon":
+        return polys
+    if kind == "linestring":
+        return [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
+                for i, p in enumerate(polys)]
+    return [Point(obj_id=f"pt{i}", x=float(p.rings[0][0, 0]),
+                  y=float(p.rings[0][0, 1])) for i, p in enumerate(polys)]
+
+
+def run_geometry(device, cls, chunks, queries, **conf_kw):
+    """One ``run_soa`` of a geometry-stream range operator; returns
+    (windows, seconds)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0, **conf_kw)
+    op = cls(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(chunks, queries, GEOM_R))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_geometry_windows(got, want, label, exact=True):
+    """Window for window: starts, ends, counts, kept indices and oids
+    exact, distance bits equal; distances finite and, in exact mode,
+    within the radius. Returns the matches per window."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} windows vs {len(want)}")
+    for g, w in zip(got, want):
+        if (g[0], g[1], g[5]) != (w[0], w[1], w[5]):
+            raise AssertionError(f"{label}: window {g[:2]} differs")
+        if not (np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])):
+            raise AssertionError(f"{label}: matches differ in {g[:2]}")
+        if not np.array_equal(g[4].view(np.uint32), w[4].view(np.uint32)):
+            raise AssertionError(f"{label}: distances differ in {g[:2]}")
+        if not np.all(np.isfinite(g[4])) or (
+                exact and not np.all(g[4] <= np.float32(GEOM_R))):
+            raise AssertionError(f"{label}: window {g[:2]} malformed")
+    return [len(g[2]) for g in got]
+
+
+def run_geometry_objects(device, objs, queries):
+    """``PolygonPolygonRangeQuery.run`` on ``Polygon`` objects; returns
+    the windows as (start, end, count, ids, distance bits), seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PolygonPolygonRangeQuery,
+        QueryConfiguration,
+    )
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    op = PolygonPolygonRangeQuery(conf, UniformGrid(**BEIJING),
+                                  device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(iter(objs), queries, GEOM_R))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [(r.start, r.end, r.window_count,
+             [(o.obj_id, o.timestamp) for o in r.objects],
+             np.asarray(r.dists, np.float32).view(np.uint32).tolist())
+            for r in res], time.perf_counter() - t0
+
+
+def check_geometry(card, gpu="cuda"):
+    """Phase 14: ``PolygonPolygonRangeQuery.run_soa`` at full width, then
+    the other classes, approximate mode, a multi-ring stream and ``run``
+    at a cut depth, each against its CPU twin. ``gpu``: the device of the
+    runs under test (``cpu`` only to rehearse the script's logic without
+    a card). Returns (B4 launches, the full-width chunks, seconds)."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    t0 = time.perf_counter()
+    chunks = geometry_chunks(GEOM_WINDOWS, GEOM_WIN)
+    polys = geometry_queries("polygon")
+    print(f"data: {GEOM_WINDOWS} x {GEOM_WIN} polygon objects "
+          f"({sum(int(c['lengths'].sum()) for c in chunks)} vertices) and "
+          f"{len(polys)} query polygons in {time.perf_counter() - t0:.3f} s "
+          f"(host set-up)")
+    polyline_min_dist.launches = 0
+    got, secs = run_geometry(gpu, ops.PolygonPolygonRangeQuery, chunks,
+                             polys)
+    b4_launches = polyline_min_dist.launches
+    want, cpu_secs = run_geometry("cpu", ops.PolygonPolygonRangeQuery,
+                                  chunks, polys)
+    hits = check_geometry_windows(got, want, "geometry run_soa")
+    if b4_launches < 2 * GEOM_WINDOWS or min(hits) == 0:
+        raise AssertionError(f"geometry run_soa: {b4_launches} B4 launches, "
+                             f"matches {hits}")
+    n = GEOM_WINDOWS * GEOM_WIN
+    print(f"e2e geometry range run_soa (PolygonPolygon, {GEOM_QUERIES} "
+          f"polygons, r={GEOM_R}): {len(got)} windows, matches per window "
+          f"{hits}, {n} objects in {secs:.6f} s = {n / secs:.1f} objects/s; "
+          f"launches polyline_min_dist={b4_launches}; windows equal the CPU "
+          f"plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+    cut = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN)
+    lines = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN, polygonal=False)
+    cases = [
+        ("PolygonPoint", ops.PolygonPointRangeQuery, cut, "point", {}),
+        ("PolygonLineString", ops.PolygonLineStringRangeQuery, cut,
+         "linestring", {}),
+        ("LineStringPoint", ops.LineStringPointRangeQuery, lines, "point",
+         {}),
+        ("LineStringPolygon", ops.LineStringPolygonRangeQuery, lines,
+         "polygon", {}),
+        ("LineStringLineString", ops.LineStringLineStringRangeQuery, lines,
+         "linestring", {}),
+        ("PolygonPolygon approximate", ops.PolygonPolygonRangeQuery, cut,
+         "polygon", {"approximate_query": True}),
+        ("PolygonPolygon multi-ring", ops.PolygonPolygonRangeQuery,
+         geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN, holes=True),
+         "polygon", {}),
+    ]
+    for label, cls, ch, qkind, kw in cases:
+        qs = geometry_queries(qkind)
+        polyline_min_dist.launches = 0
+        g, g_secs = run_geometry(gpu, cls, ch, qs, **kw)
+        launched = polyline_min_dist.launches
+        b4_launches += launched
+        w, w_secs = run_geometry("cpu", cls, ch, qs, **kw)
+        h = check_geometry_windows(g, w, label,
+                                   exact=not kw.get("approximate_query"))
+        if sum(h) == 0 or launched < 2 * len(ch):
+            raise AssertionError(f"geometry {label}: matches {h}, "
+                                 f"{launched} B4 launches")
+        print(f"e2e geometry range run_soa {label}: {len(g)} windows, "
+              f"matches {h}, {GEOM_CUT_WINDOWS * GEOM_CUT_WIN} objects in "
+              f"{g_secs:.6f} s; launches polyline_min_dist={launched}; equal "
+              f"to the CPU run ({w_secs:.3f} s) [{card}]")
+
+    objs = geometry_objects(cut)
+    polyline_min_dist.launches = 0
+    g, o_secs = run_geometry_objects(gpu, objs, polys)
+    launched = polyline_min_dist.launches
+    b4_launches += launched
+    w, c_secs = run_geometry_objects("cpu", objs, polys)
+    if g != w or len(g) != GEOM_CUT_WINDOWS or launched < 2 * len(g) \
+            or not any(x[3] for x in g):
+        raise AssertionError("geometry run on Polygon objects differs from "
+                             "the CPU run")
+    print(f"e2e geometry range run (Polygon objects): {len(g)} windows, "
+          f"matches {[len(x[3]) for x in g]} in {o_secs:.6f} s; launches "
+          f"polyline_min_dist={launched}; equal to the CPU run "
+          f"({c_secs:.3f} s) [{card}]")
+    return b4_launches, chunks, secs
+
+
+def knn_points(n_win, per_win, seed, n_ids=KNN_RUN_IDS):
+    """``Point`` objects of ``n_win`` one-second windows of ``per_win``
+    points (bench_suite.py:47-54's positions from ``seed``), objIDs over
+    ``n_ids`` objects."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    xy = join_stream(n_win * per_win, seed).astype(np.float64)
+    ids = np.random.default_rng(seed + 1).integers(0, n_ids, len(xy))
+    ts = (np.arange(len(xy), dtype=np.int64) * 1000) // per_win
+    return [Point(obj_id=f"o{i}", timestamp=int(t), x=float(x), y=float(y))
+            for i, t, (x, y) in zip(ids.tolist(), ts.tolist(), xy.tolist())]
+
+
+def knn_query(kind):
+    """Polygon 0 of config 3's set, its outline opened, or ``QUERY``."""
+    from spatialflink_tpu_torch.models.objects import LineString, Point
+
+    poly = range_polygons()[0]
+    if kind == "polygon":
+        return poly
+    if kind == "linestring":
+        return LineString(obj_id="line0", coords=poly.rings[0][:-1])
+    return Point(obj_id="query", x=QUERY[0], y=QUERY[1])
+
+
+def run_knn(device, kind, stream, k=KNN_RUN_K, **conf_kw):
+    """One point-stream kNN ``run``; returns the windows as (start, end,
+    count, objIDs, distance bits, representative (id, ts)), seconds."""
+    import torch
+
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    cls = {"point": ops.PointPointKNNQuery,
+           "polygon": ops.PointPolygonKNNQuery,
+           "linestring": ops.PointLineStringKNNQuery}[kind]
+    conf_kw.setdefault("window_size", 1.0)
+    conf_kw.setdefault("slide_step", 1.0)
+    op = cls(ops.QueryConfiguration(**conf_kw), UniformGrid(**BEIJING),
+             device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(iter(stream), knn_query(kind), KNN_RUN_R, k))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [(r.start, r.end, r.window_count, [n[0] for n in r.neighbors],
+             np.float32([n[1] for n in r.neighbors]).view(np.uint32).tolist(),
+             [(n[2].obj_id, n[2].timestamp) for n in r.neighbors])
+            for r in res], time.perf_counter() - t0
+
+
+def check_knn_windows(got, want, label, k):
+    """Window for window equal to the CPU run, distances ascending within
+    the radius; returns the results per window."""
+    if got != want or not got:
+        raise AssertionError(f"{label}: windows differ from the CPU run")
+    for w in got:
+        d = np.uint32(w[4]).view(np.float32)
+        if len(w[3]) > k or not np.all(np.diff(d) >= 0) \
+                or not np.all(d <= np.float32(KNN_RUN_R)):
+            raise AssertionError(f"{label}: window {w[:2]} malformed")
+    return [len(w[3]) for w in got]
+
+
+def check_knn_run(card, gpu="cuda"):
+    """Phase 15: point-stream kNN ``run`` on ``Point`` objects at full
+    width for point, polygon and linestring queries, then approximate
+    mode, CountBased windows and the C1 error at a cut depth, each
+    against its CPU twin. Returns (B4 launches, seconds a kind, the
+    full-width stream)."""
+    from spatialflink_tpu_torch.operators import QueryType
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    t0 = time.perf_counter()
+    stream = knn_points(KNN_RUN_WINDOWS, KNN_RUN_WIN, 5)
+    print(f"data: {KNN_RUN_WINDOWS} x {KNN_RUN_WIN} Point objects in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    b4_launches, walls = 0, {}
+    n = len(stream)
+    for kind in ("polygon", "linestring", "point"):
+        polyline_min_dist.launches = 0
+        got, secs = run_knn(gpu, kind, stream)
+        launched = polyline_min_dist.launches
+        b4_launches += launched
+        want, cpu_secs = run_knn("cpu", kind, stream)
+        sizes = check_knn_windows(got, want, f"kNN run {kind}", KNN_RUN_K)
+        if len(got) != KNN_RUN_WINDOWS or (kind != "point" and (
+                launched < KNN_RUN_WINDOWS or min(sizes) < KNN_RUN_K)):
+            raise AssertionError(f"kNN run {kind}: results {sizes}, "
+                                 f"{launched} B4 launches")
+        walls[kind] = secs
+        print(f"e2e kNN run {kind} query: {len(got)} windows, results "
+              f"{sizes}, {n} points in {secs:.6f} s = {n / secs:.1f} "
+              f"points/s; launches polyline_min_dist={launched}; windows "
+              f"equal the CPU plain run ({cpu_secs:.3f} s on the host CPU) "
+              f"[{card}]")
+
+    cut = stream[:KNN_RUN_CUT]
+    for label, kind, kw in (
+            ("approximate polygon", "polygon", {"approximate_query": True}),
+            ("approximate linestring", "linestring",
+             {"approximate_query": True}),
+            ("CountBased polygon", "polygon",
+             {"query_type": QueryType.CountBased,
+              "count_window_size": 7_000})):
+        polyline_min_dist.launches = 0
+        got, _ = run_knn(gpu, kind, cut, **kw)
+        launched = polyline_min_dist.launches
+        b4_launches += launched
+        want, _ = run_knn("cpu", kind, cut, **kw)
+        sizes = check_knn_windows(got, want, f"kNN run {label}", KNN_RUN_K)
+        if launched < len(got):
+            raise AssertionError(f"kNN run {label}: {launched} B4 launches")
+        print(f"e2e kNN run {label}: {len(got)} windows, results {sizes}; "
+              f"launches polyline_min_dist={launched}; equal to the CPU run "
+              f"[{card}]")
+    few = knn_points(1, KNN_RUN_CUT, 6, n_ids=32)
+    raised = []
+    for device in (gpu, "cpu"):
+        try:
+            run_knn(device, "polygon", few, k=100)
+        except ValueError as e:
+            raised.append(str(e))
+    if len(raised) != 2:
+        raise AssertionError(f"kNN run C1: k=100 over 32 objIDs raised "
+                             f"{len(raised)} of 2 times")
+    print(f"kNN run C1: k=100 over 32 objIDs (64 segments) raises "
+          f"ValueError on {gpu} and on the CPU: {raised[0]!r} [{card}]")
+    return b4_launches, walls, stream
+
+
+def time_geometry(dev, card, chunks, geo_secs, knn_stream, knn_walls):
+    """Phase 16: the parts of one full-width geometry-range window, the
+    host's share of both paths, B4 at this slice's three shapes, the e2e
+    rates and a profiler pass. Returns the B4 timing rows by shape."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.batch import (
+        GeometryBatch,
+        PointBatch,
+        flag_prefix_planes,
+    )
+    from spatialflink_tpu_torch.operators import (
+        PointPolygonKNNQuery,
+        PolygonPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.operators.base import (
+        center_coords,
+        flags_for_queries,
+    )
+    from spatialflink_tpu_torch.ops import range as tr
+    from spatialflink_tpu_torch.ops.polygon import points_in_polygons
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+    from spatialflink_tpu_torch.streams.soa import RaggedSoaWindowAssembler
+
+    grid = UniformGrid(**BEIJING)
+    polys = geometry_queries("polygon")
+    c = chunks[0]
+    batch = GeometryBatch.from_ragged(c["ts"], c["oid"], c["lengths"],
+                                      c["verts"])
+    flags = flags_for_queries(grid, GEOM_R, polys)
+    oflags = batch.any_cell_flagged(grid, flags,
+                                    prefix=flag_prefix_planes(grid, flags))
+    qv_np, qe_np = packed_queries(grid, polys)
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    verts, ev, valid, of = (on_card(center_coords(grid, batch.verts)),
+                            on_card(batch.edge_valid), on_card(batch.valid),
+                            on_card(oflags))
+    qv, qe = on_card(qv_np), on_card(qe_np)
+    n, v = verts.shape[:2]
+    q, vq = qv.shape[:2]
+    a_xy, b_xy = verts.reshape(n * v, 2), qv.reshape(q * vq, 2)
+    a_ok, b_ok = tr._vert_valid(ev), tr._vert_valid(qe)
+    d_ab = polyline_min_dist_cuda(a_xy, qv, qe)
+    d_ba = polyline_min_dist_cuda(b_xy, verts, ev)
+    in_ab = points_in_polygons(a_xy, qv, qe)
+    in_ba = points_in_polygons(b_xy, verts, ev)
+
+    def reductions():
+        d = torch.minimum(tr._vertex_min(d_ab, a_ok, n, v),
+                          tr._vertex_min(d_ba, b_ok, q, vq).T)
+        d = torch.where((in_ab & a_ok.reshape(-1, 1))
+                        .reshape(n, v, q).any(dim=1), 0.0, d)
+        d = torch.where((in_ba & b_ok.reshape(-1, 1))
+                        .reshape(q, vq, n).any(dim=1).T, 0.0, d)
+        return tr._emit_mask(valid, of, d.amin(dim=1), GEOM_R, False)
+
+    parts = {
+        "B4 a->b": time_ms(lambda: polyline_min_dist_cuda(a_xy, qv, qe))[0],
+        "B4 b->a": time_ms(lambda: polyline_min_dist_cuda(b_xy, verts,
+                                                          ev))[0],
+        "containment a in b": time_ms(
+            lambda: points_in_polygons(a_xy, qv, qe))[0],
+        "containment b in a": time_ms(
+            lambda: points_in_polygons(b_xy, verts, ev))[0],
+        "reductions and mask": time_ms(reductions)[0],
+        "whole kernel": time_ms(lambda: tr.geometry_range_query_kernel(
+            verts, ev, valid, of, qv, qe, GEOM_R, obj_polygonal=True,
+            query_polygonal=True))[0],
+    }
+    print(f"geometry window parts (PolygonPolygon, N={n} objects of V={v}, "
+          f"Q={q} queries of V={vq}, one window, device ms, medians of "
+          f"{REPEATS}): "
+          + ", ".join(f"{k} {t:.6f}" for k, t in parts.items())
+          + f"; the window's wall in run_soa "
+          f"{1e3 * geo_secs / GEOM_WINDOWS:.6f} ms [{card}]")
+
+    # The host's share: each path's host steps alone, no device work.
+    flags_host = flags_for_queries(grid, GEOM_R, polys)
+    prefix = flag_prefix_planes(grid, flags_host)
+    t0 = time.perf_counter()
+    for w in RaggedSoaWindowAssembler(1000, 1000).stream(chunks):
+        b = GeometryBatch.from_ragged(w.ts, w.oid, w.lengths, w.verts)
+        b.any_cell_flagged(grid, flags_host, prefix=prefix)
+        center_coords(grid, b.verts)
+    geo_host = time.perf_counter() - t0
+    knn_op = PointPolygonKNNQuery(QueryConfiguration(window_size=1.0,
+                                                     slide_step=1.0),
+                                  grid, device="cpu")
+    t0 = time.perf_counter()
+    for w in knn_op.windows(iter(knn_stream)):
+        center_coords(grid, knn_op.point_batch(w.events).xy)
+    knn_host = time.perf_counter() - t0
+    print(f"host steps alone: geometry ragged windowing, from_ragged, "
+          f"flags and centring {geo_host:.6f} s ({100 * geo_host / geo_secs:.1f}"
+          f"% of the run_soa wall); kNN object windowing, point batches and "
+          f"centring {knn_host:.6f} s ({100 * knn_host / knn_walls['polygon']:.1f}"
+          f"% of the polygon run's wall) [{card}]")
+
+    first = knn_stream[:KNN_RUN_WIN]
+    knn_xy = on_card(center_coords(grid, PointBatch.from_points(first).xy))
+    kv_np, ke_np = packed_queries(grid, [knn_query("polygon")])
+    kv, ke = on_card(kv_np), on_card(ke_np)
+    rows = {}
+    for label, args in (
+            ("geometry a->b", (a_xy, qv, qe, None)),
+            ("geometry b->a", (b_xy, verts, ev, None)),
+            ("kNN polygon G=1", (knn_xy, kv, ke, None))):
+        xy, bv, be, _ = args
+        ms, call = time_ms(lambda: polyline_min_dist_cuda(*args))
+        plain, _ = time_ms(lambda: polyline_min_dist_plain(*args))
+        kern, mems = launches_per_call(lambda: polyline_min_dist_cuda(*args))
+        npts, g = xy.shape[0], bv.shape[0]
+        nbytes = 8 * npts + bv.numel() * 4 + be.numel() + 4 * npts * g
+        nops = 20 * npts * int(be.sum())
+        bnd, by_ = bound_ms(nbytes, nops)
+        rows[label] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bnd,
+                           bound_by=by_, points=npts, boundaries=g,
+                           kernels_per_call=kern)
+        print(f"time polyline_min_dist {label} (N={npts} points, G={g} "
+              f"boundaries of V={bv.shape[1]}): kernel {ms:.6f} ms device "
+              f"({call:.6f} ms per call with its launch), {kern:g} kernel "
+              f"launches and {mems:g} memsets per call, plain PyTorch "
+              f"{plain:.6f} ms, bound {bnd:.6f} ms ({by_}: {nbytes} B, "
+              f"{nops} operations), library none, medians of {REPEATS} "
+              f"calls [{card}]")
+    n_geo = GEOM_WINDOWS * GEOM_WIN
+    print(f"e2e rates: geometry range run_soa {n_geo / geo_secs:.1f} "
+          f"objects/s; kNN run "
+          + ", ".join(f"{k} {len(knn_stream) / t:.1f} points/s"
+                      for k, t in knn_walls.items())
+          + f" [{card}]")
+    profile_run(lambda: run_geometry("cuda", PolygonPolygonRangeQuery,
+                                     chunks, polys), card,
+                "geometry range run_soa")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1495,6 +2054,12 @@ def main(argv=None) -> int:
     # Phases 12-13
     b4_launches, (b4g_ms, b4g_plain, b4g_bound, b4g_by) = check_range(
         dev, card, b4_inputs)
+    # Phases 14-16: the geometry-stream range path and the kNN run.
+    geo_launches, geo_chunks, geo_secs = check_geometry(card)
+    knn_launches, knn_walls, knn_stream = check_knn_run(card)
+    b4_launches += geo_launches + knn_launches
+    b4_shapes = time_geometry(dev, card, geo_chunks, geo_secs, knn_stream,
+                              knn_walls)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -1523,7 +2088,9 @@ def main(argv=None) -> int:
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
          "launches": b4_launches, "max_abs_err": err_b4,
          "ms": b4g_ms, "plain_ms": b4g_plain, "bound_ms": b4g_bound,
-         "bound_by": b4g_by, "library_ms": None},
+         "bound_by": b4g_by, "library_ms": None,
+         "launches_geometry_range": geo_launches,
+         "launches_knn_run": knn_launches, "shapes": b4_shapes},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,23 @@ from spatialflink_tpu_torch.operators.query_config import (  # noqa: F401
     QueryType,
 )
 from spatialflink_tpu_torch.operators.knn_query import (  # noqa: F401
+    KnnWindowResult,
+    PointLineStringKNNQuery,
     PointPointKNNQuery,
+    PointPolygonKNNQuery,
 )
 from spatialflink_tpu_torch.operators.join_query import (  # noqa: F401
     PointPointJoinQuery,
 )
 from spatialflink_tpu_torch.operators.range_query import (  # noqa: F401
+    LineStringLineStringRangeQuery,
+    LineStringPointRangeQuery,
+    LineStringPolygonRangeQuery,
     PointLineStringRangeQuery,
     PointPointRangeQuery,
     PointPolygonRangeQuery,
+    PolygonLineStringRangeQuery,
+    PolygonPointRangeQuery,
+    PolygonPolygonRangeQuery,
     RangeResult,
 )

@@ -21,8 +21,8 @@ import torch
 
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.grid import UniformGrid
-from spatialflink_tpu_torch.models.batch import PointBatch
-from spatialflink_tpu_torch.models.objects import Point
+from spatialflink_tpu_torch.models.batch import GeometryBatch, PointBatch
+from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.operators.query_config import (
     QueryConfiguration,
     QueryType,
@@ -97,12 +97,28 @@ class SpatialOperator:
                                        dtype=np.float64)
         return batch.with_cells(self.grid)
 
+    def geometry_batch(self, events: Sequence[Polygon | LineString],
+                       mesh=None) -> GeometryBatch:
+        """A window's polygons or linestrings as a float64 host batch
+        (centring and the float32 cast happen at ``device_verts``)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU geometry batches) is not ported yet: "
+                "ROADMAP A12")
+        return GeometryBatch.from_objects(events, interner=self.interner,
+                                          dtype=np.float64)
+
     def device_q(self, coords) -> torch.Tensor:
         """Coordinates (any (..., 2) array-like: query points, packed
         boundary vertices) centred and cast to float32 (``center_coords``)
         and shipped to the operator's device."""
         host = center_coords(self.grid, np.asarray(coords, np.float64))
         return ship(host, device=self.device).arrive()[0]
+
+    def device_verts(self, verts: np.ndarray) -> torch.Tensor:
+        """Packed boundary vertices ((..., 2) arrays) on the device:
+        ``device_q`` under the name the geometry paths use."""
+        return self.device_q(verts)
 
 
 def query_cells_of(grid: UniformGrid, query_obj) -> List[int]:

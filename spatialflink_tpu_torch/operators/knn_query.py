@@ -1,33 +1,152 @@
-"""Continuous kNN over wire panes: ``PointPointKNNQuery.run_wire_panes``.
+"""Continuous kNN over a point stream: ``PointPointKNNQuery``,
+``PointPolygonKNNQuery`` and ``PointLineStringKNNQuery``.
 
 The reference's per-cell heap → ``windowAll`` merge
-(knn/PointPointKNNQuery.java:132-201 + KNNQuery.java:204-308) becomes,
-per slide pane, one digest kernel (``ops/wire_knn.py``) and, per window,
-a merge of the window's pane digests plus a top-k (``ops/knn.py``). The
-window results are the JAX package's ``run_wire_panes`` results.
+(knn/PointPointKNNQuery.java:132-201 + KNNQuery.java:204-308) becomes one
+window kernel (``ops/knn.py``): masked distance → per-object minimum →
+top-k. ``run(stream, query_obj, radius, k)`` yields one
+``KnnWindowResult`` per fired window of ``Point`` objects; a polygon or
+linestring query's distances go through B4. ``run_wire_panes`` is the
+headline program: per slide pane one digest kernel
+(``ops/wire_knn.py``), per window a merge of the window's pane digests
+plus a top-k. Window results equal the JAX package's
+``operators/knn_query.py``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Iterable, Iterator, List, Tuple
+
 import numpy as np
 import torch
 
-from spatialflink_tpu_torch.models.objects import Point
+from spatialflink_tpu_torch.models.objects import Point, SpatialObject
 from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
+    center_coords,
     check_oid_range,
+    flags_for_queries,
+    pack_query_geometries,
     ship,
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.ops import wire_codec as wc
 from spatialflink_tpu_torch.ops.compaction import wire_pane_bucket
-from spatialflink_tpu_torch.ops.knn import empty_digest, knn_merge_digest_list
+from spatialflink_tpu_torch.ops.knn import (
+    KnnResult,
+    check_k,
+    empty_digest,
+    knn_merge_digest_list,
+    knn_points_fused,
+    knn_polygon_fused,
+    knn_polyline_fused,
+)
 from spatialflink_tpu_torch.ops.wire_knn import select_wire_digest_step
+from spatialflink_tpu_torch.utils.padding import next_bucket
 from spatialflink_tpu_torch import pipeline as pipeline_mod
 
 
-class PointPointKNNQuery(SpatialOperator):
-    """Point stream, point query: continuous kNN."""
+@dataclass
+class KnnWindowResult:
+    """Ordered top-k of one window (ascending distance, one entry per
+    objID)."""
+
+    start: int
+    end: int
+    neighbors: List[Tuple[str, float, SpatialObject]]  # (objID, dist, obj)
+    window_count: int
+
+
+class _PointStreamKNNQuery(SpatialOperator):
+    """Point stream; query = point, polygon or linestring."""
+
+    query_kind = "point"
+
+    def __init__(self, conf, grid, device="cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        super().__init__(conf, grid, device=device)
+
+    def _packed_query(self, query_obj):
+        """Query vertices and edge mask for the distance evaluation.
+
+        In approximate mode a polygon query becomes its closed bbox ring:
+        0 inside the rectangle, else the min edge distance, the
+        reference's getPointPolygonBBoxMinEuclideanDistance
+        (knn/PointPolygonKNNQuery.java:132-146). A linestring query is
+        not replaced: the reference's approximate branch calls the exact
+        point-to-segments distance (DistanceFunctions.java:87-90), so
+        approximate equals exact there (quirk kept, PARITY.md). A point
+        query has no approximate branch. The cell flags always come from
+        the original geometry."""
+        if self.conf.approximate_query and self.query_kind == "polygon":
+            x0, y0, x1, y1 = query_obj.bbox()
+            ring = np.asarray(
+                [[x0, y0], [x1, y0], [x1, y1], [x0, y1], [x0, y0]],
+                np.float64)
+            return ring, np.ones(4, bool)
+        verts, ev = pack_query_geometries([query_obj])
+        return verts[0], ev[0]
+
+    def run(self, stream: Iterable[Point], query_obj: SpatialObject,
+            radius: float, k: int, dtype=np.float64, mesh=None,
+            driver=None) -> Iterator[KnnWindowResult]:
+        """One ``KnnWindowResult`` per fired window (WindowBased, RealTime
+        micro-batches, CountBased): the JAX operator's plain window loop,
+        errors propagating. A window's segment count is the interned
+        objIDs so far, bucketed to a power of two of at least 64; ``k``
+        above it raises ``ValueError`` in that window, as the reference's
+        top-k does. ``dtype`` is accepted for the JAX signature: the port
+        computes in float32."""
+        if driver is not None:
+            raise NotImplementedError(
+                "driver= (checkpointing, retry, failover) is not ported "
+                "yet: ROADMAP A11")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        flags = flags_for_queries(self.grid, radius, [query_obj])
+        (flags_d,) = ship(flags, device=self.device).arrive()
+        if self.query_kind == "point":
+            query = (self.device_q([query_obj.x, query_obj.y]),)
+            kernel = knn_points_fused
+        else:
+            verts, ev = self._packed_query(query_obj)
+            query = (self.device_verts(verts),
+                     *ship(ev, device=self.device).arrive())
+            kernel = knn_polygon_fused if self.query_kind == "polygon" \
+                else knn_polyline_fused
+        for win in self.windows(stream):
+            batch = self.point_batch(win.events)
+            nseg = next_bucket(max(self.interner.num_segments, 1),
+                               minimum=64)
+            xy_d, valid_d, cell_d, oid_d = ship(
+                center_coords(self.grid, batch.xy), batch.valid, batch.cell,
+                batch.oid, device=self.device).arrive()
+            res = kernel(xy_d, valid_d, cell_d, flags_d, oid_d, *query,
+                         radius, k, nseg)
+            yield self._decode(win, res)
+
+    def _decode(self, win, res: KnnResult) -> KnnWindowResult:
+        nv = int(res.num_valid)
+        segs = res.segment[:nv].cpu().numpy()
+        dists = res.dist[:nv].cpu().numpy()
+        idxs = res.index[:nv].cpu().numpy()
+        neighbors = [
+            (self.interner.lookup(int(s)), float(d), win.events[int(i)])
+            for s, d, i in zip(segs, dists, idxs)
+        ]
+        return KnnWindowResult(win.start, win.end, neighbors,
+                               len(win.events))
+
+
+class PointPointKNNQuery(_PointStreamKNNQuery):
+    """Point stream, point query: continuous kNN
+    (knn/PointPointKNNQuery.java)."""
+
+    query_kind = "point"
 
     def restore_wire_pane_carry(self, carry: dict) -> None:
         """Resume ``run_wire_panes`` from a checkpoint carry (this
@@ -62,7 +181,8 @@ class PointPointKNNQuery(SpatialOperator):
         every pane held zero events (gap windows) are suppressed. Yields
         (start, end, oids, dists, num_valid) per window, oids and dists
         as numpy arrays. Variable pane sizes are padded to
-        ``wire_pane_bucket`` lanes and masked by ``n_valid``.
+        ``wire_pane_bucket`` lanes and masked by ``n_valid``. ``k`` above
+        ``num_segments`` raises ``ValueError`` before the first pane.
 
         ``strategy``: "auto", or the device's own digest step ("cuda" on
         a card, "torch" on the CPU). On a card the first pane is digested
@@ -83,6 +203,7 @@ class PointPointKNNQuery(SpatialOperator):
             raise ValueError(
                 "run_wire_panes requires time-based sliding windows"
             )
+        check_k(k, num_segments)
         size, slide_ms = conf.window_size_ms, conf.slide_step_ms
         if conf.query_type in (QueryType.RealTime, QueryType.RealTimeNaive):
             size = slide_ms = conf.realtime_batch_ms
@@ -314,3 +435,15 @@ class PointPointKNNQuery(SpatialOperator):
         # End-of-call invariant: every consumed REAL pane is in the
         # carry, whether or not its window was emitted.
         self._wire_pane_carry = last_carry
+
+
+class PointPolygonKNNQuery(_PointStreamKNNQuery):
+    """knn/PointPolygonKNNQuery.java: JTS distance, 0 inside the query."""
+
+    query_kind = "polygon"
+
+
+class PointLineStringKNNQuery(_PointStreamKNNQuery):
+    """knn/PointLineStringKNNQuery.java: the min edge distance."""
+
+    query_kind = "linestring"

@@ -1,14 +1,19 @@
-"""Point-stream range queries: ``PointPointRangeQuery``,
-``PointPolygonRangeQuery`` and ``PointLineStringRangeQuery``.
+"""Range queries: the point-stream classes ``PointPointRangeQuery``,
+``PointPolygonRangeQuery`` and ``PointLineStringRangeQuery``, and the
+geometry-stream classes ``Polygon{Point,Polygon,LineString}RangeQuery``
+and ``LineString{Point,Polygon,LineString}RangeQuery``.
 
 ``run(stream, query_set, radius)`` yields one ``RangeResult`` per fired
-window of ``Point`` objects; ``run_soa(chunks, query_set, radius)`` is the
-high-rate path over SoA chunks. The GeoFlink pruning is kept: a point in
-a guaranteed cell is emitted, one in a candidate cell is emitted when its
-exact distance is within the radius (range/RangeQuery.java:37-145). The
+window of objects; ``run_soa(chunks, query_set, radius)`` is the
+high-rate path over SoA chunks (ragged boundary chains for the geometry
+streams). The GeoFlink pruning is kept: an object in a guaranteed cell is
+emitted, one in a candidate cell is emitted when its exact distance is
+within the radius (range/RangeQuery.java:37-145); a polygon or
+linestring takes the highest flag over the cells its bbox overlaps. The
 kernels are ``ops/range.py``'s; every point→edge distance of the polygon
-and linestring paths runs through B4 on the card. Window results equal
-the JAX package's ``operators/range_query.py``.
+and linestring paths, and both directions of every geometry-stream
+distance, run through B4 on the card. Window results equal the JAX
+package's ``operators/range_query.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,10 @@ from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 
+from spatialflink_tpu_torch.models.batch import (
+    GeometryBatch,
+    flag_prefix_planes,
+)
 from spatialflink_tpu_torch.models.objects import Point, SpatialObject
 from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
@@ -29,12 +38,14 @@ from spatialflink_tpu_torch.operators.base import (
     soa_point_batches,
 )
 from spatialflink_tpu_torch.ops.range import (
+    geometry_range_query_kernel,
     range_points_fused,
     range_polygons_fused,
     range_polygons_pruned_compact_fused,
     range_polygons_pruned_fused,
     range_polylines_fused,
 )
+from spatialflink_tpu_torch.streams.soa import RaggedSoaWindowAssembler
 
 
 @dataclass
@@ -258,3 +269,137 @@ class PointLineStringRangeQuery(_PointStreamRangeQuery):
     """range/PointLineStringRangeQuery.java."""
 
     query_kind = "linestring"
+
+
+class _GeometryStreamRangeQuery(SpatialOperator):
+    """Polygon or linestring stream vs a {point, polygon, linestring}
+    query set: per object the min over the queries of
+    ``ops/range.py:geometry_pair_distance`` (0 on containment), flagged by
+    the highest flag over the cells its bbox overlaps."""
+
+    query_kind = "point"
+    stream_polygonal = True
+
+    def __init__(self, conf, grid, device="cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
+        super().__init__(conf, grid, device=device)
+
+    def _kernel_statics(self):
+        return dict(
+            approximate=self.conf.approximate_query,
+            obj_polygonal=self.stream_polygonal,
+            query_polygonal=self.query_kind == "polygon",
+        )
+
+    def _query_arrays(self, query_set):
+        """(qverts, qev) of the packed query set; a point packs as a
+        degenerate 2-vertex polyline."""
+        if self.query_kind == "point":
+            q = pack_query_points(query_set)
+            return (np.repeat(q[:, None, :], 2, axis=1),
+                    np.ones((len(query_set), 1), bool))
+        return pack_query_geometries(query_set)
+
+    def _window_evaluator(self, query_set, radius):
+        """``eval(batch) -> (keep, dist)`` host arrays for a
+        ``GeometryBatch``: the query set packed and shipped once, the
+        per-object flags from the prefix planes of its flag table (shared
+        by ``run`` and ``run_soa``)."""
+        flags = flags_for_queries(self.grid, radius, query_set)
+        prefix = flag_prefix_planes(self.grid, flags)
+        qverts, qev = self._query_arrays(query_set)
+        qv = self.device_verts(qverts)
+        (qe,) = ship(qev, device=self.device).arrive()
+        statics = self._kernel_statics()
+
+        def evaluate(batch: GeometryBatch):
+            oflags = batch.any_cell_flagged(self.grid, flags, prefix=prefix)
+            ev_d, valid_d, oflags_d = ship(
+                batch.edge_valid, batch.valid, oflags,
+                device=self.device).arrive()
+            keep, dist = geometry_range_query_kernel(
+                self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
+                qv, qe, radius, **statics)
+            return keep.cpu().numpy(), dist.cpu().numpy()
+
+        return evaluate
+
+    def run(self, stream: Iterable, query_set, radius: float,
+            dtype=np.float64, mesh=None) -> Iterator[RangeResult]:
+        """One ``RangeResult`` per fired window of ``Polygon`` or
+        ``LineString`` objects (WindowBased, RealTime micro-batches,
+        CountBased). ``dtype`` is accepted for the JAX signature: the port
+        computes in float32."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
+        if not isinstance(query_set, (list, tuple)):
+            query_set = [query_set]
+        evaluate = self._window_evaluator(query_set, radius)
+        for win in self.windows(stream):
+            keep, dist = evaluate(self.geometry_batch(win.events))
+            idx = np.nonzero(keep)[0]
+            yield RangeResult(win.start, win.end,
+                              [win.events[i] for i in idx], dist[idx],
+                              len(win.events))
+
+    def run_soa(self, chunks, query_set, radius: float, dtype=np.float64):
+        """Ragged-SoA path: geometry chunks ``{"ts", "oid", "lengths",
+        "verts"}`` (and optionally ``"edge_valid"``, multi-ring seams
+        False; dense int32 oids) → per window ``(start, end,
+        kept_indices, kept_oids, dists, window_count)``, through the same
+        kernel as ``run`` with no per-object Python."""
+        if not isinstance(query_set, (list, tuple)):
+            query_set = [query_set]
+        evaluate = self._window_evaluator(query_set, radius)
+        asm = RaggedSoaWindowAssembler(
+            self.conf.window_size_ms, self.conf.slide_step_ms,
+            ooo_ms=self.conf.allowed_lateness_ms)
+        for win in asm.stream(chunks):
+            keep, dist = evaluate(GeometryBatch.from_ragged(
+                win.ts, win.oid, win.lengths, win.verts,
+                edge_valid_flat=win.edge_valid, dtype=np.float64))
+            idx = np.nonzero(keep)[0]
+            yield (win.start, win.end, idx, win.oid[idx], dist[idx],
+                   win.count)
+
+
+class PolygonPointRangeQuery(_GeometryStreamRangeQuery):
+    """range/PolygonPointRangeQuery.java."""
+
+    query_kind = "point"
+
+
+class PolygonPolygonRangeQuery(_GeometryStreamRangeQuery):
+    """range/PolygonPolygonRangeQuery.java."""
+
+    query_kind = "polygon"
+
+
+class PolygonLineStringRangeQuery(_GeometryStreamRangeQuery):
+    """range/PolygonLineStringRangeQuery.java."""
+
+    query_kind = "linestring"
+
+
+class LineStringPointRangeQuery(_GeometryStreamRangeQuery):
+    """range/LineStringPointRangeQuery.java."""
+
+    query_kind = "point"
+    stream_polygonal = False
+
+
+class LineStringPolygonRangeQuery(_GeometryStreamRangeQuery):
+    """range/LineStringPolygonRangeQuery.java."""
+
+    query_kind = "polygon"
+    stream_polygonal = False
+
+
+class LineStringLineStringRangeQuery(_GeometryStreamRangeQuery):
+    """range/LineStringLineStringRangeQuery.java."""
+
+    query_kind = "linestring"
+    stream_polygonal = False

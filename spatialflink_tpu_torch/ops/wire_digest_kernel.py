@@ -94,7 +94,7 @@ def wire_digest_plain(wire: torch.Tensor, n_valid: int, query_xy, scale,
     valid = torch.arange(wire.shape[1], device=dev) < n_valid
     radius_t = torch.tensor(r, device=dev)
     count = (valid & (dist <= radius_t)).sum().to(torch.int32)
-    return (_digest_from_point_dists(dist, valid, oid, radius_t,
+    return (_digest_from_point_dists(dist, valid, None, oid, radius_t,
                                      num_segments), count)
 
 

@@ -13,6 +13,10 @@ budget, a constructor argument of ``PointPointJoinQuery``);
 A range deployment holds its query set and, on the pruned polygon paths,
 the grown candidate count and candidate-lane budget;
 ``range_state_from_jax`` turns both into the port's.
+
+Every operator holds its objID interner; ``interner_from_jax`` copies a
+JAX operator's, so a port kNN operator maps every objID to the segment
+the JAX one does (the top-k's tie order is by segment id).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.models import objects
 from spatialflink_tpu_torch.streams.soa import SoaWindowAssembler
+from spatialflink_tpu_torch.utils.interning import Interner
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -118,3 +123,18 @@ def range_state_from_jax(query_set, jax_op=None) -> Tuple[List, dict]:
         if jax_op is not None and hasattr(jax_op, attr):
             kw[key] = int(getattr(jax_op, attr))
     return [_query_from_jax(q) for q in query_set], kw
+
+
+def interner_from_jax(jax_op) -> Interner:
+    """A JAX operator's objID ``Interner`` (or the interner itself), read
+    through its plain Python state (its keys in segment order) → the
+    port's, with every key at the same segment::
+
+        op = PointPolygonKNNQuery(conf, grid)
+        op.interner = interner_from_jax(jax_op)
+    """
+    src = getattr(jax_op, "interner", jax_op)
+    out = Interner()
+    for key in src._to_key:
+        out.intern(key)
+    return out

@@ -8,7 +8,9 @@ Semantics are the JAX package's ``streams/soa.py``: watermark = max_ts −
 ooo; a window fires once when the watermark passes its end; every window
 holding at least one event fires exactly once; events older than every
 live window at consolidation time are dropped and counted
-(``dropped_late``).
+(``dropped_late``). ``SoaWindowAssembler`` takes point chunks,
+``RaggedSoaWindowAssembler`` geometry chunks (each object's packed
+boundary chain, ragged), both on the one watermark state machine.
 """
 
 from __future__ import annotations
@@ -150,3 +152,155 @@ class SoaWindowAssembler(_SlidingAssemblerBase):
 
     def _evict(self, keep_from: int) -> None:
         self._chunks = [{k: v[keep_from:] for k, v in self._chunks[0].items()}]
+
+
+def _ragged_reorder(flat: np.ndarray, lengths: np.ndarray, order: np.ndarray):
+    """Reorder a ragged array (``flat`` rows grouped into ``lengths``-sized
+    runs) by a per-group ``order`` — fully vectorized."""
+    starts = np.concatenate([[0], np.cumsum(lengths)])[:-1]
+    new_lens = lengths[order]
+    total = int(new_lens.sum())
+    pos_base = np.repeat(np.cumsum(new_lens) - new_lens, new_lens)
+    src = (
+        np.repeat(starts[order], new_lens)
+        + np.arange(total, dtype=np.int64)
+        - pos_base
+    )
+    return flat[src], new_lens
+
+
+@dataclass
+class RaggedSoaWindow:
+    """One fired geometry window: object rows + their flat boundary chains.
+
+    ``lengths[i]`` vertices of object ``i`` occupy
+    ``verts[offsets[i]:offsets[i+1]]`` where ``offsets = cumsum``;
+    ``edge_valid`` (optional) is the matching flat (length−1)-run edge
+    mask (multi-ring seams invalid).
+    """
+
+    start: int
+    end: int
+    ts: np.ndarray  # (n,)
+    oid: np.ndarray  # (n,) dense int32
+    lengths: np.ndarray  # (n,)
+    verts: np.ndarray  # (sum lengths, 2)
+    edge_valid: Optional[np.ndarray] = None  # (sum lengths - n,) bool
+
+    @property
+    def count(self) -> int:
+        return len(self.ts)
+
+
+class RaggedSoaWindowAssembler(_SlidingAssemblerBase):
+    """Sliding event-time windows over ragged GEOMETRY chunks.
+
+    Chunks are ``{"ts": (n,), "oid": (n,), "lengths": (n,),
+    "verts": (sum lengths, 2)}``: each object's packed boundary chain
+    (closed rings for polygons, open for polylines). A chunk may carry
+    ``"edge_valid"`` (sum lengths − n,), the flat per-object edge mask
+    whose False entries are the seams of multi-ring objects; every chunk
+    of a stream carries it or none does. Watermark/firing semantics come
+    from the shared state machine (_SlidingAssemblerBase).
+    """
+
+    def __init__(self, size_ms: int, slide_ms: int, ooo_ms: int = 0):
+        super().__init__(size_ms, slide_ms, ooo_ms)
+        self._rows: List[Dict[str, np.ndarray]] = []
+        self._verts: List[np.ndarray] = []
+        self._edges: Optional[List[np.ndarray]] = None
+        self._edge_mode: Optional[bool] = None  # fixed by the first chunk
+
+    def _ingest(self, chunk: Dict[str, np.ndarray]):
+        ts = np.asarray(chunk["ts"], np.int64)
+        if len(ts) == 0:
+            return None
+        lengths = np.asarray(chunk["lengths"], np.int64)
+        oid = np.asarray(chunk["oid"], np.int32)
+        verts = np.asarray(chunk["verts"], np.float64)
+        if not (len(ts) == len(oid) == len(lengths)):
+            raise ValueError(
+                f"ragged chunk row mismatch: ts={len(ts)} oid={len(oid)} "
+                f"lengths={len(lengths)} must be equal"
+            )
+        if int(lengths.sum()) != len(verts):
+            raise ValueError(
+                f"ragged chunk mismatch: lengths sum to {int(lengths.sum())}"
+                f" but verts has {len(verts)} rows — offsets for every later"
+                " object would silently misalign"
+            )
+        edges = chunk.get("edge_valid")
+        if self._edge_mode is None:
+            self._edge_mode = edges is not None
+        elif self._edge_mode != (edges is not None):
+            # Both directions must fail loudly: a mode flip either way
+            # would misalign masks against the edge offsets.
+            raise ValueError(
+                "all chunks of one stream must agree on carrying edge_valid"
+            )
+        if edges is not None:
+            edges = np.asarray(edges, bool)
+            if int((lengths - 1).sum()) != len(edges):
+                raise ValueError(
+                    f"ragged chunk edge-mask mismatch: lengths-1 sums to "
+                    f"{int((lengths - 1).sum())} but edge_valid has "
+                    f"{len(edges)} entries"
+                )
+            if self._edges is None:
+                self._edges = []
+            self._edges.append(edges)
+        self._rows.append({"ts": ts, "oid": oid, "lengths": lengths})
+        self._verts.append(verts)
+        return ts
+
+    def _consolidate(self) -> np.ndarray:
+        if len(self._rows) > 1:
+            rows = {
+                k: np.concatenate([c[k] for c in self._rows])
+                for k in ("ts", "oid", "lengths")
+            }
+            verts = np.concatenate(self._verts)
+        else:
+            rows = self._rows[0]
+            verts = self._verts[0]
+        edges = None
+        if self._edges is not None:
+            edges = (np.concatenate(self._edges) if len(self._edges) > 1
+                     else self._edges[0])
+        ts = rows["ts"]
+        if np.any(ts[:-1] > ts[1:]):  # in-order streams skip the sort
+            order = np.argsort(ts, kind="stable")
+            verts, _ = _ragged_reorder(verts, rows["lengths"], order)
+            if edges is not None:
+                edges, _ = _ragged_reorder(edges, rows["lengths"] - 1, order)
+            rows = {k: v[order] for k, v in rows.items()}
+        self._rows = [rows]
+        self._verts = [verts]
+        if edges is not None:
+            self._edges = [edges]
+        self._offsets = np.concatenate([[0], np.cumsum(rows["lengths"])])
+        self._e_offsets = np.concatenate(
+            [[0], np.cumsum(rows["lengths"] - 1)])
+        return rows["ts"]
+
+    def _window(self, s, e, lo, hi) -> RaggedSoaWindow:
+        rows = self._rows[0]
+        offs = self._offsets
+        ev = None
+        if self._edges is not None:
+            eo = self._e_offsets
+            ev = self._edges[0][eo[lo]:eo[hi]]
+        return RaggedSoaWindow(
+            s, e, rows["ts"][lo:hi], rows["oid"][lo:hi],
+            rows["lengths"][lo:hi],
+            self._verts[0][offs[lo]:offs[hi]],
+            edge_valid=ev,
+        )
+
+    def _evict(self, keep_from: int) -> None:
+        rows = self._rows[0]
+        offs = self._offsets
+        if self._edges is not None:
+            self._edges = [self._edges[0][self._e_offsets[keep_from]:]]
+        self._rows = [{k: v[keep_from:] for k, v in rows.items()}]
+        self._verts = [self._verts[0][offs[keep_from]:]]

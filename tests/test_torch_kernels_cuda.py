@@ -364,3 +364,83 @@ def test_wire_codec_one_launch_cases_on_card(case):
         got = twc.decode_wire_pane_cuda(*args, n=nn, num_segments=s)
         want = twc.decode_wire_pane_plain(*args, n=nn, num_segments=s)
         _bit_equal(got, want)
+
+
+B4_GEOMETRY_CASES = ["geometry_a_to_b", "geometry_b_to_a", "knn_g1",
+                     "all_padding_objects"]
+
+
+def _geometry_boundaries(rng, n, v=16):
+    """``n`` packed closed rings of 4 to min(11, v - 1) distinct vertices
+    in (n, v) slots, the padding vertices at 0 as
+    ``GeometryBatch.from_ragged`` writes them."""
+    m = rng.integers(4, min(12, v), n)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (n, v)), axis=1)
+    c = rng.uniform(-1, 1, (n, 1, 2))
+    verts = c + 0.01 * np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    verts[np.arange(n), m] = verts[:, 0]
+    lane = np.arange(v)
+    verts = np.where((lane <= m[:, None])[..., None], verts, 0.0)
+    ev = lane[None, :v - 1] < m[:, None]
+    return verts.astype(np.float32), ev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B4_GEOMETRY_CASES)
+def test_polyline_min_dist_geometry_shapes_on_card(case):
+    """B4 bit-exact against its plain version at the geometry-range
+    path's two dense shapes (object vertices x query boundaries at the
+    width ``chip_smoke.py`` runs, 131,072 objects of 16 vertex slots x 32
+    queries; query vertices x object boundaries), at the kNN query's one
+    boundary (G = 1), and through the geometry kernel on a batch whose
+    padding objects have no valid edge (FLT_MAX, never kept)."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+    from spatialflink_tpu_torch.ops.range import geometry_range_query_kernel
+
+    rng = np.random.default_rng(11)
+    big = torch.finfo(torch.float32).max
+    if case == "all_padding_objects":
+        verts, ev = _geometry_boundaries(rng, 13)
+        verts = np.concatenate([verts, np.zeros((3, 16, 2), np.float32)])
+        ev = np.concatenate([ev, np.zeros((3, 15), bool)])
+        valid = np.arange(16) < 13
+        flags = np.where(valid, 1, 0).astype(np.uint8)
+        qv, qe = _geometry_boundaries(rng, 4, v=8)
+        host = [torch.from_numpy(a) for a in (verts, ev, valid, flags, qv,
+                                              qe)]
+        for polygonal in (False, True):
+            want = geometry_range_query_kernel(
+                *host, 0.05, obj_polygonal=polygonal,
+                query_polygonal=polygonal)
+            got = geometry_range_query_kernel(
+                *(t.to(dev) for t in host), 0.05, obj_polygonal=polygonal,
+                query_polygonal=polygonal)
+            torch.cuda.synchronize()
+            _bit_equal(got, want)
+            assert torch.all(got[1][13:] == big) and not got[0][13:].any()
+        dense = polyline_min_dist_cuda(
+            torch.from_numpy(qv.reshape(-1, 2)).to(dev),
+            torch.from_numpy(verts).to(dev), torch.from_numpy(ev).to(dev))
+        assert torch.all(dense[:, 13:] == big)
+        return
+    if case == "geometry_a_to_b":
+        objs, _ = _geometry_boundaries(rng, 131_072)
+        pts = objs.reshape(-1, 2)
+        verts, ev = _geometry_boundaries(rng, 32, v=8)
+    elif case == "geometry_b_to_a":
+        qv, _ = _geometry_boundaries(rng, 32, v=8)
+        pts = qv.reshape(-1, 2)
+        verts, ev = _geometry_boundaries(rng, 131_072)
+    else:
+        pts = rng.uniform(-1, 1, (262_144, 2)).astype(np.float32)
+        verts, ev = _geometry_boundaries(rng, 1, v=8)
+    args = [torch.from_numpy(a).to(dev) for a in (pts, verts, ev)]
+    got = polyline_min_dist_cuda(*args)
+    want = polyline_min_dist_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (len(pts), len(verts))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
