@@ -103,7 +103,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
    directions, both containments, the reductions), B4 at this slice's
    three shapes (a->b at N·V x Q, b->a at Q·Vq x N, the kNN query at
    G = 1) beside its bound and plain version, the e2e rates of phases 14
-   and 15, and a profiler pass over phase 14's run.
+   and 15, and a profiler pass over phase 14's run;
+17. run ``PolygonPolygonKNNQuery.run_soa`` at full width on phase 14's
+   stream (4 windows of 131,072 polygons; polygon 0 of config 3's set as
+   the query, r = 0.05 deg, k = 50, 16,384 segments), each window equal to
+   the same operator run on the CPU (starts, ends, ``nv``, oids in order,
+   distance bits) and filling its top-50 through B4, whose launch count
+   must rise by at least 2 a window; then, at 2 windows of 8,192 objects
+   each and against the CPU, the other five classes (Point, Polygon and
+   LineString queries), approximate mode, the multi-ring stream, ``run``
+   on ``Polygon`` objects, and k = 100 over 32 objIDs raising
+   ``ValueError`` on the card as on the CPU;
+18. run ``PointPointKNNQuery.run_soa_panes`` and ``run_soa`` at the JAX
+   suite's config 2 (25 one-second panes of 200,000 points from seed 42,
+   5 s windows sliding by 1 s, 16,384 objIDs, k = 50, r = 0.05), every
+   window equal between the two and to the CPU ``run_soa``; then, at a
+   cut depth (3 panes of 40,000 ``Point`` objects, 2 s windows by 1 s),
+   ``query_panes`` for a point, a polygon (exact and approximate) and a
+   linestring query, each equal to its CPU run and to ``run``; and
+   ``run_multi`` at the suite's multi-query config (64 queries from seed
+   23, k = 10, r = 0.05, 2 windows of 262,144 ``Point`` objects from seed
+   29) equal to its CPU run and, for the first and last query, to ``run``
+   with that query alone, then at 2 windows of 16,384 points with every
+   query equal to ``run`` alone;
+19. time the parts of one full-width geometry kNN window (B4 both ways,
+   both containments, the top-k), B4 at this slice's shapes beside its
+   bound and plain version, the pane digest and merge per pane and per
+   window, the e2e rates of phases 17 and 18, and a profiler pass over
+   phase 17's run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -173,6 +200,27 @@ KNN_RUN_IDS = 16_384
 KNN_RUN_K = 50
 KNN_RUN_R = 0.05
 KNN_RUN_CUT = 20_000
+# Phases 17-19: geometry-stream kNN on phase 14's stream (polygon 0 of
+# config 3's set as the query); the pane-carry and SoA kNN paths at the
+# JAX suite's config 2 (bench_suite.py:235-260: 5 s windows sliding by
+# 1 s, 200,000 points a pane, 25 panes, 16,384 objIDs) and its
+# multi-query config (bench_suite.py:495-527: 64 query points from seed
+# 23, 262,144-point windows from seed 29).
+KNN_GEOM_R = 0.05
+KNN_GEOM_K = 50
+PANE_PTS = 200_000
+PANES = 25
+PANE_WINDOW_S = 5.0
+PANE_K = 50
+PANE_R = 0.05
+QP_PANE_PTS = 40_000
+QP_PANES = 3
+MULTI_Q = 64
+MULTI_K = 10
+MULTI_R = 0.05
+MULTI_WIN = 262_144
+MULTI_WINDOWS = 2
+MULTI_CUT = 16_384
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -1595,9 +1643,18 @@ def knn_query(kind):
     return Point(obj_id="query", x=QUERY[0], y=QUERY[1])
 
 
-def run_knn(device, kind, stream, k=KNN_RUN_K, **conf_kw):
-    """One point-stream kNN ``run``; returns the windows as (start, end,
-    count, objIDs, distance bits, representative (id, ts)), seconds."""
+def knn_results(res):
+    """``KnnWindowResult``s as (start, end, count, objIDs, distance bits,
+    representative (id, ts)) tuples."""
+    return [(r.start, r.end, r.window_count, [n[0] for n in r.neighbors],
+             np.float32([n[1] for n in r.neighbors]).view(np.uint32).tolist(),
+             [(n[2].obj_id, n[2].timestamp) for n in r.neighbors])
+            for r in res]
+
+
+def run_knn(device, kind, stream, k=KNN_RUN_K, method="run", **conf_kw):
+    """One point-stream kNN ``run`` (or ``query_panes``, by ``method``);
+    returns the windows as ``knn_results``, seconds."""
     import torch
 
     from spatialflink_tpu_torch import operators as ops
@@ -1611,13 +1668,11 @@ def run_knn(device, kind, stream, k=KNN_RUN_K, **conf_kw):
     op = cls(ops.QueryConfiguration(**conf_kw), UniformGrid(**BEIJING),
              device=device)
     t0 = time.perf_counter()
-    res = list(op.run(iter(stream), knn_query(kind), KNN_RUN_R, k))
+    res = list(getattr(op, method)(iter(stream), knn_query(kind), KNN_RUN_R,
+                                   k))
     if op.device.type == "cuda":
         torch.cuda.synchronize()
-    return [(r.start, r.end, r.window_count, [n[0] for n in r.neighbors],
-             np.float32([n[1] for n in r.neighbors]).view(np.uint32).tolist(),
-             [(n[2].obj_id, n[2].timestamp) for n in r.neighbors])
-            for r in res], time.perf_counter() - t0
+    return knn_results(res), time.perf_counter() - t0
 
 
 def check_knn_windows(got, want, label, k):
@@ -1845,6 +1900,513 @@ def time_geometry(dev, card, chunks, geo_secs, knn_stream, knn_walls):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-19: geometry-stream kNN, the pane-carry and SoA kNN paths.
+
+
+def run_knn_geometry(device, cls, chunks, query, k=KNN_GEOM_K, **conf_kw):
+    """One geometry-stream kNN ``run_soa``; returns the windows as (start,
+    end, oids, distance bits, nv), seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0, **conf_kw)
+    op = cls(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(chunks, query, KNN_GEOM_R, k, GEOM_OBJECTS))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [(w[0], w[1], w[2].tolist(),
+             np.asarray(w[3], np.float32).view(np.uint32).tolist(), w[4])
+            for w in out], time.perf_counter() - t0
+
+
+def check_topk_windows(got, want, label, k, radius, exact=True):
+    """Window for window equal to the CPU run (starts, ends, ``nv``, ids
+    in order, distance bits); distances ascending and, in exact mode,
+    within the radius. Returns the results per window."""
+    if got != want or not got:
+        raise AssertionError(f"{label}: windows differ from the CPU run")
+    for w in got:
+        d = np.uint32(w[3]).view(np.float32)
+        if len(w[2]) != w[4] or w[4] > k or not np.all(np.diff(d) >= 0) \
+                or not np.all(np.isfinite(d)) \
+                or (exact and not np.all(d <= np.float32(radius))):
+            raise AssertionError(f"{label}: window {w[:2]} malformed")
+    return [w[4] for w in got]
+
+
+def knn_geometry_objects(chunks, n_ids=None):
+    """``geometry_objects`` with the objIDs folded onto ``n_ids``."""
+    from spatialflink_tpu_torch.models.objects import Polygon
+
+    objs = geometry_objects(chunks)
+    if n_ids is None:
+        return objs
+    return [Polygon(obj_id=f"g{int(o.obj_id[1:]) % n_ids}",
+                    timestamp=o.timestamp, rings=o.rings) for o in objs]
+
+
+def run_knn_geometry_objects(device, objs, k=KNN_GEOM_K):
+    """``PolygonPolygonKNNQuery.run`` on ``Polygon`` objects; returns the
+    windows as ``knn_results``, seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PolygonPolygonKNNQuery,
+        QueryConfiguration,
+    )
+
+    op = PolygonPolygonKNNQuery(
+        QueryConfiguration(window_size=1.0, slide_step=1.0),
+        UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(iter(objs), knn_query("polygon"), KNN_GEOM_R, k))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return knn_results(res), time.perf_counter() - t0
+
+
+def check_knn_geometry(card, chunks, gpu="cuda"):
+    """Phase 17: ``PolygonPolygonKNNQuery.run_soa`` at full width on phase
+    14's stream, then the other five classes, approximate mode, the
+    multi-ring stream, ``run`` on ``Polygon`` objects and the C1 error at
+    a cut depth, each against its CPU twin. Returns (B4 launches,
+    seconds of the full-width run)."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    query = knn_query("polygon")
+    polyline_min_dist.launches = 0
+    got, secs = run_knn_geometry(gpu, ops.PolygonPolygonKNNQuery, chunks,
+                                 query)
+    b4_launches = polyline_min_dist.launches
+    want, cpu_secs = run_knn_geometry("cpu", ops.PolygonPolygonKNNQuery,
+                                      chunks, query)
+    sizes = check_topk_windows(got, want, "geometry kNN run_soa",
+                               KNN_GEOM_K, KNN_GEOM_R)
+    if len(got) != GEOM_WINDOWS or min(sizes) < KNN_GEOM_K \
+            or b4_launches < 2 * GEOM_WINDOWS:
+        raise AssertionError(f"geometry kNN run_soa: results {sizes} of "
+                             f"k={KNN_GEOM_K} at r={KNN_GEOM_R}, "
+                             f"{b4_launches} B4 launches")
+    n = GEOM_WINDOWS * GEOM_WIN
+    print(f"e2e geometry kNN run_soa (PolygonPolygon, polygon 0 of config "
+          f"3, r={KNN_GEOM_R}, k={KNN_GEOM_K}): {len(got)} windows, results "
+          f"{sizes}, {n} objects in {secs:.6f} s = {n / secs:.1f} objects/s; "
+          f"launches polyline_min_dist={b4_launches}; windows equal the CPU "
+          f"plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+    cut = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN)
+    lines = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN, polygonal=False)
+    cases = [
+        ("PolygonPoint", ops.PolygonPointKNNQuery, cut, "point", {}),
+        ("PolygonLineString", ops.PolygonLineStringKNNQuery, cut,
+         "linestring", {}),
+        ("LineStringPoint", ops.LineStringPointKNNQuery, lines, "point", {}),
+        ("LineStringPolygon", ops.LineStringPolygonKNNQuery, lines,
+         "polygon", {}),
+        ("LineStringLineString", ops.LineStringLineStringKNNQuery, lines,
+         "linestring", {}),
+        ("PolygonPolygon approximate", ops.PolygonPolygonKNNQuery, cut,
+         "polygon", {"approximate_query": True}),
+        ("LineStringPoint approximate", ops.LineStringPointKNNQuery, lines,
+         "point", {"approximate_query": True}),
+        ("PolygonPolygon multi-ring", ops.PolygonPolygonKNNQuery,
+         geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN, holes=True),
+         "polygon", {}),
+    ]
+    for label, cls, ch, qkind, kw in cases:
+        approx = kw.get("approximate_query", False)
+        polyline_min_dist.launches = 0
+        g, g_secs = run_knn_geometry(gpu, cls, ch, knn_query(qkind), **kw)
+        launched = polyline_min_dist.launches
+        b4_launches += launched
+        w, w_secs = run_knn_geometry("cpu", cls, ch, knn_query(qkind), **kw)
+        h = check_topk_windows(g, w, f"geometry kNN {label}", KNN_GEOM_K,
+                               KNN_GEOM_R, exact=not approx)
+        if sum(h) == 0 or (not approx and launched < 2 * len(ch)):
+            raise AssertionError(f"geometry kNN {label}: results {h}, "
+                                 f"{launched} B4 launches")
+        print(f"e2e geometry kNN run_soa {label}: {len(g)} windows, results "
+              f"{h}, {GEOM_CUT_WINDOWS * GEOM_CUT_WIN} objects in "
+              f"{g_secs:.6f} s; launches polyline_min_dist={launched}; "
+              f"equal to the CPU run ({w_secs:.3f} s) [{card}]")
+
+    objs = knn_geometry_objects(cut)
+    polyline_min_dist.launches = 0
+    g, o_secs = run_knn_geometry_objects(gpu, objs)
+    launched = polyline_min_dist.launches
+    b4_launches += launched
+    w, c_secs = run_knn_geometry_objects("cpu", objs)
+    if g != w or len(g) != GEOM_CUT_WINDOWS or launched < 2 * len(g) \
+            or not all(x[3] for x in g):
+        raise AssertionError("geometry kNN run on Polygon objects differs "
+                             "from the CPU run")
+    print(f"e2e geometry kNN run (Polygon objects): {len(g)} windows, "
+          f"results {[len(x[3]) for x in g]} in {o_secs:.6f} s; launches "
+          f"polyline_min_dist={launched}; equal to the CPU run "
+          f"({c_secs:.3f} s) [{card}]")
+    few = knn_geometry_objects(cut[:1], n_ids=32)
+    raised = []
+    for device in (gpu, "cpu"):
+        try:
+            run_knn_geometry_objects(device, few, k=100)
+        except ValueError as e:
+            raised.append(str(e))
+    if len(raised) != 2:
+        raise AssertionError(f"geometry kNN C1: k=100 over 32 objIDs raised "
+                             f"{len(raised)} of 2 times")
+    print(f"geometry kNN C1: k=100 over 32 objIDs (64 segments) raises "
+          f"ValueError on {gpu} and on the CPU: {raised[0]!r} [{card}]")
+    return b4_launches, secs
+
+
+def pane_chunks():
+    """Config 2's stream as bench_suite.py:47-54 makes it (seed 42): one
+    SoA chunk a one-second pane of ``PANE_PTS`` points, oids over 16,384
+    objects."""
+    n = PANE_PTS * PANES
+    rng = np.random.default_rng(42)
+    xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
+                  axis=1).astype(np.float32)
+    oid = rng.integers(0, NUM_SEGMENTS, n).astype(np.int32)
+    ts = (np.arange(n, dtype=np.int64) * 1000) // PANE_PTS
+    return [{"ts": ts[s:s + PANE_PTS], "x": xy[s:s + PANE_PTS, 0],
+             "y": xy[s:s + PANE_PTS, 1], "oid": oid[s:s + PANE_PTS]}
+            for s in range(0, n, PANE_PTS)]
+
+
+def run_point_soa(device, method, chunks):
+    """One ``PointPointKNNQuery.run_soa`` or ``run_soa_panes`` at config
+    2's windows; returns the windows as (start, end, oids, distance bits,
+    nv), seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+
+    op = PointPointKNNQuery(
+        QueryConfiguration(window_size=PANE_WINDOW_S, slide_step=1.0),
+        UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    out = list(getattr(op, method)(chunks, Point(x=QUERY[0], y=QUERY[1]),
+                                   PANE_R, PANE_K, NUM_SEGMENTS))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [(w[0], w[1], w[2].tolist(),
+             np.asarray(w[3], np.float32).view(np.uint32).tolist(), w[4])
+            for w in out], time.perf_counter() - t0
+
+
+def multi_stream(n_win, per_win):
+    """The multi-query config's points (bench_suite.py:503-515: positions
+    and oids from seed 29) as ``Point`` objects, ``per_win`` a one-second
+    window, and its 64 query points (seed 23)."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    n = n_win * per_win
+    rng = np.random.default_rng(29)
+    xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
+                  axis=1).astype(np.float32).astype(np.float64)
+    oid = rng.integers(0, NUM_SEGMENTS, n)
+    ts = (np.arange(n, dtype=np.int64) * 1000) // per_win
+    pts = [Point(obj_id=f"o{i}", timestamp=int(t), x=x, y=y)
+           for i, t, (x, y) in zip(oid.tolist(), ts.tolist(), xy.tolist())]
+    rq = np.random.default_rng(23)
+    qxy = np.stack([rq.uniform(115.6, 117.5, MULTI_Q),
+                    rq.uniform(39.7, 41.0, MULTI_Q)], axis=1)
+    qxy = qxy.astype(np.float32).astype(np.float64)
+    return pts, [Point(obj_id=f"mq{i}", x=x, y=y)
+                 for i, (x, y) in enumerate(qxy.tolist())]
+
+
+def run_multi(device, stream, queries, query_ids=None):
+    """``PointPointKNNQuery.run_multi`` over ``stream``, or, with
+    ``query_ids``, ``run`` with each of those queries alone. Returns the
+    results per query (each a list of windows as ``knn_results``),
+    seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+
+    def op():
+        return PointPointKNNQuery(
+            QueryConfiguration(window_size=1.0, slide_step=1.0),
+            UniformGrid(**BEIJING), device=device)
+
+    t0 = time.perf_counter()
+    if query_ids is None:
+        multi = list(op().run_multi(iter(stream), queries, MULTI_R, MULTI_K))
+        out = [knn_results([m.results[qi] for m in multi])
+               for qi in range(len(queries))]
+    else:
+        out = [knn_results(op().run(iter(stream), queries[qi], MULTI_R,
+                                    MULTI_K)) for qi in query_ids]
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_knn_panes(card, gpu="cuda"):
+    """Phase 18: ``run_soa_panes`` and ``run_soa`` at config 2's width,
+    each window equal to the other and to the CPU run; then, at a cut
+    depth, ``query_panes`` for point, polygon (exact and approximate) and
+    linestring queries, each equal to its CPU run and to ``run``, and
+    ``run_multi`` at the multi-query config, equal to its CPU run and to
+    ``run`` with a query alone. Returns (B4 launches, e2e rates)."""
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    t0 = time.perf_counter()
+    chunks = pane_chunks()
+    n = PANE_PTS * PANES
+    print(f"data: {PANES} panes x {PANE_PTS} points in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    rates = {}
+    panes, p_secs = run_point_soa(gpu, "run_soa_panes", chunks)
+    soa, s_secs = run_point_soa(gpu, "run_soa", chunks)
+    want, c_secs = run_point_soa("cpu", "run_soa", chunks)
+    sizes = check_topk_windows(panes, want, "run_soa_panes", PANE_K, PANE_R)
+    check_topk_windows(soa, want, "run_soa", PANE_K, PANE_R)
+    if len(panes) != PANES + int(PANE_WINDOW_S) - 1 \
+            or min(sizes) < PANE_K:
+        raise AssertionError(f"run_soa_panes: {len(panes)} windows, results "
+                             f"{sizes}")
+    rates["run_soa_panes"] = n / p_secs
+    rates["run_soa"] = n / s_secs
+    print(f"e2e run_soa_panes (config 2: {PANES} panes of {PANE_PTS}, "
+          f"{PANE_WINDOW_S:g} s windows by 1 s, k={PANE_K}, r={PANE_R}): "
+          f"{len(panes)} windows, all {PANE_K} full, {n} points in "
+          f"{p_secs:.6f} s = {n / p_secs:.1f} points/s; run_soa on the same "
+          f"stream {s_secs:.6f} s = {n / s_secs:.1f} points/s; every window "
+          f"equal between the two and to the CPU run_soa ({c_secs:.3f} s on "
+          f"the host CPU) [{card}]")
+
+    b4_launches = 0
+    stream = knn_points(QP_PANES, QP_PANE_PTS, 7)
+    for label, kind, kw in (
+            ("point", "point", {}), ("polygon", "polygon", {}),
+            ("approximate polygon", "polygon", {"approximate_query": True}),
+            ("linestring", "linestring", {})):
+        polyline_min_dist.launches = 0
+        kw.update(window_size=2.0, slide_step=1.0)
+        got, q_secs = run_knn(gpu, kind, stream, method="query_panes", **kw)
+        launched = polyline_min_dist.launches
+        b4_launches += launched
+        cpu, _ = run_knn("cpu", kind, stream, method="query_panes", **kw)
+        run, _ = run_knn(gpu, kind, stream, **kw)
+        sizes = check_knn_windows(got, cpu, f"query_panes {label}",
+                                  KNN_RUN_K)
+        if got != run or len(got) != QP_PANES + 1 or max(sizes) == 0 or (
+                kind != "point" and launched < QP_PANES):
+            raise AssertionError(f"query_panes {label}: results {sizes}, "
+                                 f"{launched} B4 launches, equal to run: "
+                                 f"{got == run}")
+        rates[f"query_panes {label}"] = len(stream) / q_secs
+        print(f"e2e query_panes {label} (Point objects, {QP_PANES} panes of "
+              f"{QP_PANE_PTS}, 2 s windows by 1 s): {len(got)} windows, "
+              f"results {sizes} in {q_secs:.6f} s = "
+              f"{len(stream) / q_secs:.1f} points/s; launches "
+              f"polyline_min_dist={launched}; equal to the CPU run and to "
+              f"run [{card}]")
+
+    t0 = time.perf_counter()
+    pts, queries = multi_stream(MULTI_WINDOWS, MULTI_WIN)
+    print(f"data: {MULTI_WINDOWS} x {MULTI_WIN} Point objects and "
+          f"{MULTI_Q} query points in {time.perf_counter() - t0:.3f} s "
+          f"(host set-up)")
+    got, m_secs = run_multi(gpu, pts, queries)
+    cpu, mc_secs = run_multi("cpu", pts, queries)
+    alone_ids = [0, MULTI_Q - 1]
+    alone, _ = run_multi(gpu, pts, queries, query_ids=alone_ids)
+    per_q = [sum(check_knn_windows(r, c, f"run_multi query {qi}", MULTI_K))
+             for qi, (r, c) in enumerate(zip(got, cpu))]
+    if [got[i] for i in alone_ids] != alone:
+        raise AssertionError("run_multi differs from run with a query alone")
+    if len(got[0]) != MULTI_WINDOWS or sum(per_q) == 0:
+        raise AssertionError(f"run_multi: results {per_q}")
+    n_m = MULTI_WINDOWS * MULTI_WIN
+    rates["run_multi"] = n_m / m_secs
+    print(f"e2e run_multi ({MULTI_Q} queries, k={MULTI_K}, r={MULTI_R}, "
+          f"{MULTI_WINDOWS} windows of {MULTI_WIN} Point objects): results "
+          f"per query {min(per_q)}-{max(per_q)}, {n_m} points in "
+          f"{m_secs:.6f} s = {n_m / m_secs:.1f} points/s; equal to the CPU "
+          f"run ({mc_secs:.3f} s) and, for queries {alone_ids}, to run with "
+          f"the query alone [{card}]")
+    cut = multi_stream(MULTI_WINDOWS, MULTI_CUT)[0]
+    got, _ = run_multi(gpu, cut, queries)
+    alone, a_secs = run_multi(gpu, cut, queries,
+                              query_ids=list(range(MULTI_Q)))
+    if got != alone or not any(w[3] for r in got for w in r):
+        raise AssertionError("run_multi at the cut differs from run with each "
+                             "query alone")
+    print(f"run_multi at {MULTI_WINDOWS} x {MULTI_CUT} points: every one of "
+          f"the {MULTI_Q} queries equal to run with that query alone "
+          f"({a_secs:.3f} s for the {MULTI_Q} runs) [{card}]")
+    return b4_launches, rates
+
+
+def time_knn(dev, card, chunks, geo_knn_secs, rates):
+    """Phase 19: the parts of one full-width geometry kNN window, B4 at
+    this slice's shapes, the pane digest and merge, the e2e rates of
+    phases 17 and 18, and a profiler pass over phase 17's run. Returns
+    the B4 timing rows by shape."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.batch import (
+        GeometryBatch,
+        flag_prefix_planes,
+    )
+    from spatialflink_tpu_torch.operators import PolygonPolygonKNNQuery
+    from spatialflink_tpu_torch.operators.base import (
+        center_coords,
+        device_point_args,
+        flags_for_queries,
+    )
+    from spatialflink_tpu_torch.ops import knn as tknn
+    from spatialflink_tpu_torch.ops import range as tr
+    from spatialflink_tpu_torch.ops.polygon import points_in_polygons
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    grid = UniformGrid(**BEIJING)
+    query = knn_query("polygon")
+    c = chunks[0]
+    batch = GeometryBatch.from_ragged(c["ts"], c["oid"], c["lengths"],
+                                      c["verts"])
+    flags = flags_for_queries(grid, KNN_GEOM_R, [query])
+    oflags = batch.any_cell_flagged(grid, flags,
+                                    prefix=flag_prefix_planes(grid, flags))
+    qv_np, qe_np = packed_queries(grid, [query])
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    verts, ev, valid, of, oid = (
+        on_card(center_coords(grid, batch.verts)), on_card(batch.edge_valid),
+        on_card(batch.valid), on_card(oflags), on_card(batch.oid))
+    qv, qe = on_card(qv_np[0]), on_card(qe_np[0])
+    n, v = verts.shape[:2]
+    a_xy, b_xy = verts.reshape(n * v, 2), qv
+    d_pair = tr.geometry_pair_distance(verts, ev, qv[None], qe[None], True,
+                                       True)[:, 0]
+    parts = {
+        "B4 a->b (G=1)": time_ms(lambda: polyline_min_dist_cuda(
+            a_xy, qv[None], qe[None]))[0],
+        "B4 b->a": time_ms(lambda: polyline_min_dist_cuda(b_xy, verts,
+                                                          ev))[0],
+        "containment a in b": time_ms(
+            lambda: points_in_polygons(a_xy, qv[None], qe[None]))[0],
+        "containment b in a": time_ms(
+            lambda: points_in_polygons(b_xy, verts, ev))[0],
+        "top-k": time_ms(lambda: tknn._topk_from_point_dists(
+            d_pair, valid, of, oid, KNN_GEOM_R, KNN_GEOM_K,
+            GEOM_OBJECTS))[0],
+        "whole kernel": time_ms(lambda: tknn.knn_geometry_query_kernel(
+            verts, ev, valid, of, oid, qv, qe, KNN_GEOM_R, KNN_GEOM_K,
+            GEOM_OBJECTS, obj_polygonal=True, query_polygonal=True))[0],
+    }
+    print(f"geometry kNN window parts (PolygonPolygon, N={n} objects of "
+          f"V={v}, one query of V={qv.shape[0]}, one window, device ms, "
+          f"medians of {REPEATS}): "
+          + ", ".join(f"{k} {t:.6f}" for k, t in parts.items())
+          + f"; the window's wall in run_soa "
+          f"{1e3 * geo_knn_secs / GEOM_WINDOWS:.6f} ms [{card}]")
+
+    # A config 2 pane on the card (its centred lanes, as run_soa_panes
+    # ships them) for the pane digest, B4 at G = 1 and the merge.
+    pc = pane_chunks()[:5]
+    xy64 = np.stack([pc[0]["x"], pc[0]["y"]], axis=1).astype(np.float64)
+    xy_p, valid_p, cell_p, oid_p = device_point_args(grid, xy64,
+                                                     pc[0]["oid"])
+    pane_xy, pane_ok, pane_oid = (on_card(xy_p), on_card(
+        valid_p & (cell_p < grid.num_cells)), on_card(oid_p))
+    q = on_card(center_coords(grid, [QUERY])[0])
+    digests = [tknn.knn_pane_digest_compact(pane_xy, pane_ok, None, None,
+                                            pane_oid, q, PANE_R, 0,
+                                            NUM_SEGMENTS)] * 5
+    digest_ms = time_ms(lambda: tknn.knn_pane_digest_compact(
+        pane_xy, pane_ok, None, None, pane_oid, q, PANE_R, 0,
+        NUM_SEGMENTS))[0]
+    geo_digest_ms = time_ms(lambda: tknn.knn_pane_digest_geometry_compact(
+        pane_xy, pane_ok, None, None, pane_oid, qv, qe, PANE_R, 0,
+        NUM_SEGMENTS, True))[0]
+    merge_ms = time_ms(lambda: tknn.knn_merge_digest_list(
+        [d.seg_min for d in digests], [d.rep for d in digests],
+        np.zeros(5, np.int32), PANE_K))[0]
+    print(f"pane digest and merge (config 2: a pane of {PANE_PTS} points, "
+          f"{NUM_SEGMENTS} segments, 5 panes a window; device ms, medians "
+          f"of {REPEATS}): point-query digest {digest_ms:.6f} a pane, "
+          f"polygon-query digest (B4 at G = 1 and containment) "
+          f"{geo_digest_ms:.6f} a pane, merge and top-{PANE_K} "
+          f"{merge_ms:.6f} a window; a window's device work "
+          f"{digest_ms + merge_ms:.6f} (one new pane and the merge) "
+          f"[{card}]")
+
+    rows = {}
+    for label, args in (
+            ("kNN geometry a->b G=1", (a_xy, qv[None], qe[None])),
+            ("kNN geometry b->a", (b_xy, verts, ev)),
+            ("pane digest G=1", (pane_xy, qv[None], qe[None]))):
+        xy, bv, be = args
+        ms, call = time_ms(lambda: polyline_min_dist_cuda(*args))
+        plain, _ = time_ms(lambda: polyline_min_dist_plain(*args))
+        kern, mems = launches_per_call(lambda: polyline_min_dist_cuda(*args))
+        npts, g = xy.shape[0], bv.shape[0]
+        nbytes = 8 * npts + bv.numel() * 4 + be.numel() + 4 * npts * g
+        nops = 20 * npts * int(be.sum())
+        bnd, by_ = bound_ms(nbytes, nops)
+        rows[label] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bnd,
+                           bound_by=by_, points=npts, boundaries=g,
+                           kernels_per_call=kern)
+        print(f"time polyline_min_dist {label} (N={npts} points, G={g} "
+              f"boundaries of V={bv.shape[1]}): kernel {ms:.6f} ms device "
+              f"({call:.6f} ms per call with its launch), {kern:g} kernel "
+              f"launches and {mems:g} memsets per call, plain PyTorch "
+              f"{plain:.6f} ms, bound {bnd:.6f} ms ({by_}: {nbytes} B, "
+              f"{nops} operations), library none, medians of {REPEATS} "
+              f"calls [{card}]")
+    n_geo = GEOM_WINDOWS * GEOM_WIN
+    print(f"e2e rates: geometry kNN run_soa {n_geo / geo_knn_secs:.1f} "
+          f"objects/s; "
+          + ", ".join(f"{k} {r:.1f} points/s" for k, r in rates.items())
+          + f" [{card}]")
+    profile_run(lambda: run_knn_geometry("cuda", PolygonPolygonKNNQuery,
+                                         chunks, query), card,
+                "geometry kNN run_soa")
+    return rows
+
+
+
+def run_new_phases(dev, card, geo_chunks):
+    """Phases 17-19, each phase's wall printed. Returns (B4 launches of
+    phase 17, of phase 18, B4 timing rows)."""
+    t0 = time.perf_counter()
+    geo_launches, geo_secs = check_knn_geometry(card, geo_chunks)
+    t1 = time.perf_counter()
+    pane_launches, rates = check_knn_panes(card)
+    t2 = time.perf_counter()
+    rows = time_knn(dev, card, geo_chunks, geo_secs, rates)
+    t3 = time.perf_counter()
+    print(f"phase walls: 17 {t1 - t0:.3f} s, 18 {t2 - t1:.3f} s, 19 "
+          f"{t3 - t2:.3f} s [{card}]")
+    return geo_launches, pane_launches, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1868,6 +2430,7 @@ def main(argv=None) -> int:
     from spatialflink_tpu_torch.grid import UniformGrid
 
     # Phase 1
+    t_start = time.perf_counter()
     card = card_line()
     dev = torch.device("cuda", 0)
     print(card)
@@ -2060,6 +2623,11 @@ def main(argv=None) -> int:
     b4_launches += geo_launches + knn_launches
     b4_shapes = time_geometry(dev, card, geo_chunks, geo_secs, knn_stream,
                               knn_walls)
+    # Phases 17-19: geometry-stream kNN and the pane-carry / SoA kNN paths.
+    knn_geo_launches, knn_pane_launches, knn_shapes = run_new_phases(
+        dev, card, geo_chunks)
+    b4_launches += knn_geo_launches + knn_pane_launches
+    b4_shapes.update(knn_shapes)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -2090,8 +2658,11 @@ def main(argv=None) -> int:
          "ms": b4g_ms, "plain_ms": b4g_plain, "bound_ms": b4g_bound,
          "bound_by": b4g_by, "library_ms": None,
          "launches_geometry_range": geo_launches,
-         "launches_knn_run": knn_launches, "shapes": b4_shapes},
+         "launches_knn_run": knn_launches,
+         "launches_knn_geometry": knn_geo_launches,
+         "launches_knn_panes": knn_pane_launches, "shapes": b4_shapes},
     ]}
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s [{card}]")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,16 @@ from spatialflink_tpu_torch.operators.query_config import (  # noqa: F401
 )
 from spatialflink_tpu_torch.operators.knn_query import (  # noqa: F401
     KnnWindowResult,
+    LineStringLineStringKNNQuery,
+    LineStringPointKNNQuery,
+    LineStringPolygonKNNQuery,
+    MultiKnnWindowResult,
     PointLineStringKNNQuery,
     PointPointKNNQuery,
     PointPolygonKNNQuery,
+    PolygonLineStringKNNQuery,
+    PolygonPointKNNQuery,
+    PolygonPolygonKNNQuery,
 )
 from spatialflink_tpu_torch.operators.join_query import (  # noqa: F401
     PointPointJoinQuery,

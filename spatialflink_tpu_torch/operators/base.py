@@ -90,6 +90,29 @@ class SpatialOperator:
         else:
             yield from self._assembler().stream(stream)
 
+    def _checkpointable_windows(self, stream, flush_at_end: bool = True):
+        """Event-time windows for the pane-carry paths: the assembler is
+        exposed as ``self.checkpoint_assembler``, and ``flush_at_end``
+        False treats the end of the source as a cut (open windows stay
+        buffered in the assembler) rather than the end of the stream."""
+        asm = self._assembler()
+        self.checkpoint_assembler = asm
+        for ev in stream:
+            yield from asm.feed(ev)
+        if flush_at_end:
+            yield from asm.flush()
+
+    def _checkpointable_soa_windows(self, asm, chunks,
+                                    flush_at_end: bool = True):
+        """SoA form of ``_checkpointable_windows``: the caller's assembler
+        (``streams/soa.py``) is exposed as
+        ``self.checkpoint_soa_assembler``."""
+        self.checkpoint_soa_assembler = asm
+        for chunk in chunks:
+            yield from asm.feed(chunk)
+        if flush_at_end:
+            yield from asm.flush()
+
     def point_batch(self, events: Sequence[Point]) -> PointBatch:
         # Host batches stay float64; the float32 cast happens after
         # centring (center_coords), so ~116° magnitudes lose nothing.

@@ -53,6 +53,27 @@ def check_join_backend(join_backend, device_type: str) -> None:
         )
 
 
+def _centered_bbox(grid, bbox: np.ndarray, dtype=np.float32,
+                   pad: bool = True) -> np.ndarray:
+    """A (N, 4) minx, miny, maxx, maxy array centred and cast to float32
+    as the device coordinates are (``center_coords``), so boxes compare
+    in the frame of the vertex and point lanes. ``dtype`` is accepted for
+    the JAX signature.
+
+    ``pad``: each corner moves one float32 ulp outward. The corners round
+    on their own, apart from the vertices, so a box shrunk by the cast
+    could prune a geometry exactly at the radius that the exact kernel
+    keeps; the padded box is a superset. Approximate mode passes
+    ``pad=False``: there the boxes are the distance operands, and padding
+    would bias every reported distance low."""
+    mins = center_coords(grid, bbox[:, 0:2], dtype)
+    maxs = center_coords(grid, bbox[:, 2:4], dtype)
+    if pad:
+        mins = np.nextafter(mins, np.float32(-np.inf))
+        maxs = np.nextafter(maxs, np.float32(np.inf))
+    return np.concatenate([mins, maxs], axis=1)
+
+
 @dataclass
 class JoinWindowResult:
     start: int

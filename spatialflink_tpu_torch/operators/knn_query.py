@@ -1,49 +1,78 @@
-"""Continuous kNN over a point stream: ``PointPointKNNQuery``,
-``PointPolygonKNNQuery`` and ``PointLineStringKNNQuery``.
+"""Continuous kNN: the point-stream classes ``PointPointKNNQuery``,
+``PointPolygonKNNQuery`` and ``PointLineStringKNNQuery``, and the
+geometry-stream classes ``Polygon{Point,Polygon,LineString}KNNQuery`` and
+``LineString{Point,Polygon,LineString}KNNQuery``.
 
 The reference's per-cell heap → ``windowAll`` merge
 (knn/PointPointKNNQuery.java:132-201 + KNNQuery.java:204-308) becomes one
 window kernel (``ops/knn.py``): masked distance → per-object minimum →
 top-k. ``run(stream, query_obj, radius, k)`` yields one
-``KnnWindowResult`` per fired window of ``Point`` objects; a polygon or
-linestring query's distances go through B4. ``run_wire_panes`` is the
-headline program: per slide pane one digest kernel
-(``ops/wire_knn.py``), per window a merge of the window's pane digests
-plus a top-k. Window results equal the JAX package's
+``KnnWindowResult`` per fired window; a polygon or linestring query's
+distances go through B4, and so do both directions of every
+geometry-stream distance. ``run_soa`` is the high-rate path over SoA
+chunks (ragged boundary chains for the geometry streams); ``run_multi``
+answers a batch of query points per window. The pane-carry paths digest
+each slide pane once and merge the window's digests: ``query_panes``
+over objects, ``run_soa_panes`` over SoA chunks, and the headline
+``run_wire_panes`` over wire panes, one B1 digest a pane
+(``ops/wire_knn.py``). Window results equal the JAX package's
 ``operators/knn_query.py``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Iterator, List, Tuple
+from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from spatialflink_tpu_torch.models.objects import Point, SpatialObject
+from spatialflink_tpu_torch.models.batch import (
+    GeometryBatch,
+    flag_prefix_planes,
+)
+from spatialflink_tpu_torch.models.objects import (
+    LineString,
+    Point,
+    Polygon,
+    SpatialObject,
+)
 from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
     center_coords,
     check_oid_range,
+    device_point_args,
     flags_for_queries,
     pack_query_geometries,
     ship,
+    soa_point_batches,
 )
+from spatialflink_tpu_torch.operators.join_query import _centered_bbox
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.ops import wire_codec as wc
 from spatialflink_tpu_torch.ops.compaction import wire_pane_bucket
 from spatialflink_tpu_torch.ops.knn import (
+    F32_BIG,
+    I32_BIG,
     KnnResult,
     check_k,
     empty_digest,
+    knn_geometry_bbox_kernel,
+    knn_geometry_query_kernel,
     knn_merge_digest_list,
+    knn_multi_query_kernel,
+    knn_pane_digest_compact,
+    knn_pane_digest_geometry_compact,
     knn_points_fused,
     knn_polygon_fused,
     knn_polyline_fused,
 )
 from spatialflink_tpu_torch.ops.wire_knn import select_wire_digest_step
-from spatialflink_tpu_torch.utils.padding import next_bucket
+from spatialflink_tpu_torch.streams.soa import (
+    RaggedSoaWindowAssembler,
+    SoaWindowAssembler,
+)
+from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
 from spatialflink_tpu_torch import pipeline as pipeline_mod
 
 
@@ -55,6 +84,16 @@ class KnnWindowResult:
     start: int
     end: int
     neighbors: List[Tuple[str, float, SpatialObject]]  # (objID, dist, obj)
+    window_count: int
+
+
+@dataclass
+class MultiKnnWindowResult:
+    """One window's top-k for every query point of a batched query set."""
+
+    start: int
+    end: int
+    results: List[KnnWindowResult]  # index-aligned with the query batch
     window_count: int
 
 
@@ -142,11 +181,262 @@ class _PointStreamKNNQuery(SpatialOperator):
                                len(win.events))
 
 
+    def query_panes(self, stream: Iterable[Point], query_obj: SpatialObject,
+                    radius: float, k: int, dtype=np.float64,
+                    flush_at_end: bool = True
+                    ) -> Iterator[KnnWindowResult]:
+        """Sliding-window kNN through a pane-digest carry: each
+        ``slide``-wide pane is digested once into per-object (min
+        distance, representative) arrays, and every window's result is a
+        merge and top-k over its ``size/slide`` carried digests
+        (range/PointPointRangeQuery.java:195-296's ListState carry applied
+        to the kNN merge). Equal to ``run()`` for in-order streams; a
+        non-zero ``allowed_lateness`` is rejected, since late refires
+        would double-count carried panes.
+
+        The digests skip the cell flags: for in-grid points the radius
+        test subsumes the pruning of one query. Out-of-extent points
+        (cell ``num_cells``, whose flag is 0) are masked out of ``valid``
+        on the host. ``self._pane_carry`` (pane start → (nseg, seg_min,
+        rep, events), or None for an empty pane) is operator-owned state,
+        its representatives pane-local and offset per window in the
+        merge; ``state.pane_carry_from_jax`` fills it from a JAX
+        operator. ``flush_at_end`` False leaves the open windows in
+        ``self.checkpoint_assembler``."""
+        conf = self.conf
+        if conf.query_type == QueryType.CountBased:
+            raise ValueError("query_panes requires time-based sliding windows")
+        if conf.allowed_lateness_ms > 0:
+            raise ValueError(
+                "query_panes does not support allowed_lateness (late-window "
+                "refires would double-count carried panes); use run()")
+        size, slide = conf.window_size_ms, conf.slide_step_ms
+        if conf.query_type in (QueryType.RealTime, QueryType.RealTimeNaive):
+            size = slide = conf.realtime_batch_ms
+        if size % slide != 0:
+            raise ValueError("query_panes requires size % slide == 0")
+        dev = self.device
+        if self.query_kind == "point":
+            q = self.device_q([query_obj.x, query_obj.y])
+
+            def digest(xy_d, valid_d, oid_d, nseg):
+                return knn_pane_digest_compact(xy_d, valid_d, None, None,
+                                               oid_d, q, radius, 0, nseg)
+        else:
+            verts, ev = self._packed_query(query_obj)
+            qv = self.device_verts(verts)
+            (qe,) = ship(ev, device=dev).arrive()
+            polygonal = self.query_kind == "polygon"
+
+            def digest(xy_d, valid_d, oid_d, nseg):
+                return knn_pane_digest_geometry_compact(
+                    xy_d, valid_d, None, None, oid_d, qv, qe, radius, 0,
+                    nseg, polygonal)
+
+        if getattr(self, "_pane_carry", None) is None:
+            self._pane_carry = {}
+        panes: dict = self._pane_carry
+
+        def grow(entry, nseg):
+            # Re-pad when the interned-id bucket grows (log2 many times
+            # in a stream, not per window).
+            e_nseg, sm, rp, evs = entry
+            pad = nseg - e_nseg
+            return (nseg,
+                    torch.cat([sm, torch.full((pad,), F32_BIG,
+                                              dtype=sm.dtype,
+                                              device=sm.device)]),
+                    torch.cat([rp, torch.full((pad,), I32_BIG,
+                                              dtype=rp.dtype,
+                                              device=rp.device)]),
+                    evs)
+
+        for win in self._checkpointable_windows(stream, flush_at_end):
+            starts = range(win.start, win.end, slide)
+            for ps in starts:
+                if ps in panes:
+                    continue
+                evs = [e for e in win.events if ps <= e.timestamp < ps + slide]
+                if not evs:
+                    panes[ps] = None
+                    continue
+                batch = self.point_batch(evs)
+                nseg = next_bucket(max(self.interner.num_segments, 1),
+                                   minimum=64)
+                in_grid = batch.valid & (batch.cell < self.grid.num_cells)
+                xy_d, in_grid_d, oid_d = ship(
+                    center_coords(self.grid, batch.xy), in_grid, batch.oid,
+                    device=dev).arrive()
+                d = digest(xy_d, in_grid_d, oid_d, nseg)
+                panes[ps] = (nseg, d.seg_min, d.rep, evs)
+            for ps in [p for p in panes if p < win.start]:
+                del panes[ps]
+
+            nseg = max(p[0] for p in panes.values() if p is not None)
+            for ps in starts:
+                if panes[ps] is not None and panes[ps][0] < nseg:
+                    panes[ps] = grow(panes[ps], nseg)
+            live = [panes[ps] for ps in starts]
+            emt = empty_digest(nseg, dev)
+            bases, acc = [], 0
+            for p in live:
+                bases.append(acc)
+                acc += 0 if p is None else len(p[3])
+            res = knn_merge_digest_list(
+                [emt.seg_min if p is None else p[1] for p in live],
+                [emt.rep if p is None else p[2] for p in live], bases, k)
+            spans = [(b, p[3]) for b, p in zip(bases, live) if p is not None]
+            nv = int(res.num_valid)
+            segs = res.segment[:nv].cpu().numpy()
+            dists = res.dist[:nv].cpu().numpy()
+            idxs = res.index[:nv].cpu().numpy()
+            neighbors = []
+            for s, d, gi in zip(segs, dists, idxs):
+                ev = None
+                for base, evs in spans:
+                    if base <= gi < base + len(evs):
+                        ev = evs[gi - base]
+                        break
+                neighbors.append((self.interner.lookup(int(s)), float(d), ev))
+            yield KnnWindowResult(win.start, win.end, neighbors,
+                                  len(win.events))
+
+
 class PointPointKNNQuery(_PointStreamKNNQuery):
     """Point stream, point query: continuous kNN
     (knn/PointPointKNNQuery.java)."""
 
     query_kind = "point"
+
+    def run_soa(self, chunks, query_point: Point, radius: float, k: int,
+                num_segments: int, dtype=np.float64):
+        """High-rate SoA path: chunks of ``{"ts", "x", "y", "oid"}`` arrays
+        → per window ``(start, end, oids, dists, num_valid)``. ``oid``
+        must already be dense ids in [0, num_segments); narrow integer
+        types are widened to int32 on the host. ``dtype`` is accepted for
+        the JAX signature."""
+        dev = self.device
+        flags = flags_for_queries(self.grid, radius, [query_point])
+        (flags_d,) = ship(flags, device=dev).arrive()
+        q = self.device_q([query_point.x, query_point.y])
+        for win, xy, valid, cell, oid in soa_point_batches(
+                self.grid, chunks, self.conf):
+            check_oid_range(oid[:win.count], num_segments)
+            xy_d, valid_d, cell_d, oid_d = ship(xy, valid, cell, oid,
+                                                device=dev).arrive()
+            res = knn_points_fused(xy_d, valid_d, cell_d, flags_d, oid_d, q,
+                                   radius, k, num_segments)
+            nv = int(res.num_valid)
+            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
+                   res.dist[:nv].cpu().numpy(), nv)
+
+    def run_multi(self, stream: Iterable[Point],
+                  query_points: Sequence[Point], radius: float, k: int,
+                  dtype=np.float64, mesh=None
+                  ) -> Iterator[MultiKnnWindowResult]:
+        """Batched multi-query kNN: one ``knn_multi_query_kernel`` call a
+        window answers the whole query set. Each query prunes by its own
+        flag table, so each query's result equals ``run()`` with that
+        query alone. The batch is padded to ``next_bucket(nq, minimum=8)``
+        queries with zero flag tables (empty results, dropped) and taken
+        in chunks of ``min(padded, 32)``."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        nq = len(query_points)
+        if nq == 0:
+            return
+        tables = np.stack([flags_for_queries(self.grid, radius, [q])
+                           for q in query_points])
+        qb = next_bucket(nq, minimum=8)
+        block = min(qb, 32)
+        tables = pad_to_bucket(tables, qb)
+        qxy = pad_to_bucket(
+            np.asarray([[q.x, q.y] for q in query_points], np.float64), qb)
+        (tables_d,) = ship(tables, device=self.device).arrive()
+        q_d = self.device_q(qxy)
+        for win in self.windows(stream):
+            batch = self.point_batch(win.events)
+            nseg = next_bucket(max(self.interner.num_segments, 1),
+                               minimum=64)
+            xy_d, valid_d, cell_d, oid_d = ship(
+                center_coords(self.grid, batch.xy), batch.valid, batch.cell,
+                batch.oid, device=self.device).arrive()
+            res = knn_multi_query_kernel(xy_d, valid_d, cell_d, tables_d,
+                                         oid_d, q_d, radius, k, nseg,
+                                         query_block=block)
+            segs, dists, idxs, nvs = (t.cpu().numpy() for t in (
+                res.segment, res.dist, res.index, res.num_valid))
+            per_query = []
+            for qi in range(nq):
+                neighbors = [
+                    (self.interner.lookup(int(segs[qi, i])),
+                     float(dists[qi, i]), win.events[int(idxs[qi, i])])
+                    for i in range(int(nvs[qi]))
+                ]
+                per_query.append(KnnWindowResult(win.start, win.end,
+                                                 neighbors, len(win.events)))
+            yield MultiKnnWindowResult(win.start, win.end, per_query,
+                                       len(win.events))
+
+    def run_soa_panes(self, chunks, query_point: Point, radius: float,
+                      k: int, num_segments: int, dtype=np.float64,
+                      flush_at_end: bool = True):
+        """SoA pane-digest carry: ``run_soa``'s contract (per window
+        ``(start, end, oids, dists, num_valid)``) with one digest a slide
+        pane, the pane sliced from the window by its timestamps, and a
+        merge of the window's digests. ``self._pane_carry_soa`` (pane
+        start → (seg_min, rep), or None) is operator-owned state; the
+        same in-order, no-lateness caveats as ``query_panes``."""
+        conf = self.conf
+        if conf.allowed_lateness_ms > 0:
+            raise ValueError(
+                "run_soa_panes does not support allowed_lateness; use run_soa")
+        size, slide = conf.window_size_ms, conf.slide_step_ms
+        if size % slide != 0:
+            raise ValueError("run_soa_panes requires size % slide == 0")
+        dev = self.device
+        q = self.device_q([query_point.x, query_point.y])
+        no_bases = np.zeros(size // slide, np.int32)  # indices unused here
+        if getattr(self, "_pane_carry_soa", None) is None:
+            self._pane_carry_soa = {}
+        panes: dict = self._pane_carry_soa
+        emt = empty_digest(num_segments, dev)
+        asm = SoaWindowAssembler(size, slide, ooo_ms=0)
+        for win in self._checkpointable_soa_windows(asm, chunks,
+                                                    flush_at_end):
+            ts = np.asarray(win.arrays["ts"], np.int64)
+            for ps in range(win.start, win.end, slide):
+                if ps in panes:
+                    continue
+                lo = int(np.searchsorted(ts, ps, side="left"))
+                hi = int(np.searchsorted(ts, ps + slide, side="left"))
+                if hi <= lo:
+                    panes[ps] = None
+                    continue
+                # Each pane is checked once, when it is first digested.
+                check_oid_range(win.arrays["oid"][lo:hi], num_segments)
+                xy64 = np.stack(
+                    [np.asarray(win.arrays["x"][lo:hi], np.float64),
+                     np.asarray(win.arrays["y"][lo:hi], np.float64)], axis=1)
+                xy_p, valid_p, cell_p, oid_p = device_point_args(
+                    self.grid, xy64, win.arrays["oid"][lo:hi])
+                in_grid = valid_p & (cell_p < self.grid.num_cells)
+                xy_d, in_grid_d, oid_d = ship(xy_p, in_grid, oid_p,
+                                              device=dev).arrive()
+                d = knn_pane_digest_compact(xy_d, in_grid_d, None, None,
+                                            oid_d, q, radius, 0,
+                                            num_segments)
+                panes[ps] = (d.seg_min, d.rep)
+            for ps in [p for p in panes if p < win.start]:
+                del panes[ps]
+            live = [panes[ps] for ps in range(win.start, win.end, slide)]
+            res = knn_merge_digest_list(
+                [emt.seg_min if p is None else p[0] for p in live],
+                [emt.rep if p is None else p[1] for p in live], no_bases, k)
+            nv = int(res.num_valid)
+            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
+                   res.dist[:nv].cpu().numpy(), nv)
 
     def restore_wire_pane_carry(self, carry: dict) -> None:
         """Resume ``run_wire_panes`` from a checkpoint carry (this
@@ -264,7 +554,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             if not any(counts):
                 return None
             res = knn_merge_digest_list(
-                [s for s, _ in digests], [r for _, r in digests], k,
+                [s for s, _ in digests], [r for _, r in digests], None, k,
             )
             return (start_ms + (pane_i - ppw + 1) * slide_ms, res)
 
@@ -447,3 +737,159 @@ class PointLineStringKNNQuery(_PointStreamKNNQuery):
     """knn/PointLineStringKNNQuery.java: the min edge distance."""
 
     query_kind = "linestring"
+
+
+class _GeometryStreamKNNQuery(SpatialOperator):
+    """Polygon or linestring stream; query point, polygon or linestring.
+
+    The distance per object is ``ops/range.py:geometry_pair_distance`` at
+    the one query (``ops/knn.py:knn_geometry_query_kernel``): the JTS
+    ``getDistance`` of the reference's Polygon and LineString kNN loops
+    (DistanceFunctions.java:15-54), 0 on containment, including a query
+    point inside a polygonal object. A point query packs as a degenerate
+    one-edge boundary. Approximate mode ranks by bbox↔bbox distance
+    (``knn_geometry_bbox_kernel``). Objects take the highest flag over the
+    cells their bbox overlaps."""
+
+    stream_polygonal = True  # Polygon* classes; LineString* override
+
+    def __init__(self, conf, grid, device="cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        super().__init__(conf, grid, device=device)
+
+    def _device_query_bbox(self, query_obj, dtype=np.float64):
+        """The query's bbox, centred, on the device, for approximate mode
+        (a point query's is [x, y, x, y], which reduces bbox↔bbox to the
+        reference's point↔bbox cases, knn/PolygonPointKNNQuery.java:95).
+        Unpadded: this box is a distance operand."""
+        bb = np.asarray([query_obj.bbox()], np.float64)
+        return ship(_centered_bbox(self.grid, bb, dtype, pad=False)[0],
+                    device=self.device).arrive()[0]
+
+    def _query_arrays(self, query_obj):
+        """(qverts, qev, query_polygonal); a point query packs as a
+        degenerate one-edge boundary."""
+        if isinstance(query_obj, Point):
+            qverts = np.asarray(
+                [[query_obj.x, query_obj.y], [query_obj.x, query_obj.y]],
+                np.float64)
+            return qverts, np.asarray([True], bool), False
+        verts, ev = pack_query_geometries([query_obj])
+        return verts[0], ev[0], isinstance(query_obj, Polygon)
+
+    def _window_evaluator(self, query_obj, radius, k):
+        """``eval(batch, nseg) -> KnnResult`` for a ``GeometryBatch``: the
+        query packed and shipped once, the per-object flags from the
+        prefix planes of its flag table (shared by ``run`` and
+        ``run_soa``)."""
+        dev = self.device
+        flags = flags_for_queries(self.grid, radius, [query_obj])
+        prefix = flag_prefix_planes(self.grid, flags)
+        approx = self.conf.approximate_query
+        if approx:
+            qbb = self._device_query_bbox(query_obj)
+        else:
+            qverts, qev, query_polygonal = self._query_arrays(query_obj)
+            qv = self.device_verts(qverts)
+            (qe,) = ship(qev, device=dev).arrive()
+
+        def evaluate(batch: GeometryBatch, nseg: int) -> KnnResult:
+            oflags = batch.any_cell_flagged(self.grid, flags, prefix=prefix)
+            if approx:
+                bb_d, valid_d, oflags_d, oid_d = ship(
+                    _centered_bbox(self.grid, batch.bbox, pad=False),
+                    batch.valid, oflags, batch.oid, device=dev).arrive()
+                return knn_geometry_bbox_kernel(bb_d, valid_d, oflags_d,
+                                                oid_d, qbb, radius, k, nseg)
+            ev_d, valid_d, oflags_d, oid_d = ship(
+                batch.edge_valid, batch.valid, oflags, batch.oid,
+                device=dev).arrive()
+            return knn_geometry_query_kernel(
+                self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
+                oid_d, qv, qe, radius, k, nseg,
+                obj_polygonal=self.stream_polygonal,
+                query_polygonal=query_polygonal)
+
+        return evaluate
+
+    def run(self, stream: Iterable[Polygon | LineString],
+            query_obj: SpatialObject, radius: float, k: int,
+            dtype=np.float64, mesh=None) -> Iterator[KnnWindowResult]:
+        """One ``KnnWindowResult`` per fired window of ``Polygon`` or
+        ``LineString`` objects (WindowBased, RealTime micro-batches,
+        CountBased). A window's segment count is the interned objIDs so
+        far, bucketed to a power of two of at least 64; ``k`` above it
+        raises ``ValueError`` in that window, as the reference's top-k
+        does."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        evaluate = self._window_evaluator(query_obj, radius, k)
+        for win in self.windows(stream):
+            batch = self.geometry_batch(win.events)
+            nseg = next_bucket(max(self.interner.num_segments, 1),
+                               minimum=64)
+            res = evaluate(batch, nseg)
+            nv = int(res.num_valid)
+            segs = res.segment[:nv].cpu().numpy()
+            dists = res.dist[:nv].cpu().numpy()
+            idxs = res.index[:nv].cpu().numpy()
+            neighbors = [
+                (self.interner.lookup(int(s)), float(d), win.events[int(i)])
+                for s, d, i in zip(segs, dists, idxs)
+            ]
+            yield KnnWindowResult(win.start, win.end, neighbors,
+                                  len(win.events))
+
+    def run_soa(self, chunks, query_obj: SpatialObject, radius: float, k: int,
+                num_segments: int, dtype=np.float64):
+        """Ragged-SoA path: geometry chunks ``{"ts", "oid", "lengths",
+        "verts"}`` (and optionally ``"edge_valid"``, multi-ring seams
+        False; dense int32 oids) → per window ``(start, end, oids, dists,
+        num_valid)``, through the same kernel as ``run`` with no
+        per-object Python."""
+        evaluate = self._window_evaluator(query_obj, radius, k)
+        asm = RaggedSoaWindowAssembler(
+            self.conf.window_size_ms, self.conf.slide_step_ms,
+            ooo_ms=self.conf.allowed_lateness_ms)
+        for win in asm.stream(chunks):
+            check_oid_range(win.oid[:win.count], num_segments)
+            res = evaluate(GeometryBatch.from_ragged(
+                win.ts, win.oid, win.lengths, win.verts,
+                edge_valid_flat=win.edge_valid, dtype=np.float64),
+                num_segments)
+            nv = int(res.num_valid)
+            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
+                   res.dist[:nv].cpu().numpy(), nv)
+
+
+class PolygonPointKNNQuery(_GeometryStreamKNNQuery):
+    """knn/PolygonPointKNNQuery.java."""
+
+
+class PolygonPolygonKNNQuery(_GeometryStreamKNNQuery):
+    """knn/PolygonPolygonKNNQuery.java."""
+
+
+class PolygonLineStringKNNQuery(_GeometryStreamKNNQuery):
+    """knn/PolygonLineStringKNNQuery.java."""
+
+
+class LineStringPointKNNQuery(_GeometryStreamKNNQuery):
+    """knn/LineStringPointKNNQuery.java."""
+
+    stream_polygonal = False
+
+
+class LineStringPolygonKNNQuery(_GeometryStreamKNNQuery):
+    """knn/LineStringPolygonKNNQuery.java."""
+
+    stream_polygonal = False
+
+
+class LineStringLineStringKNNQuery(_GeometryStreamKNNQuery):
+    """knn/LineStringLineStringKNNQuery.java."""
+
+    stream_polygonal = False

@@ -94,3 +94,15 @@ def bbox_point_min_distance(p: torch.Tensor, bbox: torch.Tensor
     dy = torch.maximum(torch.clamp(bbox[..., 1] - p[..., 1], min=0),
                        p[..., 1] - bbox[..., 3])
     return sqrt_rn(dx * dx + dy * dy)
+
+
+def bbox_bbox_min_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Min distance between axis-aligned boxes (..., 4) as (minx, miny,
+    maxx, maxy); 0 where they overlap. The closed form of
+    DistanceFunctions.getBBoxBBoxMinEuclideanDistance
+    (DistanceFunctions.java:298-421), used by approximate geometry kNN."""
+    dx = torch.maximum(torch.clamp(b[..., 0] - a[..., 2], min=0),
+                       a[..., 0] - b[..., 2])
+    dy = torch.maximum(torch.clamp(b[..., 1] - a[..., 3], min=0),
+                       a[..., 1] - b[..., 3])
+    return sqrt_rn(dx * dx + dy * dy)

@@ -17,6 +17,11 @@ the grown candidate count and candidate-lane budget;
 Every operator holds its objID interner; ``interner_from_jax`` copies a
 JAX operator's, so a port kNN operator maps every objID to the segment
 the JAX one does (the top-k's tie order is by segment id).
+
+A pane-carry kNN deployment (``query_panes``, ``run_soa_panes``) holds
+the digests of its live panes; ``pane_carry_from_jax`` turns the JAX
+operator's into the port's, so a port operator given them and the
+interner continues the JAX operator's windows.
 """
 
 from __future__ import annotations
@@ -138,3 +143,35 @@ def interner_from_jax(jax_op) -> Interner:
     for key in src._to_key:
         out.intern(key)
     return out
+
+
+def pane_carry_from_jax(jax_op, device="cuda") -> Tuple[Optional[dict],
+                                                        Optional[dict]]:
+    """A JAX kNN operator's pane carries → the port's, on ``device``:
+    ``_pane_carry`` (``query_panes``: pane start → (nseg, seg_min, rep,
+    events), or None for an empty pane) with each event copied into a
+    port object, and ``_pane_carry_soa`` (``run_soa_panes``: pane start →
+    (seg_min, rep), or None). Either is None where the JAX operator has
+    none::
+
+        op.interner = interner_from_jax(jax_op)
+        op._pane_carry, op._pane_carry_soa = pane_carry_from_jax(jax_op)
+    """
+    dev = resolve_device(device)
+
+    def digest(sm, rp):
+        return (_tensor(sm, np.float32, dev), _tensor(rp, np.int32, dev))
+
+    panes = getattr(jax_op, "_pane_carry", None)
+    soa = getattr(jax_op, "_pane_carry_soa", None)
+    if panes is not None:
+        panes = {
+            int(ps): None if e is None else (
+                int(e[0]), *digest(e[1], e[2]),
+                [_query_from_jax(ev) for ev in e[3]])
+            for ps, e in panes.items()
+        }
+    if soa is not None:
+        soa = {int(ps): None if e is None else digest(*e)
+               for ps, e in soa.items()}
+    return panes, soa

@@ -444,3 +444,79 @@ def test_polyline_min_dist_geometry_shapes_on_card(case):
     torch.cuda.synchronize()
     assert got.shape == (len(pts), len(verts))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+B4_KNN_GEOMETRY_CASES = ["a_to_b_g1", "b_to_a_8_x_131072", "point_query"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B4_KNN_GEOMETRY_CASES)
+def test_polyline_min_dist_knn_geometry_shapes_on_card(case):
+    """B4 bit-exact against its plain version at the geometry kNN path's
+    shapes (``chip_smoke.py`` runs them at this width): the object
+    vertices of 131,072 boundaries of 16 slots against one query boundary
+    of 8 (G = 1); the query's 8 vertices against the 131,072 object
+    boundaries; and a point query's degenerate one-edge boundary (2
+    vertices) both ways."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rng = np.random.default_rng(12)
+    objs, oev = _geometry_boundaries(rng, 131_072)
+    qv, qe = _geometry_boundaries(rng, 1, v=8)
+    pt = rng.uniform(-1, 1, (1, 1, 2)).astype(np.float32)
+    pv, pe = np.repeat(pt, 2, axis=1), np.ones((1, 1), bool)
+    calls = {
+        "a_to_b_g1": [(objs.reshape(-1, 2), qv, qe)],
+        "b_to_a_8_x_131072": [(qv.reshape(-1, 2), objs, oev)],
+        "point_query": [(objs.reshape(-1, 2), pv, pe),
+                        (pv.reshape(-1, 2), objs, oev)],
+    }[case]
+    for host in calls:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in host]
+        got = polyline_min_dist_cuda(*args)
+        want = polyline_min_dist_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (len(host[0]), len(host[1]))
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["point", "polygon", "linestring"])
+def test_knn_geometry_query_kernel_on_card_equals_cpu(query):
+    """``knn_geometry_query_kernel`` on the card (B4 both ways) equals its
+    CPU run (the plain versions) for 8,192 polygon objects: segments,
+    representatives, ``num_valid`` and distance bits."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.knn import knn_geometry_query_kernel
+
+    rng = np.random.default_rng(13)
+    verts, ev = _geometry_boundaries(rng, 8192)
+    valid = np.arange(8192) < 8000
+    flags = rng.integers(0, 3, 8192).astype(np.uint8)
+    oid = rng.integers(0, 1024, 8192).astype(np.int32)
+    if query == "point":
+        qv = np.repeat(rng.uniform(-0.5, 0.5, (1, 2)), 2,
+                       axis=0).astype(np.float32)
+        qe, qpoly = np.ones(1, bool), False
+    else:
+        ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+        ring = 0.3 * np.stack([np.cos(ang), np.sin(ang)], axis=1)
+        qv = np.concatenate([ring, ring[:1]]).astype(np.float32)
+        qe = np.ones(7, bool)
+        if query == "linestring":
+            qe[-1] = False  # the closing edge: an open polyline
+        qpoly = query == "polygon"
+    host = [torch.from_numpy(a) for a in (verts, ev, valid, flags, oid, qv,
+                                          qe)]
+    kw = dict(k=50, num_segments=1024, obj_polygonal=True,
+              query_polygonal=qpoly)
+    want = knn_geometry_query_kernel(*host, 0.2, **kw)
+    got = knn_geometry_query_kernel(*(t.to(dev) for t in host), 0.2, **kw)
+    torch.cuda.synchronize()
+    _bit_equal(got, want)
+    assert int(want.num_valid) == 50

@@ -296,7 +296,7 @@ def test_merge_digests_matches_jax():
     rp = np.where(sm < big, rng.integers(0, 9999, (3, NSEG)),
                   np.iinfo(np.int32).max).astype(np.int32)
     got = tknn.knn_merge_digest_list(list(torch.from_numpy(sm)),
-                                     list(torch.from_numpy(rp)), K)
+                                     list(torch.from_numpy(rp)), None, K)
     want = jknn.knn_merge_digests(jnp.asarray(sm), jnp.asarray(rp), K)
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), np.asarray(b))
