@@ -130,7 +130,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
    both containments, the top-k), B4 at this slice's shapes beside its
    bound and plain version, the pane digest and merge per pane and per
    window, the e2e rates of phases 17 and 18, and a profiler pass over
-   phase 17's run.
+   phase 17's run;
+20. run ``PointPolygonJoinQuery.run_soa`` at the JAX suite's
+   join_point_1000polygons, uncut (8 one-second windows of 131,072 points
+   from seed 19 ⋈ the 1,000 zone polygons of seed 13, sent as a ragged
+   stream each window; r = 0.002, Beijing grid n = 100), each window
+   equal to the same operator run on the CPU (starts, ends, point and
+   polygon indices in order, distance bits, counts), the pair total
+   printed beside the suite's recorded 156,132, and B4's launch count up
+   by at least 1 a window; then, at 2 windows of 8,192 points and against
+   the CPU: ``PointLineStringJoinQuery`` (the outlines opened), both
+   approximate modes (emit-all and ``PolygonPointJoinQuery``'s bbox
+   distance), ``LineStringPointJoinQuery`` and ``run`` on ``Point`` and
+   ``Polygon`` objects;
+21. run ``PolygonPolygonJoinQuery.run_soa`` on phase 14's stream (4 ×
+   131,072 polygons) ⋈ config 3's 1,000 polygons at r = 0.002, each
+   window equal to the CPU run and B4 up by at least 2 a window; then, at
+   2 × 8,192, the other three geometry classes, approximate mode, the
+   multi-ring stream and ``run`` on objects; then
+   ``PointPointJoinQuery.query_panes`` on 3 panes of 20,000 ``Point``
+   objects a side (2 s windows by 1 s, r = 0.002), each window equal to
+   its CPU run in order and to ``run`` as a multiset, B3 launched once for
+   each new block of two non-empty panes;
+22. time the parts of one phase-20 window (the bbox prune and
+   first-``cand``, B4 gathered, containment, ``_compact_pairs``) and of
+   one phase-21 window (B4 both ways gathered, both containments, the
+   compaction), B4 at these gathered shapes beside its bound and plain
+   version, the e2e rates of phases 20 and 21, and a profiler pass over
+   phase 20's run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -221,6 +248,22 @@ MULTI_R = 0.05
 MULTI_WIN = 262_144
 MULTI_WINDOWS = 2
 MULTI_CUT = 16_384
+
+# Phases 20-22: the rest of the join. Phase 20 is the JAX suite's
+# join_point_1000polygons (bench_suite.py:792-934: 8 windows of 131,072
+# points from seed 19 ⋈ 1,000 zone polygons from seed 13, r = 0.002,
+# Beijing grid n = 100), uncut; phase 21 joins phase 14's polygon stream
+# with config 3's 1,000 polygons; the other classes run at 2 windows of
+# 8,192, and query_panes at 3 panes of 20,000 Points a side.
+PG_WIN = 131_072
+PG_WINDOWS = 8
+PG_POLYS = 1000
+PG_R = 0.002
+SUITE_PG_PAIRS = 156_132  # BENCH_SUITE.json, join_point_1000polygons
+JOIN_CUT_WIN = 8_192
+JOIN_CUT_WINDOWS = 2
+QPJ_PANE_PTS = 20_000
+QPJ_PANES = 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -2392,6 +2435,540 @@ def time_knn(dev, card, chunks, geo_knn_secs, rates):
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-22: the rest of the join (the geometry joins, query_panes).
+
+
+def pg_points():
+    """The suite's join_point_1000polygons points: the positions of
+    ``_stream(8 * 131_072, seed=19)`` (bench_suite.py:47-55, :825), drawn
+    in one call, re-timed to ``PG_WIN`` points a second."""
+    xy = join_stream(PG_WINDOWS * PG_WIN, 19)
+    ts = (np.arange(len(xy), dtype=np.int64) * 1000) // PG_WIN
+    return xy, ts
+
+
+def point_chunks(xy, ts, per_win):
+    """One SoA point chunk a one-second window."""
+    return [{"ts": ts[s:s + per_win], "x": xy[s:s + per_win, 0],
+             "y": xy[s:s + per_win, 1]}
+            for s in range(0, len(xy), per_win)]
+
+
+def pg_polygons():
+    """The suite's 1,000 zone polygons (bench_suite.py:812-814)."""
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    return generate_query_polygons(PG_POLYS, 115.5, 39.6, 117.6, 41.1,
+                                   grid_size=100, seed=13)
+
+
+def polygon_chunks(polys, n_win, polygonal=True):
+    """``polys`` (closed 5-vertex rings) as a ragged stream, all of them in
+    every one-second window (ts spread over the window); ``polygonal``
+    False sends their outlines opened (4 vertices)."""
+    rings = [p.rings[0] if polygonal else p.rings[0][:4] for p in polys]
+    m = len(rings)
+    verts = np.concatenate(rings)
+    lengths = np.array([len(r) for r in rings], np.int64)
+    return [{"ts": w * 1000 + (np.arange(m, dtype=np.int64) * 1000) // m,
+             "oid": np.arange(m, dtype=np.int32), "lengths": lengths,
+             "verts": verts} for w in range(n_win)]
+
+
+def polygon_objects(polys, n_win):
+    """``polys`` as ``Polygon`` objects, all of them in every window."""
+    from spatialflink_tpu_torch.models.objects import Polygon
+
+    m = len(polys)
+    return [Polygon(obj_id=p.obj_id, timestamp=w * 1000 + i * 1000 // m,
+                    rings=p.rings)
+            for w in range(n_win) for i, p in enumerate(polys)]
+
+
+def run_join_soa(device, cls, left, right, radius, **conf_kw):
+    """One geometry-join ``run_soa`` in one-second windows; returns the
+    windows as (start, end, left idx, right idx, distance bits, count),
+    seconds and the operator (its grown retry state)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0, **conf_kw)
+    op = cls(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(left, right, radius))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return [(w[0], w[1], w[2], w[3],
+             np.asarray(w[4], np.float32).view(np.uint32), w[5])
+            for w in out], secs, op
+
+
+def check_join_windows(got, want, label, radius, exact=True):
+    """Window for window equal to the CPU run: starts, ends, counts, both
+    index arrays in order, distance bits; distances finite and, in exact
+    mode, within the radius. Returns the pairs per window."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} windows vs {len(want)}")
+    for g, w in zip(got, want):
+        if (g[0], g[1], g[5]) != (w[0], w[1], w[5]) or not all(
+                np.array_equal(a, b) for a, b in zip(g[2:5], w[2:5])):
+            raise AssertionError(f"{label}: window {g[:2]} differs from the "
+                                 f"CPU run")
+        d = g[4].view(np.float32)
+        if len(g[2]) != g[5] or np.any(g[2] < 0) or np.any(g[3] < 0) \
+                or not np.all(np.isfinite(d)) \
+                or (exact and not np.all(d <= np.float32(radius))):
+            raise AssertionError(f"{label}: window {g[:2]} malformed")
+    return [g[5] for g in got]
+
+
+def run_join_objects(device, cls, left, right, radius):
+    """A geometry join's ``run`` on objects; returns the windows as
+    (start, end, count, [(left id, ts, right id, ts, distance bits)])
+    and seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    op = cls(QueryConfiguration(window_size=1.0, slide_step=1.0),
+             UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(iter(left), iter(right), radius))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [(r.start, r.end, r.window_count,
+             [(a.obj_id, a.timestamp, b.obj_id, b.timestamp,
+               int(np.float32(d).view(np.uint32))) for a, b, d in r.pairs])
+            for r in res], time.perf_counter() - t0
+
+
+def join_cut_cases(gpu, card, cases, label_of):
+    """Each (label, class, left, right, conf) case on ``gpu`` and on the
+    CPU, the windows equal; B4 launched at least ``min_b4`` times in
+    exact mode. Returns the B4 launches."""
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    total = 0
+    for label, cls, left, right, kw, min_b4 in cases:
+        approx = kw.get("approximate_query", False)
+        polyline_min_dist.launches = 0
+        g, g_secs, op = run_join_soa(gpu, cls, left, right, PG_R, **kw)
+        launched = polyline_min_dist.launches
+        total += launched
+        w, w_secs, _ = run_join_soa("cpu", cls, left, right, PG_R, **kw)
+        h = check_join_windows(g, w, f"{label_of} {label}", PG_R,
+                               exact=not approx)
+        if sum(h) == 0 or (approx and launched) or (
+                not approx and launched < min_b4):
+            raise AssertionError(f"{label_of} {label}: pairs {h}, "
+                                 f"{launched} B4 launches")
+        print(f"e2e {label_of} run_soa {label}: {len(g)} windows, pairs {h} "
+              f"in {g_secs:.6f} s; launches polyline_min_dist={launched}; "
+              f"cand {op._cand}, pair_cap {op._pair_cap}, budget "
+              f"{op._geom_max_pairs}; equal to the CPU run ({w_secs:.3f} s) "
+              f"[{card}]")
+    return total
+
+
+def check_join_point_geometry(card, gpu="cuda"):
+    """Phase 20: ``PointPolygonJoinQuery.run_soa`` at the suite's
+    join_point_1000polygons, then the other point ⋈ geometry paths at a
+    cut depth, each against its CPU twin. Returns (B4 launches, seconds
+    and the operator of the full-width run, the full-width inputs)."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    t0 = time.perf_counter()
+    xy, ts = pg_points()
+    polys = pg_polygons()
+    left = point_chunks(xy, ts, PG_WIN)
+    right = polygon_chunks(polys, PG_WINDOWS)
+    print(f"data: {PG_WINDOWS} x {PG_WIN} points and {len(polys)} polygons "
+          f"a window in {time.perf_counter() - t0:.3f} s (host set-up)")
+    polyline_min_dist.launches = 0
+    got, secs, op = run_join_soa(gpu, ops.PointPolygonJoinQuery, left,
+                                 right, PG_R)
+    b4_launches = polyline_min_dist.launches
+    want, cpu_secs, _ = run_join_soa("cpu", ops.PointPolygonJoinQuery, left,
+                                     right, PG_R)
+    pairs = check_join_windows(got, want, "point-polygon join run_soa",
+                               PG_R)
+    if len(got) != PG_WINDOWS or b4_launches < PG_WINDOWS:
+        raise AssertionError(f"point-polygon join run_soa: {len(got)} "
+                             f"windows, {b4_launches} B4 launches")
+    n = PG_WINDOWS * PG_WIN
+    print(f"e2e point-polygon join run_soa (join_point_1000polygons: "
+          f"{PG_WINDOWS} x {PG_WIN} points, {len(polys)} polygons, "
+          f"r={PG_R}): pairs per window {pairs}, {sum(pairs)} in all (the "
+          f"JAX suite recorded {SUITE_PG_PAIRS} from uncentred float32 "
+          f"coordinates, BENCH_SUITE.json; a sanity check, not a gate), "
+          f"{n} points in {secs:.6f} s = {n / secs:.1f} points/s; launches "
+          f"polyline_min_dist={b4_launches}; cand {op._cand}, pair_cap "
+          f"{op._pair_cap}, budget {op._geom_max_pairs}; windows equal the "
+          f"CPU plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+    cut_n = JOIN_CUT_WINDOWS * JOIN_CUT_WIN
+    cut_ts = (np.arange(cut_n, dtype=np.int64) * 1000) // JOIN_CUT_WIN
+    cut = point_chunks(xy[:cut_n], cut_ts, JOIN_CUT_WIN)
+    c_polys = polygon_chunks(polys, JOIN_CUT_WINDOWS)
+    c_lines = polygon_chunks(polys, JOIN_CUT_WINDOWS, polygonal=False)
+    w = JOIN_CUT_WINDOWS
+    b4_launches += join_cut_cases(gpu, card, [
+        ("PointLineString", ops.PointLineStringJoinQuery, cut, c_lines, {},
+         w),
+        ("PointPolygon approximate (emit all)", ops.PointPolygonJoinQuery,
+         cut, c_polys, {"approximate_query": True}, 0),
+        ("PolygonPoint approximate (bbox distance)",
+         ops.PolygonPointJoinQuery, cut, c_polys,
+         {"approximate_query": True}, 0),
+        ("LineStringPoint", ops.LineStringPointJoinQuery, cut, c_lines, {},
+         w),
+    ], "point-geometry join")
+
+    from spatialflink_tpu_torch.models.objects import Point
+
+    pts = [Point(obj_id=f"p{i}", timestamp=int(t), x=float(x), y=float(y))
+           for i, (t, (x, y)) in enumerate(zip(
+               cut_ts.tolist(), xy[:cut_n].astype(np.float64).tolist()))]
+    pobjs = polygon_objects(polys, JOIN_CUT_WINDOWS)
+    polyline_min_dist.launches = 0
+    g, o_secs = run_join_objects(gpu, ops.PointPolygonJoinQuery, pts, pobjs,
+                                 PG_R)
+    launched = polyline_min_dist.launches
+    b4_launches += launched
+    w_, c_secs = run_join_objects("cpu", ops.PointPolygonJoinQuery, pts,
+                                  pobjs, PG_R)
+    if g != w_ or len(g) != JOIN_CUT_WINDOWS or launched < len(g) \
+            or not all(x[3] for x in g):
+        raise AssertionError("point-polygon join run on objects differs "
+                             "from the CPU run")
+    print(f"e2e point-polygon join run (Point and Polygon objects): "
+          f"{len(g)} windows, pairs {[len(x[3]) for x in g]} in "
+          f"{o_secs:.6f} s; launches polyline_min_dist={launched}; equal to "
+          f"the CPU run ({c_secs:.3f} s) [{card}]")
+    return b4_launches, secs, op, (left, right)
+
+
+def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
+    """Phase 21: ``PolygonPolygonJoinQuery.run_soa`` on phase 14's stream
+    against config 3's 1,000 polygons, the other classes, approximate
+    mode, the multi-ring stream and ``run`` at a cut depth, each against
+    its CPU twin. Returns (B4 launches, seconds and operator of the
+    full-width run, its inputs)."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    polys = range_polygons()
+    right = polygon_chunks(polys, GEOM_WINDOWS)
+    polyline_min_dist.launches = 0
+    got, secs, op = run_join_soa(gpu, ops.PolygonPolygonJoinQuery,
+                                 geo_chunks, right, PG_R)
+    b4_launches = polyline_min_dist.launches
+    want, cpu_secs, _ = run_join_soa("cpu", ops.PolygonPolygonJoinQuery,
+                                     geo_chunks, right, PG_R)
+    pairs = check_join_windows(got, want, "polygon-polygon join run_soa",
+                               PG_R)
+    if len(got) != GEOM_WINDOWS or b4_launches < 2 * GEOM_WINDOWS \
+            or min(pairs) == 0:
+        raise AssertionError(f"polygon-polygon join run_soa: pairs {pairs}, "
+                             f"{b4_launches} B4 launches")
+    n = GEOM_WINDOWS * GEOM_WIN
+    print(f"e2e polygon-polygon join run_soa ({GEOM_WINDOWS} x {GEOM_WIN} "
+          f"polygons of phase 14 ⋈ config 3's {len(polys)} polygons, "
+          f"r={PG_R}): pairs per window {pairs}, {n} objects in "
+          f"{secs:.6f} s = {n / secs:.1f} objects/s; launches "
+          f"polyline_min_dist={b4_launches}; cand {op._cand}, pair_cap "
+          f"{op._pair_cap}, budget {op._geom_max_pairs}; windows equal the "
+          f"CPU plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+    w = JOIN_CUT_WINDOWS
+    cut = geometry_chunks(w, JOIN_CUT_WIN)
+    lines = geometry_chunks(w, JOIN_CUT_WIN, polygonal=False)
+    c_polys = polygon_chunks(polys, w)
+    c_lines = polygon_chunks(polys, w, polygonal=False)
+    b4_launches += join_cut_cases(gpu, card, [
+        ("PolygonLineString", ops.PolygonLineStringJoinQuery, cut, c_lines,
+         {}, 2 * w),
+        ("LineStringPolygon", ops.LineStringPolygonJoinQuery, lines,
+         c_polys, {}, 2 * w),
+        ("LineStringLineString", ops.LineStringLineStringJoinQuery, lines,
+         c_lines, {}, 2 * w),
+        ("PolygonPolygon approximate", ops.PolygonPolygonJoinQuery, cut,
+         c_polys, {"approximate_query": True}, 0),
+        ("PolygonPolygon multi-ring", ops.PolygonPolygonJoinQuery,
+         geometry_chunks(w, JOIN_CUT_WIN, holes=True), c_polys, {}, 2 * w),
+    ], "geometry-geometry join")
+
+    objs = geometry_objects(cut)
+    pobjs = polygon_objects(polys, w)
+    polyline_min_dist.launches = 0
+    g, o_secs = run_join_objects(gpu, ops.PolygonPolygonJoinQuery, objs,
+                                 pobjs, PG_R)
+    launched = polyline_min_dist.launches
+    b4_launches += launched
+    w_, c_secs = run_join_objects("cpu", ops.PolygonPolygonJoinQuery, objs,
+                                  pobjs, PG_R)
+    if g != w_ or len(g) != w or launched < 2 * len(g) \
+            or not all(x[3] for x in g):
+        raise AssertionError("polygon-polygon join run on objects differs "
+                             "from the CPU run")
+    print(f"e2e polygon-polygon join run (Polygon objects): {len(g)} "
+          f"windows, pairs {[len(x[3]) for x in g]} in {o_secs:.6f} s; "
+          f"launches polyline_min_dist={launched}; equal to the CPU run "
+          f"({c_secs:.3f} s) [{card}]")
+    return b4_launches, secs, op, (geo_chunks, right)
+
+
+def run_query_panes(device, streams, method="query_panes", launches=None):
+    """``PointPointJoinQuery.query_panes`` (or ``run``) over the two
+    ``Point`` streams in 2 s windows by 1 s. Returns the windows as
+    (start, end, overflow, count, [(left id, ts, right id, ts, distance
+    bits)]) and seconds; ``launches``, a list, collects B3's launch count
+    after each window."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    op = PointPointJoinQuery(
+        QueryConfiguration(window_size=2.0, slide_step=1.0),
+        UniformGrid(**BEIJING), cap=JOIN_CAP, device=device)
+    out = []
+    t0 = time.perf_counter()
+    for r in getattr(op, method)(iter(streams[0]), iter(streams[1]),
+                                 JOIN_R):
+        out.append((r.start, r.end, r.overflow, r.window_count,
+                    [(a.obj_id, a.timestamp, b.obj_id, b.timestamp,
+                      int(np.float32(d).view(np.uint32)))
+                     for a, b, d in r.pairs]))
+        if launches is not None:
+            launches.append(join_extract.launches)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_join_panes(card, gpu="cuda"):
+    """``PointPointJoinQuery.query_panes`` at a cut depth: each window
+    equal to its CPU run in order and to ``run`` as a multiset, B3
+    launched once for each new block of two non-empty panes. Returns
+    (B3 launches, points/s)."""
+    import collections
+
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    n = QPJ_PANES * QPJ_PANE_PTS
+    streams = []
+    for side, seed in (("l", 3), ("r", 4)):
+        xy = join_stream(n, seed).astype(np.float64)
+        ts = (np.arange(n, dtype=np.int64) * 1000) // QPJ_PANE_PTS
+        streams.append([Point(obj_id=f"{side}{i}", timestamp=int(t),
+                              x=float(x), y=float(y))
+                        for i, (t, (x, y)) in enumerate(zip(ts, xy))])
+    join_extract.launches = 0
+    after = []
+    got, secs = run_query_panes(gpu, streams, launches=after)
+    launches = join_extract.launches
+    cpu, c_secs = run_query_panes("cpu", streams)
+    run, _ = run_query_panes(gpu, streams, method="run")
+    if got != cpu:
+        raise AssertionError("query_panes differs from its CPU run")
+    for g, r in zip(got, run):
+        if g[:4] != r[:4] or g[2] != 0 or collections.Counter(g[4]) != \
+                collections.Counter(r[4]):
+            raise AssertionError(f"query_panes window {g[:2]} differs from "
+                                 f"run")
+    # Blocks joined in each window: (p, q) of its panes, both non-empty,
+    # not joined by an earlier window.
+    live = range(0, QPJ_PANES * 1000, 1000)
+    seen, new = set(), []
+    for g in got:
+        starts = [p for p in range(g[0], g[1], 1000) if p in live]
+        blocks = {(p, q) for p in starts for q in starts} - seen
+        seen |= blocks
+        new.append(len(blocks))
+    steps = np.diff([0] + after).tolist()
+    if len(got) != len(run) or steps != new or not any(g[4] for g in got):
+        raise AssertionError(f"query_panes: B3 launches a window {steps}, "
+                             f"new blocks {new}")
+    rate = 2 * n / secs
+    print(f"e2e query_panes join ({QPJ_PANES} panes of {QPJ_PANE_PTS} Point "
+          f"objects a side, 2 s windows by 1 s, r={JOIN_R}): {len(got)} "
+          f"windows, pairs {[len(g[4]) for g in got]} in {secs:.6f} s = "
+          f"{rate:.1f} points/s; B3 launches a window {steps} (its new "
+          f"blocks), {launches} in all; equal to the CPU run "
+          f"({c_secs:.3f} s) in order and to run as multisets [{card}]")
+    return launches, rate
+
+
+def time_join(dev, card, pg, gg, qp_rate):
+    """Phase 22: the parts of one full-width phase-20 and phase-21 window,
+    B4 at the joins' gathered shapes beside its bound and plain version,
+    the e2e rates, and a profiler pass over phase 20's run. ``pg`` and
+    ``gg``: (seconds, operator, (left, right)) of phases 20 and 21.
+    Returns the B4 timing rows by shape."""
+    import torch
+
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.models.batch import GeometryBatch
+    from spatialflink_tpu_torch.operators.base import device_point_args
+    from spatialflink_tpu_torch.ops import join as tjoin
+    from spatialflink_tpu_torch.ops.polygon import points_in_polygons
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+    from spatialflink_tpu_torch.ops.range import tile_lanes
+
+    def batch(c):
+        return GeometryBatch.from_ragged(c["ts"], c["oid"], c["lengths"],
+                                         c["verts"])
+
+    rows = {}
+
+    def b4_row(label, args):
+        xy, bv, be, sel = args
+        ms, call = time_ms(lambda: polyline_min_dist_cuda(*args))
+        plain, _ = time_ms(lambda: polyline_min_dist_plain(*args))
+        kern, mems = launches_per_call(lambda: polyline_min_dist_cuda(*args))
+        npts, c = sel.shape
+        nbytes = 8 * npts + 8 * sel.numel() + bv.numel() * 4 + be.numel()
+        nops = 20 * int(be.sum(dim=1)[sel.long()].sum())
+        bnd, by_ = bound_ms(nbytes, nops)
+        rows[label] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bnd,
+                           bound_by=by_, points=npts, slots=c,
+                           boundaries=bv.shape[0], kernels_per_call=kern)
+        print(f"time polyline_min_dist {label} (N={npts} points, C={c} "
+              f"gathered slots of G={bv.shape[0]} boundaries of "
+              f"V={bv.shape[1]}): kernel {ms:.6f} ms device ({call:.6f} ms "
+              f"per call with its launch), {kern:g} kernel launches and "
+              f"{mems:g} memsets per call, plain PyTorch {plain:.6f} ms, "
+              f"bound {bnd:.6f} ms ({by_}: {nbytes} B, {nops} operations), "
+              f"library none, medians of {REPEATS} calls [{card}]")
+        return ms
+
+    # Phase 20's first window, as run_soa builds it.
+    pg_secs, pg_op, (left, right) = pg
+    grid = pg_op.grid
+    op = ops.PointPolygonJoinQuery(pg_op.conf, grid, device=dev)
+    c0 = left[0]
+    xy64 = np.stack([c0["x"], c0["y"]], axis=1).astype(np.float64)
+    lxy, lvalid, lcell, _ = device_point_args(grid, xy64, None)
+    gb = batch(right[0])
+    ho = np.argsort(lcell, kind="stable")
+    args, r = op._point_side_args(lambda: lxy[ho], lvalid[ho], lcell[ho],
+                                  gb, PG_R)
+    pxy, pv, gverts, gev, gvalid, gbbox = args
+    cand = min(pg_op._cand, gbbox.shape[0])
+    pair_cap = min(pg_op._pair_cap, cand)
+    mp = pg_op._geom_max_pairs
+    block = op._point_block
+    sx, bvalid, _, gids, _, _ = tjoin.point_tiles(pxy, pv, gbbox, gvalid, r,
+                                                  block, cand)
+    sel = gids.repeat_interleave(block, dim=0)
+    nb = bvalid.shape[0]
+    masks = tjoin.point_geometry_join_masks(*args, r, True, block, cand)
+    parts = {
+        "bbox prune and first-cand": time_ms(lambda: tjoin.point_tiles(
+            pxy, pv, gbbox, gvalid, r, block, cand))[0],
+        "B4 gathered": b4_row("join point-polygon gathered",
+                              (sx, gverts, gev, sel)),
+        "containment gathered": time_ms(lambda: points_in_polygons(
+            sx, gverts, gev, sel))[0],
+        "_compact_pairs": time_ms(lambda: tjoin.compact_pruned(
+            masks, pair_cap, mp))[0],
+        "whole kernel": time_ms(
+            lambda: tjoin.point_geometry_join_pruned_kernel(
+                *args, r, polygonal=True, block=block, cand=cand,
+                max_pairs=mp, pair_cap=pair_cap))[0],
+    }
+    print(f"point-polygon join window parts (join_point_1000polygons, one "
+          f"window: N={PG_WIN} points in {nb} tiles of {block}, "
+          f"{gverts.shape[0]} polygons of V={gverts.shape[1]}, cand {cand}, "
+          f"pair_cap {pair_cap}; device ms, medians of {REPEATS}): "
+          + ", ".join(f"{k} {t:.6f}" for k, t in parts.items())
+          + f"; the window's wall in run_soa "
+          f"{1e3 * pg_secs / PG_WINDOWS:.6f} ms [{card}]")
+
+    # Phase 21's first window.
+    gg_secs, gg_op, (gleft, gright) = gg
+    gop = ops.PolygonPolygonJoinQuery(gg_op.conf, grid, device=dev)
+    la, ra = batch(gleft[0]), batch(gright[0])
+    _, gargs = gop._window_args(la, ra)
+    averts, aev, avalid, abox, bverts, bev, bvalid, bbox = gargs
+    gcand = min(gg_op._cand, bbox.shape[0])
+    gpair_cap = min(gg_op._pair_cap, gcand)
+    gmp = gg_op._geom_max_pairs
+    gblock = gop._geom_block
+    _, _, gborig, ggids, _, _ = tjoin.geometry_tiles(
+        abox, avalid, bbox, bvalid, PG_R, gblock, gcand)
+    pad = gborig.numel() - averts.shape[0]
+    sav = torch.nn.functional.pad(averts, (0, 0, 0, 0, 0, pad))
+    sae = torch.nn.functional.pad(aev, (0, 0, 0, pad))
+    a_xy, sel_ab, b_xy, sel_ba = tile_lanes(sav, bverts, ggids)
+    gmasks = tjoin.geometry_geometry_join_masks(*gargs, PG_R, True, True,
+                                                gblock, gcand)
+    gparts = {
+        "bbox prune and first-cand": time_ms(lambda: tjoin.geometry_tiles(
+            abox, avalid, bbox, bvalid, PG_R, gblock, gcand))[0],
+        "B4 a->b gathered": b4_row("join geometry a->b gathered",
+                                   (a_xy, bverts, bev, sel_ab)),
+        "B4 b->a gathered": b4_row("join geometry b->a gathered",
+                                   (b_xy, sav, sae, sel_ba)),
+        "containment a in b": time_ms(lambda: points_in_polygons(
+            a_xy, bverts, bev, sel_ab))[0],
+        "containment b in a": time_ms(lambda: points_in_polygons(
+            b_xy, sav, sae, sel_ba))[0],
+        "_compact_pairs": time_ms(lambda: tjoin.compact_pruned(
+            gmasks, gpair_cap, gmp))[0],
+    }
+    print(f"polygon-polygon join window parts (one window: {GEOM_WIN} "
+          f"polygons of V={averts.shape[1]} in {ggids.shape[0]} tiles of "
+          f"{gblock}, {bverts.shape[0]} polygons of V={bverts.shape[1]}, "
+          f"cand {gcand}, pair_cap {gpair_cap}; device ms, medians of "
+          f"{REPEATS}): " + ", ".join(f"{k} {t:.6f}"
+                                      for k, t in gparts.items())
+          + f"; the window's wall in run_soa "
+          f"{1e3 * gg_secs / GEOM_WINDOWS:.6f} ms [{card}]")
+    print(f"e2e rates: point-polygon join run_soa "
+          f"{PG_WINDOWS * PG_WIN / pg_secs:.1f} points/s, polygon-polygon "
+          f"join run_soa {GEOM_WINDOWS * GEOM_WIN / gg_secs:.1f} objects/s, "
+          f"query_panes join {qp_rate:.1f} points/s [{card}]")
+    profile_run(lambda: run_join_soa("cuda", ops.PointPolygonJoinQuery,
+                                     left, right, PG_R), card,
+                "point-polygon join run_soa")
+    return rows
+
+
+def run_join_phases(dev, card, geo_chunks):
+    """Phases 20-22, each phase's wall printed. Returns (B4 launches of
+    phase 20, of phase 21, B3 launches of query_panes, B4 timing
+    rows)."""
+    t0 = time.perf_counter()
+    pg_launches, pg_secs, pg_op, pg_inputs = check_join_point_geometry(card)
+    t1 = time.perf_counter()
+    gg_launches, gg_secs, gg_op, gg_inputs = check_join_geometry_geometry(
+        card, geo_chunks)
+    qp_launches, qp_rate = check_join_panes(card)
+    t2 = time.perf_counter()
+    rows = time_join(dev, card, (pg_secs, pg_op, pg_inputs),
+                     (gg_secs, gg_op, gg_inputs), qp_rate)
+    t3 = time.perf_counter()
+    print(f"phase walls: 20 {t1 - t0:.3f} s, 21 {t2 - t1:.3f} s, 22 "
+          f"{t3 - t2:.3f} s [{card}]")
+    return pg_launches, gg_launches, qp_launches, rows
+
+
 def run_new_phases(dev, card, geo_chunks):
     """Phases 17-19, each phase's wall printed. Returns (B4 launches of
     phase 17, of phase 18, B4 timing rows)."""
@@ -2628,6 +3205,11 @@ def main(argv=None) -> int:
         dev, card, geo_chunks)
     b4_launches += knn_geo_launches + knn_pane_launches
     b4_shapes.update(knn_shapes)
+    # Phases 20-22: the geometry joins and the pane-carry point join.
+    pg_launches, gg_launches, qp_launches, join_shapes = run_join_phases(
+        dev, card, geo_chunks)
+    b4_launches += pg_launches + gg_launches
+    b4_shapes.update(join_shapes)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -2648,9 +3230,11 @@ def main(argv=None) -> int:
         {"name": "join_extract", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
-         "launches": soa_launches + obj_launches, "max_abs_err": err_b3,
+         "launches": soa_launches + obj_launches + qp_launches,
+         "max_abs_err": err_b3,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
-         "bound_by": b3_by, "library_ms": None},
+         "bound_by": b3_by, "library_ms": None,
+         "launches_query_panes": qp_launches},
         {"name": "polyline_min_dist", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
@@ -2660,7 +3244,10 @@ def main(argv=None) -> int:
          "launches_geometry_range": geo_launches,
          "launches_knn_run": knn_launches,
          "launches_knn_geometry": knn_geo_launches,
-         "launches_knn_panes": knn_pane_launches, "shapes": b4_shapes},
+         "launches_knn_panes": knn_pane_launches,
+         "launches_join_point_geometry": pg_launches,
+         "launches_join_geometry_geometry": gg_launches,
+         "shapes": b4_shapes},
     ]}
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s [{card}]")
     print(json.dumps(record))

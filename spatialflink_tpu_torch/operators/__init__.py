@@ -16,7 +16,16 @@ from spatialflink_tpu_torch.operators.knn_query import (  # noqa: F401
     PolygonPolygonKNNQuery,
 )
 from spatialflink_tpu_torch.operators.join_query import (  # noqa: F401
+    JoinWindowResult,
+    LineStringLineStringJoinQuery,
+    LineStringPointJoinQuery,
+    LineStringPolygonJoinQuery,
+    PointLineStringJoinQuery,
     PointPointJoinQuery,
+    PointPolygonJoinQuery,
+    PolygonLineStringJoinQuery,
+    PolygonPointJoinQuery,
+    PolygonPolygonJoinQuery,
 )
 from spatialflink_tpu_torch.operators.range_query import (  # noqa: F401
     LineStringLineStringRangeQuery,

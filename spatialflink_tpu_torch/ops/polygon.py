@@ -21,6 +21,9 @@ from spatialflink_tpu_torch.ops.distances import point_polyline_distance
 #: Lanes (points × boundaries × edges) one block of the batched
 #: containment evaluates; bounds its temporaries to a few hundred MB.
 BLOCK_LANES = 1 << 24
+#: The block on the CPU, small enough for its temporaries to stay in cache
+#: (the result does not depend on the block).
+BLOCK_LANES_CPU = 1 << 19
 
 
 def _pad(verts, edge_valid, pad_to):
@@ -86,13 +89,14 @@ def points_in_polygons(p: torch.Tensor, verts: torch.Tensor,
     (G, V-1), or in polygon j when ``sel`` is None (C = G). Counts the
     crossings of a +x ray with every valid edge (the half-open span test
     counts a shared vertex once), in blocks of points of at most
-    ``BLOCK_LANES`` lanes."""
+    ``BLOCK_LANES`` lanes (``BLOCK_LANES_CPU`` on the CPU)."""
     n, g = p.shape[0], verts.shape[0]
     c = g if sel is None else sel.shape[1]
     e = verts.shape[1] - 1
     ev = edge_valid.bool()
     out = torch.empty((n, c), dtype=torch.bool, device=p.device)
-    step = max(1, BLOCK_LANES // max(1, c * e))
+    lanes = BLOCK_LANES if p.is_cuda else BLOCK_LANES_CPU
+    step = max(1, lanes // max(1, c * e))
     for i0 in range(0, n, step):
         i1 = min(n, i0 + step)
         x = p[i0:i1, 0, None, None]

@@ -53,8 +53,11 @@ from spatialflink_tpu_torch.ops.distances import (
 )
 
 #: Lanes (points × slots × edges) the plain version evaluates per block of
-#: points; bounds its temporaries to a few hundred MB.
+#: points: on the card this bounds its temporaries to a few hundred MB; on
+#: the CPU a smaller block keeps them in cache (about 3× faster at the
+#: joins' shapes). The result does not depend on the block.
 PLAIN_BLOCK_LANES = 1 << 24
+PLAIN_BLOCK_LANES_CPU = 1 << 19
 
 #: Dynamic shared memory a block may take on the H100 (232,448 B opt-in).
 MAX_SHARED_BYTES = 232_448
@@ -100,7 +103,8 @@ def polyline_min_dist_plain(xy: torch.Tensor, verts: torch.Tensor,
     c = g if sel is None else sel.shape[1]
     ev = edge_valid.bool()
     out = torch.empty((n, c), dtype=torch.float32, device=xy.device)
-    step = max(1, PLAIN_BLOCK_LANES // max(1, c * (v - 1)))
+    lanes = PLAIN_BLOCK_LANES if xy.is_cuda else PLAIN_BLOCK_LANES_CPU
+    step = max(1, lanes // max(1, c * (v - 1)))
     for i0 in range(0, n, step):
         i1 = min(n, i0 + step)
         p = xy[i0:i1, None, None, :]

@@ -265,6 +265,66 @@ def geometry_pair_distance(averts, aev, bverts, bev,
     return d
 
 
+def tile_lanes(averts, bverts, gids):
+    """The two gathered B4 launches of ``geometry_pair_distance_tiles``:
+    (a_xy (NB·B·Va, 2) every left vertex, sel_ab (NB·B·Va, C) its tile's
+    candidates; b_xy (NB·C·Vb, 2) every candidate's vertices, sel_ba
+    (NB·C·Vb, B) its tile's member rows)."""
+    nb, c = gids.shape
+    nbb, va = averts.shape[:2]
+    b = nbb // nb
+    vb = bverts.shape[1]
+    a_xy = averts.reshape(nbb * va, 2)
+    sel_ab = gids[:, None, :].expand(nb, b * va, c).reshape(nbb * va, c)
+    b_xy = bverts[gids.long()].reshape(nb * c * vb, 2)
+    members = torch.arange(nbb, dtype=torch.int32,
+                           device=averts.device).view(nb, b)
+    sel_ba = members[:, None, :].expand(nb, c * vb, b).reshape(nb * c * vb, b)
+    return a_xy, sel_ab, b_xy, sel_ba
+
+
+def geometry_pair_distance_tiles(averts, aev, bverts, bev, gids,
+                                 a_polygonal: bool = False,
+                                 b_polygonal: bool = False) -> torch.Tensor:
+    """``geometry_pair_distance`` at each tile's candidates: (NB, B, C)
+    distance between left boundary t·B + m (``averts`` (NB·B, Va, 2) /
+    ``aev``, tile-major, B members a tile) and right boundary
+    ``gids[t, c]`` (``bverts`` (M, Vb, 2) / ``bev``; ``gids`` (NB, C)
+    int32, every entry in [0, M)): the pruned geometry join's step.
+
+    Each direction is one gathered B4 launch. a→b: every left vertex
+    against its tile's C candidate boundaries (``sel`` the tile's
+    candidate list). b→a: every vertex of each tile's candidates against
+    the tile's B member boundaries (``sel`` the member rows, all in
+    range). Containment runs gathered with the same ``sel`` both ways.
+    The vertex minima and ``_vert_valid`` masks are the dense form's, so
+    crossing edges with no vertex inside keep the reference's value
+    (ROADMAP C2)."""
+    nb, c = gids.shape
+    nbb, va = averts.shape[:2]
+    b = nbb // nb
+    vb = bverts.shape[1]
+    a_ok = _vert_valid(aev)  # (NB·B, Va)
+    cb_ok = _vert_valid(bev)[gids.long()]  # (NB, C, Vb)
+    a_xy, sel_ab, b_xy, sel_ba = tile_lanes(averts, bverts, gids)
+    d_ab = _vertex_min(polyline_min_dist(a_xy, bverts, bev, sel_ab), a_ok,
+                       nbb, va).view(nb, b, c)
+    d_ba = _vertex_min(polyline_min_dist(b_xy, averts, aev, sel_ba), cb_ok,
+                       nb * c, vb).view(nb, c, b).transpose(1, 2)
+    d = torch.minimum(d_ab, d_ba)
+    if b_polygonal:
+        a_in = points_in_polygons(a_xy, bverts, bev, sel_ab) \
+            & a_ok.reshape(-1, 1)
+        d = torch.where(a_in.view(nbb, va, c).any(dim=1).view(nb, b, c),
+                        0.0, d)
+    if a_polygonal:
+        b_in = points_in_polygons(b_xy, averts, aev, sel_ba) \
+            & cb_ok.reshape(-1, 1)
+        d = torch.where(b_in.view(nb, c, vb, b).any(dim=2).transpose(1, 2),
+                        0.0, d)
+    return d
+
+
 def geometry_range_query_kernel(obj_verts, obj_edge_valid, valid, flags,
                                 query_verts, query_edge_valid, radius,
                                 approximate: bool = False,

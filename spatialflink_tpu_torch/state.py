@@ -175,3 +175,39 @@ def pane_carry_from_jax(jax_op, device="cuda") -> Tuple[Optional[dict],
         soa = {int(ps): None if e is None else digest(*e)
                for ps, e in soa.items()}
     return panes, soa
+
+
+def join_pane_carry_from_jax(jax_op, op) -> Optional[dict]:
+    """A JAX ``PointPointJoinQuery``'s ``_join_pane_carry`` (``panes``:
+    pane start → (left events, right events, left batch, right batch);
+    ``blocks``: (p, q) → (pairs, overflow)) → the port operator ``op``'s,
+    or None where the JAX operator has none. Each JAX event becomes one
+    port object, shared by the pane lists and the blocks' pairs; the pane
+    batches are rebuilt through ``op.point_batch``, as the JAX package's
+    checkpoint restore rebuilds them, so set the interner first::
+
+        op.interner = interner_from_jax(jax_op)
+        op._join_pane_carry = join_pane_carry_from_jax(jax_op, op)
+    """
+    carry = getattr(jax_op, "_join_pane_carry", None)
+    if carry is None:
+        return None
+    port: dict = {}
+
+    def obj(ev):
+        key = id(ev)
+        if key not in port:
+            port[key] = _query_from_jax(ev)
+        return port[key]
+
+    panes = {}
+    for ps, (lev, rev, _, _) in carry["panes"].items():
+        lp, rp = [obj(e) for e in lev], [obj(e) for e in rev]
+        panes[int(ps)] = (lp, rp, op.point_batch(lp) if lp else None,
+                          op.point_batch(rp) if rp else None)
+    blocks = {
+        (int(p), int(q)): ([(obj(a), obj(b), float(d)) for a, b, d in pairs],
+                           int(over))
+        for (p, q), (pairs, over) in carry["blocks"].items()
+    }
+    return {"panes": panes, "blocks": blocks}

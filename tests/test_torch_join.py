@@ -52,6 +52,7 @@ from spatialflink_tpu_torch.models.batch import PointBatch
 from spatialflink_tpu_torch.models.objects import Point
 from spatialflink_tpu_torch.operators import (
     PointPointJoinQuery,
+    PolygonPolygonJoinQuery,
     QueryConfiguration,
     QueryType,
 )
@@ -352,8 +353,9 @@ def test_unported_options_raise():
     for kw in ({"driver": object()}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             list(op.run([], [], R, **kw))
-    with pytest.raises(NotImplementedError):
-        op.query_panes([], [], R)
+    geo = PolygonPolygonJoinQuery(conf, UniformGrid(**COARSE), device="cpu")
+    with pytest.raises(NotImplementedError, match="A12"):
+        list(geo.run([], [], R, mesh=object()))
     with pytest.raises(ValueError):
         PointPointJoinQuery(conf, UniformGrid(**COARSE), device="cpu",
                             join_backend="xla")

@@ -520,3 +520,129 @@ def test_knn_geometry_query_kernel_on_card_equals_cpu(query):
     torch.cuda.synchronize()
     _bit_equal(got, want)
     assert int(want.num_valid) == 50
+
+
+B4_JOIN_CASES = ["point_polygon_gathered", "geometry_a_to_b_gathered",
+                 "geometry_b_to_a_gathered"]
+
+
+def _join_tiles(rng, n_left, m_right, block, cand, points=False):
+    """The pruned joins' real ``sel`` lanes on random data: left items
+    (points or boundaries of 16 slots, locality-sorted along x) in tiles
+    of ``block`` against ``m_right`` boundaries of 8 slots, through
+    ``point_tiles``/``geometry_tiles`` and ``tile_lanes``; pad slots past
+    a tile's count hold in-range ids, padding rows no valid edge."""
+    from spatialflink_tpu_torch.ops import join as tjoin
+    from spatialflink_tpu_torch.ops.range import _vert_valid, tile_lanes
+
+    def boxes(v, e):
+        ok = _vert_valid(torch.from_numpy(e)).numpy()[..., None]
+        big = np.finfo(np.float32).max
+        lo = np.where(ok, v, big).min(axis=1)
+        hi = np.where(ok, v, -big).max(axis=1)
+        return torch.from_numpy(np.concatenate([lo, hi], axis=1))
+
+    bv, be = _geometry_boundaries(rng, m_right, v=8)
+    gvalid = torch.ones(m_right, dtype=torch.bool)
+    if points:
+        xy = rng.uniform(-1, 1, (n_left, 2)).astype(np.float32)
+        xy = torch.from_numpy(xy[np.argsort(xy[:, 0])])
+        valid = torch.ones(n_left, dtype=torch.bool)
+        sx, _, _, gids, _, _ = tjoin.point_tiles(
+            xy, valid, boxes(bv, be), gvalid, 0.02, block, cand)
+        return (sx, torch.from_numpy(bv), torch.from_numpy(be),
+                gids.repeat_interleave(block, dim=0))
+    av, ae = _geometry_boundaries(rng, n_left)
+    order = np.argsort(av[:, 0, 0])
+    av, ae = av[order], ae[order]
+    _, _, borig, gids, _, _ = tjoin.geometry_tiles(
+        boxes(av, ae), torch.ones(n_left, dtype=torch.bool), boxes(bv, be),
+        gvalid, 0.02, block, cand)
+    pad = borig.numel() - n_left
+    sav = torch.from_numpy(np.concatenate(
+        [av, np.zeros((pad, 16, 2), np.float32)]))
+    sae = torch.from_numpy(np.concatenate([ae, np.zeros((pad, 15), bool)]))
+    a_xy, sel_ab, b_xy, sel_ba = tile_lanes(sav, torch.from_numpy(bv), gids)
+    if pad == 0:
+        raise AssertionError("the case must hold padding rows")
+    return {"a": (a_xy, torch.from_numpy(bv), torch.from_numpy(be), sel_ab),
+            "b": (b_xy, sav, sae, sel_ba)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", B4_JOIN_CASES)
+def test_polyline_min_dist_join_shapes_on_card(case):
+    """B4 gathered bit-exact against its plain version at the pruned
+    joins' ``sel`` shapes (``chip_smoke.py`` runs them at full width):
+    each point of a 256-point tile against the tile's 64 candidate
+    polygons, pad slots (in-range ids past a tile's count) included; each
+    vertex of 32-member tiles of 16-slot boundaries against their
+    candidates; each candidate vertex against the tile's 32 member rows,
+    padding rows (no valid edge, FLT_MAX) included."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rng = np.random.default_rng(17)
+    if case == "point_polygon_gathered":
+        host = _join_tiles(rng, 131_000, 1000, 256, 64, points=True)
+    else:
+        lanes = _join_tiles(rng, 15_990, 1000, 32, 64)
+        host = lanes["a" if case == "geometry_a_to_b_gathered" else "b"]
+    args = [t.contiguous().to(dev) for t in host]
+    got = polyline_min_dist_cuda(*args)
+    want = polyline_min_dist_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == host[3].shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "geometry_b_to_a_gathered":
+        big = torch.finfo(torch.float32).max
+        assert torch.all(got[:, -1][args[3][:, -1] >= 15_990] == big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["point_polygon", "polygon_polygon"])
+def test_pruned_join_kernels_on_card_equal_cpu(kind):
+    """The pruned join kernels on the card (B4 gathered, containment,
+    ``_compact_pairs``) equal their CPU run (the plain versions): pairs in
+    order, distance bits, ``count`` and both overflow counters."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops import join as tjoin
+
+    rng = np.random.default_rng(19)
+    bv, be = _geometry_boundaries(rng, 500, v=8)
+    bv = bv * np.float32(8.0)  # polygons of radius 0.08 over [-8, 8]
+    from spatialflink_tpu_torch.ops.range import _vert_valid
+
+    def boxes(v, e):
+        ok = _vert_valid(torch.from_numpy(e)).numpy()[..., None]
+        big = np.finfo(np.float32).max
+        return np.concatenate([np.where(ok, v, big).min(axis=1),
+                               np.where(ok, v, -big).max(axis=1)], axis=1)
+
+    if kind == "point_polygon":
+        xy = rng.uniform(-8, 8, (40_000, 2)).astype(np.float32)
+        xy = xy[np.argsort(xy[:, 0])]
+        host = [xy, np.ones(40_000, bool), bv, be, np.ones(500, bool),
+                boxes(bv, be)]
+        kw = dict(polygonal=True, block=256, cand=64, max_pairs=1 << 16,
+                  pair_cap=8)
+        fn = tjoin.point_geometry_join_pruned_kernel
+    else:
+        av, ae = _geometry_boundaries(rng, 20_000)
+        order = np.argsort(av[:, 0, 0])
+        av, ae = av[order] * np.float32(8.0), ae[order]
+        host = [av, ae, np.ones(20_000, bool), boxes(av, ae), bv, be,
+                np.ones(500, bool), boxes(bv, be)]
+        kw = dict(a_polygonal=True, b_polygonal=True, block=32, cand=64,
+                  max_pairs=1 << 16, pair_cap=8)
+        fn = tjoin.geometry_geometry_join_pruned_kernel
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
+    want = fn(*cpu, 0.05, **kw)
+    got = fn(*(t.to(dev) for t in cpu), 0.05, **kw)
+    torch.cuda.synchronize()
+    _bit_equal(got, want)
+    assert int(want.count) > 100
+    assert int(want.cand_overflow) == 0 and int(want.pair_overflow) == 0
