@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py            # every phase, full sizes
     python3 chip_smoke.py --quick    # phases 1-4, 7 and 11: build and check
+    python3 chip_smoke.py --trajectory-only   # phases 1-2 and 23-25
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -157,7 +158,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
    one phase-21 window (B4 both ways gathered, both containments, the
    compaction), B4 at these gathered shapes beside its bound and plain
    version, the e2e rates of phases 20 and 21, and a profiler pass over
-   phase 20's run.
+   phase 20's run;
+23. run ``PointPointTJoinQuery.run_soa`` at the JAX suite's
+   tjoin_10s_1s_sliding (two streams of 30 one-second slides of 20,480
+   points from seeds 31 and 32, 10 s windows by 1 s, 512 trajectory ids,
+   r = 0.001, cap 64, grid n = 100) through B3: 39 windows, overflow 0
+   in each, B3 launched at least once a window, and the first, a middle
+   and the last full window equal to the CPU run (ids in key order,
+   distance bits); then ``run`` and ``run_single`` on 2 windows of
+   20,000 ``Point``s a side against the CPU; B3 and the trajectory-pair
+   dedup timed at one full window (B3 beside its bound and plain
+   version), the host steps, and a profiler pass over the run;
+24. run ``traj_stats_sliding``'s device engine at bench_tstats_pane's
+   shape (1,000,000 points, 500 ids in a 512 bucket, 10 s windows by
+   10 ms, seed 17) against its CPU run and the numpy engine: starts,
+   counts and temporal sums exact, spatial sums within
+   ``pane_spatial_bound``; time its parts and profile it; then
+   ``PointTStatsQuery.run_soa`` on the same stream at 10 s / 1 s and
+   ``run`` (WindowBased, RealTime, CountBased) on 2 x 20,000 ``Point``s
+   against the CPU, spatial sums within ``spatial_sum_bound``;
+25. run ``PointPolygonTRangeQuery.run_soa`` on config 3's stream (10 x
+   262,144 points, 16,384 ids) against phase 14's 32 polygons, and
+   ``PointPointTKNNQuery``, ``PointTAggregateQuery`` (SUM) and
+   ``PointTFilterQuery`` (64 ids) ``run_soa`` on phase 18's config-2
+   stream; then the ALL, AVG, MIN and MAX aggregates, the inactive
+   threshold, and ``run`` on ``Point``s of tRange, tKnn, tAggregate and
+   tFilter at 2 x 20,000; each equal to its CPU run; and a profiler pass
+   over the tRange run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -264,6 +291,40 @@ JOIN_CUT_WIN = 8_192
 JOIN_CUT_WINDOWS = 2
 QPJ_PANE_PTS = 20_000
 QPJ_PANES = 3
+
+# Phases 23-25: the trajectory layer. Phase 23 is the JAX suite's
+# tjoin_10s_1s_sliding (bench_suite.py:936-1068: two streams of 30
+# one-second slides of 20,480 points, positions uniform on the Beijing
+# extent from seeds 31 and 32, 512 trajectory ids, 10 s windows by 1 s,
+# r = 0.001, cap 64, grid n = 100), its positions unquantized; phase 24
+# is bench_tstats_pane's stream (bench_suite.py:1244-1262: 1,000,000
+# points, ts sorted uniform in [0, 30,000) ms, 500 trajectories in a 512
+# bucket, 10 s windows by 10 ms, seed 17); phase 25 runs tRange on config
+# 3's stream and tKnn, tAggregate and tFilter on config 2's. The object
+# paths and the other modes run at 2 windows of 20,000 points.
+TJ_SLIDE_PTS = 20_480
+TJ_SLIDES = 30
+TJ_WINDOW_S = 10
+TJ_IDS = 512
+TJ_R = 0.001
+TJ_CAP = 64
+TJ_MAX_PAIRS = 262_144
+# The CPU twin of phase 23 runs 10 s tumbling windows on the same stream:
+# the windows starting at 0, 10 and 20 s, the first, a middle and the
+# last full window of the sliding run. The host's plain join tests 10,000
+# cells x 64 x 576 slot pairs a window whatever the points, so all 39
+# windows took 83-102 s on the chip machine's CPU.
+TJ_CPU_STARTS = (0, 10_000, 20_000)
+TS_POINTS = 1_000_000
+TS_SPAN_MS = 30_000
+TS_IDS = 500
+TS_BUCKET = 512
+TS_WINDOW_MS = 10_000
+TS_SLIDE_MS = 10
+T_CUT = 20_000  # points a window of the cut-depth runs, 2 windows
+TR_IDS = 16_384
+TR_QUERIES = 32
+TF_IDS = 64
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -2950,6 +3011,535 @@ def time_join(dev, card, pg, gg, qp_rate):
     return rows
 
 
+def tjoin_chunks(seed):
+    """One tjoin_10s_1s_sliding stream: ``TJ_SLIDES`` one-second chunks of
+    ``TJ_SLIDE_PTS`` points, positions as bench_suite.py:976-983 draws
+    them (x, then y, then the ids), unquantized."""
+    n = TJ_SLIDE_PTS * TJ_SLIDES
+    rng = np.random.default_rng(seed)
+    xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
+                  axis=1)
+    oid = rng.integers(0, TJ_IDS, n).astype(np.int32)
+    ts = (np.arange(n, dtype=np.int64) * 1000) // TJ_SLIDE_PTS
+    return [{"ts": ts[s:s + TJ_SLIDE_PTS], "x": xy[s:s + TJ_SLIDE_PTS, 0],
+             "y": xy[s:s + TJ_SLIDE_PTS, 1], "oid": oid[s:s + TJ_SLIDE_PTS]}
+            for s in range(0, n, TJ_SLIDE_PTS)]
+
+
+def run_tjoin_soa(device, chunks, slide_s=1):
+    """``PointPointTJoinQuery.run_soa`` in 10 s windows by ``slide_s``;
+    returns the windows (start, end, left ids, right ids, distance bits,
+    count, overflow), seconds and the operator."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery,
+        QueryConfiguration,
+    )
+
+    conf = QueryConfiguration(window_size=TJ_WINDOW_S, slide_step=slide_s)
+    op = PointPointTJoinQuery(conf, UniformGrid(**BEIJING), cap=TJ_CAP,
+                              device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(chunks[0], chunks[1], TJ_R, TJ_IDS,
+                          max_pairs=TJ_MAX_PAIRS))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return [(w[0], w[1], w[2], w[3], np.asarray(w[4], np.float32).view(
+        np.uint32), w[5], w[6]) for w in out], secs, op
+
+
+def traj_points(chunks, n, per_win, prefix):
+    """The first ``n`` points of a chunk stream as ``Point`` objects,
+    re-timed to ``per_win`` a second, ids ``prefix`` + the dense id."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    x = np.concatenate([c["x"] for c in chunks])[:n]
+    y = np.concatenate([c["y"] for c in chunks])[:n]
+    oid = np.concatenate([c["oid"] for c in chunks])[:n]
+    ts = (np.arange(n, dtype=np.int64) * 1000) // per_win
+    return [Point(obj_id=f"{prefix}{o}", timestamp=int(t), x=float(a),
+                  y=float(b))
+            for o, t, a, b in zip(oid.tolist(), ts.tolist(),
+                                  x.astype(np.float64).tolist(),
+                                  y.astype(np.float64).tolist())]
+
+
+def traj_lines(trajs):
+    return [(t.obj_id, t.timestamp, t.coords.tobytes()) for t in trajs]
+
+
+def run_objects_family(device, cls, method, streams, *args, **conf_kw):
+    """``cls(...).<method>(*streams, *args)`` on ``Point`` objects in
+    one-second windows; returns the results reduced to comparable tuples
+    and seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    op_kw = conf_kw.pop("op_kw", {})
+    conf_kw.setdefault("window_size", 1.0)
+    conf_kw.setdefault("slide_step", 1.0)
+    op = cls(QueryConfiguration(**conf_kw), UniformGrid(**BEIJING),
+             device=device, **op_kw)
+    t0 = time.perf_counter()
+    res = list(getattr(op, method)(*(iter(s) for s in streams), *args))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = []
+    for r in res:
+        if hasattr(r, "pairs"):
+            body = [(a.obj_id, b.obj_id, a.coords.tobytes(),
+                     b.coords.tobytes(), int(np.float32(d).view(np.uint32)))
+                    for a, b, d in r.pairs]
+        elif hasattr(r, "neighbors"):
+            body = [(o, int(np.float32(d).view(np.uint32)), t.coords.tobytes())
+                    for o, d, t in r.neighbors]
+        elif hasattr(r, "trajectories"):
+            body = traj_lines(r.trajectories)
+        elif hasattr(r, "cells"):
+            body = r.cells
+        else:
+            body = r.stats
+        out.append((r.start, r.end, r.window_count, body))
+    return out, secs
+
+
+def check_tjoin(card, gpu="cuda"):
+    """Phase 23: ``PointPointTJoinQuery.run_soa`` at the JAX suite's
+    tjoin_10s_1s_sliding width through B3, every window's overflow 0 and
+    the first, a middle and the last full window equal to the CPU run;
+    then ``run`` and ``run_single`` on 2 x 20,000 ``Point``s a side
+    against the CPU. Returns (B3 launches, the run_soa windows, seconds,
+    the inputs)."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    t0 = time.perf_counter()
+    chunks = (tjoin_chunks(31), tjoin_chunks(32))
+    print(f"data: 2 x {TJ_SLIDES} x {TJ_SLIDE_PTS} tJoin points in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    join_extract.launches = 0
+    got, secs, op = run_tjoin_soa(gpu, chunks)
+    launches = join_extract.launches
+    want, cpu_secs, _ = run_tjoin_soa("cpu", chunks, slide_s=TJ_WINDOW_S)
+    by_start = {g[0]: g for g in got}
+    n_windows = TJ_SLIDES + TJ_WINDOW_S - 1
+    if len(got) != n_windows or launches < n_windows \
+            or tuple(w[0] for w in want) != TJ_CPU_STARTS:
+        raise AssertionError(f"tJoin run_soa: {len(got)} windows, {launches} "
+                             f"B3 launches, CPU windows "
+                             f"{[w[0] for w in want]}")
+    for w in want:
+        g = by_start[w[0]]
+        if g[:2] != w[:2] or g[5:] != w[5:] or not all(
+                np.array_equal(a, b) for a, b in zip(g[2:5], w[2:5])):
+            raise AssertionError(f"tJoin run_soa: window {w[:2]} differs "
+                                 f"from the CPU run")
+    for g in got:
+        d = g[4].view(np.float32)
+        if g[6] != 0 or len(g[2]) != g[5] or np.any(np.diff(
+                g[2].astype(np.int64) * TJ_IDS + g[3]) <= 0) \
+                or not np.all(d <= np.float32(TJ_R)):
+            raise AssertionError(f"tJoin run_soa: window {g[:2]} malformed "
+                                 f"or overflowed ({g[6]})")
+    n = 2 * TJ_SLIDES * TJ_SLIDE_PTS
+    print(f"e2e tJoin run_soa (tjoin_10s_1s_sliding: 2 x {TJ_SLIDES} slides "
+          f"of {TJ_SLIDE_PTS} points, {TJ_WINDOW_S} s windows by 1 s, "
+          f"{TJ_IDS} ids, r={TJ_R}, cap {TJ_CAP}): {len(got)} windows, "
+          f"overflow 0 in each, trajectory pairs per window "
+          f"{[g[5] for g in got]}, {n} points in {secs:.6f} s = "
+          f"{n / secs:.1f} points/s; launches join_extract={launches}; "
+          f"trajectory-pair budget grown to {op._max_tpairs}; the windows "
+          f"starting {list(TJ_CPU_STARTS)} ms (the first, a middle and the "
+          f"last full window) equal the CPU plain run ({cpu_secs:.3f} s on "
+          f"the host CPU for those 3) [{card}]")
+
+    pts = [traj_points(c, 2 * T_CUT, T_CUT, side)
+           for c, side in zip(chunks, ("l", "r"))]
+    obj_launches = 0
+    for method, streams in (("run", pts), ("run_single", pts[:1])):
+        join_extract.launches = 0
+        g, o_secs = run_objects_family(gpu, ops.PointPointTJoinQuery, method,
+                                       streams, TJ_R, op_kw={"cap": TJ_CAP})
+        launched = join_extract.launches
+        obj_launches += launched
+        w, c_secs = run_objects_family("cpu", ops.PointPointTJoinQuery,
+                                       method, streams, TJ_R,
+                                       op_kw={"cap": TJ_CAP})
+        if g != w or len(g) != 2 or launched < 2 or not all(x[3] for x in g):
+            raise AssertionError(
+                f"tJoin {method}: equal to the CPU run {g == w}, pairs "
+                f"{[len(x[3]) for x in g]}, {launched} B3 launches")
+        print(f"e2e tJoin {method} (Point objects, 2 windows of {T_CUT} a "
+              f"side): trajectory pairs {[len(x[3]) for x in g]} in "
+              f"{o_secs:.6f} s; launches join_extract={launched}; equal to "
+              f"the CPU run ({c_secs:.3f} s) [{card}]")
+    return launches + obj_launches, got, secs, chunks
+
+
+def time_tjoin(dev, card, got, secs, chunks):
+    """Phase 23's parts: B3 and the dedup at one full window's shape
+    beside B3's bound and plain version, the host SoA assembly, and a
+    profiler pass over the run. Returns B3's timing row."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+    from spatialflink_tpu_torch.operators.base import soa_point_batches
+    from spatialflink_tpu_torch.operators.trajectory import _local_ranks
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+    from spatialflink_tpu_torch.ops.trajectory import traj_pair_dedup_kernel
+
+    grid = UniformGrid(**BEIJING)
+    conf = QueryConfiguration(window_size=TJ_WINDOW_S,
+                              slide_step=TJ_WINDOW_S)
+    sides = [next(soa_point_batches(grid, c, conf)) for c in chunks]
+    t0 = time.perf_counter()
+    for c in chunks:
+        for _ in soa_point_batches(grid, c, QueryConfiguration(
+                window_size=TJ_WINDOW_S, slide_step=1.0)):
+            pass
+    asm_secs = time.perf_counter() - t0
+    lanes = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for s in sides for a in s[1:4]]
+    planes, over = join_planes(*lanes, grid_n=grid.n, layers=1,
+                               cap_left=TJ_CAP, cap_right=TJ_CAP)
+    b3 = (*planes, grid.n, 1, TJ_R, TJ_MAX_PAIRS)
+    res = join_extract_cuda(*b3)
+    count = int(res[3])
+    b3_ms, b3_call = time_ms(lambda: join_extract_cuda(*b3))
+    b3_plain, _ = time_ms(lambda: join_extract_plain(*b3))
+    host = [(s[1], None, s[3]) for s in sides]
+    tests = join_candidate_pairs(grid, *host, cap=TJ_CAP)
+    b3_bytes = sum(t.numel() * t.element_size() for t in planes) \
+        + 12 * TJ_MAX_PAIRS + 4
+    b3_bound, b3_by = bound_ms(b3_bytes, 6 * tests)
+    ranks = [_local_ranks(s[4], s[0].count) for s in sides]
+    l_loc, r_loc = (torch.from_numpy(r[1]).to(dev) for r in ranks)
+    num_l, num_r = ranks[0][2], ranks[1][2]
+    tp = traj_pair_dedup_kernel(*res[:3], l_loc, r_loc, num_l, num_r,
+                                65_536)
+    dd_ms, dd_call = time_ms(lambda: traj_pair_dedup_kernel(
+        *res[:3], l_loc, r_loc, num_l, num_r, 65_536))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for s in sides:
+            _local_ranks(s[4], s[0].count)
+    rank_ms = (time.perf_counter() - t0) * 1e3 / 10
+    n_win = len(got)
+    print(f"time tJoin window parts (the window starting 0: "
+          f"{sides[0][0].count} and {sides[1][0].count} points, {count} "
+          f"point pairs, {int(tp.count)} trajectory pairs, bucket overflow "
+          f"{int(over)}): B3 join_extract {b3_ms:.6f} ms device "
+          f"({b3_call:.6f} ms per call), plain PyTorch {b3_plain:.6f} ms, "
+          f"bound {b3_bound:.6f} ms ({b3_by}: {b3_bytes} B, {tests} "
+          f"candidate pair tests x 6 operations); the dedup "
+          f"(traj_pair_dedup_kernel, {num_l} x {num_r} keys) {dd_ms:.6f} ms "
+          f"device ({dd_call:.6f} ms per call); host np.unique relabel "
+          f"{rank_ms:.6f} ms a window; host SoA assembly of both streams "
+          f"{asm_secs:.6f} s, {100 * asm_secs / secs:.1f}% of the run_soa "
+          f"wall ({1e3 * secs / n_win:.6f} ms a window) [{card}]")
+    profile_run(lambda: run_tjoin_soa("cuda", chunks), card,
+                "tJoin run_soa")
+    return {"ms": b3_ms, "per_call_ms": b3_call, "plain_ms": b3_plain,
+            "bound_ms": b3_bound, "bound_by": b3_by,
+            "dedup_ms": dd_ms}
+
+
+def tstats_stream():
+    """bench_tstats_pane's stream (bench_suite.py:1251-1257, seed 17)."""
+    rng = np.random.default_rng(17)
+    ts = np.sort(rng.integers(0, TS_SPAN_MS, TS_POINTS)).astype(np.int64)
+    xy = np.stack([rng.uniform(115.5, 117.6, TS_POINTS),
+                   rng.uniform(39.6, 41.1, TS_POINTS)], axis=1)
+    oid = rng.integers(0, TS_IDS, TS_POINTS).astype(np.int64)
+    return ts, xy, oid
+
+
+def check_pane_windows(got, want, bound, label):
+    if not (np.array_equal(got.starts, want.starts)
+            and np.array_equal(got.count, want.count)
+            and np.array_equal(got.temporal, want.temporal)
+            and got.spatial.shape == want.spatial.shape):
+        raise AssertionError(f"{label}: starts, counts or temporal sums "
+                             f"differ")
+    err = np.abs(got.spatial.astype(np.float64) - want.spatial)
+    if not np.all(err <= bound[None, :]):
+        raise AssertionError(f"{label}: spatial sums past the bound")
+    return float(err.max()), float((err / np.maximum(bound, 1e-30)[None, :]
+                                    ).max())
+
+
+def check_tstats(dev, card, gpu="cuda"):
+    """Phase 24: ``traj_stats_sliding``'s device engine on the card at
+    bench_tstats_pane's shape, against the CPU run of the same engine and
+    the numpy engine (counts and temporal sums exact, spatial sums within
+    ``pane_spatial_bound``); ``PointTStatsQuery.run_soa`` on the same
+    stream at 10 s / 1 s against the CPU (spatial within
+    ``spatial_sum_bound``); ``run`` WindowBased, RealTime and CountBased
+    on 20,000 ``Point``s. Returns seconds of the device engine."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointTStatsQuery,
+        QueryConfiguration,
+        QueryType,
+    )
+    from spatialflink_tpu_torch.ops.trajectory import (
+        spatial_sum_bound,
+        traj_stats_pane_kernel,
+    )
+    from spatialflink_tpu_torch.streams.panes import (
+        pane_operands,
+        pane_spatial_bound,
+        traj_stats_sliding,
+    )
+
+    t0 = time.perf_counter()
+    ts, xy, oid = tstats_stream()
+    print(f"data: {TS_POINTS} tStats points in {time.perf_counter() - t0:.3f}"
+          f" s (host set-up)")
+    args = (ts, xy, oid, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS)
+    traj_stats_sliding(ts[:1000], xy[:1000], oid[:1000], TS_BUCKET,
+                       TS_WINDOW_MS, TS_SLIDE_MS, device=gpu)
+    t0 = time.perf_counter()
+    got = traj_stats_sliding(*args, device=gpu)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = traj_stats_sliding(*args, device="cpu")
+    cpu_secs = time.perf_counter() - t0
+    xy32 = xy.astype(np.float32).astype(np.float64)
+    t0 = time.perf_counter()
+    ref = traj_stats_sliding(ts, xy32, oid, TS_BUCKET, TS_WINDOW_MS,
+                             TS_SLIDE_MS, backend="numpy")
+    np_secs = time.perf_counter() - t0
+    bound = pane_spatial_bound(*args)
+    e_cpu = check_pane_windows(got, cpu, bound, "pane engine vs its CPU run")
+    e_np = check_pane_windows(got, ref, bound, "pane engine vs numpy")
+    ppw = TS_WINDOW_MS // TS_SLIDE_MS
+    print(f"e2e traj_stats_sliding device engine (bench_tstats_pane: "
+          f"{TS_POINTS} points, {TS_IDS} ids in a {TS_BUCKET} bucket, "
+          f"{TS_WINDOW_MS} ms windows by {TS_SLIDE_MS} ms, ppw {ppw}): "
+          f"{len(got.starts)} windows in {secs:.6f} s = "
+          f"{TS_POINTS / secs:.1f} points/s; starts, counts and temporal "
+          f"sums equal the CPU run ({cpu_secs:.3f} s) and the numpy engine "
+          f"({np_secs:.3f} s on the host); spatial sums within "
+          f"pane_spatial_bound (bound {bound.min():.6g}-{bound.max():.6g}): "
+          f"max |err| {e_cpu[0]:.6g} vs the CPU run ({e_cpu[1]:.3g} of the "
+          f"bound), {e_np[0]:.6g} vs numpy ({e_np[1]:.3g}) [{card}]")
+
+    t0 = time.perf_counter()
+    operands, p_lo, n_panes = pane_operands(ts, xy, oid, TS_BUCKET,
+                                            TS_SLIDE_MS)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    lanes = [torch.from_numpy(a).to(dev) for a in operands]
+    statics = dict(num_oids=TS_BUCKET, slide_ms=TS_SLIDE_MS, ppw=ppw,
+                   n_panes=n_panes)
+    k_ms, k_call = time_ms(lambda: traj_stats_pane_kernel(*lanes, **statics))
+    n_starts = n_panes + ppw - 1
+    k_bytes = 17 * len(operands[0]) + 20 * TS_BUCKET * n_starts
+    k_bound, k_by = bound_ms(k_bytes, 20 * len(operands[0])
+                             + 8 * TS_BUCKET * n_starts)
+    print(f"time pane engine parts: host sort, rebase and pad "
+          f"{host_ms:.6f} ms; traj_stats_pane_kernel {k_ms:.6f} ms device "
+          f"({k_call:.6f} ms per call; plain PyTorch, no hand kernel), bound "
+          f"{k_bound:.6f} ms ({k_by}: {k_bytes} B) at {len(operands[0])} "
+          f"lanes x {TS_BUCKET} oids x {n_starts} starts [{card}]")
+    profile_run(lambda: traj_stats_sliding(*args, device="cuda"), card,
+                "traj_stats_sliding device engine")
+
+    chunks = [{"ts": ts[s:s + 100_000], "x": xy[s:s + 100_000, 0],
+               "y": xy[s:s + 100_000, 1], "oid": oid[s:s + 100_000]}
+              for s in range(0, TS_POINTS, 100_000)]
+    conf = QueryConfiguration(window_size=10.0, slide_step=1.0)
+    outs = {}
+    for d in (gpu, "cpu"):
+        op = PointTStatsQuery(conf, UniformGrid(**BEIJING), device=d)
+        t0 = time.perf_counter()
+        outs[d] = (list(op.run_soa(chunks, TS_BUCKET)),
+                   time.perf_counter() - t0)
+    (g_soa, s_secs), (c_soa, c_secs) = outs[gpu], outs["cpu"]
+    worst = 0.0
+    for g, w in zip(g_soa, c_soa):
+        b = spatial_sum_bound(g[4], np.maximum(g[2], w[2]))
+        err = np.abs(g[2].astype(np.float64) - w[2])
+        if g[0:2] != w[0:2] or not np.array_equal(g[3], w[3]) \
+                or not np.array_equal(g[4], w[4]) or not np.all(err <= b):
+            raise AssertionError(f"tStats run_soa: window {g[:2]} differs "
+                                 f"from the CPU run")
+        worst = max(worst, float(err.max()))
+    if len(g_soa) != len(c_soa) or len(g_soa) != 39:
+        raise AssertionError(f"tStats run_soa: {len(g_soa)} windows")
+    print(f"e2e tStats run_soa (the same stream, 10 s windows by 1 s): "
+          f"{len(g_soa)} windows, {TS_POINTS} points in {s_secs:.6f} s = "
+          f"{TS_POINTS / s_secs:.1f} points/s; counts and temporal sums "
+          f"equal the CPU run ({c_secs:.3f} s), spatial within "
+          f"spatial_sum_bound, max |err| {worst:.6g} [{card}]")
+
+    pts = [p for p in traj_points(
+        [{"x": xy[:, 0], "y": xy[:, 1], "oid": oid}], 2 * T_CUT, T_CUT, "t")]
+    for label, kw in (("WindowBased", {}),
+                      ("RealTime", {"query_type": QueryType.RealTime,
+                                    "realtime_batch_ms": 100}),
+                      ("CountBased", {"query_type": QueryType.CountBased,
+                                      "count_window_size": 5_000})):
+        g, o_secs = run_objects_family(gpu, PointTStatsQuery, "run", [pts],
+                                       **kw)
+        w, w_secs = run_objects_family("cpu", PointTStatsQuery, "run", [pts],
+                                       **kw)
+        ok = [x[:3] for x in g] == [x[:3] for x in w] and len(g) >= 2
+        for a, b in zip(g, w):
+            ok = ok and a[3].keys() == b[3].keys() and all(
+                a[3][k][1] == b[3][k][1] and abs(a[3][k][0] - b[3][k][0])
+                <= spatial_sum_bound(a[2], max(a[3][k][0], b[3][k][0]))
+                for k in a[3])
+        if not ok:
+            raise AssertionError(f"tStats run {label} differs from the CPU "
+                                 f"run")
+        print(f"e2e tStats run {label} (2 x {T_CUT} Point objects): "
+              f"{len(g)} windows in {o_secs:.6f} s; equal to the CPU run "
+              f"({w_secs:.3f} s), spatial within spatial_sum_bound [{card}]")
+    return secs
+
+
+def check_traj_families(card, gpu="cuda"):
+    """Phase 25: tRange ``run_soa`` on config 3's stream against 32
+    polygons, tKnn, tAggregate (SUM) and tFilter ``run_soa`` on config
+    2's stream; the other aggregates, the inactive threshold and ``run``
+    on ``Point``s at 2 x 20,000; each against its CPU run. Returns the
+    e2e rates."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+
+    import torch
+
+    def soa(device, cls, chunks, *args, window=1.0, slide=1.0, **op_kw):
+        op = cls(ops.QueryConfiguration(window_size=window,
+                                        slide_step=slide),
+                 UniformGrid(**BEIJING), device=device, **op_kw)
+        t0 = time.perf_counter()
+        out = list(op.run_soa(chunks, *args))
+        if op.device.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(a, b):
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if hasattr(a, "cells"):
+            return (a.start, a.end, a.window_count, a.cells) == \
+                (b.start, b.end, b.window_count, b.cells)
+        return a == b
+
+    def case(label, cls, chunks, *args, n, **kw):
+        g, secs = soa(gpu, cls, chunks, *args, **kw)
+        w, c_secs = soa("cpu", cls, chunks, *args, **kw)
+        if not same(g, w) or not g:
+            raise AssertionError(f"{label} differs from the CPU run")
+        print(f"e2e {label}: {len(g)} windows, {n} points in {secs:.6f} s = "
+              f"{n / secs:.1f} points/s; equal to the CPU run "
+              f"({c_secs:.3f} s) [{card}]")
+        return g, n / secs
+
+    rates = {}
+    polys = range_polygons()[:TR_QUERIES]
+    rchunks = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)
+    rng = np.random.default_rng(77)
+    for c in rchunks:
+        c["oid"] = rng.integers(0, TR_IDS, len(c["ts"])).astype(np.int32)
+    g, rates["tRange run_soa"] = case(
+        f"tRange run_soa (config 3's stream: {RANGE_WINDOWS} windows of "
+        f"{RANGE_WIN}, {TR_IDS} ids; {TR_QUERIES} polygons of config 3)",
+        ops.PointPolygonTRangeQuery, rchunks, polys, TR_IDS,
+        n=RANGE_WINDOWS * RANGE_WIN)
+    hits = [len(x[2]) for x in g]
+    if min(hits) == 0:
+        raise AssertionError(f"tRange run_soa: hits {hits}")
+    print(f"  tRange hit trajectories per window {hits}")
+
+    pchunks = pane_chunks()
+    n2 = PANES * PANE_PTS
+    q = Point(x=QUERY[0], y=QUERY[1])
+    g, rates["tKnn run_soa"] = case(
+        f"tKnn run_soa (config 2: {PANES} panes of {PANE_PTS}, "
+        f"{PANE_WINDOW_S:g} s windows by 1 s, k={PANE_K}, r={PANE_R})",
+        ops.PointPointTKNNQuery, pchunks, q, PANE_R, PANE_K, NUM_SEGMENTS,
+        n=n2, window=PANE_WINDOW_S)
+    if min(x[4] for x in g) < PANE_K:
+        raise AssertionError("tKnn run_soa: a window short of k")
+    g, rates["tAggregate run_soa"] = case(
+        "tAggregate run_soa SUM (config 2's stream, 5 s by 1 s)",
+        ops.PointTAggregateQuery, pchunks, n=n2, window=PANE_WINDOW_S,
+        aggregate="SUM")
+    print(f"  tAggregate cells in the last window: {len(g[-1].cells)}")
+    g, rates["tFilter run_soa"] = case(
+        f"tFilter run_soa (config 2's stream, {TF_IDS} ids)",
+        ops.PointTFilterQuery, pchunks, list(range(TF_IDS)), n=n2,
+        window=PANE_WINDOW_S)
+
+    cut = [{k: v[:2 * T_CUT] for k, v in pchunks[0].items()}]
+    cut[0]["ts"] = (np.arange(2 * T_CUT, dtype=np.int64) * 1000) // T_CUT
+    for mode, kw in (("ALL", {}), ("AVG", {}), ("MIN", {}), ("MAX", {}),
+                     ("ALL, inactive 500 ms",
+                      {"inactive_threshold_ms": 500})):
+        case(f"tAggregate run_soa {mode} (2 x {T_CUT})",
+             ops.PointTAggregateQuery, cut, n=2 * T_CUT,
+             aggregate=mode.split(",")[0], **kw)
+
+    pts = traj_points(pchunks, 2 * T_CUT, T_CUT, "o")
+    for label, cls, args, op_kw in (
+            ("tRange", ops.PointPolygonTRangeQuery, (polys,), {}),
+            ("tKnn", ops.PointPointTKNNQuery, (q, PANE_R, PANE_K), {}),
+            ("tAggregate SUM", ops.PointTAggregateQuery, (), {}),
+            ("tFilter", ops.PointTFilterQuery,
+             ([f"o{i}" for i in range(TF_IDS)],), {})):
+        g, o_secs = run_objects_family(gpu, cls, "run", [pts], *args,
+                                       op_kw=op_kw)
+        w, c_secs = run_objects_family("cpu", cls, "run", [pts], *args,
+                                       op_kw=op_kw)
+        if g != w or len(g) != 2 or not all(x[3] for x in g):
+            raise AssertionError(f"{label} run differs from the CPU run")
+        print(f"e2e {label} run (2 x {T_CUT} Point objects): results "
+              f"{[len(x[3]) for x in g]} in {o_secs:.6f} s; equal to the CPU "
+              f"run ({c_secs:.3f} s) [{card}]")
+    profile_run(lambda: soa("cuda", ops.PointPolygonTRangeQuery, rchunks,
+                            polys, TR_IDS), card, "tRange run_soa")
+    return rates
+
+
+def run_trajectory_phases(dev, card, gpu="cuda"):
+    """Phases 23-25, each phase's wall printed. Returns (B3 launches of
+    phase 23, B3's timing row at the tJoin shape)."""
+    t0 = time.perf_counter()
+    launches, got, secs, chunks = check_tjoin(card, gpu)
+    row = time_tjoin(dev, card, got, secs, chunks)
+    t1 = time.perf_counter()
+    check_tstats(dev, card, gpu)
+    t2 = time.perf_counter()
+    rates = check_traj_families(card, gpu)
+    t3 = time.perf_counter()
+    n = 2 * TJ_SLIDES * TJ_SLIDE_PTS
+    print(f"e2e rates: tJoin run_soa {n / secs:.1f} points/s, "
+          + ", ".join(f"{k} {v:.1f} points/s" for k, v in rates.items())
+          + f" [{card}]")
+    print(f"phase walls: 23 {t1 - t0:.3f} s, 24 {t2 - t1:.3f} s, 25 "
+          f"{t3 - t2:.3f} s [{card}]")
+    return launches, row
+
+
 def run_join_phases(dev, card, geo_chunks):
     """Phases 20-22, each phase's wall printed. Returns (B4 launches of
     phase 20, of phase 21, B3 launches of query_panes, B4 timing
@@ -2988,6 +3578,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="phases 1-4 and 7 only (build and check the kernels)")
+    ap.add_argument("--trajectory-only", action="store_true",
+                    help="phases 1-2 and 23-25 only (build, then the "
+                         "trajectory layer)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3023,6 +3616,15 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
+
+    if args.trajectory_only:
+        run_trajectory_phases(dev, card)
+        print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
+              f"[{card}]")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     wf = WireFormat.for_grid(UniformGrid(**BEIJING))
     t0 = time.perf_counter()
@@ -3210,6 +3812,8 @@ def main(argv=None) -> int:
         dev, card, geo_chunks)
     b4_launches += pg_launches + gg_launches
     b4_shapes.update(join_shapes)
+    # Phases 23-25: the trajectory layer (tJoin through B3).
+    tj_launches, tj_row = run_trajectory_phases(dev, card)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -3230,11 +3834,14 @@ def main(argv=None) -> int:
         {"name": "join_extract", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
-         "launches": soa_launches + obj_launches + qp_launches,
+         "launches": soa_launches + obj_launches + qp_launches
+         + tj_launches,
          "max_abs_err": err_b3,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None,
-         "launches_query_panes": qp_launches},
+         "launches_query_panes": qp_launches,
+         "launches_tjoin": tj_launches,
+         "shapes": {"tjoin_window": tj_row}},
         {"name": "polyline_min_dist", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",

@@ -26,6 +26,10 @@ FLAG_NONE = np.uint8(0)
 FLAG_CANDIDATE = np.uint8(1)
 FLAG_GUARANTEED = np.uint8(2)
 
+#: Digits of each cell index in a cell name (UniformGrid.java
+#: CELLINDEXSTRLENGTH).
+_CELL_INDEX_STR_LENGTH = 5
+
 
 class UniformGrid:
     """Square uniform grid over a bounding box: ``num_partitions`` cells
@@ -72,6 +76,13 @@ class UniformGrid:
         yi = np.floor((xy[..., 1] - self.min_y) / self.cell_length).astype(np.int64)
         inside = (xi >= 0) & (xi < self.n) & (yi >= 0) & (yi < self.n)
         return np.where(inside, xi * self.n + yi, self.num_cells).astype(np.int32)
+
+    def cell_name(self, flat: int) -> str:
+        """The reference's string key of a flat cell: x then y index, 5
+        digits each ("xxxxxyyyyy")."""
+        xi, yi = divmod(int(flat), self.n)
+        w = _CELL_INDEX_STR_LENGTH
+        return f"{xi:0{w}d}{yi:0{w}d}"
 
     def candidate_layers(self, radius: float) -> int:
         """ceil(r / cell); UniformGrid.java:441-445."""

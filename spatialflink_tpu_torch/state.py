@@ -22,6 +22,11 @@ A pane-carry kNN deployment (``query_panes``, ``run_soa_panes``) holds
 the digests of its live panes; ``pane_carry_from_jax`` turns the JAX
 operator's into the port's, so a port operator given them and the
 interner continues the JAX operator's windows.
+
+A trajectory deployment holds tAggregate's MapState analog, tStats'
+realtime running totals or tJoin's grown budgets;
+``trajectory_state_from_jax`` turns them into the port constructor's
+keyword arguments.
 """
 
 from __future__ import annotations
@@ -211,3 +216,32 @@ def join_pane_carry_from_jax(jax_op, op) -> Optional[dict]:
         for (p, q), (pairs, over) in carry["blocks"].items()
     }
     return {"panes": panes, "blocks": blocks}
+
+
+def trajectory_state_from_jax(jax_op) -> dict:
+    """A JAX trajectory operator's carried state → the keyword arguments
+    that start the port operator of the same family where it stands:
+    ``TAggregateQuery``'s ``aggregate_state`` (its sorted ``_skeys``,
+    ``_smin``, ``_smax``), ``TStatsQuery``'s ``running`` (the realtime
+    totals per objID) or ``TJoinQuery``'s ``pair_budget`` and
+    ``tpair_budget`` (its grown ``_max_pairs`` and ``_max_tpairs``).
+    The arrays are copied. Copy the interner too, where the state keys
+    on interned objIDs::
+
+        op = TAggregateQuery(conf, grid, aggregate="SUM",
+                             **trajectory_state_from_jax(jax_op))
+        op.interner = interner_from_jax(jax_op)
+    """
+    if hasattr(jax_op, "_skeys"):
+        return {"aggregate_state": tuple(
+            np.array(getattr(jax_op, a), np.int64, copy=True)
+            for a in ("_skeys", "_smin", "_smax"))}
+    if hasattr(jax_op, "_running"):
+        return {"running": {
+            str(k): (float(s), int(t), int(ts), float(x), float(y))
+            for k, (s, t, ts, x, y) in jax_op._running.items()}}
+    if hasattr(jax_op, "_max_tpairs"):
+        return {"pair_budget": int(jax_op._max_pairs),
+                "tpair_budget": int(jax_op._max_tpairs)}
+    raise TypeError(
+        f"no trajectory state to carry on {type(jax_op).__name__}")

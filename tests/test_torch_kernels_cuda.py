@@ -646,3 +646,98 @@ def test_pruned_join_kernels_on_card_equal_cpu(kind):
     _bit_equal(got, want)
     assert int(want.count) > 100
     assert int(want.cand_overflow) == 0 and int(want.pair_overflow) == 0
+
+
+def _traj_chunks(seed, n, n_obj, span_ms, per_chunk):
+    rng = np.random.default_rng(seed)
+    ts = np.sort(rng.integers(0, span_ms, n)).astype(np.int64)
+    xs = rng.uniform(115.5, 117.6, n)
+    ys = rng.uniform(39.6, 41.1, n)
+    oid = rng.integers(0, n_obj, n).astype(np.int32)
+    return [{"ts": ts[i:i + per_chunk], "x": xs[i:i + per_chunk],
+             "y": ys[i:i + per_chunk], "oid": oid[i:i + per_chunk]}
+            for i in range(0, n, per_chunk)]
+
+
+@pytest.mark.cuda
+def test_tjoin_run_soa_on_card_equals_cpu():
+    """``TJoinQuery.run_soa`` on the card (B3, then the dedup) equals its
+    CPU run (the plain versions) window for window: trajectory ids in key
+    order, min-distance bits, counts and overflow (B3 is bit-exact and a
+    minimum does not depend on the order of its terms); B3 launched once
+    a two-sided window."""
+    dev = _card()
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    grid = UniformGrid(50, 115.5, 117.6, 39.6, 41.1)
+    conf = QueryConfiguration(window_size=2.0, slide_step=1.0)
+    left = _traj_chunks(31, 40_000, 512, 8000, 5000)
+    right = _traj_chunks(32, 40_000, 512, 8000, 5000)
+    out = {}
+    for d in (dev, "cpu"):
+        join_extract.launches = 0
+        op = PointPointTJoinQuery(conf, grid, cap=24, device=d)
+        out[str(d)] = (list(op.run_soa(left, right, 0.002, 512)),
+                       join_extract.launches)
+    got, launches = out[str(dev)]
+    want, _ = out["cpu"]
+    assert len(got) == len(want) == 9 and launches == len(got)
+    for g, w in zip(got, want):
+        assert g[0:2] == w[0:2] and g[5:] == w[5:] and g[6] == 0
+        assert np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])
+        assert np.array_equal(g[4].view(np.int32), w[4].view(np.int32))
+    assert min(g[5] for g in got) > 20
+
+
+@pytest.mark.cuda
+def test_traj_stats_on_card_equals_cpu():
+    """The pane engine and ``TStatsQuery.run_soa`` on the card against
+    their CPU runs: starts, counts and temporal sums exact, spatial sums
+    within the stated bounds (the card's ``index_add_`` adds floats in
+    another order)."""
+    dev = _card()
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointTStatsQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.trajectory import spatial_sum_bound
+    from spatialflink_tpu_torch.streams.panes import (
+        pane_spatial_bound,
+        traj_stats_sliding,
+    )
+
+    rng = np.random.default_rng(17)
+    n = 200_000
+    ts = np.sort(rng.integers(0, 30_000, n)).astype(np.int64)
+    xy = np.stack([rng.uniform(115.5, 117.6, n),
+                   rng.uniform(39.6, 41.1, n)], axis=1)
+    oid = rng.integers(0, 500, n).astype(np.int64)
+    for size, slide in ((10_000, 10), (2_000, 1_000)):
+        got = traj_stats_sliding(ts, xy, oid, 512, size, slide, device=dev)
+        want = traj_stats_sliding(ts, xy, oid, 512, size, slide,
+                                  device="cpu")
+        assert np.array_equal(got.starts, want.starts)
+        assert np.array_equal(got.count, want.count)
+        assert np.array_equal(got.temporal, want.temporal)
+        bound = pane_spatial_bound(ts, xy, oid, 512, size, slide)
+        assert np.all(np.abs(got.spatial - want.spatial) <= bound[None, :])
+    chunks = [{"ts": ts[i:i + 20_000], "x": xy[i:i + 20_000, 0],
+               "y": xy[i:i + 20_000, 1], "oid": oid[i:i + 20_000]}
+              for i in range(0, n, 20_000)]
+    conf = QueryConfiguration(window_size=10.0, slide_step=5.0)
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    got = list(PointTStatsQuery(conf, grid, device=dev).run_soa(chunks, 512))
+    want = list(PointTStatsQuery(conf, grid, device="cpu").run_soa(chunks,
+                                                                   512))
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        assert g[0:2] == w[0:2]
+        assert np.array_equal(g[3], w[3]) and np.array_equal(g[4], w[4])
+        bound = spatial_sum_bound(g[4], np.maximum(g[2], w[2]))
+        assert np.all(np.abs(g[2].astype(np.float64) - w[2]) <= bound)
