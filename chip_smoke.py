@@ -4,7 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py            # every phase, full sizes
     python3 chip_smoke.py --quick    # phases 1-4, 7 and 11: build and check
-    python3 chip_smoke.py --trajectory-only   # phases 1-2 and 23-25
+    python3 chip_smoke.py --trajectory-only   # phases 1-2 and 23-26
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -184,7 +184,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stream; then the ALL, AVG, MIN and MAX aggregates, the inactive
    threshold, and ``run`` on ``Point``s of tRange, tKnn, tAggregate and
    tFilter at 2 x 20,000; each equal to its CPU run; and a profiler pass
-   over the tRange run.
+   over the tRange run;
+26. run ``PointPointTJoinQuery.run_soa_panes`` (the pane-carry engine,
+   plain PyTorch) at the JAX suite's tjoin_panes_10s_10ms, uncut (10 s
+   windows by 10 ms, ppw 1,000; 2,000 panes of 1,024 points a side from
+   seed 23; 64 ids, cap_w 256, pair_sel 16, r = 0.001, grid n = 100):
+   2,999 windows, one scan with every overflow counter 0, the capacity
+   plan printed beside the measured occupancy; time the host steps, the
+   engine's steady state alone (a warm scan of 1,000 slides, then 1,000
+   timed) and its parts a slide, with its launches a slide; a profiler
+   trace of the whole operator run (the device's idle share) and of 40
+   steady slides (the kernel rows); then hold the card's windows equal
+   (ids in order, distance bits) to the engine's CPU run of the stream
+   cut to its
+   first 1,024 panes over every window ending before pane 1,024, to
+   ``run_soa`` through B3 at the windows starting 0 and 10,000 ms (10 s
+   tumbling), and to the segmented pipelined scan over every window.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -199,6 +214,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -325,6 +341,28 @@ T_CUT = 20_000  # points a window of the cut-depth runs, 2 windows
 TR_IDS = 16_384
 TR_QUERIES = 32
 TF_IDS = 64
+# Phase 26: the pane-carry tJoin at the JAX suite's tjoin_panes_10s_10ms
+# (bench_suite.py:1071-1241), uncut: 10 s windows by 10 ms (ppw 1,000),
+# 1,024 points a side a pane over 2,000 panes (ppw to fill the window,
+# then 1,000 steady), positions uniform on the Beijing extent and ids
+# uniform over 64 from seed 23, cap_w 256, pair_sel 16, r = 0.001, grid
+# n = 100 (one candidate layer: 9 cells probed a point). The CPU twin
+# runs the engine on the first TP_CPU_PANES panes: the windows ending
+# before that pane, 25 of them full (the CPU takes ~25-40 ms a slide at
+# this width, so the whole stream's 2,999 would take minutes).
+TP_PPW = 1000
+TP_SLIDE_MS = 10
+TP_PANE_PTS = 1024
+TP_STEADY = 1000
+TP_PANES = TP_PPW + TP_STEADY
+TP_IDS = 64
+TP_CAP_W = 256
+TP_PAIR_SEL = 16
+TP_R = 0.001
+TP_CPU_PANES = TP_PPW + 24
+TP_WARM_PANES = 24
+TP_PROFILE_SLIDES = 40
+TP_REPS = 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -446,7 +484,7 @@ def profile_run(run, card, label="sync run"):
     (torch.profiler, CUDA activity). Busy time is the union of the
     device-side intervals (kernels, copies, memsets): summing every
     profiler row would count each kernel twice, once under the operator
-    that launched it."""
+    that launched it. Returns (wall ms, busy ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -485,6 +523,38 @@ def profile_run(run, card, label="sync run"):
     for e in host[:6]:
         print(f"  {e.self_cpu_time_total / 1e3:.3f} ms host (self), "
               f"{e.count} calls: {e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
+
+
+def trace_busy(run):
+    """(wall s, device busy s, kernels) of one ``run()`` under a
+    torch.profiler trace of CUDA activity. Busy time is the union of the
+    device-side intervals, read from the raw trace events: for a trace
+    of the whole pane-carry tJoin (~670,000 kernels) that is far cheaper
+    than building the profiler's event objects."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, kernels = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            lo = e.start_ns()
+            spans.append((lo, lo + e.duration_ns()))
+            kernels += not e.name().startswith(("Memset", "Memcpy"))
+    spans.sort()
+    busy_ns, end = 0, -1
+    for lo, hi in spans:
+        if hi > end:
+            busy_ns += hi - max(lo, end)
+            end = hi
+    return wall, busy_ns / 1e9, kernels
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -3520,8 +3590,367 @@ def check_traj_families(card, gpu="cuda"):
     return rates
 
 
+def tpanes_stream():
+    """bench_tjoin_panes' two streams (bench_suite.py:1104-1112, seed 23:
+    x, y and the ids of the left side, then the right's), in chunks of 100
+    panes; pane p's points at ts in [10p, 10p + 10) ms."""
+    rng = np.random.default_rng(23)
+    n = TP_PANES * TP_PANE_PTS
+    ts = (np.arange(n, dtype=np.int64) * TP_SLIDE_MS) // TP_PANE_PTS
+    per = 100 * TP_PANE_PTS
+    sides = []
+    for _ in range(2):
+        x = rng.uniform(115.5, 117.6, n)
+        y = rng.uniform(39.6, 41.1, n)
+        oid = rng.integers(0, TP_IDS, n).astype(np.int32)
+        sides.append([{"ts": ts[i:i + per], "x": x[i:i + per],
+                       "y": y[i:i + per], "oid": oid[i:i + per]}
+                      for i in range(0, n, per)])
+    return sides
+
+
+def run_tjoin_panes(device, chunks):
+    """``PointPointTJoinQuery.run_soa_panes`` at phase 26's configuration;
+    returns the windows, seconds (the device synchronised) and the
+    operator."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery,
+        QueryConfiguration,
+    )
+
+    conf = QueryConfiguration(window_size=TP_PPW * TP_SLIDE_MS / 1000,
+                              slide_step=TP_SLIDE_MS / 1000)
+    op = PointPointTJoinQuery(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    out = list(op.run_soa_panes(chunks[0], chunks[1], TP_R, TP_IDS,
+                                cap_w=TP_CAP_W, pair_sel=TP_PAIR_SEL))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, op
+
+
+def pane_window(s, row):
+    """The operator's window tuple of slide ``s`` from its (K²,) minima
+    row (``run_soa_panes``' decode; panes rebased to 0)."""
+    start = (s - TP_PPW + 1) * TP_SLIDE_MS
+    hit = np.flatnonzero(np.isfinite(row))
+    return (start, start + TP_PPW * TP_SLIDE_MS,
+            (hit // TP_IDS).astype(np.int32), (hit % TP_IDS).astype(np.int32),
+            row[hit].astype(np.float64), int(len(hit)), 0)
+
+
+def same_window(a, b) -> bool:
+    """Starts, ends, counts and overflow equal, id arrays equal in order,
+    distances bit-equal (as float32 when one side is float32)."""
+    da, db = np.asarray(a[4]), np.asarray(b[4])
+    if da.dtype != db.dtype:
+        da, db = da.astype(np.float32), db.astype(np.float32)
+    return (a[0:2] == b[0:2] and a[5:] == b[5:]
+            and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+            and da.tobytes() == db.tobytes())
+
+
+def check_tjoin_panes(dev, card, gpu="cuda"):
+    """Phase 26: ``run_soa_panes`` at tjoin_panes_10s_10ms on the card;
+    its host steps, the engine's steady state and its parts timed; the
+    windows held against the engine's CPU run over a cut, ``run_soa``
+    (B3) and the segmented pipelined scan. Returns the e2e seconds."""
+    import torch
+
+    from spatialflink_tpu_torch import pipeline
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.operators.base import ship
+    from spatialflink_tpu_torch.operators.trajectory import tjoin_pane_fields
+    from spatialflink_tpu_torch.ops import tjoin_panes as tp
+    from spatialflink_tpu_torch.ops.compaction import (
+        max_window_cell_count,
+        pick_capacity,
+    )
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    chunks = tpanes_stream()
+    print(f"data: 2 x {TP_PANES} x {TP_PANE_PTS} pane-carry tJoin points in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    grid = UniformGrid(**BEIJING)
+    layers = grid.candidate_layers(TP_R)
+    n_slides = TP_PANES + TP_PPW - 1
+    n_pts = 2 * TP_PANES * TP_PANE_PTS
+
+    # 1. The operator end to end on the card, after a run on the stream's
+    # first TP_WARM_PANES panes (every slide is full width: it takes
+    # the one-time costs of the first launches out of the timed run).
+    cut = [[{k: v[:TP_WARM_PANES * TP_PANE_PTS]
+             for k, v in side[0].items()}] for side in chunks]
+    cut_got, cut_secs, _ = run_tjoin_panes(gpu, cut)
+    got, secs, op = run_tjoin_panes(gpu, chunks)
+    if not all(same_window(a, b) for a, b in zip(
+            cut_got[:TP_WARM_PANES], got)):
+        raise AssertionError("run_soa_panes: the windows of a cut stream "
+                             "differ from the whole stream's")
+    scans, occ = op.pane_scans, op.pane_occupancy
+    cap_c = scans[0][2]
+    by_start = {w[0]: w for w in got}
+    last_full = by_start[(TP_PANES - TP_PPW) * TP_SLIDE_MS]
+    if len(got) != n_slides or len(scans) != 1 \
+            or scans[0][3:] != (0, 0, 0) or cap_c != pick_capacity(
+                occ, TP_CAP_W) or last_full[5] == 0:
+        raise AssertionError(f"run_soa_panes: {len(got)} windows, scans "
+                             f"{scans}, occupancy {occ}")
+    for w in got:
+        if len(w[2]) != w[5] or np.any(np.diff(
+                w[2].astype(np.int64) * TP_IDS + w[3]) <= 0) \
+                or not np.all(w[4] <= np.float32(TP_R)):
+            raise AssertionError(f"run_soa_panes: window {w[:2]} malformed")
+    print(f"e2e tJoin run_soa_panes (tjoin_panes_10s_10ms: 2 x {TP_PANES} "
+          f"panes of {TP_PANE_PTS} points, {TP_PPW * TP_SLIDE_MS} ms windows "
+          f"by {TP_SLIDE_MS} ms, ppw {TP_PPW}, {TP_IDS} ids, r={TP_R}, cap_w "
+          f"{TP_CAP_W}, pair_sel {TP_PAIR_SEL}): {len(got)} windows fired, "
+          f"one scan, overflow counters (cap, sel, cmp) {scans[0][3:]}; "
+          f"capacity plan: occupancy {occ} -> cap_c {cap_c}; trajectory "
+          f"pairs in the last full window (start {last_full[0]} ms) "
+          f"{last_full[5]}; {n_pts} points in {secs:.6f} s = "
+          f"{n_pts / secs:.1f} points/s, every window fetched (after a "
+          f"first run on {TP_WARM_PANES} panes a side, "
+          f"{len(cut_got)} windows in {cut_secs:.3f} s) [{card}]")
+    # The device's idle share over the whole operator run, traced.
+    tr_wall, tr_busy, tr_kern = trace_busy(
+        lambda: run_tjoin_panes(gpu, chunks))
+    print(f"profile e2e run_soa_panes (the whole run, CUDA activity): wall "
+          f"{tr_wall:.6f} s traced ({secs:.6f} s untraced), device busy "
+          f"{tr_busy:.6f} s ({100 * tr_busy / tr_wall:.1f}%, idle "
+          f"{100 - 100 * tr_busy / tr_wall:.1f}%), {tr_kern} kernels = "
+          f"{tr_kern / n_slides:.2f} a slide [{card}]")
+
+    # Its host steps, timed alone.
+    cols = []
+    for side in chunks:
+        cols.append([np.concatenate([c[k] for c in side])
+                     for k in ("ts", "x", "y", "oid")])
+    t0 = time.perf_counter()
+    fields = [tjoin_pane_fields(grid, *c, TP_SLIDE_MS, 0, n_slides)
+              for c in cols]
+    fields_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plan_occ = max(max_window_cell_count(*f[2], TP_PPW) for f in fields)
+    plan_cap = pick_capacity(plan_occ, TP_CAP_W)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lf, rf = (ship(*f[0], device=dev).arrive() for f in fields)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    h2d_bytes = sum(a.nbytes for f in fields for a in f[0])
+    if (plan_occ, plan_cap) != (occ, cap_c):
+        raise AssertionError(f"capacity plan {plan_occ}/{plan_cap} differs "
+                             f"from the operator's {occ}/{cap_c}")
+    print(f"time run_soa_panes host steps: pane fields (sort, pad, "
+          f"pane_cell_ranks) of both sides {fields_ms:.6f} ms, capacity plan "
+          f"(max_window_cell_count x 2) {plan_ms:.6f} ms, H2D of {h2d_bytes} "
+          f"B {h2d_ms:.6f} ms; together "
+          f"{(fields_ms + plan_ms + h2d_ms) / 10 / secs:.1f}% of the e2e "
+          f"wall [{card}]")
+
+    # 2. The engine alone: a warm scan of ppw slides, then the steady
+    # state from that carry with the expiring panes passed explicitly.
+    radius_args = (TP_R, grid.n, TP_CAP_W, layers, TP_PPW, TP_IDS,
+                   TP_PAIR_SEL, cap_c)
+
+    def part(f, lo, hi):
+        return tuple(a[lo:hi] for a in f)
+
+    warm = tp.tjoin_pane_init(grid.num_cells, TP_CAP_W, TP_PPW, TP_IDS,
+                              device=dev)
+    tp.tjoin_pane_scan(warm, range(TP_PPW), part(lf, 0, TP_PPW),
+                       part(rf, 0, TP_PPW), *radius_args)
+    expire = [(f[4][:TP_STEADY], f[7][:TP_STEADY]) for f in (lf, rf)]
+
+    def clone(c):
+        return tp.TJoinPaneCarry(*(a.clone() for a in c))
+
+    def steady():
+        c = clone(warm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, w = tp.tjoin_pane_scan(
+            c, range(TP_PPW, TP_PANES), part(lf, TP_PPW, TP_PANES),
+            part(rf, TP_PPW, TP_PANES), *radius_args,
+            lps_expire=expire[0], rps_expire=expire[1])
+        counters = torch.stack([c.cap_overflow, c.sel_overflow,
+                                c.cmp_overflow]).tolist()
+        return time.perf_counter() - t0, counters, w
+
+    _, counters, w = steady()
+    rows = w.cpu().numpy()
+    for i, row in enumerate(rows):
+        if not same_window(pane_window(TP_PPW + i, row), got[TP_PPW + i]):
+            raise AssertionError(f"steady scan: slide {TP_PPW + i} differs "
+                                 f"from the operator's window")
+    times = [steady()[0] for _ in range(TP_REPS)]
+    eng = statistics.median(times)
+    n_steady = 2 * TP_PANE_PTS * TP_STEADY
+    if counters != [0, 0, 0]:
+        raise AssertionError(f"steady scan overflowed: {counters}")
+
+    # Its parts at one steady slide (t = ppw), each on its own carry copy.
+    t = TP_PPW
+    lp, rp = (tuple(a[t] for a in f) for f in (lf, rf))
+    xs = (t, lp, rp, (lf[4][0], lf[7][0]), (rf[4][0], rf[7][0]))
+    pc = clone(warm)
+    probe_args = (TP_R, False, grid.n, TP_CAP_W, cap_c, layers, TP_PPW,
+                  TP_IDS, TP_PAIR_SEL)
+
+    def probe_a():
+        return tp._probe_compact(pc.rwx, pc.rwy, pc.rwoid, pc.rwtag,
+                                 pc.rwcur, pc.rwlive, lp[0], lp[1], lp[2],
+                                 lp[3], lp[6], lp[7], *probe_args)
+
+    def probe_b():
+        return tp._probe_compact(pc.lwx, pc.lwy, pc.lwoid, pc.lwtag,
+                                 pc.lwcur, pc.lwlive, rp[0], rp[1], rp[2],
+                                 rp[3], rp[6], rp[7], TP_R, True,
+                                 *probe_args[2:])
+
+    flat, dist, _, _ = probe_a()
+    p_ids = TP_IDS * TP_IDS
+    bs = tp.block_size(TP_PPW)
+
+    def scatters():
+        bflat = torch.div(flat, p_ids * bs, rounding_mode="floor") * p_ids \
+            + flat % p_ids
+        pc.digests.scatter_reduce_(0, flat.long(), dist, "amin")
+        pc.block_digests.scatter_reduce_(0, bflat.long(), dist, "amin")
+
+    def insert():
+        tp._insert(pc.lwx, pc.lwy, pc.lwoid, pc.lwtag, pc.lwcur, t, lp[0],
+                   lp[1], lp[4], lp[5], lp[6], lp[7], TP_CAP_W, TP_PPW)
+
+    dig = pc.digests[:-1].view(TP_PPW, p_ids)
+    blk = pc.block_digests[:-1].view(TP_PPW // bs, p_ids)
+
+    def reduce():
+        dig[0].fill_(float("inf"))
+        torch.amin(dig[0:bs], dim=0, out=blk[0])
+        return torch.amin(blk, dim=0)
+
+    parts = {name: time_ms(fn) for name, fn in (
+        ("probe A (left pane x right window)", probe_a),
+        ("probe B (right pane x left window)", probe_b),
+        ("digest scatter-mins (one direction)", scatters),
+        ("insert (one side)", insert), ("block reduce", reduce))}
+    sc = clone(warm)
+    step_ms = time_ms(lambda: tp.tjoin_pane_step(sc, xs, *radius_args))[1]
+    kern, mems = launches_per_call(lambda: tp.tjoin_pane_step(
+        sc, xs, *radius_args))
+    # Whether a step waits for the device: torch warns at each
+    # synchronising call in this mode.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tp.tjoin_pane_step(sc, xs, *radius_args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    lanes = TP_PANE_PTS * (2 * layers + 1) ** 2 * cap_c
+    print(f"time pane engine alone (steady state: {TP_STEADY} slides after "
+          f"a warm scan of {TP_PPW}, median of {TP_REPS}): "
+          f"{eng:.6f} s = {n_steady / eng:.1f} points/s, "
+          f"{1e3 * eng / TP_STEADY:.6f} ms a slide (host wall), scans "
+          f"{', '.join(f'{x:.3f}' for x in times)} s; per slide: "
+          + "; ".join(f"{k} {v[0]:.6f} ms device ({v[1]:.6f} ms per call)"
+                      for k, v in parts.items())
+          + f"; one whole step {step_ms:.6f} ms per call, {kern:g} kernel "
+          f"launches and {mems:g} memsets, {syncs} host synchronisations; a "
+          f"probe reads {lanes} lanes ({TP_PANE_PTS} points x "
+          f"{(2 * layers + 1) ** 2} cells x cap_c {cap_c}) [{card}]")
+    # The profiler's kernel rows over a short steady scan.
+    pr = clone(warm)
+    wall_ms, busy_ms = profile_run(
+        lambda: tp.tjoin_pane_scan(
+            pr, range(TP_PPW, TP_PPW + TP_PROFILE_SLIDES),
+            part(lf, TP_PPW, TP_PPW + TP_PROFILE_SLIDES),
+            part(rf, TP_PPW, TP_PPW + TP_PROFILE_SLIDES), *radius_args,
+            lps_expire=[a[:TP_PROFILE_SLIDES] for a in expire[0]],
+            rps_expire=[a[:TP_PROFILE_SLIDES] for a in expire[1]]),
+        card, f"pane engine, {TP_PROFILE_SLIDES} steady slides")
+    print(f"  steady engine: device busy {busy_ms / TP_PROFILE_SLIDES:.6f} "
+          f"ms a slide of {wall_ms / TP_PROFILE_SLIDES:.6f} ms [{card}]")
+
+    # 3a. The engine's CPU run of the stream cut to its first
+    # TP_CPU_PANES panes: every window ending before that pane.
+    m = TP_CPU_PANES
+    keep = [c[0] < m * TP_SLIDE_MS for c in cols]
+    t0 = time.perf_counter()
+    cpu_fields = [tjoin_pane_fields(grid, *(a[k] for a in c),
+                                       TP_SLIDE_MS, 0, m)
+                  for c, k in zip(cols, keep)]
+    cpu_cap = pick_capacity(max(max_window_cell_count(*f[2], TP_PPW)
+                                for f in cpu_fields), TP_CAP_W)
+    cc, cw = tp.tjoin_pane_scan(
+        tp.tjoin_pane_init(grid.num_cells, TP_CAP_W, TP_PPW, TP_IDS,
+                           device="cpu"), range(m),
+        *(tuple(torch.from_numpy(a) for a in f[0]) for f in cpu_fields),
+        *radius_args[:-1], cpu_cap)
+    cpu_secs = time.perf_counter() - t0
+    cpu_counters = [int(cc.cap_overflow), int(cc.sel_overflow),
+                    int(cc.cmp_overflow)]
+    cw = cw.numpy()
+    if cpu_counters != [0, 0, 0] or not all(
+            same_window(pane_window(s, cw[s]), got[s]) for s in range(m)):
+        raise AssertionError(f"run_soa_panes: the card's windows differ from "
+                             f"the CPU run of the first {m} panes "
+                             f"(counters {cpu_counters})")
+
+    # 3b. run_soa through B3 on 10 s tumbling windows of the stream.
+    soa_op = PointPointTJoinQuery(
+        QueryConfiguration(window_size=TP_PPW * TP_SLIDE_MS / 1000,
+                           slide_step=TP_PPW * TP_SLIDE_MS / 1000),
+        grid, cap=cap_c, device=gpu)
+    t0 = time.perf_counter()
+    soa = list(soa_op.run_soa(chunks[0], chunks[1], TP_R, TP_IDS,
+                              max_pairs=1 << 21))
+    torch.cuda.synchronize()
+    soa_secs = time.perf_counter() - t0
+    starts = [w[0] for w in soa]
+    if starts != [0, TP_PPW * TP_SLIDE_MS] or any(w[6] for w in soa) \
+            or not all(same_window(by_start[w[0]], w[:6] + (0,))
+                       for w in soa):
+        raise AssertionError(f"run_soa_panes differs from run_soa at "
+                             f"{starts} (overflow {[w[6] for w in soa]})")
+
+    # 3c. The segmented pipelined scan against the one scan.
+    pipeline.install(pipeline.PipelinePolicy())
+    try:
+        seg, seg_secs, _ = run_tjoin_panes(gpu, chunks)
+    finally:
+        pipeline.uninstall()
+    if len(seg) != len(got) or not all(
+            same_window(a, b) for a, b in zip(seg, got)):
+        raise AssertionError("run_soa_panes: the segmented pipelined scan "
+                             "differs from the one scan")
+    print(f"exact run_soa_panes: the card's windows equal the engine's CPU "
+          f"run of the first {m} panes over all {m} windows ending before "
+          f"pane {m} ({m - TP_PPW + 1} full; {cpu_secs:.3f} s on the host "
+          f"CPU, cap_c {cpu_cap}), run_soa through B3 at the windows "
+          f"starting {starts} ms (10 s tumbling, cap {cap_c}, overflow 0, "
+          f"pairs {[w[5] for w in soa]}, {soa_secs:.3f} s) and the segmented "
+          f"pipelined scan over all {len(got)} windows ({seg_secs:.3f} s = "
+          f"{n_pts / seg_secs:.1f} points/s); ids in order, distance bits "
+          f"[{card}]")
+    print(f"phase 26 wall: {time.perf_counter() - t_phase:.3f} s [{card}]")
+    return secs
+
+
 def run_trajectory_phases(dev, card, gpu="cuda"):
-    """Phases 23-25, each phase's wall printed. Returns (B3 launches of
+    """Phases 23-26, each phase's wall printed. Returns (B3 launches of
     phase 23, B3's timing row at the tJoin shape)."""
     t0 = time.perf_counter()
     launches, got, secs, chunks = check_tjoin(card, gpu)
@@ -3531,12 +3960,15 @@ def run_trajectory_phases(dev, card, gpu="cuda"):
     t2 = time.perf_counter()
     rates = check_traj_families(card, gpu)
     t3 = time.perf_counter()
+    tp_secs = check_tjoin_panes(dev, card, gpu)
+    t4 = time.perf_counter()
     n = 2 * TJ_SLIDES * TJ_SLIDE_PTS
     print(f"e2e rates: tJoin run_soa {n / secs:.1f} points/s, "
           + ", ".join(f"{k} {v:.1f} points/s" for k, v in rates.items())
-          + f" [{card}]")
+          + f", tJoin run_soa_panes {2 * TP_PANES * TP_PANE_PTS / tp_secs:.1f}"
+          f" points/s [{card}]")
     print(f"phase walls: 23 {t1 - t0:.3f} s, 24 {t2 - t1:.3f} s, 25 "
-          f"{t3 - t2:.3f} s [{card}]")
+          f"{t3 - t2:.3f} s, 26 {t4 - t3:.3f} s [{card}]")
     return launches, row
 
 
@@ -3579,7 +4011,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="phases 1-4 and 7 only (build and check the kernels)")
     ap.add_argument("--trajectory-only", action="store_true",
-                    help="phases 1-2 and 23-25 only (build, then the "
+                    help="phases 1-2 and 23-26 only (build, then the "
                          "trajectory layer)")
     args = ap.parse_args(argv)
 
@@ -3812,7 +4244,8 @@ def main(argv=None) -> int:
         dev, card, geo_chunks)
     b4_launches += pg_launches + gg_launches
     b4_shapes.update(join_shapes)
-    # Phases 23-25: the trajectory layer (tJoin through B3).
+    # Phases 23-26: the trajectory layer (tJoin through B3, the pane-carry
+    # tJoin).
     tj_launches, tj_row = run_trajectory_phases(dev, card)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",

@@ -11,7 +11,10 @@ sub-trajectory LineStrings, per-cell aggregates, per-trajectory stats.
   from the grid-hash join through B3 (``ops/join_kernel.py``), the
   per-trajectory-pair minimum from ``traj_pair_dedup_kernel``; the pair
   budget and the trajectory-pair budget grow to the next power of two
-  and persist, as in the JAX operator.
+  and persist, as in the JAX operator. ``run_soa_panes`` keeps the window
+  on the device in the pane-carry engine (``ops/tjoin_panes.py``, plain
+  PyTorch as the JAX engine is plain ``jnp``), for extreme-overlap
+  windows.
 - ``TRangeQuery`` (dense containment), ``TKNNQuery``
   (``ops/knn.py:knn_points_fused``), ``TStatsQuery`` (segment sums; the
   SoA path sorts on the device) and ``TAggregateQuery`` (per-(cell,
@@ -19,8 +22,8 @@ sub-trajectory LineStrings, per-cell aggregates, per-trajectory stats.
   numpy) run their window programs on the device; ``TFilterQuery`` is
   host code.
 
-Not ported: ``TJoinQuery.run_soa_panes`` (ROADMAP A8.2), ``driver=``
-(A11) and ``mesh=`` (A12) raise ``NotImplementedError``. The JAX
+Not ported: ``driver=`` and ``run_soa_panes(backend="native")`` (ROADMAP
+A11) and ``mesh=`` (A12) raise ``NotImplementedError``. The JAX
 ``run_soa``'s ``join_window_bucketed`` branch and its 524,288-pair cap
 are TPU VMEM fallbacks and have no counterpart: on the card B3 writes
 to HBM.
@@ -29,10 +32,12 @@ to HBM.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from spatialflink_tpu_torch import pipeline
 from spatialflink_tpu_torch.models.batch import PointBatch
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.operators.base import (
@@ -52,6 +57,10 @@ from spatialflink_tpu_torch.operators.join_query import (
     merge_by_timestamp,
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
+from spatialflink_tpu_torch.ops.compaction import (
+    max_window_cell_count,
+    pick_capacity,
+)
 from spatialflink_tpu_torch.ops.join_kernel import join_window
 from spatialflink_tpu_torch.ops.knn import knn_points_fused
 from spatialflink_tpu_torch.ops.trajectory import (
@@ -60,6 +69,11 @@ from spatialflink_tpu_torch.ops.trajectory import (
     traj_range_hits_fused,
     traj_stats_kernel,
     traj_stats_sorted_fused,
+)
+from spatialflink_tpu_torch.ops.tjoin_panes import (
+    pane_cell_ranks,
+    tjoin_pane_init,
+    tjoin_pane_scan,
 )
 from spatialflink_tpu_torch.streams.soa import SoaWindowAssembler
 from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
@@ -75,6 +89,45 @@ def _no_driver(driver):
 def _grown(count: int) -> int:
     """The next power of two at or above ``count``: a budget's growth."""
     return int(2 ** np.ceil(np.log2(count)))
+
+
+def tjoin_pane_fields(grid, ts: np.ndarray, x: np.ndarray, y: np.ndarray,
+                      oid: np.ndarray, slide_ms: int, p_first: int,
+                      n_slides: int):
+    """One side's events → the engine's per-pane fields on the host.
+
+    Events go to pane ``ts // slide_ms - p_first`` (rebased to 0: absolute
+    epoch-ms pane indices overflow int32), stable in input order within a
+    pane, padded to a power-of-two pane capacity of at least 8. Returns
+    ((x, y, xi, yi, cell, rank, oid, valid), each (n_slides, PC): centred
+    float32 coordinates (``center_coords``), int32 cell indices and
+    ``pane_cell_ranks``, out-of-grid events invalid in cell 0; the event
+    count of each pane; (pane, cell) of the in-grid events, the input of
+    ``ops/compaction.py:max_window_cell_count``)."""
+    pane = (ts // slide_ms - p_first).astype(np.int64)
+    order = np.argsort(pane, kind="stable")
+    pane_s = pane[order]
+    counts = np.bincount(pane_s, minlength=n_slides).astype(np.int64)
+    pc = int(next_bucket(max(int(counts.max()) if len(counts) else 1, 1),
+                         minimum=8))
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    lane = np.arange(len(ts)) - starts[pane_s]
+    cxy = center_coords(grid, np.stack([x, y], axis=1))
+    xi = np.floor((x - grid.min_x) / grid.cell_length).astype(np.int64)
+    yi = np.floor((y - grid.min_y) / grid.cell_length).astype(np.int64)
+    ing = (xi >= 0) & (xi < grid.n) & (yi >= 0) & (yi < grid.n)
+    cell = np.where(ing, xi * grid.n + yi, 0).astype(np.int32)[order]
+    ing = ing[order]
+    out = []
+    for vals, dt in ((cxy[order, 0], np.float32), (cxy[order, 1], np.float32),
+                     (xi[order], np.int32), (yi[order], np.int32),
+                     (cell, np.int32),
+                     (pane_cell_ranks(pane_s, cell, valid=ing), np.int32),
+                     (oid[order], np.int32), (ing, bool)):
+        f = np.zeros((n_slides, pc), dt)
+        f[pane_s, lane] = vals
+        out.append(f)
+    return tuple(out), counts, (pane_s[ing], cell[ing])
 
 
 def sub_trajectory(events: Sequence[Point], obj_id: str,
@@ -259,6 +312,111 @@ def _local_ranks(oid: np.ndarray, count: int):
     return uniq, loc, int(next_bucket(max(len(uniq), 1), minimum=16))
 
 
+_SOA_COLUMNS = (("ts", np.int64), ("x", np.float64), ("y", np.float64),
+                ("oid", np.int32))
+
+
+def _collect_chunks(chunks):
+    """SoA chunks ``{"ts", "x", "y", "oid"}`` → one (ts int64, x float64,
+    y float64, oid int32) array each."""
+    chunks = list(chunks)
+    return tuple(
+        np.concatenate([np.asarray(c[k], dt) for c in chunks]) if chunks
+        else np.zeros(0, dt) for k, dt in _SOA_COLUMNS)
+
+
+class _PaneScan:
+    """The pane-carry engine's scans of one stream (``run_soa_panes``'s
+    retry scans it again with other budgets): each call starts a fresh
+    carry on ``device`` and returns the three counters, read once, and
+    the (n_slides, K²) window minima.
+
+    With no ``pipeline`` policy installed, the fields are shipped once
+    and one scan runs over every slide. Under a policy the slides run in
+    segments through ``pipeline.PipelinedExecutor``: segment N+1's fields
+    copy on a side stream while segment N computes, and segment N-1's
+    minima come back. Segments chain the carry, all have one length
+    (trailing pad panes are empty: they cannot fire, overflow or touch
+    the ring) and each gets its expiring panes from the whole stream (a
+    continued carry is not empty, so a segment's own panes would expire
+    the wrong ones); the rows equal the one scan's."""
+
+    def __init__(self, device, lfields, rfields, radius, grid_n: int,
+                 layers: int, ppw: int, num_ids: int):
+        self.device = device
+        self.fields = (lfields, rfields)
+        self.n_slides = lfields[0].shape[0]
+        self.radius, self.grid_n, self.layers = radius, grid_n, layers
+        self.ppw, self.num_ids = ppw, num_ids
+        self.pol = pipeline.policy()
+        self._shipped = None
+
+    def run(self, cap_w: int, pair_sel: int, cap_c: int):
+        carry = tjoin_pane_init(self.grid_n * self.grid_n, cap_w, self.ppw,
+                                self.num_ids, device=self.device)
+        args = (self.radius, self.grid_n, cap_w, self.layers, self.ppw,
+                self.num_ids, pair_sel, cap_c)
+        if self.pol is None or self.n_slides <= 1:
+            if self._shipped is None:
+                self._shipped = [ship(*f, device=self.device).arrive()
+                                 for f in self.fields]
+            carry, wmins = tjoin_pane_scan(carry, range(self.n_slides),
+                                           *self._shipped, *args)
+        else:
+            carry, wmins = self._segmented(carry, args)
+        counters = torch.stack([carry.cap_overflow, carry.sel_overflow,
+                                carry.cmp_overflow]).tolist()
+        return (*counters, wmins.cpu().numpy())
+
+    def _segmented(self, carry, args):
+        n, ppw, dev = self.n_slides, self.ppw, self.device
+        n_seg = min(n, max(2, 2 * int(self.pol.depth)))
+        seg_len = -(-n // n_seg)
+        n_seg = -(-n // seg_len)
+        total = n_seg * seg_len
+        lf, rf = (tuple(np.concatenate(
+            [a, np.zeros((total - n,) + a.shape[1:], a.dtype)]) for a in f)
+            for f in self.fields)
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        state = {"carry": carry}
+
+        def expiring(fields, s0):
+            # (cell, valid) of pane s - ppw for each slide s of the
+            # segment; zeros while the window fills.
+            idx = np.arange(s0, s0 + seg_len) - ppw
+            take = idx >= 0
+            out = []
+            for a in (fields[4], fields[7]):
+                e = np.zeros((seg_len,) + a.shape[1:], a.dtype)
+                e[take] = a[idx[take]]
+                out.append(e)
+            return out
+
+        def ship_stage(seg):
+            s0 = seg * seg_len
+            return s0, [ship(*f, device=dev, stream=side) for f in (
+                [a[s0:s0 + seg_len] for a in lf],
+                [a[s0:s0 + seg_len] for a in rf],
+                expiring(lf, s0), expiring(rf, s0))]
+
+        def compute_stage(seg, staged):
+            s0, parts = staged
+            lfd, rfd, lxd, rxd = (p.arrive() for p in parts)
+            state["carry"], w = tjoin_pane_scan(
+                state["carry"], range(s0, s0 + seg_len), lfd, rfd, *args,
+                lps_expire=lxd, rps_expire=rxd)
+            return w
+
+        def fetch_stage(works):
+            return [w.cpu() for w in works]
+
+        ex = pipeline.PipelinedExecutor(
+            self.pol, ship=ship_stage, compute=compute_stage,
+            fetch=fetch_stage)
+        rows = torch.cat(list(ex.run(range(n_seg))))
+        return state["carry"], rows[:n]
+
+
 class TJoinQuery(_TrajectoryOperator):
     """Trajectory join: trajectory pairs whose points come within r in a
     window, each pair once, as paired windowed sub-trajectories
@@ -271,7 +429,13 @@ class TJoinQuery(_TrajectoryOperator):
     ``pair_budget`` and ``tpair_budget`` start the point-pair and
     trajectory-pair budgets (the JAX operator's ``_max_pairs`` and
     ``_max_tpairs``), for a port operator that resumes a JAX one
-    (``state.trajectory_state_from_jax``)."""
+    (``state.trajectory_state_from_jax``).
+
+    After ``run_soa_panes``, ``pane_occupancy`` holds the planned live
+    occupancy (None when ``cap_c`` was given) and ``pane_scans`` one
+    ``(cap_w, pair_sel, cap_c, cap_overflow, sel_overflow,
+    cmp_overflow)`` a scan of the stream, the retries included: what the
+    JAX operator records in its telemetry."""
 
     def __init__(self, conf, grid, cap: int = 64, device="cuda",
                  pair_budget: int = 0, tpair_budget: int = 256, mesh=None):
@@ -279,6 +443,8 @@ class TJoinQuery(_TrajectoryOperator):
         self.cap = cap
         self._max_pairs = int(pair_budget)
         self._max_tpairs = int(tpair_budget)
+        self.pane_occupancy: Optional[int] = None
+        self.pane_scans: List[Tuple[int, ...]] = []
 
     def _dedup(self, res, l_loc, r_loc, num_l: int, num_r: int):
         """The window's distinct trajectory pairs, rerun with the next
@@ -412,10 +578,130 @@ class TJoinQuery(_TrajectoryOperator):
                 int(res.overflow),
             )
 
-    def run_soa_panes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_soa_panes (the pane-carry tJoin, ops/tjoin_panes.py) is "
-            "not ported yet: ROADMAP A8.2")
+    def run_soa_panes(self, left_chunks, right_chunks, radius: float,
+                      num_segments: int, cap_w: int = 64, pair_sel: int = 16,
+                      dtype=np.float64, mesh=None, backend: str = "auto",
+                      cap_c: Optional[int] = None, driver=None):
+        """Extreme-overlap sliding tJoin through the pane-carry engine
+        (``ops/tjoin_panes.py``): the window state stays on the device in
+        ring-buffer planes and each slide joins only the new pane, so 10 s
+        windows sliding by 10 ms (ppw = 1000) do not pay ``run_soa``'s
+        full-window join a slide. Yields ``run_soa``'s per-window tuples
+        ``(start, end, left_oids, right_oids, min_dists, count, overflow)``
+        with the same pair sets and minimum distances, pairs in ascending
+        flat-key order (left id, then right id) and distances float64,
+        empty windows included.
+
+        Bounded streams of in-order events: when a counter of the engine
+        overflows, the whole stream is scanned again with ``cap_w`` or
+        ``pair_sel`` doubled or ``cap_c`` one rung up, so the result is
+        exact. A window fires when it holds an event on either side. The
+        digest ring takes ppw·num_segments²·4 bytes and the stacked
+        window minima n_slides·num_segments²·4; past 2 GB either raises
+        ``ValueError``.
+
+        ``cap_c``: the compacted probe's capacity. None always plans the
+        compacted probe, its capacity taken on the host from the stream's
+        exact per-cell window occupancy (``ops/compaction.py``); 0 forces
+        the full-ring probe; a positive value seeds the ladder, which the
+        retry still climbs.
+
+        ``backend``: "auto" and "device" run the engine on the operator's
+        device (the port has no TPU/CPU split: "auto" is the device
+        engine); "native", the JAX package's C++ engine, is not ported
+        (ROADMAP A11). Under an installed ``pipeline`` policy the scan
+        runs in segments that ship ahead of their compute, each segment
+        given its expiring panes, with results equal to the one scan.
+        ``dtype`` is accepted for the JAX signature: the port computes in
+        float32. ``mesh=`` (A12) and ``driver=`` (A11) are not ported."""
+        _no_mesh(mesh)
+        _no_driver(driver)
+        conf = self.conf
+        size, slide = conf.window_size_ms, conf.slide_step_ms
+        if size % slide != 0:
+            raise ValueError("run_soa_panes requires size % slide == 0")
+        if conf.allowed_lateness_ms > 0:
+            raise ValueError(
+                "run_soa_panes does not support allowed_lateness; use "
+                "run_soa()")
+        ppw = size // slide
+        g = self.grid
+        budget = ppw * num_segments * num_segments * 4
+        if budget > 2 << 30:
+            raise ValueError(
+                f"pane digest memory ppw·K² = {budget / 1e9:.1f} GB "
+                "exceeds the 2 GB guard; reduce num_segments or overlap")
+        lt, lx, ly, lo = _collect_chunks(left_chunks)
+        rt, rx, ry, ro = _collect_chunks(right_chunks)
+        check_oid_range(lo, num_segments)
+        check_oid_range(ro, num_segments)
+        if len(lt) == 0 and len(rt) == 0:
+            return
+        all_t = np.concatenate([lt, rt])
+        p_first = int(all_t.min() // slide)
+        # Trailing empty panes flush the windows that still hold the last
+        # events (the assembler's end-of-stream flush).
+        n_slides = int(all_t.max() // slide) - p_first + 1 + ppw - 1
+        out_bytes = n_slides * num_segments * num_segments * 4
+        if out_bytes > 2 << 30:
+            raise ValueError(
+                f"pane scan output n_slides·K² = {out_bytes / 1e9:.1f} GB "
+                f"exceeds the 2 GB guard ({n_slides} slides); feed the "
+                "stream in shorter bounded chunks or reduce num_segments")
+        if backend == "native":
+            raise NotImplementedError(
+                "backend='native' (the C++ pane engine, "
+                "native/sfnative.cpp:sf_tjoin_panes) is not ported yet: "
+                "ROADMAP A11")
+        if backend not in ("auto", "device"):
+            raise ValueError(f"unknown tjoin panes backend {backend!r}")
+        lfields, lcounts, locc = tjoin_pane_fields(
+            g, lt, lx, ly, lo, slide, p_first, n_slides)
+        rfields, rcounts, rocc = tjoin_pane_fields(
+            g, rt, rx, ry, ro, slide, p_first, n_slides)
+        layers = g.candidate_layers(radius)
+        occ = None
+        if cap_c is None:
+            # The host reads the exact live occupancy and picks the rung:
+            # the device program only ever sees the fixed capacity.
+            occ = max(max_window_cell_count(*locc, ppw),
+                      max_window_cell_count(*rocc, ppw))
+            cap_c = pick_capacity(occ, cap_w)
+        self.pane_occupancy, self.pane_scans = occ, []
+        scan = _PaneScan(self.device, lfields, rfields, radius, g.n, layers,
+                         ppw, num_segments)
+        while True:
+            cap_over, sel_over, cmp_over, wmins = scan.run(
+                cap_w, pair_sel, cap_c)
+            self.pane_scans.append((cap_w, pair_sel, cap_c, cap_over,
+                                    sel_over, cmp_over))
+            if cap_over == 0 and sel_over == 0 and cmp_over == 0:
+                break
+            # Grow whichever budget overflowed and scan again.
+            if cap_over:
+                cap_w *= 2
+                if occ is not None:  # re-pick under the new cap
+                    cap_c = pick_capacity(occ, cap_w)
+            if sel_over:
+                pair_sel *= 2
+            if cmp_over and cap_c:
+                # Only a forced or stale cap_c can be too small: climb.
+                cap_c = min(max(cap_c * 2, cap_c + 1), cap_w)
+
+        def rolling(counts):
+            cc = np.concatenate([[0], np.cumsum(counts)])
+            lo_i = np.maximum(np.arange(n_slides) - ppw + 1, 0)
+            return cc[np.arange(n_slides) + 1] - cc[lo_i]
+
+        fires = (rolling(lcounts) != 0) | (rolling(rcounts) != 0)
+        for s in np.flatnonzero(fires):
+            start = (p_first + int(s) - ppw + 1) * slide
+            row = wmins[s]
+            hit = np.flatnonzero(np.isfinite(row))
+            yield (start, start + size,
+                   (hit // num_segments).astype(np.int32),
+                   (hit % num_segments).astype(np.int32),
+                   row[hit].astype(np.float64), int(len(hit)), 0)
 
 
 class PointPointTJoinQuery(TJoinQuery):

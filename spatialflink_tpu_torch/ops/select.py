@@ -29,7 +29,7 @@ def first_k_prefix_indices(mask: torch.Tensor, k: int):
     The prefix sum is nondecreasing, so the (s+1)-th set bit is the first
     lane whose prefix reaches s + 1: a left-sided ``searchsorted``."""
     c = mask.shape[-1]
-    prefix = torch.cumsum(mask.to(torch.int32), dim=-1, dtype=torch.int32)
+    prefix = torch.cumsum(mask, dim=-1, dtype=torch.int32)
     count = prefix[..., -1]
     overflow = torch.clamp(count - k, min=0).sum(dtype=torch.int32)
     target = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device)

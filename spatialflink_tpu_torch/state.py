@@ -27,6 +27,10 @@ A trajectory deployment holds tAggregate's MapState analog, tStats'
 realtime running totals or tJoin's grown budgets;
 ``trajectory_state_from_jax`` turns them into the port constructor's
 keyword arguments.
+
+A pane-carry tJoin scan holds its ring planes, digest rings and
+counters; ``tjoin_pane_carry_from_jax`` turns a JAX ``TJoinPaneCarry``
+into the port's, so a port scan continues where a JAX scan stopped.
 """
 
 from __future__ import annotations
@@ -245,3 +249,33 @@ def trajectory_state_from_jax(jax_op) -> dict:
                 "tpair_budget": int(jax_op._max_tpairs)}
     raise TypeError(
         f"no trajectory state to carry on {type(jax_op).__name__}")
+
+
+def tjoin_pane_carry_from_jax(carry, device="cuda"):
+    """A JAX ``ops/tjoin_panes.py:TJoinPaneCarry`` (its arrays, as numpy or
+    JAX arrays) → the port's ``TJoinPaneCarry`` on ``device``: each array
+    copied, flattened and given the port's spare trailing slot (an empty
+    plane slot, a zero count, an infinite digest). Continue it with
+    ``ops/tjoin_panes.py:tjoin_pane_scan``, passing the panes that expire
+    during the continued slides (the JAX bench's warm-then-steady split)::
+
+        carry = tjoin_pane_carry_from_jax(jax_warm_carry)
+        carry, wmins = tjoin_pane_scan(carry, ts, lps, rps, radius, ...,
+                                       lps_expire=..., rps_expire=...)
+    """
+    from spatialflink_tpu_torch.ops.tjoin_panes import (
+        EMPTY_TAG,
+        TJoinPaneCarry,
+    )
+
+    dev = resolve_device(device)
+    spare = {"lwtag": EMPTY_TAG, "rwtag": EMPTY_TAG,
+             "digests": np.inf, "block_digests": np.inf}
+    out = []
+    for name, a in zip(TJoinPaneCarry._fields, carry):
+        a = np.asarray(a)
+        dt = np.float32 if a.dtype.kind == "f" else np.int32
+        if a.ndim:
+            a = np.concatenate([a.reshape(-1), [spare.get(name, 0)]])
+        out.append(_tensor(a, dt, dev))
+    return TJoinPaneCarry(*out)

@@ -741,3 +741,36 @@ def test_traj_stats_on_card_equals_cpu():
         assert np.array_equal(g[3], w[3]) and np.array_equal(g[4], w[4])
         bound = spatial_sum_bound(g[4], np.maximum(g[2], w[2]))
         assert np.all(np.abs(g[2].astype(np.float64) - w[2]) <= bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap_c", [None, 0])
+def test_tjoin_run_soa_panes_on_card_equals_cpu(cap_c):
+    """``TJoinQuery.run_soa_panes`` (the pane-carry engine, plain PyTorch)
+    on the card equals its CPU run window for window, through the
+    compacted probe (``cap_c`` planned) and the full-ring probe: ids in
+    key order, distance bits, counts (the digests' scatter-min is exact
+    in any order, the roots correctly rounded on both devices)."""
+    dev = _card()
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery,
+        QueryConfiguration,
+    )
+
+    grid = UniformGrid(50, 115.5, 117.6, 39.6, 41.1)
+    conf = QueryConfiguration(window_size=1.0, slide_step=0.01)
+    left = _traj_chunks(41, 20_000, 64, 2_000, 5000)
+    right = _traj_chunks(42, 20_000, 64, 2_000, 5000)
+    out = {}
+    for d in (dev, "cpu"):
+        op = PointPointTJoinQuery(conf, grid, device=d)
+        out[str(d)] = list(op.run_soa_panes(left, right, 0.004, 64,
+                                            cap_w=64, cap_c=cap_c))
+    got, want = out[str(dev)], out["cpu"]
+    assert len(got) == len(want) == 299
+    for g, w in zip(got, want):
+        assert g[0:2] == w[0:2] and g[5:] == w[5:]
+        assert np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])
+        assert np.array_equal(g[4].view(np.int64), w[4].view(np.int64))
+    assert max(g[5] for g in got) > 100

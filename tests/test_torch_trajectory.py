@@ -649,8 +649,10 @@ def test_unported_options_raise_naming_their_items():
     conf = _conf()[0]
     grid = UniformGrid(**GRID)
     op = PointPointTJoinQuery(conf, grid, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8.2"):
-        op.run_soa_panes([], [], 1.0, 16)
+    one = [{"ts": np.asarray([100], np.int64), "x": np.asarray([1.0]),
+            "y": np.asarray([1.0]), "oid": np.asarray([0], np.int32)}]
+    with pytest.raises(NotImplementedError, match="A11"):
+        list(op.run_soa_panes(one, one, 1.0, 16, backend="native"))
     with pytest.raises(NotImplementedError, match="A11"):
         next(PointTStatsQuery(conf, grid, device="cpu").run(
             iter([]), driver=object()))
