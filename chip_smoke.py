@@ -5,6 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py            # every phase, full sizes
     python3 chip_smoke.py --quick    # phases 1-4, 7 and 11: build and check
     python3 chip_smoke.py --trajectory-only   # phases 1-2 and 23-26
+    python3 chip_smoke.py --ingest-only       # phases 1-2 and 27-28
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -199,7 +200,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
    cut to its
    first 1,024 panes over every window ending before pane 1,024, to
    ``run_soa`` through B3 at the windows starting 0 and 10,000 ms (10 s
-   tumbling), and to the segmented pipelined scan over every window.
+   tumbling), and to the segmented pipelined scan over every window;
+27. read the range suite's config 3 back from files through the port's
+   ingest: its 1,000 polygons written as GeoJSON lines, WKT lines and a
+   shapefile and read back (``polygon_stream``, ``read_shapefile``; the
+   GeoJSON rings bit-equal to the generated ones, the shapefile's
+   bit-equal reversed, as it stores exteriors clockwise), its 10 x
+   262,144 points written as ``oid,ts,x,y`` CSV in ``to_csv_point``'s
+   format and fed through ``csv_chunk_source`` and a numpy chunk parser
+   into ``PointPolygonRangeQuery.run_soa`` on the card against the
+   GeoJSON-read polygons (B4): every window bit-equal to the run fed the
+   arrays directly, the first 2 to the CPU run; the rate from file to
+   fetched results, the seconds inside the parser, and the device's idle
+   share, all of one traced run; the GeoJSON-read polygons as a stream
+   through ``PolygonPolygonRangeQuery.run`` against 32 shapefile-read
+   ones, equal to the CPU run; then ``csv_source`` with
+   ``parse_csv_point`` (2 x 20,000 ``Point``s, bad lines skipped) into
+   ``run`` against the WKT-read polygons, and
+   ``SyntheticGpsSource`` at its defaults (600,000 events) into ``run``
+   against 32 polygons, each equal to its CPU run; ``utm_forward``,
+   ``utm_inverse`` and ``haversine_distance`` on 1,048,576 float64 points
+   on the card within rtol 1e-12 of the host runs and a round trip within
+   1e-11 deg;
+28. run ``check_in_query_soa`` on the card (1,048,576 events, 10,000
+   users, 256 rooms, missed doors of both directions) equal to the host
+   walk ``check_in_query``; ``cell_stay_time_soa`` on the synthetic
+   stream (10 s by 5 s, config 3's grid) equal to its CPU run (int64);
+   ``sliding_aggregate`` (10 s by 10 ms, host numpy) against a
+   brute-force loop over its first 50 windows.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -209,6 +237,7 @@ this run on the card named beside it.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -363,6 +392,31 @@ TP_CPU_PANES = TP_PPW + 24
 TP_WARM_PANES = 24
 TP_PROFILE_SLIDES = 40
 TP_REPS = 3
+# Phases 27-28: ingest and the apps. Phase 27 reads config 3 back from
+# files (phase 12's 1,000 polygons as GeoJSON lines, WKT lines and a
+# shapefile; its 10 x 262,144 points as oid,ts,x,y CSV, oids over
+# TR_IDS); the CPU twin of the CSV run_soa compares its first
+# INGEST_CPU_WINDOWS windows (a cut: ~5 s a window on the host). The
+# synthetic GPS source runs at its defaults (20,000 events/s for 30 s,
+# 10 devices, seed 42) over the Beijing extent into
+# PointPolygonRangeQuery.run against config 3's first SYN_QUERIES
+# polygons, and feeds phase 28's stay time (10 s windows by 5 s, config
+# 3's grid) and pane aggregates (10 s by 10 ms, brute force on the first
+# AGG_BRUTE_WINDOWS windows). CRS: CRS_POINTS float64 lon/lat points over
+# Belgium from seed 43. Check-in: CHECKIN_EVENTS events from seed 44,
+# each with probability CHECKIN_REPEAT its user's previous door again (a
+# missed event of either direction).
+INGEST_CPU_WINDOWS = 2
+SYN_QUERIES = 32
+CRS_POINTS = 1 << 20
+BELGIUM = (2.5, 6.4, 49.5, 51.5)
+CHECKIN_EVENTS = 1 << 20
+CHECKIN_USERS = 10_000
+CHECKIN_ROOMS = 256
+CHECKIN_REPEAT = 0.2
+STAY_WINDOW_S, STAY_SLIDE_S = 10, 5
+AGG_SIZE_MS, AGG_SLIDE_MS = 10_000, 10
+AGG_BRUTE_WINDOWS = 50
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -3949,6 +4003,501 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
     return secs
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-28: ingest (serde, sources, shapefile, CRS) and the apps.
+
+
+class CsvChunkParser:
+    """``oid,ts,x,y`` lines → a SoA chunk, through numpy's text reader:
+    the buffer-at-a-time parser ``csv_chunk_source`` is given here (the
+    JAX package gives it its native parsers; the port has none)."""
+
+    def parse(self, block: bytes):
+        import io
+
+        rows = np.loadtxt(io.BytesIO(block), delimiter=",",
+                          dtype=np.float64, ndmin=2)
+        return {"oid": rows[:, 0].astype(np.int32),
+                "ts": rows[:, 1].astype(np.int64),
+                "x": np.ascontiguousarray(rows[:, 2]),
+                "y": np.ascontiguousarray(rows[:, 3])}
+
+
+class TimedParser:
+    """A chunk parser that adds up the seconds spent in its ``parse`` and
+    keeps the chunks it returned, so a run's parse share and its parsed
+    stream come from that run itself."""
+
+    def __init__(self, parser):
+        self.parser, self.secs, self.chunks = parser, 0.0, []
+
+    def parse(self, block: bytes):
+        t0 = time.perf_counter()
+        out = self.parser.parse(block)
+        self.secs += time.perf_counter() - t0
+        self.chunks.append(out)
+        return out
+
+
+def write_csv_points(path, chunks):
+    """The stream as ``oid,ts,x,y`` lines in ``to_csv_point``'s format
+    (``repr`` coordinates), oids ``i % TR_IDS``; a sample of the lines is
+    checked against ``to_csv_point`` itself. Returns the line count."""
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.streams.serde import to_csv_point
+
+    ts = np.concatenate([c["ts"] for c in chunks])
+    x = np.concatenate([c["x"] for c in chunks]).astype(np.float64)
+    y = np.concatenate([c["y"] for c in chunks]).astype(np.float64)
+    oid = np.arange(len(ts)) % TR_IDS
+    cols = (list(map(str, oid.tolist())), list(map(str, ts.tolist())),
+            list(map(repr, x.tolist())), list(map(repr, y.tolist())))
+    lines = list(map(",".join, zip(*cols)))
+    for i in list(range(1000)) + list(range(len(lines) - 1000, len(lines))):
+        want = to_csv_point(Point(obj_id=str(oid[i]), timestamp=int(ts[i]),
+                                  x=float(x[i]), y=float(y[i])))
+        if lines[i] != want:
+            raise AssertionError(f"CSV line {i}: {lines[i]!r} != {want!r}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+        f.write("\n")
+    return len(lines)
+
+
+def same_points_windows(got, want, label, keys=("ts", "x", "y")):
+    """run_soa windows of two runs of one stream: starts, ends, matched
+    ts/x/y values and distance bits equal. Returns matches a window."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} windows vs {len(want)}")
+    for g, w in zip(got, want):
+        if g[:2] != w[:2]:
+            raise AssertionError(f"{label}: window {g[:2]} vs {w[:2]}")
+        for k in keys:
+            if not np.array_equal(np.asarray(g[2][k], np.float64),
+                                  np.asarray(w[2][k], np.float64)):
+                raise AssertionError(f"{label}: {k} differs in {g[:2]}")
+        if not np.array_equal(g[3].view(np.uint32), w[3].view(np.uint32)):
+            raise AssertionError(f"{label}: distances differ in {g[:2]}")
+    return [len(g[3]) for g in got]
+
+
+def range_run_windows(device, stream, queries, radius=RANGE_R):
+    """One ``PointPolygonRangeQuery.run`` (1 s tumbling) over Point
+    objects: the windows as (start, end, window count, matched (id, ts,
+    x, y), distance bits), and seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    op = PointPolygonRangeQuery(conf, UniformGrid(**BEIJING), device=device)
+    t0 = time.perf_counter()
+    res = list(op.run(iter(stream), queries, radius))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return [(r.start, r.end, r.window_count,
+             [(o.obj_id, o.timestamp, o.x, o.y) for o in r.objects],
+             np.asarray(r.dists, np.float32).view(np.uint32).tolist())
+            for r in res], secs
+
+
+def same_rings(got, want, label, reverse=False):
+    """Polygons read back: one ring each, bit-equal to the generated ring
+    (reversed where the file stores it clockwise)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} polygons read back")
+    for g, w in zip(got, want):
+        ring = w.rings[0][::-1] if reverse else w.rings[0]
+        if len(g.rings) != 1 or not np.array_equal(
+                g.rings[0].view(np.uint64), ring.view(np.uint64)):
+            raise AssertionError(f"{label}: polygon {w.obj_id} differs")
+
+
+def check_ingest(card, gpu="cuda"):
+    """Phase 27: config 3 read back from files through the port's serde,
+    shapefile and sources into the range operators on the card, against
+    the arrays fed directly and the CPU; the synthetic GPS source into
+    ``run``; the CRS transforms and haversine at 1M points. Returns (B4
+    launches, the synthetic stream's Points)."""
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch.operators import PointPolygonRangeQuery
+    from spatialflink_tpu_torch.ops.distances import haversine_distance
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.streams.deserialization import (
+        polygon_stream,
+        to_output_record,
+    )
+    from spatialflink_tpu_torch.streams.serde import (
+        parse_csv_point,
+        to_csv_point,
+        to_geojson,
+    )
+    from spatialflink_tpu_torch.streams.shapefile import (
+        read_shapefile,
+        write_shapefile,
+    )
+    from spatialflink_tpu_torch.streams.soa import csv_chunk_source
+    from spatialflink_tpu_torch.streams.sources import (
+        SyntheticGpsSource,
+        csv_source,
+    )
+    from spatialflink_tpu_torch.utils import crs
+
+    t_phase = time.perf_counter()
+    polys = range_polygons()
+    chunks = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)
+    n_pts = RANGE_WINDOWS * RANGE_WIN
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # Polygons: three files, read back.
+        t0 = time.perf_counter()
+        paths = {k: f"{tmp}/polygons.{k}" for k in ("geojson", "wkt", "shp")}
+        with open(paths["geojson"], "w") as f:
+            f.write("\n".join(to_geojson(p) for p in polys) + "\n")
+        with open(paths["wkt"], "w") as f:
+            f.write("\n".join(to_output_record(p, "WKT") for p in polys)
+                    + "\n")
+        write_shapefile(paths["shp"], polys)
+        with open(paths["geojson"]) as f:
+            from_geojson = list(polygon_stream(f))
+        with open(paths["wkt"]) as f:
+            from_wkt = list(polygon_stream(f, input_type="WKT"))
+        from_shp = list(read_shapefile(paths["shp"]))
+        poly_secs = time.perf_counter() - t0
+        same_rings(from_geojson, polys, "GeoJSON polygons")
+        same_rings(from_shp, polys, "shapefile polygons", reverse=True)
+        if [p.obj_id for p in from_geojson] != [p.obj_id for p in polys] \
+                or [p.obj_id for p in from_shp] != \
+                [str(i + 1) for i in range(len(polys))]:
+            raise AssertionError("polygon ids differ")
+        wkt_err = max(float(np.abs(w.rings[0] - p.rings[0]).max())
+                      for w, p in zip(from_wkt, polys))
+        print(f"ingest polygons: {len(polys)} written and read back as "
+              f"GeoJSON lines, WKT lines and a shapefile in {poly_secs:.3f} "
+              f"s; GeoJSON rings bit-equal to the generated ones, shapefile "
+              f"rings bit-equal reversed (clockwise exteriors), WKT rings "
+              f"within {wkt_err:.3g} deg (six significant digits) [{card}]")
+
+        # The CSV stream through csv_chunk_source into run_soa.
+        t0 = time.perf_counter()
+        csv_path = f"{tmp}/points.csv"
+        n_lines = write_csv_points(csv_path, chunks)
+        print(f"data: {n_lines} CSV lines written in "
+              f"{time.perf_counter() - t0:.3f} s (host set-up)")
+        conf_kw = dict(window_size=1.0, slide_step=1.0)
+        from spatialflink_tpu_torch.grid import UniformGrid
+        from spatialflink_tpu_torch.operators import QueryConfiguration
+
+        op = PointPolygonRangeQuery(QueryConfiguration(**conf_kw),
+                                    UniformGrid(**BEIJING), device=gpu)
+        polyline_min_dist.launches = 0
+        parser, got = TimedParser(CsvChunkParser()), []
+        # One run, timed and traced: the wall, the device's idle share and
+        # the seconds inside parse() all come from it.
+        csv_ms, _ = profile_run(lambda: got.extend(op.run_soa(
+            csv_chunk_source(csv_path, parser), from_geojson, RANGE_R)),
+            card, "ingest CSV -> run_soa")
+        csv_secs = csv_ms / 1e3
+        csv_launches = polyline_min_dist.launches
+        launches += csv_launches
+        parsed = parser.chunks
+        direct, direct_secs, _ = run_range(gpu, PointPolygonRangeQuery,
+                                           chunks, polys, RANGE_R)
+        hits = same_points_windows(got, direct, "CSV run_soa vs arrays")
+        cut = [{k: v[c["ts"] < 1000 * INGEST_CPU_WINDOWS]
+                for k, v in c.items()} for c in parsed]
+        want, cpu_secs, _ = run_range(
+            "cpu", PointPolygonRangeQuery, [c for c in cut if len(c["ts"])],
+            from_geojson, RANGE_R)
+        same_points_windows(got[:INGEST_CPU_WINDOWS], want,
+                            "CSV run_soa vs CPU", keys=("ts", "x", "y", "oid"))
+        if len(got) != RANGE_WINDOWS or csv_launches < RANGE_WINDOWS \
+                or min(hits) == 0:
+            raise AssertionError(f"CSV run_soa: {len(got)} windows, "
+                                 f"{csv_launches} B4 launches")
+        print(f"e2e ingest CSV -> run_soa (config 3, {len(parsed)} chunks "
+              f"of ~4 MiB): {len(got)} windows, matches {hits}, {n_pts} "
+              f"points from file to fetched results in {csv_secs:.6f} s = "
+              f"{n_pts / csv_secs:.1f} points/s (one run, under "
+              f"torch.profiler); inside parse() {parser.secs:.6f} s of it "
+              f"({100 * parser.secs / csv_secs:.1f}% of the wall); the same "
+              f"stream from arrays {direct_secs:.6f} s = "
+              f"{n_pts / direct_secs:.1f} points/s; launches "
+              f"polyline_min_dist={csv_launches}; every window bit-equal to "
+              f"the arrays' run, the first {INGEST_CPU_WINDOWS} to the CPU "
+              f"run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+
+        # The GeoJSON-read polygons as a stream through
+        # PolygonPolygonRangeQuery.run, against shapefile-read queries.
+        polyline_min_dist.launches = 0
+        g, g_secs = run_geometry_objects(gpu, from_geojson,
+                                         from_shp[:GEOM_QUERIES])
+        pp_launches = polyline_min_dist.launches
+        launches += pp_launches
+        w, w_secs = run_geometry_objects("cpu", from_geojson,
+                                         from_shp[:GEOM_QUERIES])
+        if g != w or not g or pp_launches < len(g) \
+                or sum(len(x[3]) for x in g) < GEOM_QUERIES:
+            raise AssertionError("GeoJSON polygons' run differs from the CPU "
+                                 "run")
+        print(f"e2e ingest GeoJSON polygons -> PolygonPolygonRangeQuery.run "
+              f"({len(from_geojson)} polygons against the first "
+              f"{GEOM_QUERIES} shapefile-read ones, r={GEOM_R}): {len(g)} "
+              f"windows, matches {[len(x[3]) for x in g]} in {g_secs:.6f} s; "
+              f"launches polyline_min_dist={pp_launches}; equal to the CPU "
+              f"run ({w_secs:.3f} s) [{card}]")
+
+        # csv_source into run, against the WKT-read polygons.
+        stream = range_objects(RANGE_OBJ_WINDOWS, RANGE_OBJ_POINTS, 9)
+        obj_path = f"{tmp}/objects.csv"
+        with open(obj_path, "w") as f:
+            f.write("oid,ts,x,y\n")
+            f.write("\n".join(to_csv_point(p) for p in stream) + "\n")
+            f.write("a,not-a-time,1,2\nbroken line\n")
+        t0 = time.perf_counter()
+        read = list(csv_source(obj_path, functools.partial(
+            parse_csv_point, strict=True), skip_header=True))
+        read_secs = time.perf_counter() - t0
+        if [(p.obj_id, p.timestamp, p.x, p.y) for p in read] != \
+                [(p.obj_id, p.timestamp, p.x, p.y) for p in stream]:
+            raise AssertionError("csv_source points differ from the written")
+        polyline_min_dist.launches = 0
+        g, g_secs = range_run_windows(gpu, read, from_wkt)
+        run_launches = polyline_min_dist.launches
+        launches += run_launches
+        w, w_secs = range_run_windows("cpu", read, from_wkt)
+        if g != w or len(g) != RANGE_OBJ_WINDOWS or run_launches < len(g) \
+                or not any(x[3] for x in g):
+            raise AssertionError("csv_source run differs from the CPU run")
+        print(f"e2e ingest csv_source -> run (WKT-read polygons): "
+              f"{len(read)} Points read in {read_secs:.3f} s (2 bad lines, "
+              f"one with an unparseable time, skipped), {len(g)} windows, "
+              f"matches "
+              f"{[len(x[3]) for x in g]} in {g_secs:.6f} s; launches "
+              f"polyline_min_dist={run_launches}; equal to the CPU run "
+              f"({w_secs:.3f} s) [{card}]")
+
+    # The synthetic GPS source at its defaults into run.
+    t0 = time.perf_counter()
+    src = SyntheticGpsSource(BEIJING["min_x"], BEIJING["max_x"],
+                             BEIJING["min_y"], BEIJING["max_y"])
+    gps = list(src)
+    gen_secs = time.perf_counter() - t0
+    polyline_min_dist.launches = 0
+    g, g_secs = range_run_windows(gpu, gps, polys[:SYN_QUERIES])
+    syn_launches = polyline_min_dist.launches
+    launches += syn_launches
+    w, w_secs = range_run_windows("cpu", gps, polys[:SYN_QUERIES])
+    if g != w or len(g) != src.duration_ms // 1000 \
+            or syn_launches < len(g) or not sum(len(x[3]) for x in g):
+        raise AssertionError("synthetic source run differs from the CPU run")
+    print(f"e2e ingest SyntheticGpsSource -> run ({src.total_events} events "
+          f"at {src.target_eps}/s over {src.num_devices} devices, made in "
+          f"{gen_secs:.3f} s; {SYN_QUERIES} polygons): {len(g)} windows, "
+          f"{sum(len(x[3]) for x in g)} matches in {g_secs:.6f} s = "
+          f"{len(gps) / g_secs:.1f} events/s; launches "
+          f"polyline_min_dist={syn_launches}; equal to the CPU run "
+          f"({w_secs:.3f} s) [{card}]")
+
+    # CRS and haversine at 1M float64 points over Belgium.
+    rng = np.random.default_rng(43)
+    lon = rng.uniform(BELGIUM[0], BELGIUM[1], CRS_POINTS)
+    lat = rng.uniform(BELGIUM[2], BELGIUM[3], CRS_POINTS)
+    t0 = time.perf_counter()
+    e_np, n_np = crs.wgs84_to_epsg25831(lon, lat)
+    lo_np, la_np = crs.epsg25831_to_wgs84(e_np, n_np)
+    np_secs = time.perf_counter() - t0
+    lon_d = torch.from_numpy(lon).to(gpu)
+    lat_d = torch.from_numpy(lat).to(gpu)
+
+    def on_card():
+        e, n = crs.wgs84_to_epsg25831(lon_d, lat_d, xp=torch)
+        lo, la = crs.epsg25831_to_wgs84(e, n, xp=torch)
+        ll = torch.stack([lon_d, lat_d], dim=1)
+        return e, n, lo, la, haversine_distance(ll[:-1], ll[1:])
+
+    on_card()
+    if torch.device(gpu).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e, n, lo, la, hav = on_card()
+    if torch.device(gpu).type == "cuda":
+        torch.cuda.synchronize()
+    card_secs = time.perf_counter() - t0
+    ll_cpu = torch.from_numpy(np.stack([lon, lat], axis=1))
+    hav_cpu = haversine_distance(ll_cpu[:-1], ll_cpu[1:]).numpy()
+    for a, b, what in ((e, e_np, "easting"), (n, n_np, "northing"),
+                       (lo, lo_np, "inverse lon"), (la, la_np, "inverse lat"),
+                       (hav, hav_cpu, "haversine")):
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-12, atol=0,
+                                   err_msg=what)
+    trip = max(float((lo.cpu() - lon_d.cpu()).abs().max()),
+               float((la.cpu() - lat_d.cpu()).abs().max()))
+    if trip >= 1e-11:
+        raise AssertionError(f"CRS round trip off by {trip} deg")
+    print(f"crs: utm_forward + utm_inverse + haversine at {CRS_POINTS} "
+          f"float64 points over Belgium in {1e3 * card_secs:.3f} ms on the "
+          f"card (numpy forward + inverse {1e3 * np_secs:.3f} ms on the "
+          f"host); within rtol 1e-12 of the host runs, round trip within "
+          f"{trip:.3g} deg [{card}]")
+    print(f"phase 27 wall: {time.perf_counter() - t_phase:.3f} s [{card}]")
+    return launches, gps
+
+
+def checkin_stream():
+    """CHECKIN_EVENTS check-in events from seed 44: uniform users, rooms
+    and directions, each event with probability CHECKIN_REPEAT its
+    user's previous door again (a missed opposite event)."""
+    from spatialflink_tpu_torch.apps.checkin import CheckInEvent
+
+    rng = np.random.default_rng(44)
+    n = CHECKIN_EVENTS
+    users = rng.integers(0, CHECKIN_USERS, n).tolist()
+    doors = (rng.integers(0, CHECKIN_ROOMS, n) * 2
+             + rng.integers(0, 2, n)).tolist()
+    repeat = (rng.uniform(size=n) < CHECKIN_REPEAT).tolist()
+    ts = (1_000 + np.arange(n) * 3 + rng.integers(0, 3, n)).tolist()
+    names = [f"room{d // 2}-{'in' if d % 2 == 0 else 'out'}"
+             for d in range(2 * CHECKIN_ROOMS)]
+    last = {}
+    out = []
+    for i in range(n):
+        u = users[i]
+        d = last[u] if repeat[i] and u in last else doors[i]
+        last[u] = d
+        out.append(CheckInEvent(f"e{i}", names[d], f"u{u}", ts[i]))
+    return out
+
+
+def check_apps(card, gps, gpu="cuda"):
+    """Phase 28: the check-in app's device path against its host walk,
+    the stay-time SoA path on the card against the CPU, and the pane
+    aggregates against a brute-force window loop."""
+    import torch
+
+    from spatialflink_tpu_torch.apps.checkin import (
+        check_in_query,
+        check_in_query_soa,
+    )
+    from spatialflink_tpu_torch.apps.staytime import cell_stay_time_soa
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.streams.panes import sliding_aggregate
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    events = checkin_stream()
+    print(f"data: {len(events)} check-in events in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    caps = {f"room{i}": 10 + i % 7 for i in range(0, CHECKIN_ROOMS, 2)}
+    t0 = time.perf_counter()
+    host = [(r, c, o) for r, c, o, _ in check_in_query(iter(events), caps)]
+    host_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    soa = [(r, c, o) for r, c, o, _ in
+           check_in_query_soa(iter(events), caps, device=gpu)]
+    soa_secs = time.perf_counter() - t0
+    if soa != host:
+        raise AssertionError("check_in_query_soa differs from the host walk")
+    ins = outs = 0
+    prev = {}
+    for ev in events:
+        p = prev.get(ev.user_id)
+        if p is not None and p.device_id == ev.device_id:
+            ins += ev.direction == "out"
+            outs += ev.direction == "in"
+        prev[ev.user_id] = ev
+    if not (ins and outs) or len(host) != len(events) + ins + outs:
+        raise AssertionError(f"check-in: synthesized {ins} in, {outs} out")
+    print(f"e2e check_in_query_soa: {len(events)} events ({CHECKIN_USERS} "
+          f"users, {CHECKIN_ROOMS} rooms; {outs} missed outs and {ins} "
+          f"missed ins synthesized) -> "
+          f"{len(soa)} emissions in {soa_secs:.6f} s = "
+          f"{len(events) / soa_secs:.1f} events/s, equal to the host walk "
+          f"({host_secs:.3f} s = {len(events) / host_secs:.1f} events/s) "
+          f"[{card}]")
+
+    grid = UniformGrid(**BEIJING)
+    n_dev = max(int(p.obj_id[3:]) for p in gps) + 1
+    arrays = {"ts": np.array([p.timestamp for p in gps], np.int64),
+              "x": np.array([p.x for p in gps]),
+              "y": np.array([p.y for p in gps]),
+              "oid": np.array([int(p.obj_id[3:]) for p in gps], np.int32)}
+    step = 20_000
+    chunks = [{k: v[i:i + step] for k, v in arrays.items()}
+              for i in range(0, len(gps), step)]
+    out = {}
+    for d in (gpu, "cpu"):
+        t0 = time.perf_counter()
+        out[d] = list(cell_stay_time_soa(iter(chunks), STAY_WINDOW_S,
+                                         STAY_SLIDE_S, grid, device=d))
+        out[d + "_secs"] = time.perf_counter() - t0
+    got, want = out[gpu], out["cpu"]
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"stay time: {len(got)} vs {len(want)} windows")
+    for (s, e, c, dw), (ws, we, wc, wd) in zip(got, want):
+        if (s, e) != (ws, we) or not np.array_equal(c, wc) \
+                or not np.array_equal(dw, wd) or dw.dtype != np.int64:
+            raise AssertionError(f"stay time window {(s, e)} differs")
+    print(f"e2e cell_stay_time_soa ({STAY_WINDOW_S} s by {STAY_SLIDE_S} s, "
+          f"config 3's grid, the synthetic stream): {len(got)} windows, "
+          f"{sum(len(c) for _, _, c, _ in got)} (window, cell) dwell sums, "
+          f"{len(gps)} events in {out[gpu + '_secs']:.6f} s = "
+          f"{len(gps) / out[gpu + '_secs']:.1f} events/s; int64 sums equal "
+          f"to the CPU run ({out['cpu_secs']:.3f} s) [{card}]")
+
+    ts, key = arrays["ts"], arrays["oid"].astype(np.int64)
+    ims = (ts % 1000).astype(np.float64)
+    t0 = time.perf_counter()
+    win = sliding_aggregate(
+        ts, key, n_dev, AGG_SIZE_MS, AGG_SLIDE_MS,
+        sum_fields={"x": arrays["x"], "ms": ims},
+        minmax_fields={"x": arrays["x"], "y": arrays["y"]})
+    agg_secs = time.perf_counter() - t0
+    worst = 0.0
+    for w in range(AGG_BRUTE_WINDOWS):
+        start = win.starts[w]
+        in_w = (ts >= start) & (ts < start + AGG_SIZE_MS)
+        for k in range(n_dev):
+            m = in_w & (key == k)
+            ok = win.count[w, k] == m.sum()
+            if m.any():
+                ok &= win.sums["ms"][w, k] == ims[m].sum()
+                ok &= win.mins["x"][w, k] == arrays["x"][m].min()
+                ok &= win.maxs["y"][w, k] == arrays["y"][m].max()
+                want_x = arrays["x"][m].sum()
+                err = abs(win.sums["x"][w, k] - want_x) / abs(want_x)
+                worst = max(worst, err)
+                ok &= err <= 1e-12
+            if not ok:
+                raise AssertionError(f"sliding_aggregate window {w} key {k}")
+    print(f"sliding_aggregate ({AGG_SIZE_MS // 1000} s by {AGG_SLIDE_MS} ms, "
+          f"host numpy): {len(win.starts)} windows x {n_dev} keys from "
+          f"{len(ts)} events in {agg_secs:.3f} s; the first "
+          f"{AGG_BRUTE_WINDOWS} equal to a brute-force loop (counts, minima, "
+          f"maxima and integer-valued sums exact; coordinate sums within "
+          f"rel {worst:.3g} <= 1e-12) [{card}]")
+    print(f"phase 28 wall: {time.perf_counter() - t_phase:.3f} s [{card}]")
+
+
+def run_ingest_phases(card, gpu="cuda"):
+    """Phases 27-28, their walls printed. Returns B4's launches."""
+    t0 = time.perf_counter()
+    launches, gps = check_ingest(card, gpu)
+    t1 = time.perf_counter()
+    check_apps(card, gps, gpu)
+    t2 = time.perf_counter()
+    print(f"phase walls: 27 {t1 - t0:.3f} s, 28 {t2 - t1:.3f} s [{card}]")
+    return launches
+
+
 def run_trajectory_phases(dev, card, gpu="cuda"):
     """Phases 23-26, each phase's wall printed. Returns (B3 launches of
     phase 23, B3's timing row at the tJoin shape)."""
@@ -4013,6 +4562,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trajectory-only", action="store_true",
                     help="phases 1-2 and 23-26 only (build, then the "
                          "trajectory layer)")
+    ap.add_argument("--ingest-only", action="store_true",
+                    help="phases 1-2 and 27-28 only (build, then ingest "
+                         "and the apps)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4049,8 +4601,11 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
 
-    if args.trajectory_only:
-        run_trajectory_phases(dev, card)
+    if args.trajectory_only or args.ingest_only:
+        if args.trajectory_only:
+            run_trajectory_phases(dev, card)
+        if args.ingest_only:
+            run_ingest_phases(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -4247,6 +4802,10 @@ def main(argv=None) -> int:
     # Phases 23-26: the trajectory layer (tJoin through B3, the pane-carry
     # tJoin).
     tj_launches, tj_row = run_trajectory_phases(dev, card)
+    # Phases 27-28: ingest (serde, sources, shapefile, CRS) feeding the
+    # range operators through B4, and the apps.
+    ingest_launches = run_ingest_phases(card)
+    b4_launches += ingest_launches
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -4287,6 +4846,7 @@ def main(argv=None) -> int:
          "launches_knn_panes": knn_pane_launches,
          "launches_join_point_geometry": pg_launches,
          "launches_join_geometry_geometry": gg_launches,
+         "launches_ingest": ingest_launches,
          "shapes": b4_shapes},
     ]}
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s [{card}]")

@@ -33,7 +33,8 @@ _CELL_INDEX_STR_LENGTH = 5
 
 class UniformGrid:
     """Square uniform grid over a bounding box: ``num_partitions`` cells
-    per side (the reference's UniformGrid(n, bbox) constructor)."""
+    per side (the reference's UniformGrid(n, bbox) constructor), or cells
+    of a given length (``from_cell_length``)."""
 
     def __init__(self, num_partitions: int, min_x: float, max_x: float,
                  min_y: float, max_y: float):
@@ -45,6 +46,23 @@ class UniformGrid:
         self.max_y = float(max_y)
         self.n = int(num_partitions)
         self.cell_length = (self.max_x - self.min_x) / self.n
+
+    @classmethod
+    def from_cell_length(cls, cell_length: float, min_x: float, max_x: float,
+                         min_y: float, max_y: float) -> "UniformGrid":
+        """The grid of cells ``cell_length`` wide over the bbox, its shorter
+        axis first stretched symmetrically to the longer one's span
+        (UniformGrid.java:47-73 and :115-135)."""
+        x_diff = max_x - min_x
+        y_diff = max_y - min_y
+        if x_diff > y_diff:
+            pad = (x_diff - y_diff) / 2
+            min_y, max_y = min_y - pad, max_y + pad
+        elif y_diff > x_diff:
+            pad = (y_diff - x_diff) / 2
+            min_x, max_x = min_x - pad, max_x + pad
+        n = max(1, math.ceil((max_x - min_x) / cell_length))
+        return cls(n, min_x, max_x, min_y, max_y)
 
     @property
     def num_cells(self) -> int:
@@ -83,6 +101,11 @@ class UniformGrid:
         xi, yi = divmod(int(flat), self.n)
         w = _CELL_INDEX_STR_LENGTH
         return f"{xi:0{w}d}{yi:0{w}d}"
+
+    def cell_from_name(self, name: str) -> int:
+        """The flat cell of a ``cell_name`` key."""
+        w = _CELL_INDEX_STR_LENGTH
+        return int(name[:w]) * self.n + int(name[w:])
 
     def candidate_layers(self, radius: float) -> int:
         """ceil(r / cell); UniformGrid.java:441-445."""
@@ -153,3 +176,9 @@ class UniformGrid:
         if guaranteed_only:
             return np.nonzero(flags == FLAG_GUARANTEED)[0].astype(np.int32)
         return np.nonzero(flags != FLAG_NONE)[0].astype(np.int32)
+
+    def __repr__(self) -> str:
+        return (
+            f"UniformGrid(n={self.n}, cell={self.cell_length:.6g}, "
+            f"bbox=({self.min_x}, {self.min_y})..({self.max_x}, {self.max_y}))"
+        )

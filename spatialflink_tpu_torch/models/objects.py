@@ -1,5 +1,5 @@
-"""Spatial object model: the points, polygons and linestrings a query is
-asked about.
+"""Spatial object model: points, polygons, linestrings, their multi forms
+and geometry collections.
 
 Thin host-side records, as in the JAX package's ``models/objects.py``;
 computation happens on tensors. A geometry's grid cells are those its
@@ -24,6 +24,7 @@ class SpatialObject:
 
     obj_id: Optional[str] = None
     timestamp: int = 0  # epoch millis
+    ingestion_time: Optional[float] = None  # host wall time at ingest (s)
 
 
 @dataclass
@@ -32,6 +33,10 @@ class Point(SpatialObject):
 
     x: float = 0.0
     y: float = 0.0
+
+    @property
+    def coords(self) -> np.ndarray:
+        return np.array([self.x, self.y], np.float64)
 
     def grid_cell(self, grid) -> int:
         return grid.flat_cell(self.x, self.y)
@@ -70,6 +75,10 @@ class Polygon(SpatialObject):
     def packed(self, pad_to: Optional[int] = None):
         return pack_rings(self.rings, pad_to=pad_to)
 
+    @property
+    def exterior(self) -> np.ndarray:
+        return self.rings[0]
+
     def num_vertices_packed(self) -> int:
         return sum(len(r) + (0 if np.array_equal(r[0], r[-1]) else 1)
                    for r in self.rings)
@@ -98,6 +107,22 @@ class LineString(SpatialObject):
 
 
 @dataclass
+class MultiPoint(SpatialObject):
+    """Standalone point set (MultiPoint.java:14)."""
+
+    coords: np.ndarray = field(default_factory=lambda: np.zeros((0, 2)))
+
+    def __post_init__(self):
+        self.coords = np.asarray(self.coords, np.float64)
+
+    def bbox(self) -> Tuple[float, float, float, float]:
+        return _bbox_of([self.coords])
+
+    def grid_cells(self, grid) -> List[int]:
+        return grid.bbox_cells(*self.bbox()).tolist()
+
+
+@dataclass
 class MultiPolygon(Polygon):
     """Polygons as one ring list (MultiPolygon.java:13 extends Polygon):
     ``rings`` holds every member's rings, ``parts`` the ring count of each
@@ -121,6 +146,16 @@ class MultiPolygon(Polygon):
             i += n
         return _bbox_of(ext)
 
+    def polygons(self) -> List[Polygon]:
+        """The members as ``Polygon``s, each with this object's id and
+        timestamp."""
+        out, i = [], 0
+        for n in self.parts or [len(self.rings)]:
+            out.append(Polygon(obj_id=self.obj_id, timestamp=self.timestamp,
+                               rings=self.rings[i:i + n]))
+            i += n
+        return out
+
 
 @dataclass
 class MultiLineString(LineString):
@@ -139,3 +174,21 @@ class MultiLineString(LineString):
 
     def packed(self, pad_to: Optional[int] = None):
         return pack_polyline(self.parts or [self.coords], pad_to=pad_to)
+
+
+@dataclass
+class GeometryCollection(SpatialObject):
+    """Heterogeneous geometry list (GeometryCollection.java:13)."""
+
+    geometries: List[SpatialObject] = field(default_factory=list)
+
+    def bbox(self) -> Tuple[float, float, float, float]:
+        boxes = [g.bbox() for g in self.geometries]
+        return (min(b[0] for b in boxes), min(b[1] for b in boxes),
+                max(b[2] for b in boxes), max(b[3] for b in boxes))
+
+    def grid_cells(self, grid) -> List[int]:
+        cells: set = set()
+        for g in self.geometries:
+            cells.update(g.grid_cells(grid))
+        return sorted(cells)

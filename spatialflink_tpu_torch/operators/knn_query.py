@@ -67,7 +67,11 @@ from spatialflink_tpu_torch.ops.knn import (
     knn_polygon_fused,
     knn_polyline_fused,
 )
-from spatialflink_tpu_torch.ops.wire_knn import select_wire_digest_step
+from spatialflink_tpu_torch.ops.wire_knn import (
+    check_cand,
+    check_interpret,
+    select_wire_digest_step,
+)
 from spatialflink_tpu_torch.streams.soa import (
     RaggedSoaWindowAssembler,
     SoaWindowAssembler,
@@ -457,6 +461,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         wire_format,
         start_ms: int = 0,
         strategy: str = "auto",
+        cand: int = 8192,
+        interpret: bool = False,
         flush_at_end: bool = True,
     ):
         """Wire-plane pane-carry kNN: the headline program.
@@ -479,6 +485,13 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         by the kernel and its plain version, and a mismatch raises. The
         chosen kind lands on ``self.last_wire_digest_kind``.
 
+        ``cand`` and ``interpret`` stand where the JAX signature has them,
+        so a positional call binds as there: ``cand`` must be a positive
+        int and changes nothing (the kernel has no candidate buffer);
+        ``interpret=True`` is accepted on the CPU, where it changes
+        nothing, and raises ``ValueError`` on a card, which always runs
+        the hand kernels.
+
         **Pipelined mode** (``SFT_PIPELINE`` / ``pipeline.install``):
         the same per-pane kernels run through the bounded
         ship/compute/fetch executor (pane N+1 copies on a side stream
@@ -494,6 +507,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                 "run_wire_panes requires time-based sliding windows"
             )
         check_k(k, num_segments)
+        check_cand(cand)
+        check_interpret(interpret, self.device.type)
         size, slide_ms = conf.window_size_ms, conf.slide_step_ms
         if conf.query_type in (QueryType.RealTime, QueryType.RealTimeNaive):
             size = slide_ms = conf.realtime_batch_ms
@@ -543,7 +558,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             if step is None:
                 self.last_wire_digest_kind, step = select_wire_digest_step(
                     wire_d, n, q, scale, origin, r32,
-                    num_segments=num_segments, strategy=strategy,
+                    num_segments=num_segments, cand=cand,
+                    interpret=interpret, strategy=strategy,
                 )
             return step(wire_d, n)
 
@@ -664,7 +680,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                         if self.last_wire_codec_kind is None:
                             self.last_wire_codec_kind, _ = \
                                 wc.select_wire_decoder(
-                                    pol.codec_strategy, sample_args=args,
+                                    pol.codec_strategy,
+                                    interpret=interpret, sample_args=args,
                                     n=nb, num_segments=num_segments,
                                 )
                         pane_d, dec["px"], dec["py"] = wc.decode_wire_pane(

@@ -26,7 +26,7 @@ def sqrt_rn(s: torch.Tensor, dtype=None) -> torch.Tensor:
     r = np.sqrt(s.numpy())
     if dtype is not None:
         r = r.astype(torch.empty(0, dtype=dtype).numpy().dtype)
-    return torch.from_numpy(r)
+    return torch.from_numpy(np.asarray(r))  # a 0-d root is a numpy scalar
 
 
 def point_point_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -106,3 +106,28 @@ def bbox_bbox_min_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dy = torch.maximum(torch.clamp(b[..., 1] - a[..., 3], min=0),
                        a[..., 1] - b[..., 3])
     return sqrt_rn(dx * dx + dy * dy)
+
+
+#: Mean Earth radius in metres (the reference's mEarthRadius intent).
+_EARTH_RADIUS_M = 6371008.7714
+
+
+def haversine_distance(lonlat_a: torch.Tensor, lonlat_b: torch.Tensor,
+                       radius: float = _EARTH_RADIUS_M) -> torch.Tensor:
+    """Great-circle distance in metres between lon/lat degrees (..., 2),
+    broadcasting over leading dims, on the inputs' device.
+
+    The haversine form of the JAX package (``ops/distances.py:88``): the
+    half-angle sines, the term clipped to [0, 1], ``arcsin`` of its root.
+    The reference's ``computeHaverSine`` (HelperClass.java:379-385) takes
+    the law of cosines, equal in float64 and worse conditioned for near
+    points."""
+    lon1 = torch.deg2rad(lonlat_a[..., 0])
+    lat1 = torch.deg2rad(lonlat_a[..., 1])
+    lon2 = torch.deg2rad(lonlat_b[..., 0])
+    lat2 = torch.deg2rad(lonlat_b[..., 1])
+    dlat = lat2 - lat1
+    dlon = lon2 - lon1
+    h = (torch.sin(dlat / 2) ** 2
+         + torch.cos(lat1) * torch.cos(lat2) * torch.sin(dlon / 2) ** 2)
+    return 2 * radius * torch.arcsin(sqrt_rn(torch.clamp(h, 0.0, 1.0)))

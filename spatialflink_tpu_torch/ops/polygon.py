@@ -126,3 +126,11 @@ def point_polygon_distance(p: torch.Tensor, verts: torch.Tensor,
     d = point_polyline_distance(p, verts, edge_valid)
     return torch.where(inside, torch.zeros((), dtype=d.dtype,
                                            device=d.device), d)
+
+
+def signed_area(ring: np.ndarray) -> float:
+    """Shoelace signed area of a host-side ring (counter-clockwise
+    positive)."""
+    r = np.asarray(ring, np.float64)
+    x, y = r[:, 0], r[:, 1]
+    return 0.5 * float(np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y))

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from spatialflink_tpu_torch import kernels
+from spatialflink_tpu_torch.ops.wire_knn import check_interpret
 from spatialflink_tpu_torch.utils.padding import pad_to_bucket
 
 #: Fixed per-pane header cost: n (4 B) + three bit widths (1 B each) +
@@ -388,7 +389,8 @@ def codec_decodes_agree(a, b) -> bool:
     return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
-def select_wire_decoder(strategy: str = "auto", *, sample_args: tuple,
+def select_wire_decoder(strategy: str = "auto", *,
+                        interpret: bool = False, sample_args: tuple,
                         n: int, num_segments: int):
     """Pick the decoder for the sample's device.
 
@@ -398,8 +400,11 @@ def select_wire_decoder(strategy: str = "auto", *, sample_args: tuple,
     ``"cuda"``: the kernel decodes the sample beside the plain version,
     and a decode that is not bit-identical raises ``RuntimeError``. On
     the CPU, kind is ``"torch"``. A strategy that names the other
-    device's decoder raises ``ValueError``."""
+    device's decoder raises ``ValueError``. ``interpret`` keeps the JAX
+    signature's flag and is accepted on the CPU only
+    (``ops/wire_knn.py:check_interpret``)."""
     dev = sample_args[0].device.type
+    check_interpret(interpret, dev)
     if strategy not in STRATEGIES[dev]:
         raise ValueError(
             f"codec strategy {strategy!r} is not available on {dev} "

@@ -45,9 +45,33 @@ def digests_agree(seg_a, rep_a, seg_b, rep_b) -> bool:
     return True
 
 
+def check_cand(cand) -> None:
+    """``cand``, the JAX package's candidate budget of the Pallas digest,
+    must be a positive int. The hand kernel has no candidate buffer, so
+    the value changes nothing here."""
+    if isinstance(cand, bool) or not isinstance(cand, (int, np.integer)) \
+            or cand <= 0:
+        raise ValueError(f"cand must be a positive int, got {cand!r}")
+
+
+def check_interpret(interpret, device_type: str) -> None:
+    """``interpret``, the JAX flag that runs a Pallas kernel in its
+    interpreter, is accepted only on the CPU, where every step already is
+    its kernel's plain version and the flag changes nothing. On a card the
+    wire path always runs its hand kernels, so ``interpret=True`` there
+    raises ``ValueError``."""
+    if interpret and device_type != "cpu":
+        raise ValueError(
+            f"interpret=True is not available on {device_type}: the card "
+            "runs the hand kernels (pass interpret=False, or run on the CPU)"
+        )
+
+
 def select_wire_digest_step(sample_wire: torch.Tensor, sample_n: int,
                             query_xy, scale, origin, radius, *,
-                            num_segments: int, strategy: str = "auto"):
+                            num_segments: int, cand: int = 8192,
+                            interpret: bool = False,
+                            strategy: str = "auto"):
     """Pick the digest step for ``sample_wire``'s device.
 
     Returns ``(kind, step)`` with ``step(wire, n_valid) -> KnnPaneDigest``.
@@ -55,8 +79,14 @@ def select_wire_digest_step(sample_wire: torch.Tensor, sample_n: int,
     beside its plain version, and a digest that is not bit-identical
     raises ``RuntimeError``. On the CPU, kind is ``"torch"``. A strategy
     that names the other device's step raises ``ValueError``.
+
+    ``cand`` and ``interpret`` keep the JAX signature: ``cand`` is
+    validated (``check_cand``) and otherwise unused; ``interpret=True`` is
+    accepted on the CPU only (``check_interpret``).
     """
+    check_cand(cand)
     dev = sample_wire.device.type
+    check_interpret(interpret, dev)
     if strategy not in STRATEGIES[dev]:
         raise ValueError(
             f"strategy {strategy!r} is not available on {dev} "

@@ -1,5 +1,12 @@
-"""Sliding trajectory statistics by pane decomposition (tStats through
-extreme-overlap windows, e.g. the reference's 10 s / 10 ms configs).
+"""Pane-decomposed sliding windows: per-key aggregates and trajectory
+statistics through extreme-overlap windows (the reference's 10 s / 10 ms
+configs).
+
+``sliding_aggregate`` (host numpy, as in the JAX package) bins events
+once into panes, one a slide step, and combines ``size/slide``
+consecutive panes per window: cumulative-sum differences for counts,
+sums and sums of squares, ``sliding_window_view`` minima and maxima. It
+requires ``size % slide == 0``.
 
 ``traj_stats_sliding`` computes every window's per-trajectory spatial
 length, temporal length and point count in O(events + panes × oids)
@@ -20,9 +27,11 @@ package's ``streams/panes.py``:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+from numpy.lib.stride_tricks import sliding_window_view
 
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.ops.trajectory import (
@@ -30,6 +39,138 @@ from spatialflink_tpu_torch.ops.trajectory import (
     traj_stats_pane_kernel,
 )
 from spatialflink_tpu_torch.utils.padding import next_bucket
+
+
+@dataclass
+class PaneWindows:
+    """Aggregates for every fired window.
+
+    ``starts``: (W,) window start timestamps (ms). All per-key matrices are
+    (W, K). A window fires iff it contains ≥1 event of any key (Flink
+    semantics: windows materialize per element).
+    """
+
+    starts: np.ndarray
+    count: np.ndarray  # events per (window, key)
+    sums: Dict[str, np.ndarray]
+    sumsqs: Dict[str, np.ndarray]
+    mins: Dict[str, np.ndarray]
+    maxs: Dict[str, np.ndarray]
+
+    @property
+    def ends(self) -> np.ndarray:
+        return self.starts + self._size_ms
+
+    _size_ms: int = 0
+
+
+def sliding_aggregate(
+    ts: np.ndarray,
+    key: np.ndarray,
+    num_keys: int,
+    size_ms: int,
+    slide_ms: int,
+    sum_fields: Optional[Dict[str, np.ndarray]] = None,
+    minmax_fields: Optional[Dict[str, np.ndarray]] = None,
+    sumsq: bool = False,
+    min_fields: Optional[Dict[str, np.ndarray]] = None,
+    max_fields: Optional[Dict[str, np.ndarray]] = None,
+) -> PaneWindows:
+    """Aggregate a whole (bounded) stream over all sliding windows at once.
+
+    ``ts``: (N,) event times ms; ``key``: (N,) dense int key per event
+    (device id etc.); ``sum_fields``: named (N,) float arrays to sum per
+    (window, key); ``minmax_fields``: tracked on both sides;
+    ``min_fields``/``max_fields``: tracked on one side only (half the
+    scatter + rolling work when the other side is unused).
+    """
+    if size_ms % slide_ms != 0:
+        raise ValueError("size must be a multiple of slide for pane slicing")
+    ppw = size_ms // slide_ms
+    sum_fields = sum_fields or {}
+    minmax_fields = minmax_fields or {}
+    min_only = dict(min_fields or {})
+    max_only = dict(max_fields or {})
+
+    ts = np.asarray(ts, np.int64)
+    key = np.asarray(key, np.int64)
+    if len(ts) == 0:
+        empty = np.zeros((0, num_keys))
+        return PaneWindows(
+            np.zeros(0, np.int64), empty.astype(np.int64),
+            {k: empty.copy() for k in sum_fields},
+            {k: empty.copy() for k in sum_fields} if sumsq else {},
+            {k: empty.copy() for k in minmax_fields},
+            {k: empty.copy() for k in minmax_fields},
+            _size_ms=size_ms,
+        )
+
+    pane = np.floor_divide(ts, slide_ms)
+    p_lo = int(pane.min())
+    p_hi = int(pane.max())
+    # Windows whose pane range [s, s+ppw) intersects [p_lo, p_hi]:
+    # start panes from p_lo - ppw + 1 to p_hi.
+    n_panes = p_hi - p_lo + 1
+    n_starts = n_panes + ppw - 1
+    flat = (pane - p_lo) * num_keys + key
+
+    def scatter_sum(vals, dtype=np.float64):
+        out = np.zeros(n_panes * num_keys, dtype)
+        np.add.at(out, flat, vals)
+        return out.reshape(n_panes, num_keys)
+
+    pane_count = scatter_sum(np.ones(len(ts), np.int64), np.int64)
+    pane_sums = {k: scatter_sum(np.asarray(v, float)) for k, v in sum_fields.items()}
+    pane_sumsqs = (
+        {k: scatter_sum(np.asarray(v, float) ** 2) for k, v in sum_fields.items()}
+        if sumsq
+        else {}
+    )
+    pane_mins = {}
+    pane_maxs = {}
+    for k, v in {**minmax_fields, **min_only}.items():
+        v = np.asarray(v, float)
+        mn = np.full(n_panes * num_keys, np.inf)
+        np.minimum.at(mn, flat, v)
+        pane_mins[k] = mn.reshape(n_panes, num_keys)
+    for k, v in {**minmax_fields, **max_only}.items():
+        v = np.asarray(v, float)
+        mx = np.full(n_panes * num_keys, -np.inf)
+        np.maximum.at(mx, flat, v)
+        pane_maxs[k] = mx.reshape(n_panes, num_keys)
+
+    # Pad ppw-1 panes on each side so every intersecting window start has a
+    # full ppw-pane view.
+    def pad(a, fill):
+        padding = np.full((ppw - 1, num_keys), fill, a.dtype)
+        return np.concatenate([padding, a, padding], axis=0)
+
+    def rolling_sum(a):
+        # Cumulative-sum difference: O(panes × keys) regardless of ppw.
+        p = pad(a, 0)
+        c = np.concatenate([np.zeros((1, num_keys), p.dtype), np.cumsum(p, axis=0)])
+        return c[ppw:] - c[:-ppw]
+
+    def rolling_min(a):
+        return sliding_window_view(pad(a, np.inf), ppw, axis=0).min(axis=-1)
+
+    def rolling_max(a):
+        return sliding_window_view(pad(a, -np.inf), ppw, axis=0).max(axis=-1)
+
+    w_count = rolling_sum(pane_count)
+    # Keep only windows with ≥1 event (any key).
+    alive = w_count.sum(axis=1) > 0
+    starts = ((np.arange(n_starts) + p_lo - (ppw - 1)) * slide_ms)[alive]
+
+    return PaneWindows(
+        starts=starts.astype(np.int64),
+        count=w_count[alive],
+        sums={k: rolling_sum(v)[alive] for k, v in pane_sums.items()},
+        sumsqs={k: rolling_sum(v)[alive] for k, v in pane_sumsqs.items()},
+        mins={k: rolling_min(v)[alive] for k, v in pane_mins.items()},
+        maxs={k: rolling_max(v)[alive] for k, v in pane_maxs.items()},
+        _size_ms=size_ms,
+    )
 
 
 @dataclass

@@ -11,6 +11,7 @@ live window at consolidation time are dropped and counted
 (``dropped_late``). ``SoaWindowAssembler`` takes point chunks,
 ``RaggedSoaWindowAssembler`` geometry chunks (each object's packed
 boundary chain, ragged), both on the one watermark state machine.
+``csv_chunk_source`` reads a file into chunks through a parser.
 """
 
 from __future__ import annotations
@@ -152,6 +153,29 @@ class SoaWindowAssembler(_SlidingAssemblerBase):
 
     def _evict(self, keep_from: int) -> None:
         self._chunks = [{k: v[keep_from:] for k, v in self._chunks[0].items()}]
+
+
+def csv_chunk_source(path: str, parser, chunk_bytes: int = 1 << 22):
+    """File → SoA chunks through a buffer-at-a-time parser: reads about
+    ``chunk_bytes`` at a time, cut at line boundaries, and yields
+    ``parser.parse(block)`` for each block (a final line without its
+    newline included). ``parser`` is any object whose ``parse(bytes)``
+    returns a chunk the assemblers take."""
+    with open(path, "rb") as f:
+        rest = b""
+        while True:
+            block = f.read(chunk_bytes)
+            if not block:
+                if rest.strip():
+                    yield parser.parse(rest)
+                return
+            block = rest + block
+            cut = block.rfind(b"\n")
+            if cut < 0:
+                rest = block
+                continue
+            rest = block[cut + 1:]
+            yield parser.parse(block[: cut + 1])
 
 
 def _ragged_reorder(flat: np.ndarray, lengths: np.ndarray, order: np.ndarray):

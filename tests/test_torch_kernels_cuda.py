@@ -774,3 +774,160 @@ def test_tjoin_run_soa_panes_on_card_equals_cpu(cap_c):
         assert np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])
         assert np.array_equal(g[4].view(np.int64), w[4].view(np.int64))
     assert max(g[5] for g in got) > 100
+
+
+def _csv_parser():
+    """``chip_smoke.CsvChunkParser``: the numpy ``oid,ts,x,y`` chunk
+    parser ``csv_chunk_source`` is given on the card."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.CsvChunkParser()
+
+
+@pytest.mark.cuda
+def test_csv_ingest_run_soa_on_card_equals_cpu(tmp_path):
+    """A CSV stream read through ``csv_chunk_source`` into
+    ``PointPolygonRangeQuery.run_soa`` on the card (B4, gathered) equals
+    the same run fed the arrays directly and the CPU run: starts, ends,
+    matched values, distance bits; B4 launched once a window."""
+    dev = _card()
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.streams.soa import csv_chunk_source
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    rng = np.random.default_rng(7)
+    n, per_win = 60_000, 20_000
+    ts = (np.arange(n, dtype=np.int64) * 1000) // per_win
+    x = rng.uniform(115.5, 117.6, n)
+    y = rng.uniform(39.6, 41.1, n)
+    path = tmp_path / "points.csv"
+    path.write_text("".join(f"{i % 512},{t},{a!r},{b!r}\n" for i, (t, a, b)
+                            in enumerate(zip(ts.tolist(), x.tolist(),
+                                             y.tolist()))))
+    polys = generate_query_polygons(200, 115.5, 39.6, 117.6, 41.1,
+                                    grid_size=100, seed=3)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+
+    def run(d, chunks):
+        op = PointPolygonRangeQuery(conf, grid, device=d)
+        return list(op.run_soa(chunks, polys, 0.002))
+
+    polyline_min_dist.launches = 0
+    got = run(dev, csv_chunk_source(str(path), _csv_parser(), 1 << 16))
+    launches = polyline_min_dist.launches
+    direct = run(dev, [{"ts": ts, "x": x, "y": y}])
+    want = run("cpu", csv_chunk_source(str(path), _csv_parser(), 1 << 20))
+    assert len(got) == len(direct) == len(want) == 3 and launches >= 3
+    for g, d, w in zip(got, direct, want):
+        assert g[:2] == d[:2] == w[:2]
+        for k in ("ts", "x", "y"):
+            assert np.array_equal(g[2][k], d[2][k])
+            assert np.array_equal(g[2][k], w[2][k])
+        assert np.array_equal(g[2]["oid"], w[2]["oid"])
+        assert np.array_equal(g[3].view(np.uint32), d[3].view(np.uint32))
+        assert np.array_equal(g[3].view(np.uint32), w[3].view(np.uint32))
+        assert len(g[3]) > 100
+
+
+@pytest.mark.cuda
+def test_check_in_query_soa_on_card_equals_host_walk():
+    """The check-in kernel (plain PyTorch: stable sorts, a segmented
+    cumulative sum) on the card emits the host walk's (room, capacity,
+    occupancy) sequence exactly, missed doors of both directions
+    included."""
+    dev = _card()
+    from spatialflink_tpu_torch.apps.checkin import (
+        CheckInEvent,
+        check_in_query,
+        check_in_query_soa,
+    )
+
+    rng = np.random.default_rng(44)
+    last, events = {}, []
+    for i in range(50_000):
+        u = int(rng.integers(0, 700))
+        door = (f"room{int(rng.integers(0, 40))}-"
+                f"{'in' if rng.integers(0, 2) else 'out'}")
+        if u in last and rng.uniform() < 0.2:
+            door = last[u]
+        last[u] = door
+        events.append(CheckInEvent(f"e{i}", door, f"u{u}", 1000 + 3 * i))
+    caps = {f"room{i}": i for i in range(0, 40, 3)}
+    host = [(r, c, o) for r, c, o, _ in check_in_query(iter(events), caps)]
+    got = [(r, c, o) for r, c, o, _ in
+           check_in_query_soa(iter(events), caps, device=dev)]
+    assert got == host and len(host) > 55_000
+
+
+@pytest.mark.cuda
+def test_cell_stay_time_soa_on_card_equals_cpu():
+    """``cell_stay_time_soa`` on the card (``stay_time_cells_kernel``,
+    int64 ``index_add_``) equals its CPU run exactly, trajId filter
+    included."""
+    dev = _card()
+    from spatialflink_tpu_torch.apps.staytime import cell_stay_time_soa
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    chunks = _traj_chunks(51, 100_000, 300, 30_000, 10_000)
+    allow = np.random.default_rng(52).uniform(size=300) < 0.7
+    for kw in ({}, {"oid_allow": allow}):
+        got = list(cell_stay_time_soa(iter(chunks), 10, 5, grid, device=dev,
+                                      **kw))
+        want = list(cell_stay_time_soa(iter(chunks), 10, 5, grid,
+                                       device="cpu", **kw))
+        assert len(got) == len(want) == 7
+        for g, w in zip(got, want):
+            assert g[:2] == w[:2]
+            assert np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])
+
+
+@pytest.mark.cuda
+def test_run_wire_panes_interpret_raises_on_card():
+    """The card always runs the hand kernels: ``interpret=True`` (the JAX
+    signature's flag) raises on a card in ``run_wire_panes`` and in both
+    selectors, and ``interpret=False`` takes the kernels."""
+    dev = _card()
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+    from spatialflink_tpu_torch.operators.knn_query import PointPointKNNQuery
+    from spatialflink_tpu_torch.ops import wire_knn as twk
+    from spatialflink_tpu_torch.streams.wire import WireFormat, wire_panes
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    wf = WireFormat.for_grid(grid)
+    rng = np.random.default_rng(8)
+    n = 3000
+    ch = {"ts": np.sort(rng.integers(0, 3000, n)).astype(np.int64),
+          "x": rng.uniform(115.5, 117.6, n), "y": rng.uniform(39.6, 41.1, n),
+          "oid": rng.integers(0, 256, n)}
+    panes = list(wire_panes([ch], wf, 1000, 0))
+    q = Point(x=116.4, y=40.19)
+    conf = QueryConfiguration(window_size=2.0, slide_step=1.0)
+    op = PointPointKNNQuery(conf, grid, device=dev)
+    with pytest.raises(ValueError, match="interpret"):
+        next(op.run_wire_panes(panes, q, 0.5, 5, 256, wf, 0, "auto", 8192,
+                               True))
+    wire = torch.from_numpy(panes[0]).to(dev)
+    with pytest.raises(ValueError, match="interpret"):
+        twk.select_wire_digest_step(
+            wire, wire.shape[1], np.float32([116.4, 40.19]), wf.scale,
+            wf.origin, 0.5, num_segments=256, interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        twc.select_wire_decoder("auto", interpret=True, sample_args=(wire,),
+                                n=8, num_segments=256)
+    got = list(op.run_wire_panes(panes, q, 0.5, 5, 256, wf, 0, "auto", 8192,
+                                 False))
+    assert got and op.last_wire_digest_kind == "cuda"
