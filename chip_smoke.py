@@ -6,6 +6,7 @@ NVIDIA card.
     python3 chip_smoke.py --quick    # phases 1-4, 7 and 11: build and check
     python3 chip_smoke.py --trajectory-only   # phases 1-2 and 23-26
     python3 chip_smoke.py --ingest-only       # phases 1-2 and 27-28
+    python3 chip_smoke.py --domain-only       # phases 1-2 and 29-30
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -227,7 +228,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    walk ``check_in_query``; ``cell_stay_time_soa`` on the synthetic
    stream (10 s by 5 s, config 3's grid) equal to its CPU run (int64);
    ``sliding_aggregate`` (10 s by 10 ms, host numpy) against a
-   brute-force loop over its first 50 windows.
+   brute-force loop over its first 50 windows;
+29. run the SNCB layer on the benchmark runner's stream
+   (``SyntheticGpsSource`` over the Brussels bbox, 20,000 events/s for
+   30 s, 10 devices, seed 42: 600,000 events) and a copy of it with FA ~
+   U(0, 1) and FF ~ U(0, 0.4) from seed 29: ``contains_any_zone`` on the
+   card (float64) over all 600,000 points for Q1's zones (20 + 20 m), the
+   maintenance areas (0 m), the Q5 fence (20 m) and MN_Q5's degree-space
+   fence (0.001), each mask equal to the numpy twin and the CPU run, with
+   its device time on resident inputs (CUDA events) and the whole call's
+   wall; ``benchmark_runner`` q1 and
+   q5 at 600,000 events, record for record equal to their CPU runs, the
+   card runs traced for the device's idle share;
+   ``q2_brake_monitor_batch`` (10 s by 10 ms) over the FA/FF copy equal
+   to its CPU run and, over its first 50 windows, to a ``q2_window``
+   loop; ``benchmark_runner`` q2 and q3 at 25,000 events and
+   ``local_test_runner`` (cuts);
+30. run ``mobility_runner`` q1-q5 and ``instrumented_mn_q1``-``q5`` over
+   20,000 14-column CSV lines of the FA/FF stream (a cut), q5's rows and
+   result file on the card equal to the CPU's, and print each
+   instrumented query's host-pipeline latency percentiles (ingest stamp
+   to sink, NES buckets); then the op counters: ``enable()``,
+   ``PointPolygonRangeQuery.run_soa`` over config 3's first 2 windows
+   through B4 on the card and on the CPU, the two snapshots equal (the
+   throughput left out), and a disabled run recording 0.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -417,6 +441,28 @@ CHECKIN_REPEAT = 0.2
 STAY_WINDOW_S, STAY_SLIDE_S = 10, 5
 AGG_SIZE_MS, AGG_SLIDE_MS = 10_000, 10
 AGG_BRUTE_WINDOWS = 50
+
+# Phases 29-30: the SNCB and MobilityNebula domain layers. The stream is
+# BenchmarkRunner.java:22-105's (the JAX runners.py:100-106 defaults):
+# SyntheticGpsSource over the Brussels bbox at 20,000 events/s for 30 s,
+# 10 devices, seed 42, FA = FF = 5.0; a second copy carries FA ~ U(0, 1)
+# and FF ~ U(0, 0.4) from seed 29 (bench_suite.py:732-733) so that Q2
+# alerts. Cuts, to keep phases 29-30 under 90 s and the whole script near
+# 1,000 s on a slow host: benchmark_runner q2 and q3 at
+# SNCB_HOST_DURATION_MS (25,000 events; 4.0 and 5.3 s at 100,000 on an
+# H100 machine's host CPU); Q2's batch replay checked by brute force on its first
+# Q2_BRUTE_WINDOWS windows; the MobilityRunner and instrumented queries
+# over MN_LINES CSV lines (43.6 s at 100,000, MN_Q2's 10 s by 200 ms
+# global windows 23.4 s of it); the counters over config 3's first
+# COUNTER_WINDOWS windows.
+SNCB_EPS = 20_000
+SNCB_DURATION_MS = 30_000
+SNCB_DEVICES = 10
+SNCB_T0 = 1_700_000_000_000
+SNCB_HOST_DURATION_MS = 1_250
+Q2_BRUTE_WINDOWS = 50
+MN_LINES = 20_000
+COUNTER_WINDOWS = 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the
 # tensor cores (used for the kernels' 32-bit scalar operations).
@@ -4487,6 +4533,346 @@ def check_apps(card, gps, gpu="cuda"):
     print(f"phase 28 wall: {time.perf_counter() - t_phase:.3f} s [{card}]")
 
 
+def sncb_streams():
+    """Phase 29's streams: the benchmark runner's 600,000 events
+    (FA = FF = 5.0), and a copy with FA ~ U(0, 1), FF ~ U(0, 0.4)."""
+    from spatialflink_tpu_torch.sncb.common import GpsEvent
+    from spatialflink_tpu_torch.sncb.runners import BRUSSELS_BBOX
+    from spatialflink_tpu_torch.streams.sources import SyntheticGpsSource
+
+    src = SyntheticGpsSource(
+        *BRUSSELS_BBOX, target_eps=SNCB_EPS, duration_ms=SNCB_DURATION_MS,
+        num_devices=SNCB_DEVICES, seed=42, start_ts=SNCB_T0,
+        make_event=lambda device_id, x, y, timestamp, speed: GpsEvent(
+            device_id, x, y, timestamp, speed, 5.0, 5.0))
+    events = list(src)
+    rng = np.random.default_rng(29)
+    fa = rng.uniform(0.0, 1.0, len(events)).tolist()
+    ff = rng.uniform(0.0, 0.4, len(events)).tolist()
+    brakes = [GpsEvent(e.device_id, e.lon, e.lat, e.ts, e.gps_speed, a, b)
+              for e, a, b in zip(events, fa, ff)]
+    return events, brakes
+
+
+def traced(fn, gpu):
+    """(fn's result, wall s, device busy s, kernels) of one call; on the
+    card under a profiler trace (``trace_busy``; a trace can lose
+    activities, so ``idle`` reads an empty one as not measured), on the
+    CPU timed alone."""
+    box = []
+    if gpu == "cpu":
+        t0 = time.perf_counter()
+        box.append(fn())
+        return box[0], time.perf_counter() - t0, 0.0, 0
+    wall, busy, kernels = trace_busy(lambda: box.append(fn()))
+    return box[0], wall, busy, kernels
+
+
+def idle(wall, busy):
+    if not busy:
+        return "device idle not measured (empty trace)"
+    return f"device idle {100 - 100 * busy / wall:.2f}%"
+
+
+class tee_query:
+    """Within the block, the runner module's query ``name`` also appends
+    every record it yields to ``records``: the runner's own run, read
+    record for record."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.records = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def teed(*args, **kwargs):
+            for r in self.orig(*args, **kwargs):
+                self.records.append(r)
+                yield r
+
+        setattr(self.module, self.name, teed)
+        return self.records
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def check_sncb(card, gpu="cuda"):
+    """Phase 29: the SNCB layer. The zone test on the card over 600,000
+    metric points for each zone set against the numpy twin and the CPU;
+    benchmark_runner q1 and q5 at 600,000 events, record for record equal
+    to their CPU runs; Q2's batch replay over the FA/FF stream against
+    its CPU run and a brute-force q2_window loop; benchmark_runner q2 and
+    q3 and local_test_runner (cuts). Returns the FA/FF stream."""
+    import torch
+
+    from spatialflink_tpu_torch.sncb import mobility, runners
+    from spatialflink_tpu_torch.sncb.common import (
+        BufferedZone,
+        CRSUtils,
+        PolygonLoader,
+        _pack_zones,
+        _zone_hit_kernel,
+        contains_any_zone,
+        contains_any_zone_np,
+    )
+    from spatialflink_tpu_torch.sncb.queries import (
+        buffer_q1_zones,
+        q2_brake_monitor_batch,
+        q2_window,
+    )
+
+    t0 = time.perf_counter()
+    events, brakes = sncb_streams()
+    n = len(events)
+    print(f"data: {n} SNCB events (+ an FA/FF copy) in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    risk = PolygonLoader.load_geojson_buffered("high_risk_zones.geojson",
+                                               20.0)
+    maint = PolygonLoader.load_geojson_buffered("maintenance_areas.geojson",
+                                                0.0)
+    fence = PolygonLoader.load_wkt_buffered("q5_fence.wkt", 20.0)
+    t0 = time.perf_counter()
+    xy = CRSUtils.enrich_batch(events)
+    lonlat = np.array([[e.lon, e.lat] for e in events])
+    print(f"enrich_batch (host numpy UTM): {n} points in "
+          f"{time.perf_counter() - t0:.3f} s")
+    sets = {
+        "q1 (20 + 20 m)": (buffer_q1_zones(risk, 20.0), xy),
+        "maintenance (0 m)": (maint, xy),
+        "q5 fence (20 m)": (fence, xy),
+        "mn_q5 fence (0.001 deg)": ([BufferedZone(
+            [np.asarray(mobility.Q5_FENCE, float)], 0.001)], lonlat),
+    }
+    for label, (zones, pts) in sets.items():
+        got = contains_any_zone(zones, pts, device=gpu)
+        t0 = time.perf_counter()
+        cpu = contains_any_zone(zones, pts, device="cpu")
+        cpu_secs = time.perf_counter() - t0
+        twin = contains_any_zone_np(zones, pts)
+        if not (np.array_equal(got, cpu) and np.array_equal(got, twin)):
+            raise AssertionError(f"zone mask {label} differs")
+        if not 0 < got.sum() < n:
+            raise AssertionError(f"zone mask {label}: {got.sum()} hits")
+        timing = "not timed on the CPU"
+        if gpu != "cpu":
+            # The device part alone on resident inputs (time_ms), and the
+            # whole call with its copies.
+            verts, evs, bufs = _pack_zones(zones)
+            args = (torch.from_numpy(pts).to(gpu),
+                    torch.from_numpy(verts).to(gpu),
+                    torch.from_numpy(evs).to(gpu), bufs)
+            dev_ms, call_ms = time_ms(lambda: _zone_hit_kernel(*args))
+            kern, _ = launches_per_call(lambda: _zone_hit_kernel(*args))
+            t0 = time.perf_counter()
+            contains_any_zone(zones, pts, device=gpu)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            timing = (f"device {dev_ms:.6f} ms per {n} points ({call_ms:.6f}"
+                      f" ms per call with its launches, {kern:g} kernels); "
+                      f"the whole call {wall_ms:.3f} ms with the copies")
+        print(f"zone test {label}: {n} points, {int(got.sum())} inside, "
+              f"equal to the CPU ({cpu_secs * 1e3:.3f} ms) and the numpy "
+              f"twin; {timing} [{card}]")
+
+    rates = {}
+    for q, name in (("q1", "q1_high_risk"), ("q5", "q5_traj_speed_fence")):
+        out = {}
+        for d in (gpu, "cpu"):
+            with tee_query(runners, name) as recs:
+                rep, wall, busy, kernels = traced(
+                    lambda: runners.benchmark_runner(
+                        q, SNCB_EPS, SNCB_DURATION_MS, SNCB_DEVICES,
+                        device=d), d)
+            out[d] = (rep, list(recs), wall, busy, kernels)
+        (rep, recs, wall, busy, kernels), (crep, crecs, *_) = \
+            out[gpu], out["cpu"]
+        if recs != crecs or rep.results != len(recs) or not recs \
+                or rep.events != n:
+            raise AssertionError(f"benchmark_runner {q}: {rep.results} vs "
+                                 f"{crep.results} records")
+        rates[q] = rep.eps
+        print(f"e2e benchmark_runner {q}: {rep.events} events -> "
+              f"{rep.results} records in {rep.duration_s:.6f} s = "
+              f"{rep.eps:.1f} events/s, equal record for record to the CPU "
+              f"run ({crep.duration_s:.3f} s); traced: {kernels} kernels, "
+              f"busy {busy * 1e3:.3f} ms of {wall:.3f} s, "
+              f"{idle(wall, busy)} [{card}]")
+
+    out = {}
+    for d in (gpu, "cpu"):
+        out[d], out[d + "_secs"], busy, kernels = traced(
+            lambda: q2_brake_monitor_batch(brakes, maint, device=d), d)
+        if d == gpu:
+            q2_trace = (busy, kernels)
+    got = out[gpu]
+    if got != out["cpu"] or not got:
+        raise AssertionError(f"q2 batch: {len(got)} vs {len(out['cpu'])}")
+    # The first windows of the 10 ms grid, the partial ones over the
+    # stream's start included.
+    ts = np.array([e.ts for e in brakes])
+    first = int(ts[0]) // 10 * 10 - 10_000 + 10
+    starts = [first + 10 * k for k in range(Q2_BRUTE_WINDOWS)]
+    brute = []
+    for s in starts:
+        lo, hi = np.searchsorted(ts, [s, s + 10_000])
+        brute += q2_window(brakes[lo:hi], maint, s, s + 10_000, device=gpu)
+    head = [o for o in got if o.win_start < starts[-1] + 10]
+    if brute != head or not head:
+        raise AssertionError("q2 batch differs from the q2_window loop")
+    print(f"e2e q2_brake_monitor_batch (10 s by 10 ms): {n} FA/FF events -> "
+          f"{len(got)} alerts in {out[gpu + '_secs']:.6f} s = "
+          f"{n / out[gpu + '_secs']:.1f} events/s, equal to the CPU run "
+          f"({out['cpu_secs']:.3f} s); its first {len(starts)} windows "
+          f"({len(head)} alerts) equal to a q2_window loop; traced: "
+          f"{q2_trace[1]} kernels, busy {q2_trace[0] * 1e3:.3f} ms, "
+          f"{idle(out[gpu + '_secs'], q2_trace[0])} [{card}]")
+
+    for q in ("q2", "q3"):
+        rep = runners.benchmark_runner(q, SNCB_EPS, SNCB_HOST_DURATION_MS,
+                                       SNCB_DEVICES, device=gpu)
+        print(f"e2e benchmark_runner {q} (cut to {rep.events} events): "
+              f"{rep.results} records in {rep.duration_s:.6f} s = "
+              f"{rep.eps:.1f} events/s [{card}]")
+    local = runners.local_test_runner(device=gpu)
+    if {r.raw.device_id for r in local["q1"]} != {"A"} \
+            or {o.device_id for o in local["q5"]} != {"E"} \
+            or local != runners.local_test_runner(device="cpu"):
+        raise AssertionError("local_test_runner")
+    print(f"local_test_runner: "
+          + ", ".join(f"{q} {len(v)}" for q, v in local.items())
+          + f" records, the reference's expectations and equal to the CPU "
+          f"[{card}]")
+    return brakes, rates
+
+
+def mn_csv_lines(brakes):
+    """MN_LINES 14-column CSV lines of the FA/FF stream."""
+    return [f"{e.ts},{e.device_id},z,{e.fa},{e.ff},a,b,c,d,e,f,"
+            f"{e.gps_speed},{e.lat},{e.lon}" for e in brakes[:MN_LINES]]
+
+
+def check_mn_and_counters(card, brakes, gpu="cuda"):
+    """Phase 30: mobility_runner q1-q5 and the instrumented MN queries
+    over MN_LINES lines (q5 on the card equal to the CPU), their
+    ingest→emit latency percentiles; then the op counters over config 3's
+    first COUNTER_WINDOWS range windows through B4, card and CPU
+    snapshots equal, a disabled run recording 0. Returns B4's launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch.mn.queries import INSTRUMENTED
+    from spatialflink_tpu_torch.operators import PointPolygonRangeQuery
+    from spatialflink_tpu_torch.ops import counters as oc
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.sncb.mobility import mobility_runner
+
+    t0 = time.perf_counter()
+    lines = mn_csv_lines(brakes)
+    print(f"data: {len(lines)} MN CSV lines in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+    for q in ("q1", "q2", "q3", "q4", "q5"):
+        rows, secs, busy, kernels = traced(
+            lambda: mobility_runner(q, iter(lines), device=gpu),
+            gpu if q == "q5" else "cpu")
+        note = ""
+        if q == "q5":
+            t1 = time.perf_counter()
+            if rows != mobility_runner(q, iter(lines), device="cpu"):
+                raise AssertionError("mobility_runner q5 differs")
+            note = (f", equal to the CPU run "
+                    f"({time.perf_counter() - t1:.3f} s); traced: {kernels} "
+                    f"kernels, busy {busy * 1e3:.3f} ms, {idle(secs, busy)}")
+        if not rows:
+            raise AssertionError(f"mobility_runner {q}: no rows")
+        print(f"e2e mobility_runner {q}: {len(lines)} lines -> {len(rows)} "
+              f"rows in {secs:.6f} s = {len(lines) / secs:.1f} lines/s{note} "
+              f"[{card}]")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mn_") as tmp:
+        for q, fn in INSTRUMENTED.items():
+            reps = {}
+            for d in ((gpu, "cpu") if q == "q5" else (gpu,)):
+                props = {"output.file": os.path.join(tmp, f"{q}_{d}.txt"),
+                         "stats.dir": os.path.join(tmp, d)}
+                if q == "q1":
+                    # The default query point (4.3658, 50.6456) lies south
+                    # of the Brussels bbox: one inside it, 1 km.
+                    props.update({"query.lon": "4.375", "query.lat": "50.85",
+                                  "tolerance.meters": "1000.0"})
+                kw = {"device": d} if q == "q5" else {}
+                rep, secs, busy, kernels = traced(
+                    lambda: fn(iter(lines), props, **kw),
+                    d if q == "q5" else "cpu")
+                reps[d] = (rep, secs, props["output.file"], busy, kernels)
+            rep, secs, path, busy, kernels = reps[gpu]
+            text = open(path).read()
+            if q == "q5" and text != open(reps["cpu"][2]).read():
+                raise AssertionError("instrumented q5 differs from the CPU")
+            m = rep.metrics
+            if rep.results <= 0 or m["source_in_total"] != len(lines) \
+                    or m["sink_out_total"] != rep.results \
+                    or text.count("\n") != rep.results:
+                raise AssertionError(f"instrumented {q}: {rep.results}")
+            print(f"e2e instrumented_mn_{q}: {len(lines)} lines -> "
+                  f"{rep.results} results in {secs:.6f} s = "
+                  f"{len(lines) / secs:.1f} lines/s; host-pipeline latency "
+                  f"(ingest stamp to sink, NES buckets) p50 {rep.p50_ms:g} / "
+                  f"p95 {rep.p95_ms:g} / p99 {rep.p99_ms:g} ms"
+                  + (f", result file equal to the CPU run; traced: "
+                     f"{kernels} kernels, busy {busy * 1e3:.3f} ms, "
+                     f"{idle(secs, busy)}" if q == "q5" else "")
+                  + f" [{card}]")
+
+    polys = range_polygons()
+    chunks = range_chunks(COUNTER_WINDOWS, RANGE_WIN, 7)
+    snaps = {}
+    try:
+        for d in (gpu, "cpu"):
+            oc.enable()
+            polyline_min_dist.launches = 0
+            got, secs, _ = run_range(d, PointPolygonRangeQuery, chunks, polys,
+                                     RANGE_R)
+            if d == gpu:
+                launches, card_windows = polyline_min_dist.launches, got
+            else:
+                check_range_windows(card_windows, got, "counters run_soa",
+                                    RANGE_R)
+            snaps[d] = oc.counters.snapshot()
+            snaps[d].pop("throughput_eps")
+        oc.counters.reset()
+        oc.disable()
+        run_range(gpu, PointPolygonRangeQuery, chunks, polys, RANGE_R)
+        off = oc.counters.snapshot()
+        off.pop("throughput_eps")
+    finally:
+        oc.disable()
+    if snaps[gpu] != snaps["cpu"] or snaps[gpu]["dist_computations"] <= 0 \
+            or snaps[gpu]["windows"] != COUNTER_WINDOWS or any(off.values()):
+        raise AssertionError(f"counters: {snaps} disabled {off}")
+    if gpu != "cpu" and launches < COUNTER_WINDOWS:
+        raise AssertionError(f"counters run: {launches} B4 launches")
+    if gpu != "cpu":
+        torch.cuda.synchronize()
+    print(f"op counters, PointPolygonRangeQuery.run_soa (config 3, "
+          f"{COUNTER_WINDOWS} windows, B4 launches {launches}): "
+          f"{snaps[gpu]}, equal to the CPU run; disabled: {off} [{card}]")
+    return launches
+
+
+def run_domain_phases(card, gpu="cuda"):
+    """Phases 29-30, their walls printed. Returns (B4 launches of the
+    counters run, phase 29's benchmark rates)."""
+    t0 = time.perf_counter()
+    brakes, rates = check_sncb(card, gpu)
+    t1 = time.perf_counter()
+    launches = check_mn_and_counters(card, brakes, gpu)
+    t2 = time.perf_counter()
+    print(f"phase walls: 29 {t1 - t0:.3f} s, 30 {t2 - t1:.3f} s [{card}]")
+    return launches, rates
+
+
 def run_ingest_phases(card, gpu="cuda"):
     """Phases 27-28, their walls printed. Returns B4's launches."""
     t0 = time.perf_counter()
@@ -4565,6 +4951,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ingest-only", action="store_true",
                     help="phases 1-2 and 27-28 only (build, then ingest "
                          "and the apps)")
+    ap.add_argument("--domain-only", action="store_true",
+                    help="phases 1-2 and 29-30 only (build, then the SNCB "
+                         "and MobilityNebula layers and the op counters)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4601,11 +4990,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
 
-    if args.trajectory_only or args.ingest_only:
+    if args.trajectory_only or args.ingest_only or args.domain_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
             run_ingest_phases(card)
+        if args.domain_only:
+            run_domain_phases(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -4806,6 +5197,10 @@ def main(argv=None) -> int:
     # range operators through B4, and the apps.
     ingest_launches = run_ingest_phases(card)
     b4_launches += ingest_launches
+    # Phases 29-30: the SNCB and MobilityNebula layers (the zone test on
+    # the card) and the op counters over the range operators through B4.
+    domain_launches, _ = run_domain_phases(card)
+    b4_launches += domain_launches
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -4847,6 +5242,7 @@ def main(argv=None) -> int:
          "launches_join_point_geometry": pg_launches,
          "launches_join_geometry_geometry": gg_launches,
          "launches_ingest": ingest_launches,
+         "launches_domain": domain_launches,
          "shapes": b4_shapes},
     ]}
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s [{card}]")

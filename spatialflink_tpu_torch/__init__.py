@@ -24,8 +24,6 @@ NOT_EXPORTED = {
                            "ops.join_kernel is the module of B3's wrapper"},
     "streams": {"CollectSink": "A11.2", "CsvFileSink": "A11.2",
                 "PrintSink": "A11.2"},
-    "mn": {"*": "A10.3"},
-    "sncb": {"*": "A10.3"},
     "parallel": {"*": "A12"},
 }
 

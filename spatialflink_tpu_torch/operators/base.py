@@ -23,6 +23,7 @@ from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.batch import GeometryBatch, PointBatch
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
+from spatialflink_tpu_torch.ops.counters import counters
 from spatialflink_tpu_torch.operators.query_config import (
     QueryConfiguration,
     QueryType,
@@ -218,11 +219,16 @@ def soa_point_batches(grid: UniformGrid, chunks, conf: QueryConfiguration,
                       asm=None):
     """SoA chunks → (window, xy, valid, cell, oid) per fired window, the
     lanes padded per ``device_point_args``. ``asm``: the sliding
-    assembler to feed (a resumed one); a fresh one by default."""
+    assembler to feed (a resumed one); a fresh one by default. While
+    ``ops/counters.py`` is enabled each window counts its points there
+    (the throughput meter); the caller, which owns the flags, counts the
+    candidates."""
     if asm is None:
         asm = SoaWindowAssembler(conf.window_size_ms, conf.slide_step_ms,
                                  ooo_ms=conf.allowed_lateness_ms)
     for win in asm.stream(chunks):
+        if counters.enabled:
+            counters.record_window(win.count, 0, 0)
         xy64 = np.stack(
             [np.asarray(win.arrays["x"], np.float64),
              np.asarray(win.arrays["y"], np.float64)],

@@ -48,6 +48,10 @@ from spatialflink_tpu_torch.operators.base import (
     ship,
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
+from spatialflink_tpu_torch.ops.counters import (
+    count_join_candidates,
+    counters,
+)
 from spatialflink_tpu_torch.ops.join import (
     compact_pruned,
     cross_join_kernel,
@@ -221,6 +225,14 @@ class PointPointJoinQuery(SpatialOperator):
                 continue
             lb = self.point_batch(left_ev)
             rb = self.point_batch(right_ev)
+            if counters.enabled:
+                if naive:
+                    cand = len(left_ev) * len(right_ev)
+                else:
+                    cand = count_join_candidates(
+                        self.grid, lb.cell, len(left_ev), rb.cell,
+                        len(right_ev), self.grid.candidate_layers(radius))
+                counters.record_window(len(win.events), cand, cand)
             if naive:
                 lxy, lv, rxy, rv = ship(
                     center_coords(self.grid, lb.xy), lb.valid,
@@ -403,6 +415,11 @@ class PointPointJoinQuery(SpatialOperator):
                 continue
             win, lxy, lvalid, lcell, _ = wl
             _, rxy, rvalid, rcell, _ = wr
+            if counters.enabled:
+                cand = count_join_candidates(
+                    self.grid, lcell, int(lvalid.sum()), rcell,
+                    int(rvalid.sum()), layers)
+                counters.record_candidates(cand, cand)
             # Shipped once; every budget retry reuses the device lanes.
             lanes = ship(lxy, lvalid, lcell, rxy, rvalid, rcell,
                          device=self.device).arrive()

@@ -51,6 +51,7 @@ from spatialflink_tpu_torch.operators.join_query import _centered_bbox
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.ops import wire_codec as wc
 from spatialflink_tpu_torch.ops.compaction import wire_pane_bucket
+from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.knn import (
     F32_BIG,
     I32_BIG,
@@ -163,6 +164,9 @@ class _PointStreamKNNQuery(SpatialOperator):
                 else knn_polyline_fused
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
+            if counters.enabled:
+                cand = count_candidates(flags, batch.cell, len(win.events))
+                counters.record_window(len(win.events), cand, cand)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             xy_d, valid_d, cell_d, oid_d = ship(
@@ -326,6 +330,9 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         for win, xy, valid, cell, oid in soa_point_batches(
                 self.grid, chunks, self.conf):
             check_oid_range(oid[:win.count], num_segments)
+            if counters.enabled:
+                cand = count_candidates(flags, cell, win.count)
+                counters.record_candidates(cand, cand)
             xy_d, valid_d, cell_d, oid_d = ship(xy, valid, cell, oid,
                                                 device=dev).arrive()
             res = knn_points_fused(xy_d, valid_d, cell_d, flags_d, oid_d, q,

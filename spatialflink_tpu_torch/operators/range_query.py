@@ -37,6 +37,7 @@ from spatialflink_tpu_torch.operators.base import (
     ship,
     soa_point_batches,
 )
+from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.range import (
     geometry_range_query_kernel,
     range_points_fused,
@@ -163,6 +164,10 @@ class _PointStreamRangeQuery(SpatialOperator):
         evaluate = self._window_evaluator(query_set, flags, radius)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
+            if counters.enabled:
+                cand = count_candidates(flags, batch.cell, len(win.events))
+                counters.record_window(len(win.events), cand,
+                                       cand * len(query_set))
             xy_d, valid_d, cell_d = ship(
                 center_coords(self.grid, batch.xy), batch.valid, batch.cell,
                 device=self.device).arrive()
@@ -190,6 +195,9 @@ class _PointStreamRangeQuery(SpatialOperator):
         evaluate = self._window_evaluator(query_set, flags, radius)
         for win, xy, valid, cell, _ in soa_point_batches(self.grid, chunks,
                                                          self.conf):
+            if counters.enabled:
+                cand = count_candidates(flags, cell, win.count)
+                counters.record_candidates(cand, cand * len(query_set))
             lanes = ship(xy, valid, cell, device=self.device).arrive()
             keep, dist = evaluate((*lanes, flags_d))
             n = win.count

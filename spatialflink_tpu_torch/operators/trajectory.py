@@ -61,6 +61,7 @@ from spatialflink_tpu_torch.ops.compaction import (
     max_window_cell_count,
     pick_capacity,
 )
+from spatialflink_tpu_torch.ops.counters import counters
 from spatialflink_tpu_torch.ops.join_kernel import join_window
 from spatialflink_tpu_torch.ops.knn import knn_points_fused
 from spatialflink_tpu_torch.ops.trajectory import (
@@ -929,6 +930,10 @@ class TStatsQuery(_TrajectoryOperator):
         device (``traj_stats_sorted_fused``)."""
         for win, xy, valid, _, oid in soa_point_batches(self.grid, chunks,
                                                         self.conf):
+            if counters.enabled and win.count > 1:
+                # One candidate distance per adjacent lane pair of the
+                # sorted window (masked across trajectory breaks).
+                counters.record_candidates(win.count - 1, win.count - 1)
             ts = np.zeros(len(valid), np.int64)
             ts[:win.count] = np.asarray(win.arrays["ts"], np.int64)
             lanes = ship(xy, ts, oid, valid, device=self.device).arrive()
@@ -998,6 +1003,8 @@ class TFilterQuery(_TrajectoryOperator):
             ooo_ms=self.conf.allowed_lateness_ms,
         )
         for win in asm.stream(chunks):
+            if counters.enabled:
+                counters.record_window(win.count, 0, 0)
             oid = np.asarray(win.arrays["oid"], np.int32)
             keep = np.isin(oid, wanted)
             # Mask before the float64 conversion: filters keep little.

@@ -931,3 +931,110 @@ def test_run_wire_panes_interpret_raises_on_card():
     got = list(op.run_wire_panes(panes, q, 0.5, 5, 256, wf, 0, "auto", 8192,
                                  False))
     assert got and op.last_wire_digest_kind == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zone_set", ["q1", "maintenance", "q5_fence",
+                                      "mn_q5_fence"])
+def test_zone_test_on_card_equals_cpu_and_numpy_twin(zone_set):
+    """The SNCB zone test (``contains_any_zone``: float64 point→polygon
+    distances, plain PyTorch) on the card: the mask equals the CPU run and
+    the numpy twin, distances equal the CPU's bit for bit, on 200,000
+    seeded points over each zone set plus points a few ulps either side
+    of every buffered edge."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polygon import point_polygon_distance
+    from spatialflink_tpu_torch.sncb.common import (
+        BufferedZone,
+        PolygonLoader,
+        contains_any_zone,
+        contains_any_zone_np,
+    )
+    from spatialflink_tpu_torch.sncb.mobility import Q5_FENCE
+    from spatialflink_tpu_torch.sncb.queries import buffer_q1_zones
+
+    zones = {
+        "q1": lambda: buffer_q1_zones(PolygonLoader.load_geojson_buffered(
+            "high_risk_zones.geojson", 20.0), 20.0),
+        "maintenance": lambda: PolygonLoader.load_geojson_buffered(
+            "maintenance_areas.geojson", 0.0),
+        "q5_fence": lambda: PolygonLoader.load_wkt_buffered(
+            "q5_fence.wkt", 20.0),
+        "mn_q5_fence": lambda: [BufferedZone(
+            [np.asarray(Q5_FENCE, float)], 0.001)],
+    }[zone_set]()
+    rng = np.random.default_rng(61)
+    pts = []
+    for z in zones:
+        verts, ev = z.packed()
+        lo, hi = verts.min(0), verts.max(0)
+        span = hi - lo + 4 * z.buffer_m
+        pts.append(rng.uniform(lo - span, hi + span, (50_000, 2)))
+        for i in np.nonzero(ev)[0]:
+            a, b = verts[i], verts[i + 1]
+            nrm = np.array([b[1] - a[1], a[0] - b[0]]) / np.hypot(*(b - a))
+            for sign in (1.0, -1.0):
+                p = (a + b) / 2 + sign * nrm * z.buffer_m
+                pts.append(p + np.arange(-8, 9)[:, None]
+                           * np.spacing(np.abs(p))[None, :])
+    pts = np.concatenate(pts)
+    got = contains_any_zone(zones, pts, device=dev)
+    assert np.array_equal(got, contains_any_zone(zones, pts, device="cpu"))
+    assert np.array_equal(got, contains_any_zone_np(zones, pts))
+    assert 0 < got.sum() < len(got)
+    for z in zones:
+        verts, ev = (torch.from_numpy(a) for a in z.packed())
+        d = point_polygon_distance(torch.from_numpy(pts).to(dev),
+                                   verts.to(dev), ev.to(dev)).cpu()
+        want = point_polygon_distance(torch.from_numpy(pts), verts, ev)
+        assert d.dtype == torch.float64
+        assert torch.equal(d.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_op_counters_on_card_equal_cpu():
+    """The op counters over ``PointPolygonRangeQuery.run_soa`` (B4) and
+    ``PointPointJoinQuery.run_soa`` (B3) on the card equal the CPU run's
+    tallies; a disabled run records nothing."""
+    dev = _card()
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops import counters as oc
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    polys = generate_query_polygons(200, 115.5, 39.6, 117.6, 41.1,
+                                    grid_size=100, seed=3)
+    def chunks(seed):
+        r = np.random.default_rng(seed)
+        n = 60_000
+        return [{"ts": (np.arange(n, dtype=np.int64) * 3000) // n,
+                 "x": r.uniform(115.5, 117.6, n),
+                 "y": r.uniform(39.6, 41.1, n)}]
+
+    snaps = []
+    try:
+        for d in (dev, "cpu"):
+            oc.enable()
+            list(PointPolygonRangeQuery(conf, grid, device=d).run_soa(
+                chunks(1), polys, 0.002))
+            list(PointPointJoinQuery(conf, grid, device=d).run_soa(
+                chunks(2), chunks(3), 0.002))
+            snap = oc.counters.snapshot()
+            snap.pop("throughput_eps")
+            snaps.append(snap)
+        oc.counters.reset()
+        oc.disable()
+        list(PointPolygonRangeQuery(conf, grid, device=dev).run_soa(
+            chunks(1), polys, 0.002))
+        off = oc.counters.snapshot()
+    finally:
+        oc.disable()
+    assert snaps[0] == snaps[1] and snaps[0]["dist_computations"] > 0
+    assert snaps[0]["windows"] == 9
+    assert off["windows"] == off["dist_computations"] == 0
