@@ -7,6 +7,7 @@ NVIDIA card.
     python3 chip_smoke.py --trajectory-only   # phases 1-2 and 23-26
     python3 chip_smoke.py --ingest-only       # phases 1-2 and 27-28
     python3 chip_smoke.py --domain-only       # phases 1-2 and 29-30
+    python3 chip_smoke.py --runtime-only      # phases 1-2 and 31
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -146,9 +147,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    approximate modes (emit-all and ``PolygonPointJoinQuery``'s bbox
    distance), ``LineStringPointJoinQuery`` and ``run`` on ``Point`` and
    ``Polygon`` objects;
-21. run ``PolygonPolygonJoinQuery.run_soa`` on phase 14's stream (4 ×
-   131,072 polygons) ⋈ config 3's 1,000 polygons at r = 0.002, each
-   window equal to the CPU run and B4 up by at least 2 a window; then, at
+21. run ``PolygonPolygonJoinQuery.run_soa`` on the first 2 windows of
+   phase 14's stream (2 × 131,072 polygons) ⋈ config 3's 1,000 polygons
+   at r = 0.002, each window equal to the CPU run and B4 up by at least 2
+   a window; then, at
    2 × 8,192, the other three geometry classes, approximate mode, the
    multi-ring stream and ``run`` on objects; then
    ``PointPointJoinQuery.query_panes`` on 3 panes of 20,000 ``Point``
@@ -252,6 +254,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``PointPolygonRangeQuery.run_soa`` over config 3's first 2 windows
    through B4 on the card and on the CPU, the two snapshots equal (the
    throughput left out), and a disabled run recording 0.
+31. the runtime layer (``telemetry.py``, ``faults.py``, ``ablation.py``)
+   on the card: the headline ``run_wire_panes`` synchronous (B1) and
+   pipelined with the delta codec (B1, B2), ``PointPointKNNQuery.run_soa``
+   at suite config 2, ``PointPolygonRangeQuery.run_soa`` at config 3 (B4)
+   and ``PointPointJoinQuery.run_soa`` at config 4 (B3), each run warm,
+   then with telemetry disabled and enabled (a trace and a ledger stream
+   written): every window bit-equal, the same count of synchronising
+   calls (CUDA's sync debug mode), fetches equal to the operator's own,
+   the headline's h2d bytes (6 B a point at the pane bucket; the codec's
+   words) and wire raw and coded bytes equal to the counts computed here,
+   the trace's spans nested, the ledger and the recovered stream valid
+   (``tools/sfprof``); window latency p50/p95/p99 of ``window.knn_soa``
+   (the NES histogram and the exact span percentiles), the dispatch
+   table of the paths without a window span, and each path's rate with
+   telemetry off and on (medians of 3-7 alternating pairs outside the
+   debug mode); then ``device.dispatch`` (at B1's third call),
+   ``device.ship``, ``device.fetch``, ``pipeline.ship`` and
+   ``pipeline.fetch`` each raising ``InjectedFault`` on the card, recorded
+   in the events and the snapshot, a ``hang`` rule sleeping then raising,
+   and a disarmed rerun bit-equal; B1 ablated on the synchronous run and
+   B2 on the delta run (windows zeroed after the learning pane, the
+   snapshot tainted, the TAINTED rates, timed with telemetry off, beside
+   the baseline, a disarmed rerun bit-equal); ``LinkProbe`` latency and
+   round-trip rate.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -357,6 +383,7 @@ PG_POLYS = 1000
 PG_R = 0.002
 SUITE_PG_PAIRS = 156_132  # BENCH_SUITE.json, join_point_1000polygons
 JOIN_CUT_WIN = 8_192
+GG_WINDOWS = 2  # phase 21's polygon ⋈ polygon run_soa: a depth cut of 4
 JOIN_CUT_WINDOWS = 2
 QPJ_PANE_PTS = 20_000
 QPJ_PANES = 3
@@ -2886,8 +2913,9 @@ def check_join_point_geometry(card, gpu="cuda"):
 
 
 def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
-    """Phase 21: ``PolygonPolygonJoinQuery.run_soa`` on phase 14's stream
-    against config 3's 1,000 polygons, the other classes, approximate
+    """Phase 21: ``PolygonPolygonJoinQuery.run_soa`` on the first
+    ``GG_WINDOWS`` windows of phase 14's stream against config 3's 1,000
+    polygons, the other classes, approximate
     mode, the multi-ring stream and ``run`` at a cut depth, each against
     its CPU twin. Returns (B4 launches, seconds and operator of the
     full-width run, its inputs)."""
@@ -2895,7 +2923,10 @@ def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
     from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
 
     polys = range_polygons()
-    right = polygon_chunks(polys, GEOM_WINDOWS)
+    # A depth cut: the first GG_WINDOWS windows of phase 14's stream on
+    # both sides, every card window compared with its CPU twin.
+    geo_chunks = geo_chunks[:GG_WINDOWS]
+    right = polygon_chunks(polys, GG_WINDOWS)
     polyline_min_dist.launches = 0
     got, secs, op = run_join_soa(gpu, ops.PolygonPolygonJoinQuery,
                                  geo_chunks, right, PG_R)
@@ -2904,12 +2935,12 @@ def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
                                      geo_chunks, right, PG_R)
     pairs = check_join_windows(got, want, "polygon-polygon join run_soa",
                                PG_R)
-    if len(got) != GEOM_WINDOWS or b4_launches < 2 * GEOM_WINDOWS \
+    if len(got) != GG_WINDOWS or b4_launches < 2 * GG_WINDOWS \
             or min(pairs) == 0:
         raise AssertionError(f"polygon-polygon join run_soa: pairs {pairs}, "
                              f"{b4_launches} B4 launches")
-    n = GEOM_WINDOWS * GEOM_WIN
-    print(f"e2e polygon-polygon join run_soa ({GEOM_WINDOWS} x {GEOM_WIN} "
+    n = GG_WINDOWS * GEOM_WIN
+    print(f"e2e polygon-polygon join run_soa ({GG_WINDOWS} x {GEOM_WIN} "
           f"polygons of phase 14 ⋈ config 3's {len(polys)} polygons, "
           f"r={PG_R}): pairs per window {pairs}, {n} objects in "
           f"{secs:.6f} s = {n / secs:.1f} objects/s; launches "
@@ -3170,10 +3201,10 @@ def time_join(dev, card, pg, gg, qp_rate):
           f"{REPEATS}): " + ", ".join(f"{k} {t:.6f}"
                                       for k, t in gparts.items())
           + f"; the window's wall in run_soa "
-          f"{1e3 * gg_secs / GEOM_WINDOWS:.6f} ms [{card}]")
+          f"{1e3 * gg_secs / GG_WINDOWS:.6f} ms [{card}]")
     print(f"e2e rates: point-polygon join run_soa "
           f"{PG_WINDOWS * PG_WIN / pg_secs:.1f} points/s, polygon-polygon "
-          f"join run_soa {GEOM_WINDOWS * GEOM_WIN / gg_secs:.1f} objects/s, "
+          f"join run_soa {GG_WINDOWS * GEOM_WIN / gg_secs:.1f} objects/s, "
           f"query_panes join {qp_rate:.1f} points/s [{card}]")
     profile_run(lambda: run_join_soa("cuda", ops.PointPolygonJoinQuery,
                                      left, right, PG_R), card,
@@ -4861,6 +4892,387 @@ def check_mn_and_counters(card, brakes, gpu="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the runtime layer (telemetry, faults, ablation) on the card
+
+RT_FAULT_AT = 3          # the hit a fault plan fires at (a pane's worth in)
+RT_B1_THIRD_CALL = 5     # device.dispatch hits: (B1 step, merge) a pane
+RT_HANG_S = 0.05
+RT_PROBES = 8
+RT_LINK_BYTES = 1 << 24  # the LinkProbe payload, 16 MiB
+
+
+def same_tree(a, b) -> bool:
+    """Bit-equality of two run outputs: arrays by their bytes, containers
+    element by element, anything else by ``==``."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            a.tobytes() == b.tobytes()
+    return a == b
+
+
+def counted_syncs(fn, gpu="cuda"):
+    """(fn's result, the synchronising calls it made): CUDA's sync debug
+    mode warns once per synchronising call; the warnings are counted (0
+    with ``gpu="cpu"``, a rehearsal)."""
+    import torch
+
+    if gpu == "cpu":
+        return fn(), 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def raises_fault(fn, kind="raise"):
+    """The ``InjectedFault`` of ``fn()``; a run that finishes, or raises
+    anything else, fails the phase."""
+    from spatialflink_tpu_torch.faults import InjectedFault
+
+    try:
+        fn()
+    except InjectedFault as e:
+        if e.kind != kind:
+            raise AssertionError(f"fault kind {e.kind}, want {kind}") from e
+        return e
+    raise AssertionError("the armed fault did not raise")
+
+
+def spans_nest(events) -> bool:
+    """Complete events of each thread either nest or are disjoint (1 µs of
+    slack for the independent floors of ts and dur)."""
+    by_tid = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid.setdefault(e["tid"], []).append(e)
+    for evs in by_tid.values():
+        stack = []
+        for e in sorted(evs, key=lambda e: (e["ts"], -e["dur"])):
+            while stack and stack[-1] <= e["ts"]:
+                stack.pop()
+            end = e["ts"] + e["dur"]
+            if stack and end > stack[-1] + 1:
+                return False
+            stack.append(end)
+    return True
+
+
+def headline_bytes(panes, codec: bool):
+    """(h2d bytes, wire raw bytes, wire coded bytes) the headline run
+    ships, computed here from its panes: 6 B a point at the pane bucket
+    raw; with the delta codec the predictor tables once and each pane's
+    words at their bucket, the encoder's own counts."""
+    from spatialflink_tpu_torch.ops import wire_codec as wc
+    from spatialflink_tpu_torch.ops.compaction import wire_pane_bucket
+
+    if not codec:
+        return sum(6 * wire_pane_bucket(p.shape[1]) for p in panes), 0, 0
+    enc = wc.WirePaneEncoder(NUM_SEGMENTS)
+    h2d = enc.pred_x.nbytes + enc.pred_y.nbytes
+    raw = coded = 0
+    for p in panes:
+        e = enc.encode(p)
+        wb = wc.wire_word_bucket(len(e.words), wire_pane_bucket(p.shape[1]))
+        h2d += 4 * wb
+        raw += e.raw_bytes
+        coded += 4 * wb + wc.HEADER_BYTES
+    return h2d, raw, coded
+
+
+def runtime_paths(panes, wf, gpu="cuda"):
+    """The five paths of phase 31: (label, run() → (windows, seconds),
+    points, expected fetches for n windows, window span name or None,
+    timed off/on pairs: more for the short runs)."""
+    from spatialflink_tpu_torch import operators as ops
+
+    chunks2 = pane_chunks()
+    chunks3 = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)
+    polys = range_polygons()
+    chunks4 = (soa_join_chunks(1), soa_join_chunks(2))
+    lag = 2
+    return [
+        ("headline sync (B1)",
+         lambda: run_path(gpu, "sync", panes, wf)[:2],
+         sum(p.shape[1] for p in panes), lambda n: 2 * n, None, 7),
+        ("headline pipelined delta (B1, B2)",
+         lambda: run_path(gpu, "pipelined_delta", panes, wf)[:2],
+         sum(p.shape[1] for p in panes),
+         lambda n: n - min(n, lag) + (1 if n else 0), None, 3),
+        ("kNN run_soa config 2",
+         lambda: run_point_soa(gpu, "run_soa", chunks2),
+         PANE_PTS * PANES, lambda n: 2 * n, "window.knn_soa", 3),
+        ("range run_soa config 3 (B4)",
+         lambda: run_range(gpu, ops.PointPolygonRangeQuery, chunks3,
+                           polys, RANGE_R)[:2],
+         RANGE_WIN * RANGE_WINDOWS, lambda n: n, None, 3),
+        ("join run_soa config 4 (B3)",
+         lambda: run_soa_path(gpu, chunks4),
+         2 * JOIN_WIN * JOIN_WINDOWS, lambda n: n, None, 5),
+    ]
+
+
+def timed_pairs(run, reps, arm, disarm):
+    """Median seconds of ``run()`` off and on over ``reps`` alternating
+    pairs (off, on, on, off, ...), outside the sync debug mode: host
+    clocks on a shared host spread, so one pair says little."""
+    off, on = [], []
+    for i in range(reps):
+        for state in ((False, True) if i % 2 == 0 else (True, False)):
+            if state:
+                arm()
+            try:
+                secs = run()[1]
+            finally:
+                if state:
+                    disarm()
+            (on if state else off).append(secs)
+    return statistics.median(off), statistics.median(on), off, on
+
+
+def percentiles_line(tel, durs_us):
+    """Window latency p50/p95/p99 ms: the FixedBucketLatency histogram
+    (NES buckets) and the exact percentiles of the span durations."""
+    lat = tel.window_latency
+    hist = "/".join(f"{lat.percentile(p):g}" for p in (0.50, 0.95, 0.99))
+    exact = "/".join(f"{v:.3f}" for v in
+                     np.percentile(np.asarray(durs_us) / 1e3, [50, 95, 99]))
+    return (f"histogram p50/p95/p99 {hist} ms, exact from the trace's "
+            f"{len(durs_us)} spans {exact} ms")
+
+
+def check_runtime(card, panes, wf, gpu="cuda"):
+    """Phase 31: every path disabled then enabled (trace and ledger stream
+    written), faults and ablation on the card, LinkProbe. Returns the
+    kernels' launches over the phase. ``gpu="cpu"`` rehearses it on the
+    CPU (no sync counting; the launch counts stay 0 unless the plain
+    versions are wrapped to count)."""
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch.ablation import ablation
+    from spatialflink_tpu_torch.faults import faults
+    from spatialflink_tpu_torch.ops import wire_codec as wc
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.ops.wire_knn import WIRE_DIGEST_LABELS
+    from spatialflink_tpu_torch.telemetry import (
+        LEDGER_VERSION,
+        LinkProbe,
+        load_trace,
+        telemetry,
+    )
+    from tools.sfprof import ledger as ledger_mod
+    from tools.sfprof import stream as stream_mod
+
+    t_phase = time.perf_counter()
+    counters = {"wire_digest": wire_digest,
+                "wire_codec_decode": wc.decode_wire_pane,
+                "join_extract": join_extract,
+                "polyline_min_dist": polyline_min_dist}
+    for c in counters.values():
+        c.launches = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    paths = runtime_paths(panes, wf, gpu)
+    kind = "torch" if gpu == "cpu" else "cuda"
+    base = {}
+    for i, (label, run, points, fetches, wspan, reps) in enumerate(paths):
+        # Warm: the allocator, first-use set-up, and the sync debug mode's
+        # own first use (one torch.cuda.synchronize warning, once).
+        counted_syncs(run, gpu)
+        (want, _), d_syncs = counted_syncs(run, gpu)
+        trace = f"{tmp}/trace{i}.jsonl"
+        stream = f"{tmp}/stream{i}.jsonl"
+        telemetry.enable(trace_path=trace, stream_path=stream)
+        try:
+            (got, _), e_syncs = counted_syncs(run, gpu)
+            snap = telemetry.snapshot()
+            table = telemetry.kernel_table()
+            lat_line = None
+            if wspan is not None:
+                durs = [e["dur"] for e in telemetry.events
+                        if e["name"] == wspan]
+                lat_line = percentiles_line(telemetry, durs)
+            ledger = telemetry.write_ledger(f"{tmp}/ledger{i}.json",
+                                            bench={"path": label})
+        finally:
+            telemetry.disable()
+        if not same_tree(got, want):
+            raise AssertionError(f"{label}: windows differ with telemetry on")
+        if e_syncs != d_syncs:
+            raise AssertionError(f"{label}: {e_syncs} synchronising calls "
+                                 f"with telemetry on, {d_syncs} off")
+        if snap["d2h_transfers"] != fetches(len(got)):
+            raise AssertionError(f"{label}: {snap['d2h_transfers']} fetches, "
+                                 f"the operator makes {fetches(len(got))}")
+        if i < 2:
+            h2d, raw, coded = headline_bytes(panes, codec=i == 1)
+            if snap["bytes_h2d"] != h2d:
+                raise AssertionError(f"{label}: h2d {snap['bytes_h2d']} B, "
+                                     f"computed {h2d} B")
+            wire = snap.get("wire_codec") or {"raw_bytes": 0,
+                                              "coded_bytes": 0}
+            if (wire["raw_bytes"], wire["coded_bytes"]) != (raw, coded):
+                raise AssertionError(f"{label}: wire bytes {wire}, encoder "
+                                     f"{raw} / {coded}")
+        events = load_trace(trace)["traceEvents"]
+        if not spans_nest(events):
+            raise AssertionError(f"{label}: trace spans do not nest")
+        with open(ledger) as f:
+            doc = json.load(f)
+        rec, info = stream_mod.recover(stream)
+        problems = ledger_mod.validate(doc) + ledger_mod.validate(rec)
+        if problems or doc["ledger_version"] != LEDGER_VERSION != 3 \
+                or not info["sealed"]:
+            raise AssertionError(f"{label}: ledger {problems}, sealed "
+                                 f"{info['sealed']}")
+        off_s, on_s, offs, ons = timed_pairs(run, reps, telemetry.enable,
+                                             telemetry.disable)
+        base[label] = (want, off_s, offs)
+        print(f"runtime {label}: {len(got)} windows bit-equal with telemetry "
+              f"on and off; synchronising calls {d_syncs} off, {e_syncs} on; "
+              f"fetches {snap['d2h_transfers']} ({snap['bytes_d2h']} B), "
+              f"h2d {snap['bytes_h2d']} B in {snap['h2d_transfers']} ships"
+              + (f", wire raw/coded {snap['wire_codec']['raw_bytes']}/"
+                 f"{snap['wire_codec']['coded_bytes']} B"
+                 if snap.get("wire_codec") else "")
+              + f"; trace {len(events)} events, ledger v"
+              f"{doc['ledger_version']} and stream valid [{card}]")
+        print(f"  telemetry cost: {points / off_s:.1f} points/s off, "
+              f"{points / on_s:.1f} on (medians of {reps} alternating "
+              f"pairs: off {', '.join(f'{t * 1e3:.3f}' for t in offs)} ms, "
+              f"on {', '.join(f'{t * 1e3:.3f}' for t in ons)} ms), rate "
+              f"ratio on/off {off_s / on_s:.4f} [{card}]")
+        if lat_line is not None:
+            print(f"  window latency ({wspan}): {lat_line} [{card}]")
+        else:
+            print(f"  window latency: no window span on this path (nor in "
+                  f"the JAX package); dispatch table (host dispatch ns, "
+                  f"not kernel time):")
+            for r in table[:6]:
+                print(f"    {r['kernel']}: {r['calls']} calls, "
+                      f"{r['dispatch_ns']} ns dispatch")
+            if snap.get("pipeline"):
+                print(f"  pipeline counters {snap['pipeline']}")
+        e2e = snap.get("e2e")
+        print(f"  e2e stages: {e2e['stages'] if e2e else 'none: no e2e_end on this path (the driver, A11.2, sets it)'}")
+
+    # Faults on the card.
+    sync_run, delta_run = paths[0][1], paths[1][1]
+    for point, run, at in (
+            ("device.dispatch", sync_run, RT_B1_THIRD_CALL),
+            ("device.ship", sync_run, RT_FAULT_AT),
+            ("device.fetch", sync_run, RT_FAULT_AT),
+            ("pipeline.ship", delta_run, RT_FAULT_AT),
+            ("pipeline.fetch", delta_run, RT_FAULT_AT)):
+        telemetry.enable()
+        try:
+            faults.arm([{"point": point, "at": at}])
+            e = raises_fault(run)
+            names = {ev["name"] for ev in telemetry.events}
+            snap = telemetry.snapshot()
+            b1_calls = sum(r["calls"] for r in telemetry.kernel_table()
+                           if r["kernel"] == WIRE_DIGEST_LABELS[kind])
+            faults.arm([{"point": point, "at": at, "kind": "hang",
+                         "hang_s": RT_HANG_S}])
+            t0 = time.perf_counter()
+            raises_fault(run, "hang")
+            hung = time.perf_counter() - t0
+        finally:
+            faults.disarm()
+            telemetry.disable()
+        if e.hit != at or f"fault_fired:{point}" not in names \
+                or snap.get("faults", {}).get(point) != 1 \
+                or hung < RT_HANG_S:
+            raise AssertionError(f"fault {point}: hit {e.hit}, snapshot "
+                                 f"{snap.get('faults')}, hang {hung:.3f} s")
+        if point == "device.dispatch" and b1_calls != 2:
+            raise AssertionError(f"device.dispatch fired after {b1_calls} "
+                                 "B1 calls, not at the third")
+        label = paths[0][0] if run is sync_run else paths[1][0]
+        again, _ = run()
+        if not same_tree(again, base[label][0]):
+            raise AssertionError(f"fault {point}: rerun after disarm differs")
+        print(f"fault {point} at hit {at} on the {label}: InjectedFault "
+              f"raised, fault_fired:{point} in the events and snapshot"
+              + (f" (after {b1_calls} B1 calls)" if point == "device.dispatch"
+                 else "")
+              + f"; hang {hung:.3f} s then raised; disarmed rerun bit-equal "
+              f"[{card}]")
+
+    # Ablation on the card: B1 on the sync run, B2 on the delta run.
+    for name, path_i, label_ in (("B1", 0, WIRE_DIGEST_LABELS[kind]),
+                                 ("B2", 1, "wire_pane_decode")):
+        label, run, reps = paths[path_i][0], paths[path_i][1], \
+            paths[path_i][5]
+        want, base_secs, _ = base[label]
+        telemetry.enable()
+        try:
+            ablation.arm([label_])
+            got, _ = run()
+            taint = telemetry.snapshot().get("tainted")
+            telemetry.disable()
+            # Timed with telemetry off, as the baseline is.
+            times = [run()[1] for _ in range(reps)]
+            secs = statistics.median(times)
+        finally:
+            ablation.disarm()
+            telemetry.disable()
+        tail = got[2:]
+        zeroed = all(not np.any(w[3]) for w in tail) if name == "B1" \
+            else all(w[4] == 0 for w in tail)
+        if not taint or not taint["substituted_calls"].get(label_) \
+                or not zeroed or not tail:
+            raise AssertionError(f"ablation {name}: taint {taint}, windows "
+                                 f"after the learning pane zeroed {zeroed}")
+        again, _ = run()
+        if not same_tree(again, want):
+            raise AssertionError(f"ablation {name}: disarmed rerun differs")
+        points = paths[path_i][2]
+        print(f"ablation {name} ({label_}) on the {label}: TAINTED rates "
+              f"{points / secs:.1f} points/s ablated (median of "
+              f"{len(times)}: {', '.join(f'{t * 1e3:.3f}' for t in times)} "
+              f"ms, telemetry off) against {points / base_secs:.1f} "
+              f"baseline (the off median above); marginal cost "
+              f"{(base_secs - secs) * 1e3:.3f} ms of {base_secs * 1e3:.3f} ms "
+              f"a run (first run: {taint['learning_calls'][label_]} learning, "
+              f"{taint['substituted_calls'][label_]} substituted calls); "
+              f"windows zeroed after the learning pane; disarmed rerun "
+              f"bit-equal [{card}]")
+
+    telemetry.enable()
+    try:
+        probe = LinkProbe(device=gpu, payload_bytes=RT_LINK_BYTES)
+        for _ in range(RT_PROBES):
+            probe.sample()
+        link = telemetry.snapshot()["link_probe"]
+    finally:
+        telemetry.disable()
+    print(f"LinkProbe: {link['samples']} samples, latency p50 "
+          f"{link['latency_ms_p50']:.4f} ms, round trip "
+          f"{link['roundtrip_mbps_p50']:.1f} MB/s p50 over "
+          f"{link['payload_bytes']} B [{card}]")
+    launches = {k: c.launches for k, c in counters.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"phase 31: a kernel did not launch {launches}")
+    print(f"phase wall: 31 {time.perf_counter() - t_phase:.3f} s; launches "
+          f"{launches} [{card}]")
+    return launches
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -4954,6 +5366,9 @@ def main(argv=None) -> int:
     ap.add_argument("--domain-only", action="store_true",
                     help="phases 1-2 and 29-30 only (build, then the SNCB "
                          "and MobilityNebula layers and the op counters)")
+    ap.add_argument("--runtime-only", action="store_true",
+                    help="phases 1-2 and 31 only (build, then telemetry, "
+                         "faults and ablation on the card)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4990,13 +5405,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
 
-    if args.trajectory_only or args.ingest_only or args.domain_only:
+    wf = WireFormat.for_grid(UniformGrid(**BEIJING))
+    t0 = time.perf_counter()
+    panes = headline_panes(wf)
+    print(f"data: {len(panes)} panes x {SLIDE} points in "
+          f"{time.perf_counter() - t0:.3f} s (host set-up)")
+
+    if args.trajectory_only or args.ingest_only or args.domain_only \
+            or args.runtime_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
             run_ingest_phases(card)
         if args.domain_only:
             run_domain_phases(card)
+        if args.runtime_only:
+            check_runtime(card, panes, wf)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -5004,11 +5428,6 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    wf = WireFormat.for_grid(UniformGrid(**BEIJING))
-    t0 = time.perf_counter()
-    panes = headline_panes(wf)
-    print(f"data: {len(panes)} panes x {SLIDE} points in "
-          f"{time.perf_counter() - t0:.3f} s (host set-up)")
 
     # Phases 3-4
     err_b1 = check_digest(dev, wf, panes, card)
@@ -5201,11 +5620,14 @@ def main(argv=None) -> int:
     # the card) and the op counters over the range operators through B4.
     domain_launches, _ = run_domain_phases(card)
     b4_launches += domain_launches
+    # Phase 31: the runtime layer on the card, through all four kernels.
+    rt = check_runtime(card, panes, wf)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
          "replaces": "spatialflink_tpu/ops/pallas_digest.py:48",
-         "launches": launches["wire_digest"], "max_abs_err": err_b1,
+         "launches": launches["wire_digest"] + rt["wire_digest"],
+         "launches_runtime": rt["wire_digest"], "max_abs_err": err_b1,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None,
          "kernels_per_call": per_call["wire_digest"][0],
@@ -5213,7 +5635,9 @@ def main(argv=None) -> int:
         {"name": "wire_codec_decode", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_codec.cu",
          "replaces": "spatialflink_tpu/ops/wire_codec.py:361",
-         "launches": launches["wire_codec_decode"], "max_abs_err": err_b2,
+         "launches": launches["wire_codec_decode"]
+         + rt["wire_codec_decode"],
+         "launches_runtime": rt["wire_codec_decode"], "max_abs_err": err_b2,
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None,
          "kernels_per_call": per_call["wire_codec_decode"][0],
@@ -5222,7 +5646,8 @@ def main(argv=None) -> int:
          "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
          "launches": soa_launches + obj_launches + qp_launches
-         + tj_launches,
+         + tj_launches + rt["join_extract"],
+         "launches_runtime": rt["join_extract"],
          "max_abs_err": err_b3,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None,
@@ -5232,7 +5657,8 @@ def main(argv=None) -> int:
         {"name": "polyline_min_dist", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
-         "launches": b4_launches, "max_abs_err": err_b4,
+         "launches": b4_launches + rt["polyline_min_dist"],
+         "launches_runtime": rt["polyline_min_dist"], "max_abs_err": err_b4,
          "ms": b4g_ms, "plain_ms": b4g_plain, "bound_ms": b4g_bound,
          "bound_by": b4g_by, "library_ms": None,
          "launches_geometry_range": geo_launches,

@@ -11,8 +11,9 @@ previous snapshot like the reference's counter-delta logic
 (NESFileReporter.java:54-99). ``report()`` can be driven manually (tests,
 bounded replays) or by the built-in timer thread. The kernel counters'
 ``dist_comp_total`` and ``candidate_lanes_total`` append while
-``ops/counters.py`` is enabled; the JAX package's telemetry columns come
-with the telemetry layer (ROADMAP A11.1).
+``ops/counters.py`` is enabled, and the runtime telemetry columns
+(``watermark_lag_ms_max``, ``late_dropped_total``, ``compiles_total``,
+``h2d_bytes_total``, ``d2h_bytes_total``) while ``telemetry.py`` is.
 """
 
 from __future__ import annotations
@@ -91,6 +92,20 @@ class NESFileReporter:
             line += (
                 f" dist_comp_total={opcounters.dist_computations}"
                 f" candidate_lanes_total={opcounters.candidate_lanes}"
+            )
+        # Telemetry columns append while the runtime telemetry layer is
+        # enabled: watermark lag and late drops from the window
+        # assemblers, distinct shapes from the dispatch table, and the
+        # device-boundary bytes from the ship and fetch sites.
+        from spatialflink_tpu_torch.telemetry import telemetry
+
+        if telemetry.enabled:
+            line += (
+                f" watermark_lag_ms_max={telemetry.max_watermark_lag_ms}"
+                f" late_dropped_total={telemetry.late_drops}"
+                f" compiles_total={telemetry.compile_count}"
+                f" h2d_bytes_total={telemetry.h2d_bytes}"
+                f" d2h_bytes_total={telemetry.d2h_bytes}"
             )
         with open(self.stats_path, "a") as f:
             f.write(line + "\n")

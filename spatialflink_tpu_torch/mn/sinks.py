@@ -1,9 +1,5 @@
-"""Counting latency sinks (``com/mn/sinks/``).
-
-The JAX package's sinks also register the runtime telemetry gauges
-(watermark lag, late drops, compiles, device-boundary bytes) in their
-registry; those come with the telemetry layer (ROADMAP A11.1).
-"""
+"""Counting latency sinks (``com/mn/sinks/``). Each sink's registry also
+carries the runtime telemetry gauges (``telemetry.register_metrics``)."""
 
 from __future__ import annotations
 
@@ -22,6 +18,13 @@ class _CountingLatencySinkBase:
                  histogram: Optional[FixedBucketLatency] = None):
         self.registry = registry
         self.histogram = histogram or FixedBucketLatency(registry)
+        # The telemetry gauges (watermark lag, late drops, distinct
+        # shapes, device-boundary bytes) read live singleton state, so
+        # telemetry enabled after the pipeline is built still reports
+        # (zeros while disabled).
+        from spatialflink_tpu_torch.telemetry import telemetry
+
+        telemetry.register_metrics(registry)
 
     def _account(self, rendered: str, ingest_ns: Optional[int]):
         self.registry.inc(MetricNames.SINK_OUT)

@@ -9,17 +9,25 @@ runs its kernels there. Query sets are packed once per run
 their cells (``flags_for_queries``). RealTime query types run as
 tumbling micro-batches of ``realtime_batch_ms``; CountBased uses count
 windows.
+
+Every window and pane program an operator runs goes through ``jitted``,
+which wraps it in ``telemetry.instrument_jit`` under the JAX package's
+label for the same program (its ``device.dispatch`` fault point, its
+ablation, its dispatch table), and every host→device copy through
+``ship`` (the ``device.ship`` fault point and the h2d byte count).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spatialflink_tpu_torch.device import resolve_device
+from spatialflink_tpu_torch.faults import faults
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.batch import GeometryBatch, PointBatch
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
@@ -36,6 +44,7 @@ from spatialflink_tpu_torch.streams.windows import (
     WindowAssembler,
     WindowBatch,
 )
+from spatialflink_tpu_torch.telemetry import instrument_jit, telemetry
 from spatialflink_tpu_torch.utils.interning import Interner
 from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
 
@@ -270,6 +279,16 @@ class Staged:
         return self._tensors
 
 
+@functools.lru_cache(maxsize=None)
+def jitted(fn, label: Optional[str] = None):
+    """``fn`` (a window or pane program) wrapped by
+    ``telemetry.instrument_jit`` under ``label``, by default its
+    ``__name__``: the label the JAX package's ``jitted`` gives the same
+    program, so an ablation spec or a ledger names one kernel in both
+    packages. Cached, so each program has one wrapper."""
+    return instrument_jit(fn, name=label or fn.__name__)
+
+
 def ship(*arrays, device: torch.device,
          stream: Optional[torch.cuda.Stream] = None) -> Staged:
     """Host numpy arrays → device tensors (``None`` passes through).
@@ -280,7 +299,17 @@ def ship(*arrays, device: torch.device,
     change what was shipped. On a card the copy lands in pinned host
     memory and goes to the device with a non-blocking copy, on ``stream``
     when given (the pipeline's side stream) and on the current stream
-    otherwise; call ``arrive()`` on the result before using it."""
+    otherwise; call ``arrive()`` on the result before using it.
+
+    This is the ``device.ship`` fault point, and the one place the h2d
+    bytes are counted: one ``account_h2d`` a call, of the host arrays'
+    ``nbytes`` read before the copy (``None`` lanes uncounted), on the
+    side stream as on the current one."""
+    if faults.armed:  # fault injection point (faults.py)
+        faults.hit("device.ship")
+    if telemetry.enabled:
+        telemetry.account_h2d(
+            sum(np.asarray(a).nbytes for a in arrays if a is not None))
     cuda = device.type == "cuda"
     side = cuda and stream is not None
     ctx = torch.cuda.stream(stream) if side else contextlib.nullcontext()

@@ -46,6 +46,7 @@ from spatialflink_tpu_torch.operators.base import (
     center_coords,
     soa_point_batches,
     ship,
+    jitted,
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.ops.counters import (
@@ -61,6 +62,11 @@ from spatialflink_tpu_torch.ops.join import (
 from spatialflink_tpu_torch.ops.join_kernel import join_window
 from spatialflink_tpu_torch.state import soa_assembler_from_jax
 from spatialflink_tpu_torch.streams.soa import RaggedSoaWindowAssembler
+from spatialflink_tpu_torch.telemetry import telemetry
+
+#: The JAX package's label for the grid join on the accelerator (B3's
+#: ``join_window_pallas``), under which the port's ``join_window`` runs.
+JOIN_LABEL = "join_window_pallas"
 
 #: ``join_backend`` values per device. None takes the device's own: the
 #: hand kernel on the card, its plain version on the CPU.
@@ -146,7 +152,7 @@ def grid_hash_join_batches(grid, left_batch, right_batch, radius, cap,
         left_batch.cell, center_coords(grid, right_batch.xy),
         right_batch.valid, right_batch.cell, device=device,
     ).arrive()
-    return join_window(
+    return jitted(join_window, JOIN_LABEL)(
         lxy, lv, lc, rxy, rv, rc, grid_n=grid.n,
         layers=grid.candidate_layers(radius), radius=fr,
         cap_left=cap, cap_right=cap, max_pairs=max_pairs,
@@ -216,6 +222,7 @@ class PointPointJoinQuery(SpatialOperator):
         )
         naive = self.conf.query_type == QueryType.RealTimeNaive
         fr = self._filter_radius(radius)
+        ck = jitted(cross_join_kernel)
         for win in self.windows(merged):
             left_ev = [t.event for t in win.events if t.tag == 0]
             right_ev = [t.event for t in win.events if t.tag == 1]
@@ -223,33 +230,36 @@ class PointPointJoinQuery(SpatialOperator):
                 yield JoinWindowResult(win.start, win.end, [], 0,
                                        len(win.events))
                 continue
-            lb = self.point_batch(left_ev)
-            rb = self.point_batch(right_ev)
-            if counters.enabled:
+            with telemetry.span("window.join", start=win.start,
+                                events=len(win.events)):
+                lb = self.point_batch(left_ev)
+                rb = self.point_batch(right_ev)
+                if counters.enabled:
+                    if naive:
+                        cand = len(left_ev) * len(right_ev)
+                    else:
+                        cand = count_join_candidates(
+                            self.grid, lb.cell, len(left_ev), rb.cell,
+                            len(right_ev), self.grid.candidate_layers(radius))
+                    counters.record_window(len(win.events), cand, cand)
                 if naive:
-                    cand = len(left_ev) * len(right_ev)
+                    lxy, lv, rxy, rv = ship(
+                        center_coords(self.grid, lb.xy), lb.valid,
+                        center_coords(self.grid, rb.xy), rb.valid,
+                        device=self.device,
+                    ).arrive()
+                    res = ck(lxy, lv, rxy, rv, fr)
+                    li, ri = torch.nonzero(res.pair_mask, as_tuple=True)
+                    li, ri, dd = telemetry.fetch((li, ri, res.dist[li, ri]))
+                    overflow = int(res.overflow)
                 else:
-                    cand = count_join_candidates(
-                        self.grid, lb.cell, len(left_ev), rb.cell,
-                        len(right_ev), self.grid.candidate_layers(radius))
-                counters.record_window(len(win.events), cand, cand)
-            if naive:
-                lxy, lv, rxy, rv = ship(
-                    center_coords(self.grid, lb.xy), lb.valid,
-                    center_coords(self.grid, rb.xy), rb.valid,
-                    device=self.device,
-                ).arrive()
-                res = cross_join_kernel(lxy, lv, rxy, rv, fr)
-                li, ri = torch.nonzero(res.pair_mask, as_tuple=True)
-                dd = res.dist[li, ri]
-                li, ri, dd = (t.cpu().numpy() for t in (li, ri, dd))
-                overflow = int(res.overflow)
-            else:
-                li, ri, dd, overflow = self._compact_block(lb, rb, radius)
-            pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
-                     for a, b, d in zip(li, ri, dd)]
-            yield JoinWindowResult(win.start, win.end, pairs, overflow,
-                                   len(win.events))
+                    li, ri, dd, overflow = self._compact_block(lb, rb,
+                                                               radius)
+                pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
+                         for a, b, d in zip(li, ri, dd)]
+                out = JoinWindowResult(win.start, win.end, pairs, overflow,
+                                       len(win.events))
+            yield out
 
     def _compact_block(self, lb, rb, radius):
         """One bucketed join with the persistent-budget retry: a window
@@ -268,9 +278,9 @@ class PointPointJoinQuery(SpatialOperator):
             if count <= self._max_pairs:
                 break
             self._max_pairs = int(2 ** np.ceil(np.log2(count)))
-        li = res.left_index[:count].cpu().numpy()
-        ri = res.right_index[:count].cpu().numpy()
-        dd = res.dist[:count].cpu().numpy()
+        li, ri, dd = telemetry.fetch((res.left_index[:count],
+                                      res.right_index[:count],
+                                      res.dist[:count]))
         keep = li >= 0
         return li[keep], ri[keep], dd[keep], int(res.overflow)
 
@@ -405,6 +415,7 @@ class PointPointJoinQuery(SpatialOperator):
         gen_r = soa_point_batches(self.grid, right_chunks, self.conf,
                                   asm=asm_r)
         budget = max_pairs
+        jk = jitted(join_window, JOIN_LABEL)
         for kind, wl, wr in _aligned_soa_windows(
             gen_l, gen_r, lambda w: w[0].start, lambda w: w[0].start
         ):
@@ -424,7 +435,7 @@ class PointPointJoinQuery(SpatialOperator):
             lanes = ship(lxy, lvalid, lcell, rxy, rvalid, rcell,
                          device=self.device).arrive()
             while True:
-                res = join_window(
+                res = jk(
                     *lanes, grid_n=self.grid.n, layers=layers, radius=fr,
                     cap_left=self.cap, cap_right=self.cap, max_pairs=budget,
                 )
@@ -432,11 +443,9 @@ class PointPointJoinQuery(SpatialOperator):
                 if count <= budget:
                     break
                 budget = int(2 ** np.ceil(np.log2(count)))
-            yield (
-                win.start, win.end,
-                res.left_index.cpu().numpy(), res.right_index.cpu().numpy(),
-                res.dist.cpu().numpy(), count, int(res.overflow),
-            )
+            li, ri, dd = telemetry.fetch(
+                (res.left_index, res.right_index, res.dist))
+            yield (win.start, win.end, li, ri, dd, count, int(res.overflow))
 
 
 def _aligned_soa_windows(gen_l, gen_r, start_l, start_r):
@@ -496,9 +505,9 @@ class _PrunedGeomJoinRetry:
                 self._pair_cap = min(self._pair_cap * 2, m_cap)
                 continue
             break
-        li = res.left_index[:count].cpu().numpy()
-        ri = res.right_index[:count].cpu().numpy()
-        dd = res.dist[:count].cpu().numpy()
+        li, ri, dd = telemetry.fetch((res.left_index[:count],
+                                      res.right_index[:count],
+                                      res.dist[:count]))
         keep = li >= 0
         return li[keep], ri[keep], dd[keep]
 

@@ -43,6 +43,7 @@ from spatialflink_tpu_torch.operators.base import (
     check_oid_range,
     device_point_args,
     flags_for_queries,
+    jitted,
     pack_query_geometries,
     ship,
     soa_point_batches,
@@ -69,6 +70,7 @@ from spatialflink_tpu_torch.ops.knn import (
     knn_polyline_fused,
 )
 from spatialflink_tpu_torch.ops.wire_knn import (
+    WIRE_DIGEST_LABELS,
     check_cand,
     check_interpret,
     select_wire_digest_step,
@@ -79,6 +81,7 @@ from spatialflink_tpu_torch.streams.soa import (
 )
 from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
 from spatialflink_tpu_torch import pipeline as pipeline_mod
+from spatialflink_tpu_torch.telemetry import instrument_jit, telemetry
 
 
 @dataclass
@@ -155,32 +158,44 @@ class _PointStreamKNNQuery(SpatialOperator):
         (flags_d,) = ship(flags, device=self.device).arrive()
         if self.query_kind == "point":
             query = (self.device_q([query_obj.x, query_obj.y]),)
-            kernel = knn_points_fused
+            kernel = jitted(knn_points_fused)
         else:
             verts, ev = self._packed_query(query_obj)
             query = (self.device_verts(verts),
                      *ship(ev, device=self.device).arrive())
-            kernel = knn_polygon_fused if self.query_kind == "polygon" \
-                else knn_polyline_fused
+            kernel = jitted(knn_polygon_fused if self.query_kind == "polygon"
+                            else knn_polyline_fused)
         for win in self.windows(stream):
-            batch = self.point_batch(win.events)
-            if counters.enabled:
-                cand = count_candidates(flags, batch.cell, len(win.events))
-                counters.record_window(len(win.events), cand, cand)
-            nseg = next_bucket(max(self.interner.num_segments, 1),
-                               minimum=64)
-            xy_d, valid_d, cell_d, oid_d = ship(
-                center_coords(self.grid, batch.xy), batch.valid, batch.cell,
-                batch.oid, device=self.device).arrive()
-            res = kernel(xy_d, valid_d, cell_d, flags_d, oid_d, *query,
-                         radius, k, nseg)
-            yield self._decode(win, res)
+            # Telemetry phases per window: assemble (host batch) → ship →
+            # compute (kernel launches) → fetch (the one wait); the yield
+            # stays outside the window span.
+            with telemetry.span("window.knn", start=win.start,
+                                events=len(win.events)):
+                with telemetry.span("assemble"):
+                    batch = self.point_batch(win.events)
+                    if counters.enabled:
+                        cand = count_candidates(flags, batch.cell,
+                                                len(win.events))
+                        counters.record_window(len(win.events), cand, cand)
+                    nseg = next_bucket(max(self.interner.num_segments, 1),
+                                       minimum=64)
+                with telemetry.span("ship"):
+                    xy_d, valid_d, cell_d, oid_d = ship(
+                        center_coords(self.grid, batch.xy), batch.valid,
+                        batch.cell, batch.oid, device=self.device).arrive()
+                with telemetry.span("compute"):
+                    res = kernel(xy_d, valid_d, cell_d, flags_d, oid_d,
+                                 *query, radius, k, nseg)
+                out = self._decode(win, res)
+            yield out
 
     def _decode(self, win, res: KnnResult) -> KnnWindowResult:
-        nv = int(res.num_valid)
-        segs = res.segment[:nv].cpu().numpy()
-        dists = res.dist[:nv].cpu().numpy()
-        idxs = res.index[:nv].cpu().numpy()
+        # telemetry.fetch is the operator's own copy to the host, with
+        # its bytes counted; it never adds one.
+        with telemetry.span("fetch"):
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists, idxs = telemetry.fetch(
+                (res.segment[:nv], res.dist[:nv], res.index[:nv]))
         neighbors = [
             (self.interner.lookup(int(s)), float(d), win.events[int(i)])
             for s, d, i in zip(segs, dists, idxs)
@@ -224,22 +239,24 @@ class _PointStreamKNNQuery(SpatialOperator):
         if size % slide != 0:
             raise ValueError("query_panes requires size % slide == 0")
         dev = self.device
+        merge = jitted(knn_merge_digest_list)
         if self.query_kind == "point":
             q = self.device_q([query_obj.x, query_obj.y])
+            digest_fn = jitted(knn_pane_digest_compact)
 
             def digest(xy_d, valid_d, oid_d, nseg):
-                return knn_pane_digest_compact(xy_d, valid_d, None, None,
-                                               oid_d, q, radius, 0, nseg)
+                return digest_fn(xy_d, valid_d, None, None, oid_d, q,
+                                 radius, 0, nseg)
         else:
             verts, ev = self._packed_query(query_obj)
             qv = self.device_verts(verts)
             (qe,) = ship(ev, device=dev).arrive()
             polygonal = self.query_kind == "polygon"
+            digest_fn = jitted(knn_pane_digest_geometry_compact)
 
             def digest(xy_d, valid_d, oid_d, nseg):
-                return knn_pane_digest_geometry_compact(
-                    xy_d, valid_d, None, None, oid_d, qv, qe, radius, 0,
-                    nseg, polygonal)
+                return digest_fn(xy_d, valid_d, None, None, oid_d, qv, qe,
+                                 radius, 0, nseg, polygonal)
 
         if getattr(self, "_pane_carry", None) is None:
             self._pane_carry = {}
@@ -268,46 +285,54 @@ class _PointStreamKNNQuery(SpatialOperator):
                 if not evs:
                     panes[ps] = None
                     continue
-                batch = self.point_batch(evs)
-                nseg = next_bucket(max(self.interner.num_segments, 1),
-                                   minimum=64)
-                in_grid = batch.valid & (batch.cell < self.grid.num_cells)
-                xy_d, in_grid_d, oid_d = ship(
-                    center_coords(self.grid, batch.xy), in_grid, batch.oid,
-                    device=dev).arrive()
-                d = digest(xy_d, in_grid_d, oid_d, nseg)
-                panes[ps] = (nseg, d.seg_min, d.rep, evs)
+                with telemetry.span("pane.digest", pane=ps, events=len(evs)):
+                    batch = self.point_batch(evs)
+                    # The pane-capacity bucket's occupancy.
+                    telemetry.record_compaction(
+                        "knn_pane_digest", batch.capacity, len(evs))
+                    nseg = next_bucket(max(self.interner.num_segments, 1),
+                                       minimum=64)
+                    in_grid = batch.valid & (batch.cell < self.grid.num_cells)
+                    xy_d, in_grid_d, oid_d = ship(
+                        center_coords(self.grid, batch.xy), in_grid,
+                        batch.oid, device=dev).arrive()
+                    d = digest(xy_d, in_grid_d, oid_d, nseg)
+                    panes[ps] = (nseg, d.seg_min, d.rep, evs)
             for ps in [p for p in panes if p < win.start]:
                 del panes[ps]
 
-            nseg = max(p[0] for p in panes.values() if p is not None)
-            for ps in starts:
-                if panes[ps] is not None and panes[ps][0] < nseg:
-                    panes[ps] = grow(panes[ps], nseg)
-            live = [panes[ps] for ps in starts]
-            emt = empty_digest(nseg, dev)
-            bases, acc = [], 0
-            for p in live:
-                bases.append(acc)
-                acc += 0 if p is None else len(p[3])
-            res = knn_merge_digest_list(
-                [emt.seg_min if p is None else p[1] for p in live],
-                [emt.rep if p is None else p[2] for p in live], bases, k)
-            spans = [(b, p[3]) for b, p in zip(bases, live) if p is not None]
-            nv = int(res.num_valid)
-            segs = res.segment[:nv].cpu().numpy()
-            dists = res.dist[:nv].cpu().numpy()
-            idxs = res.index[:nv].cpu().numpy()
-            neighbors = []
-            for s, d, gi in zip(segs, dists, idxs):
-                ev = None
-                for base, evs in spans:
-                    if base <= gi < base + len(evs):
-                        ev = evs[gi - base]
-                        break
-                neighbors.append((self.interner.lookup(int(s)), float(d), ev))
-            yield KnnWindowResult(win.start, win.end, neighbors,
-                                  len(win.events))
+            with telemetry.span("window.knn_panes", start=win.start,
+                                events=len(win.events)):
+                nseg = max(p[0] for p in panes.values() if p is not None)
+                for ps in starts:
+                    if panes[ps] is not None and panes[ps][0] < nseg:
+                        panes[ps] = grow(panes[ps], nseg)
+                live = [panes[ps] for ps in starts]
+                emt = empty_digest(nseg, dev)
+                bases, acc = [], 0
+                for p in live:
+                    bases.append(acc)
+                    acc += 0 if p is None else len(p[3])
+                res = merge(
+                    [emt.seg_min if p is None else p[1] for p in live],
+                    [emt.rep if p is None else p[2] for p in live], bases, k)
+                spans = [(b, p[3]) for b, p in zip(bases, live)
+                         if p is not None]
+                nv = int(telemetry.fetch(res.num_valid))
+                segs, dists, idxs = telemetry.fetch(
+                    (res.segment[:nv], res.dist[:nv], res.index[:nv]))
+                neighbors = []
+                for s, d, gi in zip(segs, dists, idxs):
+                    ev = None
+                    for base, evs in spans:
+                        if base <= gi < base + len(evs):
+                            ev = evs[gi - base]
+                            break
+                    neighbors.append((self.interner.lookup(int(s)), float(d),
+                                      ev))
+                out = KnnWindowResult(win.start, win.end, neighbors,
+                                      len(win.events))
+            yield out
 
 
 class PointPointKNNQuery(_PointStreamKNNQuery):
@@ -327,19 +352,23 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         flags = flags_for_queries(self.grid, radius, [query_point])
         (flags_d,) = ship(flags, device=dev).arrive()
         q = self.device_q([query_point.x, query_point.y])
+        kp = jitted(knn_points_fused)
         for win, xy, valid, cell, oid in soa_point_batches(
                 self.grid, chunks, self.conf):
-            check_oid_range(oid[:win.count], num_segments)
-            if counters.enabled:
-                cand = count_candidates(flags, cell, win.count)
-                counters.record_candidates(cand, cand)
-            xy_d, valid_d, cell_d, oid_d = ship(xy, valid, cell, oid,
-                                                device=dev).arrive()
-            res = knn_points_fused(xy_d, valid_d, cell_d, flags_d, oid_d, q,
-                                   radius, k, num_segments)
-            nv = int(res.num_valid)
-            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
-                   res.dist[:nv].cpu().numpy(), nv)
+            with telemetry.span("window.knn_soa", start=win.start,
+                                events=win.count):
+                check_oid_range(oid[:win.count], num_segments)
+                if counters.enabled:
+                    cand = count_candidates(flags, cell, win.count)
+                    counters.record_candidates(cand, cand)
+                xy_d, valid_d, cell_d, oid_d = ship(xy, valid, cell, oid,
+                                                    device=dev).arrive()
+                res = kp(xy_d, valid_d, cell_d, flags_d, oid_d, q, radius, k,
+                         num_segments)
+                nv = int(telemetry.fetch(res.num_valid))
+                segs, dists = telemetry.fetch(
+                    (res.segment[:nv], res.dist[:nv]))
+            yield (win.start, win.end, segs, dists, nv)
 
     def run_multi(self, stream: Iterable[Point],
                   query_points: Sequence[Point], radius: float, k: int,
@@ -366,6 +395,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             np.asarray([[q.x, q.y] for q in query_points], np.float64), qb)
         (tables_d,) = ship(tables, device=self.device).arrive()
         q_d = self.device_q(qxy)
+        kernel = jitted(knn_multi_query_kernel)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             nseg = next_bucket(max(self.interner.num_segments, 1),
@@ -373,11 +403,10 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             xy_d, valid_d, cell_d, oid_d = ship(
                 center_coords(self.grid, batch.xy), batch.valid, batch.cell,
                 batch.oid, device=self.device).arrive()
-            res = knn_multi_query_kernel(xy_d, valid_d, cell_d, tables_d,
-                                         oid_d, q_d, radius, k, nseg,
-                                         query_block=block)
-            segs, dists, idxs, nvs = (t.cpu().numpy() for t in (
-                res.segment, res.dist, res.index, res.num_valid))
+            res = kernel(xy_d, valid_d, cell_d, tables_d, oid_d, q_d, radius,
+                         k, nseg, query_block=block)
+            segs, dists, idxs, nvs = telemetry.fetch(  # (Q, k) bulk fetches
+                (res.segment, res.dist, res.index, res.num_valid))
             per_query = []
             for qi in range(nq):
                 neighbors = [
@@ -408,6 +437,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             raise ValueError("run_soa_panes requires size % slide == 0")
         dev = self.device
         q = self.device_q([query_point.x, query_point.y])
+        digest = jitted(knn_pane_digest_compact)
+        merge = jitted(knn_merge_digest_list)
         no_bases = np.zeros(size // slide, np.int32)  # indices unused here
         if getattr(self, "_pane_carry_soa", None) is None:
             self._pane_carry_soa = {}
@@ -435,19 +466,18 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                 in_grid = valid_p & (cell_p < self.grid.num_cells)
                 xy_d, in_grid_d, oid_d = ship(xy_p, in_grid, oid_p,
                                               device=dev).arrive()
-                d = knn_pane_digest_compact(xy_d, in_grid_d, None, None,
-                                            oid_d, q, radius, 0,
-                                            num_segments)
+                d = digest(xy_d, in_grid_d, None, None, oid_d, q, radius, 0,
+                           num_segments)
                 panes[ps] = (d.seg_min, d.rep)
             for ps in [p for p in panes if p < win.start]:
                 del panes[ps]
             live = [panes[ps] for ps in range(win.start, win.end, slide)]
-            res = knn_merge_digest_list(
+            res = merge(
                 [emt.seg_min if p is None else p[0] for p in live],
                 [emt.rep if p is None else p[1] for p in live], no_bases, k)
-            nv = int(res.num_valid)
-            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
-                   res.dist[:nv].cpu().numpy(), nv)
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists = telemetry.fetch((res.segment[:nv], res.dist[:nv]))
+            yield (win.start, win.end, segs, dists, nv)
 
     def restore_wire_pane_carry(self, carry: dict) -> None:
         """Resume ``run_wire_panes`` from a checkpoint carry (this
@@ -528,6 +558,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         scale, origin = wire_format.scale, wire_format.origin
         r32 = np.float32(radius)
         step = None
+        merge = jitted(knn_merge_digest_list)
         self.last_wire_digest_kind = None
         self.last_wire_codec_kind = None
         empty = empty_digest(num_segments, dev)
@@ -563,11 +594,14 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         def digest_pane(wire_d, n):
             nonlocal step
             if step is None:
-                self.last_wire_digest_kind, step = select_wire_digest_step(
+                kind, fn = select_wire_digest_step(
                     wire_d, n, q, scale, origin, r32,
                     num_segments=num_segments, cand=cand,
                     interpret=interpret, strategy=strategy,
                 )
+                self.last_wire_digest_kind = kind
+                # A per-run closure: wrapped here, not in jitted's cache.
+                step = instrument_jit(fn, name=WIRE_DIGEST_LABELS[kind])
             return step(wire_d, n)
 
         def merge_window(pane_i):
@@ -576,15 +610,14 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             # (nv = 0).
             if not any(counts):
                 return None
-            res = knn_merge_digest_list(
+            res = merge(
                 [s for s, _ in digests], [r for _, r in digests], None, k,
             )
             return (start_ms + (pane_i - ppw + 1) * slide_ms, res)
 
         def fetch_one(w_start, res):
-            nv = int(res.num_valid)
-            segs = res.segment[:nv].cpu().numpy()
-            dists = res.dist[:nv].cpu().numpy()
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists = telemetry.fetch((res.segment[:nv], res.dist[:nv]))
             return (w_start, w_start + size, segs, dists, nv)
 
         def carry_now(next_pane):
@@ -637,7 +670,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
             encoder = wc.WirePaneEncoder(num_segments) if use_codec \
                 else None
-            dec = {"px": None, "py": None}
+            dec = {"px": None, "py": None,
+                   "step": jitted(wc.decode_wire_pane, "wire_pane_decode")}
             if use_codec:
                 if codec_state is not None:
                     encoder.restore(codec_state)
@@ -668,6 +702,10 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                     enc = encoder.encode(wire_p)
                     nb = wire_pane_bucket(n)
                     wb = wc.wire_word_bucket(len(enc.words), nb)
+                    # Charge the PADDED bucket: the bytes that ship (the
+                    # ship site's account_h2d agrees).
+                    telemetry.account_wire(enc.raw_bytes,
+                                           4 * wb + wc.HEADER_BYTES)
                     words = wc.pad_words(enc.words, wb).view(np.int32)
                     return ("coded", ship(words, device=dev, stream=side),
                             n, nb, enc.bx, enc.by, enc.bo)
@@ -691,7 +729,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                                     interpret=interpret, sample_args=args,
                                     n=nb, num_segments=num_segments,
                                 )
-                        pane_d, dec["px"], dec["py"] = wc.decode_wire_pane(
+                        pane_d, dec["px"], dec["py"] = dec["step"](
                             *args, n=nb, num_segments=num_segments,
                         )
                     else:
@@ -707,14 +745,25 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                 return (out, state["last_carry"])
 
             def fetch_stage(works):
-                # Carries ride OUT with their windows, unpublished: a
-                # multi-window drain must not advance the carry past
-                # windows the consumer has not received yet.
-                return [(carry, fetch_one(*out)) for out, carry in works]
+                # One fetch per drain batch: the full (k,) lanes, sliced
+                # on the host by num_valid. Carries ride OUT with their
+                # windows, unpublished: a multi-window drain must not
+                # advance the carry past windows the consumer has not
+                # received yet.
+                fetched = telemetry.fetch([
+                    (r.num_valid, r.segment, r.dist)
+                    for (_w, r), _c in works])
+                out = []
+                for ((w_start, _r), carry), (nv_a, seg_a, dist_a) in zip(
+                        works, fetched):
+                    nv = int(nv_a)
+                    out.append((carry, (w_start, w_start + size,
+                                        seg_a[:nv], dist_a[:nv], nv)))
+                return out
 
             ex = pipeline_mod.PipelinedExecutor(
                 pol, ship=ship_stage, compute=compute_stage,
-                fetch=fetch_stage,
+                fetch=fetch_stage, label="wire_panes",
             )
             for carry, out in ex.run(items()):
                 self._wire_pane_carry = carry
@@ -825,12 +874,12 @@ class _GeometryStreamKNNQuery(SpatialOperator):
                 bb_d, valid_d, oflags_d, oid_d = ship(
                     _centered_bbox(self.grid, batch.bbox, pad=False),
                     batch.valid, oflags, batch.oid, device=dev).arrive()
-                return knn_geometry_bbox_kernel(bb_d, valid_d, oflags_d,
-                                                oid_d, qbb, radius, k, nseg)
+                return jitted(knn_geometry_bbox_kernel)(
+                    bb_d, valid_d, oflags_d, oid_d, qbb, radius, k, nseg)
             ev_d, valid_d, oflags_d, oid_d = ship(
                 batch.edge_valid, batch.valid, oflags, batch.oid,
                 device=dev).arrive()
-            return knn_geometry_query_kernel(
+            return jitted(knn_geometry_query_kernel)(
                 self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
                 oid_d, qv, qe, radius, k, nseg,
                 obj_polygonal=self.stream_polygonal,
@@ -856,10 +905,9 @@ class _GeometryStreamKNNQuery(SpatialOperator):
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             res = evaluate(batch, nseg)
-            nv = int(res.num_valid)
-            segs = res.segment[:nv].cpu().numpy()
-            dists = res.dist[:nv].cpu().numpy()
-            idxs = res.index[:nv].cpu().numpy()
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists, idxs = telemetry.fetch(
+                (res.segment[:nv], res.dist[:nv], res.index[:nv]))
             neighbors = [
                 (self.interner.lookup(int(s)), float(d), win.events[int(i)])
                 for s, d, i in zip(segs, dists, idxs)
@@ -884,9 +932,9 @@ class _GeometryStreamKNNQuery(SpatialOperator):
                 win.ts, win.oid, win.lengths, win.verts,
                 edge_valid_flat=win.edge_valid, dtype=np.float64),
                 num_segments)
-            nv = int(res.num_valid)
-            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
-                   res.dist[:nv].cpu().numpy(), nv)
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists = telemetry.fetch((res.segment[:nv], res.dist[:nv]))
+            yield (win.start, win.end, segs, dists, nv)
 
 
 class PolygonPointKNNQuery(_GeometryStreamKNNQuery):

@@ -32,6 +32,7 @@ from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
     center_coords,
     flags_for_queries,
+    jitted,
     pack_query_geometries,
     pack_query_points,
     ship,
@@ -47,6 +48,7 @@ from spatialflink_tpu_torch.ops.range import (
     range_polylines_fused,
 )
 from spatialflink_tpu_torch.streams.soa import RaggedSoaWindowAssembler
+from spatialflink_tpu_torch.telemetry import telemetry
 
 
 @dataclass
@@ -97,37 +99,40 @@ class _PointStreamRangeQuery(SpatialOperator):
         approx = self.conf.approximate_query
         if self.query_kind == "point":
             q = self.device_q(pack_query_points(query_set))
-            return lambda common: range_points_fused(
-                *common, q, radius, approximate=approx)
+            pk = jitted(range_points_fused)
+            return lambda common: pk(*common, q, radius, approximate=approx)
 
         verts, ev = pack_query_geometries(query_set)
         qv = self.device_q(verts)
         (qe,) = ship(ev, device=self.device).arrive()
         if self.query_kind == "linestring":
-            return lambda common: range_polylines_fused(
-                *common, qv, qe, radius, approximate=approx)
+            lk = jitted(range_polylines_fused)
+            return lambda common: lk(*common, qv, qe, radius,
+                                     approximate=approx)
 
         nq = len(query_set)
         if nq < 64 or approx:
-            return lambda common: range_polygons_fused(
-                *common, qv, qe, radius, approximate=approx)
+            polyk = jitted(range_polygons_fused)
+            return lambda common: polyk(*common, qv, qe, radius,
+                                        approximate=approx)
 
         use_compact = float((flags > 0).mean()) < 0.25
         if use_compact and not hasattr(self, "_cand_budget"):
             self._cand_budget = 4096  # persists across windows
         if not hasattr(self, "_ncand"):
             self._ncand = 8  # persists: dense data pays the retry once
+        prunedk = jitted(range_polygons_pruned_compact_fused if use_compact
+                         else range_polygons_pruned_fused)
 
         def ev_pruned(common):
             # One wait per try for the overflow counts, as the JAX loop.
             while True:
                 if use_compact:
-                    keep, dist, c_over, b_over = \
-                        range_polygons_pruned_compact_fused(
-                            *common, qv, qe, radius,
-                            budget=self._cand_budget, cand=self._ncand)
+                    keep, dist, c_over, b_over = prunedk(
+                        *common, qv, qe, radius,
+                        budget=self._cand_budget, cand=self._ncand)
                 else:
-                    keep, dist, c_over = range_polygons_pruned_fused(
+                    keep, dist, c_over = prunedk(
                         *common, qv, qe, radius, cand=self._ncand)
                     b_over = 0
                 grew = False
@@ -163,20 +168,30 @@ class _PointStreamRangeQuery(SpatialOperator):
         (flags_d,) = ship(flags, device=self.device).arrive()
         evaluate = self._window_evaluator(query_set, flags, radius)
         for win in self.windows(stream):
-            batch = self.point_batch(win.events)
-            if counters.enabled:
-                cand = count_candidates(flags, batch.cell, len(win.events))
-                counters.record_window(len(win.events), cand,
-                                       cand * len(query_set))
-            xy_d, valid_d, cell_d = ship(
-                center_coords(self.grid, batch.xy), batch.valid, batch.cell,
-                device=self.device).arrive()
-            keep, dist = evaluate((xy_d, valid_d, cell_d, flags_d))
-            keep, dist = keep.cpu().numpy(), dist.cpu().numpy()
-            idx = np.nonzero(keep)[0]
-            yield RangeResult(win.start, win.end,
-                              [win.events[i] for i in idx], dist[idx],
-                              len(win.events))
+            # assemble → ship → compute → fetch phase spans (see
+            # knn_query.run); the yield stays outside the window span.
+            with telemetry.span("window.range", start=win.start,
+                                events=len(win.events)):
+                with telemetry.span("assemble"):
+                    batch = self.point_batch(win.events)
+                    if counters.enabled:
+                        cand = count_candidates(flags, batch.cell,
+                                                len(win.events))
+                        counters.record_window(len(win.events), cand,
+                                               cand * len(query_set))
+                with telemetry.span("ship"):
+                    xy_d, valid_d, cell_d = ship(
+                        center_coords(self.grid, batch.xy), batch.valid,
+                        batch.cell, device=self.device).arrive()
+                with telemetry.span("compute"):
+                    keep, dist = evaluate((xy_d, valid_d, cell_d, flags_d))
+                with telemetry.span("fetch"):
+                    keep, dist = telemetry.fetch((keep, dist))
+                idx = np.nonzero(keep)[0]
+                out = RangeResult(win.start, win.end,
+                                  [win.events[i] for i in idx], dist[idx],
+                                  len(win.events))
+            yield out
 
     def run_partitioned(self, *args, **kwargs):
         raise NotImplementedError(
@@ -200,10 +215,9 @@ class _PointStreamRangeQuery(SpatialOperator):
                 counters.record_candidates(cand, cand * len(query_set))
             lanes = ship(xy, valid, cell, device=self.device).arrive()
             keep, dist = evaluate((*lanes, flags_d))
-            n = win.count
-            keep = keep[:n].cpu().numpy()
-            dist = dist[:n].cpu().numpy()
-            idx = np.nonzero(keep)[0]
+            # The whole padded lanes, as the JAX path fetches them.
+            keep, dist = telemetry.fetch((keep, dist))
+            idx = np.nonzero(keep[:win.count])[0]
             matched = {k: np.asarray(v)[idx] for k, v in win.arrays.items()}
             yield win.start, win.end, matched, dist[idx]
 
@@ -233,6 +247,7 @@ class PointPointRangeQuery(_PointStreamRangeQuery):
         q = self.device_q([[query_point.x, query_point.y]])
         slide_ms = self.conf.slide_step_ms
         approx = self.conf.approximate_query
+        pk = jitted(range_points_fused)
         carry: List[tuple] = []  # (event, dist)
         for win in self.windows(stream):
             objects: List[SpatialObject] = []
@@ -251,10 +266,9 @@ class PointPointRangeQuery(_PointStreamRangeQuery):
                 xy_d, valid_d, cell_d = ship(
                     center_coords(self.grid, batch.xy), batch.valid,
                     batch.cell, device=self.device).arrive()
-                keep, dist = range_points_fused(
-                    xy_d, valid_d, cell_d, flags_d, q, radius,
-                    approximate=approx)
-                keep, dist = keep.cpu().numpy(), dist.cpu().numpy()
+                keep, dist = pk(xy_d, valid_d, cell_d, flags_d, q, radius,
+                                approximate=approx)
+                keep, dist = telemetry.fetch((keep, dist))
                 for i in np.nonzero(keep)[0]:
                     ev, d = new_events[i], float(dist[i])
                     objects.append(ev)
@@ -321,16 +335,16 @@ class _GeometryStreamRangeQuery(SpatialOperator):
         qv = self.device_verts(qverts)
         (qe,) = ship(qev, device=self.device).arrive()
         statics = self._kernel_statics()
+        gk = jitted(geometry_range_query_kernel)
 
         def evaluate(batch: GeometryBatch):
             oflags = batch.any_cell_flagged(self.grid, flags, prefix=prefix)
             ev_d, valid_d, oflags_d = ship(
                 batch.edge_valid, batch.valid, oflags,
                 device=self.device).arrive()
-            keep, dist = geometry_range_query_kernel(
-                self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
-                qv, qe, radius, **statics)
-            return keep.cpu().numpy(), dist.cpu().numpy()
+            keep, dist = gk(self.device_verts(batch.verts), ev_d, valid_d,
+                            oflags_d, qv, qe, radius, **statics)
+            return telemetry.fetch((keep, dist))
 
         return evaluate
 
@@ -347,11 +361,14 @@ class _GeometryStreamRangeQuery(SpatialOperator):
             query_set = [query_set]
         evaluate = self._window_evaluator(query_set, radius)
         for win in self.windows(stream):
-            keep, dist = evaluate(self.geometry_batch(win.events))
-            idx = np.nonzero(keep)[0]
-            yield RangeResult(win.start, win.end,
-                              [win.events[i] for i in idx], dist[idx],
-                              len(win.events))
+            with telemetry.span("window.range_geometry", start=win.start,
+                                events=len(win.events)):
+                keep, dist = evaluate(self.geometry_batch(win.events))
+                idx = np.nonzero(keep)[0]
+                out = RangeResult(win.start, win.end,
+                                  [win.events[i] for i in idx], dist[idx],
+                                  len(win.events))
+            yield out
 
     def run_soa(self, chunks, query_set, radius: float, dtype=np.float64):
         """Ragged-SoA path: geometry chunks ``{"ts", "oid", "lengths",

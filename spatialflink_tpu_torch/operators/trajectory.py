@@ -45,11 +45,13 @@ from spatialflink_tpu_torch.operators.base import (
     center_coords,
     check_oid_range,
     flags_for_queries,
+    jitted,
     pack_query_geometries,
     ship,
     soa_point_batches,
 )
 from spatialflink_tpu_torch.operators.join_query import (
+    JOIN_LABEL,
     _TaggedEvent,
     _aligned_soa_windows,
     _no_mesh,
@@ -77,6 +79,7 @@ from spatialflink_tpu_torch.ops.tjoin_panes import (
     tjoin_pane_scan,
 )
 from spatialflink_tpu_torch.streams.soa import SoaWindowAssembler
+from spatialflink_tpu_torch.telemetry import telemetry
 from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
 
 
@@ -194,8 +197,8 @@ class TRangeQuery(_TrajectoryOperator):
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             xy, valid, _, oid = self._window_lanes(batch)
-            hits = traj_range_hits_fused(xy, valid, oid, qv, qe,
-                                         nseg).cpu().numpy()
+            hits = telemetry.fetch(jitted(traj_range_hits_fused)(
+                xy, valid, oid, qv, qe, nseg))
             out = [
                 sub_trajectory(evs, oid_str, win.start)
                 for oid_str, evs in group_by_oid(win.events).items()
@@ -214,8 +217,8 @@ class TRangeQuery(_TrajectoryOperator):
             check_oid_range(oid[:win.count], num_segments)
             xy_d, valid_d, oid_d = ship(xy, valid, oid,
                                         device=self.device).arrive()
-            hits = traj_range_hits_fused(xy_d, valid_d, oid_d, qv, qe,
-                                         num_segments).cpu().numpy()
+            hits = telemetry.fetch(jitted(traj_range_hits_fused)(
+                xy_d, valid_d, oid_d, qv, qe, num_segments))
             yield (win.start, win.end, np.flatnonzero(hits), win.count)
 
 
@@ -256,11 +259,10 @@ class TKNNQuery(_TrajectoryOperator):
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             xy, valid, cell, oid = self._window_lanes(batch)
-            res = knn_points_fused(xy, valid, cell, flags_d, oid, q, radius,
-                                   k, nseg)
-            nv = int(res.num_valid)
-            segs = res.segment[:nv].cpu().numpy()
-            dists = res.dist[:nv].cpu().numpy()
+            res = jitted(knn_points_fused)(xy, valid, cell, flags_d, oid, q,
+                                           radius, k, nseg)
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists = telemetry.fetch((res.segment[:nv], res.dist[:nv]))
             groups = group_by_oid(win.events)
             out = []
             for s, d in zip(segs, dists):
@@ -280,11 +282,11 @@ class TKNNQuery(_TrajectoryOperator):
                                                            self.conf):
             xy_d, valid_d, cell_d, oid_d = ship(
                 xy, valid, cell, oid, device=self.device).arrive()
-            res = knn_points_fused(xy_d, valid_d, cell_d, flags_d, oid_d, q,
-                                   radius, k, num_segments)
-            nv = int(res.num_valid)
-            yield (win.start, win.end, res.segment[:nv].cpu().numpy(),
-                   res.dist[:nv].cpu().numpy(), nv)
+            res = jitted(knn_points_fused)(xy_d, valid_d, cell_d, flags_d,
+                                           oid_d, q, radius, k, num_segments)
+            nv = int(telemetry.fetch(res.num_valid))
+            segs, dists = telemetry.fetch((res.segment[:nv], res.dist[:nv]))
+            yield (win.start, win.end, segs, dists, nv)
 
 
 class PointPointTKNNQuery(TKNNQuery):
@@ -361,13 +363,14 @@ class _PaneScan:
             if self._shipped is None:
                 self._shipped = [ship(*f, device=self.device).arrive()
                                  for f in self.fields]
-            carry, wmins = tjoin_pane_scan(carry, range(self.n_slides),
-                                           *self._shipped, *args)
+            carry, wmins = jitted(tjoin_pane_scan)(
+                carry, range(self.n_slides), *self._shipped, *args)
+            wmins = telemetry.fetch(wmins)
         else:
-            carry, wmins = self._segmented(carry, args)
+            carry, wmins = self._segmented(carry, args)  # fetched there
         counters = torch.stack([carry.cap_overflow, carry.sel_overflow,
                                 carry.cmp_overflow]).tolist()
-        return (*counters, wmins.cpu().numpy())
+        return (*counters, wmins)
 
     def _segmented(self, carry, args):
         n, ppw, dev = self.n_slides, self.ppw, self.device
@@ -403,18 +406,18 @@ class _PaneScan:
         def compute_stage(seg, staged):
             s0, parts = staged
             lfd, rfd, lxd, rxd = (p.arrive() for p in parts)
-            state["carry"], w = tjoin_pane_scan(
+            state["carry"], w = jitted(tjoin_pane_scan)(
                 state["carry"], range(s0, s0 + seg_len), lfd, rfd, *args,
                 lps_expire=lxd, rps_expire=rxd)
             return w
 
         def fetch_stage(works):
-            return [w.cpu() for w in works]
+            return list(telemetry.fetch(works))  # one wait per batch
 
         ex = pipeline.PipelinedExecutor(
             self.pol, ship=ship_stage, compute=compute_stage,
-            fetch=fetch_stage)
-        rows = torch.cat(list(ex.run(range(n_seg))))
+            fetch=fetch_stage, label="tjoin_scan")
+        rows = np.concatenate(list(ex.run(range(n_seg))))
         return state["carry"], rows[:n]
 
 
@@ -452,7 +455,7 @@ class TJoinQuery(_TrajectoryOperator):
         power of two of their count when it exceeds the budget (which
         persists across windows)."""
         while True:
-            tp = traj_pair_dedup_kernel(
+            tp = jitted(traj_pair_dedup_kernel)(
                 res.left_index, res.right_index, res.dist, l_loc, r_loc,
                 num_l, num_r, self._max_tpairs)
             count = int(tp.count)
@@ -494,10 +497,10 @@ class TJoinQuery(_TrajectoryOperator):
             r_uniq, r_loc, num_r = _local_ranks(rb.oid, len(right_ev))
             l_loc_d, r_loc_d = ship(l_loc, r_loc, device=self.device).arrive()
             tp = self._dedup(res, l_loc_d, r_loc_d, num_l, num_r)
-            keys = tp.pair_key.cpu().numpy()
+            keys, tdist = telemetry.fetch((tp.pair_key, tp.dist))
             hit = keys >= 0
             kk = keys[hit]
-            dists = tp.dist.cpu().numpy()[hit]
+            dists = tdist[hit]
             found = sorted(
                 (self.interner.lookup(int(a)), self.interner.lookup(int(b)),
                  float(d))
@@ -560,7 +563,7 @@ class TJoinQuery(_TrajectoryOperator):
                 lxy, lvalid, lcell, rxy, rvalid, rcell, l_loc, r_loc,
                 device=self.device).arrive()
             while True:
-                res = join_window(
+                res = jitted(join_window, JOIN_LABEL)(
                     *lanes, grid_n=self.grid.n, layers=layers, radius=radius,
                     cap_left=self.cap, cap_right=self.cap, max_pairs=budget)
                 count = int(res.count)
@@ -568,14 +571,14 @@ class TJoinQuery(_TrajectoryOperator):
                     break
                 budget = _grown(count)
             tp = self._dedup(res, l_loc_d, r_loc_d, num_l, num_r)
-            keys = tp.pair_key.cpu().numpy()
+            keys, tdist = telemetry.fetch((tp.pair_key, tp.dist))
             hit = keys >= 0
             kk = keys[hit]
             yield (
                 win.start, win.end,
                 l_uniq[kk // num_r].astype(np.int32),
                 r_uniq[kk % num_r].astype(np.int32),
-                tp.dist.cpu().numpy()[hit], int(hit.sum()),
+                tdist[hit], int(hit.sum()),
                 int(res.overflow),
             )
 
@@ -665,9 +668,11 @@ class TJoinQuery(_TrajectoryOperator):
         if cap_c is None:
             # The host reads the exact live occupancy and picks the rung:
             # the device program only ever sees the fixed capacity.
-            occ = max(max_window_cell_count(*locc, ppw),
-                      max_window_cell_count(*rocc, ppw))
-            cap_c = pick_capacity(occ, cap_w)
+            with telemetry.span("compaction.plan", engine="tjoin_pane_scan"):
+                occ = max(max_window_cell_count(*locc, ppw),
+                          max_window_cell_count(*rocc, ppw))
+                cap_c = pick_capacity(occ, cap_w)
+            telemetry.record_compaction("tjoin_pane_scan", cap_c, occ)
         self.pane_occupancy, self.pane_scans = occ, []
         scan = _PaneScan(self.device, lfields, rfields, radius, g.n, layers,
                          ppw, num_segments)
@@ -687,7 +692,12 @@ class TJoinQuery(_TrajectoryOperator):
                 pair_sel *= 2
             if cmp_over and cap_c:
                 # Only a forced or stale cap_c can be too small: climb.
+                # The occupancy was not measured, only that it exceeded
+                # the old rung: that lower bound is what is recorded.
+                live_floor = cap_c + 1
                 cap_c = min(max(cap_c * 2, cap_c + 1), cap_w)
+                telemetry.record_compaction("tjoin_pane_scan", cap_c,
+                                            live_floor)
 
         def rolling(counts):
             cc = np.concatenate([[0], np.cumsum(counts)])
@@ -769,9 +779,10 @@ class TAggregateQuery(_TrajectoryOperator):
         num_pairs = next_bucket(len(uniq_keys), minimum=64)
         ts_d, pid_d, valid_d = ship(np.asarray(ts_p, np.int64), pair_id,
                                     valid_p, device=self.device).arrive()
-        spans = traj_cell_spans_kernel(ts_d, pid_d, valid_d, num_pairs)
-        mn = spans.min_ts.cpu().numpy()[:len(uniq_keys)]
-        mx = spans.max_ts.cpu().numpy()[:len(uniq_keys)]
+        spans = jitted(traj_cell_spans_kernel)(ts_d, pid_d, valid_d,
+                                               num_pairs)
+        mn, mx = telemetry.fetch((spans.min_ts, spans.max_ts))
+        mn, mx = mn[:len(uniq_keys)], mx[:len(uniq_keys)]
         self._merge_state(uniq_keys, mn, mx)
         if self.inactive_threshold_ms > 0 and len(mx):
             horizon = max(int(mx.max()), 0) - self.inactive_threshold_ms
@@ -896,19 +907,21 @@ class TStatsQuery(_TrajectoryOperator):
                 # out-of-order tuples as they arrive (TStatsQuery.java:118).
                 yield self._realtime_update(win, win.events)
                 continue
-            events = sorted(win.events,
-                            key=lambda p: (p.obj_id, p.timestamp))
-            batch = PointBatch.from_points(events, interner=self.interner,
-                                           dtype=np.float64)
-            nseg = next_bucket(max(self.interner.num_segments, 1),
-                               minimum=64)
-            xy, ts, oid, valid = ship(
-                center_coords(self.grid, batch.xy), batch.ts, batch.oid,
-                batch.valid, device=self.device).arrive()
-            res = traj_stats_kernel(xy, ts, oid, valid, nseg)
-            yield self._decode_window(
-                win, events, res.spatial_length.cpu().numpy(),
-                res.temporal_length.cpu().numpy(), res.count.cpu().numpy())
+            with telemetry.span("window.tstats", start=win.start,
+                                events=len(win.events)):
+                events = sorted(win.events,
+                                key=lambda p: (p.obj_id, p.timestamp))
+                batch = PointBatch.from_points(events, interner=self.interner,
+                                               dtype=np.float64)
+                nseg = next_bucket(max(self.interner.num_segments, 1),
+                                   minimum=64)
+                xy, ts, oid, valid = ship(
+                    center_coords(self.grid, batch.xy), batch.ts, batch.oid,
+                    batch.valid, device=self.device).arrive()
+                res = jitted(traj_stats_kernel)(xy, ts, oid, valid, nseg)
+                out = self._decode_window(win, events, *telemetry.fetch(
+                    (res.spatial_length, res.temporal_length, res.count)))
+            yield out
 
     def _decode_window(self, win, events, spatial, temporal,
                        count) -> TStatsResult:
@@ -937,10 +950,10 @@ class TStatsQuery(_TrajectoryOperator):
             ts = np.zeros(len(valid), np.int64)
             ts[:win.count] = np.asarray(win.arrays["ts"], np.int64)
             lanes = ship(xy, ts, oid, valid, device=self.device).arrive()
-            res = traj_stats_sorted_fused(*lanes, num_segments)
-            yield (win.start, win.end, res.spatial_length.cpu().numpy(),
-                   res.temporal_length.cpu().numpy(),
-                   res.count.cpu().numpy())
+            res = jitted(traj_stats_sorted_fused)(*lanes, num_segments)
+            spatial, temporal, count = telemetry.fetch(
+                (res.spatial_length, res.temporal_length, res.count))
+            yield (win.start, win.end, spatial, temporal, count)
 
     def _realtime_update(self, win, events) -> TStatsResult:
         stats = {}

@@ -31,8 +31,13 @@ CAP_LADDER_MIN = 8
 
 def wire_pane_bucket(n: int, minimum: int = PANE_BUCKET_MIN) -> int:
     """Bucketed wire-pane capacity (power-of-two ladder above
-    ``minimum``)."""
-    return int(next_bucket(max(int(n), 1), minimum=minimum))
+    ``minimum``), the pick recorded per bucket in telemetry (occupancy
+    drift between panes shows up there as bucket churn)."""
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    b = int(next_bucket(max(int(n), 1), minimum=minimum))
+    telemetry.record_compaction("wire_pane_digest", b, int(n))
+    return b
 
 
 def capacity_ladder(cap: int, minimum: int = CAP_LADDER_MIN

@@ -199,10 +199,15 @@ def wire_word_bucket(w: int, pane_bucket: int,
                      minimum: int = WORD_BUCKET_MIN) -> int:
     """Payload word-count bucket. The rung size is the pane bucket's
     worst-case payload (three 16-bit streams) over ``WORD_LADDER_RUNGS``,
-    so the shipped words stay within ~1/16 of the payload."""
+    so the shipped words stay within ~1/16 of the payload. The pick is
+    recorded per bucket in telemetry, as ``wire_pane_bucket``'s is."""
+    from spatialflink_tpu_torch.telemetry import telemetry
+
     worst = 3 * ((int(pane_bucket) * 16 + 31) >> 5)
     grain = max(int(minimum), -(-worst // WORD_LADDER_RUNGS))
-    return max(int(minimum), -(-int(w) // grain) * grain)
+    b = max(int(minimum), -(-int(w) // grain) * grain)
+    telemetry.record_compaction("wire_codec_words", b, int(w))
+    return b
 
 
 def pad_words(words: np.ndarray, bucket: int) -> np.ndarray:

@@ -23,6 +23,12 @@ from spatialflink_tpu_torch.ops.wire_digest_kernel import (  # noqa: F401
 #: Strategy values per device. "auto" takes the device's own step.
 STRATEGIES = {"cuda": ("auto", "cuda"), "cpu": ("auto", "torch")}
 
+#: Telemetry label of the step per kind: the JAX package's function that
+#: runs the same digest (B1's Pallas step on the accelerator, the XLA step
+#: on the CPU), so an ablation spec or a ledger names it in both packages.
+WIRE_DIGEST_LABELS = {"cuda": "wire_digest_pallas_step",
+                      "torch": "wire_digest_xla"}
+
 
 def digests_agree(seg_a, rep_a, seg_b, rep_b) -> bool:
     """The reference's self-check predicate: identical in-radius object

@@ -20,11 +20,15 @@ policy, operators take their synchronous paths.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Optional
+
+from spatialflink_tpu_torch.faults import faults
+from spatialflink_tpu_torch.telemetry import telemetry
 
 _POLICY_KEYS = {"depth", "fetch_lag", "codec", "codec_strategy"}
 
@@ -142,16 +146,57 @@ class PipelinedExecutor:
       copy the listed windows' results to the host IN ORDER and return
       the values to yield. Mid-stream the list has one element; the
       final drain passes everything still in flight.
+
+    The ship and fetch stages are the ``pipeline.ship`` and
+    ``pipeline.fetch`` fault points. ``spans=True`` wraps each item in a
+    ``window.<label>`` span with ``ship``/``compute``/``fetch`` children;
+    ``node`` tags the per-item work with a telemetry scope;
+    ``e2e_end(item)`` (an item's event-time window end in ms, or None)
+    stamps ``record_e2e`` at the ship, compute and fetch stages. The
+    overload controller's collapse to the synchronous cadence comes with
+    ROADMAP A11.2.
     """
 
     def __init__(self, pol: PipelinePolicy, *,
                  ship: Callable[[Any], Any],
                  compute: Callable[[Any, Any], Any],
-                 fetch: Callable[[List[Any]], Iterable]):
+                 fetch: Callable[[List[Any]], Iterable],
+                 label: str = "pipeline",
+                 spans: bool = False,
+                 node: Optional[str] = None,
+                 e2e_end: Optional[Callable[[Any], Any]] = None):
         self.pol = pol
-        self._ship = ship
-        self._compute = compute
-        self._fetch = fetch
+        self._ship_fn = ship
+        self._compute_fn = compute
+        self._fetch_fn = fetch
+        self.label = label
+        self.spans = spans
+        self.node = node
+        self._e2e_end = e2e_end
+
+    # -- stages (the fault points live here) -----------------------------------
+
+    def _ship(self, item):
+        if faults.armed:  # fault injection point (faults.py)
+            faults.hit("pipeline.ship")
+        return self._ship_fn(item)
+
+    def _fetch(self, works: List[Any]) -> Iterable:
+        if faults.armed:  # fault injection point (faults.py)
+            faults.hit("pipeline.fetch")
+        return self._fetch_fn(works)
+
+    def _stamp_e2e(self, item, stage):
+        """``record_e2e`` stamp when an ``e2e_end`` extractor is set;
+        returns the item's event-time end for the later fetch stamp."""
+        if self._e2e_end is None or not telemetry.enabled:
+            return None
+        end = self._e2e_end(item)
+        if end is not None:
+            telemetry.record_e2e(end, stage)
+        return end
+
+    # -- the loop --------------------------------------------------------------
 
     def run(self, items: Iterable) -> Iterator:
         """Drive ``items`` through the three stages; yield fetch results
@@ -159,37 +204,66 @@ class PipelinedExecutor:
         ``fetch_lag`` and the ship-ahead never exceeds ``depth``."""
         shipped: deque = deque()
         inflight: deque = deque()
+        ends: deque = deque()  # event-time ends aligned with inflight
         it = iter(items)
         exhausted = False
         depth = max(1, int(self.pol.depth))
         lag = max(0, int(self.pol.fetch_lag))
 
-        def refill():
+        def refill(n: int):
             nonlocal exhausted
-            while not exhausted and len(shipped) < depth:
+            while not exhausted and len(shipped) < n:
                 try:
                     item = next(it)
                 except StopIteration:
                     exhausted = True
                     break
                 shipped.append((item, self._ship(item)))
+                self._stamp_e2e(item, "ship")
 
+        def maybe_span(name: str):
+            return (telemetry.span(name) if self.spans
+                    else contextlib.nullcontext())
+
+        # Prime the ship-ahead once, outside any window span; afterwards
+        # each item tops it up INSIDE its window span.
+        refill(depth)
         while True:
-            refill()
             if not shipped:
-                break
-            item, staged = shipped.popleft()
-            work = self._compute(item, staged)
-            del staged  # the one compute owns it
-            if work is not None:
-                inflight.append(work)
+                refill(1)  # depth-1 cadence: probe for the next item
+                if not shipped:
+                    break
             out: list = []
-            while len(inflight) > lag:
-                out.extend(self._fetch([inflight.popleft()]))
+            # The scope covers the item's work only, never a yield.
+            with telemetry.scope(self.node), \
+                    maybe_span(f"window.{self.label}"):
+                with maybe_span("ship"):
+                    refill(depth)
+                item, staged = shipped.popleft()
+                with maybe_span("compute"):
+                    work = self._compute_fn(item, staged)
+                del staged  # the one compute owns it
+                if work is not None:
+                    inflight.append(work)
+                    ends.append(self._stamp_e2e(item, "compute"))
+                    if telemetry.enabled:
+                        telemetry.record_pipeline(windows=1, overlapped=1)
+                while len(inflight) > lag:
+                    with maybe_span("fetch"):
+                        out.extend(self._fetch([inflight.popleft()]))
+                    end = ends.popleft()
+                    if end is not None and telemetry.enabled:
+                        telemetry.record_e2e(end, "fetch")
             yield from out
         if inflight:  # final drain: one wait for the whole tail
-            tail = list(self._fetch(list(inflight)))
+            with telemetry.scope(self.node):
+                tail = list(self._fetch(list(inflight)))
+                if telemetry.enabled:
+                    for end in ends:
+                        if end is not None:
+                            telemetry.record_e2e(end, "fetch")
             inflight.clear()
+            ends.clear()
             yield from tail
 
 

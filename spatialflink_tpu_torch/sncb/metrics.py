@@ -4,10 +4,10 @@ Rows: ``seconds,count,bytesMB,eps,throughputMBps,avgLatencyMs`` per
 reporting interval, where latency = now − event/window timestamp.
 ``include_opcounters=True`` appends a ``distComp`` column fed by the
 kernel-level counter registry (ops/counters.py — the Point.java:220-235
-distance-computation analog), off by default to preserve the
-reference's exact column set. ``include_telemetry=True`` (the JAX
-package's ``wmLagMs,lateDrops`` columns) raises ``NotImplementedError``
-until the runtime telemetry layer is ported (ROADMAP A11.1).
+distance-computation analog); ``include_telemetry=True`` appends
+``wmLagMs,lateDrops`` fed by the runtime telemetry layer (telemetry.py:
+the max watermark lag gauge and the per-interval late-drop delta). Both
+off by default to preserve the reference's exact column set.
 """
 
 from __future__ import annotations
@@ -35,11 +35,9 @@ class MetricsSink:
         self.interval_s = interval_s
         self.bytes_per_record = bytes_per_record
         self.include_opcounters = include_opcounters
-        if include_telemetry:
-            raise NotImplementedError(
-                "include_telemetry (the runtime telemetry columns) is not "
-                "ported yet: ROADMAP A11.1")
+        self.include_telemetry = include_telemetry
         self._last_dist_comp = 0
+        self._last_late_drops = 0
         if include_opcounters:
             self.HEADER = self.HEADER + ",distComp"
             # Baseline at construction: earlier runs' tallies must not leak
@@ -47,6 +45,11 @@ class MetricsSink:
             from spatialflink_tpu_torch.ops.counters import counters as opcounters
 
             self._last_dist_comp = opcounters.dist_computations
+        if include_telemetry:
+            self.HEADER = self.HEADER + ",wmLagMs,lateDrops"
+            from spatialflink_tpu_torch.telemetry import telemetry
+
+            self._last_late_drops = telemetry.late_drops
         self._t0 = time.time()
         self._interval_start = self._t0
         self._count = 0
@@ -85,6 +88,17 @@ class MetricsSink:
             total = opcounters.dist_computations
             row += f",{total - self._last_dist_comp}"
             self._last_dist_comp = total
+        if self.include_telemetry:
+            from spatialflink_tpu_torch.telemetry import telemetry
+
+            late = telemetry.late_drops
+            if late < self._last_late_drops:
+                # telemetry.enable() reset the gauge mid-run: re-baseline
+                # instead of printing a negative delta.
+                self._last_late_drops = 0
+            row += (f",{telemetry.max_watermark_lag_ms},"
+                    f"{late - self._last_late_drops}")
+            self._last_late_drops = late
         self.rows.append(row)
         if self._f:
             self._f.write(row + "\n")

@@ -21,6 +21,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from spatialflink_tpu_torch.faults import faults
+from spatialflink_tpu_torch.telemetry import telemetry
+
 
 def earliest_window_of(ts_val: int, size: int, slide: int) -> int:
     """Start of the earliest sliding window containing ``ts_val``."""
@@ -60,6 +63,8 @@ class _SlidingAssemblerBase:
 
     def feed(self, chunk):
         """Add one chunk; return the windows that fire."""
+        if faults.armed:  # fault injection point (faults.py)
+            faults.hit("soa.feed")
         ts = self._ingest(chunk)
         if ts is None or len(ts) == 0:
             return []
@@ -77,28 +82,36 @@ class _SlidingAssemblerBase:
         """End of stream: fire everything up to the last event."""
         if self._max_ts is None:
             return []
-        return self._fire(self._max_ts + self.size + 1)
+        # record_lag=False: the flush watermark is artificial (max_ts +
+        # size + 1), not a late watermark, and must not feed the gauge.
+        return self._fire(self._max_ts + self.size + 1, record_lag=False)
 
     def stream(self, chunks):
         for c in chunks:
             yield from self.feed(c)
         yield from self.flush()
 
-    def _fire(self, wm: int):
+    def _fire(self, wm: int, record_lag: bool = True):
         out = []
         if self._next_start is None or self._next_start + self.size > wm:
             return out
         ts = self._consolidate()
         # Events older than the earliest live window start are late beyond
         # every remaining window: count (eviction below trims them).
-        self.dropped_late += int(np.searchsorted(ts, self._next_start,
-                                                 side="left"))
+        late = int(np.searchsorted(ts, self._next_start, side="left"))
+        if late:
+            self.dropped_late += late
+            telemetry.record_late_drop(late)
         while self._next_start + self.size <= wm:
             s, e = self._next_start, self._next_start + self.size
             lo = int(np.searchsorted(ts, s, side="left"))
             hi = int(np.searchsorted(ts, e, side="left"))
             if hi > lo:
                 out.append(self._window(s, e, lo, hi))
+                if record_lag:
+                    # Event-time ms between window end and the watermark
+                    # that fired it.
+                    telemetry.record_watermark_lag(wm - e)
                 self._next_start += self.slide
             elif lo < len(ts):
                 # Empty window: jump to the earliest window holding the

@@ -14,6 +14,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Generic, Iterable, Iterator, List, Optional, TypeVar
 
+from spatialflink_tpu_torch.faults import faults
+from spatialflink_tpu_torch.telemetry import telemetry
+
 T = TypeVar("T")
 
 
@@ -113,6 +116,8 @@ class WindowAssembler(Generic[T]):
 
     def feed(self, event: T) -> List[WindowBatch[T]]:
         """Add one event; return any windows that fire as a result."""
+        if faults.armed:  # fault injection point (faults.py)
+            faults.hit("window.feed")
         ts = int(self.timestamp_fn(event))
         if self._max_ts is None or ts > self._max_ts:
             self._max_ts = ts
@@ -133,6 +138,7 @@ class WindowAssembler(Generic[T]):
             # Dropped only when every window of the event is past the
             # lateness horizon.
             self.dropped_late += 1
+            telemetry.record_late_drop()
 
         fired.extend(self._advance(wm))
         return fired
@@ -144,6 +150,9 @@ class WindowAssembler(Generic[T]):
                 fired.append(WindowBatch(spec.start, spec.end,
                                          list(self._buffers[spec])))
                 self._fired[spec] = True
+                # Watermark lag: event-time ms between window end and the
+                # watermark that fired it.
+                telemetry.record_watermark_lag(wm - spec.end)
         # Forget windows past the lateness horizon (feed() already blocks
         # their re-entry).
         for spec in [s for s in self._buffers if s.end + self.lateness <= wm]:

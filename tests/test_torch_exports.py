@@ -103,7 +103,9 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.sncb, spatialflink_tpu_torch.mn, "
         "spatialflink_tpu_torch.sncb.runners, "
         "spatialflink_tpu_torch.sncb.mobility, "
-        "spatialflink_tpu_torch.mn.queries\n"
+        "spatialflink_tpu_torch.mn.queries, "
+        "spatialflink_tpu_torch.telemetry, spatialflink_tpu_torch.faults, "
+        "spatialflink_tpu_torch.ablation\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

@@ -1038,3 +1038,177 @@ def test_op_counters_on_card_equal_cpu():
     assert snaps[0] == snaps[1] and snaps[0]["dist_computations"] > 0
     assert snaps[0]["windows"] == 9
     assert off["windows"] == off["dist_computations"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The runtime layer (telemetry, faults, ablation) on the card
+
+
+def _runtime_paths(dev):
+    """B1 (``run_wire_panes`` sync), B1 + B2 (pipelined, delta codec), B3
+    (``PointPointJoinQuery.run_soa``) and B4
+    (``PointPolygonRangeQuery.run_soa``, the pruned path) on ``dev``,
+    small; returns each path's windows as host arrays."""
+    from spatialflink_tpu_torch import pipeline
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        PointPointKNNQuery,
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.streams.wire import WireFormat, wire_panes
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    wf = WireFormat.for_grid(grid)
+    rng = np.random.default_rng(9)
+    n = 20_000
+    ch = {"ts": np.sort(rng.integers(0, 4000, n)).astype(np.int64),
+          "x": rng.uniform(115.5, 117.6, n), "y": rng.uniform(39.6, 41.1, n),
+          "oid": rng.integers(0, 256, n)}
+    panes = list(wire_panes([ch], wf, 1000, 0))
+    q = Point(x=116.4, y=40.19)
+    out = {}
+    for mode, pol in (("sync", None), ("delta", pipeline.PipelinePolicy(
+            depth=2, fetch_lag=1, codec="delta"))):
+        pipeline.uninstall()
+        if pol is not None:
+            pipeline.install(pol)
+        try:
+            op = PointPointKNNQuery(QueryConfiguration(window_size=2.0,
+                                                       slide_step=1.0),
+                                    grid, device=dev)
+            out[mode] = [w[2:4] for w in op.run_wire_panes(
+                panes, q, 0.5, 5, 256, wf)]
+        finally:
+            pipeline.uninstall()
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    pts = [{"ts": (np.arange(n, dtype=np.int64) * 3000) // n,
+            "x": r.uniform(115.5, 117.6, n), "y": r.uniform(39.6, 41.1, n)}
+           for r in (np.random.default_rng(s) for s in (1, 2))]
+    out["join"] = [w[2:5] for w in PointPointJoinQuery(
+        conf, grid, cap=48, device=dev).run_soa([pts[0]], [pts[1]], 0.002)]
+    polys = generate_query_polygons(100, 115.5, 39.6, 117.6, 41.1,
+                                    grid_size=100, seed=3)
+    out["range"] = [w[3] for w in PointPolygonRangeQuery(
+        conf, grid, device=dev).run_soa([pts[0]], polys, 0.002)]
+    return out
+
+
+def _same_windows(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert len(a[k]) == len(b[k]) > 0, k
+        for wa, wb in zip(a[k], b[k]):
+            wa = wa if isinstance(wa, tuple) else (wa,)
+            wb = wb if isinstance(wb, tuple) else (wb,)
+            for x, y in zip(wa, wb):
+                assert np.array_equal(np.asarray(x).view(np.uint8),
+                                      np.asarray(y).view(np.uint8)), k
+
+
+@pytest.mark.cuda
+def test_kernels_bit_equal_with_telemetry_on_and_off_on_card(tmp_path):
+    """B1-B4 through their instrumented wrappers: every window bit-equal
+    with telemetry off and on (trace and ledger stream written), each
+    kernel launched, and the dispatch table naming the JAX labels."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops import wire_codec as wc
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    off = _runtime_paths(dev)
+    counts = (wire_digest, wc.decode_wire_pane, join_extract,
+              polyline_min_dist)
+    for c in counts:
+        c.launches = 0
+    telemetry.enable(trace_path=str(tmp_path / "t.jsonl"),
+                     stream_path=str(tmp_path / "s.jsonl"))
+    try:
+        on = _runtime_paths(dev)
+        labels = {r["kernel"] for r in telemetry.kernel_table()}
+        d2h = telemetry.d2h_transfers
+    finally:
+        telemetry.disable()
+    _same_windows(off, on)
+    assert all(c.launches > 0 for c in counts)
+    assert {"wire_digest_pallas_step", "wire_pane_decode",
+            "join_window_pallas", "knn_merge_digest_list"} <= labels
+    assert labels & {"range_polygons_pruned_fused",
+                     "range_polygons_pruned_compact_fused"}
+    assert d2h > 0
+
+
+@pytest.mark.cuda
+def test_ablated_kernel_returns_zeros_on_card():
+    """An armed label returns zeros of the kernel's structure on the card
+    after one learning call (the real B1 launch), and nothing launches
+    after it."""
+    dev = _card()
+    from spatialflink_tpu_torch.ablation import ablation
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import (
+        wire_digest,
+        wire_digest_cuda,
+    )
+    from spatialflink_tpu_torch.telemetry import instrument_jit
+
+    rng = np.random.default_rng(5)
+    wire_np = rng.integers(0, 65536, (3, 4096)).astype(np.uint16)
+    wire_np[2] %= NSEG
+    wire = torch.from_numpy(wire_np).to(dev)
+    consts = (np.float32([0.5, 0.5]), np.float32([1e-5, 1e-5]),
+              np.float32([0.0, 0.0]), np.float32(0.3))
+    f = instrument_jit(lambda w: wire_digest(w, 4000, *consts, NSEG)[0],
+                       name="b1")
+    real = wire_digest_cuda(wire, 4000, *consts, NSEG)[0]
+    ablation.arm(["b1"])
+    try:
+        learned = f(wire)
+        wire_digest.launches = 0
+        zero = f(wire)
+        launched = wire_digest.launches
+    finally:
+        ablation.disarm()
+    assert torch.equal(learned.seg_min, real.seg_min)
+    assert launched == 0
+    for z, r in zip(zero, real):
+        assert z.device == r.device and z.dtype == r.dtype
+        assert z.shape == r.shape and not bool(z.any())
+
+
+@pytest.mark.cuda
+def test_device_dispatch_fires_before_the_kernel_launch_on_card():
+    """``device.dispatch`` raises inside the instrumented wrapper before
+    the hand kernel is launched (B3's launch count does not move), and a
+    rerun after ``disarm()`` launches it."""
+    dev = _card()
+    from spatialflink_tpu_torch.faults import InjectedFault, faults
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    r = np.random.default_rng(4)
+    n = 8000
+    ch = [{"ts": (np.arange(n, dtype=np.int64) * 1000) // n,
+           "x": r.uniform(115.5, 117.6, n), "y": r.uniform(39.6, 41.1, n)}]
+    join_extract.launches = 0
+    faults.arm([{"point": "device.dispatch", "at": 1}])
+    try:
+        with pytest.raises(InjectedFault):
+            list(PointPointJoinQuery(conf, grid, device=dev).run_soa(
+                ch, ch, 0.002))
+        assert join_extract.launches == 0
+    finally:
+        faults.disarm()
+    assert list(PointPointJoinQuery(conf, grid, device=dev).run_soa(
+        ch, ch, 0.002))
+    assert join_extract.launches > 0

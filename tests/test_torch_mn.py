@@ -7,8 +7,8 @@ test runs), and the outputs must be equal, in order. Wall-clock values
 are held to their format, not their value: ingest stamps, latencies and
 their histogram, and the NES reporter's rates and timestamps (the
 instrumented queries' result files, counters and the reporter's counter
-fields are equal). The JAX sinks also register the runtime telemetry
-gauges, which the port adds with its telemetry layer (ROADMAP A11.1).
+fields are equal). Both packages' sinks also register the runtime
+telemetry gauges (their parity is in ``tests/test_torch_telemetry.py``).
 """
 
 import json
@@ -35,7 +35,7 @@ JAX = SimpleNamespace(mn=jmn, metrics=jmetrics, q=jqueries, oc=jcounters,
                       dev={})
 PORT = SimpleNamespace(mn=tmn, metrics=tmetrics, q=tqueries, oc=tcounters,
                        dev={"device": "cpu"})
-# Registry keys the JAX sinks add from its telemetry layer.
+# Registry keys the sinks add from the telemetry layer.
 TELEMETRY_GAUGES = {"watermark_lag_ms_max", "late_dropped_total",
                     "telemetry_compiles_total", "h2d_bytes_total",
                     "d2h_bytes_total", "compaction_buckets_total"}
@@ -61,7 +61,7 @@ def _csv_lines(n=3000, near_every=3):
 
 def _counter_metrics(metrics):
     """The registry snapshot without wall-clock values: latency sums,
-    buckets and percentiles, and the JAX-only telemetry gauges."""
+    buckets and percentiles, and the telemetry gauges."""
     return {k: v for k, v in metrics.items()
             if k not in TELEMETRY_GAUGES and not (
                 k.startswith("latency_") and k != "latency_count")}
@@ -284,7 +284,12 @@ def test_reporter_appends_the_port_counters(tmp_path):
 
 
 def test_unported_telemetry_column_raises():
+    """The telemetry columns, once unported (a raise), now exist: the
+    header gains ``wmLagMs,lateDrops`` as the JAX sink's does (their
+    values' parity is in ``tests/test_torch_telemetry.py``)."""
+    from spatialflink_tpu.sncb.metrics import MetricsSink as JaxSink
     from spatialflink_tpu_torch.sncb.metrics import MetricsSink
 
-    with pytest.raises(NotImplementedError, match="A11.1"):
-        MetricsSink("t", include_telemetry=True)
+    sink = MetricsSink("t", include_telemetry=True)
+    assert sink.HEADER == JaxSink("t", include_telemetry=True).HEADER
+    assert sink.HEADER.endswith(",wmLagMs,lateDrops")
