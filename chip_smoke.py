@@ -8,6 +8,7 @@ NVIDIA card.
     python3 chip_smoke.py --ingest-only       # phases 1-2 and 27-28
     python3 chip_smoke.py --domain-only       # phases 1-2 and 29-30
     python3 chip_smoke.py --runtime-only      # phases 1-2 and 31
+    python3 chip_smoke.py --driver-only       # phases 1-2 and 32
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -278,6 +279,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    snapshot tainted, the TAINTED rates, timed with telemetry off, beside
    the baseline, a disarmed rerun bit-equal); ``LinkProbe`` latency and
    round-trip rate.
+32. the dataflow driver (``driver.py``), checkpoints and exactly-once
+   egress on the card: (a) ``PointPolygonRangeQuery.run(driver=)`` at
+   config 3's width (262,144 points a window with the suite stream's
+   16,384 objIDs, 1,000 polygons, r = 0.002; 2 of its 10 windows, a cut
+   of depth) through B4 into a ``TransactionalFileSink``, checkpointed
+   every window: clean with telemetry on (each commit's ms and
+   checkpoint bytes, the e2e stage percentiles), a child process killed
+   by a ``sink.write`` abort at commit 2 and a second child that resumes
+   (its ms to the first result), and the same run on the CPU, the three
+   egress files byte-identical; (b) ``PointPointJoinQuery.run(driver=)``
+   WindowBased through B3 at phase 9's 2 x 20,000 Points a side with
+   ``driver.window`` failing twice under a retry budget of 2 (windows
+   equal the unarmed run, 2 retries), then three times with failover on
+   (it raises: the grid join has no twin); (c)
+   ``PointPointKNNQuery.run(driver=)`` with a point query at phase 15's
+   3 x 200,000 Points, ``device.dispatch`` dead from window 2: backend
+   ``fallback``, one failover in the stats and the trace, the windows'
+   ordered winners equal to the clean card run and distances within rtol
+   3e-7; (d) the headline ``run_wire_panes`` through B1 stopped after
+   pane 10, checkpointed (bytes and ms), restored into a card operator
+   and a CPU operator, each continuation bit-equal to the uninterrupted
+   synchronous windows; (e) ``python -m spatialflink_tpu_torch.driver
+   --chaos-smoke`` on the card, exit 0.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -5273,6 +5297,455 @@ def check_runtime(card, panes, wf, gpu="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: checkpoints, exactly-once sinks and the dataflow driver.
+
+DRV_WINDOWS = 2          # range kill → resume: config 3's 10 windows, cut
+DRV_KILL_AT = 2          # the sink.write commit the kill child aborts at
+DRV_IDS = 16_384         # the suite stream's objIDs (bench_suite.py:52)
+DRV_JOIN_RETRIES = 2     # the join's retry budget, and the armed failures
+DRV_KNN_FAIL_AT = 2      # the device.dispatch hit the kNN device path dies at
+DRV_WIRE_CUT = 10        # headline panes before the carry's checkpoint
+
+
+def driver_range_stream(n_win=None):
+    """Config 3's stream as ``Point`` objects: bench_suite.py:47-54's
+    positions and objIDs from seed 7, one-second tumbling windows of
+    ``RANGE_WIN`` points."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    n = (DRV_WINDOWS if n_win is None else n_win) * RANGE_WIN
+    rng = np.random.default_rng(7)
+    xy = np.stack([rng.uniform(115.5, 117.6, n),
+                   rng.uniform(39.6, 41.1, n)], axis=1).astype(np.float32)
+    oid = rng.integers(0, DRV_IDS, n)
+    ts = (np.arange(n, dtype=np.int64) * 1000) // RANGE_WIN
+    return [Point(obj_id=f"o{o}", timestamp=int(t), x=float(x), y=float(y))
+            for o, t, (x, y) in zip(oid.tolist(), ts.tolist(),
+                                    xy.astype(np.float64).tolist())]
+
+
+def driver_range_leg(device, workdir, stream, queries):
+    """``PointPolygonRangeQuery.run(driver=)`` at config 3 into a
+    transactional sink of ``render_range_result`` lines, checkpointed
+    every window under ``workdir`` (resumed when a checkpoint is there).
+    Returns (egress bytes, {commits: [(ms, checkpoint bytes)], first
+    result ms, run s, windows, resumed})."""
+    import os
+
+    import torch
+
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+        render_range_result,
+    )
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.streams.sinks import TransactionalFileSink
+
+    commits = []
+
+    class TimedDriver(WindowedDataflowDriver):
+        def _commit(self, final=False):
+            t0 = time.perf_counter()
+            super()._commit(final)
+            commits.append(((time.perf_counter() - t0) * 1e3,
+                            os.path.getsize(self.checkpoint_path)))
+
+    path = os.path.join(workdir, "egress.csv")
+    sink = TransactionalFileSink(path)
+    drv = TimedDriver(
+        checkpoint_path=os.path.join(workdir, "ckpt.bin"),
+        checkpoint_every=1, sink=sink,
+        retry=RetryPolicy(max_retries=0, backoff_s=0.0), failover=False)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    op = PointPolygonRangeQuery(conf, UniformGrid(**BEIJING), device=device)
+    first = None
+    t0 = time.perf_counter()
+    for res in op.run(iter(stream), queries, RANGE_R, driver=drv):
+        if first is None:
+            first = (time.perf_counter() - t0) * 1e3
+        for line in render_range_result(res):
+            sink.stage(line)
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        egress = f.read()
+    return egress, {"commits": commits, "first_result_ms": first,
+                    "run_s": secs, "windows": drv.stats["windows"],
+                    "resumed": drv.stats["resumed"]}
+
+
+def driver_child(workdir) -> int:
+    """One child of phase 32a on the card (``--driver-child DIR``): the
+    range leg, killed by an armed ``SFT_FAULT_PLAN`` or resumed from the
+    checkpoint under ``workdir``. Prints one JSON line of its numbers."""
+    import torch
+
+    from spatialflink_tpu_torch import kernels
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+
+    t_start = time.perf_counter()
+    kernels.build()  # loads the built libraries; never a first-window build
+    stream = driver_range_stream()
+    polyline_min_dist.launches = 0
+    _, info = driver_range_leg(torch.device("cuda", 0), workdir, stream,
+                               range_polygons())
+    info["from_start_s"] = time.perf_counter() - t_start
+    info["launches"] = polyline_min_dist.launches
+    print(json.dumps(info))
+    return 0
+
+
+def driver_children(workdir, card):
+    """Phase 32a (ii): a child armed to abort at the sink's commit
+    ``DRV_KILL_AT``, then a child that resumes; returns the egress bytes
+    and the resume child's numbers."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SFT_FAULT_PLAN", "SFT_PIPELINE",
+                        "SFT_LEDGER_STREAM")}
+    cmd = [sys.executable, __file__, "--driver-child", workdir]
+    kill = subprocess.run(cmd, env={**env, "SFT_FAULT_PLAN": json.dumps(
+        [{"point": "sink.write", "kind": "abort", "at": DRV_KILL_AT}])},
+        capture_output=True, text=True, timeout=300)
+    if kill.returncode != 137:
+        raise AssertionError(f"32a: the kill child exited {kill.returncode},"
+                             f" not 137\n{kill.stderr[-2000:]}")
+    with open(os.path.join(workdir, "egress.csv"), "rb") as f:
+        torn = f.read()
+    resume = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                            timeout=300)
+    if resume.returncode != 0:
+        raise AssertionError(f"32a: the resume child failed\n"
+                             f"{resume.stderr[-2000:]}")
+    info = json.loads(resume.stdout.strip().splitlines()[-1])
+    with open(os.path.join(workdir, "egress.csv"), "rb") as f:
+        return torn, f.read(), info
+
+
+def start_chaos_smoke():
+    """Phase 32e: ``python -m spatialflink_tpu_torch.driver
+    --chaos-smoke`` (three child processes on the card), started in the
+    background from the checkout's root; ``communicate()`` collects it."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SFT_FAULT_PLAN", "SFT_PIPELINE")}
+    return subprocess.Popen(
+        [sys.executable, "-m", "spatialflink_tpu_torch.driver",
+         "--chaos-smoke"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def check_driver(card, panes, wf, gpu="cuda"):
+    """Phase 32: the dataflow driver, checkpoints and exactly-once egress
+    on the card. Returns each kernel's launches over the phase's main
+    runs. ``gpu="cpu"`` rehearses it on the CPU (the launch checks then
+    need the plain versions wrapped to count)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch.checkpoint import (
+        load_checkpoint,
+        operator_state,
+        restore_operator,
+        save_checkpoint,
+    )
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+    )
+    from spatialflink_tpu_torch.faults import InjectedFault, faults
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    dev = torch.device(gpu)
+    cpu = torch.device("cpu")
+    launches = {}
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="sft_driver_")
+
+    # 32d: the headline carry through B1, checkpointed after pane
+    # DRV_WIRE_CUT and resumed on the card and on the CPU.
+    t_phase = t0 = time.perf_counter()
+    whole, _, _ = run_path(gpu, "sync", panes, wf)
+    wconf = QueryConfiguration(window_size=2.0, slide_step=1.0)
+    q = Point(x=QUERY[0], y=QUERY[1])
+
+    def wire_run(op, part, flush=True):
+        return list(op.run_wire_panes(part, q, RADIUS, K, NUM_SEGMENTS, wf,
+                                      flush_at_end=flush))
+
+    wire_digest.launches = 0
+    first_op = PointPointKNNQuery(wconf, UniformGrid(**BEIJING), device=dev)
+    head = wire_run(first_op, panes[:DRV_WIRE_CUT], flush=False)
+    path = os.path.join(tmp, "wire.ckpt")
+    t_ck = time.perf_counter()
+    save_checkpoint(path, op=operator_state(first_op))
+    ck_ms = (time.perf_counter() - t_ck) * 1e3
+    ck_bytes = os.path.getsize(path)
+    conts = {}
+    for label, device in (("card", dev), ("CPU", cpu)):
+        op = PointPointKNNQuery(wconf, UniformGrid(**BEIJING), device=device)
+        t_r = time.perf_counter()
+        restore_operator(op, load_checkpoint(path)["op"])
+        restore_ms = (time.perf_counter() - t_r) * 1e3
+        conts[label] = (wire_run(op, panes[DRV_WIRE_CUT:]), restore_ms)
+    launches["wire_digest"] = wire_digest.launches
+    for label, (rest, _) in conts.items():
+        check_windows(head + rest, whole, f"32d {label} continuation")
+    if launches["wire_digest"] < len(panes):
+        raise AssertionError(f"32d: {launches['wire_digest']} B1 launches")
+    print(f"driver headline carry (run_wire_panes, {len(panes)} panes of "
+          f"{SLIDE}): stopped after pane {DRV_WIRE_CUT} ({len(head)} "
+          f"windows), checkpoint {ck_bytes} B in {ck_ms:.3f} ms (the digest "
+          f"ring pulled from the card, framed, fsync'd), restored in "
+          f"{conts['card'][1]:.3f} ms on the card and "
+          f"{conts['CPU'][1]:.3f} ms on the CPU; both continuations "
+          f"bit-equal to the uninterrupted synchronous windows; launches "
+          f"wire_digest={launches['wire_digest']} [{card}]")
+    walls["d"] = time.perf_counter() - t0
+
+    # 32a: range through B4, clean → killed and resumed → on the CPU.
+    t0 = time.perf_counter()
+    stream = driver_range_stream()
+    queries = range_polygons()
+    print(f"data: {len(stream)} Point objects (config 3, {DRV_WINDOWS} "
+          f"windows of {RANGE_WIN}) in {time.perf_counter() - t0:.3f} s "
+          f"(host set-up)")
+    dirs = {k: os.path.join(tmp, k) for k in ("clean", "chaos", "cpu")}
+    for d in dirs.values():
+        os.makedirs(d)
+    telemetry.enable()
+    polyline_min_dist.launches = 0
+    clean, info = driver_range_leg(dev, dirs["clean"], stream, queries)
+    launches["polyline_min_dist"] = polyline_min_dist.launches
+    stages = {s: telemetry.e2e_stage_percentiles(s)
+              for s in ("assemble", "compute", "commit")}
+    telemetry.disable()
+    if launches["polyline_min_dist"] < DRV_WINDOWS:
+        raise AssertionError(f"32a: {launches['polyline_min_dist']} B4 "
+                             f"launches over {DRV_WINDOWS} windows")
+    lines = clean.count(b"\n")
+    if lines < DRV_WINDOWS or info["windows"] != DRV_WINDOWS:
+        raise AssertionError(f"32a: {lines} egress lines, "
+                             f"{info['windows']} windows")
+    if gpu == "cuda":
+        torn, resumed, rinfo = driver_children(dirs["chaos"], card)
+    else:  # the rehearsal: the kill in process, the resume in process
+        faults.arm([{"point": "sink.write", "at": DRV_KILL_AT,
+                     "times": 10_000}])
+        try:
+            driver_range_leg(dev, dirs["chaos"], stream, queries)
+            raise AssertionError("32a: the armed leg was not killed")
+        except InjectedFault:
+            pass
+        finally:
+            faults.disarm()
+        with open(os.path.join(dirs["chaos"], "egress.csv"), "rb") as f:
+            torn = f.read()
+        resumed, rinfo = driver_range_leg(dev, dirs["chaos"], stream,
+                                          queries)
+        rinfo["from_start_s"] = rinfo["run_s"]
+    # 32e runs beside the CPU run of 32a, 32b and 32c, whose times are
+    # not reported: three processes that wait mostly on their start.
+    smoke = start_chaos_smoke() if gpu == "cuda" else None
+    t_smoke = time.perf_counter()
+    try:
+        t_cpu = time.perf_counter()
+        on_cpu, _ = driver_range_leg(cpu, dirs["cpu"], stream, queries)
+        cpu_secs = time.perf_counter() - t_cpu
+        if not (len(torn) < len(clean) and resumed == clean == on_cpu):
+            raise AssertionError(
+                f"32a: egress differs: clean {len(clean)} B, killed "
+                f"{len(torn)} B, resumed {len(resumed)} B, CPU "
+                f"{len(on_cpu)} B")
+        if not rinfo["resumed"]:
+            raise AssertionError("32a: the resume child did not resume")
+        commit_txt = ", ".join(f"{ms:.3f} ms / {nb} B" for ms, nb in
+                               info["commits"])
+        resume_txt = ", ".join(f"{ms:.3f} ms / {nb} B" for ms, nb in
+                               rinfo["commits"])
+        stage_txt = ", ".join(
+            f"{s} p50 {p50:g} / p99 {p99:g} ms"
+            for s, (p50, p99) in stages.items())
+        print(f"driver range (PointPolygonRangeQuery.run, config 3: "
+              f"{DRV_WINDOWS}"
+              f" x {RANGE_WIN} Points, {RANGE_POLYS} polygons, r={RANGE_R}, "
+              f"checkpoint_every=1): {lines} egress lines, {len(clean)} B in "
+              f"{info['run_s']:.3f} s; launches polyline_min_dist="
+              f"{launches['polyline_min_dist']}; commits (sink append + "
+              f"snapshot + framed write): {commit_txt}; killed at commit "
+              f"{DRV_KILL_AT} ({len(torn)} B committed), resumed by a second "
+              f"process: first result {rinfo['first_result_ms']:.3f} ms after "
+              f"run() (checkpoint load, skip, window), "
+              f"{rinfo['from_start_s']:.3f} s from the process's start, its "
+              f"commits {resume_txt}; "
+              f"egress byte-identical to the clean run and to the CPU run "
+              f"({cpu_secs:.3f} s on the host CPU) [{card}]")
+        print(f"driver e2e stages (clean run, telemetry on; "
+              f"telemetry.e2e_stage_percentiles, NES histogram buckets, "
+              f"{DRV_WINDOWS} windows): {stage_txt} [{card}]")
+        walls["a"] = time.perf_counter() - t0
+
+        # 32b: the join through B3, WindowBased: retry, then no twin.
+        t0 = time.perf_counter()
+        streams = join_objects()
+        conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+
+        def join_run(driver=None, plan=None):
+            op = PointPointJoinQuery(conf, UniformGrid(**BEIJING),
+                                     cap=JOIN_CAP,
+                                     device=dev)
+            if plan:
+                faults.arm(plan)
+            try:
+                return [(r.start, r.end, r.overflow,
+                         [(p.obj_id, q.obj_id,
+                           int(np.float32(d).view(np.uint32)))
+                          for p, q, d in r.pairs])
+                        for r in op.run(streams[0], streams[1], JOIN_R,
+                                        driver=driver)]
+            finally:
+                faults.disarm()
+
+        base = join_run()
+        join_extract.launches = 0
+        drv = WindowedDataflowDriver(retry=RetryPolicy(
+            max_retries=DRV_JOIN_RETRIES, backoff_s=0.0))
+        retried = join_run(drv, [{"point": "driver.window", "at": 2,
+                                  "times": DRV_JOIN_RETRIES}])
+        launches["join_extract"] = join_extract.launches
+        if retried != base or not base or \
+                drv.stats["retries"] != DRV_JOIN_RETRIES or \
+                drv.backend != "device":
+            raise AssertionError(f"32b: retried join differs or miscounted "
+                                 f"({drv.stats})")
+        if launches["join_extract"] < JOIN_OBJ_WINDOWS:
+            raise AssertionError(
+                f"32b: {launches['join_extract']} B3 launches")
+        drv2 = WindowedDataflowDriver(retry=RetryPolicy(
+            max_retries=DRV_JOIN_RETRIES, backoff_s=0.0), failover=True)
+        try:
+            join_run(drv2, [{"point": "driver.window", "at": 1,
+                             "times": DRV_JOIN_RETRIES + 1}])
+            raise AssertionError("32b: the bucketed join degraded")
+        except InjectedFault:
+            pass
+        if drv2.stats["failovers"] != 0:
+            raise AssertionError("32b: the bucketed join failed over")
+        print(f"driver join retry (PointPointJoinQuery.run, WindowBased, "
+              f"{JOIN_OBJ_WINDOWS} x {JOIN_OBJ_POINTS} Points a side): "
+              f"driver.window failing {DRV_JOIN_RETRIES} times, "
+              f"{drv.stats['retries']} retries, windows equal the unarmed "
+              f"run; "
+              f"launches join_extract={launches['join_extract']}; failing "
+              f"{DRV_JOIN_RETRIES + 1} times with failover on: raised, "
+              f"{drv2.stats['failovers']} failovers (no twin) [{card}]")
+        walls["b"] = time.perf_counter() - t0
+
+        # 32c: kNN failover at config 2's rate, device.dispatch dead from
+        # window 2 on.
+        t0 = time.perf_counter()
+        kstream = knn_points(KNN_RUN_WINDOWS, KNN_RUN_WIN, 5)  # phase 15's
+        query = knn_query("point")
+
+        def knn_run(driver=None):
+            op = PointPointKNNQuery(conf, UniformGrid(**BEIJING), device=dev)
+            return list(op.run(iter(kstream), query, KNN_RUN_R, KNN_RUN_K,
+                               driver=driver))
+
+        want = knn_run()
+        telemetry.enable()
+        drv3 = WindowedDataflowDriver(retry=RetryPolicy(max_retries=0,
+                                                        backoff_s=0.0))
+        faults.arm([{"point": "device.dispatch", "at": DRV_KNN_FAIL_AT,
+                     "times": 10**9}])
+        try:
+            got = knn_run(drv3)
+        finally:
+            faults.disarm()
+        instants = [e["name"] for e in telemetry.events if e.get("ph") == "i"]
+        fo_start = [e["args"]["window_start"] for e in telemetry.events
+                    if e["name"] == "failover"]
+        snap = telemetry.snapshot()
+        telemetry.disable()
+        if drv3.backend != "fallback" or drv3.stats["failovers"] != 1 or \
+                "failover" not in instants or \
+                snap["driver"]["failovers"] != 1:
+            raise AssertionError(f"32c: failover not reported ({drv3.stats})")
+        if len(got) != len(want) != KNN_RUN_WINDOWS:
+            raise AssertionError("32c: windows differ in number")
+        exact = 0
+        for a, b in zip(want, got):
+            if (a.start, a.end) != (b.start, b.end) or \
+                    [(o, e.obj_id) for o, _, e in a.neighbors] != \
+                    [(o, e.obj_id) for o, _, e in b.neighbors]:
+                raise AssertionError(f"32c: winners differ in {a.start}")
+            da = np.float64([d for _, d, _ in a.neighbors])
+            db = np.float64([d for _, d, _ in b.neighbors])
+            if not np.allclose(da, db, rtol=3e-7, atol=0.0) or not len(da):
+                raise AssertionError(f"32c: distances differ in {a.start}: "
+                                     f"{len(da)} results")
+            exact += bool(np.array_equal(da, db))
+        print(f"driver kNN failover (PointPointKNNQuery.run, point query, "
+              f"{KNN_RUN_WINDOWS} x {KNN_RUN_WIN} Points): device.dispatch "
+              f"dead "
+              f"from hit {DRV_KNN_FAIL_AT} (failover at the window starting "
+              f"{fo_start[0]} ms), backend {drv3.backend}, "
+              f"{drv3.stats['failovers']} failover (instant in the trace); "
+              f"{len(got)} windows, the same ordered winners as the clean "
+              f"card run, distances within rtol 3e-7 ({exact} of {len(got)} "
+              f"windows "
+              f"bit-equal) [{card}]")
+        walls["c"] = time.perf_counter() - t0
+    except BaseException:
+        if smoke is not None:  # stop the background smoke too
+            smoke.kill()
+            smoke.communicate()
+        raise
+
+    # 32e: the chaos smoke, as a user runs it, on the card (started in
+    # 32a, beside the CPU run).
+    t0 = time.perf_counter()
+    if smoke is not None:
+        out, err = smoke.communicate(timeout=600)
+        if smoke.returncode != 0:
+            raise AssertionError(f"32e: chaos smoke exited "
+                                 f"{smoke.returncode}\n{out[-2000:]}"
+                                 f"{err[-2000:]}")
+        walls["e"] = time.perf_counter() - t_smoke
+        print(f"driver chaos smoke (python -m spatialflink_tpu_torch.driver "
+              f"--chaos-smoke, three processes on the card, beside 32a's CPU "
+              f"run, 32b and 32c): {out.strip().splitlines()[-1]} "
+              f"({walls['e']:.3f} s from its start, "
+              f"{time.perf_counter() - t0:.3f} s "
+              f"waited for) [{card}]")
+    print("phase walls: 32 " + f"{time.perf_counter() - t_phase:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f" s; e overlaps a's CPU run, b and c) [{card}]")
+    return launches
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -5369,6 +5842,11 @@ def main(argv=None) -> int:
     ap.add_argument("--runtime-only", action="store_true",
                     help="phases 1-2 and 31 only (build, then telemetry, "
                          "faults and ablation on the card)")
+    ap.add_argument("--driver-only", action="store_true",
+                    help="phases 1-2 and 32 only (build, then the dataflow "
+                         "driver, checkpoints and exactly-once egress)")
+    ap.add_argument("--driver-child", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -5377,6 +5855,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    if args.driver_child:  # one child process of phase 32a
+        return driver_child(args.driver_child)
     from spatialflink_tpu_torch import kernels
     from spatialflink_tpu_torch.ops import wire_codec as wc
     from spatialflink_tpu_torch.ops.wire_digest_kernel import (
@@ -5412,7 +5892,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.3f} s (host set-up)")
 
     if args.trajectory_only or args.ingest_only or args.domain_only \
-            or args.runtime_only:
+            or args.runtime_only or args.driver_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -5421,6 +5901,8 @@ def main(argv=None) -> int:
             run_domain_phases(card)
         if args.runtime_only:
             check_runtime(card, panes, wf)
+        if args.driver_only:
+            check_driver(card, panes, wf)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -5622,12 +6104,17 @@ def main(argv=None) -> int:
     b4_launches += domain_launches
     # Phase 31: the runtime layer on the card, through all four kernels.
     rt = check_runtime(card, panes, wf)
+    # Phase 32: the dataflow driver, checkpoints and exactly-once egress
+    # (B1, B3, B4).
+    drv = check_driver(card, panes, wf)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
          "replaces": "spatialflink_tpu/ops/pallas_digest.py:48",
-         "launches": launches["wire_digest"] + rt["wire_digest"],
-         "launches_runtime": rt["wire_digest"], "max_abs_err": err_b1,
+         "launches": launches["wire_digest"] + rt["wire_digest"]
+         + drv["wire_digest"],
+         "launches_runtime": rt["wire_digest"],
+         "launches_driver": drv["wire_digest"], "max_abs_err": err_b1,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None,
          "kernels_per_call": per_call["wire_digest"][0],
@@ -5646,8 +6133,9 @@ def main(argv=None) -> int:
          "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
          "launches": soa_launches + obj_launches + qp_launches
-         + tj_launches + rt["join_extract"],
+         + tj_launches + rt["join_extract"] + drv["join_extract"],
          "launches_runtime": rt["join_extract"],
+         "launches_driver": drv["join_extract"],
          "max_abs_err": err_b3,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None,
@@ -5657,8 +6145,10 @@ def main(argv=None) -> int:
         {"name": "polyline_min_dist", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
-         "launches": b4_launches + rt["polyline_min_dist"],
-         "launches_runtime": rt["polyline_min_dist"], "max_abs_err": err_b4,
+         "launches": b4_launches + rt["polyline_min_dist"]
+         + drv["polyline_min_dist"],
+         "launches_runtime": rt["polyline_min_dist"],
+         "launches_driver": drv["polyline_min_dist"], "max_abs_err": err_b4,
          "ms": b4g_ms, "plain_ms": b4g_plain, "bound_ms": b4g_bound,
          "bound_by": b4g_by, "library_ms": None,
          "launches_geometry_range": geo_launches,

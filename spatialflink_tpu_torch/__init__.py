@@ -22,8 +22,6 @@ NOT_EXPORTED = {
     "ops": {"join_kernel": "deliberately absent: the XLA gather join, "
                            "which the hand kernel B3 replaces on the card; "
                            "ops.join_kernel is the module of B3's wrapper"},
-    "streams": {"CollectSink": "A11.2", "CsvFileSink": "A11.2",
-                "PrintSink": "A11.2"},
     "parallel": {"*": "A12"},
 }
 
@@ -41,4 +39,9 @@ from spatialflink_tpu_torch.models.objects import (  # noqa: E402,F401
 from spatialflink_tpu_torch.models.batch import (  # noqa: E402,F401
     GeometryBatch,
     PointBatch,
+)
+from spatialflink_tpu_torch.driver import (  # noqa: F401
+    RetryPolicy,
+    WindowedDataflowDriver,
+    strict_driver,
 )

@@ -43,8 +43,16 @@ point                  site in this package
 ``device.fetch``       ``telemetry.fetch`` (device→host copy)
 ``window.feed``        ``streams/windows.py:WindowAssembler.feed``
 ``soa.feed``           ``streams/soa.py`` sliding assemblers' ``feed``
-``pipeline.ship``      ``pipeline.py:PipelinedExecutor`` ship stage
-``pipeline.fetch``     ``pipeline.py:PipelinedExecutor`` fetch stage
+``pipeline.ship``      ``pipeline.py:PipelinedExecutor`` ship stage and
+                       ``driver.py``'s pipelined dispatch
+``pipeline.fetch``     ``pipeline.py:PipelinedExecutor`` fetch stage and
+                       ``driver.py``'s lagged fetch
+``sink.write``         ``streams/sinks.py:TransactionalFileSink.commit``
+                       (egress append; ``partial_write`` supported)
+``driver.window``      ``driver.py`` device-path window processing
+``source.stall``       ``driver.py`` per-item source pull
+``dag.commit``         ``streams/sinks.py:MultiSink.commit`` (each sub-sink
+                       append of the unit commit)
 =====================  ==================================================
 
 The other points wait for the modules that call them (ROADMAP):
@@ -52,10 +60,6 @@ The other points wait for the modules that call them (ROADMAP):
 =====================  ==================================================
 point                  item
 =====================  ==================================================
-``sink.write``         A11.2 (transactional sinks)
-``driver.window``      A11.2 (the dataflow driver)
-``source.stall``       A11.2 (the driver's source pull)
-``dag.commit``         A11.2 (``MultiSink.commit``)
 ``overload.admit``     A11.3 (the overload controller)
 ``qserve.register``    A9 (the standing-query registry)
 ``kafka.fetch``        A11.4 (the Kafka source)
@@ -94,13 +98,11 @@ INJECTION_POINTS: Dict[str, str] = {
     "kafka.leader": "streams/kafka_wire.py:_with_leader_retry — "
                     "leader-routed request attempt (ROADMAP A11.4)",
     "sink.write": "streams/sinks.py:TransactionalFileSink.commit — "
-                  "egress append (supports partial_write; ROADMAP A11.2)",
-    "driver.window": "driver.py — device-path window processing "
-                     "(ROADMAP A11.2)",
+                  "egress append (supports partial_write)",
+    "driver.window": "driver.py — device-path window processing",
     "overload.admit": "overload.py:OverloadController.admit_item — "
                       "admission decision (ROADMAP A11.3)",
-    "source.stall": "driver.py:_drive — per-item source pull "
-                    "(ROADMAP A11.2)",
+    "source.stall": "driver.py:_drive — per-item source pull",
     "pipeline.ship": "pipeline.py:PipelinedExecutor — overlapped "
                      "host→device pane ship (encode + stage ahead)",
     "pipeline.fetch": "pipeline.py:PipelinedExecutor — lagged "
@@ -110,7 +112,7 @@ INJECTION_POINTS: Dict[str, str] = {
     "dag.node": "dag.py:DataflowDAG — per-node window processing "
                 "(ROADMAP A11.4)",
     "dag.commit": "streams/sinks.py:MultiSink.commit — per-sink append "
-                  "inside the atomic unit commit (ROADMAP A11.2)",
+                  "inside the atomic unit commit",
     "shard.exchange": "parallel/halo.py — halo exchange dispatch "
                       "(ROADMAP A12)",
 }

@@ -100,13 +100,41 @@ class SpatialOperator:
         else:
             yield from self._assembler().stream(stream)
 
-    def _checkpointable_windows(self, stream, flush_at_end: bool = True):
-        """Event-time windows for the pane-carry paths: the assembler is
-        exposed as ``self.checkpoint_assembler``, and ``flush_at_end``
-        False treats the end of the source as a cut (open windows stay
-        buffered in the assembler) rather than the end of the stream."""
-        asm = self._assembler()
+    def _adopt_assembler(self, asm) -> WindowAssembler:
+        """The restore-and-expose protocol of an assembler (the dataflow
+        driver's too, ``driver.py``): a state restored by
+        ``checkpoint.restore_operator`` is consumed before the first
+        event, and the assembler is exposed as
+        ``self.checkpoint_assembler`` for ``checkpoint.operator_state``."""
+        if getattr(self, "_restored_assembler", None):
+            from spatialflink_tpu_torch.checkpoint import restore_assembler
+
+            restore_assembler(asm, self._restored_assembler)
+            self._restored_assembler = None
         self.checkpoint_assembler = asm
+        return asm
+
+    def _adopt_soa_assembler(self, asm):
+        """SoA form of ``_adopt_assembler`` (the point and the ragged
+        assemblers both snapshot through
+        ``checkpoint.soa_assembler_state``)."""
+        if getattr(self, "_restored_soa_assembler", None):
+            from spatialflink_tpu_torch.checkpoint import (
+                restore_soa_assembler,
+            )
+
+            restore_soa_assembler(asm, self._restored_soa_assembler)
+            self._restored_soa_assembler = None
+        self.checkpoint_soa_assembler = asm
+        return asm
+
+    def _checkpointable_windows(self, stream, flush_at_end: bool = True):
+        """Event-time windows for the pane-carry paths, through
+        ``_adopt_assembler`` (a restored state is consumed before the
+        first event); ``flush_at_end`` False treats the end of the source
+        as a cut (open windows stay buffered in the assembler) rather
+        than the end of the stream."""
+        asm = self._adopt_assembler(self._assembler())
         for ev in stream:
             yield from asm.feed(ev)
         if flush_at_end:
@@ -115,9 +143,8 @@ class SpatialOperator:
     def _checkpointable_soa_windows(self, asm, chunks,
                                     flush_at_end: bool = True):
         """SoA form of ``_checkpointable_windows``: the caller's assembler
-        (``streams/soa.py``) is exposed as
-        ``self.checkpoint_soa_assembler``."""
-        self.checkpoint_soa_assembler = asm
+        (``streams/soa.py``) goes through ``_adopt_soa_assembler``."""
+        self._adopt_soa_assembler(asm)
         for chunk in chunks:
             yield from asm.feed(chunk)
         if flush_at_end:

@@ -44,6 +44,7 @@ from spatialflink_tpu_torch.models.objects import (
 from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
     center_coords,
+    count_window_batches,
     soa_point_batches,
     ship,
     jitted,
@@ -206,30 +207,37 @@ class PointPointJoinQuery(SpatialOperator):
         driver=None,
     ) -> Iterator[JoinWindowResult]:
         """One ``JoinWindowResult`` per fired window of the two merged
-        streams: the JAX operator's plain window loop (errors propagate,
-        nothing retries or degrades). Pairs are (left point, right point,
-        float32 distance), in the kernel's output order for the grid join
-        and left-major for RealTimeNaive. ``dtype`` is accepted for the
-        JAX signature: the port computes in float32."""
-        if driver is not None:
-            raise NotImplementedError(
-                "driver= (checkpointing, retry, failover) is not ported "
-                "yet: ROADMAP A11")
+        streams, through the dataflow driver (``driver.py``): pass
+        ``driver=`` to opt into checkpoints, retry with backoff and, in
+        RealTimeNaive mode, failover to the numpy twin (the grid join's
+        pair order is the kernel's output order, so it has no twin and
+        stays strict). Without one, ``strict_driver()`` gives the plain
+        window loop: errors propagate, nothing retries or degrades. The
+        driver consumes the timestamp-merged stream, so resume positions
+        count merged events (both sides must replay). Pairs are (left
+        point, right point, float32 distance), in the kernel's output
+        order for the grid join and left-major for RealTimeNaive.
+        ``dtype`` is accepted for the JAX signature: the port computes in
+        float32."""
         _no_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
         )
+        from spatialflink_tpu_torch.driver import strict_driver
+
         naive = self.conf.query_type == QueryType.RealTimeNaive
         fr = self._filter_radius(radius)
         ck = jitted(cross_join_kernel)
-        for win in self.windows(merged):
+        drv = driver if driver is not None else strict_driver()
+        drv.attach(self)
+
+        def process(win) -> JoinWindowResult:
             left_ev = [t.event for t in win.events if t.tag == 0]
             right_ev = [t.event for t in win.events if t.tag == 1]
             if not left_ev or not right_ev:
-                yield JoinWindowResult(win.start, win.end, [], 0,
-                                       len(win.events))
-                continue
+                return JoinWindowResult(win.start, win.end, [], 0,
+                                        len(win.events))
             with telemetry.span("window.join", start=win.start,
                                 events=len(win.events)):
                 lb = self.point_batch(left_ev)
@@ -257,9 +265,48 @@ class PointPointJoinQuery(SpatialOperator):
                                                                radius)
                 pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
                          for a, b, d in zip(li, ri, dd)]
-                out = JoinWindowResult(win.start, win.end, pairs, overflow,
-                                       len(win.events))
-            yield out
+                return JoinWindowResult(win.start, win.end, pairs, overflow,
+                                        len(win.events))
+
+        fallback = self._numpy_window_process(radius) if naive else None
+        drv.bind(self, process, fallback=fallback)
+        if self.conf.query_type == QueryType.CountBased:
+            yield from drv.run_windows(count_window_batches(
+                merged, self.conf.count_window_size,
+                self.conf.count_window_size))
+        else:
+            yield from drv.run(merged)
+
+    def _numpy_window_process(self, radius):
+        """The numpy twin of the RealTimeNaive cross join: the driver's
+        failover route. The same centred float32 coordinates, squares
+        summed and rooted in float32 as the plain version and the card
+        do, and the device decode's pair order (ascending left index,
+        then ascending right index), so a backend switch mid-stream
+        changes no pair."""
+        fr = self._filter_radius(radius)
+
+        def process(win) -> JoinWindowResult:
+            left_ev = [t.event for t in win.events if t.tag == 0]
+            right_ev = [t.event for t in win.events if t.tag == 1]
+            if not left_ev or not right_ev:
+                return JoinWindowResult(win.start, win.end, [], 0,
+                                        len(win.events))
+            lxy = center_coords(
+                self.grid, np.asarray([[p.x, p.y] for p in left_ev],
+                                      np.float64))
+            rxy = center_coords(
+                self.grid, np.asarray([[p.x, p.y] for p in right_ev],
+                                      np.float64))
+            d = lxy[:, None, :] - rxy[None, :, :]
+            dist = np.sqrt(np.sum(d * d, axis=-1))
+            li, ri = np.nonzero(dist <= fr)
+            pairs = [(left_ev[int(a)], right_ev[int(b)], float(dist[a, b]))
+                     for a, b in zip(li, ri)]
+            return JoinWindowResult(win.start, win.end, pairs, 0,
+                                    len(win.events))
+
+        return process
 
     def _compact_block(self, lb, rb, radius):
         """One bucketed join with the persistent-budget retry: a window

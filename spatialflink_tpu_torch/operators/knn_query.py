@@ -41,6 +41,7 @@ from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
     center_coords,
     check_oid_range,
+    count_window_batches,
     device_point_args,
     flags_for_queries,
     jitted,
@@ -141,53 +142,118 @@ class _PointStreamKNNQuery(SpatialOperator):
             radius: float, k: int, dtype=np.float64, mesh=None,
             driver=None) -> Iterator[KnnWindowResult]:
         """One ``KnnWindowResult`` per fired window (WindowBased, RealTime
-        micro-batches, CountBased): the JAX operator's plain window loop,
-        errors propagating. A window's segment count is the interned
-        objIDs so far, bucketed to a power of two of at least 64; ``k``
-        above it raises ``ValueError`` in that window, as the reference's
-        top-k does. ``dtype`` is accepted for the JAX signature: the port
+        micro-batches, CountBased), through the dataflow driver
+        (``driver.py``): pass ``driver=`` to opt into checkpoints, retry
+        with backoff and, for a point query, failover to the numpy twin
+        (polygon and linestring queries have none). Without one,
+        ``strict_driver()`` gives the plain window loop, errors
+        propagating. A window's segment count is the interned objIDs so
+        far, bucketed to a power of two of at least 64; ``k`` above it
+        raises ``ValueError`` in that window, as the reference's top-k
+        does. ``dtype`` is accepted for the JAX signature: the port
         computes in float32."""
-        if driver is not None:
-            raise NotImplementedError(
-                "driver= (checkpointing, retry, failover) is not ported "
-                "yet: ROADMAP A11")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
         flags = flags_for_queries(self.grid, radius, [query_obj])
-        (flags_d,) = ship(flags, device=self.device).arrive()
+        from spatialflink_tpu_torch.driver import strict_driver
+
+        # Attach (load any checkpoint) before touching the device: a run
+        # resumed after a failover must not stage on the dead device path.
+        drv = driver if driver is not None else strict_driver()
+        drv.attach(self)
+        process = None
+        if drv.backend == "device":
+            (flags_d,) = ship(flags, device=self.device).arrive()
+            if self.query_kind == "point":
+                query = (self.device_q([query_obj.x, query_obj.y]),)
+                kernel = jitted(knn_points_fused)
+            else:
+                verts, ev = self._packed_query(query_obj)
+                query = (self.device_verts(verts),
+                         *ship(ev, device=self.device).arrive())
+                kernel = jitted(knn_polygon_fused
+                                if self.query_kind == "polygon"
+                                else knn_polyline_fused)
+
+            def process(win) -> KnnWindowResult:
+                # Telemetry phases per window: assemble (host batch) →
+                # ship → compute (kernel launches) → fetch (the one
+                # wait); the yield stays outside the window span.
+                with telemetry.span("window.knn", start=win.start,
+                                    events=len(win.events)):
+                    with telemetry.span("assemble"):
+                        batch = self.point_batch(win.events)
+                        if counters.enabled:
+                            cand = count_candidates(flags, batch.cell,
+                                                    len(win.events))
+                            counters.record_window(len(win.events), cand,
+                                                   cand)
+                        nseg = next_bucket(
+                            max(self.interner.num_segments, 1), minimum=64)
+                    with telemetry.span("ship"):
+                        xy_d, valid_d, cell_d, oid_d = ship(
+                            center_coords(self.grid, batch.xy), batch.valid,
+                            batch.cell, batch.oid,
+                            device=self.device).arrive()
+                    with telemetry.span("compute"):
+                        res = kernel(xy_d, valid_d, cell_d, flags_d, oid_d,
+                                     *query, radius, k, nseg)
+                    return self._decode(win, res)
+
+        fallback = None
         if self.query_kind == "point":
-            query = (self.device_q([query_obj.x, query_obj.y]),)
-            kernel = jitted(knn_points_fused)
+            fallback = self._numpy_window_process(query_obj, flags, radius,
+                                                  k)
+        drv.bind(self, process, fallback=fallback)
+        if self.conf.query_type == QueryType.CountBased:
+            yield from drv.run_windows(count_window_batches(
+                stream, self.conf.count_window_size,
+                self.conf.count_window_size))
         else:
-            verts, ev = self._packed_query(query_obj)
-            query = (self.device_verts(verts),
-                     *ship(ev, device=self.device).arrive())
-            kernel = jitted(knn_polygon_fused if self.query_kind == "polygon"
-                            else knn_polyline_fused)
-        for win in self.windows(stream):
-            # Telemetry phases per window: assemble (host batch) → ship →
-            # compute (kernel launches) → fetch (the one wait); the yield
-            # stays outside the window span.
-            with telemetry.span("window.knn", start=win.start,
-                                events=len(win.events)):
-                with telemetry.span("assemble"):
-                    batch = self.point_batch(win.events)
-                    if counters.enabled:
-                        cand = count_candidates(flags, batch.cell,
-                                                len(win.events))
-                        counters.record_window(len(win.events), cand, cand)
-                    nseg = next_bucket(max(self.interner.num_segments, 1),
-                                       minimum=64)
-                with telemetry.span("ship"):
-                    xy_d, valid_d, cell_d, oid_d = ship(
-                        center_coords(self.grid, batch.xy), batch.valid,
-                        batch.cell, batch.oid, device=self.device).arrive()
-                with telemetry.span("compute"):
-                    res = kernel(xy_d, valid_d, cell_d, flags_d, oid_d,
-                                 *query, radius, k, nseg)
-                out = self._decode(win, res)
-            yield out
+            yield from drv.run(stream)
+
+    def _numpy_window_process(self, query_obj, flags, radius, k):
+        """The numpy twin of the point-query device path: the driver's
+        failover route. The same centred float32 coordinates, the same
+        masked per-object minimum and representative (the lowest index
+        at the minimum) and the same top-k order (a stable sort over the
+        minima puts equal distances in ascending segment order), so a
+        backend switch mid-stream changes no winner."""
+        q_host = center_coords(
+            self.grid, np.asarray([[query_obj.x, query_obj.y]],
+                                  np.float64))[0]
+
+        def process(win) -> KnnWindowResult:
+            batch = self.point_batch(win.events)
+            n = len(win.events)
+            nseg = next_bucket(max(self.interner.num_segments, 1),
+                               minimum=64)
+            check_k(k, nseg)
+            xy = center_coords(self.grid, batch.xy[:n])
+            d = xy - q_host[None, :]
+            dist = np.sqrt(np.sum(d * d, axis=-1))
+            f = flags[batch.cell[:n]]
+            mask = batch.valid[:n] & (f > 0) & (dist <= radius)
+            big = np.finfo(dist.dtype).max
+            masked = np.where(mask, dist, big).astype(dist.dtype)
+            oid = np.asarray(batch.oid[:n], np.int64)
+            seg_min = np.full(nseg, big, dist.dtype)
+            np.minimum.at(seg_min, oid, masked)
+            rep = np.full(nseg, np.iinfo(np.int32).max, np.int64)
+            winner = mask & (masked == seg_min[oid])
+            np.minimum.at(rep, oid[winner],
+                          np.arange(n, dtype=np.int64)[winner])
+            order = np.argsort(seg_min, kind="stable")
+            nv = min(int((seg_min < big).sum()), k)
+            neighbors = [
+                (self.interner.lookup(int(s)), float(seg_min[s]),
+                 win.events[int(rep[s])])
+                for s in order[:nv]
+            ]
+            return KnnWindowResult(win.start, win.end, neighbors, n)
+
+        return process
 
     def _decode(self, win, res: KnnResult) -> KnnWindowResult:
         # telemetry.fetch is the operator's own copy to the host, with

@@ -31,6 +31,7 @@ from spatialflink_tpu_torch.models.objects import Point, SpatialObject
 from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
     center_coords,
+    count_window_batches,
     flags_for_queries,
     jitted,
     pack_query_geometries,
@@ -38,6 +39,7 @@ from spatialflink_tpu_torch.operators.base import (
     ship,
     soa_point_batches,
 )
+from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.range import (
     geometry_range_query_kernel,
@@ -152,46 +154,110 @@ class _PointStreamRangeQuery(SpatialOperator):
             dtype=np.float64, mesh=None, driver=None
             ) -> Iterator[RangeResult]:
         """One ``RangeResult`` per fired window (WindowBased, RealTime
-        micro-batches, CountBased): the JAX operator's plain window loop,
-        errors propagating. ``dtype`` is accepted for the JAX signature:
-        the port computes in float32."""
-        if driver is not None:
-            raise NotImplementedError(
-                "driver= (checkpointing, retry, failover) is not ported "
-                "yet: ROADMAP A11")
+        micro-batches, CountBased), through the dataflow driver
+        (``driver.py``): pass ``driver=`` to opt into checkpoints, retry
+        with backoff and, for a point query set, failover to the numpy
+        twin (polygon and linestring sets have none and stay strict).
+        Without one, ``strict_driver()`` gives the plain window loop:
+        errors propagate, nothing retries or degrades. ``dtype`` is
+        accepted for the JAX signature: the port computes in float32."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         flags = flags_for_queries(self.grid, radius, query_set)
-        (flags_d,) = ship(flags, device=self.device).arrive()
-        evaluate = self._window_evaluator(query_set, flags, radius)
-        for win in self.windows(stream):
-            # assemble → ship → compute → fetch phase spans (see
-            # knn_query.run); the yield stays outside the window span.
+        from spatialflink_tpu_torch.driver import strict_driver
+
+        # Attach (load any checkpoint) before touching the device: a run
+        # resumed after a failover must not stage on the dead device path.
+        drv = driver if driver is not None else strict_driver()
+        drv.attach(self)
+        evaluate = flags_d = None
+        if drv.backend == "device":
+            (flags_d,) = ship(flags, device=self.device).arrive()
+            evaluate = self._window_evaluator(query_set, flags, radius)
+
+        def dispatch(win):
+            # assemble → ship → compute phase spans (see knn_query.run).
+            with telemetry.span("assemble"):
+                batch = self.point_batch(win.events)
+                if counters.enabled:
+                    cand = count_candidates(flags, batch.cell,
+                                            len(win.events))
+                    counters.record_window(len(win.events), cand,
+                                           cand * len(query_set))
+            with telemetry.span("ship"):
+                xy_d, valid_d, cell_d = ship(
+                    center_coords(self.grid, batch.xy), batch.valid,
+                    batch.cell, device=self.device).arrive()
+            with telemetry.span("compute"):
+                return evaluate((xy_d, valid_d, cell_d, flags_d))
+
+        def decode(win, keep, dist) -> RangeResult:
+            with telemetry.span("fetch"):
+                keep, dist = telemetry.fetch((keep, dist))
+            idx = np.nonzero(keep)[0]
+            return RangeResult(win.start, win.end,
+                               [win.events[i] for i in idx], dist[idx],
+                               len(win.events))
+
+        def process(win) -> RangeResult:
+            # The yield stays outside the window span.
             with telemetry.span("window.range", start=win.start,
                                 events=len(win.events)):
-                with telemetry.span("assemble"):
-                    batch = self.point_batch(win.events)
-                    if counters.enabled:
-                        cand = count_candidates(flags, batch.cell,
-                                                len(win.events))
-                        counters.record_window(len(win.events), cand,
-                                               cand * len(query_set))
-                with telemetry.span("ship"):
-                    xy_d, valid_d, cell_d = ship(
-                        center_coords(self.grid, batch.xy), batch.valid,
-                        batch.cell, device=self.device).arrive()
-                with telemetry.span("compute"):
-                    keep, dist = evaluate((xy_d, valid_d, cell_d, flags_d))
-                with telemetry.span("fetch"):
-                    keep, dist = telemetry.fetch((keep, dist))
-                idx = np.nonzero(keep)[0]
-                out = RangeResult(win.start, win.end,
-                                  [win.events[i] for i in idx], dist[idx],
-                                  len(win.events))
-            yield out
+                return decode(win, *dispatch(win))
+
+        def pipeline_compute(win):
+            """The split protocol's dispatch (``pipeline.py``): assemble,
+            ship and launch without the wait; ``pipeline_fetch`` copies
+            the result back up to ``fetch_lag`` windows later. The same
+            kernels in the same order, so results equal ``process``'s."""
+            with telemetry.span("window.range", start=win.start,
+                                events=len(win.events)):
+                return (win, *dispatch(win))
+
+        def pipeline_fetch(staged) -> RangeResult:
+            return decode(*staged)
+
+        process.pipeline_compute = pipeline_compute
+        process.pipeline_fetch = pipeline_fetch
+        fallback = None
+        if self.query_kind == "point":
+            fallback = self._numpy_window_process(query_set, flags, radius)
+        drv.bind(self, process if drv.backend == "device" else None,
+                 fallback=fallback)
+        if self.conf.query_type == QueryType.CountBased:
+            yield from drv.run_windows(count_window_batches(
+                stream, self.conf.count_window_size,
+                self.conf.count_window_size))
+        else:
+            yield from drv.run(stream)
+
+    def _numpy_window_process(self, query_set, flags, radius):
+        """The numpy twin of the point-kind device path: the driver's
+        failover route. ``range_points_fused``'s arithmetic op by op on
+        the same centred float32 coordinates (``center_coords``), squares
+        summed and rooted in float32 as the plain version and the card do,
+        so a backend switch mid-stream changes no result."""
+        q_host = center_coords(self.grid, pack_query_points(query_set))
+        approx = self.conf.approximate_query
+
+        def process(win) -> RangeResult:
+            batch = self.point_batch(win.events)
+            n = len(win.events)
+            xy = center_coords(self.grid, batch.xy[:n])
+            d = xy[:, None, :] - q_host[None, :, :]
+            min_dist = np.sqrt(np.sum(d * d, axis=-1)).min(axis=1)
+            f = flags[batch.cell[:n]]
+            hit = (f == 1) if approx else ((f == 1) & (min_dist <= radius))
+            keep = batch.valid[:n] & ((f == 2) | hit)
+            idx = np.nonzero(keep)[0]
+            return RangeResult(win.start, win.end,
+                               [win.events[i] for i in idx], min_dist[idx],
+                               n)
+
+        return process
 
     def run_partitioned(self, *args, **kwargs):
         raise NotImplementedError(

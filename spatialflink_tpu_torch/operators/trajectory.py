@@ -22,8 +22,10 @@ sub-trajectory LineStrings, per-cell aggregates, per-trajectory stats.
   numpy) run their window programs on the device; ``TFilterQuery`` is
   host code.
 
-Not ported: ``driver=`` and ``run_soa_panes(backend="native")`` (ROADMAP
-A11) and ``mesh=`` (A12) raise ``NotImplementedError``. The JAX
+``TStatsQuery.run`` and ``TJoinQuery.run_soa_panes`` go through the
+dataflow driver (``driver.py``), as the JAX operators do. Not ported:
+``run_soa_panes(backend="native")`` (ROADMAP A11.4) and ``mesh=`` (A12)
+raise ``NotImplementedError``. The JAX
 ``run_soa``'s ``join_window_bucketed`` branch and its 524,288-pair cap
 are TPU VMEM fallbacks and have no counterpart: on the card B3 writes
 to HBM.
@@ -44,6 +46,7 @@ from spatialflink_tpu_torch.operators.base import (
     SpatialOperator,
     center_coords,
     check_oid_range,
+    count_window_batches,
     flags_for_queries,
     jitted,
     pack_query_geometries,
@@ -81,13 +84,6 @@ from spatialflink_tpu_torch.ops.tjoin_panes import (
 from spatialflink_tpu_torch.streams.soa import SoaWindowAssembler
 from spatialflink_tpu_torch.telemetry import telemetry
 from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
-
-
-def _no_driver(driver):
-    if driver is not None:
-        raise NotImplementedError(
-            "driver= (checkpointing, retry, failover) is not ported yet: "
-            "ROADMAP A11")
 
 
 def _grown(count: int) -> int:
@@ -613,13 +609,15 @@ class TJoinQuery(_TrajectoryOperator):
         ``backend``: "auto" and "device" run the engine on the operator's
         device (the port has no TPU/CPU split: "auto" is the device
         engine); "native", the JAX package's C++ engine, is not ported
-        (ROADMAP A11). Under an installed ``pipeline`` policy the scan
+        (ROADMAP A11.4). Under an installed ``pipeline`` policy the scan
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
         ``dtype`` is accepted for the JAX signature: the port computes in
-        float32. ``mesh=`` (A12) and ``driver=`` (A11) are not ported."""
+        float32. ``mesh=`` (A12) is not ported. Windows go out through
+        the dataflow driver's ``run_precomputed``: with ``driver=`` a
+        checkpoint counts the windows emitted, and a resume over the
+        replayed bounded chunks rescans and skips the committed prefix."""
         _no_mesh(mesh)
-        _no_driver(driver)
         conf = self.conf
         size, slide = conf.window_size_ms, conf.slide_step_ms
         if size % slide != 0:
@@ -656,7 +654,7 @@ class TJoinQuery(_TrajectoryOperator):
             raise NotImplementedError(
                 "backend='native' (the C++ pane engine, "
                 "native/sfnative.cpp:sf_tjoin_panes) is not ported yet: "
-                "ROADMAP A11")
+                "ROADMAP A11.4")
         if backend not in ("auto", "device"):
             raise ValueError(f"unknown tjoin panes backend {backend!r}")
         lfields, lcounts, locc = tjoin_pane_fields(
@@ -705,14 +703,26 @@ class TJoinQuery(_TrajectoryOperator):
             return cc[np.arange(n_slides) + 1] - cc[lo_i]
 
         fires = (rolling(lcounts) != 0) | (rolling(rcounts) != 0)
-        for s in np.flatnonzero(fires):
-            start = (p_first + int(s) - ppw + 1) * slide
+
+        def decode(s) -> tuple:
+            start = (p_first + s - ppw + 1) * slide
             row = wmins[s]
             hit = np.flatnonzero(np.isfinite(row))
-            yield (start, start + size,
-                   (hit // num_segments).astype(np.int32),
-                   (hit % num_segments).astype(np.int32),
-                   row[hit].astype(np.float64), int(len(hit)), 0)
+            return (start, start + size,
+                    (hit // num_segments).astype(np.int32),
+                    (hit % num_segments).astype(np.int32),
+                    row[hit].astype(np.float64), int(len(hit)), 0)
+
+        # Window emission through the dataflow driver: the scan above is
+        # deterministic over the bounded, replayed chunks, so a resumed
+        # run recomputes it and the driver skips the windows already
+        # committed (run_precomputed's contract).
+        from spatialflink_tpu_torch.driver import strict_driver
+
+        drv = driver if driver is not None else strict_driver()
+        drv.attach(self)
+        drv.bind(self, decode)
+        yield from drv.run_precomputed(int(s) for s in np.flatnonzero(fires))
 
 
 class PointPointTJoinQuery(TJoinQuery):
@@ -894,19 +904,25 @@ class TStatsQuery(_TrajectoryOperator):
 
     def run(self, stream: Iterable[Point], dtype=np.float64, mesh=None,
             driver=None) -> Iterator[TStatsResult]:
-        """One ``TStatsResult`` per fired window: the JAX operator's plain
-        window loop (its strict driver), errors propagating. ``dtype`` is
-        accepted for the JAX signature: the port computes in float32."""
-        _no_driver(driver)
+        """One ``TStatsResult`` per fired window, through the dataflow
+        driver (``driver.py``): pass ``driver=`` to opt into checkpoints,
+        retry with backoff and, for windowed queries, failover to the
+        numpy twin. The realtime walk mutates its running state as it
+        goes, so it is never retried and has no twin. Without a driver,
+        ``strict_driver()`` gives the plain window loop, errors
+        propagating. ``dtype`` is accepted for the JAX signature: the
+        port computes in float32."""
         _no_mesh(mesh)
+        from spatialflink_tpu_torch.driver import strict_driver
+
         realtime = self.conf.query_type in (QueryType.RealTime,
                                             QueryType.RealTimeNaive)
-        for win in self.windows(stream):
+
+        def process(win) -> TStatsResult:
             if realtime:
                 # Arrival order matters: the ValueState flatmap drops
                 # out-of-order tuples as they arrive (TStatsQuery.java:118).
-                yield self._realtime_update(win, win.events)
-                continue
+                return self._realtime_update(win, win.events)
             with telemetry.span("window.tstats", start=win.start,
                                 events=len(win.events)):
                 events = sorted(win.events,
@@ -919,9 +935,53 @@ class TStatsQuery(_TrajectoryOperator):
                     center_coords(self.grid, batch.xy), batch.ts, batch.oid,
                     batch.valid, device=self.device).arrive()
                 res = jitted(traj_stats_kernel)(xy, ts, oid, valid, nseg)
-                out = self._decode_window(win, events, *telemetry.fetch(
+                return self._decode_window(win, events, *telemetry.fetch(
                     (res.spatial_length, res.temporal_length, res.count)))
-            yield out
+
+        if realtime:
+            # A half-applied window must not re-run (double counting): a
+            # configured driver never retries it and there is no twin.
+            process.idempotent = False
+        fallback = None if realtime else self._numpy_window_process()
+        drv = driver if driver is not None else strict_driver()
+        drv.bind(self, process, fallback=fallback)
+        if self.conf.query_type == QueryType.CountBased:
+            yield from drv.run_windows(count_window_batches(
+                stream, self.conf.count_window_size,
+                self.conf.count_window_size))
+        else:
+            yield from drv.run(stream)
+
+    def _numpy_window_process(self):
+        """The numpy twin of the windowed device path: the driver's
+        failover route. The same (objID, ts) sort, the same centred
+        float32 coordinates and the same per-segment sums (float32
+        spatial lengths within ``ops/trajectory.py:spatial_sum_bound`` of
+        the device's, counts and int64 temporal sums exact)."""
+
+        def process(win) -> TStatsResult:
+            events = sorted(win.events, key=lambda p: (p.obj_id, p.timestamp))
+            batch = PointBatch.from_points(events, interner=self.interner,
+                                           dtype=np.float64)
+            nseg = next_bucket(max(self.interner.num_segments, 1), minimum=64)
+            n = len(events)
+            xy = center_coords(self.grid, batch.xy[:n])
+            oid = np.asarray(batch.oid[:n], np.int64)
+            ts = np.asarray(batch.ts[:n], np.int64)
+            spatial = np.zeros(nseg, np.float32)
+            temporal = np.zeros(nseg, np.int64)
+            count = np.bincount(oid, minlength=nseg) if n else \
+                np.zeros(nseg, np.int64)
+            if n > 1:
+                same = oid[1:] == oid[:-1]
+                d = xy[1:] - xy[:-1]
+                seg_d = np.sqrt(np.sum(d * d, axis=-1))
+                np.add.at(spatial, oid[1:], np.where(same, seg_d, 0))
+                np.add.at(temporal, oid[1:],
+                          np.where(same, ts[1:] - ts[:-1], 0))
+            return self._decode_window(win, events, spatial, temporal, count)
+
+        return process
 
     def _decode_window(self, win, events, spatial, temporal,
                        count) -> TStatsResult:

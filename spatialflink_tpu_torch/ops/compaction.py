@@ -64,7 +64,7 @@ def pick_capacity(live: int, cap: int, minimum: int = CAP_LADDER_MIN) -> int:
     The JAX function also floors the pick at an active overload rung
     (``overload.compaction_clamp``), which only ever raises the rung and
     never changes a result; the overload controller is not ported yet
-    (ROADMAP A11), so the port has no floor."""
+    (ROADMAP A11.3), so the port has no floor."""
     for b in capacity_ladder(cap, minimum):
         if b >= live:
             return b

@@ -132,6 +132,15 @@ def arm_from_env() -> bool:
     return True
 
 
+def breaker_collapsed() -> bool:
+    """True while the overload circuit breaker holds the device path
+    open, so a pipeline must not stack windows onto it. The port has no
+    overload controller until ROADMAP A11.3, so no breaker is ever open:
+    this returns False, and the driver's pipelined path never collapses
+    to the synchronous cadence."""
+    return False
+
+
 class PipelinedExecutor:
     """Generic bounded overlap over an item stream.
 
@@ -154,7 +163,7 @@ class PipelinedExecutor:
     ``e2e_end(item)`` (an item's event-time window end in ms, or None)
     stamps ``record_e2e`` at the ship, compute and fetch stages. The
     overload controller's collapse to the synchronous cadence comes with
-    ROADMAP A11.2.
+    ROADMAP A11.3 (``breaker_collapsed``).
     """
 
     def __init__(self, pol: PipelinePolicy, *,

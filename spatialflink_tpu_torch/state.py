@@ -31,11 +31,19 @@ keyword arguments.
 A pane-carry tJoin scan holds its ring planes, digest rings and
 counters; ``tjoin_pane_carry_from_jax`` turns a JAX ``TJoinPaneCarry``
 into the port's, so a port scan continues where a JAX scan stopped.
+
+A deployment checkpointed by the JAX package's dataflow driver holds a
+framed checkpoint file; ``load_jax_checkpoint`` reads it without
+importing the JAX package, with the JAX objects in it turned into the
+port's, so the port's driver resumes the run (``save_checkpoint(path,
+**load_jax_checkpoint(path))`` rewrites it as the port's).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import io
+import pickle
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -279,3 +287,82 @@ def tjoin_pane_carry_from_jax(carry, device="cuda"):
             a = np.concatenate([a.reshape(-1), [spare.get(name, 0)]])
         out.append(_tensor(a, dt, dev))
     return TJoinPaneCarry(*out)
+
+
+#: The JAX package's classes a JAX checkpoint may hold, by module, each
+#: read as the port's class of the same name and module path. Any other
+#: ``spatialflink_tpu`` name raises ``CheckpointCorruptError``.
+JAX_CHECKPOINT_CLASSES = {
+    "spatialflink_tpu.models.objects": (
+        "SpatialObject", "Point", "Polygon", "LineString", "MultiPoint",
+        "MultiPolygon", "MultiLineString", "GeometryCollection"),
+    "spatialflink_tpu.streams.windows": ("WindowSpec", "WindowBatch"),
+}
+
+#: Builtins a checkpoint's pickle may name (containers and scalars only).
+_SAFE_BUILTINS = frozenset({
+    "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset",
+    "int", "list", "range", "set", "slice", "str", "tuple",
+})
+
+
+class _JaxCheckpointUnpickler(pickle.Unpickler):
+    """Unpickles a JAX checkpoint payload without importing the JAX
+    package: its allow-listed classes map onto the port's, numpy and a
+    few builtins load as themselves, and anything else is refused."""
+
+    def __init__(self, data: bytes, path: str):
+        super().__init__(io.BytesIO(data))
+        self._path = path
+
+    def find_class(self, module: str, name: str):
+        import importlib
+
+        from spatialflink_tpu_torch.checkpoint import CheckpointCorruptError
+
+        root = module.split(".")[0]
+        if root == "spatialflink_tpu":
+            if name not in JAX_CHECKPOINT_CLASSES.get(module, ()):
+                raise CheckpointCorruptError(
+                    self._path, "only the allow-listed spatialflink_tpu "
+                    "classes (state.JAX_CHECKPOINT_CLASSES)",
+                    f"{module}.{name}")
+            port = importlib.import_module(
+                "spatialflink_tpu_torch" + module[len("spatialflink_tpu"):])
+            return getattr(port, name)
+        if root == "numpy" or (module == "builtins"
+                               and name in _SAFE_BUILTINS):
+            return super().find_class(module, name)
+        raise CheckpointCorruptError(
+            self._path, "a JAX checkpoint of spatialflink_tpu objects, "
+            "numpy arrays and builtin containers", f"{module}.{name}")
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint file written by the JAX package's
+    ``checkpoint.save_checkpoint`` (its driver's auto-checkpoints
+    included) → its component dict, with the JAX package's objects (the
+    buffered ``Point`` objects of an assembler, window specs) as the
+    port's.
+
+    The frame is checked as ``checkpoint.load_checkpoint`` checks it
+    (magic, version, length, CRC; a headerless round-1 file loads), and
+    the payload unpickles through an allow-list
+    (``JAX_CHECKPOINT_CLASSES``, numpy, builtin containers): a plain
+    unpickle would import ``spatialflink_tpu`` and, through it, JAX. Any
+    other class raises ``CheckpointCorruptError``. Resume a JAX run with
+    the port's driver by rewriting the file as the port's::
+
+        save_checkpoint(path, **load_jax_checkpoint(path))
+        op.run(stream, ..., driver=WindowedDataflowDriver(
+            checkpoint_path=path, sink=sink))
+    """
+    from spatialflink_tpu_torch.checkpoint import (
+        read_checkpoint_payload,
+        unpickle_components,
+    )
+
+    payload, framed = read_checkpoint_payload(path)
+    return unpickle_components(
+        path, payload, framed,
+        loads=lambda data: _JaxCheckpointUnpickler(data, path).load())

@@ -1,6 +1,5 @@
-"""The host control plane: windows, sources, serde and the SoA and wire
-ingest paths. The JAX package's sinks wait for ROADMAP A11.2
-(``spatialflink_tpu_torch.NOT_EXPORTED``)."""
+"""The host control plane: windows, sources, sinks, serde and the SoA and
+wire ingest paths."""
 
 from spatialflink_tpu_torch.streams.windows import (  # noqa: F401
     CountWindows,
@@ -14,4 +13,12 @@ from spatialflink_tpu_torch.streams.sources import (  # noqa: F401
     collection_source,
     csv_source,
     socket_source,
+)
+from spatialflink_tpu_torch.streams.sinks import (  # noqa: F401
+    CollectSink,
+    CsvFileSink,
+    LatencySink,
+    MultiSink,
+    PrintSink,
+    TransactionalFileSink,
 )

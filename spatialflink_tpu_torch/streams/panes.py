@@ -21,7 +21,7 @@ package's ``streams/panes.py``:
   are exact.
 - ``"numpy"``: the host engine in float64, copied from the JAX package.
 
-``"native"`` (the C++ engine) is not ported: ROADMAP A11.
+``"native"`` (the C++ engine) is not ported: ROADMAP A11.4.
 """
 
 from __future__ import annotations
@@ -280,7 +280,7 @@ def traj_stats_sliding(
 
     ``backend``: ``"auto"`` and ``"device"`` run the device engine on
     ``device``; ``"numpy"`` the float64 host engine; ``"native"`` raises
-    ``NotImplementedError`` (ROADMAP A11). ``mesh=`` raises (A12).
+    ``NotImplementedError`` (ROADMAP A11.4). ``mesh=`` raises (A12).
     """
     if size_ms % slide_ms != 0:
         raise ValueError("size must be a multiple of slide for pane slicing")
@@ -302,7 +302,7 @@ def traj_stats_sliding(
     if backend == "native":
         raise NotImplementedError(
             "backend='native' (the C++ pane engine) is not ported yet: "
-            "ROADMAP A11")
+            "ROADMAP A11.4")
     if backend in ("auto", "device"):
         return _traj_stats_sliding_device(ts, xy, oid, num_oids, size_ms,
                                           slide_ms, device)

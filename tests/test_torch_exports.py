@@ -105,7 +105,9 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.sncb.mobility, "
         "spatialflink_tpu_torch.mn.queries, "
         "spatialflink_tpu_torch.telemetry, spatialflink_tpu_torch.faults, "
-        "spatialflink_tpu_torch.ablation\n"
+        "spatialflink_tpu_torch.ablation, spatialflink_tpu_torch.checkpoint, "
+        "spatialflink_tpu_torch.driver, spatialflink_tpu_torch.state, "
+        "spatialflink_tpu_torch.streams.sinks\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -117,6 +119,32 @@ def test_port_packages_import_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("UniformGrid(n=4")
+
+
+def test_sinks_and_driver_exported_and_their_fault_points_threaded():
+    """The sinks are exported where the JAX package exports them (and
+    off ``NOT_EXPORTED``), the driver's names at the top; the four fault
+    points of the driver and the sinks are threaded: each is hit in its
+    module and listed in the port's table of threaded points, no longer
+    among those waiting for an item."""
+    import spatialflink_tpu_torch.faults as tfaults
+    from spatialflink_tpu_torch import driver, streams
+    from spatialflink_tpu_torch.streams import sinks
+
+    assert "streams" not in port.NOT_EXPORTED
+    for name in ("CollectSink", "CsvFileSink", "PrintSink",
+                 "TransactionalFileSink", "MultiSink", "LatencySink"):
+        assert getattr(streams, name) is getattr(sinks, name)
+    for name in ("WindowedDataflowDriver", "RetryPolicy", "strict_driver"):
+        assert getattr(port, name) is getattr(driver, name)
+    threaded, waiting = tfaults.__doc__.split("The other points wait")
+    sites = {"sink.write": sinks, "dag.commit": sinks,
+             "driver.window": driver, "source.stall": driver,
+             "pipeline.ship": driver, "pipeline.fetch": driver}
+    for point, mod in sites.items():
+        assert f'faults.hit("{point}")' in Path(mod.__file__).read_text()
+        assert f"``{point}``" in threaded and f"``{point}``" not in waiting
+        assert "ROADMAP" not in tfaults.INJECTION_POINTS[point]
 
 
 # ---------------------------------------------------------------------------

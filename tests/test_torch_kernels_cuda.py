@@ -1212,3 +1212,132 @@ def test_device_dispatch_fires_before_the_kernel_launch_on_card():
     assert list(PointPointJoinQuery(conf, grid, device=dev).run_soa(
         ch, ch, 0.002))
     assert join_extract.launches > 0
+
+
+def _range_driver_leg(dev, workdir, polys, stream, plan=None):
+    """``PointPolygonRangeQuery.run(driver=)`` on ``dev`` into a
+    transactional sink, checkpointed every window; an armed plan is
+    disarmed whatever happens."""
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+        render_range_result,
+    )
+    from spatialflink_tpu_torch.faults import faults
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import (
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.streams.sinks import TransactionalFileSink
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    sink = TransactionalFileSink(str(workdir / "egress.csv"))
+    drv = WindowedDataflowDriver(
+        checkpoint_path=str(workdir / "ckpt.bin"), checkpoint_every=1,
+        sink=sink, retry=RetryPolicy(max_retries=0, backoff_s=0.0),
+        failover=False)
+    if plan:
+        faults.arm(plan)
+    try:
+        for res in PointPolygonRangeQuery(conf, grid, device=dev).run(
+                iter(stream), polys, 0.002, driver=drv):
+            for line in render_range_result(res):
+                sink.stage(line)
+    finally:
+        faults.disarm()
+    return (workdir / "egress.csv").read_bytes()
+
+
+@pytest.mark.cuda
+def test_range_kill_resume_through_b4_on_card(tmp_path):
+    """The range query through B4 under the dataflow driver, killed at its
+    second commit and resumed on the card: the egress byte-identical to
+    the clean card run and to the CPU run, B4 launched."""
+    dev = _card()
+    from spatialflink_tpu_torch.faults import InjectedFault
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    polys = generate_query_polygons(100, 115.5, 39.6, 117.6, 41.1,
+                                    grid_size=100, seed=3)
+    rng = np.random.default_rng(7)
+    n = 3 * 4096
+    xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
+                  axis=1)
+    near = np.concatenate([p.rings[0][:1] for p in polys])
+    xy[::3] = near[rng.integers(0, len(near), len(xy[::3]))] + \
+        rng.uniform(-0.003, 0.003, (len(xy[::3]), 2))
+    stream = [Point(obj_id=f"p{i % 500}", timestamp=int(i * 1000 // 4096),
+                    x=float(x), y=float(y)) for i, (x, y) in enumerate(xy)]
+    dirs = {k: tmp_path / k for k in ("clean", "chaos", "cpu")}
+    for d in dirs.values():
+        d.mkdir()
+    polyline_min_dist.launches = 0
+    clean = _range_driver_leg(dev, dirs["clean"], polys, stream)
+    assert polyline_min_dist.launches >= 3 and clean.count(b"\n") > 10
+    with pytest.raises(InjectedFault):
+        _range_driver_leg(dev, dirs["chaos"], polys, stream, plan=[
+            {"point": "sink.write", "at": 2, "times": 10_000}])
+    resumed = _range_driver_leg(dev, dirs["chaos"], polys, stream)
+    cpu = _range_driver_leg(torch.device("cpu"), dirs["cpu"], polys, stream)
+    assert resumed == clean == cpu
+
+
+@pytest.mark.cuda
+def test_wire_carry_checkpoint_restores_on_card_and_cpu(tmp_path):
+    """The headline carry through B1: a card run stopped mid-stream,
+    checkpointed (the digest ring pulled from the card), restored into a
+    card operator and into a CPU operator; both continuations bit-equal
+    to the uninterrupted card run."""
+    dev = _card()
+    from spatialflink_tpu_torch.checkpoint import (
+        load_checkpoint,
+        operator_state,
+        restore_operator,
+        save_checkpoint,
+    )
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.streams.wire import WireFormat, wire_panes
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    wf = WireFormat.for_grid(grid)
+    rng = np.random.default_rng(42)
+    n = 12 * 2000
+    panes = list(wire_panes([{
+        "ts": np.sort(rng.integers(0, 12_000, n)).astype(np.int64),
+        "x": rng.uniform(115.5, 117.6, n), "y": rng.uniform(39.6, 41.1, n),
+        "oid": rng.integers(0, NSEG, n)}], wf, 1000, 0))
+    q = Point(x=116.4, y=40.19)
+    conf = QueryConfiguration(window_size=2.0, slide_step=1.0)
+
+    def op(device):
+        return PointPointKNNQuery(conf, grid, device=device)
+
+    def run(o, part, flush=True):
+        return [(s, e, ids.tolist(), d.view(np.uint32).tolist(), nv)
+                for s, e, ids, d, nv in o.run_wire_panes(
+                    part, q, 0.5, 10, NSEG, wf, flush_at_end=flush)]
+
+    wire_digest.launches = 0
+    whole = run(op(dev), panes)
+    assert wire_digest.launches >= len(panes)
+    cut = 6
+    first = op(dev)
+    head = run(first, panes[:cut], flush=False)
+    path = str(tmp_path / "wire.ckpt")
+    save_checkpoint(path, op=operator_state(first))
+    for device in (dev, torch.device("cpu")):
+        resumed = op(device)
+        restore_operator(resumed, load_checkpoint(path)["op"])
+        assert resumed._wire_pane_carry["digests"][0][0].device == \
+            resumed.device
+        assert head + run(resumed, panes[cut:]) == whole

@@ -36,6 +36,7 @@ from spatialflink_tpu.operators import QueryConfiguration as JConf
 from spatialflink_tpu.operators import QueryType as JQT
 from spatialflink_tpu.streams.wire import WireFormat as JWireFormat
 
+from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.operators import (
@@ -363,8 +364,10 @@ def test_unported_options_raise():
         PointPolygonKNNQuery(conf, g, device="cpu", mesh=object())
     op = PointLineStringKNNQuery(conf, g, device="cpu")
     q = _query("linestring")[0]
-    with pytest.raises(NotImplementedError, match="A11"):
-        next(op.run(iter([]), q, R, 5, driver=object()))
+    # driver= is ported; the driver's overload= waits for A11.3.
+    with pytest.raises(NotImplementedError, match="A11.3"):
+        next(op.run(iter([]), q, R, 5,
+                    driver=WindowedDataflowDriver(overload=object())))
     with pytest.raises(NotImplementedError, match="A12"):
         next(op.run(iter([]), q, R, 5, mesh=object()))
     if not torch.cuda.is_available():

@@ -20,8 +20,8 @@ d2h bytes, the NES reporter line's lag and late-drop columns, and
 ``MetricsSink(include_telemetry=True)``'s columns. Differing by design,
 and asserted as such: the port counts the flag table's h2d bytes (it
 ships it through ``ship``; the JAX operators through a bare
-``jnp.asarray``), and the JAX operators' ``run`` stamps e2e stages from
-its strict driver, which the port gets with ROADMAP A11.2.
+``jnp.asarray``). Both operators' ``run`` go through their strict
+drivers, which stamp the same e2e stages.
 
 Every test leaves both packages' ``telemetry``, ``faults`` and
 ``ablation`` singletons disarmed, disabled and reset, and ``max_events``
@@ -834,17 +834,15 @@ def test_every_instant_the_port_emits_is_classified(tmp_path):
 def _window_children(events):
     """Per ``window.*`` span, in order: its (name, args) and the names of
     the spans that closed inside it (exit order), the byte-carrying fetch
-    events marked. The ``node`` argument is left out: the JAX strict
-    driver scopes its windows by operator, the port's driver is A11.2."""
+    events marked. Both strict drivers scope their windows by operator,
+    so the ``node`` argument is compared too."""
     out, pending = [], []
     for e in events:
         if e.get("ph") != "X":
             continue
         name = e["name"]
         if name.startswith("window."):
-            args = {k: v for k, v in (e.get("args") or {}).items()
-                    if k != "node"}
-            out.append((name, args, pending))
+            out.append((name, dict(e.get("args") or {}), pending))
             pending = []
         else:
             pending.append(name + ("+bytes" if "bytes" in e.get("args", {})
@@ -894,8 +892,11 @@ def test_parity_range_run_spans_gauges_and_fetches(tmp_path):
     flags_bytes = base_mod.flags_for_queries(
         GRID, 2.0, [Point(x=5.0, y=5.0)]).nbytes
     assert psnap["bytes_h2d"] == jsnap["bytes_h2d"] + flags_bytes
-    # The JAX strict driver stamps e2e stages; the port's driver is A11.2.
-    assert "e2e" in jsnap and "e2e" not in psnap
+    # Both strict drivers stamp the e2e stages, once a window a stage.
+    stages = ("assemble", "compute")
+    assert {s: psnap["e2e"]["stages"][s]["count"] for s in stages} == \
+        {s: jsnap["e2e"]["stages"][s]["count"] for s in stages} == \
+        {s: len(got) for s in stages}
 
     # The NES reporter's and the SNCB sink's telemetry columns.
     cols = ("watermark_lag_ms_max", "late_dropped_total")

@@ -51,6 +51,7 @@ from spatialflink_tpu.operators import QueryType as JQT
 from spatialflink_tpu.operators import trajectory as jtraj
 from spatialflink_tpu.ops import trajectory as jops
 
+from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.objects import Point, Polygon
 from spatialflink_tpu_torch.operators import (
@@ -653,9 +654,10 @@ def test_unported_options_raise_naming_their_items():
             "y": np.asarray([1.0]), "oid": np.asarray([0], np.int32)}]
     with pytest.raises(NotImplementedError, match="A11"):
         list(op.run_soa_panes(one, one, 1.0, 16, backend="native"))
+    # driver= is ported; the driver's overload= waits for A11.3.
     with pytest.raises(NotImplementedError, match="A11"):
         next(PointTStatsQuery(conf, grid, device="cpu").run(
-            iter([]), driver=object()))
+            iter([]), driver=WindowedDataflowDriver(overload=object())))
     with pytest.raises(NotImplementedError, match="A12"):
         PointTStatsQuery(conf, grid, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="A12"):
