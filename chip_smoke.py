@@ -9,6 +9,7 @@ NVIDIA card.
     python3 chip_smoke.py --domain-only       # phases 1-2 and 29-30
     python3 chip_smoke.py --runtime-only      # phases 1-2 and 31
     python3 chip_smoke.py --driver-only       # phases 1-2 and 32
+    python3 chip_smoke.py --overload-only     # phases 1-2 and 33
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -198,7 +199,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    plan printed beside the measured occupancy; time the host steps, the
    engine's steady state alone (a warm scan of 1,000 slides, then 1,000
    timed) and its parts a slide, with its launches a slide; a profiler
-   trace of the whole operator run (the device's idle share) and of 40
+   trace of the operator run over the stream's first 200 panes a side
+   (1,199 slides, a cut of depth: the device's idle share) and of 40
    steady slides (the kernel rows); then hold the card's windows equal
    (ids in order, distance bits) to the engine's CPU run of the stream
    cut to its
@@ -302,6 +304,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and a CPU operator, each continuation bit-equal to the uninterrupted
    synchronous windows; (e) ``python -m spatialflink_tpu_torch.driver
    --chaos-smoke`` on the card, exit 0.
+33. overload control and the SLO engine (``overload.py``, ``slo.py``) on
+   the card: (a) the headline ``run_wire_panes`` (phase 5's 21 panes)
+   under a ``batch_slides`` rung of width 4, stepped down by one violating
+   SLO evaluation, through B1: windows bit-equal to the unbatched card run
+   and to the CPU run, ``telemetry.fetch`` calls and synchronising calls a
+   window unbatched and batched (2 → 1/4 fetches), a checkpoint taken
+   with a batch open restored into a fresh card operator with no window
+   lost, and 4 alternating timed pairs of the two with one traced run
+   each (device idle share); (b) ``PointPolygonRangeQuery.run`` at config
+   3's width (2 × 262,144 ``Point``s, 1,000 polygons, phase 32a's stream)
+   through B4 under a non-pausable admission budget of half a window's
+   events: the shed counts, the overload block and the egress equal to
+   the CPU run's; stopped by ``driver.window`` right after window 1's
+   commit and resumed by a fresh driver, byte-identical with the same
+   sheds; ``overload.admit`` armed at hit 1,000 raising on that item
+   before its decision; (c) the circuit breaker (2 failures open it, a
+   probe every 3rd fallback window) on ``PointPointRangeQuery.run`` (8 ×
+   20,000 ``Point``s), synchronous and pipelined: windows 3-4 on the
+   numpy twin, the probe closing it, ``breaker_collapsed()`` true at the
+   open windows' yields, the pipeline collapsed and resumed, windows equal
+   the clean run; the naive join's 20 micro-batches the same; and with a
+   breaker configured but no twin (the reference routes nothing then),
+   ``PointPolygonRangeQuery.run`` and the bucketed join's 8 windows one
+   B4 / B3 launch a window, equal to the runs without a controller; (d)
+   the ``pane_backend`` rung routing ``traj_stats_sliding(backend=
+   "auto")`` at 1,000,000 points to the numpy engine (within
+   ``pane_spatial_bound`` of the device engine) and ``clamp_compaction``
+   pinning the pane-carry tJoin's capacity rung (phase 26's shape, 24
+   panes a side), windows equal; (e) an ``SloSpec`` of the shed,
+   degraded-window, retry and failover budgets and the lag and e2e
+   ceilings over 33c's synchronous breaker run and 33b's clean run, its
+   verdict sealed in the ledger stream, every check as on the CPU; and
+   ``python -m spatialflink_tpu_torch.overload --smoke`` on the card in
+   the background, exit 0.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -466,6 +502,7 @@ TP_R = 0.001
 TP_CPU_PANES = TP_PPW + 24
 TP_WARM_PANES = 24
 TP_PROFILE_SLIDES = 40
+TP_TRACE_PANES = 200  # panes a side of the traced operator run (a cut)
 TP_REPS = 3
 # Phases 27-28: ingest and the apps. Phase 27 reads config 3 back from
 # files (phase 12's 1,000 polygons as GeoJSON lines, WKT lines and a
@@ -3875,14 +3912,19 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
           f"{n_pts / secs:.1f} points/s, every window fetched (after a "
           f"first run on {TP_WARM_PANES} panes a side, "
           f"{len(cut_got)} windows in {cut_secs:.3f} s) [{card}]")
-    # The device's idle share over the whole operator run, traced.
+    # The device's idle share over the operator run on a prefix of the
+    # stream (a cut of depth: the trace's cost grows with its kernels).
+    tr_chunks = [[{k: v[:TP_TRACE_PANES * TP_PANE_PTS]
+                   for k, v in side[0].items()}] for side in chunks]
+    tr_slides = TP_TRACE_PANES + TP_PPW - 1
     tr_wall, tr_busy, tr_kern = trace_busy(
-        lambda: run_tjoin_panes(gpu, chunks))
-    print(f"profile e2e run_soa_panes (the whole run, CUDA activity): wall "
-          f"{tr_wall:.6f} s traced ({secs:.6f} s untraced), device busy "
+        lambda: run_tjoin_panes(gpu, tr_chunks))
+    print(f"profile e2e run_soa_panes (the stream's first {TP_TRACE_PANES} "
+          f"panes a side, {tr_slides} slides, CUDA activity): wall "
+          f"{tr_wall:.6f} s traced, device busy "
           f"{tr_busy:.6f} s ({100 * tr_busy / tr_wall:.1f}%, idle "
           f"{100 - 100 * tr_busy / tr_wall:.1f}%), {tr_kern} kernels = "
-          f"{tr_kern / n_slides:.2f} a slide [{card}]")
+          f"{tr_kern / tr_slides:.2f} a slide [{card}]")
 
     # Its host steps, timed alone.
     cols = []
@@ -5746,6 +5788,650 @@ def check_driver(card, panes, wf, gpu="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: overload control and SLOs.
+
+OV_BATCH = 4             # the batch_slides rung's width (33a)
+OV_PAIRS = 4             # alternating timed pairs, batched vs unbatched
+OV_CUT_PANES = 7         # headline panes before the mid-batch checkpoint
+OV_ADMIT_AT = 1000       # the overload.admit hit the armed leg raises at
+OV_BR_WINDOWS = 8        # the breaker legs' windows (33c)
+OV_BR_POINTS = 20_000    # Points a window on the breaker legs
+OV_JOIN_WINDOWS = 8      # the B3 leg's windows (phase 9's stream, 250 ms)
+OV_TP_PANES = 24         # the clamped pane-carry tJoin's panes a side (33d)
+
+
+def overload_stream():
+    """33c's stream: OV_BR_WINDOWS one-second windows of OV_BR_POINTS
+    ``Point``s over the Beijing extent from seed 41, a third of them
+    within 0.01 deg of ``QUERY``."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    n = OV_BR_WINDOWS * OV_BR_POINTS
+    rng = np.random.default_rng(41)
+    xy = np.stack([rng.uniform(115.5, 117.6, n),
+                   rng.uniform(39.6, 41.1, n)], axis=1)
+    xy[::3] = np.float64(QUERY) + rng.uniform(-0.01, 0.01, (len(xy[::3]), 2))
+    ts = (np.arange(n, dtype=np.int64) * 1000) // OV_BR_POINTS
+    return [Point(obj_id=f"o{i % DRV_IDS}", timestamp=int(t), x=float(x),
+                  y=float(y)) for i, (t, (x, y)) in enumerate(zip(ts, xy))]
+
+
+def batching_controller(width=OV_BATCH):
+    """A controller whose ladder is one batch_slides rung, stepped down by
+    one violating SLO evaluation, installed."""
+    from spatialflink_tpu_torch import overload
+
+    ctrl = overload.install(overload.OverloadController(
+        overload.OverloadPolicy(
+            ladder=({"action": "batch_slides", "n": width},),
+            degrade_cooldown=1)))
+    ctrl.on_slo_evaluation(False)
+    if overload.batch_slides() != width:
+        raise AssertionError("33a: the batch_slides rung did not engage")
+    return ctrl
+
+
+def start_overload_smoke():
+    """33e: ``python -m spatialflink_tpu_torch.overload --smoke`` on the
+    card, started in the background from the checkout's root."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SFT_FAULT_PLAN", "SFT_PIPELINE",
+                        "SFT_LEDGER_STREAM")}
+    return subprocess.Popen(
+        [sys.executable, "-m", "spatialflink_tpu_torch.overload",
+         "--smoke"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def check_overload(card, panes, wf, gpu="cuda"):
+    """Phase 33: overload control and the SLO engine on the card. Returns
+    each kernel's launches over the phase's main runs. ``gpu="cpu"``
+    rehearses it on the CPU (the launch checks then need the plain
+    versions wrapped to count; the smoke child is skipped)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch import overload, pipeline, slo
+    from spatialflink_tpu_torch.checkpoint import (
+        load_checkpoint,
+        operator_state,
+        restore_operator,
+        save_checkpoint,
+    )
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+        render_range_result,
+    )
+    from spatialflink_tpu_torch.faults import InjectedFault, faults
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        PointPointKNNQuery,
+        PointPointRangeQuery,
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+        QueryType,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.streams.panes import (
+        pane_spatial_bound,
+        traj_stats_sliding,
+    )
+    from spatialflink_tpu_torch.streams.sinks import TransactionalFileSink
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    dev = torch.device(gpu)
+    cpu = torch.device("cpu")
+    launches = {}
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="sft_overload_")
+    overload.uninstall()
+    smoke = start_overload_smoke() if gpu == "cuda" else None
+    t_phase = time.perf_counter()
+    try:
+        # 33a: batch_slides on the headline through B1, full width.
+        t0 = time.perf_counter()
+        wconf = QueryConfiguration(window_size=2.0, slide_step=1.0)
+        q = Point(x=QUERY[0], y=QUERY[1])
+
+        def wire_run(device, part=panes, op=None):
+            op = op or PointPointKNNQuery(wconf, UniformGrid(**BEIJING),
+                                          device=device)
+            out = list(op.run_wire_panes(part, q, RADIUS, K, NUM_SEGMENTS,
+                                         wf))
+            if op.device.type == "cuda":
+                torch.cuda.synchronize()
+            return out
+
+        def fetches_of(run):
+            telemetry.enable()
+            try:
+                out = run()
+                return out, sum(1 for e in telemetry.events
+                                if e["name"] == "fetch")
+            finally:
+                telemetry.disable()
+
+        n_points = sum(p.shape[1] for p in panes)
+        base, f_plain = fetches_of(lambda: wire_run(dev))
+        _, s_plain = counted_syncs(lambda: wire_run(dev), gpu)
+        want = wire_run(cpu) if gpu == "cuda" else base
+        check_windows(base, want, "33a unbatched")
+        batching_controller()
+        wire_digest.launches = 0
+        got, f_batch = fetches_of(lambda: wire_run(dev))
+        launches["wire_digest"] = wire_digest.launches
+        _, s_batch = counted_syncs(lambda: wire_run(dev), gpu)
+        check_windows(got, base, "33a batched")
+        n_win = len(base)
+        if f_plain != 2 * n_win or f_batch != -(-n_win // OV_BATCH):
+            raise AssertionError(f"33a: {f_plain} / {f_batch} fetches over "
+                                 f"{n_win} windows")
+        if launches["wire_digest"] < len(panes):
+            raise AssertionError(f"33a: {launches['wire_digest']} B1 "
+                                 "launches")
+        # A checkpoint with a batch open, restored into a fresh card op.
+        first = PointPointKNNQuery(wconf, UniformGrid(**BEIJING), device=dev)
+        gen = first.run_wire_panes(panes, q, RADIUS, K, NUM_SEGMENTS, wf)
+        head = []
+        for w in gen:
+            head.append(w)
+            if len(head) == OV_BATCH + 2:  # two windows of a batch out
+                break
+        gen.close()
+        state = operator_state(first)
+        cut = int(state["knn_wire_pane_carry"]["next_pane"])
+        path = os.path.join(tmp, "wire.ckpt")
+        save_checkpoint(path, op=state)
+        resumed = PointPointKNNQuery(wconf, UniformGrid(**BEIJING),
+                                     device=dev)
+        restore_operator(resumed, load_checkpoint(path)["op"])
+        rest = wire_run(dev, panes[cut:], resumed)
+        check_windows(head + rest, base, "33a mid-batch resume")
+        # Timed pairs, alternating, then each traced once.
+        rates = {"unbatched": [], "batched": []}
+        for _ in range(OV_PAIRS):
+            for label in ("unbatched", "batched"):
+                overload.uninstall()
+                if label == "batched":
+                    batching_controller()
+                t1 = time.perf_counter()
+                wire_run(dev)
+                rates[label].append(n_points / (time.perf_counter() - t1))
+        idle = {}
+        for label in ("unbatched", "batched"):
+            overload.uninstall()
+            if label == "batched":
+                batching_controller()
+            if gpu == "cuda":
+                wall, busy, _ = trace_busy(lambda: wire_run(dev))
+                idle[label] = f"{100 - 100 * busy / wall:.1f}%"
+            else:
+                idle[label] = "not measured"
+        overload.uninstall()
+        med = {k: statistics.median(v) for k, v in rates.items()}
+        print(f"overload batch_slides (run_wire_panes, headline: {len(panes)} "
+              f"panes of {SLIDE}, k={K}, r={RADIUS}; ladder "
+              f"[batch_slides n={OV_BATCH}] stepped down by one violating "
+              f"SLO evaluation): {n_win} windows bit-equal batched, "
+              f"unbatched and on the CPU; telemetry.fetch calls a window "
+              f"{f_plain / n_win:g} unbatched, {f_batch / n_win:g} batched; "
+              f"synchronising calls a window {s_plain / n_win:g} / "
+              f"{s_batch / n_win:g}; checkpoint with a batch open after "
+              f"{len(head)} windows (carry at pane {cut}), restored on the "
+              f"card: no window lost; launches wire_digest="
+              f"{launches['wire_digest']} [{card}]")
+        print(f"overload batch_slides e2e ({OV_PAIRS} alternating pairs, "
+              f"{n_points} points a run): unbatched "
+              + ", ".join(f"{r:.1f}" for r in rates["unbatched"])
+              + " points/s (median {:.1f}), batched ".format(med["unbatched"])
+              + ", ".join(f"{r:.1f}" for r in rates["batched"])
+              + f" points/s (median {med['batched']:.1f}), ratio "
+              f"{med['batched'] / med['unbatched']:.4f}; device idle "
+              f"(one traced run each) {idle['unbatched']} / "
+              f"{idle['batched']} [{card}]")
+        walls["a"] = time.perf_counter() - t0
+
+        # 33b: admission shedding through B4 at config 3's width, with the
+        # SLO engine installed over 33b and 33c (33e reads its verdict).
+        t0 = time.perf_counter()
+        stream = driver_range_stream()
+        queries = range_polygons()
+        rconf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+        spec = slo.SloSpec(
+            name="phase-33", shed_budget=RANGE_WIN // 2,
+            degraded_window_budget=4, retry_budget=0, failover_budget=0,
+            watermark_lag_p99_ms=1000.0, e2e_p99_ms=60_000.0,
+            eval_interval_s=0.0, warmup_windows=1)
+
+        def shed_leg(device, workdir, plan=None):
+            """Returns (egress, overload snapshot, driver stats, commit
+            ms list, run s)."""
+            commits = []
+
+            class TimedDriver(WindowedDataflowDriver):
+                def _commit(self, final=False):
+                    t = time.perf_counter()
+                    super()._commit(final)
+                    commits.append((time.perf_counter() - t) * 1e3)
+
+            os.makedirs(workdir, exist_ok=True)
+            sink = TransactionalFileSink(os.path.join(workdir, "egress.csv"))
+            ctrl = overload.OverloadController(overload.OverloadPolicy(
+                max_buffered_events=RANGE_WIN // 2))
+            drv = TimedDriver(
+                checkpoint_path=os.path.join(workdir, "ckpt.bin"),
+                checkpoint_every=1, sink=sink,
+                retry=RetryPolicy(max_retries=0, backoff_s=0.0),
+                failover=False, overload=ctrl, source_pausable=False)
+            op = PointPolygonRangeQuery(rconf, UniformGrid(**BEIJING),
+                                        device=device)
+            if plan:
+                faults.arm(plan)
+            t1 = time.perf_counter()
+            try:
+                for res in op.run(iter(stream), queries, RANGE_R,
+                                  driver=drv):
+                    for line in render_range_result(res):
+                        sink.stage(line)
+            finally:
+                faults.disarm()
+            if op.device.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            with open(os.path.join(workdir, "egress.csv"), "rb") as f:
+                egress = f.read()
+            return egress, ctrl.snapshot(), drv.stats, commits, secs, drv
+
+        def slo_session(label, device, run):
+            """``run()`` under a fresh SLO engine and a ledger stream;
+            returns (run's result, the sealed verdict)."""
+            stream_path = os.path.join(tmp, f"{label}.stream.jsonl")
+            telemetry.enable(stream_path=stream_path,
+                             stream_flush_interval_s=0.0)
+            eng = slo.install(slo.SloEngine(spec))
+            try:
+                out = run()
+            finally:
+                telemetry.disable()  # seals: the verdict in the epilogue
+                slo.uninstall()
+                overload.uninstall()
+            with open(stream_path) as f:
+                last = json.loads(f.read().splitlines()[-1])
+            if last.get("t") != "epilogue" or "slo" not in last:
+                raise AssertionError(f"33e: {label}: no verdict sealed")
+            return out, last["slo"], eng
+
+        def breaker_policy():
+            return overload.OverloadPolicy(breaker_failures=2,
+                                           breaker_probe_every=3)
+
+        bstream = overload_stream()
+        bq = [Point(x=QUERY[0], y=QUERY[1])]
+
+        def breaker_leg(device, pol=None, plan=None, driver=True, ckpt=None):
+            """PointPointRangeQuery.run over 33c's stream: (windows with the
+            breaker_collapsed() reading at each yield, controller, driver).
+            ``ckpt``: a checkpoint path, committed every window."""
+            ctrl = overload.OverloadController(breaker_policy()) \
+                if driver else None
+            drv = WindowedDataflowDriver(
+                retry=RetryPolicy(max_retries=0, backoff_s=0.0),
+                overload=ctrl, pipeline=pol,
+                checkpoint_path=ckpt) if driver else None
+            op = PointPointRangeQuery(rconf, UniformGrid(**BEIJING),
+                                      device=device)
+            if plan:
+                faults.arm(plan)
+            try:
+                out = [((r.start, [p.obj_id for p in r.objects],
+                         np.asarray(r.dists, np.float32).view(
+                             np.uint32).tolist()),
+                        pipeline.breaker_collapsed())
+                       for r in op.run(iter(bstream), bq, PP_R,
+                                       driver=drv)]
+            finally:
+                faults.disarm()
+            return out, ctrl, drv
+
+        sync_plan = [{"point": "driver.window", "at": 1, "times": 2}]
+
+        def slo_runs(device, workdir):
+            # 33c's sync breaker leg first (a checkpoint a window, so the
+            # commit stage is stamped), then 33b's clean run, whose
+            # controller stays installed: the live evaluations read each
+            # run's controller, the verdict's last evaluation 33b's.
+            os.makedirs(workdir, exist_ok=True)
+            br = breaker_leg(device, plan=sync_plan,
+                             ckpt=os.path.join(workdir, "breaker.ckpt"))
+            overload.uninstall()
+            return shed_leg(device, workdir), br
+
+        sub = {"data": time.perf_counter() - t0}
+        t1 = time.perf_counter()
+        polyline_min_dist.launches = 0
+        (shed_card, br_card), v_card, _ = slo_session(
+            "card", dev, lambda: slo_runs(dev, os.path.join(tmp, "clean")))
+        sub["card"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        clean, cl_snap, cl_stats, cl_commits, cl_secs, _ = shed_card
+        br_sync, br_ctrl, br_drv = br_card
+        launches["polyline_min_dist"] = polyline_min_dist.launches
+        (shed_cpu, br_cpu), v_cpu, _ = slo_session(
+            "cpu", cpu, lambda: slo_runs(cpu, os.path.join(tmp, "cpu")))
+        on_cpu, cpu_snap = shed_cpu[0], shed_cpu[1]
+        sub["CPU"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        lines = clean.count(b"\n")
+        shed = cl_snap["shed"].get("admission", {}).get("events", 0)
+        if not clean or shed <= 0 or cl_stats["shed"] != cl_snap["shed_total"]:
+            raise AssertionError(f"33b: nothing shed ({cl_snap})")
+        if clean != on_cpu or cl_snap != cpu_snap:
+            raise AssertionError("33b: egress or overload block differ from "
+                                 f"the CPU run: {cl_snap} vs {cpu_snap}")
+        if launches["polyline_min_dist"] < DRV_WINDOWS:
+            raise AssertionError(f"33b: {launches['polyline_min_dist']} B4 "
+                                 "launches")
+        # Stopped right after window 1's commit, resumed by a fresh driver.
+        try:
+            shed_leg(dev, os.path.join(tmp, "chaos"), plan=[
+                {"point": "driver.window", "at": 2, "times": 10_000}])
+            raise AssertionError("33b: the armed run was not stopped")
+        except InjectedFault:
+            pass
+        with open(os.path.join(tmp, "chaos", "egress.csv"), "rb") as f:
+            torn = f.read()
+        resumed, rs_snap, rs_stats, rs_commits, rs_secs, _ = shed_leg(
+            dev, os.path.join(tmp, "chaos"))
+        overload.uninstall()
+        if not (0 < len(torn) < len(clean)) or resumed != clean or \
+                rs_snap["shed"] != cl_snap["shed"] or not rs_stats["resumed"]:
+            raise AssertionError(f"33b: the resumed run differs: {rs_snap}")
+        sub["stop and resume"] = time.perf_counter() - t1
+        # overload.admit raises where the JAX controller raises: on the
+        # armed hit's item, before its admission decision.
+        ctrl_a = overload.OverloadController(overload.OverloadPolicy(
+            max_buffered_events=RANGE_WIN // 2))
+        drv_a = WindowedDataflowDriver(
+            retry=RetryPolicy(max_retries=0), failover=False,
+            overload=ctrl_a, source_pausable=False)
+        faults.arm([{"point": "overload.admit", "at": OV_ADMIT_AT}])
+        try:
+            list(PointPolygonRangeQuery(
+                rconf, UniformGrid(**BEIJING), device=dev).run(
+                    iter(stream), queries, RANGE_R, driver=drv_a))
+            raise AssertionError("33b: the armed admit did not raise")
+        except InjectedFault:
+            pass
+        finally:
+            faults.disarm()
+            overload.uninstall()
+        admitted = ctrl_a.state()["backlog_events"]
+        if drv_a._consumed != OV_ADMIT_AT or admitted != OV_ADMIT_AT - 1:
+            raise AssertionError(f"33b: admit raised at item "
+                                 f"{drv_a._consumed}, {admitted} admitted")
+        print(f"overload shedding (PointPolygonRangeQuery.run, config 3: "
+              f"{DRV_WINDOWS} x {RANGE_WIN} Points, {RANGE_POLYS} polygons, "
+              f"r={RANGE_R}; non-pausable source, max_buffered_events "
+              f"{RANGE_WIN // 2}, checkpoint_every=1): shed "
+              f"{json.dumps(cl_snap['shed'])} (shed_total "
+              f"{cl_snap['shed_total']}, rung {cl_snap['rung']}, "
+              f"backpressure {cl_snap['backpressure_engaged']}), "
+              f"{lines} egress lines, {len(clean)} B in "
+              f"{cl_secs:.3f} s; commits "
+              + ", ".join(f"{ms:.3f}" for ms in cl_commits)
+              + f" ms; launches polyline_min_dist="
+              f"{launches['polyline_min_dist']}; the CPU run's egress and "
+              f"overload block equal; stopped by driver.window at window 2 "
+              f"({len(torn)} B committed), resumed by a fresh driver in "
+              f"{rs_secs:.3f} s (commits "
+              + ", ".join(f"{ms:.3f}" for ms in rs_commits)
+              + f" ms): egress and sheds byte-identical; overload.admit "
+              f"armed at hit {OV_ADMIT_AT} raised on item {drv_a._consumed} "
+              f"with {admitted} admitted before it; walls "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in sub.items())
+              + f" (card and CPU: 33c's breaker leg, then 33b's run) "
+              f"[{card}]")
+        walls["b"] = time.perf_counter() - t0
+
+        # 33c: the circuit breaker; the twin routes on the point range,
+        # B4 and B3 under a breaker policy where no twin exists.
+        t0 = time.perf_counter()
+        base_c, _, _ = breaker_leg(dev, driver=False)
+        base_w = [w for w, _ in base_c]
+
+        def check_breaker(label, got, ctrl, drv):
+            if [w for w, _ in got] != base_w or len(base_w) < 6:
+                raise AssertionError(f"33c {label}: windows differ")
+            if ctrl.breaker.snapshot() != {
+                    "state": "closed", "opens": 1, "probes": 1,
+                    "consecutive_failures": 0} or drv.backend != "device" \
+                    or drv.stats["failovers"] != 0 \
+                    or ctrl.degraded_windows != 4:
+                raise AssertionError(f"33c {label}: breaker "
+                                     f"{ctrl.snapshot()}, {drv.stats}")
+            seen = [c for _, c in got][:5]
+            if seen != [False, True, True, True, False]:
+                raise AssertionError(f"33c {label}: breaker_collapsed() at "
+                                     f"the yields {seen}")
+
+        check_breaker("sync", br_sync, br_ctrl, br_drv)
+        telemetry.enable()
+        got_p, ctrl_p, drv_p = breaker_leg(
+            dev, pol=pipeline.PipelinePolicy(depth=2, fetch_lag=1),
+            plan=[{"point": "pipeline.ship", "at": 1, "times": 2}]
+            + sync_plan)
+        pipe = dict(telemetry.snapshot().get("pipeline", {}))
+        telemetry.disable()
+        overload.uninstall()
+        check_breaker("pipelined", got_p, ctrl_p, drv_p)
+        if pipe.get("collapses") != 1 or pipe.get("resumes") != 1 \
+                or not pipe.get("overlapped"):
+            raise AssertionError(f"33c: pipeline counters {pipe}")
+        # The naive join (its twin) through the same round trip.
+        jstreams = join_objects()
+        nconf = QueryConfiguration(QueryType.RealTimeNaive, window_size=1.0,
+                                   slide_step=1.0, realtime_batch_ms=100)
+
+        def naive_run(driver=None, plan=None):
+            op = PointPointJoinQuery(nconf, UniformGrid(**BEIJING),
+                                     cap=JOIN_CAP, device=dev)
+            if plan:
+                faults.arm(plan)
+            try:
+                return [((r.start, sorted(
+                    (p.obj_id, b.obj_id, int(np.float32(d).view(np.uint32)))
+                    for p, b, d in r.pairs)), pipeline.breaker_collapsed())
+                    for r in op.run(jstreams[0], jstreams[1], JOIN_R,
+                                    driver=driver)]
+            finally:
+                faults.disarm()
+
+        base_j = [w for w, _ in naive_run()]
+        ctrl_j = overload.OverloadController(breaker_policy())
+        drv_j = WindowedDataflowDriver(
+            retry=RetryPolicy(max_retries=0, backoff_s=0.0), overload=ctrl_j,
+            pipeline=pipeline.PipelinePolicy(depth=2, fetch_lag=1))
+        got_j = naive_run(drv_j, sync_plan)
+        overload.uninstall()
+        if [w for w, _ in got_j] != base_j or len(base_j) < 6 or \
+                ctrl_j.degraded_windows != 4 or drv_j.backend != "device" \
+                or [c for _, c in got_j][:5] != [False, True, True, True,
+                                                 False]:
+            raise AssertionError(f"33c join: {ctrl_j.snapshot()}")
+        # B4 and B3 with a breaker configured: no twin, so the breaker
+        # never routes (the reference's semantics) and each window is
+        # answered on the device.
+        polyline_min_dist.launches = 0
+        b4_base = [(r.start, [p.obj_id for p in r.objects])
+                   for r in PointPolygonRangeQuery(
+                       rconf, UniformGrid(**BEIJING), device=dev).run(
+                           iter(bstream), queries, RANGE_R)]
+        b4_plain = polyline_min_dist.launches
+        polyline_min_dist.launches = 0
+        ctrl_4 = overload.OverloadController(breaker_policy())
+        b4_got = [(r.start, [p.obj_id for p in r.objects])
+                  for r in PointPolygonRangeQuery(
+                      rconf, UniformGrid(**BEIJING), device=dev).run(
+                          iter(bstream), queries, RANGE_R,
+                          driver=WindowedDataflowDriver(overload=ctrl_4))]
+        b4_launches = polyline_min_dist.launches
+        overload.uninstall()
+        launches["polyline_min_dist"] += b4_launches
+        jconf = QueryConfiguration(window_size=2.0 / OV_JOIN_WINDOWS,
+                                   slide_step=2.0 / OV_JOIN_WINDOWS)
+
+        def b3_run(driver=None):
+            return [(r.start, r.overflow, sorted(
+                (p.obj_id, b.obj_id, int(np.float32(d).view(np.uint32)))
+                for p, b, d in r.pairs))
+                for r in PointPointJoinQuery(
+                    jconf, UniformGrid(**BEIJING), cap=JOIN_CAP,
+                    device=dev).run(jstreams[0], jstreams[1], JOIN_R,
+                                    driver=driver)]
+
+        b3_base = b3_run()
+        join_extract.launches = 0
+        ctrl_3 = overload.OverloadController(breaker_policy())
+        b3_got = b3_run(WindowedDataflowDriver(
+            overload=ctrl_3,
+            pipeline=pipeline.PipelinePolicy(depth=2, fetch_lag=1)))
+        launches["join_extract"] = join_extract.launches
+        overload.uninstall()
+        if b4_got != b4_base or b4_launches != len(b4_got) or \
+                b4_plain != b4_launches or b3_got != b3_base or \
+                launches["join_extract"] != len(b3_got) or \
+                len(b3_got) < 6 or ctrl_4.breaker.opens or ctrl_3.breaker.opens:
+            raise AssertionError(
+                f"33c: B4 {b4_launches} launches / {len(b4_got)} windows, "
+                f"B3 {launches['join_extract']} / {len(b3_got)}")
+        print(f"overload circuit breaker (breaker_failures=2, "
+              f"breaker_probe_every=3; driver.window failing the first 2 "
+              f"device windows): PointPointRangeQuery.run over "
+              f"{OV_BR_WINDOWS} x {OV_BR_POINTS} Points (r={PP_R}): opened "
+              f"at window 2, windows 3-4 on the numpy twin with no device "
+              f"attempt, the probe at window 5 closed it; backend device, 0 "
+              f"failovers, degraded_windows 4; windows equal the clean card "
+              f"run, sync and pipelined (pipeline.ship failing too: "
+              f"breaker_collapsed() true at the yields of windows 2-4, "
+              f"pipeline counters {json.dumps(pipe)}); the naive join "
+              f"(PointPointJoinQuery.run, RealTimeNaive, 100 ms batches of "
+              f"phase 9's 2 x {JOIN_OBJ_POINTS} Points: {len(base_j)} "
+              f"windows) the same round trip, equal; with a breaker "
+              f"configured and no twin, PointPolygonRangeQuery.run "
+              f"({len(b4_got)} windows) launched polyline_min_dist="
+              f"{b4_launches} and PointPointJoinQuery.run (WindowBased, "
+              f"{len(b3_got)} windows of {2000 // OV_JOIN_WINDOWS} ms) "
+              f"join_extract={launches['join_extract']}, one a window, "
+              f"windows equal the runs without a controller [{card}]")
+        walls["c"] = time.perf_counter() - t0
+
+        # 33d: the ladder's other rungs.
+        t0 = time.perf_counter()
+        ts, xy, oid = tstats_stream()
+        # Both engines on the float32 coordinates the device engine reads.
+        xy32 = xy.astype(np.float32).astype(np.float64)
+        args = (ts, xy32, oid, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS)
+        t1 = time.perf_counter()
+        dev_eng = traj_stats_sliding(*args, backend="device", device=dev)
+        dev_s = time.perf_counter() - t1
+        ctrl_d = overload.install(overload.OverloadController(
+            overload.OverloadPolicy(
+                ladder=({"action": "pane_backend", "to": "numpy"},),
+                degrade_cooldown=1)))
+        ctrl_d.on_slo_evaluation(False)
+        t1 = time.perf_counter()
+        host_eng = traj_stats_sliding(*args, backend="auto", device=dev)
+        host_s = time.perf_counter() - t1
+        overload.uninstall()
+        err, rel = check_pane_windows(dev_eng, host_eng,
+                                      pane_spatial_bound(*args), "33d")
+        chunks = tpanes_stream()
+        cut_tp = [[{k: v[:OV_TP_PANES * TP_PANE_PTS]
+                    for k, v in side[0].items()}] for side in chunks]
+        plain_tp, plain_s, plain_op = run_tjoin_panes(gpu, cut_tp)
+        ctrl_t = overload.install(overload.OverloadController(
+            overload.OverloadPolicy(
+                ladder=({"action": "clamp_compaction", "cap": 0},),
+                degrade_cooldown=1)))
+        ctrl_t.on_slo_evaluation(False)
+        clamp_tp, clamp_s, clamp_op = run_tjoin_panes(gpu, cut_tp)
+        overload.uninstall()
+        if len(clamp_tp) != len(plain_tp) or not all(
+                same_window(a, b) for a, b in zip(clamp_tp, plain_tp)):
+            raise AssertionError("33d: clamped tJoin windows differ")
+        if clamp_op.pane_scans[0][2] != TP_CAP_W:
+            raise AssertionError(f"33d: clamp took {clamp_op.pane_scans}")
+        print(f"overload rungs: pane_backend (to numpy) routes "
+              f"traj_stats_sliding(backend='auto') at bench_tstats_pane "
+              f"({TS_POINTS} points) to the numpy engine ({host_s:.3f} s; "
+              f"the device engine {dev_s:.3f} s): starts, counts and "
+              f"temporal sums exact, spatial within pane_spatial_bound (max "
+              f"err {err:.3e}, {rel:.3f} of the bound); clamp_compaction "
+              f"(cap 0) on run_soa_panes at phase 26's shape cut to "
+              f"{OV_TP_PANES} panes a side ({len(plain_tp)} windows): "
+              f"capacity rung {plain_op.pane_scans[0][2]} (occupancy "
+              f"{plain_op.pane_occupancy}) unclamped in {plain_s:.3f} s, "
+              f"{clamp_op.pane_scans[0][2]} clamped in {clamp_s:.3f} s, "
+              f"windows equal [{card}]")
+        walls["d"] = time.perf_counter() - t0
+
+        # 33e: the SLO verdicts (sealed above) and the smoke.
+        t0 = time.perf_counter()
+        rows = {r["check"]: r["ok"] for r in v_card["checks"]}
+        if rows != {r["check"]: r["ok"] for r in v_cpu["checks"]} or \
+                sorted(v["check"] for v in v_card["violations"]) != \
+                sorted(v["check"] for v in v_cpu["violations"]) or \
+                set(rows) != {"shed_budget", "degraded_window_budget",
+                              "retry_budget", "failover_budget",
+                              "watermark_lag_p99_ms", "e2e_p99_ms"}:
+            raise AssertionError(f"33e: verdicts differ: {v_card} vs "
+                                 f"{v_cpu}")
+        print(f"overload SLO verdict (sealed in the ledger stream's "
+              f"epilogue over 33c's sync breaker run, checkpointed every "
+              f"window, then 33b's clean run): "
+              f"ok {v_card['ok']}, {v_card['windows']} windows, checks "
+              + ", ".join(f"{r['check']} {r['value']!r} {r['bound']} "
+                          f"{'pass' if r['ok'] else 'FAIL'}"
+                          for r in v_card["checks"])
+              + "; violations " + ", ".join(
+                  f"{v['check']} at window {v['window_seq']}"
+                  for v in v_card["violations"])
+              + f"; every check as the CPU run's [{card}]")
+        if smoke is not None:
+            out, err_s = smoke.communicate(timeout=300)
+            if smoke.returncode != 0:
+                raise AssertionError(f"33e: overload smoke exited "
+                                     f"{smoke.returncode}\n{out[-2000:]}"
+                                     f"{err_s[-2000:]}")
+            print(f"overload smoke (python -m spatialflink_tpu_torch.overload"
+                  f" --smoke, on the card, beside 33a-33d): "
+                  f"{out.strip().splitlines()[-1]} ({time.perf_counter() - t0:.3f}"
+                  f" s waited for) [{card}]")
+            smoke = None
+        walls["e"] = time.perf_counter() - t0
+    finally:
+        overload.uninstall()
+        slo.uninstall()
+        if smoke is not None:  # stop the background smoke too
+            smoke.kill()
+            smoke.communicate()
+    print("phase walls: 33 " + f"{time.perf_counter() - t_phase:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f" s; the smoke runs beside a-d) [{card}]")
+    return launches
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -5845,6 +6531,9 @@ def main(argv=None) -> int:
     ap.add_argument("--driver-only", action="store_true",
                     help="phases 1-2 and 32 only (build, then the dataflow "
                          "driver, checkpoints and exactly-once egress)")
+    ap.add_argument("--overload-only", action="store_true",
+                    help="phases 1-2 and 33 only (build, then overload "
+                         "control and the SLO engine)")
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -5892,7 +6581,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.3f} s (host set-up)")
 
     if args.trajectory_only or args.ingest_only or args.domain_only \
-            or args.runtime_only or args.driver_only:
+            or args.runtime_only or args.driver_only or args.overload_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -5903,6 +6592,8 @@ def main(argv=None) -> int:
             check_runtime(card, panes, wf)
         if args.driver_only:
             check_driver(card, panes, wf)
+        if args.overload_only:
+            check_overload(card, panes, wf)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -6107,14 +6798,17 @@ def main(argv=None) -> int:
     # Phase 32: the dataflow driver, checkpoints and exactly-once egress
     # (B1, B3, B4).
     drv = check_driver(card, panes, wf)
+    # Phase 33: overload control and the SLO engine (B1, B3, B4).
+    ov = check_overload(card, panes, wf)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
          "replaces": "spatialflink_tpu/ops/pallas_digest.py:48",
          "launches": launches["wire_digest"] + rt["wire_digest"]
-         + drv["wire_digest"],
+         + drv["wire_digest"] + ov["wire_digest"],
          "launches_runtime": rt["wire_digest"],
-         "launches_driver": drv["wire_digest"], "max_abs_err": err_b1,
+         "launches_driver": drv["wire_digest"],
+         "launches_overload": ov["wire_digest"], "max_abs_err": err_b1,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None,
          "kernels_per_call": per_call["wire_digest"][0],
@@ -6133,9 +6827,11 @@ def main(argv=None) -> int:
          "source": "spatialflink_tpu_torch/kernels/csrc/join_extract.cu",
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
          "launches": soa_launches + obj_launches + qp_launches
-         + tj_launches + rt["join_extract"] + drv["join_extract"],
+         + tj_launches + rt["join_extract"] + drv["join_extract"]
+         + ov["join_extract"],
          "launches_runtime": rt["join_extract"],
          "launches_driver": drv["join_extract"],
+         "launches_overload": ov["join_extract"],
          "max_abs_err": err_b3,
          "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None,
@@ -6146,9 +6842,11 @@ def main(argv=None) -> int:
          "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
          "launches": b4_launches + rt["polyline_min_dist"]
-         + drv["polyline_min_dist"],
+         + drv["polyline_min_dist"] + ov["polyline_min_dist"],
          "launches_runtime": rt["polyline_min_dist"],
-         "launches_driver": drv["polyline_min_dist"], "max_abs_err": err_b4,
+         "launches_driver": drv["polyline_min_dist"],
+         "launches_overload": ov["polyline_min_dist"],
+         "max_abs_err": err_b4,
          "ms": b4g_ms, "plain_ms": b4g_plain, "bound_ms": b4g_bound,
          "bound_by": b4g_by, "library_ms": None,
          "launches_geometry_range": geo_launches,

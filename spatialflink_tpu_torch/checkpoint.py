@@ -23,7 +23,9 @@ Snapshottable components:
   - the kNN pane carries (``query_panes``, ``run_soa_panes``) and the
     headline ``run_wire_panes`` digest ring with its next pane index and
     per-pane event counts; the join's ``query_panes`` pane-block carry;
-  - the objID ``Interner``, so dense ids stay stable on resume.
+  - the objID ``Interner``, so dense ids stay stable on resume;
+  - the overload controller's ``state()``, which the driver publishes as
+    the ``overload`` component (the JAX frame's, value for value).
 
 Three components of the JAX package wait for later items and raise
 ``NotImplementedError`` naming them: the partition plan (ROADMAP A12),

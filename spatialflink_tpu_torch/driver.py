@@ -24,10 +24,14 @@ The operators' ``run`` loops go through this driver, which owns:
 - **pipelined windows**: a device process that offers the split protocol
   (``pipeline_compute`` / ``pipeline_fetch``) overlaps window N+1's
   ship with window N's fetch under a ``pipeline.PipelinePolicy``,
-  drained to a consistent frontier before every checkpoint.
-
-Overload control (the JAX package's ``overload=``) waits for ROADMAP
-A11.3: passing one raises ``NotImplementedError``.
+  drained to a consistent frontier before every checkpoint;
+- **overload control** (``overload=``, an
+  ``overload.OverloadController``): bounded admission with backpressure
+  or counted shedding on every pulled item, the device-path circuit
+  breaker (whole windows to the twin while it is open, a half-open probe
+  on a bounded schedule, the device path back when it succeeds), and the
+  controller's state published with each checkpoint, so a resume replays
+  the exact shed schedule. ``None`` (the default) changes nothing.
 
 Resume contract: each checkpoint records ``events_consumed``; a resume
 with a replayable source (a file or a collection: the same record
@@ -175,12 +179,9 @@ class WindowedDataflowDriver:
                  flush_at_end: bool = True,
                  failover: bool = True,
                  overload=None,
+                 source_pausable: Optional[bool] = None,
                  pipeline=None,
                  dial_deadline_s: Optional[float] = None):
-        if overload is not None:
-            raise NotImplementedError(
-                "overload= (admission control, load shedding and the "
-                "circuit breaker) is not ported yet: ROADMAP A11.3")
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.sink = sink
@@ -191,6 +192,17 @@ class WindowedDataflowDriver:
         #: ``failover=False`` is strict mode: retries still apply, but a
         #: dead device path crashes (for a resume) instead of degrading.
         self.failover = failover
+        #: Optional ``overload.OverloadController``: admission on every
+        #: item this driver pulls, the circuit breaker in
+        #: ``_process_window`` and its state in each checkpoint. ``None``
+        #: (the default, ``strict_driver`` included) changes nothing.
+        self.overload = overload
+        #: Whether the source can absorb backpressure (its data is safe
+        #: at the source). ``None`` follows ``skip_on_resume``: replayable
+        #: sources pause, the others shed.
+        self.source_pausable = (bool(skip_on_resume)
+                                if source_pausable is None
+                                else bool(source_pausable))
         #: Optional ``pipeline.PipelinePolicy``: overlapped processing for
         #: device processes with the split protocol, up to ``fetch_lag``
         #: windows in flight, drained before every checkpoint. ``None``
@@ -268,11 +280,6 @@ class WindowedDataflowDriver:
             self._sink_fresh = True
             return
         ck = load_checkpoint(self.checkpoint_path)
-        if "overload" in ck:
-            raise NotImplementedError(
-                f"checkpoint {self.checkpoint_path!r} holds overload "
-                "controller state, which the port cannot restore yet: "
-                "ROADMAP A11.3")
         restore_operator(self.op, ck["op"])
         drv = ck.get("driver", {})
         if self.skip_on_resume:
@@ -285,6 +292,11 @@ class WindowedDataflowDriver:
                 self.sink.restore(ck["egress"])
             else:
                 self.sink.reset()
+        if self.overload is not None and "overload" in ck:
+            # Shed decisions are a function of the controller state and
+            # the stream: the restored state replays the shed schedule of
+            # an uninterrupted run past the skip point.
+            self.overload.restore(ck["overload"])
         self.stats["resumed"] = True
         self.loaded_checkpoint = ck
 
@@ -317,11 +329,12 @@ class WindowedDataflowDriver:
                 "to record) — use run()/run_soa() for resumable pipelines"
             )
         self._reset_fresh_sink()
-        pipe = self._pipeline_state()
-        for win in windows:
-            yield from self._pipe_process(pipe, win)
-        yield from self._pipe_drain(pipe)
-        self._commit_sink_only()
+        with self._installed_controller():
+            pipe = self._pipeline_state()
+            for win in windows:
+                yield from self._pipe_process(pipe, win)
+            yield from self._pipe_drain(pipe)
+            self._commit_sink_only()
 
     def _reset_fresh_sink(self) -> None:
         if getattr(self, "_sink_fresh", False):
@@ -334,38 +347,71 @@ class WindowedDataflowDriver:
         engines, ``TJoinQuery.run_soa_panes``): the checkpointed position
         counts windows, and a resume, after the caller recomputes the
         upstream scan over the replayed bounded stream, skips the
-        committed prefix."""
-        yield from self._drive(windows, lambda w: [w], None)
+        committed prefix. Admission control does not apply: these items
+        are fired windows, not ingest, and shedding one would drop
+        results, not load."""
+        yield from self._drive(windows, lambda w: [w], None, admit=False)
 
-    def _drive(self, source, feed, flush) -> Iterator:
+    @contextlib.contextmanager
+    def _installed_controller(self):
+        """The driver's controller is the process-global one for the run
+        (the fire-site hooks and rung getters read the module slot). A
+        controller installed before the run is put back when the loop
+        ends; otherwise the driver's stays installed, so the ledger seal
+        and a post-run SLO verdict read the run's real counters."""
+        from spatialflink_tpu_torch import overload as overload_mod
+
+        prev = overload_mod.controller()
+        if self.overload is not None and prev is not self.overload:
+            overload_mod.install(self.overload)
+        try:
+            yield
+        finally:
+            if (self.overload is not None and prev is not None
+                    and prev is not self.overload):
+                overload_mod.install(prev)
+
+    def _drive(self, source, feed, flush, admit: bool = True) -> Iterator:
         self._reset_fresh_sink()
-        it = iter(source)
-        if self._skip:
-            # Resume: the first `events_consumed` records are already in
-            # the restored assembler and operator state.
-            next(itertools.islice(it, self._skip - 1, self._skip), None)
-            self._skip = 0
-        pipe = self._pipeline_state()
-        for item in it:
-            if faults.armed:  # fault injection point (faults.py)
-                faults.hit("source.stall")
-            self._consumed += 1
-            self.stats["events"] += 1
-            fired = feed(item)
-            for win in fired:
-                yield from self._pipe_process(pipe, win)
-            if fired and self._since_ckpt >= self.checkpoint_every:
-                # Drain to a consistent frontier first: every in-flight
-                # window is yielded (its egress staged) before the
-                # checkpoint counts it, so after a crash a window is
-                # committed or replayed, never half.
-                yield from self._pipe_drain(pipe)
-                self._commit()
-        if flush is not None:
-            for win in flush():
-                yield from self._pipe_process(pipe, win)
-        yield from self._pipe_drain(pipe)
-        self._commit(final=True)
+        with self._installed_controller():
+            # A source may declare its own backpressure capability; the
+            # driver's setting is the fallback.
+            pausable = getattr(source, "pausable", None)
+            if pausable is None:
+                pausable = self.source_pausable
+            it = iter(source)
+            if self._skip:
+                # Resume: the first `events_consumed` records are already
+                # in the restored assembler and operator state.
+                next(itertools.islice(it, self._skip - 1, self._skip), None)
+                self._skip = 0
+            pipe = self._pipeline_state()
+            for item in it:
+                if faults.armed:  # fault injection point (faults.py)
+                    faults.hit("source.stall")
+                self._consumed += 1
+                self.stats["events"] += 1
+                if admit and self.overload is not None and not \
+                        self.overload.admit_item(item, pausable=pausable):
+                    # Shed: the item never reaches the assembler but
+                    # counts as consumed, so a resume sheds the same items.
+                    self.stats["shed"] = self.stats.get("shed", 0) + 1
+                    continue
+                fired = feed(item)
+                for win in fired:
+                    yield from self._pipe_process(pipe, win)
+                if fired and self._since_ckpt >= self.checkpoint_every:
+                    # Drain to a consistent frontier first: every in-flight
+                    # window is yielded (its egress staged) before the
+                    # checkpoint counts it, so after a crash a window is
+                    # committed or replayed, never half.
+                    yield from self._pipe_drain(pipe)
+                    self._commit()
+            if flush is not None:
+                for win in flush():
+                    yield from self._pipe_process(pipe, win)
+            yield from self._pipe_drain(pipe)
+            self._commit(final=True)
 
     # -- bounded first device touch (the dial watchdog) ------------------------
 
@@ -451,12 +497,31 @@ class WindowedDataflowDriver:
         if pipe is None:
             yield self._process_window(win)
             return
-        if self.backend != "device" or breaker_collapsed():
+        if self.backend != "device":
             # A failover mid-overlap must not reorder egress: drain the
             # in-flight prefix before this window.
             yield from self._pipe_drain(pipe)
             yield self._process_window(win)
             return
+        if breaker_collapsed():
+            # Circuit open: stack no windows onto a dead device path;
+            # drain and hand the window to the breaker's routing.
+            yield from self._pipe_drain(pipe)
+            if not pipe.get("collapsed"):
+                pipe["collapsed"] = True
+                telemetry.record_pipeline(collapses=1)
+                telemetry.emit_instant("pipeline_collapsed",
+                                       label="driver")
+                telemetry.maybe_flush_stream(force=True)
+            result = self._process_window(win)
+            telemetry.record_pipeline(windows=1, sync=1)
+            yield result
+            return
+        if pipe.get("collapsed"):
+            pipe["collapsed"] = False
+            telemetry.record_pipeline(resumes=1)
+            telemetry.emit_instant("pipeline_resumed", label="driver")
+            telemetry.maybe_flush_stream(force=True)
         try:
             # The injection point sits inside the dial guard; the scope
             # covers the dispatch only, never a yield.
@@ -484,6 +549,8 @@ class WindowedDataflowDriver:
 
     def _pipe_fetch_one(self, pipe) -> Iterator:
         win, work = pipe["inflight"].popleft()
+        ctrl = self.overload
+        breaker = ctrl.breaker if ctrl is not None else None
         try:
             with telemetry.scope(self._node_label):
                 if faults.armed:  # fault injection point (faults.py)
@@ -498,13 +565,17 @@ class WindowedDataflowDriver:
             # synchronously through the retry/failover ladder.
             yield self._process_window(win)
             return
+        if breaker is not None:
+            breaker.record_success()
         telemetry.record_pipeline(windows=1, overlapped=1)
         if telemetry.enabled:
             # Stage "fetch": the lagged device→host copy returned.
             end = getattr(win, "end", None)
             if end is not None:
                 telemetry.record_e2e(end, "fetch", node=self._node_label)
-        yield self._finish_window(result, win=win)
+        # Never degraded: computed and fetched on the device path, even
+        # when the backend flipped after its dispatch.
+        yield self._finish_window(result, degraded=False, win=win)
 
     def _pipe_drain(self, pipe) -> Iterator:
         """Fetch every in-flight window now: the consistent frontier every
@@ -525,6 +596,21 @@ class WindowedDataflowDriver:
             return self._process_window_inner(win)
 
     def _process_window_inner(self, win):
+        ctrl = self.overload
+        breaker = ctrl.breaker if ctrl is not None else None
+        # The circuit breaker generalises the permanent failover below:
+        # with one configured and a fallback bound, whole windows route
+        # to the twin while the circuit is open, and a half-open probe
+        # tries the device path on a bounded schedule.
+        use_breaker = (breaker is not None and self.backend == "device"
+                       and self.fallback is not None)
+        single_attempt = False
+        if use_breaker:
+            route = breaker.route()
+            if route == "fallback":
+                return self._finish_window(self.fallback(win),
+                                           degraded=True, win=win)
+            single_attempt = route == "probe"
         policy = self.retry
         attempt = 0
         delay = policy.backoff_s
@@ -536,6 +622,8 @@ class WindowedDataflowDriver:
                             and faults.armed:
                         faults.hit("driver.window")  # fault injection point
                     result = proc(win)
+                if use_breaker and proc is self.process:
+                    breaker.record_success()
                 break
             except (KeyboardInterrupt, SystemExit):
                 raise
@@ -548,13 +636,21 @@ class WindowedDataflowDriver:
                     # double-count. Crash and resume is the only safe way.
                     raise
                 start = getattr(win, "start", 0)
-                if attempt < policy.max_retries:
+                if not single_attempt and attempt < policy.max_retries:
                     attempt += 1
                     self.stats["retries"] += 1
                     telemetry.record_driver_retry(start, attempt, repr(e))
                     policy.do_sleep(delay)
                     delay *= policy.multiplier
                     continue
+                if use_breaker and proc is self.process:
+                    # Count the failed window (opening the circuit at the
+                    # threshold) and answer it on the twin, with no
+                    # permanent switch: the next probe may win back the
+                    # device path.
+                    breaker.record_failure(start, repr(e))
+                    return self._finish_window(self.fallback(win),
+                                               degraded=True, win=win)
                 if self.backend == "device" and self.fallback is not None:
                     # Graceful degradation: the device path is gone; the
                     # numpy route takes the rest of the run.
@@ -566,11 +662,17 @@ class WindowedDataflowDriver:
                     delay = policy.backoff_s
                     continue
                 raise
-        return self._finish_window(result, win=win)
+        return self._finish_window(result,
+                                   degraded=self.backend != "device",
+                                   win=win)
 
-    def _finish_window(self, result, win=None):
+    def _finish_window(self, result, degraded: bool = False, win=None):
         self.stats["windows"] += 1
         self._since_ckpt += 1
+        if degraded and self.overload is not None:
+            # A window answered off the device path: the SLO
+            # degraded_window_budget counts these.
+            self.overload.count_degraded_window()
         if telemetry.enabled and win is not None:
             end = getattr(win, "end", None)
             if end is not None:
@@ -611,6 +713,8 @@ class WindowedDataflowDriver:
         }
         if egress is not None:
             components["egress"] = egress
+        if self.overload is not None:
+            components["overload"] = self.overload.state()
         if self.extra_state is not None:
             components.update(self.extra_state())
         save_checkpoint(self.checkpoint_path, **components)

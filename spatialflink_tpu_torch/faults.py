@@ -51,6 +51,8 @@ point                  site in this package
                        (egress append; ``partial_write`` supported)
 ``driver.window``      ``driver.py`` device-path window processing
 ``source.stall``       ``driver.py`` per-item source pull
+``overload.admit``     ``overload.py:OverloadController.admit_item``
+                       (the admission decision)
 ``dag.commit``         ``streams/sinks.py:MultiSink.commit`` (each sub-sink
                        append of the unit commit)
 =====================  ==================================================
@@ -60,7 +62,6 @@ The other points wait for the modules that call them (ROADMAP):
 =====================  ==================================================
 point                  item
 =====================  ==================================================
-``overload.admit``     A11.3 (the overload controller)
 ``qserve.register``    A9 (the standing-query registry)
 ``kafka.fetch``        A11.4 (the Kafka source)
 ``kafka.leader``       A11.4 (leader-routed requests)
@@ -101,7 +102,7 @@ INJECTION_POINTS: Dict[str, str] = {
                   "egress append (supports partial_write)",
     "driver.window": "driver.py — device-path window processing",
     "overload.admit": "overload.py:OverloadController.admit_item — "
-                      "admission decision (ROADMAP A11.3)",
+                      "admission decision",
     "source.stall": "driver.py:_drive — per-item source pull",
     "pipeline.ship": "pipeline.py:PipelinedExecutor — overlapped "
                      "host→device pane ship (encode + stage ahead)",

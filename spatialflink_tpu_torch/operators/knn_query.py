@@ -81,6 +81,7 @@ from spatialflink_tpu_torch.streams.soa import (
     SoaWindowAssembler,
 )
 from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
+from spatialflink_tpu_torch import overload
 from spatialflink_tpu_torch import pipeline as pipeline_mod
 from spatialflink_tpu_torch.telemetry import instrument_jit, telemetry
 
@@ -602,7 +603,9 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         with the delta-bitpacked codec shrinking the shipped bytes.
         Results are bit-identical to the synchronous loop, and the
         checkpoint carry advances only with YIELDED windows. The codec
-        kind lands on ``self.last_wire_codec_kind``.
+        kind lands on ``self.last_wire_codec_kind``. The executor owns
+        the fetch batching there, so an overload ``batch_slides`` rung
+        applies to the synchronous loop only.
         """
         conf = self.conf
         if conf.query_type == QueryType.CountBased:
@@ -692,13 +695,53 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                 "counts": list(counts),
             }
 
+        pending: list = []
+
+        def flush_pending():
+            # One device→host copy for the whole batch: each window's
+            # count, objIDs and distance bits packed into one int32 row on
+            # the device, sliced by num_valid on the host. The values are
+            # the per-window fetch's, bit for bit.
+            if not pending:
+                return
+            host = telemetry.fetch(torch.stack([
+                torch.cat([r.num_valid.reshape(1), r.segment,
+                           r.dist.view(torch.int32)])
+                for (_w, r), _c in pending]))
+            kk = (host.shape[1] - 1) // 2
+            for ((w_start, _r), carry), row in zip(pending, host):
+                # Publish the ring state as of this window's pane BEFORE
+                # yielding it: a checkpoint taken at any yield never
+                # counts a still-pending window as emitted.
+                self._wire_pane_carry = carry
+                nv = int(row[0])
+                yield (w_start, w_start + size, row[1:1 + nv].copy(),
+                       row[1 + kk:1 + kk + nv].view(np.float32).copy(), nv)
+            del pending[:]
+
         def emit(pane_i, carry):
+            """This pane's window, if any. Under an overload
+            ``batch_slides`` rung (``overload.py``) the results of N
+            windows go to the host in one copy (``flush_pending``): on
+            this path the device→host round trip a window is the overload
+            cost. Width 1 keeps the fetch-a-window sequence exactly,
+            carry included; while a batch is open the carry stays at the
+            last YIELDED window's pane."""
             out = merge_window(pane_i)
-            # Publish the ring state as of this pane BEFORE yielding its
-            # window: a checkpoint taken at the yield counts it emitted.
-            self._wire_pane_carry = carry
-            if out is not None:
+            if out is None:
+                if not pending:
+                    self._wire_pane_carry = carry
+                return
+            width = overload.batch_slides()
+            if width <= 1 and not pending:
+                # Publish the ring state as of this pane BEFORE yielding
+                # its window: a checkpoint at the yield counts it emitted.
+                self._wire_pane_carry = carry
                 yield fetch_one(*out)
+                return
+            pending.append((out, carry))
+            if len(pending) >= max(width, 1):
+                yield from flush_pending()
 
         def check_pane(wire_p):
             if (wire_p.ndim != 2 or wire_p.shape[0] != 3
@@ -861,6 +904,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             for j in range(1, ppw):
                 push(empty, 0)
                 yield from emit(i + j, last_carry)
+        yield from flush_pending()
         # End-of-call invariant: every consumed REAL pane is in the
         # carry, whether or not its window was emitted.
         self._wire_pane_carry = last_carry

@@ -608,8 +608,9 @@ class TJoinQuery(_TrajectoryOperator):
 
         ``backend``: "auto" and "device" run the engine on the operator's
         device (the port has no TPU/CPU split: "auto" is the device
-        engine); "native", the JAX package's C++ engine, is not ported
-        (ROADMAP A11.4). Under an installed ``pipeline`` policy the scan
+        engine, also under an overload ``pane_backend`` rung, which
+        would bias it to the native engine); "native", the JAX package's
+        C++ engine, is not ported (ROADMAP A11.4). Under an installed ``pipeline`` policy the scan
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
         ``dtype`` is accepted for the JAX signature: the port computes in
@@ -657,6 +658,10 @@ class TJoinQuery(_TrajectoryOperator):
                 "ROADMAP A11.4")
         if backend not in ("auto", "device"):
             raise ValueError(f"unknown tjoin panes backend {backend!r}")
+        # An overload pane_backend rung biases "auto" toward the native
+        # engine only; with none ported (ROADMAP A11.4) "auto" keeps the
+        # device engine, as the JAX operator does without its native
+        # library: a degradation rung never becomes a crash.
         lfields, lcounts, locc = tjoin_pane_fields(
             g, lt, lx, ly, lo, slide, p_first, n_slides)
         rfields, rcounts, rocc = tjoin_pane_fields(

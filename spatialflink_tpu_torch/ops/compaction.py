@@ -61,10 +61,15 @@ def pick_capacity(live: int, cap: int, minimum: int = CAP_LADDER_MIN) -> int:
     ``live`` is beyond the ladder (the ring holds at most ``cap`` live
     points a cell anyway: the ``cap_overflow`` retry's contract).
 
-    The JAX function also floors the pick at an active overload rung
-    (``overload.compaction_clamp``), which only ever raises the rung and
-    never changes a result; the overload controller is not ported yet
-    (ROADMAP A11.3), so the port has no floor."""
+    Under an active overload ``clamp_compaction`` rung (``overload.py``)
+    the pick is floored at the clamp, so occupancy churn below it stops
+    changing rungs; a clamp of 0 pins the top rung. Results cannot
+    change: the rung only grows, and the padding stays masked."""
+    from spatialflink_tpu_torch import overload
+
+    clamp = overload.compaction_clamp()
+    if clamp is not None:
+        live = cap if clamp <= 0 else max(live, clamp)
     for b in capacity_ladder(cap, minimum):
         if b >= live:
             return b

@@ -133,12 +133,16 @@ def arm_from_env() -> bool:
 
 
 def breaker_collapsed() -> bool:
-    """True while the overload circuit breaker holds the device path
-    open, so a pipeline must not stack windows onto it. The port has no
-    overload controller until ROADMAP A11.3, so no breaker is ever open:
-    this returns False, and the driver's pipelined path never collapses
-    to the synchronous cadence."""
-    return False
+    """True while the installed overload controller's circuit breaker
+    holds the device path open (``overload.py``): a pipeline must not
+    stack windows onto it, so the executor and the driver's pipelined
+    split collapse to the synchronous cadence until it closes."""
+    from spatialflink_tpu_torch import overload
+
+    ctrl = overload.controller()
+    if ctrl is None or ctrl.breaker is None:
+        return False
+    return ctrl.breaker.state == "open"
 
 
 class PipelinedExecutor:
@@ -161,9 +165,11 @@ class PipelinedExecutor:
     ``window.<label>`` span with ``ship``/``compute``/``fetch`` children;
     ``node`` tags the per-item work with a telemetry scope;
     ``e2e_end(item)`` (an item's event-time window end in ms, or None)
-    stamps ``record_e2e`` at the ship, compute and fetch stages. The
-    overload controller's collapse to the synchronous cadence comes with
-    ROADMAP A11.3 (``breaker_collapsed``).
+    stamps ``record_e2e`` at the ship, compute and fetch stages. While
+    the overload circuit breaker is open (``breaker_collapsed``) the
+    executor runs at the synchronous cadence (depth 1, no fetch lag) and
+    emits ``pipeline_collapsed`` / ``pipeline_resumed`` on the
+    transitions.
     """
 
     def __init__(self, pol: PipelinePolicy, *,
@@ -182,6 +188,7 @@ class PipelinedExecutor:
         self.spans = spans
         self.node = node
         self._e2e_end = e2e_end
+        self.collapsed = False
 
     # -- stages (the fault points live here) -----------------------------------
 
@@ -205,19 +212,35 @@ class PipelinedExecutor:
             telemetry.record_e2e(end, stage)
         return end
 
+    def _sync_collapse_state(self):
+        want = breaker_collapsed()
+        if want == self.collapsed:
+            return
+        self.collapsed = want
+        if telemetry.enabled:
+            # One literal event name a branch, as the JAX executor emits.
+            if want:
+                telemetry.record_pipeline(collapses=1)
+                telemetry.emit_instant("pipeline_collapsed",
+                                       label=self.label)
+            else:
+                telemetry.record_pipeline(resumes=1)
+                telemetry.emit_instant("pipeline_resumed",
+                                       label=self.label)
+            telemetry.maybe_flush_stream(force=True)
+
     # -- the loop --------------------------------------------------------------
 
     def run(self, items: Iterable) -> Iterator:
         """Drive ``items`` through the three stages; yield fetch results
         in item order. The in-flight window count never exceeds
-        ``fetch_lag`` and the ship-ahead never exceeds ``depth``."""
+        ``fetch_lag`` and the ship-ahead never exceeds ``depth``; while
+        the circuit is open both clamp to the synchronous cadence."""
         shipped: deque = deque()
         inflight: deque = deque()
         ends: deque = deque()  # event-time ends aligned with inflight
         it = iter(items)
         exhausted = False
-        depth = max(1, int(self.pol.depth))
-        lag = max(0, int(self.pol.fetch_lag))
 
         def refill(n: int):
             nonlocal exhausted
@@ -236,12 +259,15 @@ class PipelinedExecutor:
 
         # Prime the ship-ahead once, outside any window span; afterwards
         # each item tops it up INSIDE its window span.
-        refill(depth)
+        self._sync_collapse_state()
+        refill(1 if self.collapsed else max(1, int(self.pol.depth)))
         while True:
             if not shipped:
                 refill(1)  # depth-1 cadence: probe for the next item
                 if not shipped:
                     break
+            depth = 1 if self.collapsed else max(1, int(self.pol.depth))
+            lag = 0 if self.collapsed else max(0, int(self.pol.fetch_lag))
             out: list = []
             # The scope covers the item's work only, never a yield.
             with telemetry.scope(self.node), \
@@ -256,7 +282,11 @@ class PipelinedExecutor:
                     inflight.append(work)
                     ends.append(self._stamp_e2e(item, "compute"))
                     if telemetry.enabled:
-                        telemetry.record_pipeline(windows=1, overlapped=1)
+                        telemetry.record_pipeline(
+                            windows=1,
+                            **({"sync": 1} if self.collapsed
+                               else {"overlapped": 1}),
+                        )
                 while len(inflight) > lag:
                     with maybe_span("fetch"):
                         out.extend(self._fetch([inflight.popleft()]))
@@ -264,6 +294,7 @@ class PipelinedExecutor:
                     if end is not None and telemetry.enabled:
                         telemetry.record_e2e(end, "fetch")
             yield from out
+            self._sync_collapse_state()
         if inflight:  # final drain: one wait for the whole tail
             with telemetry.scope(self.node):
                 tail = list(self._fetch(list(inflight)))

@@ -280,7 +280,11 @@ def traj_stats_sliding(
 
     ``backend``: ``"auto"`` and ``"device"`` run the device engine on
     ``device``; ``"numpy"`` the float64 host engine; ``"native"`` raises
-    ``NotImplementedError`` (ROADMAP A11.4). ``mesh=`` raises (A12).
+    ``NotImplementedError`` (ROADMAP A11.4). Under an active overload
+    ``pane_backend`` rung (either target) ``"auto"`` takes the numpy
+    engine, as the JAX function does on a host without the native
+    library; a forced backend is never overridden. ``mesh=`` raises
+    (A12).
     """
     if size_ms % slide_ms != 0:
         raise ValueError("size must be a multiple of slide for pane slicing")
@@ -303,7 +307,13 @@ def traj_stats_sliding(
         raise NotImplementedError(
             "backend='native' (the C++ pane engine) is not ported yet: "
             "ROADMAP A11.4")
-    if backend in ("auto", "device"):
+    # An active pane_backend rung biases "auto" to the host, freeing the
+    # device; with no native engine (A11.4) that is the numpy engine.
+    from spatialflink_tpu_torch import overload
+
+    prefer_host = (backend == "auto"
+                   and overload.pane_backend() in ("native", "numpy"))
+    if backend == "device" or (backend == "auto" and not prefer_host):
         return _traj_stats_sliding_device(ts, xy, oid, num_oids, size_ms,
                                           slide_ms, device)
 

@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from spatialflink_tpu_torch import overload, slo
 from spatialflink_tpu_torch.faults import faults
 from spatialflink_tpu_torch.telemetry import telemetry
 
@@ -110,8 +111,11 @@ class _SlidingAssemblerBase:
                 out.append(self._window(s, e, lo, hi))
                 if record_lag:
                     # Event-time ms between window end and the watermark
-                    # that fired it.
+                    # that fired it; the SLO and overload hooks ride the
+                    # same fire site.
                     telemetry.record_watermark_lag(wm - e)
+                    slo.on_window_fired(hi - lo, lag_ms=wm - e)
+                    overload.on_window_fired(hi - lo, lag_ms=wm - e, end=e)
                 self._next_start += self.slide
             elif lo < len(ts):
                 # Empty window: jump to the earliest window holding the

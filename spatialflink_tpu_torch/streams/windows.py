@@ -14,6 +14,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Generic, Iterable, Iterator, List, Optional, TypeVar
 
+from spatialflink_tpu_torch import overload, slo
 from spatialflink_tpu_torch.faults import faults
 from spatialflink_tpu_torch.telemetry import telemetry
 
@@ -151,8 +152,15 @@ class WindowAssembler(Generic[T]):
                                          list(self._buffers[spec])))
                 self._fired[spec] = True
                 # Watermark lag: event-time ms between window end and the
-                # watermark that fired it.
+                # watermark that fired it. The SLO engine and the overload
+                # controller ride the same fire site (one global read each
+                # when nothing is installed).
                 telemetry.record_watermark_lag(wm - spec.end)
+                slo.on_window_fired(len(self._buffers[spec]),
+                                    lag_ms=wm - spec.end)
+                overload.on_window_fired(len(self._buffers[spec]),
+                                         lag_ms=wm - spec.end,
+                                         end=spec.end)
         # Forget windows past the lateness horizon (feed() already blocks
         # their re-entry).
         for spec in [s for s in self._buffers if s.end + self.lateness <= wm]:

@@ -307,7 +307,7 @@ class Telemetry:
         self._collective_axes: Dict[str, int] = {}
         self._halo_state_bytes = 0
         self._shard_watermarks: Dict[int, int] = {}
-        # Overload shed accounting (A11.3 calls it).
+        # Overload shed accounting (overload.py calls it).
         self.shed_events = 0
         self.shed_bytes = 0
         # Event-time end-to-end latency (record_e2e): one histogram per
@@ -1007,7 +1007,7 @@ class Telemetry:
                 out["halo_state_bytes"] = self._halo_state_bytes
             return json_safe(out)
 
-    # -- overload shed accounting (A11.3 calls it) -----------------------------
+    # -- overload shed accounting (overload.py calls it) -----------------------
 
     def record_shed(self, n_events: int, nbytes: int = 0):
         """Events an overload controller shed before an assembler."""

@@ -8,8 +8,8 @@ driver and fail over to their numpy twins with one; retries follow the
 pinned backoff schedule; failover is visible in telemetry; a checkpoint
 taken after a failover resumes on the twin; checkpoints resume
 byte-identically; the dial watchdog fires once; a rejected configuration
-leaves committed egress alone. The SLO-engine cases wait for ROADMAP
-A11.3 (the port has no ``slo.py``).
+leaves committed egress alone. The SLO-engine and overload cases are in
+``tests/test_torch_slo.py`` and ``tests/test_torch_overload.py``.
 
 Then the chaos matrix (``tests/test_chaos_matrix.py``) for the ten points
 the port threads: a fault armed past the retry budget crashes the run,
@@ -96,9 +96,14 @@ def _run_range(driver=None, radius=1.5, n_events=120):
 
 
 def _range_pipeline(workdir, *, fault_plan=None, checkpoint_every=2,
-                    retry=None, failover=False, pipeline=None):
+                    retry=None, failover=False, pipeline=None,
+                    with_overload=False):
     """One (possibly fault-armed) checkpointed range pipeline leg on the
-    CPU; returns the driver (crashes propagate to the caller)."""
+    CPU; returns the driver (crashes propagate to the caller). With
+    ``with_overload`` an admission controller with no budget is attached:
+    nothing sheds, but every event passes the ``overload.admit`` point."""
+    from spatialflink_tpu_torch import overload
+
     grid, conf, source, query = _toy_pipeline()
     sink = TransactionalFileSink(os.path.join(workdir, "egress.csv"))
     driver = WindowedDataflowDriver(
@@ -106,6 +111,8 @@ def _range_pipeline(workdir, *, fault_plan=None, checkpoint_every=2,
         checkpoint_every=checkpoint_every, sink=sink,
         retry=retry or RetryPolicy(max_retries=1, backoff_s=0.0),
         failover=failover, pipeline=pipeline,
+        overload=(overload.OverloadController(overload.OverloadPolicy())
+                  if with_overload else None),
     )
     op = PointPointRangeQuery(conf, grid, device="cpu")
     if fault_plan:
@@ -687,18 +694,34 @@ class TestCheckpointResume:
         with pytest.raises(ValueError, match="run_windows"):
             list(drv.run_windows(iter([])))
 
-    def test_overload_and_its_state_wait_for_a11_3(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="A11.3"):
-            WindowedDataflowDriver(overload=object())
-        from spatialflink_tpu_torch.checkpoint import save_checkpoint
+    def test_overload_runs_and_its_state_restores(self, tmp_path):
+        """``overload=`` runs, and a checkpoint holding overload state
+        restores into the resuming driver's controller."""
+        from spatialflink_tpu_torch.overload import (
+            OverloadController,
+            OverloadPolicy,
+            uninstall,
+        )
 
-        ck = str(tmp_path / "ck.bin")
-        save_checkpoint(ck, op={}, overload={"rung": 0})
-        grid, conf, source, query = _toy_pipeline()
-        with pytest.raises(NotImplementedError, match="A11.3"):
-            list(PointPointRangeQuery(conf, grid, device="cpu").run(
-                source(), [query], 1.5,
-                driver=WindowedDataflowDriver(checkpoint_path=ck)))
+        try:
+            ck = str(tmp_path / "ck.bin")
+            ctrl = OverloadController(OverloadPolicy(
+                max_buffered_events=3, admission_window_ms=500))
+            drv = WindowedDataflowDriver(checkpoint_path=ck, overload=ctrl,
+                                         source_pausable=False)
+            got, _ = _run_range(driver=drv)
+            assert got and ctrl.shed_total == drv.stats["shed"] > 0
+            state = ctrl.state()
+            assert load_checkpoint(ck)["overload"] == state
+            ctrl2 = OverloadController(OverloadPolicy())
+            grid, conf, source, query = _toy_pipeline()
+            drv2 = WindowedDataflowDriver(checkpoint_path=ck, overload=ctrl2)
+            drv2.attach(PointPointRangeQuery(conf, grid, device="cpu"))
+            assert drv2.stats["resumed"] is True
+            assert ctrl2.state() == state
+            assert ctrl2.snapshot()["shed"] == ctrl.snapshot()["shed"]
+        finally:
+            uninstall()
 
 
 class TestDialDeadline:
@@ -822,6 +845,30 @@ def test_chaos_range_leg(tmp_path, jax_range_egress, point, kind, at):
     drv = _range_pipeline(str(chaos))  # resume
     assert drv.stats["resumed"] is True
     assert (chaos / "egress.csv").read_bytes() == want
+
+
+def test_chaos_overload_admit_leg(tmp_path, jax_range_egress):
+    """``tests/test_chaos_matrix.py``'s ``overload.admit`` leg: the
+    admission path killed at its 60th hit, resumed byte-identically."""
+    from spatialflink_tpu_torch import overload
+
+    clean = tmp_path / "clean"
+    chaos = tmp_path / "chaos"
+    clean.mkdir()
+    chaos.mkdir()
+    try:
+        _range_pipeline(str(clean), with_overload=True)
+        want = (clean / "egress.csv").read_bytes()
+        assert want == jax_range_egress and want
+        with pytest.raises(InjectedFault):
+            _range_pipeline(str(chaos), with_overload=True, fault_plan=[
+                {"point": "overload.admit", "at": 60, "times": 10_000}])
+        assert (chaos / "egress.csv").read_bytes() != want
+        drv = _range_pipeline(str(chaos), with_overload=True)
+        assert drv.stats["resumed"] is True
+        assert (chaos / "egress.csv").read_bytes() == want
+    finally:
+        overload.uninstall()
 
 
 def _soa_chunks(n_chunks=12, per=10):

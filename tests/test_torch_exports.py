@@ -107,7 +107,8 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.telemetry, spatialflink_tpu_torch.faults, "
         "spatialflink_tpu_torch.ablation, spatialflink_tpu_torch.checkpoint, "
         "spatialflink_tpu_torch.driver, spatialflink_tpu_torch.state, "
-        "spatialflink_tpu_torch.streams.sinks\n"
+        "spatialflink_tpu_torch.streams.sinks, "
+        "spatialflink_tpu_torch.overload, spatialflink_tpu_torch.slo\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -145,6 +146,36 @@ def test_sinks_and_driver_exported_and_their_fault_points_threaded():
         assert f'faults.hit("{point}")' in Path(mod.__file__).read_text()
         assert f"``{point}``" in threaded and f"``{point}``" not in waiting
         assert "ROADMAP" not in tfaults.INJECTION_POINTS[point]
+
+
+def test_overload_admit_threaded_and_the_slice_modules_at_their_paths():
+    """``overload.admit`` is hit in the port's ``overload.py`` and listed
+    as threaded; ``overload`` and ``slo`` sit at the JAX package's module
+    paths with its public names (neither ``__init__`` re-exports them),
+    and no source of the port raises naming A11.3."""
+    import spatialflink_tpu_torch.faults as tfaults
+    from spatialflink_tpu import overload as jov
+    from spatialflink_tpu import slo as jslo
+    from spatialflink_tpu_torch import overload, slo
+
+    threaded, waiting = tfaults.__doc__.split("The other points wait")
+    assert 'faults.hit("overload.admit")' in \
+        Path(overload.__file__).read_text()
+    assert "``overload.admit``" in threaded
+    assert "``overload.admit``" not in waiting
+    assert "ROADMAP" not in tfaults.INJECTION_POINTS["overload.admit"]
+    for jmod, tmod in ((jov, overload), (jslo, slo)):
+        public = {n for n in vars(jmod) if not n.startswith("_")
+                  and not inspect.ismodule(getattr(jmod, n))
+                  and getattr(getattr(jmod, n), "__module__",
+                              jmod.__name__) == jmod.__name__}
+        assert public <= set(vars(tmod)), public - set(vars(tmod))
+    for name in ("overload", "slo"):
+        assert name not in jax_exports("") and name not in port.NOT_EXPORTED.get(
+            "", {})
+    hits = [str(p) for p in (REPO / "spatialflink_tpu_torch").rglob("*.py")
+            if "A11.3" in p.read_text()]
+    assert hits == []
 
 
 # ---------------------------------------------------------------------------

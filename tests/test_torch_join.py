@@ -47,7 +47,6 @@ from spatialflink_tpu.streams.windows import SlidingEventTimeWindows as JSW
 from spatialflink_tpu.streams.windows import WindowAssembler as JWA
 from spatialflink_tpu.utils.interning import Interner as JInterner
 
-from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.batch import PointBatch
 from spatialflink_tpu_torch.models.objects import Point
@@ -351,12 +350,8 @@ def test_join_backend_rules(backend, dev, ok):
 def test_unported_options_raise():
     conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
     op = PointPointJoinQuery(conf, UniformGrid(**COARSE), device="cpu")
-    # driver= is ported; the driver's overload= waits for A11.3.
-    for kw in ({"overload": object()}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            if "overload" in kw:
-                kw = {"driver": WindowedDataflowDriver(**kw)}
-            list(op.run([], [], R, **kw))
+    with pytest.raises(NotImplementedError):
+        list(op.run([], [], R, mesh=object()))
     geo = PolygonPolygonJoinQuery(conf, UniformGrid(**COARSE), device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         list(geo.run([], [], R, mesh=object()))
@@ -571,3 +566,29 @@ def test_run_matches_jax(case):
     if case == "approximate":
         # every grid candidate, beyond the radius too
         assert max(d for r in got for *_, d in r.pairs) > R
+
+
+@pytest.mark.parametrize("qt", ["WindowBased", "RealTimeNaive"])
+def test_driver_with_an_overload_controller_changes_nothing(qt):
+    from test_torch_overload import (
+        assert_budget_free_controller_changes_nothing,
+    )
+
+    rng = np.random.default_rng(8)
+    conf = QueryConfiguration(QueryType[qt], window_size=1.0,
+                              slide_step=1.0)
+
+    def side(tag):
+        xy = rng.uniform([116.0, 39.9], [116.3, 40.2], (300, 2))
+        return [Point(obj_id=f"{tag}{i % 40}", timestamp=int(10 * i),
+                      x=float(x), y=float(y)) for i, (x, y) in enumerate(xy)]
+
+    left, right = side("a"), side("b")
+
+    def run(driver):
+        op = PointPointJoinQuery(conf, UniformGrid(**COARSE), device="cpu")
+        return [(r.start, r.end, r.overflow,
+                 [(p.obj_id, q.obj_id, d) for p, q, d in r.pairs])
+                for r in op.run(left, right, R, driver=driver)]
+
+    assert_budget_free_controller_changes_nothing(run)

@@ -1341,3 +1341,160 @@ def test_wire_carry_checkpoint_restores_on_card_and_cpu(tmp_path):
         assert resumed._wire_pane_carry["digests"][0][0].device == \
             resumed.device
         assert head + run(resumed, panes[cut:]) == whole
+
+
+def _headline_like(seed=42, n_panes=12, per=2000):
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.streams.wire import WireFormat, wire_panes
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    wf = WireFormat.for_grid(grid)
+    rng = np.random.default_rng(seed)
+    n = n_panes * per
+    panes = list(wire_panes([{
+        "ts": np.sort(rng.integers(0, n_panes * 1000, n)).astype(np.int64),
+        "x": rng.uniform(115.5, 117.6, n), "y": rng.uniform(39.6, 41.1, n),
+        "oid": rng.integers(0, NSEG, n)}], wf, 1000, 0))
+    return grid, wf, panes
+
+
+@pytest.mark.cuda
+def test_batch_slides_on_the_wire_path_through_b1_on_card(tmp_path):
+    """The overload ``batch_slides`` rung on the card: windows bit-equal
+    to the unbatched card run and to the CPU run, one device→host copy a
+    batch of 4, and a checkpoint taken with a batch open restored into a
+    fresh card operator losing no window."""
+    dev = _card()
+    from spatialflink_tpu_torch import overload
+    from spatialflink_tpu_torch.checkpoint import (
+        load_checkpoint,
+        operator_state,
+        restore_operator,
+        save_checkpoint,
+    )
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    grid, wf, panes = _headline_like()
+    q = Point(x=116.4, y=40.19)
+    conf = QueryConfiguration(window_size=2.0, slide_step=1.0)
+
+    def run(device, part=panes):
+        o = PointPointKNNQuery(conf, grid, device=device)
+        return o, [(s, e, ids.tolist(), d.view(np.uint32).tolist(), nv)
+                   for s, e, ids, d, nv in o.run_wire_panes(
+                       part, q, 0.5, 10, NSEG, wf)]
+
+    _, base = run(dev)
+    _, cpu = run(torch.device("cpu"))
+    try:
+        ctrl = overload.install(overload.OverloadController(
+            overload.OverloadPolicy(
+                ladder=({"action": "batch_slides", "n": 4},),
+                degrade_cooldown=1)))
+        ctrl.on_slo_evaluation(False)
+        wire_digest.launches = 0
+        telemetry.enable()
+        _, got = run(dev)
+        fetches = sum(1 for e in telemetry.events if e["name"] == "fetch")
+        telemetry.disable()
+        assert wire_digest.launches >= len(panes)
+        assert got == base == cpu
+        assert fetches == -(-len(base) // 4)
+        first = PointPointKNNQuery(conf, grid, device=dev)
+        head = []
+        gen = first.run_wire_panes(panes, q, 0.5, 10, NSEG, wf)
+        for s, e, ids, d, nv in gen:
+            head.append((s, e, ids.tolist(), d.view(np.uint32).tolist(), nv))
+            if len(head) == 6:  # two windows of the second batch out
+                break
+        gen.close()
+        state = operator_state(first)
+        cut = int(state["knn_wire_pane_carry"]["next_pane"])
+        path = str(tmp_path / "wire.ckpt")
+        save_checkpoint(path, op=state)
+        resumed = PointPointKNNQuery(conf, grid, device=dev)
+        restore_operator(resumed, load_checkpoint(path)["op"])
+        rest = [(s, e, ids.tolist(), d.view(np.uint32).tolist(), nv)
+                for s, e, ids, d, nv in resumed.run_wire_panes(
+                    panes[cut:], q, 0.5, 10, NSEG, wf)]
+        assert head + rest == base
+    finally:
+        overload.uninstall()
+        telemetry.disable()
+
+
+@pytest.mark.cuda
+def test_circuit_breaker_round_trip_on_card():
+    """The device-path circuit breaker on the card: two failing windows
+    open it, two windows go to the numpy twin with no device attempt, a
+    probe closes it, and the device path answers the rest. Windows equal
+    the clean card run; with the pipeline armed the driver collapses to
+    the synchronous cadence while the circuit is open."""
+    dev = _card()
+    from spatialflink_tpu_torch import overload, pipeline
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+    )
+    from spatialflink_tpu_torch.faults import faults
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointRangeQuery,
+        QueryConfiguration,
+    )
+
+    rng = np.random.default_rng(7)
+    n = 8 * 2000
+    xy = np.stack([rng.uniform(116.0, 116.8, n), rng.uniform(39.8, 40.6, n)],
+                  axis=1)
+    stream = [Point(obj_id=f"p{i % 500}", timestamp=int(i * 1000 // 2000),
+                    x=float(x), y=float(y)) for i, (x, y) in enumerate(xy)]
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    q = [Point(x=116.4, y=40.2)]
+
+    def run(driver=None, plan=None):
+        if plan:
+            faults.arm(plan)
+        try:
+            out = []
+            for r in PointPointRangeQuery(conf, grid, device=dev).run(
+                    iter(stream), q, 0.1, driver=driver):
+                out.append((r.start, [p.obj_id for p in r.objects],
+                            np.asarray(r.dists).view(np.uint32).tolist(),
+                            pipeline.breaker_collapsed()))
+            return out
+        finally:
+            faults.disarm()
+
+    base = [w[:3] for w in run()]
+    try:
+        for pol, plan in (
+                (None, [{"point": "driver.window", "at": 1, "times": 2}]),
+                (pipeline.PipelinePolicy(depth=2, fetch_lag=1),
+                 [{"point": "pipeline.ship", "at": 1, "times": 2},
+                  {"point": "driver.window", "at": 1, "times": 2}])):
+            ctrl = overload.OverloadController(overload.OverloadPolicy(
+                breaker_failures=2, breaker_probe_every=3))
+            drv = WindowedDataflowDriver(
+                retry=RetryPolicy(max_retries=0, backoff_s=0.0),
+                overload=ctrl, pipeline=pol)
+            got = run(drv, plan)
+            assert [w[:3] for w in got] == base and len(base) >= 6
+            assert ctrl.breaker.snapshot() == {
+                "state": "closed", "opens": 1, "probes": 1,
+                "consecutive_failures": 0}
+            assert drv.backend == "device" and drv.stats["failovers"] == 0
+            assert ctrl.degraded_windows == 4
+            assert [w[3] for w in got][:5] == [False, True, True, True,
+                                               False]
+            overload.uninstall()
+    finally:
+        overload.uninstall()

@@ -36,7 +36,6 @@ from spatialflink_tpu.operators import QueryConfiguration as JConf
 from spatialflink_tpu.operators import QueryType as JQT
 from spatialflink_tpu.streams.wire import WireFormat as JWireFormat
 
-from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.operators import (
@@ -364,10 +363,6 @@ def test_unported_options_raise():
         PointPolygonKNNQuery(conf, g, device="cpu", mesh=object())
     op = PointLineStringKNNQuery(conf, g, device="cpu")
     q = _query("linestring")[0]
-    # driver= is ported; the driver's overload= waits for A11.3.
-    with pytest.raises(NotImplementedError, match="A11.3"):
-        next(op.run(iter([]), q, R, 5,
-                    driver=WindowedDataflowDriver(overload=object())))
     with pytest.raises(NotImplementedError, match="A12"):
         next(op.run(iter([]), q, R, 5, mesh=object()))
     if not torch.cuda.is_available():
@@ -395,3 +390,26 @@ def test_interner_from_jax_round_trips():
     got = list(op.run(iter(pts[300:]), q, R, 10))
     want = list(jop.run(iter(jpts[300:]), jq, R, 10, dtype=np.float32))
     _same_windows(got, want, LINE_ATOL, ties=True)
+
+
+@pytest.mark.parametrize("kind", ["point", "linestring"])
+def test_driver_with_an_overload_controller_changes_nothing(kind):
+    from test_torch_overload import (
+        assert_budget_free_controller_changes_nothing,
+    )
+
+    rng = np.random.default_rng(6)
+    xy = rng.uniform([116.2, 39.9], [116.6, 40.3], (600, 2))
+    stream = [Point(obj_id=f"o{i % 50}", timestamp=int(5 * i), x=float(x),
+                    y=float(y)) for i, (x, y) in enumerate(xy)]
+    cls = PointPointKNNQuery if kind == "point" else PointLineStringKNNQuery
+    q = _query(kind)[0]
+
+    def run(driver):
+        op = cls(QueryConfiguration(window_size=1.0, slide_step=0.5),
+                 UniformGrid(**GRID16), device="cpu")
+        return [(r.start, r.end, [(o, d, e.obj_id) for o, d, e in
+                                  r.neighbors])
+                for r in op.run(iter(stream), q, R, 5, driver=driver)]
+
+    assert_budget_free_controller_changes_nothing(run)

@@ -57,9 +57,8 @@ from spatialflink_tpu.ops.polygon import point_polygon_distance as j_ppoly
 from spatialflink_tpu.ops.polygon import points_in_polygon as j_pip
 from spatialflink_tpu.utils.helper import generate_query_polygons as j_gen
 
-from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
-from spatialflink_tpu_torch.models.objects import LineString, Point
+from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.operators import (
     PointLineStringRangeQuery,
     PointPointRangeQuery,
@@ -716,10 +715,6 @@ def test_device_and_unported_options():
     with pytest.raises(NotImplementedError, match="A12"):
         PointPointRangeQuery(conf, g, device="cpu", mesh=object())
     op = PointPointRangeQuery(conf, g, device="cpu")
-    # driver= is ported; the driver's overload= waits for A11.3.
-    with pytest.raises(NotImplementedError, match="A11.3"):
-        list(op.run(iter([]), [Point()], 0.1,
-                    driver=WindowedDataflowDriver(overload=object())))
     with pytest.raises(NotImplementedError, match="A12"):
         list(op.run(iter([]), [Point()], 0.1, mesh=object()))
     with pytest.raises(NotImplementedError, match="A12"):
@@ -747,3 +742,30 @@ def test_sqrt_rn_is_correctly_rounded_on_any_split():
                 got, np.sqrt(s.astype(np.float64)).astype(np.float32))
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("kind", ["point", "polygon"])
+def test_driver_with_an_overload_controller_changes_nothing(kind):
+    from test_torch_overload import (
+        assert_budget_free_controller_changes_nothing,
+    )
+
+    rng = np.random.default_rng(10)
+    xy = rng.uniform([116.0, 39.9], [116.4, 40.3], (500, 2))
+    stream = [Point(obj_id=f"o{i % 60}", timestamp=int(4 * i), x=float(x),
+                    y=float(y)) for i, (x, y) in enumerate(xy)]
+    if kind == "point":
+        cls, queries, r = PointPointRangeQuery, [Point(x=116.2, y=40.1)], 0.05
+    else:
+        ring = [(116.1, 40.0), (116.3, 40.0), (116.3, 40.2), (116.1, 40.2),
+                (116.1, 40.0)]
+        cls, queries, r = PointPolygonRangeQuery, [Polygon(rings=[ring])], R
+
+    def run(driver):
+        op = cls(QueryConfiguration(window_size=1.0, slide_step=1.0),
+                 UniformGrid(**COARSE), device="cpu")
+        return [(res.start, res.end, [p.obj_id for p in res.objects],
+                 np.asarray(res.dists).tolist())
+                for res in op.run(iter(stream), queries, r, driver=driver)]
+
+    assert_budget_free_controller_changes_nothing(run)

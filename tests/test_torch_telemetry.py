@@ -823,7 +823,9 @@ def test_every_instant_the_port_emits_is_classified(tmp_path):
                                 src.read_text()))
     assert {"fault_armed", "fault_fired:", "ablation_armed",
             "link_probe", "blackbox_dumped", "driver_retry",
-            "failover"} == heads
+            "failover", "circuit_open", "circuit_half_open",
+            "circuit_closed", "pipeline_collapsed", "pipeline_resumed",
+            "slo_violation:", "slo_recovered:"} == heads
     for head in heads:
         assert known(head + ("x" if head.endswith(":") else "")), head
 

@@ -44,7 +44,6 @@ from spatialflink_tpu.ops import compaction as jcomp
 from spatialflink_tpu.ops import tjoin_panes as jtp
 
 from spatialflink_tpu_torch import pipeline
-from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.operators import (
     PointPointTJoinQuery,
@@ -510,12 +509,27 @@ def test_guards_raise_value_error(case):
 
 
 @pytest.mark.parametrize("kw,item", [({"backend": "native"}, "A11"),
-                                     ({"mesh": object()}, "A12"),
-                                     ({"overload": object()}, "A11")])
+                                     ({"mesh": object()}, "A12")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        if "overload" in kw:
-            # driver= is ported; the driver's overload= waits for A11.3.
-            kw = {"driver": WindowedDataflowDriver(**kw)}
         list(_port(1.0, 0.5).run_soa_panes(_one_point(), _one_point(), 0.5,
                                            4, **kw))
+
+
+def test_driver_with_an_overload_controller_runs():
+    """``driver=`` with an overload controller (no budget) runs the pane
+    engine and changes no window (the precomputed windows pass no
+    admission)."""
+    from test_torch_overload import (
+        assert_budget_free_controller_changes_nothing,
+    )
+
+    left = _chunks(np.random.default_rng(3), 200, 3000, 6)
+    right = _chunks(np.random.default_rng(4), 200, 3000, 6, shift=0.2)
+
+    def run(driver):
+        kw = {} if driver is None else {"driver": driver}
+        return list(_port(1.0, 0.5).run_soa_panes(
+            _copies(left), _copies(right), 0.5, 6, **kw))
+
+    assert_budget_free_controller_changes_nothing(run)

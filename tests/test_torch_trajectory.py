@@ -51,7 +51,6 @@ from spatialflink_tpu.operators import QueryType as JQT
 from spatialflink_tpu.operators import trajectory as jtraj
 from spatialflink_tpu.ops import trajectory as jops
 
-from spatialflink_tpu_torch.driver import WindowedDataflowDriver
 from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.objects import Point, Polygon
 from spatialflink_tpu_torch.operators import (
@@ -654,13 +653,28 @@ def test_unported_options_raise_naming_their_items():
             "y": np.asarray([1.0]), "oid": np.asarray([0], np.int32)}]
     with pytest.raises(NotImplementedError, match="A11"):
         list(op.run_soa_panes(one, one, 1.0, 16, backend="native"))
-    # driver= is ported; the driver's overload= waits for A11.3.
-    with pytest.raises(NotImplementedError, match="A11"):
-        next(PointTStatsQuery(conf, grid, device="cpu").run(
-            iter([]), driver=WindowedDataflowDriver(overload=object())))
     with pytest.raises(NotImplementedError, match="A12"):
         PointTStatsQuery(conf, grid, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="A12"):
         next(op.run(iter([]), iter([]), 1.0, mesh=object()))
     with pytest.raises(TypeError):
         trajectory_state_from_jax(object())
+
+
+def test_driver_with_an_overload_controller_changes_nothing():
+    from test_torch_overload import (
+        assert_budget_free_controller_changes_nothing,
+        plain,
+    )
+
+    rng = np.random.default_rng(13)
+    xy = rng.uniform(0.0, 10.0, (400, 2))
+    stream = [Point(obj_id=f"t{i % 7}", timestamp=int(25 * i), x=float(x),
+                    y=float(y)) for i, (x, y) in enumerate(xy)]
+
+    def run(driver):
+        op = PointTStatsQuery(_conf(2.0, 1.0)[0], UniformGrid(**GRID),
+                              device="cpu")
+        return [plain(r) for r in op.run(iter(stream), driver=driver)]
+
+    assert_budget_free_controller_changes_nothing(run)
