@@ -10,6 +10,7 @@ NVIDIA card.
     python3 chip_smoke.py --runtime-only      # phases 1-2 and 31
     python3 chip_smoke.py --driver-only       # phases 1-2 and 32
     python3 chip_smoke.py --overload-only     # phases 1-2 and 33
+    python3 chip_smoke.py --qserve-only       # phases 1-2 and 34
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -338,6 +339,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    verdict sealed in the ledger stream, every check as on the CPU; and
    ``python -m spatialflink_tpu_torch.overload --smoke`` on the card in
    the background, exit 0.
+34. standing-query serving (``qserve.py``, ``ops/query_registry.py``; the
+   registry program is plain PyTorch, as the JAX program is plain
+   ``jnp``) on the card: (a) ``registry_bucket_kernel`` at the JAX
+   suite's qserve_1024q_mixed (1,024 standing queries from seed 37, half
+   range and half kNN, k (32, 5, 10, 30), r (0.002, 0.02, 0.05) deg, in 12
+   buckets; 8 windows of 131,072 points of the suite's stream from seed 41
+   with 16,384 objIDs; 16 queries swapped in each bucket every window at
+   the same occupancy), every live lane of every window equal to that
+   query run alone through ``knn_points_fused`` on the card (segment,
+   index, ``num_valid`` exact, distance bits), padded lanes empty, windows
+   0 and 7 bit-equal to the CPU run (a cut), the program's signatures
+   within the ladder's rungs x the k-rungs; the rate, the device's busy
+   ms a window and idle share (a traced run), its kernel launches a
+   window and the host ms of each window's churn restaging; (b)
+   ``QServeOperator.run(driver=)`` over the 1,024 boot registrations, 2
+   one-second windows of 131,072 ``Point``s at 34a's positions (a cut of
+   8 windows: the feed is per-event Python) and 32 churn commands a
+   window, under tenant budgets (a "firehose" class over its standing-
+   query budget, a "bulk" class over its result budget) and an
+   ``SloSpec.tenant_budgets`` verdict, checkpointed every window: the
+   egress of the clean card run, the CPU run and a run stopped after
+   window 1 and resumed in a fresh operator byte-identical, the registry
+   counters, the truncations and the SLO tenant rows equal.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -714,12 +738,13 @@ def profile_run(run, card, label="sync run"):
     return wall_us / 1e3, busy_us / 1e3
 
 
-def trace_busy(run):
+def trace_busy(run, by_name=None):
     """(wall s, device busy s, kernels) of one ``run()`` under a
     torch.profiler trace of CUDA activity. Busy time is the union of the
     device-side intervals, read from the raw trace events: for a trace
     of the whole pane-carry tJoin (~670,000 kernels) that is far cheaper
-    than building the profiler's event objects."""
+    than building the profiler's event objects. ``by_name``: a dict that
+    gathers device ns by activity name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -736,6 +761,9 @@ def trace_busy(run):
             lo = e.start_ns()
             spans.append((lo, lo + e.duration_ns()))
             kernels += not e.name().startswith(("Memset", "Memcpy"))
+            if by_name is not None:
+                by_name[e.name()] = by_name.get(e.name(), 0) + \
+                    e.duration_ns()
     spans.sort()
     busy_ns, end = 0, -1
     for lo, hi in spans:
@@ -6432,6 +6460,487 @@ def check_overload(card, panes, wf, gpu="cuda"):
     return launches
 
 
+QS_QUERIES = 1024        # standing queries (bench_suite.py:560-700)
+QS_QUERY_SEED = 37       # the suite's query seed
+QS_STREAM_SEED = 41      # the suite's _stream seed (bench_suite.py:47-54)
+QS_WIN = 131_072         # points a window
+QS_WINDOWS = 8           # 34a's windows
+QS_CHURN = 16            # queries swapped in each bucket every window
+QS_IDS = 16_384          # the stream's objIDs, the program's num_segments
+QS_CAP = 1024            # the bucket-capacity ceiling (qserve.QUERY_CAP_MAX)
+QS_CPU_WINDOWS = (0, 7)  # 34a's windows held against the CPU run (a cut)
+QS_OP_WINDOWS = 2        # 34b's windows of Point objects (a cut of 8)
+QS_FIRE_MAX = 100        # 34b: the "firehose" class's standing-query budget
+QS_BULK_ROWS = 200       # 34b: the "bulk" class's result rows a window
+
+
+def qserve_query(rng, i):
+    """The JAX suite's qserve_1024q_mixed query ``i`` (its ``mk_query``):
+    half range and half kNN, k = (32, 5, 10, 30)[i % 4], radius = (0.002,
+    0.02, 0.05)[i % 3] deg, tenant t{i % 97}."""
+    from spatialflink_tpu_torch.qserve import StandingQuery
+
+    return StandingQuery(
+        qid=f"q{i}", tenant=f"t{i % 97}",
+        kind="range" if i % 2 == 0 else "knn",
+        x=float(rng.uniform(115.6, 117.5)), y=float(rng.uniform(39.7, 41.0)),
+        radius=float((0.002, 0.02, 0.05)[i % 3]), k=(32, 5, 10, 30)[i % 4])
+
+
+class QServeSuite:
+    """34a's standing-query set and its churn, made anew from the query
+    seed for each run: the 1,024 queries bucketed by ``bucket_key``; each
+    ``churn()`` swaps the oldest QS_CHURN queries of every bucket for
+    fresh positions at the same kind, k and radius (the suite's
+    ``churn_buckets``), so the occupancy and the rungs stay put."""
+
+    def __init__(self, grid):
+        from spatialflink_tpu_torch.qserve import bucket_key
+
+        self.grid = grid
+        self.rng = np.random.default_rng(QS_QUERY_SEED)
+        self.buckets = {}
+        for i in range(QS_QUERIES):
+            q = qserve_query(self.rng, i)
+            self.buckets.setdefault(bucket_key(q), []).append(q)
+        self.next_id = QS_QUERIES
+        self._flags = {}
+
+    def flags_of(self, q):
+        key = (q.x, q.y, q.radius)
+        if key not in self._flags:
+            self._flags[key] = self.grid.neighbor_flags(
+                q.radius, [self.grid.flat_cell(q.x, q.y)])
+        return self._flags[key]
+
+    def churn(self):
+        from spatialflink_tpu_torch.qserve import StandingQuery
+
+        for key in sorted(self.buckets):
+            qs = self.buckets[key]
+            for _ in range(min(QS_CHURN, len(qs))):
+                old = qs.pop(0)
+                fresh = qserve_query(self.rng, self.next_id)
+                self.next_id += 1
+                qs.append(StandingQuery(
+                    qid=f"q{self.next_id}", tenant=fresh.tenant,
+                    kind=old.kind, x=fresh.x, y=fresh.y, radius=old.radius,
+                    k=old.k))
+
+
+def qserve_points():
+    """The suite's ``_stream(8 x 131,072, seed=41)``: float64 positions
+    over the Beijing extent and 16,384 objIDs (the suite casts the
+    positions to float32 uncentred; the port centres in float64 first,
+    ``center_coords``)."""
+    n = QS_WINDOWS * QS_WIN
+    rng = np.random.default_rng(QS_STREAM_SEED)
+    xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
+                  axis=1)
+    oid = rng.integers(0, QS_IDS, n).astype(np.int32)
+    return xy, oid
+
+
+def qserve_registry_setup(device, grid):
+    """34a's set-up on ``device``, as the suite stages before it times:
+    the query set and its flag tables, and every bucket staged
+    (pick_capacity, bucket_host_arrays, ``ship``). The radius ships as
+    float32, as the suite's ``stage_bucket`` casts it. Returns (suite,
+    stage, staged)."""
+    from spatialflink_tpu_torch.operators.base import center_coords, ship
+    from spatialflink_tpu_torch.ops.compaction import pick_capacity
+    from spatialflink_tpu_torch.qserve import bucket_host_arrays
+
+    suite = QServeSuite(grid)
+
+    def stage(qs):
+        cap = pick_capacity(len(qs), QS_CAP, minimum=8)
+        qxy, radius, qvalid, tables = bucket_host_arrays(
+            grid, qs, cap, flags_of=suite.flags_of)
+        t, r, v, q = ship(tables, radius.astype(np.float32), qvalid,
+                          center_coords(grid, qxy), device=device).arrive()
+        return {"cap": cap, "tables": t, "radius": r, "qvalid": v, "qxy": q}
+
+    staged = {key: stage(qs) for key, qs in suite.buckets.items()}
+    return suite, stage, staged
+
+
+def qserve_registry_run(device, setup, win_args, dispatch=None, keep=()):
+    """34a's windows on ``device`` from ``setup`` (``qserve_registry_
+    setup``), as the suite times them: per window churn (windows 1-7,
+    the restaging of every churned bucket timed on the host), ship the
+    window's points and launch every bucket's ``registry_bucket_kernel``
+    (through ``jitted``); one ``telemetry.fetch`` after the last window.
+    ``dispatch``: the windows whose buckets run (default all). Returns
+    (per window: [(key, queries, staged arrays, fetched)] for windows in
+    ``keep``, else None; churn ms a window; window point tensors kept)."""
+    from spatialflink_tpu_torch.operators.base import jitted, ship
+    from spatialflink_tpu_torch.ops.query_registry import (
+        registry_bucket_kernel,
+    )
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    suite, stage, staged = setup
+    kernel = jitted(registry_bucket_kernel)
+    pending, kept, churn_ms, points = [], {}, [], {}
+    for w in range(QS_WINDOWS):
+        if w:
+            t0 = time.perf_counter()
+            suite.churn()
+            staged = {key: stage(qs) for key, qs in suite.buckets.items()}
+            churn_ms.append((time.perf_counter() - t0) * 1e3)
+        if dispatch is not None and w not in dispatch:
+            continue
+        xy_d, valid_d, cell_d, oid_d = ship(*win_args[w],
+                                            device=device).arrive()
+        for key in sorted(staged):
+            b = staged[key]
+            r = kernel(xy_d, valid_d, cell_d, b["tables"], oid_d, b["qxy"],
+                       b["radius"], b["qvalid"], k=int(key[1]),
+                       num_segments=QS_IDS, query_block=min(b["cap"], 32))
+            pending.append((r.num_valid, r.within, r.segment, r.index,
+                            r.dist))
+        if w in keep:
+            points[w] = (xy_d, valid_d, cell_d, oid_d)
+            kept[w] = [(key, list(suite.buckets[key]), staged[key])
+                       for key in sorted(staged)]
+    fetched = iter(telemetry.fetch(pending))
+    out = []
+    for w in range(QS_WINDOWS):
+        if dispatch is not None and w not in dispatch:
+            out.append(None)
+            continue
+        window = [next(fetched) for _ in range(len(staged))]
+        out.append([(*kb, f) for kb, f in zip(kept[w], window)]
+                   if w in kept else None)
+    return out, churn_ms, points
+
+
+def qserve_command_stream(points_xy, oid):
+    """34b's stream: the 1,024 queries' boot registrations (one class in
+    eight is "firehose", over its standing-query budget; another "bulk",
+    over its result budget), QS_OP_WINDOWS one-second windows of QS_WIN
+    ``Point``s at 34a's first positions, and churn inside each window:
+    16 unregistrations and 16 registrations at fresh positions halfway
+    through it."""
+    import dataclasses
+
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.qserve import QServeCommand, boot_commands
+
+    rng = np.random.default_rng(QS_QUERY_SEED)
+    classes = {0: "firehose", 1: "bulk"}
+    queries = [dataclasses.replace(qserve_query(rng, i),
+                                   tenant_class=classes.get(i % 8, "default"))
+               for i in range(QS_QUERIES)]
+    out = list(boot_commands(queries))
+    n = QS_OP_WINDOWS * QS_WIN
+    for w in range(QS_OP_WINDOWS):
+        mid = w * 1000 + 500
+        for j in range(QS_CHURN):
+            old = queries[w * QS_CHURN + j]
+            out.append(QServeCommand(timestamp=mid, action="unregister",
+                                     uid=f"u{w}:{old.qid}", qid=old.qid))
+            fresh = dataclasses.replace(
+                qserve_query(rng, QS_QUERIES + w * QS_CHURN + j),
+                tenant_class=old.tenant_class)
+            out.append(QServeCommand(timestamp=mid, action="register",
+                                     uid=f"r{w}:{fresh.qid}", query=fresh))
+    cmds = sorted(out[QS_QUERIES:], key=lambda c: c.timestamp)
+    events = out[:QS_QUERIES]
+    ts = (np.arange(n, dtype=np.int64) * 1000) // QS_WIN
+    for i in range(n):
+        t = int(ts[i])
+        while cmds and cmds[0].timestamp <= t:
+            events.append(cmds.pop(0))
+        events.append(Point(obj_id=f"o{int(oid[i])}", timestamp=t,
+                            x=float(points_xy[i, 0]),
+                            y=float(points_xy[i, 1])))
+    return events + cmds
+
+
+def check_qserve(card, gpu="cuda"):
+    """Phase 34: standing-query serving (``qserve.py``,
+    ``ops/query_registry.py``) on the card. (a) The registry bucket
+    program at the JAX suite's qserve_1024q_mixed; (b) ``QServeOperator``
+    through the driver with tenant budgets, an SLO verdict and a stop and
+    resume. ``gpu="cpu"`` rehearses it on the CPU (the trace is skipped).
+    Returns the phase's walls."""
+    import os
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch import overload, qserve, slo
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+    )
+    from spatialflink_tpu_torch.faults import InjectedFault, faults
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+    from spatialflink_tpu_torch.operators.base import center_coords
+    from spatialflink_tpu_torch.ops.compaction import capacity_ladder
+    from spatialflink_tpu_torch.ops.knn import F32_BIG, knn_points_fused
+    from spatialflink_tpu_torch.streams.sinks import TransactionalFileSink
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    dev = torch.device(gpu)
+    cpu = torch.device("cpu")
+    grid = UniformGrid(**BEIJING)
+    walls = {}
+    t_phase = t0 = time.perf_counter()
+    # 34a: the registry program.
+    xy, oid = qserve_points()
+    cell = grid.assign_cells_np(xy).astype(np.int32)
+    win_args = []
+    for w in range(QS_WINDOWS):
+        sl = slice(w * QS_WIN, (w + 1) * QS_WIN)
+        win_args.append((center_coords(grid, xy[sl]), np.ones(QS_WIN, bool),
+                         cell[sl], oid[sl]))
+    walls["data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    telemetry.enable()
+    try:
+        got, churn_ms, pts = qserve_registry_run(
+            dev, qserve_registry_setup(dev, grid), win_args,
+            keep=range(QS_WINDOWS))
+        sigs = telemetry.distinct_shapes("registry_bucket_kernel")
+    finally:
+        telemetry.disable()
+    buckets = got[0]
+    k_rungs = {key[1] for key, *_ in buckets}
+    caps = {key: b["cap"] for key, _, b, _ in buckets}
+    if len(buckets) != 12 or sigs > len(capacity_ladder(QS_CAP, 8)) * \
+            len(k_rungs):
+        raise AssertionError(f"34a: {len(buckets)} buckets, {sigs} "
+                             "signatures")
+    # Padded lanes empty, and every live lane equal to the query run
+    # alone through knn_points_fused on the card (its radius the float32
+    # one the bucket compares, its k the bucket's rung).
+    n_live = n_lanes = 0
+    for w, window in enumerate(got):
+        xy_d, valid_d, cell_d, oid_d = pts[w]
+        singles = []
+        for key, qs, b, (nv, within, seg, idx, dist) in window:
+            live = len(qs)
+            n_live += live
+            n_lanes += b["cap"]
+            if (nv[live:] != 0).any() or (within[live:] != 0).any() or \
+                    (seg[live:] != -1).any() or (idx[live:] != -1).any() \
+                    or (dist[live:] != F32_BIG).any():
+                raise AssertionError(f"34a: window {w} {key}: a padded lane "
+                                     "is not empty")
+            for lane in range(live):
+                r = knn_points_fused(
+                    xy_d, valid_d, cell_d, b["tables"][lane], oid_d,
+                    b["qxy"][lane], b["radius"][lane:lane + 1],
+                    int(key[1]), QS_IDS)
+                singles.append((r.dist, r.segment, r.index, r.num_valid))
+        host = telemetry.fetch(singles)
+        i = 0
+        for key, qs, b, (nv, within, seg, idx, dist) in window:
+            for lane in range(len(qs)):
+                sd, ss, si, snv = host[i]
+                i += 1
+                if not (np.array_equal(sd.view(np.uint32),
+                                       dist[lane].view(np.uint32))
+                        and np.array_equal(ss, seg[lane])
+                        and np.array_equal(si, idx[lane])
+                        and int(snv) == int(nv[lane])):
+                    raise AssertionError(
+                        f"34a: window {w} {key} lane {lane} ({qs[lane].qid}) "
+                        "differs from knn_points_fused alone")
+    walls["a card + singles"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _, _ = qserve_registry_run(cpu, qserve_registry_setup(cpu, grid),
+                                     win_args, dispatch=QS_CPU_WINDOWS,
+                                     keep=QS_CPU_WINDOWS)
+    for w in QS_CPU_WINDOWS:
+        for (key, qs, _, fa), (key_c, qs_c, _, fb) in zip(got[w], want[w]):
+            if key != key_c or [q.qid for q in qs] != [q.qid for q in qs_c] \
+                    or not all(np.array_equal(a.view(np.uint8),
+                                              b.view(np.uint8))
+                               for a, b in zip(fa, fb)):
+                raise AssertionError(f"34a: window {w} {key} differs from "
+                                     "the CPU run")
+    walls["a CPU"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # Timed as the suite times it: the set-up before the clock, then
+    # the 8 windows, churn included, and the one fetch.
+    t1 = time.perf_counter()
+    setup = qserve_registry_setup(dev, grid)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    _, churn_timed, _ = qserve_registry_run(dev, setup, win_args)
+    secs = time.perf_counter() - t1
+    n_points = QS_WINDOWS * QS_WIN
+    if gpu == "cuda":
+        names = {}
+        setup = qserve_registry_setup(dev, grid)
+        wall, busy, kernels = trace_busy(
+            lambda: qserve_registry_run(dev, setup, win_args),
+            by_name=names)
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+        dev_line = (f"device busy {1e3 * busy / QS_WINDOWS:.3f} ms a window "
+                    f"({idle(wall, busy)} over the traced run's "
+                    f"{wall:.3f} s), {kernels / QS_WINDOWS:.1f} kernel "
+                    "launches a window; device ms a window by kernel: "
+                    + ", ".join(f"{v / 1e6 / QS_WINDOWS:.3f} {k[:60]}"
+                                for k, v in top))
+    else:
+        dev_line = "device busy not measured (CPU rehearsal)"
+    walls["a timed + traced"] = time.perf_counter() - t0
+    live_total = sum(len(qs) for _, qs, _, _ in buckets)
+    print(f"qserve registry (qserve_1024q_mixed: {QS_QUERIES} standing "
+          f"queries, seed {QS_QUERY_SEED}, half range half kNN, k (32, 5, "
+          f"10, 30), r (0.002, 0.02, 0.05) deg; {QS_WINDOWS} windows of "
+          f"{QS_WIN} points from seed {QS_STREAM_SEED}, {QS_IDS} objIDs, "
+          f"Beijing grid n={BEIJING['num_partitions']}; churn {QS_CHURN} "
+          f"queries a bucket a window): {len(buckets)} buckets, "
+          f"{live_total} live queries on {sum(caps.values())} lanes, rungs "
+          + ", ".join(f"{qserve.bucket_key_str(k)} {c}"
+                      for k, c in sorted(caps.items()))
+          + f"; radius float32 as the suite ships it; {sigs} program "
+          "signatures (bound "
+          f"{len(capacity_ladder(QS_CAP, 8))} x {len(k_rungs)} k-rungs); "
+          f"{n_live} live lane-windows of {n_lanes} equal to "
+          "knn_points_fused alone on the card (segment, index, num_valid "
+          "exact, distance bits), padded lanes empty, windows "
+          f"{list(QS_CPU_WINDOWS)} bit-equal to the CPU run; set-up "
+          f"(queries, flag tables, {len(buckets)} buckets staged) "
+          f"{setup_ms:.3f} ms, before the clock; {n_points} points in "
+          f"{secs:.6f} s = {n_points / secs:.1f} points/s (the {QS_WINDOWS}"
+          f" windows, churn included, one fetch); {dev_line}; churn "
+          "restaging on the host "
+          f"{statistics.median(churn_timed):.3f} ms a window (median of "
+          f"{len(churn_timed)}; {QS_CHURN * len(buckets)} queries, "
+          f"{len(buckets)} buckets re-shipped) [{card}]")
+
+    # 34b: the operator through the driver.
+    t0 = time.perf_counter()
+    events = qserve_command_stream(xy, oid)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    policy = overload.OverloadPolicy(tenant_budgets={
+        "firehose": {"max_queries": QS_FIRE_MAX},
+        "bulk": {"max_results_per_window": QS_BULK_ROWS}})
+    spec = slo.SloSpec(name="phase-34", eval_interval_s=0.0,
+                       tenant_budgets={
+                           "firehose": {"shed_budget": 0},
+                           "bulk": {"degraded_window_budget": 0},
+                           "default": {"shed_budget": 0}})
+    tmp = tempfile.mkdtemp(prefix="sft_qserve_")
+    walls["b data"] = time.perf_counter() - t0
+
+    def op_leg(device, workdir, plan=None):
+        """Returns (egress bytes, registry counters, tenant block, SLO
+        tenant rows, commit ms, checkpoint bytes, run s, driver)."""
+        commits = []
+
+        class TimedDriver(WindowedDataflowDriver):
+            def _commit(self, final=False):
+                t = time.perf_counter()
+                super()._commit(final)
+                commits.append((time.perf_counter() - t) * 1e3)
+
+        os.makedirs(workdir, exist_ok=True)
+        sink = TransactionalFileSink(os.path.join(workdir, "egress.csv"))
+        ctrl = overload.install(overload.OverloadController(policy))
+        eng = slo.install(slo.SloEngine(spec))
+        drv = TimedDriver(
+            checkpoint_path=os.path.join(workdir, "ckpt.bin"),
+            checkpoint_every=1, sink=sink,
+            retry=RetryPolicy(max_retries=0, backoff_s=0.0),
+            failover=False, overload=ctrl)
+        op = qserve.QServeOperator(conf, grid, device=device)
+        if plan:
+            faults.arm(plan)
+        t1 = time.perf_counter()
+        try:
+            for res in op.run(iter(events), driver=drv):
+                for line in res.lines():
+                    sink.stage(line)
+        finally:
+            faults.disarm()
+            rows = [r for r in eng.evaluate()
+                    if r["check"].startswith("tenant_")]
+            qserve.uninstall()
+            slo.uninstall()
+            overload.uninstall()
+        if op.device.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        with open(os.path.join(workdir, "egress.csv"), "rb") as f:
+            egress = f.read()
+        counters = op.registry.state()["counters"]
+        return (egress, counters, ctrl.snapshot()["tenants"], rows, commits,
+                os.path.getsize(os.path.join(workdir, "ckpt.bin")), secs,
+                drv)
+
+    t0 = time.perf_counter()
+    clean = op_leg(dev, os.path.join(tmp, "clean"))
+    walls["b card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = op_leg(cpu, os.path.join(tmp, "cpu"))
+    walls["b CPU"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        op_leg(dev, os.path.join(tmp, "chaos"), plan=[
+            {"point": "driver.window", "at": 2, "times": 10_000}])
+        raise AssertionError("34b: the armed run was not stopped")
+    except InjectedFault:
+        pass
+    with open(os.path.join(tmp, "chaos", "egress.csv"), "rb") as f:
+        torn = f.read()
+    resumed = op_leg(dev, os.path.join(tmp, "chaos"))
+    walls["b stop + resume"] = time.perf_counter() - t0
+    egress, counters, tenants, rows = clean[:4]
+    if not egress or egress != on_cpu[0] or egress != resumed[0]:
+        raise AssertionError("34b: egress differs between the clean card "
+                             "run, the CPU run and the resumed run")
+    if not 0 < len(torn) < len(egress) or not resumed[7].stats["resumed"]:
+        raise AssertionError("34b: the stop and resume did not cut the run")
+    for other in (on_cpu, resumed):
+        if other[1:3] != (counters, tenants):
+            raise AssertionError(f"34b: counters differ: {other[1:3]} vs "
+                                 f"{(counters, tenants)}")
+    if rows != on_cpu[3]:
+        raise AssertionError(f"34b: SLO rows differ: {rows} vs {on_cpu[3]}")
+    fire, bulk = tenants["firehose"], tenants["bulk"]
+    if counters["evicted_total"] <= 0 or fire["queries_shed"] <= 0 or \
+            bulk["results_shed"] <= 0:
+        raise AssertionError(f"34b: no eviction or truncation: {tenants}")
+    n_events, n_lines = len(events), egress.count(b"\n")
+    print(f"qserve operator (QServeOperator.run(driver=) over {n_events} "
+          f"events: boot registrations of the {QS_QUERIES} queries, "
+          f"{QS_OP_WINDOWS} one-second windows of {QS_WIN} Points at 34a's "
+          f"positions, {2 * QS_CHURN} churn commands a window; tenant "
+          f"budgets firehose max_queries {QS_FIRE_MAX}, bulk "
+          f"max_results_per_window {QS_BULK_ROWS}; checkpoint every "
+          f"window): {n_lines} egress lines byte-identical on "
+          f"the card, on the CPU and stopped after window 1 then resumed "
+          f"in a fresh operator; registered {counters['registered_total']}"
+          f", unregistered {counters['unregistered_total']}, evicted "
+          f"{counters['evicted_total']}, range_result_overflow "
+          f"{counters['range_result_overflow']}; truncated rows "
+          f"{bulk['results_shed']} (bulk, {bulk['degraded_windows']} "
+          f"windows), firehose queries shed {fire['queries_shed']}; the "
+          "same in all three runs; SLO tenant checks "
+          + ", ".join(f"{r['check']} {r['value']!r} "
+                      f"{'pass' if r['ok'] else 'FAIL'}" for r in rows)
+          + f" (as on the CPU); {QS_OP_WINDOWS * QS_WIN / clean[6]:.1f} "
+          f"points/s ({clean[6]:.3f} s, the per-event feed included); "
+          f"commit {statistics.median(clean[4]):.3f} ms (median of "
+          f"{len(clean[4])}), checkpoint {clean[5]} B [{card}]")
+    print("phase walls: 34 " + f"{time.perf_counter() - t_phase:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f" s) [{card}]")
+    return walls
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -6534,6 +7043,9 @@ def main(argv=None) -> int:
     ap.add_argument("--overload-only", action="store_true",
                     help="phases 1-2 and 33 only (build, then overload "
                          "control and the SLO engine)")
+    ap.add_argument("--qserve-only", action="store_true",
+                    help="phases 1-2 and 34 only (build, then standing-"
+                         "query serving)")
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -6581,7 +7093,8 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.3f} s (host set-up)")
 
     if args.trajectory_only or args.ingest_only or args.domain_only \
-            or args.runtime_only or args.driver_only or args.overload_only:
+            or args.runtime_only or args.driver_only or args.overload_only \
+            or args.qserve_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -6594,6 +7107,8 @@ def main(argv=None) -> int:
             check_driver(card, panes, wf)
         if args.overload_only:
             check_overload(card, panes, wf)
+        if args.qserve_only:
+            check_qserve(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -6800,6 +7315,8 @@ def main(argv=None) -> int:
     drv = check_driver(card, panes, wf)
     # Phase 33: overload control and the SLO engine (B1, B3, B4).
     ov = check_overload(card, panes, wf)
+    # Phase 34: standing-query serving (plain PyTorch; no hand kernel).
+    check_qserve(card)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",

@@ -25,12 +25,15 @@ Snapshottable components:
     per-pane event counts; the join's ``query_panes`` pane-block carry;
   - the objID ``Interner``, so dense ids stay stable on resume;
   - the overload controller's ``state()``, which the driver publishes as
-    the ``overload`` component (the JAX frame's, value for value).
+    the ``overload`` component (the JAX frame's, value for value);
+  - the qserve ``QueryRegistry`` (``qserve.py``): the standing-query set,
+    the applied-command uids and the counters (the ``qserve`` component;
+    its flag tables are derived data, rebuilt on restore).
 
-Three components of the JAX package wait for later items and raise
-``NotImplementedError`` naming them: the partition plan (ROADMAP A12),
-the qserve registry (A9) and the composed DAG (A11.4); so do
-``kafka_source_state`` and ``restore_kafka_source_offsets`` (A11.4).
+Two components of the JAX package wait for later items and raise
+``NotImplementedError`` naming them: the partition plan (ROADMAP A12)
+and the composed DAG (A11.4); so do ``kafka_source_state`` and
+``restore_kafka_source_offsets`` (A11.4).
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ from spatialflink_tpu_torch.utils.interning import Interner
 #: snapshot or restore yet, with the ROADMAP item each waits for.
 WAITING_COMPONENTS = {
     "partition": "the grid-partitioned placement plan: ROADMAP A12",
-    "qserve": "the qserve standing-query registry: ROADMAP A9",
     "dag": "the composed dataflow DAG: ROADMAP A11.4",
 }
 
@@ -153,7 +155,6 @@ def operator_state(op) -> Dict[str, Any]:
     digest ring) come to numpy through ``telemetry.fetch``, one fetch a
     carry: a checkpoint is a host artifact and never holds a tensor."""
     for attr, component in (("partition_plan", "partition"),
-                            ("qserve_registry", "qserve"),
                             ("dag_nodes", "dag")):
         if getattr(op, attr, None) is not None:
             raise _waiting(component)
@@ -200,6 +201,9 @@ def operator_state(op) -> Dict[str, Any]:
                 "counts", [1] * len(wire_pane["digests"])
             )],
         }
+    qreg = getattr(op, "qserve_registry", None)
+    if qreg is not None:  # qserve standing-query registry (qserve.py)
+        out["qserve"] = qreg.state()
     jcarry = getattr(op, "_join_pane_carry", None)
     if jcarry is not None:  # join query_panes pane events + pair blocks
         out["join_pane_carry"] = {
@@ -275,6 +279,11 @@ def restore_operator(op, state: Dict[str, Any]) -> None:
             "counts": [int(c) for c in wire.get(
                 "counts", [1] * len(wire["digests"]))],
         })
+    if "qserve" in state and getattr(op, "qserve_registry", None) \
+            is not None:
+        # Flag tables are derived (rebuilt from the grid inside restore);
+        # the interner restored above keeps tenant and qid ids stable.
+        op.qserve_registry.restore(state["qserve"])
     if "join_pane_carry" in state:
         # Pane batches are derived data: rebuilt through the operator's
         # own batcher (the interner restored above keeps ids stable).

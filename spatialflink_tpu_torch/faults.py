@@ -55,6 +55,8 @@ point                  site in this package
                        (the admission decision)
 ``dag.commit``         ``streams/sinks.py:MultiSink.commit`` (each sub-sink
                        append of the unit commit)
+``qserve.register``    ``qserve.py:QueryRegistry.apply`` (each standing-
+                       query register or unregister command)
 =====================  ==================================================
 
 The other points wait for the modules that call them (ROADMAP):
@@ -62,7 +64,6 @@ The other points wait for the modules that call them (ROADMAP):
 =====================  ==================================================
 point                  item
 =====================  ==================================================
-``qserve.register``    A9 (the standing-query registry)
 ``kafka.fetch``        A11.4 (the Kafka source)
 ``kafka.leader``       A11.4 (leader-routed requests)
 ``dag.node``           A11.4 (the composed dataflow DAG)
@@ -109,7 +110,7 @@ INJECTION_POINTS: Dict[str, str] = {
     "pipeline.fetch": "pipeline.py:PipelinedExecutor — lagged "
                       "device→host result fetch (ordered drain)",
     "qserve.register": "qserve.py:QueryRegistry.apply — standing-query "
-                       "register/unregister (ROADMAP A9)",
+                       "register/unregister",
     "dag.node": "dag.py:DataflowDAG — per-node window processing "
                 "(ROADMAP A11.4)",
     "dag.commit": "streams/sinks.py:MultiSink.commit — per-sink append "

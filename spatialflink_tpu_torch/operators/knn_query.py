@@ -55,9 +55,9 @@ from spatialflink_tpu_torch.ops import wire_codec as wc
 from spatialflink_tpu_torch.ops.compaction import wire_pane_bucket
 from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.knn import (
-    F32_BIG,
     I32_BIG,
     KnnResult,
+    absent_dist,
     check_k,
     empty_digest,
     knn_geometry_bbox_kernel,
@@ -335,7 +335,8 @@ class _PointStreamKNNQuery(SpatialOperator):
             e_nseg, sm, rp, evs = entry
             pad = nseg - e_nseg
             return (nseg,
-                    torch.cat([sm, torch.full((pad,), F32_BIG,
+                    torch.cat([sm, torch.full((pad,),
+                                              absent_dist(sm.dtype),
                                               dtype=sm.dtype,
                                               device=sm.device)]),
                     torch.cat([rp, torch.full((pad,), I32_BIG,

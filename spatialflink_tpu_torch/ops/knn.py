@@ -8,7 +8,8 @@ The reference computes kNN as a size-k heap per grid cell and a single
 
 A pane's digest is the per-object (min distance, lowest index at that
 minimum); a sliding window's result merges the digests of its panes.
-Absent objects carry the ``finfo(float32).max`` distance and the
+Absent objects carry the ``finfo`` max of the distance's dtype
+(``absent_dist``; ``F32_BIG`` in the float32 pane digests) and the
 ``int32`` max representative.
 
 The window kernels (``knn_kernel`` and its polygon and linestring
@@ -49,9 +50,16 @@ F32_BIG = torch.finfo(torch.float32).max
 I32_BIG = torch.iinfo(torch.int32).max
 
 
+def absent_dist(dtype: torch.dtype) -> float:
+    """The distance an absent object carries: the largest finite value of
+    the distance's own dtype, as in the JAX package (``F32_BIG`` for the
+    float32 digests, ``finfo(float64).max`` for a float64 run)."""
+    return torch.finfo(dtype).max
+
+
 class KnnResult(NamedTuple):
-    """Top-k objects by min distance. Padded slots have dist = f32 max,
-    segment = -1, index = -1."""
+    """Top-k objects by min distance. Padded slots have dist = the
+    distance dtype's max (``absent_dist``), segment = -1, index = -1."""
 
     dist: torch.Tensor  # (k,) ascending min-distance per winning object
     segment: torch.Tensor  # (k,) interned objID (-1 = padding)
@@ -98,8 +106,8 @@ def _digest_from_point_dists(dist, valid, flags, oid, radius,
     idx = torch.nonzero(mask).flatten().to(torch.int32)
     if index_base is not None:
         idx = idx + int(index_base)
-    seg_min = torch.full((num_segments,), F32_BIG, dtype=dist.dtype,
-                         device=dist.device)
+    seg_min = torch.full((num_segments,), absent_dist(dist.dtype),
+                         dtype=dist.dtype, device=dist.device)
     seg_min.scatter_reduce_(0, o, d, reduce="amin", include_self=True)
     win = d == seg_min[o]
     rep = torch.full((num_segments,), I32_BIG, dtype=torch.int32,
@@ -128,10 +136,11 @@ def _finish_topk(seg_min, rep, k: int) -> KnnResult:
     vals, seg_ids = torch.sort(seg_min, stable=True)
     top_dist = vals[:k]
     seg_ids = seg_ids[:k]
-    found = top_dist < F32_BIG
+    big = absent_dist(seg_min.dtype)
+    found = top_dist < big
     seg_out = torch.where(found, seg_ids.to(torch.int32), -1)
     idx_out = torch.where(found, rep[seg_ids], -1)
-    num_valid = torch.clamp((seg_min < F32_BIG).sum(), max=k)
+    num_valid = torch.clamp((seg_min < big).sum(), max=k)
     return KnnResult(top_dist, seg_out, idx_out, num_valid.to(torch.int32))
 
 
@@ -335,6 +344,76 @@ def knn_polyline_fused(xy, valid, cell, flags_table, oid, query_verts,
         query_edge_valid, radius, k, num_segments)
 
 
+def _multi_query_topk(xy, valid, cell, flags_tables, oid, query_xy,
+                      radius, query_valid, k: int, num_segments: int,
+                      query_block: int = 32):
+    """The blocked multi-query top-k that ``knn_multi_query_kernel`` and
+    the standing-query registry (``ops/query_registry.py``) share:
+    ``query_xy`` (Q, 2), ``flags_tables`` (Q, num_cells + 1), one table a
+    query; ``radius`` (Q,), compared lane by lane (a float64 radius
+    promotes float32 distances); ``query_valid`` (Q,) bool empties a lane
+    (dist = the dtype's max, segment = index = -1, counts 0). Returns
+    (``KnnResult`` with a leading Q axis, ``within`` (Q,) int32: the
+    distinct in-radius objects, unclamped).
+
+    Queries go in blocks of ``query_block`` (Q must divide into them, as
+    in the JAX package), so peak memory is O(``query_block`` x N). Per
+    block: every (query, point) lane's distance, one scatter-min over
+    ``q * num_segments + oid`` with the lanes outside the mask at the
+    absent distance, the lowest in-radius index at each minimum, and a
+    stable sort along each query's segments, so equal distances keep the
+    lowest segment first as ``_finish_topk`` does. No lane is compacted
+    out, so nothing waits for the host."""
+    q_total = query_xy.shape[0]
+    if q_total % query_block != 0:
+        raise ValueError("pad query batch to a multiple of query_block")
+    check_k(k, num_segments)
+    n = xy.shape[0]
+    dev = xy.device
+    ok = valid & (oid < num_segments)
+    oid_key = torch.where(ok, oid, 0).to(torch.int64)
+    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(
+        query_block, n).reshape(-1)
+    lane = torch.arange(query_block, device=dev)[:, None]
+    key = (lane * num_segments + oid_key[None, :]).reshape(-1)
+    cell_l = cell.long()
+    radius = radius.to(dev)
+    query_valid = query_valid.to(dev)
+    parts, withins = [], []
+    for q0 in range(0, q_total, query_block):
+        q1 = q0 + query_block
+        dist = point_point_distance(xy[None, :, :], query_xy[q0:q1, None, :])
+        mask = (ok[None, :] & query_valid[q0:q1, None]
+                & (flags_tables[q0:q1][:, cell_l] > 0)
+                & (dist <= radius[q0:q1, None])).reshape(-1)
+        big = absent_dist(dist.dtype)
+        masked = torch.where(mask, dist.reshape(-1), big)
+        seg_min = torch.full((query_block * num_segments,), big,
+                             dtype=dist.dtype, device=dev)
+        seg_min.scatter_reduce_(0, key, masked, reduce="amin",
+                                include_self=True)
+        win = mask & (masked == seg_min[key])
+        rep = torch.full((query_block * num_segments,), I32_BIG,
+                         dtype=torch.int32, device=dev)
+        rep.scatter_reduce_(0, key, torch.where(win, idx, I32_BIG),
+                            reduce="amin", include_self=True)
+        seg_min = seg_min.view(query_block, num_segments)
+        rep = rep.view(query_block, num_segments)
+        vals, seg_ids = torch.sort(seg_min, dim=1, stable=True)
+        top = vals[:, :k]
+        seg_ids = seg_ids[:, :k]
+        found = top < big
+        within = (seg_min < big).sum(dim=1).to(torch.int32)
+        parts.append(KnnResult(
+            top,
+            torch.where(found, seg_ids.to(torch.int32), -1),
+            torch.where(found, torch.gather(rep, 1, seg_ids), -1),
+            torch.clamp(within, max=k)))
+        withins.append(within)
+    return (KnnResult(*(torch.cat(f) for f in zip(*parts))),
+            torch.cat(withins))
+
+
 def knn_multi_query_kernel(xy, valid, cell, flags_tables, oid, query_xy,
                            radius, k: int, num_segments: int,
                            query_block: int = 32) -> KnnResult:
@@ -343,51 +422,18 @@ def knn_multi_query_kernel(xy, valid, cell, flags_tables, oid, query_xy,
     its own candidate cells, PointPointKNNQuery.java:134-150). Returns a
     ``KnnResult`` whose fields carry a leading Q axis.
 
-    Queries go in chunks of ``query_block`` (Q must divide into them, as
-    in the JAX package): per chunk, the (q, N) distances, one scatter-min
-    digest over ``q · num_segments + oid`` and a stable sort along each
-    query's segments, so equal distances keep the lowest segment first
-    as ``_finish_topk`` does."""
+    ``_multi_query_topk`` with one radius for every lane, cast to the
+    distances' dtype as a scalar compare casts it, and every lane
+    live."""
     q_total = query_xy.shape[0]
-    if q_total % query_block != 0:
-        raise ValueError("pad query batch to a multiple of query_block")
-    check_k(k, num_segments)
-    n = xy.shape[0]
-    dev = xy.device
-    ok = valid & (oid < num_segments)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    cell_l = cell.long()
-    parts = []
-    for q0 in range(0, q_total, query_block):
-        qs = query_xy[q0:q0 + query_block]
-        nq = qs.shape[0]
-        dist = point_point_distance(xy[None, :, :], qs[:, None, :])
-        flags = flags_tables[q0:q0 + query_block][:, cell_l]
-        mask = ok[None, :] & (dist <= radius) & (flags > 0)
-        qi, pi = torch.nonzero(mask, as_tuple=True)
-        key = qi * num_segments + oid[pi].to(torch.int64)
-        d = dist[qi, pi]
-        seg_min = torch.full((nq * num_segments,), F32_BIG,
-                             dtype=dist.dtype, device=dev)
-        seg_min.scatter_reduce_(0, key, d, reduce="amin", include_self=True)
-        win = d == seg_min[key]
-        rep = torch.full((nq * num_segments,), I32_BIG, dtype=torch.int32,
-                         device=dev)
-        rep.scatter_reduce_(0, key[win], idx[pi[win]], reduce="amin",
-                            include_self=True)
-        seg_min = seg_min.view(nq, num_segments)
-        rep = rep.view(nq, num_segments)
-        vals, seg_ids = torch.sort(seg_min, dim=1, stable=True)
-        top = vals[:, :k]
-        seg_ids = seg_ids[:, :k]
-        found = top < F32_BIG
-        parts.append(KnnResult(
-            top,
-            torch.where(found, seg_ids.to(torch.int32), -1),
-            torch.where(found, torch.gather(rep, 1, seg_ids), -1),
-            torch.clamp((seg_min < F32_BIG).sum(dim=1), max=k)
-            .to(torch.int32)))
-    return KnnResult(*(torch.cat(f) for f in zip(*parts)))
+    dtype = torch.result_type(xy, query_xy)
+    lanes = torch.as_tensor(radius, device=xy.device).to(dtype).expand(
+        q_total)
+    live = torch.ones(q_total, dtype=torch.bool, device=xy.device)
+    res, _ = _multi_query_topk(xy, valid, cell, flags_tables, oid,
+                               query_xy, lanes, live, k, num_segments,
+                               query_block)
+    return res
 
 
 def knn_geometry_query_kernel(obj_verts, obj_edge_valid, valid, flags, oid,

@@ -895,8 +895,8 @@ def on_slo_evaluation(ok: bool):
 
 
 def admit_tenant_query(cls: str) -> bool:
-    """The standing-query registry's admission hook (ROADMAP A9 calls
-    it): True when no controller is installed."""
+    """The standing-query registry's admission hook
+    (``qserve.QueryRegistry``): True when no controller is installed."""
     ctrl = _controller
     return True if ctrl is None else ctrl.admit_tenant_query(cls)
 

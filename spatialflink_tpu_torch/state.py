@@ -297,6 +297,7 @@ JAX_CHECKPOINT_CLASSES = {
         "SpatialObject", "Point", "Polygon", "LineString", "MultiPoint",
         "MultiPolygon", "MultiLineString", "GeometryCollection"),
     "spatialflink_tpu.streams.windows": ("WindowSpec", "WindowBatch"),
+    "spatialflink_tpu.qserve": ("StandingQuery", "QServeCommand"),
 }
 
 #: Builtins a checkpoint's pickle may name (containers and scalars only).

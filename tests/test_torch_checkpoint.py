@@ -554,7 +554,6 @@ def test_snapshot_and_restore_are_copies(rng):
 
 @pytest.mark.parametrize("attr,component,item", [
     ("partition_plan", "partition", "A12"),
-    ("qserve_registry", "qserve", "A9"),
     ("dag_nodes", "dag", "A11.4"),
 ])
 def test_waiting_components_raise_naming_their_items(attr, component, item):

@@ -108,7 +108,9 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.ablation, spatialflink_tpu_torch.checkpoint, "
         "spatialflink_tpu_torch.driver, spatialflink_tpu_torch.state, "
         "spatialflink_tpu_torch.streams.sinks, "
-        "spatialflink_tpu_torch.overload, spatialflink_tpu_torch.slo\n"
+        "spatialflink_tpu_torch.overload, spatialflink_tpu_torch.slo, "
+        "spatialflink_tpu_torch.qserve, "
+        "spatialflink_tpu_torch.ops.query_registry\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -175,6 +177,76 @@ def test_overload_admit_threaded_and_the_slice_modules_at_their_paths():
             "", {})
     hits = [str(p) for p in (REPO / "spatialflink_tpu_torch").rglob("*.py")
             if "A11.3" in p.read_text()]
+    assert hits == []
+
+
+def _public(mod):
+    """Names ``mod`` defines itself (functions, classes, constants)."""
+    return {n for n in vars(mod) if not n.startswith("_")
+            and not inspect.ismodule(getattr(mod, n))
+            and getattr(getattr(mod, n), "__module__", mod.__name__)
+            == mod.__name__}
+
+
+#: Parameters the port drops (ROADMAP A12 brings them back) or adds last.
+_DROPPED = ("axis_name", "index_base")
+_ADDED = ("device",)
+
+
+def _same_order(jfn, tfn):
+    j = [(p.name, p.default) for p in
+         inspect.signature(jfn).parameters.values()
+         if p.name not in _DROPPED]
+    t = [(p.name, p.default) for p in
+         inspect.signature(tfn).parameters.values()]
+    assert t[:len(j)] == j, (jfn, j, t)
+    assert all(name in _ADDED for name, _ in t[len(j):]), (jfn, t)
+
+
+def test_qserve_modules_at_their_jax_paths_in_the_jax_order():
+    """``qserve.py`` and ``ops/query_registry.py`` sit at the JAX
+    package's module paths with its public names, their functions and
+    methods take the JAX parameters in the JAX order (the registry's
+    ``axis_name`` / ``index_base`` dropped, the operator's ``device``
+    last), the ``qserve.register`` fault point is threaded, and no
+    source of the port waits on A9 any more."""
+    import dataclasses
+
+    import spatialflink_tpu_torch.faults as tfaults
+    from spatialflink_tpu import qserve as jqs
+    from spatialflink_tpu.ops import query_registry as jqr
+    from spatialflink_tpu_torch import qserve
+    from spatialflink_tpu_torch.ops import query_registry
+
+    for jmod, tmod in ((jqs, qserve), (jqr, query_registry)):
+        public = _public(jmod)
+        assert public <= _public(tmod), public - _public(tmod)
+        for name in sorted(public):
+            jobj, tobj = getattr(jmod, name), getattr(tmod, name)
+            if inspect.isfunction(jobj):
+                _same_order(jobj, tobj)
+            elif inspect.isclass(jobj):
+                if dataclasses.is_dataclass(jobj):
+                    assert [(f.name, f.default) for f in
+                            dataclasses.fields(jobj)] == \
+                        [(f.name, f.default) for f in
+                         dataclasses.fields(tobj)], name
+                elif hasattr(jobj, "_fields"):
+                    assert jobj._fields == tobj._fields, name
+                for attr, fn in vars(jobj).items():
+                    if inspect.isfunction(fn) and (
+                            not attr.startswith("_") or attr == "__init__"):
+                        _same_order(fn, getattr(tobj, attr))
+            else:
+                assert jobj == tobj, name
+    threaded, waiting = tfaults.__doc__.split("The other points wait")
+    assert 'faults.hit("qserve.register")' in \
+        Path(qserve.__file__).read_text()
+    assert "``qserve.register``" in threaded
+    assert "``qserve.register``" not in waiting
+    assert "ROADMAP" not in tfaults.INJECTION_POINTS["qserve.register"]
+    hits = [str(p) for p in (REPO / "spatialflink_tpu_torch").rglob("*.py")
+            if "A9" in p.read_text()]
     assert hits == []
 
 

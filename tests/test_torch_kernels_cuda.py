@@ -1498,3 +1498,98 @@ def test_circuit_breaker_round_trip_on_card():
             overload.uninstall()
     finally:
         overload.uninstall()
+
+
+def _registry_inputs(rng, n, live, rung):
+    """A window of ``n`` Beijing points and a bucket of ``live`` standing
+    queries padded to ``rung`` lanes, as the operator ships them."""
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators.base import center_coords
+    from spatialflink_tpu_torch.qserve import (
+        StandingQuery,
+        bucket_host_arrays,
+    )
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
+                  axis=1)
+    qs = [StandingQuery(qid=f"q{i}", tenant="t", kind="knn",
+                        x=float(rng.uniform(115.6, 117.5)),
+                        y=float(rng.uniform(39.7, 41.0)),
+                        radius=float((0.002, 0.02, 0.05)[i % 3]), k=8)
+          for i in range(live)]
+    qxy, radius, qvalid, tables = bucket_host_arrays(grid, qs, rung)
+    return [torch.from_numpy(a) for a in (
+        center_coords(grid, xy), np.ones(n, bool),
+        grid.assign_cells_np(xy).astype(np.int32), tables,
+        rng.integers(0, 4096, n).astype(np.int32),
+        center_coords(grid, qxy), radius, qvalid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live,rung", [(5, 8), (70, 128)])
+def test_registry_bucket_program_on_card_equals_cpu(live, rung):
+    """The standing-query bucket program (plain PyTorch, the same dense
+    body on both devices) on the card against its CPU run at two rungs:
+    every field of every lane bit-equal, the padded lanes empty."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.knn import F32_BIG
+    from spatialflink_tpu_torch.ops.query_registry import (
+        registry_bucket_kernel,
+    )
+
+    args = _registry_inputs(np.random.default_rng(8), 65_536, live, rung)
+    kw = dict(k=32, num_segments=4096, query_block=min(rung, 32))
+    got = registry_bucket_kernel(*(a.to(dev) for a in args), **kw)
+    want = registry_bucket_kernel(*args, **kw)
+    _bit_equal(got, want)
+    assert int(want.within[:live].sum()) > 0
+    assert bool((got.num_valid[live:] == 0).all())
+    assert bool((got.within[live:] == 0).all())
+    assert bool((got.segment[live:] == -1).all())
+    assert bool((got.dist[live:] == F32_BIG).all())
+
+
+@pytest.mark.cuda
+def test_qserve_window_on_card_equals_cpu():
+    """One ``QServeOperator`` run (registrations, a tenant result budget,
+    an unregistration between windows) on the card against the CPU: the
+    egress lines, the registry state and the tenant block equal."""
+    dev = _card()
+    from spatialflink_tpu_torch import overload, qserve
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    rng = np.random.default_rng(9)
+    qs = [qserve.StandingQuery(
+        qid=f"q{i}", tenant=f"t{i % 5}", kind=("range", "knn")[i % 2],
+        x=float(rng.uniform(116.0, 116.8)), y=float(rng.uniform(39.8, 40.6)),
+        radius=float((0.01, 0.03)[i % 2]), k=(5, 20)[i % 2],
+        tenant_class=("bulk", "default")[i % 2]) for i in range(40)]
+    n = 20_000
+    xy = np.stack([rng.uniform(116.0, 116.8, n), rng.uniform(39.8, 40.6, n)],
+                  axis=1)
+    stream = qserve.boot_commands(qs) + [
+        Point(obj_id=f"o{i % 700}", timestamp=int(i * 2000 // n), x=float(x),
+              y=float(y)) for i, (x, y) in enumerate(xy)]
+    stream.insert(len(qs) + n // 2, qserve.QServeCommand(
+        timestamp=1000, action="unregister", uid="u", qid="q3"))
+
+    def run(device):
+        ctrl = overload.install(overload.OverloadController(
+            overload.OverloadPolicy(tenant_budgets={
+                "bulk": {"max_results_per_window": 50}})))
+        op = qserve.QServeOperator(
+            QueryConfiguration(window_size=1.0, slide_step=1.0),
+            UniformGrid(100, 115.5, 117.6, 39.6, 41.1), device=device)
+        try:
+            lines = [line for r in op.run(iter(stream)) for line in r.lines()]
+            return lines, op.registry.state(), ctrl.snapshot()["tenants"]
+        finally:
+            qserve.uninstall()
+            overload.uninstall()
+
+    got, want = run(dev), run("cpu")
+    assert got == want
+    assert got[2]["bulk"]["results_shed"] > 0 and len(got[0]) > 100

@@ -825,7 +825,8 @@ def test_every_instant_the_port_emits_is_classified(tmp_path):
             "link_probe", "blackbox_dumped", "driver_retry",
             "failover", "circuit_open", "circuit_half_open",
             "circuit_closed", "pipeline_collapsed", "pipeline_resumed",
-            "slo_violation:", "slo_recovered:"} == heads
+            "slo_violation:", "slo_recovered:", "qserve_registered",
+            "qserve_unregistered", "qserve_evicted", "qserve_rung:"} == heads
     for head in heads:
         assert known(head + ("x" if head.endswith(":") else "")), head
 
