@@ -11,6 +11,7 @@ NVIDIA card.
     python3 chip_smoke.py --driver-only       # phases 1-2 and 32
     python3 chip_smoke.py --overload-only     # phases 1-2 and 33
     python3 chip_smoke.py --qserve-only       # phases 1-2 and 34
+    python3 chip_smoke.py --jobsurface-only   # phases 1-2 and 35
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -75,9 +76,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    dense at G = 33, gathered at C = 3, and invalid edges between valid
    ones, dense and gathered;
 12. run ``PointPolygonRangeQuery.run_soa`` at full width (config 3: 10 ×
-   262,144 points, 1,000 polygons, the bbox-pruned path) through B4, each
-   window equal to the same operator run on the CPU, and B4's launch
-   count up by at least 10; then, at 2–3 windows each and against the
+   262,144 points, 1,000 polygons, the bbox-pruned path) through B4, the
+   first 3 windows equal to the same operator run on the CPU (a cut of
+   10), and B4's launch count up by at least 10; then, at 2–3 windows
+   each and against the
    CPU: the dense path (32 polygons), the compact path (64), linestrings
    (32), approximate mode, ``PointPointRangeQuery.run_soa`` at suite
    config 1's width, and ``run`` on ``Point`` objects;
@@ -90,8 +92,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    config 4: closed rings of 4-11 distinct vertices about uniform centres
    over the Beijing extent at radii up to 0.01 deg, seed 11, oids over
    16,384 objects; the first 32 polygons of config 3's set; r = 0.002),
-   each window equal to the same operator run on the CPU (starts, ends,
-   kept indices and oids, distance bits) and B4's launch count up by at
+   the first 2 windows equal to the same operator run on the CPU (starts,
+   ends, kept indices and oids, distance bits; a cut of 4), every
+   window's distances within the radius, and B4's launch count up by at
    least 2 a window (one launch a direction); then, at 2 windows of 8,192
    objects each and against the CPU, the other five geometry-stream
    classes (linestrings are the same rings opened), approximate mode, a
@@ -152,8 +155,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``Polygon`` objects;
 21. run ``PolygonPolygonJoinQuery.run_soa`` on the first 2 windows of
    phase 14's stream (2 × 131,072 polygons) ⋈ config 3's 1,000 polygons
-   at r = 0.002, each window equal to the CPU run and B4 up by at least 2
-   a window; then, at
+   at r = 0.002, the first window equal to the CPU run (a cut of 2) and
+   B4 up by at least 2 a window; then, at
    2 × 8,192, the other three geometry classes, approximate mode, the
    multi-ring stream and ``run`` on objects; then
    ``PointPointJoinQuery.query_panes`` on 3 panes of 20,000 ``Point``
@@ -214,8 +217,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    GeoJSON rings bit-equal to the generated ones, the shapefile's
    bit-equal reversed, as it stores exteriors clockwise), its 10 x
    262,144 points written as ``oid,ts,x,y`` CSV in ``to_csv_point``'s
-   format and fed through ``csv_chunk_source`` and a numpy chunk parser
-   into ``PointPolygonRangeQuery.run_soa`` on the card against the
+   format and fed through ``csv_chunk_source`` and the native point
+   parser (``native.py:NativePointParser``; a numpy parser of the same
+   file as its cross-check: ts, x and y bit-equal, oids equal through the
+   interner's names) into ``PointPolygonRangeQuery.run_soa`` on the card
+   against the
    GeoJSON-read polygons (B4): every window bit-equal to the run fed the
    arrays directly, the first 2 to the CPU run; the rate from file to
    fetched results, the seconds inside the parser, and the device's idle
@@ -330,7 +336,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``PointPolygonRangeQuery.run`` and the bucketed join's 8 windows one
    B4 / B3 launch a window, equal to the runs without a controller; (d)
    the ``pane_backend`` rung routing ``traj_stats_sliding(backend=
-   "auto")`` at 1,000,000 points to the numpy engine (within
+   "auto")`` at 1,000,000 points to the host engines, the native one
+   first (within
    ``pane_spatial_bound`` of the device engine) and ``clamp_compaction``
    pinning the pane-carry tJoin's capacity rung (phase 26's shape, 24
    panes a side), windows equal; (e) an ``SloSpec`` of the shed,
@@ -362,6 +369,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
    egress of the clean card run, the CPU run and a run stopped after
    window 1 and resumed in a fresh operator byte-identical, the registry
    counters, the truncations and the SLO tenant rows equal.
+35. the job surface's leaf modules (``envvars``, ``config``, ``native``,
+   ``streams/kafka``, ``streams/kafka_wire``): (a) the native engines
+   (``native/libsfnative.so``, built by ``make``, its ABI checked; the
+   phase fails if either fails) beside the card's: ``traj_stats_sliding``
+   at bench_tstats_pane (1,000,000 points), native bit-identical to
+   numpy, against the device engine on the card (counts and temporal
+   sums exact, spatial within ``pane_spatial_bound``), and under an armed
+   ``pane_backend`` native rung ``"auto"`` running the native engine (its
+   calls counted); ``run_soa_panes(backend="native")`` against the device
+   engine on phase 26's stream cut to 200 panes a side (pair sets equal
+   outside the radius band of 3 float32 roundings, the band's pairs
+   counted, common minima within that bound); each engine's seconds; (b)
+   Kafka into the headline program through B1: an in-process broker
+   (``MiniBroker``: Metadata, Produce, Fetch and ListOffsets over TCP),
+   ``ts,x,y,oid`` records produced by ``KafkaSink`` (4 panes of 65,536 of
+   the headline's points, coordinates from the wire), a job read by
+   ``config.Params`` from the reference's YAML schema with ``backend:
+   cuda``, ``WireKafkaSource`` → ``WirePaneAssembler`` →
+   ``run_wire_panes`` on the card; a checkpoint (the source's offsets,
+   the assembler, the operator) after window 1, ``kafka.fetch`` raising
+   at a later fetch, a resume in fresh objects: the committed and
+   resumed windows equal the uninterrupted card run, every window the
+   CPU run through B1's plain version; produce and consume records/s,
+   the host seconds in parse and feed, B1's launches, the device idle
+   share, the checkpoint's bytes and commit ms, the resume's ms to its
+   first window.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -411,6 +444,7 @@ RANGE_WINDOWS = 10
 RANGE_R = 0.002
 RANGE_POLYS = 1000
 RANGE_CUT_WINDOWS = 3
+RANGE_CPU_WINDOWS = 3    # phase 12's windows held against the CPU (a cut of 10)
 PP_WIN = 500_000
 PP_R = 0.005
 RANGE_OBJ_POINTS = 20_000
@@ -427,6 +461,7 @@ GEOM_QUERIES = 32
 GEOM_R = 0.002
 GEOM_CUT_WIN = 8_192
 GEOM_CUT_WINDOWS = 2
+GEOM_CPU_WINDOWS = 2     # phase 14's windows held against the CPU (a cut of 4)
 KNN_RUN_WIN = 200_000
 KNN_RUN_WINDOWS = 3
 KNN_RUN_IDS = 16_384
@@ -468,6 +503,7 @@ PG_R = 0.002
 SUITE_PG_PAIRS = 156_132  # BENCH_SUITE.json, join_point_1000polygons
 JOIN_CUT_WIN = 8_192
 GG_WINDOWS = 2  # phase 21's polygon ⋈ polygon run_soa: a depth cut of 4
+GG_CPU_WINDOWS = 1  # of them held against the CPU (a cut of 2)
 JOIN_CUT_WINDOWS = 2
 QPJ_PANE_PTS = 20_000
 QPJ_PANES = 3
@@ -1654,8 +1690,11 @@ def check_range(dev, card, b4_inputs, gpu="cuda"):
                                 polys, RANGE_R)
     b4_launches = polyline_min_dist.launches
     path = ("compact" if hasattr(op, "_cand_budget") else "pruned")
+    # A depth cut: the CPU twin runs the first RANGE_CPU_WINDOWS windows
+    # (its plain bbox pass is ~6 s a window on the host).
     want, cpu_secs, cpu_op = run_range("cpu", PointPolygonRangeQuery,
-                                       r_chunks, polys, RANGE_R)
+                                       r_chunks[:RANGE_CPU_WINDOWS], polys,
+                                       RANGE_R)
     hits = check_range_windows(got, want, "range run_soa", RANGE_R)
     if b4_launches < RANGE_WINDOWS or len(got) != RANGE_WINDOWS \
             or path != "pruned" or min(hits) == 0:
@@ -1666,8 +1705,9 @@ def check_range(dev, card, b4_inputs, gpu="cuda"):
     print(f"e2e range run_soa (config 3, {path} path, cand {op._ncand}): "
           f"{len(got)} windows, matches per window {hits}, {n_range} points "
           f"in {r_secs:.6f} s = {n_range / r_secs:.1f} points/s; launches "
-          f"polyline_min_dist={b4_launches}; {len(want)} windows equal the "
-          f"CPU plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+          f"polyline_min_dist={b4_launches}; the first {len(want)} windows "
+          f"equal the CPU plain run ({cpu_secs:.3f} s on the host CPU) "
+          f"[{card}]")
 
     lines = [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
              for i, p in enumerate(polys[:32])]
@@ -1943,9 +1983,17 @@ def check_geometry(card, gpu="cuda"):
     got, secs = run_geometry(gpu, ops.PolygonPolygonRangeQuery, chunks,
                              polys)
     b4_launches = polyline_min_dist.launches
+    # A depth cut: the CPU twin runs the first GEOM_CPU_WINDOWS windows
+    # (~15-30 s a window on the host).
     want, cpu_secs = run_geometry("cpu", ops.PolygonPolygonRangeQuery,
-                                  chunks, polys)
-    hits = check_geometry_windows(got, want, "geometry run_soa")
+                                  chunks[:GEOM_CPU_WINDOWS], polys)
+    check_geometry_windows(got[:GEOM_CPU_WINDOWS], want, "geometry run_soa")
+    hits = [len(g[2]) for g in got]
+    if len(got) != GEOM_WINDOWS or not all(
+            np.all(np.isfinite(g[4])) and np.all(g[4] <= np.float32(GEOM_R))
+            for g in got):
+        raise AssertionError(f"geometry run_soa: {len(got)} windows, or a "
+                             f"distance past the radius")
     if b4_launches < 2 * GEOM_WINDOWS or min(hits) == 0:
         raise AssertionError(f"geometry run_soa: {b4_launches} B4 launches, "
                              f"matches {hits}")
@@ -1953,8 +2001,9 @@ def check_geometry(card, gpu="cuda"):
     print(f"e2e geometry range run_soa (PolygonPolygon, {GEOM_QUERIES} "
           f"polygons, r={GEOM_R}): {len(got)} windows, matches per window "
           f"{hits}, {n} objects in {secs:.6f} s = {n / secs:.1f} objects/s; "
-          f"launches polyline_min_dist={b4_launches}; windows equal the CPU "
-          f"plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+          f"launches polyline_min_dist={b4_launches}; the first "
+          f"{len(want)} windows equal the CPU plain run ({cpu_secs:.3f} s on "
+          f"the host CPU) [{card}]")
 
     cut = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN)
     lines = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN, polygonal=False)
@@ -3020,9 +3069,14 @@ def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
     got, secs, op = run_join_soa(gpu, ops.PolygonPolygonJoinQuery,
                                  geo_chunks, right, PG_R)
     b4_launches = polyline_min_dist.launches
+    # The CPU twin runs the first GG_CPU_WINDOWS of them (~35-55 s a
+    # window on the host).
     want, cpu_secs, _ = run_join_soa("cpu", ops.PolygonPolygonJoinQuery,
-                                     geo_chunks, right, PG_R)
-    pairs = check_join_windows(got, want, "polygon-polygon join run_soa",
+                                     geo_chunks[:GG_CPU_WINDOWS],
+                                     right[:GG_CPU_WINDOWS], PG_R)
+    check_join_windows(got[:GG_CPU_WINDOWS], want,
+                       "polygon-polygon join run_soa", PG_R)
+    pairs = check_join_windows(got, got, "polygon-polygon join run_soa",
                                PG_R)
     if len(got) != GG_WINDOWS or b4_launches < 2 * GG_WINDOWS \
             or min(pairs) == 0:
@@ -3034,8 +3088,9 @@ def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
           f"r={PG_R}): pairs per window {pairs}, {n} objects in "
           f"{secs:.6f} s = {n / secs:.1f} objects/s; launches "
           f"polyline_min_dist={b4_launches}; cand {op._cand}, pair_cap "
-          f"{op._pair_cap}, budget {op._geom_max_pairs}; windows equal the "
-          f"CPU plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+          f"{op._pair_cap}, budget {op._geom_max_pairs}; the first "
+          f"{len(want)} windows equal the CPU plain run ({cpu_secs:.3f} s on "
+          f"the host CPU) [{card}]")
 
     w = JOIN_CUT_WINDOWS
     cut = geometry_chunks(w, JOIN_CUT_WIN)
@@ -3601,12 +3656,12 @@ def check_tstats(dev, card, gpu="cuda"):
           f" s (host set-up)")
     args = (ts, xy, oid, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS)
     traj_stats_sliding(ts[:1000], xy[:1000], oid[:1000], TS_BUCKET,
-                       TS_WINDOW_MS, TS_SLIDE_MS, device=gpu)
+                       TS_WINDOW_MS, TS_SLIDE_MS, backend="device", device=gpu)
     t0 = time.perf_counter()
-    got = traj_stats_sliding(*args, device=gpu)
+    got = traj_stats_sliding(*args, backend="device", device=gpu)
     secs = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = traj_stats_sliding(*args, device="cpu")
+    cpu = traj_stats_sliding(*args, backend="device", device="cpu")
     cpu_secs = time.perf_counter() - t0
     xy32 = xy.astype(np.float32).astype(np.float64)
     t0 = time.perf_counter()
@@ -3645,7 +3700,8 @@ def check_tstats(dev, card, gpu="cuda"):
           f"({k_call:.6f} ms per call; plain PyTorch, no hand kernel), bound "
           f"{k_bound:.6f} ms ({k_by}: {k_bytes} B) at {len(operands[0])} "
           f"lanes x {TS_BUCKET} oids x {n_starts} starts [{card}]")
-    profile_run(lambda: traj_stats_sliding(*args, device="cuda"), card,
+    profile_run(lambda: traj_stats_sliding(*args, backend="device",
+                                           device="cuda"), card,
                 "traj_stats_sliding device engine")
 
     chunks = [{"ts": ts[s:s + 100_000], "x": xy[s:s + 100_000, 0],
@@ -3829,10 +3885,11 @@ def tpanes_stream():
     return sides
 
 
-def run_tjoin_panes(device, chunks):
-    """``PointPointTJoinQuery.run_soa_panes`` at phase 26's configuration;
-    returns the windows, seconds (the device synchronised) and the
-    operator."""
+def run_tjoin_panes(device, chunks, backend="device"):
+    """``PointPointTJoinQuery.run_soa_panes`` at phase 26's configuration,
+    the device engine unless ``backend`` says otherwise (on the CPU
+    ``"auto"`` would take the native engine); returns the windows,
+    seconds (the device synchronised) and the operator."""
     import torch
 
     from spatialflink_tpu_torch.grid import UniformGrid
@@ -3846,7 +3903,8 @@ def run_tjoin_panes(device, chunks):
     op = PointPointTJoinQuery(conf, UniformGrid(**BEIJING), device=device)
     t0 = time.perf_counter()
     out = list(op.run_soa_panes(chunks[0], chunks[1], TP_R, TP_IDS,
-                                cap_w=TP_CAP_W, pair_sel=TP_PAIR_SEL))
+                                cap_w=TP_CAP_W, pair_sel=TP_PAIR_SEL,
+                                backend=backend))
     if op.device.type == "cuda":
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0, op
@@ -4180,8 +4238,8 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
 
 class CsvChunkParser:
     """``oid,ts,x,y`` lines → a SoA chunk, through numpy's text reader:
-    the buffer-at-a-time parser ``csv_chunk_source`` is given here (the
-    JAX package gives it its native parsers; the port has none)."""
+    phase 27's cross-check of the native parser (``native.py:
+    NativePointParser``) on the same file."""
 
     def parse(self, block: bytes):
         import io
@@ -4369,8 +4427,13 @@ def check_ingest(card, gpu="cuda"):
 
         op = PointPolygonRangeQuery(QueryConfiguration(**conf_kw),
                                     UniformGrid(**BEIJING), device=gpu)
+        from spatialflink_tpu_torch import native
+
+        if not native.available():
+            raise AssertionError("27: the native library did not build or "
+                                 "failed its ABI check")
         polyline_min_dist.launches = 0
-        parser, got = TimedParser(CsvChunkParser()), []
+        parser, got = TimedParser(native.NativePointParser()), []
         # One run, timed and traced: the wall, the device's idle share and
         # the seconds inside parse() all come from it.
         csv_ms, _ = profile_run(lambda: got.extend(op.run_soa(
@@ -4380,6 +4443,22 @@ def check_ingest(card, gpu="cuda"):
         csv_launches = polyline_min_dist.launches
         launches += csv_launches
         parsed = parser.chunks
+        # The numpy parser on the same file: ts, x and y bit-equal, the
+        # oids equal through the native interner's names.
+        np_parser = TimedParser(CsvChunkParser())
+        for _ in csv_chunk_source(csv_path, np_parser):
+            pass
+        names = np.asarray([int(parser.parser.object_name(i)) for i in
+                            range(parser.parser.num_objects)], np.int64)
+        for k in ("ts", "x", "y", "oid"):
+            a = np.concatenate([c[k] for c in parsed])
+            b = np.concatenate([c[k] for c in np_parser.chunks])
+            if k == "oid":
+                a = names[a]
+            if a.shape != b.shape or not np.array_equal(
+                    a.astype(b.dtype).view(np.uint8), b.view(np.uint8)):
+                raise AssertionError(f"27: the native parser's {k} differs "
+                                     f"from the numpy parser's")
         direct, direct_secs, _ = run_range(gpu, PointPolygonRangeQuery,
                                            chunks, polys, RANGE_R)
         hits = same_points_windows(got, direct, "CSV run_soa vs arrays")
@@ -4398,8 +4477,12 @@ def check_ingest(card, gpu="cuda"):
               f"of ~4 MiB): {len(got)} windows, matches {hits}, {n_pts} "
               f"points from file to fetched results in {csv_secs:.6f} s = "
               f"{n_pts / csv_secs:.1f} points/s (one run, under "
-              f"torch.profiler); inside parse() {parser.secs:.6f} s of it "
-              f"({100 * parser.secs / csv_secs:.1f}% of the wall); the same "
+              f"torch.profiler); inside the native parser "
+              f"(NativePointParser) {parser.secs:.6f} s of it "
+              f"({100 * parser.secs / csv_secs:.1f}% of the wall; with the "
+              f"numpy parser it was 65.4% of the wall, PERF.md's earlier "
+              f"runs; the numpy parser takes {np_parser.secs:.6f} s on the "
+              f"same file here, every column equal); the same "
               f"stream from arrays {direct_secs:.6f} s = "
               f"{n_pts / direct_secs:.1f} points/s; launches "
               f"polyline_min_dist={csv_launches}; every window bit-equal to "
@@ -6402,7 +6485,8 @@ def check_overload(card, panes, wf, gpu="cuda"):
             raise AssertionError(f"33d: clamp took {clamp_op.pane_scans}")
         print(f"overload rungs: pane_backend (to numpy) routes "
               f"traj_stats_sliding(backend='auto') at bench_tstats_pane "
-              f"({TS_POINTS} points) to the numpy engine ({host_s:.3f} s; "
+              f"({TS_POINTS} points) to the host engines, the native one "
+              f"first as in the JAX package ({host_s:.3f} s; "
               f"the device engine {dev_s:.3f} s): starts, counts and "
               f"temporal sums exact, spatial within pane_spatial_bound (max "
               f"err {err:.3e}, {rel:.3f} of the bound); clamp_compaction "
@@ -6941,6 +7025,650 @@ def check_qserve(card, gpu="cuda"):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: the job surface's leaf modules (envvars, config, the native C++
+# engines, the Kafka wire source).
+
+JS_PANE_PTS = 65_536     # points a pane of the Kafka leg (a cut of 500,000)
+JS_PANES = 4             # panes of the Kafka leg: a window a pane, the
+                         # first of one pane, 3 of two (a cut of 4)
+JS_COMMITTED = 2         # windows emitted before the leg's checkpoint
+JS_KILL_FETCH = 6        # the kafka.fetch hit after the checkpoint that kills
+JS_FEED = 8_192          # records a WirePaneAssembler.feed (< a pane)
+JS_TOPIC = "gps"
+
+
+class MiniBroker:
+    """A minimal single-node Kafka broker in this process: Metadata v0,
+    Produce v2, Fetch v2 and ListOffsets v0 over a real TCP socket on
+    127.0.0.1, one partition a topic (auto-created), the client's message
+    sets kept as produced with their absolute offsets, a fetch cut at its
+    ``max_bytes`` on a message boundary. It speaks the requests the port's
+    built-in client (``streams/kafka_wire.py``) sends; ``close()`` stops
+    its threads."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        from spatialflink_tpu_torch.streams import kafka_wire as kw
+
+        self._kw = kw
+        self.logs = {}  # topic -> [entry bytes], entry = offset|size|msg
+        self._ends = {}  # topic -> [cumulative entry bytes]
+        self._lock = threading.Lock()
+        self.sock = socket.socket()
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.port = self.sock.getsockname()[1]
+        self._conns = []
+        self._stop = False
+        self._threads = [threading.Thread(target=self._serve, daemon=True)]
+        self._threads[0].start()
+
+    def close(self):
+        import socket
+
+        self._stop = True
+        for s in [self.sock] + self._conns:
+            try:  # shutdown wakes a thread blocked in accept or recv
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            s.close()
+        for t in list(self._threads):
+            t.join(timeout=5)
+
+    def total(self, topic):
+        return len(self.logs.get(topic, []))
+
+    def _serve(self):
+        import threading
+
+        while not self._stop:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            self._conns.append(conn)
+            t = threading.Thread(target=self._handle, args=(conn,),
+                                 daemon=True)
+            self._threads.append(t)
+            t.start()
+
+    def _recv(self, conn, n):
+        chunks = []
+        while n:
+            try:
+                c = conn.recv(n)
+            except OSError:
+                return None
+            if not c:
+                return None
+            chunks.append(c)
+            n -= len(c)
+        return b"".join(chunks)
+
+    def _handle(self, conn):
+        import struct
+
+        kw = self._kw
+        try:
+            while not self._stop:
+                hdr = self._recv(conn, 4)
+                if hdr is None:
+                    return
+                payload = self._recv(conn, struct.unpack(">i", hdr)[0])
+                if payload is None:
+                    return
+                r = kw.Reader(payload)
+                api, _ver, corr = r.int16(), r.int16(), r.int32()
+                r.string()  # client_id
+                body = self._dispatch(api, r)
+                if body is None:  # a produce with acks=0: no response
+                    continue
+                resp = struct.pack(">i", corr) + body
+                conn.sendall(struct.pack(">i", len(resp)) + resp)
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def _log(self, topic):
+        with self._lock:
+            return (self.logs.setdefault(topic, []),
+                    self._ends.setdefault(topic, []))
+
+    def _dispatch(self, api, r):
+        import bisect
+        import struct
+
+        kw = self._kw
+        if api == kw.API_METADATA:
+            topics = [r.string() for _ in range(r.int32())]
+            part = (struct.pack(">hii", 0, 0, 0) + struct.pack(">ii", 1, 0)
+                    + struct.pack(">ii", 1, 0))
+            return (kw.enc_array([struct.pack(">i", 0)
+                                  + kw.enc_string("127.0.0.1")
+                                  + struct.pack(">i", self.port)])
+                    + kw.enc_array([struct.pack(">h", 0) + kw.enc_string(t)
+                                    + kw.enc_array([part]) for t in topics]))
+        if api == kw.API_PRODUCE:
+            acks = r.int16()
+            r.int32()  # timeout
+            out = []
+            for _ in range(r.int32()):
+                topic = r.string()
+                for _ in range(r.int32()):
+                    pid = r.int32()
+                    mset = r.bytes_() or b""
+                    log, ends = self._log(topic)
+                    base = len(log)
+                    pos = 0
+                    while pos + 12 <= len(mset):
+                        size = struct.unpack_from(">i", mset, pos + 8)[0]
+                        msg = mset[pos + 12:pos + 12 + size]
+                        entry = struct.pack(">qi", len(log), size) + msg
+                        ends.append((ends[-1] if ends else 0) + len(entry))
+                        log.append(entry)
+                        pos += 12 + size
+                    out.append(kw.enc_string(topic) + kw.enc_array(
+                        [struct.pack(">ihqq", pid, 0, base, -1)]))
+            if acks == 0:
+                return None
+            return kw.enc_array(out) + struct.pack(">i", 0)
+        if api == kw.API_FETCH:
+            r.int32(), r.int32(), r.int32()  # replica, max_wait, min_bytes
+            out = []
+            for _ in range(r.int32()):
+                topic = r.string()
+                parts = []
+                for _ in range(r.int32()):
+                    pid, off, max_bytes = r.int32(), r.int64(), r.int32()
+                    log, ends = self._log(topic)
+                    n = len(log)
+                    off = min(max(off, 0), n)
+                    start = ends[off - 1] if off else 0
+                    # Whole messages up to max_bytes (at least one).
+                    hi = max(bisect.bisect_right(ends, start + max_bytes),
+                             min(off + 1, n))
+                    parts.append(struct.pack(">ihq", pid, 0, n)
+                                 + kw.enc_bytes(b"".join(log[off:hi])))
+                out.append(kw.enc_string(topic) + kw.enc_array(parts))
+            return struct.pack(">i", 0) + kw.enc_array(out)
+        if api == kw.API_LIST_OFFSETS:
+            r.int32()  # replica
+            out = []
+            for _ in range(r.int32()):
+                topic = r.string()
+                parts = []
+                for _ in range(r.int32()):
+                    pid, ts = r.int32(), r.int64()
+                    r.int32()  # max_offsets
+                    n = len(self._log(topic)[0])
+                    parts.append(struct.pack(">ih", pid, 0) + kw.enc_array(
+                        [struct.pack(">q", 0 if ts == kw.EARLIEST else n)]))
+                out.append(kw.enc_string(topic) + kw.enc_array(parts))
+            return kw.enc_array(out)
+        raise AssertionError(f"MiniBroker: unexpected api_key {api}")
+
+
+def jobsurface_yaml(port: int, backend: str) -> str:
+    """The Kafka leg's job in the reference's YAML schema
+    (geoflink-conf.yml): the headline's grid, window, k and radius, the
+    records' CSV columns, the broker, and the backend."""
+    return f"""\
+!!GeoFlink.utils.ConfigType
+clusterMode: False
+kafkaBootStrapServers: "127.0.0.1:{port}"
+inputStream1:
+  topicName: "{JS_TOPIC}"
+  format: "CSV"
+  dateFormat: "null"
+  geoJSONSchemaAttr: ["oID", "timestamp"]
+  csvTsvSchemaAttr: [3, 0, 1, 2]
+  gridBBox: [{BEIJING["min_x"]}, {BEIJING["min_y"]}, {BEIJING["max_x"]}, {BEIJING["max_y"]}]
+  numGridCells: {BEIJING["num_partitions"]}
+  cellLength: 0
+  delimiter: ","
+  charset: "UTF-8"
+outputStream:
+  topicName: "knn_out"
+  delimiter: ","
+query:
+  option: 1
+  parallelism: 1
+  approximate: False
+  radius: {RADIUS}
+  aggregateFunction: "SUM"
+  k: {K}
+  omegaDuration: 1
+  queryPoints:
+    - [{QUERY[0]}, {QUERY[1]}]
+window:
+  type: "TIME"
+  interval: {WINDOW // SLIDE}
+  step: 1
+backend: {backend}
+"""
+
+
+def jobsurface_records(panes, wf):
+    """The Kafka leg's ``ts,x,y,oid`` records: the first JS_PANE_PTS
+    points of each of the headline's first JS_PANES panes, coordinates
+    from the wire (dequantize of the quantized points), pane p's points
+    at ts spread over [1000 p, 1000 p + 1000) ms."""
+    lines = []
+    for p in range(JS_PANES):
+        q = panes[p][:, :JS_PANE_PTS]
+        xy = wf.dequantize_np(q[:2].T)
+        oid = q[2].view(np.int16).astype(np.int64)
+        ts = 1000 * p + (np.arange(JS_PANE_PTS) * 1000) // JS_PANE_PTS
+        lines += [f"{t},{x!r},{y!r},{o}" for t, x, y, o in zip(
+            ts.tolist(), xy[:, 0].astype(np.float64).tolist(),
+            xy[:, 1].astype(np.float64).tolist(), oid.tolist())]
+    return lines
+
+
+def jobsurface_operator(params):
+    """The headline operator and wire format a ``Params`` describes: the
+    grid from ``make_grid()``, the window from its ``window`` section, the
+    device its ``backend`` names."""
+    from spatialflink_tpu_torch.operators import (
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.streams.wire import WireFormat
+
+    grid = params.input_stream1.make_grid()
+    conf = QueryConfiguration(window_size=params.window.interval,
+                              slide_step=params.window.step)
+    return (PointPointKNNQuery(conf, grid, device=params.backend),
+            WireFormat.for_grid(grid))
+
+
+def jobsurface_query(params):
+    from spatialflink_tpu_torch.models.objects import Point
+
+    x, y = params.query.query_points[0]
+    return Point(x=x, y=y)
+
+
+class KafkaKnnLeg:
+    """One run of the Kafka leg: ``WireKafkaSource`` → ``WirePaneAssembler``
+    (JS_FEED records a feed, so a feed completes at most one pane and a
+    snapshot after a window holds no pending pane) →
+    ``PointPointKNNQuery.run_wire_panes`` (B1 on the card), built from a
+    ``Params``; from the topic's start or from a checkpoint. Keeps the
+    host seconds spent pulling records (fetch, decode, parse), in the
+    parser and in the feeds, and the panes it fed."""
+
+    def __init__(self, params, n_records, start=None):
+        from spatialflink_tpu_torch.checkpoint import (
+            restore_kafka_source_offsets,
+            restore_operator,
+            restore_wire_pane_assembler,
+        )
+        from spatialflink_tpu_torch.streams.kafka import WireKafkaSource
+        from spatialflink_tpu_torch.streams.wire import WirePaneAssembler
+
+        s = params.input_stream1
+        self.params, self.n_records = params, n_records
+        self.op, self.wf = jobsurface_operator(params)
+        self.asm = WirePaneAssembler(self.wf, self.op.conf.slide_step_ms,
+                                     start_ms=0)
+        offsets = None
+        if start is not None:
+            offsets = restore_kafka_source_offsets(start["source"],
+                                                   s.topic_name)
+            restore_wire_pane_assembler(self.asm, start["panes"])
+            restore_operator(self.op, start["op"])
+        self.first = (offsets or {}).get(0, 0)
+        i_oid, i_ts, i_x, i_y = s.csv_tsv_schema_attr
+        delim = s.delimiter
+        self.parse_s = self.pull_s = self.feed_s = 0.0
+        self.fed = []
+
+        def parse(line):
+            t0 = time.perf_counter()
+            c = line.split(delim)
+            rec = (int(c[i_ts]), float(c[i_x]), float(c[i_y]),
+                   int(c[i_oid]))
+            self.parse_s += time.perf_counter() - t0
+            return rec
+
+        self.src = WireKafkaSource(s.topic_name,
+                                   params.kafka_bootstrap_servers, parse,
+                                   start_offsets=offsets)
+
+    def panes(self):
+        import itertools
+
+        it = iter(self.src)
+        left = self.n_records - self.first
+        while left > 0:
+            t0 = time.perf_counter()
+            batch = list(itertools.islice(it, min(JS_FEED, left)))
+            t1 = time.perf_counter()
+            self.pull_s += t1 - t0
+            left -= len(batch)
+            a = np.array(batch)
+            out = self.asm.feed({"ts": a[:, 0].astype(np.int64),
+                                 "x": a[:, 1], "y": a[:, 2],
+                                 "oid": a[:, 3].astype(np.int64)})
+            if left == 0:  # the end of the topic: the open pane goes out
+                out += self.asm.flush()
+            self.feed_s += time.perf_counter() - t1
+            self.fed += out
+            yield from out
+
+    def windows(self):
+        q = self.params.query
+        return self.op.run_wire_panes(
+            self.panes(), jobsurface_query(self.params), q.radius, q.k,
+            NUM_SEGMENTS, self.wf, start_ms=0, flush_at_end=False)
+
+    def snapshot(self):
+        from spatialflink_tpu_torch.checkpoint import (
+            kafka_source_state,
+            operator_state,
+            wire_pane_assembler_state,
+        )
+
+        return dict(source=kafka_source_state(self.src),
+                    panes=wire_pane_assembler_state(self.asm),
+                    op=operator_state(self.op))
+
+
+def jobsurface_tstats(card, gpu):
+    """35a, tStats: the native engine against the numpy and device
+    engines at bench_tstats_pane, and the pane_backend rung's "auto"."""
+    import torch
+
+    from spatialflink_tpu_torch import native, overload
+    from spatialflink_tpu_torch.streams.panes import (
+        pane_spatial_bound,
+        traj_stats_sliding,
+    )
+
+    ts, xy, oid = tstats_stream()
+    # The host engines read the float32 coordinates the device engine does.
+    xy32 = xy.astype(np.float32).astype(np.float64)
+    args32 = (ts, xy32, oid, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS)
+    secs = {}
+    out = {}
+    traj_stats_sliding(ts[:1000], xy[:1000], oid[:1000], TS_BUCKET,
+                       TS_WINDOW_MS, TS_SLIDE_MS, backend="device",
+                       device=gpu)
+    for name in ("native", "numpy", "device"):
+        t0 = time.perf_counter()
+        if name == "device":
+            out[name] = traj_stats_sliding(ts, xy, oid, TS_BUCKET,
+                                           TS_WINDOW_MS, TS_SLIDE_MS,
+                                           backend="device", device=gpu)
+            if gpu != "cpu":
+                torch.cuda.synchronize()
+        else:
+            out[name] = traj_stats_sliding(*args32, backend=name,
+                                           device=gpu)
+        secs[name] = time.perf_counter() - t0
+
+    def same(a, b):
+        return all(getattr(a, f).dtype == getattr(b, f).dtype
+                   and np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in ("starts", "temporal", "count")) and \
+            np.array_equal(a.spatial.view(np.int64), b.spatial.view(np.int64))
+
+    if not same(out["native"], out["numpy"]):
+        raise AssertionError("35a: the native tStats engine differs from "
+                             "the numpy engine")
+    err, rel = check_pane_windows(out["device"], out["native"],
+                                  pane_spatial_bound(*args32), "35a native")
+    calls = []
+    real = native.traj_stats_native
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    overload.install(overload.OverloadController(overload.OverloadPolicy(
+        ladder=({"action": "pane_backend", "to": "native"},),
+        degrade_cooldown=1))).on_slo_evaluation(False)
+    native.traj_stats_native = counted
+    try:
+        t0 = time.perf_counter()
+        auto = traj_stats_sliding(*args32, backend="auto", device=gpu)
+        auto_s = time.perf_counter() - t0
+    finally:
+        native.traj_stats_native = real
+        overload.uninstall()
+    if len(calls) != 1 or not same(auto, out["native"]):
+        raise AssertionError(f"35a: under the native rung 'auto' made "
+                             f"{len(calls)} native calls")
+    print(f"jobsurface tStats engines (bench_tstats_pane: {TS_POINTS} "
+          f"points, {TS_WINDOW_MS} ms windows by {TS_SLIDE_MS} ms, "
+          f"{len(out['native'].starts)} windows): native (sf_traj_stats) "
+          f"{secs['native']:.6f} s bit-identical to numpy "
+          f"{secs['numpy']:.6f} s; the device engine on the card "
+          f"{secs['device']:.6f} s: starts, counts and temporal sums equal, "
+          f"spatial within pane_spatial_bound (max err {err:.3e}, {rel:.3f} "
+          f"of the bound); under an armed pane_backend native rung "
+          f"traj_stats_sliding(backend='auto', device card) ran the native "
+          f"engine ({len(calls)} call, {auto_s:.6f} s), bit-identical "
+          f"[{card}]")
+    return secs
+
+
+def jobsurface_tjoin(card, gpu):
+    """35a, tJoin: ``run_soa_panes(backend="native")`` against the device
+    engine on the card, phase 26's stream cut to TP_TRACE_PANES panes a
+    side. The native engine computes in float64 from the float32 centred
+    coordinates, the device engine in float32 (a relative error of at
+    most 3u, u = 2^-24): the pair sets are equal outside the band
+    [r (1 - 3u), r (1 + 3u)], whose pairs are counted, and the minima of
+    the common pairs agree within 3u."""
+    rtol = 3 * 2.0 ** -24 * (1 + 2.0 ** -20)
+    chunks = tpanes_stream()
+    cut = [[{k: v[:TP_TRACE_PANES * TP_PANE_PTS]
+             for k, v in side[0].items()}] for side in chunks]
+    nat, nat_s, _ = run_tjoin_panes(gpu, cut, backend="native")
+    dev, dev_s, dev_op = run_tjoin_panes(gpu, cut, backend="device")
+    if len(nat) != len(dev) or not dev_op.pane_scans:
+        raise AssertionError(f"35a tJoin: {len(nat)} native windows, "
+                             f"{len(dev)} device windows")
+    band = common = pairs = 0
+    worst = 0.0
+    lo_band = TP_R * (1 - rtol)
+    for a, b in zip(nat, dev):
+        if a[:2] != b[:2]:
+            raise AssertionError(f"35a tJoin: window {a[:2]} vs {b[:2]}")
+        if np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3]):
+            # The same pairs in the same order: compare the minima whole.
+            pairs += len(a[2])
+            common += len(a[2])
+            band += int(np.count_nonzero(a[4] >= lo_band))
+            err = np.abs(a[4] - b[4])
+            if np.any(err > rtol * a[4]):
+                raise AssertionError(f"35a tJoin: minima differ past 3u in "
+                                     f"window {a[:2]}")
+            if len(err):
+                worst = max(worst, float((err / np.maximum(a[4], 1e-300))
+                                         .max()))
+            continue
+        ka = dict(zip(zip(a[2].tolist(), a[3].tolist()), a[4].tolist()))
+        kb = dict(zip(zip(b[2].tolist(), b[3].tolist()), b[4].tolist()))
+        pairs += len(ka)
+        for key in ka.keys() ^ kb.keys():
+            d = ka.get(key, kb.get(key))
+            if d < lo_band:
+                raise AssertionError(f"35a tJoin: pair {key} at {d!r} in one "
+                                     f"engine only, outside the band")
+            band += 1
+        for key in ka.keys() & kb.keys():
+            common += 1
+            band += ka[key] >= lo_band
+            err = abs(ka[key] - kb[key])
+            if err > rtol * ka[key]:
+                raise AssertionError(f"35a tJoin: pair {key} minima "
+                                     f"{ka[key]!r} vs {kb[key]!r}")
+            worst = max(worst, err / max(ka[key], 1e-300))
+    if pairs == 0:
+        raise AssertionError("35a tJoin: no pair")
+    print(f"jobsurface tJoin engines (tjoin_panes_10s_10ms cut to "
+          f"{TP_TRACE_PANES} panes a side, {len(nat)} windows, {pairs} "
+          f"native pairs): run_soa_panes(backend='native') "
+          f"(sf_tjoin_panes, host) {nat_s:.6f} s, the device engine on the "
+          f"card {dev_s:.6f} s; pair sets equal outside the band "
+          f"r(1 +- 3u), {band} pairs in the band; minima of the {common} "
+          f"common pairs within {worst:.3e} relative (bound {rtol:.3e}) "
+          f"[{card}]")
+    return nat_s, dev_s
+
+
+def check_jobsurface(card, panes, wf, gpu="cuda"):
+    """Phase 35: the job surface's leaf modules on the card. 35a the
+    native engines beside the device engines; 35b Kafka → the headline
+    program through B1, from a ``Params`` read from the reference schema,
+    killed by ``kafka.fetch`` after a checkpoint and resumed. Returns
+    ``{"wire_digest": B1 launches of the card runs}``."""
+    import os
+    import tempfile
+
+    from spatialflink_tpu_torch import checkpoint as ck
+    from spatialflink_tpu_torch import native
+    from spatialflink_tpu_torch.config import Params
+    from spatialflink_tpu_torch.faults import InjectedFault, faults
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.streams.kafka import KafkaSink
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError("35: the native library did not build or "
+                             "failed its ABI check")
+    tstats_s = jobsurface_tstats(card, gpu)
+    jobsurface_tjoin(card, gpu)
+    t_a = time.perf_counter() - t_phase
+
+    # 35b. Produce the records, then the job from its YAML.
+    t0 = time.perf_counter()
+    lines = jobsurface_records(panes, wf)
+    n = len(lines)
+    data_s = time.perf_counter() - t0
+    broker = MiniBroker()
+    try:
+        params = Params.loads(jobsurface_yaml(broker.port, gpu))
+        if params.backend != gpu or params.query.k != K:
+            raise AssertionError(f"35b: the YAML read as {params}")
+        t0 = time.perf_counter()
+        sink = KafkaSink(JS_TOPIC, params.kafka_bootstrap_servers,
+                         batch=JS_FEED)
+        for line in lines:
+            sink(line)
+        sink.close()
+        produce_s = time.perf_counter() - t0
+        if broker.total(JS_TOPIC) != n:
+            raise AssertionError(f"35b: the broker holds "
+                                 f"{broker.total(JS_TOPIC)} of {n} records")
+
+        def card_windows(gen, count=None):
+            import itertools
+
+            return [(s, e, oo.copy(), dd.copy(), nv) for s, e, oo, dd, nv
+                    in itertools.islice(gen, count)]
+
+        # The uninterrupted card run, traced.
+        wire_digest.launches = 0
+        clean = KafkaKnnLeg(params, n)
+        want, wall, busy, _ = traced(lambda: card_windows(clean.windows()),
+                                     gpu)
+        clean.src.close()
+        clean_launches = wire_digest.launches
+        # The killed run: a checkpoint after JS_COMMITTED windows, then
+        # kafka.fetch raising at a later fetch; the windows after the
+        # checkpoint are discarded, as a committing sink discards them.
+        wire_digest.launches = 0
+        leg = KafkaKnnLeg(params, n)
+        gen = leg.windows()
+        committed = card_windows(gen, JS_COMMITTED)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "kafka_knn.ckpt")
+            t0 = time.perf_counter()
+            ck.save_checkpoint(path, **leg.snapshot())
+            commit_ms = (time.perf_counter() - t0) * 1e3
+            ckpt_bytes = os.path.getsize(path)
+            faults.arm([{"point": "kafka.fetch", "at": JS_KILL_FETCH}])
+            lost = []
+            try:
+                for w in gen:
+                    lost.append(w)
+                raise AssertionError("35b: kafka.fetch never fired")
+            except InjectedFault:
+                pass
+            finally:
+                fired = list(faults.fired)
+                faults.disarm()
+                leg.src.close()
+            # The resume: fresh source, assembler and operator.
+            t0 = time.perf_counter()
+            resumed_leg = KafkaKnnLeg(params, n, start=ck.load_checkpoint(
+                path))
+            gen = resumed_leg.windows()
+            first = card_windows(gen, 1)
+            resume_ms = (time.perf_counter() - t0) * 1e3
+            resumed = first + card_windows(gen)
+            resumed_leg.src.close()
+        kill_launches = wire_digest.launches
+    finally:
+        broker.close()
+    got = committed + resumed
+    check_windows(got, want, "35b kill and resume")
+    if len(want) != JS_PANES or len(committed) != JS_COMMITTED:
+        raise AssertionError(f"35b: {len(want)} windows")
+    if [f["point"] for f in fired] != ["kafka.fetch"]:
+        raise AssertionError(f"35b: fired {fired}")
+    # The CPU run over the panes the card run was fed, through B1's plain
+    # version.
+    t0 = time.perf_counter()
+    cpu_params = Params.loads(jobsurface_yaml(0, "cpu"))
+    cpu_op, cpu_wf = jobsurface_operator(cpu_params)
+    cpu = card_windows(cpu_op.run_wire_panes(
+        clean.fed, jobsurface_query(cpu_params), RADIUS, K, NUM_SEGMENTS,
+        cpu_wf, start_ms=0, flush_at_end=False))
+    cpu_s = time.perf_counter() - t0
+    check_windows(want, cpu, "35b card vs CPU")
+    if clean_launches < JS_PANES or kill_launches < JS_PANES:
+        raise AssertionError(f"35b: B1 launched {clean_launches} and "
+                             f"{kill_launches} times")
+    pull = clean.pull_s
+    print(f"e2e jobsurface Kafka -> run_wire_panes (B1): {n} ts,x,y,oid "
+          f"records ({JS_PANES} panes of {JS_PANE_PTS}, 16,384 objIDs, k={K}, "
+          f"r={RADIUS}, windows of 2 panes; a YAML job, backend "
+          f"{params.backend}) produced through KafkaSink in {produce_s:.3f} "
+          f"s = {n / produce_s:.1f} records/s; consumed by WireKafkaSource "
+          f"at {n / pull:.1f} records/s ({pull:.3f} s pulling, "
+          f"{clean.parse_s:.3f} s of it in the parser; {clean.feed_s:.3f} s "
+          f"in WirePaneAssembler.feed); {len(want)} windows of {K} (the "
+          f"first over pane 0 alone) in "
+          f"{wall:.3f} s, {idle(wall, busy)}; launches wire_digest="
+          f"{clean_launches} (clean run), {kill_launches} (killed and "
+          f"resumed runs); record set-up {data_s:.3f} s [{card}]")
+    print(f"jobsurface kill and resume: checkpoint after window "
+          f"{JS_COMMITTED - 1} (the source's offsets, the assembler's open "
+          f"pane, the digest ring) {ckpt_bytes} B committed in "
+          f"{commit_ms:.3f} ms; kafka.fetch raised at fetch "
+          f"{JS_KILL_FETCH} after it, {len(lost)} window(s) emitted since "
+          f"the checkpoint discarded; the "
+          f"resume's first window {resume_ms:.3f} ms after its start; the "
+          f"committed + resumed windows equal the uninterrupted card run, "
+          f"and every window the CPU run through B1's plain version "
+          f"({cpu_s:.3f} s on the host CPU); ids in order, distance bits "
+          f"[{card}]")
+    print(f"phase 35 wall: {time.perf_counter() - t_phase:.3f} s (35a "
+          f"{t_a:.3f} s, tStats native {tstats_s['native']:.3f} s) [{card}]")
+    return {"wire_digest": clean_launches + kill_launches}
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -7046,6 +7774,9 @@ def main(argv=None) -> int:
     ap.add_argument("--qserve-only", action="store_true",
                     help="phases 1-2 and 34 only (build, then standing-"
                          "query serving)")
+    ap.add_argument("--jobsurface-only", action="store_true",
+                    help="phases 1-2 and 35 only (build, then the native "
+                         "engines and Kafka into the headline program)")
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -7094,7 +7825,7 @@ def main(argv=None) -> int:
 
     if args.trajectory_only or args.ingest_only or args.domain_only \
             or args.runtime_only or args.driver_only or args.overload_only \
-            or args.qserve_only:
+            or args.qserve_only or args.jobsurface_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -7109,6 +7840,8 @@ def main(argv=None) -> int:
             check_overload(card, panes, wf)
         if args.qserve_only:
             check_qserve(card)
+        if args.jobsurface_only:
+            check_jobsurface(card, panes, wf)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -7317,15 +8050,19 @@ def main(argv=None) -> int:
     ov = check_overload(card, panes, wf)
     # Phase 34: standing-query serving (plain PyTorch; no hand kernel).
     check_qserve(card)
+    # Phase 35: the native engines and Kafka into the headline program
+    # (B1).
+    js = check_jobsurface(card, panes, wf)
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
          "replaces": "spatialflink_tpu/ops/pallas_digest.py:48",
          "launches": launches["wire_digest"] + rt["wire_digest"]
-         + drv["wire_digest"] + ov["wire_digest"],
+         + drv["wire_digest"] + ov["wire_digest"] + js["wire_digest"],
          "launches_runtime": rt["wire_digest"],
          "launches_driver": drv["wire_digest"],
-         "launches_overload": ov["wire_digest"], "max_abs_err": err_b1,
+         "launches_overload": ov["wire_digest"],
+         "launches_jobsurface": js["wire_digest"], "max_abs_err": err_b1,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None,
          "kernels_per_call": per_call["wire_digest"][0],

@@ -30,10 +30,14 @@ Snapshottable components:
     the applied-command uids and the counters (the ``qserve`` component;
     its flag tables are derived data, rebuilt on restore).
 
+  - the built-in Kafka consumer's offsets (``kafka_source_state``,
+    ``restore_kafka_source_offsets``): with the wire pane assembler and
+    the operator, a Kafka-fed pipeline resumes with no gap and no
+    duplicate.
+
 Two components of the JAX package wait for later items and raise
 ``NotImplementedError`` naming them: the partition plan (ROADMAP A12)
-and the composed DAG (A11.4); so do ``kafka_source_state`` and
-``restore_kafka_source_offsets`` (A11.4).
+and the composed DAG (A11.4b).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from spatialflink_tpu_torch.utils.interning import Interner
 #: snapshot or restore yet, with the ROADMAP item each waits for.
 WAITING_COMPONENTS = {
     "partition": "the grid-partitioned placement plan: ROADMAP A12",
-    "dag": "the composed dataflow DAG: ROADMAP A11.4",
+    "dag": "the composed dataflow DAG: ROADMAP A11.4b",
 }
 
 
@@ -317,16 +321,27 @@ def restore_wire_pane_assembler(asm, state: Dict[str, Any]) -> None:
 
 
 def kafka_source_state(src) -> Dict[str, Any]:
-    raise NotImplementedError(
-        "kafka_source_state (the Kafka source's consumed offsets) is not "
-        "ported yet: ROADMAP A11.4")
+    """Snapshot a ``streams/kafka.py:WireKafkaSource``: the checkpointed
+    consumer-offsets role of Flink's Kafka consumer
+    (StreamingJob.java:255), the JAX package's frame value for value.
+    Pass the saved mapping back as ``WireKafkaSource(start_offsets=...)``
+    on resume; with the assembler and operator state above, a killed
+    ingest replays the topic with no gap and no duplicate."""
+    return {
+        "topic": src.topic,
+        "offsets": {int(p): int(o) for p, o in src.offsets.items()},
+    }
 
 
 def restore_kafka_source_offsets(state: Dict[str, Any],
                                  topic: str) -> Dict[int, int]:
-    raise NotImplementedError(
-        "restore_kafka_source_offsets (the Kafka source's consumed "
-        "offsets) is not ported yet: ROADMAP A11.4")
+    """Validate and extract ``start_offsets`` for a resumed source; a
+    checkpoint of another topic raises ``ValueError``."""
+    if state["topic"] != topic:
+        raise ValueError(
+            f"checkpoint is for topic {state['topic']!r}, not {topic!r}"
+        )
+    return {int(p): int(o) for p, o in state["offsets"].items()}
 
 
 #: Framed-checkpoint magic. Format (big-endian):

@@ -57,6 +57,10 @@ point                  site in this package
                        append of the unit commit)
 ``qserve.register``    ``qserve.py:QueryRegistry.apply`` (each standing-
                        query register or unregister command)
+``kafka.fetch``        ``streams/kafka.py:WireKafkaSource`` (each
+                       partition's fetch in a round)
+``kafka.leader``       ``streams/kafka_wire.py:_with_leader_retry`` (each
+                       leader-routed request attempt; not retried)
 =====================  ==================================================
 
 The other points wait for the modules that call them (ROADMAP):
@@ -64,9 +68,7 @@ The other points wait for the modules that call them (ROADMAP):
 =====================  ==================================================
 point                  item
 =====================  ==================================================
-``kafka.fetch``        A11.4 (the Kafka source)
-``kafka.leader``       A11.4 (leader-routed requests)
-``dag.node``           A11.4 (the composed dataflow DAG)
+``dag.node``           A11.4b (the composed dataflow DAG)
 ``shard.exchange``     A12 (the multi-card halo exchange)
 =====================  ==================================================
 
@@ -96,9 +98,9 @@ INJECTION_POINTS: Dict[str, str] = {
     "soa.feed": "streams/soa.py sliding assemblers — per-chunk SoA "
                 "window assembly",
     "kafka.fetch": "streams/kafka.py:WireKafkaSource — per-partition "
-                   "fetch round (ROADMAP A11.4)",
+                   "fetch round",
     "kafka.leader": "streams/kafka_wire.py:_with_leader_retry — "
-                    "leader-routed request attempt (ROADMAP A11.4)",
+                    "leader-routed request attempt",
     "sink.write": "streams/sinks.py:TransactionalFileSink.commit — "
                   "egress append (supports partial_write)",
     "driver.window": "driver.py — device-path window processing",
@@ -112,7 +114,7 @@ INJECTION_POINTS: Dict[str, str] = {
     "qserve.register": "qserve.py:QueryRegistry.apply — standing-query "
                        "register/unregister",
     "dag.node": "dag.py:DataflowDAG — per-node window processing "
-                "(ROADMAP A11.4)",
+                "(ROADMAP A11.4b)",
     "dag.commit": "streams/sinks.py:MultiSink.commit — per-sink append "
                   "inside the atomic unit commit",
     "shard.exchange": "parallel/halo.py — halo exchange dispatch "

@@ -23,9 +23,10 @@ sub-trajectory LineStrings, per-cell aggregates, per-trajectory stats.
   host code.
 
 ``TStatsQuery.run`` and ``TJoinQuery.run_soa_panes`` go through the
-dataflow driver (``driver.py``), as the JAX operators do. Not ported:
-``run_soa_panes(backend="native")`` (ROADMAP A11.4) and ``mesh=`` (A12)
-raise ``NotImplementedError``. The JAX
+dataflow driver (``driver.py``), as the JAX operators do;
+``run_soa_panes(backend="native")`` runs the JAX package's C++ engine
+(``native.py:tjoin_panes_native``) on the host. Not ported: ``mesh=``
+(A12) raises ``NotImplementedError``. The JAX
 ``run_soa``'s ``join_window_bucketed`` branch and its 524,288-pair cap
 are TPU VMEM fallbacks and have no counterpart: on the card B3 writes
 to HBM.
@@ -578,6 +579,49 @@ class TJoinQuery(_TrajectoryOperator):
                 int(res.overflow),
             )
 
+    def _device_pane_scan(self, lfields, rfields, locc, rocc, radius,
+                          layers, ppw, num_segments, cap_w, pair_sel,
+                          cap_c):
+        """``run_soa_panes``' device engine: the compacted probe's
+        capacity planned on the host (``cap_c=None``), then the scan,
+        again with a grown budget whenever a counter overflowed. Records
+        ``pane_occupancy`` and ``pane_scans``; returns the (n_slides, K²)
+        window minima."""
+        occ = None
+        if cap_c is None:
+            # The host reads the exact live occupancy and picks the rung:
+            # the device program only ever sees the fixed capacity.
+            with telemetry.span("compaction.plan", engine="tjoin_pane_scan"):
+                occ = max(max_window_cell_count(*locc, ppw),
+                          max_window_cell_count(*rocc, ppw))
+                cap_c = pick_capacity(occ, cap_w)
+            telemetry.record_compaction("tjoin_pane_scan", cap_c, occ)
+        self.pane_occupancy, self.pane_scans = occ, []
+        scan = _PaneScan(self.device, lfields, rfields, radius, self.grid.n,
+                         layers, ppw, num_segments)
+        while True:
+            cap_over, sel_over, cmp_over, wmins = scan.run(
+                cap_w, pair_sel, cap_c)
+            self.pane_scans.append((cap_w, pair_sel, cap_c, cap_over,
+                                    sel_over, cmp_over))
+            if cap_over == 0 and sel_over == 0 and cmp_over == 0:
+                return wmins
+            # Grow whichever budget overflowed and scan again.
+            if cap_over:
+                cap_w *= 2
+                if occ is not None:  # re-pick under the new cap
+                    cap_c = pick_capacity(occ, cap_w)
+            if sel_over:
+                pair_sel *= 2
+            if cmp_over and cap_c:
+                # Only a forced or stale cap_c can be too small: climb.
+                # The occupancy was not measured, only that it exceeded
+                # the old rung: that lower bound is what is recorded.
+                live_floor = cap_c + 1
+                cap_c = min(max(cap_c * 2, cap_c + 1), cap_w)
+                telemetry.record_compaction("tjoin_pane_scan", cap_c,
+                                            live_floor)
+
     def run_soa_panes(self, left_chunks, right_chunks, radius: float,
                       num_segments: int, cap_w: int = 64, pair_sel: int = 16,
                       dtype=np.float64, mesh=None, backend: str = "auto",
@@ -606,11 +650,18 @@ class TJoinQuery(_TrajectoryOperator):
         the full-ring probe; a positive value seeds the ladder, which the
         retry still climbs.
 
-        ``backend``: "auto" and "device" run the engine on the operator's
-        device (the port has no TPU/CPU split: "auto" is the device
-        engine, also under an overload ``pane_backend`` rung, which
-        would bias it to the native engine); "native", the JAX package's
-        C++ engine, is not ported (ROADMAP A11.4). Under an installed ``pipeline`` policy the scan
+        ``backend``: "device" runs the engine on the operator's device;
+        "native" the JAX package's C++ engine (``native/sfnative.cpp:
+        sf_tjoin_panes``) on the host, exact by construction: no ranks,
+        no ``pick_capacity``, no retry, a dense (n_slides, K²) minimum
+        matrix computed in float64 from the float32 centred
+        coordinates; it raises ``RuntimeError`` when the native library
+        is unavailable. "auto" follows the JAX rule with the card in the
+        TPU's place: the native engine when the library is available
+        and either the overload ``pane_backend`` rung says "native" or
+        the operator's device is not CUDA, else the device engine (a
+        rung never becomes a crash). Under an installed ``pipeline``
+        policy the device engine's scan
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
         ``dtype`` is accepted for the JAX signature: the port computes in
@@ -651,56 +702,50 @@ class TJoinQuery(_TrajectoryOperator):
                 f"pane scan output n_slides·K² = {out_bytes / 1e9:.1f} GB "
                 f"exceeds the 2 GB guard ({n_slides} slides); feed the "
                 "stream in shorter bounded chunks or reduce num_segments")
-        if backend == "native":
-            raise NotImplementedError(
-                "backend='native' (the C++ pane engine, "
-                "native/sfnative.cpp:sf_tjoin_panes) is not ported yet: "
-                "ROADMAP A11.4")
-        if backend not in ("auto", "device"):
+        if backend not in ("auto", "device", "native"):
             raise ValueError(f"unknown tjoin panes backend {backend!r}")
-        # An overload pane_backend rung biases "auto" toward the native
-        # engine only; with none ported (ROADMAP A11.4) "auto" keeps the
-        # device engine, as the JAX operator does without its native
-        # library: a degradation rung never becomes a crash.
+        use_native = False
+        if backend != "device":
+            from spatialflink_tpu_torch import native as _native
+            from spatialflink_tpu_torch import overload as _overload
+
+            native_ok = _native.available()
+            if backend == "native":
+                if not native_ok:
+                    raise RuntimeError(
+                        "backend='native' was forced but the native library "
+                        "is unavailable (build native/ with make); refusing "
+                        "to run the device engine in its place")
+                use_native = True
+            else:
+                # An active pane_backend "native" rung biases auto toward
+                # the native engine, freeing the device; a missing library
+                # keeps the device engine: a rung never becomes a crash.
+                use_native = native_ok and (
+                    _overload.pane_backend() == "native"
+                    or self.device.type != "cuda")
         lfields, lcounts, locc = tjoin_pane_fields(
             g, lt, lx, ly, lo, slide, p_first, n_slides)
         rfields, rcounts, rocc = tjoin_pane_fields(
             g, rt, rx, ry, ro, slide, p_first, n_slides)
         layers = g.candidate_layers(radius)
-        occ = None
-        if cap_c is None:
-            # The host reads the exact live occupancy and picks the rung:
-            # the device program only ever sees the fixed capacity.
-            with telemetry.span("compaction.plan", engine="tjoin_pane_scan"):
-                occ = max(max_window_cell_count(*locc, ppw),
-                          max_window_cell_count(*rocc, ppw))
-                cap_c = pick_capacity(occ, cap_w)
-            telemetry.record_compaction("tjoin_pane_scan", cap_c, occ)
-        self.pane_occupancy, self.pane_scans = occ, []
-        scan = _PaneScan(self.device, lfields, rfields, radius, g.n, layers,
-                         ppw, num_segments)
-        while True:
-            cap_over, sel_over, cmp_over, wmins = scan.run(
-                cap_w, pair_sel, cap_c)
-            self.pane_scans.append((cap_w, pair_sel, cap_c, cap_over,
-                                    sel_over, cmp_over))
-            if cap_over == 0 and sel_over == 0 and cmp_over == 0:
-                break
-            # Grow whichever budget overflowed and scan again.
-            if cap_over:
-                cap_w *= 2
-                if occ is not None:  # re-pick under the new cap
-                    cap_c = pick_capacity(occ, cap_w)
-            if sel_over:
-                pair_sel *= 2
-            if cmp_over and cap_c:
-                # Only a forced or stale cap_c can be too small: climb.
-                # The occupancy was not measured, only that it exceeded
-                # the old rung: that lower bound is what is recorded.
-                live_floor = cap_c + 1
-                cap_c = min(max(cap_c * 2, cap_c + 1), cap_w)
-                telemetry.record_compaction("tjoin_pane_scan", cap_c,
-                                            live_floor)
+        if use_native:
+            def flat(fields):
+                fx, fy, _xi, _yi, fcell, _rank, fo, fv = fields
+                m = fv.ravel()
+                pane = np.repeat(np.arange(fv.shape[0], dtype=np.int32),
+                                 fv.shape[1])[m]
+                return (pane, fx.ravel()[m], fy.ravel()[m],
+                        fcell.ravel()[m], fo.ravel()[m])
+
+            self.pane_occupancy, self.pane_scans = None, []
+            wmins = _native.tjoin_panes_native(
+                *flat(lfields), *flat(rfields),
+                n_slides, g.n, layers, ppw, num_segments, radius)
+        else:
+            wmins = self._device_pane_scan(
+                lfields, rfields, locc, rocc, radius, layers, ppw,
+                num_segments, cap_w, pair_sel, cap_c)
 
         def rolling(counts):
             cc = np.concatenate([[0], np.cumsum(counts)])

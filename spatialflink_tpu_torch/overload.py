@@ -30,10 +30,11 @@ transition and counter for counter.
   - ``{"action": "batch_slides", "n": N}``: ``run_wire_panes`` fetches N
     windows' results in one device→host copy;
   - ``{"action": "pane_backend", "to": ...}``: bias the ``backend="auto"``
-    pane engines toward the host. The port has no native engine yet
-    (ROADMAP A11.4): ``traj_stats_sliding`` then takes its numpy engine,
-    and ``TJoinQuery.run_soa_panes`` keeps the device engine, as the JAX
-    operators do on a host without the native library.
+    pane engines toward the host, as in the JAX package:
+    ``traj_stats_sliding`` takes the native engine (the numpy one where
+    the native library is unavailable), and ``TJoinQuery.run_soa_panes``
+    takes the native engine under a ``"native"`` rung (the device engine
+    where the library is unavailable: a rung never becomes a crash).
 
 - **Device-path circuit breaker** (:class:`CircuitBreaker`): after
   ``breaker_failures`` consecutive window failures, or a degraded

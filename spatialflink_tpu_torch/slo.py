@@ -51,7 +51,7 @@ class SloSpec:
       "degraded_window_budget": M}}`` against the controller's per-class
       counters; silence fails;
     - ``node_budgets``: per-DAG-node budgets. The composed DAG is ROADMAP
-      A11.4: until it is ported no DAG is ever installed, so a spec
+      A11.4b: until it is ported no DAG is ever installed, so a spec
       naming a node violates, as the JAX engine does with no DAG;
     - ``e2e_p50_ms`` / ``e2e_p99_ms``: ceilings on the "commit" lineage
       stage (window end → sink or checkpoint commit), checked after
@@ -273,7 +273,7 @@ class SloEngine:
                           f"<= {int(dwb)}",
                           dw is not None and dw <= dwb)
         if sp.node_budgets:
-            # The composed DAG (dag.py, ROADMAP A11.4) is not ported, so
+            # The composed DAG (dag.py, ROADMAP A11.4b) is not ported, so
             # no node has stats: every named node budget is unanswerable
             # and violates, as the JAX engine's do with no DAG installed.
             for node, b in sorted(sp.node_budgets.items()):

@@ -10,18 +10,22 @@ requires ``size % slide == 0``.
 
 ``traj_stats_sliding`` computes every window's per-trajectory spatial
 length, temporal length and point count in O(events + panes × oids)
-instead of O(windows × window size). Two engines, as in the JAX
+instead of O(windows × window size). Three engines, as in the JAX
 package's ``streams/panes.py``:
 
-- ``"device"`` (and ``"auto"``): ``ops/trajectory.py:
-  traj_stats_pane_kernel`` on the given device, the card by default;
-  float32 coordinates, int64 counts and temporal sums. Its spatial sums
-  may differ from the numpy engine's in the last bits
-  (``ops/trajectory.py:spatial_sum_bound``); counts and temporal sums
-  are exact.
+- ``"device"``: ``ops/trajectory.py:traj_stats_pane_kernel`` on the
+  given device, the card by default; float32 coordinates, int64 counts
+  and temporal sums. Its spatial sums may differ from the numpy engine's
+  in the last bits (``ops/trajectory.py:spatial_sum_bound``); counts and
+  temporal sums are exact.
+- ``"native"``: ``native.py:traj_stats_native``, the C++ single-pass
+  engine (``native/sfnative.cpp:sf_traj_stats``) in float64 on the host,
+  bit-identical to the numpy engine.
 - ``"numpy"``: the host engine in float64, copied from the JAX package.
 
-``"native"`` (the C++ engine) is not ported: ROADMAP A11.4.
+``"auto"`` follows the JAX rule with the card in the TPU's place: the
+device engine when ``device`` is a CUDA device, else the native engine
+(the numpy one where the native library is unavailable).
 """
 
 from __future__ import annotations
@@ -278,13 +282,15 @@ def traj_stats_sliding(
     subtracts every segment from exactly the windows whose start it
     crosses. Equals ``TStatsQuery.run``'s per-window recompute.
 
-    ``backend``: ``"auto"`` and ``"device"`` run the device engine on
-    ``device``; ``"numpy"`` the float64 host engine; ``"native"`` raises
-    ``NotImplementedError`` (ROADMAP A11.4). Under an active overload
-    ``pane_backend`` rung (either target) ``"auto"`` takes the numpy
-    engine, as the JAX function does on a host without the native
-    library; a forced backend is never overridden. ``mesh=`` raises
-    (A12).
+    ``backend``: ``"device"`` runs the device engine on ``device``;
+    ``"native"`` the C++ engine on the ts-sorted stream, raising
+    ``RuntimeError`` when the native library is unavailable (it never
+    measures the numpy engine in its place); ``"numpy"`` the float64 host
+    engine. ``"auto"`` takes the device engine when ``device`` is a CUDA
+    device and the host engines otherwise, native first; under an active
+    overload ``pane_backend`` rung (either target) it takes the host
+    engines in that order on any device. A forced backend is never
+    overridden. ``mesh=`` raises (A12).
     """
     if size_ms % slide_ms != 0:
         raise ValueError("size must be a multiple of slide for pane slicing")
@@ -303,21 +309,57 @@ def traj_stats_sliding(
         )
     if backend not in ("auto", "device", "numpy", "native"):
         raise ValueError(f"unknown traj_stats backend {backend!r}")
-    if backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the C++ pane engine) is not ported yet: "
-            "ROADMAP A11.4")
-    # An active pane_backend rung biases "auto" to the host, freeing the
-    # device; with no native engine (A11.4) that is the numpy engine.
+    # An active overload pane_backend rung biases "auto" to the host
+    # engines, which answer as the device engine does, freeing the
+    # device. Forced backends are never overridden.
     from spatialflink_tpu_torch import overload
 
     prefer_host = (backend == "auto"
                    and overload.pane_backend() in ("native", "numpy"))
-    if backend == "device" or (backend == "auto" and not prefer_host):
+    if backend == "device" or (
+            backend == "auto" and not prefer_host
+            and torch.device(device).type == "cuda"):
         return _traj_stats_sliding_device(ts, xy, oid, num_oids, size_ms,
                                           slide_ms, device)
 
     ts_sorted = len(ts) <= 1 or bool(np.all(ts[1:] >= ts[:-1]))
+
+    # The native single-pass engine (native/sfnative.cpp:sf_traj_stats):
+    # bit-identical to the numpy engine below (the same float association
+    # order).
+    try:
+        from spatialflink_tpu_torch import native as _native
+
+        native_ok = backend != "numpy" and _native.available()
+    except Exception:  # pragma: no cover - import or build failure
+        native_ok = False
+    if backend == "native" and not native_ok:
+        raise RuntimeError(
+            "backend='native' was forced but the native library is "
+            "unavailable (build native/ with make); refusing to measure "
+            "the numpy engine in its place")
+    if native_ok:
+        if ts_sorted:
+            ts_s, xy_s, oid_s = ts, xy, oid
+        else:
+            order = np.argsort(ts, kind="stable")
+            ts_s, xy_s, oid_s = ts[order], xy[order], oid[order]
+        out = _native.traj_stats_native(
+            ts_s, xy_s[:, 0], xy_s[:, 1], oid_s, num_oids, size_ms,
+            slide_ms)
+        if out is not None:
+            n_starts, w_d, w_dt, w_cnt = out
+            p_lo = int(np.floor_divide(int(ts_s[0]), slide_ms))
+            alive = w_cnt.sum(axis=1) > 0
+            starts = ((np.arange(n_starts) + p_lo - (ppw - 1))
+                      * slide_ms)[alive]
+            return TrajPaneWindows(
+                starts=starts.astype(np.int64),
+                spatial=w_d[alive],
+                temporal=w_dt[alive],
+                count=w_cnt[alive],
+                _size_ms=size_ms,
+            )
     if ts_sorted:
         # A stable sort on oid alone keeps the ts order within each
         # trajectory: cheaper than the two-key lexsort.

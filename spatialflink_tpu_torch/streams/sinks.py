@@ -242,7 +242,7 @@ class TransactionalFileSink:
 class MultiSink:
     """N named :class:`TransactionalFileSink`\\ s committed as ONE unit —
     the egress half of the DAG's atomic unit checkpoint
-    (the JAX package's ``dag.py``; ROADMAP A11.4 in the port).
+    (the JAX package's ``dag.py``; ROADMAP A11.4b in the port).
 
     Each node of a composed dataflow stages into its own sub-sink;
     ``commit()`` durably appends every sub-sink's staged records IN NAME

@@ -721,7 +721,7 @@ def test_traj_stats_on_card_equals_cpu():
     for size, slide in ((10_000, 10), (2_000, 1_000)):
         got = traj_stats_sliding(ts, xy, oid, 512, size, slide, device=dev)
         want = traj_stats_sliding(ts, xy, oid, 512, size, slide,
-                                  device="cpu")
+                                  backend="device", device="cpu")
         assert np.array_equal(got.starts, want.starts)
         assert np.array_equal(got.count, want.count)
         assert np.array_equal(got.temporal, want.temporal)
@@ -766,7 +766,8 @@ def test_tjoin_run_soa_panes_on_card_equals_cpu(cap_c):
     for d in (dev, "cpu"):
         op = PointPointTJoinQuery(conf, grid, device=d)
         out[str(d)] = list(op.run_soa_panes(left, right, 0.004, 64,
-                                            cap_w=64, cap_c=cap_c))
+                                            cap_w=64, cap_c=cap_c,
+                                            backend="device"))
     got, want = out[str(dev)], out["cpu"]
     assert len(got) == len(want) == 299
     for g, w in zip(got, want):
@@ -1593,3 +1594,128 @@ def test_qserve_window_on_card_equals_cpu():
     got, want = run(dev), run("cpu")
     assert got == want
     assert got[2]["bulk"]["results_shed"] > 0 and len(got[0]) > 100
+
+
+@pytest.mark.cuda
+def test_native_tstats_engine_against_the_device_engine_on_card():
+    """The native tStats engine (``sf_traj_stats``, host) against the
+    device engine on the card: starts, counts and temporal sums exact,
+    spatial sums within ``pane_spatial_bound`` (the host engine reads the
+    float32 coordinates the device engine does); ``"auto"`` on the card
+    keeps the device engine."""
+    dev = _card()
+    from spatialflink_tpu_torch import native
+    from spatialflink_tpu_torch.streams import panes as tpanes
+
+    assert native.available()
+    rng = np.random.default_rng(29)
+    n = 200_000
+    ts = np.sort(rng.integers(0, 30_000, n)).astype(np.int64)
+    xy = np.stack([rng.uniform(115.5, 117.6, n),
+                   rng.uniform(39.6, 41.1, n)], axis=1)
+    xy32 = xy.astype(np.float32).astype(np.float64)
+    oid = rng.integers(0, 500, n).astype(np.int64)
+    args = (512, 10_000, 10)
+    nat = tpanes.traj_stats_sliding(ts, xy32, oid, *args, backend="native",
+                                    device=dev)
+    taken = []
+    real = tpanes._traj_stats_sliding_device
+
+    def spy(*a, **k):
+        taken.append(1)
+        return real(*a, **k)
+
+    tpanes._traj_stats_sliding_device = spy
+    try:
+        got = tpanes.traj_stats_sliding(ts, xy, oid, *args, device=dev)
+    finally:
+        tpanes._traj_stats_sliding_device = real
+    assert taken == [1]
+    assert np.array_equal(got.starts, nat.starts)
+    assert np.array_equal(got.count, nat.count)
+    assert np.array_equal(got.temporal, nat.temporal)
+    bound = tpanes.pane_spatial_bound(ts, xy32, oid, *args)
+    assert np.all(np.abs(got.spatial - nat.spatial) <= bound[None, :])
+
+
+@pytest.mark.cuda
+def test_kafka_to_run_wire_panes_on_card_equals_cpu():
+    """Kafka records (``chip_smoke.MiniBroker``, the port's ``KafkaSink``
+    and ``WireKafkaSource``) through ``WirePaneAssembler`` into
+    ``run_wire_panes`` (B1) on the card, 2 windows of 2 panes, equal to
+    the same panes run on the CPU through B1's plain version: ids in
+    order, distance bits; B1 launched for each pane."""
+    dev = _card()
+    import importlib.util
+    import itertools
+    from pathlib import Path
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointKNNQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.wire_digest_kernel import wire_digest
+    from spatialflink_tpu_torch.streams.kafka import (
+        KafkaSink,
+        WireKafkaSource,
+    )
+    from spatialflink_tpu_torch.streams.wire import (
+        WireFormat,
+        WirePaneAssembler,
+    )
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    wf = WireFormat.for_grid(grid)
+    rng = np.random.default_rng(31)
+    n_pane, n_panes, nseg = 20_000, 3, 2048
+    q = wf.quantize(np.stack([rng.uniform(115.5, 117.6, n_pane * n_panes),
+                              rng.uniform(39.6, 41.1, n_pane * n_panes)],
+                             axis=1))
+    xy = wf.dequantize_np(q).astype(np.float64)
+    oid = rng.integers(0, nseg, n_pane * n_panes)
+    ts = (np.arange(n_pane * n_panes) * 1000) // n_pane
+    broker = cs.MiniBroker()
+    try:
+        bs = f"127.0.0.1:{broker.port}"
+        sink = KafkaSink("gps", bs, batch=4096)
+        for t, x, y, o in zip(ts.tolist(), xy[:, 0].tolist(),
+                              xy[:, 1].tolist(), oid.tolist()):
+            sink(f"{t},{x!r},{y!r},{o}")
+        sink.close()
+        src = WireKafkaSource("gps", bs, lambda line: tuple(
+            float(v) for v in line.split(",")))
+        asm = WirePaneAssembler(wf, 1000, start_ms=0)
+        fed = []
+        records = iter(src)
+        for batch in iter(lambda: list(itertools.islice(records, 4096)),
+                          []):
+            a = np.array(batch)
+            fed += asm.feed({"ts": a[:, 0].astype(np.int64), "x": a[:, 1],
+                             "y": a[:, 2], "oid": a[:, 3].astype(np.int64)})
+            if len(fed) == n_panes - 1:
+                break
+        src.close()
+    finally:
+        broker.close()
+    out = {}
+    wire_digest.launches = 0
+    for d in (dev, "cpu"):
+        op = PointPointKNNQuery(QueryConfiguration(window_size=2.0,
+                                                   slide_step=1.0), grid,
+                                device=d)
+        out[str(d)] = list(op.run_wire_panes(
+            fed, Point(x=116.4, y=40.19), 0.05, 20, nseg, wf,
+            flush_at_end=False))
+    assert wire_digest.launches >= len(fed)
+    got, want = out[str(dev)], out["cpu"]
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2] and g[4] == w[4] == 20
+        assert np.array_equal(g[2], w[2])
+        assert np.array_equal(g[3].view(np.uint32), w[3].view(np.uint32))

@@ -469,10 +469,12 @@ class TestLadder:
 
     @pytest.mark.parametrize("to", ["native", "numpy"])
     def test_traj_stats_auto_backend_biased_host(self, to, monkeypatch):
-        """Under the rung "auto" takes the host engine: with no native
-        engine in the port, the numpy one (never the device engine), and
-        a forced backend is never overridden. Windows equal the JAX numpy
-        engine's."""
+        """Under the rung (either target) "auto" takes the host engines
+        in the JAX order: the native engine (a spy counts its calls),
+        never the device engine, and a forced backend is never
+        overridden. Windows equal the JAX numpy engine's."""
+        from spatialflink_tpu_torch import native as tnative
+
         tov.install(tov.OverloadController(tov.OverloadPolicy(
             ladder=({"action": "pane_backend", "to": to},),
             degrade_cooldown=1))).on_slo_evaluation(False)
@@ -483,27 +485,42 @@ class TestLadder:
         args = (ts, xy, oid, 3, 1000, 500)
         taken = []
         real = tpanes._traj_stats_sliding_device
+        real_native = tnative.traj_stats_native
 
         def spy(*a, **k):
             taken.append("device")
             return real(*a, **k)
 
+        def native_spy(*a, **k):
+            taken.append("native")
+            return real_native(*a, **k)
+
         monkeypatch.setattr(tpanes, "_traj_stats_sliding_device", spy)
+        monkeypatch.setattr(tnative, "traj_stats_native", native_spy)
         a = tpanes.traj_stats_sliding(*args, backend="auto", device="cpu")
-        assert taken == []
+        assert taken == ["native"]
         tpanes.traj_stats_sliding(*args, backend="device", device="cpu")
-        assert taken == ["device"]
+        assert taken == ["native", "device"]
         b = jpanes.traj_stats_sliding(*args, backend="numpy")
         np.testing.assert_array_equal(a.starts, b.starts)
         np.testing.assert_array_equal(a.count, b.count)
         np.testing.assert_array_equal(a.spatial, b.spatial)
         np.testing.assert_array_equal(a.temporal, b.temporal)
 
-    def test_tjoin_panes_auto_keeps_the_device_engine_under_the_rung(self):
-        """A "native" rung with no native engine keeps the device engine
-        (the JAX operator without its library): the same windows, scanned
-        by the device engine."""
-        def run():
+    def test_tjoin_panes_auto_keeps_the_device_engine_under_the_rung(
+            self, monkeypatch):
+        """Under a "native" rung "auto" runs the native engine (a spy
+        counts its calls; the device engine does not scan), and its
+        windows equal the device engine's: the same pairs in the same
+        order, the float64 minima within the device engine's float32
+        error (``test_torch_native.F32_DISTANCE_RTOL``). With the native library unavailable the
+        rung keeps the device engine (the JAX operator without its
+        library): a rung never becomes a crash."""
+        from test_torch_native import F32_DISTANCE_RTOL
+
+        from spatialflink_tpu_torch import native as tnative
+
+        def run(backend="auto"):
             op = PointPointTJoinQuery(
                 QueryConfiguration(window_size=1.0, slide_step=0.5),
                 UniformGrid(8, 0.0, 8.0, 0.0, 8.0), device="cpu")
@@ -512,18 +529,36 @@ class TestLadder:
                 np.int64), "x": rng.uniform(0, 8, 40),
                 "y": rng.uniform(0, 8, 40),
                 "oid": rng.integers(0, 4, 40).astype(np.int32)}]
-            out = list(op.run_soa_panes(side, side, 1.0, 4))
+            out = list(op.run_soa_panes(side, side, 1.0, 4,
+                                        backend=backend))
             return out, op.pane_scans
 
-        base, _ = run()
+        base, base_scans = run("device")
+        assert base_scans
         tov.install(tov.OverloadController(tov.OverloadPolicy(
             ladder=({"action": "pane_backend", "to": "native"},),
             degrade_cooldown=1))).on_slo_evaluation(False)
         assert tov.pane_backend() == "native"
+        calls = []
+        real = tnative.tjoin_panes_native
+
+        def spy(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        monkeypatch.setattr(tnative, "tjoin_panes_native", spy)
         got, scans = run()
-        assert scans, "the device engine did not scan"
-        assert len(got) == len(base) > 0
+        assert calls == [1] and scans == []
+        assert len(got) == len(base) > 0 and sum(w[5] for w in got) > 0
         for a, b in zip(base, got):
+            assert a[:2] == b[:2] and a[5:] == b[5:]
+            np.testing.assert_array_equal(a[2], b[2])
+            np.testing.assert_array_equal(a[3], b[3])
+            assert np.all(np.abs(b[4] - a[4]) <= F32_DISTANCE_RTOL * b[4])
+        monkeypatch.setattr(tnative, "available", lambda: False)
+        kept, kept_scans = run()
+        assert kept_scans and len(calls) == 1
+        for a, b in zip(base, kept):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
 

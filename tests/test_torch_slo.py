@@ -11,7 +11,7 @@ each violation record, the instants' timestamps, and the value of the
 Then the window-fire hooks of both assemblers, the ledger embedding and
 ``tools/sfprof``'s post-hoc twin and ``health --slo`` reading the port's
 ledger, the driver budgets, the e2e ceilings and the node budgets (no DAG
-is ported: ROADMAP A11.4; a named node violates, as in the JAX engine with
+is ported: ROADMAP A11.4b; a named node violates, as in the JAX engine with
 no DAG installed).
 """
 

@@ -7,7 +7,10 @@ or operator and its port counterpart, the port on the CPU. The test
 configuration turns x64 on, and the JAX pane engine takes its float type
 from that flag: the JAX side runs inside ``jax.enable_x64(False)``, its
 operator with ``dtype=np.float32`` and ``backend="device"`` (the scan,
-not the C++ engine), so both sides compute in float32.
+not the C++ engine), so both sides compute in float32. The port's
+operator is given ``backend="device"`` too: on the CPU its ``"auto"``
+takes the native engine, as the JAX operator's does on a CPU host
+(``tests/test_torch_native.py`` holds that engine).
 
 Contracts held:
 - host helpers (ranks, block size, ladder, occupancy) equal;
@@ -27,7 +30,8 @@ Contracts held:
 - the segmented scan under a pipeline policy equals the one scan; a
   JAX carry handed over through ``state.tjoin_pane_carry_from_jax``
   continues to the JAX scan's window minima;
-- the guards and what is not ported raise as stated.
+- the guards and ``mesh=`` (not ported) raise as stated; the forced
+  native engine runs.
 """
 
 import jax
@@ -305,7 +309,8 @@ def _run_both(left, right, window, slide, radius, n_obj, **kw):
     scans (``pane_scans``: one a scan, the retries included)."""
     op = _port(window, slide)
     got = list(op.run_soa_panes(
-        _copies(left), _copies(right), radius, n_obj, **kw))
+        _copies(left), _copies(right), radius, n_obj, backend="device",
+        **kw))
     jop = JTJoin(JConf(JQT.WindowBased, window_size=window,
                        slide_step=slide), JGrid(**GRID))
     with jax.enable_x64(False):
@@ -420,7 +425,8 @@ def test_run_soa_panes_equals_run_soa(cap_c):
     left = _chunks(rng, 1500, 4_000, 24)
     right = _chunks(rng, 1500, 4_000, 24, shift=0.3)
     panes = list(_port(1.0, 0.1).run_soa_panes(
-        _copies(left), _copies(right), 0.4, 24, cap_c=cap_c))
+        _copies(left), _copies(right), 0.4, 24, cap_c=cap_c,
+        backend="device"))
     soa = list(_port(1.0, 0.1, cap=64).run_soa(
         _copies(left), _copies(right), 0.4, 24))
     by_start = {w[0]: w for w in panes}
@@ -453,7 +459,8 @@ class TestSegmentedScan:
             UniformGrid(8, 0.0, 8.0, 0.0, 8.0), device="cpu")
         return [(s, e, lo.tolist(), ro.tolist(), dd.tolist(), c, o)
                 for s, e, lo, ro, dd, c, o in op.run_soa_panes(
-                    self._chunks(0), self._chunks(1), 1.5, 5)]
+                    self._chunks(0), self._chunks(1), 1.5, 5,
+                    backend="device")]
 
     @pytest.mark.parametrize("polkw", [
         {}, {"depth": 4, "fetch_lag": 3}, {"depth": 1, "fetch_lag": 0},
@@ -508,9 +515,23 @@ def test_guards_raise_value_error(case):
         list(op.run_soa_panes(*args, **kw))
 
 
-@pytest.mark.parametrize("kw,item", [({"backend": "native"}, "A11"),
-                                     ({"mesh": object()}, "A12")])
+@pytest.mark.parametrize("kw,item", [
+    # The native engine was waiting for ROADMAP A11.4a: it runs now and
+    # answers as the device engine does on a single point a side.
+    pytest.param({"backend": "native"}, "A11", id="kw0-A11"),
+    pytest.param({"mesh": object()}, "A12", id="kw1-A12")])
 def test_unported_options_raise(kw, item):
+    if item == "A11":
+        got = list(_port(1.0, 0.5).run_soa_panes(
+            _one_point(), _one_point(), 0.5, 4, **kw))
+        want = list(_port(1.0, 0.5).run_soa_panes(
+            _one_point(), _one_point(), 0.5, 4, backend="device"))
+        assert [(w[:2], w[2].tolist(), w[3].tolist(), w[4].tolist(), w[5:])
+                for w in got] == \
+            [(w[:2], w[2].tolist(), w[3].tolist(), w[4].tolist(), w[5:])
+             for w in want]
+        assert got and got[0][5] == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         list(_port(1.0, 0.5).run_soa_panes(_one_point(), _one_point(), 0.5,
                                            4, **kw))

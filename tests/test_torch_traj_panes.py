@@ -16,8 +16,10 @@ Contracts held:
   cumulative sums associate differently on the CPU, and against the
   float64 numpy engine fed the same float32-rounded coordinates;
 - the port's numpy engine bit-equal to the JAX one (the same code);
-- an empty stream, the int32-span guard and the backends that are not
-  ported (``"native"``, ``mesh=``) behave as stated.
+- an empty stream, the int32-span guard and ``mesh=`` (not ported)
+  behave as stated; ``backend="native"`` runs the C++ engine,
+  bit-equal to the numpy one and to the JAX package's native engine
+  (``tests/test_torch_native.py`` holds it further).
 """
 
 import jax
@@ -140,11 +142,22 @@ def test_int32_span_guard_and_argument_checks():
 
 
 def test_unported_backends_raise():
-    """``backend="native"`` raises and never runs the numpy engine in its
-    place; ``mesh=`` raises."""
-    args = (np.asarray([0, 10], np.int64), np.zeros((2, 2)),
-            np.zeros(2, np.int64), 8, 1000, 1000)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tpanes.traj_stats_sliding(*args, backend="native", device="cpu")
+    """``backend="native"`` (ROADMAP A11.4a, ported) runs the C++ engine
+    and answers bit for bit as the numpy engine and the JAX package's
+    native engine; ``mesh=`` (A12) raises."""
+    from spatialflink_tpu_torch import native
+
+    assert native.available()
+    rng = np.random.default_rng(23)
+    ts, xy, oid = _stream(rng, 3000)
+    args = (ts, xy, oid, K, 3000, 300)
+    got = tpanes.traj_stats_sliding(*args, backend="native", device="cpu")
+    for want in (tpanes.traj_stats_sliding(*args, backend="numpy",
+                                           device="cpu"),
+                 jpanes.traj_stats_sliding(*args, backend="native")):
+        for a in ("starts", "spatial", "temporal", "count"):
+            assert np.array_equal(getattr(got, a), getattr(want, a)), a
+            assert getattr(got, a).dtype == getattr(want, a).dtype
     with pytest.raises(NotImplementedError, match="A12"):
-        tpanes.traj_stats_sliding(*args, device="cpu", mesh=object())
+        tpanes.traj_stats_sliding(*args[:3], 8, 1000, 1000, device="cpu",
+                                  mesh=object())
