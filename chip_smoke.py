@@ -12,6 +12,7 @@ NVIDIA card.
     python3 chip_smoke.py --overload-only     # phases 1-2 and 33
     python3 chip_smoke.py --qserve-only       # phases 1-2 and 34
     python3 chip_smoke.py --jobsurface-only   # phases 1-2 and 35
+    python3 chip_smoke.py --dag-only          # phases 1-2 and 36
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -395,6 +396,34 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the host seconds in parse and feed, B1's launches, the device idle
    share, the checkpoint's bytes and commit ms, the resume's ms to its
    first window.
+36. the composed SNCB dataflow and the StreamingJob entry point
+   (``dag.py``, ``streaming_job.py``): (a) the seven-node DAG
+   (``build_sncb_dag``: q1-q5, staytime, qserve with the default standing
+   queries booted on the stream) over phase 29's FA/FF stream cut to
+   2,000 events/s for 30 s, checkpointed every 2 windows with telemetry
+   on: every sink byte-identical to the same run on the CPU, no node
+   retried, failed over or degraded on the card, ``snapshot()["dag"]``
+   carrying all seven nodes, an ``SloSpec`` with ``node_budgets`` on
+   every node passing; per-node seconds (the ``node.<name>`` spans),
+   events/s, the device idle share, each commit's ms and bytes, the zone
+   test's and the registry program's launches; (b) a child process
+   running (a)'s DAG on the card killed by an ``abort`` at the third unit
+   commit's second sub-append (``dag.commit`` ``at: 16``), a second child
+   resuming from the unit checkpoint: every sink byte-identical to (a)'s
+   card run; the resume's ms to its first window and the checkpoint's
+   bytes; and ``python -m spatialflink_tpu_torch.dag --smoke`` on the
+   card, exit 0; (c) ``streaming_job.main`` from a YAML in the reference
+   schema with ``backend: cuda`` against the same YAML with ``backend:
+   cpu``: options 1, 3, 6 and 8 over a CSV of phase 9's 2 x 20,000
+   ``Point``s (its first second, the sides merged in event time), option
+   5 over the same records side after side with ``query.incremental:
+   true`` (its halves the two streams, through B3, whose launches must
+   rise), option 9 with the default standing set, each output
+   byte-identical between the card and the CPU; option 3 to ``--output
+   kafka:`` through ``MiniBroker``, the records read back equal to the
+   CSV output; option 10 with ``--checkpoint`` over a CSV of (a)'s
+   stream, in a child killed by an ``abort`` fault and a child resuming,
+   each node file byte-identical to an uninterrupted run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
@@ -7669,6 +7698,477 @@ def check_jobsurface(card, panes, wf, gpu="cuda"):
     return {"wire_digest": clean_launches + kill_launches}
 
 
+# Phase 36: the composed SNCB DAG and the StreamingJob entry point. 36a's
+# stream is phase 29's FA/FF stream (BenchmarkRunner.java:22-105: the
+# Brussels bbox, 10 devices, seed 42; FA ~ U(0, 1), FF ~ U(0, 0.4) from
+# seed 29) with its rate cut from SNCB_EPS to DAG_EPS over the same 30 s
+# (a tenth: every node but the zone test and the registry program walks
+# its events in Python). 36c's CSV is phase 9's Point streams.
+DAG_EPS = 2_000
+DAG_CKPT_EVERY = 2       # windows between the unit checkpoints
+DAG_KILL_AT = 16         # the dag.commit sub-append the kill children abort
+                         # at: the third unit commit's second (7 sinks a
+                         # commit), so a unit checkpoint exists to resume
+SJ_POINTS = JOIN_OBJ_POINTS  # 36c's Points a side: phase 9's first second
+DAG_NODES = ("q1", "q2", "q3", "q4", "q5", "staytime", "qserve")
+SJ_OPTIONS = (1, 3, 5, 6, 8, 9)
+
+
+def dag_stream():
+    """36a's events: phase 29's FA/FF stream at DAG_EPS."""
+    from spatialflink_tpu_torch.sncb.common import GpsEvent
+    from spatialflink_tpu_torch.sncb.runners import BRUSSELS_BBOX
+    from spatialflink_tpu_torch.streams.sources import SyntheticGpsSource
+
+    src = SyntheticGpsSource(
+        *BRUSSELS_BBOX, target_eps=DAG_EPS, duration_ms=SNCB_DURATION_MS,
+        num_devices=SNCB_DEVICES, seed=42, start_ts=SNCB_T0,
+        make_event=lambda device_id, x, y, timestamp, speed: GpsEvent(
+            device_id, x, y, timestamp, speed, 5.0, 5.0))
+    events = list(src)
+    rng = np.random.default_rng(29)
+    fa = rng.uniform(0.0, 1.0, len(events)).tolist()
+    ff = rng.uniform(0.0, 0.4, len(events)).tolist()
+    return [GpsEvent(e.device_id, e.lon, e.lat, e.ts, e.gps_speed, a, b)
+            for e, a, b in zip(events, fa, ff)]
+
+
+def dag_leg(device, workdir, events):
+    """One run of 36a's DAG under ``workdir`` (resumed when its unit
+    checkpoint exists). Returns (the DAG, the driver, {"commits": [(ms,
+    bytes)], "first_window_ms", "windows", "s"})."""
+    import itertools
+    import os
+
+    from spatialflink_tpu_torch import dag as dag_mod
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+    )
+
+    t0 = time.perf_counter()
+    dag = dag_mod.build_sncb_dag(
+        os.path.join(workdir, "egress"),
+        qserve_queries=dag_mod.default_sncb_queries(),
+        retry=RetryPolicy(max_retries=1, backoff_s=0.0), device=device)
+    ck_path = os.path.join(workdir, "ckpt.bin")
+    drv = WindowedDataflowDriver(
+        checkpoint_path=ck_path, checkpoint_every=DAG_CKPT_EVERY, sink=None,
+        retry=RetryPolicy(max_retries=1, backoff_s=0.0), failover=False)
+    info = {"commits": [], "first_window_ms": None, "windows": 0}
+    commit = drv._commit
+
+    def timed_commit(final=False):
+        c0 = time.perf_counter()
+        commit(final)
+        info["commits"].append(((time.perf_counter() - c0) * 1e3,
+                                os.path.getsize(ck_path)))
+
+    drv._commit = timed_commit
+    for _ in dag.run(itertools.chain(dag.qserve_boot, events), driver=drv):
+        if info["first_window_ms"] is None:
+            info["first_window_ms"] = (time.perf_counter() - t0) * 1e3
+        info["windows"] += 1
+    if device != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+    info["s"] = time.perf_counter() - t0
+    return dag, drv, info
+
+
+def dag_sinks(workdir):
+    import os
+
+    out = {}
+    for name in DAG_NODES:
+        with open(os.path.join(workdir, "egress", f"{name}.csv"), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def dag_child(workdir, device="cuda") -> int:
+    """One child of phase 36b (``--dag-child DIR``, on the card unless
+    ``--child-device cpu``): 36a's DAG, killed by an armed
+    ``SFT_FAULT_PLAN`` or resumed from the unit checkpoint under
+    ``workdir``. Prints one JSON line of its numbers."""
+    import os
+
+    from spatialflink_tpu_torch import dag as dag_mod
+
+    ck_path = os.path.join(workdir, "ckpt.bin")
+    ck_bytes = os.path.getsize(ck_path) if os.path.exists(ck_path) else 0
+    events = dag_stream()
+    _dag, drv, info = dag_leg(device, workdir, events)
+    dag_mod.uninstall()
+    print(json.dumps({"resumed": drv.stats["resumed"],
+                      "resume_ckpt_bytes": ck_bytes,
+                      "first_window_ms": info["first_window_ms"],
+                      "windows": info["windows"]}))
+    return 0
+
+
+#: Phase 36's child processes, killed if the phase fails before it
+#: collects them.
+DAG_CHILDREN = []
+
+
+def start_background(cmd, env=None):
+    """``cmd`` from the checkout's root with the armed ``SFT_*`` plans
+    scrubbed (``env`` adds its own), its output piped."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("SFT_FAULT_PLAN", "SFT_PIPELINE",
+                         "SFT_LEDGER_STREAM", "SFT_OVERLOAD_POLICY")}
+    proc = subprocess.Popen(cmd, cwd=root, env={**base, **(env or {})},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    DAG_CHILDREN.append(proc)
+    return proc
+
+
+def kill_then_resume(cmd, plan, label, timeout=300):
+    """A child armed with ``plan`` that must die with the abort code, then
+    the same command resuming; returns the resume's stdout."""
+    kill = start_background(cmd, {"SFT_FAULT_PLAN": json.dumps(plan)})
+    _, err = kill.communicate(timeout=timeout)
+    if kill.returncode != 137:
+        raise AssertionError(f"{label}: the kill child exited "
+                             f"{kill.returncode}, not 137\n{err[-2000:]}")
+    resume = start_background(cmd)
+    out, err = resume.communicate(timeout=timeout)
+    if resume.returncode != 0:
+        raise AssertionError(f"{label}: the resume child failed\n"
+                             f"{err[-2000:]}")
+    return out
+
+
+def sj_yaml(option, backend, bbox, cells, radius, k, interval, step,
+            points, incremental=False):
+    """A job in the reference's YAML schema (geoflink-conf.yml)."""
+    pts = "\n".join(f"    - [{x}, {y}]" for x, y in points)
+    return f"""\
+!!GeoFlink.utils.ConfigType
+clusterMode: False
+inputStream1:
+  topicName: "points"
+  format: "CSV"
+  dateFormat: "null"
+  csvTsvSchemaAttr: [0, 1, 2, 3]
+  gridBBox: [{bbox[0]}, {bbox[1]}, {bbox[2]}, {bbox[3]}]
+  numGridCells: {cells}
+  cellLength: 0
+  delimiter: ","
+outputStream:
+  topicName: "results"
+  delimiter: ","
+query:
+  option: {option}
+  approximate: False
+  radius: {radius}
+  aggregateFunction: "SUM"
+  k: {k}
+  incremental: {str(incremental).lower()}
+  queryPoints:
+{pts}
+window:
+  type: "TIME"
+  interval: {interval}
+  step: {step}
+backend: {backend}
+"""
+
+
+def check_dag(card, gpu="cuda"):
+    """Phase 36: the composed SNCB DAG and the StreamingJob entry point.
+    Returns {"join_extract": B3 launches of 36c's option 5}. A failure
+    kills the phase's child processes before it propagates."""
+    try:
+        return run_dag_phase(card, gpu)
+    finally:
+        for proc in DAG_CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        DAG_CHILDREN.clear()
+
+
+def run_dag_phase(card, gpu):
+    import os
+    import tempfile
+
+    import torch
+
+    from spatialflink_tpu_torch import dag as dag_mod
+    from spatialflink_tpu_torch import qserve, slo, streaming_job
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.sncb import common as sncb_common
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase36_")
+    # The smoke's four processes run one after another on the card beside
+    # the whole phase (36a's DAG shares the host with one of them at a
+    # time); 36b's and option 10's child chains start after 36a.
+    smoke = start_background([sys.executable, "-m",
+                              "spatialflink_tpu_torch.dag", "--smoke",
+                              "--device", gpu])
+    t0 = time.perf_counter()
+    events = dag_stream()
+    print(f"data: {len(events)} SNCB events ({DAG_EPS} events/s for "
+          f"{SNCB_DURATION_MS // 1000} s) in {time.perf_counter() - t0:.3f} "
+          f"s (host set-up)")
+
+    # 36a. The card run, traced, with telemetry on; the zone test counted.
+    zone = {"n": 0}
+    zone_kernel = sncb_common._zone_hit_kernel
+
+    def counted_zone(*a, **kw):
+        zone["n"] += 1
+        return zone_kernel(*a, **kw)
+
+    sncb_common._zone_hit_kernel = counted_zone
+    telemetry.enable()
+    try:
+        (dag, drv, info), wall, busy, kernels = traced(
+            lambda: dag_leg(gpu, os.path.join(tmp, "card"), events), gpu)
+        rollup = telemetry.node_rollup()
+        table = telemetry.kernel_table()
+        snap = telemetry.snapshot()
+        budgets = {name: {"retry_budget": 0, "failover_budget": 0,
+                          "degraded_window_budget": 0,
+                          "watermark_lag_p99_ms": 60_000}
+                   for name in DAG_NODES}
+        rows = slo.SloEngine(slo.SloSpec(
+            eval_interval_s=0.0, node_budgets=budgets)).evaluate()
+    finally:
+        sncb_common._zone_hit_kernel = zone_kernel
+        telemetry.disable()
+        dag_mod.uninstall()
+        qserve.uninstall()
+    zone_launches = zone["n"]
+    calls = {}
+    for r in table:
+        calls[r["kernel"]] = calls.get(r["kernel"], 0) + r["calls"]
+    want = dag_sinks(os.path.join(tmp, "card"))
+    if set(snap.get("dag", {}).get("nodes", {})) != set(DAG_NODES):
+        raise AssertionError(f"36a: snapshot()['dag'] holds "
+                             f"{sorted(snap.get('dag', {}).get('nodes', {}))}")
+    for name, rec in snap["dag"]["nodes"].items():
+        if rec["backend"] != "device" or rec["retries"] or rec["failovers"] \
+                or rec["degraded_windows"]:
+            raise AssertionError(f"36a: node {name} on the card: {rec}")
+    if len(rows) != 4 * len(DAG_NODES) or not all(r["ok"] for r in rows):
+        raise AssertionError(f"36a: node budgets "
+                             f"{[r for r in rows if not r['ok']]}")
+    if not all(want[n] for n in DAG_NODES if n != "q4"):
+        raise AssertionError(f"36a: empty sinks "
+                             f"{[n for n in DAG_NODES if not want[n]]}")
+    if zone_launches < 3 or calls.get("registry_bucket_kernel", 0) < 1:
+        raise AssertionError(f"36a: zone test {zone_launches}, registry "
+                             f"program {calls.get('registry_bucket_kernel')}"
+                             " launches")
+    t0 = time.perf_counter()
+    dag_leg("cpu", os.path.join(tmp, "cpu"), events)
+    cpu_s = time.perf_counter() - t0
+    dag_mod.uninstall()
+    qserve.uninstall()
+    cpu = dag_sinks(os.path.join(tmp, "cpu"))
+    for name in DAG_NODES:
+        if want[name] != cpu[name]:
+            raise AssertionError(f"36a: sink {name} differs from the CPU "
+                                 f"run ({len(want[name])} B vs "
+                                 f"{len(cpu[name])} B)")
+    n = len(events)
+    per_node = ", ".join(f"{name} {rollup[name]['span_us'] / 1e6:.3f} s"
+                         for name in DAG_NODES)
+    commits = "; ".join(f"{ms:.3f} ms {b} B" for ms, b in info["commits"])
+    sink_bytes = ", ".join(f"{k} {len(v)}" for k, v in want.items())
+    print(f"e2e dag (36a): {n} events -> {info['windows']} windows of 7 "
+          f"nodes in {info['s']:.6f} s = {n / info['s']:.1f} events/s; "
+          f"per node (node.<name> spans): {per_node}; {idle(wall, busy)} "
+          f"({kernels} kernels traced); launches zone test={zone_launches} "
+          f"registry_bucket_kernel={calls.get('registry_bucket_kernel', 0)} "
+          f"stay_time_cells_kernel={calls.get('stay_time_cells_kernel', 0)};"
+          f" 0 retries, failovers and degraded windows on every node; "
+          f"node budgets {len(rows)} checks passed; sinks (B) {sink_bytes}, "
+          f"each equal to the CPU run ({cpu_s:.3f} s) [{card}]")
+    print(f"dag commits (36a, every {DAG_CKPT_EVERY} windows and the final "
+          f"one; the unit checkpoint's size after each): {commits} [{card}]")
+    t_a = time.perf_counter() - t_phase
+
+    # 36b and 36c's option 10 kill and resume in child processes, in the
+    # background beside 36c's in-process runs.
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    chaos_dir = os.path.join(tmp, "chaos")
+    dag_chain = pool.submit(
+        kill_then_resume, [sys.executable, __file__, "--dag-child",
+                           chaos_dir, "--child-device", gpu],
+        [{"point": "dag.commit", "kind": "abort", "at": DAG_KILL_AT}], "36b")
+
+    # 36c. The job CSVs: phase 9's two streams merged in event time (so
+    # no record arrives late), the same records side after side for
+    # option 5 (its halves are its two streams), and 36a's stream.
+    left, right = (side[:SJ_POINTS] for side in join_objects())
+    points_csv = os.path.join(tmp, "points.csv")
+    join_csv = os.path.join(tmp, "join.csv")
+    for path, rows in ((points_csv, sorted(left + right,
+                                           key=lambda p: p.timestamp)),
+                       (join_csv, left + right)):
+        with open(path, "w") as f:
+            for p in rows:
+                f.write(f"{p.obj_id},{p.timestamp},{float(p.x)!r},"
+                        f"{float(p.y)!r}\n")
+    gps_csv = os.path.join(tmp, "gps.csv")
+    with open(gps_csv, "w") as f:
+        for e in events:
+            f.write(f"{e.device_id},{e.ts},{e.lon!r},{e.lat!r}\n")
+    from spatialflink_tpu_torch.sncb.runners import BRUSSELS_BBOX
+
+    bx0, bx1, by0, by1 = BRUSSELS_BBOX
+    gps_yaml = os.path.join(tmp, "dag.yml")
+    with open(gps_yaml, "w") as f:
+        f.write(sj_yaml(10, gpu, (bx0, by0, bx1, by1), 32, 0.05, 5, 10, 5,
+                        [((bx0 + bx1) / 2, (by0 + by1) / 2)]))
+    job10 = [sys.executable, "-m", "spatialflink_tpu_torch.streaming_job",
+             "--config", gps_yaml, "--source", f"csv:{gps_csv}",
+             "--output", os.path.join(tmp, "job10_chaos"), "--checkpoint",
+             os.path.join(tmp, "job10.ckpt"), "--checkpoint-every",
+             str(DAG_CKPT_EVERY)]
+    job10_chain = pool.submit(
+        kill_then_resume, job10,
+        [{"point": "dag.commit", "kind": "abort", "at": DAG_KILL_AT}],
+        "36c option 10")
+
+    bj = BEIJING
+    bbox = (bj["min_x"], bj["min_y"], bj["max_x"], bj["max_y"])
+    q2 = (QUERY[0] + 0.3, QUERY[1] - 0.2)
+    sj_secs, sj_lines = {}, {}
+    b3_launches = 0
+    for option in SJ_OPTIONS:
+        outs = {}
+        for side, backend in (("card", gpu), ("cpu", "cpu")):
+            yml = os.path.join(tmp, f"job{option}_{side}.yml")
+            with open(yml, "w") as f:
+                if option == 5:
+                    f.write(sj_yaml(5, backend, bbox, bj["num_partitions"],
+                                    JOIN_R, K, 2, 1, [QUERY],
+                                    incremental=True))
+                else:
+                    f.write(sj_yaml(option, backend, bbox,
+                                    bj["num_partitions"], RADIUS, K, 1, 1,
+                                    [QUERY, q2]))
+            out = os.path.join(tmp, f"job{option}_{side}.csv")
+            join_extract.launches = 0
+            t0 = time.perf_counter()
+            src = join_csv if option == 5 else points_csv
+            if streaming_job.main(["--config", yml, "--source",
+                                   f"csv:{src}", "--output", out]) != 0:
+                raise AssertionError(f"36c: option {option} on {backend}")
+            if side == "card":
+                if gpu != "cpu":
+                    torch.cuda.synchronize()
+                sj_secs[option] = time.perf_counter() - t0
+                if option == 5:
+                    b3_launches = join_extract.launches
+            qserve.uninstall()
+            with open(out, "rb") as f:
+                outs[side] = f.read()
+        if outs["card"] != outs["cpu"] or not outs["card"]:
+            raise AssertionError(f"36c: option {option}: card "
+                                 f"{len(outs['card'])} B, CPU "
+                                 f"{len(outs['cpu'])} B")
+        sj_lines[option] = outs["card"].count(b"\n")
+    if b3_launches < 1:
+        raise AssertionError(f"36c: option 5 launched B3 {b3_launches} "
+                             "times")
+    # Option 3 to Kafka: the records read back equal the CSV output.
+    from spatialflink_tpu_torch.streams import kafka_wire as kw
+
+    broker = MiniBroker()
+    try:
+        bs = f"127.0.0.1:{broker.port}"
+        yml = os.path.join(tmp, "job3_card.yml")
+        if streaming_job.main(["--config", yml, "--source",
+                               f"csv:{points_csv}", "--output",
+                               f"kafka:knn_out@{bs}"]) != 0:
+            raise AssertionError("36c: option 3 to Kafka")
+        client = kw.KafkaWireClient(bs)
+        records, offset = [], 0
+        while offset < broker.total("knn_out"):
+            msgs, _ = client.fetch("knn_out", 0, offset)
+            records += [m[3] for m in msgs]
+            offset = msgs[-1][0] + 1
+        client.close()
+    finally:
+        broker.close()
+    with open(os.path.join(tmp, "job3_card.csv"), "rb") as f:
+        if b"".join(r + b"\n" for r in records) != f.read():
+            raise AssertionError(f"36c: option 3's {len(records)} Kafka "
+                                 "records differ from its CSV output")
+    # Option 10, uninterrupted, in process; the children's chain beside.
+    t0 = time.perf_counter()
+    if streaming_job.main(["--config", gps_yaml, "--source",
+                           f"csv:{gps_csv}", "--output",
+                           os.path.join(tmp, "job10")]) != 0:
+        raise AssertionError("36c: option 10")
+    job10_s = time.perf_counter() - t0
+    dag_mod.uninstall()
+    qserve.uninstall()
+    job10_chain.result(timeout=600)
+    for name in DAG_NODES:
+        with open(os.path.join(tmp, "job10", f"{name}.csv"), "rb") as f:
+            clean = f.read()
+        with open(os.path.join(tmp, "job10_chaos", f"{name}.csv"),
+                  "rb") as f:
+            if f.read() != clean:
+                raise AssertionError(f"36c: option 10 node {name} differs "
+                                     "after kill and resume")
+    rates = ", ".join(f"option {o} {sj_lines[o]} lines in {sj_secs[o]:.3f} s"
+                      for o in SJ_OPTIONS)
+    print(f"e2e streaming_job (36c): {rates} over 2 x "
+          f"{SJ_POINTS} Points (YAML backend "
+          f"{gpu}), each output byte-identical to backend cpu; option 5 "
+          f"incremental launches join_extract={b3_launches}; option 3 -> "
+          f"Kafka {len(records)} records equal to its CSV; option 10 "
+          f"{job10_s:.3f} s in process, killed at dag.commit "
+          f"{DAG_KILL_AT} and resumed in children, every node file equal "
+          f"[{card}]")
+
+    # 36b's chain and the smoke.
+    resume = json.loads(dag_chain.result(timeout=600).strip()
+                        .splitlines()[-1])
+    pool.shutdown()
+    got = dag_sinks(chaos_dir)
+    for name in DAG_NODES:
+        if got[name] != want[name]:
+            raise AssertionError(f"36b: sink {name} differs after kill and "
+                                 f"resume ({len(got[name])} B vs "
+                                 f"{len(want[name])} B)")
+    if not resume["resumed"]:
+        raise AssertionError("36b: the second child did not resume")
+    out, err = smoke.communicate(timeout=600)
+    if smoke.returncode != 0:
+        raise AssertionError(f"36b: dag --smoke exited {smoke.returncode}\n"
+                             f"{out[-1000:]}{err[-2000:]}")
+    print(f"dag kill and resume (36b): a child killed at dag.commit "
+          f"{DAG_KILL_AT} (between two sinks' appends), a child resumed "
+          f"from the {resume['resume_ckpt_bytes']} B unit checkpoint, its "
+          f"first window {resume['first_window_ms']:.3f} ms after its "
+          f"start; all 7 sinks byte-identical to 36a's card run; "
+          f"{out.strip().splitlines()[-1]} [{card}]")
+    print(f"phase 36 wall: {time.perf_counter() - t_phase:.3f} s (36a "
+          f"{t_a:.3f} s) [{card}]")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"join_extract": b3_launches}
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -7777,18 +8277,28 @@ def main(argv=None) -> int:
     ap.add_argument("--jobsurface-only", action="store_true",
                     help="phases 1-2 and 35 only (build, then the native "
                          "engines and Kafka into the headline program)")
+    ap.add_argument("--dag-only", action="store_true",
+                    help="phases 1-2 and 36 only (build, then the composed "
+                         "SNCB DAG and the StreamingJob entry point)")
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dag-child", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--child-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
 
+    if args.dag_child and args.child_device == "cpu":
+        return dag_child(args.dag_child, "cpu")  # a CPU rehearsal's child
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     if args.driver_child:  # one child process of phase 32a
         return driver_child(args.driver_child)
+    if args.dag_child:  # one child process of phase 36b
+        return dag_child(args.dag_child)
     from spatialflink_tpu_torch import kernels
     from spatialflink_tpu_torch.ops import wire_codec as wc
     from spatialflink_tpu_torch.ops.wire_digest_kernel import (
@@ -7825,7 +8335,7 @@ def main(argv=None) -> int:
 
     if args.trajectory_only or args.ingest_only or args.domain_only \
             or args.runtime_only or args.driver_only or args.overload_only \
-            or args.qserve_only or args.jobsurface_only:
+            or args.qserve_only or args.jobsurface_only or args.dag_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -7842,6 +8352,8 @@ def main(argv=None) -> int:
             check_qserve(card)
         if args.jobsurface_only:
             check_jobsurface(card, panes, wf)
+        if args.dag_only:
+            check_dag(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -8053,6 +8565,11 @@ def main(argv=None) -> int:
     # Phase 35: the native engines and Kafka into the headline program
     # (B1).
     js = check_jobsurface(card, panes, wf)
+    # Phase 36: the composed SNCB DAG and the StreamingJob entry point
+    # (B3 through option 5's query_panes).
+    t0 = time.perf_counter()
+    dg = check_dag(card)
+    print(f"phase walls: 36 {time.perf_counter() - t0:.3f} s [{card}]")
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -8082,8 +8599,9 @@ def main(argv=None) -> int:
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
          "launches": soa_launches + obj_launches + qp_launches
          + tj_launches + rt["join_extract"] + drv["join_extract"]
-         + ov["join_extract"],
+         + ov["join_extract"] + dg["join_extract"],
          "launches_runtime": rt["join_extract"],
+         "launches_dag": dg["join_extract"],
          "launches_driver": drv["join_extract"],
          "launches_overload": ov["join_extract"],
          "max_abs_err": err_b3,

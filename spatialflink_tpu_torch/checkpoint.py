@@ -30,14 +30,16 @@ Snapshottable components:
     the applied-command uids and the counters (the ``qserve`` component;
     its flag tables are derived data, rebuilt on restore).
 
+  - the composed DAG (``dag.py``): every node's backend, counters and
+    substate (the qserve registry, CheckIn's occupancy) as the ``dag``
+    component, published with the ``MultiSink`` marker map;
   - the built-in Kafka consumer's offsets (``kafka_source_state``,
     ``restore_kafka_source_offsets``): with the wire pane assembler and
     the operator, a Kafka-fed pipeline resumes with no gap and no
     duplicate.
 
-Two components of the JAX package wait for later items and raise
-``NotImplementedError`` naming them: the partition plan (ROADMAP A12)
-and the composed DAG (A11.4b).
+One component of the JAX package waits for a later item and raises
+``NotImplementedError`` naming it: the partition plan (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -59,7 +61,6 @@ from spatialflink_tpu_torch.utils.interning import Interner
 #: snapshot or restore yet, with the ROADMAP item each waits for.
 WAITING_COMPONENTS = {
     "partition": "the grid-partitioned placement plan: ROADMAP A12",
-    "dag": "the composed dataflow DAG: ROADMAP A11.4b",
 }
 
 
@@ -158,10 +159,8 @@ def operator_state(op) -> Dict[str, Any]:
     Carries on the operator's device (the kNN pane digests and the wire
     digest ring) come to numpy through ``telemetry.fetch``, one fetch a
     carry: a checkpoint is a host artifact and never holds a tensor."""
-    for attr, component in (("partition_plan", "partition"),
-                            ("dag_nodes", "dag")):
-        if getattr(op, attr, None) is not None:
-            raise _waiting(component)
+    if getattr(op, "partition_plan", None) is not None:
+        raise _waiting("partition")
     out: Dict[str, Any] = {"interner": interner_state(op.interner)}
     if hasattr(op, "_skeys"):  # TAggregateQuery MapState (sorted arrays)
         out["agg_state"] = {
@@ -208,6 +207,11 @@ def operator_state(op) -> Dict[str, Any]:
     qreg = getattr(op, "qserve_registry", None)
     if qreg is not None:  # qserve standing-query registry (qserve.py)
         out["qserve"] = qreg.state()
+    if getattr(op, "dag_nodes", None) is not None:
+        # The composed dataflow (dag.py): every node's backend, counters
+        # and substate as ONE component, the node half of the atomic unit
+        # checkpoint whose egress half is the MultiSink marker map.
+        out["dag"] = op.dag_state()
     jcarry = getattr(op, "_join_pane_carry", None)
     if jcarry is not None:  # join query_panes pane events + pair blocks
         out["join_pane_carry"] = {
@@ -230,7 +234,9 @@ def restore_operator(op, state: Dict[str, Any]) -> None:
     for component in WAITING_COMPONENTS:
         if component in state:
             raise _waiting(component)
-    dev = op.device
+    # The composed DAG has no device of its own (its nodes do) and no
+    # device carry.
+    dev = getattr(op, "device", None)
     restore_interner(op.interner, state["interner"])
     if "agg_state" in state and hasattr(op, "_skeys"):
         agg = state["agg_state"]
@@ -283,6 +289,11 @@ def restore_operator(op, state: Dict[str, Any]) -> None:
             "counts": [int(c) for c in wire.get(
                 "counts", [1] * len(wire["digests"]))],
         })
+    if "dag" in state and getattr(op, "dag_nodes", None) is not None:
+        # Restored before the assembler state is consumed (the DAG's
+        # _adopt_assembler), so resumed nodes hold their backend and
+        # substate before the first replayed window fires.
+        op.restore_dag(state["dag"])
     if "qserve" in state and getattr(op, "qserve_registry", None) \
             is not None:
         # Flag tables are derived (rebuilt from the grid inside restore);

@@ -53,6 +53,8 @@ point                  site in this package
 ``source.stall``       ``driver.py`` per-item source pull
 ``overload.admit``     ``overload.py:OverloadController.admit_item``
                        (the admission decision)
+``dag.node``           ``dag.py:DataflowDAG._run_node`` (each node's
+                       device-path attempt of a window)
 ``dag.commit``         ``streams/sinks.py:MultiSink.commit`` (each sub-sink
                        append of the unit commit)
 ``qserve.register``    ``qserve.py:QueryRegistry.apply`` (each standing-
@@ -68,7 +70,6 @@ The other points wait for the modules that call them (ROADMAP):
 =====================  ==================================================
 point                  item
 =====================  ==================================================
-``dag.node``           A11.4b (the composed dataflow DAG)
 ``shard.exchange``     A12 (the multi-card halo exchange)
 =====================  ==================================================
 
@@ -113,8 +114,7 @@ INJECTION_POINTS: Dict[str, str] = {
                       "device→host result fetch (ordered drain)",
     "qserve.register": "qserve.py:QueryRegistry.apply — standing-query "
                        "register/unregister",
-    "dag.node": "dag.py:DataflowDAG — per-node window processing "
-                "(ROADMAP A11.4b)",
+    "dag.node": "dag.py:DataflowDAG — per-node window processing",
     "dag.commit": "streams/sinks.py:MultiSink.commit — per-sink append "
                   "inside the atomic unit commit",
     "shard.exchange": "parallel/halo.py — halo exchange dispatch "

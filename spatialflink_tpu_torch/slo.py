@@ -50,9 +50,10 @@ class SloSpec:
     - ``tenant_budgets``: ``{class: {"shed_budget": N,
       "degraded_window_budget": M}}`` against the controller's per-class
       counters; silence fails;
-    - ``node_budgets``: per-DAG-node budgets. The composed DAG is ROADMAP
-      A11.4b: until it is ported no DAG is ever installed, so a spec
-      naming a node violates, as the JAX engine does with no DAG;
+    - ``node_budgets``: per-DAG-node budgets against the installed
+      composed DAG (``dag.active()``, its ``node_stats``): ``{node:
+      {key: bound}}``. With no DAG installed, or a node it lacks, the
+      budget is unanswerable and violates: silence fails;
     - ``e2e_p50_ms`` / ``e2e_p99_ms``: ceilings on the "commit" lineage
       stage (window end → sink or checkpoint commit), checked after
       ``warmup_windows``; past it, a run that never committed violates;
@@ -136,12 +137,14 @@ def _find_overflows(value, out: List[int]):
 
 #: (budget key, check-name head) of ``node_budgets``, in the JAX order.
 _NODE_CHECKS = (
-    ("watermark_lag_p99_ms", "node_watermark_lag_p99_ms"),
-    ("retry_budget", "node_retry_budget"),
-    ("failover_budget", "node_failover_budget"),
-    ("degraded_window_budget", "node_degraded_window_budget"),
-    ("e2e_p50_ms", "node_e2e_p50_ms"),
-    ("e2e_p99_ms", "node_e2e_p99_ms"),
+    ("watermark_lag_p99_ms", "node_watermark_lag_p99_ms",
+     "watermark_lag_p99_ms"),
+    ("retry_budget", "node_retry_budget", "retries"),
+    ("failover_budget", "node_failover_budget", "failovers"),
+    ("degraded_window_budget", "node_degraded_window_budget",
+     "degraded_windows"),
+    ("e2e_p50_ms", "node_e2e_p50_ms", "e2e_p50_ms"),
+    ("e2e_p99_ms", "node_e2e_p99_ms", "e2e_p99_ms"),
 )
 
 
@@ -273,18 +276,23 @@ class SloEngine:
                           f"<= {int(dwb)}",
                           dw is not None and dw <= dwb)
         if sp.node_budgets:
-            # The composed DAG (dag.py, ROADMAP A11.4b) is not ported, so
-            # no node has stats: every named node budget is unanswerable
-            # and violates, as the JAX engine's do with no DAG installed.
+            from spatialflink_tpu_torch import dag as dag_mod
+
+            d = dag_mod.active()
             for node, b in sorted(sp.node_budgets.items()):
-                for key, head in _NODE_CHECKS:
+                stats = None if d is None else d.node_stats(node)
+                for key, head, metric in _NODE_CHECKS:
                     bound = b.get(key)
                     if bound is None:
                         continue
                     if key.startswith("e2e_") \
                             and windows <= sp.warmup_windows:
                         continue  # the warm-up grace of eps_floor
-                    check(f"{head}:{node}", None, f"<= {int(bound)}", False)
+                    val = None if stats is None else stats[metric]
+                    # No DAG installed, or an unknown node: the budget is
+                    # unanswerable, and silence fails (the eps_floor rule).
+                    check(f"{head}:{node}", val, f"<= {int(bound)}",
+                          val is not None and val <= bound)
         if sp.overflow_budget is not None:
             counts: List[int] = []
             _find_overflows(self.tel.snapshot(), counts)

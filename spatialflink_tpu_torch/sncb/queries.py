@@ -281,8 +281,8 @@ def q2_brake_monitor_batch(
 
 # ---------------------------------------------------------------------------
 # Window-scoped query cores — one fired window's events in, result
-# records out: the node bodies of the JAX package's composed SNCB DAG
-# (its dag.py, ROADMAP A11.4b), which shares ONE window clock across all
+# records out: the node bodies of the composed SNCB DAG (``dag.py``),
+# which shares ONE window clock across all
 # queries (PARITY.md "Composed dataflow"). ``backend`` routes the zone
 # test: "device" (contains_any_zone on ``device``) or "numpy"
 # (contains_any_zone_np), as the caller chooses; results match to float

@@ -298,6 +298,10 @@ JAX_CHECKPOINT_CLASSES = {
         "MultiPolygon", "MultiLineString", "GeometryCollection"),
     "spatialflink_tpu.streams.windows": ("WindowSpec", "WindowBatch"),
     "spatialflink_tpu.qserve": ("StandingQuery", "QServeCommand"),
+    # A composed DAG's assembler buffers the SNCB stream's events (and
+    # CheckIn's door events when the stream carries them).
+    "spatialflink_tpu.sncb.common": ("GpsEvent",),
+    "spatialflink_tpu.apps.checkin": ("CheckInEvent",),
 }
 
 #: Builtins a checkpoint's pickle may name (containers and scalars only).

@@ -241,8 +241,7 @@ class TransactionalFileSink:
 
 class MultiSink:
     """N named :class:`TransactionalFileSink`\\ s committed as ONE unit —
-    the egress half of the DAG's atomic unit checkpoint
-    (the JAX package's ``dag.py``; ROADMAP A11.4b in the port).
+    the egress half of the DAG's atomic unit checkpoint (``dag.py``).
 
     Each node of a composed dataflow stages into its own sub-sink;
     ``commit()`` durably appends every sub-sink's staged records IN NAME

@@ -554,11 +554,16 @@ def test_snapshot_and_restore_are_copies(rng):
 
 @pytest.mark.parametrize("attr,component,item", [
     ("partition_plan", "partition", "A12"),
-    # The DAG waits for A11.4b, the half of A11.4 still to port; the
+    # The DAG (A11.4b) is ported: its component round-trips now, and the
     # case keeps its id.
-    pytest.param("dag_nodes", "dag", "A11.4b", id="dag_nodes-dag-A11.4"),
+    pytest.param("dag_nodes", "dag", None, id="dag_nodes-dag-A11.4"),
 ])
-def test_waiting_components_raise_naming_their_items(attr, component, item):
+def test_waiting_components_raise_naming_their_items(attr, component, item,
+                                                     tmp_path):
+    if item is None:
+        _dag_component_round_trips(tmp_path)
+        return
+    assert component in ck.WAITING_COMPONENTS
     op = _fresh_knn()
     setattr(op, attr, object())
     with pytest.raises(NotImplementedError, match=item):
@@ -567,6 +572,32 @@ def test_waiting_components_raise_naming_their_items(attr, component, item):
     state[component] = {}
     with pytest.raises(NotImplementedError, match=item):
         restore_operator(_fresh_knn(), state)
+
+
+def _dag_component_round_trips(tmp_path):
+    """The ``dag`` component: every node's backend, counters and substate
+    snapshot through ``operator_state`` and restore into a fresh DAG
+    through ``restore_operator``, before its assembler state is
+    consumed."""
+    from spatialflink_tpu_torch import dag as dag_mod
+    from spatialflink_tpu_torch import qserve as tqserve
+
+    assert "dag" not in ck.WAITING_COMPONENTS
+    try:
+        dag = dag_mod.build_sncb_dag(str(tmp_path / "a"), device="cpu")
+        for _ in dag.run(dag_mod._toy_sncb_stream(90)()):
+            pass
+        state = operator_state(dag)
+        assert set(state["dag"]["nodes"]) == set(dag.dag_nodes)
+        path = str(tmp_path / "dag.ckpt")
+        save_checkpoint(path, op=state)
+        fresh = dag_mod.build_sncb_dag(str(tmp_path / "b"), device="cpu")
+        restore_operator(fresh, load_checkpoint(path)["op"])
+        assert fresh.dag_state() == dag.dag_state()
+        assert fresh._restored_assembler is not None
+    finally:
+        dag_mod.uninstall()
+        tqserve.uninstall()
 
 
 def test_kafka_offsets_wait_for_a11_4(tmp_path):

@@ -114,7 +114,8 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.envvars, spatialflink_tpu_torch.config, "
         "spatialflink_tpu_torch.native, "
         "spatialflink_tpu_torch.streams.kafka, "
-        "spatialflink_tpu_torch.streams.kafka_wire\n"
+        "spatialflink_tpu_torch.streams.kafka_wire, "
+        "spatialflink_tpu_torch.dag, spatialflink_tpu_torch.streaming_job\n"
         "assert spatialflink_tpu_torch.native.available()\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
@@ -241,20 +242,20 @@ def test_job_surface_modules_at_their_jax_paths():
 
 def test_every_not_ported_message_names_its_item():
     """Each ``NotImplementedError`` left in the port names the ROADMAP
-    item that ends it, A11.4b or A12, unless it is the JAX package's own
-    (a protocol feature neither package has, raised with the JAX text);
-    no source still waits on the whole of A11.4 (A11.4a is ported)."""
+    item that ends it, A12 (the only item left), unless it is the JAX
+    package's own (a protocol feature neither package has, raised with
+    the JAX text); no source waits on any part of A11.4 (A11.4a and
+    A11.4b are ported)."""
     import re
 
     waiting = 0
     port = REPO / "spatialflink_tpu_torch"
     for path in port.rglob("*.py"):
         text = path.read_text()
-        assert not re.search(r"A11\.4(?![ab])", text), path
+        assert not re.search(r"A11\.4", text), path
         for m in re.finditer(r"(raise|return) NotImplementedError\(", text):
             body = text[m.end():m.end() + 300].split("\n\n")[0]
-            if re.search(r"A11\.4b|A12|_MESH_WAITS|WAITING_COMPONENTS",
-                         body):
+            if re.search(r"A12|_MESH_WAITS|WAITING_COMPONENTS", body):
                 waiting += 1
                 continue
             first = re.search(r'"([^"]{12,})"', body).group(1)
@@ -479,3 +480,45 @@ def test_interpret_rejects_the_kernel_strategy():
         wire, wire.shape[1], np.float32([116.4, 40.19]), WF.scale, WF.origin,
         0.5, num_segments=NSEG, interpret=True, strategy="torch")
     assert kind == "torch"
+
+
+def test_dag_and_streaming_job_at_their_jax_paths_in_the_jax_order():
+    """A11.4b: ``dag`` and ``streaming_job`` sit at the JAX package's
+    module paths with its public names, each the port's own object; their
+    functions and methods take the JAX parameters in the JAX order, with
+    ``device`` last where a node or a run reaches the card; the
+    ``dag.node`` fault point is threaded (hit in ``dag.py``, listed as
+    threaded, no ROADMAP item); and the checkpoint no longer waits on the
+    DAG."""
+    import dataclasses
+
+    import spatialflink_tpu_torch.faults as tfaults
+    from spatialflink_tpu_torch import checkpoint as tck
+
+    for path in ("dag", "streaming_job"):
+        jmod = importlib.import_module("spatialflink_tpu." + path)
+        tmod = importlib.import_module("spatialflink_tpu_torch." + path)
+        public = _public(jmod)
+        assert public and public <= _public(tmod), (path,
+                                                     public - _public(tmod))
+        for name in sorted(public):
+            jobj, tobj = getattr(jmod, name), getattr(tmod, name)
+            if inspect.isfunction(jobj):
+                _same_order(jobj, tobj)
+            elif inspect.isclass(jobj):
+                assert tobj.__module__ == tmod.__name__, name
+                if dataclasses.is_dataclass(jobj):
+                    assert [f.name for f in dataclasses.fields(jobj)] == \
+                        [f.name for f in dataclasses.fields(tobj)], name
+                    continue
+                for attr, fn in vars(jobj).items():
+                    if inspect.isfunction(fn) and (
+                            not attr.startswith("_") or attr == "__init__"):
+                        _same_order(fn, getattr(tobj, attr))
+        assert path not in jax_exports("")
+    threaded, waiting = tfaults.__doc__.split("The other points wait")
+    assert 'faults.hit("dag.node")' in \
+        (REPO / "spatialflink_tpu_torch" / "dag.py").read_text()
+    assert "``dag.node``" in threaded and "``dag.node``" not in waiting
+    assert "ROADMAP" not in tfaults.INJECTION_POINTS["dag.node"]
+    assert set(tck.WAITING_COMPONENTS) == {"partition"}

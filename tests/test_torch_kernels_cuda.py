@@ -1719,3 +1719,66 @@ def test_kafka_to_run_wire_panes_on_card_equals_cpu():
         assert g[:2] == w[:2] and g[4] == w[4] == 20
         assert np.array_equal(g[2], w[2])
         assert np.array_equal(g[3].view(np.uint32), w[3].view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_dag_zone_nodes_and_staytime_on_card_equal_cpu(tmp_path):
+    """The composed DAG's device nodes over one window of the toy SNCB
+    stream: q1, q2 and q5 (the float64 zone test) and StayTime (the
+    segment-sum program) render the same lines on the card as on the CPU
+    and as their numpy twins."""
+    dev = _card()
+    from spatialflink_tpu_torch import dag as dag_mod
+    from spatialflink_tpu_torch.streams.windows import WindowBatch
+
+    evs = [e for e in dag_mod._toy_sncb_stream(360)()
+           if getattr(e, "device_id", None) is not None]
+    win = WindowBatch(0, 40_000, evs)
+    card = dag_mod.build_sncb_dag(str(tmp_path / "card"), device=dev)
+    cpu = dag_mod.build_sncb_dag(str(tmp_path / "cpu"), device="cpu")
+    for name in ("q1", "q2", "q5", "staytime"):
+        got = list(card.node(name).render(card.node(name).process(win, {}),
+                                          0, 40_000))
+        want = list(cpu.node(name).render(cpu.node(name).process(win, {}),
+                                          0, 40_000))
+        twin = list(card.node(name).render(
+            card.node(name).fallback_process(win, {}), 0, 40_000))
+        assert got == want == twin and got, name
+
+
+@pytest.mark.cuda
+def test_dag_run_on_card_equals_cpu(tmp_path):
+    """The 7-node SNCB DAG on the toy stream, checkpointed every 2
+    windows: every sink byte-identical to the CPU run, and no node
+    retried, failed over or degraded on the card."""
+    dev = _card()
+    from spatialflink_tpu_torch import dag as dag_mod
+    from spatialflink_tpu_torch import qserve
+    from spatialflink_tpu_torch.driver import (
+        RetryPolicy,
+        WindowedDataflowDriver,
+    )
+
+    sinks = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        out = tmp_path / tag
+        dag = dag_mod.build_sncb_dag(str(out / "egress"), device=d)
+        drv = WindowedDataflowDriver(
+            checkpoint_path=str(out / "ck.bin"), checkpoint_every=2,
+            sink=None, retry=RetryPolicy(max_retries=1, backoff_s=0.0),
+            failover=False)
+        try:
+            for _ in dag.run(dag_mod._toy_sncb_stream()(), driver=drv):
+                pass
+            snap = dag.snapshot()
+        finally:
+            dag_mod.uninstall()
+            qserve.uninstall()
+        for rec in snap["nodes"].values():
+            assert rec["backend"] == "device"
+            assert rec["retries"] == rec["failovers"] == 0
+            assert rec["degraded_windows"] == 0
+        sinks[tag] = {n: (out / "egress" / f"{n}.csv").read_bytes()
+                      for n in dag.dag_nodes}
+    assert sinks["card"] == sinks["cpu"]
+    assert all(sinks["card"].values())

@@ -1,8 +1,9 @@
 """Standing-query serving in the port (``spatialflink_tpu_torch/qserve.py``)
 against the JAX package's (``spatialflink_tpu/qserve.py``), on the CPU,
 with ``tests/test_qserve.py`` as the oracle, test for test (its mesh case
-waits for ROADMAP A12 and its ``streaming_job`` case for A11.4b; the
-kernel cases are in ``tests/test_torch_query_registry.py``).
+waits for ROADMAP A12; its ``streaming_job`` case is in
+``tests/test_torch_streaming_job.py`` and the kernel cases are in
+``tests/test_torch_query_registry.py``).
 
 Most cases run through both packages (``twin``): the same queries,
 commands and ``Point`` streams, made from numpy seeds on a 1/64 lattice

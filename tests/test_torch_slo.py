@@ -10,9 +10,10 @@ each violation record, the instants' timestamps, and the value of the
 ``eps_floor`` row (events over elapsed seconds; its ``ok`` is compared).
 Then the window-fire hooks of both assemblers, the ledger embedding and
 ``tools/sfprof``'s post-hoc twin and ``health --slo`` reading the port's
-ledger, the driver budgets, the e2e ceilings and the node budgets (no DAG
-is ported: ROADMAP A11.4b; a named node violates, as in the JAX engine with
-no DAG installed).
+ledger, the driver budgets, the e2e ceilings and the node budgets: with no
+DAG installed a named node violates, as in the JAX engine; with each
+package's composed DAG installed (``dag.py``) the budgets read its nodes'
+counters and a clean node passes.
 """
 
 import dataclasses
@@ -441,6 +442,71 @@ def test_node_budgets_violate_with_no_dag():
         "node_retry_budget:q1", "node_e2e_p99_ms:q1",
         "node_watermark_lag_p99_ms:q2"]
     assert all(r["ok"] is False and r["value"] is None for r in late)
+
+
+def test_node_budgets_pass_with_a_dag(tmp_path):
+    """The same two-node DAG through each package (a node failing over to
+    its twin beside a clean one), installed: the node budgets read the
+    DAG's counters, equal in both packages; the clean node passes every
+    budget and the failed-over node violates its failover budget."""
+    from spatialflink_tpu import dag as jdag
+    from spatialflink_tpu.driver import RetryPolicy as JRetry
+    from spatialflink_tpu.grid import UniformGrid as JGrid
+    from spatialflink_tpu.operators.query_config import (
+        QueryConfiguration as JConf,
+        QueryType as JQT,
+    )
+    from spatialflink_tpu_torch import dag as tdag
+    from spatialflink_tpu_torch.driver import RetryPolicy
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators.query_config import (
+        QueryConfiguration,
+        QueryType,
+    )
+
+    mods = {id(JAX): (jdag, JRetry, JGrid, JConf, JQT),
+            id(PORT): (tdag, RetryPolicy, UniformGrid, QueryConfiguration,
+                       QueryType)}
+
+    def scenario(pkg):
+        dag_mod, Retry, Grid, Conf, QT = mods[id(pkg)]
+
+        def node(name, sick):
+            def fn(win, results):
+                if sick:
+                    raise RuntimeError("dead device path")
+                return len(win.events)
+
+            return dag_mod.FunctionNode(
+                name, fn, fallback=lambda win, results: len(win.events))
+
+        dag = dag_mod.DataflowDAG(
+            Conf(QT.WindowBased, window_size=2.0, slide_step=1.0),
+            Grid(8, 0.0, 8.0, 0.0, 8.0),
+            [node("sick", True), node("ok", False)],
+            out_dir=str(tmp_path / pkg.slo.__name__),
+            retry=Retry(max_retries=1, backoff_s=0.0, sleep=lambda s: None))
+        pts = [pkg.Point(obj_id=f"o{i % 5}", timestamp=100 * i,
+                         x=float(i % 8), y=float(i % 7)) for i in range(60)]
+        try:
+            list(dag.run(iter(pts)))
+            budgets = {"retry_budget": 1, "failover_budget": 0,
+                       "degraded_window_budget": 0,
+                       "watermark_lag_p99_ms": 5_000}
+            rows = pkg.slo.SloEngine(_spec(pkg, node_budgets={
+                "ok": budgets, "sick": budgets})).evaluate()
+        finally:
+            dag_mod.uninstall()
+        return rows
+
+    rows = {r["check"]: r for r in twin(scenario)}
+    assert len(rows) == 8
+    for key in ("retry_budget", "failover_budget", "degraded_window_budget",
+                "watermark_lag_p99_ms"):
+        assert rows[f"node_{key}:ok"]["ok"] is True, key
+        assert rows[f"node_{key}:ok"]["value"] is not None
+    assert rows["node_failover_budget:sick"]["ok"] is False
+    assert rows["node_failover_budget:sick"]["value"] == 1
 
 
 # -- latency lineage (e2e ceilings) -------------------------------------------

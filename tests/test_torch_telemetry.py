@@ -826,7 +826,8 @@ def test_every_instant_the_port_emits_is_classified(tmp_path):
             "failover", "circuit_open", "circuit_half_open",
             "circuit_closed", "pipeline_collapsed", "pipeline_resumed",
             "slo_violation:", "slo_recovered:", "qserve_registered",
-            "qserve_unregistered", "qserve_evicted", "qserve_rung:"} == heads
+            "qserve_unregistered", "qserve_evicted", "qserve_rung:",
+            "dag_node_failover:"} == heads
     for head in heads:
         assert known(head + ("x" if head.endswith(":") else "")), head
 
