@@ -197,14 +197,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    tFilter at 2 x 20,000; each equal to its CPU run; and a profiler pass
    over the tRange run;
 26. run ``PointPointTJoinQuery.run_soa_panes`` (the pane-carry engine,
-   plain PyTorch) at the JAX suite's tjoin_panes_10s_10ms, uncut (10 s
-   windows by 10 ms, ppw 1,000; 2,000 panes of 1,024 points a side from
-   seed 23; 64 ids, cap_w 256, pair_sel 16, r = 0.001, grid n = 100):
-   2,999 windows, one scan with every overflow counter 0, the capacity
-   plan printed beside the measured occupancy; time the host steps, the
-   engine's steady state alone (a warm scan of 1,000 slides, then 1,000
-   timed) and its parts a slide, with its launches a slide; a profiler
-   trace of the operator run over the stream's first 200 panes a side
+   plain PyTorch) at the JAX suite's tjoin_panes_10s_10ms, its depth
+   cut from 2,000 to 1,500 panes (10 s windows by 10 ms, ppw 1,000;
+   panes of 1,024 points a side from seed 23; 64 ids, cap_w 256,
+   pair_sel 16, r = 0.001, grid n = 100): 2,499 windows, one scan with
+   every overflow counter 0, the capacity plan printed beside the
+   measured occupancy; time the host steps, the engine's steady state
+   alone (a warm scan of 1,000 slides, then 500 timed) and its parts
+   a slide, with its launches a slide; a profiler trace of the operator
+   run over the stream's first 200 panes a side
    (1,199 slides, a cut of depth: the device's idle share) and of 40
    steady slides (the kernel rows); then hold the card's windows equal
    (ids in order, distance bits) to the engine's CPU run of the stream
@@ -425,6 +426,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    stream, in a child killed by an ``abort`` fault and a child resuming,
    each node file byte-identical to an uninterrupted run.
 
+In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25 and
+26) run in two spawned worker processes of one torch thread each, at
+the lowest scheduling priority, started before phase 2; the main
+process gives their threads cores of its own. Each returns a
+digest of the inputs it built, which must equal the digest of the card
+run's inputs. Their comparisons with the card's windows run after phase
+36 (the "exact ..." lines there); the line "CPU twins in background
+processes" prints each twin's seconds and how long the run waited for
+it.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed was measured in
 this run on the card named beside it.
@@ -435,6 +446,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -571,18 +583,19 @@ TR_IDS = 16_384
 TR_QUERIES = 32
 TF_IDS = 64
 # Phase 26: the pane-carry tJoin at the JAX suite's tjoin_panes_10s_10ms
-# (bench_suite.py:1071-1241), uncut: 10 s windows by 10 ms (ppw 1,000),
-# 1,024 points a side a pane over 2,000 panes (ppw to fill the window,
-# then 1,000 steady), positions uniform on the Beijing extent and ids
-# uniform over 64 from seed 23, cap_w 256, pair_sel 16, r = 0.001, grid
-# n = 100 (one candidate layer: 9 cells probed a point). The CPU twin
+# (bench_suite.py:1071-1241): 10 s windows by 10 ms (ppw 1,000), 1,024
+# points a side a pane over 1,500 panes (ppw to fill the window, then
+# 500 steady: a depth cut of the suite's 2,000), positions uniform on
+# the Beijing extent and ids uniform over 64 from seed 23, cap_w 256,
+# pair_sel 16, r = 0.001, grid n = 100 (one candidate layer: 9 cells
+# probed a point). The CPU twin
 # runs the engine on the first TP_CPU_PANES panes: the windows ending
 # before that pane, 25 of them full (the CPU takes ~25-40 ms a slide at
-# this width, so the whole stream's 2,999 would take minutes).
+# this width, so the whole stream's 2,499 would take minutes).
 TP_PPW = 1000
 TP_SLIDE_MS = 10
 TP_PANE_PTS = 1024
-TP_STEADY = 1000
+TP_STEADY = 500
 TP_PANES = TP_PPW + TP_STEADY
 TP_IDS = 64
 TP_CAP_W = 256
@@ -843,6 +856,159 @@ def bound_ms(nbytes: float, nops: float):
     t_ops = nops / SCALAR_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# CPU twins in background processes.
+#
+# In the full run the heaviest CPU twins (the operator under test run on
+# the CPU through the plain versions) run in a pool of spawned worker
+# processes at the lowest scheduling priority, started before phase 2,
+# on host cores of their own: this process gives up one torch thread for
+# each worker thread, since torch's threads stall when they share cores.
+# A phase hands its comparison with such a twin to ``later``, and the
+# comparisons run after phase 36. A twin builds its inputs from the seeds
+# the card run uses and returns their digest beside its result; ``twin``
+# holds that digest against the card run's own inputs before the windows
+# are compared. Without the pool (``--quick``, an ``--*-only`` run, a CPU
+# rehearsal) a twin runs in this process and ``later`` runs at once.
+
+TWIN_WORKERS = 2
+TWIN_THREADS = 1  # torch's intra-op threads a worker
+_twin_pool = None
+_twin_futures = {}
+_main_threads = None  # this process's torch threads before the pool
+_deferred = []
+twin_log = {}  # name -> (seconds of its CPU run, seconds waited for it)
+
+
+def digest(*objs) -> str:
+    """A hash of nested inputs: arrays by dtype, shape and bytes; dicts,
+    lists and tuples item by item; dataclasses by their fields."""
+    import dataclasses
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+
+    def feed(o):
+        if isinstance(o, np.ndarray):
+            h.update(f"{o.dtype}{o.shape}".encode())
+            h.update(np.ascontiguousarray(o).tobytes())
+        elif isinstance(o, dict):
+            h.update(b"{")
+            for k in sorted(o):
+                feed(k)
+                feed(o[k])
+            h.update(b"}")
+        elif isinstance(o, (list, tuple)):
+            h.update(b"[")
+            for x in o:
+                feed(x)
+            h.update(b"]")
+        elif dataclasses.is_dataclass(o):
+            h.update(type(o).__name__.encode())
+            feed({f.name: getattr(o, f.name)
+                  for f in dataclasses.fields(o)})
+        else:
+            h.update(repr(o).encode())
+
+    for o in objs:
+        feed(o)
+    return h.hexdigest()
+
+
+def _twin_worker_init():
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(TWIN_THREADS)
+
+
+def _twin_job(name):
+    return TWINS[name]()
+
+
+def start_twins():
+    """Start the pool, queue every twin in the order the phases ask for
+    them, and leave the pool's threads their cores. Returns this
+    process's torch threads."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    global _twin_pool, _main_threads
+    _twin_pool = ProcessPoolExecutor(
+        max_workers=TWIN_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_twin_worker_init)
+    for name in TWINS:
+        _twin_futures[name] = _twin_pool.submit(_twin_job, name)
+    _main_threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, min(
+        _main_threads, (os.cpu_count() or 1) - TWIN_WORKERS * TWIN_THREADS)))
+    return torch.get_num_threads()
+
+
+def settle_twins():
+    """Give this process its torch threads back once every twin is
+    done (called between phases)."""
+    import torch
+
+    global _main_threads
+    if _main_threads is not None and all(
+            f.done() for f in _twin_futures.values()):
+        torch.set_num_threads(_main_threads)
+        _main_threads = None
+
+
+def stop_twins():
+    """Shut the pool down; workers still busy (a phase failed before it
+    asked for their twin) are terminated."""
+    import multiprocessing
+
+    global _twin_pool
+    if _twin_pool is None:
+        return
+    busy = [f for f in _twin_futures.values() if not f.done()]
+    if busy:
+        for p in multiprocessing.active_children():
+            p.terminate()
+            p.join(10)
+    _twin_pool.shutdown(wait=not busy, cancel_futures=True)
+    _twin_pool = None
+    _twin_futures.clear()
+
+
+def later(check):
+    """Run ``check``, a phase's comparison with its CPU twin: at once
+    without the pool, else after phase 36 (``run_later``)."""
+    if _twin_pool is None:
+        check()
+    else:
+        _deferred.append(check)
+
+
+def run_later():
+    """The comparisons handed to ``later``, in the order the phases
+    handed them."""
+    while _deferred:
+        _deferred.pop(0)()
+
+
+def twin(name, *inputs):
+    """The CPU twin ``name``'s result on ``inputs``, a tuple with its CPU
+    run's seconds second: from the pool, or run here; either way the
+    digest of the inputs it built must equal theirs."""
+    fut = _twin_futures.pop(name, None)
+    t0 = time.perf_counter()
+    got_digest, out = TWINS[name]() if fut is None else fut.result()
+    waited = time.perf_counter() - t0 if fut is not None else 0.0
+    if got_digest != digest(*inputs):
+        raise AssertionError(f"CPU twin {name}: its inputs differ from the "
+                             f"card run's")
+    twin_log[name] = (out[1], waited)
+    return out
 
 
 def check_digest(dev, wf, panes, card):
@@ -1721,22 +1887,27 @@ def check_range(dev, card, b4_inputs, gpu="cuda"):
     path = ("compact" if hasattr(op, "_cand_budget") else "pruned")
     # A depth cut: the CPU twin runs the first RANGE_CPU_WINDOWS windows
     # (its plain bbox pass is ~6 s a window on the host).
-    want, cpu_secs, cpu_op = run_range("cpu", PointPolygonRangeQuery,
-                                       r_chunks[:RANGE_CPU_WINDOWS], polys,
-                                       RANGE_R)
-    hits = check_range_windows(got, want, "range run_soa", RANGE_R)
+    hits = [len(g[3]) for g in got]
     if b4_launches < RANGE_WINDOWS or len(got) != RANGE_WINDOWS \
             or path != "pruned" or min(hits) == 0:
         raise AssertionError(f"range run_soa: {len(got)} windows, path "
                              f"{path}, {b4_launches} B4 launches")
-    if (op._ncand,) != (cpu_op._ncand,):
-        raise AssertionError("range run_soa: candidate counts differ")
     print(f"e2e range run_soa (config 3, {path} path, cand {op._ncand}): "
           f"{len(got)} windows, matches per window {hits}, {n_range} points "
           f"in {r_secs:.6f} s = {n_range / r_secs:.1f} points/s; launches "
-          f"polyline_min_dist={b4_launches}; the first {len(want)} windows "
-          f"equal the CPU plain run ({cpu_secs:.3f} s on the host CPU) "
-          f"[{card}]")
+          f"polyline_min_dist={b4_launches}; the first {RANGE_CPU_WINDOWS} "
+          f"windows held against the CPU plain run [{card}]")
+
+    def held(got=got, cut=r_chunks[:RANGE_CPU_WINDOWS], polys=polys,
+             ncand=op._ncand):
+        want, cpu_secs, cpu_ncand = twin("range", cut, polys)
+        check_range_windows(got, want, "range run_soa", RANGE_R)
+        if ncand != cpu_ncand:
+            raise AssertionError("range run_soa: candidate counts differ")
+        print(f"exact range run_soa: the first {len(want)} windows equal "
+              f"the CPU plain run ({cpu_secs:.3f} s on the host CPU) "
+              f"[{card}]")
+    later(held)
 
     lines = [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
              for i, p in enumerate(polys[:32])]
@@ -2014,9 +2185,15 @@ def check_geometry(card, gpu="cuda"):
     b4_launches = polyline_min_dist.launches
     # A depth cut: the CPU twin runs the first GEOM_CPU_WINDOWS windows
     # (~15-30 s a window on the host).
-    want, cpu_secs = run_geometry("cpu", ops.PolygonPolygonRangeQuery,
-                                  chunks[:GEOM_CPU_WINDOWS], polys)
-    check_geometry_windows(got[:GEOM_CPU_WINDOWS], want, "geometry run_soa")
+
+    def held(got=got[:GEOM_CPU_WINDOWS], cut=chunks[:GEOM_CPU_WINDOWS],
+             polys=polys):
+        want, cpu_secs = twin("geometry_range", cut, polys)
+        check_geometry_windows(got, want, "geometry run_soa")
+        print(f"exact geometry range run_soa: the first {len(want)} windows "
+              f"equal the CPU plain run ({cpu_secs:.3f} s on the host CPU) "
+              f"[{card}]")
+    later(held)
     hits = [len(g[2]) for g in got]
     if len(got) != GEOM_WINDOWS or not all(
             np.all(np.isfinite(g[4])) and np.all(g[4] <= np.float32(GEOM_R))
@@ -2031,8 +2208,8 @@ def check_geometry(card, gpu="cuda"):
           f"polygons, r={GEOM_R}): {len(got)} windows, matches per window "
           f"{hits}, {n} objects in {secs:.6f} s = {n / secs:.1f} objects/s; "
           f"launches polyline_min_dist={b4_launches}; the first "
-          f"{len(want)} windows equal the CPU plain run ({cpu_secs:.3f} s on "
-          f"the host CPU) [{card}]")
+          f"{GEOM_CPU_WINDOWS} windows held against the CPU plain run "
+          f"[{card}]")
 
     cut = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN)
     lines = geometry_chunks(GEOM_CUT_WINDOWS, GEOM_CUT_WIN, polygonal=False)
@@ -3019,9 +3196,14 @@ def check_join_point_geometry(card, gpu="cuda"):
     got, secs, op = run_join_soa(gpu, ops.PointPolygonJoinQuery, left,
                                  right, PG_R)
     b4_launches = polyline_min_dist.launches
-    want, cpu_secs, _ = run_join_soa("cpu", ops.PointPolygonJoinQuery, left,
-                                     right, PG_R)
-    pairs = check_join_windows(got, want, "point-polygon join run_soa",
+
+    def held(got=got, left=left, right=right):
+        want, cpu_secs = twin("pg_join", left, right)
+        check_join_windows(got, want, "point-polygon join run_soa", PG_R)
+        print(f"exact point-polygon join run_soa: windows equal the CPU "
+              f"plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+    later(held)
+    pairs = check_join_windows(got, got, "point-polygon join run_soa",
                                PG_R)
     if len(got) != PG_WINDOWS or b4_launches < PG_WINDOWS:
         raise AssertionError(f"point-polygon join run_soa: {len(got)} "
@@ -3034,8 +3216,8 @@ def check_join_point_geometry(card, gpu="cuda"):
           f"coordinates, BENCH_SUITE.json; a sanity check, not a gate), "
           f"{n} points in {secs:.6f} s = {n / secs:.1f} points/s; launches "
           f"polyline_min_dist={b4_launches}; cand {op._cand}, pair_cap "
-          f"{op._pair_cap}, budget {op._geom_max_pairs}; windows equal the "
-          f"CPU plain run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+          f"{op._pair_cap}, budget {op._geom_max_pairs}; windows held "
+          f"against the CPU plain run [{card}]")
 
     cut_n = JOIN_CUT_WINDOWS * JOIN_CUT_WIN
     cut_ts = (np.arange(cut_n, dtype=np.int64) * 1000) // JOIN_CUT_WIN
@@ -3100,11 +3282,15 @@ def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
     b4_launches = polyline_min_dist.launches
     # The CPU twin runs the first GG_CPU_WINDOWS of them (~35-55 s a
     # window on the host).
-    want, cpu_secs, _ = run_join_soa("cpu", ops.PolygonPolygonJoinQuery,
-                                     geo_chunks[:GG_CPU_WINDOWS],
-                                     right[:GG_CPU_WINDOWS], PG_R)
-    check_join_windows(got[:GG_CPU_WINDOWS], want,
-                       "polygon-polygon join run_soa", PG_R)
+
+    def held(got=got[:GG_CPU_WINDOWS], left=geo_chunks[:GG_CPU_WINDOWS],
+             right=right[:GG_CPU_WINDOWS]):
+        want, cpu_secs = twin("gg_join", left, right)
+        check_join_windows(got, want, "polygon-polygon join run_soa", PG_R)
+        print(f"exact polygon-polygon join run_soa: the first {len(want)} "
+              f"windows equal the CPU plain run ({cpu_secs:.3f} s on the "
+              f"host CPU) [{card}]")
+    later(held)
     pairs = check_join_windows(got, got, "polygon-polygon join run_soa",
                                PG_R)
     if len(got) != GG_WINDOWS or b4_launches < 2 * GG_WINDOWS \
@@ -3118,8 +3304,8 @@ def check_join_geometry_geometry(card, geo_chunks, gpu="cuda"):
           f"{secs:.6f} s = {n / secs:.1f} objects/s; launches "
           f"polyline_min_dist={b4_launches}; cand {op._cand}, pair_cap "
           f"{op._pair_cap}, budget {op._geom_max_pairs}; the first "
-          f"{len(want)} windows equal the CPU plain run ({cpu_secs:.3f} s on "
-          f"the host CPU) [{card}]")
+          f"{GG_CPU_WINDOWS} windows held against the CPU plain run "
+          f"[{card}]")
 
     w = JOIN_CUT_WINDOWS
     cut = geometry_chunks(w, JOIN_CUT_WIN)
@@ -3192,15 +3378,9 @@ def run_query_panes(device, streams, method="query_panes", launches=None):
     return out, time.perf_counter() - t0
 
 
-def check_join_panes(card, gpu="cuda"):
-    """``PointPointJoinQuery.query_panes`` at a cut depth: each window
-    equal to its CPU run in order and to ``run`` as a multiset, B3
-    launched once for each new block of two non-empty panes. Returns
-    (B3 launches, points/s)."""
-    import collections
-
+def qpj_streams():
+    """The query_panes join's two ``Point`` streams (seeds 3 and 4)."""
     from spatialflink_tpu_torch.models.objects import Point
-    from spatialflink_tpu_torch.ops.join_kernel import join_extract
 
     n = QPJ_PANES * QPJ_PANE_PTS
     streams = []
@@ -3210,14 +3390,33 @@ def check_join_panes(card, gpu="cuda"):
         streams.append([Point(obj_id=f"{side}{i}", timestamp=int(t),
                               x=float(x), y=float(y))
                         for i, (t, (x, y)) in enumerate(zip(ts, xy))])
+    return streams
+
+
+def check_join_panes(card, gpu="cuda"):
+    """``PointPointJoinQuery.query_panes`` at a cut depth: each window
+    equal to its CPU run in order and to ``run`` as a multiset, B3
+    launched once for each new block of two non-empty panes. Returns
+    (B3 launches, points/s)."""
+    import collections
+
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    n = QPJ_PANES * QPJ_PANE_PTS
+    streams = qpj_streams()
     join_extract.launches = 0
     after = []
     got, secs = run_query_panes(gpu, streams, launches=after)
     launches = join_extract.launches
-    cpu, c_secs = run_query_panes("cpu", streams)
+
+    def held(got=got, streams=streams):
+        cpu, c_secs = twin("query_panes", streams)
+        if got != cpu:
+            raise AssertionError("query_panes differs from its CPU run")
+        print(f"exact query_panes join: {len(got)} windows equal the CPU "
+              f"run in order ({c_secs:.3f} s) [{card}]")
+    later(held)
     run, _ = run_query_panes(gpu, streams, method="run")
-    if got != cpu:
-        raise AssertionError("query_panes differs from its CPU run")
     for g, r in zip(got, run):
         if g[:4] != r[:4] or g[2] != 0 or collections.Counter(g[4]) != \
                 collections.Counter(r[4]):
@@ -3241,8 +3440,8 @@ def check_join_panes(card, gpu="cuda"):
           f"objects a side, 2 s windows by 1 s, r={JOIN_R}): {len(got)} "
           f"windows, pairs {[len(g[4]) for g in got]} in {secs:.6f} s = "
           f"{rate:.1f} points/s; B3 launches a window {steps} (its new "
-          f"blocks), {launches} in all; equal to the CPU run "
-          f"({c_secs:.3f} s) in order and to run as multisets [{card}]")
+          f"blocks), {launches} in all; equal to run as multisets, held "
+          f"against the CPU run in order [{card}]")
     return launches, rate
 
 
@@ -3483,6 +3682,13 @@ def run_objects_family(device, cls, method, streams, *args, **conf_kw):
     return out, secs
 
 
+def tjoin_object_streams(chunks):
+    """Phase 23's ``Point`` streams: the first 2 x ``T_CUT`` points of
+    each side."""
+    return [traj_points(c, 2 * T_CUT, T_CUT, side)
+            for c, side in zip(chunks, ("l", "r"))]
+
+
 def check_tjoin(card, gpu="cuda"):
     """Phase 23: ``PointPointTJoinQuery.run_soa`` at the JAX suite's
     tjoin_10s_1s_sliding width through B3, every window's overflow 0 and
@@ -3500,20 +3706,27 @@ def check_tjoin(card, gpu="cuda"):
     join_extract.launches = 0
     got, secs, op = run_tjoin_soa(gpu, chunks)
     launches = join_extract.launches
-    want, cpu_secs, _ = run_tjoin_soa("cpu", chunks, slide_s=TJ_WINDOW_S)
-    by_start = {g[0]: g for g in got}
     n_windows = TJ_SLIDES + TJ_WINDOW_S - 1
-    if len(got) != n_windows or launches < n_windows \
-            or tuple(w[0] for w in want) != TJ_CPU_STARTS:
+    if len(got) != n_windows or launches < n_windows:
         raise AssertionError(f"tJoin run_soa: {len(got)} windows, {launches} "
-                             f"B3 launches, CPU windows "
-                             f"{[w[0] for w in want]}")
-    for w in want:
-        g = by_start[w[0]]
-        if g[:2] != w[:2] or g[5:] != w[5:] or not all(
-                np.array_equal(a, b) for a, b in zip(g[2:5], w[2:5])):
-            raise AssertionError(f"tJoin run_soa: window {w[:2]} differs "
-                                 f"from the CPU run")
+                             f"B3 launches")
+
+    def held(by_start={g[0]: g for g in got}, chunks=chunks):
+        want, cpu_secs = twin("tjoin_soa", chunks)
+        if tuple(w[0] for w in want) != TJ_CPU_STARTS:
+            raise AssertionError(f"tJoin run_soa: CPU windows "
+                                 f"{[w[0] for w in want]}")
+        for w in want:
+            g = by_start[w[0]]
+            if g[:2] != w[:2] or g[5:] != w[5:] or not all(
+                    np.array_equal(a, b) for a, b in zip(g[2:5], w[2:5])):
+                raise AssertionError(f"tJoin run_soa: window {w[:2]} "
+                                     f"differs from the CPU run")
+        print(f"exact tJoin run_soa: the windows starting "
+              f"{list(TJ_CPU_STARTS)} ms (the first, a middle and the last "
+              f"full window) equal the CPU plain run ({cpu_secs:.3f} s on "
+              f"the host CPU for those 3) [{card}]")
+    later(held)
     for g in got:
         d = g[4].view(np.float32)
         if g[6] != 0 or len(g[2]) != g[5] or np.any(np.diff(
@@ -3529,12 +3742,10 @@ def check_tjoin(card, gpu="cuda"):
           f"{[g[5] for g in got]}, {n} points in {secs:.6f} s = "
           f"{n / secs:.1f} points/s; launches join_extract={launches}; "
           f"trajectory-pair budget grown to {op._max_tpairs}; the windows "
-          f"starting {list(TJ_CPU_STARTS)} ms (the first, a middle and the "
-          f"last full window) equal the CPU plain run ({cpu_secs:.3f} s on "
-          f"the host CPU for those 3) [{card}]")
+          f"starting {list(TJ_CPU_STARTS)} ms held against the CPU plain "
+          f"run [{card}]")
 
-    pts = [traj_points(c, 2 * T_CUT, T_CUT, side)
-           for c, side in zip(chunks, ("l", "r"))]
+    pts = tjoin_object_streams(chunks)
     obj_launches = 0
     for method, streams in (("run", pts), ("run_single", pts[:1])):
         join_extract.launches = 0
@@ -3542,17 +3753,23 @@ def check_tjoin(card, gpu="cuda"):
                                        streams, TJ_R, op_kw={"cap": TJ_CAP})
         launched = join_extract.launches
         obj_launches += launched
-        w, c_secs = run_objects_family("cpu", ops.PointPointTJoinQuery,
-                                       method, streams, TJ_R,
-                                       op_kw={"cap": TJ_CAP})
-        if g != w or len(g) != 2 or launched < 2 or not all(x[3] for x in g):
+        if len(g) != 2 or launched < 2 or not all(x[3] for x in g):
             raise AssertionError(
-                f"tJoin {method}: equal to the CPU run {g == w}, pairs "
-                f"{[len(x[3]) for x in g]}, {launched} B3 launches")
+                f"tJoin {method}: pairs {[len(x[3]) for x in g]}, "
+                f"{launched} B3 launches")
         print(f"e2e tJoin {method} (Point objects, 2 windows of {T_CUT} a "
               f"side): trajectory pairs {[len(x[3]) for x in g]} in "
-              f"{o_secs:.6f} s; launches join_extract={launched}; equal to "
-              f"the CPU run ({c_secs:.3f} s) [{card}]")
+              f"{o_secs:.6f} s; launches join_extract={launched}; held "
+              f"against the CPU run [{card}]")
+
+        def held(g=g, method=method, streams=streams):
+            w, c_secs = twin(f"tjoin_{method}", streams)
+            if g != w:
+                raise AssertionError(f"tJoin {method}: differs from the CPU "
+                                     f"run")
+            print(f"exact tJoin {method}: equal to the CPU run "
+                  f"({c_secs:.3f} s) [{card}]")
+        later(held)
     return launches + obj_launches, got, secs, chunks
 
 
@@ -3787,6 +4004,23 @@ def check_tstats(dev, card, gpu="cuda"):
     return secs
 
 
+def traj_soa(device, cls, chunks, *args, window=1.0, slide=1.0, **op_kw):
+    """One ``run_soa`` of a trajectory operator; returns (windows,
+    seconds)."""
+    import torch
+
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    op = cls(ops.QueryConfiguration(window_size=window, slide_step=slide),
+             UniformGrid(**BEIJING), device=device, **op_kw)
+    t0 = time.perf_counter()
+    out = list(op.run_soa(chunks, *args))
+    if op.device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def check_traj_families(card, gpu="cuda"):
     """Phase 25: tRange ``run_soa`` on config 3's stream against 32
     polygons, tKnn, tAggregate (SUM) and tFilter ``run_soa`` on config
@@ -3794,20 +4028,9 @@ def check_traj_families(card, gpu="cuda"):
     on ``Point``s at 2 x 20,000; each against its CPU run. Returns the
     e2e rates."""
     from spatialflink_tpu_torch import operators as ops
-    from spatialflink_tpu_torch.grid import UniformGrid
     from spatialflink_tpu_torch.models.objects import Point
 
-    import torch
-
-    def soa(device, cls, chunks, *args, window=1.0, slide=1.0, **op_kw):
-        op = cls(ops.QueryConfiguration(window_size=window,
-                                        slide_step=slide),
-                 UniformGrid(**BEIJING), device=device, **op_kw)
-        t0 = time.perf_counter()
-        out = list(op.run_soa(chunks, *args))
-        if op.device.type == "cuda":
-            torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    soa = traj_soa
 
     def same(a, b):
         if isinstance(a, np.ndarray):
@@ -3819,10 +4042,25 @@ def check_traj_families(card, gpu="cuda"):
                 (b.start, b.end, b.window_count, b.cells)
         return a == b
 
-    def case(label, cls, chunks, *args, n, **kw):
+    def case(label, cls, chunks, *args, n, twin_name=None, **kw):
         g, secs = soa(gpu, cls, chunks, *args, **kw)
+        if not g:
+            raise AssertionError(f"{label}: no window")
+        if twin_name is not None:
+            print(f"e2e {label}: {len(g)} windows, {n} points in {secs:.6f} "
+                  f"s = {n / secs:.1f} points/s; held against the CPU run "
+                  f"[{card}]")
+
+            def held():
+                w, c_secs = twin(twin_name, chunks)
+                if not same(g, w):
+                    raise AssertionError(f"{label} differs from the CPU run")
+                print(f"exact {label}: equal to the CPU run ({c_secs:.3f} "
+                      f"s) [{card}]")
+            later(held)
+            return g, n / secs
         w, c_secs = soa("cpu", cls, chunks, *args, **kw)
-        if not same(g, w) or not g:
+        if not same(g, w):
             raise AssertionError(f"{label} differs from the CPU run")
         print(f"e2e {label}: {len(g)} windows, {n} points in {secs:.6f} s = "
               f"{n / secs:.1f} points/s; equal to the CPU run "
@@ -3858,7 +4096,7 @@ def check_traj_families(card, gpu="cuda"):
     g, rates["tAggregate run_soa"] = case(
         "tAggregate run_soa SUM (config 2's stream, 5 s by 1 s)",
         ops.PointTAggregateQuery, pchunks, n=n2, window=PANE_WINDOW_S,
-        aggregate="SUM")
+        aggregate="SUM", twin_name="tagg_sum")
     print(f"  tAggregate cells in the last window: {len(g[-1].cells)}")
     g, rates["tFilter run_soa"] = case(
         f"tFilter run_soa (config 2's stream, {TF_IDS} ids)",
@@ -3912,6 +4150,46 @@ def tpanes_stream():
                        "y": y[i:i + per], "oid": oid[i:i + per]}
                       for i in range(0, n, per)])
     return sides
+
+
+def tpanes_columns(chunks):
+    """Each side's chunks as whole (ts, x, y, oid) columns."""
+    return [[np.concatenate([c[k] for c in side])
+             for k in ("ts", "x", "y", "oid")] for side in chunks]
+
+
+def tjoin_panes_cpu(cols):
+    """Phase 26's engine run on the CPU over the stream cut to its first
+    ``TP_CPU_PANES`` panes: every window ending before that pane. Returns
+    (the windows' (K²,) minima rows, seconds, overflow counters, cap_c)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators.trajectory import tjoin_pane_fields
+    from spatialflink_tpu_torch.ops import tjoin_panes as tp
+    from spatialflink_tpu_torch.ops.compaction import (
+        max_window_cell_count,
+        pick_capacity,
+    )
+
+    grid = UniformGrid(**BEIJING)
+    m = TP_CPU_PANES
+    keep = [c[0] < m * TP_SLIDE_MS for c in cols]
+    t0 = time.perf_counter()
+    cpu_fields = [tjoin_pane_fields(grid, *(a[k] for a in c),
+                                    TP_SLIDE_MS, 0, m)
+                  for c, k in zip(cols, keep)]
+    cpu_cap = pick_capacity(max(max_window_cell_count(*f[2], TP_PPW)
+                                for f in cpu_fields), TP_CAP_W)
+    cc, cw = tp.tjoin_pane_scan(
+        tp.tjoin_pane_init(grid.num_cells, TP_CAP_W, TP_PPW, TP_IDS,
+                           device="cpu"), range(m),
+        *(tuple(torch.from_numpy(a) for a in f[0]) for f in cpu_fields),
+        TP_R, grid.n, TP_CAP_W, grid.candidate_layers(TP_R), TP_PPW, TP_IDS,
+        TP_PAIR_SEL, cpu_cap)
+    secs = time.perf_counter() - t0
+    return (cw.numpy(), secs, [int(cc.cap_overflow), int(cc.sel_overflow),
+                               int(cc.cmp_overflow)], cpu_cap)
 
 
 def run_tjoin_panes(device, chunks, backend="device"):
@@ -4042,10 +4320,7 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
           f"{tr_kern / tr_slides:.2f} a slide [{card}]")
 
     # Its host steps, timed alone.
-    cols = []
-    for side in chunks:
-        cols.append([np.concatenate([c[k] for c in side])
-                     for k in ("ts", "x", "y", "oid")])
+    cols = tpanes_columns(chunks)
     t0 = time.perf_counter()
     fields = [tjoin_pane_fields(grid, *c, TP_SLIDE_MS, 0, n_slides)
               for c in cols]
@@ -4199,27 +4474,20 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
     # 3a. The engine's CPU run of the stream cut to its first
     # TP_CPU_PANES panes: every window ending before that pane.
     m = TP_CPU_PANES
-    keep = [c[0] < m * TP_SLIDE_MS for c in cols]
-    t0 = time.perf_counter()
-    cpu_fields = [tjoin_pane_fields(grid, *(a[k] for a in c),
-                                       TP_SLIDE_MS, 0, m)
-                  for c, k in zip(cols, keep)]
-    cpu_cap = pick_capacity(max(max_window_cell_count(*f[2], TP_PPW)
-                                for f in cpu_fields), TP_CAP_W)
-    cc, cw = tp.tjoin_pane_scan(
-        tp.tjoin_pane_init(grid.num_cells, TP_CAP_W, TP_PPW, TP_IDS,
-                           device="cpu"), range(m),
-        *(tuple(torch.from_numpy(a) for a in f[0]) for f in cpu_fields),
-        *radius_args[:-1], cpu_cap)
-    cpu_secs = time.perf_counter() - t0
-    cpu_counters = [int(cc.cap_overflow), int(cc.sel_overflow),
-                    int(cc.cmp_overflow)]
-    cw = cw.numpy()
-    if cpu_counters != [0, 0, 0] or not all(
-            same_window(pane_window(s, cw[s]), got[s]) for s in range(m)):
-        raise AssertionError(f"run_soa_panes: the card's windows differ from "
-                             f"the CPU run of the first {m} panes "
-                             f"(counters {cpu_counters})")
+
+    def held(got=got[:m], cols=cols):
+        cw, cpu_secs, cpu_counters, cpu_cap = twin("tjoin_panes", cols)
+        if cpu_counters != [0, 0, 0] or not all(
+                same_window(pane_window(s, cw[s]), got[s])
+                for s in range(m)):
+            raise AssertionError(f"run_soa_panes: the card's windows differ "
+                                 f"from the CPU run of the first {m} panes "
+                                 f"(counters {cpu_counters})")
+        print(f"exact run_soa_panes: the card's windows equal the engine's "
+              f"CPU run of the first {m} panes over all {m} windows ending "
+              f"before pane {m} ({m - TP_PPW + 1} full; {cpu_secs:.3f} s on "
+              f"the host CPU, cap_c {cpu_cap}) [{card}]")
+    later(held)
 
     # 3b. run_soa through B3 on 10 s tumbling windows of the stream.
     soa_op = PointPointTJoinQuery(
@@ -4248,12 +4516,11 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
             same_window(a, b) for a, b in zip(seg, got)):
         raise AssertionError("run_soa_panes: the segmented pipelined scan "
                              "differs from the one scan")
-    print(f"exact run_soa_panes: the card's windows equal the engine's CPU "
-          f"run of the first {m} panes over all {m} windows ending before "
-          f"pane {m} ({m - TP_PPW + 1} full; {cpu_secs:.3f} s on the host "
-          f"CPU, cap_c {cpu_cap}), run_soa through B3 at the windows "
-          f"starting {starts} ms (10 s tumbling, cap {cap_c}, overflow 0, "
-          f"pairs {[w[5] for w in soa]}, {soa_secs:.3f} s) and the segmented "
+    print(f"exact run_soa_panes: the card's windows held against the "
+          f"engine's CPU run of the first {m} panes, equal to run_soa "
+          f"through B3 at the windows starting {starts} ms (10 s "
+          f"tumbling, cap {cap_c}, overflow 0, pairs "
+          f"{[w[5] for w in soa]}, {soa_secs:.3f} s) and the segmented "
           f"pipelined scan over all {len(got)} windows ({seg_secs:.3f} s = "
           f"{n_pts / seg_secs:.1f} points/s); ids in order, distance bits "
           f"[{card}]")
@@ -8169,6 +8436,108 @@ def run_dag_phase(card, gpu):
     return {"join_extract": b3_launches}
 
 
+def twin_run_soa():
+    """Phase 8: ``run_soa`` over both 16-window join streams."""
+    chunks = (soa_join_chunks(1), soa_join_chunks(2))
+    return digest(chunks), run_soa_path("cpu", chunks)
+
+
+def twin_range():
+    """Phase 12: config 3's first ``RANGE_CPU_WINDOWS`` windows."""
+    from spatialflink_tpu_torch.operators import PointPolygonRangeQuery
+
+    cut = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)[:RANGE_CPU_WINDOWS]
+    polys = range_polygons()
+    want, secs, op = run_range("cpu", PointPolygonRangeQuery, cut, polys,
+                               RANGE_R)
+    return digest(cut, polys), (want, secs, op._ncand)
+
+
+def twin_geometry_range():
+    """Phase 14: the first ``GEOM_CPU_WINDOWS`` polygon windows."""
+    from spatialflink_tpu_torch.operators import PolygonPolygonRangeQuery
+
+    cut = geometry_chunks(GEOM_WINDOWS, GEOM_WIN)[:GEOM_CPU_WINDOWS]
+    polys = geometry_queries("polygon")
+    return digest(cut, polys), run_geometry(
+        "cpu", PolygonPolygonRangeQuery, cut, polys)
+
+
+def twin_pg_join():
+    """Phase 20: join_point_1000polygons, every window."""
+    from spatialflink_tpu_torch.operators import PointPolygonJoinQuery
+
+    xy, ts = pg_points()
+    left = point_chunks(xy, ts, PG_WIN)
+    right = polygon_chunks(pg_polygons(), PG_WINDOWS)
+    want, secs, _ = run_join_soa("cpu", PointPolygonJoinQuery, left, right,
+                                 PG_R)
+    return digest(left, right), (want, secs)
+
+
+def twin_gg_join():
+    """Phase 21: the first ``GG_CPU_WINDOWS`` polygon ⋈ polygon windows."""
+    from spatialflink_tpu_torch.operators import PolygonPolygonJoinQuery
+
+    left = geometry_chunks(GEOM_WINDOWS, GEOM_WIN)[:GG_CPU_WINDOWS]
+    right = polygon_chunks(range_polygons(), GG_WINDOWS)[:GG_CPU_WINDOWS]
+    want, secs, _ = run_join_soa("cpu", PolygonPolygonJoinQuery, left, right,
+                                 PG_R)
+    return digest(left, right), (want, secs)
+
+
+def twin_query_panes():
+    """Phase 22: ``query_panes`` over the two ``Point`` streams."""
+    streams = qpj_streams()
+    return digest(streams), run_query_panes("cpu", streams)
+
+
+def twin_tjoin_soa():
+    """Phase 23: ``run_soa`` at the first, a middle and the last full
+    window."""
+    chunks = (tjoin_chunks(31), tjoin_chunks(32))
+    want, secs, _ = run_tjoin_soa("cpu", chunks, slide_s=TJ_WINDOW_S)
+    return digest(chunks), (want, secs)
+
+
+def twin_tjoin_objects(method):
+    """Phase 23: ``run`` (both streams) or ``run_single`` (the left) on
+    ``Point`` objects."""
+    from spatialflink_tpu_torch.operators import PointPointTJoinQuery
+
+    pts = tjoin_object_streams((tjoin_chunks(31), tjoin_chunks(32)))
+    streams = pts if method == "run" else pts[:1]
+    return digest(streams), run_objects_family(
+        "cpu", PointPointTJoinQuery, method, streams, TJ_R,
+        op_kw={"cap": TJ_CAP})
+
+
+def twin_tagg_sum():
+    """Phase 25: tAggregate SUM ``run_soa`` over config 2's stream."""
+    from spatialflink_tpu_torch.operators import PointTAggregateQuery
+
+    chunks = pane_chunks()
+    return digest(chunks), traj_soa("cpu", PointTAggregateQuery, chunks,
+                                    window=PANE_WINDOW_S, aggregate="SUM")
+
+
+def twin_tjoin_panes():
+    """Phase 26: the pane engine over the first ``TP_CPU_PANES`` panes."""
+    cols = tpanes_columns(tpanes_stream())
+    return digest(cols), tjoin_panes_cpu(cols)
+
+
+# The background twins, in the order the phases ask for them.
+TWINS = {"run_soa": twin_run_soa, "range": twin_range,
+         "geometry_range": twin_geometry_range, "pg_join": twin_pg_join,
+         "gg_join": twin_gg_join, "query_panes": twin_query_panes,
+         "tjoin_soa": twin_tjoin_soa,
+         "tjoin_run": functools.partial(twin_tjoin_objects, "run"),
+         "tjoin_run_single": functools.partial(twin_tjoin_objects,
+                                               "run_single"),
+         "tagg_sum": twin_tagg_sum, "tjoin_panes": twin_tjoin_panes}
+
+
 def run_domain_phases(card, gpu="cuda"):
     """Phases 29-30, their walls printed. Returns (B4 launches of the
     counters run, phase 29's benchmark rates)."""
@@ -8250,6 +8619,13 @@ def run_new_phases(dev, card, geo_chunks):
 
 
 def main(argv=None) -> int:
+    try:
+        return run(argv)
+    finally:
+        stop_twins()
+
+
+def run(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="phases 1-4 and 7 only (build and check the kernels)")
@@ -8311,6 +8687,13 @@ def main(argv=None) -> int:
 
     # Phase 1
     t_start = time.perf_counter()
+    if not (args.quick or args.trajectory_only or args.ingest_only
+            or args.domain_only or args.runtime_only or args.driver_only
+            or args.overload_only or args.qserve_only
+            or args.jobsurface_only or args.dag_only):
+        threads = start_twins()
+        print(f"host: {os.cpu_count()} CPUs; {threads} torch threads here, "
+              f"{TWIN_WORKERS} CPU-twin workers of {TWIN_THREADS}")
     card = card_line()
     dev = torch.device("cuda", 0)
     print(card)
@@ -8457,17 +8840,21 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.3f} s (host set-up)")
     n_join = 2 * JOIN_WINDOWS * JOIN_WIN
     join_extract.launches = 0
-    got, secs = run_soa_path("cuda", chunks)
+    soa_got, secs = run_soa_path("cuda", chunks)
     soa_launches = join_extract.launches
-    want, cpu_secs = run_soa_path("cpu", chunks)
-    check_soa_join(got, want)
     if soa_launches < JOIN_WINDOWS:
         raise AssertionError(f"run_soa: {soa_launches} B3 launches")
-    print(f"e2e run_soa: {len(got)} windows, pairs per window "
-          f"{[w[5] for w in got]}, {n_join} points in {secs:.6f} s = "
+    print(f"e2e run_soa: {len(soa_got)} windows, pairs per window "
+          f"{[w[5] for w in soa_got]}, {n_join} points in {secs:.6f} s = "
           f"{n_join / secs:.1f} points/s; launches join_extract="
-          f"{soa_launches}; windows equal the CPU plain run "
-          f"({cpu_secs:.3f} s on the host CPU) [{card}]")
+          f"{soa_launches}; held against the CPU plain run [{card}]")
+
+    def held(got=soa_got, chunks=chunks):
+        want, cpu_secs = twin("run_soa", chunks)
+        check_soa_join(got, want)
+        print(f"exact run_soa: all {len(got)} windows equal the CPU plain "
+              f"run ({cpu_secs:.3f} s on the host CPU) [{card}]")
+    later(held)
 
     # Phase 9: run on Point objects, two query types, against the CPU.
     t0 = time.perf_counter()
@@ -8542,19 +8929,24 @@ def main(argv=None) -> int:
         dev, card, geo_chunks)
     b4_launches += pg_launches + gg_launches
     b4_shapes.update(join_shapes)
+    settle_twins()
     # Phases 23-26: the trajectory layer (tJoin through B3, the pane-carry
     # tJoin).
     tj_launches, tj_row = run_trajectory_phases(dev, card)
+    settle_twins()
     # Phases 27-28: ingest (serde, sources, shapefile, CRS) feeding the
     # range operators through B4, and the apps.
     ingest_launches = run_ingest_phases(card)
     b4_launches += ingest_launches
+    settle_twins()
     # Phases 29-30: the SNCB and MobilityNebula layers (the zone test on
     # the card) and the op counters over the range operators through B4.
     domain_launches, _ = run_domain_phases(card)
     b4_launches += domain_launches
+    settle_twins()
     # Phase 31: the runtime layer on the card, through all four kernels.
     rt = check_runtime(card, panes, wf)
+    settle_twins()
     # Phase 32: the dataflow driver, checkpoints and exactly-once egress
     # (B1, B3, B4).
     drv = check_driver(card, panes, wf)
@@ -8570,6 +8962,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dg = check_dag(card)
     print(f"phase walls: 36 {time.perf_counter() - t0:.3f} s [{card}]")
+    # The comparisons with the CPU twins of the background processes.
+    t0 = time.perf_counter()
+    run_later()
+    print(f"phase walls: CPU twins' comparisons {time.perf_counter() - t0:.3f}"
+          f" s [{card}]")
     record = {"kernels": [
         {"name": "wire_digest", "route": "cuda",
          "source": "spatialflink_tpu_torch/kernels/csrc/wire_digest.cu",
@@ -8631,6 +9028,11 @@ def main(argv=None) -> int:
          "launches_domain": domain_launches,
          "shapes": b4_shapes},
     ]}
+    print("CPU twins in background processes (seconds of the CPU run, "
+          "seconds this process waited for it): "
+          + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                      for k, v in twin_log.items())
+          + f"; {TWIN_WORKERS} workers of {TWIN_THREADS} threads [{card}]")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s [{card}]")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
