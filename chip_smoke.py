@@ -13,6 +13,7 @@ NVIDIA card.
     python3 chip_smoke.py --qserve-only       # phases 1-2 and 34
     python3 chip_smoke.py --jobsurface-only   # phases 1-2 and 35
     python3 chip_smoke.py --dag-only          # phases 1-2 and 36
+    python3 chip_smoke.py --mesh-only         # phases 1-2 and 37
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -425,6 +426,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    CSV output; option 10 with ``--checkpoint`` over a CSV of (a)'s
    stream, in a child killed by an ``abort`` fault and a child resuming,
    each node file byte-identical to an uninterrupted run.
+37. the mesh layer (``parallel/``): every leg runs one operator twice on
+   the card, unsharded and with ``mesh=`` four shards of ``cuda:0``
+   (``make_mesh((4,), ("data",), devices=["cuda:0"] * 4)``), the mesh
+   run equal to the unsharded run of the same windows: (a) the point
+   range ``run`` on a window of 65,536 ``Point``s against config 3's
+   1,000 polygons (r = 0.002), keep sets and distance bits equal, B4 four
+   launches a window; (b) ``PointPointKNNQuery.run`` (k = 50) on the
+   same stream and ``run_multi`` with 64 queries on the (2, 2) data x
+   query mesh, winners and distance bits equal; (c) the point join
+   ``run`` over phase 9's first second (2 x 20,000 ``Point``s) through
+   B3 a shard, a window run again with a budget below its pairs (the
+   budget retry), and point ⋈ polygon ``run`` at 2 x 8,192, pair sets
+   with distance bits equal; (d) qserve_1024q_mixed's first window
+   (``QServeOperator.run`` through ``sharded_registry_bucket``), egress
+   lines equal; (e) ``traj_stats_sliding(mesh=)`` on bench_tstats_pane
+   cut to 262,144 points (counts and temporal sums exact, spatial sums
+   within ``pane_spatial_bound``) and ``run_soa_panes(mesh=)`` at 200
+   panes a side, windows equal; (f) ``streaming_job.main`` with
+   ``deviceMesh: [4]`` on ``backend: cuda`` raising "need 4 devices,
+   have 1" on the one card, and the DAG smoke's mesh child on the card
+   (36b's; a child of its own under ``--mesh-only``) accounting
+   collective bytes above 0. Each leg prints its mesh and
+   unsharded ms a window (four shards on one card: the split and
+   collective overhead, not a scaling figure), the collective gauges and
+   the B3 and B4 launches it adds.
 
 In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25 and
 26) run in two spawned worker processes of one torch thread each, at
@@ -8419,7 +8445,8 @@ def run_dag_phase(card, gpu):
     if not resume["resumed"]:
         raise AssertionError("36b: the second child did not resume")
     out, err = smoke.communicate(timeout=600)
-    if smoke.returncode != 0:
+    mesh_line = mesh_child_line(out)
+    if smoke.returncode != 0 or mesh_line is None:
         raise AssertionError(f"36b: dag --smoke exited {smoke.returncode}\n"
                              f"{out[-1000:]}{err[-2000:]}")
     print(f"dag kill and resume (36b): a child killed at dag.commit "
@@ -8433,7 +8460,397 @@ def run_dag_phase(card, gpu):
     import shutil
 
     shutil.rmtree(tmp, ignore_errors=True)
-    return {"join_extract": b3_launches}
+    return {"join_extract": b3_launches, "mesh_line": mesh_line}
+
+
+# Phase 37: the mesh layer, four shards on the one card. The legs' sizes
+# (PERF.md §4): 37a/37b config 3's stream (bench_suite.py:357-420, seed
+# 7) cut to 1 window of 65,536 Points; 37c phase 9's first second and
+# phase 20's 2 x 8,192 cut; 37d qserve_1024q_mixed's first of 8 windows
+# (34b's stream); 37e bench_tstats_pane cut to 262,144 points and phase
+# 26's pane-carry tJoin cut to 200 panes a side (35a's cut). The phase
+# took 23.0-28.5 s of wall with 2 windows in 37a, 37b and 37d on two
+# whole runs (PERF.md §6), over its 25 s, so those legs take one window.
+MESH_SHARDS = 4
+MESH_WIN = 65_536
+MESH_WINDOWS = 1
+MESH_QS_WINDOWS = 1
+MESH_TS_POINTS = 262_144
+MESH_TP_PANES = TP_TRACE_PANES
+
+
+def mesh_of(gpu, shape=(MESH_SHARDS,), names=("data",)):
+    """``shape`` over the card listed once a shard (``cpu`` to rehearse);
+    on the card every device must be a CUDA device."""
+    import torch
+
+    from spatialflink_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0) if gpu == "cuda" else torch.device(gpu)
+    mesh = make_mesh(shape, names, devices=[dev] * int(np.prod(shape)))
+    if gpu == "cuda" and {d.type for d in mesh.devices.flat} != {"cuda"}:
+        raise AssertionError(f"phase 37: mesh {mesh} is not on the card")
+    return mesh
+
+
+def mesh_leg(label, run, card, gpu, mesh=None, windows=len):
+    """``run(mesh)`` unsharded, then on ``mesh`` (by default the four-shard
+    data mesh), each with telemetry on and the device synchronised;
+    returns (unsharded result, mesh result, {"join_extract",
+    "polyline_min_dist": the mesh run's launches}) and prints both runs'
+    ms a window (``windows(result)`` windows), the collective gauges and
+    the launches."""
+    import torch
+
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    def timed(mesh):
+        telemetry.enable()
+        try:
+            join_extract.launches = polyline_min_dist.launches = 0
+            t0 = time.perf_counter()
+            out = run(mesh)
+            if gpu == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            gauges = telemetry.collective_gauges()
+        finally:
+            telemetry.disable()
+        return out, secs, gauges, {
+            "join_extract": join_extract.launches,
+            "polyline_min_dist": polyline_min_dist.launches}
+
+    one, one_s, _, one_l = timed(None)
+    got, mesh_s, gauges, launches = timed(mesh or mesh_of(gpu))
+    n_windows = windows(one)
+    kinds = ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                      for k, v in sorted((gauges or {}).get(
+                          "by_kind", {}).items())) or "none"
+    print(f"mesh {label}: {n_windows} windows, mesh "
+          f"{1e3 * mesh_s / n_windows:.3f} ms a window, unsharded "
+          f"{1e3 * one_s / n_windows:.3f} ms a window (4 shards on one "
+          f"{card} — not a scaling figure); collectives: {kinds}; launches "
+          f"on the mesh run join_extract={launches['join_extract']} "
+          f"polyline_min_dist={launches['polyline_min_dist']} (unsharded "
+          f"join_extract={one_l['join_extract']} polyline_min_dist="
+          f"{one_l['polyline_min_dist']}) [{card}]")
+    return one, got, launches
+
+
+def check_mesh(card, gpu="cuda", smoke_line=None):
+    """Phase 37: the mesh layer. Returns {"join_extract",
+    "polyline_min_dist": the launches of the legs' mesh runs}.
+    ``smoke_line``: the mesh child's line from phase 36's DAG smoke;
+    without one (``--mesh-only``) the DAG's mesh child runs in the
+    background from the phase's start, and a failure kills it."""
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="phase37_")
+    child = None
+    if smoke_line is None:
+        child = start_background(
+            [sys.executable, "-m", "spatialflink_tpu_torch.dag",
+             "--mesh-child", "--device", gpu],
+            env=dict(os.environ,
+                     SFT_LEDGER_STREAM=os.path.join(tmp, "mesh.jsonl")))
+    try:
+        return run_mesh_phase(card, gpu, child, smoke_line)
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_child_line(out):
+    """The DAG mesh child's "collective bytes" line in ``out``, or None."""
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("dag-mesh-child: collective bytes")]
+    return lines[0] if lines else None
+
+
+def run_mesh_phase(card, gpu, child, smoke_line):
+    import torch
+
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch import qserve, streaming_job
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+    from spatialflink_tpu_torch.operators.join_query import (
+        grid_hash_join_batches,
+    )
+    from spatialflink_tpu_torch.streams.panes import (
+        pane_spatial_bound,
+        traj_stats_sliding,
+    )
+
+    t_phase = time.perf_counter()
+    grid = UniformGrid(**BEIJING)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    total = {"join_extract": 0, "polyline_min_dist": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def legs_wall(label, t0):
+        print(f"phase 37 {label}: {time.perf_counter() - t0:.3f} s [{card}]")
+
+    # 37a. The point range run through B4, one launch a shard a window.
+    t0 = time.perf_counter()
+    stream = range_objects(MESH_WINDOWS, MESH_WIN, 7)
+    polys = range_polygons()
+
+    def range_run(mesh):
+        op = ops.PointPolygonRangeQuery(conf, grid, device=gpu)
+        return [(r.start, r.end, r.window_count,
+                 [o.obj_id for o in r.objects],
+                 np.asarray(r.dists, np.float32).tobytes())
+                for r in op.run(iter(stream), polys, RANGE_R, mesh=mesh)]
+
+    one, got, launches = mesh_leg("37a range", range_run, card, gpu)
+    if got != one or len(got) != MESH_WINDOWS or not all(w[3] for w in one):
+        raise AssertionError("37a: the mesh range run differs from the "
+                             "unsharded run")
+    if gpu == "cuda" and launches["polyline_min_dist"] != \
+            MESH_SHARDS * MESH_WINDOWS:
+        raise AssertionError(f"37a: {launches['polyline_min_dist']} B4 "
+                             "launches")
+    add(launches)
+    print(f"mesh 37a range: {sum(len(w[3]) for w in got)} kept Points, keep "
+          f"sets and distance bits equal to the unsharded run [{card}]")
+    legs_wall("a", t0)
+
+    # 37b. kNN run (k = 50) and run_multi on the (2, 2) mesh.
+    t0 = time.perf_counter()
+    q = Point(x=QUERY[0], y=QUERY[1])
+
+    def knn_run(mesh):
+        op = ops.PointPointKNNQuery(conf, grid, device=gpu)
+        return [(r.start, r.end, [(o, np.float32(d).tobytes(), p.obj_id)
+                                  for o, d, p in r.neighbors])
+                for r in op.run(iter(stream), q, RADIUS, K, mesh=mesh)]
+
+    one, got, launches = mesh_leg("37b run", knn_run, card, gpu)
+    if got != one or not all(len(w[2]) == K for w in got):
+        raise AssertionError("37b: the mesh kNN run differs from the "
+                             "unsharded run")
+    rng = np.random.default_rng(23)
+    queries = [Point(x=float(x), y=float(y)) for x, y in zip(
+        rng.uniform(115.5, 117.6, MULTI_Q), rng.uniform(39.6, 41.1, MULTI_Q))]
+
+    def multi_run(mesh):
+        op = ops.PointPointKNNQuery(conf, grid, device=gpu)
+        return [(r.start, r.end, [[(o, np.float32(d).tobytes())
+                                   for o, d, _ in one.neighbors]
+                                  for one in r.results])
+                for r in op.run_multi(iter(stream), queries, MULTI_R,
+                                      MULTI_K, mesh=mesh)]
+
+    one, got, launches = mesh_leg(
+        "37b run_multi", multi_run, card, gpu,
+        mesh=mesh_of(gpu, (2, 2), ("data", "query")))
+    if got != one or not sum(len(x) for w in got for x in w[2]):
+        raise AssertionError("37b: the mesh run_multi differs from the "
+                             "unsharded run")
+    print(f"mesh 37b kNN: run's top-{K} and run_multi's {MULTI_Q} queries' "
+          f"top-{MULTI_K} equal to the unsharded runs, distance bits "
+          f"included [{card}]")
+    legs_wall("b", t0)
+
+    # 37c. The point join through B3 a shard, the budget retry, and
+    # point ⋈ polygon through B4 gathered a shard.
+    t0 = time.perf_counter()
+    left, right = (side[:JOIN_OBJ_POINTS] for side in join_objects())
+
+    def pairs_of(results):
+        return [(r.start, r.end, r.overflow, sorted(
+            (a.obj_id, b.obj_id, np.float32(d).tobytes())
+            for a, b, d in r.pairs)) for r in results]
+
+    def join_run(mesh):
+        op = ops.PointPointJoinQuery(conf, grid, cap=JOIN_CAP, device=gpu)
+        return pairs_of(op.run(iter(left), iter(right), JOIN_R, mesh=mesh))
+
+    one, got, launches = mesh_leg("37c join", join_run, card, gpu)
+    if got != one or not got[0][3] or got[0][2]:
+        raise AssertionError("37c: the mesh join differs from the unsharded "
+                             "run")
+    if gpu == "cuda" and launches["join_extract"] < MESH_SHARDS:
+        raise AssertionError(f"37c: {launches['join_extract']} B3 launches")
+    add(launches)
+    # The retry: the window again with a budget of half its pairs, grown
+    # as the operator grows it until the mesh's count fits.
+    jop = ops.PointPointJoinQuery(conf, grid, cap=JOIN_CAP, device=gpu)
+    lb, rb = jop.point_batch(left), jop.point_batch(right)
+    n_pairs = len(one[0][3])
+    budget, tries, counts = n_pairs // 2, 0, []
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+
+    join_extract.launches = 0
+    while True:
+        res = grid_hash_join_batches(grid, lb, rb, JOIN_R, JOIN_CAP, budget,
+                                     jop.device, mesh=mesh_of(gpu))
+        tries += 1
+        count = int(res.count)
+        counts.append(count)
+        if count <= budget:
+            break
+        budget = int(2 ** np.ceil(np.log2(count)))
+    retry_launches = join_extract.launches
+    total["join_extract"] += retry_launches
+    li, ri, dd = (t.cpu().numpy() for t in (res.left_index[:count],
+                                            res.right_index[:count],
+                                            res.dist[:count]))
+    keep = li >= 0
+    retried = sorted((left[a].obj_id, right[b].obj_id, d.tobytes())
+                     for a, b, d in zip(li[keep], ri[keep], dd[keep]))
+    if tries < 2 or retried != one[0][3]:
+        raise AssertionError(f"37c: the budget retry took {tries} tries "
+                             f"(counts {counts}) or its pairs differ")
+    print(f"mesh 37c join retry: budget {n_pairs // 2} for {n_pairs} "
+          f"pairs, mesh counts {counts} over {tries} tries (a shard past "
+          f"its share inflates the count), final budget {budget}, pairs "
+          f"equal to the unsharded run; join_extract={retry_launches} "
+          f"[{card}]")
+    xy, ts = pg_points()
+    cut_n = JOIN_CUT_WINDOWS * JOIN_CUT_WIN
+    cut_ts = (np.arange(cut_n, dtype=np.int64) * 1000) // JOIN_CUT_WIN
+    pts = [Point(obj_id=f"p{i}", timestamp=int(t), x=float(x), y=float(y))
+           for i, (t, (x, y)) in enumerate(zip(
+               cut_ts.tolist(), xy[:cut_n].astype(np.float64).tolist()))]
+    pobjs = polygon_objects(pg_polygons(), JOIN_CUT_WINDOWS)
+
+    def pg_run(mesh):
+        op = ops.PointPolygonJoinQuery(conf, grid, device=gpu)
+        return pairs_of(op.run(iter(pts), iter(pobjs), PG_R, mesh=mesh))
+
+    one, got, launches = mesh_leg("37c point-polygon join", pg_run, card,
+                                  gpu)
+    if got != one or not all(w[3] for w in got):
+        raise AssertionError("37c: the mesh point-polygon join differs from "
+                             "the unsharded run")
+    if gpu == "cuda" and launches["polyline_min_dist"] < \
+            MESH_SHARDS * JOIN_CUT_WINDOWS:
+        raise AssertionError(f"37c: {launches['polyline_min_dist']} B4 "
+                             "launches")
+    add(launches)
+    print(f"mesh 37c joins: {sum(len(w[3]) for w in got)} point-polygon "
+          f"pairs, every pair set with its distance bits equal to the "
+          f"unsharded run [{card}]")
+    legs_wall("c", t0)
+
+    # 37d. qserve_1024q_mixed's first window (34b's stream, cut).
+    t0 = time.perf_counter()
+    qxy, qoid = qserve_points()
+    events = [e for e in qserve_command_stream(qxy, qoid)
+              if e.timestamp < 1000 * MESH_QS_WINDOWS]
+
+    def qserve_run(mesh):
+        op = qserve.QServeOperator(conf, grid, device=gpu)
+        try:
+            return [(r.start, r.end, list(r.lines()))
+                    for r in op.run(iter(events), mesh=mesh)]
+        finally:
+            qserve.uninstall()
+
+    one, got, launches = mesh_leg("37d qserve", qserve_run, card, gpu)
+    if got != one or not all(w[2] for w in got):
+        raise AssertionError("37d: the mesh qserve run differs from the "
+                             "unsharded run")
+    print(f"mesh 37d qserve: {sum(len(w[2]) for w in got)} egress lines "
+          f"equal to the unsharded run [{card}]")
+    legs_wall("d", t0)
+
+    # 37e. The tStats pane engine and the pane-carry tJoin.
+    t0 = time.perf_counter()
+    ts_, xy_, oid_ = (a[:MESH_TS_POINTS] for a in tstats_stream())
+    args = (ts_, xy_, oid_, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS)
+
+    def tstats_run(mesh):
+        return traj_stats_sliding(*args, backend="device", device=gpu,
+                                  mesh=mesh)
+
+    one, got, _ = mesh_leg("37e traj_stats_sliding", tstats_run, card, gpu,
+                           windows=lambda r: len(r.starts))
+    err = check_pane_windows(got, one, pane_spatial_bound(*args),
+                             "37e traj_stats_sliding")
+    chunks = tpanes_stream()
+    cut = [[{k: v[:MESH_TP_PANES * TP_PANE_PTS] for k, v in side[0].items()}]
+           for side in chunks]
+    tconf = QueryConfiguration(window_size=TP_PPW * TP_SLIDE_MS / 1000,
+                               slide_step=TP_SLIDE_MS / 1000)
+
+    def tjoin_run(mesh):
+        op = ops.PointPointTJoinQuery(tconf, grid, device=gpu)
+        return list(op.run_soa_panes(cut[0], cut[1], TP_R, TP_IDS,
+                                     cap_w=TP_CAP_W, pair_sel=TP_PAIR_SEL,
+                                     backend="device", mesh=mesh))
+
+    one_t, got_t, _ = mesh_leg("37e run_soa_panes", tjoin_run, card, gpu)
+    if len(got_t) != len(one_t) or not all(
+            same_window(a, b) for a, b in zip(got_t, one_t)) \
+            or not sum(w[5] for w in got_t):
+        raise AssertionError("37e: the mesh pane-carry tJoin differs from "
+                             "the unsharded run")
+    print(f"mesh 37e trajectories: {len(got.starts)} tStats windows, counts "
+          f"and temporal sums equal, spatial within pane_spatial_bound (max "
+          f"|err| {err[0]:.6g}, {err[1]:.3g} of the bound); "
+          f"{len(got_t)} tJoin windows equal to the unsharded run [{card}]")
+    legs_wall("e", t0)
+
+    # 37f. The entry points: deviceMesh above the visible cards, and the
+    # DAG smoke's mesh child (started at the phase's start).
+    t0 = time.perf_counter()
+    import os
+    import tempfile
+
+    if gpu == "cuda":
+        with tempfile.TemporaryDirectory(prefix="phase37f_") as tmp:
+            yml = os.path.join(tmp, "job.yml")
+            csv = os.path.join(tmp, "in.csv")
+            with open(csv, "w") as f:
+                f.write(f"d0,0,{QUERY[0]},{QUERY[1]}\n")
+            with open(yml, "w") as f:
+                f.write(sj_yaml(1, "cuda", (BEIJING["min_x"], BEIJING["min_y"],
+                                            BEIJING["max_x"], BEIJING["max_y"]),
+                                BEIJING["num_partitions"], RADIUS, K, 1, 1,
+                                [QUERY]) + "deviceMesh: [4]\n")
+            want = f"need 4 devices, have {torch.cuda.device_count()}"
+            try:
+                streaming_job.main(["--config", yml, "--source",
+                                    f"csv:{csv}", "--output",
+                                    os.path.join(tmp, "out.csv")])
+            except ValueError as e:
+                if str(e) != want:
+                    raise AssertionError(f"37f: deviceMesh [4] raised {e!r}")
+            else:
+                raise AssertionError("37f: deviceMesh [4] on one card ran")
+        print(f"mesh 37f streaming_job: deviceMesh [4] on backend cuda "
+              f"raises {want!r} [{card}]")
+    if child is not None:
+        out, err_ = child.communicate(timeout=600)
+        smoke_line = mesh_child_line(out) if child.returncode == 0 else None
+        if smoke_line is None:
+            raise AssertionError(f"37f: the DAG mesh child exited "
+                                 f"{child.returncode}\n{out[-1000:]}"
+                                 f"{err_[-2000:]}")
+    if int(smoke_line.split()[3]) <= 0:
+        raise AssertionError(f"37f: {smoke_line}")
+    who = "phase 36b's smoke" if child is None else "this phase's"
+    print(f"mesh 37f dag: {smoke_line} ({who} --mesh-child on the card) "
+          f"[{card}]")
+    legs_wall("f", t0)
+    print(f"phase 37 wall: {time.perf_counter() - t_phase:.3f} s; mesh runs "
+          f"added join_extract={total['join_extract']} polyline_min_dist="
+          f"{total['polyline_min_dist']} launches [{card}]")
+    return total
 
 
 def twin_run_soa():
@@ -8656,6 +9073,9 @@ def run(argv=None) -> int:
     ap.add_argument("--dag-only", action="store_true",
                     help="phases 1-2 and 36 only (build, then the composed "
                          "SNCB DAG and the StreamingJob entry point)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1-2 and 37 only (build, then the mesh "
+                         "layer, four shards on the card)")
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dag-child", metavar="DIR", default=None,
@@ -8690,7 +9110,7 @@ def run(argv=None) -> int:
     if not (args.quick or args.trajectory_only or args.ingest_only
             or args.domain_only or args.runtime_only or args.driver_only
             or args.overload_only or args.qserve_only
-            or args.jobsurface_only or args.dag_only):
+            or args.jobsurface_only or args.dag_only or args.mesh_only):
         threads = start_twins()
         print(f"host: {os.cpu_count()} CPUs; {threads} torch threads here, "
               f"{TWIN_WORKERS} CPU-twin workers of {TWIN_THREADS}")
@@ -8718,7 +9138,8 @@ def run(argv=None) -> int:
 
     if args.trajectory_only or args.ingest_only or args.domain_only \
             or args.runtime_only or args.driver_only or args.overload_only \
-            or args.qserve_only or args.jobsurface_only or args.dag_only:
+            or args.qserve_only or args.jobsurface_only or args.dag_only \
+            or args.mesh_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -8737,6 +9158,8 @@ def run(argv=None) -> int:
             check_jobsurface(card, panes, wf)
         if args.dag_only:
             check_dag(card)
+        if args.mesh_only:
+            check_mesh(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -8962,6 +9385,9 @@ def run(argv=None) -> int:
     t0 = time.perf_counter()
     dg = check_dag(card)
     print(f"phase walls: 36 {time.perf_counter() - t0:.3f} s [{card}]")
+    # Phase 37: the mesh layer, four shards on the card (B3, B4), with
+    # 36b's smoke's mesh child as 37f's.
+    mesh_l = check_mesh(card, smoke_line=dg["mesh_line"])
     # The comparisons with the CPU twins of the background processes.
     t0 = time.perf_counter()
     run_later()
@@ -8996,8 +9422,10 @@ def run(argv=None) -> int:
          "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
          "launches": soa_launches + obj_launches + qp_launches
          + tj_launches + rt["join_extract"] + drv["join_extract"]
-         + ov["join_extract"] + dg["join_extract"],
+         + ov["join_extract"] + dg["join_extract"]
+         + mesh_l["join_extract"],
          "launches_runtime": rt["join_extract"],
+         "launches_mesh": mesh_l["join_extract"],
          "launches_dag": dg["join_extract"],
          "launches_driver": drv["join_extract"],
          "launches_overload": ov["join_extract"],
@@ -9011,8 +9439,10 @@ def run(argv=None) -> int:
          "source": "spatialflink_tpu_torch/kernels/csrc/polyline_min_dist.cu",
          "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
          "launches": b4_launches + rt["polyline_min_dist"]
-         + drv["polyline_min_dist"] + ov["polyline_min_dist"],
+         + drv["polyline_min_dist"] + ov["polyline_min_dist"]
+         + mesh_l["polyline_min_dist"],
          "launches_runtime": rt["polyline_min_dist"],
+         "launches_mesh": mesh_l["polyline_min_dist"],
          "launches_driver": drv["polyline_min_dist"],
          "launches_overload": ov["polyline_min_dist"],
          "max_abs_err": err_b4,

@@ -39,7 +39,7 @@ Snapshottable components:
     duplicate.
 
 One component of the JAX package waits for a later item and raises
-``NotImplementedError`` naming it: the partition plan (ROADMAP A12).
+``NotImplementedError`` naming it: the partition plan (ROADMAP A12.2).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ from spatialflink_tpu_torch.utils.interning import Interner
 #: Components of the JAX package's checkpoints that the port cannot
 #: snapshot or restore yet, with the ROADMAP item each waits for.
 WAITING_COMPONENTS = {
-    "partition": "the grid-partitioned placement plan: ROADMAP A12",
+    "partition": "the grid-partitioned placement plan: ROADMAP A12.2",
 }
 
 

@@ -10,8 +10,8 @@ extensions: ``backend`` and ``deviceMesh``.
 
 The backend is ``cuda`` (the default: the operators run on the card) or
 ``cpu``: the torch device type an operator is given.
-``deviceMesh`` is parsed and kept; the operators take no mesh until the
-multi-GPU layer (ROADMAP A12).
+``deviceMesh`` is the job's mesh shape: the streaming job shards its
+operators over that many of the backend's devices (``parallel/``).
 """
 
 from __future__ import annotations

@@ -48,9 +48,9 @@ the 7-node SNCB DAG under an armed overload policy, killed between two
 sink commits by an ``abort`` fault, resumed, every sink byte-identical,
 with the clean child's sealed ledger stream carrying all seven node
 buckets and the killed child's truncated stream recovering them
-(``tools/sfprof``). The JAX smoke's mesh leg (collective accounting on
-an 8-device mesh) waits for the multi-GPU layer (ROADMAP A12), and the
-port's smoke leaves it out.
+(``tools/sfprof``), and a ``--mesh-child`` whose sharded kernels on an
+8-shard mesh of its device must account collective bytes into its
+sealed stream.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from spatialflink_tpu_torch.checkpoint import CheckpointCorruptError
 from spatialflink_tpu_torch.device import resolve_device
@@ -1159,12 +1160,48 @@ def run_chaos_child(workdir: str, device="cuda") -> int:
     return n
 
 
-def run_mesh_child() -> int:
-    """The JAX smoke's mesh leg (collective accounting of sharded kernels
-    on an 8-device mesh) waits for the multi-GPU layer."""
-    raise NotImplementedError(
-        "run_mesh_child (the dag smoke's sharded collective-accounting "
-        "leg) is not ported yet: ROADMAP A12")
+def run_mesh_child(device="cuda") -> int:
+    """The dag-smoke mesh leg: two collective-bearing sharded kernels on
+    an 8-shard data mesh of ``device`` (listed eight times) under
+    telemetry, proving the host-side collective accounting
+    (``parallel/sharded.py`` → ``telemetry.account_collective``) lands
+    in the sealed stream the parent gates on. Exit 0 iff the accounted
+    collective bytes are above 0."""
+    import os
+
+    from spatialflink_tpu_torch.parallel.mesh import data_mesh
+    from spatialflink_tpu_torch.parallel.sharded import (
+        sharded_range_query,
+        sharded_traj_stats,
+    )
+
+    dev = resolve_device(device)
+    telemetry.enable(stream_path=os.environ.get("SFT_LEDGER_STREAM"))
+    mesh = data_mesh(8, devices=[dev] * 8)
+    n = 64
+    rng = np.random.default_rng(7)
+    xy = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    flags = torch.ones(n, dtype=torch.uint8, device=dev)
+    q = torch.from_numpy(rng.random((4, 2)).astype(np.float32)).to(dev)
+    # (oid, ts)-sorted trajectory slab: 8 oids × 8 points each.
+    oid = torch.from_numpy(np.repeat(np.arange(8), 8).astype(np.int32)).to(
+        dev)
+    ts = torch.from_numpy(np.tile(np.arange(8), 8).astype(np.int32)).to(dev)
+    with telemetry.scope("meshleg"), telemetry.span("node.meshleg",
+                                                    events=n):
+        keep, _ = sharded_range_query(mesh, xy, valid, flags, q, 0.25)
+        spatial, temporal, count, speed = sharded_traj_stats(
+            mesh, xy, ts, oid, valid, num_segments=8)
+        # One wait: the programs really ran.
+        telemetry.fetch((keep, count))
+    gauges = telemetry.collective_gauges()
+    nbytes = int(gauges["bytes"]) if gauges else 0
+    telemetry.seal_stream("complete")
+    print(f"dag-mesh-child: collective bytes {nbytes} "
+          f"across {int(gauges['calls']) if gauges else 0} call(s) on "
+          f"an 8-shard mesh of {dev}")
+    return 0 if nbytes > 0 else 1
 
 
 def chaos_smoke(device="cuda") -> int:
@@ -1177,8 +1214,9 @@ def chaos_smoke(device="cuda") -> int:
     Every child streams its ledger (``SFT_LEDGER_STREAM``): the clean
     child's sealed stream must carry all seven node buckets in its final
     checkpoint snapshot, and the killed child's truncated stream must
-    recover with its node blocks (``tools/sfprof``). The JAX smoke's mesh
-    leg waits for ROADMAP A12 and is not run."""
+    recover with its node blocks (``tools/sfprof``), and the
+    ``--mesh-child`` leg (an 8-shard mesh of ``device``) must account
+    nonzero collective bytes into its sealed stream."""
     import json
     import os
     import subprocess
@@ -1221,67 +1259,110 @@ def chaos_smoke(device="cuda") -> int:
 
     node_names = ("q1", "q2", "q3", "q4", "q5", "staytime", "qserve")
     with tempfile.TemporaryDirectory(prefix="sft_dag_") as tmp:
-        clean_dir = os.path.join(tmp, "clean")
-        chaos_dir = os.path.join(tmp, "chaos")
-        os.makedirs(clean_dir)
-        os.makedirs(chaos_dir)
-        clean_stream = os.path.join(tmp, "clean.jsonl")
-        p = child(clean_dir, stream=clean_stream)
-        if p.returncode != 0:
-            print("dag-smoke: clean run failed\n" + p.stderr[-2000:])
+        # The mesh leg shares nothing with the kill/resume children: it
+        # runs beside them and is read at the end.
+        mesh_stream = os.path.join(tmp, "mesh.jsonl")
+        mesh_child = subprocess.Popen(
+            [sys.executable, "-m", "spatialflink_tpu_torch.dag",
+             "--mesh-child", "--device", str(device)],
+            env=dict(env_base, SFT_LEDGER_STREAM=mesh_stream),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root)
+        try:
+            rc = _smoke_children(child, last_checkpoint_snapshot,
+                                 stream_mod, node_names, tmp)
+        except BaseException:
+            mesh_child.kill()
+            mesh_child.communicate()
+            raise
+        if rc:
+            mesh_child.kill()
+            mesh_child.communicate()
+            return rc
+        mesh_out, mesh_err = mesh_child.communicate(timeout=600)
+        # Mesh leg: collective accounting must land nonzero bytes in a
+        # sealed stream on an 8-shard mesh of the children's device.
+        if mesh_child.returncode != 0:
+            print("dag-smoke: mesh leg failed\n"
+                  + mesh_out[-500:] + mesh_err[-2000:])
             return 1
-        # Attribution gate: the sealed clean stream's final checkpoint
-        # must carry every DAG node's telemetry bucket.
-        snap_nodes = last_checkpoint_snapshot(clean_stream).get(
-            "nodes") or {}
-        missing = sorted(set(node_names) - set(snap_nodes))
-        if missing:
-            print(f"dag-smoke: sealed stream is missing per-node "
-                  f"attribution for {missing} (has "
-                  f"{sorted(snap_nodes)})")
-            return 1
-        # The between-sink-commits cut: sub-commit #2 of a unit commit.
-        chaos_stream = os.path.join(tmp, "chaos_killed.jsonl")
-        p = child(chaos_dir,
-                  plan=[{"point": "dag.commit", "kind": "abort", "at": 2}],
-                  stream=chaos_stream)
-        if p.returncode != 137:
-            print(f"dag-smoke: expected the armed child to die with exit "
-                  f"137, got {p.returncode}\n" + p.stderr[-2000:])
-            return 1
-        # The killed child's truncated stream must recover with node
-        # blocks intact (a fresh path for the resume: enable truncates).
-        _doc, info = stream_mod.recover(chaos_stream)
-        if not info.get("nodes_recovered"):
-            print("dag-smoke: killed child's stream recovered with no "
-                  "per-node attribution")
-            return 1
-        p = child(chaos_dir,
-                  stream=os.path.join(tmp, "chaos_resume.jsonl"))
-        if p.returncode != 0:
-            print("dag-smoke: resume run failed\n" + p.stderr[-2000:])
-            return 1
-        total = 0
-        for name in node_names:
-            with open(os.path.join(
-                    clean_dir, "egress", f"{name}.csv"), "rb") as f:
-                want = f.read()
-            with open(os.path.join(
-                    chaos_dir, "egress", f"{name}.csv"), "rb") as f:
-                got = f.read()
-            if want != got:
-                print(f"dag-smoke: egress mismatch on sink {name!r} "
-                      f"after kill/resume (clean {len(want)} B, "
-                      f"recovered {len(got)} B)")
-                return 1
-            total += len(want)
-        if total == 0:
-            print("dag-smoke: every sink is empty (vacuous pass)")
+        print(mesh_out.strip())
+        coll = last_checkpoint_snapshot(mesh_stream).get(
+            "collectives") or {}
+        if int(coll.get("bytes") or 0) <= 0:
+            print("dag-smoke: mesh leg's sealed stream carries no "
+                  f"collective bytes (got {coll!r})")
             return 1
     print("dag-smoke: kill-between-sink-commits/resume egress "
           f"byte-identical on all {len(node_names)} sinks on {device}; "
-          "per-node attribution sealed + recovered (mesh leg: ROADMAP "
-          "A12) — OK")
+          "per-node attribution sealed + recovered; mesh collectives "
+          f"accounted ({int(coll['bytes'])} bytes) — OK")
+    return 0
+
+
+def _smoke_children(child, last_checkpoint_snapshot, stream_mod,
+                    node_names, tmp) -> int:
+    """The smoke's clean, killed and resumed children and their gates;
+    0 when every gate holds."""
+    import os
+
+    clean_dir = os.path.join(tmp, "clean")
+    chaos_dir = os.path.join(tmp, "chaos")
+    os.makedirs(clean_dir)
+    os.makedirs(chaos_dir)
+    clean_stream = os.path.join(tmp, "clean.jsonl")
+    p = child(clean_dir, stream=clean_stream)
+    if p.returncode != 0:
+        print("dag-smoke: clean run failed\n" + p.stderr[-2000:])
+        return 1
+    # Attribution gate: the sealed clean stream's final checkpoint
+    # must carry every DAG node's telemetry bucket.
+    snap_nodes = last_checkpoint_snapshot(clean_stream).get(
+        "nodes") or {}
+    missing = sorted(set(node_names) - set(snap_nodes))
+    if missing:
+        print(f"dag-smoke: sealed stream is missing per-node "
+              f"attribution for {missing} (has "
+              f"{sorted(snap_nodes)})")
+        return 1
+    # The between-sink-commits cut: sub-commit #2 of a unit commit.
+    chaos_stream = os.path.join(tmp, "chaos_killed.jsonl")
+    p = child(chaos_dir,
+              plan=[{"point": "dag.commit", "kind": "abort", "at": 2}],
+              stream=chaos_stream)
+    if p.returncode != 137:
+        print(f"dag-smoke: expected the armed child to die with exit "
+              f"137, got {p.returncode}\n" + p.stderr[-2000:])
+        return 1
+    # The killed child's truncated stream must recover with node
+    # blocks intact (a fresh path for the resume: enable truncates).
+    _doc, info = stream_mod.recover(chaos_stream)
+    if not info.get("nodes_recovered"):
+        print("dag-smoke: killed child's stream recovered with no "
+              "per-node attribution")
+        return 1
+    p = child(chaos_dir,
+              stream=os.path.join(tmp, "chaos_resume.jsonl"))
+    if p.returncode != 0:
+        print("dag-smoke: resume run failed\n" + p.stderr[-2000:])
+        return 1
+    total = 0
+    for name in node_names:
+        with open(os.path.join(
+                clean_dir, "egress", f"{name}.csv"), "rb") as f:
+            want = f.read()
+        with open(os.path.join(
+                chaos_dir, "egress", f"{name}.csv"), "rb") as f:
+            got = f.read()
+        if want != got:
+            print(f"dag-smoke: egress mismatch on sink {name!r} "
+                  f"after kill/resume (clean {len(want)} B, "
+                  f"recovered {len(got)} B)")
+            return 1
+        total += len(want)
+    if total == 0:
+        print("dag-smoke: every sink is empty (vacuous pass)")
+        return 1
     return 0
 
 
@@ -1298,7 +1379,7 @@ def main(argv=None) -> int:
                     help="internal: one SNCB DAG run rooted at DIR")
     ap.add_argument("--mesh-child", action="store_true",
                     help="internal: the smoke's sharded collective-"
-                         "accounting leg (ROADMAP A12)")
+                         "accounting leg, on an 8-shard mesh of --device")
     ap.add_argument("--device", default="cuda",
                     help="where the DAG's device nodes run: cuda (the "
                          "default) or cpu")
@@ -1308,7 +1389,7 @@ def main(argv=None) -> int:
         print(f"dag-child: {n} records staged")
         return 0
     if args.mesh_child:
-        return run_mesh_child()
+        return run_mesh_child(device=args.device)
     if args.smoke:
         return chaos_smoke(device=args.device)
     ap.error("pass --smoke (or internal --chaos-child / --mesh-child)")

@@ -818,10 +818,10 @@ def run_chaos_child(workdir: str, device="cuda") -> int:
 
 def run_chaos_sharded_child(workdir: str) -> int:
     """The grid-partitioned (multi-card halo exchange) chaos child waits
-    for the multi-GPU layer."""
+    for the partitioned layer."""
     raise NotImplementedError(
         "run_chaos_sharded_child (the grid-partitioned chaos pipeline) is "
-        "not ported yet: ROADMAP A12")
+        "not ported yet: ROADMAP A12.2")
 
 
 def chaos_smoke(device="cuda") -> int:
@@ -927,7 +927,7 @@ def main(argv=None) -> int:
                     help="internal: one pipeline run rooted at DIR")
     ap.add_argument("--chaos-sharded-child", metavar="DIR", default=None,
                     help="internal: one grid-partitioned pipeline run "
-                         "rooted at DIR (ROADMAP A12)")
+                         "rooted at DIR (ROADMAP A12.2)")
     ap.add_argument("--device", default="cuda",
                     help="where the pipeline runs: cuda (the default) or "
                          "cpu")

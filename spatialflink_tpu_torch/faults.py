@@ -70,7 +70,7 @@ The other points wait for the modules that call them (ROADMAP):
 =====================  ==================================================
 point                  item
 =====================  ==================================================
-``shard.exchange``     A12 (the multi-card halo exchange)
+``shard.exchange``     A12.2 (the multi-card halo exchange)
 =====================  ==================================================
 
 This module imports nothing beyond the stdlib at module scope, so every
@@ -118,7 +118,7 @@ INJECTION_POINTS: Dict[str, str] = {
     "dag.commit": "streams/sinks.py:MultiSink.commit — per-sink append "
                   "inside the atomic unit commit",
     "shard.exchange": "parallel/halo.py — halo exchange dispatch "
-                      "(ROADMAP A12)",
+                      "(ROADMAP A12.2)",
 }
 
 #: Points whose callers implement the cooperative ``partial_write`` kind.

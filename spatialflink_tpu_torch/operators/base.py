@@ -32,6 +32,7 @@ from spatialflink_tpu_torch.grid import UniformGrid
 from spatialflink_tpu_torch.models.batch import GeometryBatch, PointBatch
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.ops.counters import counters
+from spatialflink_tpu_torch.parallel.mesh import require_mesh
 from spatialflink_tpu_torch.operators.query_config import (
     QueryConfiguration,
     QueryType,
@@ -74,14 +75,48 @@ class SpatialOperator:
     """Base: holds the query configuration, the grid, the object-id
     interner and the device the operator's kernels run on (``cuda``
     unless the caller asks for the CPU; a missing card raises, see
-    ``device.py``)."""
+    ``device.py``).
+
+    ``mesh``: an optional ``parallel/mesh.py:Mesh`` with a ``data`` axis.
+    When set (or passed to ``run``), window kernels run sharded over it
+    (``parallel/sharded.py``), the runtime analog of the reference's
+    parallel execution (env.setParallelism, StreamingJob.java:177; conf
+    default 15 at conf/geoflink-conf.yml:55), with the unsharded
+    results: elementwise kernels split the stream axis, kNN merges the
+    shards' per-object digests. Point batches pad to power-of-two
+    buckets (at least 256), so any power-of-two ``data`` axis up to 256
+    divides them (``mesh_from_config`` enforces power-of-two); geometry
+    batches raise their bucket floor to the data-axis size in
+    ``geometry_batch``. Every mesh device must be of the operator's
+    device type (``check_mesh``): a card operator never runs a shard on
+    the CPU."""
 
     def __init__(self, conf: QueryConfiguration, grid: UniformGrid,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.conf = conf
         self.grid = grid
         self.device = resolve_device(device)
+        self.mesh = self.check_mesh(mesh)
         self.interner = Interner()
+
+    def check_mesh(self, mesh):
+        """``mesh`` (None passes), raising ``TypeError`` for anything but
+        a ``parallel/mesh.py:Mesh`` and ``ValueError`` when one of its
+        devices is not of the operator's device type."""
+        if mesh is not None:
+            require_mesh(mesh)
+            bad = [str(d) for d in mesh.devices.flat
+                   if d.type != self.device.type]
+            if bad:
+                raise ValueError(
+                    f"mesh devices {bad} are not {self.device.type} "
+                    f"devices, the operator's")
+        return mesh
+
+    def run_mesh(self, mesh):
+        """The mesh a run executes on: its ``mesh=`` argument, checked,
+        else the operator's."""
+        return self.check_mesh(mesh) if mesh is not None else self.mesh
 
     def _assembler(self) -> WindowAssembler:
         return WindowAssembler(
@@ -160,13 +195,17 @@ class SpatialOperator:
     def geometry_batch(self, events: Sequence[Polygon | LineString],
                        mesh=None) -> GeometryBatch:
         """A window's polygons or linestrings as a float64 host batch
-        (centring and the float32 cast happen at ``device_verts``)."""
+        (centring and the float32 cast happen at ``device_verts``). The
+        bucket floor is 8; under a mesh (``mesh``, else the operator's)
+        the object axis must divide by the data-axis size, so the floor
+        rises to it (buckets are floor·2^k, so they divide by it)."""
+        mesh = self.run_mesh(mesh)
+        bucket = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU geometry batches) is not ported yet: "
-                "ROADMAP A12")
+            data = mesh.shape.get("data", 1)
+            bucket = next_bucket(len(events), minimum=max(8, int(data)))
         return GeometryBatch.from_objects(events, interner=self.interner,
-                                          dtype=np.float64)
+                                          dtype=np.float64, bucket=bucket)
 
     def device_q(self, coords) -> torch.Tensor:
         """Coordinates (any (..., 2) array-like: query points, packed
@@ -314,6 +353,30 @@ def jitted(fn, label: Optional[str] = None):
     program, so an ablation spec or a ledger names one kernel in both
     packages. Cached, so each program has one wrapper."""
     return instrument_jit(fn, name=label or fn.__name__)
+
+
+def window_program(mesh, kernel, data_idx, n_args, topk=False, reduce=False,
+                   label: Optional[str] = None, **statics):
+    """Mesh-or-single dispatch for a fused window kernel: a callable of
+    the kernel's positional arguments.
+
+    With a mesh: the same kernel sharded over the ``data`` axis
+    (``parallel/sharded.py:sharded_window_kernel``; topk kernels merge
+    per-object digests, reduce kernels combine their segment tables,
+    elementwise kernels stay sharded), instrumented as
+    ``sharded:<kernel>``, the JAX package's label. Without: ``jitted``
+    under ``label`` (by default the kernel's name) with the statics
+    bound. Every operator's mesh path goes through here, so an
+    execution mode lands in one place."""
+    if mesh is not None:
+        from spatialflink_tpu_torch.parallel.sharded import (
+            sharded_window_kernel,
+        )
+
+        prog = sharded_window_kernel(mesh, kernel, data_idx, n_args,
+                                     topk=topk, reduce=reduce, **statics)
+        return instrument_jit(prog, name=f"sharded:{kernel.__name__}")
+    return functools.partial(jitted(kernel, label), **statics)
 
 
 def ship(*arrays, device: torch.device,

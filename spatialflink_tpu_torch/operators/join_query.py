@@ -106,12 +106,6 @@ def _centered_bbox(grid, bbox: np.ndarray, dtype=np.float32,
     return np.concatenate([mins, maxs], axis=1)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU join) is not ported yet: ROADMAP A12")
-
-
 @dataclass
 class JoinWindowResult:
     start: int
@@ -141,13 +135,32 @@ class _TaggedEvent:
 
 
 def grid_hash_join_batches(grid, left_batch, right_batch, radius, cap,
-                           max_pairs, device, filter_radius=None):
+                           max_pairs, device, filter_radius=None, mesh=None):
     """The grid-hash join of two cell-assigned ``PointBatch``es on
     ``device``: centred float32 lanes shipped, bucketed and joined
     (``join_window``). ``filter_radius`` (default ``radius``) is the
     distance predicate; approximate joins pass ``inf`` while the
-    candidate neighbourhood stays that of the true radius."""
+    candidate neighbourhood stays that of the true radius. ``mesh``: the
+    left side shards over its ``data`` axis and the right side
+    replicates (``parallel/sharded.py:sharded_join_window_compact``,
+    the same result contract: a shard past its share of the budget
+    inflates ``count``, so the caller's retry fires)."""
     fr = radius if filter_radius is None else filter_radius
+    if mesh is not None:
+        from spatialflink_tpu_torch.parallel.sharded import (
+            sharded_join_window_compact,
+        )
+
+        left_in_grid = left_batch.valid & (left_batch.cell < grid.num_cells)
+        lanes = ship(
+            center_coords(grid, left_batch.xy), left_in_grid,
+            grid.cell_xy_indices_np(left_batch.xy),
+            center_coords(grid, right_batch.xy), right_batch.valid,
+            right_batch.cell, device=device,
+        ).arrive()
+        return sharded_join_window_compact(
+            mesh, *lanes, grid.neighbor_offsets(radius), grid_n=grid.n,
+            radius=fr, cap=cap, max_pairs=max_pairs)
     lxy, lv, lc, rxy, rv, rc = ship(
         center_coords(grid, left_batch.xy), left_batch.valid,
         left_batch.cell, center_coords(grid, right_batch.xy),
@@ -180,8 +193,7 @@ class PointPointJoinQuery(SpatialOperator):
     def __init__(self, conf, grid, cap: int = 64,
                  join_backend: Optional[str] = None, device="cuda",
                  pair_budget: int = 0, soa_state=None, mesh=None):
-        _no_mesh(mesh)
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
         check_join_backend(join_backend, self.device.type)
         self.cap = cap
         self.join_backend = join_backend
@@ -218,8 +230,10 @@ class PointPointJoinQuery(SpatialOperator):
         point, right point, float32 distance), in the kernel's output
         order for the grid join and left-major for RealTimeNaive.
         ``dtype`` is accepted for the JAX signature: the port computes in
-        float32."""
-        _no_mesh(mesh)
+        float32. ``mesh`` (default the operator's): the grid join shards
+        the left side over its ``data`` axis (each shard through B3 on the
+        card); the pairs are the unsharded run's as a set."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -262,7 +276,7 @@ class PointPointJoinQuery(SpatialOperator):
                     overflow = int(res.overflow)
                 else:
                     li, ri, dd, overflow = self._compact_block(lb, rb,
-                                                               radius)
+                                                               radius, mesh)
                 pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
                          for a, b, d in zip(li, ri, dd)]
                 return JoinWindowResult(win.start, win.end, pairs, overflow,
@@ -308,7 +322,7 @@ class PointPointJoinQuery(SpatialOperator):
 
         return process
 
-    def _compact_block(self, lb, rb, radius):
+    def _compact_block(self, lb, rb, radius, mesh=None):
         """One bucketed join with the persistent-budget retry: a window
         whose pair count exceeds the budget reruns once with the next
         power of two of its count, and the grown budget persists across
@@ -320,6 +334,7 @@ class PointPointJoinQuery(SpatialOperator):
             res = grid_hash_join_batches(
                 self.grid, lb, rb, radius, self.cap, self._max_pairs,
                 self.device, filter_radius=self._filter_radius(radius),
+                mesh=mesh,
             )
             count = int(res.count)
             if count <= self._max_pairs:
@@ -558,6 +573,35 @@ class _PrunedGeomJoinRetry:
         keep = li >= 0
         return li[keep], ri[keep], dd[keep]
 
+    def _sharded_block_pairs(self, call, m_cap: int):
+        """The mesh form of ``_pruned_block_pairs``, the JAX package's
+        loop: ``call(cand, pair_cap, max_pairs)`` → the sharded
+        ``PrunedJoinPairs``, whose ``count`` is a per-shard vector
+        (``max_pairs`` is per shard). The same three budgets grow in the
+        same order; returns host (left_idx, right_idx, dist), the
+        −1-padded tails of the per-shard segments dropped."""
+        while True:
+            cand = min(self._cand, m_cap)
+            pair_cap = min(self._pair_cap, cand)
+            res = call(cand, pair_cap, self._geom_max_pairs)
+            worst, cand_over, pair_over = torch.stack(
+                [res.count.max(), res.cand_overflow,
+                 res.pair_overflow]).tolist()
+            if worst > self._geom_max_pairs:
+                self._geom_max_pairs = int(2 ** np.ceil(np.log2(worst)))
+                continue
+            if cand_over > 0 and cand < m_cap:
+                self._cand = min(self._cand * 2, m_cap)
+                continue
+            if pair_over > 0 and pair_cap < cand:
+                self._pair_cap = min(self._pair_cap * 2, m_cap)
+                continue
+            break
+        li, ri, dd = telemetry.fetch((res.left_index, res.right_index,
+                                      res.dist))
+        keep = li >= 0
+        return li[keep], ri[keep], dd[keep]
+
 
 def _empty_soa():
     """A one-sided window's arrays, as the JAX package yields them."""
@@ -602,8 +646,7 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
     approx_emit_all = True
 
     def __init__(self, conf, grid, device="cuda", mesh=None):
-        _no_mesh(mesh)
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
 
     def _approx_cell_space(self, cells_sorted, valid_sorted, gb, radius):
         """Kernel inputs of the emit-all mode: the points' (xi, yi) cell
@@ -656,8 +699,19 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         return (pxy, pv, self.device_verts(gb.verts), gev, gvalid,
                 gbbox), radius
 
-    def _pairs(self, args, r_call, capacity: int):
+    def _pairs(self, args, r_call, capacity: int, mesh=None):
         approx = self.conf.approximate_query
+        if mesh is not None:
+            from spatialflink_tpu_torch.parallel.sharded import (
+                sharded_point_geometry_join_pruned,
+            )
+
+            return self._sharded_block_pairs(
+                lambda cand, pair_cap, mp: sharded_point_geometry_join_pruned(
+                    mesh, *args, r_call, polygonal=self.polygonal,
+                    block=self._point_block, cand=cand, max_pairs=mp,
+                    pair_cap=pair_cap, approx=approx),
+                capacity)
         return self._pruned_block_pairs(
             lambda cand: point_geometry_join_masks(
                 *args, r_call, polygonal=self.polygonal,
@@ -675,8 +729,12 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         """One ``JoinWindowResult`` per fired window: (point, geometry,
         float32 distance) pairs, each point's matches by ascending
         geometry index, the points in cell order. ``dtype`` is accepted
-        for the JAX signature: the port computes in float32."""
-        _no_mesh(mesh)
+        for the JAX signature: the port computes in float32. ``mesh``
+        (default the operator's): the cell-sorted points shard
+        contiguously over its ``data`` axis, the geometries replicate
+        (``sharded_point_geometry_join_pruned``); the pairs are the
+        unsharded run's as a set, each shard's in its own order."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -695,7 +753,7 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
             args, r_call = self._point_side_args(
                 lambda: center_coords(self.grid, lb.xy[ho]), lb.valid[ho],
                 lb.cell[ho], gb, radius)
-            li, ri, dd = self._pairs(args, r_call, gb.capacity)
+            li, ri, dd = self._pairs(args, r_call, gb.capacity, mesh)
             pairs = [(left_ev[int(ho[int(a)])], right_ev[int(b)], float(d))
                      for a, b, d in zip(li, ri, dd)]
             yield JoinWindowResult(win.start, win.end, pairs, 0,
@@ -757,8 +815,7 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
     _geom_block = 32
 
     def __init__(self, conf, grid, device="cuda", mesh=None):
-        _no_mesh(mesh)
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
 
     def _window_args(self, la, ra):
         """(ho, kernel arguments on the device): the host locality sort of
@@ -792,11 +849,27 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         return ho, (self.device_verts(la.verts[ho]), aev, av, ab,
                     self.device_verts(ra.verts), bev, bv, bb)
 
-    def _window_pairs(self, la, ra, radius):
+    def _window_pairs(self, la, ra, radius, mesh=None):
         """The pruned kernel over one window's batches; returns input-index
-        pairs (left_idx int32, right_idx, dist)."""
+        pairs (left_idx int32, right_idx, dist). With ``mesh``, the
+        sorted left side shards contiguously over ``data`` (locality
+        kept), the right side replicates."""
         ho, args = self._window_args(la, ra)
         approx = self.conf.approximate_query
+        if mesh is not None:
+            from spatialflink_tpu_torch.parallel.sharded import (
+                sharded_geometry_geometry_join_pruned,
+            )
+
+            li, ri, dd = self._sharded_block_pairs(
+                lambda cand, pair_cap, mp:
+                sharded_geometry_geometry_join_pruned(
+                    mesh, *args, radius, a_polygonal=self.left_polygonal,
+                    b_polygonal=self.right_polygonal,
+                    block=self._geom_block, cand=cand, max_pairs=mp,
+                    pair_cap=pair_cap, approx=approx),
+                ra.capacity)
+            return ho[li].astype(np.int32), ri, dd
         li, ri, dd = self._pruned_block_pairs(
             lambda cand: geometry_geometry_join_masks(
                 *args, radius, a_polygonal=self.left_polygonal,
@@ -815,8 +888,10 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
     ) -> Iterator[JoinWindowResult]:
         """One ``JoinWindowResult`` per fired window: (left, right,
         float32 distance) pairs. ``dtype`` is accepted for the JAX
-        signature."""
-        _no_mesh(mesh)
+        signature. ``mesh`` (default the operator's): the left side
+        shards over its ``data`` axis; the pairs are the unsharded run's
+        as a set."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -828,9 +903,9 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
                 yield JoinWindowResult(win.start, win.end, [], 0,
                                        len(win.events))
                 continue
-            li, ri, dd = self._window_pairs(self.geometry_batch(left_ev),
-                                            self.geometry_batch(right_ev),
-                                            radius)
+            li, ri, dd = self._window_pairs(
+                self.geometry_batch(left_ev, mesh=mesh),
+                self.geometry_batch(right_ev), radius, mesh)
             pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
                      for a, b, d in zip(li, ri, dd)]
             yield JoinWindowResult(win.start, win.end, pairs, 0,

@@ -48,6 +48,7 @@ from spatialflink_tpu_torch.operators.base import (
     pack_query_geometries,
     ship,
     soa_point_batches,
+    window_program,
 )
 from spatialflink_tpu_torch.operators.join_query import _centered_bbox
 from spatialflink_tpu_torch.operators.query_config import QueryType
@@ -113,10 +114,7 @@ class _PointStreamKNNQuery(SpatialOperator):
     query_kind = "point"
 
     def __init__(self, conf, grid, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
 
     def _packed_query(self, query_obj):
         """Query vertices and edge mask for the distance evaluation.
@@ -152,10 +150,11 @@ class _PointStreamKNNQuery(SpatialOperator):
         far, bucketed to a power of two of at least 64; ``k`` above it
         raises ``ValueError`` in that window, as the reference's top-k
         does. ``dtype`` is accepted for the JAX signature: the port
-        computes in float32."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        computes in float32. ``mesh`` (default the operator's): each
+        window's points shard over its ``data`` axis, each shard digests
+        its points and the digests merge before the one top-k, with the
+        unsharded result."""
+        mesh = self.run_mesh(mesh)
         flags = flags_for_queries(self.grid, radius, [query_obj])
         from spatialflink_tpu_torch.driver import strict_driver
 
@@ -168,14 +167,21 @@ class _PointStreamKNNQuery(SpatialOperator):
             (flags_d,) = ship(flags, device=self.device).arrive()
             if self.query_kind == "point":
                 query = (self.device_q([query_obj.x, query_obj.y]),)
-                kernel = jitted(knn_points_fused)
+                fused = knn_points_fused
             else:
                 verts, ev = self._packed_query(query_obj)
                 query = (self.device_verts(verts),
                          *ship(ev, device=self.device).arrive())
-                kernel = jitted(knn_polygon_fused
-                                if self.query_kind == "polygon"
-                                else knn_polyline_fused)
+                fused = (knn_polygon_fused if self.query_kind == "polygon"
+                         else knn_polyline_fused)
+            kernel = jitted(fused)
+
+            def compute(lanes, nseg):
+                if mesh is None:
+                    return kernel(*lanes, *query, radius, k, nseg)
+                return window_program(
+                    mesh, fused, (0, 1, 2, 4), 6 + len(query), topk=True,
+                    k=k, num_segments=nseg)(*lanes, *query, radius)
 
             def process(win) -> KnnWindowResult:
                 # Telemetry phases per window: assemble (host batch) →
@@ -198,8 +204,8 @@ class _PointStreamKNNQuery(SpatialOperator):
                             batch.cell, batch.oid,
                             device=self.device).arrive()
                     with telemetry.span("compute"):
-                        res = kernel(xy_d, valid_d, cell_d, flags_d, oid_d,
-                                     *query, radius, k, nseg)
+                        res = compute((xy_d, valid_d, cell_d, flags_d,
+                                       oid_d), nseg)
                     return self._decode(win, res)
 
         fallback = None
@@ -447,16 +453,26 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         flag table, so each query's result equals ``run()`` with that
         query alone. The batch is padded to ``next_bucket(nq, minimum=8)``
         queries with zero flag tables (empty results, dropped) and taken
-        in chunks of ``min(padded, 32)``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
+        in chunks of ``min(padded, 32)``.
+
+        ``mesh=`` (default the operator's): points shard over ``data``; a
+        2-D mesh also splits the query batch and its flag tables over
+        ``query`` (``parallel/sharded.py:sharded_knn_multi``), with the
+        unsharded results; the padded batch rounds up to a multiple of
+        the query axis."""
+        mesh = self.run_mesh(mesh)
         nq = len(query_points)
         if nq == 0:
             return
         tables = np.stack([flags_for_queries(self.grid, radius, [q])
                            for q in query_points])
         qb = next_bucket(nq, minimum=8)
+        if mesh is not None:
+            # The padded query count must divide by the query axis (which
+            # need not be a power of two: round up to a multiple).
+            qa = int(mesh.shape.get("query", 1))
+            if qb % qa:
+                qb = ((qb // qa) + 1) * qa
         block = min(qb, 32)
         tables = pad_to_bucket(tables, qb)
         qxy = pad_to_bucket(
@@ -471,8 +487,17 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
             xy_d, valid_d, cell_d, oid_d = ship(
                 center_coords(self.grid, batch.xy), batch.valid, batch.cell,
                 batch.oid, device=self.device).arrive()
-            res = kernel(xy_d, valid_d, cell_d, tables_d, oid_d, q_d, radius,
-                         k, nseg, query_block=block)
+            if mesh is not None:
+                from spatialflink_tpu_torch.parallel.sharded import (
+                    sharded_knn_multi,
+                )
+
+                res = sharded_knn_multi(mesh, xy_d, valid_d, cell_d,
+                                        tables_d, oid_d, q_d, radius, k=k,
+                                        num_segments=nseg)
+            else:
+                res = kernel(xy_d, valid_d, cell_d, tables_d, oid_d, q_d,
+                             radius, k, nseg, query_block=block)
             segs, dists, idxs, nvs = telemetry.fetch(  # (Q, k) bulk fetches
                 (res.segment, res.dist, res.index, res.num_valid))
             per_query = []
@@ -938,10 +963,7 @@ class _GeometryStreamKNNQuery(SpatialOperator):
     stream_polygonal = True  # Polygon* classes; LineString* override
 
     def __init__(self, conf, grid, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
 
     def _device_query_bbox(self, query_obj, dtype=np.float64):
         """The query's bbox, centred, on the device, for approximate mode
@@ -963,11 +985,12 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         verts, ev = pack_query_geometries([query_obj])
         return verts[0], ev[0], isinstance(query_obj, Polygon)
 
-    def _window_evaluator(self, query_obj, radius, k):
+    def _window_evaluator(self, query_obj, radius, k, mesh=None):
         """``eval(batch, nseg) -> KnnResult`` for a ``GeometryBatch``: the
         query packed and shipped once, the per-object flags from the
         prefix planes of its flag table (shared by ``run`` and
-        ``run_soa``)."""
+        ``run_soa``); on a ``mesh`` the objects shard over its ``data``
+        axis (``window_program``)."""
         dev = self.device
         flags = flags_for_queries(self.grid, radius, [query_obj])
         prefix = flag_prefix_planes(self.grid, flags)
@@ -985,16 +1008,20 @@ class _GeometryStreamKNNQuery(SpatialOperator):
                 bb_d, valid_d, oflags_d, oid_d = ship(
                     _centered_bbox(self.grid, batch.bbox, pad=False),
                     batch.valid, oflags, batch.oid, device=dev).arrive()
-                return jitted(knn_geometry_bbox_kernel)(
-                    bb_d, valid_d, oflags_d, oid_d, qbb, radius, k, nseg)
+                return window_program(
+                    mesh, knn_geometry_bbox_kernel, (0, 1, 2, 3), 6,
+                    topk=True, k=k, num_segments=nseg,
+                )(bb_d, valid_d, oflags_d, oid_d, qbb, radius)
             ev_d, valid_d, oflags_d, oid_d = ship(
                 batch.edge_valid, batch.valid, oflags, batch.oid,
                 device=dev).arrive()
-            return jitted(knn_geometry_query_kernel)(
-                self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
-                oid_d, qv, qe, radius, k, nseg,
+            return window_program(
+                mesh, knn_geometry_query_kernel, (0, 1, 2, 3, 4), 8,
+                topk=True, k=k, num_segments=nseg,
                 obj_polygonal=self.stream_polygonal,
-                query_polygonal=query_polygonal)
+                query_polygonal=query_polygonal,
+            )(self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
+              oid_d, qv, qe, radius)
 
         return evaluate
 
@@ -1006,13 +1033,12 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         CountBased). A window's segment count is the interned objIDs so
         far, bucketed to a power of two of at least 64; ``k`` above it
         raises ``ValueError`` in that window, as the reference's top-k
-        does."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU kNN) is not ported yet: ROADMAP A12")
-        evaluate = self._window_evaluator(query_obj, radius, k)
+        does. ``mesh`` (default the operator's): the objects shard over
+        its ``data`` axis, with the unsharded result."""
+        mesh = self.run_mesh(mesh)
+        evaluate = self._window_evaluator(query_obj, radius, k, mesh)
         for win in self.windows(stream):
-            batch = self.geometry_batch(win.events)
+            batch = self.geometry_batch(win.events, mesh=mesh)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             res = evaluate(batch, nseg)

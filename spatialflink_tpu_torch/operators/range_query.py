@@ -38,6 +38,7 @@ from spatialflink_tpu_torch.operators.base import (
     pack_query_points,
     ship,
     soa_point_batches,
+    window_program,
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.ops.counters import count_candidates, counters
@@ -79,16 +80,13 @@ class _PointStreamRangeQuery(SpatialOperator):
     def __init__(self, conf, grid, device="cuda", mesh=None,
                  ncand: Optional[int] = None,
                  cand_budget: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
         if ncand is not None:
             self._ncand = int(ncand)
         if cand_budget is not None:
             self._cand_budget = int(cand_budget)
 
-    def _window_evaluator(self, query_set, flags, radius):
+    def _window_evaluator(self, query_set, flags, radius, mesh=None):
         """``eval(common) -> (keep, dist)`` for this family's query kind,
         ``common = (xy, valid, cell, flags_table)`` on the device: the one
         place of kernel selection, query packing and the pruned paths'
@@ -97,26 +95,29 @@ class _PointStreamRangeQuery(SpatialOperator):
         Polygons: exact-mode sets of 64 or more take bbox-candidate
         pruning; with a flag occupancy under 25% the candidate lanes are
         compacted first. Approximate mode stays dense: its keep set ignores
-        distances, so pruned minima would differ on kept lanes."""
+        distances, so pruned minima would differ on kept lanes. On a
+        ``mesh`` every kind runs its dense kernel sharded over the points
+        (``window_program``), as in the JAX package."""
         approx = self.conf.approximate_query
         if self.query_kind == "point":
             q = self.device_q(pack_query_points(query_set))
-            pk = jitted(range_points_fused)
-            return lambda common: pk(*common, q, radius, approximate=approx)
+            pk = window_program(mesh, range_points_fused, (0, 1, 2), 6,
+                                approximate=approx)
+            return lambda common: pk(*common, q, radius)
 
         verts, ev = pack_query_geometries(query_set)
         qv = self.device_q(verts)
         (qe,) = ship(ev, device=self.device).arrive()
         if self.query_kind == "linestring":
-            lk = jitted(range_polylines_fused)
-            return lambda common: lk(*common, qv, qe, radius,
-                                     approximate=approx)
+            lk = window_program(mesh, range_polylines_fused, (0, 1, 2), 7,
+                                approximate=approx)
+            return lambda common: lk(*common, qv, qe, radius)
 
         nq = len(query_set)
-        if nq < 64 or approx:
-            polyk = jitted(range_polygons_fused)
-            return lambda common: polyk(*common, qv, qe, radius,
-                                        approximate=approx)
+        if nq < 64 or approx or mesh is not None:
+            polyk = window_program(mesh, range_polygons_fused, (0, 1, 2), 7,
+                                   approximate=approx)
+            return lambda common: polyk(*common, qv, qe, radius)
 
         use_compact = float((flags > 0).mean()) < 0.25
         if use_compact and not hasattr(self, "_cand_budget"):
@@ -160,10 +161,10 @@ class _PointStreamRangeQuery(SpatialOperator):
         twin (polygon and linestring sets have none and stay strict).
         Without one, ``strict_driver()`` gives the plain window loop:
         errors propagate, nothing retries or degrades. ``dtype`` is
-        accepted for the JAX signature: the port computes in float32."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
+        accepted for the JAX signature: the port computes in float32.
+        ``mesh`` (default the operator's): the window kernels run sharded
+        over its ``data`` axis, with the unsharded results."""
+        mesh = self.run_mesh(mesh)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         flags = flags_for_queries(self.grid, radius, query_set)
@@ -176,7 +177,8 @@ class _PointStreamRangeQuery(SpatialOperator):
         evaluate = flags_d = None
         if drv.backend == "device":
             (flags_d,) = ship(flags, device=self.device).arrive()
-            evaluate = self._window_evaluator(query_set, flags, radius)
+            evaluate = self._window_evaluator(query_set, flags, radius,
+                                              mesh)
 
         def dispatch(win):
             # assemble → ship → compute phase spans (see knn_query.run).
@@ -262,7 +264,7 @@ class _PointStreamRangeQuery(SpatialOperator):
     def run_partitioned(self, *args, **kwargs):
         raise NotImplementedError(
             "run_partitioned (grid-partitioned multi-GPU range) is not "
-            "ported yet: ROADMAP A12")
+            "ported yet: ROADMAP A12.2")
 
     def run_soa(self, chunks, query_set, radius: float, dtype=np.float64):
         """High-rate SoA path: chunks of {"ts", "x", "y", ...} arrays → per
@@ -369,10 +371,7 @@ class _GeometryStreamRangeQuery(SpatialOperator):
     stream_polygonal = True
 
     def __init__(self, conf, grid, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
 
     def _kernel_statics(self):
         return dict(
@@ -390,18 +389,19 @@ class _GeometryStreamRangeQuery(SpatialOperator):
                     np.ones((len(query_set), 1), bool))
         return pack_query_geometries(query_set)
 
-    def _window_evaluator(self, query_set, radius):
+    def _window_evaluator(self, query_set, radius, mesh=None):
         """``eval(batch) -> (keep, dist)`` host arrays for a
         ``GeometryBatch``: the query set packed and shipped once, the
         per-object flags from the prefix planes of its flag table (shared
-        by ``run`` and ``run_soa``)."""
+        by ``run`` and ``run_soa``); on a ``mesh`` the objects shard over
+        its ``data`` axis."""
         flags = flags_for_queries(self.grid, radius, query_set)
         prefix = flag_prefix_planes(self.grid, flags)
         qverts, qev = self._query_arrays(query_set)
         qv = self.device_verts(qverts)
         (qe,) = ship(qev, device=self.device).arrive()
-        statics = self._kernel_statics()
-        gk = jitted(geometry_range_query_kernel)
+        gk = window_program(mesh, geometry_range_query_kernel, (0, 1, 2, 3),
+                            7, **self._kernel_statics())
 
         def evaluate(batch: GeometryBatch):
             oflags = batch.any_cell_flagged(self.grid, flags, prefix=prefix)
@@ -409,7 +409,7 @@ class _GeometryStreamRangeQuery(SpatialOperator):
                 batch.edge_valid, batch.valid, oflags,
                 device=self.device).arrive()
             keep, dist = gk(self.device_verts(batch.verts), ev_d, valid_d,
-                            oflags_d, qv, qe, radius, **statics)
+                            oflags_d, qv, qe, radius)
             return telemetry.fetch((keep, dist))
 
         return evaluate
@@ -419,17 +419,17 @@ class _GeometryStreamRangeQuery(SpatialOperator):
         """One ``RangeResult`` per fired window of ``Polygon`` or
         ``LineString`` objects (WindowBased, RealTime micro-batches,
         CountBased). ``dtype`` is accepted for the JAX signature: the port
-        computes in float32."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU range) is not ported yet: ROADMAP A12")
+        computes in float32. ``mesh`` (default the operator's): the
+        objects shard over its ``data`` axis."""
+        mesh = self.run_mesh(mesh)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
-        evaluate = self._window_evaluator(query_set, radius)
+        evaluate = self._window_evaluator(query_set, radius, mesh)
         for win in self.windows(stream):
             with telemetry.span("window.range_geometry", start=win.start,
                                 events=len(win.events)):
-                keep, dist = evaluate(self.geometry_batch(win.events))
+                keep, dist = evaluate(self.geometry_batch(win.events,
+                                                          mesh=mesh))
                 idx = np.nonzero(keep)[0]
                 out = RangeResult(win.start, win.end,
                                   [win.events[i] for i in idx], dist[idx],

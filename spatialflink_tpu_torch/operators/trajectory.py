@@ -25,8 +25,12 @@ sub-trajectory LineStrings, per-cell aggregates, per-trajectory stats.
 ``TStatsQuery.run`` and ``TJoinQuery.run_soa_panes`` go through the
 dataflow driver (``driver.py``), as the JAX operators do;
 ``run_soa_panes(backend="native")`` runs the JAX package's C++ engine
-(``native.py:tjoin_panes_native``) on the host. Not ported: ``mesh=``
-(A12) raises ``NotImplementedError``. The JAX
+(``native.py:tjoin_panes_native``) on the host. ``mesh=`` runs each
+family's window program sharded (``parallel/sharded.py``): tRange's hit
+flags and tAggregate's spans combine across shards, tKnn merges
+per-object digests, tStats exchanges a one-point halo, tJoin's point
+join shards its left side and the pane-carry tJoin probes its panes in
+slices. The JAX
 ``run_soa``'s ``join_window_bucketed`` branch and its 524,288-pair cap
 are TPU VMEM fallbacks and have no counterpart: on the card B3 writes
 to HBM.
@@ -53,12 +57,12 @@ from spatialflink_tpu_torch.operators.base import (
     pack_query_geometries,
     ship,
     soa_point_batches,
+    window_program,
 )
 from spatialflink_tpu_torch.operators.join_query import (
     JOIN_LABEL,
     _TaggedEvent,
     _aligned_soa_windows,
-    _no_mesh,
     grid_hash_join_batches,
     merge_by_timestamp,
 )
@@ -94,7 +98,7 @@ def _grown(count: int) -> int:
 
 def tjoin_pane_fields(grid, ts: np.ndarray, x: np.ndarray, y: np.ndarray,
                       oid: np.ndarray, slide_ms: int, p_first: int,
-                      n_slides: int):
+                      n_slides: int, mesh=None):
     """One side's events → the engine's per-pane fields on the host.
 
     Events go to pane ``ts // slide_ms - p_first`` (rebased to 0: absolute
@@ -104,13 +108,18 @@ def tjoin_pane_fields(grid, ts: np.ndarray, x: np.ndarray, y: np.ndarray,
     float32 coordinates (``center_coords``), int32 cell indices and
     ``pane_cell_ranks``, out-of-grid events invalid in cell 0; the event
     count of each pane; (pane, cell) of the in-grid events, the input of
-    ``ops/compaction.py:max_window_cell_count``)."""
+    ``ops/compaction.py:max_window_cell_count``). Under a ``mesh`` the
+    capacity rounds up to a multiple of its ``data`` axis, over which
+    the pane points shard."""
     pane = (ts // slide_ms - p_first).astype(np.int64)
     order = np.argsort(pane, kind="stable")
     pane_s = pane[order]
     counts = np.bincount(pane_s, minlength=n_slides).astype(np.int64)
     pc = int(next_bucket(max(int(counts.max()) if len(counts) else 1, 1),
                          minimum=8))
+    if mesh is not None:
+        nd = int(mesh.shape["data"])
+        pc = -(-pc // nd) * nd
     starts = np.concatenate([[0], np.cumsum(counts)])
     lane = np.arange(len(ts)) - starts[pane_s]
     cxy = center_coords(grid, np.stack([x, y], axis=1))
@@ -150,8 +159,7 @@ def group_by_oid(events: Sequence[Point]) -> Dict[str, List[Point]]:
 
 class _TrajectoryOperator(SpatialOperator):
     def __init__(self, conf, grid, device="cuda", mesh=None):
-        _no_mesh(mesh)
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
 
     def _window_lanes(self, batch: PointBatch):
         """A point batch's centred float32 xy, valid, cell and oid lanes
@@ -186,16 +194,19 @@ class TRangeQuery(_TrajectoryOperator):
     def run(self, stream: Iterable[Point], query_polygons: Sequence[Polygon],
             dtype=np.float64, mesh=None) -> Iterator[TRangeResult]:
         """One ``TRangeResult`` per fired window. ``dtype`` is accepted for
-        the JAX signature: the port computes in float32."""
-        _no_mesh(mesh)
+        the JAX signature: the port computes in float32. ``mesh``
+        (default the operator's): the points shard over its ``data``
+        axis and the per-trajectory hit flags combine (JAX's ``pmax``)."""
+        mesh = self.run_mesh(mesh)
         qv, qe = self._queries(query_polygons)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             xy, valid, _, oid = self._window_lanes(batch)
-            hits = telemetry.fetch(jitted(traj_range_hits_fused)(
-                xy, valid, oid, qv, qe, nseg))
+            hits = telemetry.fetch(window_program(
+                mesh, traj_range_hits_fused, (0, 1, 2), 5, reduce=True,
+                num_segments=nseg)(xy, valid, oid, qv, qe))
             out = [
                 sub_trajectory(evs, oid_str, win.start)
                 for oid_str, evs in group_by_oid(win.events).items()
@@ -249,15 +260,19 @@ class TKNNQuery(_TrajectoryOperator):
 
     def run(self, stream: Iterable[Point], query_point: Point, radius: float,
             k: int, dtype=np.float64, mesh=None) -> Iterator[TKnnResult]:
-        _no_mesh(mesh)
+        """One ``TKnnResult`` per fired window. ``mesh`` (default the
+        operator's): the points shard over its ``data`` axis and the
+        per-trajectory digests merge before the top-k."""
+        mesh = self.run_mesh(mesh)
         flags_d, q = self._query(query_point, radius)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             xy, valid, cell, oid = self._window_lanes(batch)
-            res = jitted(knn_points_fused)(xy, valid, cell, flags_d, oid, q,
-                                           radius, k, nseg)
+            res = window_program(
+                mesh, knn_points_fused, (0, 1, 2, 4), 7, topk=True, k=k,
+                num_segments=nseg)(xy, valid, cell, flags_d, oid, q, radius)
             nv = int(telemetry.fetch(res.num_valid))
             segs, dists = telemetry.fetch((res.segment[:nv], res.dist[:nv]))
             groups = group_by_oid(win.events)
@@ -342,8 +357,10 @@ class _PaneScan:
     the wrong ones); the rows equal the one scan's."""
 
     def __init__(self, device, lfields, rfields, radius, grid_n: int,
-                 layers: int, ppw: int, num_ids: int):
-        self.device = device
+                 layers: int, ppw: int, num_ids: int, mesh=None):
+        # A mesh scan keeps its carry on the mesh's first device.
+        self.device = device if mesh is None else mesh.devices.flat[0]
+        self.mesh = mesh
         self.fields = (lfields, rfields)
         self.n_slides = lfields[0].shape[0]
         self.radius, self.grid_n, self.layers = radius, grid_n, layers
@@ -356,12 +373,25 @@ class _PaneScan:
                                 self.num_ids, device=self.device)
         args = (self.radius, self.grid_n, cap_w, self.layers, self.ppw,
                 self.num_ids, pair_sel, cap_c)
-        if self.pol is None or self.n_slides <= 1:
+        if self.pol is None or self.n_slides <= 1 or self.mesh is not None:
+            # A mesh scan is one monolithic probe-parallel scan, as in
+            # the JAX package.
             if self._shipped is None:
                 self._shipped = [ship(*f, device=self.device).arrive()
                                  for f in self.fields]
-            carry, wmins = jitted(tjoin_pane_scan)(
-                carry, range(self.n_slides), *self._shipped, *args)
+            if self.mesh is not None:
+                from spatialflink_tpu_torch.parallel.sharded import (
+                    sharded_tjoin_pane_scan,
+                )
+
+                carry, wmins = sharded_tjoin_pane_scan(
+                    self.mesh, carry, range(self.n_slides), *self._shipped,
+                    self.radius, grid_n=self.grid_n, cap_w=cap_w,
+                    layers=self.layers, ppw=self.ppw, num_ids=self.num_ids,
+                    pair_sel=pair_sel, cap_c=cap_c)
+            else:
+                carry, wmins = jitted(tjoin_pane_scan)(
+                    carry, range(self.n_slides), *self._shipped, *args)
             wmins = telemetry.fetch(wmins)
         else:
             carry, wmins = self._segmented(carry, args)  # fetched there
@@ -465,8 +495,10 @@ class TJoinQuery(_TrajectoryOperator):
             mesh=None) -> Iterator[TJoinResult]:
         """One ``TJoinResult`` per fired window of the two merged streams,
         pairs sorted by (left objID, right objID, distance). ``dtype`` is
-        accepted for the JAX signature: the port computes in float32."""
-        _no_mesh(mesh)
+        accepted for the JAX signature: the port computes in float32.
+        ``mesh`` (default the operator's): the point join shards the left
+        side over its ``data`` axis (``grid_hash_join_batches``)."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(stream, query_stream)
@@ -485,7 +517,7 @@ class TJoinQuery(_TrajectoryOperator):
             while True:
                 res = grid_hash_join_batches(
                     self.grid, lb, rb, radius, self.cap, self._max_pairs,
-                    self.device)
+                    self.device, mesh=mesh)
                 count = int(res.count)
                 if count <= self._max_pairs:
                     break
@@ -581,7 +613,7 @@ class TJoinQuery(_TrajectoryOperator):
 
     def _device_pane_scan(self, lfields, rfields, locc, rocc, radius,
                           layers, ppw, num_segments, cap_w, pair_sel,
-                          cap_c):
+                          cap_c, mesh=None):
         """``run_soa_panes``' device engine: the compacted probe's
         capacity planned on the host (``cap_c=None``), then the scan,
         again with a grown budget whenever a counter overflowed. Records
@@ -598,7 +630,7 @@ class TJoinQuery(_TrajectoryOperator):
             telemetry.record_compaction("tjoin_pane_scan", cap_c, occ)
         self.pane_occupancy, self.pane_scans = occ, []
         scan = _PaneScan(self.device, lfields, rfields, radius, self.grid.n,
-                         layers, ppw, num_segments)
+                         layers, ppw, num_segments, mesh=mesh)
         while True:
             cap_over, sel_over, cmp_over, wmins = scan.run(
                 cap_w, pair_sel, cap_c)
@@ -665,11 +697,15 @@ class TJoinQuery(_TrajectoryOperator):
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
         ``dtype`` is accepted for the JAX signature: the port computes in
-        float32. ``mesh=`` (A12) is not ported. Windows go out through
-        the dataflow driver's ``run_precomputed``: with ``driver=`` a
-        checkpoint counts the windows emitted, and a resume over the
-        replayed bounded chunks rescans and skips the committed prefix."""
-        _no_mesh(mesh)
+        float32. ``mesh`` (default the operator's): probe-parallel device
+        scans (``parallel/sharded.py:sharded_tjoin_pane_scan``), the pane
+        capacity a multiple of its ``data`` axis; "auto" then takes the
+        device engine and "native" raises ``ValueError``. Windows go out
+        through the dataflow driver's ``run_precomputed``: with
+        ``driver=`` a checkpoint counts the windows emitted, and a resume
+        over the replayed bounded chunks rescans and skips the committed
+        prefix."""
+        mesh = self.run_mesh(mesh)
         conf = self.conf
         size, slide = conf.window_size_ms, conf.slide_step_ms
         if size % slide != 0:
@@ -705,7 +741,9 @@ class TJoinQuery(_TrajectoryOperator):
         if backend not in ("auto", "device", "native"):
             raise ValueError(f"unknown tjoin panes backend {backend!r}")
         use_native = False
-        if backend != "device":
+        if backend == "native" and mesh is not None:
+            raise ValueError("backend='native' cannot run on a mesh")
+        if backend != "device" and mesh is None:
             from spatialflink_tpu_torch import native as _native
             from spatialflink_tpu_torch import overload as _overload
 
@@ -725,9 +763,9 @@ class TJoinQuery(_TrajectoryOperator):
                     _overload.pane_backend() == "native"
                     or self.device.type != "cuda")
         lfields, lcounts, locc = tjoin_pane_fields(
-            g, lt, lx, ly, lo, slide, p_first, n_slides)
+            g, lt, lx, ly, lo, slide, p_first, n_slides, mesh)
         rfields, rcounts, rocc = tjoin_pane_fields(
-            g, rt, rx, ry, ro, slide, p_first, n_slides)
+            g, rt, rx, ry, ro, slide, p_first, n_slides, mesh)
         layers = g.candidate_layers(radius)
         if use_native:
             def flat(fields):
@@ -745,7 +783,7 @@ class TJoinQuery(_TrajectoryOperator):
         else:
             wmins = self._device_pane_scan(
                 lfields, rfields, locc, rocc, radius, layers, ppw,
-                num_segments, cap_w, pair_sel, cap_c)
+                num_segments, cap_w, pair_sel, cap_c, mesh)
 
         def rolling(counts):
             cc = np.concatenate([[0], np.cumsum(counts)])
@@ -821,14 +859,17 @@ class TAggregateQuery(_TrajectoryOperator):
 
     def run(self, stream: Iterable[Point], dtype=np.float64,
             mesh=None) -> Iterator[TAggregateResult]:
-        _no_mesh(mesh)
+        """One ``TAggregateResult`` per fired window. ``mesh`` (default the
+        operator's): the points shard over its ``data`` axis and the
+        (cell, objID) spans combine by min and max."""
+        mesh = self.run_mesh(mesh)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             self._ingest_window(batch.ts, batch.cell, batch.oid, batch.valid,
-                                len(win.events))
+                                len(win.events), mesh)
             yield self._aggregate_state(win)
 
-    def _ingest_window(self, ts_p, cell_p, oid_p, valid_p, n):
+    def _ingest_window(self, ts_p, cell_p, oid_p, valid_p, n, mesh=None):
         """One window's (cell, objID) spans merged into the state,
         including the inactive-trajectory deletion."""
         key64 = (cell_p[:n].astype(np.int64) << 32) | oid_p[:n].astype(
@@ -839,8 +880,9 @@ class TAggregateQuery(_TrajectoryOperator):
         num_pairs = next_bucket(len(uniq_keys), minimum=64)
         ts_d, pid_d, valid_d = ship(np.asarray(ts_p, np.int64), pair_id,
                                     valid_p, device=self.device).arrive()
-        spans = jitted(traj_cell_spans_kernel)(ts_d, pid_d, valid_d,
-                                               num_pairs)
+        spans = window_program(mesh, traj_cell_spans_kernel, (0, 1, 2), 3,
+                               reduce=True, num_pairs=num_pairs)(
+            ts_d, pid_d, valid_d)
         mn, mx = telemetry.fetch((spans.min_ts, spans.max_ts))
         mn, mx = mn[:len(uniq_keys)], mx[:len(uniq_keys)]
         self._merge_state(uniq_keys, mn, mx)
@@ -961,8 +1003,12 @@ class TStatsQuery(_TrajectoryOperator):
         goes, so it is never retried and has no twin. Without a driver,
         ``strict_driver()`` gives the plain window loop, errors
         propagating. ``dtype`` is accepted for the JAX signature: the
-        port computes in float32."""
-        _no_mesh(mesh)
+        port computes in float32. ``mesh`` (default the operator's): the
+        (objID, ts)-sorted points shard over its ``data`` axis with a
+        one-point halo (``parallel/sharded.py:sharded_traj_stats``):
+        counts and temporal sums exact, spatial sums reassociated within
+        ``ops/trajectory.py:spatial_sum_bound``."""
+        mesh = self.run_mesh(mesh)
         from spatialflink_tpu_torch.driver import strict_driver
 
         realtime = self.conf.query_type in (QueryType.RealTime,
@@ -984,9 +1030,20 @@ class TStatsQuery(_TrajectoryOperator):
                 xy, ts, oid, valid = ship(
                     center_coords(self.grid, batch.xy), batch.ts, batch.oid,
                     batch.valid, device=self.device).arrive()
-                res = jitted(traj_stats_kernel)(xy, ts, oid, valid, nseg)
+                if mesh is not None:
+                    from spatialflink_tpu_torch.parallel.sharded import (
+                        sharded_traj_stats,
+                    )
+
+                    sp, tp, cnt, _speed = sharded_traj_stats(
+                        mesh, xy, ts, oid, valid, num_segments=nseg)
+                else:
+                    res = jitted(traj_stats_kernel)(xy, ts, oid, valid,
+                                                    nseg)
+                    sp, tp, cnt = (res.spatial_length, res.temporal_length,
+                                   res.count)
                 return self._decode_window(win, events, *telemetry.fetch(
-                    (res.spatial_length, res.temporal_length, res.count)))
+                    (sp, tp, cnt)))
 
         if realtime:
             # A half-applied window must not re-run (double counting): a

@@ -178,10 +178,18 @@ def knn_merge_digest_list(seg_mins: Sequence[torch.Tensor],
 
 
 def _topk_from_point_dists(dist, valid, flags, oid, radius, k: int,
-                           num_segments: int) -> KnnResult:
-    """Masked per-point distances → the window's top-k objects."""
+                           num_segments: int, index_base=None):
+    """Masked per-point distances → the window's top-k objects.
+
+    ``index_base`` given: the local phase of a mesh shard
+    (``parallel/sharded.py``), whose points start at that global index:
+    the shard's ``KnnPaneDigest``, indices offset by it, with no top-k;
+    the mesh program merges the shards' digests and finishes. Every
+    window top-k kernel below passes it through."""
     d = _digest_from_point_dists(dist, valid, flags, oid, radius,
-                                 num_segments)
+                                 num_segments, index_base=index_base)
+    if index_base is not None:
+        return d
     return _finish_topk(d.seg_min, d.rep, k)
 
 
@@ -286,7 +294,7 @@ def knn_pane_digest_geometry_compact(xy, valid, cell, flags_table, oid,
 
 
 def knn_kernel(xy, valid, flags, oid, query_xy, radius, k: int,
-               num_segments: int) -> KnnResult:
+               num_segments: int, index_base=None) -> KnnResult:
     """Point-stream kNN around one query point: ``xy`` (N, 2), ``valid``
     (N,) bool, ``flags`` (N,) uint8, ``oid`` (N,) int32 interned ids in
     [0, num_segments), ``query_xy`` (2,) → ``KnnResult``
@@ -294,28 +302,30 @@ def knn_kernel(xy, valid, flags, oid, query_xy, radius, k: int,
     KNNQuery.java:204-308)."""
     dist = point_point_distance(xy, query_xy[None, :])
     return _topk_from_point_dists(dist, valid, flags, oid, radius, k,
-                                  num_segments)
+                                  num_segments, index_base)
 
 
 def knn_polygon_query_kernel(xy, valid, flags, oid, query_verts,
                              query_edge_valid, radius, k: int,
-                             num_segments: int) -> KnnResult:
+                             num_segments: int,
+                             index_base=None) -> KnnResult:
     """Point-stream kNN around a polygon query, JTS distance: 0 inside
     (knn/PointPolygonKNNQuery.java:67-88)."""
     dist = _geometry_query_dists(xy, query_verts, query_edge_valid, True)
     return _topk_from_point_dists(dist, valid, flags, oid, radius, k,
-                                  num_segments)
+                                  num_segments, index_base)
 
 
 def knn_polyline_query_kernel(xy, valid, flags, oid, query_verts,
                               query_edge_valid, radius, k: int,
-                              num_segments: int) -> KnnResult:
+                              num_segments: int,
+                              index_base=None) -> KnnResult:
     """Point-stream kNN around an open linestring query: the min edge
     distance and no containment, since an open polyline encloses nothing
     (knn/PointLineStringKNNQuery.java)."""
     dist = _geometry_query_dists(xy, query_verts, query_edge_valid, False)
     return _topk_from_point_dists(dist, valid, flags, oid, radius, k,
-                                  num_segments)
+                                  num_segments, index_base)
 
 
 # Fused variants: the cell-flag gather and the kNN in one call, the
@@ -323,25 +333,90 @@ def knn_polyline_query_kernel(xy, valid, flags, oid, query_verts,
 
 
 def knn_points_fused(xy, valid, cell, flags_table, oid, query_xy, radius,
-                     k: int, num_segments: int) -> KnnResult:
+                     k: int, num_segments: int,
+                     index_base=None) -> KnnResult:
     return knn_kernel(xy, valid, gather_cell_flags(cell, flags_table), oid,
-                      query_xy, radius, k, num_segments)
+                      query_xy, radius, k, num_segments, index_base)
 
 
 def knn_polygon_fused(xy, valid, cell, flags_table, oid, query_verts,
                       query_edge_valid, radius, k: int,
-                      num_segments: int) -> KnnResult:
+                      num_segments: int, index_base=None) -> KnnResult:
     return knn_polygon_query_kernel(
         xy, valid, gather_cell_flags(cell, flags_table), oid, query_verts,
-        query_edge_valid, radius, k, num_segments)
+        query_edge_valid, radius, k, num_segments, index_base)
 
 
 def knn_polyline_fused(xy, valid, cell, flags_table, oid, query_verts,
                        query_edge_valid, radius, k: int,
-                       num_segments: int) -> KnnResult:
+                       num_segments: int, index_base=None) -> KnnResult:
     return knn_polyline_query_kernel(
         xy, valid, gather_cell_flags(cell, flags_table), oid, query_verts,
-        query_edge_valid, radius, k, num_segments)
+        query_edge_valid, radius, k, num_segments, index_base)
+
+
+def _multi_query_lanes(valid, oid, num_segments: int, block: int,
+                       index_base: int = 0):
+    """The per-point lanes every query block of ``_multi_query_digest``
+    reuses: the live mask (``valid`` and an id below ``num_segments``),
+    the scatter key ``lane * num_segments + oid`` of a ``block``-query
+    block, and each lane's point index offset by ``index_base``."""
+    n = oid.shape[0]
+    dev = oid.device
+    ok = valid & (oid < num_segments)
+    oid_key = torch.where(ok, oid, 0).to(torch.int64)
+    idx = torch.arange(index_base, index_base + n, dtype=torch.int32,
+                       device=dev).expand(block, n).reshape(-1)
+    lane = torch.arange(block, device=dev)[:, None]
+    key = (lane * num_segments + oid_key[None, :]).reshape(-1)
+    return ok, key, idx
+
+
+def _multi_query_digest(lanes, xy, cell_l, flags_tables, query_xy, radius,
+                        query_valid, num_segments: int):
+    """One block of queries → per-query digests ``(seg_min, rep)``, each
+    (block, num_segments): every (query, point) lane's distance, one
+    scatter-min over the block's keys with the lanes outside the mask at
+    the absent distance, and the lowest in-radius index at each minimum.
+    ``lanes`` from ``_multi_query_lanes``; ``cell_l`` the int64 cells;
+    ``radius`` and ``query_valid`` the block's (block,) lanes."""
+    ok, key, idx = lanes
+    block = query_xy.shape[0]
+    dev = xy.device
+    dist = point_point_distance(xy[None, :, :], query_xy[:, None, :])
+    mask = (ok[None, :] & query_valid[:, None]
+            & (flags_tables[:, cell_l] > 0)
+            & (dist <= radius[:, None])).reshape(-1)
+    big = absent_dist(dist.dtype)
+    masked = torch.where(mask, dist.reshape(-1), big)
+    seg_min = torch.full((block * num_segments,), big, dtype=dist.dtype,
+                         device=dev)
+    seg_min.scatter_reduce_(0, key, masked, reduce="amin", include_self=True)
+    win = mask & (masked == seg_min[key])
+    rep = torch.full((block * num_segments,), I32_BIG, dtype=torch.int32,
+                     device=dev)
+    rep.scatter_reduce_(0, key, torch.where(win, idx, I32_BIG),
+                        reduce="amin", include_self=True)
+    return (seg_min.view(block, num_segments),
+            rep.view(block, num_segments))
+
+
+def _multi_query_finish(seg_min, rep, k: int):
+    """(block, num_segments) digests → (``KnnResult`` of the block,
+    ``within`` (block,) int32): a stable sort along each query's
+    segments, so equal distances keep the lowest segment first as
+    ``_finish_topk`` does, and the unclamped in-radius object count."""
+    big = absent_dist(seg_min.dtype)
+    vals, seg_ids = torch.sort(seg_min, dim=1, stable=True)
+    top = vals[:, :k]
+    seg_ids = seg_ids[:, :k]
+    found = top < big
+    within = (seg_min < big).sum(dim=1).to(torch.int32)
+    return KnnResult(
+        top,
+        torch.where(found, seg_ids.to(torch.int32), -1),
+        torch.where(found, torch.gather(rep, 1, seg_ids), -1),
+        torch.clamp(within, max=k)), within
 
 
 def _multi_query_topk(xy, valid, cell, flags_tables, oid, query_xy,
@@ -357,58 +432,28 @@ def _multi_query_topk(xy, valid, cell, flags_tables, oid, query_xy,
     distinct in-radius objects, unclamped).
 
     Queries go in blocks of ``query_block`` (Q must divide into them, as
-    in the JAX package), so peak memory is O(``query_block`` x N). Per
-    block: every (query, point) lane's distance, one scatter-min over
-    ``q * num_segments + oid`` with the lanes outside the mask at the
-    absent distance, the lowest in-radius index at each minimum, and a
-    stable sort along each query's segments, so equal distances keep the
-    lowest segment first as ``_finish_topk`` does. No lane is compacted
-    out, so nothing waits for the host."""
+    in the JAX package), so peak memory is O(``query_block`` x N): each
+    block is ``_multi_query_digest`` then ``_multi_query_finish``. No
+    lane is compacted out, so nothing waits for the host. The mesh
+    program (``parallel/sharded.py``) runs the same two phases with the
+    digests merged across shards between them."""
     q_total = query_xy.shape[0]
     if q_total % query_block != 0:
         raise ValueError("pad query batch to a multiple of query_block")
     check_k(k, num_segments)
-    n = xy.shape[0]
     dev = xy.device
-    ok = valid & (oid < num_segments)
-    oid_key = torch.where(ok, oid, 0).to(torch.int64)
-    idx = torch.arange(n, dtype=torch.int32, device=dev).expand(
-        query_block, n).reshape(-1)
-    lane = torch.arange(query_block, device=dev)[:, None]
-    key = (lane * num_segments + oid_key[None, :]).reshape(-1)
+    lanes = _multi_query_lanes(valid, oid, num_segments, query_block)
     cell_l = cell.long()
     radius = radius.to(dev)
     query_valid = query_valid.to(dev)
     parts, withins = [], []
     for q0 in range(0, q_total, query_block):
         q1 = q0 + query_block
-        dist = point_point_distance(xy[None, :, :], query_xy[q0:q1, None, :])
-        mask = (ok[None, :] & query_valid[q0:q1, None]
-                & (flags_tables[q0:q1][:, cell_l] > 0)
-                & (dist <= radius[q0:q1, None])).reshape(-1)
-        big = absent_dist(dist.dtype)
-        masked = torch.where(mask, dist.reshape(-1), big)
-        seg_min = torch.full((query_block * num_segments,), big,
-                             dtype=dist.dtype, device=dev)
-        seg_min.scatter_reduce_(0, key, masked, reduce="amin",
-                                include_self=True)
-        win = mask & (masked == seg_min[key])
-        rep = torch.full((query_block * num_segments,), I32_BIG,
-                         dtype=torch.int32, device=dev)
-        rep.scatter_reduce_(0, key, torch.where(win, idx, I32_BIG),
-                            reduce="amin", include_self=True)
-        seg_min = seg_min.view(query_block, num_segments)
-        rep = rep.view(query_block, num_segments)
-        vals, seg_ids = torch.sort(seg_min, dim=1, stable=True)
-        top = vals[:, :k]
-        seg_ids = seg_ids[:, :k]
-        found = top < big
-        within = (seg_min < big).sum(dim=1).to(torch.int32)
-        parts.append(KnnResult(
-            top,
-            torch.where(found, seg_ids.to(torch.int32), -1),
-            torch.where(found, torch.gather(rep, 1, seg_ids), -1),
-            torch.clamp(within, max=k)))
+        seg_min, rep = _multi_query_digest(
+            lanes, xy, cell_l, flags_tables[q0:q1], query_xy[q0:q1],
+            radius[q0:q1], query_valid[q0:q1], num_segments)
+        res, within = _multi_query_finish(seg_min, rep, k)
+        parts.append(res)
         withins.append(within)
     return (KnnResult(*(torch.cat(f) for f in zip(*parts))),
             torch.cat(withins))
@@ -439,7 +484,8 @@ def knn_multi_query_kernel(xy, valid, cell, flags_tables, oid, query_xy,
 def knn_geometry_query_kernel(obj_verts, obj_edge_valid, valid, flags, oid,
                               query_verts, query_edge_valid, radius, k: int,
                               num_segments: int, obj_polygonal: bool = False,
-                              query_polygonal: bool = False) -> KnnResult:
+                              query_polygonal: bool = False,
+                              index_base=None) -> KnnResult:
     """Geometry-stream kNN: ``obj_verts`` (N, V, 2), ``obj_edge_valid``
     (N, V-1), ``valid`` (N,), ``flags`` (N,) per-object, ``oid`` (N,),
     one query boundary ``query_verts`` (Vq, 2) / ``query_edge_valid``
@@ -463,11 +509,12 @@ def knn_geometry_query_kernel(obj_verts, obj_edge_valid, valid, flags, oid,
     dist = torch.cat(parts) if parts else torch.empty(
         0, dtype=torch.float32, device=obj_verts.device)
     return _topk_from_point_dists(dist, valid, flags, oid, radius, k,
-                                  num_segments)
+                                  num_segments, index_base)
 
 
 def knn_geometry_bbox_kernel(obj_bbox, valid, flags, oid, query_bbox, radius,
-                             k: int, num_segments: int) -> KnnResult:
+                             k: int, num_segments: int,
+                             index_base=None) -> KnnResult:
     """Geometry-stream kNN in approximate mode: the distance per object is
     the min distance between its bbox and the query's
     (``bbox_bbox_min_distance``), the reference's approximateQuery
@@ -476,4 +523,4 @@ def knn_geometry_bbox_kernel(obj_bbox, valid, flags, oid, query_bbox, radius,
     vertex lanes; ``query_bbox`` (4,), a point query's [x, y, x, y]."""
     dist = bbox_bbox_min_distance(obj_bbox, query_bbox[None, :])
     return _topk_from_point_dists(dist, valid, flags, oid, radius, k,
-                                  num_segments)
+                                  num_segments, index_base)

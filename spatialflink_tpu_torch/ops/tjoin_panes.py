@@ -320,9 +320,86 @@ def _insert(wx, wy, woid, wtag, wcur, t: int, px, py, pcell, prank, poid,
     return lost
 
 
+def _begin_slide(carry: TJoinPaneCarry, t: int, lxp, rxp, grid_n: int,
+                 ppw: int, num_ids: int):
+    """A slide's first phase, in place: expire pane t - ppw on both sides
+    before any probe (the window is (t - ppw, t], so its points are dead
+    for every probe of this slide), reset ring row r = t % ppw, which
+    held that pane, and recompute the one block minimum the reset
+    invalidated (every other block's carries over; the scatter-mins of
+    ``_apply_side`` update both levels)."""
+    cells = grid_n * grid_n
+    p = num_ids * num_ids
+    bs = block_size(ppw)
+    _cell_counts(carry.lwlive, lxp[0], lxp[1], cells, -1)
+    _cell_counts(carry.rwlive, rxp[0], rxp[1], cells, -1)
+    dig = carry.digests[:-1].view(ppw, p)
+    blk = carry.block_digests[:-1].view(ppw // bs, p)
+    r = t % ppw
+    dig[r].fill_(float("inf"))
+    b = r // bs
+    torch.amin(dig[b * bs:(b + 1) * bs], dim=0, out=blk[b])
+
+
+def _probe_side(carry: TJoinPaneCarry, swap: bool, pane, t: int, radius,
+                grid_n: int, cap_w: int, layers: int, ppw: int,
+                num_ids: int, pair_sel: int, cap_c: int):
+    """One probe direction, reading ``carry`` only: the new left pane
+    against the right window (``swap`` False, direction A) or the new
+    right pane against the left window (``swap`` True, direction B).
+    Returns (flat digest keys, distances, sel_overflow, cmp_overflow or
+    None), per pane point in pane order, so a pane's slices probe alike
+    (the mesh scan's local phase)."""
+    w, live = ((carry[0:5], carry.lwlive) if swap
+               else (carry[6:11], carry.rwlive))
+    if cap_c > 0:
+        return _probe_compact(
+            w[0], w[1], w[2], w[3], w[4], live, pane[0], pane[1], pane[2],
+            pane[3], pane[6], pane[7], radius, swap, grid_n, cap_w, cap_c,
+            layers, ppw, num_ids, pair_sel)
+    return (*_probe(w[0], w[1], w[2], w[3], t, pane[0], pane[1], pane[2],
+                    pane[3], pane[6], pane[7], radius, swap, grid_n, cap_w,
+                    layers, ppw, num_ids, pair_sel),
+            None)
+
+
+def _apply_side(carry: TJoinPaneCarry, swap: bool, pane, flat, dist, sel,
+                cmp, t: int, grid_n: int, cap_w: int, ppw: int,
+                num_ids: int):
+    """A probe direction's second phase, in place: the scatter-min of its
+    contributions into both digest levels, then the probing pane's
+    insert into its own side's ring and live counts, and the overflow
+    counters."""
+    p = num_ids * num_ids
+    bs = block_size(ppw)
+    # flat // P // bs · P + flat % P: the sentinel ppw·P maps to
+    # (ppw / bs)·P, the block digests' spare slot.
+    bflat = torch.div(flat, p * bs, rounding_mode="floor") * p + flat % p
+    carry.digests.scatter_reduce_(0, flat.long(), dist, "amin")
+    carry.block_digests.scatter_reduce_(0, bflat.long(), dist, "amin")
+    own, own_live = ((carry[6:11], carry.rwlive) if swap
+                     else (carry[0:5], carry.lwlive))
+    carry.cap_overflow.add_(_insert(
+        *own, t, pane[0], pane[1], pane[4], pane[5], pane[6], pane[7],
+        cap_w, ppw))
+    _cell_counts(own_live, pane[4], pane[7], grid_n * grid_n, 1)
+    carry.sel_overflow.add_(sel)
+    if cmp is not None:
+        carry.cmp_overflow.add_(cmp)
+
+
+def _window_min(carry: TJoinPaneCarry, ppw: int, num_ids: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The window ending at this slide: the minimum over every block (a
+    min of mins, exact)."""
+    blk = carry.block_digests[:-1].view(ppw // block_size(ppw),
+                                        num_ids * num_ids)
+    return torch.amin(blk, dim=0, out=out)
+
+
 def tjoin_pane_step(carry: TJoinPaneCarry, xs, radius, grid_n: int,
                     cap_w: int, layers: int, ppw: int, num_ids: int,
-                    pair_sel: int, cap_c: int = 0, axis_name=None,
+                    pair_sel: int, cap_c: int = 0,
                     out: Optional[torch.Tensor] = None):
     """One slide, in place on ``carry``: probe and insert both sides, and
     reduce the window ending at pane t.
@@ -333,72 +410,26 @@ def tjoin_pane_step(carry: TJoinPaneCarry, xs, radius, grid_n: int,
     of pane t - ppw, which keeps the live counts exact. ``cap_c`` > 0
     probes through ``_probe_compact``, 0 through ``_probe``: the same
     results whenever the counters are 0. Returns (carry, the window's
-    (K²,) pair minima), written into ``out`` when given. ``axis_name``
-    (the JAX probe-parallel mesh step) is not ported: ROADMAP A12."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name= (probe-parallel multi-GPU tJoin) is not ported yet: "
-            "ROADMAP A12")
+    (K²,) pair minima), written into ``out`` when given.
+
+    Direction A: the new left pane × the right window (panes < t), then
+    the left pane's insert; direction B: the new right pane × the left
+    window (panes ≤ t, the left pane just inserted included, so each
+    new × new pair is found once), then the right pane's insert. The
+    JAX step's ``axis_name`` (its probe-parallel mesh body) has no
+    counterpart: ``tjoin_pane_scan(mesh=)`` runs the same phases with
+    the probes split over the shards."""
     t, lp, rp, lxp, rxp = xs
     t = int(t)
     radius = float(np.float32(radius))
-    cells = grid_n * grid_n
-    p = num_ids * num_ids
-    bs = block_size(ppw)
-    # Expire pane t - ppw on both sides before any probe: the window is
-    # (t - ppw, t], so its points are dead for every probe of this slide.
-    _cell_counts(carry.lwlive, lxp[0], lxp[1], cells, -1)
-    _cell_counts(carry.rwlive, rxp[0], rxp[1], cells, -1)
-    dig = carry.digests[:-1].view(ppw, p)
-    blk = carry.block_digests[:-1].view(ppw // bs, p)
-    r = t % ppw
-    # Ring row r held pane t - ppw: reset it, and recompute the one block
-    # minimum it invalidated (every other block's carries over; the
-    # scatter-mins below update both levels).
-    dig[r].fill_(float("inf"))
-    b = r // bs
-    torch.amin(dig[b * bs:(b + 1) * bs], dim=0, out=blk[b])
-
-    def probe(w, live, pane, swap):
-        # w: (x, y, oid, tag, cursor) of the side probed.
-        if cap_c > 0:
-            return _probe_compact(
-                w[0], w[1], w[2], w[3], w[4], live, pane[0], pane[1],
-                pane[2], pane[3], pane[6], pane[7], radius, swap, grid_n,
-                cap_w, cap_c, layers, ppw, num_ids, pair_sel)
-        return (*_probe(w[0], w[1], w[2], w[3], t, pane[0], pane[1],
-                        pane[2], pane[3], pane[6], pane[7], radius, swap,
-                        grid_n, cap_w, layers, ppw, num_ids, pair_sel),
-                None)
-
-    def digest(flat, dist):
-        # flat // P // bs · P + flat % P: the sentinel ppw·P maps to
-        # (ppw / bs)·P, the block digests' spare slot.
-        bflat = torch.div(flat, p * bs, rounding_mode="floor") * p + flat % p
-        carry.digests.scatter_reduce_(0, flat.long(), dist, "amin")
-        carry.block_digests.scatter_reduce_(0, bflat.long(), dist, "amin")
-
-    left = (carry[0:5], carry.lwlive)
-    right = (carry[6:11], carry.rwlive)
-    # Direction A: the new left pane × the right window (panes < t), then
-    # the left pane's insert; direction B: the new right pane × the left
-    # window (panes ≤ t, the left pane just inserted included, so each
-    # new × new pair is found once), then the right pane's insert.
-    for pane, (probed, probed_live), (own, own_live), swap in (
-            (lp, right, left, False), (rp, left, right, True)):
-        flat, dist, sel, cmp = probe(probed, probed_live, pane, swap)
-        digest(flat, dist)
-        carry.cap_overflow.add_(_insert(
-            *own, t, pane[0], pane[1], pane[4], pane[5], pane[6], pane[7],
-            cap_w, ppw))
-        _cell_counts(own_live, pane[4], pane[7], cells, 1)
-        carry.sel_overflow.add_(sel)
-        if cmp is not None:
-            carry.cmp_overflow.add_(cmp)
-    # The window ending at pane t: the minimum over every block (a min of
-    # mins, exact).
-    wmin = torch.amin(blk, dim=0, out=out)
-    return carry, wmin
+    _begin_slide(carry, t, lxp, rxp, grid_n, ppw, num_ids)
+    for pane, swap in ((lp, False), (rp, True)):
+        flat, dist, sel, cmp = _probe_side(
+            carry, swap, pane, t, radius, grid_n, cap_w, layers, ppw,
+            num_ids, pair_sel, cap_c)
+        _apply_side(carry, swap, pane, flat, dist, sel, cmp, t, grid_n,
+                    cap_w, ppw, num_ids)
+    return carry, _window_min(carry, ppw, num_ids, out)
 
 
 def expired_pane_fields(cells_arr: torch.Tensor, valid_arr: torch.Tensor,
@@ -435,18 +466,26 @@ def tjoin_pane_scan(carry: TJoinPaneCarry, ts, lps: Sequence[torch.Tensor],
     expiring at each slide, (S, PC) each, required when the carry already
     holds panes of an earlier scan; by default they come from this
     batch's own panes (``expired_pane_fields``: right iff the carry
-    started empty). ``mesh`` (JAX's probe-parallel execution) is not
-    ported: ROADMAP A12."""
+    started empty).
+
+    ``mesh``: probe-parallel execution over the mesh's ``data`` axis
+    (``_scan_mesh``): pane points shard (PC must divide by the axis), the
+    carry and the expiring panes replicate, each slide's contributions
+    gather. Equal to the unsharded scan."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (probe-parallel multi-GPU tJoin) is not ported yet: "
-            "ROADMAP A12")
+        from spatialflink_tpu_torch.parallel.mesh import require_mesh
+
+        require_mesh(mesh)
     if torch.is_tensor(ts):
         ts = ts.tolist()
     if lps_expire is None:
         lps_expire = expired_pane_fields(lps[4], lps[7], ppw)
     if rps_expire is None:
         rps_expire = expired_pane_fields(rps[4], rps[7], ppw)
+    if mesh is not None:
+        return _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n, cap_w,
+                          layers, ppw, num_ids, pair_sel, cap_c,
+                          lps_expire, rps_expire)
     s = len(ts)
     wmins = torch.empty((s, num_ids * num_ids), dtype=torch.float32,
                         device=carry.digests.device)
@@ -459,3 +498,99 @@ def tjoin_pane_scan(carry: TJoinPaneCarry, ts, lps: Sequence[torch.Tensor],
             out=wmins[i])
     return carry, wmins
 
+
+
+def _carry_to(carry: TJoinPaneCarry, dev) -> TJoinPaneCarry:
+    return TJoinPaneCarry(*(f.to(dev, copy=True) for f in carry))
+
+
+def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
+               layers: int, ppw: int, num_ids: int, pair_sel: int,
+               cap_c: int, lps_expire, rps_expire):
+    """Probe-parallel ``tjoin_pane_scan``. The carry replicates, one
+    replica a distinct mesh device (the caller's, on the mesh's first
+    device, is updated in place); each slide:
+
+      1. every replica expires and resets its ring row (``_begin_slide``);
+      2. per direction, shard i probes its contiguous slice of the new
+         pane against the replica on its device (``_probe_side``, the
+         step's dominant cost, split over the shards); a shard whose
+         slice holds no valid point has nothing to probe (every lane of
+         its probe would be the drop sentinel) and skips it;
+      3. the contributions concatenate in shard order (JAX's tiled
+         ``all_gather``: the pane order) and the overflow counts sum
+         (``psum``); every replica applies them and inserts the whole
+         pane (``_apply_side``).
+
+    The replicas stay identical, and equal to the unsharded scan's
+    carry. One wait at the start reads which slices hold points. Returns
+    (carry, (S, K²) window minima)."""
+    from spatialflink_tpu_torch.parallel.sharded import _data_devices
+
+    devs = _data_devices(mesh)
+    n = len(devs)
+    s_n, pc = lps[0].shape
+    if pc % n:
+        raise ValueError(
+            f"pane capacity ({pc}) must divide by the mesh data axis ({n})")
+    home = carry.digests.device
+    if home != devs[0]:
+        raise ValueError(
+            f"the carry lives on {home}, not on the mesh's first device "
+            f"{devs[0]}")
+    radius = float(np.float32(radius))
+    replicas = {home: carry}
+    for dev in devs:
+        if dev not in replicas:
+            replicas[dev] = _carry_to(carry, dev)
+    wmins = torch.empty((len(ts), num_ids * num_ids), dtype=torch.float32,
+                        device=home)
+
+    def rows(fields, dev):
+        """Per slide, the fields' rows on ``dev``."""
+        return list(zip(*(f.to(dev).unbind(0) for f in fields)))
+
+    def shard_rows(fields):
+        """Per shard, per slide, its slice's rows on its device, and per
+        slide the shards whose slice holds a valid point."""
+        per = [list(zip(*(f.view(s_n, n, pc // n)[:, s].to(dev).unbind(0)
+                          for f in fields)))
+               for s, dev in enumerate(devs)]
+        live = fields[7].view(s_n, n, pc // n).any(dim=2).tolist()
+        return per, live
+
+    full = {dev: (rows(lps, dev), rows(rps, dev), rows(lps_expire, dev),
+                  rows(rps_expire, dev)) for dev in replicas}
+    sides = (shard_rows(lps), shard_rows(rps))
+    empty = (torch.empty(0, dtype=torch.int64, device=home),
+             torch.empty(0, dtype=torch.float32, device=home))
+    for i, t in enumerate(ts):
+        t = int(t)
+        for dev, c in replicas.items():
+            _begin_slide(c, t, full[dev][2][i], full[dev][3][i], grid_n, ppw,
+                         num_ids)
+        for side, swap in ((0, False), (1, True)):
+            per, live = sides[side]
+            probes = [
+                _probe_side(replicas[dev], swap, per[s][i], t, radius, grid_n,
+                            cap_w, layers, ppw, num_ids, pair_sel, cap_c)
+                for s, dev in enumerate(devs) if live[i][s]]
+            if probes:
+                flat = torch.cat([pr[0].to(home) for pr in probes])
+                dist = torch.cat([pr[1].to(home) for pr in probes])
+                sel = sum(pr[2].to(home) for pr in probes)
+                cmp = (None if probes[0][3] is None
+                       else sum(pr[3].to(home) for pr in probes))
+            else:
+                (flat, dist), sel, cmp = empty, 0, None
+            for dev, c in replicas.items():
+                _apply_side(c, swap, full[dev][side][i], flat.to(dev),
+                            dist.to(dev), _to_dev(sel, dev),
+                            _to_dev(cmp, dev), t, grid_n, cap_w, ppw,
+                            num_ids)
+        _window_min(carry, ppw, num_ids, out=wmins[i])
+    return carry, wmins
+
+
+def _to_dev(x, dev):
+    return x.to(dev) if isinstance(x, torch.Tensor) else x

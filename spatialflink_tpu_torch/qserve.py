@@ -43,8 +43,9 @@ The operator runs on the card unless it is given ``device="cpu"``. It
 computes in float32 on the device, with coordinates centred in float64
 first (``operators/base.py:center_coords``); radii ship as float64, so
 the radius test is the JAX package's under x64. ``dtype`` is accepted
-for the JAX signature. ``mesh=`` raises: multi-GPU serving waits for
-ROADMAP A12.
+for the JAX signature. ``mesh=``: every bucket runs through
+``parallel/sharded.py:sharded_registry_bucket``, the window's points
+sharded over the mesh's ``data`` axis, with the unsharded results.
 """
 
 from __future__ import annotations
@@ -88,9 +89,6 @@ QUERY_CAP_MAX = 1024
 RADIUS_CLASS_BASE = 0.001
 
 _KINDS = ("range", "knn")
-
-_MESH_WAITS = "mesh= (multi-GPU qserve) is not ported yet: ROADMAP A12"
-
 
 @dataclass(frozen=True)
 class StandingQuery:
@@ -454,9 +452,7 @@ class QServeOperator(SpatialOperator):
 
     def __init__(self, conf, grid, mesh=None, cap_max: int = QUERY_CAP_MAX,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_WAITS)
-        super().__init__(conf, grid, device=device)
+        super().__init__(conf, grid, device=device, mesh=mesh)
         self.qserve_registry = QueryRegistry(grid, self.interner,
                                              cap_max=cap_max)
         self._bucket_dev: Dict[Tuple[str, int, int], Dict[str, Any]] = {}
@@ -466,10 +462,20 @@ class QServeOperator(SpatialOperator):
     def registry(self) -> QueryRegistry:
         return self.qserve_registry
 
-    def _eval_bucket(self, kernel, xy_d, valid_d, cell_d, oid_d, arrays,
-                     key, rung, cap, nseg):
-        """One bucket's program under its ``compute`` span."""
+    def _eval_bucket(self, kernel, mesh, xy_d, valid_d, cell_d, oid_d,
+                     arrays, key, rung, cap, nseg):
+        """One bucket's program under its ``compute`` span: sharded over
+        ``mesh`` when given (``sharded_registry_bucket``)."""
         with telemetry.span("compute", bucket=bucket_key_str(key)):
+            if mesh is not None:
+                from spatialflink_tpu_torch.parallel.sharded import (
+                    sharded_registry_bucket,
+                )
+
+                return sharded_registry_bucket(
+                    mesh, xy_d, valid_d, cell_d, arrays["tables"], oid_d,
+                    arrays["qxy"], arrays["radius"], arrays["qvalid"],
+                    k=rung, num_segments=nseg)
             return kernel(xy_d, valid_d, cell_d, arrays["tables"], oid_d,
                           arrays["qxy"], arrays["radius"], arrays["qvalid"],
                           k=rung, num_segments=nseg,
@@ -509,8 +515,7 @@ class QServeOperator(SpatialOperator):
             registry_bucket_kernel,
         )
 
-        if mesh is not None:
-            raise NotImplementedError(_MESH_WAITS)
+        mesh = self.run_mesh(mesh)
         if self.conf.allowed_lateness_ms > 0:
             # A late-event refire re-runs a window already charged to the
             # per-window QoS and overflow accumulators (whose retry
@@ -532,7 +537,7 @@ class QServeOperator(SpatialOperator):
         kernel = jitted(registry_bucket_kernel)
 
         def process(win) -> QServeWindowResult:
-            return self.serve_window(win, kernel, dtype=dtype)
+            return self.serve_window(win, kernel, dtype=dtype, mesh=mesh)
 
         drv.bind(self, process, fallback=None)
         yield from drv.run(stream)
@@ -546,8 +551,7 @@ class QServeOperator(SpatialOperator):
         ``tenant_result_allowance``), so re-running a window is safe."""
         from spatialflink_tpu_torch.ops.compaction import pick_capacity
 
-        if mesh is not None:
-            raise NotImplementedError(_MESH_WAITS)
+        self.check_mesh(mesh)
         reg = self.qserve_registry
         with telemetry.span("window.qserve", start=win.start,
                             events=len(win.events)):
@@ -601,8 +605,8 @@ class QServeOperator(SpatialOperator):
                         arrays = self._bucket_device_arrays(key, qs, cap,
                                                             dtype)
                         res = self._eval_bucket(
-                            kernel, xy_d, valid_d, cell_d, oid_d, arrays,
-                            key, int(key[1]), cap, nseg)
+                            kernel, mesh, xy_d, valid_d, cell_d, oid_d,
+                            arrays, key, int(key[1]), cap, nseg)
                     pending.append((qs, res))
                 # One device→host copy for all buckets: every bucket's
                 # work is queued before the window's single wait.

@@ -22,8 +22,10 @@ Kafka topic through the built-in wire client) and dispatches on
 
 Device: the yml's ``backend`` (``cuda``, the default, or ``cpu``) is the
 device every operator runs on; a missing card raises. ``deviceMesh`` with
-a product above 1 raises naming ROADMAP A12 (the multi-GPU layer); a
-product of 1 runs unsharded.
+a product above 1 shards the windowed operators over a mesh of the
+backend's devices (``parallel/``): the CPU once per shard, or the visible
+cards, raising when it names more than there are; a product of 1 runs
+unsharded.
 """
 
 from __future__ import annotations
@@ -145,18 +147,16 @@ def build_source(params: Params, source_arg: str) -> Iterator[Point]:
     raise ValueError(f"unknown source spec {source_arg!r}")
 
 
-def _mesh_from_config(device_mesh):
+def _mesh_from_config(device_mesh, device):
     """The yml's ``deviceMesh`` (the parallelism analog,
-    conf/geoflink-conf.yml:55): a product of 1 runs unsharded (``None``,
-    as the JAX ``mesh_from_config`` returns); a larger one needs the
-    multi-GPU layer."""
-    import math
+    conf/geoflink-conf.yml:55) on the backend's devices
+    (``parallel/sharded.py:mesh_from_config``): a product of 1 runs
+    unsharded (``None``); ``backend: cpu`` shards over the CPU listed
+    once per shard, ``backend: cuda`` over the visible cards, raising
+    "need N devices, have M" above their count."""
+    from spatialflink_tpu_torch.parallel.sharded import mesh_from_config
 
-    if int(math.prod(int(v) for v in (device_mesh or [1]))) <= 1:
-        return None
-    raise NotImplementedError(
-        f"deviceMesh {list(device_mesh)} (a sharded job over several "
-        "cards) is not ported yet: ROADMAP A12")
+    return mesh_from_config(device_mesh or [1], device=device)
 
 
 def _run_sncb_dag(params: Params, source, output_dir, driver) -> int:
@@ -237,9 +237,10 @@ def run_job(params: Params, source: Iterable[Point], sink,
     q_points = [Point(x=p[0], y=p[1]) for p in q.query_points]
     n = 0
     option = q.option
-    # The yml's deviceMesh: a product above 1 waits for the multi-GPU
-    # layer; a product of 1 is the unsharded run.
-    mesh = _mesh_from_config(params.device_mesh)
+    # The yml's deviceMesh (parallelism analog, conf/geoflink-conf.yml:55):
+    # a product > 1 runs every windowed kernel sharded over the mesh's
+    # data axis, with results identical to the unsharded run.
+    mesh = _mesh_from_config(params.device_mesh, device)
 
     # query.incremental (extension): pane/ListState-carry execution (range
     # rides query_incremental, kNN and join the pane carries). Sliding
@@ -266,7 +267,7 @@ def run_job(params: Params, source: Iterable[Point], sink,
 
     if option in (1, 2):
         conf = window_conf if option == 1 else realtime_conf
-        op = PointPointRangeQuery(conf, grid, device=device)
+        op = PointPointRangeQuery(conf, grid, device=device, mesh=mesh)
         if option == 1 and incremental and len(q_points) == 1:
             if driver is not None:
                 raise SystemExit(
@@ -288,7 +289,7 @@ def run_job(params: Params, source: Iterable[Point], sink,
                 n += 1
     elif option in (3, 4):
         conf = window_conf if option == 3 else realtime_conf
-        op = PointPointKNNQuery(conf, grid, device=device)
+        op = PointPointKNNQuery(conf, grid, device=device, mesh=mesh)
         if option == 3 and incremental:
             if driver is not None:
                 raise SystemExit(
@@ -304,7 +305,7 @@ def run_job(params: Params, source: Iterable[Point], sink,
                 sink(f"{res.start},{res.end},{oid},{float(d)!r}")
                 n += 1
     elif option == 5:
-        op = PointPointJoinQuery(window_conf, grid, device=device)
+        op = PointPointJoinQuery(window_conf, grid, device=device, mesh=mesh)
         # Both halves re-materialise deterministically from the replayed
         # source, so the merged two-stream sequence is itself replayable:
         # what the driver's resume-skip needs.
@@ -326,14 +327,14 @@ def run_job(params: Params, source: Iterable[Point], sink,
                      f"{float(d)!r}")
                 n += 1
     elif option == 8:
-        op = PointPointKNNQuery(window_conf, grid, device=device)
+        op = PointPointKNNQuery(window_conf, grid, device=device, mesh=mesh)
         for res in op.run_multi(source, q_points, q.radius, q.k):
             for qi, r_ in enumerate(res.results):
                 for oid, d, p in r_.neighbors:
                     sink(f"{res.start},{res.end},{qi},{oid},{float(d)!r}")
                     n += 1
     elif option == 6:
-        op = TStatsQuery(window_conf, grid, device=device)
+        op = TStatsQuery(window_conf, grid, device=device, mesh=mesh)
         for res in op.run(source, driver=driver):
             for oid, (sp, tp, ratio) in sorted(res.stats.items()):
                 sink(f"{res.start},{res.end},{oid},{float(sp)!r},{tp},"
@@ -374,7 +375,7 @@ def run_job(params: Params, source: Iterable[Point], sink,
                 overload_mod.install(ctrl)
                 installed = True
         op = qserve_mod.QServeOperator(
-            window_conf, grid,
+            window_conf, grid, mesh=mesh,
             cap_max=int((cfg or {}).get("cap_max",
                                         qserve_mod.QUERY_CAP_MAX)),
             device=device,

@@ -235,16 +235,27 @@ def pane_operands(ts, xy, oid, num_oids: int, slide_ms: int):
 
 
 def _traj_stats_sliding_device(ts, xy, oid, num_oids, size_ms, slide_ms,
-                               device) -> TrajPaneWindows:
-    """Device engine: host sort and pad, one kernel call on ``device``,
-    host alive-filter."""
-    dev = resolve_device(device)
+                               device, mesh=None) -> TrajPaneWindows:
+    """Device engine: host sort and pad, one kernel call on ``device``
+    (or, with ``mesh``, one a shard of contiguous oid blocks,
+    ``parallel/sharded.py:sharded_traj_stats_pane``), host
+    alive-filter."""
     ppw = size_ms // slide_ms
     operands, p_lo, n_panes = pane_operands(ts, xy, oid, num_oids, slide_ms)
-    lanes = [torch.from_numpy(a).to(dev) for a in operands]
-    res = traj_stats_pane_kernel(*lanes, num_oids=num_oids,
-                                 slide_ms=slide_ms, ppw=ppw,
-                                 n_panes=n_panes)
+    if mesh is not None:
+        from spatialflink_tpu_torch.parallel.sharded import (
+            sharded_traj_stats_pane,
+        )
+
+        res = sharded_traj_stats_pane(
+            mesh, *operands, num_oids=num_oids, slide_ms=slide_ms, ppw=ppw,
+            n_panes=n_panes)
+    else:
+        dev = resolve_device(device)
+        lanes = [torch.from_numpy(a).to(dev) for a in operands]
+        res = traj_stats_pane_kernel(*lanes, num_oids=num_oids,
+                                     slide_ms=slide_ms, ppw=ppw,
+                                     n_panes=n_panes)
     w_d = res.spatial.T.cpu().numpy()
     w_dt = res.temporal.T.cpu().numpy()
     w_cnt = res.count.T.cpu().numpy()
@@ -290,13 +301,13 @@ def traj_stats_sliding(
     device and the host engines otherwise, native first; under an active
     overload ``pane_backend`` rung (either target) it takes the host
     engines in that order on any device. A forced backend is never
-    overridden. ``mesh=`` raises (A12).
+    overridden. ``mesh``: the device engine over its ``data`` axis,
+    contiguous oid blocks a shard with no collective, equal to the
+    unsharded engine (``num_oids`` must divide by the axis); it refuses
+    the host backends.
     """
     if size_ms % slide_ms != 0:
         raise ValueError("size must be a multiple of slide for pane slicing")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (multi-GPU pane engine) is not ported yet: ROADMAP A12")
     ppw = size_ms // slide_ms
     ts = np.asarray(ts, np.int64)
     oid = np.asarray(oid, np.int64)
@@ -309,18 +320,22 @@ def traj_stats_sliding(
         )
     if backend not in ("auto", "device", "numpy", "native"):
         raise ValueError(f"unknown traj_stats backend {backend!r}")
+    if mesh is not None and backend in ("numpy", "native"):
+        raise ValueError(
+            f"mesh execution requires the device backend, not {backend!r}"
+        )
     # An active overload pane_backend rung biases "auto" to the host
     # engines, which answer as the device engine does, freeing the
     # device. Forced backends are never overridden.
     from spatialflink_tpu_torch import overload
 
-    prefer_host = (backend == "auto"
+    prefer_host = (backend == "auto" and mesh is None
                    and overload.pane_backend() in ("native", "numpy"))
-    if backend == "device" or (
+    if mesh is not None or backend == "device" or (
             backend == "auto" and not prefer_host
             and torch.device(device).type == "cuda"):
         return _traj_stats_sliding_device(ts, xy, oid, num_oids, size_ms,
-                                          slide_ms, device)
+                                          slide_ms, device, mesh=mesh)
 
     ts_sorted = len(ts) <= 1 or bool(np.all(ts[1:] >= ts[:-1]))
 

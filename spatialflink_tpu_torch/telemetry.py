@@ -300,7 +300,7 @@ class Telemetry:
         # dict; every accounting site updates exactly one bucket, so the
         # buckets sum to the globals.
         self._node_acct: Dict[Optional[str], Dict[str, Any]] = {}
-        # Collective accounting (A12 calls it): kind → {"calls",
+        # Collective accounting (parallel/ calls it): kind → {"calls",
         # "bytes"}, per-axis bytes, halo boundary-state bytes, and the
         # per-shard event-time high-water marks.
         self._collectives: Dict[str, Dict[str, int]] = {}
@@ -959,7 +959,7 @@ class Telemetry:
                           if self.wire_coded_bytes else None),
             }
 
-    # -- collective accounting (A12 calls these) -------------------------------
+    # -- collective accounting (parallel/ calls these) -------------------------
 
     def account_collective(self, kind: str, nbytes: int,
                            axis: Optional[str] = None,
@@ -1033,8 +1033,8 @@ class Telemetry:
                 self.max_watermark_lag_ms = int(lag_ms)
 
     def record_shard_watermark(self, shard: int, watermark_ms: int):
-        """Per-shard event-time high-water mark (A12's partitioned
-        paths); the merged min over shards is the safe watermark."""
+        """Per-shard event-time high-water mark (the partitioned paths,
+        A12.2); the merged min over shards is the safe watermark."""
         if not self.enabled:
             return
         with self._lock:

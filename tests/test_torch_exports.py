@@ -65,6 +65,14 @@ def test_every_jax_export_resolves_or_waits(path):
         return
     pkg = importlib.import_module(
         "spatialflink_tpu_torch" + ("." + path if path else ""))
+    # A waiting entry that names a module of the JAX package, not one of
+    # its exports (``parallel``'s A12.2 modules): the JAX file exists and
+    # the port's does not.
+    modules = {name for name in waiting if name not in names}
+    for name in modules:
+        assert (REPO / "spatialflink_tpu" / path / f"{name}.py").exists()
+        assert not (REPO / "spatialflink_tpu_torch" / path
+                    / f"{name}.py").exists(), name
     for name in names:
         if name in waiting:
             # Absent, or a submodule of that name (ops/join_kernel.py).
@@ -79,7 +87,7 @@ def test_every_jax_export_resolves_or_waits(path):
             assert obj == jobj and obj is not jobj, name
             continue
         assert obj.__module__.startswith("spatialflink_tpu_torch"), name
-    assert set(waiting) <= set(names)
+    assert set(waiting) - modules <= set(names)
 
 
 def test_waiting_table_names_an_item_for_each_entry():
@@ -115,7 +123,9 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.native, "
         "spatialflink_tpu_torch.streams.kafka, "
         "spatialflink_tpu_torch.streams.kafka_wire, "
-        "spatialflink_tpu_torch.dag, spatialflink_tpu_torch.streaming_job\n"
+        "spatialflink_tpu_torch.dag, spatialflink_tpu_torch.streaming_job, "
+        "spatialflink_tpu_torch.parallel, "
+        "spatialflink_tpu_torch.parallel.sharded\n"
         "assert spatialflink_tpu_torch.native.available()\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
@@ -242,10 +252,11 @@ def test_job_surface_modules_at_their_jax_paths():
 
 def test_every_not_ported_message_names_its_item():
     """Each ``NotImplementedError`` left in the port names the ROADMAP
-    item that ends it, A12 (the only item left), unless it is the JAX
-    package's own (a protocol feature neither package has, raised with
-    the JAX text); no source waits on any part of A11.4 (A11.4a and
-    A11.4b are ported)."""
+    item that ends it, A12.2 (the only item left: A12.1, the mesh, is
+    ported), unless it is the JAX package's own (a protocol feature
+    neither package has, raised with the JAX text); no source waits on
+    any part of A11.4 (A11.4a and A11.4b are ported) or on A12 as a
+    whole."""
     import re
 
     waiting = 0
@@ -253,16 +264,17 @@ def test_every_not_ported_message_names_its_item():
     for path in port.rglob("*.py"):
         text = path.read_text()
         assert not re.search(r"A11\.4", text), path
+        assert not re.search(r"A12(?!\.2)", text), path
         for m in re.finditer(r"(raise|return) NotImplementedError\(", text):
             body = text[m.end():m.end() + 300].split("\n\n")[0]
-            if re.search(r"A12|_MESH_WAITS|WAITING_COMPONENTS", body):
+            if re.search(r"A12\.2|WAITING_COMPONENTS", body):
                 waiting += 1
                 continue
             first = re.search(r'"([^"]{12,})"', body).group(1)
             jpath = REPO / "spatialflink_tpu" / path.relative_to(port)
             assert jpath.exists() and first in jpath.read_text(), \
                 (path, body)
-    assert waiting > 10
+    assert waiting == 3
 
 
 def _public(mod):
@@ -273,7 +285,8 @@ def _public(mod):
             == mod.__name__}
 
 
-#: Parameters the port drops (ROADMAP A12 brings them back) or adds last.
+#: Parameters the port drops (its mesh programs split the JAX kernels'
+#: in-body collectives into phases, ``parallel/sharded.py``) or adds last.
 _DROPPED = ("axis_name", "index_base")
 _ADDED = ("device",)
 

@@ -596,12 +596,14 @@ def test_run_soa_equals_the_object_path():
 def test_unported_options_raise():
     conf = QueryConfiguration()
     g = UniformGrid(**GRID16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         tops.PolygonPolygonRangeQuery(conf, g, device="cpu", mesh=object())
     op = tops.LineStringPointRangeQuery(conf, g, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         list(op.run(iter([]), [Point()], 0.1, mesh=object()))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         op.geometry_batch([], mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -350,10 +350,12 @@ def test_join_backend_rules(backend, dev, ok):
 def test_unported_options_raise():
     conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
     op = PointPointJoinQuery(conf, UniformGrid(**COARSE), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         list(op.run([], [], R, mesh=object()))
     geo = PolygonPolygonJoinQuery(conf, UniformGrid(**COARSE), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         list(geo.run([], [], R, mesh=object()))
     with pytest.raises(ValueError):
         PointPointJoinQuery(conf, UniformGrid(**COARSE), device="cpu",

@@ -756,10 +756,12 @@ def test_one_sided_windows_yield_the_jax_empties():
 def test_mesh_raises(name):
     cls = getattr(tops, f"{name}JoinQuery")
     conf = QueryConfiguration(**CONF)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         cls(conf, UniformGrid(**GRID16), device="cpu", mesh=object())
     op = cls(conf, UniformGrid(**GRID16), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         list(op.run([], [], R, mesh=object()))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

@@ -1782,3 +1782,109 @@ def test_dag_run_on_card_equals_cpu(tmp_path):
                       for n in dag.dag_nodes}
     assert sinks["card"] == sinks["cpu"]
     assert all(sinks["card"].values())
+
+
+def _card_mesh(shape=(4,), names=("data",)):
+    """Four shards of the one card (``cuda:0`` listed once a shard)."""
+    from spatialflink_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, names, devices=["cuda:0"] * int(np.prod(shape)))
+
+
+@pytest.mark.cuda
+def test_sharded_join_window_compact_b3_a_shard_on_card():
+    """The mesh grid join on four shards of the card: B3 once a shard,
+    the pair set with its distance bits equal to the unsharded
+    ``join_window`` on the card, its overflow 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract, join_window
+    from spatialflink_tpu_torch.parallel.sharded import (
+        sharded_join_window_compact,
+    )
+
+    rng = np.random.default_rng(19)
+    grid = UniformGrid(20, 0.0, 10.0, 0.0, 10.0)
+    dev = torch.device("cuda")
+    a = rng.uniform(0, 10, (4096, 2)).astype(np.float32)
+    b = rng.uniform(0, 10, (2048, 2)).astype(np.float32)
+    r = 0.3
+    cells_a = grid.assign_cells_np(a).astype(np.int32)
+    cells_b = grid.assign_cells_np(b).astype(np.int32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    valid_a = torch.ones(4096, dtype=torch.bool, device=dev)
+    valid_b = torch.ones(2048, dtype=torch.bool, device=dev)
+    join_extract.launches = 0
+    got = sharded_join_window_compact(
+        _card_mesh(), t(a), valid_a, t(grid.cell_xy_indices_np(a)), t(b),
+        valid_b, t(cells_b), grid.neighbor_offsets(r), grid_n=grid.n,
+        radius=r, cap=64, max_pairs=1 << 16)
+    assert join_extract.launches == 4
+    want = join_window(t(a), valid_a, t(cells_a), t(b), valid_b, t(cells_b),
+                       grid.n, grid.candidate_layers(r), r, 64, 64, 1 << 16)
+
+    def pairs(res):
+        li, ri, d = (x.cpu().numpy() for x in res[:3])
+        keep = li >= 0
+        return set(zip(li[keep].tolist(), ri[keep].tolist(),
+                       d[keep].view(np.uint32).tolist()))
+
+    assert pairs(got) == pairs(want) and pairs(want)
+    assert int(got.overflow) == int(want.overflow) == 0
+
+
+@pytest.mark.cuda
+def test_sharded_b4_paths_a_shard_on_card():
+    """B4 once a shard on four shards of the card: the dense polygon range
+    window program and the gathered point ⋈ polygon join, each equal to
+    its unsharded run on the card (keep masks and distance bits; the pair
+    set with its distance bits)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spatialflink_tpu_torch.operators.base import window_program
+    from spatialflink_tpu_torch.ops import join as tjoin
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.ops.range import range_polygons_fused
+    from spatialflink_tpu_torch.parallel.sharded import (
+        sharded_point_geometry_join_pruned,
+    )
+
+    rng = np.random.default_rng(20)
+    dev = torch.device("cuda")
+    n, p = 8192, 40
+    xy = torch.from_numpy(rng.uniform(0, 10, (n, 2)).astype(np.float32))
+    centres = rng.uniform(1, 9, (p, 2))
+    ring = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1], [-1, -1]]) * 0.3
+    verts = torch.from_numpy(
+        (centres[:, None, :] + ring[None]).astype(np.float32))
+    ev = torch.ones((p, 4), dtype=torch.bool)
+    cell = torch.from_numpy(rng.integers(0, 400, n).astype(np.int32))
+    flags = torch.from_numpy(rng.integers(0, 3, 401).astype(np.uint8))
+    args = [x.to(dev) for x in (xy, torch.ones(n, dtype=torch.bool), cell,
+                                flags, verts, ev)]
+    polyline_min_dist.launches = 0
+    got = window_program(_card_mesh(), range_polygons_fused, (0, 1, 2),
+                         7)(*args, 0.2)
+    assert polyline_min_dist.launches == 4
+    want = range_polygons_fused(*args, 0.2)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    bbox = torch.cat([verts.amin(dim=1), verts.amax(dim=1)], dim=1)
+    jargs = (args[0], args[1], args[4], args[5],
+             torch.ones(p, dtype=torch.bool, device=dev), bbox.to(dev), 0.1)
+    kw = dict(polygonal=True, block=256, cand=p, max_pairs=1 << 15,
+              pair_cap=p)
+    polyline_min_dist.launches = 0
+    res = sharded_point_geometry_join_pruned(_card_mesh(), *jargs, **kw)
+    assert polyline_min_dist.launches == 4
+    one = tjoin.point_geometry_join_pruned_kernel(*jargs, **kw)
+
+    def pairs(r):
+        li, ri, d = (x.cpu().numpy() for x in r[:3])
+        keep = li >= 0
+        return set(zip(li[keep].tolist(), ri[keep].tolist(),
+                       d[keep].view(np.uint32).tolist()))
+
+    assert pairs(res) == pairs(one) and pairs(one)
+    assert int(res.cand_overflow) == int(one.cand_overflow) == 0

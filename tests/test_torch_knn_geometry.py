@@ -476,11 +476,13 @@ def test_k_above_segments_raises_in_the_same_window(stream_kind):
 def test_unported_options_raise():
     conf = QueryConfiguration()
     g = UniformGrid(**GRID16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         tops.PolygonPolygonKNNQuery(conf, g, device="cpu", mesh=object())
     op = tops.LineStringPolygonKNNQuery(conf, g, device="cpu")
     q, _ = _query("polygon", np.random.default_rng(50))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         next(op.run(iter([]), q, R, 5, mesh=object()))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

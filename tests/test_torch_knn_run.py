@@ -359,11 +359,13 @@ def test_run_wire_panes_raises_at_entry_for_k_above_segments():
 def test_unported_options_raise():
     conf = QueryConfiguration()
     g = UniformGrid(**GRID16)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         PointPolygonKNNQuery(conf, g, device="cpu", mesh=object())
     op = PointLineStringKNNQuery(conf, g, device="cpu")
     q = _query("linestring")[0]
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         next(op.run(iter([]), q, R, 5, mesh=object()))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

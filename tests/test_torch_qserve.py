@@ -1,7 +1,7 @@
 """Standing-query serving in the port (``spatialflink_tpu_torch/qserve.py``)
 against the JAX package's (``spatialflink_tpu/qserve.py``), on the CPU,
 with ``tests/test_qserve.py`` as the oracle, test for test (its mesh case
-waits for ROADMAP A12; its ``streaming_job`` case is in
+is in ``tests/test_torch_parallel_operators.py``; its ``streaming_job`` case is in
 ``tests/test_torch_streaming_job.py`` and the kernel cases are in
 ``tests/test_torch_query_registry.py``).
 
@@ -17,8 +17,9 @@ blocks and the overload controller's tenant blocks are held equal.
 Then the port's own: the ``qserve`` checkpoint component, a kill mid-churn
 resumed to byte-identical egress, a JAX checkpoint resumed by the port,
 the ``qserve.register`` fault point, ``tools/sfprof`` reading the port's
-ledger, the host-memory rule for the flag tables, ``mesh=`` raising
-naming A12, and the 1,024-query acceptance shape at full size.
+ledger, the host-memory rule for the flag tables, ``mesh=`` refusing a
+value that is not a mesh, and the 1,024-query acceptance shape at full
+size.
 """
 
 import json
@@ -910,13 +911,15 @@ def test_flag_tables_are_never_shipped_by_reference():
 
 
 def test_mesh_and_device_entry_points():
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises at each entry point.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         qserve.QServeOperator(PORT.conf(), PORT.grid(), mesh=object(),
                               device="cpu")
     op = _op(PORT)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         next(iter(op.run(iter([]), mesh=object())))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         op.serve_window(None, None, mesh=object())
     assert op.device.type == "cpu"
     if torch.cuda.is_available():

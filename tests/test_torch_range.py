@@ -712,12 +712,14 @@ def test_device_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             PointPolygonRangeQuery(conf, g)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises; the partitioned run waits (A12.2).
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         PointPointRangeQuery(conf, g, device="cpu", mesh=object())
     op = PointPointRangeQuery(conf, g, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         list(op.run(iter([]), [Point()], 0.1, mesh=object()))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A12.2"):
         op.run_partitioned(iter([]), [Point()], 0.1, None)
 
 

@@ -19,8 +19,9 @@ rule); the join's lines are compared as a multiset, its emission order
 being block-major in the JAX package (``tests/test_pallas_join.py:108``'s
 set rule). Option 10 is in ``tests/test_torch_dag.py``.
 
-Then the port's own: ``deviceMesh`` above one card raising naming A12, a
-mesh of one running unsharded, and the card default raising with no card.
+Then the port's own: ``deviceMesh`` sharding on the CPU with the
+unsharded output and raising above the visible cards, a mesh of one
+running unsharded, and the card default raising with no card.
 """
 
 import os
@@ -355,16 +356,30 @@ def test_streaming_job_option9_serves_and_checkpoints(tmp_path,
 
 
 def test_device_mesh_above_one_card_raises_naming_a12(tmp_path):
+    """``deviceMesh`` is ported: on ``backend: cpu`` a (2, 1) mesh runs
+    sharded with the unsharded output; on ``backend: cuda`` a mesh above
+    the visible cards raises "need N devices, have M", as JAX's
+    ``make_mesh`` (tests/test_torch_parallel_operators.py holds more)."""
+    import torch
+
     csv = _range_csv(tmp_path)
     conf = tmp_path / "conf.yml"
     conf.write_text(_yaml(1) + "deviceMesh: [2, 1]\n")
-    with pytest.raises(NotImplementedError, match="A12"):
-        main(["--config", str(conf), "--source", f"csv:{csv}",
-              "--output", str(tmp_path / "o.csv")])
+    assert main(["--config", str(conf), "--source", f"csv:{csv}",
+                 "--output", str(tmp_path / "m.csv")]) == 0
     conf.write_text(_yaml(1) + "deviceMesh: [1, 1]\n")
     assert main(["--config", str(conf), "--source", f"csv:{csv}",
                  "--output", str(tmp_path / "o.csv")]) == 0
     assert len((tmp_path / "o.csv").read_text().splitlines()) == 25
+    assert (tmp_path / "m.csv").read_text() == \
+        (tmp_path / "o.csv").read_text()
+    n = torch.cuda.device_count()
+    conf.write_text(_yaml(1).replace("backend: cpu", "backend: cuda")
+                    + f"deviceMesh: [{2 * max(n, 1)}]\n")
+    with pytest.raises((ValueError, RuntimeError),
+                       match="need|is_available"):
+        main(["--config", str(conf), "--source", f"csv:{csv}",
+              "--output", str(tmp_path / "c.csv")])
 
 
 def test_card_backend_raises_without_a_card(tmp_path):

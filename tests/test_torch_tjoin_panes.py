@@ -30,8 +30,9 @@ Contracts held:
 - the segmented scan under a pipeline policy equals the one scan; a
   JAX carry handed over through ``state.tjoin_pane_carry_from_jax``
   continues to the JAX scan's window minima;
-- the guards and ``mesh=`` (not ported) raise as stated; the forced
-  native engine runs.
+- the guards raise as stated, ``mesh=`` refuses a value that is not a
+  mesh (the mesh itself is in ``tests/test_torch_parallel*.py``); the
+  forced native engine runs.
 """
 
 import jax
@@ -274,8 +275,10 @@ def test_expired_pane_fields_and_unported_mesh():
                                            jnp.asarray(valid.numpy()), ppw)
             for g, w in zip(got, want):
                 assert np.array_equal(g.numpy(), np.asarray(w))
+    # ``mesh=`` is ported (tests/test_torch_parallel.py): a value that is
+    # not a mesh raises.
     carry = ttp.tjoin_pane_init(4, 2, 2, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch"):
         ttp.tjoin_pane_scan(carry, [], (), (), 1.0, 2, 2, 1, 2, 2, 1,
                             mesh=object())
 
@@ -519,6 +522,8 @@ def test_guards_raise_value_error(case):
     # The native engine was waiting for ROADMAP A11.4a: it runs now and
     # answers as the device engine does on a single point a side.
     pytest.param({"backend": "native"}, "A11", id="kw0-A11"),
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
     pytest.param({"mesh": object()}, "A12", id="kw1-A12")])
 def test_unported_options_raise(kw, item):
     if item == "A11":
@@ -532,7 +537,7 @@ def test_unported_options_raise(kw, item):
              for w in want]
         assert got and got[0][5] == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch"):
         list(_port(1.0, 0.5).run_soa_panes(_one_point(), _one_point(), 0.5,
                                            4, **kw))
 

@@ -144,7 +144,8 @@ def test_int32_span_guard_and_argument_checks():
 def test_unported_backends_raise():
     """``backend="native"`` (ROADMAP A11.4a, ported) runs the C++ engine
     and answers bit for bit as the numpy engine and the JAX package's
-    native engine; ``mesh=`` (A12) raises."""
+    native engine; ``mesh=`` refuses a value that is not a mesh (the
+    mesh itself is in ``tests/test_torch_parallel_operators.py``)."""
     from spatialflink_tpu_torch import native
 
     assert native.available()
@@ -158,6 +159,6 @@ def test_unported_backends_raise():
         for a in ("starts", "spatial", "temporal", "count"):
             assert np.array_equal(getattr(got, a), getattr(want, a)), a
             assert getattr(got, a).dtype == getattr(want, a).dtype
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch"):
         tpanes.traj_stats_sliding(*args[:3], 8, 1000, 1000, device="cpu",
                                   mesh=object())

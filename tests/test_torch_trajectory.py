@@ -657,9 +657,11 @@ def test_unported_options_raise_naming_their_items():
                                          backend="native") if w[5]]
     assert (win[2].tolist(), win[3].tolist(), win[4].tolist()) == \
         ([0], [0], [0.0])
-    with pytest.raises(NotImplementedError, match="A12"):
+    # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
+    # value that is not a mesh raises.
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch"):
         PointTStatsQuery(conf, grid, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch"):
         next(op.run(iter([]), iter([]), 1.0, mesh=object()))
     with pytest.raises(TypeError):
         trajectory_state_from_jax(object())
