@@ -14,6 +14,7 @@ NVIDIA card.
     python3 chip_smoke.py --jobsurface-only   # phases 1-2 and 35
     python3 chip_smoke.py --dag-only          # phases 1-2 and 36
     python3 chip_smoke.py --mesh-only         # phases 1-2 and 37
+    python3 chip_smoke.py --partition-only    # phases 1-2 and 38
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -442,7 +443,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (``QServeOperator.run`` through ``sharded_registry_bucket``), egress
    lines equal; (e) ``traj_stats_sliding(mesh=)`` on bench_tstats_pane
    cut to 262,144 points (counts and temporal sums exact, spatial sums
-   within ``pane_spatial_bound``) and ``run_soa_panes(mesh=)`` at 200
+   within ``pane_spatial_bound``) and ``run_soa_panes(mesh=)`` at 100
    panes a side, windows equal; (f) ``streaming_job.main`` with
    ``deviceMesh: [4]`` on ``backend: cuda`` raising "need 4 devices,
    have 1" on the one card, and the DAG smoke's mesh child on the card
@@ -451,9 +452,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
    unsharded ms a window (four shards on one card: the split and
    collective overhead, not a scaling figure), the collective gauges and
    the B3 and B4 launches it adds.
+38. the grid-partitioned halo layer and multi-process runs
+   (``parallel/partition.py``, ``ops/halo.py``, ``parallel/halo.py``,
+   ``parallel/multihost.py``), on an eight-shard mesh of ``cuda:0``:
+   (a) ``sharded_range_halo`` at the JAX suite's range_8shard_halo
+   (Beijing grid n = 1,024, r = 0.002, 4 windows of 16,384 float64
+   points and 4,096 queries from seed 47), keep and distance bits equal
+   to the single-device ``range_partitioned_kernel`` on the card, keep
+   sets equal to the replicated ``sharded_range_query``, every window
+   equal to its CPU run, the halo's ppermute and halo-state bytes beside
+   the replicated broadcast's; (b) ``python -m
+   spatialflink_tpu_torch.driver --chaos-sharded-child`` on the card
+   clean, killed by an ``abort`` at the fifth ``shard.exchange`` (exit
+   137) and resumed, and on the CPU, the resumed egress byte-identical
+   to both; (c) ``sharded_tjoin_panes_halo`` at tjoin_8shard_halo (grid
+   n = 256, r = 0.005, ppw 4, 8 slides of 2,048 points a side), every
+   slide's pairs, count and distance bits equal to the single-device
+   ``join_partitioned_kernel``, and one slide at a budget below its
+   pairs (overflow above 0, the count whole) equal to its CPU run; (d)
+   ``sharded_registry_bucket_halo`` on qserve_1024q_mixed's first window
+   (131,072 points, its 1,024 queries, k = 32, the plan for r = 0.05)
+   bit-equal to the single-device kernel on the card and to its CPU run;
+   (e) ``run_dryrun(2, 2, device="cuda")``: two gloo ranks of two shards
+   each, both printing the OK line, beside the card's compute mode. The
+   children of (b) and (e) start before phase 36 in the full run (at the
+   phase's start under ``--partition-only``). Each leg prints its ms on
+   the card.
 
-In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25 and
-26) run in two spawned worker processes of one torch thread each, at
+In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25, 26
+and 38) run in two spawned worker processes of one torch thread each, at
 the lowest scheduling priority, started before phase 2; the main
 process gives their threads cores of its own. Each returns a
 digest of the inputs it built, which must equal the digest of the card
@@ -8106,9 +8133,12 @@ def dag_child(workdir, device="cuda") -> int:
 DAG_CHILDREN = []
 
 
-def start_background(cmd, env=None):
+def start_background(cmd, env=None, owner=None):
     """``cmd`` from the checkout's root with the armed ``SFT_*`` plans
-    scrubbed (``env`` adds its own), its output piped."""
+    scrubbed (``env`` adds its own), its output piped, in this process's
+    group (a signal to the group reaches it); listed in ``owner`` (by
+    default ``DAG_CHILDREN``), whose owner stops it (``stop_children``)
+    if it outlives its phase."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -8118,8 +8148,24 @@ def start_background(cmd, env=None):
     proc = subprocess.Popen(cmd, cwd=root, env={**base, **(env or {})},
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
-    DAG_CHILDREN.append(proc)
+    (DAG_CHILDREN if owner is None else owner).append(proc)
     return proc
+
+
+def stop_children(procs):
+    """Stop each process of ``procs`` still running and empty the list:
+    SIGTERM first, so that a child with children of its own (the dry
+    run's ranks) stops them, then SIGKILL after 10 s."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    procs.clear()
 
 
 def kill_then_resume(cmd, plan, label, timeout=300):
@@ -8181,11 +8227,7 @@ def check_dag(card, gpu="cuda"):
     try:
         return run_dag_phase(card, gpu)
     finally:
-        for proc in DAG_CHILDREN:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        DAG_CHILDREN.clear()
+        stop_children(DAG_CHILDREN)
 
 
 def run_dag_phase(card, gpu):
@@ -8468,15 +8510,16 @@ def run_dag_phase(card, gpu):
 # 7) cut to 1 window of 65,536 Points; 37c phase 9's first second and
 # phase 20's 2 x 8,192 cut; 37d qserve_1024q_mixed's first of 8 windows
 # (34b's stream); 37e bench_tstats_pane cut to 262,144 points and phase
-# 26's pane-carry tJoin cut to 200 panes a side (35a's cut). The phase
-# took 23.0-28.5 s of wall with 2 windows in 37a, 37b and 37d on two
-# whole runs (PERF.md §6), over its 25 s, so those legs take one window.
+# 26's pane-carry tJoin on the stream's first chunk, 100 panes a side
+# (``tpanes_stream`` chunks by 100 panes). The phase took 23.0-28.5 s of
+# wall with 2 windows in 37a, 37b and 37d on two whole runs (PERF.md §6),
+# over its 25 s, so those legs take one window.
 MESH_SHARDS = 4
 MESH_WIN = 65_536
 MESH_WINDOWS = 1
 MESH_QS_WINDOWS = 1
 MESH_TS_POINTS = 262_144
-MESH_TP_PANES = TP_TRACE_PANES
+MESH_TP_PANES = 100
 
 
 def mesh_of(gpu, shape=(MESH_SHARDS,), names=("data",)):
@@ -8853,6 +8896,485 @@ def run_mesh_phase(card, gpu, child, smoke_line):
     return total
 
 
+# Phase 38: the grid-partitioned halo layer and multi-process runs. 38a is
+# the JAX suite's range_8shard_halo (bench_suite.py:1443-1523: Beijing
+# grid n = 1,024, r = 0.002, one-layer halo; 4 windows of 16,384 points
+# and 4,096 query points from seed 47; 8 shards), uncut, in float64; 38c
+# its tjoin_8shard_halo (bench_suite.py:1525-1642: grid n = 256, r =
+# 0.005, ppw 4, 8 slides of 2,048 points a side from seeds 53 and 54),
+# uncut; 38d the halo registry bucket on qserve_1024q_mixed's first
+# window (131,072 points, the 1,024 queries, the plan built for the
+# largest radius class, k = 32 over 16,384 objIDs).
+HALO_SHARDS = 8
+HALO_N = 1024
+HALO_R = 0.002
+HALO_WIN = 16_384
+HALO_WINDOWS = 4
+HALO_QUERIES = 4096
+HALO_SEED = 47
+HT_N = 256
+HT_R = 0.005
+HT_PPW = 4
+HT_SLIDE_PTS = 2048
+HT_SLIDES = 8
+HT_BUDGET = 65_536
+HT_CUT_SLIDE = 5        # the slide run again at a budget below its pairs
+HR_K = 32
+HR_R_MAX = 0.05         # the qserve set's largest radius class
+
+
+def halo_grid(n):
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    return UniformGrid(n, BEIJING["min_x"], BEIJING["max_x"],
+                       BEIJING["min_y"], BEIJING["max_y"])
+
+
+def halo_mesh(gpu):
+    """The eight-shard data mesh of 38a-38d: ``gpu`` listed once a shard
+    (``cuda:0`` on the card)."""
+    from spatialflink_tpu_torch.parallel.mesh import data_mesh
+
+    dev = "cuda:0" if gpu == "cuda" else gpu
+    mesh = data_mesh(HALO_SHARDS, devices=[dev] * HALO_SHARDS)
+    if gpu == "cuda" and {d.type for d in mesh.devices.flat} != {"cuda"}:
+        raise AssertionError(f"phase 38: mesh {mesh} is not on the card")
+    return mesh
+
+
+def halo_range_inputs():
+    """38a's stream, as the suite makes it: (grid, plan, xy, cell, qxy,
+    qcell), float64 positions."""
+    from spatialflink_tpu_torch.parallel.partition import plan_partition
+
+    grid = halo_grid(HALO_N)
+    rng = np.random.default_rng(HALO_SEED)
+    total = HALO_WIN * HALO_WINDOWS
+    xy = np.stack([rng.uniform(115.5, 117.6, total),
+                   rng.uniform(39.6, 41.1, total)], axis=1)
+    qxy = np.stack([rng.uniform(115.6, 117.5, HALO_QUERIES),
+                    rng.uniform(39.7, 41.0, HALO_QUERIES)], axis=1)
+    return (grid, plan_partition(grid, HALO_SHARDS, HALO_R), xy,
+            grid.assign_cells_np(xy), qxy, grid.assign_cells_np(qxy))
+
+
+def halo_range_run(gpu, inputs):
+    """38a's windows through ``sharded_range_halo`` on the eight-shard
+    mesh of ``gpu``: ([(keep, dist)] a window, seconds)."""
+    grid, plan, xy, cell, qxy, qcell = inputs
+    mesh = halo_mesh(gpu)
+    ok, qok = np.ones(HALO_WIN, bool), np.ones(HALO_QUERIES, bool)
+    from spatialflink_tpu_torch.parallel.halo import sharded_range_halo
+
+    t0 = time.perf_counter()
+    out = []
+    for w in range(HALO_WINDOWS):
+        sl = slice(w * HALO_WIN, (w + 1) * HALO_WIN)
+        out.append(sharded_range_halo(mesh, plan, xy[sl], ok, cell[sl], qxy,
+                                      qcell, qok, HALO_R))
+    return out, time.perf_counter() - t0
+
+
+def halo_tjoin_inputs():
+    """38c's panes, as the suite makes them: (plan, left, right, ts),
+    each side a list of (xy, valid, cell) slides."""
+    from spatialflink_tpu_torch.parallel.partition import plan_partition
+
+    grid = halo_grid(HT_N)
+    total = HT_SLIDE_PTS * HT_SLIDES
+    ok = np.ones(HT_SLIDE_PTS, bool)
+
+    def side(seed):
+        r = np.random.default_rng(seed)
+        sxy = np.stack([r.uniform(115.5, 117.6, total),
+                        r.uniform(39.6, 41.1, total)], axis=1)
+        scell = grid.assign_cells_np(sxy)
+        return [(sxy[i * HT_SLIDE_PTS:(i + 1) * HT_SLIDE_PTS], ok,
+                 scell[i * HT_SLIDE_PTS:(i + 1) * HT_SLIDE_PTS])
+                for i in range(HT_SLIDES)]
+
+    return (plan_partition(grid, HALO_SHARDS, HT_R), side(53), side(54),
+            np.arange(HT_SLIDES, dtype=np.int64) * 1000)
+
+
+def halo_slide(panes, i):
+    lo = max(0, i - HT_PPW + 1)
+    return tuple(np.concatenate([p[j] for p in panes[lo:i + 1]])
+                 for j in range(3))
+
+
+def halo_tjoin_cut(gpu, inputs, budget):
+    """38c's slide ``HT_CUT_SLIDE`` through ``sharded_join_halo`` at
+    ``budget`` pairs a shard."""
+    from spatialflink_tpu_torch.parallel.halo import sharded_join_halo
+
+    plan, left, right, _ = inputs
+    return sharded_join_halo(halo_mesh(gpu), plan,
+                             *halo_slide(left, HT_CUT_SLIDE),
+                             *halo_slide(right, HT_CUT_SLIDE), HT_R, budget)
+
+
+def halo_registry_inputs():
+    """38d's window and queries: qserve_1024q_mixed's first window of
+    131,072 float64 points and its 1,024 queries, k = 32 for all; the
+    plan for the largest radius class."""
+    from spatialflink_tpu_torch.parallel.partition import plan_partition
+
+    grid = halo_grid(BEIJING["num_partitions"])
+    xy, oid = qserve_points()
+    xy, oid = xy[:QS_WIN], oid[:QS_WIN]
+    rng = np.random.default_rng(QS_QUERY_SEED)
+    qs = [qserve_query(rng, i) for i in range(QS_QUERIES)]
+    qxy = np.array([[q.x, q.y] for q in qs])
+    radius = np.array([q.radius for q in qs])
+    return (grid, plan_partition(grid, HALO_SHARDS, HR_R_MAX), xy,
+            grid.assign_cells_np(xy), oid, qxy, grid.assign_cells_np(qxy),
+            radius)
+
+
+def halo_registry_run(gpu, inputs):
+    """38d through ``sharded_registry_bucket_halo`` on the mesh of
+    ``gpu``: (dist, segment, num_valid, within), seconds."""
+    from spatialflink_tpu_torch.parallel.halo import (
+        sharded_registry_bucket_halo,
+    )
+
+    grid, plan, xy, cell, oid, qxy, qcell, radius = inputs
+    t0 = time.perf_counter()
+    out = sharded_registry_bucket_halo(
+        halo_mesh(gpu), plan, xy, np.ones(len(xy), bool), cell, oid, qxy,
+        qcell, radius, np.ones(len(qxy), bool), k=HR_K, num_segments=QS_IDS)
+    return out, time.perf_counter() - t0
+
+
+def same_bytes(a, b) -> bool:
+    """Two host results equal bit for bit: dtype, shape and bytes."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+#: Phase 38's child processes: stopped if the run ends before the phase
+#: collects them.
+PARTITION_CHILDREN = []
+
+
+def start_partition_children(gpu):
+    """38b's and 38e's processes, started before phase 38 so that they
+    overlap other work: the sharded chaos child clean on ``gpu`` and on
+    the CPU, the armed child killed mid-exchange then its resume (a
+    thread waits on the pair), and the two-process dry run
+    (``multihost_dryrun``'s ``run_dryrun(num_processes=2,
+    local_devices=2, device=gpu)``). Returns the handles
+    ``check_partition`` joins."""
+    import tempfile
+    import threading
+
+    tmp = tempfile.mkdtemp(prefix="phase38_")
+    h = {"tmp": tmp, "errors": [], "t0": time.perf_counter()}
+
+    def child(name, device, plan=None):
+        d = os.path.join(tmp, name)
+        os.makedirs(d, exist_ok=True)
+        env = {"SFT_FAULT_PLAN": json.dumps(plan)} if plan else None
+        return d, start_background(
+            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
+             "--chaos-sharded-child", d, "--device", device], env,
+            owner=PARTITION_CHILDREN)
+
+    h["clean"] = child("clean", gpu)
+    h["cpu"] = child("cpu", "cpu")
+    h["dryrun"] = start_background(
+        [sys.executable, "-m", "spatialflink_tpu_torch.parallel."
+         "multihost_dryrun", "--device", gpu], owner=PARTITION_CHILDREN)
+    plan = [{"point": "shard.exchange", "kind": "abort", "at": 5}]
+    kill_dir, kill = child("chaos", gpu, plan)
+
+    def chain():
+        try:
+            _, err = kill.communicate(timeout=300)
+            if kill.returncode != 137:
+                raise AssertionError(f"38b: the kill child exited "
+                                     f"{kill.returncode}, not 137\n"
+                                     f"{err[-2000:]}")
+            h["killed_s"] = time.perf_counter() - h["t0"]
+            h["resume"] = child("chaos", gpu)
+            out, err = h["resume"][1].communicate(timeout=300)
+            if h["resume"][1].returncode != 0:
+                raise AssertionError(f"38b: the resume child failed\n"
+                                     f"{err[-2000:]}")
+            h["resumed_s"] = time.perf_counter() - h["t0"]
+        except BaseException as e:  # re-raised by check_partition
+            h["errors"].append(e)
+
+    h["thread"] = threading.Thread(target=chain, daemon=True)
+    h["thread"].start()
+    return h
+
+
+def check_partition(card, gpu="cuda", children=None):
+    """Phase 38: the grid-partitioned halo layer and multi-process runs.
+    ``children``: 38b's and 38e's processes (``start_partition_children``)
+    when an earlier phase started them, else they start here."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    h = children or start_partition_children(gpu)
+    try:
+        run_partition_phase(card, gpu, h)
+    finally:
+        stop_children(PARTITION_CHILDREN)
+        h["thread"].join(timeout=60)
+        shutil.rmtree(h["tmp"], ignore_errors=True)
+    print(f"phase 38 wall: {time.perf_counter() - t_phase:.3f} s of this "
+          f"process (the children started "
+          f"{t_phase - h['t0']:.3f} s before it) [{card}]")
+
+
+def run_partition_phase(card, gpu, h):
+    import torch
+
+    from spatialflink_tpu_torch.ops.halo import (
+        join_partitioned_kernel,
+        range_partitioned_kernel,
+        registry_bucket_partitioned_kernel,
+    )
+    from spatialflink_tpu_torch.parallel.sharded import sharded_range_query
+    from spatialflink_tpu_torch.telemetry import telemetry
+
+    dev = torch.device("cuda", 0) if gpu == "cuda" else torch.device(gpu)
+
+    def sync():
+        if gpu == "cuda":
+            torch.cuda.synchronize()
+
+    def on(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    def gauges(run):
+        telemetry.enable()
+        try:
+            out = run()
+            coll = telemetry.snapshot().get("collectives") or {}
+        finally:
+            telemetry.disable()
+        return out, coll
+
+    # 38a. The halo range at range_8shard_halo, against the single-device
+    # kernel and the replicated flag-table path on the card.
+    t0 = time.perf_counter()
+    inputs = halo_range_inputs()
+    grid, plan, xy, cell, qxy, qcell = inputs
+    halo_range_run(gpu, inputs)  # warm: the first CUDA calls of the phase
+    sync()
+    (got, secs), coll = gauges(lambda: halo_range_run(gpu, inputs))
+    sync()
+    ok = np.ones(HALO_WIN, bool)
+    q_t = on(qxy, qcell, np.ones(HALO_QUERIES, bool))
+    table = grid.neighbor_flags(HALO_R, [int(c) for c in qcell])
+    single_s = 0.0
+    replicated_bytes = 0
+    for w, (keep, dist) in enumerate(got):
+        sl = slice(w * HALO_WIN, (w + 1) * HALO_WIN)
+        p_t = on(xy[sl], ok, cell[sl])
+        sync()
+        t1 = time.perf_counter()
+        keep1, dist1 = range_partitioned_kernel(
+            p_t[0], p_t[1], p_t[2], q_t[0], q_t[1], q_t[2], HALO_R,
+            grid_n=plan.grid_n, layers=plan.layers,
+            guaranteed=plan.guaranteed)
+        keep1, dist1 = keep1.cpu().numpy(), dist1.cpu().numpy()
+        single_s += time.perf_counter() - t1
+        if not (same_bytes(keep, keep1) and same_bytes(dist, dist1)):
+            raise AssertionError(f"38a: window {w} differs from the "
+                                 f"single-device kernel on the card")
+        (keep_r, _), legacy = gauges(lambda: sharded_range_query(
+            halo_mesh(gpu), p_t[0], p_t[1],
+            on(table[cell[sl]])[0], q_t[0], HALO_R))
+        replicated_bytes += int(legacy.get("bytes") or 0)
+        if not np.array_equal(keep, keep_r.cpu().numpy()):
+            raise AssertionError(f"38a: window {w}'s keep set differs from "
+                                 f"the replicated flag-table path")
+    hits = sum(int(k.sum()) for k, _ in got)
+    if not hits:
+        raise AssertionError("38a: no point kept (a vacuous check)")
+    halo_b = int(((coll.get("by_kind") or {}).get("ppermute") or {})
+                 .get("bytes") or 0)
+    halo_state = int(coll.get("halo_state_bytes") or 0)
+    if gpu == "cuda" and halo_b * 4 > replicated_bytes:
+        raise AssertionError(f"38a: the halo moved {halo_b} B against the "
+                             f"replicated path's {replicated_bytes} B")
+    print(f"partition 38a range_halo: {HALO_WINDOWS} windows x {HALO_WIN} "
+          f"points x {HALO_QUERIES} queries, {hits} kept, float64; mesh "
+          f"{1e3 * secs / HALO_WINDOWS:.3f} ms a window ({HALO_SHARDS} "
+          f"shards on one {card} — not a scaling figure), single-device "
+          f"kernel {1e3 * single_s / HALO_WINDOWS:.3f} ms a window; keep "
+          f"and dist bits equal to it, keep sets equal to the replicated "
+          f"sharded_range_query; collectives: halo ppermute {halo_b} B, "
+          f"halo state {halo_state} B, replicated broadcast "
+          f"{replicated_bytes} B [{card}]")
+
+    def held_range(got=got):
+        want, cpu_s = twin("halo_range", xy, qxy)
+        for w, ((k, d), (wk, wd)) in enumerate(zip(got, want)):
+            if not (same_bytes(k, wk) and same_bytes(d, wd)):
+                raise AssertionError(f"38a: window {w} differs from the "
+                                     f"CPU run")
+        print(f"exact partition 38a: all {len(got)} windows equal the CPU "
+              f"run ({cpu_s:.3f} s on the host CPU) [{card}]")
+    later(held_range)
+    print(f"phase 38 a: {time.perf_counter() - t0:.3f} s [{card}]")
+
+    # 38c. The halo join and the tJoin pane scan at tjoin_8shard_halo.
+    t0 = time.perf_counter()
+    from spatialflink_tpu_torch.parallel.halo import sharded_tjoin_panes_halo
+
+    tj = halo_tjoin_inputs()
+    tplan, left, right, ts = tj
+    mesh = halo_mesh(gpu)
+    sync()
+    t1 = time.perf_counter()
+    res = sharded_tjoin_panes_halo(mesh, tplan, ts, left, right, HT_R,
+                                   HT_PPW, HT_BUDGET)
+    sync()
+    mesh_s = time.perf_counter() - t1
+    single_s, pairs = 0.0, 0
+    for i, (li, ri, dv, count, over) in enumerate(res):
+        args = on(*halo_slide(left, i), *halo_slide(right, i))
+        sync()
+        t1 = time.perf_counter()
+        out = join_partitioned_kernel(*args, HT_R, grid_n=tplan.grid_n,
+                                      layers=tplan.layers, budget=HT_BUDGET)
+        wli, wri, wdv, wcount, wover = (o.cpu().numpy() for o in out)
+        single_s += time.perf_counter() - t1
+        found = wli >= 0
+        order = np.lexsort((wri[found], wli[found]))
+        if (count, over) != (int(wcount), int(wover)) or over or not (
+                same_bytes(li, wli[found][order])
+                and same_bytes(ri, wri[found][order])
+                and same_bytes(dv, wdv[found][order])):
+            raise AssertionError(f"38c: slide {i} differs from the "
+                                 f"single-device kernel on the card")
+        pairs += count
+    if not pairs:
+        raise AssertionError("38c: no pair (a vacuous check)")
+    full = res[HT_CUT_SLIDE][3]
+    budget = max(1, full // (2 * HALO_SHARDS))
+    cut = halo_tjoin_cut(gpu, tj, budget)
+    want = halo_tjoin_cut("cpu", tj, budget)
+    if cut[3] != full or cut[4] <= 0 or not all(
+            same_bytes(a, b) for a, b in zip(cut, want)):
+        raise AssertionError(f"38c: the budget-cut slide (count {cut[3]}, "
+                             f"overflow {cut[4]}) differs from its CPU run")
+    print(f"partition 38c tjoin_halo: {HT_SLIDES} slides x {HT_SLIDE_PTS} "
+          f"points a side, ppw {HT_PPW}, {pairs} pairs; mesh "
+          f"{1e3 * mesh_s / HT_SLIDES:.3f} ms a slide, single-device kernel "
+          f"{1e3 * single_s / HT_SLIDES:.3f} ms a slide, every slide's "
+          f"pairs, count and distance bits equal to it; slide "
+          f"{HT_CUT_SLIDE} at {budget} pairs a shard: count {cut[3]}, "
+          f"overflow {cut[4]}, the kept pairs equal to its CPU run "
+          f"[{card}]")
+    print(f"phase 38 c: {time.perf_counter() - t0:.3f} s [{card}]")
+
+    # 38d. The halo registry bucket on qserve_1024q_mixed's first window.
+    t0 = time.perf_counter()
+    rin = halo_registry_inputs()
+    rgrid, rplan, rxy, rcell, roid, rqxy, rqcell, rrad = rin
+    got_r, reg_s = halo_registry_run(gpu, rin)
+    args = on(rxy, np.ones(len(rxy), bool), rcell, roid, rqxy, rqcell, rrad,
+              np.ones(len(rqxy), bool))
+    sync()
+    t1 = time.perf_counter()
+    one = [o.cpu().numpy() for o in registry_bucket_partitioned_kernel(
+        *args, grid_n=rplan.grid_n, layers=rplan.layers, k=HR_K,
+        num_segments=QS_IDS)]
+    one_s = time.perf_counter() - t1
+    if not all(same_bytes(a, b) for a, b in zip(got_r, one)):
+        raise AssertionError("38d: the halo registry bucket differs from "
+                             "the single-device kernel on the card")
+    if not got_r[3].sum():
+        raise AssertionError("38d: no query found an object (vacuous)")
+    print(f"partition 38d registry_halo: {QS_WIN} points x {QS_QUERIES} "
+          f"queries, k = {HR_K}, plan for r = {HR_R_MAX} ({rplan.layers} "
+          f"layers, halo {rplan.halo} cells), {int(got_r[3].sum())} "
+          f"in-radius objects over the queries; mesh {1e3 * reg_s:.3f} ms "
+          f"(with its first call), single-device kernel {1e3 * one_s:.3f} "
+          f"ms; every lane equal to it [{card}]")
+
+    def held_registry(got=got_r):
+        want, cpu_s = twin("halo_registry", rxy, rqxy, rrad)
+        if not all(same_bytes(a, b) for a, b in zip(got, want)):
+            raise AssertionError("38d: differs from the CPU run")
+        print(f"exact partition 38d: the bucket equals the CPU run "
+              f"({cpu_s:.3f} s on the host CPU) [{card}]")
+    later(held_registry)
+    print(f"phase 38 d: {time.perf_counter() - t0:.3f} s [{card}]")
+
+    # 38b and 38e: join the children started before the phase.
+    t0 = time.perf_counter()
+    h["thread"].join(timeout=600)
+    if h["errors"]:
+        raise h["errors"][0]
+    egress = {}
+    for name in ("clean", "cpu"):
+        d, proc = h[name]
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"38b: the {name} child failed\n"
+                                 f"{err[-2000:]}")
+        with open(os.path.join(d, "egress.csv"), "rb") as f:
+            egress[name] = f.read()
+    with open(os.path.join(h["resume"][0], "egress.csv"), "rb") as f:
+        egress["resumed"] = f.read()
+    if not egress["clean"] or len(set(egress.values())) != 1:
+        raise AssertionError(
+            "38b: the resumed egress differs from the clean card run or "
+            "the CPU run (" + ", ".join(f"{k} {len(v)} B"
+                                        for k, v in egress.items()) + ")")
+    lines = egress["resumed"].count(b"\n")
+    print(f"partition 38b run_partitioned: killed at the 5th shard.exchange "
+          f"(exit 137) {h['killed_s']:.3f} s and resumed "
+          f"{h['resumed_s']:.3f} s after the children started; the resumed "
+          f"egress ({len(egress['resumed'])} B, {lines} lines) "
+          f"byte-identical to the clean {gpu} run and the CPU run [{card}]")
+    out, err = h["dryrun"].communicate(timeout=300)
+    dryrun_s = time.perf_counter() - h["t0"]
+    oks = [ln for ln in out.splitlines() if ln.startswith("MULTIHOST")]
+    if h["dryrun"].returncode != 0 or len(oks) != 2 or not all(
+            "procs=2" in ln and "devices=4" in ln for ln in oks):
+        raise AssertionError(f"38e: the dry run exited "
+                             f"{h['dryrun'].returncode}, printed {oks}\n"
+                             f"{err[-2000:]}")
+    mode = "not read (no card)"
+    if gpu == "cuda":
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip()
+    print(f"partition 38e multihost dry run: two gloo ranks x 2 shards of "
+          f"{gpu}, sharded_knn equal to knn_kernel on each, done "
+          f"{dryrun_s:.3f} s after the children started; compute mode "
+          f"{mode}; "
+          + "; ".join(oks) + f" [{card}]")
+    print(f"phase 38 b+e (the wait for the children): "
+          f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+
+
+
+def twin_halo_range():
+    """Phase 38a: the halo range's windows on an eight-shard CPU mesh."""
+    inputs = halo_range_inputs()
+    return digest(inputs[2], inputs[4]), halo_range_run("cpu", inputs)
+
+
+def twin_halo_registry():
+    """Phase 38d: the halo registry bucket on an eight-shard CPU mesh."""
+    rin = halo_registry_inputs()
+    return digest(rin[2], rin[5], rin[7]), halo_registry_run("cpu", rin)
+
+
 def twin_run_soa():
     """Phase 8: ``run_soa`` over both 16-window join streams."""
     chunks = (soa_join_chunks(1), soa_join_chunks(2))
@@ -8952,7 +9474,8 @@ TWINS = {"run_soa": twin_run_soa, "range": twin_range,
          "tjoin_run": functools.partial(twin_tjoin_objects, "run"),
          "tjoin_run_single": functools.partial(twin_tjoin_objects,
                                                "run_single"),
-         "tagg_sum": twin_tagg_sum, "tjoin_panes": twin_tjoin_panes}
+         "tagg_sum": twin_tagg_sum, "tjoin_panes": twin_tjoin_panes,
+         "halo_range": twin_halo_range, "halo_registry": twin_halo_registry}
 
 
 def run_domain_phases(card, gpu="cuda"):
@@ -9036,10 +9559,20 @@ def run_new_phases(dev, card, geo_chunks):
 
 
 def main(argv=None) -> int:
+    import signal
+
+    def on_term(signum, _frame):
+        raise SystemExit(128 + signum)
+
+    # A SIGTERM to this process alone unwinds it, so that the children
+    # are stopped below.
+    signal.signal(signal.SIGTERM, on_term)
     try:
         return run(argv)
     finally:
         stop_twins()
+        stop_children(PARTITION_CHILDREN)
+        stop_children(DAG_CHILDREN)
 
 
 def run(argv=None) -> int:
@@ -9076,6 +9609,9 @@ def run(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="phases 1-2 and 37 only (build, then the mesh "
                          "layer, four shards on the card)")
+    ap.add_argument("--partition-only", action="store_true",
+                    help="phases 1-2 and 38 only (build, then the grid-"
+                         "partitioned halo layer and multi-process runs)")
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dag-child", metavar="DIR", default=None,
@@ -9110,7 +9646,8 @@ def run(argv=None) -> int:
     if not (args.quick or args.trajectory_only or args.ingest_only
             or args.domain_only or args.runtime_only or args.driver_only
             or args.overload_only or args.qserve_only
-            or args.jobsurface_only or args.dag_only or args.mesh_only):
+            or args.jobsurface_only or args.dag_only or args.mesh_only
+            or args.partition_only):
         threads = start_twins()
         print(f"host: {os.cpu_count()} CPUs; {threads} torch threads here, "
               f"{TWIN_WORKERS} CPU-twin workers of {TWIN_THREADS}")
@@ -9139,7 +9676,7 @@ def run(argv=None) -> int:
     if args.trajectory_only or args.ingest_only or args.domain_only \
             or args.runtime_only or args.driver_only or args.overload_only \
             or args.qserve_only or args.jobsurface_only or args.dag_only \
-            or args.mesh_only:
+            or args.mesh_only or args.partition_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -9160,6 +9697,8 @@ def run(argv=None) -> int:
             check_dag(card)
         if args.mesh_only:
             check_mesh(card)
+        if args.partition_only:
+            check_partition(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -9380,6 +9919,8 @@ def run(argv=None) -> int:
     # Phase 35: the native engines and Kafka into the headline program
     # (B1).
     js = check_jobsurface(card, panes, wf)
+    # Phase 38's child processes start here, to overlap phases 36-37.
+    partition_children = start_partition_children("cuda")
     # Phase 36: the composed SNCB DAG and the StreamingJob entry point
     # (B3 through option 5's query_panes).
     t0 = time.perf_counter()
@@ -9388,6 +9929,9 @@ def run(argv=None) -> int:
     # Phase 37: the mesh layer, four shards on the card (B3, B4), with
     # 36b's smoke's mesh child as 37f's.
     mesh_l = check_mesh(card, smoke_line=dg["mesh_line"])
+    # Phase 38: the grid-partitioned halo layer and multi-process runs
+    # (plain PyTorch; no hand kernel).
+    check_partition(card, children=partition_children)
     # The comparisons with the CPU twins of the background processes.
     t0 = time.perf_counter()
     run_later()

@@ -22,11 +22,6 @@ NOT_EXPORTED = {
     "ops": {"join_kernel": "deliberately absent: the XLA gather join, "
                            "which the hand kernel B3 replaces on the card; "
                            "ops.join_kernel is the module of B3's wrapper"},
-    "parallel": {
-        name: "A12.2: the grid-partitioned halo layer and multi-process "
-              "runs over torch.distributed"
-        for name in ("partition", "halo", "multihost", "multihost_dryrun")
-    },
 }
 
 from spatialflink_tpu_torch.grid import UniformGrid  # noqa: E402,F401

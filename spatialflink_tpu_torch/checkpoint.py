@@ -36,10 +36,14 @@ Snapshottable components:
   - the built-in Kafka consumer's offsets (``kafka_source_state``,
     ``restore_kafka_source_offsets``): with the wire pane assembler and
     the operator, a Kafka-fed pipeline resumes with no gap and no
-    duplicate.
+    duplicate;
+  - the grid-partitioned placement plan (``parallel/partition.py``) as
+    the ``partition`` component, in the JAX frame's dict: a resume
+    re-dispatches onto the checkpointed placement, and refuses a
+    resuming operator planned for another shard count.
 
-One component of the JAX package waits for a later item and raises
-``NotImplementedError`` naming it: the partition plan (ROADMAP A12.2).
+Every component of the JAX package's checkpoints has its counterpart:
+``WAITING_COMPONENTS`` is empty.
 """
 
 from __future__ import annotations
@@ -58,16 +62,8 @@ from spatialflink_tpu_torch.telemetry import telemetry
 from spatialflink_tpu_torch.utils.interning import Interner
 
 #: Components of the JAX package's checkpoints that the port cannot
-#: snapshot or restore yet, with the ROADMAP item each waits for.
-WAITING_COMPONENTS = {
-    "partition": "the grid-partitioned placement plan: ROADMAP A12.2",
-}
-
-
-def _waiting(component: str):
-    return NotImplementedError(
-        f"checkpoint component {component!r} is not ported yet ("
-        f"{WAITING_COMPONENTS[component]})")
+#: snapshot or restore yet, with the ROADMAP item each waits for: none.
+WAITING_COMPONENTS: Dict[str, str] = {}
 
 
 def assembler_state(asm: WindowAssembler) -> Dict[str, Any]:
@@ -159,8 +155,6 @@ def operator_state(op) -> Dict[str, Any]:
     Carries on the operator's device (the kNN pane digests and the wire
     digest ring) come to numpy through ``telemetry.fetch``, one fetch a
     carry: a checkpoint is a host artifact and never holds a tensor."""
-    if getattr(op, "partition_plan", None) is not None:
-        raise _waiting("partition")
     out: Dict[str, Any] = {"interner": interner_state(op.interner)}
     if hasattr(op, "_skeys"):  # TAggregateQuery MapState (sorted arrays)
         out["agg_state"] = {
@@ -204,6 +198,12 @@ def operator_state(op) -> Dict[str, Any]:
                 "counts", [1] * len(wire_pane["digests"])
             )],
         }
+    pplan = getattr(op, "partition_plan", None)
+    if pplan is not None:  # the placement plan (parallel/partition.py)
+        # The plan rides the same framed unit publish as the operator
+        # state it placed; a resume checks the shard count against the
+        # resuming operator's plan before any dispatch.
+        out["partition"] = pplan.to_dict()
     qreg = getattr(op, "qserve_registry", None)
     if qreg is not None:  # qserve standing-query registry (qserve.py)
         out["qserve"] = qreg.state()
@@ -231,9 +231,6 @@ def restore_operator(op, state: Dict[str, Any]) -> None:
     """Restore ``operator_state`` into ``op``; device carries move to
     ``op.device``. An assembler state is consumed by the operator's next
     run, before its first event (``SpatialOperator._adopt_assembler``)."""
-    for component in WAITING_COMPONENTS:
-        if component in state:
-            raise _waiting(component)
     # The composed DAG has no device of its own (its nodes do) and no
     # device carry.
     dev = getattr(op, "device", None)
@@ -294,6 +291,19 @@ def restore_operator(op, state: Dict[str, Any]) -> None:
         # _adopt_assembler), so resumed nodes hold their backend and
         # substate before the first replayed window fires.
         op.restore_dag(state["dag"])
+    if "partition" in state:  # checkpoints before the halo layer carry none
+        from spatialflink_tpu_torch.parallel.partition import PartitionPlan
+
+        plan = PartitionPlan.from_dict(state["partition"])
+        current = getattr(op, "partition_plan", None)
+        if current is not None and current.n_shards != plan.n_shards:
+            raise ValueError(
+                f"checkpoint partition plan is for {plan.n_shards} "
+                f"shard(s) but the resuming operator is configured for "
+                f"{current.n_shards} — re-plan and re-checkpoint "
+                f"instead of resuming across a shard-count change"
+            )
+        op.partition_plan = plan
     if "qserve" in state and getattr(op, "qserve_registry", None) \
             is not None:
         # Flag tables are derived (rebuilt from the grid inside restore);

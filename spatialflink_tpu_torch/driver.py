@@ -816,12 +816,64 @@ def run_chaos_child(workdir: str, device="cuda") -> int:
     return n
 
 
-def run_chaos_sharded_child(workdir: str) -> int:
-    """The grid-partitioned (multi-card halo exchange) chaos child waits
-    for the partitioned layer."""
-    raise NotImplementedError(
-        "run_chaos_sharded_child (the grid-partitioned chaos pipeline) is "
-        "not ported yet: ROADMAP A12.2")
+def run_chaos_sharded_child(workdir: str, device="cuda") -> int:
+    """One (possibly fault-armed) grid-partitioned pipeline run on an
+    eight-shard mesh of ``device`` (``data_mesh(8, devices=[device] *
+    8)``): ``run_partitioned`` (the ``parallel/halo.py`` halo exchange) →
+    exactly-once CSV egress and a checkpoint under ``workdir``, the
+    partition plan riding the framed unit publish. The
+    ``shard.exchange`` fault point fires once a window inside the halo
+    wrapper, so an armed abort kills the process mid-exchange; a resume
+    re-dispatches onto the checkpointed placement and converges byte for
+    byte. The JAX package's pipeline, event for event."""
+    import numpy as np
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators.query_config import (
+        QueryConfiguration,
+        QueryType,
+    )
+    from spatialflink_tpu_torch.operators.range_query import (
+        PointPointRangeQuery,
+    )
+    from spatialflink_tpu_torch.parallel.mesh import data_mesh
+    from spatialflink_tpu_torch.streams.sinks import TransactionalFileSink
+
+    # A finer grid than _toy_pipeline's 8 x 8: each of the 8 shards must
+    # span at least the halo width in flat cells (partition.py's
+    # single-hop contract).
+    grid = UniformGrid(128, 0.0, 8.0, 0.0, 8.0)
+    conf = QueryConfiguration(QueryType.WindowBased, window_size=2.0,
+                              slide_step=1.0)
+    n_events = 160
+    rng = np.random.default_rng(7)
+    xs = rng.uniform(0.0, 8.0, n_events)
+    ys = rng.uniform(0.0, 8.0, n_events)
+
+    def source():
+        for i in range(n_events):
+            yield Point(obj_id=f"o{i % 13}", timestamp=100 * i,
+                        x=float(xs[i]), y=float(ys[i]))
+
+    queries = [Point(obj_id="q0", x=4.0, y=4.0),
+               Point(obj_id="q1", x=1.0, y=6.5)]
+    sink = TransactionalFileSink(os.path.join(workdir, "egress.csv"))
+    driver = WindowedDataflowDriver(
+        checkpoint_path=os.path.join(workdir, "ckpt.bin"),
+        checkpoint_every=2, sink=sink,
+        retry=RetryPolicy(max_retries=1, backoff_s=0.0),
+        failover=False,  # chaos wants crash and resume, not degradation
+    )
+    op = PointPointRangeQuery(conf, grid, device=device)
+    mesh = data_mesh(8, devices=[device] * 8)
+    n = 0
+    for res in op.run_partitioned(source(), queries, 0.9, mesh,
+                                  driver=driver):
+        for line in render_range_result(res):
+            sink.stage(line)
+            n += 1
+    return n
 
 
 def chaos_smoke(device="cuda") -> int:
@@ -927,7 +979,7 @@ def main(argv=None) -> int:
                     help="internal: one pipeline run rooted at DIR")
     ap.add_argument("--chaos-sharded-child", metavar="DIR", default=None,
                     help="internal: one grid-partitioned pipeline run "
-                         "rooted at DIR (ROADMAP A12.2)")
+                         "rooted at DIR on an eight-shard mesh")
     ap.add_argument("--device", default="cuda",
                     help="where the pipeline runs: cuda (the default) or "
                          "cpu")
@@ -937,7 +989,10 @@ def main(argv=None) -> int:
         print(f"chaos-child: {n} records staged")
         return 0
     if args.chaos_sharded_child:
-        run_chaos_sharded_child(args.chaos_sharded_child)
+        n = run_chaos_sharded_child(args.chaos_sharded_child,
+                                    device=args.device)
+        print(f"chaos-sharded-child: {n} records staged")
+        return 0
     if args.chaos_smoke:
         return chaos_smoke(device=args.device)
     ap.error("pass --chaos-smoke (or internal --chaos-child)")

@@ -30,8 +30,8 @@ bit-identically too. Every firing is recorded (``faults.fired``) and,
 while telemetry is enabled, emitted as a ``fault_fired:<point>`` instant
 and force-flushed to the ledger stream.
 
-The registry is the JAX package's, kept whole. The port threads the
-points whose modules it has:
+The registry is the JAX package's, kept whole, and the port threads
+every point of it:
 
 =====================  ==================================================
 point                  site in this package
@@ -63,15 +63,11 @@ point                  site in this package
                        partition's fetch in a round)
 ``kafka.leader``       ``streams/kafka_wire.py:_with_leader_retry`` (each
                        leader-routed request attempt; not retried)
+``shard.exchange``     ``parallel/halo.py`` (each halo wrapper's call,
+                       once, before its shards dispatch)
 =====================  ==================================================
 
-The other points wait for the modules that call them (ROADMAP):
-
-=====================  ==================================================
-point                  item
-=====================  ==================================================
-``shard.exchange``     A12.2 (the multi-card halo exchange)
-=====================  ==================================================
+The other points wait for no module: none is left unthreaded.
 
 This module imports nothing beyond the stdlib at module scope, so every
 layer (telemetry included) can import it without cycles.
@@ -117,8 +113,10 @@ INJECTION_POINTS: Dict[str, str] = {
     "dag.node": "dag.py:DataflowDAG — per-node window processing",
     "dag.commit": "streams/sinks.py:MultiSink.commit — per-sink append "
                   "inside the atomic unit commit",
-    "shard.exchange": "parallel/halo.py — halo exchange dispatch "
-                      "(ROADMAP A12.2)",
+    "shard.exchange": "parallel/halo.py — grid-partitioned halo "
+                      "exchange dispatch (boundary-cell pane copies "
+                      "between shards; the kill-mid-exchange point the "
+                      "sharded kill/resume leg cuts at)",
 }
 
 #: Points whose callers implement the cooperative ``partial_write`` kind.

@@ -177,6 +177,13 @@ class UniformGrid:
             return np.nonzero(flags == FLAG_GUARANTEED)[0].astype(np.int32)
         return np.nonzero(flags != FLAG_NONE)[0].astype(np.int32)
 
+    def cell_layer(self, cell_a: int, cell_b: int) -> int:
+        """Chebyshev ring number of cell_b around cell_a
+        (HelperClass.getCellLayerWRTQueryCell, HelperClass.java:278-296)."""
+        ax, ay = divmod(int(cell_a), self.n)
+        bx, by = divmod(int(cell_b), self.n)
+        return max(abs(ax - bx), abs(ay - by))
+
     def __repr__(self) -> str:
         return (
             f"UniformGrid(n={self.n}, cell={self.cell_length:.6g}, "

@@ -19,7 +19,7 @@ package's ``operators/range_query.py``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Iterator, List, Optional
+from typing import Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -41,6 +41,7 @@ from spatialflink_tpu_torch.operators.base import (
     window_program,
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
+from spatialflink_tpu_torch.parallel.mesh import require_mesh
 from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.range import (
     geometry_range_query_kernel,
@@ -261,10 +262,65 @@ class _PointStreamRangeQuery(SpatialOperator):
 
         return process
 
-    def run_partitioned(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_partitioned (grid-partitioned multi-GPU range) is not "
-            "ported yet: ROADMAP A12.2")
+    def run_partitioned(self, stream: Iterable[Point],
+                        query_set: Sequence[SpatialObject], radius: float,
+                        mesh, dtype=np.float64, driver=None
+                        ) -> Iterator[RangeResult]:
+        """Grid-partitioned scale-out route (``parallel/halo.py``): window
+        state lives sharded by contiguous flat-cell range and only
+        boundary-cell query panes halo-exchange, with no per-window
+        broadcast of the query set. Point query sets only (the per-pair
+        layer math needs a cell a query lane).
+
+        The partition plan is placed on the operator before the driver
+        attaches, so a checkpoint resume restores the checkpointed plan
+        (``checkpoint.py`` checks the shard count) and re-dispatches onto
+        the same placement. Results decode as ``run``'s; distances come
+        from the per-pair kernel on the raw (uncentred) coordinates cast
+        to ``dtype``, as in the JAX package, and differ from the
+        flag-table path only where an inactive pair ties the radius
+        exactly (``ops/halo.py``). ``mesh``'s devices must be of the
+        operator's device type."""
+        if self.query_kind != "point":
+            raise ValueError(
+                "run_partitioned supports point query sets only "
+                f"(operator query_kind is {self.query_kind!r})"
+            )
+        from spatialflink_tpu_torch.driver import strict_driver
+        from spatialflink_tpu_torch.parallel.halo import sharded_range_halo
+        from spatialflink_tpu_torch.parallel.partition import plan_partition
+
+        mesh = self.check_mesh(require_mesh(mesh))
+        if not isinstance(query_set, (list, tuple)):
+            query_set = [query_set]
+        n_shards = int(mesh.shape["data"])
+        self.partition_plan = plan_partition(self.grid, n_shards, radius)
+        drv = driver if driver is not None else strict_driver()
+        drv.attach(self)  # may adopt a checkpointed plan (same shards)
+        plan = self.partition_plan
+        q_xy = pack_query_points(query_set)
+        q_cell = self.grid.assign_cells_np(q_xy)
+        q_valid = np.ones(len(query_set), bool)
+        approx = self.conf.approximate_query
+
+        def process(win) -> RangeResult:
+            with telemetry.span("window.range_halo", start=win.start,
+                                events=len(win.events)):
+                batch = self.point_batch(win.events)
+                n = len(win.events)
+                ts = np.fromiter((e.timestamp for e in win.events), np.int64,
+                                 count=n)
+                keep, dist = sharded_range_halo(
+                    mesh, plan, batch.xy[:n].astype(dtype),
+                    batch.valid[:n], batch.cell[:n], q_xy.astype(dtype),
+                    q_cell, q_valid, radius, approximate=approx, ts=ts)
+                idx = np.nonzero(keep)[0]
+                return RangeResult(win.start, win.end,
+                                   [win.events[i] for i in idx], dist[idx],
+                                   n)
+
+        drv.bind(self, process)
+        yield from drv.run(stream)
 
     def run_soa(self, chunks, query_set, radius: float, dtype=np.float64):
         """High-rate SoA path: chunks of {"ts", "x", "y", ...} arrays → per

@@ -525,8 +525,10 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
     The replicas stay identical, and equal to the unsharded scan's
     carry. One wait at the start reads which slices hold points. Returns
     (carry, (S, K²) window minima)."""
+    from spatialflink_tpu_torch.parallel.mesh import require_one_process
     from spatialflink_tpu_torch.parallel.sharded import _data_devices
 
+    require_one_process(mesh, "the pane-carry tJoin scan")
     devs = _data_devices(mesh)
     n = len(devs)
     s_n, pc = lps[0].shape

@@ -1,5 +1,8 @@
-"""Multi-device execution: device meshes (``mesh.py``) and the sharded
-window programs over them (``sharded.py``)."""
+"""Multi-device execution: device meshes (``mesh.py``), the sharded
+window programs over them (``sharded.py``), the grid-partitioned
+placement and halo exchange (``partition.py``, ``halo.py``) and
+multi-process runs over ``torch.distributed`` (``multihost.py``,
+``multihost_dryrun.py``). The exports are the JAX package's."""
 
 from spatialflink_tpu_torch.parallel.mesh import (  # noqa: F401
     data_mesh,

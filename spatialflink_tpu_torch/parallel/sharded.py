@@ -35,6 +35,14 @@ The collectives become explicit phases:
 Every program accounts its collective footprint host-side from static
 shapes (``telemetry.account_collective``), with the JAX package's kinds
 and byte counts, so a ledger reads alike in both packages.
+
+On a mesh spanning processes (``parallel/multihost.py``) every caller
+holds the whole input; each process runs only the shards it owns, and
+``mesh.gather_shard_parts`` all-gathers the per-shard parts over the
+group before the finish phase, which every process runs alike on its
+home device. The 2-D mesh programs, the multi-query kNN and the
+pane-carry tJoin scan run in one process only and raise ``ValueError``
+on such a mesh (ROADMAP A12.3).
 """
 
 from __future__ import annotations
@@ -47,9 +55,14 @@ import torch
 
 from spatialflink_tpu_torch.parallel.mesh import (
     Mesh,
+    gather_shard_parts,
+    home_device,
+    local_shards,
     make_mesh,
+    map_shards,
     payload_nbytes,
     require_mesh,
+    require_one_process,
 )
 from spatialflink_tpu_torch.parallel.mesh import itemsize as _itemsize
 from spatialflink_tpu_torch.telemetry import telemetry
@@ -110,20 +123,31 @@ def _split(t: torch.Tensor, n: int) -> List[torch.Tensor]:
 
 
 def _shards(devices: Sequence[torch.device], args: Sequence,
-            data_idx: Sequence[int]):
+            data_idx: Sequence[int], only: Sequence[int] = None):
     """Per shard (its index, its device, its argument tuple): the
     arguments at ``data_idx`` sliced, the others replicated (one copy a
-    distinct device)."""
+    distinct device). ``only``: the shards to yield (by default all)."""
     n = len(devices)
+    only = range(n) if only is None else only
     pieces = {i: _split(args[i], n) for i in data_idx}
     reps: Dict[torch.device, tuple] = {}
-    for dev in devices:
+    for s in only:
+        dev = devices[s]
         if dev not in reps:
             reps[dev] = tuple(None if i in pieces else _to(a, dev)
                               for i, a in enumerate(args))
-    for s, dev in enumerate(devices):
         yield s, dev, tuple(_to(pieces[i][s], dev) if i in pieces
                             else reps[dev][i] for i in range(len(args)))
+
+
+def _shard_parts(mesh, args, data_idx, fn) -> list:
+    """``fn(s, dev, sargs)`` over the shards of ``_shards`` that this
+    process owns, gathered into a list in shard order
+    (``mesh.gather_shard_parts``)."""
+    devs = _data_devices(mesh)
+    return gather_shard_parts(mesh, {
+        s: fn(s, dev, sargs) for s, dev, sargs in _shards(
+            devs, args, data_idx, only=local_shards(mesh))})
 
 
 def _gather(parts: Sequence, dev: torch.device):
@@ -200,16 +224,16 @@ class _ShardedWindow:
                 f"no mesh reduction is defined for {kernel.__name__}")
 
     def __call__(self, *args):
-        devs = _data_devices(self.mesh)
-        dev0 = devs[0]
-        parts = []
-        for s, _dev, sargs in _shards(devs, args, self.data_idx):
+        n = len(_data_devices(self.mesh))
+        dev0 = home_device(self.mesh)
+
+        def part(s, _dev, sargs):
             if self.topk:
-                base = s * int(args[self.data_idx[0]].shape[0]) // len(devs)
-                parts.append(self.kernel(*sargs, **self.statics,
-                                         index_base=base))
-            else:
-                parts.append(self.kernel(*sargs, **self.statics))
+                base = s * int(args[self.data_idx[0]].shape[0]) // n
+                return self.kernel(*sargs, **self.statics, index_base=base)
+            return self.kernel(*sargs, **self.statics)
+
+        parts = _shard_parts(self.mesh, args, self.data_idx, part)
         if self.topk:
             from spatialflink_tpu_torch.ops.knn import _finish_topk
 
@@ -298,11 +322,11 @@ def sharded_range_query(mesh, xy, valid, flags, query_xy, radius,
     telemetry.account_collective(
         "broadcast", payload_nbytes(query_xy), axis="data"
     )
-    devs = _data_devices(mesh)
-    parts = [range_query_kernel(*a, radius, approximate=approximate)
-             for _s, _d, a in _shards(devs, (xy, valid, flags, query_xy),
-                                      (0, 1, 2))]
-    return _gather(parts, devs[0])
+    parts = _shard_parts(
+        mesh, (xy, valid, flags, query_xy), (0, 1, 2),
+        lambda _s, _d, a: range_query_kernel(*a, radius,
+                                             approximate=approximate))
+    return _gather(parts, home_device(mesh))
 
 
 def sharded_range_query_2d(mesh, xy, valid, flags, query_xy, radius,
@@ -315,6 +339,7 @@ def sharded_range_query_2d(mesh, xy, valid, flags, query_xy, radius,
     from spatialflink_tpu_torch.ops.distances import pairwise_distance
     from spatialflink_tpu_torch.ops.range import _emit_mask
 
+    require_one_process(mesh, "sharded_range_query_2d")
     # pmin of each data tile's per-point min-dist vector across the
     # query axis (one lane per point).
     telemetry.account_collective(
@@ -360,17 +385,19 @@ def sharded_knn(mesh, xy, valid, flags, oid, query_xy, radius, k: int,
     telemetry.account_collective(
         "broadcast", payload_nbytes(query_xy), axis="data"
     )
-    devs = _data_devices(mesh)
-    n_loc = int(xy.shape[0]) // len(devs)
-    digests = []
-    for s, _dev, (xy_l, valid_l, flags_l, oid_l, q) in _shards(
-            devs, (xy, valid, flags, oid, query_xy), (0, 1, 2, 3)):
+    n_loc = int(xy.shape[0]) // len(_data_devices(mesh))
+
+    def digest(s, _dev, sargs):
+        xy_l, valid_l, flags_l, oid_l, q = sargs
         dist = point_point_distance(xy_l, q[None, :])
-        digests.append(_digest_from_point_dists(
+        return _digest_from_point_dists(
             dist, valid_l, flags_l, oid_l, radius, num_segments,
-            index_base=s * n_loc))
+            index_base=s * n_loc)
+
+    digests = _shard_parts(mesh, (xy, valid, flags, oid, query_xy),
+                           (0, 1, 2, 3), digest)
     gmin, rep = _merge_digests([d.seg_min for d in digests],
-                               [d.rep for d in digests], devs[0])
+                               [d.rep for d in digests], home_device(mesh))
     return _finish_topk(gmin, rep, k)
 
 
@@ -391,6 +418,7 @@ def _multi_query_mesh(mesh, xy, valid, cell, flags_tables, oid, query_xy,
     )
 
     check_k(k, num_segments)
+    require_one_process(mesh, "the multi-query kNN")
     grid = require_mesh(mesh).devices.reshape(mesh.devices.shape[0], -1)
     nd, nq = grid.shape
     q_total = int(query_xy.shape[0])
@@ -527,13 +555,13 @@ def sharded_traj_stats(mesh, xy, ts, oid, valid, num_segments: int):
         "psum", int(num_segments) * (2 * _itemsize(xy.dtype) + 4),
         axis="data", calls=3,
     )
-    dev0 = devs[0]
-    shards = list(_shards(devs, (xy, ts, oid, valid), (0, 1, 2, 3)))
-    parts = []
-    for s, dev, (xy_l, ts_l, oid_l, valid_l) in shards:
+    dev0 = home_device(mesh)
+    args = (xy, ts, oid, valid)
+
+    def part(s, dev, sargs):
+        xy_l, ts_l, oid_l, valid_l = sargs
         if s:
-            _, _, prev = shards[s - 1]
-            halo_row = [_to(a[-1:], dev) for a in prev]
+            halo_row = [_to(_split(a, ndev)[s - 1][-1:], dev) for a in args]
         else:
             halo_row = [xy_l[-1:], ts_l[-1:], oid_l[-1:],
                         torch.zeros_like(valid_l[-1:])]
@@ -551,7 +579,9 @@ def sharded_traj_stats(mesh, xy, ts, oid, valid, num_segments: int):
         temporal.index_add_(0, later, torch.where(same, seg_t, 0))
         count = torch.zeros(num_segments, dtype=torch.int32, device=dev)
         count.index_add_(0, later, valid_l.to(torch.int32))
-        parts.append((spatial, temporal, count))
+        return spatial, temporal, count
+
+    parts = _shard_parts(mesh, args, (0, 1, 2, 3), part)
     spatial, temporal, count = (
         functools.reduce(torch.add, [_to(p[i], dev0) for p in parts])
         for i in range(3))
@@ -612,14 +642,13 @@ def sharded_traj_stats_pane(mesh, ts_rel, x, y, oid, valid, num_oids: int,
         v2[s, :c] = True
         o2[s, c:] = kb - 1  # local padding stays in-shard
         start += c
-    parts = []
-    for s, dev in enumerate(devs):
-        lanes = [torch.from_numpy(np.ascontiguousarray(a[s])).to(dev)
+    def part(s):
+        lanes = [torch.from_numpy(np.ascontiguousarray(a[s])).to(devs[s])
                  for a in (t2, x2, y2, o2, v2)]
-        parts.append(traj_stats_pane_kernel(
-            *lanes, num_oids=kb, slide_ms=slide_ms, ppw=ppw,
-            n_panes=n_panes))
-    return TrajPaneStats(*_gather(parts, devs[0]))
+        return traj_stats_pane_kernel(*lanes, num_oids=kb, slide_ms=slide_ms,
+                                      ppw=ppw, n_panes=n_panes)
+
+    return TrajPaneStats(*_gather(map_shards(mesh, part), home_device(mesh)))
 
 
 def sharded_tjoin_pane_scan(mesh, carry, ts, lps, rps, radius,
@@ -640,6 +669,7 @@ def sharded_tjoin_pane_scan(mesh, carry, ts, lps, rps, radius,
     pair_sel`` gathered contribution lanes, and four int32 psums."""
     from spatialflink_tpu_torch.ops.tjoin_panes import tjoin_pane_scan
 
+    require_one_process(mesh, "the pane-carry tJoin scan")
     n_slides = int(ts.shape[0]) if hasattr(ts, "shape") else len(ts)
     pc = int(lps[0].shape[1])
     fb = _itemsize(lps[0].dtype)
@@ -711,21 +741,21 @@ def sharded_join_window_compact(mesh, left_xy, left_valid, left_cell_xy_idx,
     telemetry.account_collective("pmax", 4, axis="data")
     layers = _layers(neighbor_offsets)
     left_cells = _left_cells(left_cell_xy_idx, left_valid, grid_n)
-    dev0 = devs[0]
+    dev0 = home_device(mesh)
     n_loc = int(left_xy.shape[0]) // n_shards
-    lis, ris, dds, counts, overs = [], [], [], [], []
-    for s, _dev, (lxy, lv, lc, rxy, rv, rc) in _shards(
-            devs, (left_xy, left_valid, left_cells, right_xy, right_valid,
-                   right_cells), (0, 1, 2)):
-        res = join_window(lxy, lv, lc, rxy, rv, rc, grid_n=grid_n,
-                          layers=layers, radius=radius, cap_left=cap,
-                          cap_right=cap, max_pairs=local_budget)
+
+    def part(s, _dev, sargs):
+        res = join_window(*sargs, grid_n=grid_n, layers=layers,
+                          radius=radius, cap_left=cap, cap_right=cap,
+                          max_pairs=local_budget)
         li = res.left_index[:local_budget]
-        lis.append(torch.where(li >= 0, li + s * n_loc, -1))
-        ris.append(res.right_index[:local_budget])
-        dds.append(res.dist[:local_budget])
-        counts.append(res.count)
-        overs.append(res.overflow)
+        return (torch.where(li >= 0, li + s * n_loc, -1),
+                res.right_index[:local_budget], res.dist[:local_budget],
+                res.count, res.overflow)
+
+    lis, ris, dds, counts, overs = zip(*_shard_parts(
+        mesh, (left_xy, left_valid, left_cells, right_xy, right_valid,
+               right_cells), (0, 1, 2), part))
     left_idx = _gather(lis, dev0)
     count = _stack(counts, dev0)
     total = count.sum(dtype=torch.int32)
@@ -763,12 +793,10 @@ def sharded_join(mesh, left_xy, left_valid, left_cell_xy_idx,
     telemetry.account_collective("psum", 4, axis="data")
     layers = _layers(neighbor_offsets)
     left_cells = _left_cells(left_cell_xy_idx, left_valid, grid_n)
-    devs = _data_devices(mesh)
     m = int(right_xy_sorted.shape[0])
-    masks, dists, overs = [], [], []
-    for _s, dev, (lxy, lv, lc, rxy, rv, rc) in _shards(
-            devs, (left_xy, left_valid, left_cells, right_xy_sorted,
-                   right_valid_sorted, right_cells_sorted), (0, 1, 2)):
+
+    def part(_s, dev, sargs):
+        lxy, lv, lc, rxy, rv, rc = sargs
         budget = 1024
         while True:
             res = join_window(lxy, lv, lc, rxy, rv, rc, grid_n=grid_n,
@@ -785,10 +813,12 @@ def sharded_join(mesh, left_xy, left_valid, left_cell_xy_idx,
                           dtype=res.dist.dtype, device=dev)
         mask[li, ri] = True
         dist[li, ri] = res.dist[:count]
-        masks.append(mask)
-        dists.append(dist)
-        overs.append(res.overflow)
-    dev0 = devs[0]
+        return mask, dist, res.overflow
+
+    masks, dists, overs = zip(*_shard_parts(
+        mesh, (left_xy, left_valid, left_cells, right_xy_sorted,
+               right_valid_sorted, right_cells_sorted), (0, 1, 2), part))
+    dev0 = home_device(mesh)
     pair_mask = _gather(masks, dev0)
     right_index = right_order.to(dev0, torch.int32)[None, :].expand(
         pair_mask.shape[0], m)
@@ -803,14 +833,15 @@ def _pruned_pairs(mesh, kernel, data_idx, args, kwargs):
     is per shard), both overflow counters summed."""
     from spatialflink_tpu_torch.ops.join import PrunedJoinPairs
 
-    devs = _data_devices(mesh)
-    dev0 = devs[0]
-    n_loc = int(args[data_idx[0]].shape[0]) // len(devs)
-    parts = []
-    for s, _dev, sargs in _shards(devs, args, data_idx):
+    dev0 = home_device(mesh)
+    n_loc = int(args[data_idx[0]].shape[0]) // len(_data_devices(mesh))
+
+    def part(s, _dev, sargs):
         res = kernel(*sargs, **kwargs)
-        parts.append(res._replace(left_index=torch.where(
-            res.left_index >= 0, res.left_index + s * n_loc, -1)))
+        return res._replace(left_index=torch.where(
+            res.left_index >= 0, res.left_index + s * n_loc, -1))
+
+    parts = _shard_parts(mesh, args, data_idx, part)
     return PrunedJoinPairs(
         _gather([p.left_index for p in parts], dev0),
         _gather([p.right_index for p in parts], dev0),

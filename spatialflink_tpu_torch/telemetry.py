@@ -1033,8 +1033,9 @@ class Telemetry:
                 self.max_watermark_lag_ms = int(lag_ms)
 
     def record_shard_watermark(self, shard: int, watermark_ms: int):
-        """Per-shard event-time high-water mark (the partitioned paths,
-        A12.2); the merged min over shards is the safe watermark."""
+        """Per-shard event-time high-water mark on the grid-partitioned
+        path (``parallel/halo.py`` feeds it from each window's owned
+        rows); the merged min over shards is the safe watermark."""
         if not self.enabled:
             return
         with self._lock:

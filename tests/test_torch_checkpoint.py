@@ -553,6 +553,8 @@ def test_snapshot_and_restore_are_copies(rng):
 
 
 @pytest.mark.parametrize("attr,component,item", [
+    # The partition plan (A12.2) is ported: its component round-trips
+    # now, and the case keeps its id.
     ("partition_plan", "partition", "A12"),
     # The DAG (A11.4b) is ported: its component round-trips now, and the
     # case keeps its id.
@@ -563,15 +565,51 @@ def test_waiting_components_raise_naming_their_items(attr, component, item,
     if item is None:
         _dag_component_round_trips(tmp_path)
         return
-    assert component in ck.WAITING_COMPONENTS
-    op = _fresh_knn()
-    setattr(op, attr, object())
-    with pytest.raises(NotImplementedError, match=item):
-        operator_state(op)
-    state = operator_state(_fresh_knn())
-    state[component] = {}
-    with pytest.raises(NotImplementedError, match=item):
-        restore_operator(_fresh_knn(), state)
+    _partition_component_round_trips(tmp_path)
+
+
+def _partition_component_round_trips(tmp_path):
+    """The ``partition`` component (``tests/test_partition.py``'s
+    checkpoint case through the port): ``operator_state`` writes the
+    JAX frame's plan dict, ``restore_operator`` adopts it, a resuming
+    operator planned for another shard count raises the JAX
+    ``ValueError``, and a JAX checkpoint carrying a plan restores
+    through ``state.load_jax_checkpoint``."""
+    from spatialflink_tpu.parallel.partition import (
+        plan_partition as jplan_partition,
+    )
+    from spatialflink_tpu_torch.parallel.partition import plan_partition
+
+    assert "partition" not in ck.WAITING_COMPONENTS
+    grid = UniformGrid(64, 0.0, 1.0, 0.0, 1.0)
+    conf = QueryConfiguration(QueryType.WindowBased, window_size=10,
+                              slide_step=10)
+    op = PointPointRangeQuery(conf, grid, device="cpu")
+    op.partition_plan = plan_partition(grid, 8, 0.012)
+    state = operator_state(op)
+    assert state["partition"] == jplan_partition(
+        JGrid(64, 0.0, 1.0, 0.0, 1.0), 8, 0.012).to_dict()
+    path = str(tmp_path / "plan.ckpt")
+    save_checkpoint(path, op=state)
+    op2 = PointPointRangeQuery(conf, grid, device="cpu")
+    restore_operator(op2, load_checkpoint(path)["op"])
+    np.testing.assert_array_equal(op2.partition_plan.bounds,
+                                  op.partition_plan.bounds)
+    assert op2.partition_plan.to_dict() == op.partition_plan.to_dict()
+    op3 = PointPointRangeQuery(conf, grid, device="cpu")
+    op3.partition_plan = plan_partition(grid, 4, 0.012)
+    with pytest.raises(ValueError, match="shard-count"):
+        restore_operator(op3, state)
+    # A JAX operator's checkpoint with its plan, resumed in the port.
+    jop = JRangeQ(JConf(JQT.WindowBased, window_size=10, slide_step=10),
+                  JGrid(64, 0.0, 1.0, 0.0, 1.0))
+    jop.partition_plan = jplan_partition(JGrid(64, 0.0, 1.0, 0.0, 1.0), 8,
+                                         0.012)
+    jpath = str(tmp_path / "jax_plan.ckpt")
+    jck.save_checkpoint(jpath, op=jck.operator_state(jop))
+    op4 = PointPointRangeQuery(conf, grid, device="cpu")
+    restore_operator(op4, load_jax_checkpoint(jpath)["op"])
+    assert op4.partition_plan.to_dict() == jop.partition_plan.to_dict()
 
 
 def _dag_component_round_trips(tmp_path):

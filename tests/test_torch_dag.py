@@ -99,6 +99,7 @@ def _clean():
     for f in (faults, jfaults):
         f.disarm()
     for tel in (telemetry, jtel):
+        tel.enable()  # resets every counter, so none outlives the test
         tel.disable()
     for mod in (dag_mod, jdag):
         mod.uninstall()

@@ -806,8 +806,51 @@ def test_chaos_child_entry_runs_in_process(tmp_path):
     first = (tmp_path / "egress.csv").read_bytes()
     assert driver_mod.run_chaos_child(str(tmp_path), device="cpu") == 0
     assert (tmp_path / "egress.csv").read_bytes() == first and first
-    with pytest.raises(NotImplementedError, match="A12"):
-        driver_mod.run_chaos_sharded_child(str(tmp_path))
+    # The grid-partitioned child (A12.2 is ported), in process on an
+    # eight-shard CPU mesh: its egress equals the JAX child's on the
+    # JAX tests' eight CPU devices line for line, every field byte for
+    # byte but the distance, which is within 1 ulp: the JAX child has
+    # no numpy route, and its jitted program contracts x² + y² into an
+    # FMA.
+    sharded = tmp_path / "sharded"
+    sharded.mkdir()
+    assert driver_mod.main(["--chaos-sharded-child", str(sharded),
+                            "--device", "cpu"]) == 0
+    jdir = tmp_path / "jax_sharded"
+    jdir.mkdir()
+    assert jdriver.run_chaos_sharded_child(str(jdir)) > 0
+    got = (sharded / "egress.csv").read_text().splitlines()
+    want = (jdir / "egress.csv").read_text().splitlines()
+    assert got and len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = g.rsplit(",", 1), w.rsplit(",", 1)
+        assert g[0] == w[0]
+        a, b = float(g[1]), float(w[1])
+        assert abs(a - b) <= np.spacing(max(a, b)), (g, w)
+
+
+def test_chaos_shard_exchange_leg(tmp_path):
+    """``tests/test_chaos_matrix.py``'s ``shard.exchange`` leg in process:
+    the partitioned pipeline killed at the halo exchange's fifth hit
+    (``raise``), then resumed onto the checkpointed plan, byte-identical
+    to the clean run."""
+    clean = tmp_path / "clean"
+    chaos = tmp_path / "chaos"
+    clean.mkdir()
+    chaos.mkdir()
+    assert driver_mod.run_chaos_sharded_child(str(clean), device="cpu") > 0
+    want = (clean / "egress.csv").read_bytes()
+    assert want
+    faults.arm([{"point": "shard.exchange", "at": 5, "times": 10_000}])
+    try:
+        with pytest.raises(InjectedFault):
+            driver_mod.run_chaos_sharded_child(str(chaos), device="cpu")
+    finally:
+        faults.disarm()
+    assert (chaos / "egress.csv").read_bytes() != want
+    assert os.path.exists(chaos / "ckpt.bin")
+    driver_mod.run_chaos_sharded_child(str(chaos), device="cpu")
+    assert (chaos / "egress.csv").read_bytes() == want
 
 
 # -- the chaos matrix: the ten points the port threads ------------------------

@@ -66,8 +66,7 @@ def test_every_jax_export_resolves_or_waits(path):
     pkg = importlib.import_module(
         "spatialflink_tpu_torch" + ("." + path if path else ""))
     # A waiting entry that names a module of the JAX package, not one of
-    # its exports (``parallel``'s A12.2 modules): the JAX file exists and
-    # the port's does not.
+    # its exports: the JAX file exists and the port's does not.
     modules = {name for name in waiting if name not in names}
     for name in modules:
         assert (REPO / "spatialflink_tpu" / path / f"{name}.py").exists()
@@ -125,7 +124,12 @@ def test_port_packages_import_no_jax():
         "spatialflink_tpu_torch.streams.kafka_wire, "
         "spatialflink_tpu_torch.dag, spatialflink_tpu_torch.streaming_job, "
         "spatialflink_tpu_torch.parallel, "
-        "spatialflink_tpu_torch.parallel.sharded\n"
+        "spatialflink_tpu_torch.parallel.sharded, "
+        "spatialflink_tpu_torch.parallel.partition, "
+        "spatialflink_tpu_torch.parallel.halo, "
+        "spatialflink_tpu_torch.parallel.multihost, "
+        "spatialflink_tpu_torch.parallel.multihost_dryrun, "
+        "spatialflink_tpu_torch.ops.halo\n"
         "assert spatialflink_tpu_torch.native.available()\n"
         "from spatialflink_tpu_torch.models import Point, MultiPoint, "
         "GeometryCollection\n"
@@ -251,12 +255,12 @@ def test_job_surface_modules_at_their_jax_paths():
 
 
 def test_every_not_ported_message_names_its_item():
-    """Each ``NotImplementedError`` left in the port names the ROADMAP
-    item that ends it, A12.2 (the only item left: A12.1, the mesh, is
-    ported), unless it is the JAX package's own (a protocol feature
-    neither package has, raised with the JAX text); no source waits on
-    any part of A11.4 (A11.4a and A11.4b are ported) or on A12 as a
-    whole."""
+    """No ``NotImplementedError`` is left in the port but the JAX
+    package's own (a protocol feature neither package has, raised with
+    the JAX text): A12.2, the last item, is ported, and no source names
+    it, any part of A11.4 or A12 as a whole. The one item a source may
+    name is A12.3, the programs a mesh spanning processes refuses with a
+    ``ValueError``."""
     import re
 
     waiting = 0
@@ -264,17 +268,17 @@ def test_every_not_ported_message_names_its_item():
     for path in port.rglob("*.py"):
         text = path.read_text()
         assert not re.search(r"A11\.4", text), path
-        assert not re.search(r"A12(?!\.2)", text), path
+        assert not re.search(r"A12(?!\.3)", text), path
         for m in re.finditer(r"(raise|return) NotImplementedError\(", text):
             body = text[m.end():m.end() + 300].split("\n\n")[0]
-            if re.search(r"A12\.2|WAITING_COMPONENTS", body):
+            if re.search(r"A12|WAITING_COMPONENTS", body):
                 waiting += 1
                 continue
             first = re.search(r'"([^"]{12,})"', body).group(1)
             jpath = REPO / "spatialflink_tpu" / path.relative_to(port)
             assert jpath.exists() and first in jpath.read_text(), \
                 (path, body)
-    assert waiting == 3
+    assert waiting == 0
 
 
 def _public(mod):
@@ -534,4 +538,4 @@ def test_dag_and_streaming_job_at_their_jax_paths_in_the_jax_order():
         (REPO / "spatialflink_tpu_torch" / "dag.py").read_text()
     assert "``dag.node``" in threaded and "``dag.node``" not in waiting
     assert "ROADMAP" not in tfaults.INJECTION_POINTS["dag.node"]
-    assert set(tck.WAITING_COMPONENTS) == {"partition"}
+    assert set(tck.WAITING_COMPONENTS) == set()

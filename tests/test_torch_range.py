@@ -713,14 +713,49 @@ def test_device_and_unported_options():
         with pytest.raises(RuntimeError, match="cuda"):
             PointPolygonRangeQuery(conf, g)
     # ``mesh=`` is ported (tests/test_torch_parallel_operators.py): a
-    # value that is not a mesh raises; the partitioned run waits (A12.2).
+    # value that is not a mesh raises. The partitioned run is ported
+    # (A12.2): on the CPU it equals the JAX operator's on its eight-device
+    # mesh over the same events, distances within 1 ulp (the JAX program
+    # may contract x² + y² into an FMA).
     with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         PointPointRangeQuery(conf, g, device="cpu", mesh=object())
     op = PointPointRangeQuery(conf, g, device="cpu")
     with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
         list(op.run(iter([]), [Point()], 0.1, mesh=object()))
-    with pytest.raises(NotImplementedError, match="A12.2"):
-        op.run_partitioned(iter([]), [Point()], 0.1, None)
+    with pytest.raises(TypeError, match="must be a spatialflink_tpu_torch.parallel.mesh.Mesh"):
+        list(op.run_partitioned(iter([]), [Point()], 0.1, None))
+    from spatialflink_tpu.parallel.mesh import data_mesh as j_data_mesh
+    from spatialflink_tpu_torch.parallel.mesh import data_mesh
+
+    rng = np.random.default_rng(5)
+    xy = np.stack([rng.uniform(115.5, 117.6, 3000),
+                   rng.uniform(39.6, 41.1, 3000)], axis=1)
+    events = [(f"o{i % 31}", 10 * i, float(x), float(y))
+              for i, (x, y) in enumerate(xy)]
+    grid = dict(BEIJING, num_partitions=256)
+    queries = [(116.4, 40.2), (116.0, 39.9), (117.1, 40.7)]
+    rconf = QueryConfiguration(QueryType.WindowBased, window_size=10,
+                               slide_step=5)
+    got = list(PointPointRangeQuery(rconf, UniformGrid(**grid),
+                                    device="cpu").run_partitioned(
+        iter([Point(obj_id=o, timestamp=t, x=x, y=y)
+              for o, t, x, y in events]),
+        [Point(x=x, y=y) for x, y in queries], 0.08,
+        data_mesh(8, devices=["cpu"] * 8)))
+    want = list(JPointQ(JConf(JQT.WindowBased, window_size=10, slide_step=5),
+                        JGrid(**grid)).run_partitioned(
+        iter([JPoint(obj_id=o, timestamp=t, x=x, y=y)
+              for o, t, x, y in events]),
+        [JPoint(x=x, y=y) for x, y in queries], 0.08, j_data_mesh(8)))
+    assert [(r.start, r.end, r.window_count,
+             [(p.obj_id, p.timestamp) for p in r.objects]) for r in got] == \
+        [(r.start, r.end, r.window_count,
+          [(p.obj_id, p.timestamp) for p in r.objects]) for r in want]
+    assert sum(len(r.objects) for r in got) > 50
+    for a, b in zip(got, want):
+        a, b = np.asarray(a.dists), np.asarray(b.dists)
+        assert a.dtype == b.dtype == np.float64
+        assert np.all(np.abs(a - b) <= np.spacing(np.maximum(a, b)))
 
 
 def test_sqrt_rn_is_correctly_rounded_on_any_split():
