@@ -15,6 +15,7 @@ NVIDIA card.
     python3 chip_smoke.py --dag-only          # phases 1-2 and 36
     python3 chip_smoke.py --mesh-only         # phases 1-2 and 37
     python3 chip_smoke.py --partition-only    # phases 1-2 and 38
+    python3 chip_smoke.py --multihost-only    # phases 1-2 and 39
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -200,21 +201,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    over the tRange run;
 26. run ``PointPointTJoinQuery.run_soa_panes`` (the pane-carry engine,
    plain PyTorch) at the JAX suite's tjoin_panes_10s_10ms, its depth
-   cut from 2,000 to 1,500 panes (10 s windows by 10 ms, ppw 1,000;
+   cut from 2,000 to 1,100 panes (10 s windows by 10 ms, ppw 1,000;
    panes of 1,024 points a side from seed 23; 64 ids, cap_w 256,
-   pair_sel 16, r = 0.001, grid n = 100): 2,499 windows, one scan with
+   pair_sel 16, r = 0.001, grid n = 100): 2,099 windows, one scan with
    every overflow counter 0, the capacity plan printed beside the
-   measured occupancy; time the host steps, the engine's steady state
-   alone (a warm scan of 1,000 slides, then 500 timed) and its parts
-   a slide, with its launches a slide; a profiler trace of the operator
-   run over the stream's first 200 panes a side
-   (1,199 slides, a cut of depth: the device's idle share) and of 40
-   steady slides (the kernel rows); then hold the card's windows equal
-   (ids in order, distance bits) to the engine's CPU run of the stream
-   cut to its
-   first 1,024 panes over every window ending before pane 1,024, to
-   ``run_soa`` through B3 at the windows starting 0 and 10,000 ms (10 s
-   tumbling), and to the segmented pipelined scan over every window;
+   measured occupancy, after the segmented pipelined scan (depth 4:
+   eight segments of 150 slides) of the stream's first 200 panes a
+   side, whose first 200 windows it must equal; time the host steps,
+   the engine's steady state alone (a warm scan of 1,000 slides, then
+   100 timed) and its parts a slide, with its launches a slide; a
+   profiler trace of the operator run over the stream's first 200
+   panes a side (1,199 slides, a cut of depth: the device's idle
+   share), whose windows must equal all 1,199 of the segmented
+   pipelined scan's, and of 20 steady slides (the kernel rows); then
+   hold the card's windows equal (ids in order, distance bits) to the
+   engine's CPU run of the stream cut to its first 1,024 panes over
+   every window ending before pane 1,024, and to ``run_soa`` through B3
+   at the windows starting 0 and 10,000 ms (10 s tumbling);
 27. read the range suite's config 3 back from files through the port's
    ingest: its 1,000 polygons written as GeoJSON lines, WKT lines and a
    shapefile and read back (``polygon_stream``, ``read_shapefile``; the
@@ -382,7 +385,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    sums exact, spatial within ``pane_spatial_bound``), and under an armed
    ``pane_backend`` native rung ``"auto"`` running the native engine (its
    calls counted); ``run_soa_panes(backend="native")`` against the device
-   engine on phase 26's stream cut to 200 panes a side (pair sets equal
+   engine on phase 26's stream cut to 100 panes a side (pair sets equal
    outside the radius band of 3 float32 roundings, the band's pairs
    counted, common minima within that bound); each engine's seconds; (b)
    Kafka into the headline program through B1: an in-process broker
@@ -478,6 +481,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    children of (b) and (e) start before phase 36 in the full run (at the
    phase's start under ``--partition-only``). Each leg prints its ms on
    the card.
+39. the four programs that gather over a mesh spanning processes
+   (``parallel/mesh.py:gather_parts``, ``parallel/multihost.py:
+   global_mesh``): two gloo ranks of ``cuda:0``, two shards each,
+   started once after phase 38's children have ended; each leg runs its
+   program on the spanning mesh and, in the same rank, on a mesh of four
+   ``cuda:0`` shards in one process, bit for bit: (a)
+   ``sharded_range_query_2d`` on a (2, 2) mesh, 262,144 points of config
+   3's stream (seed 7) against 1,024 query points from seed 8, r =
+   0.002; (b) ``sharded_knn_multi`` on a (2, 2) mesh at
+   knn_multi_64queries_k10's first window (262,144 points, 64 queries,
+   k = 10); (c) ``sharded_registry_bucket`` on a 1-D mesh of 4 at 38d's
+   window and queries; (d) ``sharded_tjoin_pane_scan`` on a 1-D mesh of
+   4 at 37e's cut of tjoin_panes_10s_10ms, every slide's window minima
+   and the whole carry. Rank 0 also holds (a) and (b) bit-equal to a
+   one-process CPU mesh. Both ranks' digests of every output must agree;
+   a rank that fails, or runs past 600 s and is killed, fails the phase.
+   Each leg prints both ranks' spanning and one-process ms, its gloo
+   collectives and the bytes they delivered.
 
 In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25, 26
 and 38) run in two spawned worker processes of one torch thread each, at
@@ -637,8 +658,8 @@ TR_QUERIES = 32
 TF_IDS = 64
 # Phase 26: the pane-carry tJoin at the JAX suite's tjoin_panes_10s_10ms
 # (bench_suite.py:1071-1241): 10 s windows by 10 ms (ppw 1,000), 1,024
-# points a side a pane over 1,500 panes (ppw to fill the window, then
-# 500 steady: a depth cut of the suite's 2,000), positions uniform on
+# points a side a pane over 1,100 panes (ppw to fill the window, then
+# 100 steady: a depth cut of the suite's 2,000), positions uniform on
 # the Beijing extent and ids uniform over 64 from seed 23, cap_w 256,
 # pair_sel 16, r = 0.001, grid n = 100 (one candidate layer: 9 cells
 # probed a point). The CPU twin
@@ -648,16 +669,19 @@ TF_IDS = 64
 TP_PPW = 1000
 TP_SLIDE_MS = 10
 TP_PANE_PTS = 1024
-TP_STEADY = 500
+TP_STEADY = 100
 TP_PANES = TP_PPW + TP_STEADY
 TP_IDS = 64
 TP_CAP_W = 256
 TP_PAIR_SEL = 16
 TP_R = 0.001
 TP_CPU_PANES = TP_PPW + 24
-TP_WARM_PANES = 24
-TP_PROFILE_SLIDES = 40
+TP_PROFILE_SLIDES = 20
 TP_TRACE_PANES = 200  # panes a side of the traced operator run (a cut)
+# The segmented pipelined scan runs on that cut at depth 4: eight
+# segments of 150 slides, the new panes in the first two, the expiring
+# ones in the last two.
+TP_SEG_DEPTH = 4
 TP_REPS = 3
 # Phases 27-28: ingest and the apps. Phase 27 reads config 3 back from
 # files (phase 12's 1,000 polygons as GeoJSON lines, WKT lines and a
@@ -2804,24 +2828,30 @@ def run_point_soa(device, method, chunks):
             for w in out], time.perf_counter() - t0
 
 
-def multi_stream(n_win, per_win):
-    """The multi-query config's points (bench_suite.py:503-515: positions
-    and oids from seed 29) as ``Point`` objects, ``per_win`` a one-second
-    window, and its 64 query points (seed 23)."""
-    from spatialflink_tpu_torch.models.objects import Point
-
-    n = n_win * per_win
+def multi_arrays(n):
+    """The multi-query config's arrays (bench_suite.py:503-515): ``n``
+    positions (float32-rounded) and oids from seed 29, and its 64 query
+    points from seed 23: (xy, oid, qxy)."""
     rng = np.random.default_rng(29)
     xy = np.stack([rng.uniform(115.5, 117.6, n), rng.uniform(39.6, 41.1, n)],
                   axis=1).astype(np.float32).astype(np.float64)
     oid = rng.integers(0, NUM_SEGMENTS, n)
-    ts = (np.arange(n, dtype=np.int64) * 1000) // per_win
-    pts = [Point(obj_id=f"o{i}", timestamp=int(t), x=x, y=y)
-           for i, t, (x, y) in zip(oid.tolist(), ts.tolist(), xy.tolist())]
     rq = np.random.default_rng(23)
     qxy = np.stack([rq.uniform(115.6, 117.5, MULTI_Q),
                     rq.uniform(39.7, 41.0, MULTI_Q)], axis=1)
-    qxy = qxy.astype(np.float32).astype(np.float64)
+    return xy, oid, qxy.astype(np.float32).astype(np.float64)
+
+
+def multi_stream(n_win, per_win):
+    """``multi_arrays`` as ``Point`` objects, ``per_win`` a one-second
+    window, and its 64 query points."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    n = n_win * per_win
+    xy, oid, qxy = multi_arrays(n)
+    ts = (np.arange(n, dtype=np.int64) * 1000) // per_win
+    pts = [Point(obj_id=f"o{i}", timestamp=int(t), x=x, y=y)
+           for i, t, (x, y) in zip(oid.tolist(), ts.tolist(), xy.tolist())]
     return pts, [Point(obj_id=f"mq{i}", x=x, y=y)
                  for i, (x, y) in enumerate(qxy.tolist())]
 
@@ -4205,6 +4235,14 @@ def tpanes_stream():
     return sides
 
 
+def tpanes_cut(chunks, panes):
+    """Each side of ``tpanes_stream`` cut to its first ``panes`` panes,
+    as one chunk (a cut may reach past the first chunk of 100)."""
+    n = panes * TP_PANE_PTS
+    return [[{k: np.concatenate([c[k] for c in side])[:n] for k in side[0]}]
+            for side in chunks]
+
+
 def tpanes_columns(chunks):
     """Each side's chunks as whole (ts, x, y, oid) columns."""
     return [[np.concatenate([c[k] for c in side])
@@ -4322,17 +4360,23 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
     n_slides = TP_PANES + TP_PPW - 1
     n_pts = 2 * TP_PANES * TP_PANE_PTS
 
-    # 1. The operator end to end on the card, after a run on the stream's
-    # first TP_WARM_PANES panes (every slide is full width: it takes
-    # the one-time costs of the first launches out of the timed run).
-    cut = [[{k: v[:TP_WARM_PANES * TP_PANE_PTS]
-             for k, v in side[0].items()}] for side in chunks]
-    cut_got, cut_secs, _ = run_tjoin_panes(gpu, cut)
+    # 1. The operator end to end on the card, after the segmented
+    # pipelined scan of the stream's first TP_TRACE_PANES panes (it takes
+    # the one-time costs of the first launches out of the timed run). The
+    # cut's first TP_TRACE_PANES windows are the whole stream's; all of
+    # them are held to the one scan of the cut below.
+    cut = tpanes_cut(chunks, TP_TRACE_PANES)
+    pipeline.install(pipeline.PipelinePolicy(depth=TP_SEG_DEPTH))
+    try:
+        seg, seg_secs, _ = run_tjoin_panes(gpu, cut)
+    finally:
+        pipeline.uninstall()
     got, secs, op = run_tjoin_panes(gpu, chunks)
     if not all(same_window(a, b) for a, b in zip(
-            cut_got[:TP_WARM_PANES], got)):
-        raise AssertionError("run_soa_panes: the windows of a cut stream "
-                             "differ from the whole stream's")
+            seg[:TP_TRACE_PANES], got)):
+        raise AssertionError("run_soa_panes: the segmented pipelined scan "
+                             "of a cut stream differs from the one scan "
+                             "of the whole stream")
     scans, occ = op.pane_scans, op.pane_occupancy
     cap_c = scans[0][2]
     by_start = {w[0]: w for w in got}
@@ -4355,22 +4399,33 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
           f"capacity plan: occupancy {occ} -> cap_c {cap_c}; trajectory "
           f"pairs in the last full window (start {last_full[0]} ms) "
           f"{last_full[5]}; {n_pts} points in {secs:.6f} s = "
-          f"{n_pts / secs:.1f} points/s, every window fetched (after a "
-          f"first run on {TP_WARM_PANES} panes a side, "
-          f"{len(cut_got)} windows in {cut_secs:.3f} s) [{card}]")
-    # The device's idle share over the operator run on a prefix of the
-    # stream (a cut of depth: the trace's cost grows with its kernels).
-    tr_chunks = [[{k: v[:TP_TRACE_PANES * TP_PANE_PTS]
-                   for k, v in side[0].items()}] for side in chunks]
+          f"{n_pts / secs:.1f} points/s, every window fetched (after the "
+          f"segmented pipelined scan of the first {TP_TRACE_PANES} panes a "
+          f"side, {len(seg)} windows in {seg_secs:.3f} s, its first "
+          f"{TP_TRACE_PANES} equal to the one scan's) [{card}]")
+    # The device's idle share over the operator run on the cut (a cut of
+    # depth: the trace's cost grows with its kernels); its windows are
+    # the reference for every window of the segmented pipelined scan:
+    # its segment boundaries, the carry chained across them, the panes
+    # copied on the side stream and those expiring from the whole stream.
     tr_slides = TP_TRACE_PANES + TP_PPW - 1
+    traced = []
     tr_wall, tr_busy, tr_kern = trace_busy(
-        lambda: run_tjoin_panes(gpu, tr_chunks))
+        lambda: traced.extend(run_tjoin_panes(gpu, cut)[0]))
+    if len(seg) != tr_slides or len(traced) != tr_slides or not all(
+            same_window(a, b) for a, b in zip(seg, traced)):
+        raise AssertionError(f"run_soa_panes: the segmented pipelined scan "
+                             f"of the first {TP_TRACE_PANES} panes differs "
+                             f"from the one scan ({len(seg)} / "
+                             f"{len(traced)} windows)")
     print(f"profile e2e run_soa_panes (the stream's first {TP_TRACE_PANES} "
           f"panes a side, {tr_slides} slides, CUDA activity): wall "
           f"{tr_wall:.6f} s traced, device busy "
           f"{tr_busy:.6f} s ({100 * tr_busy / tr_wall:.1f}%, idle "
           f"{100 - 100 * tr_busy / tr_wall:.1f}%), {tr_kern} kernels = "
-          f"{tr_kern / tr_slides:.2f} a slide [{card}]")
+          f"{tr_kern / tr_slides:.2f} a slide; its {len(traced)} windows "
+          f"equal the segmented pipelined scan's (depth {TP_SEG_DEPTH}) "
+          f"[{card}]")
 
     # Its host steps, timed alone.
     cols = tpanes_columns(chunks)
@@ -4559,23 +4614,13 @@ def check_tjoin_panes(dev, card, gpu="cuda"):
         raise AssertionError(f"run_soa_panes differs from run_soa at "
                              f"{starts} (overflow {[w[6] for w in soa]})")
 
-    # 3c. The segmented pipelined scan against the one scan.
-    pipeline.install(pipeline.PipelinePolicy())
-    try:
-        seg, seg_secs, _ = run_tjoin_panes(gpu, chunks)
-    finally:
-        pipeline.uninstall()
-    if len(seg) != len(got) or not all(
-            same_window(a, b) for a, b in zip(seg, got)):
-        raise AssertionError("run_soa_panes: the segmented pipelined scan "
-                             "differs from the one scan")
     print(f"exact run_soa_panes: the card's windows held against the "
           f"engine's CPU run of the first {m} panes, equal to run_soa "
           f"through B3 at the windows starting {starts} ms (10 s "
           f"tumbling, cap {cap_c}, overflow 0, pairs "
-          f"{[w[5] for w in soa]}, {soa_secs:.3f} s) and the segmented "
-          f"pipelined scan over all {len(got)} windows ({seg_secs:.3f} s = "
-          f"{n_pts / seg_secs:.1f} points/s); ids in order, distance bits "
+          f"{[w[5] for w in soa]}, {soa_secs:.3f} s) and, over all "
+          f"{tr_slides} windows of the first {TP_TRACE_PANES} panes, to "
+          f"the segmented pipelined scan; ids in order, distance bits "
           f"[{card}]")
     print(f"phase 26 wall: {time.perf_counter() - t_phase:.3f} s [{card}]")
     return secs
@@ -7385,6 +7430,7 @@ JS_COMMITTED = 2         # windows emitted before the leg's checkpoint
 JS_KILL_FETCH = 6        # the kafka.fetch hit after the checkpoint that kills
 JS_FEED = 8_192          # records a WirePaneAssembler.feed (< a pane)
 JS_TOPIC = "gps"
+JS_TJ_PANES = 100        # 35a tJoin: panes a side of phase 26's stream
 
 
 class MiniBroker:
@@ -7811,7 +7857,7 @@ def jobsurface_tstats(card, gpu):
 
 def jobsurface_tjoin(card, gpu):
     """35a, tJoin: ``run_soa_panes(backend="native")`` against the device
-    engine on the card, phase 26's stream cut to TP_TRACE_PANES panes a
+    engine on the card, phase 26's stream cut to JS_TJ_PANES panes a
     side. The native engine computes in float64 from the float32 centred
     coordinates, the device engine in float32 (a relative error of at
     most 3u, u = 2^-24): the pair sets are equal outside the band
@@ -7819,8 +7865,7 @@ def jobsurface_tjoin(card, gpu):
     the common pairs agree within 3u."""
     rtol = 3 * 2.0 ** -24 * (1 + 2.0 ** -20)
     chunks = tpanes_stream()
-    cut = [[{k: v[:TP_TRACE_PANES * TP_PANE_PTS]
-             for k, v in side[0].items()}] for side in chunks]
+    cut = tpanes_cut(chunks, JS_TJ_PANES)
     nat, nat_s, _ = run_tjoin_panes(gpu, cut, backend="native")
     dev, dev_s, dev_op = run_tjoin_panes(gpu, cut, backend="device")
     if len(nat) != len(dev) or not dev_op.pane_scans:
@@ -7865,7 +7910,7 @@ def jobsurface_tjoin(card, gpu):
     if pairs == 0:
         raise AssertionError("35a tJoin: no pair")
     print(f"jobsurface tJoin engines (tjoin_panes_10s_10ms cut to "
-          f"{TP_TRACE_PANES} panes a side, {len(nat)} windows, {pairs} "
+          f"{JS_TJ_PANES} panes a side, {len(nat)} windows, {pairs} "
           f"native pairs): run_soa_panes(backend='native') "
           f"(sf_tjoin_panes, host) {nat_s:.6f} s, the device engine on the "
           f"card {dev_s:.6f} s; pair sets equal outside the band "
@@ -9361,6 +9406,302 @@ def run_partition_phase(card, gpu, h):
           f"{time.perf_counter() - t0:.3f} s [{card}]")
 
 
+# Phase 39: the four programs that gather over a mesh spanning two
+# processes, on two gloo ranks of ``cuda:0`` owning two shards each (NCCL
+# refuses two ranks on one card), each leg against the same program on a
+# mesh of four ``cuda:0`` shards in one process. 39a: config 3's stream
+# generator (bench_suite.py:357-420, seed 7), 262,144 points, against
+# 1,024 query points uniform in the Beijing box from seed 8 at r = 0.002
+# (the JAX docstring's "1k queries sharded across chips",
+# spatialflink_tpu/parallel/sharded.py:218-221), on a (2, 2) mesh; 39b:
+# knn_multi_64queries_k10 (bench_suite.py:503-515) on its first 262,144-
+# point window, 64 queries, k = 10, 16,384 objIDs, on a (2, 2) mesh; 39c:
+# 38d's qserve_1024q_mixed window (131,072 points, its 1,024 queries,
+# k = 32), 1-D mesh of 4; 39d: tjoin_panes_10s_10ms on the stream's first
+# chunk at 100 panes a side (37e's cut, 1,099 slides), 1-D mesh of 4.
+MH_POINTS = 262_144
+MH_QUERIES = 1024
+MH_QUERY_SEED = 8
+MH_TIMEOUT_S = 600
+MH_LEGS = ("a", "b", "c", "d")
+
+#: Phase 39's rank processes: stopped if the run ends before the phase
+#: collects them.
+MULTIHOST_CHILDREN = []
+
+
+def multihost_inputs(leg):
+    """One leg's host inputs: (program name, mesh shape, positional
+    arrays, keyword arguments) of the program after its mesh."""
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators.base import center_coords
+
+    grid = UniformGrid(**BEIJING)
+    if leg == "a":
+        xy = join_stream(MH_POINTS, 7)
+        rq = np.random.default_rng(MH_QUERY_SEED)
+        qxy = np.stack([rq.uniform(BEIJING["min_x"], BEIJING["max_x"],
+                                   MH_QUERIES),
+                        rq.uniform(BEIJING["min_y"], BEIJING["max_y"],
+                                   MH_QUERIES)], axis=1)
+        table = grid.neighbor_flags(
+            RANGE_R, grid.assign_cells_np(qxy).tolist())
+        flags = table[grid.assign_cells_np(xy)]
+        return ("sharded_range_query_2d", (2, 2),
+                (center_coords(grid, xy), np.ones(MH_POINTS, bool), flags,
+                 center_coords(grid, qxy), RANGE_R), {})
+    if leg == "b":
+        # The first window of phase 18's run_multi stream.
+        xy, oid, qxy = multi_arrays(MULTI_WINDOWS * MULTI_WIN)
+        xy, oid = xy[:MULTI_WIN], oid[:MULTI_WIN].astype(np.int32)
+        tables = np.stack([grid.neighbor_flags(MULTI_R, [grid.flat_cell(*q)])
+                           for q in qxy])
+        return ("sharded_knn_multi", (2, 2),
+                (center_coords(grid, xy), np.ones(MULTI_WIN, bool),
+                 grid.assign_cells_np(xy), tables, oid,
+                 center_coords(grid, qxy), MULTI_R),
+                {"k": MULTI_K, "num_segments": NUM_SEGMENTS})
+    if leg == "c":
+        rgrid, _, xy, cell, oid, qxy, qcell, radius = halo_registry_inputs()
+        tables = np.stack([rgrid.neighbor_flags(float(r), [int(c)])
+                           for r, c in zip(radius, qcell)])
+        return ("sharded_registry_bucket", (4,),
+                (xy, np.ones(len(xy), bool), cell, tables, oid, qxy, radius,
+                 np.ones(len(qxy), bool)),
+                {"k": HR_K, "num_segments": QS_IDS})
+    from spatialflink_tpu_torch.operators.trajectory import tjoin_pane_fields
+    from spatialflink_tpu_torch.ops.compaction import (
+        max_window_cell_count,
+        pick_capacity,
+    )
+
+    cut = [{k: v[:MESH_TP_PANES * TP_PANE_PTS] for k, v in side[0].items()}
+           for side in tpanes_stream()]
+    n_slides = int(max(c["ts"].max() for c in cut) // TP_SLIDE_MS) + TP_PPW
+    fields, occ = [], 0
+    for c in cut:
+        f, _, cells = tjoin_pane_fields(grid, c["ts"], c["x"], c["y"],
+                                        c["oid"], TP_SLIDE_MS, 0, n_slides)
+        fields.append(f)
+        occ = max(occ, max_window_cell_count(*cells, TP_PPW))
+    return ("sharded_tjoin_pane_scan", (4,),
+            (n_slides, fields[0], fields[1], TP_R),
+            {"grid_n": grid.n, "cap_w": TP_CAP_W,
+             "layers": grid.candidate_layers(TP_R), "ppw": TP_PPW,
+             "num_ids": TP_IDS, "pair_sel": TP_PAIR_SEL,
+             "cap_c": pick_capacity(occ, TP_CAP_W)})
+
+
+def multihost_program(mesh, name, args, kw, dev):
+    """The leg's program on ``mesh`` with its arrays on ``dev``: a tuple
+    of output tensors (the tJoin scan's window minima, then its carry)."""
+    import torch
+
+    from spatialflink_tpu_torch.parallel import sharded
+
+    def on(a):
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return a
+
+    if name == "sharded_tjoin_pane_scan":
+        from spatialflink_tpu_torch.ops.tjoin_panes import tjoin_pane_init
+        from spatialflink_tpu_torch.parallel.mesh import home_device
+
+        n_slides, lf, rf, radius = args
+        carry = tjoin_pane_init(kw["grid_n"] ** 2, kw["cap_w"], kw["ppw"],
+                                kw["num_ids"], device=home_device(mesh))
+        carry, wmins = sharded.sharded_tjoin_pane_scan(
+            mesh, carry, range(n_slides), tuple(map(on, lf)),
+            tuple(map(on, rf)), radius, **kw)
+        return (wmins, *carry)
+    return tuple(getattr(sharded, name)(mesh, *map(on, args), **kw))
+
+
+def multihost_child(workdir, device="cuda") -> int:
+    """One rank of phase 39: join the group from torch's launcher
+    variables, run every leg's program on the mesh spanning both ranks
+    (two shards of ``device`` each) and on a mesh of four ``device``
+    shards in this process, hold them bit-equal, and write each leg's
+    digest, ms and gloo traffic to ``workdir/rank<r>.json``. Rank 0
+    also holds legs a and b bit-equal to a mesh of four CPU shards."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from spatialflink_tpu_torch.parallel import make_mesh
+    from spatialflink_tpu_torch.parallel import mesh as tmesh
+    from spatialflink_tpu_torch.parallel.multihost import (
+        global_mesh,
+        initialize_distributed,
+    )
+
+    if not initialize_distributed():
+        raise AssertionError("39: no group joined")
+    rank = dist.get_rank()
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    report, cpu_twins = {"rank": rank, "legs": {}}, {}
+    torch.zeros(1, device=dev).sum().item()  # the context, before timing
+    for leg in MH_LEGS:
+        t_leg = time.perf_counter()
+        name, shape, args, kw = multihost_inputs(leg)
+        names = ("data", "query")[:len(shape)]
+        span = global_mesh([dev] * 2, shape, names)
+        one = make_mesh(shape, names, devices=[dev] * 4)
+        if leg in ("a", "b") and {d.type for d in one.devices.flat} != \
+                {dev.type}:
+            raise AssertionError(f"39{leg}: {one} is not on {dev}")
+        # A one-process run first warms the leg's operations; 39d's scans
+        # take seconds, so its spanning run goes first, cold.
+        runs = []
+        if leg != "d":
+            runs.append(timed(lambda: multihost_program(one, name, args, kw,
+                                                        dev))[0])
+        tmesh.reset_gloo_traffic()
+        got, span_ms = timed(lambda: multihost_program(span, name, args, kw,
+                                                       dev))
+        gloo = tmesh.gloo_traffic()
+        want, one_ms = timed(lambda: multihost_program(one, name, args, kw,
+                                                       dev))
+        for ref in runs + [want]:
+            if not all(same_bits(g, w) for g, w in zip(got, ref)):
+                raise AssertionError(f"39{leg}: {name} on the spanning mesh "
+                                     f"differs from the one-process mesh "
+                                     f"(rank {rank})")
+        h = hashlib.sha256()
+        for g in got:
+            h.update(g.cpu().numpy().tobytes())
+        # What the leg found: points kept (a), the clamped in-radius
+        # counts (b) and the unclamped ones (c) summed over the queries,
+        # finite window minima (d).
+        if leg == "d":
+            found = int(torch.isfinite(got[0]).sum())
+        else:
+            found = int((got[0] if leg == "a" else got[-1]).sum())
+        report["legs"][leg] = {
+            "program": name, "shape": list(shape), "span_ms": span_ms,
+            "one_ms": one_ms, "gloo_collectives": gloo["collectives"],
+            "gloo_bytes": gloo["bytes"], "digest": h.hexdigest(),
+            "found": found,
+            "counters": ([int(x) for x in got[-3:]] if leg == "d" else []),
+            "wall_s": time.perf_counter() - t_leg}
+        if rank == 0 and leg in ("a", "b"):
+            cpu_twins[leg] = (name, shape, args, kw, got)
+    for leg, (name, shape, args, kw, got) in cpu_twins.items():
+        t0 = time.perf_counter()
+        names = ("data", "query")[:len(shape)]
+        cpu = make_mesh(shape, names, devices=["cpu"] * 4)
+        ref = multihost_program(cpu, name, args, kw, torch.device("cpu"))
+        if not all(same_bits(g.cpu(), r) for g, r in zip(got, ref)):
+            raise AssertionError(f"39{leg}: the card differs from the CPU "
+                                 f"run")
+        report["legs"][leg]["cpu_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def check_multihost(card, gpu="cuda"):
+    """Phase 39: start the two ranks, wait for both (killing them after
+    ``MH_TIMEOUT_S``), hold their digests equal and print each leg."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase39_")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [start_background(
+        [sys.executable, os.path.abspath(__file__), "--multihost-child", tmp,
+         "--child-device", gpu],
+        {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+         "WORLD_SIZE": "2", "RANK": str(rank)}, owner=MULTIHOST_CHILDREN)
+        for rank in range(2)]
+    # A thread a rank drains its pipes, so that neither rank can block on
+    # a full pipe inside a collective while the other waits on it.
+    outs = [None, None]
+
+    def drain(rank):
+        outs[rank] = procs[rank].communicate()
+
+    drains = [threading.Thread(target=drain, args=(rank,), daemon=True)
+              for rank in range(2)]
+    for t in drains:
+        t.start()
+    try:
+        deadline = time.perf_counter() + MH_TIMEOUT_S
+        while any(t.is_alive() for t in drains):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # a rank failed: the other may wait in a collective
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"39: a rank ran past {MH_TIMEOUT_S} s "
+                                     f"and was killed")
+            time.sleep(0.05)
+        stop_children(MULTIHOST_CHILDREN)
+        for t in drains:
+            t.join()
+        failed = [f"rank {rank} exited {proc.returncode}\n"
+                  f"{outs[rank][1][-3000:]}"
+                  for rank, proc in enumerate(procs) if proc.returncode != 0]
+        if failed:
+            raise AssertionError("39: " + "\n".join(failed))
+        reports = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                reports.append(json.load(f))
+    finally:
+        stop_children(MULTIHOST_CHILDREN)
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = (r["legs"] for r in reports)
+    for leg in MH_LEGS:
+        a, b = r0[leg], r1[leg]
+        if a["digest"] != b["digest"] or a["found"] != b["found"]:
+            raise AssertionError(f"39{leg}: the ranks' outputs differ")
+        if a["gloo_collectives"] != b["gloo_collectives"] or \
+                not a["gloo_collectives"]:
+            raise AssertionError(f"39{leg}: gloo collectives "
+                                 f"{a['gloo_collectives']} / "
+                                 f"{b['gloo_collectives']}")
+        if not a["found"]:
+            raise AssertionError(f"39{leg}: an empty result (vacuous)")
+        what = {"a": "points kept", "b": "winners over the queries",
+                "c": "in-radius objects over the queries",
+                "d": "finite window minima"}[leg]
+        twin = (f"; equal to the one-process CPU run ({a['cpu_s']:.3f} s)"
+                if "cpu_s" in a else "")
+        counters = (f"; overflow counters {a['counters']}"
+                    if a["counters"] else "")
+        print(f"multihost 39{leg} {a['program']} on {tuple(a['shape'])}: "
+              f"{a['found']} {what}{counters}; spanning "
+              f"{a['span_ms']:.3f} / {b['span_ms']:.3f} ms (ranks 0 / 1"
+              f"{', run first' if leg == 'd' else ''}), one process "
+              f"{a['one_ms']:.3f} / {b['one_ms']:.3f} ms; "
+              f"{a['gloo_collectives']} gloo collectives, "
+              f"{a['gloo_bytes']} / {b['gloo_bytes']} B delivered; "
+              f"bit-equal to the one-process mesh of 4 shards on both ranks, "
+              f"digests equal{twin}; leg {a['wall_s']:.3f} s of rank 0 "
+              f"[{card}]")
+    print(f"phase 39 wall: {time.perf_counter() - t_phase:.3f} s (two gloo "
+          f"ranks x 2 shards of {gpu}) [{card}]")
 
 
 def twin_halo_range():
@@ -9572,6 +9913,7 @@ def main(argv=None) -> int:
     finally:
         stop_twins()
         stop_children(PARTITION_CHILDREN)
+        stop_children(MULTIHOST_CHILDREN)
         stop_children(DAG_CHILDREN)
 
 
@@ -9612,6 +9954,11 @@ def run(argv=None) -> int:
     ap.add_argument("--partition-only", action="store_true",
                     help="phases 1-2 and 38 only (build, then the grid-"
                          "partitioned halo layer and multi-process runs)")
+    ap.add_argument("--multihost-only", action="store_true",
+                    help="phases 1-2 and 39 only (build, then the mesh "
+                         "programs on two gloo ranks of the card)")
+    ap.add_argument("--multihost-child", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--driver-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dag-child", metavar="DIR", default=None,
@@ -9623,6 +9970,8 @@ def run(argv=None) -> int:
 
     if args.dag_child and args.child_device == "cpu":
         return dag_child(args.dag_child, "cpu")  # a CPU rehearsal's child
+    if args.multihost_child and args.child_device == "cpu":
+        return multihost_child(args.multihost_child, "cpu")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
@@ -9631,6 +9980,8 @@ def run(argv=None) -> int:
         return driver_child(args.driver_child)
     if args.dag_child:  # one child process of phase 36b
         return dag_child(args.dag_child)
+    if args.multihost_child:  # one rank of phase 39
+        return multihost_child(args.multihost_child)
     from spatialflink_tpu_torch import kernels
     from spatialflink_tpu_torch.ops import wire_codec as wc
     from spatialflink_tpu_torch.ops.wire_digest_kernel import (
@@ -9647,7 +9998,7 @@ def run(argv=None) -> int:
             or args.domain_only or args.runtime_only or args.driver_only
             or args.overload_only or args.qserve_only
             or args.jobsurface_only or args.dag_only or args.mesh_only
-            or args.partition_only):
+            or args.partition_only or args.multihost_only):
         threads = start_twins()
         print(f"host: {os.cpu_count()} CPUs; {threads} torch threads here, "
               f"{TWIN_WORKERS} CPU-twin workers of {TWIN_THREADS}")
@@ -9676,7 +10027,7 @@ def run(argv=None) -> int:
     if args.trajectory_only or args.ingest_only or args.domain_only \
             or args.runtime_only or args.driver_only or args.overload_only \
             or args.qserve_only or args.jobsurface_only or args.dag_only \
-            or args.mesh_only or args.partition_only:
+            or args.mesh_only or args.partition_only or args.multihost_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -9699,6 +10050,8 @@ def run(argv=None) -> int:
             check_mesh(card)
         if args.partition_only:
             check_partition(card)
+        if args.multihost_only:
+            check_multihost(card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -9932,6 +10285,10 @@ def run(argv=None) -> int:
     # Phase 38: the grid-partitioned halo layer and multi-process runs
     # (plain PyTorch; no hand kernel).
     check_partition(card, children=partition_children)
+    # Phase 39: the four gathering mesh programs on two gloo ranks of the
+    # card, after phase 38's children have ended (plain PyTorch; no hand
+    # kernel).
+    check_multihost(card)
     # The comparisons with the CPU twins of the background processes.
     t0 = time.perf_counter()
     run_later()

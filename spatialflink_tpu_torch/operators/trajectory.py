@@ -358,8 +358,13 @@ class _PaneScan:
 
     def __init__(self, device, lfields, rfields, radius, grid_n: int,
                  layers: int, ppw: int, num_ids: int, mesh=None):
-        # A mesh scan keeps its carry on the mesh's first device.
-        self.device = device if mesh is None else mesh.devices.flat[0]
+        # A mesh scan keeps its carry on the mesh's home device: its first
+        # device, or this process's first on a mesh spanning processes.
+        if mesh is not None:
+            from spatialflink_tpu_torch.parallel.mesh import home_device
+
+            device = home_device(mesh)
+        self.device = device
         self.mesh = mesh
         self.fields = (lfields, rfields)
         self.n_slides = lfields[0].shape[0]

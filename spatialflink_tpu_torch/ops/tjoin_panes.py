@@ -508,8 +508,9 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
                layers: int, ppw: int, num_ids: int, pair_sel: int,
                cap_c: int, lps_expire, rps_expire):
     """Probe-parallel ``tjoin_pane_scan``. The carry replicates, one
-    replica a distinct mesh device (the caller's, on the mesh's first
-    device, is updated in place); each slide:
+    replica a distinct mesh device this process runs a shard on (the
+    caller's, on the mesh's home device, is updated in place); each
+    slide:
 
       1. every replica expires and resets its ring row (``_begin_slide``);
       2. per direction, shard i probes its contiguous slice of the new
@@ -522,29 +523,41 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
          (``psum``); every replica applies them and inserts the whole
          pane (``_apply_side``).
 
+    On a mesh spanning processes each process probes only its own
+    shards, and the contributions all-gather over the group
+    (``mesh.gather_parts``) before every replica on every process
+    applies them. Which shards probe is read from the whole pane, which
+    every process holds, so every rank gathers in the same slides, a
+    rank whose slices are all empty included; a slide in which no shard
+    holds a point gathers nothing anywhere.
+
     The replicas stay identical, and equal to the unsharded scan's
     carry. One wait at the start reads which slices hold points. Returns
     (carry, (S, K²) window minima)."""
-    from spatialflink_tpu_torch.parallel.mesh import require_one_process
+    from spatialflink_tpu_torch.parallel.mesh import (
+        gather_parts,
+        home_device,
+        local_shards,
+    )
     from spatialflink_tpu_torch.parallel.sharded import _data_devices
 
-    require_one_process(mesh, "the pane-carry tJoin scan")
     devs = _data_devices(mesh)
     n = len(devs)
     s_n, pc = lps[0].shape
     if pc % n:
         raise ValueError(
             f"pane capacity ({pc}) must divide by the mesh data axis ({n})")
-    home = carry.digests.device
-    if home != devs[0]:
+    home = home_device(mesh)
+    if carry.digests.device != home:
         raise ValueError(
-            f"the carry lives on {home}, not on the mesh's first device "
-            f"{devs[0]}")
+            f"the carry lives on {carry.digests.device}, not on the mesh's "
+            f"home device {home}")
     radius = float(np.float32(radius))
+    own = local_shards(mesh)
     replicas = {home: carry}
-    for dev in devs:
-        if dev not in replicas:
-            replicas[dev] = _carry_to(carry, dev)
+    for s in own:
+        if devs[s] not in replicas:
+            replicas[devs[s]] = _carry_to(carry, devs[s])
     wmins = torch.empty((len(ts), num_ids * num_ids), dtype=torch.float32,
                         device=home)
 
@@ -553,13 +566,14 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
         return list(zip(*(f.to(dev).unbind(0) for f in fields)))
 
     def shard_rows(fields):
-        """Per shard, per slide, its slice's rows on its device, and per
-        slide the shards whose slice holds a valid point."""
-        per = [list(zip(*(f.view(s_n, n, pc // n)[:, s].to(dev).unbind(0)
-                          for f in fields)))
-               for s, dev in enumerate(devs)]
+        """Per shard this process runs, per slide, its slice's rows on
+        its device, and per slide the shards (all of the mesh's) whose
+        slice holds a valid point."""
+        per = {s: list(zip(*(f.view(s_n, n, pc // n)[:, s].to(devs[s])
+                             .unbind(0) for f in fields)))
+               for s in own}
         live = fields[7].view(s_n, n, pc // n).any(dim=2).tolist()
-        return per, live
+        return per, [[s for s in range(n) if row[s]] for row in live]
 
     full = {dev: (rows(lps, dev), rows(rps, dev), rows(lps_expire, dev),
                   rows(rps_expire, dev)) for dev in replicas}
@@ -573,10 +587,11 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
                          num_ids)
         for side, swap in ((0, False), (1, True)):
             per, live = sides[side]
-            probes = [
-                _probe_side(replicas[dev], swap, per[s][i], t, radius, grid_n,
-                            cap_w, layers, ppw, num_ids, pair_sel, cap_c)
-                for s, dev in enumerate(devs) if live[i][s]]
+            probes = gather_parts(mesh, {
+                s: _probe_side(replicas[devs[s]], swap, per[s][i], t, radius,
+                               grid_n, cap_w, layers, ppw, num_ids, pair_sel,
+                               cap_c)
+                for s in own if s in live[i]}, live[i]) if live[i] else []
             if probes:
                 flat = torch.cat([pr[0].to(home) for pr in probes])
                 dist = torch.cat([pr[1].to(home) for pr in probes])

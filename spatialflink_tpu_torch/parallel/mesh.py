@@ -15,18 +15,21 @@ card, ``["cpu"] * 8`` eight on the CPU (the JAX tests' eight virtual
 CPU devices). No device falls back to another: a mesh that names
 ``cuda`` on a machine without a card raises (``device.py``).
 
-A mesh may also span processes (``parallel/multihost.py:
-global_data_mesh``): each shard then carries the rank of the process
-that owns it, every process runs only its own shards, and
-``gather_shard_parts`` all-gathers the per-shard parts over the
-``torch.distributed`` group, in shard order, before the finish phase
-that every process runs alike. A mesh built in one process carries no
-ranks and behaves as it always has.
+A mesh may also span processes (``parallel/multihost.py:global_mesh``),
+in either shape: each device then carries the rank of the process that
+owns it, every process runs only the tiles it owns (``local_tiles``;
+a 1-D program runs data shard *s* on the first device of row *s*,
+``local_shards``), and ``gather_parts`` all-gathers the per-tile parts
+over the ``torch.distributed`` group before the finish phase, which
+every process runs alike on its ``home_device``. A mesh built in one
+process carries no ranks and behaves as it always has. Every gloo
+collective the gathers make is counted (``gloo_traffic``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+import pickle
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,80 +94,143 @@ def spans_processes(mesh) -> bool:
     return getattr(mesh, "ranks", None) is not None
 
 
-def require_one_process(mesh, what: str):
-    """``ValueError`` when ``mesh`` spans processes: ``what`` runs its
-    shards in one process only (ROADMAP A12.3)."""
-    if spans_processes(mesh):
-        raise ValueError(
-            f"{what} runs on a mesh in one process only; this mesh spans "
-            f"processes (ROADMAP A12.3)")
+def _tile_grid(a: np.ndarray) -> np.ndarray:
+    """A mesh-shaped array as (data, rest): a 1-D mesh's tiles are
+    (s, 0)."""
+    return a.reshape(a.shape[0], -1)
 
 
-def _data_ranks(mesh: Mesh) -> np.ndarray:
-    return mesh.ranks.reshape(mesh.ranks.shape[0], -1)[:, 0]
-
-
-def local_shards(mesh: Mesh) -> List[int]:
-    """The ``data``-axis shards this process runs: all of them on a mesh
-    in one process, else those its rank owns."""
-    n = int(mesh.devices.shape[0])
+def local_tiles(mesh: Mesh) -> List[Tuple[int, int]]:
+    """The (data, query) tiles this process runs, row by row: every tile
+    of a mesh in one process, else those whose device its rank owns.
+    A 1-D mesh's tiles are (s, 0)."""
+    nd, nq = _tile_grid(mesh.devices).shape
+    tiles = [(i, j) for i in range(nd) for j in range(nq)]
     if not spans_processes(mesh):
-        return list(range(n))
+        return tiles
     import torch.distributed as dist
 
     me = dist.get_rank()
-    return [s for s, r in enumerate(_data_ranks(mesh)) if int(r) == me]
+    ranks = _tile_grid(mesh.ranks)
+    return [(i, j) for i, j in tiles if int(ranks[i, j]) == me]
+
+
+def local_shards(mesh: Mesh) -> List[int]:
+    """The ``data``-axis shards this process runs: a 1-D program runs
+    shard *s* on the first device of row *s*, so those rows whose first
+    tile it owns (all of them on a mesh in one process)."""
+    return [i for i, j in local_tiles(mesh) if j == 0]
 
 
 def home_device(mesh: Mesh) -> torch.device:
     """Where the finish phase runs: the mesh's first device, or on a mesh
-    spanning processes the first device this process owns."""
-    first = mesh.devices.reshape(mesh.devices.shape[0], -1)[:, 0]
-    return first[local_shards(mesh)[0]]
+    spanning processes the first device this process owns anywhere in
+    the mesh (a process may own no tile of column 0)."""
+    if not spans_processes(mesh):
+        return mesh.devices.flat[0]
+    tiles = local_tiles(mesh)
+    if not tiles:
+        import torch.distributed as dist
+
+        raise ValueError(f"rank {dist.get_rank()} owns no device of {mesh}")
+    return _tile_grid(mesh.devices)[tiles[0]]
 
 
-def _tree_to(part, dev):
-    """A shard part (a tensor, numpy array, scalar or a tuple / named
-    tuple of them) with its tensors on ``dev``."""
+def _tree_map(part, fn):
+    """A part (a tensor, numpy array, scalar, None or a tuple / named
+    tuple of them) with ``fn`` applied to its tensors."""
     if isinstance(part, torch.Tensor):
-        return part.to(dev)
+        return fn(part)
     if isinstance(part, tuple):
-        fields = [_tree_to(p, dev) for p in part]
+        fields = [_tree_map(p, fn) for p in part]
         return type(part)(*fields) if hasattr(part, "_fields") else tuple(
             fields)
     return part
 
 
-def gather_shard_parts(mesh: Mesh, parts: Dict[int, object]) -> list:
-    """Per-shard parts, ``{shard: part}`` for this process's shards, as a
-    list in shard order. On a mesh in one process that is every shard
-    already. On a mesh spanning processes the parts all-gather over the
-    ``torch.distributed`` group: each is copied to the host before the
-    collective (gloo moves tensors only through host memory, and no CUDA
-    tensor must reach it) and to this process's home device after it."""
-    if not spans_processes(mesh):
-        return [parts[s] for s in range(len(parts))]
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, owning exactly its elements: a view pickles its
+    whole storage, so one is copied out."""
+    h = t.detach().to("cpu")
+    if h.untyped_storage().nbytes() != h.numel() * h.element_size():
+        h = h.clone()
+    return h
+
+
+#: The gloo collectives this process has made through ``all_gather_host``
+#: and ``all_gather_tensor``, and the bytes they delivered to it (every
+#: rank's payload, its own included, as gloo pads it).
+_GLOO = {"collectives": 0, "bytes": 0}
+
+
+def gloo_traffic() -> Dict[str, int]:
+    """A copy of this process's gloo tally: ``collectives`` and
+    ``bytes``."""
+    return dict(_GLOO)
+
+
+def reset_gloo_traffic() -> None:
+    _GLOO.update(collectives=0, bytes=0)
+
+
+def all_gather_tensor(t: torch.Tensor) -> List[torch.Tensor]:
+    """``t`` from every rank of the group, in rank order, as host
+    tensors: one gloo ``all_gather`` of equal shapes. ``t`` is copied to
+    the host first; no CUDA tensor reaches gloo."""
     import torch.distributed as dist
 
-    host = {s: _tree_to(p, torch.device("cpu")) for s, p in parts.items()}
-    everyone = [None] * dist.get_world_size()
-    dist.all_gather_object(everyone, host)
+    host = t.detach().to("cpu").contiguous()
+    out = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, host)
+    _GLOO["collectives"] += 1
+    _GLOO["bytes"] += len(out) * host.numel() * host.element_size()
+    return out
+
+
+def all_gather_host(obj) -> list:
+    """One picklable object from every rank of the group, in rank order.
+    Its tensors must lie on the host. ``dist.all_gather_object``'s
+    protocol, made here so that its bytes are counted: two collectives,
+    the pickled sizes, then the payloads padded to the largest."""
+    raw = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    size = torch.tensor([len(raw)], dtype=torch.int64)
+    sizes = all_gather_tensor(size)
+    top = max(int(s) for s in sizes)
+    buf = torch.zeros(top, dtype=torch.uint8)
+    buf[:len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    return [pickle.loads(b[:int(s)].numpy().tobytes())
+            for b, s in zip(all_gather_tensor(buf), sizes)]
+
+
+def gather_parts(mesh: Mesh, parts: Dict[object, object],
+                 keys: Sequence) -> list:
+    """Per-tile (or per-shard) parts, ``{key: part}`` for this process's
+    tiles, as a list in the order of ``keys``. On a mesh in one process
+    that is every part already, where it lies. On a mesh spanning
+    processes the parts all-gather over the group (``all_gather_host``):
+    each is copied to the host before the collective (gloo moves tensors
+    only through host memory, and no CUDA tensor must reach it) and to
+    this process's home device after it. Every rank must call it, with
+    the same ``keys``, whether or not it holds a part."""
+    if not spans_processes(mesh):
+        return [parts[k] for k in keys]
+    host = {k: _tree_map(p, _host_copy) for k, p in parts.items()}
     merged = {}
-    for got in everyone:
+    for got in all_gather_host(host):
         merged.update(got)
-    n = int(mesh.devices.shape[0])
-    if sorted(merged) != list(range(n)):
-        raise RuntimeError(f"shard parts {sorted(merged)} do not cover the "
-                           f"{n} shards of {mesh}")
+    if sorted(merged) != sorted(keys):
+        raise RuntimeError(f"parts {sorted(merged)} do not cover the tiles "
+                           f"{sorted(keys)} of {mesh}")
     home = home_device(mesh)
-    return [_tree_to(merged[s], home) for s in range(n)]
+    return [_tree_map(merged[k], lambda t: t.to(home)) for k in keys]
 
 
 def map_shards(mesh: Mesh, fn: Callable[[int], object]) -> list:
     """``[fn(s) for s in shards]`` over the ``data`` axis, with ``fn`` run
     only on this process's shards and the parts gathered in shard order
-    (``gather_shard_parts``)."""
-    return gather_shard_parts(mesh, {s: fn(s) for s in local_shards(mesh)})
+    (``gather_parts``)."""
+    return gather_parts(mesh, {s: fn(s) for s in local_shards(mesh)},
+                        range(int(mesh.devices.shape[0])))
 
 
 def _visible_cards() -> list:

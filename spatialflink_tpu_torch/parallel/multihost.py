@@ -6,12 +6,13 @@ The reference scales out through Flink's network stack and Kafka
 geoflink-conf.yml:55). The JAX package joins a multi-host job through
 ``jax.distributed.initialize``, after which one ``Mesh`` spans every
 host's chips. Here a process joins a ``torch.distributed`` group
-(``initialize_distributed``), then ``global_data_mesh`` lays one
-``data`` mesh over every process's devices, each shard carrying its
-owning rank: every sharded program in ``parallel/sharded.py`` and
-``parallel/halo.py`` runs its own shards and all-gathers the per-shard
-parts over the group (``mesh.gather_shard_parts``), so the operator
-layer does not change.
+(``initialize_distributed``), then ``global_mesh`` lays one mesh, 1-D
+or (data, query), over every process's devices, each device carrying
+its owning rank (``global_data_mesh`` is its 1-D case, and
+``sharded.py:mesh_from_config`` builds it inside a group): every
+sharded program in ``parallel/sharded.py`` and ``parallel/halo.py``
+runs its own tiles and all-gathers the per-tile parts over the group
+(``mesh.gather_parts``), so the operator layer does not change.
 
 The group uses the gloo backend, which moves tensors through host
 memory: NCCL refuses two ranks on one card, and a machine may hold
@@ -51,7 +52,7 @@ def initialize_distributed(
     (``MASTER_ADDR`` and ``MASTER_PORT`` for the coordinator's
     ``host:port``, ``WORLD_SIZE``, ``RANK``). Returns True when a
     multi-process group was joined; then build the mesh with
-    ``global_data_mesh``."""
+    ``global_mesh`` or ``sharded.mesh_from_config``."""
     addr = coordinator_address or _env_address()
     nproc = num_processes if num_processes is not None else int(
         os.environ.get("WORLD_SIZE", "1"))
@@ -79,11 +80,16 @@ def initialize_distributed(
     return True
 
 
-def global_data_mesh(local_devices) -> Mesh:
-    """One 1-D ``data`` mesh over every process's devices, in rank order,
-    each shard carrying its owning rank: this process's
-    ``local_devices`` resolved, the other processes' learned with one
-    ``all_gather_object``. Call it on every process of the group."""
+def global_mesh(local_devices, shape=None, axis_names=("data",)) -> Mesh:
+    """One mesh over every process's devices, each device carrying its
+    owning rank: this process's ``local_devices`` resolved, the other
+    processes' learned with one ``all_gather_object``, listed in rank
+    order and reshaped to ``shape`` over the first prod(shape) of them,
+    as the JAX package's ``make_mesh`` reshapes the process-ordered
+    ``jax.devices()`` (by default one ``data`` axis over all of them).
+    Raises "need N devices, have M" counted over the group, and when a
+    process would own no device of the mesh. Call it on every process of
+    the group."""
     import torch.distributed as dist
 
     mine = [str(resolve_device(d)) for d in local_devices]
@@ -93,6 +99,22 @@ def global_data_mesh(local_devices) -> Mesh:
     for rank, names in enumerate(everyone):
         devices += [torch.device(name) for name in names]
         ranks += [rank] * len(names)
-    arr = np.empty(len(devices), dtype=object)
-    arr[:] = devices
-    return Mesh(arr, ("data",), ranks=ranks)
+    shape = (len(devices),) if shape is None else tuple(
+        int(s) for s in shape)
+    n = int(np.prod(shape))
+    if len(devices) < n:
+        raise ValueError(f"need {n} devices, have {len(devices)}")
+    idle = sorted(set(range(len(everyone))) - set(ranks[:n]))
+    if idle:
+        raise ValueError(f"ranks {idle} would own no device of a mesh of "
+                         f"{n} over {len(devices)} devices")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices[:n]
+    return Mesh(arr.reshape(shape), axis_names, ranks=ranks[:n])
+
+
+def global_data_mesh(local_devices) -> Mesh:
+    """One 1-D ``data`` mesh over every process's devices, in rank order
+    (``global_mesh``'s default shape). Call it on every process of the
+    group."""
+    return global_mesh(local_devices)

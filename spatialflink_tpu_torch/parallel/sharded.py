@@ -36,13 +36,15 @@ Every program accounts its collective footprint host-side from static
 shapes (``telemetry.account_collective``), with the JAX package's kinds
 and byte counts, so a ledger reads alike in both packages.
 
-On a mesh spanning processes (``parallel/multihost.py``) every caller
-holds the whole input; each process runs only the shards it owns, and
-``mesh.gather_shard_parts`` all-gathers the per-shard parts over the
+On a mesh spanning processes (``parallel/multihost.py``), 1-D or 2-D,
+every caller holds the whole input; each process runs only the tiles it
+owns, and ``mesh.gather_parts`` all-gathers the per-tile parts over the
 group before the finish phase, which every process runs alike on its
-home device. The 2-D mesh programs, the multi-query kNN and the
-pane-carry tJoin scan run in one process only and raise ``ValueError``
-on such a mesh (ROADMAP A12.3).
+home device, so every rank's result is bit-equal to the same program on
+a mesh in one process. Two programs gather less: the multi-query kNN
+merges its own tiles' digests first and gathers one table a process,
+and the pane-carry tJoin scan gathers each slide's probe contributions
+and applies them to a carry replica on every process.
 """
 
 from __future__ import annotations
@@ -55,14 +57,16 @@ import torch
 
 from spatialflink_tpu_torch.parallel.mesh import (
     Mesh,
-    gather_shard_parts,
+    all_gather_tensor,
+    gather_parts,
     home_device,
     local_shards,
+    local_tiles,
     make_mesh,
     map_shards,
     payload_nbytes,
     require_mesh,
-    require_one_process,
+    spans_processes,
 )
 from spatialflink_tpu_torch.parallel.mesh import itemsize as _itemsize
 from spatialflink_tpu_torch.telemetry import telemetry
@@ -78,7 +82,13 @@ def mesh_from_config(shape, device="cuda"):
     power-of-two buckets (utils/padding.py), so only power-of-two axes
     divide every batch. ``device`` is the job's backend: ``cpu`` lists
     the CPU once per shard (the JAX tests' forced host device count);
-    ``cuda`` lists the visible cards and raises above their count."""
+    ``cuda`` lists the visible cards and raises above their count.
+
+    Inside a joined ``torch.distributed`` group of more than one process
+    the mesh spans the group (``multihost.global_mesh``), as the JAX
+    package's spans every host's chips after ``jax.distributed.
+    initialize``: each process lists its visible cards, or for ``cpu``
+    its share of prod(shape), and the device count is the group's."""
     shape = [int(s) for s in shape]
     total = int(np.prod(shape)) if shape else 1
     if total <= 1:
@@ -89,9 +99,26 @@ def mesh_from_config(shape, device="cuda"):
             f"are padded to power-of-two buckets); got {shape[0]}"
         )
     names = ("data",) if len(shape) == 1 else ("data", "query")
-    devices = (["cpu"] * total if torch.device(device).type == "cpu"
-               else None)
+    cpu = torch.device(device).type == "cpu"
+    world = _group_size()
+    if world > 1:
+        from spatialflink_tpu_torch.parallel.multihost import global_mesh
+
+        local = (["cpu"] * -(-total // world) if cpu else
+                 [torch.device("cuda", i)
+                  for i in range(torch.cuda.device_count())])
+        return global_mesh(local, tuple(shape), names[: len(shape)])
+    devices = ["cpu"] * total if cpu else None
     return make_mesh(tuple(shape), names[: len(shape)], devices=devices)
+
+
+def _group_size() -> int:
+    """The joined ``torch.distributed`` group's size, 1 without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 # -- the executor: the shard_map counterpart ----------------------------------
@@ -143,11 +170,11 @@ def _shards(devices: Sequence[torch.device], args: Sequence,
 def _shard_parts(mesh, args, data_idx, fn) -> list:
     """``fn(s, dev, sargs)`` over the shards of ``_shards`` that this
     process owns, gathered into a list in shard order
-    (``mesh.gather_shard_parts``)."""
+    (``mesh.gather_parts``)."""
     devs = _data_devices(mesh)
-    return gather_shard_parts(mesh, {
+    return gather_parts(mesh, {
         s: fn(s, dev, sargs) for s, dev, sargs in _shards(
-            devs, args, data_idx, only=local_shards(mesh))})
+            devs, args, data_idx, only=local_shards(mesh))}, range(len(devs)))
 
 
 def _gather(parts: Sequence, dev: torch.device):
@@ -335,11 +362,12 @@ def sharded_range_query_2d(mesh, xy, valid, flags, query_xy, radius,
     ``query``. Each (data, query) tile takes its per-point minimum over
     its query slice; the minima reduce over the ``query`` axis (JAX's
     ``pmin``; a min of mins is exact) and each data tile emits its keep
-    mask. Returns (keep, min_dist) over ``data``."""
+    mask. Returns (keep, min_dist) over ``data``. On a mesh spanning
+    processes each process computes its own tiles' minima, and the
+    minima gather by tile before every process reduces them."""
     from spatialflink_tpu_torch.ops.distances import pairwise_distance
     from spatialflink_tpu_torch.ops.range import _emit_mask
 
-    require_one_process(mesh, "sharded_range_query_2d")
     # pmin of each data tile's per-point min-dist vector across the
     # query axis (one lane per point).
     telemetry.account_collective(
@@ -348,17 +376,25 @@ def sharded_range_query_2d(mesh, xy, valid, flags, query_xy, radius,
     grid = require_mesh(mesh).devices.reshape(mesh.devices.shape[0], -1)
     nd, nq = grid.shape
     qs = _split(query_xy, nq)
+    xs, vs, fs = (_split(a, nd) for a in (xy, valid, flags))
+    mins = gather_parts(mesh, {
+        (i, j): pairwise_distance(xs[i].to(grid[i, j]),
+                                  qs[j].to(grid[i, j])).min(dim=1).values
+        for i, j in local_tiles(mesh)},
+        [(i, j) for i in range(nd) for j in range(nq)])
+    home = home_device(mesh)
+    span = spans_processes(mesh)
     keeps, dists = [], []
-    for (s, dev, (xy_l, valid_l, flags_l)) in _shards(
-            list(grid[:, 0]), (xy, valid, flags), (0, 1, 2)):
-        mins = [pairwise_distance(xy_l.to(grid[s, j]), qs[j].to(grid[s, j]))
-                .min(dim=1).values.to(dev) for j in range(nq)]
-        min_dist = functools.reduce(torch.minimum, mins)
-        keeps.append(_emit_mask(valid_l, flags_l, min_dist, radius,
-                                approximate))
+    for i in range(nd):
+        # Each data row finishes on its first device, or on a mesh
+        # spanning processes every row on this process's home device.
+        dev = home if span else grid[i, 0]
+        min_dist = functools.reduce(
+            torch.minimum, [m.to(dev) for m in mins[i * nq:(i + 1) * nq]])
+        keeps.append(_emit_mask(_to(vs[i], dev), _to(fs[i], dev), min_dist,
+                                radius, approximate))
         dists.append(min_dist)
-    dev0 = grid[0, 0]
-    return _gather(keeps, dev0), _gather(dists, dev0)
+    return _gather(keeps, home), _gather(dists, home)
 
 
 # -- kNN ----------------------------------------------------------------------
@@ -408,7 +444,14 @@ def _multi_query_mesh(mesh, xy, valid, cell, flags_tables, oid, query_xy,
     point shard, block by block of at most 32 queries; each block's
     digests merge over ``data`` and finish (top-k and the unclamped
     ``within`` count, from the merged table) on the query column's first
-    device. Returns (``KnnResult`` with a leading Q axis, ``within``)."""
+    device. Returns (``KnnResult`` with a leading Q axis, ``within``).
+
+    On a mesh spanning processes each process digests only its own
+    tiles and merges them, then the block's tables all-gather, one a
+    process (``_merge_over_group``), and merge again before the finish
+    on its home device. The merge is a lexicographic (distance, index)
+    minimum, so the grouping changes no bit. Every rank makes the same
+    collectives in the same order: one a column and block."""
     from spatialflink_tpu_torch.ops.knn import (
         KnnResult,
         _multi_query_digest,
@@ -418,7 +461,6 @@ def _multi_query_mesh(mesh, xy, valid, cell, flags_tables, oid, query_xy,
     )
 
     check_k(k, num_segments)
-    require_one_process(mesh, "the multi-query kNN")
     grid = require_mesh(mesh).devices.reshape(mesh.devices.shape[0], -1)
     nd, nq = grid.shape
     q_total = int(query_xy.shape[0])
@@ -429,15 +471,21 @@ def _multi_query_mesh(mesh, xy, valid, cell, flags_tables, oid, query_xy,
     q_loc = q_total // nq
     block = next(b for b in (32, 16, 8, 4, 2, 1) if q_loc % b == 0)
     n_loc = int(xy.shape[0]) // nd
+    span = spans_processes(mesh)
+    mine = set(local_tiles(mesh))
+    home = home_device(mesh)
+    dtype = torch.promote_types(xy.dtype, query_xy.dtype)
     cols = []
     for j in range(nq):
         devs = list(grid[:, j])
+        fin = home if span else devs[0]
         q0 = j * q_loc
         # (index base, lanes, xy, cell, tables, queries, radii, validity)
-        # per data shard, each on its tile's device.
+        # per data shard this process owns, each on its tile's device.
         tiles = []
         for s, dev, (xy_l, valid_l, cell_l, oid_l) in _shards(
-                devs, (xy, valid, cell, oid), (0, 1, 2, 3)):
+                devs, (xy, valid, cell, oid), (0, 1, 2, 3),
+                only=[s for s in range(nd) if (s, j) in mine]):
             tiles.append((
                 _multi_query_lanes(valid_l, oid_l, num_segments, block,
                                    index_base=s * n_loc),
@@ -454,16 +502,44 @@ def _multi_query_mesh(mesh, xy, valid, cell, flags_tables, oid, query_xy,
                                     qx[b0:b1], rad[b0:b1], qv[b0:b1],
                                     num_segments)
                 for lanes, xy_l, cell_l, ft, qx, rad, qv in tiles]
-            gmin, rep = _merge_digests([d[0] for d in digests],
-                                       [d[1] for d in digests], devs[0])
+            if span:
+                gmin, rep = _merge_over_group(
+                    digests, fin, (block, num_segments), dtype)
+            else:
+                gmin, rep = _merge_digests([d[0] for d in digests],
+                                           [d[1] for d in digests], fin)
             res, within = _multi_query_finish(gmin, rep, k)
             parts.append(res)
             withins.append(within)
         cols.append((KnnResult(*(torch.cat(f) for f in zip(*parts))),
                      torch.cat(withins)))
-    dev0 = grid[0, 0]
-    return (_gather([c[0] for c in cols], dev0),
-            _gather([c[1] for c in cols], dev0))
+    return (_gather([c[0] for c in cols], home),
+            _gather([c[1] for c in cols], home))
+
+
+def _merge_over_group(digests, dev, shape, dtype):
+    """This process's (seg_min, rep) digests of one block merged, then
+    all-gathered over the group as one byte table a process (the minima
+    then the representatives, one gloo collective) and merged again on
+    ``dev``. A process that owns no tile of the column sends the
+    merge's identity: every minimum absent, every representative
+    ``I32_BIG``."""
+    from spatialflink_tpu_torch.ops.knn import I32_BIG, absent_dist
+
+    if digests:
+        gmin, rep = _merge_digests([d[0] for d in digests],
+                                   [d[1] for d in digests], dev)
+    else:
+        gmin = torch.full(shape, absent_dist(dtype), dtype=dtype,
+                          device=dev)
+        rep = torch.full(shape, I32_BIG, dtype=torch.int32, device=dev)
+    split = gmin.numel() * gmin.element_size()
+    table = torch.cat([gmin.contiguous().view(torch.uint8).reshape(-1),
+                       rep.contiguous().view(torch.uint8).reshape(-1)])
+    tables = [t.to(dev) for t in all_gather_tensor(table)]
+    return _merge_digests(
+        [t[:split].view(dtype).view(shape) for t in tables],
+        [t[split:].view(torch.int32).view(shape) for t in tables], dev)
 
 
 def sharded_knn_multi(mesh, xy, valid, cell, flags_tables, oid, query_xy,
@@ -661,7 +737,11 @@ def sharded_tjoin_pane_scan(mesh, carry, ts, lps, rps, radius,
     shard probes its slice against the replicated window planes, then
     the contributions of both probe directions gather and every carry
     replica applies the identical digest scatter and pane insert; the
-    four overflow counters sum. Equal to the unsharded scan.
+    four overflow counters sum. Equal to the unsharded scan. On a mesh
+    spanning processes each process probes its own shards, the
+    contributions all-gather over the group and every process's carry
+    replicas apply them (``ops/tjoin_panes.py:_scan_mesh``); the carry
+    lives on each process's home device.
 
     The collective footprint is computed here, host-side from static
     shapes, per scan: per slide, both panes' fields (x, y at the field
@@ -669,7 +749,6 @@ def sharded_tjoin_pane_scan(mesh, carry, ts, lps, rps, radius,
     pair_sel`` gathered contribution lanes, and four int32 psums."""
     from spatialflink_tpu_torch.ops.tjoin_panes import tjoin_pane_scan
 
-    require_one_process(mesh, "the pane-carry tJoin scan")
     n_slides = int(ts.shape[0]) if hasattr(ts, "shape") else len(ts)
     pc = int(lps[0].shape[1])
     fb = _itemsize(lps[0].dtype)

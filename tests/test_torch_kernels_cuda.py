@@ -1888,3 +1888,76 @@ def test_sharded_b4_paths_a_shard_on_card():
 
     assert pairs(res) == pairs(one) and pairs(one)
     assert int(res.cand_overflow) == int(one.cand_overflow) == 0
+
+
+#: One rank of the two-rank registry bucket on the card: it joins from
+#: torch's launcher variables, runs ``sharded_registry_bucket`` on a 1-D
+#: mesh spanning both ranks (two shards of ``cuda:0`` each) and on a
+#: mesh of four ``cuda:0`` shards in this process, and holds every lane
+#: bit-equal.
+_CARD_RANK_CHILD = """
+import numpy as np, torch
+from spatialflink_tpu_torch.grid import UniformGrid
+from spatialflink_tpu_torch.models.batch import PointBatch
+from spatialflink_tpu_torch.parallel import make_mesh
+from spatialflink_tpu_torch.parallel import sharded as tsh
+from spatialflink_tpu_torch.parallel.multihost import (
+    global_mesh, initialize_distributed)
+
+assert initialize_distributed()
+span = global_mesh(["cuda:0"] * 2, (4,), ("data",))
+one = make_mesh((4,), ("data",), devices=["cuda:0"] * 4)
+grid = UniformGrid(20, 0.0, 10.0, 0.0, 10.0)
+rng = np.random.default_rng(21)
+b = PointBatch.from_arrays(rng.uniform(0, 10, (2000, 2)), None,
+                           rng.integers(0, 100, 2000).astype(np.int32),
+                           bucket=2048).with_cells(grid)
+qxy = rng.uniform(0, 10, (64, 2))
+tables = np.stack([grid.neighbor_flags(3.0, [grid.flat_cell(*p)])
+                   for p in qxy])
+radius = rng.uniform(0.5, 3.0, 64)
+qvalid = rng.random(64) > 0.1
+args = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda:0") for a in (
+    b.xy, b.valid, b.cell, tables, b.oid, qxy, radius, qvalid)]
+got = tsh.sharded_registry_bucket(span, *args, k=8, num_segments=128)
+want = tsh.sharded_registry_bucket(one, *args, k=8, num_segments=128)
+for g, w in zip(got, want):
+    assert g.device == w.device and torch.equal(g, w), (g, w)
+assert int(want.within.sum()) > 0
+print("CARD_SPAN_OK", torch.distributed.get_rank(), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_sharded_registry_bucket_on_two_ranks_of_the_card():
+    """Phase 39c at toy size: two gloo ranks of ``cuda:0``, two shards
+    each, equal to the one-process mesh of four shards of the card."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _card()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CARD_RANK_CHILD],
+        cwd=Path(__file__).resolve().parents[1],
+        env={**os.environ, "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": str(port), "WORLD_SIZE": "2",
+             "RANK": str(rank)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(outs)
+    assert "CARD_SPAN_OK 0" in outs[0] and "CARD_SPAN_OK 1" in outs[1]

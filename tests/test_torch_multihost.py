@@ -35,7 +35,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 #: One rank of the spanning-mesh case: it joins from torch's launcher
 #: variables alone, then holds the routed programs on the mesh spanning
-#: both ranks against the same programs on a mesh in this process.
+#: both ranks against the same programs on a mesh in this process, and
+#: builds ``mesh_from_config``'s mesh over the group.
 _RANK_CHILD = """
 import numpy as np, torch
 from spatialflink_tpu_torch.grid import UniformGrid
@@ -70,13 +71,17 @@ args = (xy.numpy(), ok.numpy(), cell, q.numpy(),
 for a, b in zip(sharded_range_halo(span, plan, *args),
                 sharded_range_halo(one, plan, *args)):
     assert np.array_equal(a, b)
-try:
-    tsh.sharded_knn_multi(span, xy, ok, torch.from_numpy(cell), None, oid,
-                          q, 0.1, k=2, num_segments=16)
-except ValueError as e:
-    assert "A12.3" in str(e)
-else:
-    raise AssertionError("the multi-query kNN ran on a spanning mesh")
+tables = torch.from_numpy(np.stack(
+    [grid.neighbor_flags(0.1, [grid.flat_cell(*p)]) for p in q.numpy()]))
+for a, b in zip(
+        tsh.sharded_knn_multi(span, xy, ok, torch.from_numpy(cell), tables,
+                              oid, q, 0.1, k=2, num_segments=16),
+        tsh.sharded_knn_multi(one, xy, ok, torch.from_numpy(cell), tables,
+                              oid, q, 0.1, k=2, num_segments=16)):
+    assert torch.equal(a, b)
+# Inside the group, mesh_from_config lays the mesh over both ranks.
+cfg = tsh.mesh_from_config([4], device="cpu")
+assert cfg.ranks.tolist() == [0, 0, 1, 1] and cfg.axis_names == ("data",)
 print("SPAN_OK", torch.distributed.get_rank(), flush=True)
 torch.distributed.destroy_process_group()
 """
@@ -99,9 +104,10 @@ def test_two_process_mesh_program_end_to_end():
 
 def test_routed_programs_on_a_process_spanning_mesh():
     """Two ranks joined from ``MASTER_ADDR``/``MASTER_PORT``,
-    ``WORLD_SIZE`` and ``RANK``: the range, trajectory and halo programs
-    on the mesh spanning them equal the same programs on a mesh in one
-    process, and a program that runs in one process only refuses."""
+    ``WORLD_SIZE`` and ``RANK``: the range, trajectory, halo and
+    multi-query kNN programs on the mesh spanning them equal the same
+    programs on a mesh in one process, and ``mesh_from_config`` inside
+    the group spans both ranks."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]

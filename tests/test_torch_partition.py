@@ -677,12 +677,49 @@ def test_process_spanning_mesh_identity_and_refusals():
     assert a == tmesh.Mesh(a.devices, ("data",), ranks=[0, 0, 1, 1])
     assert tmesh.spans_processes(a) and not tmesh.spans_processes(c)
     assert "ranks=[0, 0, 1, 1]" in repr(a)
-    tmesh.require_one_process(c, "x")
-    with pytest.raises(ValueError, match="A12.3"):
-        tmesh.require_one_process(a, "the pane-carry tJoin scan")
     # A mesh in one process maps every shard and gathers nothing.
     assert tmesh.map_shards(c, lambda s: s * s) == [0, 1, 4, 9]
     assert tmesh.home_device(c) == torch.device("cpu")
+    assert tmesh.local_tiles(c) == [(0, 0), (1, 0), (2, 0), (3, 0)]
+
+
+def test_ownership_by_tile_on_a_straddling_2d_mesh(monkeypatch):
+    """A (1, 4) mesh whose one ``data`` row straddles two ranks: each
+    rank runs the tiles it owns, the rank that owns no tile of column 0
+    runs no 1-D shard, and its home is the first device it owns
+    (before ownership by tile it raised ``IndexError``)."""
+    import torch.distributed as dist
+
+    devs = np.array([torch.device("cpu", i) for i in range(4)],
+                    dtype=object).reshape(1, 4)
+    m = tmesh.Mesh(devs, ("data", "query"), ranks=[0, 0, 1, 1])
+    assert m.ranks.shape == (1, 4)
+    want = {0: ([(0, 0), (0, 1)], [0], torch.device("cpu", 0)),
+            1: ([(0, 2), (0, 3)], [], torch.device("cpu", 2))}
+    for rank, (tiles, shards, home) in want.items():
+        monkeypatch.setattr(dist, "get_rank", lambda r=rank: r)
+        assert tmesh.local_tiles(m) == tiles
+        assert tmesh.local_shards(m) == shards
+        assert tmesh.home_device(m) == home
+    # (2, 2) with a row a rank; a rank that owns nothing has no home.
+    m2 = tmesh.Mesh(devs.reshape(2, 2), ("data", "query"),
+                    ranks=[0, 0, 1, 1])
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    assert tmesh.local_tiles(m2) == [(1, 0), (1, 1)]
+    assert tmesh.local_shards(m2) == [1]
+    assert tmesh.home_device(m2) == torch.device("cpu", 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 2)
+    assert tmesh.local_tiles(m2) == []
+    with pytest.raises(ValueError, match="rank 2 owns no device"):
+        tmesh.home_device(m2)
+    # One process: every tile, row by row; home the first device.
+    one = tmesh.make_mesh((2, 2), ("data", "query"),
+                          devices=[torch.device("cpu", i) for i in range(4)])
+    assert tmesh.local_tiles(one) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert tmesh.local_shards(one) == [0, 1]
+    assert tmesh.home_device(one) == torch.device("cpu", 0)
+    assert tmesh.gather_parts(one, {(0, 1): "b", (0, 0): "a"},
+                              [(0, 0), (0, 1)]) == ["a", "b"]
 
 
 def test_shard_exchange_point_is_threaded():
