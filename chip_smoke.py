@@ -16,6 +16,7 @@ NVIDIA card.
     python3 chip_smoke.py --mesh-only         # phases 1-2 and 37
     python3 chip_smoke.py --partition-only    # phases 1-2 and 38
     python3 chip_smoke.py --multihost-only    # phases 1-2 and 39
+    python3 chip_smoke.py --x64-only          # phases 1-2 and 40
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -310,7 +311,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    equal the unarmed run, 2 retries), then three times with failover on
    (it raises: the grid join has no twin); (c)
    ``PointPointKNNQuery.run(driver=)`` with a point query at phase 15's
-   3 x 200,000 Points, ``device.dispatch`` dead from window 2: backend
+   stream cut to 2 x 200,000 Points, ``device.dispatch`` dead from window
+   2: backend
    ``fallback``, one failover in the stats and the trace, the windows'
    ordered winners equal to the clean card run and distances within rtol
    3e-7; (d) the headline ``run_wire_panes`` through B1 stopped after
@@ -498,10 +500,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    one-process CPU mesh. Both ranks' digests of every output must agree;
    a rank that fails, or runs past 600 s and is killed, fails the phase.
    Each leg prints both ranks' spanning and one-process ms, its gloo
-   collectives and the bytes they delivered.
+   collectives and the bytes they delivered;
+40. the float64 mode (``precision.x64(True)``, the entry points' default
+   dtype): (a) B3's float64 instantiation bit-exact against its plain
+   version at the join's full shape (two 131,072-point sides, r = 0.002,
+   cap 48, 262,144 pairs), with 20,000 points exactly on the radius, a
+   budget cut and two layers (r = 0.03, over budget and at its need);
+   (b) B4's float64 instantiation bit-exact at config 3's gathered shape,
+   dense at 65,536 points and 33 boundaries, three slots, and boundaries
+   with no valid edge at DBL_MAX, dense and gathered; (c) the slice's
+   ``run_soa`` paths in float64 on the card (config 3's polygons, 32
+   linestrings and config 1's point query, one window each; config 2's
+   kNN, two windows; config 4's join, one window) equal window for window
+   to the same runs on the CPU through the plain versions, float64
+   distances bit for bit, with the float64 launch counts moved; (d) both
+   float64 kernels' times, plain times and bounds (FP64 at 34 TFLOP/s),
+   added to the JSON record as ``join_extract_f64`` and
+   ``polyline_min_dist_f64``.
 
-In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25, 26
-and 38) run in two spawned worker processes of one torch thread each, at
+In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25, 26,
+38 and 40) run in two spawned worker processes of one torch thread each, at
 the lowest scheduling priority, started before phase 2; the main
 process gives their threads cores of its own. Each returns a
 digest of the inputs it built, which must equal the digest of the card
@@ -755,17 +773,19 @@ def same_bits(a, b) -> bool:
 
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
 def max_abs_err(a, b) -> float:
-    """Max |a - b| on the tensors' device; float32 entries at FLT_MAX in
-    both (no valid edge, no candidate) are left out."""
+    """Max |a - b| on the tensors' device; float entries at their dtype's
+    max in both (no valid edge, no candidate) are left out."""
     import torch
 
-    if a.dtype == torch.float32:
-        live = (a < torch.finfo(torch.float32).max) | \
-            (b < torch.finfo(torch.float32).max)
+    if a.dtype in (torch.float32, torch.float64):
+        big = torch.finfo(a.dtype).max
+        live = (a < big) | (b < big)
         a, b = a[live].double(), b[live].double()
     else:
         a, b = a.double(), b.double()
@@ -928,9 +948,9 @@ def trace_busy(run, by_name=None):
     return wall, busy_ns / 1e9, kernels
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = nops / SCALAR_OPS_PER_S
+    t_ops = nops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -5852,6 +5872,7 @@ DRV_KILL_AT = 2          # the sink.write commit the kill child aborts at
 DRV_IDS = 16_384         # the suite stream's objIDs (bench_suite.py:52)
 DRV_JOIN_RETRIES = 2     # the join's retry budget, and the armed failures
 DRV_KNN_FAIL_AT = 2      # the device.dispatch hit the kNN device path dies at
+DRV_KNN_WINDOWS = 2      # 32c's windows of phase 15's stream (a cut of 3)
 DRV_WIRE_CUT = 10        # headline panes before the carry's checkpoint
 
 
@@ -6213,7 +6234,7 @@ def check_driver(card, panes, wf, gpu="cuda"):
         # 32c: kNN failover at config 2's rate, device.dispatch dead from
         # window 2 on.
         t0 = time.perf_counter()
-        kstream = knn_points(KNN_RUN_WINDOWS, KNN_RUN_WIN, 5)  # phase 15's
+        kstream = knn_points(DRV_KNN_WINDOWS, KNN_RUN_WIN, 5)  # phase 15's
         query = knn_query("point")
 
         def knn_run(driver=None):
@@ -6240,7 +6261,7 @@ def check_driver(card, panes, wf, gpu="cuda"):
                 "failover" not in instants or \
                 snap["driver"]["failovers"] != 1:
             raise AssertionError(f"32c: failover not reported ({drv3.stats})")
-        if len(got) != len(want) != KNN_RUN_WINDOWS:
+        if len(got) != len(want) or len(got) != DRV_KNN_WINDOWS:
             raise AssertionError("32c: windows differ in number")
         exact = 0
         for a, b in zip(want, got):
@@ -6255,7 +6276,7 @@ def check_driver(card, panes, wf, gpu="cuda"):
                                      f"{len(da)} results")
             exact += bool(np.array_equal(da, db))
         print(f"driver kNN failover (PointPointKNNQuery.run, point query, "
-              f"{KNN_RUN_WINDOWS} x {KNN_RUN_WIN} Points): device.dispatch "
+              f"{DRV_KNN_WINDOWS} x {KNN_RUN_WIN} Points): device.dispatch "
               f"dead "
               f"from hit {DRV_KNN_FAIL_AT} (failover at the window starting "
               f"{fo_start[0]} ms), backend {drv3.backend}, "
@@ -9704,6 +9725,355 @@ def check_multihost(card, gpu="cuda"):
           f"ranks x 2 shards of {gpu}) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the float64 mode (A14.1). With ``precision.x64(True)`` and the
+# entry points' default dtype (float64), the point-stream range, kNN and
+# point-point join ship raw float64 coordinates and run B3's and B4's
+# float64 instantiations: 40a holds B3's against its plain version at the
+# join's full shape (config 4: two 131,072-point sides, r = 0.002, cap 48,
+# 262,144 pairs), with points exactly on the radius and two layers; 40b
+# B4's at config 3's gathered shape (262,144 points, 1,000 polygons, 8
+# candidates) and at boundaries with no valid edge; 40c runs the slice's
+# run_soa paths in float64 on the card at full width (config 3's polygon
+# set, 32 linestrings, config 1's point query, config 2's kNN, config 4's
+# join) against the same runs on the CPU through the plain versions; 40d
+# times both kernels. The legs run in depth cuts: one window each (two
+# for the kNN); the CPU twins of the range polygon leg and the join run
+# in the background pool (``TWINS["x64"]``), the others in this process.
+
+X64_WINDOWS = 1          # windows of the range and join legs (cuts of 10/16)
+X64_KNN_WINDOWS = 2      # config 2's one-second windows of the kNN leg
+X64_LAT = 2.0 ** -36     # the lattice of 40a's on-radius points
+#: H100 SXM, FP64 outside the tensor cores (NVIDIA's data sheet).
+F64_OPS_PER_S = 34e12
+
+
+def join_stream64(n, seed):
+    """bench_suite.py:47-54's positions from ``seed`` in float64, as the
+    float64 mode ships them (raw, uncentred)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(115.5, 117.6, n),
+                     rng.uniform(39.6, 41.1, n)], axis=1)
+
+
+def x64_side(grid, xy64, valid=None):
+    """Host lanes (raw float64 xy, valid, cell) of one float64 join side."""
+    xy64 = np.asarray(xy64, np.float64)
+    n = len(xy64)
+    return (xy64, np.ones(n, bool) if valid is None else valid,
+            grid.assign_cells_np(xy64))
+
+
+def check_x64_b3(dev, card):
+    """40a: B3's float64 instantiation against its plain version at the
+    join's full shape. Returns (max_abs_err, the headline planes, the
+    sides)."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    grid = UniformGrid(**BEIJING)
+    a, b = join_stream64(JOIN_WIN, 1), join_stream64(JOIN_WIN, 2)
+    left, right = x64_side(grid, a), x64_side(grid, b)
+    head, planes, over, err = join_case(dev, grid, left, right, JOIN_R,
+                                        JOIN_MAX_PAIRS, card, "f64_headline")
+    count = int(head[3])
+    if planes[0].dtype != torch.float64 or head[2].dtype != torch.float64 \
+            or over != 0 or not (0.8 * expected_pairs(JOIN_WIN, JOIN_R)
+                                 < count <= JOIN_MAX_PAIRS):
+        raise AssertionError(f"B3 f64 headline: count {count}, overflow "
+                             f"{over}, {head[2].dtype}")
+    # Points exactly on the radius: left points on the 2^-36 lattice and
+    # right points at +(r, 0), r the radius on the lattice, so that the
+    # offset is exact and d2 == r2 in float64.
+    k = 20_000
+    r = round(JOIN_R / X64_LAT) * X64_LAT
+    lq = np.round(a / X64_LAT) * X64_LAT
+    rq = b.copy()
+    rq[:k] = lq[:k] + np.array([r, 0.0])
+    ls, rs = x64_side(grid, lq), x64_side(grid, rq)
+    got, _, _, e = join_case(dev, grid, ls, rs, r, JOIN_MAX_PAIRS, card,
+                             "f64_on_radius")
+    err = max(err, e)
+    n = int(got[3])
+    li, ri, dd = (t[:n].cpu().numpy() for t in got[:3])
+    on = (li == ri) & (li < k)
+    in_grid = (ls[2][:k] < grid.num_cells) & (rs[2][:k] < grid.num_cells)
+    if on.sum() != in_grid.sum() or not np.all(dd[on] == r):
+        raise AssertionError("B3 f64 on_radius lost points exactly on the "
+                             "radius")
+    under = min(1024, count // 2)
+    got, _, _, e = join_case(dev, grid, left, right, JOIN_R, count - under,
+                             card, f"f64_over_budget_{count - under}")
+    err = max(err, e)
+    m = len(got[0])
+    if int(got[3]) != count or not all(
+            same_bits(g[:m], h[:m]) for g, h in zip(got[:3], head[:3])):
+        raise AssertionError("B3 f64 over budget: not the first pairs")
+    got, _, _, e = join_case(dev, grid, left, right, 0.03, JOIN_MAX_PAIRS,
+                             card, "f64_two_layers_over_budget")
+    err = max(err, e)
+    need = int(2 ** np.ceil(np.log2(int(got[3]))))
+    _, _, _, e = join_case(dev, grid, left, right, 0.03, need, card,
+                           "f64_two_layers")
+    return max(err, e), planes, (left, right)
+
+
+def check_x64_b4(dev, card):
+    """40b: B4's float64 instantiation against its plain version at
+    config 3's shapes, and boundaries with no valid edge at DBL_MAX.
+    Returns (max_abs_err, the gathered inputs)."""
+    import torch
+
+    from spatialflink_tpu_torch.operators.base import pack_query_geometries
+    from spatialflink_tpu_torch.ops.range import bbox_candidates
+
+    verts, ev = pack_query_geometries(range_polygons())
+    xy64 = join_stream64(RANGE_WIN, 7)
+    xy_d, qv_d, qe_d = (torch.from_numpy(x).to(dev) for x in (xy64, verts,
+                                                              ev))
+    lanes = torch.ones(RANGE_WIN, dtype=torch.bool, device=dev)
+    sel, _ = bbox_candidates(xy_d, lanes, qv_d, qe_d, RANGE_R, 8, 8192)
+    _, err = b4_case(dev, xy_d, qv_d, qe_d, sel, card,
+                     "f64_config3_gathered")
+    _, e = b4_case(dev, xy_d[:65_536], qv_d, qe_d, None, card,
+                   "f64_config3_dense_65536")
+    err = max(err, e)
+    _, e = b4_case(dev, xy_d, qv_d[:33].contiguous(), qe_d[:33].contiguous(),
+                   None, card, "f64_dense_g33")
+    err = max(err, e)
+    _, e = b4_case(dev, xy_d, qv_d, qe_d, sel[:, :3].contiguous(), card,
+                   "f64_gathered_c3")
+    err = max(err, e)
+    dead = qe_d.clone()
+    dead[::97] = False  # boundaries 0, 97, ...: no valid edge
+    got, e = b4_case(dev, xy_d[:20_000], qv_d, dead, None, card,
+                     "f64_no_valid_edge_dense")
+    err = max(err, e)
+    big = torch.finfo(torch.float64).max
+    if not torch.all(got[:, ::97] == big) or torch.any(got[:, 1::97] == big):
+        raise AssertionError("B4 f64: a boundary with no valid edge is not "
+                             "DBL_MAX")
+    dsel = sel.clone()
+    dsel[:, 0] = 97
+    got, e = b4_case(dev, xy_d, qv_d, dead, dsel, card,
+                     "f64_no_valid_edge_gathered")
+    err = max(err, e)
+    if not torch.all(got[:, 0] == big):
+        raise AssertionError("B4 f64 gathered: no valid edge is not DBL_MAX")
+    return err, (xy_d, qv_d, qe_d, sel)
+
+
+#: The x64 legs whose CPU runs take seconds: in the full run they go to
+#: the background pool (``TWINS["x64"]``); the others run here.
+X64_HEAVY = ("range_polygons", "join")
+
+
+def x64_inputs():
+    """{leg: (operator class, chunks, query, radius)} of 40c's legs,
+    built from the seeds: config 3's polygons, 32 of them opened as
+    linestrings and config 1's point query over config 3's stream (one
+    window each), config 2's kNN (``X64_KNN_WINDOWS`` windows), config
+    4's join (one window; the query is the right side)."""
+    from spatialflink_tpu_torch.models.objects import LineString, Point
+    from spatialflink_tpu_torch.operators import (
+        PointLineStringRangeQuery,
+        PointPointJoinQuery,
+        PointPointKNNQuery,
+        PointPointRangeQuery,
+        PointPolygonRangeQuery,
+    )
+
+    polys = range_polygons()
+    lines = [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
+             for i, p in enumerate(polys[:32])]
+    r_chunks = range_chunks(X64_WINDOWS, RANGE_WIN, 7)
+    q = Point(x=QUERY[0], y=QUERY[1])
+    return {
+        "range_polygons": (PointPolygonRangeQuery, r_chunks, polys, RANGE_R),
+        "range_linestrings": (PointLineStringRangeQuery, r_chunks, lines,
+                              RANGE_R),
+        "range_points": (PointPointRangeQuery,
+                         range_chunks(X64_WINDOWS, PP_WIN, 42), [q], PP_R),
+        "knn": (PointPointKNNQuery, pane_chunks()[:X64_KNN_WINDOWS], q,
+                PANE_R),
+        "join": (PointPointJoinQuery, soa_join_chunks(1)[:X64_WINDOWS],
+                 soa_join_chunks(2)[:X64_WINDOWS], JOIN_R),
+    }
+
+
+def x64_legs(device, inputs, legs=None):
+    """40c: the slice's run_soa paths with ``precision.x64(True)`` at the
+    entry points' default dtype, on ``device``: the ``legs`` of
+    ``inputs`` (``x64_inputs``; all by default). Returns ({leg: windows}
+    in comparable form, distances as float64 bits; the seconds of all;
+    {leg: seconds})."""
+    import torch
+
+    from spatialflink_tpu_torch import precision
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.operators import QueryConfiguration
+
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    out, secs = {}, {}
+
+    def bits(d):
+        d = np.asarray(d)
+        if d.dtype != np.float64:
+            raise AssertionError(f"x64 leg on {device}: {d.dtype} distances")
+        return d.view(np.int64).tolist()
+
+    for leg in (inputs if legs is None else legs):
+        cls, chunks, q, r = inputs[leg]
+        kw = {"cap": JOIN_CAP} if leg == "join" else {}
+        op = cls(conf, UniformGrid(**BEIJING), device=device, **kw)
+        t0 = time.perf_counter()
+        with precision.x64(True):
+            if leg == "knn":
+                res = list(op.run_soa(chunks, q, r, PANE_K, NUM_SEGMENTS))
+            elif leg == "join":
+                res = list(op.run_soa(chunks, q, r,
+                                      max_pairs=JOIN_MAX_PAIRS))
+            else:
+                res = list(op.run_soa(chunks, q, r))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        secs[leg] = time.perf_counter() - t0
+        if leg == "knn":
+            out[leg] = [(w[0], w[1], w[2].tolist(), bits(w[3]), w[4])
+                        for w in res]
+        elif leg == "join":
+            out[leg] = [(w[0], w[1], w[2].tolist(), w[3].tolist(),
+                         bits(w[4]), w[5], w[6]) for w in res]
+        else:
+            out[leg] = [(w[0], w[1], w[2]["ts"].tolist(), bits(w[3]))
+                        for w in res]
+    return out, sum(secs.values()), secs
+
+
+def check_x64(dev, card, gpu="cuda"):
+    """Phase 40: the float64 mode on the card (``--x64-only`` runs it
+    alone). Returns the float64 kernels' rows of the ``kernels`` record.
+    ``gpu="cpu"`` rehearses the legs' logic on the CPU (40a, 40b and 40d
+    need the card and are skipped; the launch checks then need the plain
+    versions wrapped to count)."""
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract,
+        join_extract_cuda,
+        join_extract_plain,
+    )
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist,
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    t_phase = t0 = time.perf_counter()
+    walls = {}
+    if gpu == "cuda":
+        err3, planes, sides = check_x64_b3(dev, card)
+        err4, b4g = check_x64_b4(dev, card)
+        walls["a+b"] = time.perf_counter() - t0
+
+    # 40c: the legs on the card, then on the CPU: the heavy ones' CPU runs
+    # in the background pool (compared after phase 36), the others here.
+    t0 = time.perf_counter()
+    inputs = x64_inputs()
+    join_extract.launches_f64 = polyline_min_dist.launches_f64 = 0
+    got, _, g_secs = x64_legs(gpu, inputs)
+    launches = {"join_extract_f64": join_extract.launches_f64,
+                "polyline_min_dist_f64": polyline_min_dist.launches_f64}
+    if launches["join_extract_f64"] < X64_WINDOWS or \
+            launches["polyline_min_dist_f64"] < 2 * X64_WINDOWS:
+        raise AssertionError(f"40c: float64 launches {launches}")
+
+    def matches(leg):  # a join window's pair count, else its matches
+        return sum(x[5] if leg == "join" else len(x[3]) for x in got[leg])
+
+    def held(legs, want, w_secs, where):
+        for leg in legs:
+            if got[leg] != want[leg] or not matches(leg):
+                raise AssertionError(f"40c x64 {leg}: the card's windows "
+                                     f"differ from the CPU's, or hold "
+                                     f"nothing")
+        print("exact x64 run_soa (precision.x64(True), the default dtype "
+              "float64; "
+              + ", ".join(f"{leg} {len(got[leg])} windows, {matches(leg)} "
+                          f"matches, {g_secs[leg]:.3f} s on the card, "
+                          f"{w_secs[leg]:.3f} s on the CPU" for leg in legs)
+              + f"): every window equal to the CPU run through the plain "
+              f"versions ({where}), float64 distances bit for bit [{card}]")
+
+    light = [leg for leg in inputs if leg not in X64_HEAVY]
+    want, _, w_secs = x64_legs("cpu", inputs, light)
+    held(light, want, w_secs, "in this process")
+
+    def held_heavy():
+        want, _, w_secs = twin("x64", *(inputs[leg][1:] for leg in X64_HEAVY))
+        held(X64_HEAVY, want, w_secs, "the CPU twin")
+    later(held_heavy)
+    print(f"x64 float64 launches on the legs: join_extract="
+          f"{launches['join_extract_f64']} polyline_min_dist="
+          f"{launches['polyline_min_dist_f64']} [{card}]")
+    walls["c"] = time.perf_counter() - t0
+    rows = {}
+    if gpu == "cuda":
+        # 40d: the float64 kernels' times at the shapes of 40a and 40b.
+        t0 = time.perf_counter()
+        b3 = (*planes, BEIJING["num_partitions"], 1, JOIN_R, JOIN_MAX_PAIRS)
+        b3_ms, b3_call = time_ms(lambda: join_extract_cuda(*b3))
+        b3_plain, _ = time_ms(lambda: join_extract_plain(*b3))
+        pair_tests = join_candidate_pairs(UniformGrid(**BEIJING), *sides)
+        b3_bytes = sum(t.numel() * t.element_size() for t in planes) \
+            + 16 * JOIN_MAX_PAIRS + 4
+        b3_bound, b3_by = bound_ms(b3_bytes, 6 * pair_tests, F64_OPS_PER_S)
+        xy_d, qv_d, qe_d, sel = b4g
+        n_valid = qe_d.sum(dim=1)
+        b4_ms, b4_call = time_ms(lambda: polyline_min_dist_cuda(*b4g))
+        b4_plain, _ = time_ms(lambda: polyline_min_dist_plain(*b4g))
+        b4_bytes = (16 * RANGE_WIN + 12 * sel.numel() + qv_d.numel() * 8
+                    + qe_d.numel())
+        b4_ops = 20 * int(n_valid[sel.long()].sum())
+        b4_bound, b4_by = bound_ms(b4_bytes, b4_ops, F64_OPS_PER_S)
+        for name, ms, call, plain, bnd, by_, nb, no, shape in (
+                ("join_extract_f64", b3_ms, b3_call, b3_plain, b3_bound,
+                 b3_by, b3_bytes, 6 * pair_tests, "the join's full shape"),
+                ("polyline_min_dist_f64", b4_ms, b4_call, b4_plain,
+                 b4_bound, b4_by, b4_bytes, b4_ops,
+                 "config 3 gathered, N=262,144, C=8")):
+            print(f"time {name}: kernel {ms:.6f} ms device ({call:.6f} ms "
+                  f"per call with its launch), plain PyTorch {plain:.6f} ms, "
+                  f"bound {bnd:.6f} ms ({by_}: {nb} B, {no} float64 "
+                  f"operations at {F64_OPS_PER_S:g}/s), library none, "
+                  f"medians of {REPEATS} calls at {shape} [{card}]")
+        rows = {
+            "join_extract_f64": {
+                "name": "join_extract_f64", "route": "cuda",
+                "source": "spatialflink_tpu_torch/kernels/csrc/"
+                          "join_extract.cu",
+                "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
+                "launches": launches["join_extract_f64"],
+                "max_abs_err": err3, "ms": b3_ms, "plain_ms": b3_plain,
+                "bound_ms": b3_bound, "bound_by": b3_by,
+                "library_ms": None, "dtype": "float64"},
+            "polyline_min_dist_f64": {
+                "name": "polyline_min_dist_f64", "route": "cuda",
+                "source": "spatialflink_tpu_torch/kernels/csrc/"
+                          "polyline_min_dist.cu",
+                "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
+                "launches": launches["polyline_min_dist_f64"],
+                "max_abs_err": err4, "ms": b4_ms, "plain_ms": b4_plain,
+                "bound_ms": b4_bound, "bound_by": b4_by,
+                "library_ms": None, "dtype": "float64"},
+        }
+        walls["d"] = time.perf_counter() - t0
+    print(f"phase walls: 40 {time.perf_counter() - t_phase:.3f} s ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f" s) [{card}]")
+    return rows
+
+
 def twin_halo_range():
     """Phase 38a: the halo range's windows on an eight-shard CPU mesh."""
     inputs = halo_range_inputs()
@@ -9807,6 +10177,13 @@ def twin_tjoin_panes():
     return digest(cols), tjoin_panes_cpu(cols)
 
 
+def twin_x64():
+    """Phase 40c: the heavy x64 legs on the CPU."""
+    inputs = x64_inputs()
+    return (digest(*(inputs[leg][1:] for leg in X64_HEAVY)),
+            x64_legs("cpu", inputs, X64_HEAVY))
+
+
 # The background twins, in the order the phases ask for them.
 TWINS = {"run_soa": twin_run_soa, "range": twin_range,
          "geometry_range": twin_geometry_range, "pg_join": twin_pg_join,
@@ -9816,7 +10193,8 @@ TWINS = {"run_soa": twin_run_soa, "range": twin_range,
          "tjoin_run_single": functools.partial(twin_tjoin_objects,
                                                "run_single"),
          "tagg_sum": twin_tagg_sum, "tjoin_panes": twin_tjoin_panes,
-         "halo_range": twin_halo_range, "halo_registry": twin_halo_registry}
+         "halo_range": twin_halo_range, "halo_registry": twin_halo_registry,
+         "x64": twin_x64}
 
 
 def run_domain_phases(card, gpu="cuda"):
@@ -9957,6 +10335,10 @@ def run(argv=None) -> int:
     ap.add_argument("--multihost-only", action="store_true",
                     help="phases 1-2 and 39 only (build, then the mesh "
                          "programs on two gloo ranks of the card)")
+    ap.add_argument("--x64-only", action="store_true",
+                    help="phases 1-2 and 40 only (build, then the float64 "
+                         "mode: B3 and B4 in float64 and the slice's x64 "
+                         "run_soa paths)")
     ap.add_argument("--multihost-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--driver-child", metavar="DIR", default=None,
@@ -9998,7 +10380,7 @@ def run(argv=None) -> int:
             or args.domain_only or args.runtime_only or args.driver_only
             or args.overload_only or args.qserve_only
             or args.jobsurface_only or args.dag_only or args.mesh_only
-            or args.partition_only or args.multihost_only):
+            or args.partition_only or args.multihost_only or args.x64_only):
         threads = start_twins()
         print(f"host: {os.cpu_count()} CPUs; {threads} torch threads here, "
               f"{TWIN_WORKERS} CPU-twin workers of {TWIN_THREADS}")
@@ -10027,7 +10409,8 @@ def run(argv=None) -> int:
     if args.trajectory_only or args.ingest_only or args.domain_only \
             or args.runtime_only or args.driver_only or args.overload_only \
             or args.qserve_only or args.jobsurface_only or args.dag_only \
-            or args.mesh_only or args.partition_only or args.multihost_only:
+            or args.mesh_only or args.partition_only or args.multihost_only \
+            or args.x64_only:
         if args.trajectory_only:
             run_trajectory_phases(dev, card)
         if args.ingest_only:
@@ -10052,6 +10435,8 @@ def run(argv=None) -> int:
             check_partition(card)
         if args.multihost_only:
             check_multihost(card)
+        if args.x64_only:
+            check_x64(dev, card)
         print(f"chip_smoke wall: {time.perf_counter() - t_start:.3f} s "
               f"[{card}]")
         print(json.dumps({"ok": True, "device": {
@@ -10289,6 +10674,9 @@ def run(argv=None) -> int:
     # card, after phase 38's children have ended (plain PyTorch; no hand
     # kernel).
     check_multihost(card)
+    # Phase 40: the float64 mode, B3 and B4 in float64 and the slice's
+    # x64 run_soa paths against the CPU.
+    x64_rows = check_x64(dev, card)
     # The comparisons with the CPU twins of the background processes.
     t0 = time.perf_counter()
     run_later()
@@ -10358,6 +10746,8 @@ def run(argv=None) -> int:
          "launches_ingest": ingest_launches,
          "launches_domain": domain_launches,
          "shapes": b4_shapes},
+        x64_rows["join_extract_f64"],
+        x64_rows["polyline_min_dist_f64"],
     ]}
     print("CPU twins in background processes (seconds of the CPU run, "
           "seconds this process waited for it): "

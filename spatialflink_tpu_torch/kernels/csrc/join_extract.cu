@@ -61,6 +61,17 @@
 // and the 8.4 KB of shared memory a warp takes (candidates and masks) keeps
 // 24 warps resident per multiprocessor, so the 10,000 cells run in about
 // three waves.
+//
+// Float64. The port's float64 mode (precision.py: x64 on, dtype float64)
+// takes the same pass instantiated for double (sft_join_extract_f64): f64
+// coordinate planes, the radius passed as a double and squared in double
+// (as the JAX package's x64 join squares its f64 radius), the __d*_rn
+// intrinsics, and f64 distances. A staged slot is 20 B (x, y as double2 and
+// the index) where it is 12 B in float: at cap 48 and one layer a warp takes
+// 12,288 B of shared memory, not 8,448, so a block of four warps needs the
+// dynamic opt-in (49,152 B) and 16 warps are resident per multiprocessor,
+// not 24; at two layers (1,200 candidates) 32,256 B a warp, one block of
+// four warps per multiprocessor.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,11 +111,39 @@ __device__ __forceinline__ unsigned long long peek(
   return v;
 }
 
-// Shared memory of one warp: right (x, y) then left (x, y) as float2, right
-// and left indices, then one 32-bit hit mask per (live left slot, chunk of
-// 32 live candidates); rounded up to 16 B so every warp's float2s align.
-__host__ __device__ inline size_t warp_bytes(int cap_l, int k_cand) {
-  const size_t b = 12 * ((size_t)cap_l + (size_t)k_cand) +
+// The scalar type's correctly rounded operations and pair type.
+template <typename T>
+struct Num;
+
+template <>
+struct Num<float> {
+  using V2 = float2;
+  __device__ static float sub(float a, float b) { return __fsub_rn(a, b); }
+  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
+  __device__ static float mul(float a, float b) { return __fmul_rn(a, b); }
+  __device__ static float root(float a) { return __fsqrt_rn(a); }
+  __device__ static float2 pair(float x, float y) { return make_float2(x, y); }
+};
+
+template <>
+struct Num<double> {
+  using V2 = double2;
+  __device__ static double sub(double a, double b) { return __dsub_rn(a, b); }
+  __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
+  __device__ static double mul(double a, double b) { return __dmul_rn(a, b); }
+  __device__ static double root(double a) { return __dsqrt_rn(a); }
+  __device__ static double2 pair(double x, double y) {
+    return make_double2(x, y);
+  }
+};
+
+// Shared memory of one warp: right (x, y) then left (x, y) as pairs of the
+// scalar type (elem bytes each), right and left indices, then one 32-bit hit
+// mask per (live left slot, chunk of 32 live candidates); rounded up to 16 B
+// so every warp's pairs align.
+__host__ __device__ inline size_t warp_bytes(int cap_l, int k_cand,
+                                             size_t elem) {
+  const size_t b = (2 * elem + 4) * ((size_t)cap_l + (size_t)k_cand) +
                    4 * (size_t)cap_l * ((k_cand + 31) / 32);
   return (b + 15) & ~(size_t)15;
 }
@@ -146,23 +185,22 @@ struct LeftWalk {
 // The warp stages the live slots among n (plane offsets given by walk, in
 // order): their (x, y) to s_xy and their index to s_idx, compacted in slot
 // order. Returns how many (the same in every lane).
-template <typename Walk>
-__device__ int stage_live(const float* __restrict__ x,
-                          const float* __restrict__ y,
+template <typename T, typename Walk, typename V2 = typename Num<T>::V2>
+__device__ int stage_live(const T* __restrict__ x, const T* __restrict__ y,
                           const int* __restrict__ idx, int n, Walk walk,
-                          float2* s_xy, int* s_idx) {
+                          V2* s_xy, int* s_idx) {
   const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1u;
   int live = 0;
   for (int g0 = 0; g0 < n; g0 += 32 * kGroup) {
     int v[kGroup];
-    float2 p[kGroup];
+    V2 p[kGroup];
 #pragma unroll
     for (int k = 0; k < kGroup; ++k, walk.advance()) {
       const bool in = g0 + 32 * k + lane < n;
       const int o = walk.offset();
       v[k] = in ? idx[o] : -1;
-      p[k] = in ? make_float2(x[o], y[o]) : make_float2(0.0f, 0.0f);
+      p[k] = in ? Num<T>::pair(x[o], y[o]) : Num<T>::pair(T(0), T(0));
     }
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
@@ -179,10 +217,12 @@ __device__ int stage_live(const float* __restrict__ x,
   return live;
 }
 
-__device__ __forceinline__ float pair_d2(float2 a, float2 b) {
-  const float ddx = __fsub_rn(a.x, b.x);
-  const float ddy = __fsub_rn(a.y, b.y);
-  return __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+template <typename T, typename V2 = typename Num<T>::V2>
+__device__ __forceinline__ T pair_d2(V2 a, V2 b) {
+  using N = Num<T>;
+  const T ddx = N::sub(a.x, b.x);
+  const T ddy = N::sub(a.y, b.y);
+  return N::add(N::mul(ddx, ddx), N::mul(ddy, ddy));
 }
 
 // The whole warp sums the status words of cells end, end - 1, ..., nearest
@@ -211,15 +251,16 @@ __device__ unsigned sum_back(const unsigned long long* status, int end) {
   }
 }
 
+template <typename T, typename V2 = typename Num<T>::V2>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    join_pass(const float* __restrict__ lx, const float* __restrict__ ly,
-              const int* __restrict__ lidx, const float* __restrict__ rxp,
-              const float* __restrict__ ryp, const int* __restrict__ ridxp,
-              int grid_n, int layers, int cap_l, int cap_r, float radius,
+    join_pass(const T* __restrict__ lx, const T* __restrict__ ly,
+              const int* __restrict__ lidx, const T* __restrict__ rxp,
+              const T* __restrict__ ryp, const int* __restrict__ ridxp,
+              int grid_n, int layers, int cap_l, int cap_r, T radius,
               int max_pairs, unsigned int* __restrict__ ticket,
               unsigned long long* __restrict__ status, int* __restrict__ count,
               int* __restrict__ outl, int* __restrict__ outr,
-              float* __restrict__ outd) {
+              T* __restrict__ outd) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned lower = (1u << lane) - 1u;
@@ -232,9 +273,9 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   cell = __shfl_sync(kFull, cell, 0);
   if (cell >= ncell) return;  // uniform: the grid rounds up to whole blocks
 
-  unsigned char* mine = smem + warp * warp_bytes(cap_l, k_cand);
-  float2* s_r = reinterpret_cast<float2*>(mine);
-  float2* s_l = s_r + k_cand;
+  unsigned char* mine = smem + warp * warp_bytes(cap_l, k_cand, sizeof(T));
+  V2* s_r = reinterpret_cast<V2*>(mine);
+  V2* s_l = s_r + k_cand;
   int* s_ri = reinterpret_cast<int*>(s_l + cap_l);
   int* s_li = s_ri + k_cand;
   unsigned* s_m = reinterpret_cast<unsigned*>(s_li + cap_l);
@@ -246,28 +287,29 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   // candidates of the neighbour buckets.
   const int lbase = cell * cap_l;
   const int i = cell / grid_n, j = cell - i * grid_n;
-  const int nl = stage_live(lx, ly, lidx, cap_l, LeftWalk{lbase}, s_l, s_li);
-  const int nr = stage_live(rxp, ryp, ridxp, k_cand,
-                            CandWalk(lane, i, j, grid_n + 2 * layers, cap_r,
-                                     span),
-                            s_r, s_ri);
+  const int nl =
+      stage_live<T>(lx, ly, lidx, cap_l, LeftWalk{lbase}, s_l, s_li);
+  const int nr = stage_live<T>(rxp, ryp, ridxp, k_cand,
+                               CandWalk(lane, i, j, grid_n + 2 * layers,
+                                        cap_r, span),
+                               s_r, s_ri);
   __syncwarp();
 
   // Count: live x live pairs, a chunk of 32 candidates (one a lane, NaN
   // past the last: never a hit) against each live left slot. The ballot of
   // (slot l, chunk k) is kept: lane l % 32 holds it, then stores it.
-  const float r2 = __fmul_rn(radius, radius);
+  const T r2 = Num<T>::mul(radius, radius);
   const int nch = nl > 0 ? (nr + 31) / 32 : 0;
   unsigned lane_hits = 0;
   for (int k = 0; k < nch; ++k) {
     const int c = k * 32 + lane;
-    const float2 b = c < nr ? s_r[c] : make_float2(NAN, NAN);
+    const V2 b = c < nr ? s_r[c] : Num<T>::pair(T(NAN), T(NAN));
     for (int l0 = 0; l0 < nl; l0 += 32) {
       const int l1 = min(nl, l0 + 32);
       unsigned held = 0;
 #pragma unroll 4
       for (int l = l0; l < l1; ++l) {
-        const unsigned m = __ballot_sync(kFull, pair_d2(s_l[l], b) <= r2);
+        const unsigned m = __ballot_sync(kFull, pair_d2<T>(s_l[l], b) <= r2);
         held = lane == l - l0 ? m : held;
       }
       if (l0 + lane < l1) s_m[(l0 + lane) * nch + k] = held;
@@ -304,17 +346,18 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
       if ((m >> lane & 1u) && pos < max_pairs) {
         outl[pos] = s_li[l];
         outr[pos] = s_ri[c];
-        outd[pos] = __fsqrt_rn(pair_d2(s_l[l], s_r[c]));
+        outd[pos] = Num<T>::root(pair_d2<T>(s_l[l], s_r[c]));
       }
       run += __popc(m);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kTailThreads)
     pad_tail(const int* __restrict__ count, int max_pairs,
              int* __restrict__ outl, int* __restrict__ outr,
-             float* __restrict__ outd) {
+             T* __restrict__ outd) {
   const int total = *count;
   if (total >= max_pairs) return;
   for (int p = total + blockIdx.x * blockDim.x + threadIdx.x; p < max_pairs;
@@ -323,6 +366,40 @@ __global__ void __launch_bounds__(kTailThreads)
     outr[p] = -1;
     outd[p] = INFINITY;
   }
+}
+
+template <typename T>
+int launch(const T* lx, const T* ly, const int* lidx, const T* rxp,
+           const T* ryp, const int* ridxp, int grid_n, int layers, int cap_l,
+           int cap_r, T radius, int max_pairs, void* scratch, int* count,
+           int* outl, int* outr, T* outd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int span = 2 * layers + 1;
+  const int ncell = grid_n * grid_n;
+  const size_t per_warp = warp_bytes(cap_l, span * span * cap_r, sizeof(T));
+  if (ncell < 1 || per_warp > kMaxShared) return (int)cudaErrorInvalidValue;
+  const int warps = (int)std::min<size_t>(kWarpsPerBlock, kMaxShared / per_warp);
+  const size_t smem = warps * per_warp;
+  if (smem > kDefaultShared) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        join_pass<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(status + ncell);
+  const cudaError_t e = cudaMemsetAsync(
+      scratch, 0, ((size_t)ncell + 1) * sizeof(*status), st);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (ncell + warps - 1) / warps;
+  join_pass<T><<<blocks, warps * 32, smem, st>>>(
+      lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l, cap_r, radius,
+      max_pairs, ticket, status, count, outl, outr, outd);
+  if (max_pairs > 0) {
+    const int need = (max_pairs + kTailThreads - 1) / kTailThreads;
+    pad_tail<T><<<std::min(need, kTailBlocks), kTailThreads, 0, st>>>(
+        count, max_pairs, outl, outr, outd);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -341,31 +418,21 @@ extern "C" int sft_join_extract(const float* lx, const float* ly,
                                 int max_pairs, void* scratch, int* count,
                                 int* outl, int* outr, float* outd,
                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int span = 2 * layers + 1;
-  const int ncell = grid_n * grid_n;
-  const size_t per_warp = warp_bytes(cap_l, span * span * cap_r);
-  if (ncell < 1 || per_warp > kMaxShared) return (int)cudaErrorInvalidValue;
-  const int warps = (int)std::min<size_t>(kWarpsPerBlock, kMaxShared / per_warp);
-  const size_t smem = warps * per_warp;
-  if (smem > kDefaultShared) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        join_pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  unsigned long long* status = static_cast<unsigned long long*>(scratch);
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(status + ncell);
-  const cudaError_t e = cudaMemsetAsync(
-      scratch, 0, ((size_t)ncell + 1) * sizeof(*status), st);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (ncell + warps - 1) / warps;
-  join_pass<<<blocks, warps * 32, smem, st>>>(
-      lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l, cap_r, radius,
-      max_pairs, ticket, status, count, outl, outr, outd);
-  if (max_pairs > 0) {
-    const int need = (max_pairs + kTailThreads - 1) / kTailThreads;
-    pad_tail<<<std::min(need, kTailBlocks), kTailThreads, 0, st>>>(
-        count, max_pairs, outl, outr, outd);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l,
+                       cap_r, radius, max_pairs, scratch, count, outl, outr,
+                       outd, stream);
+}
+
+// The same in float64: f64 coordinate planes, the radius a double, outd
+// (max_pairs,) f64.
+extern "C" int sft_join_extract_f64(const double* lx, const double* ly,
+                                    const int* lidx, const double* rxp,
+                                    const double* ryp, const int* ridxp,
+                                    int grid_n, int layers, int cap_l,
+                                    int cap_r, double radius, int max_pairs,
+                                    void* scratch, int* count, int* outl,
+                                    int* outr, double* outd, void* stream) {
+  return launch<double>(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers, cap_l,
+                        cap_r, radius, max_pairs, scratch, count, outl, outr,
+                        outd, stream);
 }

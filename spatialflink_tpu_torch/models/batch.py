@@ -86,6 +86,18 @@ class PointBatch:
         cell = np.where(self.valid, cell, grid.num_cells).astype(np.int32)
         return replace(self, cell=cell)
 
+    def compact(self, mask: np.ndarray) -> "PointBatch":
+        """The valid lanes where ``mask`` is True, as an unpadded batch
+        (host-side compaction, for egress)."""
+        keep = mask & self.valid
+        return PointBatch(
+            xy=self.xy[keep],
+            ts=self.ts[keep],
+            oid=self.oid[keep],
+            valid=np.ones(int(keep.sum()), bool),
+            cell=None if self.cell is None else self.cell[keep],
+        )
+
 
 def flag_prefix_planes(grid: UniformGrid, flags: np.ndarray):
     """2-D prefix sums of the candidate/guaranteed indicator planes

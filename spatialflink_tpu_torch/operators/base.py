@@ -4,9 +4,11 @@ batching and the host→device ship.
 Per window an operator assembles its events into a padded batch on the
 host (``models/batch.py``), centres the coordinates in float64 and casts
 them to float32 (``center_coords``), ships the lanes to its device and
-runs its kernels there. Query sets are packed once per run
-(``pack_query_points``, ``pack_query_geometries``) with the flag table of
-their cells (``flags_for_queries``). RealTime query types run as
+runs its kernels there. In the float64 mode (``precision.py``: x64 on and
+``dtype`` float64) the coordinates ship raw in float64 instead. Query
+sets are packed once per run (``pack_query_points``,
+``pack_query_geometries``) with the flag table of their cells
+(``flags_for_queries``). RealTime query types run as
 tumbling micro-batches of ``realtime_batch_ms``; CountBased uses count
 windows.
 
@@ -33,6 +35,7 @@ from spatialflink_tpu_torch.models.batch import GeometryBatch, PointBatch
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.ops.counters import counters
 from spatialflink_tpu_torch.parallel.mesh import require_mesh
+from spatialflink_tpu_torch.precision import effective_f64, require_f32
 from spatialflink_tpu_torch.operators.query_config import (
     QueryConfiguration,
     QueryType,
@@ -113,10 +116,14 @@ class SpatialOperator:
                     f"devices, the operator's")
         return mesh
 
-    def run_mesh(self, mesh):
+    def run_mesh(self, mesh, dtype=np.float32):
         """The mesh a run executes on: its ``mesh=`` argument, checked,
-        else the operator's."""
-        return self.check_mesh(mesh) if mesh is not None else self.mesh
+        else the operator's. A mesh run in float64 (``dtype`` float64
+        with x64 on) is not ported yet and raises (``require_f32``)."""
+        mesh = self.check_mesh(mesh) if mesh is not None else self.mesh
+        if mesh is not None:
+            require_f32(dtype, f"{type(self).__name__} on a mesh")
+        return mesh
 
     def _assembler(self) -> WindowAssembler:
         return WindowAssembler(
@@ -207,17 +214,24 @@ class SpatialOperator:
         return GeometryBatch.from_objects(events, interner=self.interner,
                                           dtype=np.float64, bucket=bucket)
 
-    def device_q(self, coords) -> torch.Tensor:
+    def device_q(self, coords, dtype=np.float32) -> torch.Tensor:
         """Coordinates (any (..., 2) array-like: query points, packed
-        boundary vertices) centred and cast to float32 (``center_coords``)
-        and shipped to the operator's device."""
-        host = center_coords(self.grid, np.asarray(coords, np.float64))
+        boundary vertices) as ``center_coords`` gives them for ``dtype``
+        (centred float32, or raw float64 in the float64 mode), shipped to
+        the operator's device."""
+        host = center_coords(self.grid, np.asarray(coords, np.float64), dtype)
         return ship(host, device=self.device).arrive()[0]
 
-    def device_verts(self, verts: np.ndarray) -> torch.Tensor:
+    def device_xy(self, batch: PointBatch, dtype=np.float32) -> torch.Tensor:
+        """A point batch's coordinates on the device: ``device_q`` of
+        ``batch.xy``."""
+        return self.device_q(batch.xy, dtype)
+
+    def device_verts(self, verts: np.ndarray, dtype=np.float32
+                     ) -> torch.Tensor:
         """Packed boundary vertices ((..., 2) arrays) on the device:
         ``device_q`` under the name the geometry paths use."""
-        return self.device_q(verts)
+        return self.device_q(verts, dtype)
 
 
 def query_cells_of(grid: UniformGrid, query_obj) -> List[int]:
@@ -237,18 +251,20 @@ def flags_for_queries(grid: UniformGrid, radius: float,
     return grid.neighbor_flags(radius, cells)
 
 
-def pack_query_points(query_objs: Sequence[Point]) -> np.ndarray:
-    """(Q, 2) float64 query coordinates."""
-    return np.array([[q.x, q.y] for q in query_objs], np.float64)
+def pack_query_points(query_objs: Sequence[Point],
+                      dtype=np.float64) -> np.ndarray:
+    """(Q, 2) query coordinates in ``dtype`` (float64 by default: the
+    host keeps float64, ``center_coords`` makes the device lanes)."""
+    return np.array([[q.x, q.y] for q in query_objs], dtype)
 
 
-def pack_query_geometries(query_objs: Sequence
+def pack_query_geometries(query_objs: Sequence, dtype=np.float64
                           ) -> Tuple[np.ndarray, np.ndarray]:
-    """(Q, V, 2) float64 vertices + (Q, V-1) edge_valid, padded to a
-    shared V (a power of two, at least 8)."""
+    """(Q, V, 2) vertices in ``dtype`` (float64 by default) + (Q, V-1)
+    edge_valid, padded to a shared V (a power of two, at least 8)."""
     vmax = max(q.num_vertices_packed() for q in query_objs)
     v = next_bucket(vmax, minimum=8)
-    verts = np.zeros((len(query_objs), v, 2), np.float64)
+    verts = np.zeros((len(query_objs), v, 2), dtype)
     ev = np.zeros((len(query_objs), v - 1), bool)
     for i, q in enumerate(query_objs):
         verts[i], ev[i] = q.packed(pad_to=v)
@@ -256,33 +272,38 @@ def pack_query_geometries(query_objs: Sequence
 
 
 def center_coords(grid: UniformGrid, xy, dtype=np.float32) -> np.ndarray:
-    """Coordinates minus the grid centre, taken in float64, then cast to
-    float32.
+    """The device lanes of coordinates ``xy`` for a request of ``dtype``.
 
-    Degree-scale values (~116°) have float32 ulps of ~7.6e-6°, so nearby
-    points would lose metres to cancellation; centred values have
-    magnitudes of the extent's span, with ulps of ~1e-7°. Distances are
-    translation-invariant; cells come from the original coordinates.
-    The port always computes in float32 on the device, as the JAX package
-    does on its accelerator (x64 off), so ``dtype`` is accepted only for
-    the JAX signature and does not change the result."""
-    del dtype
+    The rule is the JAX package's: with ``dtype`` float64 and the float64
+    mode on (``precision.effective_f64``), the coordinates come back raw,
+    uncentred, in float64, and the kernels compute in float64. Otherwise
+    they come back minus the grid centre, taken in float64, then cast to
+    float32: degree-scale values (~116°) have float32 ulps of ~7.6e-6°,
+    so nearby points would lose metres to cancellation; centred values
+    have magnitudes of the extent's span, with ulps of ~1e-7°. Distances
+    are translation-invariant; cells come from the original coordinates.
+    The default ``dtype`` is float32, so a caller that passes none gets
+    the centred float32 lanes whatever the mode."""
+    if effective_f64(dtype):
+        return np.asarray(xy, np.float64)
     cx = (grid.min_x + grid.max_x) / 2.0
     cy = (grid.min_y + grid.max_y) / 2.0
     return (np.asarray(xy, np.float64) - np.array([cx, cy])).astype(np.float32)
 
 
-def device_point_args(grid: UniformGrid, xy64: np.ndarray, oid):
+def device_point_args(grid: UniformGrid, xy64: np.ndarray, oid,
+                      dtype=np.float32):
     """One SoA point slice → host-padded (xy, valid, cell, oid) lanes.
 
-    Bucket padding, float64 centring before the float32 cast, and invalid
-    lanes in the out-of-grid cell ``grid.num_cells``: the same lanes as
-    ``PointBatch.from_arrays(...).with_cells(grid)``."""
+    Bucket padding, ``center_coords`` of ``dtype`` (float64 centring
+    before the float32 cast, or raw float64 in the float64 mode), and
+    invalid lanes in the out-of-grid cell ``grid.num_cells``: the same
+    lanes as ``PointBatch.from_arrays(...).with_cells(grid)``."""
     n = len(xy64)
     b = next_bucket(n)
     cell = grid.assign_cells_np(xy64)
     return (
-        pad_to_bucket(center_coords(grid, xy64), b),
+        pad_to_bucket(center_coords(grid, xy64, dtype), b),
         pad_to_bucket(np.ones(n, bool), b, fill=False),
         pad_to_bucket(cell, b, fill=grid.num_cells),
         None if oid is None else pad_to_bucket(np.asarray(oid, np.int32), b,
@@ -291,13 +312,13 @@ def device_point_args(grid: UniformGrid, xy64: np.ndarray, oid):
 
 
 def soa_point_batches(grid: UniformGrid, chunks, conf: QueryConfiguration,
-                      asm=None):
+                      dtype=np.float32, asm=None):
     """SoA chunks → (window, xy, valid, cell, oid) per fired window, the
-    lanes padded per ``device_point_args``. ``asm``: the sliding
-    assembler to feed (a resumed one); a fresh one by default. While
-    ``ops/counters.py`` is enabled each window counts its points there
-    (the throughput meter); the caller, which owns the flags, counts the
-    candidates."""
+    lanes padded per ``device_point_args`` for ``dtype``. ``asm``: the
+    sliding assembler to feed (a resumed one); a fresh one by default.
+    While ``ops/counters.py`` is enabled each window counts its points
+    there (the throughput meter); the caller, which owns the flags, counts
+    the candidates."""
     if asm is None:
         asm = SoaWindowAssembler(conf.window_size_ms, conf.slide_step_ms,
                                  ooo_ms=conf.allowed_lateness_ms)
@@ -309,7 +330,8 @@ def soa_point_batches(grid: UniformGrid, chunks, conf: QueryConfiguration,
              np.asarray(win.arrays["y"], np.float64)],
             axis=1,
         )
-        yield (win, *device_point_args(grid, xy64, win.arrays.get("oid")))
+        yield (win, *device_point_args(grid, xy64, win.arrays.get("oid"),
+                                       dtype))
 
 
 def check_oid_range(oid, num_segments: int) -> None:

@@ -61,6 +61,7 @@ from spatialflink_tpu_torch.ops.join import (
     point_geometry_join_masks,
 )
 from spatialflink_tpu_torch.ops.join_kernel import join_window
+from spatialflink_tpu_torch.precision import effective_f64, require_f32
 from spatialflink_tpu_torch.state import soa_assembler_from_jax
 from spatialflink_tpu_torch.streams.soa import RaggedSoaWindowAssembler
 from spatialflink_tpu_torch.telemetry import telemetry
@@ -89,8 +90,9 @@ def _centered_bbox(grid, bbox: np.ndarray, dtype=np.float32,
                    pad: bool = True) -> np.ndarray:
     """A (N, 4) minx, miny, maxx, maxy array centred and cast to float32
     as the device coordinates are (``center_coords``), so boxes compare
-    in the frame of the vertex and point lanes. ``dtype`` is accepted for
-    the JAX signature.
+    in the frame of the vertex and point lanes. ``dtype`` goes to
+    ``center_coords``: only the geometry paths call this, and in the
+    float64 mode they raise (ROADMAP A14.2) before they do.
 
     ``pad``: each corner moves one float32 ulp outward. The corners round
     on their own, apart from the vertices, so a box shrunk by the cast
@@ -135,10 +137,12 @@ class _TaggedEvent:
 
 
 def grid_hash_join_batches(grid, left_batch, right_batch, radius, cap,
-                           max_pairs, device, filter_radius=None, mesh=None):
+                           max_pairs, device, filter_radius=None, mesh=None,
+                           dtype=np.float32):
     """The grid-hash join of two cell-assigned ``PointBatch``es on
-    ``device``: centred float32 lanes shipped, bucketed and joined
-    (``join_window``). ``filter_radius`` (default ``radius``) is the
+    ``device``: the lanes of ``dtype`` (``center_coords``: centred
+    float32, or raw float64 in the float64 mode) shipped, bucketed and
+    joined (``join_window``). ``filter_radius`` (default ``radius``) is the
     distance predicate; approximate joins pass ``inf`` while the
     candidate neighbourhood stays that of the true radius. ``mesh``: the
     left side shards over its ``data`` axis and the right side
@@ -162,8 +166,8 @@ def grid_hash_join_batches(grid, left_batch, right_batch, radius, cap,
             mesh, *lanes, grid.neighbor_offsets(radius), grid_n=grid.n,
             radius=fr, cap=cap, max_pairs=max_pairs)
     lxy, lv, lc, rxy, rv, rc = ship(
-        center_coords(grid, left_batch.xy), left_batch.valid,
-        left_batch.cell, center_coords(grid, right_batch.xy),
+        center_coords(grid, left_batch.xy, dtype), left_batch.valid,
+        left_batch.cell, center_coords(grid, right_batch.xy, dtype),
         right_batch.valid, right_batch.cell, device=device,
     ).arrive()
     return jitted(join_window, JOIN_LABEL)(
@@ -227,13 +231,16 @@ class PointPointJoinQuery(SpatialOperator):
         window loop: errors propagate, nothing retries or degrades. The
         driver consumes the timestamp-merged stream, so resume positions
         count merged events (both sides must replay). Pairs are (left
-        point, right point, float32 distance), in the kernel's output
-        order for the grid join and left-major for RealTimeNaive.
-        ``dtype`` is accepted for the JAX signature: the port computes in
-        float32. ``mesh`` (default the operator's): the grid join shards
-        the left side over its ``data`` axis (each shard through B3 on the
-        card); the pairs are the unsharded run's as a set."""
-        mesh = self.run_mesh(mesh)
+        point, right point, distance), in the kernel's output order for
+        the grid join and left-major for RealTimeNaive. The distances are
+        float32 from centred lanes, or float64 from raw float64 lanes
+        when ``dtype`` is float64 and the float64 mode is on
+        (``precision.py``, the JAX package's rule). ``mesh`` (default the
+        operator's): the grid join shards the left side over its ``data``
+        axis (each shard through B3 on the card); the pairs are the
+        unsharded run's as a set. A mesh in float64 raises
+        (ROADMAP A14.2)."""
+        mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -266,8 +273,8 @@ class PointPointJoinQuery(SpatialOperator):
                     counters.record_window(len(win.events), cand, cand)
                 if naive:
                     lxy, lv, rxy, rv = ship(
-                        center_coords(self.grid, lb.xy), lb.valid,
-                        center_coords(self.grid, rb.xy), rb.valid,
+                        center_coords(self.grid, lb.xy, dtype), lb.valid,
+                        center_coords(self.grid, rb.xy, dtype), rb.valid,
                         device=self.device,
                     ).arrive()
                     res = ck(lxy, lv, rxy, rv, fr)
@@ -275,14 +282,15 @@ class PointPointJoinQuery(SpatialOperator):
                     li, ri, dd = telemetry.fetch((li, ri, res.dist[li, ri]))
                     overflow = int(res.overflow)
                 else:
-                    li, ri, dd, overflow = self._compact_block(lb, rb,
-                                                               radius, mesh)
+                    li, ri, dd, overflow = self._compact_block(
+                        lb, rb, radius, mesh, dtype)
                 pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
                          for a, b, d in zip(li, ri, dd)]
                 return JoinWindowResult(win.start, win.end, pairs, overflow,
                                         len(win.events))
 
-        fallback = self._numpy_window_process(radius) if naive else None
+        fallback = self._numpy_window_process(radius, dtype) if naive \
+            else None
         drv.bind(self, process, fallback=fallback)
         if self.conf.query_type == QueryType.CountBased:
             yield from drv.run_windows(count_window_batches(
@@ -291,13 +299,13 @@ class PointPointJoinQuery(SpatialOperator):
         else:
             yield from drv.run(merged)
 
-    def _numpy_window_process(self, radius):
+    def _numpy_window_process(self, radius, dtype=np.float32):
         """The numpy twin of the RealTimeNaive cross join: the driver's
-        failover route. The same centred float32 coordinates, squares
-        summed and rooted in float32 as the plain version and the card
-        do, and the device decode's pair order (ascending left index,
-        then ascending right index), so a backend switch mid-stream
-        changes no pair."""
+        failover route. The same coordinates (``center_coords`` of
+        ``dtype``), squares summed and rooted in their dtype as the plain
+        version and the card do, and the device decode's pair order
+        (ascending left index, then ascending right index), so a backend
+        switch mid-stream changes no pair."""
         fr = self._filter_radius(radius)
 
         def process(win) -> JoinWindowResult:
@@ -308,10 +316,10 @@ class PointPointJoinQuery(SpatialOperator):
                                         len(win.events))
             lxy = center_coords(
                 self.grid, np.asarray([[p.x, p.y] for p in left_ev],
-                                      np.float64))
+                                      np.float64), dtype)
             rxy = center_coords(
                 self.grid, np.asarray([[p.x, p.y] for p in right_ev],
-                                      np.float64))
+                                      np.float64), dtype)
             d = lxy[:, None, :] - rxy[None, :, :]
             dist = np.sqrt(np.sum(d * d, axis=-1))
             li, ri = np.nonzero(dist <= fr)
@@ -322,7 +330,7 @@ class PointPointJoinQuery(SpatialOperator):
 
         return process
 
-    def _compact_block(self, lb, rb, radius, mesh=None):
+    def _compact_block(self, lb, rb, radius, mesh=None, dtype=np.float32):
         """One bucketed join with the persistent-budget retry: a window
         whose pair count exceeds the budget reruns once with the next
         power of two of its count, and the grown budget persists across
@@ -334,7 +342,7 @@ class PointPointJoinQuery(SpatialOperator):
             res = grid_hash_join_batches(
                 self.grid, lb, rb, radius, self.cap, self._max_pairs,
                 self.device, filter_radius=self._filter_radius(radius),
-                mesh=mesh,
+                mesh=mesh, dtype=dtype,
             )
             count = int(res.count)
             if count <= self._max_pairs:
@@ -370,7 +378,9 @@ class PointPointJoinQuery(SpatialOperator):
         operator; ``flush_at_end`` False treats the end of the sources as
         a cut and leaves the open windows in the assembler. In-order
         streams, WindowBased windows and ``size % slide == 0`` only, as
-        in the JAX package. ``dtype`` is accepted for the JAX signature."""
+        in the JAX package. ``dtype`` float64 with the float64 mode on
+        raises (ROADMAP A14.2)."""
+        require_f32(dtype, "PointPointJoinQuery.query_panes")
         if self.conf.allowed_lateness_ms > 0:
             raise ValueError(
                 "query_panes does not support allowed_lateness; use run()")
@@ -468,14 +478,18 @@ class PointPointJoinQuery(SpatialOperator):
         only yields empty arrays and zeros. The budget starts at
         ``max_pairs`` (pass a JAX run's grown budget to resume it), grows
         to the next power of two of a window's count when that exceeds
-        it, and persists across windows. ``dtype`` is accepted for the
-        JAX signature: the port computes in float32."""
+        it, and persists across windows. The distances are float32 from
+        centred lanes, or float64 from raw float64 lanes when ``dtype`` is
+        float64 and the float64 mode is on (B3's float64 instantiation on
+        the card)."""
         layers = self.grid.candidate_layers(radius)
         fr = self._filter_radius(radius)
         asm_l, asm_r = self._soa_assemblers()
-        gen_l = soa_point_batches(self.grid, left_chunks, self.conf, asm=asm_l)
-        gen_r = soa_point_batches(self.grid, right_chunks, self.conf,
+        gen_l = soa_point_batches(self.grid, left_chunks, self.conf, dtype,
+                                  asm=asm_l)
+        gen_r = soa_point_batches(self.grid, right_chunks, self.conf, dtype,
                                   asm=asm_r)
+        no_dist = np.float64 if effective_f64(dtype) else np.float32
         budget = max_pairs
         jk = jitted(join_window, JOIN_LABEL)
         for kind, wl, wr in _aligned_soa_windows(
@@ -484,7 +498,7 @@ class PointPointJoinQuery(SpatialOperator):
             if kind != "both":
                 w = wl[0] if kind == "left" else wr[0]
                 yield (w.start, w.end, np.empty(0, np.int32),
-                       np.empty(0, np.int32), np.empty(0, np.float32), 0, 0)
+                       np.empty(0, np.int32), np.empty(0, no_dist), 0, 0)
                 continue
             win, lxy, lvalid, lcell, _ = wl
             _, rxy, rvalid, rcell, _ = wr
@@ -728,12 +742,13 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
     ) -> Iterator[JoinWindowResult]:
         """One ``JoinWindowResult`` per fired window: (point, geometry,
         float32 distance) pairs, each point's matches by ascending
-        geometry index, the points in cell order. ``dtype`` is accepted
-        for the JAX signature: the port computes in float32. ``mesh``
+        geometry index, the points in cell order. ``dtype`` float64 with
+        the float64 mode on raises (ROADMAP A14.2). ``mesh``
         (default the operator's): the cell-sorted points shard
         contiguously over its ``data`` axis, the geometries replicate
         (``sharded_point_geometry_join_pruned``); the pairs are the
         unsharded run's as a set, each shard's in its own order."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
@@ -766,7 +781,9 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         window ``(start, end, point_idx, geom_idx, dist, count)``, indices
         into each side's window arrays, no per-pair Python. Windows align
         on the shared slide grid; a one-sided window yields empty arrays
-        (int32, int32, float64) and count 0."""
+        (int32, int32, float64) and count 0. ``dtype`` float64 with the
+        float64 mode on raises (ROADMAP A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         gen_l = soa_point_batches(self.grid, point_chunks, self.conf)
         gen_r = _ragged_windows(self.conf, geom_chunks)
         for kind, wl, wr in _aligned_soa_windows(
@@ -887,10 +904,11 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         mesh=None,
     ) -> Iterator[JoinWindowResult]:
         """One ``JoinWindowResult`` per fired window: (left, right,
-        float32 distance) pairs. ``dtype`` is accepted for the JAX
-        signature. ``mesh`` (default the operator's): the left side
-        shards over its ``data`` axis; the pairs are the unsharded run's
-        as a set."""
+        float32 distance) pairs. ``dtype`` float64 with the float64 mode
+        on raises (ROADMAP A14.2). ``mesh`` (default the operator's): the
+        left side shards over its ``data`` axis; the pairs are the
+        unsharded run's as a set."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
@@ -916,7 +934,10 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         """Ragged-SoA path: both sides ragged geometry chunk streams
         ({"ts", "oid", "lengths", "verts"[, "edge_valid"]}) → per window
         ``(start, end, left_idx, right_idx, dist, count)``; a one-sided
-        window yields empty arrays (int32, int32, float64) and count 0."""
+        window yields empty arrays (int32, int32, float64) and count 0.
+        ``dtype`` float64 with the float64 mode on raises (ROADMAP
+        A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         gen_l = _ragged_windows(self.conf, left_chunks)
         gen_r = _ragged_windows(self.conf, right_chunks)
         for kind, wl, wr in _aligned_soa_windows(

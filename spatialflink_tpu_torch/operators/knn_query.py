@@ -17,6 +17,16 @@ over objects, ``run_soa_panes`` over SoA chunks, and the headline
 ``run_wire_panes`` over wire panes, one B1 digest a pane
 (``ops/wire_knn.py``). Window results equal the JAX package's
 ``operators/knn_query.py``.
+
+The point-stream ``run`` (point, polygon and linestring queries) and
+``PointPointKNNQuery.run_soa`` honour ``dtype`` by the JAX package's
+rule (``precision.py``): with ``dtype`` float64 and the float64 mode on,
+raw float64 lanes, float64 digests and distances (B4's float64
+instantiation for a polygon or linestring query); otherwise centred
+float32, as before. The pane-carry paths, ``run_multi``, the
+geometry-stream classes and a mesh run in float64 are ROADMAP item A14.2
+and raise. ``run_wire_panes`` takes no ``dtype``: its u16 wire planes
+dequantize to float32 in either mode, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ from spatialflink_tpu_torch.ops.knn import (
     knn_polygon_fused,
     knn_polyline_fused,
 )
+from spatialflink_tpu_torch.precision import require_f32
 from spatialflink_tpu_torch.ops.wire_knn import (
     WIRE_DIGEST_LABELS,
     check_cand,
@@ -149,12 +160,13 @@ class _PointStreamKNNQuery(SpatialOperator):
         propagating. A window's segment count is the interned objIDs so
         far, bucketed to a power of two of at least 64; ``k`` above it
         raises ``ValueError`` in that window, as the reference's top-k
-        does. ``dtype`` is accepted for the JAX signature: the port
-        computes in float32. ``mesh`` (default the operator's): each
-        window's points shard over its ``data`` axis, each shard digests
-        its points and the digests merge before the one top-k, with the
-        unsharded result."""
-        mesh = self.run_mesh(mesh)
+        does. ``dtype`` float64 with the float64 mode on computes in
+        float64 (the module's note), float32 otherwise. ``mesh`` (default
+        the operator's): each window's points shard over its ``data``
+        axis, each shard digests its points and the digests merge before
+        the one top-k, with the unsharded result; a mesh in float64
+        raises (ROADMAP A14.2)."""
+        mesh = self.run_mesh(mesh, dtype)
         flags = flags_for_queries(self.grid, radius, [query_obj])
         from spatialflink_tpu_torch.driver import strict_driver
 
@@ -166,11 +178,11 @@ class _PointStreamKNNQuery(SpatialOperator):
         if drv.backend == "device":
             (flags_d,) = ship(flags, device=self.device).arrive()
             if self.query_kind == "point":
-                query = (self.device_q([query_obj.x, query_obj.y]),)
+                query = (self.device_q([query_obj.x, query_obj.y], dtype),)
                 fused = knn_points_fused
             else:
                 verts, ev = self._packed_query(query_obj)
-                query = (self.device_verts(verts),
+                query = (self.device_verts(verts, dtype),
                          *ship(ev, device=self.device).arrive())
                 fused = (knn_polygon_fused if self.query_kind == "polygon"
                          else knn_polyline_fused)
@@ -200,8 +212,8 @@ class _PointStreamKNNQuery(SpatialOperator):
                             max(self.interner.num_segments, 1), minimum=64)
                     with telemetry.span("ship"):
                         xy_d, valid_d, cell_d, oid_d = ship(
-                            center_coords(self.grid, batch.xy), batch.valid,
-                            batch.cell, batch.oid,
+                            center_coords(self.grid, batch.xy, dtype),
+                            batch.valid, batch.cell, batch.oid,
                             device=self.device).arrive()
                     with telemetry.span("compute"):
                         res = compute((xy_d, valid_d, cell_d, flags_d,
@@ -211,7 +223,7 @@ class _PointStreamKNNQuery(SpatialOperator):
         fallback = None
         if self.query_kind == "point":
             fallback = self._numpy_window_process(query_obj, flags, radius,
-                                                  k)
+                                                  k, dtype)
         drv.bind(self, process, fallback=fallback)
         if self.conf.query_type == QueryType.CountBased:
             yield from drv.run_windows(count_window_batches(
@@ -220,16 +232,18 @@ class _PointStreamKNNQuery(SpatialOperator):
         else:
             yield from drv.run(stream)
 
-    def _numpy_window_process(self, query_obj, flags, radius, k):
+    def _numpy_window_process(self, query_obj, flags, radius, k,
+                              dtype=np.float32):
         """The numpy twin of the point-query device path: the driver's
-        failover route. The same centred float32 coordinates, the same
-        masked per-object minimum and representative (the lowest index
-        at the minimum) and the same top-k order (a stable sort over the
-        minima puts equal distances in ascending segment order), so a
-        backend switch mid-stream changes no winner."""
+        failover route. The same coordinates (``center_coords`` of
+        ``dtype``), the same masked per-object minimum and representative
+        (the lowest index at the minimum) and the same top-k order (a
+        stable sort over the minima puts equal distances in ascending
+        segment order), so a backend switch mid-stream changes no
+        winner."""
         q_host = center_coords(
             self.grid, np.asarray([[query_obj.x, query_obj.y]],
-                                  np.float64))[0]
+                                  np.float64), dtype)[0]
 
         def process(win) -> KnnWindowResult:
             batch = self.point_batch(win.events)
@@ -237,7 +251,7 @@ class _PointStreamKNNQuery(SpatialOperator):
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             check_k(k, nseg)
-            xy = center_coords(self.grid, batch.xy[:n])
+            xy = center_coords(self.grid, batch.xy[:n], dtype)
             d = xy - q_host[None, :]
             dist = np.sqrt(np.sum(d * d, axis=-1))
             f = flags[batch.cell[:n]]
@@ -298,7 +312,9 @@ class _PointStreamKNNQuery(SpatialOperator):
         its representatives pane-local and offset per window in the
         merge; ``state.pane_carry_from_jax`` fills it from a JAX
         operator. ``flush_at_end`` False leaves the open windows in
-        ``self.checkpoint_assembler``."""
+        ``self.checkpoint_assembler``. ``dtype`` float64 with the float64
+        mode on raises (ROADMAP A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.query_panes")
         conf = self.conf
         if conf.query_type == QueryType.CountBased:
             raise ValueError("query_panes requires time-based sliding windows")
@@ -420,15 +436,15 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         """High-rate SoA path: chunks of ``{"ts", "x", "y", "oid"}`` arrays
         → per window ``(start, end, oids, dists, num_valid)``. ``oid``
         must already be dense ids in [0, num_segments); narrow integer
-        types are widened to int32 on the host. ``dtype`` is accepted for
-        the JAX signature."""
+        types are widened to int32 on the host. ``dtype``: ``run``'s
+        rule."""
         dev = self.device
         flags = flags_for_queries(self.grid, radius, [query_point])
         (flags_d,) = ship(flags, device=dev).arrive()
-        q = self.device_q([query_point.x, query_point.y])
+        q = self.device_q([query_point.x, query_point.y], dtype)
         kp = jitted(knn_points_fused)
         for win, xy, valid, cell, oid in soa_point_batches(
-                self.grid, chunks, self.conf):
+                self.grid, chunks, self.conf, dtype):
             with telemetry.span("window.knn_soa", start=win.start,
                                 events=win.count):
                 check_oid_range(oid[:win.count], num_segments)
@@ -459,7 +475,9 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         2-D mesh also splits the query batch and its flag tables over
         ``query`` (``parallel/sharded.py:sharded_knn_multi``), with the
         unsharded results; the padded batch rounds up to a multiple of
-        the query axis."""
+        the query axis. ``dtype`` float64 with the float64 mode on raises
+        (ROADMAP A14.2)."""
+        require_f32(dtype, "PointPointKNNQuery.run_multi")
         mesh = self.run_mesh(mesh)
         nq = len(query_points)
         if nq == 0:
@@ -520,7 +538,9 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         pane, the pane sliced from the window by its timestamps, and a
         merge of the window's digests. ``self._pane_carry_soa`` (pane
         start → (seg_min, rep), or None) is operator-owned state; the
-        same in-order, no-lateness caveats as ``query_panes``."""
+        same in-order, no-lateness caveats as ``query_panes``. ``dtype``
+        float64 with the float64 mode on raises (ROADMAP A14.2)."""
+        require_f32(dtype, "PointPointKNNQuery.run_soa_panes")
         conf = self.conf
         if conf.allowed_lateness_ms > 0:
             raise ValueError(
@@ -1034,7 +1054,9 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         far, bucketed to a power of two of at least 64; ``k`` above it
         raises ``ValueError`` in that window, as the reference's top-k
         does. ``mesh`` (default the operator's): the objects shard over
-        its ``data`` axis, with the unsharded result."""
+        its ``data`` axis, with the unsharded result. ``dtype`` float64
+        with the float64 mode on raises (ROADMAP A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         evaluate = self._window_evaluator(query_obj, radius, k, mesh)
         for win in self.windows(stream):
@@ -1058,7 +1080,9 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         "verts"}`` (and optionally ``"edge_valid"``, multi-ring seams
         False; dense int32 oids) → per window ``(start, end, oids, dists,
         num_valid)``, through the same kernel as ``run`` with no
-        per-object Python."""
+        per-object Python. ``dtype`` float64 with the float64 mode on
+        raises (ROADMAP A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         evaluate = self._window_evaluator(query_obj, radius, k)
         asm = RaggedSoaWindowAssembler(
             self.conf.window_size_ms, self.conf.slide_step_ms,

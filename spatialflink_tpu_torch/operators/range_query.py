@@ -14,6 +14,14 @@ kernels are ``ops/range.py``'s; every point→edge distance of the polygon
 and linestring paths, and both directions of every geometry-stream
 distance, run through B4 on the card. Window results equal the JAX
 package's ``operators/range_query.py``.
+
+The point-stream classes honour ``dtype`` by the JAX package's rule
+(``precision.py``): with ``dtype`` float64 and the float64 mode on, the
+lanes are raw float64 coordinates and the kernels (B4's float64
+instantiation on the card) compare the radius and return distances in
+float64; otherwise centred float32, as before. The geometry-stream
+classes, ``run_partitioned`` and a mesh run in float64 are ROADMAP item
+A14.2 and raise.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from spatialflink_tpu_torch.operators.base import (
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.parallel.mesh import require_mesh
+from spatialflink_tpu_torch.precision import require_f32
 from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.range import (
     geometry_range_query_kernel,
@@ -87,11 +96,14 @@ class _PointStreamRangeQuery(SpatialOperator):
         if cand_budget is not None:
             self._cand_budget = int(cand_budget)
 
-    def _window_evaluator(self, query_set, flags, radius, mesh=None):
+    def _window_evaluator(self, query_set, flags, radius, mesh=None,
+                          dtype=np.float32):
         """``eval(common) -> (keep, dist)`` for this family's query kind,
         ``common = (xy, valid, cell, flags_table)`` on the device: the one
         place of kernel selection, query packing and the pruned paths'
-        overflow retries (shared by ``run`` and ``run_soa``).
+        overflow retries (shared by ``run`` and ``run_soa``). The query
+        lanes are ``center_coords`` of ``dtype``, as the point lanes must
+        be.
 
         Polygons: exact-mode sets of 64 or more take bbox-candidate
         pruning; with a flag occupancy under 25% the candidate lanes are
@@ -101,13 +113,13 @@ class _PointStreamRangeQuery(SpatialOperator):
         (``window_program``), as in the JAX package."""
         approx = self.conf.approximate_query
         if self.query_kind == "point":
-            q = self.device_q(pack_query_points(query_set))
+            q = self.device_q(pack_query_points(query_set), dtype)
             pk = window_program(mesh, range_points_fused, (0, 1, 2), 6,
                                 approximate=approx)
             return lambda common: pk(*common, q, radius)
 
         verts, ev = pack_query_geometries(query_set)
-        qv = self.device_q(verts)
+        qv = self.device_q(verts, dtype)
         (qe,) = ship(ev, device=self.device).arrive()
         if self.query_kind == "linestring":
             lk = window_program(mesh, range_polylines_fused, (0, 1, 2), 7,
@@ -161,11 +173,12 @@ class _PointStreamRangeQuery(SpatialOperator):
         with backoff and, for a point query set, failover to the numpy
         twin (polygon and linestring sets have none and stay strict).
         Without one, ``strict_driver()`` gives the plain window loop:
-        errors propagate, nothing retries or degrades. ``dtype`` is
-        accepted for the JAX signature: the port computes in float32.
-        ``mesh`` (default the operator's): the window kernels run sharded
-        over its ``data`` axis, with the unsharded results."""
-        mesh = self.run_mesh(mesh)
+        errors propagate, nothing retries or degrades. ``dtype`` float64
+        with the float64 mode on computes in float64 (the module's note),
+        float32 otherwise. ``mesh`` (default the operator's): the window
+        kernels run sharded over its ``data`` axis, with the unsharded
+        results; a mesh in float64 raises (ROADMAP A14.2)."""
+        mesh = self.run_mesh(mesh, dtype)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         flags = flags_for_queries(self.grid, radius, query_set)
@@ -179,7 +192,7 @@ class _PointStreamRangeQuery(SpatialOperator):
         if drv.backend == "device":
             (flags_d,) = ship(flags, device=self.device).arrive()
             evaluate = self._window_evaluator(query_set, flags, radius,
-                                              mesh)
+                                              mesh, dtype)
 
         def dispatch(win):
             # assemble → ship → compute phase spans (see knn_query.run).
@@ -192,7 +205,7 @@ class _PointStreamRangeQuery(SpatialOperator):
                                            cand * len(query_set))
             with telemetry.span("ship"):
                 xy_d, valid_d, cell_d = ship(
-                    center_coords(self.grid, batch.xy), batch.valid,
+                    center_coords(self.grid, batch.xy, dtype), batch.valid,
                     batch.cell, device=self.device).arrive()
             with telemetry.span("compute"):
                 return evaluate((xy_d, valid_d, cell_d, flags_d))
@@ -227,7 +240,8 @@ class _PointStreamRangeQuery(SpatialOperator):
         process.pipeline_fetch = pipeline_fetch
         fallback = None
         if self.query_kind == "point":
-            fallback = self._numpy_window_process(query_set, flags, radius)
+            fallback = self._numpy_window_process(query_set, flags, radius,
+                                                  dtype)
         drv.bind(self, process if drv.backend == "device" else None,
                  fallback=fallback)
         if self.conf.query_type == QueryType.CountBased:
@@ -237,19 +251,21 @@ class _PointStreamRangeQuery(SpatialOperator):
         else:
             yield from drv.run(stream)
 
-    def _numpy_window_process(self, query_set, flags, radius):
+    def _numpy_window_process(self, query_set, flags, radius,
+                              dtype=np.float32):
         """The numpy twin of the point-kind device path: the driver's
         failover route. ``range_points_fused``'s arithmetic op by op on
-        the same centred float32 coordinates (``center_coords``), squares
-        summed and rooted in float32 as the plain version and the card do,
-        so a backend switch mid-stream changes no result."""
-        q_host = center_coords(self.grid, pack_query_points(query_set))
+        the same coordinates (``center_coords`` of ``dtype``), squares
+        summed and rooted in their dtype as the plain version and the card
+        do, so a backend switch mid-stream changes no result."""
+        q_host = center_coords(self.grid, pack_query_points(query_set),
+                               dtype)
         approx = self.conf.approximate_query
 
         def process(win) -> RangeResult:
             batch = self.point_batch(win.events)
             n = len(win.events)
-            xy = center_coords(self.grid, batch.xy[:n])
+            xy = center_coords(self.grid, batch.xy[:n], dtype)
             d = xy[:, None, :] - q_host[None, :, :]
             min_dist = np.sqrt(np.sum(d * d, axis=-1)).min(axis=1)
             f = flags[batch.cell[:n]]
@@ -280,7 +296,9 @@ class _PointStreamRangeQuery(SpatialOperator):
         to ``dtype``, as in the JAX package, and differ from the
         flag-table path only where an inactive pair ties the radius
         exactly (``ops/halo.py``). ``mesh``'s devices must be of the
-        operator's device type."""
+        operator's device type. In float64 (``dtype`` float64, x64 on)
+        it raises (ROADMAP A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.run_partitioned")
         if self.query_kind != "point":
             raise ValueError(
                 "run_partitioned supports point query sets only "
@@ -326,14 +344,16 @@ class _PointStreamRangeQuery(SpatialOperator):
         """High-rate SoA path: chunks of {"ts", "x", "y", ...} arrays → per
         window ``(start, end, matched_arrays, dists)``, ``matched_arrays``
         the window's arrays sliced to its matches, with ``run``'s kernel
-        selection (the pruned and compact paths included)."""
+        selection (the pruned and compact paths included) and ``run``'s
+        ``dtype`` rule."""
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         flags = flags_for_queries(self.grid, radius, query_set)
         (flags_d,) = ship(flags, device=self.device).arrive()
-        evaluate = self._window_evaluator(query_set, flags, radius)
+        evaluate = self._window_evaluator(query_set, flags, radius,
+                                          dtype=dtype)
         for win, xy, valid, cell, _ in soa_point_batches(self.grid, chunks,
-                                                         self.conf):
+                                                         self.conf, dtype):
             if counters.enabled:
                 cand = count_candidates(flags, cell, win.count)
                 counters.record_candidates(cand, cand * len(query_set))
@@ -358,9 +378,9 @@ class PointPointRangeQuery(_PointStreamRangeQuery):
         """Incremental sliding windows (PointPointRangeQuery.java:195-296):
         results that qualified in earlier windows are re-emitted from the
         carry; only the newest slide pane (ts >= end - slide) is
-        evaluated. Equal to ``run`` on in-order streams; a non-zero
-        allowed lateness is rejected (late refires would emit carried
-        results twice)."""
+        evaluated. Equal to ``run`` on in-order streams, with its ``dtype``
+        rule; a non-zero allowed lateness is rejected (late refires would
+        emit carried results twice)."""
         if self.conf.allowed_lateness_ms > 0:
             raise ValueError(
                 "query_incremental does not support allowed_lateness "
@@ -368,7 +388,7 @@ class PointPointRangeQuery(_PointStreamRangeQuery):
                 "use run() for late-tolerant streams")
         flags = flags_for_queries(self.grid, radius, [query_point])
         (flags_d,) = ship(flags, device=self.device).arrive()
-        q = self.device_q([[query_point.x, query_point.y]])
+        q = self.device_q([[query_point.x, query_point.y]], dtype)
         slide_ms = self.conf.slide_step_ms
         approx = self.conf.approximate_query
         pk = jitted(range_points_fused)
@@ -388,7 +408,7 @@ class PointPointRangeQuery(_PointStreamRangeQuery):
             if new_events:
                 batch = self.point_batch(new_events)
                 xy_d, valid_d, cell_d = ship(
-                    center_coords(self.grid, batch.xy), batch.valid,
+                    center_coords(self.grid, batch.xy, dtype), batch.valid,
                     batch.cell, device=self.device).arrive()
                 keep, dist = pk(xy_d, valid_d, cell_d, flags_d, q, radius,
                                 approximate=approx)
@@ -474,9 +494,10 @@ class _GeometryStreamRangeQuery(SpatialOperator):
             dtype=np.float64, mesh=None) -> Iterator[RangeResult]:
         """One ``RangeResult`` per fired window of ``Polygon`` or
         ``LineString`` objects (WindowBased, RealTime micro-batches,
-        CountBased). ``dtype`` is accepted for the JAX signature: the port
-        computes in float32. ``mesh`` (default the operator's): the
-        objects shard over its ``data`` axis."""
+        CountBased). ``dtype`` float64 with the float64 mode on raises
+        (ROADMAP A14.2). ``mesh`` (default the operator's): the objects
+        shard over its ``data`` axis."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
@@ -497,7 +518,9 @@ class _GeometryStreamRangeQuery(SpatialOperator):
         "verts"}`` (and optionally ``"edge_valid"``, multi-ring seams
         False; dense int32 oids) → per window ``(start, end,
         kept_indices, kept_oids, dists, window_count)``, through the same
-        kernel as ``run`` with no per-object Python."""
+        kernel as ``run`` with no per-object Python. ``dtype`` float64
+        with the float64 mode on raises (ROADMAP A14.2)."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         evaluate = self._window_evaluator(query_set, radius)

@@ -81,6 +81,7 @@ from spatialflink_tpu_torch.ops.trajectory import (
     traj_stats_kernel,
     traj_stats_sorted_fused,
 )
+from spatialflink_tpu_torch.precision import require_f32
 from spatialflink_tpu_torch.ops.tjoin_panes import (
     pane_cell_ranks,
     tjoin_pane_init,
@@ -193,10 +194,11 @@ class TRangeQuery(_TrajectoryOperator):
 
     def run(self, stream: Iterable[Point], query_polygons: Sequence[Polygon],
             dtype=np.float64, mesh=None) -> Iterator[TRangeResult]:
-        """One ``TRangeResult`` per fired window. ``dtype`` is accepted for
-        the JAX signature: the port computes in float32. ``mesh``
+        """One ``TRangeResult`` per fired window. ``dtype`` float64 with
+        the float64 mode on raises (ROADMAP A14.2). ``mesh``
         (default the operator's): the points shard over its ``data``
         axis and the per-trajectory hit flags combine (JAX's ``pmax``)."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         qv, qe = self._queries(query_polygons)
         for win in self.windows(stream):
@@ -219,6 +221,7 @@ class TRangeQuery(_TrajectoryOperator):
         """SoA path: point chunks ``{"ts", "x", "y", "oid"}`` (dense int32
         oids in [0, num_segments)) → per window ``(start, end, hit_oids,
         window_count)``, with no per-object Python."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         qv, qe = self._queries(query_polygons)
         for win, xy, valid, _, oid in soa_point_batches(self.grid, chunks,
                                                         self.conf):
@@ -263,6 +266,7 @@ class TKNNQuery(_TrajectoryOperator):
         """One ``TKnnResult`` per fired window. ``mesh`` (default the
         operator's): the points shard over its ``data`` axis and the
         per-trajectory digests merge before the top-k."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         flags_d, q = self._query(query_point, radius)
         for win in self.windows(stream):
@@ -289,6 +293,7 @@ class TKNNQuery(_TrajectoryOperator):
         """SoA path: per window, the k nearest trajectories as ``(start,
         end, oids, min_dists, num_valid)`` arrays: the kNN's per-objID
         segment-min is the per-trajectory minimum distance."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         flags_d, q = self._query(query_point, radius)
         for win, xy, valid, cell, oid in soa_point_batches(self.grid, chunks,
                                                            self.conf):
@@ -499,10 +504,11 @@ class TJoinQuery(_TrajectoryOperator):
             radius: float, dtype=np.float64,
             mesh=None) -> Iterator[TJoinResult]:
         """One ``TJoinResult`` per fired window of the two merged streams,
-        pairs sorted by (left objID, right objID, distance). ``dtype`` is
-        accepted for the JAX signature: the port computes in float32.
+        pairs sorted by (left objID, right objID, distance). ``dtype``
+        float64 with the float64 mode on raises (ROADMAP A14.2).
         ``mesh`` (default the operator's): the point join shards the left
         side over its ``data`` axis (``grid_hash_join_batches``)."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
@@ -553,6 +559,7 @@ class TJoinQuery(_TrajectoryOperator):
     def run_single(self, stream, radius, dtype=np.float64):
         """Self-join: pairs within one stream, identity pairs excluded
         (PointPointTJoinQuery.runSingle:57)."""
+        require_f32(dtype, f"{type(self).__name__}.run_single")
         events = list(stream)
         for res in self.run(iter(events), iter(list(events)), radius,
                             dtype=dtype):
@@ -574,6 +581,7 @@ class TJoinQuery(_TrajectoryOperator):
         grid; a one-sided window yields empty arrays (float32
         distances) and zeros. The point-pair budget starts at
         ``max_pairs`` and grows within the run."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         layers = self.grid.candidate_layers(radius)
         gen_l = soa_point_batches(self.grid, left_chunks, self.conf)
         gen_r = soa_point_batches(self.grid, right_chunks, self.conf)
@@ -701,8 +709,8 @@ class TJoinQuery(_TrajectoryOperator):
         policy the device engine's scan
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
-        ``dtype`` is accepted for the JAX signature: the port computes in
-        float32. ``mesh`` (default the operator's): probe-parallel device
+        ``dtype`` float64 with the float64 mode on raises (ROADMAP
+        A14.2). ``mesh`` (default the operator's): probe-parallel device
         scans (``parallel/sharded.py:sharded_tjoin_pane_scan``), the pane
         capacity a multiple of its ``data`` axis; "auto" then takes the
         device engine and "native" raises ``ValueError``. Windows go out
@@ -710,6 +718,7 @@ class TJoinQuery(_TrajectoryOperator):
         ``driver=`` a checkpoint counts the windows emitted, and a resume
         over the replayed bounded chunks rescans and skips the committed
         prefix."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa_panes")
         mesh = self.run_mesh(mesh)
         conf = self.conf
         size, slide = conf.window_size_ms, conf.slide_step_ms
@@ -867,6 +876,7 @@ class TAggregateQuery(_TrajectoryOperator):
         """One ``TAggregateResult`` per fired window. ``mesh`` (default the
         operator's): the points shard over its ``data`` axis and the
         (cell, objID) spans combine by min and max."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
@@ -903,6 +913,7 @@ class TAggregateQuery(_TrajectoryOperator):
         oids) → per window a ``TAggregateResult`` with the same state
         carry as ``run``; in ALL mode the trajectory keys are the dense
         ids as strings."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         for win, _, valid, cell, oid in soa_point_batches(self.grid, chunks,
                                                           self.conf):
             ts_p = pad_to_bucket(np.asarray(win.arrays["ts"], np.int64),
@@ -1007,12 +1018,13 @@ class TStatsQuery(_TrajectoryOperator):
         numpy twin. The realtime walk mutates its running state as it
         goes, so it is never retried and has no twin. Without a driver,
         ``strict_driver()`` gives the plain window loop, errors
-        propagating. ``dtype`` is accepted for the JAX signature: the
-        port computes in float32. ``mesh`` (default the operator's): the
+        propagating. ``dtype`` float64 with the float64 mode on raises
+        (ROADMAP A14.2). ``mesh`` (default the operator's): the
         (objID, ts)-sorted points shard over its ``data`` axis with a
         one-point halo (``parallel/sharded.py:sharded_traj_stats``):
         counts and temporal sums exact, spatial sums reassociated within
         ``ops/trajectory.py:spatial_sum_bound``."""
+        require_f32(dtype, f"{type(self).__name__}.run")
         mesh = self.run_mesh(mesh)
         from spatialflink_tpu_torch.driver import strict_driver
 
@@ -1113,6 +1125,7 @@ class TStatsQuery(_TrajectoryOperator):
         ``(start, end, spatial, temporal, count)`` arrays indexed by dense
         oid (float32, int64 ms, int32). The (oid, ts) sort happens on the
         device (``traj_stats_sorted_fused``)."""
+        require_f32(dtype, f"{type(self).__name__}.run_soa")
         for win, xy, valid, _, oid in soa_point_batches(self.grid, chunks,
                                                         self.conf):
             if counters.enabled and win.count > 1:

@@ -14,9 +14,10 @@ import torch
 
 
 def sqrt_rn(s: torch.Tensor, dtype=None) -> torch.Tensor:
-    """The correctly rounded root of ``s``, rounded once more to ``dtype``
-    when given: the same bits on the card and on the CPU, as the kernels'
-    ``__fsqrt_rn``. On the card torch's root is IEEE-exact. On the CPU it
+    """The correctly rounded root of ``s`` (float32 or float64), rounded
+    once more to ``dtype`` when given: the same bits on the card and on
+    the CPU, as the kernels' ``__fsqrt_rn`` and, in the float64 mode,
+    ``__dsqrt_rn``. On the card torch's root is IEEE-exact. On the CPU it
     is not, in float32 nor in float64 (1 ulp off on some inputs), and
     which lanes it misses depends on how the work is split among threads,
     so two calls on the same input can differ; numpy's root is exact."""

@@ -36,7 +36,7 @@ from spatialflink_tpu_torch.ops.distances import (
 from spatialflink_tpu_torch.ops.polygon import points_in_polygons
 from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
 from spatialflink_tpu_torch.ops.range import (
-    _r32,
+    _radius,
     geometry_pair_distance,
     geometry_pair_distance_tiles,
 )
@@ -149,7 +149,7 @@ def point_geometry_join_kernel(pxy, pvalid, gverts, gev, gvalid, radius,
     if polygonal:
         d = torch.where(points_in_polygons(pxy, gverts, gev), 0.0, d)
     d = d.T
-    mask = (d <= _r32(radius, d)) & pvalid[None, :] & gvalid[:, None]
+    mask = (d <= _radius(radius, d)) & pvalid[None, :] & gvalid[:, None]
     return mask, d
 
 
@@ -161,7 +161,7 @@ def geometry_geometry_join_kernel(averts, aev, avalid, bverts, bev, bvalid,
     edges keep the reference's vertex distance, ROADMAP C2)."""
     d = geometry_pair_distance(averts, aev, bverts, bev, a_polygonal,
                                b_polygonal)
-    mask = (d <= _r32(radius, d)) & avalid[:, None] & bvalid[None, :]
+    mask = (d <= _radius(radius, d)) & avalid[:, None] & bvalid[None, :]
     return mask, d
 
 
@@ -175,7 +175,7 @@ def _block_candidates(block_bbox, gbbox, gvalid, radius, cand: int):
     ``cand`` candidates ascending, in-range ids past the count; cvalid
     (NB, cand) bool; overflow () int32, the candidates dropped beyond
     ``cand``: the selection is exact iff it is 0)."""
-    r = _r32(radius, gbbox)
+    r = _radius(radius, gbbox)
     gx0, gy0 = gbbox[:, 0] - r, gbbox[:, 1] - r
     gx1, gy1 = gbbox[:, 2] + r, gbbox[:, 3] + r
     ov = ((block_bbox[:, 0:1] <= gx1[None, :])
@@ -338,7 +338,7 @@ def point_geometry_join_masks(pxy, pvalid, gverts, gev, gvalid, gbbox,
         if polygonal:
             d = torch.where(points_in_polygons(sx, gverts, gev, sel), 0.0, d)
         dmat = d.view(nb, block, cand)
-    mask = ((dmat <= _r32(radius, dmat)) & bvalid[:, :, None]
+    mask = ((dmat <= _radius(radius, dmat)) & bvalid[:, :, None]
             & cvalid[:, None, :])
     return PrunedJoinMasks(mask, dmat, borig, gids, overflow)
 
@@ -387,7 +387,7 @@ def geometry_geometry_join_masks(averts, aev, avalid, abbox, bverts, bev,
         sae = torch.nn.functional.pad(aev, (0, 0, 0, pad))
         dmat = geometry_pair_distance_tiles(sav, sae, bverts, bev, gids,
                                             a_polygonal, b_polygonal)
-    mask = ((dmat <= _r32(radius, dmat)) & bval[:, :, None]
+    mask = ((dmat <= _radius(radius, dmat)) & bval[:, :, None]
             & cvalid[:, None, :])
     return PrunedJoinMasks(mask, dmat, borig, gids, overflow)
 

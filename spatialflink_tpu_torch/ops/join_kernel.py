@@ -43,6 +43,14 @@ stays above it on latency (a warp stages, counts, then waits for its
 predecessors' counts, and 8.4 KB of shared memory a warp keeps 24 warps
 resident per multiprocessor).
 
+In the float64 mode (``precision.py``) the coordinate planes are
+float64, and the same pass instantiated for double
+(``sft_join_extract_f64``) squares the radius and computes every pair's
+d² and root in float64, its distances float64, as the JAX package's x64
+join. A staged slot takes 20 B there (12 B in float32), so fewer warps
+fit on a multiprocessor (``warp_shared_bytes``). The plain version is
+generic over the two dtypes.
+
 ``join_extract`` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (``join_extract_plain``) for CPU tensors; nothing falls
 back from one to the other.
@@ -77,14 +85,20 @@ def _round_pairs(max_pairs: int) -> int:
     return max_pairs + (-max_pairs) % 128
 
 
+#: The coordinate dtypes the kernel takes: its float and double
+#: instantiations.
+DTYPES = (torch.float32, torch.float64)
+
+
 def _check_planes(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers):
     gp = grid_n + 2 * layers
     cap_l, cap_r = lx.shape[-1], rxp.shape[-1]
-    want = [(lx, (grid_n, grid_n, cap_l), torch.float32),
-            (ly, (grid_n, grid_n, cap_l), torch.float32),
+    f = lx.dtype if lx.dtype in DTYPES else torch.float32
+    want = [(lx, (grid_n, grid_n, cap_l), f),
+            (ly, (grid_n, grid_n, cap_l), f),
             (lidx, (grid_n, grid_n, cap_l), torch.int32),
-            (rxp, (gp, gp, cap_r), torch.float32),
-            (ryp, (gp, gp, cap_r), torch.float32),
+            (rxp, (gp, gp, cap_r), f),
+            (ryp, (gp, gp, cap_r), f),
             (ridxp, (gp, gp, cap_r), torch.int32)]
     for t, shape, dtype in want:
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -104,12 +118,14 @@ def join_planes(left_xy, left_valid, left_cells, right_xy, right_valid,
     """Both sides' bucket planes as the extraction takes them: the left
     planes (grid_n, grid_n, cap_left), the right ones padded by ``layers``
     rows and columns on each side with idx −1 (never matches), so every
-    neighbour access is in bounds; plus ``overflow = l_over + r_over``."""
+    neighbour access is in bounds; plus ``overflow = l_over + r_over``.
+    The coordinate planes are float64 when the left side is (the float64
+    mode), float32 otherwise."""
+    f = torch.float64 if left_xy.dtype == torch.float64 else torch.float32
     lx, ly, lidx, l_over = bucketize_planes(
-        left_xy.to(torch.float32), left_valid, left_cells, grid_n, cap_left)
+        left_xy.to(f), left_valid, left_cells, grid_n, cap_left)
     rx, ry, ridx, r_over = bucketize_planes(
-        right_xy.to(torch.float32), right_valid, right_cells, grid_n,
-        cap_right)
+        right_xy.to(f), right_valid, right_cells, grid_n, cap_right)
     pad = (0, 0, layers, layers, layers, layers)
     rxp = torch.nn.functional.pad(rx, pad)
     ryp = torch.nn.functional.pad(ry, pad)
@@ -125,18 +141,20 @@ def join_extract_plain(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
     gathered into (rows, grid_n, k_cand) candidates and the pair mask
     (rows, grid_n, cap_left, k_cand) is evaluated; its ``nonzero`` order
     (row-major) is the code order. The first ``max_pairs`` hits are kept.
-    Returns (left_index, right_index, dist, count)."""
+    The radius is rounded to the planes' dtype and squared there.
+    Returns (left_index, right_index, dist, count), ``dist`` in the
+    planes' dtype."""
     _check_planes(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers)
     max_pairs = _round_pairs(max_pairs)
     dev = lx.device
     span = 2 * layers + 1
     cap_l, cap_r = lx.shape[-1], rxp.shape[-1]
     k_cand = span * span * cap_r
-    r = torch.tensor(np.float32(radius), device=dev)
+    r = torch.tensor(float(radius), dtype=lx.dtype, device=dev)
     r2 = r * r
     outl = torch.full((max_pairs,), -1, dtype=torch.int32, device=dev)
     outr = torch.full((max_pairs,), -1, dtype=torch.int32, device=dev)
-    outd = torch.full((max_pairs,), float("inf"), dtype=torch.float32,
+    outd = torch.full((max_pairs,), float("inf"), dtype=lx.dtype,
                       device=dev)
     rows = max(1, PLAIN_BLOCK_LANES // (grid_n * cap_l * k_cand))
     total = 0
@@ -164,38 +182,46 @@ def join_extract_plain(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
             a, b, lane, c = h[:, 0], h[:, 1], h[:, 2], h[:, 3]
             outl[total:total + room] = lidx[r0 + a, b, lane]
             outr[total:total + room] = sidx[a, b, c]
-            # The correctly rounded root, as the kernel's __fsqrt_rn.
+            # The correctly rounded root, as the kernel's __fsqrt_rn
+            # (__dsqrt_rn in float64).
             outd[total:total + room] = sqrt_rn(d2[a, b, lane, c])
         total += hits.shape[0]
     count = torch.tensor(total, dtype=torch.int32, device=dev)
     return outl, outr, outd, count
 
 
-def _lib():
+def _lib(dtype: torch.dtype):
+    """The C entry of the kernel's ``dtype`` instantiation."""
     lib = kernels.load("join_extract")
-    fn = lib.sft_join_extract
+    f64 = dtype == torch.float64
+    fn = lib.sft_join_extract_f64 if f64 else lib.sft_join_extract
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i = ctypes.c_void_p, ctypes.c_int
+        f = ctypes.c_double if f64 else ctypes.c_float
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def warp_shared_bytes(cap_left: int, cap_right: int, layers: int) -> int:
+def warp_shared_bytes(cap_left: int, cap_right: int, layers: int,
+                      itemsize: int = 4) -> int:
     """Shared memory the kernel's warp takes for one cell: the compacted
-    left slots and right candidates, 12 B each (x, y, idx), and a 32-bit
+    left slots and right candidates, each (x, y) of ``itemsize`` bytes
+    and a 4-byte index (12 B in float32, 20 B in float64), and a 32-bit
     hit mask per (left slot, chunk of 32 candidates), rounded up to
     16 B."""
     span = 2 * layers + 1
     k_cand = span * span * cap_right
-    b = 12 * (cap_left + k_cand) + 4 * cap_left * -(-k_cand // 32)
+    b = (2 * itemsize + 4) * (cap_left + k_cand) \
+        + 4 * cap_left * -(-k_cand // 32)
     return b + (-b) % 16
 
 
 def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
                       layers: int, radius, max_pairs: int):
-    """Launch the kernel on the current stream (no synchronisation).
-    Returns (left_index, right_index, dist, count) on the card."""
+    """Launch the kernel of the planes' dtype on the current stream (no
+    synchronisation). Returns (left_index, right_index, dist, count) on
+    the card."""
     _check_planes(lx, ly, lidx, rxp, ryp, ridxp, grid_n, layers)
     planes = (lx, ly, lidx, rxp, ryp, ridxp)
     if not all(t.is_cuda and t.is_contiguous() for t in planes):
@@ -206,7 +232,7 @@ def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
                          f"grid_n={grid_n}")
     max_pairs = _round_pairs(max_pairs)
     cap_l, cap_r = lx.shape[-1], rxp.shape[-1]
-    smem = warp_shared_bytes(cap_l, cap_r, layers)
+    smem = warp_shared_bytes(cap_l, cap_r, layers, lx.element_size())
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"cap_left={cap_l}, cap_right={cap_r}, layers={layers} need "
@@ -216,22 +242,26 @@ def join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int,
     ncell = grid_n * grid_n
     outl = torch.empty(max_pairs, dtype=torch.int32, device=dev)
     outr = torch.empty(max_pairs, dtype=torch.int32, device=dev)
-    outd = torch.empty(max_pairs, dtype=torch.float32, device=dev)
+    outd = torch.empty(max_pairs, dtype=lx.dtype, device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     # The scan's status words, one a cell, and the cell ticket; the
     # kernel's entry zeroes them on the stream.
     scratch = torch.empty(ncell + 1, dtype=torch.int64, device=dev)
-    fn = _lib()
+    fn = _lib(lx.dtype)
+    r = float(radius) if lx.dtype == torch.float64 else \
+        float(np.float32(radius))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(lx.data_ptr(), ly.data_ptr(), lidx.data_ptr(),
                 rxp.data_ptr(), ryp.data_ptr(), ridxp.data_ptr(),
                 int(grid_n), int(layers), int(cap_l), int(cap_r),
-                float(np.float32(radius)), int(max_pairs),
+                r, int(max_pairs),
                 scratch.data_ptr(), count.data_ptr(), outl.data_ptr(),
                 outr.data_ptr(), outd.data_ptr(), stream)
     kernels.check(rc, "join_extract")
     join_extract.launches += 1
+    if lx.dtype == torch.float64:
+        join_extract.launches_f64 += 1
     return outl, outr, outd, count
 
 
@@ -239,8 +269,9 @@ def join_extract(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int, layers: int,
                  radius, max_pairs: int):
     """Pairs within ``radius`` between each left bucket and its
     (2·layers+1)² neighbour right buckets: (left_index, right_index, dist,
-    count), the first ``max_pairs`` (rounded up to 128) in code order.
-    CUDA planes → the kernel; CPU planes → the plain version."""
+    count), the first ``max_pairs`` (rounded up to 128) in code order,
+    in the planes' dtype (float32, or float64 in the float64 mode). CUDA
+    planes → the kernel; CPU planes → the plain version."""
     if lx.is_cuda:
         return join_extract_cuda(lx, ly, lidx, rxp, ryp, ridxp, grid_n,
                                  layers, radius, max_pairs)
@@ -248,8 +279,10 @@ def join_extract(lx, ly, lidx, rxp, ryp, ridxp, grid_n: int, layers: int,
                               radius, max_pairs)
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and those of them
+#: that ran the float64 instantiation.
 join_extract.launches = 0
+join_extract.launches_f64 = 0
 
 
 def join_window(left_xy, left_valid, left_cells, right_xy, right_valid,

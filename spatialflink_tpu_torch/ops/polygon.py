@@ -6,7 +6,8 @@ repeated last); ``edge_valid`` (V-1,) is True for real ring edges and
 False for the seam between two rings and for padding. Holes need no
 special case: even-odd crossing counting over all rings is the ray-cast
 containment with holes. Packing is host numpy; containment is plain
-PyTorch on the points' device.
+PyTorch on the points' device, in the coordinates' dtype (float32, or
+float64 in the float64 mode).
 """
 
 from __future__ import annotations
@@ -49,14 +50,15 @@ def _seams(parts) -> Tuple[np.ndarray, np.ndarray]:
     return verts, edge_valid
 
 
-def pack_rings(rings: Sequence[np.ndarray], pad_to: Optional[int] = None
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """Pack polygon rings into float64 (verts, edge_valid), closing each
-    ring that is open. Padding vertices repeat the last real vertex with
-    invalid edges, so padded shapes never change results."""
+def pack_rings(rings: Sequence[np.ndarray], pad_to: Optional[int] = None,
+               dtype=np.float64) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack polygon rings into (verts, edge_valid), ``verts`` in
+    ``dtype``, closing each ring that is open. Padding vertices repeat the
+    last real vertex with invalid edges, so padded shapes never change
+    results."""
     closed = []
     for r in rings:
-        r = np.asarray(r, dtype=np.float64)
+        r = np.asarray(r, dtype=dtype)
         if r.ndim != 2 or r.shape[1] != 2:
             raise ValueError("each ring must be (R, 2)")
         if not np.array_equal(r[0], r[-1]):
@@ -65,11 +67,11 @@ def pack_rings(rings: Sequence[np.ndarray], pad_to: Optional[int] = None
     return _pad(*_seams(closed), pad_to)
 
 
-def pack_polyline(parts: Sequence[np.ndarray], pad_to: Optional[int] = None
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Pack open polyline part(s) into float64 (verts, edge_valid), no
-    closing."""
-    return _pad(*_seams([np.asarray(p, dtype=np.float64) for p in parts]),
+def pack_polyline(parts: Sequence[np.ndarray], pad_to: Optional[int] = None,
+                  dtype=np.float64) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack open polyline part(s) into (verts, edge_valid), ``verts`` in
+    ``dtype``, no closing."""
+    return _pad(*_seams([np.asarray(p, dtype=dtype) for p in parts]),
                 pad_to)
 
 

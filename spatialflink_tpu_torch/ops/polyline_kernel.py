@@ -19,6 +19,12 @@ endpoint, and a boundary with no valid edge gives ``finfo(float32).max``
 (``kernels/csrc/polyline_min_dist.cu``) rounds each operation as the
 plain version does, so the two agree bit for bit.
 
+In the float64 mode (``precision.py``) the inputs are float64, and the
+same kernel instantiated for double (``sft_polyline_min_dist_f64``)
+computes in float64, with ``finfo(float64).max`` for a boundary with no
+valid edge, as the JAX package's float64 ``point_polyline_distance``.
+The plain version is generic over the two dtypes.
+
 On Hopper both modes first build a per-edge table in shared memory (x1,
 y1, abx, aby, len_sq of each valid edge, field by field, and each
 boundary's count of valid edges, compacted with a warp ballot), so the
@@ -62,16 +68,18 @@ PLAIN_BLOCK_LANES_CPU = 1 << 19
 #: Dynamic shared memory a block may take on the H100 (232,448 B opt-in).
 MAX_SHARED_BYTES = 232_448
 
-_BIG = torch.finfo(torch.float32).max
+#: The coordinate dtypes the kernel takes: its float and double
+#: instantiations.
+DTYPES = (torch.float32, torch.float64)
 
 
 def _check(xy, verts, edge_valid, sel):
-    if xy.dim() != 2 or xy.shape[1] != 2 or xy.dtype != torch.float32:
-        raise ValueError(f"xy must be (N, 2) float32, got {tuple(xy.shape)} "
-                         f"{xy.dtype}")
+    if xy.dim() != 2 or xy.shape[1] != 2 or xy.dtype not in DTYPES:
+        raise ValueError(f"xy must be (N, 2) float32 or float64, got "
+                         f"{tuple(xy.shape)} {xy.dtype}")
     if verts.dim() != 3 or verts.shape[2] != 2 or verts.shape[1] < 2 \
-            or verts.dtype != torch.float32:
-        raise ValueError(f"verts must be (G, V >= 2, 2) float32, got "
+            or verts.dtype != xy.dtype:
+        raise ValueError(f"verts must be (G, V >= 2, 2) {xy.dtype}, got "
                          f"{tuple(verts.shape)} {verts.dtype}")
     g, v = verts.shape[:2]
     if tuple(edge_valid.shape) != (g, v - 1) or edge_valid.dtype not in (
@@ -94,15 +102,17 @@ def polyline_min_dist_plain(xy: torch.Tensor, verts: torch.Tensor,
                             edge_valid: torch.Tensor,
                             sel: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on the inputs' device: per
-    block of points, d² of every (point, slot, edge) in the kernel's
-    operation order, +inf on invalid edges, the min over edges, the
-    correctly rounded root and the cap at ``finfo(float32).max``."""
+    """Plain PyTorch version of the kernel, on the inputs' device and in
+    their dtype: per block of points, d² of every (point, slot, edge) in
+    the kernel's operation order, +inf on invalid edges, the min over
+    edges, the correctly rounded root and the cap at the dtype's
+    ``finfo.max``."""
     _check(xy, verts, edge_valid, sel)
     n, (g, v) = xy.shape[0], verts.shape[:2]
     c = g if sel is None else sel.shape[1]
     ev = edge_valid.bool()
-    out = torch.empty((n, c), dtype=torch.float32, device=xy.device)
+    big = torch.finfo(xy.dtype).max
+    out = torch.empty((n, c), dtype=xy.dtype, device=xy.device)
     lanes = PLAIN_BLOCK_LANES if xy.is_cuda else PLAIN_BLOCK_LANES_CPU
     step = max(1, lanes // max(1, c * (v - 1)))
     for i0 in range(0, n, step):
@@ -115,13 +125,15 @@ def polyline_min_dist_plain(xy: torch.Tensor, verts: torch.Tensor,
             bv, ok = verts[s], ev[s]
         d2 = point_segment_sq_distance(p, bv[..., :-1, :], bv[..., 1:, :])
         d2 = torch.where(ok, d2, float("inf")).min(dim=-1).values
-        out[i0:i1] = sqrt_rn(d2).clamp(max=_BIG)
+        out[i0:i1] = sqrt_rn(d2).clamp(max=big)
     return out
 
 
-def _lib():
+def _lib(dtype: torch.dtype):
+    """The C entry of the kernel's ``dtype`` instantiation."""
     lib = kernels.load("polyline_min_dist")
-    fn = lib.sft_polyline_min_dist
+    fn = (lib.sft_polyline_min_dist_f64 if dtype == torch.float64
+          else lib.sft_polyline_min_dist)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
@@ -133,14 +145,17 @@ def polyline_min_dist_cuda(xy: torch.Tensor, verts: torch.Tensor,
                            edge_valid: torch.Tensor,
                            sel: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Launch the kernel on the current stream (no synchronisation).
-    ``sel`` entries must lie in [0, G): the kernel does not check them."""
+    """Launch the kernel of the inputs' dtype on the current stream (no
+    synchronisation). ``sel`` entries must lie in [0, G): the kernel does
+    not check them."""
     tensors = _check(xy, verts, edge_valid, sel)
     if not all(t.is_cuda and t.is_contiguous() for t in tensors):
         raise ValueError("polyline_min_dist_cuda needs contiguous CUDA "
                          "tensors")
-    if xy.data_ptr() % 8 or verts.data_ptr() % 8:
-        raise ValueError("xy and verts must be 8-byte aligned (float2 loads)")
+    align = 2 * xy.element_size()
+    if xy.data_ptr() % align or verts.data_ptr() % align:
+        raise ValueError(f"xy and verts must be {align}-byte aligned (pair "
+                         f"loads)")
     n, (g, v) = xy.shape[0], verts.shape[:2]
     c = g if sel is None else sel.shape[1]
     if sel is None and g > 65_535 * 32:
@@ -149,8 +164,8 @@ def polyline_min_dist_cuda(xy: torch.Tensor, verts: torch.Tensor,
     ev = edge_valid.view(torch.uint8) if edge_valid.dtype == torch.bool \
         else edge_valid
     dev = xy.device
-    out = torch.empty((n, c), dtype=torch.float32, device=dev)
-    fn = _lib()
+    out = torch.empty((n, c), dtype=xy.dtype, device=dev)
+    fn = _lib(xy.dtype)
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -160,21 +175,25 @@ def polyline_min_dist_cuda(xy: torch.Tensor, verts: torch.Tensor,
                 out.data_ptr(), stream)
     kernels.check(rc, "polyline_min_dist")
     polyline_min_dist.launches += 1
+    if xy.dtype == torch.float64:
+        polyline_min_dist.launches_f64 += 1
     return out
 
 
 def polyline_min_dist(xy: torch.Tensor, verts: torch.Tensor,
                       edge_valid: torch.Tensor,
                       sel: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(N, C) float32 min edge distance from point i to boundary
-    ``sel[i, j]`` (or boundary j when ``sel`` is None, C = G). ``xy``
-    (N, 2) f32, ``verts`` (G, V, 2) f32, ``edge_valid`` (G, V-1) bool or
-    uint8, ``sel`` (N, C) int32. CUDA tensors → the kernel; CPU tensors →
-    the plain version."""
+    """(N, C) min edge distance from point i to boundary ``sel[i, j]`` (or
+    boundary j when ``sel`` is None, C = G), in the inputs' dtype. ``xy``
+    (N, 2) and ``verts`` (G, V, 2) both float32 or both float64,
+    ``edge_valid`` (G, V-1) bool or uint8, ``sel`` (N, C) int32. CUDA
+    tensors → the kernel; CPU tensors → the plain version."""
     if xy.is_cuda:
         return polyline_min_dist_cuda(xy, verts, edge_valid, sel)
     return polyline_min_dist_plain(xy, verts, edge_valid, sel)
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and those of them
+#: that ran the float64 instantiation.
 polyline_min_dist.launches = 0
+polyline_min_dist.launches_f64 = 0

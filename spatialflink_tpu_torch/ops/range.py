@@ -13,6 +13,11 @@ evaluation, dense over the query set or gathered over each point's
 bbox candidates. Containment (``ops/polygon.py:points_in_polygons``) and
 the min over geometries are plain PyTorch.
 
+The point-stream kernels compute in their inputs' dtype: centred float32
+lanes by default, raw float64 ones in the float64 mode (``precision.py``),
+where the radius is compared in float64 and B4 runs its float64
+instantiation, as the JAX package's kernels do under x64.
+
 Geometry streams (polygons, linestrings) against a query set take
 ``geometry_range_query_kernel``: per (object, query) the vertex→boundary
 distances both ways, each direction one dense B4 launch over the whole
@@ -40,11 +45,18 @@ PAIR_BLOCK = 1 << 27
 MAX_BLOCK_OBJECTS = 1 << 20
 
 
-def _r32(radius, like: torch.Tensor) -> torch.Tensor:
-    """The radius as a scalar of ``like``'s dtype and device (the JAX
-    kernels compare against a weakly typed radius, i.e. in float32)."""
-    return torch.tensor(np.float32(radius), dtype=like.dtype,
-                        device=like.device)
+def _radius(radius, like: torch.Tensor) -> torch.Tensor:
+    """The radius as a scalar of ``like``'s dtype and device: the JAX
+    kernels compare against a weakly typed radius, i.e. in the distances'
+    dtype (rounded to float32 for float32 distances, float64 in the
+    float64 mode)."""
+    return torch.tensor(float(radius), dtype=like.dtype, device=like.device)
+
+
+def _big(like: torch.Tensor) -> float:
+    """``finfo(like.dtype).max``: the no-distance value of ``like``'s
+    dtype."""
+    return torch.finfo(like.dtype).max
 
 
 def _emit_mask(valid, flags, min_dist, radius, approximate: bool):
@@ -53,7 +65,7 @@ def _emit_mask(valid, flags, min_dist, radius, approximate: bool):
     if approximate:
         hit = candidate
     else:
-        hit = candidate & (min_dist <= _r32(radius, min_dist))
+        hit = candidate & (min_dist <= _radius(radius, min_dist))
     return valid & (guaranteed | hit)
 
 
@@ -124,17 +136,22 @@ def bbox_candidates(xy, lanes, poly_verts, poly_edge_valid, radius,
     its root taken in float64 and rounded to float32 (``sqrt_rn``: the
     same bits on the CPU and the card). The selection keys on (distance
     bits << 32 | index), which has no ties, so it is deterministic on
-    every device."""
+    every device. In float64 the distance is the float64 root of the
+    float64 squares, and the selection is a stable sort of the distances,
+    the same (distance, index) order: a float64's bits do not fit beside
+    an index in 64."""
     n = xy.shape[0]
     p = poly_verts.shape[0]
+    f64 = xy.dtype == torch.float64
+    big = _big(xy)
     vmask = _vert_valid(poly_edge_valid)
     vx, vy = poly_verts[..., 0], poly_verts[..., 1]
-    minx = torch.where(vmask, vx, _BIG).min(dim=1).values
-    maxx = torch.where(vmask, vx, -_BIG).max(dim=1).values
-    miny = torch.where(vmask, vy, _BIG).min(dim=1).values
-    maxy = torch.where(vmask, vy, -_BIG).max(dim=1).values
+    minx = torch.where(vmask, vx, big).min(dim=1).values
+    maxx = torch.where(vmask, vx, -big).max(dim=1).values
+    miny = torch.where(vmask, vy, big).min(dim=1).values
+    maxy = torch.where(vmask, vy, -big).max(dim=1).values
     dead = ~vmask.any(dim=1)
-    r = _r32(radius, xy)
+    r = _radius(radius, xy)
     pidx = torch.arange(p, dtype=torch.int64, device=xy.device)
     idx = torch.empty((n, cand), dtype=torch.int32, device=xy.device)
     over = torch.zeros((), dtype=torch.int64, device=xy.device)
@@ -146,10 +163,14 @@ def bbox_candidates(xy, lanes, poly_verts, poly_edge_valid, radius,
         dy = torch.clamp(torch.maximum(miny[None, :] - y, y - maxy[None, :]),
                          min=0.0)
         dx64, dy64 = dx.to(torch.float64), dy.to(torch.float64)
-        hyp = sqrt_rn(dx64 * dx64 + dy64 * dy64, torch.float32)
-        bbox_d = torch.where(dead[None, :], _BIG, hyp)
-        key = (bbox_d.view(torch.int32).to(torch.int64) << 32) | pidx
-        sel = torch.topk(key, cand, dim=1, largest=False, sorted=True).indices
+        hyp = sqrt_rn(dx64 * dx64 + dy64 * dy64, xy.dtype)
+        bbox_d = torch.where(dead[None, :], big, hyp)
+        if f64:
+            sel = torch.sort(bbox_d, dim=1, stable=True).indices[:, :cand]
+        else:
+            key = (bbox_d.view(torch.int32).to(torch.int64) << 32) | pidx
+            sel = torch.topk(key, cand, dim=1, largest=False,
+                             sorted=True).indices
         idx[i0:i1] = sel.to(torch.int32)
         within = (bbox_d <= r).sum(dim=1)
         over += torch.where(lanes[i0:i1], torch.clamp(within - cand, min=0),
@@ -192,9 +213,10 @@ def range_query_polygons_pruned_compact_kernel(xy, valid, flags, poly_verts,
     lanes with ``valid & flags > 0`` (ascending, as ``jnp.nonzero(size=
     budget)``) are gathered, evaluated and scattered back through their
     own indices (no padding lane exists to clip). Lanes not evaluated get
-    ``finfo.max``. Returns (keep, min_dist, cand_overflow,
-    budget_overflow), the last a host int (``nonzero`` has already waited
-    for the device); both overflows 0 ⇒ the kept lanes are exact."""
+    ``finfo.max`` of the coordinates' dtype. Returns (keep, min_dist,
+    cand_overflow, budget_overflow), the last a host int (``nonzero`` has
+    already waited for the device); both overflows 0 ⇒ the kept lanes are
+    exact."""
     n = xy.shape[0]
     lanes = valid & (flags > 0)
     idx = torch.nonzero(lanes).flatten()
@@ -206,7 +228,7 @@ def range_query_polygons_pruned_compact_kernel(xy, valid, flags, poly_verts,
         point_chunk=point_chunk,
     )
     keep = torch.zeros(n, dtype=torch.bool, device=xy.device)
-    dist = torch.full((n,), _BIG, dtype=torch.float32, device=xy.device)
+    dist = torch.full((n,), _big(xy), dtype=xy.dtype, device=xy.device)
     keep[idx] = keep_c
     dist[idx] = dist_c
     return keep, dist, cand_over, max(n_cand - budget, 0)

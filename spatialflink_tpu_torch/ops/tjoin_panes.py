@@ -58,6 +58,7 @@ import torch
 
 from spatialflink_tpu_torch.ops.distances import sqrt_rn
 from spatialflink_tpu_torch.ops.select import first_k_prefix_indices
+from spatialflink_tpu_torch.precision import require_f32
 
 #: Pane tag of a slot never written (far below any live window).
 EMPTY_TAG = -(1 << 30)
@@ -130,9 +131,11 @@ def block_size(ppw: int) -> int:
 def tjoin_pane_init(num_cells: int, cap_w: int, ppw: int, num_ids: int,
                     dtype=None, device="cuda") -> TJoinPaneCarry:
     """A fresh carry on ``device``. ``num_ids``: the interned trajectory
-    ids (K), shared by both sides. ``dtype`` is accepted for the JAX
-    signature: the port computes in float32."""
-    del dtype
+    ids (K), shared by both sides. The carry is float32: ``dtype`` None
+    or float32 takes it, and float64 (the JAX package's x64 carry) is
+    ROADMAP item A14.2 and raises."""
+    if dtype is not None and np.dtype(dtype) != np.float32:
+        require_f32(np.float64, "the pane-carry tJoin's float64 carry")
     dev = torch.device(device)
     slots = num_cells * cap_w + 1
     p = num_ids * num_ids

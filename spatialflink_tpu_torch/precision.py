@@ -1,0 +1,83 @@
+"""The port's counterpart of JAX's ``jax_enable_x64``: the float64 mode.
+
+The JAX package computes in float64 where its caller asks for
+``dtype=np.float64`` (every operator entry point's default) and JAX's
+x64 mode is on, as its test suite turns it on; its accelerator, with x64
+off, gets centred float32 lanes instead (``operators/base.py:
+center_coords``). The port follows the same rule: **float64 only when
+``dtype`` is float64 and x64 is on**. Then coordinates go to the device
+raw, uncentred, in float64, as the JAX package ships them, and the point
+range, kNN and point–point join kernels (B3, B4 on the card) compute,
+compare the radius and return distances in float64. In every other case
+the lanes are the centred float32 ones.
+
+The switch is off by default and is read at call time; nothing is read
+from the environment. Like ``jax.config``, it is one setting for the
+whole process, for every thread::
+
+    from spatialflink_tpu_torch import precision
+
+    precision.enable_x64(True)   # jax.config.update("jax_enable_x64", True)
+    with precision.x64(True):    # jax.enable_x64(True)
+        ...
+
+Entry points whose float64 route is not ported yet raise
+``NotImplementedError`` through ``require_f32`` when the rule asks for
+float64, rather than compute in float32 unasked.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+import numpy as np
+
+
+class _Precision:
+    """The process-wide x64 setting (off until ``enable_x64(True)``)."""
+
+    x64 = False
+
+
+_config = _Precision()
+
+
+def enable_x64(flag: bool) -> None:
+    """Turn the float64 mode on or off for the whole process."""
+    _config.x64 = bool(flag)
+
+
+def x64_enabled() -> bool:
+    """Whether the float64 mode is on."""
+    return _config.x64
+
+
+@contextlib.contextmanager
+def x64(flag: bool = True) -> Iterator[None]:
+    """The float64 mode set to ``flag`` inside the block, and restored to
+    its earlier value on the way out."""
+    prev = _config.x64
+    _config.x64 = bool(flag)
+    try:
+        yield
+    finally:
+        _config.x64 = prev
+
+
+def effective_f64(dtype) -> bool:
+    """True when a request for ``dtype`` computes in float64: ``dtype``
+    is float64 and the float64 mode is on (the JAX package's rule in
+    ``center_coords``)."""
+    return np.dtype(dtype) == np.float64 and _config.x64
+
+
+def require_f32(dtype, what: str) -> None:
+    """Raise ``NotImplementedError`` when ``dtype`` asks for float64
+    (``effective_f64``) of ``what``, an entry point whose float64 route
+    is not ported yet; return otherwise."""
+    if effective_f64(dtype):
+        raise NotImplementedError(
+            f"{what} in float64 (x64 on, dtype float64) is not ported yet: "
+            f"ROADMAP item A14.2. Turn x64 off or pass dtype=np.float32 for "
+            f"its centred float32 route.")

@@ -42,8 +42,9 @@ semantics of the JAX package's ``spatialflink_tpu/qserve.py``:
 The operator runs on the card unless it is given ``device="cpu"``. It
 computes in float32 on the device, with coordinates centred in float64
 first (``operators/base.py:center_coords``); radii ship as float64, so
-the radius test is the JAX package's under x64. ``dtype`` is accepted
-for the JAX signature. ``mesh=``: every bucket runs through
+the radius test is the JAX package's under x64. ``dtype`` float64 with
+the float64 mode on (``precision.py``) raises: the float64 registry
+program is ROADMAP item A14.2. ``mesh=``: every bucket runs through
 ``parallel/sharded.py:sharded_registry_bucket``, the window's points
 sharded over the mesh's ``data`` axis, with the unsharded results.
 """
@@ -68,6 +69,7 @@ from spatialflink_tpu_torch.operators.base import (
     jitted,
     ship,
 )
+from spatialflink_tpu_torch.precision import require_f32
 from spatialflink_tpu_torch.telemetry import telemetry
 from spatialflink_tpu_torch.utils.padding import next_bucket
 
@@ -509,7 +511,10 @@ class QServeOperator(SpatialOperator):
         order, exactly once), every bucket evaluates as one program, and
         results route per tenant under the per-class result budgets.
         ``driver=`` opts into checkpoints and retry as for the other
-        operators; the registry state rides the operator checkpoint."""
+        operators; the registry state rides the operator checkpoint.
+        ``dtype`` float64 with the float64 mode on (``precision.py``)
+        raises: the registry program in float64 is ROADMAP item A14.2."""
+        require_f32(dtype, "QServeOperator.run")
         from spatialflink_tpu_torch.driver import strict_driver
         from spatialflink_tpu_torch.ops.query_registry import (
             registry_bucket_kernel,
@@ -548,9 +553,11 @@ class QServeOperator(SpatialOperator):
         once, evaluate every bucket as one program, one fetch for all
         buckets, per-tenant-class result budgets. Retries go through the
         retry-idempotent accumulators (``record_range_overflow``,
-        ``tenant_result_allowance``), so re-running a window is safe."""
+        ``tenant_result_allowance``), so re-running a window is safe.
+        ``dtype``: ``run``'s rule."""
         from spatialflink_tpu_torch.ops.compaction import pick_capacity
 
+        require_f32(dtype, "QServeOperator.serve_window")
         self.check_mesh(mesh)
         reg = self.qserve_registry
         with telemetry.span("window.qserve", start=win.start,

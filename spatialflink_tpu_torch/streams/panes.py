@@ -42,6 +42,7 @@ from spatialflink_tpu_torch.ops.trajectory import (
     spatial_sum_bound,
     traj_stats_pane_kernel,
 )
+from spatialflink_tpu_torch.precision import require_f32
 from spatialflink_tpu_torch.utils.padding import next_bucket
 
 
@@ -201,7 +202,10 @@ def pane_operands(ts, xy, oid, num_oids: int, slide_ms: int):
     the first pane and the padding. Returns ``(operands, p_lo,
     n_panes)``, ``operands`` the numpy lanes (int32 rebased ts, float32
     x and y, int32 oid, bool valid) that ``traj_stats_pane_kernel``
-    takes."""
+    takes. The JAX package's engine takes float64 lanes whenever its x64
+    mode is on; the port's float64 engine is ROADMAP item A14.2, so with
+    the float64 mode on (``precision.py``) this raises."""
+    require_f32(np.float64, "the device pane engine (tStats panes)")
     ts = np.asarray(ts, np.int64)
     oid = np.asarray(oid, np.int64)
     xy = np.asarray(xy, np.float64)

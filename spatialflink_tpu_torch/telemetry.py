@@ -50,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 from spatialflink_tpu_torch.ablation import ablation
 from spatialflink_tpu_torch.faults import faults
 from spatialflink_tpu_torch.mn.metrics import FixedBucketLatency, json_safe
+from spatialflink_tpu_torch.precision import x64_enabled
 
 
 #: Run-ledger schema version; the JAX package's, which
@@ -829,8 +830,9 @@ class Telemetry:
     def write_ledger(self, path: str, bench: Optional[dict] = None,
                      mesh=None, capture_costs: bool = True) -> str:
         """One schema-versioned JSON run ledger: environment (python,
-        torch, backend, devices), ``snapshot()``, the dispatch table, the
-        buffered events and the caller's bench record. Strict JSON: a
+        torch, backend, devices, the float64 mode's ``x64``),
+        ``snapshot()``, the dispatch table, the buffered events and the
+        caller's bench record. Strict JSON: a
         NaN/Inf is sanitized to null and counted (``nonfinite_values``).
         Seals the ledger stream (``reason: complete``). ``mesh`` (a
         ``{axis: size}`` mapping) lands in the env block."""
@@ -848,6 +850,7 @@ class Telemetry:
             "devices": ([torch.cuda.get_device_name(i) for i in
                          range(min(torch.cuda.device_count(), 8))]
                         if cuda else ["cpu"]),
+            "x64": x64_enabled(),
             "pid": os.getpid(),
             "argv0": os.path.basename(sys.argv[0] or "python"),
         }

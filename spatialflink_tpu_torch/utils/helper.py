@@ -1,8 +1,10 @@
-"""Query-set generation (the reference's HelperClass.generateQueryPolygons)."""
+"""Query-set generation and small helpers (the reference's
+HelperClass): ``generate_query_polygons``, ``pad_leading_zeroes`` and
+``cells_of_polygon_set``, as in the JAX package's ``utils/helper.py``."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Set
 
 import numpy as np
 
@@ -27,3 +29,18 @@ def generate_query_polygons(num: int, min_x: float, min_y: float,
                          [x0, y0 + len_y], [x0, y0]])
         out.append(Polygon(obj_id=f"qpoly{i}", rings=[ring]))
     return out
+
+
+def pad_leading_zeroes(value: int, width: int = 5) -> str:
+    """``value`` zero-padded to ``width`` digits
+    (HelperClass.padLeadingZeroesToInt)."""
+    return f"{value:0{width}d}"
+
+
+def cells_of_polygon_set(grid, polygons) -> Set[int]:
+    """The flat cells the polygons' bboxes overlap, as one set (the union
+    of each polygon's ``grid_cells``)."""
+    cells: Set[int] = set()
+    for p in polygons:
+        cells.update(p.grid_cells(grid))
+    return cells

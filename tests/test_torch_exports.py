@@ -257,12 +257,15 @@ def test_job_surface_modules_at_their_jax_paths():
 def test_every_not_ported_message_names_its_item():
     """No ``NotImplementedError`` is left in the port but the JAX
     package's own (a protocol feature neither package has, raised with
-    the JAX text): A12.3, the last item, is ported, and no source names
-    any part of A11.4 or of A12 in any form: no sharded program refuses
-    a mesh that spans processes."""
+    the JAX text) and the one of ``precision.require_f32``, which names
+    ROADMAP item A14.2 (the float64 mode of the entry points outside the
+    point-stream range, kNN and point–point join): A12.3 is ported, and
+    no source names any part of A11.4 or of A12 in any form: no sharded
+    program refuses a mesh that spans processes."""
     import re
 
     waiting = 0
+    a14_2 = []
     port = REPO / "spatialflink_tpu_torch"
     for path in port.rglob("*.py"):
         text = path.read_text()
@@ -273,11 +276,15 @@ def test_every_not_ported_message_names_its_item():
             if re.search(r"A12|WAITING_COMPONENTS", body):
                 waiting += 1
                 continue
+            if re.search(r"A14\.2", body):
+                a14_2.append(path.relative_to(port).as_posix())
+                continue
             first = re.search(r'"([^"]{12,})"', body).group(1)
             jpath = REPO / "spatialflink_tpu" / path.relative_to(port)
             assert jpath.exists() and first in jpath.read_text(), \
                 (path, body)
     assert waiting == 0
+    assert a14_2 == ["precision.py"]
 
 
 def _public(mod):
@@ -538,3 +545,191 @@ def test_dag_and_streaming_job_at_their_jax_paths_in_the_jax_order():
     assert "``dag.node``" in threaded and "``dag.node``" not in waiting
     assert "ROADMAP" not in tfaults.INJECTION_POINTS["dag.node"]
     assert set(tck.WAITING_COMPONENTS) == set()
+
+
+# ---------------------------------------------------------------------------
+# The public surface: every public function, class, method and parameter of
+# the JAX package has a port counterpart, or an allowlisted reason.
+
+#: JAX-package surface the port deliberately lacks: (module path, name,
+#: parameter or None) → the reason, which the JAX source bears out.
+SURFACE_ALLOWLIST = {
+    ("ops/pallas_digest.py", None, None):
+        "B1's Pallas kernel: kernels/csrc/wire_digest.cu replaces it",
+    ("ops/pallas_join.py", None, None):
+        "B3's Pallas kernel: kernels/csrc/join_extract.cu replaces it",
+    ("ops/pallas_kernels.py", None, None):
+        "B4's Pallas kernel: kernels/csrc/polyline_min_dist.cu replaces it",
+    ("runtime.py", None, None):
+        "it configures the JAX compile cache, which the port has not",
+    ("ops/join.py", "sort_by_cell", None):
+        "the XLA gather join's right-side sort; B3's bucket planes need "
+        "none",
+    ("ops/join.py", "join_kernel", None):
+        "the XLA gather join (the CPU fallback of the TPU strategy); B3 "
+        "replaces it on the card, its plain version on the CPU",
+    ("ops/join.py", "join_kernel_compact", None):
+        "the XLA gather join, compacted; B3 replaces it",
+    ("ops/join.py", "join_window_bucketed", None):
+        "the XLA dense-bucket join the JAX package runs off the TPU; B3's "
+        "plain version is the port's CPU route",
+    ("ops/join.py", "join_window_compact", None):
+        "the XLA gather join at high bucket capacity; B3 replaces it",
+    ("ops/join.py", "pallas_join_supported", None):
+        "a TPU-backend probe for the Pallas join; the port's route is the "
+        "tensor's device",
+    ("ops/select.py", "first_k_onehot", None):
+        "the TPU's one-hot select strategy (TPU gathers are slow); the "
+        "port keeps the prefix-sum select",
+    ("ops/select.py", "onehot_select_preferred", None):
+        "the TPU-backend probe of the one-hot select strategy",
+    ("ops/compaction.py", "compact_probe_preferred", None):
+        "the backend probe between the TPU's row-gather probe and the "
+        "compacted one",
+    ("ops/wire_codec.py", "extract_streams", None):
+        "the XLA bit-extraction half that the Pallas fast path swaps out; "
+        "B2 (kernels/csrc/wire_codec.cu) is the whole decode",
+    ("ops/wire_codec.py", "make_pallas_extract", None):
+        "the Pallas builder of B2's TPU kernel",
+    ("ops/wire_codec.py", "functools_partial_decode", None):
+        "binds the Pallas or XLA extraction into the decode; the port has "
+        "one decode a device",
+    ("ops/wire_codec.py", "decode_wire_pane", "extract"):
+        "the Pallas/XLA extraction strategy argument",
+    ("ops/wire_knn.py", "wire_digest_xla", None):
+        "the XLA strategy of the wire digest; B1's plain version is the "
+        "port's CPU route",
+    ("ops/wire_knn.py", "wire_digest_pallas_step", None):
+        "the Pallas strategy step of B1's TPU kernel",
+    ("ops/wire_knn.py", "make_wire_digest_step", None):
+        "binds the Pallas or XLA strategy for jax.jit / lax.scan",
+    ("ops/wire_knn.py", "select_wire_digest_step", "max_cand"):
+        "the Pallas digest's VMEM candidate cap; the hand kernel has no "
+        "candidate buffer",
+    ("operators/base.py", "jitted", "*static"):
+        "jax.jit's static argument names; PyTorch runs eagerly",
+    ("operators/join_query.py", "grid_hash_join_batches", "offsets"):
+        "the XLA gather join's neighbour offsets; B3 walks the "
+        "neighbourhood itself",
+    ("operators/join_query.py", "grid_hash_join_batches", "backend"):
+        "the Pallas/XLA backend choice; the port's route is the device",
+    ("ops/range.py", "range_query_polylines_kernel", "line_chunk"):
+        "the lax.map block of the XLA form; one B4 launch takes every "
+        "line",
+    ("telemetry.py", "Telemetry.record_kernel_time", "lower_ctx"):
+        "the abstract arguments JAX lowers for its XLA cost analysis",
+    ("ops/query_registry.py", "registry_bucket_query", "index_base"):
+        "the shard's offset inside a shard_map body; the port's mesh "
+        "programs split the collectives into phases "
+        "(parallel/sharded.py)",
+}
+
+#: Parameters dropped everywhere, with the reason.
+SURFACE_DROPPED = {
+    "axis_name": "the shard_map axis of an in-body collective; the port's "
+                 "mesh programs split the collectives into phases "
+                 "(parallel/sharded.py)",
+}
+
+
+def _jax_surface():
+    """(module path, name, method, parameters) of every public
+    module-level function, class and class method of the JAX package,
+    read from the sources' ASTs (no JAX module is imported)."""
+    out = []
+    for path in sorted((REPO / "spatialflink_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "spatialflink_tpu").as_posix()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.ClassDef) \
+                    and not node.name.startswith("_"):
+                out.append((rel, node.name, None, None))
+                out += [(rel, node.name, m.name, m) for m in node.body
+                        if isinstance(m, ast.FunctionDef)
+                        and not m.name.startswith("_")]
+            elif isinstance(node, ast.FunctionDef) \
+                    and not node.name.startswith("_"):
+                out.append((rel, node.name, None, node))
+    return out
+
+
+def _ast_params(fn_node):
+    a = fn_node.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += ["*" + a.vararg.arg] if a.vararg else []
+    names += ["**" + a.kwarg.arg] if a.kwarg else []
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _port_params(obj):
+    kinds = {inspect.Parameter.VAR_POSITIONAL: "*",
+             inspect.Parameter.VAR_KEYWORD: "**"}
+    return {kinds.get(p.kind, "") + p.name
+            for p in inspect.signature(obj).parameters.values()}
+
+
+def test_every_public_jax_name_and_parameter_has_a_port_counterpart():
+    """Every public module-level function, class, class method and
+    parameter of the JAX package exists at the same path of the port,
+    unless ``SURFACE_ALLOWLIST`` (or ``SURFACE_DROPPED`` for a parameter)
+    names it with its reason. Each allowlisted entry exists in the JAX
+    package and is really absent from the port, so the list shrinks as
+    the port grows."""
+    gaps = set()
+    for rel, name, meth, node in _jax_surface():
+        modname = "spatialflink_tpu_torch." + rel[:-3].replace("/", ".")
+        modname = modname.removesuffix(".__init__")
+        try:
+            mod = importlib.import_module(modname)
+        except ModuleNotFoundError:
+            gaps.add((rel, None, None))
+            continue
+        obj = getattr(mod, name, None)
+        qual = name if meth is None else f"{name}.{meth}"
+        if obj is not None and meth is not None:
+            obj = getattr(obj, meth, None)
+        if obj is None:
+            gaps.add((rel, qual, None))
+            continue
+        if node is None or not callable(obj):  # a class, a property
+            continue
+        have = _port_params(obj)
+        gaps |= {(rel, qual, p) for p in _ast_params(node)
+                 if p not in have and p not in SURFACE_DROPPED}
+    assert gaps == set(SURFACE_ALLOWLIST), (
+        sorted(gaps - set(SURFACE_ALLOWLIST)),
+        sorted(set(SURFACE_ALLOWLIST) - gaps))
+    assert all(len(why) > 20 for why in SURFACE_ALLOWLIST.values())
+
+
+def test_ported_helpers_match_jax():
+    """The helpers ported to close the surface: equal to the JAX
+    package's on the same inputs."""
+    from spatialflink_tpu.grid import UniformGrid as JGrid
+    from spatialflink_tpu.models.batch import PointBatch as JBatch
+    from spatialflink_tpu.utils import helper as jhelper
+
+    from spatialflink_tpu_torch.models.batch import PointBatch
+    from spatialflink_tpu_torch.utils import helper as thelper
+
+    for v, w in ((7, 5), (123456, 3), (0, 1)):
+        assert thelper.pad_leading_zeroes(v, w) == \
+            jhelper.pad_leading_zeroes(v, w)
+    assert thelper.pad_leading_zeroes(42) == jhelper.pad_leading_zeroes(42)
+    polys = thelper.generate_query_polygons(30, 115.5, 39.6, 117.6, 41.1,
+                                            seed=9)
+    jpolys = jhelper.generate_query_polygons(30, 115.5, 39.6, 117.6, 41.1,
+                                             seed=9)
+    assert thelper.cells_of_polygon_set(UniformGrid(**BEIJING), polys) == \
+        jhelper.cells_of_polygon_set(JGrid(**BEIJING), jpolys)
+    rng = np.random.default_rng(3)
+    xy = rng.uniform(116, 117, (300, 2))
+    ts = np.arange(300, dtype=np.int64)
+    oid = rng.integers(0, 50, 300).astype(np.int32)
+    mask = rng.random(512) < 0.5
+    got = PointBatch.from_arrays(xy, ts, oid).with_cells(
+        UniformGrid(**BEIJING)).compact(mask)
+    want = JBatch.from_arrays(xy, ts, oid).with_cells(
+        JGrid(**BEIJING)).compact(mask)
+    for f in ("xy", "ts", "oid", "valid", "cell"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.count == want.count > 0

@@ -1961,3 +1961,161 @@ def test_sharded_registry_bucket_on_two_ranks_of_the_card():
                 p.wait()
     assert [p.returncode for p in procs] == [0, 0], "\n".join(outs)
     assert "CARD_SPAN_OK 0" in outs[0] and "CARD_SPAN_OK 1" in outs[1]
+
+
+# ---------------------------------------------------------------------------
+# The float64 mode: B3's and B4's double instantiations
+
+
+def _bits(t):
+    return t.view(torch.int64) if t.dtype == torch.float64 else \
+        t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+def test_join_extract_float64_matches_plain_version_on_card():
+    """B3's float64 instantiation bit-exact against its plain version on
+    float64 planes, in order, within and over budget, at one and two
+    layers, with points exactly on a float64 radius."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+
+    rng = np.random.default_rng(16)
+    gn, n = 16, 3000
+    # On the 2^-36 lattice, so that +2^-3 is exact: d² == r² in float64.
+    xys = [np.round(rng.uniform(-0.2, gn + 0.2, (n, 2)) * 2.0 ** 36)
+           / 2.0 ** 36 for _ in range(2)]
+    xys[1][:200] = xys[0][:200] + np.array([2.0 ** -3, 0.0])
+    lanes = []
+    for xy, (_, valid, cells) in zip(xys, [
+            _unit_grid_lanes([xy], gn, dev) for xy in xys]):
+        lanes += [torch.from_numpy(xy).to(dev), valid, cells]
+    for radius, layers, cap, budget in ((2.0 ** -3, 1, 24, 8192),
+                                        (0.4, 1, 24, 256),
+                                        (1.5, 2, 8, 1 << 16)):
+        planes, _ = join_planes(*lanes, grid_n=gn, layers=layers,
+                                cap_left=cap, cap_right=cap)
+        assert planes[0].dtype == torch.float64
+        got = join_extract_cuda(*planes, gn, layers, radius, budget)
+        want = join_extract_plain(*planes, gn, layers, radius, budget)
+        torch.cuda.synchronize()
+        assert int(want[3]) > 150 and got[2].dtype == torch.float64
+        if radius == 2.0 ** -3:
+            li, ri, dd = (t[:int(want[3])].cpu().numpy() for t in want[:3])
+            on = (li == ri) & (li < 200)
+            assert on.sum() > 100 and np.all(dd[on] == 2.0 ** -3)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g).cpu(), _bits(w).cpu())
+
+
+@pytest.mark.cuda
+def test_polyline_min_dist_float64_matches_plain_version_on_card():
+    """B4's float64 instantiation bit-exact against its plain version:
+    dense, gathered staged and unstaged, and DBL_MAX for a boundary with
+    no valid edge."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rng = np.random.default_rng(18)
+    for g, v, n in ((40, 8, 3001), (8, 4096, 2000), (3, 64, 777)):
+        verts = rng.uniform(-1, 1, (g, v, 2)) + 116.0
+        verts[:, 3] = verts[:, 2]  # zero-length edges
+        ev = rng.random((g, v - 1)) > 0.2
+        ev[-1] = False
+        pts = rng.uniform(-1.2, 1.2, (n, 2)) + 116.0
+        sel = rng.integers(0, g, (n, 5)).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (pts, verts, ev)]
+        for s in (None, torch.from_numpy(sel).to(dev)):
+            got = polyline_min_dist_cuda(*args, s)
+            want = polyline_min_dist_plain(*args, s)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float64
+            assert torch.equal(_bits(got), _bits(want))
+        dead = torch.from_numpy(sel[:, 0] == g - 1).to(dev)
+        assert torch.all(got[dead][:, 0] == torch.finfo(torch.float64).max)
+
+
+@pytest.mark.cuda
+def test_float64_mode_runs_the_float64_kernels_on_card():
+    """With the float64 mode on, the point-stream range (polygon query
+    set), kNN (polygon query) and point–point join ``run_soa`` on the
+    card go through B4's and B3's float64 kernels and equal the same runs
+    on the CPU through the plain versions, window for window, distances
+    bit for bit."""
+    dev = _card()
+    from spatialflink_tpu_torch import precision
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point, Polygon
+    from spatialflink_tpu_torch.operators import (
+        PointPointJoinQuery,
+        PointPolygonKNNQuery,
+        PointPolygonRangeQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    grid = dict(num_partitions=100, min_x=115.5, max_x=117.6, min_y=39.6,
+                max_y=41.1)
+    rng = np.random.default_rng(19)
+    polys = generate_query_polygons(80, 115.5, 39.6, 117.6, 41.1, seed=3)
+    n = 4000
+
+    def stream():
+        out = []
+        for s in range(3):
+            xy = np.stack([rng.uniform(115.5, 117.6, n),
+                           rng.uniform(39.6, 41.1, n)], axis=1)
+            out.append({"ts": np.arange(n, dtype=np.int64) * 1000 // n
+                        + 1000 * s, "x": xy[:, 0], "y": xy[:, 1],
+                        "oid": (np.arange(n) % 300).astype(np.int32)})
+        return out
+
+    chunks, right = stream(), stream()
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+
+    def runs(device):
+        g = UniformGrid(**grid)
+        rng_op = PointPolygonRangeQuery(conf, g, device=device)
+        knn_op = PointPolygonKNNQuery(conf, g, device=device)
+        join_op = PointPointJoinQuery(conf, g, cap=48, device=device)
+        pts = [Point(obj_id=f"o{i % 300}", timestamp=int(t), x=x, y=y)
+               for c in chunks[:2]
+               for i, (t, x, y) in enumerate(zip(c["ts"], c["x"], c["y"]))]
+        with precision.x64(True):
+            return (list(rng_op.run_soa(chunks, polys, 0.01)),
+                    list(knn_op.run(iter(pts), Polygon(
+                        obj_id="q", rings=[polys[0].rings[0] * 1.0]),
+                        0.3, 20)),
+                    list(join_op.run_soa(chunks, right, 0.01)))
+
+    polyline_min_dist.launches = join_extract.launches = 0
+    card = runs("cuda")
+    torch.cuda.synchronize()
+    assert polyline_min_dist.launches >= 3 + 2
+    assert join_extract.launches >= 3
+    cpu = runs("cpu")
+    for g, w in zip(card[0], cpu[0]):
+        assert g[:2] == w[:2] and g[3].dtype == np.float64
+        assert np.array_equal(g[2]["oid"], w[2]["oid"])
+        assert np.array_equal(g[3].view(np.int64), w[3].view(np.int64))
+    assert sum(len(w[3]) for w in cpu[0]) > 0
+    for g, w in zip(card[1], cpu[1]):
+        assert [(a, b, c.obj_id) for a, b, c in g.neighbors] == \
+            [(a, b, c.obj_id) for a, b, c in w.neighbors]
+    assert sum(len(w.neighbors) for w in cpu[1]) > 0
+    for g, w in zip(card[2], cpu[2]):
+        assert g[:2] == w[:2] and g[5:] == w[5:] and g[4].dtype == np.float64
+        for a, b in zip(g[2:5], w[2:5]):
+            assert np.array_equal(a.view(np.int64) if a.dtype == np.float64
+                                  else a, b.view(np.int64)
+                                  if b.dtype == np.float64 else b)
+    assert sum(w[5] for w in cpu[2]) > 0
