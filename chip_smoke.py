@@ -508,15 +508,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    budget cut and two layers (r = 0.03, over budget and at its need);
    (b) B4's float64 instantiation bit-exact at config 3's gathered shape,
    dense at 65,536 points and 33 boundaries, three slots, and boundaries
-   with no valid edge at DBL_MAX, dense and gathered; (c) the slice's
-   ``run_soa`` paths in float64 on the card (config 3's polygons, 32
-   linestrings and config 1's point query, one window each; config 2's
-   kNN, two windows; config 4's join, one window) equal window for window
-   to the same runs on the CPU through the plain versions, float64
-   distances bit for bit, with the float64 launch counts moved; (d) both
-   float64 kernels' times, plain times and bounds (FP64 at 34 TFLOP/s),
-   added to the JSON record as ``join_extract_f64`` and
-   ``polyline_min_dist_f64``.
+   with no valid edge at DBL_MAX, dense and gathered; (c) thirteen legs
+   in float64 on the card, each at full width in a depth cut: the
+   point-stream range (config 3's polygons, 32 linestrings, config 1's
+   point query), kNN (config 2, two windows) and join (config 4); the
+   geometry range (phase 14's 131,072 rings against 32 polygons) and kNN
+   (phase 17's, k = 50); the point ⋈ polygon (join_point_1000polygons)
+   and polygon ⋈ polygon (phase 21's, pruned) joins, one window each;
+   ``run_soa_panes`` (config 2's first five panes), ``query_panes`` with
+   a polygon query (3 panes of 40,000), ``run_multi`` (64 queries over
+   262,144 points) and ``PointPointJoinQuery.query_panes`` (3 panes of
+   20,000 a side). Each equals the same run on the CPU through the plain
+   versions, window for window, float64 distances bit for bit; B3's
+   float64 launches and B4's, dense, at G = 1 and gathered, must move,
+   and on the card the plain versions raise if a leg reaches them; (d)
+   both float64 kernels' times, plain times and bounds (FP64 at 34
+   TFLOP/s), B4 also at the dense, G = 1 and join-tile shapes, added to
+   the JSON record as ``join_extract_f64`` and ``polyline_min_dist_f64``
+   (its ``shapes`` and ``launches_by_mode``).
 
 In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25, 26,
 38 and 40) run in two spawned worker processes of one torch thread each, at
@@ -806,9 +815,9 @@ def headline_panes(wf):
             for i in range(total // SLIDE)]
 
 
-def time_ms(fn):
-    """(device ms, call ms): medians over REPEATS calls of ``fn`` after
-    two warm-up calls.
+def time_ms(fn, repeats=REPEATS):
+    """(device ms, call ms): medians over ``repeats`` calls of ``fn``
+    after two warm-up calls.
 
     Device ms: the calls are queued behind a ~25 ms sleep kernel, so the
     host runs ahead and each call's event pair spans only its device
@@ -821,7 +830,7 @@ def time_ms(fn):
         fn()
     torch.cuda.synchronize()
     pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(REPEATS)]
+              torch.cuda.Event(enable_timing=True)) for _ in range(repeats)]
     torch.cuda._sleep(50_000_000)
     for start, end in pairs:
         start.record()
@@ -979,6 +988,9 @@ _deferred = []
 twin_log = {}  # name -> (seconds of its CPU run, seconds waited for it)
 
 
+_SCALARS = (str, int, float, bool, type(None))
+
+
 def digest(*objs) -> str:
     """A hash of nested inputs: arrays by dtype, shape and bytes; dicts,
     lists and tuples item by item; dataclasses by their fields."""
@@ -997,6 +1009,17 @@ def digest(*objs) -> str:
                 feed(k)
                 feed(o[k])
             h.update(b"}")
+        elif isinstance(o, (list, tuple)) and o \
+                and dataclasses.is_dataclass(o[0]) \
+                and all(type(x) is type(o[0]) for x in o) \
+                and all(type(v) in _SCALARS for v in vars(o[0]).values()):
+            # A stream of objects of scalars (Points): one repr of their
+            # fields, hundreds of thousands of them.
+            rows = [tuple(vars(x).values()) for x in o]
+            if not all(type(v) in _SCALARS for r in rows for v in r):
+                raise TypeError("digest: a field that is not a scalar")
+            h.update(type(o[0]).__name__.encode())
+            h.update(repr(rows).encode())
         elif isinstance(o, (list, tuple)):
             h.update(b"[")
             for x in o:
@@ -1014,11 +1037,24 @@ def digest(*objs) -> str:
     return h.hexdigest()
 
 
+#: The plain versions' CPU blocks (lanes a block of points: B4's and the
+#: containment's) in the twin workers: on one thread a smaller block
+#: keeps the temporaries in cache (the polygon ⋈ polygon twin in float64
+#: ~1.8× faster than at the default 2^19, and no slower on the other
+#: twins), which also spares the main process's memory bandwidth; the
+#: result does not depend on the block.
+TWIN_PLAIN_LANES = 1 << 17
+
+
 def _twin_worker_init():
     import torch
 
+    from spatialflink_tpu_torch.ops import polygon, polyline_kernel
+
     os.nice(19)
     torch.set_num_threads(TWIN_THREADS)
+    polyline_kernel.PLAIN_BLOCK_LANES_CPU = TWIN_PLAIN_LANES
+    polygon.BLOCK_LANES_CPU = TWIN_PLAIN_LANES
 
 
 def _twin_job(name):
@@ -8095,7 +8131,8 @@ DAG_CKPT_EVERY = 2       # windows between the unit checkpoints
 DAG_KILL_AT = 16         # the dag.commit sub-append the kill children abort
                          # at: the third unit commit's second (7 sinks a
                          # commit), so a unit checkpoint exists to resume
-SJ_POINTS = JOIN_OBJ_POINTS  # 36c's Points a side: phase 9's first second
+SJ_POINTS = JOIN_OBJ_POINTS // 2  # 36c's Points a side: phase 9's first
+                                  # half second (a depth cut of its second)
 DAG_NODES = ("q1", "q2", "q3", "q4", "q5", "staytime", "qserve")
 SJ_OPTIONS = (1, 3, 5, 6, 8, 9)
 
@@ -9726,20 +9763,24 @@ def check_multihost(card, gpu="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Phase 40: the float64 mode (A14.1). With ``precision.x64(True)`` and the
-# entry points' default dtype (float64), the point-stream range, kNN and
-# point-point join ship raw float64 coordinates and run B3's and B4's
-# float64 instantiations: 40a holds B3's against its plain version at the
-# join's full shape (config 4: two 131,072-point sides, r = 0.002, cap 48,
-# 262,144 pairs), with points exactly on the radius and two layers; 40b
-# B4's at config 3's gathered shape (262,144 points, 1,000 polygons, 8
-# candidates) and at boundaries with no valid edge; 40c runs the slice's
-# run_soa paths in float64 on the card at full width (config 3's polygon
-# set, 32 linestrings, config 1's point query, config 2's kNN, config 4's
-# join) against the same runs on the CPU through the plain versions; 40d
-# times both kernels. The legs run in depth cuts: one window each (two
-# for the kNN); the CPU twins of the range polygon leg and the join run
-# in the background pool (``TWINS["x64"]``), the others in this process.
+# Phase 40: the float64 mode (A14.1, A14.2a). With ``precision.x64(True)``
+# and the entry points' default dtype (float64), the operators ship raw
+# float64 coordinates and run B3's and B4's float64 instantiations: 40a
+# holds B3's against its plain version at the join's full shape (config
+# 4: two 131,072-point sides, r = 0.002, cap 48, 262,144 pairs), with
+# points exactly on the radius and two layers; 40b B4's at config 3's
+# gathered shape (262,144 points, 1,000 polygons, 8 candidates) and at
+# boundaries with no valid edge; 40c runs every float64 family on the
+# card at full width (config 3's polygon set, 32 linestrings, config 1's
+# point query, config 2's kNN, config 4's join; phase 14's polygon range
+# and phase 17's kNN on it, phases 20's and 21's joins, config 2's pane
+# carry, phase 18's polygon query_panes, the 64-query run_multi, phase
+# 22's pane join) against the same runs on the CPU through the plain
+# versions, counting B3's and B4's float64 launches leg by leg and B4's
+# by mode; 40d times both kernels, B4 also at the dense, G = 1 and
+# join-tile shapes. The legs run in depth cuts (one window each, two for
+# the kNN, the pane paths' first panes); their CPU runs are background
+# twins (``X64_TWINS``).
 
 X64_WINDOWS = 1          # windows of the range and join legs (cuts of 10/16)
 X64_KNN_WINDOWS = 2      # config 2's one-second windows of the kNN leg
@@ -9864,91 +9905,293 @@ def check_x64_b4(dev, card):
     return err, (xy_d, qv_d, qe_d, sel)
 
 
-#: The x64 legs whose CPU runs take seconds: in the full run they go to
-#: the background pool (``TWINS["x64"]``); the others run here.
-X64_HEAVY = ("range_polygons", "join")
+#: The x64 legs by the CPU twin that runs them: in the full run each is a
+#: background twin (``TWINS``), the polygon ⋈ polygon one, the longest,
+#: queued first; without the pool they run here.
+X64_TWINS = {"x64_gg": ("gg_join",),
+             "x64": ("range_polygons", "join"),
+             "x64_geometry": ("geom_range", "pg_join", "pp_query_panes"),
+             "x64_light": ("range_linestrings", "range_points", "knn",
+                           "geom_knn", "soa_panes", "knn_query_panes",
+                           "run_multi")}
+#: The pane-carry legs' depth cuts: config 2's first five panes (one full
+#: 5-pane window), and phase 18's and phase 22's three panes.
+X64_PANES = 5
+#: The polygon ⋈ polygon leg's candidate width to start from: the width
+#: phase 21's first window grows to (its retry doubles 32 to 64), as a
+#: later window of that stream starts from it. The leg's window then
+#: takes one distance pass on the card and on the CPU, not two.
+X64_GG_CAND = 64
+#: Calls of each plain-version timing at 40d's B4 shapes (the dense one
+#: takes ~55 ms a call on the card).
+X64_PLAIN_REPEATS = 5
 
 
-def x64_inputs():
-    """{leg: (operator class, chunks, query, radius)} of 40c's legs,
-    built from the seeds: config 3's polygons, 32 of them opened as
-    linestrings and config 1's point query over config 3's stream (one
-    window each), config 2's kNN (``X64_KNN_WINDOWS`` windows), config
-    4's join (one window; the query is the right side)."""
+def x64_inputs(legs=None):
+    """{leg: (operator class, stream, query or right side, radius,
+    configuration, operator keywords)} of 40c's ``legs`` (all by
+    default), built from the seeds. The point-stream legs: config 3's
+    polygons, 32 of them opened as linestrings and config 1's point query
+    over config 3's stream (one window each), config 2's kNN
+    (``X64_KNN_WINDOWS`` windows), config 4's join (one window; the query
+    is the right side). The geometry and pane-carry legs, each at full
+    width in a depth cut: phase 14's polygon stream against its 32
+    polygons (one window) and phase 17's kNN on it; phase 20's
+    join_point_1000polygons and phase 21's polygon ⋈ polygon (one window
+    each); ``run_soa_panes`` over config 2's first five panes;
+    ``query_panes`` with a polygon query over phase 18's three panes;
+    ``run_multi`` at 64 queries over one window of 262,144 points;
+    ``PointPointJoinQuery.query_panes`` over phase 22's three panes a
+    side."""
+    from spatialflink_tpu_torch import operators as ops
     from spatialflink_tpu_torch.models.objects import LineString, Point
-    from spatialflink_tpu_torch.operators import (
-        PointLineStringRangeQuery,
-        PointPointJoinQuery,
-        PointPointKNNQuery,
-        PointPointRangeQuery,
-        PointPolygonRangeQuery,
-    )
 
-    polys = range_polygons()
-    lines = [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
-             for i, p in enumerate(polys[:32])]
-    r_chunks = range_chunks(X64_WINDOWS, RANGE_WIN, 7)
     q = Point(x=QUERY[0], y=QUERY[1])
-    return {
-        "range_polygons": (PointPolygonRangeQuery, r_chunks, polys, RANGE_R),
-        "range_linestrings": (PointLineStringRangeQuery, r_chunks, lines,
-                              RANGE_R),
-        "range_points": (PointPointRangeQuery,
-                         range_chunks(X64_WINDOWS, PP_WIN, 42), [q], PP_R),
-        "knn": (PointPointKNNQuery, pane_chunks()[:X64_KNN_WINDOWS], q,
-                PANE_R),
-        "join": (PointPointJoinQuery, soa_join_chunks(1)[:X64_WINDOWS],
-                 soa_join_chunks(2)[:X64_WINDOWS], JOIN_R),
+    one = dict(window_size=1.0, slide_step=1.0)
+    two = dict(window_size=2.0, slide_step=1.0)
+    join = {"cap": JOIN_CAP}
+
+    def lines():
+        return [LineString(obj_id=f"line{i}", coords=p.rings[0][:4])
+                for i, p in enumerate(range_polygons()[:32])]
+
+    @functools.lru_cache(maxsize=None)
+    def geo():
+        return geometry_chunks(GEOM_WINDOWS, GEOM_WIN)[:X64_WINDOWS]
+
+    def pg_left():
+        xy, ts = pg_points()
+        return point_chunks(xy, ts, PG_WIN)[:X64_WINDOWS]
+
+    builders = {
+        "range_polygons": lambda: (
+            ops.PointPolygonRangeQuery, range_chunks(X64_WINDOWS, RANGE_WIN,
+                                                     7),
+            range_polygons(), RANGE_R, one, {}),
+        "range_linestrings": lambda: (
+            ops.PointLineStringRangeQuery,
+            range_chunks(X64_WINDOWS, RANGE_WIN, 7), lines(), RANGE_R, one,
+            {}),
+        "range_points": lambda: (
+            ops.PointPointRangeQuery, range_chunks(X64_WINDOWS, PP_WIN, 42),
+            [q], PP_R, one, {}),
+        "knn": lambda: (ops.PointPointKNNQuery,
+                        pane_chunks()[:X64_KNN_WINDOWS], q, PANE_R, one, {}),
+        "join": lambda: (ops.PointPointJoinQuery,
+                         soa_join_chunks(1)[:X64_WINDOWS],
+                         soa_join_chunks(2)[:X64_WINDOWS], JOIN_R, one,
+                         join),
+        "geom_range": lambda: (ops.PolygonPolygonRangeQuery, geo(),
+                               geometry_queries("polygon"), GEOM_R, one, {}),
+        "geom_knn": lambda: (ops.PolygonPolygonKNNQuery, geo(),
+                             knn_query("polygon"), KNN_GEOM_R, one, {}),
+        "pg_join": lambda: (ops.PointPolygonJoinQuery, pg_left(),
+                            polygon_chunks(pg_polygons(), X64_WINDOWS),
+                            PG_R, one, {}),
+        "gg_join": lambda: (ops.PolygonPolygonJoinQuery, geo(),
+                            polygon_chunks(range_polygons(), X64_WINDOWS),
+                            PG_R, one, {"_cand": X64_GG_CAND}),
+        "soa_panes": lambda: (ops.PointPointKNNQuery,
+                              pane_chunks()[:X64_PANES], q, PANE_R,
+                              dict(window_size=PANE_WINDOW_S,
+                                   slide_step=1.0), {}),
+        "knn_query_panes": lambda: (
+            ops.PointPolygonKNNQuery, knn_points(QP_PANES, QP_PANE_PTS, 7),
+            knn_query("polygon"), KNN_RUN_R, two, {}),
+        "run_multi": lambda: (ops.PointPointKNNQuery,
+                              *multi_stream(1, MULTI_WIN), MULTI_R, one, {}),
+        "pp_query_panes": lambda: (ops.PointPointJoinQuery, *qpj_streams(),
+                                   JOIN_R, two, join),
     }
+    return {leg: builders[leg]() for leg in (builders if legs is None
+                                              else legs)}
 
 
-def x64_legs(device, inputs, legs=None):
-    """40c: the slice's run_soa paths with ``precision.x64(True)`` at the
-    entry points' default dtype, on ``device``: the ``legs`` of
-    ``inputs`` (``x64_inputs``; all by default). Returns ({leg: windows}
-    in comparable form, distances as float64 bits; the seconds of all;
-    {leg: seconds})."""
+def x64_bits(d):
+    """Distances as float64 bits; array distances must be float64, and
+    Python floats (the object paths') must hold a value no float32 holds
+    where any is non-zero."""
+    if isinstance(d, np.ndarray):
+        if d.dtype != np.float64:
+            raise AssertionError(f"x64 leg: {d.dtype} distances")
+    elif any(d) and all(float(np.float32(x)) == x for x in d):
+        raise AssertionError("x64 leg: float32 distances on an object path")
+    return np.asarray(d, np.float64).view(np.int64).tolist()
+
+
+def x64_run(leg, op, a, b, r):
+    """One leg's run in the windows' comparable form, distances as
+    ``x64_bits``."""
+    if leg.startswith("range_"):
+        return [(w[0], w[1], w[2]["ts"].tolist(), x64_bits(w[3]))
+                for w in op.run_soa(a, b, r)]
+    if leg in ("knn", "soa_panes", "geom_knn"):
+        run = op.run_soa_panes if leg == "soa_panes" else op.run_soa
+        k, nseg = ((KNN_GEOM_K, GEOM_OBJECTS) if leg == "geom_knn"
+                   else (PANE_K, NUM_SEGMENTS))
+        return [(w[0], w[1], w[2].tolist(), x64_bits(w[3]), w[4])
+                for w in run(a, b, r, k, nseg)]
+    if leg == "join":
+        return [(w[0], w[1], w[2].tolist(), w[3].tolist(), x64_bits(w[4]),
+                 w[5], w[6])
+                for w in op.run_soa(a, b, r, max_pairs=JOIN_MAX_PAIRS)]
+    if leg in ("geom_range", "pg_join", "gg_join"):
+        return [(w[0], w[1], w[2].tolist(), w[3].tolist(), x64_bits(w[4]),
+                 w[5]) for w in op.run_soa(a, b, r)]
+    if leg == "knn_query_panes":
+        return [(w.start, w.end, w.window_count,
+                 [n[0] for n in w.neighbors],
+                 x64_bits([n[1] for n in w.neighbors]),
+                 [(n[2].obj_id, n[2].timestamp) for n in w.neighbors])
+                for w in op.query_panes(iter(a), b, r, KNN_RUN_K)]
+    if leg == "run_multi":
+        return [(m.start, m.end, m.window_count,
+                 [([n[0] for n in w.neighbors],
+                   x64_bits([n[1] for n in w.neighbors]))
+                  for w in m.results])
+                for m in op.run_multi(iter(a), b, r, MULTI_K)]
+    return [(w.start, w.end, w.overflow, w.window_count,
+             sorted((x.obj_id, x.timestamp, y.obj_id, y.timestamp, d)
+                    for x, y, d in w.pairs),
+             x64_bits([d for *_, d in w.pairs]))
+            for w in op.query_panes(iter(a), iter(b), r)]
+
+
+def x64_matches(leg, windows) -> int:
+    """A leg's matches over its windows (pairs, kept objects or
+    neighbours): the length of the field of ``x64_run``'s window form
+    that lists them."""
+    if leg == "join":
+        return sum(w[5] for w in windows)
+    if leg == "run_multi":
+        return sum(len(ids) for m in windows for ids, _ in m[3])
+    field = {"geom_range": 2, "pg_join": 2, "gg_join": 2,
+             "pp_query_panes": 4}.get(leg, 3)
+    return sum(len(w[field]) for w in windows)
+
+
+def x64_legs(device, inputs, legs=None, on_leg=None):
+    """40c: the slice's paths with ``precision.x64(True)`` at the entry
+    points' default dtype, on ``device``: the ``legs`` of ``inputs``
+    (``x64_inputs``; all by default). ``on_leg(leg)``, when given, is
+    called before each leg. Returns ({leg: windows} in comparable form,
+    distances as float64 bits; the seconds of all; {leg: seconds})."""
     import torch
 
     from spatialflink_tpu_torch import precision
     from spatialflink_tpu_torch.grid import UniformGrid
     from spatialflink_tpu_torch.operators import QueryConfiguration
 
-    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
     out, secs = {}, {}
-
-    def bits(d):
-        d = np.asarray(d)
-        if d.dtype != np.float64:
-            raise AssertionError(f"x64 leg on {device}: {d.dtype} distances")
-        return d.view(np.int64).tolist()
-
     for leg in (inputs if legs is None else legs):
-        cls, chunks, q, r = inputs[leg]
-        kw = {"cap": JOIN_CAP} if leg == "join" else {}
-        op = cls(conf, UniformGrid(**BEIJING), device=device, **kw)
+        cls, a, b, r, conf, kw = inputs[leg]
+        state = {k: v for k, v in kw.items() if k.startswith("_")}
+        op = cls(QueryConfiguration(**conf), UniformGrid(**BEIJING),
+                 device=device, **{k: v for k, v in kw.items()
+                                   if k not in state})
+        for k, v in state.items():  # a retry state carried in
+            setattr(op, k, v)
+        if on_leg is not None:
+            on_leg(leg)
         t0 = time.perf_counter()
         with precision.x64(True):
-            if leg == "knn":
-                res = list(op.run_soa(chunks, q, r, PANE_K, NUM_SEGMENTS))
-            elif leg == "join":
-                res = list(op.run_soa(chunks, q, r,
-                                      max_pairs=JOIN_MAX_PAIRS))
-            else:
-                res = list(op.run_soa(chunks, q, r))
+            out[leg] = x64_run(leg, op, a, b, r)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         secs[leg] = time.perf_counter() - t0
-        if leg == "knn":
-            out[leg] = [(w[0], w[1], w[2].tolist(), bits(w[3]), w[4])
-                        for w in res]
-        elif leg == "join":
-            out[leg] = [(w[0], w[1], w[2].tolist(), w[3].tolist(),
-                         bits(w[4]), w[5], w[6]) for w in res]
-        else:
-            out[leg] = [(w[0], w[1], w[2]["ts"].tolist(), bits(w[3]))
-                        for w in res]
     return out, sum(secs.values()), secs
+
+
+class X64Launches:
+    """The float64 launches of 40c's card run, leg by leg (the deltas of
+    ``launches_f64``), and B4's by mode (dense over many boundaries,
+    G = 1, gathered), read by wrapping the module function B4's wrapper
+    dispatches to (``polyline_min_dist_cuda`` on the card, the plain
+    version on a CPU rehearsal). On the card the plain versions raise
+    while it is installed: no float64 leg may reach them. Keeps each
+    leg's first arguments of each mode for 40d."""
+
+    def __init__(self, gpu):
+        from spatialflink_tpu_torch.ops import join_kernel as jk
+        from spatialflink_tpu_torch.ops import polyline_kernel as pk
+
+        self.gpu, self.pk, self.jk = gpu, pk, jk
+        self.leg, self.at = None, (0, 0)
+        self.by_leg = {}
+        self.modes = {"dense": 0, "G=1": 0, "gathered": 0}
+        self.first = {}
+        self.saved = {}
+
+    def _counts(self):
+        return (self.jk.join_extract.launches_f64,
+                self.pk.polyline_min_dist.launches_f64)
+
+    def _close(self):
+        if self.leg is not None:
+            now = self._counts()
+            self.by_leg[self.leg] = {
+                "join_extract": now[0] - self.at[0],
+                "polyline_min_dist": now[1] - self.at[1]}
+        self.leg = None
+
+    def on_leg(self, leg):
+        self._close()
+        self.leg, self.at = leg, self._counts()
+
+    def __enter__(self):
+        pk, jk = self.pk, self.jk
+        name = ("polyline_min_dist_cuda" if self.gpu == "cuda"
+                else "polyline_min_dist_plain")
+        inner = getattr(pk, name)
+        self.saved = {(pk, name): inner}
+
+        def b4(xy, verts, ev, sel=None):
+            if xy.dtype.itemsize == 8 and self.leg is not None:
+                mode = ("gathered" if sel is not None
+                        else "G=1" if verts.shape[0] == 1 else "dense")
+                self.modes[mode] += 1
+                self.first.setdefault((self.leg, mode),
+                                      (xy, verts, ev, sel))
+            return inner(xy, verts, ev, sel)
+
+        setattr(pk, name, b4)
+        if self.gpu == "cuda":
+            def plain(*_a, **_k):
+                raise AssertionError("40c: a float64 leg on the card reached "
+                                     "a plain version")
+            self.saved[(pk, "polyline_min_dist_plain")] = \
+                pk.polyline_min_dist_plain
+            self.saved[(jk, "join_extract_plain")] = jk.join_extract_plain
+            pk.polyline_min_dist_plain = plain
+            jk.join_extract_plain = plain
+        return self
+
+    def __exit__(self, *exc):
+        self._close()
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+        return False
+
+
+#: 40d's float64 B4 shapes: (label, the leg and mode of the call timed).
+X64_B4_SHAPES = (("dense", "geom_range", "dense"),
+                 ("G=1", "knn_query_panes", "G=1"),
+                 ("join tiles", "pg_join", "gathered"))
+
+
+def b4_work(xy, verts, ev, sel):
+    """(bytes, float64 operations) of one B4 call: every input read once
+    and the (N, C) output written once; 20 operations a (point, valid
+    edge) pair this call's data evaluates."""
+    n = xy.shape[0]
+    c = verts.shape[0] if sel is None else sel.shape[1]
+    nbytes = (xy.numel() + verts.numel()) * xy.element_size() \
+        + ev.numel() + (0 if sel is None else 4 * sel.numel()) \
+        + n * c * xy.element_size()
+    n_valid = ev.sum(dim=1)
+    edges = int(n_valid.sum()) * n if sel is None \
+        else int(n_valid[sel.long()].sum())
+    return nbytes, 20 * edges
 
 
 def check_x64(dev, card, gpu="cuda"):
@@ -9980,46 +10223,62 @@ def check_x64(dev, card, gpu="cuda"):
     # in the background pool (compared after phase 36), the others here.
     t0 = time.perf_counter()
     inputs = x64_inputs()
+    walls["c inputs"] = time.perf_counter() - t0
     join_extract.launches_f64 = polyline_min_dist.launches_f64 = 0
-    got, _, g_secs = x64_legs(gpu, inputs)
+    with X64Launches(gpu) as xl:
+        got, _, g_secs = x64_legs(gpu, inputs, on_leg=xl.on_leg)
     launches = {"join_extract_f64": join_extract.launches_f64,
                 "polyline_min_dist_f64": polyline_min_dist.launches_f64}
-    if launches["join_extract_f64"] < X64_WINDOWS or \
-            launches["polyline_min_dist_f64"] < 2 * X64_WINDOWS:
-        raise AssertionError(f"40c: float64 launches {launches}")
-
-    def matches(leg):  # a join window's pair count, else its matches
-        return sum(x[5] if leg == "join" else len(x[3]) for x in got[leg])
+    need = {  # leg: (B3, B4) float64 launches it must make at least
+        "join": (X64_WINDOWS, 0), "pp_query_panes": (1, 0),
+        "range_polygons": (0, X64_WINDOWS),
+        "range_linestrings": (0, X64_WINDOWS),
+        "geom_range": (0, 2 * X64_WINDOWS), "geom_knn": (0, 2 * X64_WINDOWS),
+        "pg_join": (0, X64_WINDOWS), "gg_join": (0, 2 * X64_WINDOWS),
+        "knn_query_panes": (0, QP_PANES)}
+    short = {leg: xl.by_leg[leg] for leg, (b3, b4) in need.items()
+             if xl.by_leg[leg]["join_extract"] < b3
+             or xl.by_leg[leg]["polyline_min_dist"] < b4}
+    if short or min(xl.modes.values()) < 1:
+        raise AssertionError(f"40c: float64 launches short: {short}, B4 by "
+                             f"mode {xl.modes}")
 
     def held(legs, want, w_secs, where):
         for leg in legs:
-            if got[leg] != want[leg] or not matches(leg):
+            if got[leg] != want[leg] or not x64_matches(leg, got[leg]):
                 raise AssertionError(f"40c x64 {leg}: the card's windows "
                                      f"differ from the CPU's, or hold "
                                      f"nothing")
-        print("exact x64 run_soa (precision.x64(True), the default dtype "
+        print("exact x64 legs (precision.x64(True), the default dtype "
               "float64; "
-              + ", ".join(f"{leg} {len(got[leg])} windows, {matches(leg)} "
-                          f"matches, {g_secs[leg]:.3f} s on the card, "
+              + ", ".join(f"{leg} {len(got[leg])} windows, "
+                          f"{x64_matches(leg, got[leg])} matches, "
+                          f"{g_secs[leg]:.3f} s on the card, "
                           f"{w_secs[leg]:.3f} s on the CPU" for leg in legs)
               + f"): every window equal to the CPU run through the plain "
               f"versions ({where}), float64 distances bit for bit [{card}]")
 
-    light = [leg for leg in inputs if leg not in X64_HEAVY]
-    want, _, w_secs = x64_legs("cpu", inputs, light)
-    held(light, want, w_secs, "in this process")
-
-    def held_heavy():
-        want, _, w_secs = twin("x64", *(inputs[leg][1:] for leg in X64_HEAVY))
-        held(X64_HEAVY, want, w_secs, "the CPU twin")
-    later(held_heavy)
-    print(f"x64 float64 launches on the legs: join_extract="
+    if sorted(leg for legs in X64_TWINS.values() for leg in legs) != \
+            sorted(inputs):
+        raise AssertionError("40c: a leg without its CPU twin")
+    for name, legs in X64_TWINS.items():
+        def held_twin(name=name, legs=legs):
+            want, _, w_secs = twin(name, *(inputs[leg][1:] for leg in legs))
+            held(legs, want, w_secs, f"the CPU twin {name}")
+        later(held_twin)
+    print("x64 float64 launches on the legs (B3, B4): "
+          + ", ".join(f"{leg} {c['join_extract']}/{c['polyline_min_dist']}"
+                      for leg, c in xl.by_leg.items())
+          + f"; B4 by mode {xl.modes}; in all join_extract="
           f"{launches['join_extract_f64']} polyline_min_dist="
-          f"{launches['polyline_min_dist_f64']} [{card}]")
+          f"{launches['polyline_min_dist_f64']}"
+          + ("; no plain version reached" if gpu == "cuda" else "")
+          + f" [{card}]")
     walls["c"] = time.perf_counter() - t0
     rows = {}
     if gpu == "cuda":
-        # 40d: the float64 kernels' times at the shapes of 40a and 40b.
+        # 40d: the float64 kernels' times at the shapes of 40a and 40b,
+        # and B4 at the legs' dense, G = 1 and join-tile shapes.
         t0 = time.perf_counter()
         b3 = (*planes, BEIJING["num_partitions"], 1, JOIN_R, JOIN_MAX_PAIRS)
         b3_ms, b3_call = time_ms(lambda: join_extract_cuda(*b3))
@@ -10028,13 +10287,9 @@ def check_x64(dev, card, gpu="cuda"):
         b3_bytes = sum(t.numel() * t.element_size() for t in planes) \
             + 16 * JOIN_MAX_PAIRS + 4
         b3_bound, b3_by = bound_ms(b3_bytes, 6 * pair_tests, F64_OPS_PER_S)
-        xy_d, qv_d, qe_d, sel = b4g
-        n_valid = qe_d.sum(dim=1)
+        b4_bytes, b4_ops = b4_work(*b4g)
         b4_ms, b4_call = time_ms(lambda: polyline_min_dist_cuda(*b4g))
         b4_plain, _ = time_ms(lambda: polyline_min_dist_plain(*b4g))
-        b4_bytes = (16 * RANGE_WIN + 12 * sel.numel() + qv_d.numel() * 8
-                    + qe_d.numel())
-        b4_ops = 20 * int(n_valid[sel.long()].sum())
         b4_bound, b4_by = bound_ms(b4_bytes, b4_ops, F64_OPS_PER_S)
         for name, ms, call, plain, bnd, by_, nb, no, shape in (
                 ("join_extract_f64", b3_ms, b3_call, b3_plain, b3_bound,
@@ -10047,6 +10302,31 @@ def check_x64(dev, card, gpu="cuda"):
                   f"bound {bnd:.6f} ms ({by_}: {nb} B, {no} float64 "
                   f"operations at {F64_OPS_PER_S:g}/s), library none, "
                   f"medians of {REPEATS} calls at {shape} [{card}]")
+        shapes = {}
+        for label, leg, mode in X64_B4_SHAPES:
+            args = xl.first[(leg, mode)]
+            xy, verts, ev, sel = args
+            nb, no = b4_work(*args)
+            ms, call = time_ms(lambda: polyline_min_dist_cuda(*args))
+            plain, _ = time_ms(lambda: polyline_min_dist_plain(*args),
+                               X64_PLAIN_REPEATS)
+            bnd, by_ = bound_ms(nb, no, F64_OPS_PER_S)
+            c = verts.shape[0] if sel is None else sel.shape[1]
+            shapes[label] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                                 bound_ms=bnd, bound_by=by_,
+                                 launches=xl.modes[mode], leg=leg,
+                                 points=int(xy.shape[0]), slots=int(c),
+                                 vertices=int(verts.shape[1]))
+            print(f"time polyline_min_dist_f64 {label} ({leg}'s first "
+                  f"{mode} call: N={xy.shape[0]} points, C={c} "
+                  f"{'boundaries' if sel is None else 'slots'} of "
+                  f"V={verts.shape[1]}; {xl.modes[mode]} {mode} launches on "
+                  f"the legs): kernel {ms:.6f} ms device ({call:.6f} ms per "
+                  f"call with its launch), plain PyTorch {plain:.6f} ms, "
+                  f"bound {bnd:.6f} ms ({by_}: {nb} B, {no} float64 "
+                  f"operations at {F64_OPS_PER_S:g}/s), library none, "
+                  f"medians of {REPEATS} calls (the plain version's of "
+                  f"{X64_PLAIN_REPEATS}) [{card}]")
         rows = {
             "join_extract_f64": {
                 "name": "join_extract_f64", "route": "cuda",
@@ -10054,6 +10334,8 @@ def check_x64(dev, card, gpu="cuda"):
                           "join_extract.cu",
                 "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
                 "launches": launches["join_extract_f64"],
+                "launches_query_panes":
+                    xl.by_leg["pp_query_panes"]["join_extract"],
                 "max_abs_err": err3, "ms": b3_ms, "plain_ms": b3_plain,
                 "bound_ms": b3_bound, "bound_by": b3_by,
                 "library_ms": None, "dtype": "float64"},
@@ -10063,9 +10345,11 @@ def check_x64(dev, card, gpu="cuda"):
                           "polyline_min_dist.cu",
                 "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
                 "launches": launches["polyline_min_dist_f64"],
+                "launches_by_mode": dict(xl.modes),
                 "max_abs_err": err4, "ms": b4_ms, "plain_ms": b4_plain,
                 "bound_ms": b4_bound, "bound_by": b4_by,
-                "library_ms": None, "dtype": "float64"},
+                "library_ms": None, "dtype": "float64",
+                "shapes": shapes},
         }
         walls["d"] = time.perf_counter() - t0
     print(f"phase walls: 40 {time.perf_counter() - t_phase:.3f} s ("
@@ -10177,15 +10461,18 @@ def twin_tjoin_panes():
     return digest(cols), tjoin_panes_cpu(cols)
 
 
-def twin_x64():
-    """Phase 40c: the heavy x64 legs on the CPU."""
-    inputs = x64_inputs()
-    return (digest(*(inputs[leg][1:] for leg in X64_HEAVY)),
-            x64_legs("cpu", inputs, X64_HEAVY))
+def twin_x64(name):
+    """Phase 40c: the x64 legs of ``X64_TWINS[name]`` on the CPU."""
+    legs = X64_TWINS[name]
+    inputs = x64_inputs(legs)
+    return (digest(*(inputs[leg][1:] for leg in legs)),
+            x64_legs("cpu", inputs, legs))
 
 
-# The background twins, in the order the phases ask for them.
-TWINS = {"run_soa": twin_run_soa, "range": twin_range,
+# The background twins, in the order the phases ask for them, but for
+# the longest, phase 40's polygon ⋈ polygon, queued first.
+TWINS = {"x64_gg": functools.partial(twin_x64, "x64_gg"),
+         "run_soa": twin_run_soa, "range": twin_range,
          "geometry_range": twin_geometry_range, "pg_join": twin_pg_join,
          "gg_join": twin_gg_join, "query_panes": twin_query_panes,
          "tjoin_soa": twin_tjoin_soa,
@@ -10194,7 +10481,9 @@ TWINS = {"run_soa": twin_run_soa, "range": twin_range,
                                                "run_single"),
          "tagg_sum": twin_tagg_sum, "tjoin_panes": twin_tjoin_panes,
          "halo_range": twin_halo_range, "halo_registry": twin_halo_registry,
-         "x64": twin_x64}
+         "x64": functools.partial(twin_x64, "x64"),
+         "x64_geometry": functools.partial(twin_x64, "x64_geometry"),
+         "x64_light": functools.partial(twin_x64, "x64_light")}
 
 
 def run_domain_phases(card, gpu="cuda"):

@@ -149,6 +149,12 @@ def _device_tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
 
 
+def _carry_dtype(a) -> type:
+    """The distance dtype a restored kNN pane digest keeps: float64 for a
+    float64 mode's carry, float32 otherwise."""
+    return np.float64 if np.asarray(a).dtype == np.float64 else np.float32
+
+
 def operator_state(op) -> Dict[str, Any]:
     """Snapshot the known stateful fields of an operator instance.
 
@@ -263,14 +269,14 @@ def restore_operator(op, state: Dict[str, Any]) -> None:
     if "knn_pane_carry" in state:
         op._pane_carry = {
             ps: None if v is None else (
-                int(v[0]), _device_tensor(v[1], np.float32, dev),
+                int(v[0]), _device_tensor(v[1], _carry_dtype(v[1]), dev),
                 _device_tensor(v[2], np.int32, dev), list(v[3]))
             for ps, v in state["knn_pane_carry"].items()
         }
     if "knn_pane_carry_soa" in state:
         op._pane_carry_soa = {
             ps: None if v is None else (
-                _device_tensor(v[0], np.float32, dev),
+                _device_tensor(v[0], _carry_dtype(v[0]), dev),
                 _device_tensor(v[1], np.int32, dev))
             for ps, v in state["knn_pane_carry_soa"].items()
         }

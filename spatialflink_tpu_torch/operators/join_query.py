@@ -23,6 +23,12 @@ equi-join (JoinQuery.java:73-137, PointPointJoinQuery.java:124-183).
 Two-stream windowing: both sources are merged by event time on the host
 and windows fire when the merged watermark passes their end. Window
 results equal the JAX package's ``operators/join_query.py``.
+
+Every entry point honours ``dtype`` by the JAX package's rule
+(``precision.py``): with ``dtype`` float64 and the float64 mode on, raw
+float64 points, vertices and boxes, and float64 distances (B3's and B4's
+float64 instantiations on the card); otherwise centred float32. A mesh
+run in float64 is ROADMAP item A14.2b and raises.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ from spatialflink_tpu_torch.ops.join import (
     point_geometry_join_masks,
 )
 from spatialflink_tpu_torch.ops.join_kernel import join_window
-from spatialflink_tpu_torch.precision import effective_f64, require_f32
+from spatialflink_tpu_torch.precision import effective_f64
 from spatialflink_tpu_torch.state import soa_assembler_from_jax
 from spatialflink_tpu_torch.streams.soa import RaggedSoaWindowAssembler
 from spatialflink_tpu_torch.telemetry import telemetry
@@ -88,21 +94,22 @@ def check_join_backend(join_backend, device_type: str) -> None:
 
 def _centered_bbox(grid, bbox: np.ndarray, dtype=np.float32,
                    pad: bool = True) -> np.ndarray:
-    """A (N, 4) minx, miny, maxx, maxy array centred and cast to float32
-    as the device coordinates are (``center_coords``), so boxes compare
-    in the frame of the vertex and point lanes. ``dtype`` goes to
-    ``center_coords``: only the geometry paths call this, and in the
-    float64 mode they raise (ROADMAP A14.2) before they do.
+    """A (N, 4) minx, miny, maxx, maxy array as ``center_coords`` of
+    ``dtype`` gives the device coordinates (centred float32, or raw
+    float64 in the float64 mode), so boxes compare in the frame of the
+    vertex and point lanes.
 
-    ``pad``: each corner moves one float32 ulp outward. The corners round
-    on their own, apart from the vertices, so a box shrunk by the cast
-    could prune a geometry exactly at the radius that the exact kernel
-    keeps; the padded box is a superset. Approximate mode passes
-    ``pad=False``: there the boxes are the distance operands, and padding
-    would bias every reported distance low."""
+    ``pad``: in float32 each corner moves one ulp outward. The corners
+    round on their own, apart from the vertices, so a box shrunk by the
+    cast could prune a geometry exactly at the radius that the exact
+    kernel keeps; the padded box is a superset. Float64 boxes are the
+    host's own corners, with no rounding to cover, and stay unpadded, as
+    in the JAX package. Approximate mode passes ``pad=False``: there the
+    boxes are the distance operands, and padding would bias every
+    reported distance low."""
     mins = center_coords(grid, bbox[:, 0:2], dtype)
     maxs = center_coords(grid, bbox[:, 2:4], dtype)
-    if pad:
+    if pad and mins.dtype != np.float64:
         mins = np.nextafter(mins, np.float32(-np.inf))
         maxs = np.nextafter(maxs, np.float32(np.inf))
     return np.concatenate([mins, maxs], axis=1)
@@ -239,7 +246,7 @@ class PointPointJoinQuery(SpatialOperator):
         operator's): the grid join shards the left side over its ``data``
         axis (each shard through B3 on the card); the pairs are the
         unsharded run's as a set. A mesh in float64 raises
-        (ROADMAP A14.2)."""
+        (ROADMAP A14.2b)."""
         mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
@@ -378,9 +385,9 @@ class PointPointJoinQuery(SpatialOperator):
         operator; ``flush_at_end`` False treats the end of the sources as
         a cut and leaves the open windows in the assembler. In-order
         streams, WindowBased windows and ``size % slide == 0`` only, as
-        in the JAX package. ``dtype`` float64 with the float64 mode on
-        raises (ROADMAP A14.2)."""
-        require_f32(dtype, "PointPointJoinQuery.query_panes")
+        in the JAX package. ``dtype``: ``run``'s rule, each block's join
+        on float64 lanes through B3's float64 instantiation in the
+        float64 mode."""
         if self.conf.allowed_lateness_ms > 0:
             raise ValueError(
                 "query_panes does not support allowed_lateness; use run()")
@@ -431,7 +438,8 @@ class PointPointJoinQuery(SpatialOperator):
                     if lb is None or rb is None:
                         blocks[(p, q)] = ([], 0)
                         continue
-                    li, ri, dd, over = self._compact_block(lb, rb, radius)
+                    li, ri, dd, over = self._compact_block(lb, rb, radius,
+                                                           dtype=dtype)
                     blocks[(p, q)] = (
                         [(lev[int(a)], rev[int(b)], float(d))
                          for a, b, d in zip(li, ri, dd)],
@@ -662,18 +670,21 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
     def __init__(self, conf, grid, device="cuda", mesh=None):
         super().__init__(conf, grid, device=device, mesh=mesh)
 
-    def _approx_cell_space(self, cells_sorted, valid_sorted, gb, radius):
+    def _approx_cell_space(self, cells_sorted, valid_sorted, gb, radius,
+                           dtype=np.float32):
         """Kernel inputs of the emit-all mode: the points' (xi, yi) cell
         indices as coordinates, each geometry's bbox-cell rectangle grown
         by ``candidate_layers(radius)`` as its box, and radius 0 (a point
         in the box ⇔ bbox distance 0): the reference's candidate set is
-        cell membership. Reported distances are 0; out-of-grid points
-        never join. Cell indices are exact in float32 (< 2^24)."""
+        cell membership. Reported distances are 0, of the lanes' dtype
+        (float64 in the float64 mode); out-of-grid points never join.
+        Cell indices are exact in float32 (< 2^24)."""
+        lane = np.float64 if effective_f64(dtype) else np.float32
         g = self.grid
         cells = np.asarray(cells_sorted)
         xi = (cells // g.n).astype(np.float64)
         yi = (cells % g.n).astype(np.float64)
-        pxy = np.stack([xi, yi], axis=1).astype(np.float32)
+        pxy = np.stack([xi, yi], axis=1).astype(lane)
         pvalid = np.asarray(valid_sorted) & (cells < g.num_cells)
         layers = g.candidate_layers(radius)
         bb = np.asarray(gb.bbox, np.float64)
@@ -682,27 +693,28 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
             np.floor((bb[:, 1] - g.min_y) / g.cell_length) - layers,
             np.floor((bb[:, 2] - g.min_x) / g.cell_length) + layers,
             np.floor((bb[:, 3] - g.min_y) / g.cell_length) + layers,
-        ], axis=1).astype(np.float32)
+        ], axis=1).astype(lane)
         return pxy, pvalid, gbbox
 
-    def _point_side_args(self, pxy_fn, pvalid, pcell, gb, radius):
+    def _point_side_args(self, pxy_fn, pvalid, pcell, gb, radius,
+                         dtype=np.float32):
         """(kernel arguments on the device, the kernel's radius): the one
         home of the approximate routing, shared by ``run`` and
-        ``run_soa``. ``pxy_fn`` gives the locality-sorted centred point
-        lanes, lazily: the emit-all mode does not need them. Both
+        ``run_soa``. ``pxy_fn`` gives the locality-sorted point lanes of
+        ``dtype``, lazily: the emit-all mode does not need them. Both
         approximate modes read bboxes only, so no vertex is shipped.
-        Exact mode pads the pruning boxes one ulp outward; the
-        approximate bbox mode does not (its boxes are the distance
-        operands)."""
+        Exact mode pads float32 pruning boxes one ulp outward
+        (``_centered_bbox``); the approximate bbox mode does not (its
+        boxes are the distance operands)."""
         approx = self.conf.approximate_query
         dev = self.device
         if approx and self.approx_emit_all:
             pxy, pv, gbbox = self._approx_cell_space(pcell, pvalid, gb,
-                                                     radius)
+                                                     radius, dtype)
             pxy, pv, gvalid, gbbox = ship(pxy, pv, gb.valid, gbbox,
                                           device=dev).arrive()
             return (pxy, pv, None, None, gvalid, gbbox), 0.0
-        bbox = _centered_bbox(self.grid, gb.bbox, pad=not approx)
+        bbox = _centered_bbox(self.grid, gb.bbox, dtype, pad=not approx)
         if approx:
             pxy, pv, gvalid, gbbox = ship(pxy_fn(), pvalid, gb.valid, bbox,
                                           device=dev).arrive()
@@ -710,7 +722,7 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         pxy, pv, gev, gvalid, gbbox = ship(
             pxy_fn(), pvalid, gb.edge_valid, gb.valid, bbox,
             device=dev).arrive()
-        return (pxy, pv, self.device_verts(gb.verts), gev, gvalid,
+        return (pxy, pv, self.device_verts(gb.verts, dtype), gev, gvalid,
                 gbbox), radius
 
     def _pairs(self, args, r_call, capacity: int, mesh=None):
@@ -741,15 +753,15 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         mesh=None,
     ) -> Iterator[JoinWindowResult]:
         """One ``JoinWindowResult`` per fired window: (point, geometry,
-        float32 distance) pairs, each point's matches by ascending
-        geometry index, the points in cell order. ``dtype`` float64 with
-        the float64 mode on raises (ROADMAP A14.2). ``mesh``
-        (default the operator's): the cell-sorted points shard
-        contiguously over its ``data`` axis, the geometries replicate
+        distance) pairs, each point's matches by ascending geometry index,
+        the points in cell order; the distances float32, or float64 in the
+        float64 mode (the module's note). ``mesh`` (default the
+        operator's): the cell-sorted points shard contiguously over its
+        ``data`` axis, the geometries replicate
         (``sharded_point_geometry_join_pruned``); the pairs are the
-        unsharded run's as a set, each shard's in its own order."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
+        unsharded run's as a set, each shard's in its own order. A mesh in
+        float64 raises (ROADMAP A14.2b)."""
+        mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -766,8 +778,8 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
             # Locality sort on the host; kernel indices map back via ho.
             ho = np.argsort(lb.cell, kind="stable")
             args, r_call = self._point_side_args(
-                lambda: center_coords(self.grid, lb.xy[ho]), lb.valid[ho],
-                lb.cell[ho], gb, radius)
+                lambda: center_coords(self.grid, lb.xy[ho], dtype),
+                lb.valid[ho], lb.cell[ho], gb, radius, dtype)
             li, ri, dd = self._pairs(args, r_call, gb.capacity, mesh)
             pairs = [(left_ev[int(ho[int(a)])], right_ev[int(b)], float(d))
                      for a, b, d in zip(li, ri, dd)]
@@ -781,10 +793,8 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         window ``(start, end, point_idx, geom_idx, dist, count)``, indices
         into each side's window arrays, no per-pair Python. Windows align
         on the shared slide grid; a one-sided window yields empty arrays
-        (int32, int32, float64) and count 0. ``dtype`` float64 with the
-        float64 mode on raises (ROADMAP A14.2)."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
-        gen_l = soa_point_batches(self.grid, point_chunks, self.conf)
+        (int32, int32, float64) and count 0. ``dtype``: ``run``'s rule."""
+        gen_l = soa_point_batches(self.grid, point_chunks, self.conf, dtype)
         gen_r = _ragged_windows(self.conf, geom_chunks)
         for kind, wl, wr in _aligned_soa_windows(
             gen_l, gen_r, lambda w: w[0].start, lambda w: w.start
@@ -797,7 +807,7 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
             gb = _ragged_batch(wr)
             ho = np.argsort(lcell, kind="stable")
             args, r_call = self._point_side_args(
-                lambda: lxy[ho], lvalid[ho], lcell[ho], gb, radius)
+                lambda: lxy[ho], lvalid[ho], lcell[ho], gb, radius, dtype)
             li, ri, dd = self._pairs(args, r_call, gb.capacity)
             yield (win.start, win.end, ho[li].astype(np.int32), ri, dd,
                    len(li))
@@ -834,12 +844,13 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
     def __init__(self, conf, grid, device="cuda", mesh=None):
         super().__init__(conf, grid, device=device, mesh=mesh)
 
-    def _window_args(self, la, ra):
+    def _window_args(self, la, ra, dtype=np.float32):
         """(ho, kernel arguments on the device): the host locality sort of
         the left side by quantized bbox centre (the JAX key), and both
-        sides' lanes in that order. Exact mode pads the pruning boxes one
-        ulp outward; approximate mode does not (there the boxes are the
-        distance operands) and ships no vertex."""
+        sides' lanes of ``dtype`` in that order. Exact mode pads float32
+        pruning boxes one ulp outward (``_centered_bbox``); approximate
+        mode does not (there the boxes are the distance operands) and
+        ships no vertex."""
         cx = (la.bbox[:, 0] + la.bbox[:, 2]) * 0.5
         cy = (la.bbox[:, 1] + la.bbox[:, 3]) * 0.5
         with np.errstate(invalid="ignore", divide="ignore"):
@@ -854,8 +865,8 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
                        np.int64(1) << 40)
         ho = np.argsort(key, kind="stable")
         approx = self.conf.approximate_query
-        abox = _centered_bbox(self.grid, la.bbox[ho], pad=not approx)
-        bbox = _centered_bbox(self.grid, ra.bbox, pad=not approx)
+        abox = _centered_bbox(self.grid, la.bbox[ho], dtype, pad=not approx)
+        bbox = _centered_bbox(self.grid, ra.bbox, dtype, pad=not approx)
         if approx:
             av, ab, bv, bb = ship(la.valid[ho], abox, ra.valid, bbox,
                                   device=self.device).arrive()
@@ -863,15 +874,15 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         aev, av, ab, bev, bv, bb = ship(
             la.edge_valid[ho], la.valid[ho], abox, ra.edge_valid, ra.valid,
             bbox, device=self.device).arrive()
-        return ho, (self.device_verts(la.verts[ho]), aev, av, ab,
-                    self.device_verts(ra.verts), bev, bv, bb)
+        return ho, (self.device_verts(la.verts[ho], dtype), aev, av, ab,
+                    self.device_verts(ra.verts, dtype), bev, bv, bb)
 
-    def _window_pairs(self, la, ra, radius, mesh=None):
+    def _window_pairs(self, la, ra, radius, mesh=None, dtype=np.float32):
         """The pruned kernel over one window's batches; returns input-index
         pairs (left_idx int32, right_idx, dist). With ``mesh``, the
         sorted left side shards contiguously over ``data`` (locality
         kept), the right side replicates."""
-        ho, args = self._window_args(la, ra)
+        ho, args = self._window_args(la, ra, dtype)
         approx = self.conf.approximate_query
         if mesh is not None:
             from spatialflink_tpu_torch.parallel.sharded import (
@@ -904,12 +915,12 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         mesh=None,
     ) -> Iterator[JoinWindowResult]:
         """One ``JoinWindowResult`` per fired window: (left, right,
-        float32 distance) pairs. ``dtype`` float64 with the float64 mode
-        on raises (ROADMAP A14.2). ``mesh`` (default the operator's): the
+        distance) pairs, the distances float32, or float64 in the float64
+        mode (the module's note). ``mesh`` (default the operator's): the
         left side shards over its ``data`` axis; the pairs are the
-        unsharded run's as a set."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
+        unsharded run's as a set. A mesh in float64 raises (ROADMAP
+        A14.2b)."""
+        mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -923,7 +934,7 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
                 continue
             li, ri, dd = self._window_pairs(
                 self.geometry_batch(left_ev, mesh=mesh),
-                self.geometry_batch(right_ev), radius, mesh)
+                self.geometry_batch(right_ev), radius, mesh, dtype)
             pairs = [(left_ev[int(a)], right_ev[int(b)], float(d))
                      for a, b, d in zip(li, ri, dd)]
             yield JoinWindowResult(win.start, win.end, pairs, 0,
@@ -935,9 +946,7 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         ({"ts", "oid", "lengths", "verts"[, "edge_valid"]}) → per window
         ``(start, end, left_idx, right_idx, dist, count)``; a one-sided
         window yields empty arrays (int32, int32, float64) and count 0.
-        ``dtype`` float64 with the float64 mode on raises (ROADMAP
-        A14.2)."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
+        ``dtype``: ``run``'s rule."""
         gen_l = _ragged_windows(self.conf, left_chunks)
         gen_r = _ragged_windows(self.conf, right_chunks)
         for kind, wl, wr in _aligned_soa_windows(
@@ -948,7 +957,8 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
                 yield (w.start, w.end, *_empty_soa(), 0)
                 continue
             li, ri, dd = self._window_pairs(_ragged_batch(wl),
-                                            _ragged_batch(wr), radius)
+                                            _ragged_batch(wr), radius,
+                                            dtype=dtype)
             yield (wl.start, wl.end, li, ri, dd, len(li))
 
 

@@ -18,15 +18,15 @@ over objects, ``run_soa_panes`` over SoA chunks, and the headline
 (``ops/wire_knn.py``). Window results equal the JAX package's
 ``operators/knn_query.py``.
 
-The point-stream ``run`` (point, polygon and linestring queries) and
-``PointPointKNNQuery.run_soa`` honour ``dtype`` by the JAX package's
-rule (``precision.py``): with ``dtype`` float64 and the float64 mode on,
-raw float64 lanes, float64 digests and distances (B4's float64
-instantiation for a polygon or linestring query); otherwise centred
-float32, as before. The pane-carry paths, ``run_multi``, the
-geometry-stream classes and a mesh run in float64 are ROADMAP item A14.2
-and raise. ``run_wire_panes`` takes no ``dtype``: its u16 wire planes
-dequantize to float32 in either mode, as in the JAX package.
+Every entry point with a ``dtype`` honours it by the JAX package's rule
+(``precision.py``): with ``dtype`` float64 and the float64 mode on, raw
+float64 lanes (points, vertices, query boxes), float64 digests, pane
+carries and distances (B4's float64 instantiation for a polygon or
+linestring query and for both directions of a geometry stream);
+otherwise centred float32, as before. A mesh run in float64 is ROADMAP
+item A14.2b and raises. ``run_wire_panes`` takes no ``dtype``: its u16
+wire planes dequantize to float32 in either mode, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ from spatialflink_tpu_torch.ops.knn import (
     knn_polygon_fused,
     knn_polyline_fused,
 )
-from spatialflink_tpu_torch.precision import require_f32
+from spatialflink_tpu_torch.precision import effective_f64
 from spatialflink_tpu_torch.ops.wire_knn import (
     WIRE_DIGEST_LABELS,
     check_cand,
@@ -96,6 +96,13 @@ from spatialflink_tpu_torch.utils.padding import next_bucket, pad_to_bucket
 from spatialflink_tpu_torch import overload
 from spatialflink_tpu_torch import pipeline as pipeline_mod
 from spatialflink_tpu_torch.telemetry import instrument_jit, telemetry
+
+
+def _digest_dtype(dtype) -> torch.dtype:
+    """The distance dtype of a run's digests for a request of ``dtype``:
+    float64 in the float64 mode (``precision.effective_f64``), else
+    float32, the dtype of the lanes ``center_coords`` gives."""
+    return torch.float64 if effective_f64(dtype) else torch.float32
 
 
 @dataclass
@@ -165,7 +172,7 @@ class _PointStreamKNNQuery(SpatialOperator):
         the operator's): each window's points shard over its ``data``
         axis, each shard digests its points and the digests merge before
         the one top-k, with the unsharded result; a mesh in float64
-        raises (ROADMAP A14.2)."""
+        raises (ROADMAP A14.2b)."""
         mesh = self.run_mesh(mesh, dtype)
         flags = flags_for_queries(self.grid, radius, [query_obj])
         from spatialflink_tpu_torch.driver import strict_driver
@@ -312,9 +319,9 @@ class _PointStreamKNNQuery(SpatialOperator):
         its representatives pane-local and offset per window in the
         merge; ``state.pane_carry_from_jax`` fills it from a JAX
         operator. ``flush_at_end`` False leaves the open windows in
-        ``self.checkpoint_assembler``. ``dtype`` float64 with the float64
-        mode on raises (ROADMAP A14.2)."""
-        require_f32(dtype, f"{type(self).__name__}.query_panes")
+        ``self.checkpoint_assembler``. ``dtype``: ``run``'s rule; in the
+        float64 mode the digests, the carry and the distances are
+        float64, and an empty pane merges as ``finfo(float64).max``."""
         conf = self.conf
         if conf.query_type == QueryType.CountBased:
             raise ValueError("query_panes requires time-based sliding windows")
@@ -330,7 +337,7 @@ class _PointStreamKNNQuery(SpatialOperator):
         dev = self.device
         merge = jitted(knn_merge_digest_list)
         if self.query_kind == "point":
-            q = self.device_q([query_obj.x, query_obj.y])
+            q = self.device_q([query_obj.x, query_obj.y], dtype)
             digest_fn = jitted(knn_pane_digest_compact)
 
             def digest(xy_d, valid_d, oid_d, nseg):
@@ -338,7 +345,7 @@ class _PointStreamKNNQuery(SpatialOperator):
                                  radius, 0, nseg)
         else:
             verts, ev = self._packed_query(query_obj)
-            qv = self.device_verts(verts)
+            qv = self.device_verts(verts, dtype)
             (qe,) = ship(ev, device=dev).arrive()
             polygonal = self.query_kind == "polygon"
             digest_fn = jitted(knn_pane_digest_geometry_compact)
@@ -384,7 +391,7 @@ class _PointStreamKNNQuery(SpatialOperator):
                                        minimum=64)
                     in_grid = batch.valid & (batch.cell < self.grid.num_cells)
                     xy_d, in_grid_d, oid_d = ship(
-                        center_coords(self.grid, batch.xy), in_grid,
+                        center_coords(self.grid, batch.xy, dtype), in_grid,
                         batch.oid, device=dev).arrive()
                     d = digest(xy_d, in_grid_d, oid_d, nseg)
                     panes[ps] = (nseg, d.seg_min, d.rep, evs)
@@ -398,7 +405,7 @@ class _PointStreamKNNQuery(SpatialOperator):
                     if panes[ps] is not None and panes[ps][0] < nseg:
                         panes[ps] = grow(panes[ps], nseg)
                 live = [panes[ps] for ps in starts]
-                emt = empty_digest(nseg, dev)
+                emt = empty_digest(nseg, dev, _digest_dtype(dtype))
                 bases, acc = [], 0
                 for p in live:
                     bases.append(acc)
@@ -475,10 +482,9 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         2-D mesh also splits the query batch and its flag tables over
         ``query`` (``parallel/sharded.py:sharded_knn_multi``), with the
         unsharded results; the padded batch rounds up to a multiple of
-        the query axis. ``dtype`` float64 with the float64 mode on raises
-        (ROADMAP A14.2)."""
-        require_f32(dtype, "PointPointKNNQuery.run_multi")
-        mesh = self.run_mesh(mesh)
+        the query axis. ``dtype``: ``run``'s rule; a mesh in float64
+        raises (ROADMAP A14.2b)."""
+        mesh = self.run_mesh(mesh, dtype)
         nq = len(query_points)
         if nq == 0:
             return
@@ -496,14 +502,15 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         qxy = pad_to_bucket(
             np.asarray([[q.x, q.y] for q in query_points], np.float64), qb)
         (tables_d,) = ship(tables, device=self.device).arrive()
-        q_d = self.device_q(qxy)
+        q_d = self.device_q(qxy, dtype)
         kernel = jitted(knn_multi_query_kernel)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
             xy_d, valid_d, cell_d, oid_d = ship(
-                center_coords(self.grid, batch.xy), batch.valid, batch.cell,
+                center_coords(self.grid, batch.xy, dtype), batch.valid,
+                batch.cell,
                 batch.oid, device=self.device).arrive()
             if mesh is not None:
                 from spatialflink_tpu_torch.parallel.sharded import (
@@ -538,9 +545,9 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         pane, the pane sliced from the window by its timestamps, and a
         merge of the window's digests. ``self._pane_carry_soa`` (pane
         start → (seg_min, rep), or None) is operator-owned state; the
-        same in-order, no-lateness caveats as ``query_panes``. ``dtype``
-        float64 with the float64 mode on raises (ROADMAP A14.2)."""
-        require_f32(dtype, "PointPointKNNQuery.run_soa_panes")
+        same in-order, no-lateness caveats as ``query_panes``. ``dtype``:
+        ``run``'s rule; in the float64 mode the digests, the carry and the
+        distances are float64."""
         conf = self.conf
         if conf.allowed_lateness_ms > 0:
             raise ValueError(
@@ -549,14 +556,14 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         if size % slide != 0:
             raise ValueError("run_soa_panes requires size % slide == 0")
         dev = self.device
-        q = self.device_q([query_point.x, query_point.y])
+        q = self.device_q([query_point.x, query_point.y], dtype)
         digest = jitted(knn_pane_digest_compact)
         merge = jitted(knn_merge_digest_list)
         no_bases = np.zeros(size // slide, np.int32)  # indices unused here
         if getattr(self, "_pane_carry_soa", None) is None:
             self._pane_carry_soa = {}
         panes: dict = self._pane_carry_soa
-        emt = empty_digest(num_segments, dev)
+        emt = empty_digest(num_segments, dev, _digest_dtype(dtype))
         asm = SoaWindowAssembler(size, slide, ooo_ms=0)
         for win in self._checkpointable_soa_windows(asm, chunks,
                                                     flush_at_end):
@@ -575,7 +582,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
                     [np.asarray(win.arrays["x"][lo:hi], np.float64),
                      np.asarray(win.arrays["y"][lo:hi], np.float64)], axis=1)
                 xy_p, valid_p, cell_p, oid_p = device_point_args(
-                    self.grid, xy64, win.arrays["oid"][lo:hi])
+                    self.grid, xy64, win.arrays["oid"][lo:hi], dtype)
                 in_grid = valid_p & (cell_p < self.grid.num_cells)
                 xy_d, in_grid_d, oid_d = ship(xy_p, in_grid, oid_p,
                                               device=dev).arrive()
@@ -985,8 +992,10 @@ class _GeometryStreamKNNQuery(SpatialOperator):
     def __init__(self, conf, grid, device="cuda", mesh=None):
         super().__init__(conf, grid, device=device, mesh=mesh)
 
-    def _device_query_bbox(self, query_obj, dtype=np.float64):
-        """The query's bbox, centred, on the device, for approximate mode
+    def _device_query_bbox(self, query_obj, dtype=np.float32):
+        """The query's bbox as ``center_coords`` of ``dtype`` gives it
+        (centred float32, or raw float64), on the device, for approximate
+        mode
         (a point query's is [x, y, x, y], which reduces bbox↔bbox to the
         reference's point↔bbox cases, knn/PolygonPointKNNQuery.java:95).
         Unpadded: this box is a distance operand."""
@@ -1005,28 +1014,30 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         verts, ev = pack_query_geometries([query_obj])
         return verts[0], ev[0], isinstance(query_obj, Polygon)
 
-    def _window_evaluator(self, query_obj, radius, k, mesh=None):
+    def _window_evaluator(self, query_obj, radius, k, mesh=None,
+                          dtype=np.float32):
         """``eval(batch, nseg) -> KnnResult`` for a ``GeometryBatch``: the
         query packed and shipped once, the per-object flags from the
         prefix planes of its flag table (shared by ``run`` and
         ``run_soa``); on a ``mesh`` the objects shard over its ``data``
-        axis (``window_program``)."""
+        axis (``window_program``). Vertices and boxes ship as
+        ``center_coords`` of ``dtype`` gives them."""
         dev = self.device
         flags = flags_for_queries(self.grid, radius, [query_obj])
         prefix = flag_prefix_planes(self.grid, flags)
         approx = self.conf.approximate_query
         if approx:
-            qbb = self._device_query_bbox(query_obj)
+            qbb = self._device_query_bbox(query_obj, dtype)
         else:
             qverts, qev, query_polygonal = self._query_arrays(query_obj)
-            qv = self.device_verts(qverts)
+            qv = self.device_verts(qverts, dtype)
             (qe,) = ship(qev, device=dev).arrive()
 
         def evaluate(batch: GeometryBatch, nseg: int) -> KnnResult:
             oflags = batch.any_cell_flagged(self.grid, flags, prefix=prefix)
             if approx:
                 bb_d, valid_d, oflags_d, oid_d = ship(
-                    _centered_bbox(self.grid, batch.bbox, pad=False),
+                    _centered_bbox(self.grid, batch.bbox, dtype, pad=False),
                     batch.valid, oflags, batch.oid, device=dev).arrive()
                 return window_program(
                     mesh, knn_geometry_bbox_kernel, (0, 1, 2, 3), 6,
@@ -1040,8 +1051,8 @@ class _GeometryStreamKNNQuery(SpatialOperator):
                 topk=True, k=k, num_segments=nseg,
                 obj_polygonal=self.stream_polygonal,
                 query_polygonal=query_polygonal,
-            )(self.device_verts(batch.verts), ev_d, valid_d, oflags_d,
-              oid_d, qv, qe, radius)
+            )(self.device_verts(batch.verts, dtype), ev_d, valid_d,
+              oflags_d, oid_d, qv, qe, radius)
 
         return evaluate
 
@@ -1054,11 +1065,10 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         far, bucketed to a power of two of at least 64; ``k`` above it
         raises ``ValueError`` in that window, as the reference's top-k
         does. ``mesh`` (default the operator's): the objects shard over
-        its ``data`` axis, with the unsharded result. ``dtype`` float64
-        with the float64 mode on raises (ROADMAP A14.2)."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
-        evaluate = self._window_evaluator(query_obj, radius, k, mesh)
+        its ``data`` axis, with the unsharded result. ``dtype``: the
+        module's rule; a mesh in float64 raises (ROADMAP A14.2b)."""
+        mesh = self.run_mesh(mesh, dtype)
+        evaluate = self._window_evaluator(query_obj, radius, k, mesh, dtype)
         for win in self.windows(stream):
             batch = self.geometry_batch(win.events, mesh=mesh)
             nseg = next_bucket(max(self.interner.num_segments, 1),
@@ -1080,10 +1090,8 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         "verts"}`` (and optionally ``"edge_valid"``, multi-ring seams
         False; dense int32 oids) → per window ``(start, end, oids, dists,
         num_valid)``, through the same kernel as ``run`` with no
-        per-object Python. ``dtype`` float64 with the float64 mode on
-        raises (ROADMAP A14.2)."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
-        evaluate = self._window_evaluator(query_obj, radius, k)
+        per-object Python, and ``run``'s ``dtype`` rule."""
+        evaluate = self._window_evaluator(query_obj, radius, k, dtype=dtype)
         asm = RaggedSoaWindowAssembler(
             self.conf.window_size_ms, self.conf.slide_step_ms,
             ooo_ms=self.conf.allowed_lateness_ms)

@@ -15,13 +15,13 @@ and linestring paths, and both directions of every geometry-stream
 distance, run through B4 on the card. Window results equal the JAX
 package's ``operators/range_query.py``.
 
-The point-stream classes honour ``dtype`` by the JAX package's rule
+Every class honours ``dtype`` by the JAX package's rule
 (``precision.py``): with ``dtype`` float64 and the float64 mode on, the
-lanes are raw float64 coordinates and the kernels (B4's float64
+lanes (points, or the vertices of the geometry streams and of the query
+set) are raw float64 coordinates and the kernels (B4's float64
 instantiation on the card) compare the radius and return distances in
-float64; otherwise centred float32, as before. The geometry-stream
-classes, ``run_partitioned`` and a mesh run in float64 are ROADMAP item
-A14.2 and raise.
+float64; otherwise centred float32, as before. ``run_partitioned`` and a
+mesh run in float64 are ROADMAP item A14.2b and raise.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ class _PointStreamRangeQuery(SpatialOperator):
         with the float64 mode on computes in float64 (the module's note),
         float32 otherwise. ``mesh`` (default the operator's): the window
         kernels run sharded over its ``data`` axis, with the unsharded
-        results; a mesh in float64 raises (ROADMAP A14.2)."""
+        results; a mesh in float64 raises (ROADMAP A14.2b)."""
         mesh = self.run_mesh(mesh, dtype)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
@@ -297,7 +297,7 @@ class _PointStreamRangeQuery(SpatialOperator):
         flag-table path only where an inactive pair ties the radius
         exactly (``ops/halo.py``). ``mesh``'s devices must be of the
         operator's device type. In float64 (``dtype`` float64, x64 on)
-        it raises (ROADMAP A14.2)."""
+        it raises (ROADMAP A14.2b)."""
         require_f32(dtype, f"{type(self).__name__}.run_partitioned")
         if self.query_kind != "point":
             raise ValueError(
@@ -465,16 +465,18 @@ class _GeometryStreamRangeQuery(SpatialOperator):
                     np.ones((len(query_set), 1), bool))
         return pack_query_geometries(query_set)
 
-    def _window_evaluator(self, query_set, radius, mesh=None):
+    def _window_evaluator(self, query_set, radius, mesh=None,
+                          dtype=np.float32):
         """``eval(batch) -> (keep, dist)`` host arrays for a
         ``GeometryBatch``: the query set packed and shipped once, the
         per-object flags from the prefix planes of its flag table (shared
         by ``run`` and ``run_soa``); on a ``mesh`` the objects shard over
-        its ``data`` axis."""
+        its ``data`` axis. Both sides' vertices ship as ``center_coords``
+        of ``dtype`` gives them."""
         flags = flags_for_queries(self.grid, radius, query_set)
         prefix = flag_prefix_planes(self.grid, flags)
         qverts, qev = self._query_arrays(query_set)
-        qv = self.device_verts(qverts)
+        qv = self.device_verts(qverts, dtype)
         (qe,) = ship(qev, device=self.device).arrive()
         gk = window_program(mesh, geometry_range_query_kernel, (0, 1, 2, 3),
                             7, **self._kernel_statics())
@@ -484,8 +486,8 @@ class _GeometryStreamRangeQuery(SpatialOperator):
             ev_d, valid_d, oflags_d = ship(
                 batch.edge_valid, batch.valid, oflags,
                 device=self.device).arrive()
-            keep, dist = gk(self.device_verts(batch.verts), ev_d, valid_d,
-                            oflags_d, qv, qe, radius)
+            keep, dist = gk(self.device_verts(batch.verts, dtype), ev_d,
+                            valid_d, oflags_d, qv, qe, radius)
             return telemetry.fetch((keep, dist))
 
         return evaluate
@@ -494,14 +496,14 @@ class _GeometryStreamRangeQuery(SpatialOperator):
             dtype=np.float64, mesh=None) -> Iterator[RangeResult]:
         """One ``RangeResult`` per fired window of ``Polygon`` or
         ``LineString`` objects (WindowBased, RealTime micro-batches,
-        CountBased). ``dtype`` float64 with the float64 mode on raises
-        (ROADMAP A14.2). ``mesh`` (default the operator's): the objects
-        shard over its ``data`` axis."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
+        CountBased). ``dtype`` float64 with the float64 mode on computes
+        in float64 (the module's note), float32 otherwise. ``mesh``
+        (default the operator's): the objects shard over its ``data``
+        axis; a mesh in float64 raises (ROADMAP A14.2b)."""
+        mesh = self.run_mesh(mesh, dtype)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
-        evaluate = self._window_evaluator(query_set, radius, mesh)
+        evaluate = self._window_evaluator(query_set, radius, mesh, dtype)
         for win in self.windows(stream):
             with telemetry.span("window.range_geometry", start=win.start,
                                 events=len(win.events)):
@@ -518,12 +520,11 @@ class _GeometryStreamRangeQuery(SpatialOperator):
         "verts"}`` (and optionally ``"edge_valid"``, multi-ring seams
         False; dense int32 oids) → per window ``(start, end,
         kept_indices, kept_oids, dists, window_count)``, through the same
-        kernel as ``run`` with no per-object Python. ``dtype`` float64
-        with the float64 mode on raises (ROADMAP A14.2)."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
+        kernel as ``run`` with no per-object Python, and ``run``'s
+        ``dtype`` rule."""
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
-        evaluate = self._window_evaluator(query_set, radius)
+        evaluate = self._window_evaluator(query_set, radius, dtype=dtype)
         asm = RaggedSoaWindowAssembler(
             self.conf.window_size_ms, self.conf.slide_step_ms,
             ooo_ms=self.conf.allowed_lateness_ms)

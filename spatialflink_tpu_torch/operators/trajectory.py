@@ -195,7 +195,7 @@ class TRangeQuery(_TrajectoryOperator):
     def run(self, stream: Iterable[Point], query_polygons: Sequence[Polygon],
             dtype=np.float64, mesh=None) -> Iterator[TRangeResult]:
         """One ``TRangeResult`` per fired window. ``dtype`` float64 with
-        the float64 mode on raises (ROADMAP A14.2). ``mesh``
+        the float64 mode on raises (ROADMAP A14.2b). ``mesh``
         (default the operator's): the points shard over its ``data``
         axis and the per-trajectory hit flags combine (JAX's ``pmax``)."""
         require_f32(dtype, f"{type(self).__name__}.run")
@@ -505,7 +505,7 @@ class TJoinQuery(_TrajectoryOperator):
             mesh=None) -> Iterator[TJoinResult]:
         """One ``TJoinResult`` per fired window of the two merged streams,
         pairs sorted by (left objID, right objID, distance). ``dtype``
-        float64 with the float64 mode on raises (ROADMAP A14.2).
+        float64 with the float64 mode on raises (ROADMAP A14.2b).
         ``mesh`` (default the operator's): the point join shards the left
         side over its ``data`` axis (``grid_hash_join_batches``)."""
         require_f32(dtype, f"{type(self).__name__}.run")
@@ -710,7 +710,7 @@ class TJoinQuery(_TrajectoryOperator):
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
         ``dtype`` float64 with the float64 mode on raises (ROADMAP
-        A14.2). ``mesh`` (default the operator's): probe-parallel device
+        A14.2b). ``mesh`` (default the operator's): probe-parallel device
         scans (``parallel/sharded.py:sharded_tjoin_pane_scan``), the pane
         capacity a multiple of its ``data`` axis; "auto" then takes the
         device engine and "native" raises ``ValueError``. Windows go out
@@ -1019,7 +1019,7 @@ class TStatsQuery(_TrajectoryOperator):
         goes, so it is never retried and has no twin. Without a driver,
         ``strict_driver()`` gives the plain window loop, errors
         propagating. ``dtype`` float64 with the float64 mode on raises
-        (ROADMAP A14.2). ``mesh`` (default the operator's): the
+        (ROADMAP A14.2b). ``mesh`` (default the operator's): the
         (objID, ts)-sorted points shard over its ``data`` axis with a
         one-point halo (``parallel/sharded.py:sharded_traj_stats``):
         counts and temporal sums exact, spatial sums reassociated within

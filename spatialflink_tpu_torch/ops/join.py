@@ -20,6 +20,12 @@ candidates; exact distances run for those only, and each left item keeps
 its first ``pair_cap`` matches. Every point→edge distance goes through
 B4's gathered mode, one launch a direction, with the tile's candidate
 list as each point's ``sel``. The dense kernels are the oracles.
+
+Every kernel computes in its inputs' dtype: centred float32 lanes and
+boxes by default, raw float64 ones in the float64 mode (``precision.py``),
+where boxes, radius compares and returned distances are float64 and B4
+runs its float64 instantiation, as the JAX package's kernels do under
+x64.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ class JoinResult(NamedTuple):
 class CompactJoinResult(NamedTuple):
     """Compacted join output. ``left_index``/``right_index``:
     (max_pairs,) int32 batch indices, −1 padding; ``dist``: (max_pairs,)
-    float32, +inf padding; ``count``: () int32 true number of pairs
+    in the lanes' dtype (float32, or float64 in the float64 mode), +inf
+    padding; ``count``: () int32 true number of pairs
     (> max_pairs means truncation: retry with a larger budget);
     ``overflow``: () in-grid points dropped past a bucket's capacity
     (0: the join is exact)."""
@@ -122,8 +129,9 @@ def cross_join_kernel(left_xy: torch.Tensor, left_valid: torch.Tensor,
 
 class PrunedJoinPairs(NamedTuple):
     """Output of the pruned geometry joins: ``left_index``/``right_index``
-    (max_pairs,) int32, −1 padding; ``dist`` (max_pairs,) float32, +inf
-    padding; ``count`` () int32, every left item's matches before the
+    (max_pairs,) int32, −1 padding; ``dist`` (max_pairs,) in the lanes'
+    dtype (float32, or float64 in the float64 mode), +inf padding;
+    ``count`` () int32, every left item's matches before the
     ``pair_cap`` cut (> max_pairs: retry with a larger budget); and the
     two exactness counters of the retry contract, ``cand_overflow`` (a
     tile had more than ``cand`` bbox-overlapping geometries: grow
@@ -208,7 +216,8 @@ def _compact_pairs(mask, dmat, borig, gids, pair_cap: int, max_pairs: int):
     The first ``max_pairs`` live slots in that order are written through
     their prefix-sum positions (no ``nonzero``, so nothing waits for the
     device). Returns (left (max_pairs,) int32 from ``borig``, −1 padding;
-    right int32 from ``gids``, −1 padding; dist float32, +inf padding;
+    right int32 from ``gids``, −1 padding; dist in ``dmat``'s dtype, +inf
+    padding;
     count () int32, every item's matches before the ``pair_cap`` cut;
     pair_overflow () int32, the matches beyond it)."""
     nb, _, b = mask.shape

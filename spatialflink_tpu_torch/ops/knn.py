@@ -9,8 +9,15 @@ The reference computes kNN as a size-k heap per grid cell and a single
 A pane's digest is the per-object (min distance, lowest index at that
 minimum); a sliding window's result merges the digests of its panes.
 Absent objects carry the ``finfo`` max of the distance's dtype
-(``absent_dist``; ``F32_BIG`` in the float32 pane digests) and the
-``int32`` max representative.
+(``absent_dist``: ``F32_BIG`` for float32 distances,
+``finfo(float64).max`` in the float64 mode) and the ``int32`` max
+representative.
+
+Every kernel computes in its inputs' dtype: centred float32 lanes by
+default, raw float64 lanes in the float64 mode (``precision.py``), where
+the digests, the radius compare and the returned distances are float64
+and B4 runs its float64 instantiation, as the JAX package's kernels do
+under x64.
 
 The window kernels (``knn_kernel`` and its polygon and linestring
 forms) take the whole window in one call. A polygon or linestring
@@ -71,14 +78,18 @@ class KnnPaneDigest(NamedTuple):
     """Per-object minima for one slide pane: the carryable unit of the
     incremental sliding-window kNN."""
 
-    seg_min: torch.Tensor  # (num_segments,) f32 min dist; F32_BIG absent
+    seg_min: torch.Tensor  # (num_segments,) min dist; absent_dist if absent
     rep: torch.Tensor  # (num_segments,) i32 lowest index at the min
 
 
-def empty_digest(num_segments: int, device) -> KnnPaneDigest:
-    """The digest of a pane with no point in radius."""
+def empty_digest(num_segments: int, device,
+                 dtype: torch.dtype = torch.float32) -> KnnPaneDigest:
+    """The digest of a pane with no point in radius, its distances of
+    ``dtype`` (float32, or float64 in the float64 mode) at that dtype's
+    ``absent_dist``, so a merge with the live digests keeps their dtype
+    and their sentinel."""
     return KnnPaneDigest(
-        torch.full((num_segments,), F32_BIG, dtype=torch.float32,
+        torch.full((num_segments,), absent_dist(dtype), dtype=dtype,
                    device=device),
         torch.full((num_segments,), I32_BIG, dtype=torch.int32,
                    device=device),
@@ -507,7 +518,7 @@ def knn_geometry_query_kernel(obj_verts, obj_edge_valid, valid, flags, oid,
         for i0 in range(0, n, per)
     ]
     dist = torch.cat(parts) if parts else torch.empty(
-        0, dtype=torch.float32, device=obj_verts.device)
+        0, dtype=obj_verts.dtype, device=obj_verts.device)
     return _topk_from_point_dists(dist, valid, flags, oid, radius, k,
                                   num_segments, index_base)
 

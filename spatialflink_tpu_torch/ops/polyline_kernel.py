@@ -57,6 +57,7 @@ from spatialflink_tpu_torch.ops.distances import (
     point_segment_sq_distance,
     sqrt_rn,
 )
+from spatialflink_tpu_torch.ops.polygon import used_edges
 
 #: Lanes (points × slots × edges) the plain version evaluates per block of
 #: points: on the card this bounds its temporaries to a few hundred MB; on
@@ -106,11 +107,14 @@ def polyline_min_dist_plain(xy: torch.Tensor, verts: torch.Tensor,
     their dtype: per block of points, d² of every (point, slot, edge) in
     the kernel's operation order, +inf on invalid edges, the min over
     edges, the correctly rounded root and the cap at the dtype's
-    ``finfo.max``."""
+    ``finfo.max``. On the CPU the edge columns valid in no boundary are
+    cut first (``used_edges``)."""
     _check(xy, verts, edge_valid, sel)
+    ev = edge_valid.bool()
+    if not xy.is_cuda:
+        verts, ev = used_edges(verts, ev)
     n, (g, v) = xy.shape[0], verts.shape[:2]
     c = g if sel is None else sel.shape[1]
-    ev = edge_valid.bool()
     big = torch.finfo(xy.dtype).max
     out = torch.empty((n, c), dtype=xy.dtype, device=xy.device)
     lanes = PLAIN_BLOCK_LANES if xy.is_cuda else PLAIN_BLOCK_LANES_CPU

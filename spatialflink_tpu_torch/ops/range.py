@@ -13,10 +13,11 @@ evaluation, dense over the query set or gathered over each point's
 bbox candidates. Containment (``ops/polygon.py:points_in_polygons``) and
 the min over geometries are plain PyTorch.
 
-The point-stream kernels compute in their inputs' dtype: centred float32
-lanes by default, raw float64 ones in the float64 mode (``precision.py``),
-where the radius is compared in float64 and B4 runs its float64
-instantiation, as the JAX package's kernels do under x64.
+Every kernel here computes in its inputs' dtype: centred float32 lanes
+by default, raw float64 ones in the float64 mode (``precision.py``),
+where the radius is compared in float64, the no-distance sentinels are
+``finfo(float64).max`` and B4 runs its float64 instantiation, as the JAX
+package's kernels do under x64.
 
 Geometry streams (polygons, linestrings) against a query set take
 ``geometry_range_query_kernel``: per (object, query) the vertex→boundary
@@ -34,10 +35,9 @@ from spatialflink_tpu_torch.ops.distances import pairwise_distance, sqrt_rn
 from spatialflink_tpu_torch.ops.polygon import points_in_polygons
 from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
 
-_BIG = torch.finfo(torch.float32).max
-
 #: Output entries (points × boundaries) one geometry-path B4 launch may
-#: write: 512 MB of float32, and every index of the launch below 2^31.
+#: write: 512 MB of float32 distances, 1 GB in the float64 mode, and
+#: every index of the launch below 2^31.
 PAIR_BLOCK = 1 << 27
 
 #: Objects one geometry-path block takes at most: B4's dense mode takes
@@ -237,8 +237,9 @@ def range_query_polygons_pruned_compact_kernel(xy, valid, flags, poly_verts,
 def _vertex_min(d, ok, groups: int, per: int):
     """(groups·per, C) vertex distances → (groups, C) min over each
     group's ``per`` vertices, invalid vertices (``ok`` False, e.g. the
-    padding of a short boundary) at ``finfo.max`` so they never win."""
-    d = torch.where(ok.reshape(-1, 1), d, _BIG)
+    padding of a short boundary) at ``finfo.max`` of the distances' dtype
+    so they never win."""
+    d = torch.where(ok.reshape(-1, 1), d, _big(d))
     return d.reshape(groups, per, -1).amin(dim=1)
 
 
@@ -372,7 +373,7 @@ def geometry_range_query_kernel(obj_verts, obj_edge_valid, valid, flags,
         for i0 in range(0, n, per)
     ]
     min_dist = torch.cat(parts) if parts else torch.empty(
-        0, dtype=torch.float32, device=obj_verts.device)
+        0, dtype=obj_verts.dtype, device=obj_verts.device)
     return _emit_mask(valid, flags, min_dist, radius, approximate), min_dist
 
 

@@ -133,7 +133,7 @@ def tjoin_pane_init(num_cells: int, cap_w: int, ppw: int, num_ids: int,
     """A fresh carry on ``device``. ``num_ids``: the interned trajectory
     ids (K), shared by both sides. The carry is float32: ``dtype`` None
     or float32 takes it, and float64 (the JAX package's x64 carry) is
-    ROADMAP item A14.2 and raises."""
+    ROADMAP item A14.2b and raises."""
     if dtype is not None and np.dtype(dtype) != np.float32:
         require_f32(np.float64, "the pane-carry tJoin's float64 carry")
     dev = torch.device(device)

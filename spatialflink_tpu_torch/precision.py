@@ -6,10 +6,16 @@ x64 mode is on, as its test suite turns it on; its accelerator, with x64
 off, gets centred float32 lanes instead (``operators/base.py:
 center_coords``). The port follows the same rule: **float64 only when
 ``dtype`` is float64 and x64 is on**. Then coordinates go to the device
-raw, uncentred, in float64, as the JAX package ships them, and the point
-range, kNN and point–point join kernels (B3, B4 on the card) compute,
-compare the radius and return distances in float64. In every other case
-the lanes are the centred float32 ones.
+raw, uncentred, in float64, as the JAX package ships them, and the
+kernels (B3, B4 on the card) compute, compare the radius and return
+distances in float64; sentinels are ``finfo(float64).max`` and the kNN
+pane carries are float64. That holds for the range, kNN and join
+operators of point and geometry streams (``run``, ``run_soa``,
+``query_incremental``), the pane-carry kNN (``query_panes``,
+``run_soa_panes``), ``run_multi`` and the pane-carry point join
+(``query_panes``). In every other case the lanes are the centred
+float32 ones. The headline wire path (``run_wire_panes``) is float32 in
+either mode, by its wire format.
 
 The switch is off by default and is read at call time; nothing is read
 from the environment. Like ``jax.config``, it is one setting for the
@@ -21,7 +27,9 @@ whole process, for every thread::
     with precision.x64(True):    # jax.enable_x64(True)
         ...
 
-Entry points whose float64 route is not ported yet raise
+Entry points whose float64 route is not ported yet (ROADMAP A14.2b: the
+t* operators, the tStats device pane engine and the tJoin carry, the
+standing-query server, and any ``mesh=`` or ``run_partitioned``) raise
 ``NotImplementedError`` through ``require_f32`` when the rule asks for
 float64, rather than compute in float32 unasked.
 """
@@ -79,5 +87,5 @@ def require_f32(dtype, what: str) -> None:
     if effective_f64(dtype):
         raise NotImplementedError(
             f"{what} in float64 (x64 on, dtype float64) is not ported yet: "
-            f"ROADMAP item A14.2. Turn x64 off or pass dtype=np.float32 for "
+            f"ROADMAP item A14.2b. Turn x64 off or pass dtype=np.float32 for "
             f"its centred float32 route.")

@@ -44,7 +44,7 @@ computes in float32 on the device, with coordinates centred in float64
 first (``operators/base.py:center_coords``); radii ship as float64, so
 the radius test is the JAX package's under x64. ``dtype`` float64 with
 the float64 mode on (``precision.py``) raises: the float64 registry
-program is ROADMAP item A14.2. ``mesh=``: every bucket runs through
+program is ROADMAP item A14.2b. ``mesh=``: every bucket runs through
 ``parallel/sharded.py:sharded_registry_bucket``, the window's points
 sharded over the mesh's ``data`` axis, with the unsharded results.
 """
@@ -513,7 +513,7 @@ class QServeOperator(SpatialOperator):
         ``driver=`` opts into checkpoints and retry as for the other
         operators; the registry state rides the operator checkpoint.
         ``dtype`` float64 with the float64 mode on (``precision.py``)
-        raises: the registry program in float64 is ROADMAP item A14.2."""
+        raises: the registry program in float64 is ROADMAP item A14.2b."""
         require_f32(dtype, "QServeOperator.run")
         from spatialflink_tpu_torch.driver import strict_driver
         from spatialflink_tpu_torch.ops.query_registry import (

@@ -168,8 +168,10 @@ def pane_carry_from_jax(jax_op, device="cuda") -> Tuple[Optional[dict],
     ``_pane_carry`` (``query_panes``: pane start → (nseg, seg_min, rep,
     events), or None for an empty pane) with each event copied into a
     port object, and ``_pane_carry_soa`` (``run_soa_panes``: pane start →
-    (seg_min, rep), or None). Either is None where the JAX operator has
-    none::
+    (seg_min, rep), or None). The distances keep their dtype: float64
+    from a JAX run in float64 (x64 on, ``dtype`` float64), for a port run
+    in the float64 mode, else float32. Either is None where the JAX
+    operator has none::
 
         op.interner = interner_from_jax(jax_op)
         op._pane_carry, op._pane_carry_soa = pane_carry_from_jax(jax_op)
@@ -177,7 +179,9 @@ def pane_carry_from_jax(jax_op, device="cuda") -> Tuple[Optional[dict],
     dev = resolve_device(device)
 
     def digest(sm, rp):
-        return (_tensor(sm, np.float32, dev), _tensor(rp, np.int32, dev))
+        f64 = np.asarray(sm).dtype == np.float64
+        return (_tensor(sm, np.float64 if f64 else np.float32, dev),
+                _tensor(rp, np.int32, dev))
 
     panes = getattr(jax_op, "_pane_carry", None)
     soa = getattr(jax_op, "_pane_carry_soa", None)

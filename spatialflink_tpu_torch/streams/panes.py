@@ -203,7 +203,7 @@ def pane_operands(ts, xy, oid, num_oids: int, slide_ms: int):
     n_panes)``, ``operands`` the numpy lanes (int32 rebased ts, float32
     x and y, int32 oid, bool valid) that ``traj_stats_pane_kernel``
     takes. The JAX package's engine takes float64 lanes whenever its x64
-    mode is on; the port's float64 engine is ROADMAP item A14.2, so with
+    mode is on; the port's float64 engine is ROADMAP item A14.2b, so with
     the float64 mode on (``precision.py``) this raises."""
     require_f32(np.float64, "the device pane engine (tStats panes)")
     ts = np.asarray(ts, np.int64)

@@ -2043,6 +2043,140 @@ def test_polyline_min_dist_float64_matches_plain_version_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "G=1"])
+def test_polyline_min_dist_float64_dense_and_g1_on_card(mode):
+    """B4's float64 instantiation, dense, bit-exact against its plain
+    version at the float64 geometry paths' shapes: every vertex of a
+    window of packed boundaries (padding vertices at 0.0 included)
+    against a query set of 32, the query vertices against the window's
+    boundaries, and a pane of points against one query boundary (the kNN
+    pane digest, G = 1); DBL_MAX for a boundary with no valid edge."""
+    dev = _card()
+    from spatialflink_tpu_torch.ops.polygon import pack_rings
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rng = np.random.default_rng(20)
+
+    def boundaries(g, pad_to, r_max):
+        out = []
+        for _ in range(g):
+            m = int(rng.integers(4, 12))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+            c = np.array([116.4, 40.2]) + rng.uniform(-0.3, 0.3, 2)
+            ring = c + r_max * rng.uniform(0.3, 1.0, (m, 1)) * np.stack(
+                [np.cos(ang), np.sin(ang)], axis=1)
+            out.append(pack_rings([ring], pad_to=pad_to))
+        verts = np.stack([v for v, _ in out])
+        ev = np.stack([e for _, e in out])
+        return verts, ev
+
+    qv, qe = boundaries(32 if mode == "dense" else 1, 16, 0.03)
+    qe[-1] = False  # a query boundary with no valid edge
+    cases = []
+    if mode == "dense":
+        ov, oe = boundaries(3000, 16, 0.01)
+        ov[~np.concatenate([oe, np.zeros((3000, 1), bool)], axis=1)
+           & ~np.concatenate([np.zeros((3000, 1), bool), oe], axis=1)] = 0.0
+        cases.append((ov.reshape(-1, 2), qv, qe))  # object vertices → queries
+        cases.append((qv.reshape(-1, 2), ov, oe))  # query vertices → objects
+    else:
+        pts = np.array([116.4, 40.2]) + rng.uniform(-0.4, 0.4, (65_536, 2))
+        qe[-1] = True
+        cases.append((pts, qv, qe))
+        cases.append((pts[:40_000], qv, np.zeros_like(qe)))
+    for xy, verts, ev in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (xy, verts, ev)]
+        got = polyline_min_dist_cuda(*args)
+        want = polyline_min_dist_plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float64 and got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want))
+        dead = ~args[2].any(dim=1)
+        assert torch.all(got[:, dead] == torch.finfo(torch.float64).max)
+
+
+@pytest.mark.cuda
+def test_float64_geometry_operators_run_the_float64_kernels_on_card():
+    """With the float64 mode on, the geometry-stream range and kNN, the
+    point ⋈ polygon and polygon ⋈ polygon joins and the pane-carry kNN
+    and join on the card go through B4's and B3's float64 kernels (dense,
+    G = 1 and gathered) and equal the same runs on the CPU through the
+    plain versions, distances bit for bit."""
+    dev = _card()
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch import precision
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point, Polygon
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    # A coarse grid: the pane join's plain version tests every slot pair
+    # of its bucket planes.
+    grid = dict(num_partitions=16, min_x=115.5, max_x=117.6, min_y=39.6,
+                max_y=41.1)
+    rng = np.random.default_rng(21)
+    polys = generate_query_polygons(60, 115.5, 39.6, 117.6, 41.1, seed=4)
+    stream = [Polygon(obj_id=f"g{i % 40}", timestamp=i * 3,
+                      rings=[p.rings[0] + rng.uniform(-0.01, 0.01, 2)])
+              for i, p in enumerate(polys * 5)]
+    xy = np.stack([rng.uniform(115.5, 117.6, 3000),
+                   rng.uniform(39.6, 41.1, 3000)], axis=1)
+    pts = [Point(obj_id=f"o{i % 200}", timestamp=i // 3, x=x, y=y)
+           for i, (x, y) in enumerate(xy)]
+    other = [Point(obj_id=f"r{i % 200}", timestamp=i // 3, x=x + 0.004,
+                   y=y) for i, (x, y) in enumerate(xy)]
+    conf = ops.QueryConfiguration(window_size=0.5, slide_step=0.5)
+    two = ops.QueryConfiguration(window_size=0.5, slide_step=0.25)
+
+    def key(res):
+        out = []
+        for w in res:
+            if hasattr(w, "dists"):
+                out.append(([o.obj_id for o in w.objects],
+                            np.asarray(w.dists).view(np.int64).tolist()))
+            elif hasattr(w, "neighbors"):
+                out.append([(a, np.float64(b).view(np.int64).item(),
+                             c.obj_id) for a, b, c in w.neighbors])
+            else:
+                out.append(sorted((a.obj_id, b.obj_id,
+                                   np.float64(d).view(np.int64).item())
+                                  for a, b, d in w.pairs))
+        return out
+
+    def runs(device):
+        g = UniformGrid(**grid)
+        with precision.x64(True):
+            return [
+                key(ops.PolygonPolygonRangeQuery(conf, g, device=device).run(
+                    iter(stream), polys[:8], 0.02)),
+                key(ops.PolygonPointKNNQuery(conf, g, device=device).run(
+                    iter(stream), Point(x=116.4, y=40.2), 0.5, 10)),
+                key(ops.PointPolygonJoinQuery(conf, g, device=device).run(
+                    iter(pts), iter(stream), 0.01)),
+                key(ops.PolygonPolygonJoinQuery(conf, g, device=device).run(
+                    iter(stream), iter(stream), 0.01)),
+                key(ops.PointPolygonKNNQuery(two, g, device=device)
+                    .query_panes(iter(pts), polys[0], 0.3, 10)),
+                key(ops.PointPointJoinQuery(two, g, cap=48, device=device)
+                    .query_panes(iter(pts), iter(other), 0.01)),
+            ]
+
+    polyline_min_dist.launches_f64 = join_extract.launches_f64 = 0
+    card = runs("cuda")
+    torch.cuda.synchronize()
+    assert polyline_min_dist.launches_f64 >= 10
+    assert join_extract.launches_f64 >= 3
+    cpu = runs("cpu")
+    assert card == cpu
+    assert all(any(w for w in leg) for leg in cpu)
+
+
+@pytest.mark.cuda
 def test_float64_mode_runs_the_float64_kernels_on_card():
     """With the float64 mode on, the point-stream range (polygon query
     set), kNN (polygon query) and point–point join ``run_soa`` on the

@@ -13,24 +13,41 @@ Contracts held:
 - a point exactly at the radius's edge: the port keeps exactly the
   points the JAX package keeps, where the centred float32 route keeps
   others;
-- every entry point of the slice (the point-stream range's three classes
-  through ``run`` in every window mode and ``run_soa``, and
-  ``query_incremental``; point-stream kNN ``run`` for point, polygon and
-  linestring queries and ``run_soa``; ``PointPointJoinQuery.run`` and
-  ``run_soa``) equals its JAX counterpart on random data: windows,
+- every entry point of the point-stream slice (the point-stream range's
+  three classes through ``run`` in every window mode and ``run_soa``,
+  and ``query_incremental``; point-stream kNN ``run`` for point, polygon
+  and linestring queries and ``run_soa``; ``PointPointJoinQuery.run``
+  and ``run_soa``) equals its JAX counterpart on random data: windows,
   matched ids and counts exact, distances float64 and within 1 float64
   ulp (``ULPS``), or within ``GEOM_ATOL`` for polygon and linestring
   distances (the jitted JAX point→segment distance may contract a
   multiply-add, which moves the closest point by up to a coordinate
   ulp);
+- so does every entry point of the geometry and pane-carry slice: the
+  six geometry-stream range and kNN classes (``run`` in every window
+  mode, ``run_soa``, approximate and multi-ring), the eight point ⋈
+  geometry and geometry ⋈ geometry joins (``run``, ``run_soa``, the
+  approximate modes, the overflow retry, and their dense and pruned
+  kernels on float64 lanes), the kNN ``query_panes`` (point, polygon,
+  linestring queries), ``run_soa_panes`` and ``run_multi``, and
+  ``PointPointJoinQuery.query_panes``;
+- each geometry family at the radius: objects a few float64 ulps either
+  side of it keep exactly the JAX objects, distances bit for bit;
+- the sentinels: an object with no valid vertex, an empty window and a
+  pane carry across an empty pane are float64 at ``finfo(float64).max``;
+- a float64 ``query_panes`` or ``run_soa_panes`` killed and resumed
+  through ``checkpoint.py`` equals the uninterrupted run, its carry
+  float64, and a JAX float64 carry imported through ``state.py`` stays
+  float64;
 - B4's and B3's plain float64 versions against the JAX functions run
   eagerly (op by op, so nothing is contracted): bit for bit, including
   ``finfo(float64).max`` for a boundary with no valid edge;
 - the numpy failover twins compute in float64 as the device path does;
 - x64 off, or ``dtype=np.float32``: today's float32 results, bit for
   bit;
-- x64 on: every entry point outside the slice raises
-  ``NotImplementedError`` naming ROADMAP item A14.2;
+- x64 on: of the 65 entry points that raised before the geometry slice,
+  the 45 it ports run in float64 on a tiny stream, and the 20 of ROADMAP
+  item A14.2b raise ``NotImplementedError`` naming it;
 - the switch itself, and the telemetry ledger's ``x64`` field.
 """
 
@@ -42,7 +59,12 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_geometry_range as TGR
 import test_torch_join as TJ
+import test_torch_join_geometry as TJG
+import test_torch_join_panes as TJP
+import test_torch_knn_geometry as TKG
+import test_torch_knn_panes as TKP
 import test_torch_knn_run as TK
 import test_torch_range as TR
 from spatialflink_tpu.models.objects import Point as JPoint
@@ -454,6 +476,790 @@ def test_numpy_twins_compute_in_float64(x64):
     assert n > 0
 
 
+
+
+# ---------------------------------------------------------------------------
+# A14.2a: the geometry operators and the pane-carry point paths against
+# the JAX package under x64
+
+
+def _f64_geom(got, want):
+    """Geometry distances: float64 both, 0 exactly where the reference is
+    0, the rest within ``GEOM_ATOL``."""
+    g, w = np.asarray(got), np.asarray(want)
+    assert g.dtype == w.dtype == np.float64, (g.dtype, w.dtype)
+    assert np.array_equal(g == 0, w == 0)
+    return _within(g, w, GEOM_ATOL)
+
+
+GEOM_SOA_CASES = [(s, q, False, True) for (s, q) in TGR.CLASSES] + [
+    ("polygon", "polygon", True, False), ("linestring", "point", True,
+                                          False)]
+
+
+@pytest.mark.parametrize("stream_kind,query_kind,approx,multi_ring",
+                         GEOM_SOA_CASES)
+def test_geometry_range_run_soa_matches_jax(stream_kind, query_kind, approx,
+                                            multi_ring, x64):
+    rng = np.random.default_rng(81)
+    op, jop, polygonal = TGR._ops(stream_kind, query_kind,
+                                  dict(window_size=1.0, slide_step=1.0,
+                                       approximate_query=approx))
+    qs, jqs, centres = TGR._queries(query_kind, rng)
+    objs, _ = TGR._objects(TGR._object_rings(rng, 300, centres), polygonal,
+                           100, holes=multi_ring and polygonal)
+    chunks = TGR._ragged_chunks(objs, n_chunks=5, edges=multi_ring)
+    got = list(op.run_soa(chunks, qs, TGR.R))
+    want = list(jop.run_soa(chunks, jqs, TGR.R))
+    assert len(got) == len(want) == 3
+    kept = 0
+    for g, w in zip(got, want):
+        assert (g[0], g[1], g[5]) == (w[0], w[1], w[5])
+        assert np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])
+        assert _f64_geom(g[4], w[4])
+        kept += len(g[2])
+    assert kept > 0
+
+
+@pytest.mark.parametrize("stream_kind,query_kind,conf_kw", TGR.RUN_CASES,
+                         ids=[f"{s}-{q}-{i}" for i, (s, q, _) in
+                              enumerate(TGR.RUN_CASES)])
+def test_geometry_range_run_matches_jax(stream_kind, query_kind, conf_kw,
+                                        x64):
+    rng = np.random.default_rng(82)
+    op, jop, polygonal = TGR._ops(stream_kind, query_kind, conf_kw)
+    qs, jqs, centres = TGR._queries(query_kind, rng)
+    objs, jobjs = TGR._objects(TGR._object_rings(rng, 210, centres),
+                               polygonal, 70, holes=True)
+    got = list(op.run(iter(objs), qs, TGR.R))
+    want = list(jop.run(iter(jobjs), jqs, TGR.R))
+    assert len(got) == len(want) and got
+    for g, w in zip(got, want):
+        assert (g.start, g.end, g.window_count) == (w.start, w.end,
+                                                    w.window_count)
+        assert [(o.obj_id, o.timestamp) for o in g.objects] == \
+            [(o.obj_id, o.timestamp) for o in w.objects]
+        assert _f64_geom(g.dists, w.dists)
+    assert sum(len(g.objects) for g in got) > 0
+
+
+GEOM_KNN_SOA_CASES = [(s, q, False, False) for (s, q) in TKG.CLASSES] + [
+    ("polygon", "polygon", True, False), ("linestring", "point", True,
+                                          False),
+    ("polygon", "point", False, True)]
+
+
+@pytest.mark.parametrize("stream_kind,query_kind,approx,multi_ring",
+                         GEOM_KNN_SOA_CASES)
+def test_geometry_knn_run_soa_matches_jax(stream_kind, query_kind, approx,
+                                          multi_ring, x64):
+    rng = np.random.default_rng(83)
+    op, jop = TKG._ops(stream_kind, query_kind,
+                       dict(window_size=1.0, slide_step=1.0,
+                            approximate_query=approx))
+    q, jq = TKG._query(query_kind, rng)
+    objs, _ = TKG._objects(TKG._object_rings(rng, 300),
+                           stream_kind == "polygon", 100, holes=multi_ring)
+    chunks = TKG._ragged_chunks(objs, n_chunks=5, edges=multi_ring)
+    got = list(op.run_soa(chunks, q, TKG.R, TKG.K, TKG.NSEG))
+    want = list(jop.run_soa(chunks, jq, TKG.R, TKG.K, TKG.NSEG))
+    assert len(got) == len(want) == 3
+    full = 0
+    for g, w in zip(got, want):
+        assert (g[0], g[1], g[4]) == (w[0], w[1], w[4])
+        assert np.array_equal(g[2], w[2])
+        assert _f64_geom(g[3], w[3])
+        full += g[4] == TKG.K
+    assert full > 0
+
+
+@pytest.mark.parametrize("stream_kind,query_kind,conf_kw", TKG.RUN_CASES,
+                         ids=[f"{s}-{q}-{i}" for i, (s, q, _) in
+                              enumerate(TKG.RUN_CASES)])
+def test_geometry_knn_run_matches_jax(stream_kind, query_kind, conf_kw, x64):
+    rng = np.random.default_rng(84)
+    op, jop = TKG._ops(stream_kind, query_kind, conf_kw)
+    q, jq = TKG._query(query_kind, rng)
+    objs, jobjs = TKG._objects(TKG._object_rings(rng, 200),
+                               stream_kind == "polygon", 100, holes=True)
+    got = list(op.run(iter(objs), q, TKG.R, TKG.K))
+    want = list(jop.run(iter(jobjs), jq, TKG.R, TKG.K))
+    assert len(got) == len(want) >= 2
+    for g, w in zip(got, want):
+        assert (g.start, g.end, g.window_count) == (w.start, w.end,
+                                                    w.window_count)
+        assert [n[0] for n in g.neighbors] == [n[0] for n in w.neighbors]
+        assert [(n[2].obj_id, n[2].timestamp) for n in g.neighbors] == \
+            [(n[2].obj_id, n[2].timestamp) for n in w.neighbors]
+        assert _f64_geom([n[1] for n in g.neighbors],
+                         [n[1] for n in w.neighbors])
+    assert sum(len(g.neighbors) for g in got) > 0
+
+
+def _join_pairs(res):
+    """A join window's pairs → {(left key, right key): sorted distances}
+    (the two packages may order a window's pairs differently)."""
+    out = defaultdict(list)
+    for a, b, d in res.pairs:
+        out[(a.obj_id, a.timestamp, b.obj_id, b.timestamp)].append(d)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _same_join_windows(got, want, geom=True):
+    assert len(got) == len(want) >= 2
+    n = 0
+    for g, w in zip(got, want):
+        assert (g.start, g.end, g.overflow, g.window_count) == \
+            (w.start, w.end, w.overflow, w.window_count)
+        pg, pw = _join_pairs(g), _join_pairs(w)
+        assert pg.keys() == pw.keys()
+        keys = sorted(pg)
+        dg = np.array([d for k in keys for d in pg[k]], np.float64)
+        dw = np.array([d for k in keys for d in pw[k]], np.float64)
+        assert (_f64_geom(dg, dw) if geom else _within(dg, dw))
+        n += len(g.pairs)
+    return n
+
+
+JOIN_NAMES = TJG.POINT_CLASSES + TJG.GEOM_CLASSES
+
+
+@pytest.mark.parametrize("name", JOIN_NAMES)
+def test_geometry_join_run_matches_jax(name, x64):
+    left, right, jleft, jright = TJG._streams(name, 85, holes=True)
+    op, jop = TJG._ops(name)
+    got = list(op.run(iter(left), iter(right), TJG.R))
+    want = list(jop.run(iter(jleft), iter(jright), TJG.R))
+    assert _same_join_windows(got, want) > 20
+    # The pruned kernel's route keeps the JAX pair order within a window.
+    for g, w in zip(got, want):
+        assert [(a.obj_id, b.obj_id) for a, b, _ in g.pairs] == \
+            [(a.obj_id, b.obj_id) for a, b, _ in w.pairs]
+
+
+@pytest.mark.parametrize("name", JOIN_NAMES)
+def test_geometry_join_run_soa_matches_jax(name, x64):
+    left, right, _, _ = TJG._streams(name, 86, holes=True)
+    op, jop = TJG._ops(name)
+
+    def chunks(objs):
+        if isinstance(objs[0], Point):
+            return TJG._point_chunks(objs)
+        return TJG._ragged_chunks(objs, edges=True)
+
+    if name in TJG.POINT_CLASSES and not name.startswith("Point"):
+        left, right = right, left
+    got = list(op.run_soa(chunks(left), chunks(right), TJG.R))
+    want = list(jop.run_soa(chunks(left), chunks(right), TJG.R))
+    assert len(got) == len(want) >= 3
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2] and g[5] == w[5]
+        assert np.array_equal(g[2], w[2]) and np.array_equal(g[3], w[3])
+        assert _f64_geom(g[4], w[4])
+    assert sum(g[5] for g in got) > 20
+
+
+@pytest.mark.parametrize("name", ["PointPolygon", "PolygonPoint",
+                                  "PointLineString", "LineStringPoint",
+                                  "PolygonPolygon", "LineStringLineString"])
+def test_geometry_join_approximate_modes_match_jax(name, x64):
+    """Emit-all (cell space, distance 0), point → bbox and bbox ↔ bbox,
+    the boxes float64 and unpadded as the JAX package's."""
+    left, right, jleft, jright = TJG._streams(name, 87, n=300, m=25)
+    op, jop = TJG._ops(name, approx=True)
+    got = list(op.run(iter(left), iter(right), TJG.R))
+    want = list(jop.run(iter(jleft), iter(jright), TJG.R))
+    assert _same_join_windows(got, want, geom=False) > 20
+    dists = [d for w in got for *_, d in w.pairs]
+    if name.startswith("Point"):
+        assert set(dists) == {0.0}
+    else:
+        assert 0 < max(dists) <= TJG.R
+        assert any(float(np.float32(d)) != d for d in dists)  # float64 values
+
+
+@pytest.mark.parametrize("name,attr,start", [
+    ("PointPolygon", "_cand", 1), ("PointLineString", "_pair_cap", 1),
+    ("PolygonPolygon", "_cand", 1), ("LineStringPolygon", "_pair_cap", 1),
+    ("LineStringPoint", "_geom_max_pairs", 4),
+])
+def test_geometry_join_retries_grow_as_jax(name, attr, start, x64):
+    """The overflow retry in float64: a forced retry reaches the JAX
+    result, and both operators end at the same budgets."""
+    left, right, jleft, jright = TJG._streams(name, 88, n=600, m=40)
+    op, jop = TJG._ops(name)
+    setattr(op, attr, start)
+    setattr(jop, attr, start)
+    got = list(op.run(iter(left), iter(right), TJG.R))
+    want = list(jop.run(iter(jleft), iter(jright), TJG.R))
+    assert _same_join_windows(got, want) > 20
+    state = [(o._cand, o._pair_cap, o._geom_max_pairs) for o in (op, jop)]
+    assert state[0] == state[1] and getattr(op, attr) > start
+
+
+def _f64_lanes(geoms):
+    """A geometry batch's float64 kernel lanes (raw coordinates): (verts,
+    edge_valid, valid, bbox)."""
+    from spatialflink_tpu_torch.models.batch import GeometryBatch
+    from spatialflink_tpu_torch.operators.base import center_coords
+    from spatialflink_tpu_torch.operators.join_query import _centered_bbox
+
+    grid = UniformGrid(**TJG.GRID16)
+    gb = GeometryBatch.from_objects(geoms)
+    bbox = _centered_bbox(grid, gb.bbox, np.float64)
+    assert bbox.dtype == np.float64
+    assert np.array_equal(bbox, _centered_bbox(grid, gb.bbox, np.float64,
+                                               pad=False))
+    return (center_coords(grid, gb.verts, np.float64), gb.edge_valid,
+            gb.valid, bbox)
+
+
+def _jit(fn, **statics):
+    return jax.jit(fn, static_argnames=tuple(statics))
+
+
+@pytest.mark.parametrize("kind", ["polygon", "linestring"])
+@pytest.mark.parametrize("route", ["dense", "pruned", "cand_overflow"])
+def test_point_geometry_join_kernels_match_jax(kind, route, x64):
+    """The dense and the pruned (tile) point ⋈ geometry kernels on float64
+    lanes against the JAX kernels on the same lanes: masks, pairs and
+    overflow counters exact, distances float64."""
+    from spatialflink_tpu.ops import join as jjoin
+
+    from spatialflink_tpu_torch.ops import join as tjoin
+
+    rng = np.random.default_rng(89)
+    pts, _ = TJG._point_objs(rng, 700)
+    geoms, _ = TJG._geom_objs(rng, 40, kind, holes=kind == "polygon")
+    xy = np.array([[p.x, p.y] for p in pts])
+    pxy = xy[np.argsort(xy[:, 0])]
+    pvalid = np.ones(len(pxy), bool)
+    pvalid[::13] = False
+    verts, ev, gvalid, gbbox = _f64_lanes(geoms)
+    poly = kind == "polygon"
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    if route == "dense":
+        args = (pxy, pvalid, verts, ev, gvalid)
+        got = tjoin.point_geometry_join_kernel(*map(t, args), TJG.R,
+                                               polygonal=poly)
+        want = _jit(jjoin.point_geometry_join_kernel, polygonal=poly)(
+            *map(jnp.asarray, args), TJG.R, polygonal=poly)
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+        live = pvalid[None, :] & gvalid[:, None]
+        assert _f64_geom(got[1].numpy()[live], np.asarray(want[1])[live])
+        assert got[0].sum() > 20
+        return
+    cand = 2 if route == "cand_overflow" else 32
+    args = (pxy, pvalid, verts, ev, gvalid, gbbox)
+    st = dict(polygonal=poly, block=256, cand=cand, max_pairs=4096,
+              pair_cap=8, approx=False)
+    got = tjoin.point_geometry_join_pruned_kernel(*map(t, args), TJG.R,
+                                                  **st)
+    want = _jit(jjoin.point_geometry_join_pruned_kernel, **st)(
+        *map(jnp.asarray, args), TJG.R, **st)
+    for a, b in zip(got[:2], want[:2]):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    n = int(want.count)
+    assert got.dist.dtype == torch.float64
+    assert _f64_geom(got.dist.numpy()[:n], np.asarray(want.dist)[:n])
+    assert np.all(np.isinf(got.dist.numpy()[n:]))
+    for a, b in zip(got[3:], want[3:]):
+        assert int(a) == int(b)
+    assert (int(got.cand_overflow) > 0) == (route == "cand_overflow")
+
+
+@pytest.mark.parametrize("pair", list(TJG.KINDS))
+@pytest.mark.parametrize("route", ["dense", "pruned"])
+def test_geometry_geometry_join_kernels_match_jax(pair, route, x64):
+    from spatialflink_tpu.ops import join as jjoin
+
+    from spatialflink_tpu_torch.ops import join as tjoin
+
+    akind, bkind = TJG.KINDS[pair]
+    rng = np.random.default_rng(90)
+    a, _ = TJG._geom_objs(rng, 120, akind, r_max=0.004, prefix="a")
+    a.sort(key=lambda o: o.bbox()[0])
+    b, _ = TJG._geom_objs(rng, 40, bkind, holes=bkind == "polygon",
+                          prefix="b")
+    av, ae, avalid, abox = _f64_lanes(a)
+    bv, be, bvalid, bbox = _f64_lanes(b)
+    avalid = avalid.copy()
+    avalid[5] = False
+    ap, bp = akind == "polygon", bkind == "polygon"
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    if route == "dense":
+        args = (av, ae, avalid, bv, be, bvalid)
+        st = dict(a_polygonal=ap, b_polygonal=bp)
+        got = tjoin.geometry_geometry_join_kernel(*map(t, args), TJG.R,
+                                                  **st)
+        want = _jit(jjoin.geometry_geometry_join_kernel, **st)(
+            *map(jnp.asarray, args), TJG.R, **st)
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+        live = avalid[:, None] & bvalid[None, :]
+        assert _f64_geom(got[1].numpy()[live], np.asarray(want[1])[live])
+        assert got[0].sum() > 5
+        return
+    args = (av, ae, avalid, abox, bv, be, bvalid, bbox)
+    st = dict(a_polygonal=ap, b_polygonal=bp, block=32, cand=32,
+              max_pairs=4096, pair_cap=8, approx=False)
+    got = tjoin.geometry_geometry_join_pruned_kernel(*map(t, args), TJG.R,
+                                                     **st)
+    want = _jit(jjoin.geometry_geometry_join_pruned_kernel, **st)(
+        *map(jnp.asarray, args), TJG.R, **st)
+    for x, y in zip(got[:2], want[:2]):
+        assert np.array_equal(x.numpy(), np.asarray(y))
+    n = int(want.count)
+    assert n > 5 and got.dist.dtype == torch.float64
+    assert _f64_geom(got.dist.numpy()[:n], np.asarray(want.dist)[:n])
+    for x, y in zip(got[3:], want[3:]):
+        assert int(x) == int(y)
+
+
+@pytest.mark.parametrize("kind,conf_kw", TKP.PANE_CASES,
+                         ids=[f"{kd}-{i}" for i, (kd, _) in
+                              enumerate(TKP.PANE_CASES)])
+def test_knn_query_panes_matches_jax(kind, conf_kw, x64):
+    rng = np.random.default_rng(91)
+    xy = TKP._xy(rng, 700)
+    pts, jpts = TKP._points(xy, 200)
+    q, jq = TKP._query(kind)
+    op, jop = TKP._ops(kind, conf_kw)
+    got = list(op.query_panes(iter(pts), q, TKP.R, 10))
+    want = list(jop.query_panes(iter(jpts), jq, TKP.R, 10))
+    assert len(got) == len(want) and got
+    for g, w in zip(got, want):
+        assert (g.start, g.end, g.window_count) == (w.start, w.end,
+                                                    w.window_count)
+        assert [(n[0], n[2].obj_id, n[2].timestamp) for n in g.neighbors] \
+            == [(n[0], n[2].obj_id, n[2].timestamp) for n in w.neighbors]
+        dg = np.array([n[1] for n in g.neighbors], np.float64)
+        dw = np.array([n[1] for n in w.neighbors], np.float64)
+        assert np.array_equal(dg == 0, dw == 0)
+        assert _within(dg, dw, GEOM_ATOL * (kind != "point"))
+    assert any(len(w.neighbors) == 10 for w in got)
+    live = [e for e in op._pane_carry.values() if e is not None]
+    assert live and all(e[1].dtype == torch.float64 for e in live)
+    # And bit for bit the port's own float64 run().
+    run_op, _ = TKP._ops(kind, conf_kw)
+    run = list(run_op.run(iter(pts), q, TKP.R, 10))
+    assert [[(n[0], n[1]) for n in w.neighbors] for w in got] == \
+        [[(n[0], n[1]) for n in w.neighbors] for w in run]
+
+
+@pytest.mark.parametrize("conf_kw", TKP.SOA_CASES,
+                         ids=["1s-0.5s", "2s-0.5s", "1s-1s"])
+def test_knn_run_soa_panes_matches_jax(conf_kw, x64):
+    rng = np.random.default_rng(92)
+    _, chunks = TKP._soa_chunks(rng, 900, 300)
+    op, jop = TKP._ops("point", conf_kw)
+    q, jq = TKP._query("point")
+    got = list(op.run_soa_panes(chunks, q, TKP.R, 10, TKP.NSEG))
+    want = list(jop.run_soa_panes(chunks, jq, TKP.R, 10, TKP.NSEG))
+    soa, _ = TKP._ops("point", conf_kw)
+    same = list(soa.run_soa(chunks, q, TKP.R, 10, TKP.NSEG))
+    assert len(got) == len(want) == len(same) and got
+    for g, w, s in zip(got, want, same):
+        assert (g[0], g[1], g[4]) == (w[0], w[1], w[4]) == (s[0], s[1], s[4])
+        assert np.array_equal(g[2], w[2]) and np.array_equal(g[2], s[2])
+        assert _within(g[3], np.asarray(w[3]))
+        assert np.array_equal(_bits(g[3]), _bits(s[3]))
+    assert any(w[4] == 10 for w in got)
+    live = [e for e in op._pane_carry_soa.values() if e is not None]
+    assert live and all(e[0].dtype == torch.float64 for e in live)
+
+
+@pytest.mark.parametrize("nq", [5, 40], ids=["pad8", "two_blocks"])
+def test_knn_run_multi_matches_jax(nq, x64):
+    rng = np.random.default_rng(93 + nq)
+    xy = TKP._xy(rng, 500)
+    qs, jqs, _ = TKP._multi_queries(rng, nq)
+    pts, jpts = TKP._points(xy, 250)
+    conf = dict(window_size=1.0, slide_step=0.5)
+    op, jop = TKP._ops("point", conf)
+    got = list(op.run_multi(iter(pts), qs, TKP.R, 6))
+    want = list(jop.run_multi(iter(jpts), jqs, TKP.R, 6))
+    assert len(got) == len(want) == 5
+    for m, jm in zip(got, want):
+        assert (m.start, m.end, m.window_count) == (jm.start, jm.end,
+                                                    jm.window_count)
+        for g, w in zip(m.results, jm.results):
+            assert [(n[0], n[2].obj_id, n[2].timestamp)
+                    for n in g.neighbors] == \
+                [(n[0], n[2].obj_id, n[2].timestamp) for n in w.neighbors]
+            assert _within([n[1] for n in g.neighbors],
+                           [n[1] for n in w.neighbors])
+    # Each query equals the port's float64 run() with that query alone.
+    for qi in (0, nq - 2):
+        one, _ = TKP._ops("point", conf)
+        alone = list(one.run(iter(pts), qs[qi], TKP.R, 6))
+        assert [[(n[0], n[1]) for n in m.results[qi].neighbors]
+                for m in got] == \
+            [[(n[0], n[1]) for n in w.neighbors] for w in alone]
+    assert sum(len(r.neighbors) for m in got for r in m.results) > nq
+
+
+def test_join_query_panes_matches_jax(x64):
+    left, right, jleft, jright = TJP._streams(94)
+    op = PointPointJoinQuery(QueryConfiguration(**TJP.PANES),
+                             UniformGrid(**TJP.COARSE), cap=TJP.CAP,
+                             device="cpu")
+    jop = TJ.JJoin(TJ.JConf(**TJP.PANES), TJ.JGrid(**TJP.COARSE),
+                   cap=TJP.CAP)
+    got = list(op.query_panes(iter(left), iter(right), TJP.R))
+    want = list(jop.query_panes(iter(jleft), iter(jright), TJP.R))
+    assert _same_join_windows(got, want, geom=False) > 500
+    assert all(w.overflow == 0 for w in got)
+    assert sorted(op._join_pane_carry["blocks"]) == \
+        sorted(jop._join_pane_carry["blocks"])
+    assert any(float(np.float32(d)) != d for w in got for *_, d in w.pairs)
+
+
+# ---------------------------------------------------------------------------
+# Each geometry family at the radius
+
+#: The query point and the radius of the edge cases; ``EDGE_X`` are
+#: x coordinates a few float64 ulps either side of ``EDGE_Q.x + EDGE_R``.
+#: A vertical edge at such an x is at ``|EDGE_Q.x - x|`` from the query
+#: (exact in float64, Sterbenz), so whether it lies within the radius is
+#: decided by the last ulp, identically with or without a contracted
+#: multiply-add.
+EDGE_R = 0.002
+EDGE_X = np.array([np.float64(EDGE_Q[0] + EDGE_R)]) + np.arange(-3, 4) * \
+    np.spacing(EDGE_Q[0])
+EDGE_H = 0.0005
+
+
+def _square(x0, x1, cls, **meta):
+    ring = np.array([[x0, EDGE_Q[1] - EDGE_H], [x1, EDGE_Q[1] - EDGE_H],
+                     [x1, EDGE_Q[1] + EDGE_H], [x0, EDGE_Q[1] + EDGE_H],
+                     [x0, EDGE_Q[1] - EDGE_H]])
+    return cls(rings=[ring], **meta)
+
+
+def _edge_family(family, port: bool):
+    """(kept ids, float64 distances) of one family's run on the objects
+    at the radius's edge, through the port (inside the float64 mode) or
+    the JAX package at its default dtype."""
+    from spatialflink_tpu import operators as jops
+    from spatialflink_tpu.models.objects import Polygon as JPolygon
+
+    from spatialflink_tpu_torch import operators as tops
+
+    P, Poly = (Point, Polygon) if port else (JPoint, JPolygon)
+    grid = UniformGrid(**BEIJING) if port else TJ.JGrid(**BEIJING)
+    conf_kw = dict(window_size=1.0, slide_step=1.0)
+    conf = (QueryConfiguration(**conf_kw) if port
+            else TJ.JConf(**conf_kw))
+
+    def op(name, **kw):
+        if port:
+            return getattr(tops, name)(conf, grid, device="cpu", **kw)
+        return getattr(jops, name)(conf, grid, **kw)
+
+    q = P(obj_id="q", timestamp=0, x=EDGE_Q[0], y=EDGE_Q[1])
+    squares = [_square(x, x + 0.001, Poly, obj_id=f"s{i}", timestamp=i)
+               for i, x in enumerate(EDGE_X)]
+    near = [P(obj_id=f"s{i}", timestamp=i, x=x, y=EDGE_Q[1])
+            for i, x in enumerate(EDGE_X)]
+    left_sq = _square(EDGE_Q[0] - 0.001, EDGE_Q[0], Poly, obj_id="a",
+                      timestamp=0)
+    if family == "geometry_range":
+        (w,) = op("PolygonPointRangeQuery").run(iter(squares), [q], EDGE_R)
+        return [o.obj_id for o in w.objects], list(w.dists)
+    if family == "geometry_knn":
+        (w,) = op("PolygonPointKNNQuery").run(iter(squares), q, EDGE_R, 7)
+        return [n[0] for n in w.neighbors], [n[1] for n in w.neighbors]
+    if family == "knn_query_panes":
+        (w,) = op("PointPolygonKNNQuery").query_panes(iter(near), left_sq,
+                                                      EDGE_R, 7)
+        return [n[0] for n in w.neighbors], [n[1] for n in w.neighbors]
+    if family == "point_polygon_join":
+        (w,) = op("PointPolygonJoinQuery").run(iter([q]), iter(squares),
+                                               EDGE_R)
+    elif family == "polygon_polygon_join":
+        (w,) = op("PolygonPolygonJoinQuery").run(iter([left_sq]),
+                                                 iter(squares), EDGE_R)
+    else:  # the pane-carry point join
+        (w,) = op("PointPointJoinQuery", cap=8).query_panes(
+            iter([q]), iter(near), EDGE_R)
+    pairs = sorted((b.obj_id, d) for _, b, d in w.pairs)
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+EDGE_FAMILIES = ["geometry_range", "geometry_knn", "knn_query_panes",
+                 "point_polygon_join", "polygon_polygon_join",
+                 "join_query_panes"]
+
+
+@pytest.mark.parametrize("family", EDGE_FAMILIES)
+def test_geometry_families_at_the_radius_keep_the_jax_objects(family, x64):
+    got_ids, got_d = _edge_family(family, port=True)
+    want_ids, want_d = _edge_family(family, port=False)
+    assert sorted(got_ids) == sorted(want_ids)
+    assert 0 < len(want_ids) < len(EDGE_X)
+    assert np.array_equal(_bits(sorted(got_d)), _bits(sorted(want_d)))
+
+
+# ---------------------------------------------------------------------------
+# Sentinels: float64, at finfo(float64).max
+
+
+def test_an_object_with_no_valid_vertex_is_at_the_float64_max(x64):
+    from spatialflink_tpu.ops import knn as jknn
+    from spatialflink_tpu.ops import range as jr
+
+    from spatialflink_tpu_torch.ops import knn as tknn
+    from spatialflink_tpu_torch.ops import range as tr
+
+    rng = np.random.default_rng(95)
+    rings = [TGR._ring(rng, TGR.CENTRE + rng.uniform(-0.01, 0.01, 2), 0.01,
+                       6) for _ in range(8)]
+    packed = [pack_rings([r], pad_to=16) for r in rings]
+    verts = np.stack([v for v, _ in packed])
+    ev = np.stack([e for _, e in packed])
+    ev[3] = False  # object 3: no valid edge, so no valid vertex
+    qv, qe = pack_rings([TGR._ring(rng, TGR.CENTRE, 0.02, 5)], pad_to=8)
+    args = (verts, ev, np.ones(8, bool), np.ones(8, np.uint8), qv[None],
+            qe[None])
+    keep, dist = tr.geometry_range_query_kernel(
+        *(torch.from_numpy(a) for a in args), 0.05, obj_polygonal=True,
+        query_polygonal=True)
+    jkeep, jdist = jr.geometry_range_query_kernel(
+        *(jnp.asarray(a) for a in args), 0.05, obj_polygonal=True,
+        query_polygonal=True)
+    big = np.finfo(np.float64).max
+    assert dist.dtype == torch.float64 and dist[3] == big
+    assert np.array_equal(keep.numpy(), np.asarray(jkeep)) and not keep[3]
+    assert np.asarray(jdist)[3] == big
+    live = np.arange(8) != 3
+    assert _f64_geom(dist.numpy()[live], np.asarray(jdist)[live])
+    oid = np.arange(8, dtype=np.int32)
+    res = tknn.knn_geometry_query_kernel(
+        *(torch.from_numpy(a) for a in (verts, ev, np.ones(8, bool),
+                                        np.ones(8, np.uint8), oid, qv, qe)),
+        0.05, 8, 64, obj_polygonal=True, query_polygonal=True)
+    jres = jknn.knn_geometry_query_kernel(
+        *(jnp.asarray(a) for a in (verts, ev, np.ones(8, bool),
+                                   np.ones(8, np.uint8), oid, qv, qe)),
+        0.05, k=8, num_segments=64, obj_polygonal=True,
+        query_polygonal=True)
+    assert res.dist.dtype == torch.float64 and int(res.num_valid) == 7
+    assert np.array_equal(res.segment.numpy(), np.asarray(jres.segment))
+    assert res.dist[7] == np.asarray(jres.dist)[7] == big
+
+
+def test_an_empty_window_is_float64(x64):
+    from spatialflink_tpu_torch.ops import knn as tknn
+    from spatialflink_tpu_torch.ops import range as tr
+
+    z = torch.zeros((0, 8, 2), dtype=torch.float64)
+    ze = torch.zeros((0, 7), dtype=torch.bool)
+    qv = torch.zeros((1, 2, 2), dtype=torch.float64)
+    qe = torch.ones((1, 1), dtype=torch.bool)
+    flags = torch.zeros(0, dtype=torch.uint8)
+    keep, dist = tr.geometry_range_query_kernel(
+        z, ze, torch.zeros(0, dtype=torch.bool), flags, qv, qe, 0.01)
+    assert dist.dtype == torch.float64 and keep.shape == dist.shape == (0,)
+    res = tknn.knn_geometry_query_kernel(
+        z, ze, torch.zeros(0, dtype=torch.bool), flags,
+        torch.zeros(0, dtype=torch.int32), qv[0], qe[0], 0.01, 4, 64)
+    assert res.dist.dtype == torch.float64 and int(res.num_valid) == 0
+    assert torch.all(res.dist == torch.finfo(torch.float64).max)
+    # An empty window of the operators: the JAX empties.
+    from spatialflink_tpu_torch.operators import PolygonPolygonRangeQuery
+
+    op = PolygonPolygonRangeQuery(QueryConfiguration(), UniformGrid(
+        **BEIJING), device="cpu")
+    assert list(op.run_soa([], [Polygon(obj_id="q", rings=[
+        np.array([[116.3, 40.1], [116.5, 40.1], [116.5, 40.3],
+                  [116.3, 40.1]])])], 0.01)) == []
+
+
+def test_a_pane_carry_across_an_empty_pane_is_float64(x64):
+    """An empty pane merges as ``finfo(float64).max`` (the JAX float64
+    empty digest), so padding slots and absent objects stay at the
+    float64 sentinel; the operator across a gap equals the JAX one."""
+    from spatialflink_tpu.ops import knn as jknn
+
+    from spatialflink_tpu_torch.ops.knn import (
+        empty_digest,
+        knn_merge_digest_list,
+    )
+
+    big = np.finfo(np.float64).max
+    emt = empty_digest(64, "cpu", torch.float64)
+    assert emt.seg_min.dtype == torch.float64
+    assert torch.all(emt.seg_min == big)
+    rng = np.random.default_rng(96)
+    live = np.full(64, big)
+    live[rng.choice(64, 5, replace=False)] = rng.uniform(0, 0.01, 5)
+    rep = np.where(live < big, np.arange(64), np.iinfo(np.int32).max
+                   ).astype(np.int32)
+    got = knn_merge_digest_list(
+        [emt.seg_min, torch.from_numpy(live)],
+        [emt.rep, torch.from_numpy(rep)], None, 8)
+    want = jknn.knn_merge_digest_list(
+        (jnp.full(64, big, jnp.float64), jnp.asarray(live)),
+        (jnp.full(64, np.iinfo(np.int32).max, jnp.int32), jnp.asarray(rep)),
+        np.zeros(2, np.int32), k=8)
+    assert got.dist.dtype == torch.float64
+    assert np.array_equal(_bits(got.dist.numpy()), _bits(want.dist))
+    assert np.array_equal(got.segment.numpy(), np.asarray(want.segment))
+    assert got.dist[5:].eq(big).all()
+    # The operator over a stream with a gap: empty panes in the carry.
+    xy = TKP._xy(rng, 400)
+    pts, jpts = TKP._points(xy, 200)
+    keep = [i for i, p in enumerate(pts) if not 500 <= p.timestamp < 1500]
+    pts = [pts[i] for i in keep]
+    jpts = [jpts[i] for i in keep]
+    conf = dict(window_size=2.0, slide_step=0.5)
+    op, jop = TKP._ops("polygon", conf)
+    q, jq = TKP._query("polygon")
+    got = list(op.query_panes(iter(pts), q, TKP.R, 10))
+    want = list(jop.query_panes(iter(jpts), jq, TKP.R, 10))
+    assert len(got) == len(want) and got
+    for g, w in zip(got, want):
+        assert [n[0] for n in g.neighbors] == [n[0] for n in w.neighbors]
+        assert _within([n[1] for n in g.neighbors],
+                       [n[1] for n in w.neighbors], GEOM_ATOL)
+    assert None in op._pane_carry.values() or any(
+        not w.neighbors for w in got)
+
+
+def test_float64_merge_keeps_the_jax_tie_order(x64):
+    """Equal float64 minima across panes and segments: the merge's top-k
+    puts the lowest segment first, as the JAX ``lax.top_k`` does, with
+    the lowest representative at each minimum."""
+    from spatialflink_tpu.ops import knn as jknn
+
+    from spatialflink_tpu_torch.ops.knn import knn_merge_digest_list
+
+    rng = np.random.default_rng(100)
+    big = np.finfo(np.float64).max
+    ties = np.float64(0.01) + np.spacing(0.01) * rng.integers(0, 3, (3, 64))
+    seg = np.where(rng.random((3, 64)) < 0.7, ties, big)
+    rep = np.where(seg < big, rng.integers(0, 500, (3, 64)),
+                   np.iinfo(np.int32).max).astype(np.int32)
+    bases = np.array([0, 500, 1000], np.int32)
+    got = knn_merge_digest_list([torch.from_numpy(a) for a in seg],
+                                [torch.from_numpy(a) for a in rep], bases,
+                                20)
+    want = jknn.knn_merge_digest_list(tuple(jnp.asarray(a) for a in seg),
+                                      tuple(jnp.asarray(a) for a in rep),
+                                      bases, k=20)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+    assert got.dist.dtype == torch.float64
+    assert len(set(got.dist.numpy().tolist())) < 20  # ties were there
+
+
+# ---------------------------------------------------------------------------
+# Resume: the float64 pane carries through checkpoint.py and state.py
+
+
+def _resume_roundtrip(op, path):
+    from spatialflink_tpu_torch.checkpoint import (
+        load_checkpoint,
+        operator_state,
+        save_checkpoint,
+    )
+
+    save_checkpoint(path, op=operator_state(op))
+    return load_checkpoint(path)["op"]
+
+
+def test_knn_query_panes_resumes_in_float64(x64, tmp_path):
+    from spatialflink_tpu_torch.checkpoint import restore_operator
+
+    rng = np.random.default_rng(97)
+    pts, _ = TKP._points(TKP._xy(rng, 900), 200)
+    q, _ = TKP._query("polygon")
+    conf = dict(window_size=2.0, slide_step=0.5)
+
+    def key(res):
+        return [(w.start, w.end, [(n[0], n[1], n[2].obj_id)
+                                  for n in w.neighbors]) for w in res]
+
+    base_op, _ = TKP._ops("polygon", conf)
+    baseline = key(base_op.query_panes(iter(pts), q, TKP.R, 10))
+    op1, _ = TKP._ops("polygon", conf)
+    part1 = key(op1.query_panes(iter(pts[:500]), q, TKP.R, 10,
+                                flush_at_end=False))
+    state = _resume_roundtrip(op1, str(tmp_path / "knn.ckpt"))
+    saved = [v[1] for v in state["knn_pane_carry"].values()
+             if v is not None]
+    assert saved and all(s.dtype == np.float64 for s in saved)
+    op2, _ = TKP._ops("polygon", conf)
+    restore_operator(op2, state)
+    assert all(e[1].dtype == torch.float64
+               for e in op2._pane_carry.values() if e is not None)
+    part2 = key(op2.query_panes(iter(pts[500:]), q, TKP.R, 10))
+    assert part1 and part2 and part1 + part2 == baseline
+
+
+def test_knn_run_soa_panes_resumes_in_float64(x64, tmp_path):
+    from spatialflink_tpu_torch.checkpoint import restore_operator
+
+    rng = np.random.default_rng(98)
+    _, chunks = TKP._soa_chunks(rng, 900, 300, n_chunks=6)
+    q, _ = TKP._query("point")
+    conf = dict(window_size=1.0, slide_step=0.5)
+
+    def key(res):
+        return [(w[0], w[1], w[2].tolist(), _bits(w[3]).tolist(), w[4])
+                for w in res]
+
+    base_op, _ = TKP._ops("point", conf)
+    baseline = key(base_op.run_soa_panes(chunks, q, TKP.R, 10, TKP.NSEG))
+    op1, _ = TKP._ops("point", conf)
+    part1 = key(op1.run_soa_panes(chunks[:3], q, TKP.R, 10, TKP.NSEG,
+                                  flush_at_end=False))
+    state = _resume_roundtrip(op1, str(tmp_path / "soa.ckpt"))
+    op2, _ = TKP._ops("point", conf)
+    restore_operator(op2, state)
+    assert all(e[0].dtype == torch.float64
+               for e in op2._pane_carry_soa.values() if e is not None)
+    part2 = key(op2.run_soa_panes(chunks[3:], q, TKP.R, 10, TKP.NSEG))
+    assert part1 and part2 and part1 + part2 == baseline
+
+
+def test_a_jax_float64_carry_stays_float64(x64):
+    """A JAX ``query_panes`` run in float64 (its default dtype under x64)
+    cut with ``flush_at_end=False``; its carry moved to a port operator
+    through ``state.pane_carry_from_jax`` stays float64, bit for bit, and
+    continues the JAX windows."""
+    from spatialflink_tpu_torch.state import (
+        interner_from_jax,
+        pane_carry_from_jax,
+    )
+
+    rng = np.random.default_rng(99)
+    pts, jpts = TKP._points(TKP._xy(rng, 1000), 200)
+    conf = dict(window_size=2.0, slide_step=1.0)
+    q, jq = TKP._query("polygon")
+    _, full_op = TKP._ops("polygon", conf)
+    full = list(full_op.query_panes(iter(jpts), jq, TKP.R, 10))
+    _, jop = TKP._ops("polygon", conf)
+    head = list(jop.query_panes(iter([p for p in jpts if p.timestamp < 3200]),
+                                jq, TKP.R, 10, flush_at_end=False))
+    assert [w.end for w in head] == [1000, 2000, 3000]
+    op, _ = TKP._ops("polygon", conf)
+    op.interner = interner_from_jax(jop)
+    op._pane_carry, _ = pane_carry_from_jax(jop, device="cpu")
+    _, sm, _, _ = op._pane_carry[1000]
+    assert sm.dtype == torch.float64
+    assert np.array_equal(_bits(sm.numpy()),
+                          _bits(np.asarray(jop._pane_carry[1000][1])))
+    got = list(op.query_panes(iter([p for p in pts if p.timestamp >= 2000]),
+                              q, TKP.R, 10))
+    tail = [w for w in full if w.start >= 2000]
+    assert len(got[1:]) == len(tail) and tail
+    for g, w in zip(got[1:], tail):
+        assert [n[0] for n in g.neighbors] == [n[0] for n in w.neighbors]
+        assert _within([n[1] for n in g.neighbors],
+                       [n[1] for n in w.neighbors], GEOM_ATOL)
+
+
 # ---------------------------------------------------------------------------
 # B4's and B3's plain float64 versions against the JAX functions, eager
 
@@ -598,12 +1404,13 @@ def test_x64_off_or_float32_gives_todays_float32_results():
 
 
 # ---------------------------------------------------------------------------
-# x64 on: every entry point outside the slice raises, naming A14.2
+# The 65 entry points that raised in float64 before A14.2a: the 45 it
+# ports run in float64; the 20 of A14.2b still raise, naming A14.2
 
 
 def _a14_2_calls():
-    """(label, call) of every entry point whose float64 route is ROADMAP
-    item A14.2, each called as a user would (streams empty: the refusal
+    """(label, call) of every entry point whose float64 route was ROADMAP
+    item A14.2, each called as a user would on empty streams (a refusal
     comes first)."""
     from spatialflink_tpu_torch import operators as ops
     from spatialflink_tpu_torch.ops.tjoin_panes import tjoin_pane_init
@@ -711,7 +1518,150 @@ def _a14_2_calls():
     return calls
 
 
-A14_2 = _a14_2_calls()
+A14_2_CALLS = _a14_2_calls()
+#: The radius of the float64 runs of the slice's calls on tiny streams.
+TINY_R = 0.2
+
+
+def _tiny_data():
+    """Tiny non-empty streams for the slice's calls: three polygons and
+    three linestrings 0.003 right of the query square's and the query
+    line's right edge, three points beside them, all in one window."""
+    xs = 116.503 + 0.001 * np.arange(3)
+    sq = [np.array([[x, 40.199], [x + 4e-4, 40.199], [x + 4e-4, 40.201],
+                    [x, 40.201], [x, 40.199]]) for x in xs]
+    meta = [dict(obj_id=f"g{i}", timestamp=100 * i) for i in range(3)]
+    geoms = {
+        "Polygon": [Polygon(rings=[r], **m) for r, m in zip(sq, meta)],
+        "LineString": [LineString(coords=r[:3], **m)
+                       for r, m in zip(sq, meta)],
+    }
+    points = [Point(obj_id=f"p{i}", timestamp=100 * i + 50, x=x, y=40.2003)
+              for i, x in enumerate(xs)]
+    return geoms, points
+
+
+def _ragged(objs):
+    rows = [(o.timestamp, i, *o.packed()) for i, o in enumerate(objs)]
+    return [{"ts": np.array([r[0] for r in rows], np.int64),
+             "oid": np.array([r[1] for r in rows], np.int32),
+             "lengths": np.array([len(r[2]) for r in rows], np.int64),
+             "verts": np.concatenate([r[2] for r in rows]),
+             "edge_valid": np.concatenate([r[3] for r in rows])}]
+
+
+def _pts_chunks(points):
+    return [{"ts": np.array([p.timestamp for p in points], np.int64),
+             "x": np.array([p.x for p in points]),
+             "y": np.array([p.y for p in points]),
+             "oid": np.arange(len(points), dtype=np.int32)}]
+
+
+def _a14_2a_runs():
+    """(label, call) of every entry point this slice ports, each run as a
+    user would on a tiny non-empty stream; a call returns its windows'
+    distances: arrays where the path yields arrays, Python floats where
+    it yields objects."""
+    from spatialflink_tpu_torch import operators as ops
+
+    grid = UniformGrid(**BEIJING)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    ring = np.array([[116.3, 40.1], [116.5, 40.1], [116.5, 40.3],
+                     [116.3, 40.3], [116.3, 40.1]])
+    queries = {"Point": Point(obj_id="p", x=116.4, y=40.2),
+               "Polygon": Polygon(obj_id="q", rings=[ring]),
+               "LineString": LineString(obj_id="l", coords=ring[:3])}
+    geoms, points = _tiny_data()
+    r = TINY_R
+
+    def op(cls, **kw):
+        return getattr(ops, cls)(conf, grid, device="cpu", **kw)
+
+    def range_d(res):
+        return [d for w in res for d in w.dists]
+
+    def knn_d(res):
+        return [n[1] for w in res for n in w.neighbors]
+
+    def join_d(res):
+        return [d for w in res for *_, d in w.pairs]
+
+    runs = []
+    for s in ("Polygon", "LineString"):
+        for q, qobj in queries.items():
+            rcls, kcls = f"{s}{q}RangeQuery", f"{s}{q}KNNQuery"
+            runs += [
+                (f"{rcls}.run", lambda c=rcls, o=qobj, g=geoms[s]: range_d(
+                    op(c).run(iter(g), [o], r))),
+                (f"{rcls}.run_soa", lambda c=rcls, o=qobj, g=geoms[s]:
+                 np.concatenate([w[4] for w in op(c).run_soa(
+                     _ragged(g), [o], r)])),
+                (f"{kcls}.run", lambda c=kcls, o=qobj, g=geoms[s]: knn_d(
+                    op(c).run(iter(g), o, r, 3))),
+                (f"{kcls}.run_soa", lambda c=kcls, o=qobj, g=geoms[s]:
+                 np.concatenate([w[3] for w in op(c).run_soa(
+                     _ragged(g), o, r, 3, 64)])),
+            ]
+    for jcls in ("PointPolygonJoinQuery", "PointLineStringJoinQuery",
+                 "PolygonPointJoinQuery", "LineStringPointJoinQuery",
+                 "PolygonPolygonJoinQuery", "PolygonLineStringJoinQuery",
+                 "LineStringPolygonJoinQuery",
+                 "LineStringLineStringJoinQuery"):
+        kinds = [k for k in ("Point", "Polygon", "LineString")
+                 if jcls.startswith(k)]
+        left = kinds[0]
+        right = jcls[len(left):-len("JoinQuery")]
+        side = {"Point": points, **geoms}
+        # run_soa takes the point chunks first in every point class.
+        soa = [left, right] if left == "Point" or right != "Point" \
+            else [right, left]
+
+        def chunks(kind):
+            return _pts_chunks(points) if kind == "Point" \
+                else _ragged(geoms[kind])
+
+        runs += [
+            (f"{jcls}.run", lambda c=jcls, a=side[left], b=side[right]:
+             join_d(op(c).run(iter(a), iter(b), r))),
+            (f"{jcls}.run_soa", lambda c=jcls, a=soa[0], b=soa[1]:
+             np.concatenate([w[4] for w in op(c).run_soa(
+                 chunks(a), chunks(b), r)])),
+        ]
+    other = [Point(obj_id=f"o{i}", timestamp=p.timestamp, x=p.x + 0.01,
+                   y=p.y) for i, p in enumerate(points)]
+    runs += [
+        # One neighbour layer: the grid join's plain version tests every
+        # slot pair of its planes, costly on the CPU at TINY_R's layers.
+        ("PointPointJoinQuery.query_panes", lambda: join_d(
+            op("PointPointJoinQuery", cap=8).query_panes(
+                iter(points), iter(other), 0.02))),
+        ("PointPointKNNQuery.query_panes", lambda: knn_d(
+            op("PointPointKNNQuery").query_panes(iter(points),
+                                                 queries["Point"], r, 3))),
+        ("PointPolygonKNNQuery.query_panes", lambda: knn_d(
+            op("PointPolygonKNNQuery").query_panes(
+                iter(points), queries["Polygon"], r, 3))),
+        ("PointPointKNNQuery.run_soa_panes", lambda: np.concatenate(
+            [w[3] for w in op("PointPointKNNQuery").run_soa_panes(
+                _pts_chunks(points), queries["Point"], r, 3, 64)])),
+        ("PointPointKNNQuery.run_multi", lambda: [
+            n[1] for m in op("PointPointKNNQuery").run_multi(
+                iter(points), [queries["Point"]], r, 3)
+            for w in m.results for n in w.neighbors]),
+    ]
+    return runs
+
+
+A14_2A = _a14_2a_runs()
+#: The calls still refused in float64: ROADMAP item A14.2b.
+A14_2 = [c for c in A14_2_CALLS if c[0] not in {lb for lb, _ in A14_2A}]
+
+
+def test_the_65_calls_split_45_and_20():
+    labels = [c[0] for c in A14_2_CALLS]
+    assert len(labels) == len(set(labels)) == 65
+    assert len(A14_2A) == 45 and len(A14_2) == 20
+    assert {lb for lb, _ in A14_2A} <= set(labels)
 
 
 @pytest.mark.parametrize("label,call", A14_2, ids=[c[0] for c in A14_2])
@@ -720,14 +1670,29 @@ def test_entry_points_outside_the_slice_raise_in_float64(label, call, x64):
         call()
 
 
+@pytest.mark.parametrize("label,call", A14_2A, ids=[c[0] for c in A14_2A])
+def test_entry_points_of_the_slice_run_in_float64(label, call, x64):
+    """Each call ported by A14.2a, on a tiny non-empty stream in the
+    float64 mode: it runs, and its distances are float64 (an array's
+    dtype; for Python floats, some non-zero distance that no float32
+    holds)."""
+    out = call()
+    if isinstance(out, np.ndarray):
+        assert out.dtype == np.float64 and out.size > 0, label
+    else:
+        nonzero = [d for d in out if d != 0]
+        assert nonzero, label
+        assert any(float(np.float32(d)) != d for d in nonzero), label
+
+
 def test_they_run_as_before_with_x64_off():
-    """The same calls, x64 off: none raises (an empty stream, no
-    windows), apart from the two that need their real arguments."""
+    """All 65 calls, x64 off: none raises (an empty stream, no windows),
+    apart from the ones that need their real arguments."""
     needs_args = ("QServeOperator.serve_window", "PointPointRangeQuery."
                   "run_partitioned", "traj_stats_sliding (tStats panes)",
                   "tjoin_pane_init")
     ran = 0
-    for label, call in A14_2:
+    for label, call in A14_2_CALLS:
         if label in needs_args:
             continue
         out = call()
