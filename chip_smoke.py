@@ -238,7 +238,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ones, equal to the CPU run; then ``csv_source`` with
    ``parse_csv_point`` (2 x 20,000 ``Point``s, bad lines skipped) into
    ``run`` against the WKT-read polygons, and
-   ``SyntheticGpsSource`` at its defaults (600,000 events) into ``run``
+   ``SyntheticGpsSource`` at its default rate, cut to 12 s (240,000
+   events), into ``run``
    against 32 polygons, each equal to its CPU run; ``utm_forward``,
    ``utm_inverse`` and ``haversine_distance`` on 1,048,576 float64 points
    on the card within rtol 1e-12 of the host runs and a round trip within
@@ -274,9 +275,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    throughput left out), and a disabled run recording 0.
 31. the runtime layer (``telemetry.py``, ``faults.py``, ``ablation.py``)
    on the card: the headline ``run_wire_panes`` synchronous (B1) and
-   pipelined with the delta codec (B1, B2), ``PointPointKNNQuery.run_soa``
-   at suite config 2, ``PointPolygonRangeQuery.run_soa`` at config 3 (B4)
-   and ``PointPointJoinQuery.run_soa`` at config 4 (B3), each run warm,
+   pipelined with the delta codec (B1, B2; its first 8 of 21 panes),
+   ``PointPointKNNQuery.run_soa`` at suite config 2 (its first 10 of 25
+   panes), ``PointPolygonRangeQuery.run_soa`` at config 3 (B4; its first 4
+   of 10 windows) and ``PointPointJoinQuery.run_soa`` at config 4 (B3),
+   each run warm,
    then with telemetry disabled and enabled (a trace and a ledger stream
    written): every window bit-equal, the same count of synchronising
    calls (CUDA's sync debug mode), fetches equal to the operator's own,
@@ -523,9 +526,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    float64 launches and B4's, dense, at G = 1 and gathered, must move,
    and on the card the plain versions raise if a leg reaches them; (d)
    both float64 kernels' times, plain times and bounds (FP64 at 34
-   TFLOP/s), B4 also at the dense, G = 1 and join-tile shapes, added to
-   the JSON record as ``join_extract_f64`` and ``polyline_min_dist_f64``
-   (its ``shapes`` and ``launches_by_mode``).
+   TFLOP/s), B4 also at the dense, G = 1 and join-tile shapes, and B3 at
+   tJoin's (tjoin_10s_1s_sliding's window at 0: 204,800 points a side,
+   cap 64, r = 0.001; bit-exact against its plain version first), added
+   to the JSON record as ``join_extract_f64`` (its ``launches_tjoin`` and
+   ``shapes``) and ``polyline_min_dist_f64`` (its ``shapes`` and
+   ``launches_by_mode``); (e) the trajectory and serving slice in float64
+   on the card, one window a leg at full width: tJoin ``run_soa`` through
+   B3 at cap 64 (tjoin_10s_1s_sliding's window at 0), ``run`` and
+   ``run_single`` (phase 23's ``Point``s, their first window),
+   ``run_soa_panes`` on the device engine (tjoin_panes_10s_10ms cut to
+   100 panes a side), the tStats device pane engine (bench_tstats_pane's
+   1,000,000 points, uncut) and ``run_soa`` (its window at 0), tRange,
+   tKnn and tAggregate (SUM) ``run_soa`` (phase 25's streams, one window
+   each) and ``QServeOperator.run`` (qserve_1024q_mixed's first window),
+   each equal to its CPU run through the plain versions (float64
+   distances bit for bit, tStats sums within their float64 bounds); the
+   tJoin legs' float64 B3 launches must move, and no leg reaches a plain
+   version on the card.
 
 In the full run the heaviest CPU twins (phases 8, 12, 14, 20-23, 25, 26,
 38 and 40) run in two spawned worker processes of one torch thread each, at
@@ -715,8 +733,9 @@ TP_REPS = 3
 # shapefile; its 10 x 262,144 points as oid,ts,x,y CSV, oids over
 # TR_IDS); the CPU twin of the CSV run_soa compares its first
 # INGEST_CPU_WINDOWS windows (a cut: ~5 s a window on the host). The
-# synthetic GPS source runs at its defaults (20,000 events/s for 30 s,
-# 10 devices, seed 42) over the Beijing extent into
+# synthetic GPS source runs at its default rate (20,000 events/s, 10
+# devices, seed 42) for SYN_DURATION_MS of its default 30 s (a depth
+# cut) over the Beijing extent into
 # PointPolygonRangeQuery.run against config 3's first SYN_QUERIES
 # polygons, and feeds phase 28's stay time (10 s windows by 5 s, config
 # 3's grid) and pane aggregates (10 s by 10 ms, brute force on the first
@@ -726,6 +745,7 @@ TP_REPS = 3
 # missed event of either direction).
 INGEST_CPU_WINDOWS = 2
 SYN_QUERIES = 32
+SYN_DURATION_MS = 12_000  # the synthetic source's run: 12 of its 30 s
 CRS_POINTS = 1 << 20
 BELGIUM = (2.5, 6.4, 49.5, 51.5)
 CHECKIN_EVENTS = 1 << 20
@@ -4989,10 +5009,12 @@ def check_ingest(card, gpu="cuda"):
               f"polyline_min_dist={run_launches}; equal to the CPU run "
               f"({w_secs:.3f} s) [{card}]")
 
-    # The synthetic GPS source at its defaults into run.
+    # The synthetic GPS source at its default rate and devices into run,
+    # cut to SYN_DURATION_MS of its default 30 s.
     t0 = time.perf_counter()
     src = SyntheticGpsSource(BEIJING["min_x"], BEIJING["max_x"],
-                             BEIJING["min_y"], BEIJING["max_y"])
+                             BEIJING["min_y"], BEIJING["max_y"],
+                             duration_ms=SYN_DURATION_MS)
     gps = list(src)
     gen_secs = time.perf_counter() - t0
     polyline_min_dist.launches = 0
@@ -5527,6 +5549,9 @@ RT_B1_THIRD_CALL = 5     # device.dispatch hits: (B1 step, merge) a pane
 RT_HANG_S = 0.05
 RT_PROBES = 8
 RT_LINK_BYTES = 1 << 24  # the LinkProbe payload, 16 MiB
+RT_DELTA_PANES = 8       # the pipelined delta path's headline panes (of 21)
+RT_KNN_PANES = 10        # the kNN path's config 2 panes (of 25)
+RT_RANGE_WINDOWS = 4     # the range path's config 3 windows (of 10)
 
 
 def same_tree(a, b) -> bool:
@@ -5621,11 +5646,16 @@ def headline_bytes(panes, codec: bool):
 def runtime_paths(panes, wf, gpu="cuda"):
     """The five paths of phase 31: (label, run() → (windows, seconds),
     points, expected fetches for n windows, window span name or None,
-    timed off/on pairs: more for the short runs)."""
+    timed off/on pairs: more for the short runs). The pipelined delta,
+    kNN and range paths run depth cuts of their streams (the headline's
+    first ``RT_DELTA_PANES`` panes, config 2's first ``RT_KNN_PANES``,
+    config 3's first ``RT_RANGE_WINDOWS`` windows): what the phase checks
+    holds window by window."""
     from spatialflink_tpu_torch import operators as ops
 
-    chunks2 = pane_chunks()
-    chunks3 = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)
+    delta_panes = panes[:RT_DELTA_PANES]
+    chunks2 = pane_chunks()[:RT_KNN_PANES]
+    chunks3 = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)[:RT_RANGE_WINDOWS]
     polys = range_polygons()
     chunks4 = (soa_join_chunks(1), soa_join_chunks(2))
     lag = 2
@@ -5634,16 +5664,16 @@ def runtime_paths(panes, wf, gpu="cuda"):
          lambda: run_path(gpu, "sync", panes, wf)[:2],
          sum(p.shape[1] for p in panes), lambda n: 2 * n, None, 7),
         ("headline pipelined delta (B1, B2)",
-         lambda: run_path(gpu, "pipelined_delta", panes, wf)[:2],
-         sum(p.shape[1] for p in panes),
+         lambda: run_path(gpu, "pipelined_delta", delta_panes, wf)[:2],
+         sum(p.shape[1] for p in delta_panes),
          lambda n: n - min(n, lag) + (1 if n else 0), None, 3),
         ("kNN run_soa config 2",
          lambda: run_point_soa(gpu, "run_soa", chunks2),
-         PANE_PTS * PANES, lambda n: 2 * n, "window.knn_soa", 3),
+         PANE_PTS * RT_KNN_PANES, lambda n: 2 * n, "window.knn_soa", 3),
         ("range run_soa config 3 (B4)",
          lambda: run_range(gpu, ops.PointPolygonRangeQuery, chunks3,
                            polys, RANGE_R)[:2],
-         RANGE_WIN * RANGE_WINDOWS, lambda n: n, None, 3),
+         RANGE_WIN * RT_RANGE_WINDOWS, lambda n: n, None, 3),
         ("join run_soa config 4 (B3)",
          lambda: run_soa_path(gpu, chunks4),
          2 * JOIN_WIN * JOIN_WINDOWS, lambda n: n, None, 5),
@@ -5746,7 +5776,8 @@ def check_runtime(card, panes, wf, gpu="cuda"):
             raise AssertionError(f"{label}: {snap['d2h_transfers']} fetches, "
                                  f"the operator makes {fetches(len(got))}")
         if i < 2:
-            h2d, raw, coded = headline_bytes(panes, codec=i == 1)
+            h2d, raw, coded = headline_bytes(
+                panes[:RT_DELTA_PANES] if i == 1 else panes, codec=i == 1)
             if snap["bytes_h2d"] != h2d:
                 raise AssertionError(f"{label}: h2d {snap['bytes_h2d']} B, "
                                      f"computed {h2d} B")
@@ -9763,8 +9794,9 @@ def check_multihost(card, gpu="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Phase 40: the float64 mode (A14.1, A14.2a). With ``precision.x64(True)``
-# and the entry points' default dtype (float64), the operators ship raw
+# Phase 40: the float64 mode (A14.1, A14.2a, A14.2b). With
+# ``precision.x64(True)`` and the entry points' default dtype (float64),
+# the operators ship raw
 # float64 coordinates and run B3's and B4's float64 instantiations: 40a
 # holds B3's against its plain version at the join's full shape (config
 # 4: two 131,072-point sides, r = 0.002, cap 48, 262,144 pairs), with
@@ -9777,8 +9809,9 @@ def check_multihost(card, gpu="cuda"):
 # carry, phase 18's polygon query_panes, the 64-query run_multi, phase
 # 22's pane join) against the same runs on the CPU through the plain
 # versions, counting B3's and B4's float64 launches leg by leg and B4's
-# by mode; 40d times both kernels, B4 also at the dense, G = 1 and
-# join-tile shapes. The legs run in depth cuts (one window each, two for
+# by mode; 40e (below) the trajectory and serving slice; 40d times both
+# kernels, B4 also at the dense, G = 1 and join-tile shapes, B3 at
+# tJoin's. The legs run in depth cuts (one window each, two for
 # the kNN, the pane paths' first panes); their CPU runs are background
 # twins (``X64_TWINS``).
 
@@ -10194,6 +10227,319 @@ def b4_work(xy, verts, ev, sel):
     return nbytes, 20 * edges
 
 
+# 40e: the trajectory and serving slice (A14.2b) in float64, one leg a
+# family, each at full width in a one-window cut, on the card and on the
+# CPU through the plain versions: tJoin ``run_soa`` (tjoin_10s_1s_sliding's
+# window at 0, 204,800 points a side, cap 64, through B3's float64
+# instantiation), ``run`` and ``run_single`` (phase 23's ``Point``s, one
+# window), ``run_soa_panes`` on the device engine (phase 35a's cut of
+# tjoin_panes_10s_10ms), the tStats device pane engine (bench_tstats_pane,
+# uncut) and ``run_soa`` (its window at 0), tRange, tKnn and tAggregate
+# ``run_soa`` (phase 25's streams, one window each) and
+# ``QServeOperator.run`` (qserve_1024q_mixed's first window). Their CPU
+# runs are background twins (``X64E_TWINS``).
+
+#: The 40e legs by the CPU twin that runs them.
+X64E_TWINS = {"x64_traj": ("tjoin_soa", "tjoin_run", "tjoin_run_single",
+                           "tjoin_panes"),
+              "x64_traj_light": ("tstats_panes", "tstats_soa", "trange_soa",
+                                 "tknn_soa", "tagg_soa", "qserve")}
+#: The 40e legs whose B3 float64 launches must move.
+X64E_B3_LEGS = ("tjoin_soa", "tjoin_run", "tjoin_run_single")
+#: tKnn's and tAggregate's window: config 2's first PANE_WINDOW_S panes.
+X64E_PANE_WINDOW = int(PANE_WINDOW_S)
+
+
+@functools.lru_cache(maxsize=None)
+def _tjoin_sides():
+    return tjoin_chunks(31), tjoin_chunks(32)
+
+
+def x64e_inputs(legs=None):
+    """{leg: its inputs} of 40e's ``legs`` (all by default), built from
+    phases 23-26's, 34's and 35a's builders and cut to one window."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    def tjoin_soa():
+        # tjoin_10s_1s_sliding's window at 0: its first ten slides.
+        return tuple(c[:TJ_WINDOW_S] for c in _tjoin_sides())
+
+    def tjoin_run():
+        # Phase 23's Point streams, their first window of T_CUT.
+        return tuple(traj_points(c, T_CUT, T_CUT, side)
+                     for c, side in zip(_tjoin_sides(), ("l", "r")))
+
+    def tstats_soa():
+        ts, xy, oid = tstats_stream()
+        m = ts < TS_WINDOW_MS  # the 10 s / 1 s run's window at 0
+        return ([{"ts": ts[m], "x": xy[m, 0], "y": xy[m, 1],
+                  "oid": oid[m].astype(np.int32)}],)
+
+    def trange_soa():
+        chunks = range_chunks(RANGE_WINDOWS, RANGE_WIN, 7)[:1]
+        # Phase 25's ids: its generator's first draw is the first window's.
+        chunks[0]["oid"] = np.random.default_rng(77).integers(
+            0, TR_IDS, RANGE_WIN).astype(np.int32)
+        return chunks, range_polygons()[:TR_QUERIES]
+
+    def qserve_window():
+        # 34b's stream is built from its first QS_OP_WINDOWS windows of
+        # points; the leg serves the first window of it.
+        xy, oid = qserve_points()
+        n = QS_OP_WINDOWS * QS_WIN
+        return xy[:n], oid[:n]
+
+    builders = {
+        "tjoin_soa": tjoin_soa,
+        "tjoin_run": tjoin_run,
+        "tjoin_run_single": lambda: tjoin_run()[:1],
+        "tjoin_panes": lambda: tuple(tpanes_cut(tpanes_stream(),
+                                                JS_TJ_PANES)),
+        "tstats_panes": tstats_stream,
+        "tstats_soa": tstats_soa,
+        "trange_soa": trange_soa,
+        "tknn_soa": lambda: (pane_chunks()[:X64E_PANE_WINDOW],
+                             Point(x=QUERY[0], y=QUERY[1])),
+        "tagg_soa": lambda: (pane_chunks()[:X64E_PANE_WINDOW],),
+        "qserve": qserve_window,
+    }
+    return {leg: builders[leg]() for leg in (builders if legs is None
+                                              else legs)}
+
+
+def x64e_run(leg, device, inp):
+    """One 40e leg on ``device``, in the float64 mode at the entry
+    points' default dtype; the windows in comparable form, distances as
+    float64 bits (``x64_bits``), the tStats sums as arrays."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch import qserve
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.streams.panes import traj_stats_sliding
+
+    grid = UniformGrid(**BEIJING)
+
+    def conf(window, slide=None):
+        return ops.QueryConfiguration(window_size=window,
+                                      slide_step=slide or window)
+
+    def pair_rows(res):
+        return [(w.start, w.end, w.window_count,
+                 [(a.obj_id, b.obj_id, a.coords.tobytes(),
+                   b.coords.tobytes()) for a, b, _ in w.pairs],
+                 x64_bits([d for *_, d in w.pairs])) for w in res]
+
+    def soa_rows(res):
+        return [(w[0], w[1], w[2].tolist(), w[3].tolist(), x64_bits(w[4]),
+                 w[5], w[6]) for w in res]
+
+    if leg == "tjoin_soa":
+        op = ops.PointPointTJoinQuery(conf(TJ_WINDOW_S), grid, cap=TJ_CAP,
+                                      device=device)
+        return soa_rows(op.run_soa(*inp, TJ_R, TJ_IDS,
+                                   max_pairs=TJ_MAX_PAIRS))
+    if leg in ("tjoin_run", "tjoin_run_single"):
+        op = ops.PointPointTJoinQuery(conf(1.0), grid, cap=TJ_CAP,
+                                      device=device)
+        run = op.run if leg == "tjoin_run" else op.run_single
+        return pair_rows(run(*(iter(s) for s in inp), TJ_R))
+    if leg == "tjoin_panes":
+        op = ops.PointPointTJoinQuery(
+            conf(TP_PPW * TP_SLIDE_MS / 1000, TP_SLIDE_MS / 1000), grid,
+            device=device)
+        return soa_rows(op.run_soa_panes(*inp, TP_R, TP_IDS, cap_w=TP_CAP_W,
+                                         pair_sel=TP_PAIR_SEL,
+                                         backend="device"))
+    if leg == "tstats_panes":
+        res = traj_stats_sliding(*inp, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS,
+                                 backend="device", device=device)
+        if res.spatial.dtype != np.float64:
+            raise AssertionError(f"40e {leg}: {res.spatial.dtype} sums")
+        return res
+    if leg == "tstats_soa":
+        op = ops.PointTStatsQuery(conf(TS_WINDOW_MS / 1000), grid,
+                                  device=device)
+        out = list(op.run_soa(*inp, TS_BUCKET))
+        if any(w[2].dtype != np.float64 for w in out):
+            raise AssertionError(f"40e {leg}: float32 sums")
+        return [(w[0], w[1], w[2], w[3], w[4]) for w in out]
+    if leg == "trange_soa":
+        op = ops.PointPolygonTRangeQuery(conf(1.0), grid, device=device)
+        return [(w[0], w[1], w[2].tolist(), w[3])
+                for w in op.run_soa(*inp, TR_IDS)]
+    if leg == "tknn_soa":
+        op = ops.PointPointTKNNQuery(conf(PANE_WINDOW_S), grid,
+                                     device=device)
+        return [(w[0], w[1], w[2].tolist(), x64_bits(w[3]), w[4])
+                for w in op.run_soa(inp[0], inp[1], PANE_R, PANE_K,
+                                    NUM_SEGMENTS)]
+    if leg == "tagg_soa":
+        op = ops.PointTAggregateQuery(conf(PANE_WINDOW_S), grid,
+                                      aggregate="SUM", device=device)
+        return [(w.start, w.end, w.window_count, w.cells)
+                for w in op.run_soa(*inp)]
+    # qserve: the first window of 34b's stream, served in float64.
+    events = [e for e in qserve_command_stream(*inp) if e.timestamp < 1000]
+    op = qserve.QServeOperator(conf(1.0), grid, device=device)
+    try:
+        res = list(op.run(iter(events)))
+    finally:
+        qserve.uninstall()
+    return [(r.start, r.end, r.window_count, list(r.lines()),
+             x64_bits([row[4] for row in r.rows])) for r in res]
+
+
+def x64e_matches(leg, windows) -> int:
+    """A 40e leg's matches over its windows (pairs, hits, neighbours,
+    cells, egress rows, or the tStats windows' point count)."""
+    if leg == "tstats_panes":
+        return int(windows.count.sum())
+    if leg == "tstats_soa":
+        return int(sum(w[4].sum() for w in windows))
+    if leg in ("tjoin_soa", "tjoin_panes"):
+        return sum(w[5] for w in windows)
+    return sum(len(w[3] if leg in ("tjoin_run", "tjoin_run_single",
+                                   "qserve", "tagg_soa") else w[2])
+               for w in windows)
+
+
+def x64e_same(leg, got, want, inp):
+    """Whether a 40e leg's card windows equal its CPU run's: exactly, the
+    tStats spatial sums within their float64 bounds (``index_add_`` on
+    the card adds in another order)."""
+    from spatialflink_tpu_torch import precision
+    from spatialflink_tpu_torch.ops.trajectory import spatial_sum_bound
+    from spatialflink_tpu_torch.streams.panes import pane_spatial_bound
+
+    if leg == "tstats_panes":
+        with precision.x64(True):
+            bound = pane_spatial_bound(*inp, TS_BUCKET, TS_WINDOW_MS,
+                                       TS_SLIDE_MS)
+        check_pane_windows(got, want, bound, f"40e {leg}")
+        return True
+    if leg == "tstats_soa":
+        return len(got) == len(want) and all(
+            g[:2] == w[:2] and np.array_equal(g[3], w[3])
+            and np.array_equal(g[4], w[4])
+            and np.all(np.abs(g[2] - w[2]) <= spatial_sum_bound(
+                g[4], np.maximum(g[2], w[2]), np.float64))
+            for g, w in zip(got, want))
+    return got == want
+
+
+def x64e_legs(device, inputs, legs=None, on_leg=None):
+    """40e: ``x64_legs`` for the trajectory and serving legs. Returns
+    ({leg: windows}, the seconds of all, {leg: seconds})."""
+    import torch
+
+    from spatialflink_tpu_torch import precision
+
+    out, secs = {}, {}
+    for leg in (inputs if legs is None else legs):
+        if on_leg is not None:
+            on_leg(leg)
+        t0 = time.perf_counter()
+        with precision.x64(True):
+            out[leg] = x64e_run(leg, device, inputs[leg])
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        secs[leg] = time.perf_counter() - t0
+    return out, sum(secs.values()), secs
+
+
+def check_x64e(gpu, card):
+    """40e on the card (``gpu``), its CPU runs in the twins, compared
+    later. Returns the B3 float64 launches of its legs."""
+    t0 = time.perf_counter()
+    inputs = x64e_inputs()
+    in_secs = time.perf_counter() - t0
+    with X64Launches(gpu) as xl:
+        got, _, g_secs = x64e_legs(gpu, inputs, on_leg=xl.on_leg)
+    short = [leg for leg in X64E_B3_LEGS
+             if xl.by_leg[leg]["join_extract"] < 1]
+    if short or any(c["polyline_min_dist"] for c in xl.by_leg.values()):
+        raise AssertionError(f"40e: float64 B3 launches short on {short}, "
+                             f"or B4 reached: {xl.by_leg}")
+    for leg, windows in got.items():
+        if not x64e_matches(leg, windows):
+            raise AssertionError(f"40e {leg}: no match")
+    b3 = sum(xl.by_leg[leg]["join_extract"] for leg in X64E_B3_LEGS)
+    print("x64 40e legs (precision.x64(True), the default dtype float64) on "
+          "the card: " + ", ".join(
+              f"{leg} {x64e_matches(leg, got[leg])} matches in "
+              f"{g_secs[leg]:.3f} s" for leg in got)
+          + f"; float64 B3 launches " + ", ".join(
+              f"{leg} {xl.by_leg[leg]['join_extract']}"
+              for leg in X64E_B3_LEGS)
+          + f"; inputs {in_secs:.3f} s"
+          + ("; no plain version reached" if gpu == "cuda" else "")
+          + f" [{card}]")
+    if sorted(leg for legs in X64E_TWINS.values() for leg in legs) != \
+            sorted(inputs):
+        raise AssertionError("40e: a leg without its CPU twin")
+    for name, legs in X64E_TWINS.items():
+        def held_twin(name=name, legs=legs):
+            want, _, w_secs = twin(name, *(inputs[leg] for leg in legs))
+            for leg in legs:
+                if not x64e_same(leg, got[leg], want[leg], inputs[leg]):
+                    raise AssertionError(f"40e x64 {leg}: the card's windows "
+                                         f"differ from the CPU's")
+            print("exact x64 40e legs ("
+                  + ", ".join(f"{leg} {x64e_matches(leg, got[leg])} matches,"
+                              f" {g_secs[leg]:.3f} s on the card, "
+                              f"{w_secs[leg]:.3f} s on the CPU"
+                              for leg in legs)
+                  + f"): equal to the CPU run through the plain versions "
+                  f"(the CPU twin {name}), float64 distances bit for bit, "
+                  f"tStats sums within their float64 bounds [{card}]")
+        later(held_twin)
+    return b3, got
+
+
+def x64e_tjoin_shape(dev, card):
+    """40d at tJoin's shape: B3's float64 instantiation on the planes of
+    tjoin_10s_1s_sliding's window at 0 (204,800 points a side, grid 100,
+    one layer, cap 64, r = 0.001), bit-exact against its plain version,
+    then timed beside it and its bound. Returns its row."""
+    import torch
+
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+    )
+
+    grid = UniformGrid(**BEIJING)
+    sides = [x64_side(grid, np.stack([np.concatenate([c["x"] for c in side]),
+                                      np.concatenate([c["y"] for c in side])],
+                                     axis=1))
+             for side in x64e_inputs(["tjoin_soa"])["tjoin_soa"]]
+    head, planes, over, err = join_case(dev, grid, *sides, TJ_R,
+                                        TJ_MAX_PAIRS, card, "f64_tjoin_cap64",
+                                        cap=TJ_CAP)
+    if over or planes[0].dtype != torch.float64:
+        raise AssertionError(f"B3 f64 at tJoin's shape: overflow {over}, "
+                             f"{planes[0].dtype} planes")
+    args = (*planes, grid.n, 1, TJ_R, TJ_MAX_PAIRS)
+    ms, call = time_ms(lambda: join_extract_cuda(*args))
+    plain, _ = time_ms(lambda: join_extract_plain(*args), X64_PLAIN_REPEATS)
+    tests = join_candidate_pairs(grid, *sides, cap=TJ_CAP)
+    nbytes = sum(t.numel() * t.element_size() for t in planes) \
+        + 16 * TJ_MAX_PAIRS + 4
+    bnd, by_ = bound_ms(nbytes, 6 * tests, F64_OPS_PER_S)
+    print(f"time join_extract_f64 at tJoin's shape (tjoin_10s_1s_sliding's "
+          f"window at 0: {len(sides[0][0])} points a side, grid "
+          f"{grid.n}, cap {TJ_CAP}, r={TJ_R}, {int(head[3])} pairs): kernel "
+          f"{ms:.6f} ms device ({call:.6f} ms per call with its launches), "
+          f"plain PyTorch {plain:.6f} ms, bound {bnd:.6f} ms ({by_}: "
+          f"{nbytes} B, {tests} candidate pair tests x 6 float64 "
+          f"operations at {F64_OPS_PER_S:g}/s), library none, medians of "
+          f"{REPEATS} calls (the plain version's of {X64_PLAIN_REPEATS}) "
+          f"[{card}]")
+    return {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
+            "bound_by": by_, "points": int(len(sides[0][0])), "cap": TJ_CAP,
+            "pairs": int(head[3]), "max_abs_err": err}
+
+
 def check_x64(dev, card, gpu="cuda"):
     """Phase 40: the float64 mode on the card (``--x64-only`` runs it
     alone). Returns the float64 kernels' rows of the ``kernels`` record.
@@ -10275,10 +10621,15 @@ def check_x64(dev, card, gpu="cuda"):
           + ("; no plain version reached" if gpu == "cuda" else "")
           + f" [{card}]")
     walls["c"] = time.perf_counter() - t0
+    # 40e: the trajectory and serving slice.
+    t0 = time.perf_counter()
+    tj_b3, tj_got = check_x64e(gpu, card)
+    walls["e"] = time.perf_counter() - t0
     rows = {}
     if gpu == "cuda":
         # 40d: the float64 kernels' times at the shapes of 40a and 40b,
-        # and B4 at the legs' dense, G = 1 and join-tile shapes.
+        # B3 also at tJoin's (cap 64), and B4 at the legs' dense, G = 1
+        # and join-tile shapes.
         t0 = time.perf_counter()
         b3 = (*planes, BEIJING["num_partitions"], 1, JOIN_R, JOIN_MAX_PAIRS)
         b3_ms, b3_call = time_ms(lambda: join_extract_cuda(*b3))
@@ -10291,6 +10642,7 @@ def check_x64(dev, card, gpu="cuda"):
         b4_ms, b4_call = time_ms(lambda: polyline_min_dist_cuda(*b4g))
         b4_plain, _ = time_ms(lambda: polyline_min_dist_plain(*b4g))
         b4_bound, b4_by = bound_ms(b4_bytes, b4_ops, F64_OPS_PER_S)
+        tj = x64e_tjoin_shape(dev, card)
         for name, ms, call, plain, bnd, by_, nb, no, shape in (
                 ("join_extract_f64", b3_ms, b3_call, b3_plain, b3_bound,
                  b3_by, b3_bytes, 6 * pair_tests, "the join's full shape"),
@@ -10333,12 +10685,14 @@ def check_x64(dev, card, gpu="cuda"):
                 "source": "spatialflink_tpu_torch/kernels/csrc/"
                           "join_extract.cu",
                 "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
-                "launches": launches["join_extract_f64"],
+                "launches": launches["join_extract_f64"] + tj_b3,
                 "launches_query_panes":
                     xl.by_leg["pp_query_panes"]["join_extract"],
-                "max_abs_err": err3, "ms": b3_ms, "plain_ms": b3_plain,
-                "bound_ms": b3_bound, "bound_by": b3_by,
-                "library_ms": None, "dtype": "float64"},
+                "launches_tjoin": tj_b3,
+                "max_abs_err": max(err3, tj["max_abs_err"]), "ms": b3_ms,
+                "plain_ms": b3_plain, "bound_ms": b3_bound,
+                "bound_by": b3_by, "library_ms": None, "dtype": "float64",
+                "shapes": {"tjoin_window": {**tj, "launches": tj_b3}}},
             "polyline_min_dist_f64": {
                 "name": "polyline_min_dist_f64", "route": "cuda",
                 "source": "spatialflink_tpu_torch/kernels/csrc/"
@@ -10469,6 +10823,14 @@ def twin_x64(name):
             x64_legs("cpu", inputs, legs))
 
 
+def twin_x64e(name):
+    """Phase 40e: the legs of ``X64E_TWINS[name]`` on the CPU."""
+    legs = X64E_TWINS[name]
+    inputs = x64e_inputs(legs)
+    return (digest(*(inputs[leg] for leg in legs)),
+            x64e_legs("cpu", inputs, legs))
+
+
 # The background twins, in the order the phases ask for them, but for
 # the longest, phase 40's polygon ⋈ polygon, queued first.
 TWINS = {"x64_gg": functools.partial(twin_x64, "x64_gg"),
@@ -10483,7 +10845,9 @@ TWINS = {"x64_gg": functools.partial(twin_x64, "x64_gg"),
          "halo_range": twin_halo_range, "halo_registry": twin_halo_registry,
          "x64": functools.partial(twin_x64, "x64"),
          "x64_geometry": functools.partial(twin_x64, "x64_geometry"),
-         "x64_light": functools.partial(twin_x64, "x64_light")}
+         "x64_light": functools.partial(twin_x64, "x64_light"),
+         "x64_traj": functools.partial(twin_x64e, "x64_traj"),
+         "x64_traj_light": functools.partial(twin_x64e, "x64_traj_light")}
 
 
 def run_domain_phases(card, gpu="cuda"):
@@ -10626,8 +10990,8 @@ def run(argv=None) -> int:
                          "programs on two gloo ranks of the card)")
     ap.add_argument("--x64-only", action="store_true",
                     help="phases 1-2 and 40 only (build, then the float64 "
-                         "mode: B3 and B4 in float64 and the slice's x64 "
-                         "run_soa paths)")
+                         "mode: B3 and B4 in float64 and every float64 "
+                         "path against the CPU)")
     ap.add_argument("--multihost-child", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--driver-child", metavar="DIR", default=None,

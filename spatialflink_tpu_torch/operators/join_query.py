@@ -28,7 +28,7 @@ Every entry point honours ``dtype`` by the JAX package's rule
 (``precision.py``): with ``dtype`` float64 and the float64 mode on, raw
 float64 points, vertices and boxes, and float64 distances (B3's and B4's
 float64 instantiations on the card); otherwise centred float32. A mesh
-run in float64 is ROADMAP item A14.2b and raises.
+run in float64 is ROADMAP item A14.2c and raises.
 """
 
 from __future__ import annotations
@@ -246,7 +246,7 @@ class PointPointJoinQuery(SpatialOperator):
         operator's): the grid join shards the left side over its ``data``
         axis (each shard through B3 on the card); the pairs are the
         unsharded run's as a set. A mesh in float64 raises
-        (ROADMAP A14.2b)."""
+        (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
@@ -760,7 +760,7 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         ``data`` axis, the geometries replicate
         (``sharded_point_geometry_join_pruned``); the pairs are the
         unsharded run's as a set, each shard's in its own order. A mesh in
-        float64 raises (ROADMAP A14.2b)."""
+        float64 raises (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
@@ -919,7 +919,7 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         mode (the module's note). ``mesh`` (default the operator's): the
         left side shards over its ``data`` axis; the pairs are the
         unsharded run's as a set. A mesh in float64 raises (ROADMAP
-        A14.2b)."""
+        A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)

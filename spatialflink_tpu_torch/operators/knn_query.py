@@ -24,7 +24,7 @@ float64 lanes (points, vertices, query boxes), float64 digests, pane
 carries and distances (B4's float64 instantiation for a polygon or
 linestring query and for both directions of a geometry stream);
 otherwise centred float32, as before. A mesh run in float64 is ROADMAP
-item A14.2b and raises. ``run_wire_panes`` takes no ``dtype``: its u16
+item A14.2c and raises. ``run_wire_panes`` takes no ``dtype``: its u16
 wire planes dequantize to float32 in either mode, as in the JAX
 package.
 """
@@ -172,7 +172,7 @@ class _PointStreamKNNQuery(SpatialOperator):
         the operator's): each window's points shard over its ``data``
         axis, each shard digests its points and the digests merge before
         the one top-k, with the unsharded result; a mesh in float64
-        raises (ROADMAP A14.2b)."""
+        raises (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         flags = flags_for_queries(self.grid, radius, [query_obj])
         from spatialflink_tpu_torch.driver import strict_driver
@@ -483,7 +483,7 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         ``query`` (``parallel/sharded.py:sharded_knn_multi``), with the
         unsharded results; the padded batch rounds up to a multiple of
         the query axis. ``dtype``: ``run``'s rule; a mesh in float64
-        raises (ROADMAP A14.2b)."""
+        raises (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         nq = len(query_points)
         if nq == 0:
@@ -1066,7 +1066,7 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         raises ``ValueError`` in that window, as the reference's top-k
         does. ``mesh`` (default the operator's): the objects shard over
         its ``data`` axis, with the unsharded result. ``dtype``: the
-        module's rule; a mesh in float64 raises (ROADMAP A14.2b)."""
+        module's rule; a mesh in float64 raises (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         evaluate = self._window_evaluator(query_obj, radius, k, mesh, dtype)
         for win in self.windows(stream):

@@ -21,7 +21,7 @@ lanes (points, or the vertices of the geometry streams and of the query
 set) are raw float64 coordinates and the kernels (B4's float64
 instantiation on the card) compare the radius and return distances in
 float64; otherwise centred float32, as before. ``run_partitioned`` and a
-mesh run in float64 are ROADMAP item A14.2b and raise.
+mesh run in float64 are ROADMAP item A14.2c and raise.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ class _PointStreamRangeQuery(SpatialOperator):
         with the float64 mode on computes in float64 (the module's note),
         float32 otherwise. ``mesh`` (default the operator's): the window
         kernels run sharded over its ``data`` axis, with the unsharded
-        results; a mesh in float64 raises (ROADMAP A14.2b)."""
+        results; a mesh in float64 raises (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
@@ -297,7 +297,7 @@ class _PointStreamRangeQuery(SpatialOperator):
         flag-table path only where an inactive pair ties the radius
         exactly (``ops/halo.py``). ``mesh``'s devices must be of the
         operator's device type. In float64 (``dtype`` float64, x64 on)
-        it raises (ROADMAP A14.2b)."""
+        it raises (ROADMAP A14.2c)."""
         require_f32(dtype, f"{type(self).__name__}.run_partitioned")
         if self.query_kind != "point":
             raise ValueError(
@@ -499,7 +499,7 @@ class _GeometryStreamRangeQuery(SpatialOperator):
         CountBased). ``dtype`` float64 with the float64 mode on computes
         in float64 (the module's note), float32 otherwise. ``mesh``
         (default the operator's): the objects shard over its ``data``
-        axis; a mesh in float64 raises (ROADMAP A14.2b)."""
+        axis; a mesh in float64 raises (ROADMAP A14.2c)."""
         mesh = self.run_mesh(mesh, dtype)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]

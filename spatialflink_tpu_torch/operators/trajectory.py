@@ -22,6 +22,15 @@ sub-trajectory LineStrings, per-cell aggregates, per-trajectory stats.
   numpy) run their window programs on the device; ``TFilterQuery`` is
   host code.
 
+Every entry point takes ``dtype`` (float64 by default) under the
+JAX package's rule (``precision.effective_f64``): with ``dtype``
+float64 and the float64 mode on, coordinates go to the device raw and
+uncentred in float64, and every distance, radius test, sentinel, carry
+and returned distance is float64, B3 running its float64 instantiation;
+otherwise the lanes are centred float32 (``operators/base.py:
+center_coords``). A ``mesh=`` run in float64 is ROADMAP item A14.2c and
+raises.
+
 ``TStatsQuery.run`` and ``TJoinQuery.run_soa_panes`` go through the
 dataflow driver (``driver.py``), as the JAX operators do;
 ``run_soa_panes(backend="native")`` runs the JAX package's C++ engine
@@ -81,7 +90,7 @@ from spatialflink_tpu_torch.ops.trajectory import (
     traj_stats_kernel,
     traj_stats_sorted_fused,
 )
-from spatialflink_tpu_torch.precision import require_f32
+from spatialflink_tpu_torch.precision import effective_f64
 from spatialflink_tpu_torch.ops.tjoin_panes import (
     pane_cell_ranks,
     tjoin_pane_init,
@@ -99,14 +108,15 @@ def _grown(count: int) -> int:
 
 def tjoin_pane_fields(grid, ts: np.ndarray, x: np.ndarray, y: np.ndarray,
                       oid: np.ndarray, slide_ms: int, p_first: int,
-                      n_slides: int, mesh=None):
+                      n_slides: int, mesh=None, dtype=np.float32):
     """One side's events → the engine's per-pane fields on the host.
 
     Events go to pane ``ts // slide_ms - p_first`` (rebased to 0: absolute
     epoch-ms pane indices overflow int32), stable in input order within a
     pane, padded to a power-of-two pane capacity of at least 8. Returns
-    ((x, y, xi, yi, cell, rank, oid, valid), each (n_slides, PC): centred
-    float32 coordinates (``center_coords``), int32 cell indices and
+    ((x, y, xi, yi, cell, rank, oid, valid), each (n_slides, PC): the
+    coordinates ``center_coords`` gives for ``dtype`` (centred float32,
+    or raw float64 in the float64 mode), int32 cell indices and
     ``pane_cell_ranks``, out-of-grid events invalid in cell 0; the event
     count of each pane; (pane, cell) of the in-grid events, the input of
     ``ops/compaction.py:max_window_cell_count``). Under a ``mesh`` the
@@ -123,14 +133,14 @@ def tjoin_pane_fields(grid, ts: np.ndarray, x: np.ndarray, y: np.ndarray,
         pc = -(-pc // nd) * nd
     starts = np.concatenate([[0], np.cumsum(counts)])
     lane = np.arange(len(ts)) - starts[pane_s]
-    cxy = center_coords(grid, np.stack([x, y], axis=1))
+    cxy = center_coords(grid, np.stack([x, y], axis=1), dtype)
     xi = np.floor((x - grid.min_x) / grid.cell_length).astype(np.int64)
     yi = np.floor((y - grid.min_y) / grid.cell_length).astype(np.int64)
     ing = (xi >= 0) & (xi < grid.n) & (yi >= 0) & (yi < grid.n)
     cell = np.where(ing, xi * grid.n + yi, 0).astype(np.int32)[order]
     ing = ing[order]
     out = []
-    for vals, dt in ((cxy[order, 0], np.float32), (cxy[order, 1], np.float32),
+    for vals, dt in ((cxy[order, 0], cxy.dtype), (cxy[order, 1], cxy.dtype),
                      (xi[order], np.int32), (yi[order], np.int32),
                      (cell, np.int32),
                      (pane_cell_ranks(pane_s, cell, valid=ing), np.int32),
@@ -162,10 +172,11 @@ class _TrajectoryOperator(SpatialOperator):
     def __init__(self, conf, grid, device="cuda", mesh=None):
         super().__init__(conf, grid, device=device, mesh=mesh)
 
-    def _window_lanes(self, batch: PointBatch):
-        """A point batch's centred float32 xy, valid, cell and oid lanes
-        on the device."""
-        return ship(center_coords(self.grid, batch.xy), batch.valid,
+    def _window_lanes(self, batch: PointBatch, dtype):
+        """A point batch's xy, valid, cell and oid lanes on the device, xy
+        as ``center_coords`` gives it for ``dtype`` (centred float32, or
+        raw float64 in the float64 mode)."""
+        return ship(center_coords(self.grid, batch.xy, dtype), batch.valid,
                     batch.cell, batch.oid, device=self.device).arrive()
 
 
@@ -187,25 +198,24 @@ class TRangeQuery(_TrajectoryOperator):
     (tRange/TRangeQuery.java:33-63, PointPolygonTRangeQuery.java:53-177).
     Containment is dense over the query set."""
 
-    def _queries(self, query_polygons):
+    def _queries(self, query_polygons, dtype):
         verts, ev = pack_query_geometries(query_polygons)
-        return (self.device_verts(verts),
+        return (self.device_verts(verts, dtype),
                 *ship(ev, device=self.device).arrive())
 
     def run(self, stream: Iterable[Point], query_polygons: Sequence[Polygon],
             dtype=np.float64, mesh=None) -> Iterator[TRangeResult]:
-        """One ``TRangeResult`` per fired window. ``dtype`` float64 with
-        the float64 mode on raises (ROADMAP A14.2b). ``mesh``
+        """One ``TRangeResult`` per fired window; the containment runs in
+        the lanes of ``dtype`` (float64 in the float64 mode). ``mesh``
         (default the operator's): the points shard over its ``data``
         axis and the per-trajectory hit flags combine (JAX's ``pmax``)."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
-        qv, qe = self._queries(query_polygons)
+        mesh = self.run_mesh(mesh, dtype)
+        qv, qe = self._queries(query_polygons, dtype)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
-            xy, valid, _, oid = self._window_lanes(batch)
+            xy, valid, _, oid = self._window_lanes(batch, dtype)
             hits = telemetry.fetch(window_program(
                 mesh, traj_range_hits_fused, (0, 1, 2), 5, reduce=True,
                 num_segments=nseg)(xy, valid, oid, qv, qe))
@@ -220,11 +230,11 @@ class TRangeQuery(_TrajectoryOperator):
                 num_segments: int, dtype=np.float64):
         """SoA path: point chunks ``{"ts", "x", "y", "oid"}`` (dense int32
         oids in [0, num_segments)) → per window ``(start, end, hit_oids,
-        window_count)``, with no per-object Python."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
-        qv, qe = self._queries(query_polygons)
+        window_count)``, with no per-object Python; ``dtype`` as in
+        ``run``."""
+        qv, qe = self._queries(query_polygons, dtype)
         for win, xy, valid, _, oid in soa_point_batches(self.grid, chunks,
-                                                        self.conf):
+                                                        self.conf, dtype):
             check_oid_range(oid[:win.count], num_segments)
             xy_d, valid_d, oid_d = ship(xy, valid, oid,
                                         device=self.device).arrive()
@@ -256,24 +266,24 @@ class TKNNQuery(_TrajectoryOperator):
     PointPointTKNNQuery.java:181-310). ``k`` above the window's bucketed
     segment count raises ``ValueError``, as the reference's top-k does."""
 
-    def _query(self, query_point, radius):
+    def _query(self, query_point, radius, dtype):
         flags = flags_for_queries(self.grid, radius, [query_point])
         (flags_d,) = ship(flags, device=self.device).arrive()
-        return flags_d, self.device_q([query_point.x, query_point.y])
+        return flags_d, self.device_q([query_point.x, query_point.y], dtype)
 
     def run(self, stream: Iterable[Point], query_point: Point, radius: float,
             k: int, dtype=np.float64, mesh=None) -> Iterator[TKnnResult]:
-        """One ``TKnnResult`` per fired window. ``mesh`` (default the
-        operator's): the points shard over its ``data`` axis and the
-        per-trajectory digests merge before the top-k."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
-        flags_d, q = self._query(query_point, radius)
+        """One ``TKnnResult`` per fired window, distances computed in the
+        lanes of ``dtype`` (float64 in the float64 mode). ``mesh``
+        (default the operator's): the points shard over its ``data`` axis
+        and the per-trajectory digests merge before the top-k."""
+        mesh = self.run_mesh(mesh, dtype)
+        flags_d, q = self._query(query_point, radius, dtype)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             nseg = next_bucket(max(self.interner.num_segments, 1),
                                minimum=64)
-            xy, valid, cell, oid = self._window_lanes(batch)
+            xy, valid, cell, oid = self._window_lanes(batch, dtype)
             res = window_program(
                 mesh, knn_points_fused, (0, 1, 2, 4), 7, topk=True, k=k,
                 num_segments=nseg)(xy, valid, cell, flags_d, oid, q, radius)
@@ -292,11 +302,11 @@ class TKNNQuery(_TrajectoryOperator):
                 num_segments: int, dtype=np.float64):
         """SoA path: per window, the k nearest trajectories as ``(start,
         end, oids, min_dists, num_valid)`` arrays: the kNN's per-objID
-        segment-min is the per-trajectory minimum distance."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
-        flags_d, q = self._query(query_point, radius)
+        segment-min is the per-trajectory minimum distance; the distances
+        are float64 in the float64 mode."""
+        flags_d, q = self._query(query_point, radius, dtype)
         for win, xy, valid, cell, oid in soa_point_batches(self.grid, chunks,
-                                                           self.conf):
+                                                           self.conf, dtype):
             xy_d, valid_d, cell_d, oid_d = ship(
                 xy, valid, cell, oid, device=self.device).arrive()
             res = jitted(knn_points_fused)(xy_d, valid_d, cell_d, flags_d,
@@ -362,7 +372,7 @@ class _PaneScan:
     the wrong ones); the rows equal the one scan's."""
 
     def __init__(self, device, lfields, rfields, radius, grid_n: int,
-                 layers: int, ppw: int, num_ids: int, mesh=None):
+                 layers: int, ppw: int, num_ids: int, mesh, dtype):
         # A mesh scan keeps its carry on the mesh's home device: its first
         # device, or this process's first on a mesh spanning processes.
         if mesh is not None:
@@ -375,12 +385,13 @@ class _PaneScan:
         self.n_slides = lfields[0].shape[0]
         self.radius, self.grid_n, self.layers = radius, grid_n, layers
         self.ppw, self.num_ids = ppw, num_ids
+        self.dtype = dtype
         self.pol = pipeline.policy()
         self._shipped = None
 
     def run(self, cap_w: int, pair_sel: int, cap_c: int):
         carry = tjoin_pane_init(self.grid_n * self.grid_n, cap_w, self.ppw,
-                                self.num_ids, device=self.device)
+                                self.num_ids, self.dtype, device=self.device)
         args = (self.radius, self.grid_n, cap_w, self.layers, self.ppw,
                 self.num_ids, pair_sel, cap_c)
         if self.pol is None or self.n_slides <= 1 or self.mesh is not None:
@@ -504,12 +515,12 @@ class TJoinQuery(_TrajectoryOperator):
             radius: float, dtype=np.float64,
             mesh=None) -> Iterator[TJoinResult]:
         """One ``TJoinResult`` per fired window of the two merged streams,
-        pairs sorted by (left objID, right objID, distance). ``dtype``
-        float64 with the float64 mode on raises (ROADMAP A14.2b).
-        ``mesh`` (default the operator's): the point join shards the left
-        side over its ``data`` axis (``grid_hash_join_batches``)."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
+        pairs sorted by (left objID, right objID, distance). The point
+        join runs in the lanes of ``dtype``: float64 in the float64 mode,
+        through B3's float64 instantiation on the card, its distances
+        float64. ``mesh`` (default the operator's): the point join shards
+        the left side over its ``data`` axis (``grid_hash_join_batches``)."""
+        mesh = self.run_mesh(mesh, dtype)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(stream, query_stream)
@@ -528,7 +539,7 @@ class TJoinQuery(_TrajectoryOperator):
             while True:
                 res = grid_hash_join_batches(
                     self.grid, lb, rb, radius, self.cap, self._max_pairs,
-                    self.device, mesh=mesh)
+                    self.device, mesh=mesh, dtype=dtype)
                 count = int(res.count)
                 if count <= self._max_pairs:
                     break
@@ -558,8 +569,7 @@ class TJoinQuery(_TrajectoryOperator):
 
     def run_single(self, stream, radius, dtype=np.float64):
         """Self-join: pairs within one stream, identity pairs excluded
-        (PointPointTJoinQuery.runSingle:57)."""
-        require_f32(dtype, f"{type(self).__name__}.run_single")
+        (PointPointTJoinQuery.runSingle:57); ``dtype`` as in ``run``."""
         events = list(stream)
         for res in self.run(iter(events), iter(list(events)), radius,
                             dtype=dtype):
@@ -577,14 +587,16 @@ class TJoinQuery(_TrajectoryOperator):
         point join through B3 and the trajectory-pair dedup on the
         device; the host relabels window-local ranks (one ``np.unique`` a
         side) and decodes the pair list, in ascending pair-key order.
-        Exact iff ``overflow == 0``. Windows align on the shared slide
-        grid; a one-sided window yields empty arrays (float32
-        distances) and zeros. The point-pair budget starts at
-        ``max_pairs`` and grows within the run."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
+        Exact iff ``overflow == 0``. The lanes, the join through B3 and
+        the distances are float64 in the float64 mode, float32 otherwise.
+        Windows align on the shared slide grid; a one-sided window yields
+        empty arrays (distances of that dtype) and zeros. The point-pair
+        budget starts at ``max_pairs`` and grows within the run."""
         layers = self.grid.candidate_layers(radius)
-        gen_l = soa_point_batches(self.grid, left_chunks, self.conf)
-        gen_r = soa_point_batches(self.grid, right_chunks, self.conf)
+        gen_l = soa_point_batches(self.grid, left_chunks, self.conf, dtype)
+        gen_r = soa_point_batches(self.grid, right_chunks, self.conf, dtype)
+        no_dist = np.empty(0, np.float64 if effective_f64(dtype)
+                           else np.float32)
         budget = max_pairs
         for kind, wl, wr in _aligned_soa_windows(
             gen_l, gen_r, lambda w: w[0].start, lambda w: w[0].start
@@ -592,7 +604,7 @@ class TJoinQuery(_TrajectoryOperator):
             if kind != "both":
                 w = wl[0] if kind == "left" else wr[0]
                 yield (w.start, w.end, np.empty(0, np.int32),
-                       np.empty(0, np.int32), np.empty(0, np.float32), 0, 0)
+                       np.empty(0, np.int32), no_dist.copy(), 0, 0)
                 continue
             win, lxy, lvalid, lcell, loid = wl
             rwin, rxy, rvalid, rcell, roid = wr
@@ -626,7 +638,7 @@ class TJoinQuery(_TrajectoryOperator):
 
     def _device_pane_scan(self, lfields, rfields, locc, rocc, radius,
                           layers, ppw, num_segments, cap_w, pair_sel,
-                          cap_c, mesh=None):
+                          cap_c, mesh, dtype):
         """``run_soa_panes``' device engine: the compacted probe's
         capacity planned on the host (``cap_c=None``), then the scan,
         again with a grown budget whenever a counter overflowed. Records
@@ -643,7 +655,7 @@ class TJoinQuery(_TrajectoryOperator):
             telemetry.record_compaction("tjoin_pane_scan", cap_c, occ)
         self.pane_occupancy, self.pane_scans = occ, []
         scan = _PaneScan(self.device, lfields, rfields, radius, self.grid.n,
-                         layers, ppw, num_segments, mesh=mesh)
+                         layers, ppw, num_segments, mesh, dtype)
         while True:
             cap_over, sel_over, cmp_over, wmins = scan.run(
                 cap_w, pair_sel, cap_c)
@@ -699,9 +711,10 @@ class TJoinQuery(_TrajectoryOperator):
         "native" the JAX package's C++ engine (``native/sfnative.cpp:
         sf_tjoin_panes``) on the host, exact by construction: no ranks,
         no ``pick_capacity``, no retry, a dense (n_slides, K²) minimum
-        matrix computed in float64 from the float32 centred
-        coordinates; it raises ``RuntimeError`` when the native library
-        is unavailable. "auto" follows the JAX rule with the card in the
+        matrix computed in float64 from the pane fields' coordinates
+        (centred float32, or raw float64 in the float64 mode); it raises
+        ``RuntimeError`` when the native library is unavailable. "auto"
+        follows the JAX rule with the card in the
         TPU's place: the native engine when the library is available
         and either the overload ``pane_backend`` rung says "native" or
         the operator's device is not CUDA, else the device engine (a
@@ -709,8 +722,11 @@ class TJoinQuery(_TrajectoryOperator):
         policy the device engine's scan
         runs in segments that ship ahead of their compute, each segment
         given its expiring panes, with results equal to the one scan.
-        ``dtype`` float64 with the float64 mode on raises (ROADMAP
-        A14.2b). ``mesh`` (default the operator's): probe-parallel device
+        ``dtype``: the JAX rule (``precision.effective_f64``); in the
+        float64 mode the pane fields are raw float64 coordinates and the
+        device engine's carry, radius test and minima float64. The
+        digest guard stays the JAX package's ppw·K²·4 bytes in either
+        dtype. ``mesh`` (default the operator's): probe-parallel device
         scans (``parallel/sharded.py:sharded_tjoin_pane_scan``), the pane
         capacity a multiple of its ``data`` axis; "auto" then takes the
         device engine and "native" raises ``ValueError``. Windows go out
@@ -718,8 +734,7 @@ class TJoinQuery(_TrajectoryOperator):
         ``driver=`` a checkpoint counts the windows emitted, and a resume
         over the replayed bounded chunks rescans and skips the committed
         prefix."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa_panes")
-        mesh = self.run_mesh(mesh)
+        mesh = self.run_mesh(mesh, dtype)
         conf = self.conf
         size, slide = conf.window_size_ms, conf.slide_step_ms
         if size % slide != 0:
@@ -777,9 +792,9 @@ class TJoinQuery(_TrajectoryOperator):
                     _overload.pane_backend() == "native"
                     or self.device.type != "cuda")
         lfields, lcounts, locc = tjoin_pane_fields(
-            g, lt, lx, ly, lo, slide, p_first, n_slides, mesh)
+            g, lt, lx, ly, lo, slide, p_first, n_slides, mesh, dtype)
         rfields, rcounts, rocc = tjoin_pane_fields(
-            g, rt, rx, ry, ro, slide, p_first, n_slides, mesh)
+            g, rt, rx, ry, ro, slide, p_first, n_slides, mesh, dtype)
         layers = g.candidate_layers(radius)
         if use_native:
             def flat(fields):
@@ -797,7 +812,7 @@ class TJoinQuery(_TrajectoryOperator):
         else:
             wmins = self._device_pane_scan(
                 lfields, rfields, locc, rocc, radius, layers, ppw,
-                num_segments, cap_w, pair_sel, cap_c, mesh)
+                num_segments, cap_w, pair_sel, cap_c, mesh, dtype)
 
         def rolling(counts):
             cc = np.concatenate([[0], np.cumsum(counts)])
@@ -873,11 +888,12 @@ class TAggregateQuery(_TrajectoryOperator):
 
     def run(self, stream: Iterable[Point], dtype=np.float64,
             mesh=None) -> Iterator[TAggregateResult]:
-        """One ``TAggregateResult`` per fired window. ``mesh`` (default the
+        """One ``TAggregateResult`` per fired window. The spans are
+        integers, which no coordinate reaches: ``dtype`` changes nothing
+        but a float64 mesh run's refusal. ``mesh`` (default the
         operator's): the points shard over its ``data`` axis and the
         (cell, objID) spans combine by min and max."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
+        mesh = self.run_mesh(mesh, dtype)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             self._ingest_window(batch.ts, batch.cell, batch.oid, batch.valid,
@@ -912,10 +928,9 @@ class TAggregateQuery(_TrajectoryOperator):
         """SoA path: point chunks ``{"ts", "x", "y", "oid"}`` (dense int32
         oids) → per window a ``TAggregateResult`` with the same state
         carry as ``run``; in ALL mode the trajectory keys are the dense
-        ids as strings."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
+        ids as strings; ``dtype`` as in ``run``."""
         for win, _, valid, cell, oid in soa_point_batches(self.grid, chunks,
-                                                          self.conf):
+                                                          self.conf, dtype):
             ts_p = pad_to_bucket(np.asarray(win.arrays["ts"], np.int64),
                                  len(valid))
             self._ingest_window(ts_p, cell, oid, valid, win.count)
@@ -1018,14 +1033,15 @@ class TStatsQuery(_TrajectoryOperator):
         numpy twin. The realtime walk mutates its running state as it
         goes, so it is never retried and has no twin. Without a driver,
         ``strict_driver()`` gives the plain window loop, errors
-        propagating. ``dtype`` float64 with the float64 mode on raises
-        (ROADMAP A14.2b). ``mesh`` (default the operator's): the
-        (objID, ts)-sorted points shard over its ``data`` axis with a
-        one-point halo (``parallel/sharded.py:sharded_traj_stats``):
-        counts and temporal sums exact, spatial sums reassociated within
+        propagating. The segment lengths and spatial sums are float64 in
+        the float64 mode (``dtype`` float64, x64 on), float32 from the
+        centred lanes otherwise; the numpy twin follows the same rule.
+        ``mesh`` (default the operator's): the (objID, ts)-sorted points
+        shard over its ``data`` axis with a one-point halo
+        (``parallel/sharded.py:sharded_traj_stats``): counts and temporal
+        sums exact, spatial sums reassociated within
         ``ops/trajectory.py:spatial_sum_bound``."""
-        require_f32(dtype, f"{type(self).__name__}.run")
-        mesh = self.run_mesh(mesh)
+        mesh = self.run_mesh(mesh, dtype)
         from spatialflink_tpu_torch.driver import strict_driver
 
         realtime = self.conf.query_type in (QueryType.RealTime,
@@ -1045,8 +1061,8 @@ class TStatsQuery(_TrajectoryOperator):
                 nseg = next_bucket(max(self.interner.num_segments, 1),
                                    minimum=64)
                 xy, ts, oid, valid = ship(
-                    center_coords(self.grid, batch.xy), batch.ts, batch.oid,
-                    batch.valid, device=self.device).arrive()
+                    center_coords(self.grid, batch.xy, dtype), batch.ts,
+                    batch.oid, batch.valid, device=self.device).arrive()
                 if mesh is not None:
                     from spatialflink_tpu_torch.parallel.sharded import (
                         sharded_traj_stats,
@@ -1066,7 +1082,7 @@ class TStatsQuery(_TrajectoryOperator):
             # A half-applied window must not re-run (double counting): a
             # configured driver never retries it and there is no twin.
             process.idempotent = False
-        fallback = None if realtime else self._numpy_window_process()
+        fallback = None if realtime else self._numpy_window_process(dtype)
         drv = driver if driver is not None else strict_driver()
         drv.bind(self, process, fallback=fallback)
         if self.conf.query_type == QueryType.CountBased:
@@ -1076,12 +1092,14 @@ class TStatsQuery(_TrajectoryOperator):
         else:
             yield from drv.run(stream)
 
-    def _numpy_window_process(self):
+    def _numpy_window_process(self, dtype=np.float32):
         """The numpy twin of the windowed device path: the driver's
-        failover route. The same (objID, ts) sort, the same centred
-        float32 coordinates and the same per-segment sums (float32
-        spatial lengths within ``ops/trajectory.py:spatial_sum_bound`` of
-        the device's, counts and int64 temporal sums exact)."""
+        failover route. The same (objID, ts) sort, the same coordinates
+        (``center_coords`` of ``dtype``: centred float32, or raw float64
+        in the float64 mode) and the same per-segment sums (spatial
+        lengths in that dtype within ``ops/trajectory.py:
+        spatial_sum_bound`` of the device's, counts and int64 temporal
+        sums exact)."""
 
         def process(win) -> TStatsResult:
             events = sorted(win.events, key=lambda p: (p.obj_id, p.timestamp))
@@ -1089,10 +1107,10 @@ class TStatsQuery(_TrajectoryOperator):
                                            dtype=np.float64)
             nseg = next_bucket(max(self.interner.num_segments, 1), minimum=64)
             n = len(events)
-            xy = center_coords(self.grid, batch.xy[:n])
+            xy = center_coords(self.grid, batch.xy[:n], dtype)
             oid = np.asarray(batch.oid[:n], np.int64)
             ts = np.asarray(batch.ts[:n], np.int64)
-            spatial = np.zeros(nseg, np.float32)
+            spatial = np.zeros(nseg, xy.dtype)
             temporal = np.zeros(nseg, np.int64)
             count = np.bincount(oid, minlength=nseg) if n else \
                 np.zeros(nseg, np.int64)
@@ -1123,11 +1141,12 @@ class TStatsQuery(_TrajectoryOperator):
     def run_soa(self, chunks, num_segments: int, dtype=np.float64):
         """SoA path: chunks ``{"ts", "x", "y", "oid"}`` → per window
         ``(start, end, spatial, temporal, count)`` arrays indexed by dense
-        oid (float32, int64 ms, int32). The (oid, ts) sort happens on the
-        device (``traj_stats_sorted_fused``)."""
-        require_f32(dtype, f"{type(self).__name__}.run_soa")
+        oid (float32, or float64 in the float64 mode; int64 ms; int32).
+        The (oid, ts) sort happens on the device
+        (``traj_stats_sorted_fused``); this path does not go through the
+        device pane engine and follows ``dtype``, not the mode alone."""
         for win, xy, valid, _, oid in soa_point_batches(self.grid, chunks,
-                                                        self.conf):
+                                                        self.conf, dtype):
             if counters.enabled and win.count > 1:
                 # One candidate distance per adjacent lane pair of the
                 # sorted window (masked across trajectory breaks).

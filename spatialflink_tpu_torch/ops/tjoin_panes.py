@@ -9,9 +9,10 @@ same names, keeps the window state on the device and joins only the new
 pane on each slide:
 
 - **Ring-buffer bucket planes**, one set a stream side: ``cap_w`` slots a
-  cell of x, y, oid and pane tag, and a write cursor a cell. A pane is
-  inserted with one scatter; expiry is lazy (a slot whose tag left the
-  window is dead, and is reused when the cursor comes round).
+  cell of x, y (in the carry's float dtype), oid and pane tag, and a
+  write cursor a cell. A pane is inserted with one scatter; expiry is
+  lazy (a slot whose tag left the window is dead, and is reused when the
+  cursor comes round).
 - **Min-pane-indexed pair digests**: row ``m % ppw`` of the digest ring
   holds, for each (left id, right id), the least point-pair distance
   among pairs whose earlier point lies in pane ``m``. A pair whose
@@ -44,9 +45,15 @@ waits for the device (the slide index is a host integer; the counters
 stay on the device until the caller reads them once). The step updates
 the carry's tensors in place. Scatters that JAX drops out of range
 (``mode="drop"``) land in one spare trailing slot of each target, which
-every read leaves out. Distances are ``sqrt_rn(dx·dx + dy·dy)`` in
-float32, correctly rounded on every device; the radius test compares
-d² with ``radius_sq_bound``, which gives the same mask.
+every read leaves out. Distances are ``sqrt_rn(dx·dx + dy·dy)`` in the
+carry's dtype, correctly rounded on every device; the radius test
+compares d² with ``radius_sq_bound`` of that dtype, which gives the same
+mask as comparing the root with the radius. The carry is float32 (the
+centred lanes), or float64 in the float64 mode (``precision.py``), as the
+JAX carry is float64 under x64: its coordinate planes, digests, block
+digests, radius and window minima are then float64. The mesh scan
+(``_scan_mesh``) is float32 only: a float64 carry on a mesh is ROADMAP
+item A14.2c and raises.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import torch
 
 from spatialflink_tpu_torch.ops.distances import sqrt_rn
 from spatialflink_tpu_torch.ops.select import first_k_prefix_indices
-from spatialflink_tpu_torch.precision import require_f32
+from spatialflink_tpu_torch.precision import effective_f64, not_ported
 
 #: Pane tag of a slot never written (far below any live window).
 EMPTY_TAG = -(1 << 30)
@@ -97,7 +104,7 @@ class TJoinPaneCarry(NamedTuple):
     and live counts ``cells + 1``, the digests ``ppw·K² + 1`` and the
     block digests ``(ppw / bs)·K² + 1``."""
 
-    lwx: torch.Tensor  # left window planes, float32
+    lwx: torch.Tensor  # left window planes, float32 (float64 in x64)
     lwy: torch.Tensor
     lwoid: torch.Tensor  # int32
     lwtag: torch.Tensor  # int32 pane index, EMPTY_TAG when never written
@@ -109,8 +116,8 @@ class TJoinPaneCarry(NamedTuple):
     rwtag: torch.Tensor
     rwcur: torch.Tensor
     rwlive: torch.Tensor
-    digests: torch.Tensor  # float32, rows m % ppw of K² pair minima
-    block_digests: torch.Tensor  # float32, row b: min of digest rows of b
+    digests: torch.Tensor  # rows m % ppw of K² pair minima, planes' dtype
+    block_digests: torch.Tensor  # row b: min of digest rows of block b
     cap_overflow: torch.Tensor  # () int32
     sel_overflow: torch.Tensor  # () int32
     cmp_overflow: torch.Tensor  # () int32: probed cell live > cap_c
@@ -131,11 +138,13 @@ def block_size(ppw: int) -> int:
 def tjoin_pane_init(num_cells: int, cap_w: int, ppw: int, num_ids: int,
                     dtype=None, device="cuda") -> TJoinPaneCarry:
     """A fresh carry on ``device``. ``num_ids``: the interned trajectory
-    ids (K), shared by both sides. The carry is float32: ``dtype`` None
-    or float32 takes it, and float64 (the JAX package's x64 carry) is
-    ROADMAP item A14.2b and raises."""
-    if dtype is not None and np.dtype(dtype) != np.float32:
-        require_f32(np.float64, "the pane-carry tJoin's float64 carry")
+    ids (K), shared by both sides. Its coordinate planes, digests and
+    block digests are float64 when ``dtype`` asks for float64 in the
+    float64 mode (``precision.effective_f64``: the JAX package's x64
+    carry), float32 otherwise (``dtype`` None, float32, or x64 off, as
+    ``jnp`` gives a float64 request without x64)."""
+    fdt = torch.float64 if dtype is not None and effective_f64(dtype) \
+        else torch.float32
     dev = torch.device(device)
     slots = num_cells * cap_w + 1
     p = num_ids * num_ids
@@ -144,7 +153,7 @@ def tjoin_pane_init(num_cells: int, cap_w: int, ppw: int, num_ids: int,
         return torch.zeros(n, dtype=dt, device=dev)
 
     def side():
-        return (zeros(slots, torch.float32), zeros(slots, torch.float32),
+        return (zeros(slots, fdt), zeros(slots, fdt),
                 zeros(slots, torch.int32),
                 torch.full((slots,), EMPTY_TAG, dtype=torch.int32,
                            device=dev),
@@ -154,8 +163,9 @@ def tjoin_pane_init(num_cells: int, cap_w: int, ppw: int, num_ids: int,
     inf = float("inf")
     return TJoinPaneCarry(
         *side(), *side(),
-        torch.full((ppw * p + 1,), inf, device=dev),
-        torch.full((ppw // block_size(ppw) * p + 1,), inf, device=dev),
+        torch.full((ppw * p + 1,), inf, dtype=fdt, device=dev),
+        torch.full((ppw // block_size(ppw) * p + 1,), inf, dtype=fdt,
+                   device=dev),
         zeros((), torch.int32), zeros((), torch.int32),
         zeros((), torch.int32),
     )
@@ -211,17 +221,19 @@ def _digest_keys(st, so, poid, count, swap_pair: bool, ppw: int,
     return torch.where(svalid, flat, ppw * p).reshape(-1)
 
 
-def radius_sq_bound(radius) -> float:
-    """The largest float32 d² whose correctly rounded root is at most the
-    float32 radius. The rounded root is nondecreasing, so ``sqrt_rn(d2)
-    <= r`` exactly when ``d2 <= radius_sq_bound(r)``: the probes test d²
-    against it and take roots at the selected lanes only."""
-    r = np.float32(radius)
+def radius_sq_bound(radius, dtype=np.float32) -> float:
+    """The largest d² in ``dtype`` (float32 by default, or float64) whose
+    correctly rounded root is at most the radius rounded to ``dtype``.
+    The rounded root is nondecreasing, so ``sqrt_rn(d2) <= r`` exactly
+    when ``d2 <= radius_sq_bound(r, dtype)``: the probes test d² against
+    it and take roots at the selected lanes only."""
+    ft = np.dtype(dtype).type
+    r = ft(radius)
     if not r >= 0:  # negative or NaN: no distance is within it
         return -1.0
     if np.isinf(r):
         return float("inf")
-    up, down = np.float32(np.inf), np.float32(0)
+    up, down = ft(np.inf), ft(0)
     x = r * r
     while np.sqrt(x) > r:
         x = np.nextafter(x, down)
@@ -230,8 +242,13 @@ def radius_sq_bound(radius) -> float:
     return float(x)
 
 
+def _np_dtype(t: torch.Tensor):
+    """The numpy float type of a float32 or float64 tensor."""
+    return np.float64 if t.dtype == torch.float64 else np.float32
+
+
 def _d2(gx, gy, px, py):
-    """dx·dx + dy·dy in float32, one rounding an operation, in the
+    """dx·dx + dy·dy in the planes' dtype, one rounding an operation, in the
     gathered ``gx`` and ``gy`` (fresh tensors, overwritten)."""
     gx.sub_(px[:, None, None]).square_()
     return gx.add_(gy.sub_(py[:, None, None]).square_())
@@ -253,7 +270,7 @@ def _probe(wx, wy, woid, wtag, t: int, px, py, pxi, pyi, poid, pvalid,
 
     gtag = w2(wtag)
     d2 = _d2(w2(wx), w2(wy), px, py)
-    mask = d2 <= radius_sq_bound(radius)
+    mask = d2 <= radius_sq_bound(radius, _np_dtype(d2))
     mask &= (gtag > t - ppw) & (gtag <= t)
     mask &= (pvalid[:, None] & in_grid)[:, :, None]
     ci, count, sel_over = first_k_prefix_indices(mask.reshape(pc, -1),
@@ -289,7 +306,7 @@ def _probe_compact(wx, wy, woid, wtag, wcur, wlive, px, py, pxi, pyi, poid,
     gidx = rows[:, :, None] * cap_w + _ring_mod(
         ghead[:, :, None] + lane, cap_w)  # (PC, span², cap_c)
     d2 = _d2(wx[gidx], wy[gidx], px, py)
-    mask = d2 <= radius_sq_bound(radius)
+    mask = d2 <= radius_sq_bound(radius, _np_dtype(d2))
     mask &= lane < glive[:, :, None]
     ci, count, sel_over = first_k_prefix_indices(mask.reshape(pc, -1),
                                                  pair_sel)
@@ -413,7 +430,8 @@ def tjoin_pane_step(carry: TJoinPaneCarry, xs, radius, grid_n: int,
     of pane t - ppw, which keeps the live counts exact. ``cap_c`` > 0
     probes through ``_probe_compact``, 0 through ``_probe``: the same
     results whenever the counters are 0. Returns (carry, the window's
-    (K²,) pair minima), written into ``out`` when given.
+    (K²,) pair minima in the carry's dtype), written into ``out`` when
+    given. The radius is rounded to the carry's dtype.
 
     Direction A: the new left pane × the right window (panes < t), then
     the left pane's insert; direction B: the new right pane × the left
@@ -424,7 +442,7 @@ def tjoin_pane_step(carry: TJoinPaneCarry, xs, radius, grid_n: int,
     the probes split over the shards."""
     t, lp, rp, lxp, rxp = xs
     t = int(t)
-    radius = float(np.float32(radius))
+    radius = float(_np_dtype(carry.digests)(radius))
     _begin_slide(carry, t, lxp, rxp, grid_n, ppw, num_ids)
     for pane, swap in ((lp, False), (rp, True)):
         flat, dist, sel, cmp = _probe_side(
@@ -461,8 +479,9 @@ def tjoin_pane_scan(carry: TJoinPaneCarry, ts, lps: Sequence[torch.Tensor],
 
     ``ts``: (S,) pane indices (host ints, or a tensor read once);
     ``lps``/``rps``: per-field (S, PC) tensors on the carry's device (x,
-    y, xi, yi, cell, rank, oid, valid). Returns (carry, (S, K²) window
-    pair minima). ``cap_c``: the live-slot probe capacity
+    y, xi, yi, cell, rank, oid, valid; x and y in the carry's dtype).
+    Returns (carry, (S, K²) window pair minima in the carry's dtype).
+    ``cap_c``: the live-slot probe capacity
     (``ops/compaction.py``; 0 = the full-ring probe).
 
     ``lps_expire``/``rps_expire``: the (cell, valid) tensors of the pane
@@ -474,11 +493,14 @@ def tjoin_pane_scan(carry: TJoinPaneCarry, ts, lps: Sequence[torch.Tensor],
     ``mesh``: probe-parallel execution over the mesh's ``data`` axis
     (``_scan_mesh``): pane points shard (PC must divide by the axis), the
     carry and the expiring panes replicate, each slide's contributions
-    gather. Equal to the unsharded scan."""
+    gather. Equal to the unsharded scan. A float64 carry on a mesh is
+    ROADMAP item A14.2c and raises."""
     if mesh is not None:
         from spatialflink_tpu_torch.parallel.mesh import require_mesh
 
         require_mesh(mesh)
+        if carry.digests.dtype != torch.float32:
+            raise not_ported("the pane-carry tJoin's mesh scan")
     if torch.is_tensor(ts):
         ts = ts.tolist()
     if lps_expire is None:
@@ -490,7 +512,7 @@ def tjoin_pane_scan(carry: TJoinPaneCarry, ts, lps: Sequence[torch.Tensor],
                           layers, ppw, num_ids, pair_sel, cap_c,
                           lps_expire, rps_expire)
     s = len(ts)
-    wmins = torch.empty((s, num_ids * num_ids), dtype=torch.float32,
+    wmins = torch.empty((s, num_ids * num_ids), dtype=carry.digests.dtype,
                         device=carry.digests.device)
     rows = [tuple(zip(*(f.unbind(0) for f in fields)))
             for fields in (lps, rps, lps_expire, rps_expire)]

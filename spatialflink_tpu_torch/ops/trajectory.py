@@ -10,9 +10,12 @@ JAX package (plain XLA there), so plain PyTorch is their port; tJoin's
 point pairs come from B3 (``ops/join_kernel.py``) before
 ``traj_pair_dedup_kernel`` reduces them.
 
-Sums on the card: ``index_add_`` on CUDA adds floats in an arbitrary
-order, so spatial lengths may differ from the CPU's in the last bits,
-within ``spatial_sum_bound``. Counts and temporal sums are integers and
+Every function computes in its inputs' float dtype: float32 for the
+centred lanes, float64 in the float64 mode (``precision.py``), as the
+JAX functions compute in theirs under x64. Sums on the card:
+``index_add_`` on CUDA adds floats in an arbitrary order, so spatial
+lengths may differ from the CPU's in the last bits, within
+``spatial_sum_bound`` of their dtype. Counts and temporal sums are integers and
 exact on every device. Minima and maxima (``scatter_reduce``) are exact.
 """
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from spatialflink_tpu_torch.ops.distances import point_point_distance, sqrt_rn
@@ -27,16 +31,17 @@ from spatialflink_tpu_torch.ops.polygon import points_in_polygons
 from spatialflink_tpu_torch.ops.select import first_k_prefix_indices
 
 
-def spatial_sum_bound(n_terms, magnitude):
-    """The most two float32 sums of the same nonnegative terms can differ
-    when added in different orders: each is within (n − 1)·2⁻²⁴ of the
-    terms' total magnitude of the exact sum (recursive summation, every
-    partial sum at most that magnitude), so two are within
-    2·n·2⁻²⁴·magnitude. ``n_terms`` counts every addition on a value's
-    longest path (terms, cumulative sums, corrections); ``magnitude``
-    bounds every partial sum (the row's sum of |terms|). Works
-    elementwise on numpy arrays."""
-    return 2.0 * n_terms * 2.0 ** -24 * magnitude
+def spatial_sum_bound(n_terms, magnitude, dtype=np.float32):
+    """The most two sums in ``dtype`` (float32 by default, or float64) of
+    the same nonnegative terms can differ when added in different orders:
+    each is within (n − 1)·u of the terms' total magnitude of the exact
+    sum, u the dtype's unit roundoff (2⁻²⁴, or 2⁻⁵³ in float64; recursive
+    summation, every partial sum at most that magnitude), so two are
+    within 2·n·u·magnitude. ``n_terms`` counts every addition on a
+    value's longest path (terms, cumulative sums, corrections);
+    ``magnitude`` bounds every partial sum (the row's sum of |terms|).
+    Works elementwise on numpy arrays."""
+    return 2.0 * n_terms * (float(np.finfo(dtype).eps) / 2) * magnitude
 
 
 class TrajStats(NamedTuple):

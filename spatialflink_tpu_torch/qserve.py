@@ -39,14 +39,19 @@ semantics of the JAX package's ``spatialflink_tpu/qserve.py``:
 (inline JSON or a path) supplies a serving config: ``{"queries": [...],
 "tenant_budgets": {...}, "cap_max": N}``.
 
-The operator runs on the card unless it is given ``device="cpu"``. It
-computes in float32 on the device, with coordinates centred in float64
-first (``operators/base.py:center_coords``); radii ship as float64, so
-the radius test is the JAX package's under x64. ``dtype`` float64 with
-the float64 mode on (``precision.py``) raises: the float64 registry
-program is ROADMAP item A14.2b. ``mesh=``: every bucket runs through
-``parallel/sharded.py:sharded_registry_bucket``, the window's points
-sharded over the mesh's ``data`` axis, with the unsharded results.
+The operator runs on the card unless it is given ``device="cpu"``. Its
+``dtype`` follows the JAX package's rule (``precision.effective_f64``):
+with ``dtype`` float64 (the default) and the float64 mode on, the window
+points and the query centres ship raw in float64 and the registry
+program computes, compares the radius, takes its sentinel and returns
+its distances in float64, as the JAX program does under x64; otherwise
+it computes in float32 on the device, with coordinates centred in
+float64 first (``operators/base.py:center_coords``), and the float64
+radii make the radius test the JAX package's under x64. ``mesh=``: every
+bucket runs through ``parallel/sharded.py:sharded_registry_bucket``, the
+window's points sharded over the mesh's ``data`` axis, with the
+unsharded results; a mesh run in float64 is ROADMAP item A14.2c and
+raises.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from spatialflink_tpu_torch.operators.base import (
     jitted,
     ship,
 )
-from spatialflink_tpu_torch.precision import require_f32
+from spatialflink_tpu_torch.precision import effective_f64
 from spatialflink_tpu_torch.telemetry import telemetry
 from spatialflink_tpu_torch.utils.padding import next_bucket
 
@@ -485,20 +490,22 @@ class QServeOperator(SpatialOperator):
 
     def _bucket_device_arrays(self, key, qs, cap, dtype):
         """The bucket's operands on the device, cached on (registry epoch,
-        bucket version, rung, dtype): a window with no churn ships
+        bucket version, rung, the lanes' dtype: float64 in the float64
+        mode, else float32): a window with no churn ships
         nothing; a register or unregister in the bucket bumps its version
         and ships it once. The host arrays go through ``ship``, which
         copies them: the registry's flag tables are never handed over by
         reference."""
         reg = self.qserve_registry
-        ck = (reg.epoch, reg.version(key), int(cap), np.dtype(dtype).str)
+        lanes = np.float64 if effective_f64(dtype) else np.float32
+        ck = (reg.epoch, reg.version(key), int(cap), np.dtype(lanes).str)
         hit = self._bucket_dev.get(key)
         if hit is not None and hit["ck"] == ck:
             return hit
         qxy, radius, qvalid, tables = bucket_host_arrays(
             self.grid, qs, cap, flags_of=lambda q: reg.flags(q.qid))
         tables_d, radius_d, qvalid_d, qxy_d = ship(
-            tables, radius, qvalid, center_coords(self.grid, qxy),
+            tables, radius, qvalid, center_coords(self.grid, qxy, dtype),
             device=self.device).arrive()
         dev = {"ck": ck, "qxy": qxy_d, "tables": tables_d,
                "radius": radius_d, "qvalid": qvalid_d}
@@ -512,15 +519,14 @@ class QServeOperator(SpatialOperator):
         results route per tenant under the per-class result budgets.
         ``driver=`` opts into checkpoints and retry as for the other
         operators; the registry state rides the operator checkpoint.
-        ``dtype`` float64 with the float64 mode on (``precision.py``)
-        raises: the registry program in float64 is ROADMAP item A14.2b."""
-        require_f32(dtype, "QServeOperator.run")
+        ``dtype``: float64 lanes and distances in the float64 mode
+        (``precision.py``), centred float32 lanes otherwise."""
         from spatialflink_tpu_torch.driver import strict_driver
         from spatialflink_tpu_torch.ops.query_registry import (
             registry_bucket_kernel,
         )
 
-        mesh = self.run_mesh(mesh)
+        mesh = self.run_mesh(mesh, dtype)
         if self.conf.allowed_lateness_ms > 0:
             # A late-event refire re-runs a window already charged to the
             # per-window QoS and overflow accumulators (whose retry
@@ -557,8 +563,8 @@ class QServeOperator(SpatialOperator):
         ``dtype``: ``run``'s rule."""
         from spatialflink_tpu_torch.ops.compaction import pick_capacity
 
-        require_f32(dtype, "QServeOperator.serve_window")
-        self.check_mesh(mesh)
+        if mesh is not None:
+            self.run_mesh(mesh, dtype)
         reg = self.qserve_registry
         with telemetry.span("window.qserve", start=win.start,
                             events=len(win.events)):
@@ -588,8 +594,9 @@ class QServeOperator(SpatialOperator):
                                        minimum=64)
                 with telemetry.span("ship"):
                     xy_d, valid_d, cell_d, oid_d = ship(
-                        center_coords(self.grid, batch.xy), batch.valid,
-                        batch.cell, batch.oid, device=self.device).arrive()
+                        center_coords(self.grid, batch.xy, dtype),
+                        batch.valid, batch.cell, batch.oid,
+                        device=self.device).arrive()
                 pending = []
                 # Bucket attribution only when standalone: inside a node
                 # scope the window already carries its node.

@@ -267,7 +267,9 @@ def tjoin_pane_carry_from_jax(carry, device="cuda"):
     """A JAX ``ops/tjoin_panes.py:TJoinPaneCarry`` (its arrays, as numpy or
     JAX arrays) → the port's ``TJoinPaneCarry`` on ``device``: each array
     copied, flattened and given the port's spare trailing slot (an empty
-    plane slot, a zero count, an infinite digest). Continue it with
+    plane slot, a zero count, an infinite digest). The float arrays keep
+    their dtype: float64 from a JAX carry of the x64 mode, which the
+    port's float64 mode continues, else float32. Continue it with
     ``ops/tjoin_panes.py:tjoin_pane_scan``, passing the panes that expire
     during the continued slides (the JAX bench's warm-then-steady split)::
 
@@ -286,7 +288,8 @@ def tjoin_pane_carry_from_jax(carry, device="cuda"):
     out = []
     for name, a in zip(TJoinPaneCarry._fields, carry):
         a = np.asarray(a)
-        dt = np.float32 if a.dtype.kind == "f" else np.int32
+        dt = (np.float64 if a.dtype == np.float64 else np.float32) \
+            if a.dtype.kind == "f" else np.int32
         if a.ndim:
             a = np.concatenate([a.reshape(-1), [spare.get(name, 0)]])
         out.append(_tensor(a, dt, dev))

@@ -14,9 +14,11 @@ instead of O(windows × window size). Three engines, as in the JAX
 package's ``streams/panes.py``:
 
 - ``"device"``: ``ops/trajectory.py:traj_stats_pane_kernel`` on the
-  given device, the card by default; float32 coordinates, int64 counts
-  and temporal sums. Its spatial sums may differ from the numpy engine's
-  in the last bits (``ops/trajectory.py:spatial_sum_bound``); counts and
+  given device, the card by default; float32 coordinates, or float64
+  ones whenever the float64 mode is on (``precision.py``; the JAX
+  engine's rule, which reads ``jax_enable_x64`` and takes no dtype), and
+  int64 counts and temporal sums. Its spatial sums may differ from the
+  numpy engine's in the last bits (``pane_spatial_bound``); counts and
   temporal sums are exact.
 - ``"native"``: ``native.py:traj_stats_native``, the C++ single-pass
   engine (``native/sfnative.cpp:sf_traj_stats``) in float64 on the host,
@@ -42,7 +44,7 @@ from spatialflink_tpu_torch.ops.trajectory import (
     spatial_sum_bound,
     traj_stats_pane_kernel,
 )
-from spatialflink_tpu_torch.precision import require_f32
+from spatialflink_tpu_torch.precision import x64_enabled
 from spatialflink_tpu_torch.utils.padding import next_bucket
 
 
@@ -200,12 +202,11 @@ class TrajPaneWindows:
 def pane_operands(ts, xy, oid, num_oids: int, slide_ms: int):
     """The device engine's host side: the (oid, ts) sort, the rebase to
     the first pane and the padding. Returns ``(operands, p_lo,
-    n_panes)``, ``operands`` the numpy lanes (int32 rebased ts, float32
-    x and y, int32 oid, bool valid) that ``traj_stats_pane_kernel``
-    takes. The JAX package's engine takes float64 lanes whenever its x64
-    mode is on; the port's float64 engine is ROADMAP item A14.2b, so with
-    the float64 mode on (``precision.py``) this raises."""
-    require_f32(np.float64, "the device pane engine (tStats panes)")
+    n_panes)``, ``operands`` the numpy lanes (int32 rebased ts, x and y,
+    int32 oid, bool valid) that ``traj_stats_pane_kernel`` takes. The x
+    and y lanes are float64 whenever the float64 mode is on
+    (``precision.py``), float32 otherwise, as the JAX engine takes
+    float64 lanes whenever its x64 mode is on."""
     ts = np.asarray(ts, np.int64)
     oid = np.asarray(oid, np.int64)
     xy = np.asarray(xy, np.float64)
@@ -226,11 +227,12 @@ def pane_operands(ts, xy, oid, num_oids: int, slide_ms: int):
         )
     n = len(t)
     pad = next_bucket(n, minimum=8) - n
+    f_dtype = np.float64 if x64_enabled() else np.float32
     operands = (
         np.concatenate([t_rel, np.full(pad, t_rel[-1], np.int64)]
                        ).astype(np.int32),
-        np.concatenate([p[:, 0], np.zeros(pad)]).astype(np.float32),
-        np.concatenate([p[:, 1], np.zeros(pad)]).astype(np.float32),
+        np.concatenate([p[:, 0], np.zeros(pad)]).astype(f_dtype),
+        np.concatenate([p[:, 1], np.zeros(pad)]).astype(f_dtype),
         np.concatenate([o, np.full(pad, num_oids - 1, np.int64)]
                        ).astype(np.int32),
         np.concatenate([np.ones(n, bool), np.zeros(pad, bool)]),
@@ -479,15 +481,16 @@ def traj_stats_sliding(
 
 def pane_spatial_bound(ts, xy, oid, num_oids: int, size_ms: int,
                        slide_ms: int) -> np.ndarray:
-    """(K,) the bound, per oid, within which two float32 runs of the
-    device engine's spatial sums agree, and within which the device
-    engine agrees with the numpy engine fed the same float32
-    coordinates: ``spatial_sum_bound`` over the row's longest addition
-    path (its segments three times: the pane sums and both interval
-    sums; the panes and window starts of both cumulative sums; 4 more
-    for the differences and the roundings of each term) and its
-    magnitude, the row's total float32 segment length (which bounds
-    every partial sum)."""
+    """(K,) the bound, per oid, within which two runs of the device
+    engine's spatial sums agree, and within which the device engine
+    agrees with the numpy engine fed the same coordinates, in the dtype
+    of the engine's lanes (``pane_operands``: float32, or float64 in the
+    float64 mode): ``spatial_sum_bound`` of that dtype over the row's
+    longest addition path (its segments three times: the pane sums and
+    both interval sums; the panes and window starts of both cumulative
+    sums; 4 more for the differences and the roundings of each term) and
+    its magnitude, the row's total segment length in the lanes' values
+    (which bounds every partial sum)."""
     operands, _, n_panes = pane_operands(ts, xy, oid, num_oids, slide_ms)
     _, x, y, o, valid = operands
     same = (o[1:] == o[:-1]) & valid[1:] & valid[:-1]
@@ -498,4 +501,4 @@ def pane_spatial_bound(ts, xy, oid, num_oids: int, size_ms: int,
     segments = np.bincount(o[1:][same], minlength=num_oids)
     n_starts = n_panes + size_ms // slide_ms - 1
     return spatial_sum_bound(3 * segments + n_panes + n_starts + 4,
-                             magnitude)
+                             magnitude, x.dtype)

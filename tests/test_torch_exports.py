@@ -257,9 +257,9 @@ def test_job_surface_modules_at_their_jax_paths():
 def test_every_not_ported_message_names_its_item():
     """No ``NotImplementedError`` is left in the port but the JAX
     package's own (a protocol feature neither package has, raised with
-    the JAX text) and the one of ``precision.require_f32``, which names
-    ROADMAP item A14.2 (the float64 mode of the entry points outside the
-    point-stream range, kNN and point–point join): A12.3 is ported, and
+    the JAX text) and the one of ``precision.not_ported``, which names
+    ROADMAP item A14.2c (the float64 mode of the mesh runs and
+    ``run_partitioned``, the last of it): A12.3 is ported, and
     no source names any part of A11.4 or of A12 in any form: no sharded
     program refuses a mesh that spans processes."""
     import re
@@ -276,7 +276,7 @@ def test_every_not_ported_message_names_its_item():
             if re.search(r"A12|WAITING_COMPONENTS", body):
                 waiting += 1
                 continue
-            if re.search(r"A14\.2", body):
+            if re.search(r"A14\.2c", body):
                 a14_2.append(path.relative_to(port).as_posix())
                 continue
             first = re.search(r'"([^"]{12,})"', body).group(1)

@@ -2013,6 +2013,96 @@ def test_join_extract_float64_matches_plain_version_on_card():
 
 
 @pytest.mark.cuda
+def test_join_extract_float64_at_tjoin_cap_64_on_card():
+    """B3's float64 instantiation at tJoin's shape, cap 64 (a 20 B slot:
+    17,408 B of shared memory a warp, past the default opt-in), bit-exact
+    against its plain version on a 100 × 100 grid at one layer with
+    crowded cells, within and over budget; then tJoin's float64
+    ``run_soa`` and ``run`` on the card through it, equal to the CPU runs
+    through the plain version, the float64 launches counted."""
+    dev = _card()
+    from spatialflink_tpu_torch import precision
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery,
+        QueryConfiguration,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract,
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+
+    rng = np.random.default_rng(24)
+    gn, n = 100, 40_000
+    xys = [rng.uniform(0, gn, (n, 2)) for _ in range(2)]
+    for xy in xys:  # two crowded cells, at ~44 and ~54 points
+        xy[:40] = np.array([7.5, 7.5]) + rng.uniform(-0.49, 0.49, (40, 2))
+        xy[40:90] = np.array([40.5, 3.5]) + rng.uniform(-0.49, 0.49,
+                                                       (50, 2))
+    lanes = []
+    for xy in xys:
+        cells = np.floor(xy).astype(np.int64)
+        lanes += [torch.from_numpy(xy).to(dev),
+                  torch.ones(n, dtype=torch.bool, device=dev),
+                  torch.from_numpy((cells[:, 0] * gn + cells[:, 1])
+                                   .astype(np.int32)).to(dev)]
+    planes, over = join_planes(*lanes, grid_n=gn, layers=1, cap_left=64,
+                               cap_right=64)
+    assert planes[0].dtype == torch.float64 and int(over) == 0
+    want = join_extract_plain(*planes, gn, 1, 0.3, 1 << 18)
+    assert int(want[3]) > 8192
+    for budget in (1 << 18, 4096):  # within and over budget: a prefix
+        got = join_extract_cuda(*planes, gn, 1, 0.3, budget)
+        torch.cuda.synchronize()
+        assert got[2].dtype == torch.float64 and int(got[3]) == int(want[3])
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(_bits(g).cpu(), _bits(w[:budget]).cpu())
+
+    grid = dict(num_partitions=100, min_x=115.5, max_x=117.6, min_y=39.6,
+                max_y=41.1)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+
+    def side(seed):
+        r = np.random.default_rng(seed)
+        m = 5000
+        return [{"ts": np.sort(r.integers(0, 1000, m)).astype(np.int64),
+                 "x": r.uniform(116.0, 116.3, m),
+                 "y": r.uniform(39.9, 40.1, m),
+                 "oid": r.integers(0, 256, m).astype(np.int32)}]
+
+    def runs(device):
+        op = PointPointTJoinQuery(conf, UniformGrid(**grid), cap=64,
+                                  device=device)
+        left, right = side(1), side(2)
+        pts = [[Point(obj_id=f"o{o}", timestamp=int(t), x=x, y=y)
+                for t, x, y, o in zip(c["ts"][:2000], c["x"][:2000],
+                                      c["y"][:2000], c["oid"][:2000])]
+               for c in (left[0], right[0])]
+        with precision.x64(True):
+            soa = [(w[0], w[1], w[2].tolist(), w[3].tolist(),
+                    w[4].view(np.int64).tolist(), w[5], w[6])
+                   for w in op.run_soa(left, right, 0.001, 256)]
+            run = [(w.start, w.end, [(a.obj_id, b.obj_id,
+                                      np.float64(d).view(np.int64).item())
+                                     for a, b, d in w.pairs])
+                   for w in op.run(iter(pts[0]), iter(pts[1]), 0.001)]
+        return soa, run
+
+    join_extract.launches_f64 = 0
+    card = runs("cuda")
+    torch.cuda.synchronize()
+    assert join_extract.launches_f64 >= 2
+    cpu = runs("cpu")
+    assert card == cpu
+    assert sum(w[5] for w in cpu[0]) > 100 and all(w[6] == 0
+                                                   for w in cpu[0])
+    assert sum(len(w[2]) for w in cpu[1]) > 0
+
+
+@pytest.mark.cuda
 def test_polyline_min_dist_float64_matches_plain_version_on_card():
     """B4's float64 instantiation bit-exact against its plain version:
     dense, gathered staged and unstaged, and DBL_MAX for a boundary with

@@ -46,8 +46,11 @@ Contracts held:
 - x64 off, or ``dtype=np.float32``: today's float32 results, bit for
   bit;
 - x64 on: of the 65 entry points that raised before the geometry slice,
-  the 45 it ports run in float64 on a tiny stream, and the 20 of ROADMAP
-  item A14.2b raise ``NotImplementedError`` naming it;
+  the 45 it ports and the 16 of the trajectory and serving slice run in
+  float64 on a tiny stream, and the 4 of ROADMAP item A14.2c (the mesh
+  runs and ``run_partitioned``) raise ``NotImplementedError`` naming it
+  (the trajectory slice's parity with the JAX package is
+  ``tests/test_torch_x64_trajectory.py``);
 - the switch itself, and the telemetry ledger's ``x64`` field.
 """
 
@@ -1405,7 +1408,8 @@ def test_x64_off_or_float32_gives_todays_float32_results():
 
 # ---------------------------------------------------------------------------
 # The 65 entry points that raised in float64 before A14.2a: the 45 it
-# ports run in float64; the 20 of A14.2b still raise, naming A14.2
+# ports and the 16 of A14.2b run in float64; the 4 of A14.2c still raise,
+# naming it
 
 
 def _a14_2_calls():
@@ -1653,21 +1657,172 @@ def _a14_2a_runs():
 
 
 A14_2A = _a14_2a_runs()
-#: The calls still refused in float64: ROADMAP item A14.2b.
-A14_2 = [c for c in A14_2_CALLS if c[0] not in {lb for lb, _ in A14_2A}]
+def _lanes_spy(monkeypatch):
+    """The dtypes of every coordinate lane ``center_coords`` makes, read
+    through the module names the trajectory operators and the server
+    call it by."""
+    from spatialflink_tpu_torch import qserve
+    from spatialflink_tpu_torch.operators import base
+    from spatialflink_tpu_torch.operators import trajectory as ttraj
+
+    seen = []
+    inner = base.center_coords
+
+    def spy(*args, **kw):
+        out = inner(*args, **kw)
+        seen.append(out.dtype)
+        return out
+
+    for mod in (base, ttraj, qserve):
+        monkeypatch.setattr(mod, "center_coords", spy)
+    return seen
 
 
-def test_the_65_calls_split_45_and_20():
+def _a14_2b_runs():
+    """(label, call) of the 16 calls of ROADMAP item A14.2b, under the
+    labels of ``A14_2_CALLS``, each run as a user would on a tiny
+    non-empty stream; a call returns (its results, the float arrays it
+    returned)."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch import qserve
+    from spatialflink_tpu_torch.ops.query_registry import (
+        registry_bucket_kernel,
+    )
+    from spatialflink_tpu_torch.ops.tjoin_panes import tjoin_pane_init
+    from spatialflink_tpu_torch.streams.panes import traj_stats_sliding
+
+    grid = UniformGrid(**BEIJING)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    ring = np.array([[116.3, 40.1], [116.5, 40.1], [116.5, 40.3],
+                     [116.3, 40.3], [116.3, 40.1]])
+    poly = Polygon(obj_id="q", rings=[ring])
+    _, points = _tiny_data()
+    points = points + [Point(obj_id="p0", timestamp=900, x=116.4003,
+                             y=40.2001)]
+    other = [Point(obj_id=f"o{i}", timestamp=p.timestamp, x=p.x + 0.01,
+                   y=p.y) for i, p in enumerate(points)]
+    chunks = _pts_chunks(points)
+    chunks[0]["oid"] = np.array([0, 1, 2, 0], np.int32)
+    ochunks = _pts_chunks(other)
+    q = Point(obj_id="p", x=116.4, y=40.2)
+    r = TINY_R
+
+    def op(cls, **kw):
+        return getattr(ops, cls)(conf, grid, device="cpu", **kw)
+
+    def pair_d(res):
+        return [np.array([d for *_, d in w.pairs]) for w in res]
+
+    def served(run):
+        try:
+            rows = run()
+        finally:
+            qserve.uninstall()
+        return rows, [np.array([row[4] for row in rows])]
+
+    def serve_stream():
+        sq = qserve.StandingQuery(qid="q", tenant="t", kind="knn", x=116.4,
+                                  y=40.2, radius=r, k=3)
+        return [qserve.QServeCommand(timestamp=0, action="register",
+                                     uid="u", query=sq)] + points
+
+    def serve_window():
+        sop = qserve.QServeOperator(conf, grid, device="cpu")
+        kernel = registry_bucket_kernel
+        return [row for win in sop.windows(iter(serve_stream()))
+                for row in sop.serve_window(win, kernel).rows]
+
+    def tstats_panes():
+        ts = np.array([p.timestamp for p in points], np.int64)
+        xy = np.array([[p.x, p.y] for p in points])
+        oid = np.array([0, 1, 2, 0], np.int64)
+        res = traj_stats_sliding(ts, xy, oid, 3, 1000, 100,
+                                 backend="device", device="cpu")
+        return res.starts, [res.spatial]
+
+    def tagg(res):
+        return res, []
+
+    return [
+        ("TRangeQuery.run", lambda: (list(op("TRangeQuery").run(
+            iter(points), [poly])), [])),
+        ("TRangeQuery.run_soa", lambda: (list(op("TRangeQuery").run_soa(
+            chunks, [poly], 64)), [])),
+        ("TKNNQuery.run", lambda: (lambda res: (res, [np.array(
+            [n[1] for w in res for n in w.neighbors])]))(list(
+                op("TKNNQuery").run(iter(points), q, r, 2)))),
+        ("TKNNQuery.run_soa", lambda: (lambda res: (res, [w[3] for w in res]))(
+            list(op("TKNNQuery").run_soa(chunks, q, r, 2, 64)))),
+        ("TJoinQuery.run", lambda: (lambda res: (res, pair_d(res)))(list(
+            op("TJoinQuery", cap=8).run(iter(points), iter(other), 0.02)))),
+        ("TJoinQuery.run_single", lambda: (lambda res: (res, pair_d(res)))(
+            list(op("TJoinQuery", cap=8).run_single(iter(points + other),
+                                                     0.02)))),
+        ("TJoinQuery.run_soa", lambda: (lambda res: (
+            res, [w[4] for w in res]))(list(op("TJoinQuery", cap=8).run_soa(
+                chunks, ochunks, 0.02, 64)))),
+        ("TJoinQuery.run_soa_panes", lambda: (lambda res: (
+            res, [w[4] for w in res]))(list(op("TJoinQuery").run_soa_panes(
+                chunks, ochunks, 0.02, 8, backend="device")))),
+        ("TAggregateQuery.run", lambda: tagg(list(
+            op("TAggregateQuery").run(iter(points))))),
+        ("TAggregateQuery.run_soa", lambda: tagg(list(
+            op("TAggregateQuery").run_soa(chunks)))),
+        ("TStatsQuery.run", lambda: (lambda res: (res, [np.array(
+            [s[0] for w in res for s in w.stats.values()])]))(list(
+                op("TStatsQuery").run(iter(points))))),
+        ("TStatsQuery.run_soa", lambda: (lambda res: (
+            res, [w[2] for w in res]))(list(op("TStatsQuery").run_soa(
+                chunks, 64)))),
+        ("traj_stats_sliding (tStats panes)", tstats_panes),
+        ("tjoin_pane_init", lambda: (lambda c: ([c], [
+            c.lwx.numpy(), c.digests.numpy()]))(tjoin_pane_init(
+                4, 8, 2, 2, dtype=np.float64, device="cpu"))),
+        ("QServeOperator.run", lambda: served(lambda: [
+            row for res in qserve.QServeOperator(conf, grid, device="cpu")
+            .run(iter(serve_stream())) for row in res.rows])),
+        ("QServeOperator.serve_window", lambda: served(serve_window)),
+    ]
+
+
+A14_2B = _a14_2b_runs()
+#: The calls still refused in float64: ROADMAP item A14.2c.
+A14_2 = [c for c in A14_2_CALLS
+         if c[0] not in {lb for lb, _ in A14_2A + A14_2B}]
+
+
+def test_the_65_calls_split_61_and_4():
     labels = [c[0] for c in A14_2_CALLS]
     assert len(labels) == len(set(labels)) == 65
-    assert len(A14_2A) == 45 and len(A14_2) == 20
-    assert {lb for lb, _ in A14_2A} <= set(labels)
+    assert len(A14_2A) == 45 and len(A14_2B) == 16 and len(A14_2) == 4
+    assert {lb for lb, _ in A14_2A + A14_2B} <= set(labels)
+    assert not {lb for lb, _ in A14_2A} & {lb for lb, _ in A14_2B}
 
 
 @pytest.mark.parametrize("label,call", A14_2, ids=[c[0] for c in A14_2])
 def test_entry_points_outside_the_slice_raise_in_float64(label, call, x64):
-    with pytest.raises(NotImplementedError, match=r"A14\.2"):
+    with pytest.raises(NotImplementedError, match=r"A14\.2c"):
         call()
+
+
+@pytest.mark.parametrize("label,call", A14_2B, ids=[c[0] for c in A14_2B])
+def test_entry_points_of_a14_2b_run_in_float64(label, call, x64,
+                                               monkeypatch):
+    """Each of the 16 calls on a tiny non-empty stream in the float64
+    mode: it runs and returns results; every float array it returns is
+    float64 (and its distances hold a value no float32 holds), and every
+    coordinate lane it made is float64 (``TAggregateQuery.run`` makes
+    none: its spans are integers, which no coordinate reaches)."""
+    lanes = _lanes_spy(monkeypatch)
+    results, floats = call()
+    assert len(results) > 0, label
+    assert all(a.dtype == np.float64 for a in floats), label
+    values = [v for a in floats for v in np.ravel(a)
+              if v != 0 and np.isfinite(v) and label != "tjoin_pane_init"]
+    if values:
+        assert any(float(np.float32(v)) != v for v in values), label
+    assert all(dt == np.float64 for dt in lanes), (label, lanes)
+    assert lanes or floats or label == "TAggregateQuery.run", label
 
 
 @pytest.mark.parametrize("label,call", A14_2A, ids=[c[0] for c in A14_2A])
@@ -1685,9 +1840,10 @@ def test_entry_points_of_the_slice_run_in_float64(label, call, x64):
         assert any(float(np.float32(d)) != d for d in nonzero), label
 
 
-def test_they_run_as_before_with_x64_off():
+def test_they_run_as_before_with_x64_off(monkeypatch):
     """All 65 calls, x64 off: none raises (an empty stream, no windows),
-    apart from the ones that need their real arguments."""
+    apart from the ones that need their real arguments; and the 16 of
+    A14.2b on their tiny streams compute in float32, as before."""
     needs_args = ("QServeOperator.serve_window", "PointPointRangeQuery."
                   "run_partitioned", "traj_stats_sliding (tStats panes)",
                   "tjoin_pane_init")
@@ -1699,3 +1855,7 @@ def test_they_run_as_before_with_x64_off():
         assert out == [] or out is None, label
         ran += 1
     assert ran > 60
+    lanes = _lanes_spy(monkeypatch)
+    for label, call in A14_2B:
+        call()
+    assert lanes and all(dt == np.float32 for dt in lanes)
