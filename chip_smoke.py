@@ -5943,18 +5943,24 @@ DRV_KNN_WINDOWS = 2      # 32c's windows of phase 15's stream (a cut of 3)
 DRV_WIRE_CUT = 10        # headline panes before the carry's checkpoint
 
 
-def driver_range_stream(n_win=None):
-    """Config 3's stream as ``Point`` objects: bench_suite.py:47-54's
+def driver_range_arrays(n_win=None):
+    """Config 3's stream as arrays (xy, oid, ts): bench_suite.py:47-54's
     positions and objIDs from seed 7, one-second tumbling windows of
     ``RANGE_WIN`` points."""
-    from spatialflink_tpu_torch.models.objects import Point
-
     n = (DRV_WINDOWS if n_win is None else n_win) * RANGE_WIN
     rng = np.random.default_rng(7)
     xy = np.stack([rng.uniform(115.5, 117.6, n),
                    rng.uniform(39.6, 41.1, n)], axis=1).astype(np.float32)
     oid = rng.integers(0, DRV_IDS, n)
     ts = (np.arange(n, dtype=np.int64) * 1000) // RANGE_WIN
+    return xy, oid, ts
+
+
+def driver_range_stream(n_win=None):
+    """``driver_range_arrays`` as ``Point`` objects."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    xy, oid, ts = driver_range_arrays(n_win)
     return [Point(obj_id=f"o{o}", timestamp=int(t), x=float(x), y=float(y))
             for o, t, (x, y) in zip(oid.tolist(), ts.tolist(),
                                     xy.astype(np.float64).tolist())]
@@ -6065,6 +6071,11 @@ def driver_children(workdir, card):
         return torn, f.read(), info
 
 
+#: Phase 32e's chaos smoke: stopped if the run ends before the phase
+#: collects it.
+DRIVER_CHILDREN = []
+
+
 def start_chaos_smoke():
     """Phase 32e: ``python -m spatialflink_tpu_torch.driver
     --chaos-smoke`` (three child processes on the card), started in the
@@ -6074,10 +6085,12 @@ def start_chaos_smoke():
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
            if k not in ("SFT_FAULT_PLAN", "SFT_PIPELINE")}
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "spatialflink_tpu_torch.driver",
          "--chaos-smoke"], cwd=root, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
+    DRIVER_CHILDREN.append(proc)
+    return proc
 
 
 def check_driver(card, panes, wf, gpu="cuda"):
@@ -6119,9 +6132,14 @@ def check_driver(card, panes, wf, gpu="cuda"):
     walls = {}
     tmp = tempfile.mkdtemp(prefix="sft_driver_")
 
+    # 32e runs beside the whole phase from its start: three processes
+    # that wait mostly on their start.
+    t_phase = t0 = time.perf_counter()
+    smoke = start_chaos_smoke() if gpu == "cuda" else None
+    t_smoke = time.perf_counter()
+
     # 32d: the headline carry through B1, checkpointed after pane
     # DRV_WIRE_CUT and resumed on the card and on the CPU.
-    t_phase = t0 = time.perf_counter()
     whole, _, _ = run_path(gpu, "sync", panes, wf)
     wconf = QueryConfiguration(window_size=2.0, slide_step=1.0)
     q = Point(x=QUERY[0], y=QUERY[1])
@@ -6167,7 +6185,7 @@ def check_driver(card, panes, wf, gpu="cuda"):
     print(f"data: {len(stream)} Point objects (config 3, {DRV_WINDOWS} "
           f"windows of {RANGE_WIN}) in {time.perf_counter() - t0:.3f} s "
           f"(host set-up)")
-    dirs = {k: os.path.join(tmp, k) for k in ("clean", "chaos", "cpu")}
+    dirs = {k: os.path.join(tmp, k) for k in ("clean", "chaos")}
     for d in dirs.values():
         os.makedirs(d)
     telemetry.enable()
@@ -6201,19 +6219,23 @@ def check_driver(card, panes, wf, gpu="cuda"):
         resumed, rinfo = driver_range_leg(dev, dirs["chaos"], stream,
                                           queries)
         rinfo["from_start_s"] = rinfo["run_s"]
-    # 32e runs beside the CPU run of 32a, 32b and 32c, whose times are
-    # not reported: three processes that wait mostly on their start.
-    smoke = start_chaos_smoke() if gpu == "cuda" else None
-    t_smoke = time.perf_counter()
     try:
-        t_cpu = time.perf_counter()
-        on_cpu, _ = driver_range_leg(cpu, dirs["cpu"], stream, queries)
-        cpu_secs = time.perf_counter() - t_cpu
-        if not (len(torn) < len(clean) and resumed == clean == on_cpu):
+        if not (len(torn) < len(clean) and resumed == clean):
             raise AssertionError(
                 f"32a: egress differs: clean {len(clean)} B, killed "
-                f"{len(torn)} B, resumed {len(resumed)} B, CPU "
-                f"{len(on_cpu)} B")
+                f"{len(torn)} B, resumed {len(resumed)} B")
+
+        def held(clean=clean):
+            on_cpu, cpu_secs = twin("driver_range",
+                                    driver_range_arrays())
+            if on_cpu != clean:
+                raise AssertionError(f"32a: the CPU run's egress differs "
+                                     f"({len(on_cpu)} B, the card's "
+                                     f"{len(clean)} B)")
+            print(f"exact driver range: the clean card run's egress "
+                  f"byte-identical to the CPU run's ({cpu_secs:.3f} s on "
+                  f"the host CPU, the twin driver_range) [{card}]")
+        later(held)
         if not rinfo["resumed"]:
             raise AssertionError("32a: the resume child did not resume")
         commit_txt = ", ".join(f"{ms:.3f} ms / {nb} B" for ms, nb in
@@ -6235,8 +6257,8 @@ def check_driver(card, panes, wf, gpu="cuda"):
               f"run() (checkpoint load, skip, window), "
               f"{rinfo['from_start_s']:.3f} s from the process's start, its "
               f"commits {resume_txt}; "
-              f"egress byte-identical to the clean run and to the CPU run "
-              f"({cpu_secs:.3f} s on the host CPU) [{card}]")
+              f"egress byte-identical to the clean run (and to the CPU run, "
+              f"held later) [{card}]")
         print(f"driver e2e stages (clean run, telemetry on; "
               f"telemetry.e2e_stage_percentiles, NES histogram buckets, "
               f"{DRV_WINDOWS} windows): {stage_txt} [{card}]")
@@ -6359,8 +6381,8 @@ def check_driver(card, panes, wf, gpu="cuda"):
             smoke.communicate()
         raise
 
-    # 32e: the chaos smoke, as a user runs it, on the card (started in
-    # 32a, beside the CPU run).
+    # 32e: the chaos smoke, as a user runs it, on the card (started at the
+    # phase's start).
     t0 = time.perf_counter()
     if smoke is not None:
         out, err = smoke.communicate(timeout=600)
@@ -6370,14 +6392,15 @@ def check_driver(card, panes, wf, gpu="cuda"):
                                  f"{err[-2000:]}")
         walls["e"] = time.perf_counter() - t_smoke
         print(f"driver chaos smoke (python -m spatialflink_tpu_torch.driver "
-              f"--chaos-smoke, three processes on the card, beside 32a's CPU "
-              f"run, 32b and 32c): {out.strip().splitlines()[-1]} "
+              f"--chaos-smoke, three processes on the card, beside 32d, 32a, "
+              f"32b and 32c): {out.strip().splitlines()[-1]} "
               f"({walls['e']:.3f} s from its start, "
               f"{time.perf_counter() - t0:.3f} s "
               f"waited for) [{card}]")
     print("phase walls: 32 " + f"{time.perf_counter() - t_phase:.3f} s ("
           + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
-          + f" s; e overlaps a's CPU run, b and c) [{card}]")
+          + f" s; e overlaps d, a, b and c) [{card}]")
+    DRIVER_CHILDREN.clear()
     return launches
 
 
@@ -9507,12 +9530,16 @@ def run_partition_phase(card, gpu, h):
 # point window, 64 queries, k = 10, 16,384 objIDs, on a (2, 2) mesh; 39c:
 # 38d's qserve_1024q_mixed window (131,072 points, its 1,024 queries,
 # k = 32), 1-D mesh of 4; 39d: tjoin_panes_10s_10ms on the stream's first
-# chunk at 100 panes a side (37e's cut, 1,099 slides), 1-D mesh of 4.
+# chunk at 100 panes a side (37e's cut, 1,099 slides), 1-D mesh of 4. The
+# legs a64, b64 and d64 (40f's across processes) run a, b and d in the
+# float64 mode: raw float64 coordinates, float64 minima through the
+# gathers and a float64 carry; 39c's inputs (float64 positions and
+# radii) are float64 already.
 MH_POINTS = 262_144
 MH_QUERIES = 1024
 MH_QUERY_SEED = 8
 MH_TIMEOUT_S = 600
-MH_LEGS = ("a", "b", "c", "d")
+MH_LEGS = ("a", "b", "c", "d", "a64", "b64", "d64")
 
 #: Phase 39's rank processes: stopped if the run ends before the phase
 #: collects them.
@@ -9521,11 +9548,22 @@ MULTIHOST_CHILDREN = []
 
 def multihost_inputs(leg):
     """One leg's host inputs: (program name, mesh shape, positional
-    arrays, keyword arguments) of the program after its mesh."""
+    arrays, keyword arguments) of the program after its mesh. A leg named
+    ``<x>64`` is leg x on the float64 mode's lanes (``center_coords`` of
+    float64 inside ``precision.x64(True)``: the raw coordinates)."""
+    from spatialflink_tpu_torch import precision
     from spatialflink_tpu_torch.grid import UniformGrid
-    from spatialflink_tpu_torch.operators.base import center_coords
+    from spatialflink_tpu_torch.operators import base
 
     grid = UniformGrid(**BEIJING)
+    if leg.endswith("64"):
+        with precision.x64(True):
+            return _multihost_inputs(leg[:-2], grid, functools.partial(
+                base.center_coords, dtype=np.float64), np.float64)
+    return _multihost_inputs(leg, grid, base.center_coords, np.float32)
+
+
+def _multihost_inputs(leg, grid, center_coords, dtype):
     if leg == "a":
         xy = join_stream(MH_POINTS, 7)
         rq = np.random.default_rng(MH_QUERY_SEED)
@@ -9570,7 +9608,8 @@ def multihost_inputs(leg):
     fields, occ = [], 0
     for c in cut:
         f, _, cells = tjoin_pane_fields(grid, c["ts"], c["x"], c["y"],
-                                        c["oid"], TP_SLIDE_MS, 0, n_slides)
+                                        c["oid"], TP_SLIDE_MS, 0, n_slides,
+                                        dtype=dtype)
         fields.append(f)
         occ = max(occ, max_window_cell_count(*cells, TP_PPW))
     return ("sharded_tjoin_pane_scan", (4,),
@@ -9599,7 +9638,8 @@ def multihost_program(mesh, name, args, kw, dev):
 
         n_slides, lf, rf, radius = args
         carry = tjoin_pane_init(kw["grid_n"] ** 2, kw["cap_w"], kw["ppw"],
-                                kw["num_ids"], device=home_device(mesh))
+                                kw["num_ids"], lf[0].dtype,
+                                device=home_device(mesh))
         carry, wmins = sharded.sharded_tjoin_pane_scan(
             mesh, carry, range(n_slides), tuple(map(on, lf)),
             tuple(map(on, rf)), radius, **kw)
@@ -9614,11 +9654,13 @@ def multihost_child(workdir, device="cuda") -> int:
     shards in this process, hold them bit-equal, and write each leg's
     digest, ms and gloo traffic to ``workdir/rank<r>.json``. Rank 0
     also holds legs a and b bit-equal to a mesh of four CPU shards."""
+    import contextlib
     import hashlib
 
     import torch
     import torch.distributed as dist
 
+    from spatialflink_tpu_torch import precision
     from spatialflink_tpu_torch.parallel import make_mesh
     from spatialflink_tpu_torch.parallel import mesh as tmesh
     from spatialflink_tpu_torch.parallel.multihost import (
@@ -9647,25 +9689,32 @@ def multihost_child(workdir, device="cuda") -> int:
     torch.zeros(1, device=dev).sum().item()  # the context, before timing
     for leg in MH_LEGS:
         t_leg = time.perf_counter()
+        base, f64 = leg[0], leg.endswith("64")
         name, shape, args, kw = multihost_inputs(leg)
         names = ("data", "query")[:len(shape)]
         span = global_mesh([dev] * 2, shape, names)
         one = make_mesh(shape, names, devices=[dev] * 4)
-        if leg in ("a", "b") and {d.type for d in one.devices.flat} != \
+        if base in ("a", "b") and {d.type for d in one.devices.flat} != \
                 {dev.type}:
             raise AssertionError(f"39{leg}: {one} is not on {dev}")
+        mode = precision.x64(True) if f64 else contextlib.nullcontext()
         # A one-process run first warms the leg's operations; 39d's scans
         # take seconds, so its spanning run goes first, cold.
         runs = []
-        if leg != "d":
-            runs.append(timed(lambda: multihost_program(one, name, args, kw,
-                                                        dev))[0])
-        tmesh.reset_gloo_traffic()
-        got, span_ms = timed(lambda: multihost_program(span, name, args, kw,
-                                                       dev))
-        gloo = tmesh.gloo_traffic()
-        want, one_ms = timed(lambda: multihost_program(one, name, args, kw,
-                                                       dev))
+        with mode:
+            if base != "d":
+                runs.append(timed(lambda: multihost_program(
+                    one, name, args, kw, dev))[0])
+            tmesh.reset_gloo_traffic()
+            got, span_ms = timed(lambda: multihost_program(
+                span, name, args, kw, dev))
+            gloo = tmesh.gloo_traffic()
+            want, one_ms = timed(lambda: multihost_program(
+                one, name, args, kw, dev))
+        floats = [g.dtype for g in got if g.is_floating_point()]
+        if floats != [torch.float64 if f64 or base == "c"
+                      else torch.float32] * len(floats) or not floats:
+            raise AssertionError(f"39{leg}: {floats} outputs")
         for ref in runs + [want]:
             if not all(same_bits(g, w) for g, w in zip(got, ref)):
                 raise AssertionError(f"39{leg}: {name} on the spanning mesh "
@@ -9677,24 +9726,25 @@ def multihost_child(workdir, device="cuda") -> int:
         # What the leg found: points kept (a), the clamped in-radius
         # counts (b) and the unclamped ones (c) summed over the queries,
         # finite window minima (d).
-        if leg == "d":
+        if base == "d":
             found = int(torch.isfinite(got[0]).sum())
         else:
-            found = int((got[0] if leg == "a" else got[-1]).sum())
+            found = int((got[0] if base == "a" else got[-1]).sum())
         report["legs"][leg] = {
             "program": name, "shape": list(shape), "span_ms": span_ms,
             "one_ms": one_ms, "gloo_collectives": gloo["collectives"],
             "gloo_bytes": gloo["bytes"], "digest": h.hexdigest(),
-            "found": found,
-            "counters": ([int(x) for x in got[-3:]] if leg == "d" else []),
+            "found": found, "dtype": str(floats[0]).split(".")[-1],
+            "counters": ([int(x) for x in got[-3:]] if base == "d" else []),
             "wall_s": time.perf_counter() - t_leg}
-        if rank == 0 and leg in ("a", "b"):
+        if rank == 0 and base in ("a", "b"):
             cpu_twins[leg] = (name, shape, args, kw, got)
     for leg, (name, shape, args, kw, got) in cpu_twins.items():
         t0 = time.perf_counter()
         names = ("data", "query")[:len(shape)]
         cpu = make_mesh(shape, names, devices=["cpu"] * 4)
-        ref = multihost_program(cpu, name, args, kw, torch.device("cpu"))
+        with precision.x64(leg.endswith("64")):
+            ref = multihost_program(cpu, name, args, kw, torch.device("cpu"))
         if not all(same_bits(g.cpu(), r) for g, r in zip(got, ref)):
             raise AssertionError(f"39{leg}: the card differs from the CPU "
                                  f"run")
@@ -9774,15 +9824,15 @@ def check_multihost(card, gpu="cuda"):
             raise AssertionError(f"39{leg}: an empty result (vacuous)")
         what = {"a": "points kept", "b": "winners over the queries",
                 "c": "in-radius objects over the queries",
-                "d": "finite window minima"}[leg]
+                "d": "finite window minima"}[leg[0]]
         twin = (f"; equal to the one-process CPU run ({a['cpu_s']:.3f} s)"
                 if "cpu_s" in a else "")
         counters = (f"; overflow counters {a['counters']}"
                     if a["counters"] else "")
-        print(f"multihost 39{leg} {a['program']} on {tuple(a['shape'])}: "
-              f"{a['found']} {what}{counters}; spanning "
+        print(f"multihost 39{leg} {a['program']} on {tuple(a['shape'])} "
+              f"({a['dtype']}): {a['found']} {what}{counters}; spanning "
               f"{a['span_ms']:.3f} / {b['span_ms']:.3f} ms (ranks 0 / 1"
-              f"{', run first' if leg == 'd' else ''}), one process "
+              f"{', run first' if leg[0] == 'd' else ''}), one process "
               f"{a['one_ms']:.3f} / {b['one_ms']:.3f} ms; "
               f"{a['gloo_collectives']} gloo collectives, "
               f"{a['gloo_bytes']} / {b['gloo_bytes']} B delivered; "
@@ -9794,7 +9844,7 @@ def check_multihost(card, gpu="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Phase 40: the float64 mode (A14.1, A14.2a, A14.2b). With
+# Phase 40: the float64 mode (A14.1, A14.2a, A14.2b, A14.2c). With
 # ``precision.x64(True)`` and the entry points' default dtype (float64),
 # the operators ship raw
 # float64 coordinates and run B3's and B4's float64 instantiations: 40a
@@ -9809,9 +9859,9 @@ def check_multihost(card, gpu="cuda"):
 # carry, phase 18's polygon query_panes, the 64-query run_multi, phase
 # 22's pane join) against the same runs on the CPU through the plain
 # versions, counting B3's and B4's float64 launches leg by leg and B4's
-# by mode; 40e (below) the trajectory and serving slice; 40d times both
-# kernels, B4 also at the dense, G = 1 and join-tile shapes, B3 at
-# tJoin's. The legs run in depth cuts (one window each, two for
+# by mode; 40e (below) the trajectory and serving slice; 40f the mesh
+# runs; 40d times both kernels, B4 also at the dense, G = 1 and join-tile
+# shapes, B3 at tJoin's, both at a shard's shape of 40f's legs. The legs run in depth cuts (one window each, two for
 # the kNN, the pane paths' first panes); their CPU runs are background
 # twins (``X64_TWINS``).
 
@@ -10142,7 +10192,8 @@ class X64Launches:
     dispatches to (``polyline_min_dist_cuda`` on the card, the plain
     version on a CPU rehearsal). On the card the plain versions raise
     while it is installed: no float64 leg may reach them. Keeps each
-    leg's first arguments of each mode for 40d."""
+    leg's first float64 arguments of each B4 mode, and of B3 (mode
+    "b3"), for 40d."""
 
     def __init__(self, gpu):
         from spatialflink_tpu_torch.ops import join_kernel as jk
@@ -10188,13 +10239,25 @@ class X64Launches:
             return inner(xy, verts, ev, sel)
 
         setattr(pk, name, b4)
+        b3_name = ("join_extract_cuda" if self.gpu == "cuda"
+                   else "join_extract_plain")
+        b3_inner = getattr(jk, b3_name)
+        self.saved[(jk, b3_name)] = b3_inner
+
+        def b3(*args):
+            if args[0].dtype.itemsize == 8 and self.leg is not None:
+                self.first.setdefault((self.leg, "b3"), args)
+            return b3_inner(*args)
+
+        setattr(jk, b3_name, b3)
         if self.gpu == "cuda":
             def plain(*_a, **_k):
                 raise AssertionError("40c: a float64 leg on the card reached "
                                      "a plain version")
             self.saved[(pk, "polyline_min_dist_plain")] = \
                 pk.polyline_min_dist_plain
-            self.saved[(jk, "join_extract_plain")] = jk.join_extract_plain
+            self.saved.setdefault((jk, "join_extract_plain"),
+                                  jk.join_extract_plain)
             pk.polyline_min_dist_plain = plain
             jk.join_extract_plain = plain
         return self
@@ -10492,7 +10555,7 @@ def check_x64e(gpu, card):
                   f"(the CPU twin {name}), float64 distances bit for bit, "
                   f"tStats sums within their float64 bounds [{card}]")
         later(held_twin)
-    return b3, got
+    return b3, got, g_secs
 
 
 def x64e_tjoin_shape(dev, card):
@@ -10538,6 +10601,503 @@ def x64e_tjoin_shape(dev, card):
     return {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": bnd,
             "bound_by": by_, "points": int(len(sides[0][0])), "cap": TJ_CAP,
             "pairs": int(head[3]), "max_abs_err": err}
+
+
+# 40f: the mesh runs in float64 (A14.2c), every leg at its configuration's
+# full window width in a one-window cut (depth only), through the user's
+# entry point with ``mesh=`` on four shards of the card (the 2-D range
+# kNN's data × query mesh 2 × 2; the halo route eight shards), against the
+# same leg's float64 run on one device of the card, bit for bit (the tStats
+# pane engine's spatial sums within their float64 bound: ``index_add_``
+# adds in another order on the card), and that run against the CPU's
+# (the background twin ``x64_mesh``). The legs: config 3's polygon range
+# (1,000 polygons, r = 0.002, seed 7: one window of 262,144 points; the
+# mesh runs the dense kernel, one B4 a shard, one device the pruned one);
+# config 4's point join (one window, 131,072 points a side, B3 a shard);
+# join_point_1000polygons (one window, B4 gathered a shard); config 2's
+# kNN (its first one-second window); ``run_multi`` at 64 queries on the
+# 2 × 2 mesh (one window of 262,144); phase 17's geometry kNN (the first
+# of phase 14's windows, 131,072 polygons); tjoin_10s_1s_sliding's window
+# at 0 (204,800 points a side, cap 64, B3 a shard); bench_tstats_pane
+# uncut; tjoin_panes_10s_10ms at 100 panes a side (35a's cut; r = 0.001,
+# which float32 cannot hold); qserve_1024q_mixed's first of 8 windows;
+# ``run_partitioned`` at range_8shard_halo's configuration (one window)
+# against ``run``. The four gathering programs across processes run in
+# float64 in phase 39's ranks (legs a64, b64, d64; 39c's inputs are
+# float64 already).
+
+#: The 40f legs by the CPU twin that runs them (one device, through the
+#: plain versions).
+X64F_TWINS = {"x64_mesh": ("range", "join", "pg_join", "knn", "geom_knn",
+                           "tjoin", "halo")}
+#: The 40f legs whose one-device run on the card is a 40c or 40e leg's:
+#: the same stream, entry point and window, held to the CPU by that
+#: leg's twin.
+X64F_SHARED = {"run_multi": "40c", "tstats_panes": "40e",
+               "tjoin_panes": "40e", "qserve": "40e"}
+#: The float64 launches (B3, B4) each shard of a leg's mesh programs
+#: makes a call: the launches a leg's mesh run must add are these times
+#: the shard calls it made (``X64FShards``).
+X64F_PER_SHARD = {"range": (0, 1), "join": (1, 0), "pg_join": (0, 1),
+                  "geom_knn": (0, 2), "tjoin": (1, 0)}
+#: The legs whose rows 40d times at a shard's shape: (label, leg, mode).
+X64F_SHARD_SHAPES = (("b3", "join", "b3"), ("b3", "tjoin", "b3"),
+                     ("b4", "range", "dense"), ("b4", "pg_join", "gathered"))
+
+
+def x64f_inputs(legs=None):
+    """{leg: its host arrays} of 40f's ``legs`` (all by default), from
+    the seeds of the phases that own the configurations, each cut to its
+    first window; ``x64f_objects`` makes the objects a run takes."""
+    def range_xy():
+        return (join_stream(RANGE_WIN, 7).astype(np.float64),)
+
+    def join():
+        return tuple(soa_join_chunks(seed)[0] for seed in (1, 2))
+
+    def pg_join():
+        xy, ts = pg_points()
+        return xy[:PG_WIN].astype(np.float64), ts[:PG_WIN]
+
+    def geom():
+        return (geometry_chunks(GEOM_WINDOWS, GEOM_WIN)[0],)
+
+    def tjoin():
+        return tuple(c[:TJ_WINDOW_S] for c in _tjoin_sides())
+
+    def qserve_window():
+        xy, oid = qserve_points()
+        n = QS_OP_WINDOWS * QS_WIN
+        return xy[:n], oid[:n]
+
+    def halo():
+        _, _, xy, _, qxy, _ = halo_range_inputs()
+        return xy[:HALO_WIN], qxy
+
+    builders = {
+        "range": range_xy, "join": join, "pg_join": pg_join,
+        "knn": lambda: (pane_chunks()[0],),
+        "run_multi": lambda: multi_arrays(MULTI_WIN),
+        "geom_knn": geom, "tjoin": tjoin, "tstats_panes": tstats_stream,
+        "tjoin_panes": lambda: tuple(tpanes_cut(tpanes_stream(),
+                                                JS_TJ_PANES)),
+        "qserve": qserve_window, "halo": halo,
+    }
+    return {leg: builders[leg]() for leg in (builders if legs is None
+                                              else legs)}
+
+
+def x64f_objects(leg, inp):
+    """A leg's stream as its entry point takes it: ``Point`` (or
+    ``Polygon``) objects in one-second windows, and its queries."""
+    from spatialflink_tpu_torch.models.objects import Point
+
+    def points(xy, ts, ids, prefix):
+        return [Point(obj_id=f"{prefix}{i}", timestamp=int(t), x=x, y=y)
+                for i, t, (x, y) in zip(ids, ts.tolist(),
+                                        np.asarray(xy, np.float64).tolist())]
+
+    def per_second(n):
+        return (np.arange(n, dtype=np.int64) * 1000) // n
+
+    if leg == "range":
+        xy = inp[0]
+        return points(xy, per_second(len(xy)), range(len(xy)), "p"), \
+            range_polygons()
+    if leg == "join":
+        return tuple(points(np.stack([c["x"], c["y"]], axis=1), c["ts"],
+                            range(len(c["ts"])), side)
+                     for c, side in zip(inp, ("l", "r")))
+    if leg == "pg_join":
+        xy, ts = inp
+        return (points(xy, ts, range(len(xy)), "p"),
+                polygon_objects(pg_polygons(), 1))
+    if leg == "knn":
+        c = inp[0]
+        return (points(np.stack([c["x"], c["y"]], axis=1), c["ts"],
+                       c["oid"].tolist(), "o"),
+                Point(obj_id="query", x=QUERY[0], y=QUERY[1]))
+    if leg == "run_multi":
+        xy, oid, qxy = inp
+        return (points(xy, per_second(len(xy)), oid.tolist(), "o"),
+                [Point(obj_id=f"mq{i}", x=x, y=y)
+                 for i, (x, y) in enumerate(qxy.tolist())])
+    if leg == "geom_knn":
+        return geometry_objects(list(inp)), knn_query("polygon")
+    if leg == "tjoin":
+        n = TJ_WINDOW_S * TJ_SLIDE_PTS
+        return tuple(traj_points(c, n, TJ_SLIDE_PTS, side)
+                     for c, side in zip(inp, ("l", "r")))
+    if leg == "qserve":
+        return [e for e in qserve_command_stream(*inp) if e.timestamp < 1000]
+    if leg == "halo":
+        xy, qxy = inp
+        return (points(xy, per_second(len(xy)), range(len(xy)), "h"),
+                [Point(obj_id=f"hq{i}", x=x, y=y)
+                 for i, (x, y) in enumerate(qxy.tolist())])
+    return inp  # the array legs
+
+
+def x64f_mesh(leg, gpu):
+    """The mesh of a leg's sharded run on ``gpu``."""
+    if leg == "run_multi":
+        return mesh_of(gpu, (2, 2), ("data", "query"))
+    if leg == "halo":
+        return halo_mesh(gpu)
+    return mesh_of(gpu)
+
+
+def x64f_run(leg, device, objs, mesh=None):
+    """One 40f leg on ``device`` in the float64 mode at the entry points'
+    default dtype, on ``mesh`` (None: one device); the windows in
+    comparable form, distances as float64 bits (``x64_bits``). The halo
+    leg's one-device run is ``run``'s flag-table route."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch import qserve
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.streams.panes import traj_stats_sliding
+
+    grid = UniformGrid(**BEIJING)
+
+    def conf(window=1.0, slide=None):
+        return ops.QueryConfiguration(window_size=window,
+                                      slide_step=slide or window)
+
+    def pairs(res):
+        # A mesh's pairs are the one device's as a set: sorted.
+        return [(w.start, w.end, w.overflow, w.window_count, sorted(
+            (a.obj_id, a.timestamp, b.obj_id, b.timestamp,
+             np.float64(d).view(np.int64).item()) for a, b, d in w.pairs),
+            sorted(x64_bits([d for *_, d in w.pairs]))) for w in res]
+
+    def kept(res):
+        return [(w.start, w.end, w.window_count,
+                 [(o.obj_id, o.timestamp) for o in w.objects],
+                 x64_bits(np.asarray(w.dists))) for w in res]
+
+    def knn(res):
+        return [(w.start, w.end, [n[0] for n in w.neighbors],
+                 x64_bits([n[1] for n in w.neighbors])) for w in res]
+
+    if leg == "range":
+        op = ops.PointPolygonRangeQuery(conf(), grid, device=device)
+        return kept(op.run(iter(objs[0]), objs[1], RANGE_R, mesh=mesh))
+    if leg == "join":
+        op = ops.PointPointJoinQuery(conf(), grid, cap=JOIN_CAP,
+                                     device=device)
+        return pairs(op.run(iter(objs[0]), iter(objs[1]), JOIN_R,
+                            mesh=mesh))
+    if leg == "pg_join":
+        op = ops.PointPolygonJoinQuery(conf(), grid, device=device)
+        return pairs(op.run(iter(objs[0]), iter(objs[1]), PG_R, mesh=mesh))
+    if leg == "knn":
+        op = ops.PointPointKNNQuery(conf(), grid, device=device)
+        return knn(op.run(iter(objs[0]), objs[1], PANE_R, PANE_K,
+                          mesh=mesh))
+    if leg == "run_multi":
+        op = ops.PointPointKNNQuery(conf(), grid, device=device)
+        return [(m.start, m.end, m.window_count,
+                 [([n[0] for n in w.neighbors],
+                   x64_bits([n[1] for n in w.neighbors]))
+                  for w in m.results])
+                for m in op.run_multi(iter(objs[0]), objs[1], MULTI_R,
+                                      MULTI_K, mesh=mesh)]
+    if leg == "geom_knn":
+        op = ops.PolygonPolygonKNNQuery(conf(), grid, device=device)
+        return knn(op.run(iter(objs[0]), objs[1], KNN_GEOM_R, KNN_GEOM_K,
+                          mesh=mesh))
+    if leg == "tjoin":
+        op = ops.PointPointTJoinQuery(conf(TJ_WINDOW_S), grid, cap=TJ_CAP,
+                                      device=device)
+        # Pairs by their ids and distance bits; each trajectory's
+        # coordinates once by its id.
+        return [(w.start, w.end, w.window_count, sorted(
+            (a.obj_id, b.obj_id, np.float64(d).view(np.int64).item())
+            for a, b, d in w.pairs),
+            sorted(x64_bits([d for *_, d in w.pairs])),
+            sorted((k, t.coords.tobytes()) for k, t in {
+                t.obj_id: t for a, b, _ in w.pairs for t in (a, b)}.items()))
+            for w in op.run(iter(objs[0]), iter(objs[1]), TJ_R, mesh=mesh)]
+    if leg == "tstats_panes":
+        res = traj_stats_sliding(*objs, TS_BUCKET, TS_WINDOW_MS, TS_SLIDE_MS,
+                                 backend="device", device=device, mesh=mesh)
+        if res.spatial.dtype != np.float64:
+            raise AssertionError(f"40f {leg}: {res.spatial.dtype} sums")
+        return res
+    if leg == "tjoin_panes":
+        op = ops.PointPointTJoinQuery(
+            conf(TP_PPW * TP_SLIDE_MS / 1000, TP_SLIDE_MS / 1000), grid,
+            device=device)
+        return [(w[0], w[1], w[2].tolist(), w[3].tolist(), x64_bits(w[4]),
+                 w[5], w[6])
+                for w in op.run_soa_panes(*objs, TP_R, TP_IDS,
+                                          cap_w=TP_CAP_W,
+                                          pair_sel=TP_PAIR_SEL,
+                                          backend="device", mesh=mesh)]
+    if leg == "qserve":
+        op = qserve.QServeOperator(conf(), grid, device=device)
+        try:
+            res = list(op.run(iter(objs), mesh=mesh))
+        finally:
+            qserve.uninstall()
+        return [(r.start, r.end, r.window_count, list(r.lines()),
+                 x64_bits([row[4] for row in r.rows])) for r in res]
+    # halo: run_partitioned on the mesh, run's flag-table route without.
+    op = ops.PointPointRangeQuery(conf(), halo_grid(HALO_N), device=device)
+    res = (op.run(iter(objs[0]), objs[1], HALO_R) if mesh is None else
+           op.run_partitioned(iter(objs[0]), objs[1], HALO_R, mesh))
+    return kept(res)
+
+
+def x64f_matches(leg, windows) -> int:
+    """A 40f leg's matches over its windows (pairs, kept objects,
+    neighbours, egress rows, the tStats windows' point count)."""
+    if leg == "tstats_panes":
+        return int(windows.count.sum())
+    if leg == "tjoin_panes":
+        return sum(w[5] for w in windows)
+    if leg == "run_multi":
+        return sum(len(ids) for m in windows for ids, _ in m[3])
+    field = {"range": 3, "halo": 3, "qserve": 3, "tjoin": 3}.get(leg, 4)
+    if leg in ("knn", "geom_knn"):
+        field = 2
+    return sum(len(w[field]) for w in windows)
+
+
+def x64f_same(leg, got, want, inp, label):
+    """Whether two runs of a 40f leg agree: exactly, the tStats pane
+    engine's spatial sums within their float64 bound."""
+    from spatialflink_tpu_torch import precision
+    from spatialflink_tpu_torch.streams.panes import pane_spatial_bound
+
+    if leg == "tstats_panes":
+        with precision.x64(True):
+            bound = pane_spatial_bound(*inp, TS_BUCKET, TS_WINDOW_MS,
+                                       TS_SLIDE_MS)
+        check_pane_windows(got, want, bound, label)
+        return True
+    return got == want
+
+
+def x64f_legs(device, inputs, legs=None, on_leg=None):
+    """40f's ``legs`` of ``inputs`` on one ``device`` (the CPU twin's
+    runs): ({leg: windows}, the seconds of all, {leg: seconds})."""
+    from spatialflink_tpu_torch import precision
+
+    out, secs = {}, {}
+    for leg in (inputs if legs is None else legs):
+        objs = x64f_objects(leg, inputs[leg])
+        if on_leg is not None:
+            on_leg(leg)
+        t0 = time.perf_counter()
+        with precision.x64(True):
+            out[leg] = x64f_run(leg, device, objs)
+        secs[leg] = time.perf_counter() - t0
+    return out, sum(secs.values()), secs
+
+
+class X64FShards:
+    """Counts the shard calls of the mesh programs (``sharded.
+    _shard_parts``, every shard of every sharded window, join and pruned
+    program) while installed: a leg's float64 launches must be its
+    per-shard launches (``X64F_PER_SHARD``) times these."""
+
+    def __enter__(self):
+        from spatialflink_tpu_torch.parallel import sharded
+
+        self.mod, self.inner, self.shards = sharded, sharded._shard_parts, 0
+
+        def counted(mesh, args, data_idx, fn):
+            parts = self.inner(mesh, args, data_idx, fn)
+            self.shards += len(parts)
+            return parts
+
+        sharded._shard_parts = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._shard_parts = self.inner
+        return False
+
+
+def check_x64f(gpu, card, shared=None):
+    """40f on ``gpu`` (the card; ``cpu`` rehearses it): each leg on one
+    device, then on its mesh, held bit-equal (the tStats sums within
+    their bound), the mesh run's float64 launches held to its shard
+    calls; the CPU runs in the twin ``x64_mesh``, compared later.
+    ``shared``: {leg: (windows, seconds)} of the ``X64F_SHARED`` legs'
+    one-device runs, made by 40c and 40e (a leg missing there, as in a
+    rehearsal of 40f alone, runs here). Returns (the mesh runs' float64
+    launches {"join_extract", "polyline_min_dist"}, the first float64
+    kernel arguments of each leg's shards: {(leg, mode): args})."""
+    import torch
+
+    from spatialflink_tpu_torch import precision
+
+    t0 = time.perf_counter()
+    inputs = x64f_inputs()
+    in_secs = time.perf_counter() - t0
+    if float(np.float32(TP_R)) == TP_R:
+        raise AssertionError("40f: the pane-carry tJoin's radius is a "
+                             "float32 value")
+    got, one_ms, mesh_ms, shards = {}, {}, {}, {}
+    totals = {"join_extract": 0, "polyline_min_dist": 0}
+    with X64Launches(gpu) as xl:
+        for leg in inputs:
+            objs = x64f_objects(leg, inputs[leg])
+            runs = {}
+            if leg in (shared or {}):
+                runs["one"] = shared[leg][0]
+                one_ms[leg] = 1e3 * shared[leg][1]
+            for where, mesh in (("one", None),
+                                ("mesh", x64f_mesh(leg, gpu))):
+                if where in runs:
+                    continue
+                xl.on_leg(leg if mesh is not None else f"{leg} one device")
+                with X64FShards() as sc:
+                    t1 = time.perf_counter()
+                    with precision.x64(True):
+                        runs[where] = x64f_run(leg, gpu, objs, mesh)
+                    if gpu == "cuda":
+                        torch.cuda.synchronize()
+                    secs = time.perf_counter() - t1
+                (one_ms if mesh is None else mesh_ms)[leg] = 1e3 * secs
+                shards[leg] = sc.shards
+            xl.on_leg(None)
+            if not x64f_same(leg, runs["mesh"], runs["one"], inputs[leg],
+                             f"40f {leg}") or not x64f_matches(leg,
+                                                               runs["mesh"]):
+                raise AssertionError(f"40f {leg}: the mesh run differs from "
+                                     f"the one-device run, or holds nothing")
+            b3, b4 = X64F_PER_SHARD.get(leg, (0, 0))
+            made = xl.by_leg[leg]
+            need = {"join_extract": b3 * shards[leg],
+                    "polyline_min_dist": b4 * shards[leg]}
+            if made != need or (b3 or b4) and not shards[leg]:
+                raise AssertionError(f"40f {leg}: float64 launches {made}, "
+                                     f"the shards' {need} ({shards[leg]} "
+                                     f"shard calls)")
+            for k in totals:
+                totals[k] += made[k]
+            got[leg] = runs["one"]
+            n_win = len(runs["one"].starts) if leg == "tstats_panes" \
+                else len(runs["one"])
+            print(f"x64 40f {leg}: {x64f_matches(leg, runs['one'])} matches "
+                  f"over {n_win} windows; mesh "
+                  f"{mesh_ms[leg] / n_win:.3f} ms a window on "
+                  f"{x64f_mesh(leg, gpu).devices.size} shards, one device "
+                  f"{one_ms[leg] / n_win:.3f} ms a window"
+                  + (f" ({X64F_SHARED[leg]}'s run)" if leg in (shared or {})
+                     else "")
+                  + f" (the shards share one card: not a scaling figure); "
+                  + ("equal" if leg != "tstats_panes" else
+                     "counts and temporal sums equal, spatial sums within "
+                     "pane_spatial_bound")
+                  + f"; float64 launches of the mesh run join_extract="
+                  f"{made['join_extract']} polyline_min_dist="
+                  f"{made['polyline_min_dist']} ({shards[leg]} shard calls)"
+                  + ("; no plain version reached" if gpu == "cuda" else "")
+                  + f" [{card}]")
+    first = {key: xl.first[key] for key in xl.first
+             if key[0] in X64F_PER_SHARD}
+    print(f"x64 40f: inputs {in_secs:.3f} s; the mesh runs' float64 "
+          f"launches join_extract={totals['join_extract']} "
+          f"polyline_min_dist={totals['polyline_min_dist']} [{card}]")
+    if sorted([leg for legs in X64F_TWINS.values() for leg in legs]
+              + list(X64F_SHARED)) != sorted(inputs):
+        raise AssertionError("40f: a leg without its CPU run")
+    for name, legs in X64F_TWINS.items():
+        def held_twin(name=name, legs=legs):
+            want, _, w_secs = twin(name, *(inputs[leg] for leg in legs))
+            for leg in legs:
+                if not x64f_same(leg, got[leg], want[leg], inputs[leg],
+                                 f"40f {leg} CPU"):
+                    raise AssertionError(f"40f x64 {leg}: the card's windows "
+                                         f"differ from the CPU's")
+            print("exact x64 40f legs ("
+                  + ", ".join(f"{leg} {x64f_matches(leg, got[leg])} matches,"
+                              f" {w_secs[leg]:.3f} s on the CPU"
+                              for leg in legs)
+                  + f"): the card's one-device runs, and so its mesh runs, "
+                  f"equal to the CPU runs through the plain versions (the "
+                  f"CPU twin {name}), float64 distances bit for bit; "
+                  + ", ".join(f"{leg}'s through {where}'s twin"
+                              for leg, where in X64F_SHARED.items())
+                  + f" [{card}]")
+        later(held_twin)
+    return totals, first
+
+
+def plane_pair_tests(planes, layers):
+    """Pair tests a B3 call's planes hold: each cell's left points times
+    the right points of its (2·layers + 1)² neighbour cells."""
+    lidx, ridxp = planes[2], planes[5]
+    n = lidx.shape[0]
+    cl = (lidx >= 0).sum(dim=-1).long()
+    cr = (ridxp >= 0).sum(dim=-1).long()
+    span = 2 * layers + 1
+    nb = sum(cr[dx:dx + n, dy:dy + n] for dx in range(span)
+             for dy in range(span))
+    return int((cl * nb).sum())
+
+
+def x64f_shard_rows(dev, card, first):
+    """40d at a shard's shape: B3's and B4's float64 instantiations on the
+    first arguments one shard of 40f's mesh legs gave them, bit-exact
+    against their plain versions, then timed beside them and their
+    bounds. Returns {label: row}."""
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+    )
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+
+    rows = {}
+    for kind, leg, mode in X64F_SHARD_SHAPES:
+        args = first[(leg, mode)]
+        label = f"mesh_shard_{leg}"
+        if kind == "b3":
+            planes, (grid_n, layers, radius, max_pairs) = args[:6], args[6:]
+            got, err = b3_compare(planes, grid_n, layers, radius, max_pairs,
+                                  card, f"f64_{label}")
+            ms, call = time_ms(lambda: join_extract_cuda(*args))
+            plain, _ = time_ms(lambda: join_extract_plain(*args),
+                               X64_PLAIN_REPEATS)
+            tests = plane_pair_tests(planes, layers)
+            nbytes = sum(p.numel() * p.element_size() for p in planes) \
+                + 16 * max_pairs + 4
+            nops = 6 * tests
+            shape = (f"{int((planes[2] >= 0).sum())} left points on a "
+                     f"{grid_n}-grid, cap {planes[0].shape[-1]}, "
+                     f"{int(got[3])} pairs")
+        else:
+            _, err = b4_case(dev, *args, card, f"f64_{label}")
+            ms, call = time_ms(lambda: polyline_min_dist_cuda(*args))
+            plain, _ = time_ms(lambda: polyline_min_dist_plain(*args),
+                               X64_PLAIN_REPEATS)
+            nbytes, nops = b4_work(*args)
+            xy, verts, _, sel = args
+            c = verts.shape[0] if sel is None else sel.shape[1]
+            shape = (f"{mode}, N={xy.shape[0]} points, C={c} "
+                     f"{'boundaries' if sel is None else 'slots'} of "
+                     f"V={verts.shape[1]}")
+        bnd, by_ = bound_ms(nbytes, nops, F64_OPS_PER_S)
+        name = "join_extract_f64" if kind == "b3" else \
+            "polyline_min_dist_f64"
+        print(f"time {name} at a shard's shape (40f {leg}'s first shard "
+              f"call: {shape}): kernel {ms:.6f} ms device ({call:.6f} ms "
+              f"per call with its launches), plain PyTorch {plain:.6f} ms, "
+              f"bound {bnd:.6f} ms ({by_}: {nbytes} B, {nops} float64 "
+              f"operations at {F64_OPS_PER_S:g}/s), library none, medians "
+              f"of {REPEATS} calls (the plain version's of "
+              f"{X64_PLAIN_REPEATS}) [{card}]")
+        rows[label] = {"ms": ms, "call_ms": call, "plain_ms": plain,
+                       "bound_ms": bnd, "bound_by": by_, "max_abs_err": err,
+                       "shape": shape}
+    return rows
 
 
 def check_x64(dev, card, gpu="cuda"):
@@ -10623,8 +11183,16 @@ def check_x64(dev, card, gpu="cuda"):
     walls["c"] = time.perf_counter() - t0
     # 40e: the trajectory and serving slice.
     t0 = time.perf_counter()
-    tj_b3, tj_got = check_x64e(gpu, card)
+    tj_b3, tj_got, tj_secs = check_x64e(gpu, card)
     walls["e"] = time.perf_counter() - t0
+    # 40f: the mesh runs, on the one-device runs of 40c and 40e where
+    # those are its legs'.
+    t0 = time.perf_counter()
+    runs = {"40c": (got, g_secs), "40e": (tj_got, tj_secs)}
+    mesh_l, shard_first = check_x64f(gpu, card, {
+        leg: (runs[where][0][leg], runs[where][1][leg])
+        for leg, where in X64F_SHARED.items()})
+    walls["f"] = time.perf_counter() - t0
     rows = {}
     if gpu == "cuda":
         # 40d: the float64 kernels' times at the shapes of 40a and 40b,
@@ -10643,6 +11211,7 @@ def check_x64(dev, card, gpu="cuda"):
         b4_plain, _ = time_ms(lambda: polyline_min_dist_plain(*b4g))
         b4_bound, b4_by = bound_ms(b4_bytes, b4_ops, F64_OPS_PER_S)
         tj = x64e_tjoin_shape(dev, card)
+        shard_rows = x64f_shard_rows(dev, card, shard_first)
         for name, ms, call, plain, bnd, by_, nb, no, shape in (
                 ("join_extract_f64", b3_ms, b3_call, b3_plain, b3_bound,
                  b3_by, b3_bytes, 6 * pair_tests, "the join's full shape"),
@@ -10685,25 +11254,40 @@ def check_x64(dev, card, gpu="cuda"):
                 "source": "spatialflink_tpu_torch/kernels/csrc/"
                           "join_extract.cu",
                 "replaces": "spatialflink_tpu/ops/pallas_join.py:41",
-                "launches": launches["join_extract_f64"] + tj_b3,
+                "launches": launches["join_extract_f64"] + tj_b3
+                + mesh_l["join_extract"],
                 "launches_query_panes":
                     xl.by_leg["pp_query_panes"]["join_extract"],
                 "launches_tjoin": tj_b3,
-                "max_abs_err": max(err3, tj["max_abs_err"]), "ms": b3_ms,
-                "plain_ms": b3_plain, "bound_ms": b3_bound,
+                "launches_mesh": mesh_l["join_extract"],
+                "max_abs_err": max(err3, tj["max_abs_err"], *(
+                    r["max_abs_err"] for k, r in shard_rows.items()
+                    if k in ("mesh_shard_join", "mesh_shard_tjoin"))),
+                "ms": b3_ms, "plain_ms": b3_plain, "bound_ms": b3_bound,
                 "bound_by": b3_by, "library_ms": None, "dtype": "float64",
-                "shapes": {"tjoin_window": {**tj, "launches": tj_b3}}},
+                "shapes": {"tjoin_window": {**tj, "launches": tj_b3},
+                           "mesh_shard_join": shard_rows["mesh_shard_join"],
+                           "mesh_shard_tjoin":
+                               shard_rows["mesh_shard_tjoin"]}},
             "polyline_min_dist_f64": {
                 "name": "polyline_min_dist_f64", "route": "cuda",
                 "source": "spatialflink_tpu_torch/kernels/csrc/"
                           "polyline_min_dist.cu",
                 "replaces": "spatialflink_tpu/ops/pallas_kernels.py:39",
-                "launches": launches["polyline_min_dist_f64"],
+                "launches": launches["polyline_min_dist_f64"]
+                + mesh_l["polyline_min_dist"],
                 "launches_by_mode": dict(xl.modes),
-                "max_abs_err": err4, "ms": b4_ms, "plain_ms": b4_plain,
+                "launches_mesh": mesh_l["polyline_min_dist"],
+                "max_abs_err": max(err4, *(
+                    r["max_abs_err"] for k, r in shard_rows.items()
+                    if k in ("mesh_shard_range", "mesh_shard_pg_join"))),
+                "ms": b4_ms, "plain_ms": b4_plain,
                 "bound_ms": b4_bound, "bound_by": b4_by,
                 "library_ms": None, "dtype": "float64",
-                "shapes": shapes},
+                "shapes": {**shapes,
+                           "mesh_shard_range": shard_rows["mesh_shard_range"],
+                           "mesh_shard_pg_join":
+                               shard_rows["mesh_shard_pg_join"]}},
         }
         walls["d"] = time.perf_counter() - t0
     print(f"phase walls: 40 {time.perf_counter() - t_phase:.3f} s ("
@@ -10774,6 +11358,24 @@ def twin_gg_join():
     return digest(left, right), (want, secs)
 
 
+def twin_driver_range():
+    """Phase 32a: the range leg's clean run on the CPU, its egress."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="sft_driver_twin_")
+    try:
+        t0 = time.perf_counter()
+        egress, _ = driver_range_leg(torch.device("cpu"), tmp,
+                                     driver_range_stream(), range_polygons())
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return digest(driver_range_arrays()), (egress, secs)
+
+
 def twin_query_panes():
     """Phase 22: ``query_panes`` over the two ``Point`` streams."""
     streams = qpj_streams()
@@ -10823,6 +11425,14 @@ def twin_x64(name):
             x64_legs("cpu", inputs, legs))
 
 
+def twin_x64f(name):
+    """Phase 40f: the legs of ``X64F_TWINS[name]`` on one CPU device."""
+    legs = X64F_TWINS[name]
+    inputs = x64f_inputs(legs)
+    return (digest(*(inputs[leg] for leg in legs)),
+            x64f_legs("cpu", inputs, legs))
+
+
 def twin_x64e(name):
     """Phase 40e: the legs of ``X64E_TWINS[name]`` on the CPU."""
     legs = X64E_TWINS[name]
@@ -10842,12 +11452,13 @@ TWINS = {"x64_gg": functools.partial(twin_x64, "x64_gg"),
          "tjoin_run_single": functools.partial(twin_tjoin_objects,
                                                "run_single"),
          "tagg_sum": twin_tagg_sum, "tjoin_panes": twin_tjoin_panes,
-         "halo_range": twin_halo_range, "halo_registry": twin_halo_registry,
+         "driver_range": twin_driver_range, "halo_range": twin_halo_range, "halo_registry": twin_halo_registry,
          "x64": functools.partial(twin_x64, "x64"),
          "x64_geometry": functools.partial(twin_x64, "x64_geometry"),
          "x64_light": functools.partial(twin_x64, "x64_light"),
          "x64_traj": functools.partial(twin_x64e, "x64_traj"),
-         "x64_traj_light": functools.partial(twin_x64e, "x64_traj_light")}
+         "x64_traj_light": functools.partial(twin_x64e, "x64_traj_light"),
+         "x64_mesh": functools.partial(twin_x64f, "x64_mesh")}
 
 
 def run_domain_phases(card, gpu="cuda"):
@@ -10943,6 +11554,7 @@ def main(argv=None) -> int:
         return run(argv)
     finally:
         stop_twins()
+        stop_children(DRIVER_CHILDREN)
         stop_children(PARTITION_CHILDREN)
         stop_children(MULTIHOST_CHILDREN)
         stop_children(DAG_CHILDREN)

@@ -35,7 +35,7 @@ from spatialflink_tpu_torch.models.batch import GeometryBatch, PointBatch
 from spatialflink_tpu_torch.models.objects import LineString, Point, Polygon
 from spatialflink_tpu_torch.ops.counters import counters
 from spatialflink_tpu_torch.parallel.mesh import require_mesh
-from spatialflink_tpu_torch.precision import effective_f64, require_f32
+from spatialflink_tpu_torch.precision import effective_f64
 from spatialflink_tpu_torch.operators.query_config import (
     QueryConfiguration,
     QueryType,
@@ -116,14 +116,11 @@ class SpatialOperator:
                     f"devices, the operator's")
         return mesh
 
-    def run_mesh(self, mesh, dtype=np.float32):
+    def run_mesh(self, mesh):
         """The mesh a run executes on: its ``mesh=`` argument, checked,
-        else the operator's. A mesh run in float64 (``dtype`` float64
-        with x64 on) is not ported yet and raises (``require_f32``)."""
-        mesh = self.check_mesh(mesh) if mesh is not None else self.mesh
-        if mesh is not None:
-            require_f32(dtype, f"{type(self).__name__} on a mesh")
-        return mesh
+        else the operator's. A mesh run takes the unsharded run's lanes,
+        float64 ones in the float64 mode included (``precision.py``)."""
+        return self.check_mesh(mesh) if mesh is not None else self.mesh
 
     def _assembler(self) -> WindowAssembler:
         return WindowAssembler(

@@ -28,7 +28,7 @@ Every entry point honours ``dtype`` by the JAX package's rule
 (``precision.py``): with ``dtype`` float64 and the float64 mode on, raw
 float64 points, vertices and boxes, and float64 distances (B3's and B4's
 float64 instantiations on the card); otherwise centred float32. A mesh
-run in float64 is ROADMAP item A14.2c and raises.
+run takes the same lanes, each shard through the same kernels.
 """
 
 from __future__ import annotations
@@ -164,9 +164,9 @@ def grid_hash_join_batches(grid, left_batch, right_batch, radius, cap,
 
         left_in_grid = left_batch.valid & (left_batch.cell < grid.num_cells)
         lanes = ship(
-            center_coords(grid, left_batch.xy), left_in_grid,
+            center_coords(grid, left_batch.xy, dtype), left_in_grid,
             grid.cell_xy_indices_np(left_batch.xy),
-            center_coords(grid, right_batch.xy), right_batch.valid,
+            center_coords(grid, right_batch.xy, dtype), right_batch.valid,
             right_batch.cell, device=device,
         ).arrive()
         return sharded_join_window_compact(
@@ -245,9 +245,8 @@ class PointPointJoinQuery(SpatialOperator):
         (``precision.py``, the JAX package's rule). ``mesh`` (default the
         operator's): the grid join shards the left side over its ``data``
         axis (each shard through B3 on the card); the pairs are the
-        unsharded run's as a set. A mesh in float64 raises
-        (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        unsharded run's as a set."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -759,9 +758,8 @@ class _PointGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         operator's): the cell-sorted points shard contiguously over its
         ``data`` axis, the geometries replicate
         (``sharded_point_geometry_join_pruned``); the pairs are the
-        unsharded run's as a set, each shard's in its own order. A mesh in
-        float64 raises (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        unsharded run's as a set, each shard's in its own order."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)
@@ -918,9 +916,8 @@ class _GeometryGeometryJoinQuery(SpatialOperator, _PrunedGeomJoinRetry):
         distance) pairs, the distances float32, or float64 in the float64
         mode (the module's note). ``mesh`` (default the operator's): the
         left side shards over its ``data`` axis; the pairs are the
-        unsharded run's as a set. A mesh in float64 raises (ROADMAP
-        A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        unsharded run's as a set."""
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(ordinary, query_stream)

@@ -23,8 +23,8 @@ Every entry point with a ``dtype`` honours it by the JAX package's rule
 float64 lanes (points, vertices, query boxes), float64 digests, pane
 carries and distances (B4's float64 instantiation for a polygon or
 linestring query and for both directions of a geometry stream);
-otherwise centred float32, as before. A mesh run in float64 is ROADMAP
-item A14.2c and raises. ``run_wire_panes`` takes no ``dtype``: its u16
+otherwise centred float32, as before; a mesh run takes the same lanes.
+``run_wire_panes`` takes no ``dtype``: its u16
 wire planes dequantize to float32 in either mode, as in the JAX
 package.
 """
@@ -171,9 +171,8 @@ class _PointStreamKNNQuery(SpatialOperator):
         float64 (the module's note), float32 otherwise. ``mesh`` (default
         the operator's): each window's points shard over its ``data``
         axis, each shard digests its points and the digests merge before
-        the one top-k, with the unsharded result; a mesh in float64
-        raises (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        the one top-k, with the unsharded result."""
+        mesh = self.run_mesh(mesh)
         flags = flags_for_queries(self.grid, radius, [query_obj])
         from spatialflink_tpu_torch.driver import strict_driver
 
@@ -482,9 +481,8 @@ class PointPointKNNQuery(_PointStreamKNNQuery):
         2-D mesh also splits the query batch and its flag tables over
         ``query`` (``parallel/sharded.py:sharded_knn_multi``), with the
         unsharded results; the padded batch rounds up to a multiple of
-        the query axis. ``dtype``: ``run``'s rule; a mesh in float64
-        raises (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        the query axis. ``dtype``: ``run``'s rule."""
+        mesh = self.run_mesh(mesh)
         nq = len(query_points)
         if nq == 0:
             return
@@ -1066,8 +1064,8 @@ class _GeometryStreamKNNQuery(SpatialOperator):
         raises ``ValueError`` in that window, as the reference's top-k
         does. ``mesh`` (default the operator's): the objects shard over
         its ``data`` axis, with the unsharded result. ``dtype``: the
-        module's rule; a mesh in float64 raises (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        module's rule."""
+        mesh = self.run_mesh(mesh)
         evaluate = self._window_evaluator(query_obj, radius, k, mesh, dtype)
         for win in self.windows(stream):
             batch = self.geometry_batch(win.events, mesh=mesh)

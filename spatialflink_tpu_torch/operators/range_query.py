@@ -20,8 +20,8 @@ Every class honours ``dtype`` by the JAX package's rule
 lanes (points, or the vertices of the geometry streams and of the query
 set) are raw float64 coordinates and the kernels (B4's float64
 instantiation on the card) compare the radius and return distances in
-float64; otherwise centred float32, as before. ``run_partitioned`` and a
-mesh run in float64 are ROADMAP item A14.2c and raise.
+float64; otherwise centred float32, as before. A mesh run takes the same
+lanes as the unsharded one, each shard through the same kernels.
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ from spatialflink_tpu_torch.operators.base import (
 )
 from spatialflink_tpu_torch.operators.query_config import QueryType
 from spatialflink_tpu_torch.parallel.mesh import require_mesh
-from spatialflink_tpu_torch.precision import require_f32
 from spatialflink_tpu_torch.ops.counters import count_candidates, counters
 from spatialflink_tpu_torch.ops.range import (
     geometry_range_query_kernel,
@@ -177,8 +176,8 @@ class _PointStreamRangeQuery(SpatialOperator):
         with the float64 mode on computes in float64 (the module's note),
         float32 otherwise. ``mesh`` (default the operator's): the window
         kernels run sharded over its ``data`` axis, with the unsharded
-        results; a mesh in float64 raises (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        results, in float64 as in float32."""
+        mesh = self.run_mesh(mesh)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         flags = flags_for_queries(self.grid, radius, query_set)
@@ -296,9 +295,7 @@ class _PointStreamRangeQuery(SpatialOperator):
         to ``dtype``, as in the JAX package, and differ from the
         flag-table path only where an inactive pair ties the radius
         exactly (``ops/halo.py``). ``mesh``'s devices must be of the
-        operator's device type. In float64 (``dtype`` float64, x64 on)
-        it raises (ROADMAP A14.2c)."""
-        require_f32(dtype, f"{type(self).__name__}.run_partitioned")
+        operator's device type."""
         if self.query_kind != "point":
             raise ValueError(
                 "run_partitioned supports point query sets only "
@@ -499,8 +496,8 @@ class _GeometryStreamRangeQuery(SpatialOperator):
         CountBased). ``dtype`` float64 with the float64 mode on computes
         in float64 (the module's note), float32 otherwise. ``mesh``
         (default the operator's): the objects shard over its ``data``
-        axis; a mesh in float64 raises (ROADMAP A14.2c)."""
-        mesh = self.run_mesh(mesh, dtype)
+        axis, with the unsharded results."""
+        mesh = self.run_mesh(mesh)
         if not isinstance(query_set, (list, tuple)):
             query_set = [query_set]
         evaluate = self._window_evaluator(query_set, radius, mesh, dtype)

@@ -28,8 +28,8 @@ float64 and the float64 mode on, coordinates go to the device raw and
 uncentred in float64, and every distance, radius test, sentinel, carry
 and returned distance is float64, B3 running its float64 instantiation;
 otherwise the lanes are centred float32 (``operators/base.py:
-center_coords``). A ``mesh=`` run in float64 is ROADMAP item A14.2c and
-raises.
+center_coords``). A ``mesh=`` run takes the same lanes as the unsharded
+one.
 
 ``TStatsQuery.run`` and ``TJoinQuery.run_soa_panes`` go through the
 dataflow driver (``driver.py``), as the JAX operators do;
@@ -209,7 +209,7 @@ class TRangeQuery(_TrajectoryOperator):
         the lanes of ``dtype`` (float64 in the float64 mode). ``mesh``
         (default the operator's): the points shard over its ``data``
         axis and the per-trajectory hit flags combine (JAX's ``pmax``)."""
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         qv, qe = self._queries(query_polygons, dtype)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
@@ -277,7 +277,7 @@ class TKNNQuery(_TrajectoryOperator):
         lanes of ``dtype`` (float64 in the float64 mode). ``mesh``
         (default the operator's): the points shard over its ``data`` axis
         and the per-trajectory digests merge before the top-k."""
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         flags_d, q = self._query(query_point, radius, dtype)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
@@ -520,7 +520,7 @@ class TJoinQuery(_TrajectoryOperator):
         through B3's float64 instantiation on the card, its distances
         float64. ``mesh`` (default the operator's): the point join shards
         the left side over its ``data`` axis (``grid_hash_join_batches``)."""
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         merged = (
             _TaggedEvent(ev.timestamp, tag, ev)
             for tag, ev in merge_by_timestamp(stream, query_stream)
@@ -558,13 +558,15 @@ class TJoinQuery(_TrajectoryOperator):
                 for a, b, d in zip(l_uniq[kk // num_r], r_uniq[kk % num_r],
                                    dists)
             )
+            # Each trajectory is built once a window, however many pairs
+            # it is in.
             lgroups = group_by_oid(left_ev)
             rgroups = group_by_oid(right_ev)
-            pairs = [
-                (sub_trajectory(lgroups[a], a, win.start),
-                 sub_trajectory(rgroups[b], b, win.start), d)
-                for a, b, d in found
-            ]
+            ltraj = {a: sub_trajectory(lgroups[a], a, win.start)
+                     for a in {a for a, _, _ in found}}
+            rtraj = {b: sub_trajectory(rgroups[b], b, win.start)
+                     for b in {b for _, b, _ in found}}
+            pairs = [(ltraj[a], rtraj[b], d) for a, b, d in found]
             yield TJoinResult(win.start, win.end, pairs, len(win.events))
 
     def run_single(self, stream, radius, dtype=np.float64):
@@ -734,7 +736,7 @@ class TJoinQuery(_TrajectoryOperator):
         ``driver=`` a checkpoint counts the windows emitted, and a resume
         over the replayed bounded chunks rescans and skips the committed
         prefix."""
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         conf = self.conf
         size, slide = conf.window_size_ms, conf.slide_step_ms
         if size % slide != 0:
@@ -889,11 +891,11 @@ class TAggregateQuery(_TrajectoryOperator):
     def run(self, stream: Iterable[Point], dtype=np.float64,
             mesh=None) -> Iterator[TAggregateResult]:
         """One ``TAggregateResult`` per fired window. The spans are
-        integers, which no coordinate reaches: ``dtype`` changes nothing
-        but a float64 mesh run's refusal. ``mesh`` (default the
+        integers, which no coordinate reaches: ``dtype`` changes
+        nothing. ``mesh`` (default the
         operator's): the points shard over its ``data`` axis and the
         (cell, objID) spans combine by min and max."""
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         for win in self.windows(stream):
             batch = self.point_batch(win.events)
             self._ingest_window(batch.ts, batch.cell, batch.oid, batch.valid,
@@ -1041,7 +1043,7 @@ class TStatsQuery(_TrajectoryOperator):
         (``parallel/sharded.py:sharded_traj_stats``): counts and temporal
         sums exact, spatial sums reassociated within
         ``ops/trajectory.py:spatial_sum_bound``."""
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         from spatialflink_tpu_torch.driver import strict_driver
 
         realtime = self.conf.query_type in (QueryType.RealTime,

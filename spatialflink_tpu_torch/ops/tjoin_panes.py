@@ -51,9 +51,8 @@ compares d² with ``radius_sq_bound`` of that dtype, which gives the same
 mask as comparing the root with the radius. The carry is float32 (the
 centred lanes), or float64 in the float64 mode (``precision.py``), as the
 JAX carry is float64 under x64: its coordinate planes, digests, block
-digests, radius and window minima are then float64. The mesh scan
-(``_scan_mesh``) is float32 only: a float64 carry on a mesh is ROADMAP
-item A14.2c and raises.
+digests, radius and window minima are then float64, on a mesh
+(``_scan_mesh``) as on one device.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ import torch
 
 from spatialflink_tpu_torch.ops.distances import sqrt_rn
 from spatialflink_tpu_torch.ops.select import first_k_prefix_indices
-from spatialflink_tpu_torch.precision import effective_f64, not_ported
+from spatialflink_tpu_torch.precision import effective_f64
 
 #: Pane tag of a slot never written (far below any live window).
 EMPTY_TAG = -(1 << 30)
@@ -493,14 +492,11 @@ def tjoin_pane_scan(carry: TJoinPaneCarry, ts, lps: Sequence[torch.Tensor],
     ``mesh``: probe-parallel execution over the mesh's ``data`` axis
     (``_scan_mesh``): pane points shard (PC must divide by the axis), the
     carry and the expiring panes replicate, each slide's contributions
-    gather. Equal to the unsharded scan. A float64 carry on a mesh is
-    ROADMAP item A14.2c and raises."""
+    gather. Equal to the unsharded scan, in the carry's dtype."""
     if mesh is not None:
         from spatialflink_tpu_torch.parallel.mesh import require_mesh
 
         require_mesh(mesh)
-        if carry.digests.dtype != torch.float32:
-            raise not_ported("the pane-carry tJoin's mesh scan")
     if torch.is_tensor(ts):
         ts = ts.tolist()
     if lps_expire is None:
@@ -577,14 +573,14 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
         raise ValueError(
             f"the carry lives on {carry.digests.device}, not on the mesh's "
             f"home device {home}")
-    radius = float(np.float32(radius))
+    radius = float(_np_dtype(carry.digests)(radius))
     own = local_shards(mesh)
     replicas = {home: carry}
     for s in own:
         if devs[s] not in replicas:
             replicas[devs[s]] = _carry_to(carry, devs[s])
-    wmins = torch.empty((len(ts), num_ids * num_ids), dtype=torch.float32,
-                        device=home)
+    wmins = torch.empty((len(ts), num_ids * num_ids),
+                        dtype=carry.digests.dtype, device=home)
 
     def rows(fields, dev):
         """Per slide, the fields' rows on ``dev``."""
@@ -604,7 +600,7 @@ def _scan_mesh(mesh, carry, ts, lps, rps, radius, grid_n: int, cap_w: int,
                   rows(rps_expire, dev)) for dev in replicas}
     sides = (shard_rows(lps), shard_rows(rps))
     empty = (torch.empty(0, dtype=torch.int64, device=home),
-             torch.empty(0, dtype=torch.float32, device=home))
+             torch.empty(0, dtype=carry.digests.dtype, device=home))
     for i, t in enumerate(ts):
         t = int(t)
         for dev, c in replicas.items():

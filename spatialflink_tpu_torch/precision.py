@@ -10,13 +10,18 @@ raw, uncentred, in float64, as the JAX package ships them, and the
 kernels (B3, B4 on the card) compute, compare the radius and return
 distances in float64; sentinels are ``finfo(float64).max``, and the kNN
 pane carries and the pane-carry tJoin's carry are float64. That holds for
-the range, kNN and join operators of point and geometry streams
-(``run``, ``run_soa``, ``query_incremental``), the pane-carry kNN
-(``query_panes``, ``run_soa_panes``), ``run_multi``, the pane-carry
-point join (``query_panes``), the trajectory operators (tRange, tKnn,
-tJoin with its pane carry, tAggregate, tStats) and the standing-query
-server (``qserve.py``). One path follows the mode alone, as its JAX
-counterpart does: the tStats device pane engine
+every entry point that takes a ``dtype``: the range, kNN and join
+operators of point and geometry streams (``run``, ``run_soa``,
+``query_incremental``), the pane-carry kNN (``query_panes``,
+``run_soa_panes``), ``run_multi``, the pane-carry point join
+(``query_panes``), the trajectory operators (tRange, tKnn, tJoin with
+its pane carry, tAggregate, tStats), the standing-query server
+(``qserve.py``), every ``mesh=`` run of them, in one process or across
+processes (``parallel/sharded.py``: each shard takes the unsharded run's
+lanes and kernels). The grid-partitioned ``run_partitioned``
+(``parallel/halo.py``) takes the raw coordinates cast to ``dtype``, as
+the JAX package's does, in either mode. One path follows the mode
+alone, as its JAX counterpart does: the tStats device pane engine
 (``streams/panes.py:traj_stats_sliding``) takes float64 lanes whenever
 x64 is on, and takes no ``dtype``. In every other case the lanes are the
 centred float32 ones. The headline wire path (``run_wire_panes``) is
@@ -31,11 +36,6 @@ whole process, for every thread::
     precision.enable_x64(True)   # jax.config.update("jax_enable_x64", True)
     with precision.x64(True):    # jax.enable_x64(True)
         ...
-
-Entry points whose float64 route is not ported yet (ROADMAP A14.2c:
-any ``mesh=`` run and ``run_partitioned``) raise ``not_ported``'s
-``NotImplementedError`` (through ``require_f32``) when the rule asks for
-float64, rather than compute in float32 unasked.
 """
 
 from __future__ import annotations
@@ -83,18 +83,3 @@ def effective_f64(dtype) -> bool:
     ``center_coords``)."""
     return np.dtype(dtype) == np.float64 and _config.x64
 
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for ``what``, an entry point whose float64 route is not
-    ported yet (ROADMAP A14.2c), for its caller to raise."""
-    return NotImplementedError(
-        f"{what} in float64 (x64 on, dtype float64) is not ported yet: "
-        f"ROADMAP item A14.2c. Turn x64 off or pass dtype=np.float32 for "
-        f"its centred float32 route.")
-
-
-def require_f32(dtype, what: str) -> None:
-    """Raise ``not_ported(what)`` when ``dtype`` asks for float64
-    (``effective_f64``) of ``what``; return otherwise."""
-    if effective_f64(dtype):
-        raise not_ported(what)

@@ -50,8 +50,7 @@ float64 first (``operators/base.py:center_coords``), and the float64
 radii make the radius test the JAX package's under x64. ``mesh=``: every
 bucket runs through ``parallel/sharded.py:sharded_registry_bucket``, the
 window's points sharded over the mesh's ``data`` axis, with the
-unsharded results; a mesh run in float64 is ROADMAP item A14.2c and
-raises.
+unsharded results, in float64 as in float32.
 """
 
 from __future__ import annotations
@@ -526,7 +525,7 @@ class QServeOperator(SpatialOperator):
             registry_bucket_kernel,
         )
 
-        mesh = self.run_mesh(mesh, dtype)
+        mesh = self.run_mesh(mesh)
         if self.conf.allowed_lateness_ms > 0:
             # A late-event refire re-runs a window already charged to the
             # per-window QoS and overflow accumulators (whose retry
@@ -563,8 +562,7 @@ class QServeOperator(SpatialOperator):
         ``dtype``: ``run``'s rule."""
         from spatialflink_tpu_torch.ops.compaction import pick_capacity
 
-        if mesh is not None:
-            self.run_mesh(mesh, dtype)
+        self.check_mesh(mesh)
         reg = self.qserve_registry
         with telemetry.span("window.qserve", start=win.start,
                             events=len(win.events)):

@@ -257,34 +257,30 @@ def test_job_surface_modules_at_their_jax_paths():
 def test_every_not_ported_message_names_its_item():
     """No ``NotImplementedError`` is left in the port but the JAX
     package's own (a protocol feature neither package has, raised with
-    the JAX text) and the one of ``precision.not_ported``, which names
-    ROADMAP item A14.2c (the float64 mode of the mesh runs and
-    ``run_partitioned``, the last of it): A12.3 is ported, and
-    no source names any part of A11.4 or of A12 in any form: no sharded
-    program refuses a mesh that spans processes."""
+    the JAX text): the float64 mode covers every entry point, so none
+    names ROADMAP item A14 in any form (``precision.not_ported`` is
+    gone with A14.2c); A12.3 is ported, and no source names any part of
+    A11.4 or of A12 in any form: no sharded program refuses a mesh that
+    spans processes."""
     import re
 
-    waiting = 0
-    a14_2 = []
+    import spatialflink_tpu_torch.precision as tprecision
+
+    assert not hasattr(tprecision, "not_ported")
+    assert not hasattr(tprecision, "require_f32")
     port = REPO / "spatialflink_tpu_torch"
     for path in port.rglob("*.py"):
         text = path.read_text()
         assert not re.search(r"A11\.4", text), path
         assert not re.search(r"A12", text), path
+        assert not re.search(r"A14\.2c|not_ported|require_f32", text), path
         for m in re.finditer(r"(raise|return) NotImplementedError\(", text):
             body = text[m.end():m.end() + 300].split("\n\n")[0]
-            if re.search(r"A12|WAITING_COMPONENTS", body):
-                waiting += 1
-                continue
-            if re.search(r"A14\.2c", body):
-                a14_2.append(path.relative_to(port).as_posix())
-                continue
+            assert not re.search(r"A1[24]|WAITING_COMPONENTS", body), path
             first = re.search(r'"([^"]{12,})"', body).group(1)
             jpath = REPO / "spatialflink_tpu" / path.relative_to(port)
             assert jpath.exists() and first in jpath.read_text(), \
                 (path, body)
-    assert waiting == 0
-    assert a14_2 == ["precision.py"]
 
 
 def _public(mod):

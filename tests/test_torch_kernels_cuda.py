@@ -2343,3 +2343,154 @@ def test_float64_mode_runs_the_float64_kernels_on_card():
                                   else a, b.view(np.int64)
                                   if b.dtype == np.float64 else b)
     assert sum(w[5] for w in cpu[2]) > 0
+
+
+# ---------------------------------------------------------------------------
+# The float64 mode on a mesh: B3's and B4's float64 instantiations a shard
+
+
+def _beijing_sides(rng, n_left, n_right):
+    """Two float64 sides over the Beijing extent on its 100-grid: (xy,
+    valid, cell) lanes on the card, raw, as the float64 mode ships them."""
+    from spatialflink_tpu_torch.grid import UniformGrid
+
+    grid = UniformGrid(100, 115.5, 117.6, 39.6, 41.1)
+    dev = torch.device("cuda")
+    lanes = []
+    for n in (n_left, n_right):
+        xy = np.stack([rng.uniform(115.5, 117.6, n),
+                       rng.uniform(39.6, 41.1, n)], axis=1)
+        lanes += [torch.from_numpy(xy).to(dev),
+                  torch.ones(n, dtype=torch.bool, device=dev),
+                  torch.from_numpy(grid.assign_cells_np(xy).astype(
+                      np.int32)).to(dev)]
+    return grid, lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["join_shard", "tjoin_shard"])
+def test_join_extract_float64_at_a_shard_shape_on_card(case):
+    """B3's float64 instantiation at a shard's shape of the float64 mesh
+    legs, bit-exact against its plain version within and over budget: a
+    quarter of config 4's left side (32,768 points) against its whole
+    right side (131,072) at r = 0.002, cap 48; a quarter of tJoin's
+    window (51,200 against 204,800) at r = 0.001, cap 64."""
+    _card()
+    from spatialflink_tpu_torch.ops.join_kernel import (
+        join_extract_cuda,
+        join_extract_plain,
+        join_planes,
+    )
+
+    n, m, r, cap = ((32_768, 131_072, 0.002, 48) if case == "join_shard"
+                    else (51_200, 204_800, 0.001, 64))
+    grid, lanes = _beijing_sides(np.random.default_rng(25), n, m)
+    layers = grid.candidate_layers(r)
+    planes, over = join_planes(*lanes, grid_n=grid.n, layers=layers,
+                               cap_left=cap, cap_right=cap)
+    assert planes[0].dtype == torch.float64 and int(over) == 0
+    want = join_extract_plain(*planes, grid.n, layers, r, 1 << 18)
+    count = int(want[3])
+    assert count > 1000
+    for budget in (1 << 18, count // 2):
+        got = join_extract_cuda(*planes, grid.n, layers, r, budget)
+        torch.cuda.synchronize()
+        assert got[2].dtype == torch.float64 and int(got[3]) == count
+        k = len(got[0])
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(_bits(g).cpu(), _bits(w[:k]).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense_1000", "gathered"])
+def test_polyline_min_dist_float64_at_a_shard_shape_on_card(mode):
+    """B4's float64 instantiation at a shard's shape of the float64 mesh
+    legs, bit-exact against its plain version: a quarter of config 3's
+    window (65,536 points) against its 1,000 polygons dense, as the mesh
+    range runs them; a quarter of join_point_1000polygons' window (32,768
+    points) gathered at 8 slots."""
+    dev = _card()
+    from spatialflink_tpu_torch.operators.base import pack_query_geometries
+    from spatialflink_tpu_torch.ops.polyline_kernel import (
+        polyline_min_dist_cuda,
+        polyline_min_dist_plain,
+    )
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    rng = np.random.default_rng(26)
+    verts, ev = pack_query_geometries(generate_query_polygons(
+        1000, 115.5, 39.6, 117.6, 41.1, seed=3))
+    n = 65_536 if mode == "dense_1000" else 32_768
+    xy = np.stack([rng.uniform(115.5, 117.6, n),
+                   rng.uniform(39.6, 41.1, n)], axis=1)
+    sel = None if mode == "dense_1000" else torch.from_numpy(
+        rng.integers(0, 1000, (n, 8)).astype(np.int32)).to(dev)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xy, verts.astype(np.float64), ev)]
+    got = polyline_min_dist_cuda(*args, sel)
+    want = polyline_min_dist_plain(*args, sel)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    assert got.shape == (n, 1000 if sel is None else 8)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_sharded_float64_b3_and_b4_a_shard_on_card():
+    """The float64 mode's mesh programs on four shards of the card: the
+    grid join through B3's float64 instantiation once a shard, and the
+    dense polygon range window program through B4's once a shard, each
+    equal to its unsharded run on the card bit for bit."""
+    _card()
+    from spatialflink_tpu_torch.operators.base import (
+        pack_query_geometries,
+        window_program,
+    )
+    from spatialflink_tpu_torch.ops.join_kernel import join_extract, join_window
+    from spatialflink_tpu_torch.ops.polyline_kernel import polyline_min_dist
+    from spatialflink_tpu_torch.ops.range import range_polygons_fused
+    from spatialflink_tpu_torch.parallel.sharded import (
+        sharded_join_window_compact,
+    )
+    from spatialflink_tpu_torch.utils.helper import generate_query_polygons
+
+    rng = np.random.default_rng(27)
+    grid, lanes = _beijing_sides(rng, 16_384, 8192)
+    r = 0.01
+    lxy, lv, lc, rxy, rv, rc = lanes
+    in_grid = lv & (lc < grid.num_cells)
+    join_extract.launches_f64 = 0
+    got = sharded_join_window_compact(
+        _card_mesh(), lxy, in_grid,
+        torch.from_numpy(grid.cell_xy_indices_np(lxy.cpu().numpy())).to(
+            lxy.device), rxy, rv, rc, grid.neighbor_offsets(r),
+        grid_n=grid.n, radius=r, cap=64, max_pairs=1 << 16)
+    assert join_extract.launches_f64 == 4
+    want = join_window(lxy, lv, lc, rxy, rv, rc, grid.n,
+                       grid.candidate_layers(r), r, 64, 64, 1 << 16)
+
+    def pairs(res):
+        li, ri, d = (x.cpu().numpy() for x in res[:3])
+        keep = li >= 0
+        return set(zip(li[keep].tolist(), ri[keep].tolist(),
+                       d[keep].view(np.int64).tolist()))
+
+    assert got.dist.dtype == torch.float64
+    assert pairs(got) == pairs(want) and pairs(want)
+    assert int(got.overflow) == int(want.overflow) == 0
+    verts, ev = pack_query_geometries(generate_query_polygons(
+        100, 115.5, 39.6, 117.6, 41.1, seed=3))
+    dev = lxy.device
+    flags = torch.from_numpy(rng.integers(0, 3, grid.num_cells + 1).astype(
+        np.uint8)).to(dev)
+    args = [lxy, lv, lc, flags,
+            torch.from_numpy(verts.astype(np.float64)).to(dev),
+            torch.from_numpy(ev).to(dev)]
+    polyline_min_dist.launches_f64 = 0
+    got = window_program(_card_mesh(), range_polygons_fused, (0, 1, 2),
+                         7)(*args, r)
+    assert polyline_min_dist.launches_f64 == 4
+    want = range_polygons_fused(*args, r)
+    assert got[1].dtype == torch.float64
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(_bits(got[1]), _bits(want[1]))

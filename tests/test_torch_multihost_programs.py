@@ -25,7 +25,15 @@ Contracts held:
 - ``mesh_from_config`` inside the group spans both ranks; without one it
   is unchanged;
 - each spanning program made gloo collectives, the same number on both
-  ranks.
+  ranks;
+- the float64 mode (``precision.x64(True)``, ``run_programs64``): the
+  four programs on float64 coordinates, radii and carries (the tJoin
+  scan at a radius float32 cannot hold), ``run_multi``, the tJoin pane
+  carry operator and every other ``mesh=`` entry point with
+  ``run_partitioned`` (``site_runs``) on both ranks bit-equal to their
+  one-process float64 runs; the four programs against the JAX programs
+  at x64 within 1 float64 ulp; the multi-query kNN's merge moves 8-byte
+  minima through the group.
 
 The children import only torch, numpy and the port; the JAX package is
 imported by the tests that compare with it.
@@ -33,6 +41,7 @@ imported by the tests that compare with it.
 
 import ast
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -46,6 +55,8 @@ REPO = Path(__file__).resolve().parents[1]
 LAYOUTS = {"2x2": (2, 2), "1x4": (1, 4), "4": (4,)}
 NAMES = ("data", "query")
 R_RANGE, R_MULTI, K_MULTI, NSEG = 1.5, 2.5, 5, 128
+#: The float64 tJoin scan's radius: one float32 cannot hold.
+R_TJOIN64 = 0.8
 PANE_KW = dict(grid_n=10, cap_w=32, layers=1, ppw=6, num_ids=8, pair_sel=16)
 S_PANES, PC = 24, 64
 #: The tJoin slides whose valid points lie in one rank's slices only (on
@@ -65,36 +76,37 @@ def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _batch(rng, n=1000, bucket=1024):
+def _batch(rng, n=1000, bucket=1024, dtype=np.float32):
     from spatialflink_tpu_torch.models.batch import PointBatch
 
     xy = rng.uniform(0, 10, size=(n, 2))
     oid = rng.integers(0, 100, n).astype(np.int32)
     b = PointBatch.from_arrays(xy, None, oid, bucket=bucket).with_cells(
         _grid())
-    b.xy = b.xy.astype(np.float32)
+    b.xy = b.xy.astype(dtype)
     return b
 
 
-def range_inputs():
-    """(xy, valid, per-point flags, queries) of the 2-D range, numpy."""
+def range_inputs(dtype=np.float32):
+    """(xy, valid, per-point flags, queries) of the 2-D range, numpy, the
+    coordinates in ``dtype``."""
     from spatialflink_tpu_torch.ops.cells import gather_cell_flags
 
     grid = _grid()
-    b = _batch(np.random.default_rng(31))
-    q = np.random.default_rng(32).uniform(0, 10, (8, 2)).astype(np.float32)
+    b = _batch(np.random.default_rng(31), dtype=dtype)
+    q = np.random.default_rng(32).uniform(0, 10, (8, 2)).astype(dtype)
     table = grid.neighbor_flags(R_RANGE, [grid.flat_cell(*p) for p in q])
     flags = gather_cell_flags(t(b.cell), t(table)).numpy()
     return b.xy, b.valid, flags, q
 
 
-def multi_inputs(nq=8, seed=33):
+def multi_inputs(nq=8, seed=33, dtype=np.float32):
     """(xy, valid, cell, flag tables, oid, queries) of the multi-query
-    kNN and the registry bucket, numpy."""
+    kNN and the registry bucket, numpy, the coordinates in ``dtype``."""
     grid = _grid()
     rng = np.random.default_rng(seed)
-    b = _batch(rng)
-    qxy = rng.uniform(0, 10, (nq, 2)).astype(np.float32)
+    b = _batch(rng, dtype=dtype)
+    qxy = rng.uniform(0, 10, (nq, 2)).astype(dtype)
     tables = np.stack([grid.neighbor_flags(R_MULTI, [grid.flat_cell(*p)])
                        for p in qxy])
     return b.xy, b.valid, b.cell, tables, b.oid, qxy
@@ -120,10 +132,11 @@ def knn_inputs():
     return b.xy, b.valid, flags, b.oid, q
 
 
-def _pane_side(rng, empty_slide, empty_half):
+def _pane_side(rng, empty_slide, empty_half, dtype=np.float32):
     """One side's (S, PC) pane fields; in ``empty_slide`` the points of
     pane half ``empty_half`` (shards 2h and 2h + 1 of four: one rank's)
-    are invalid, and slide ``BOTH_EMPTY`` holds none."""
+    are invalid, and slide ``BOTH_EMPTY`` holds none. The coordinates are
+    centred float32, or raw float64 as the float64 mode ships them."""
     from spatialflink_tpu_torch.ops.tjoin_panes import pane_cell_ranks
 
     gn, extent = PANE_KW["grid_n"], 10.0
@@ -140,7 +153,8 @@ def _pane_side(rng, empty_slide, empty_half):
     cell = np.where(ing, xi * gn + yi, 0).astype(np.int32)
     rank = pane_cell_ranks(np.repeat(np.arange(S_PANES), PC), cell,
                            valid=valid)
-    c = (xy - extent / 2).astype(np.float32)
+    c = (xy - extent / 2).astype(np.float32) if dtype == np.float32 \
+        else xy.copy()
     arrs = (c[:, 0], c[:, 1], xi.astype(np.int32), yi.astype(np.int32),
             cell, rank.astype(np.int32),
             rng.integers(0, PANE_KW["num_ids"], S_PANES * PC).astype(
@@ -148,11 +162,11 @@ def _pane_side(rng, empty_slide, empty_half):
     return tuple(a.reshape(S_PANES, PC) for a in arrs)
 
 
-def pane_inputs():
+def pane_inputs(dtype=np.float32):
     """The left and right pane fields of the tJoin scan, numpy."""
     rng = np.random.default_rng(36)
-    return (_pane_side(rng, *ONE_RANK_EMPTY["left"]),
-            _pane_side(rng, *ONE_RANK_EMPTY["right"]))
+    return (_pane_side(rng, *ONE_RANK_EMPTY["left"], dtype=dtype),
+            _pane_side(rng, *ONE_RANK_EMPTY["right"], dtype=dtype))
 
 
 def _points(seed, n, n_obj=64):
@@ -175,6 +189,108 @@ def tjoin_streams():
                 "oid": rng.integers(0, 8, n).astype(np.int32)}
 
     return mk(0.0), mk(0.2)
+
+
+def _squares(seed, m, size=0.2, tag="z"):
+    from spatialflink_tpu_torch.models.objects import Polygon
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(m):
+        cx, cy = rng.uniform(1, 9, 2)
+        out.append(Polygon(obj_id=f"{tag}{i}", timestamp=int(i * 20_000 / m),
+                           rings=[np.array([[cx - size, cy - size],
+                                            [cx + size, cy - size],
+                                            [cx + size, cy + size],
+                                            [cx - size, cy + size],
+                                            [cx - size, cy - size]])]))
+    return out
+
+
+def site_runs(mesh):
+    """Every ``mesh=`` entry point not run above, and ``run_partitioned``,
+    on tiny streams on ``mesh`` in the caller's precision: per call its
+    windows as a ``repr`` (a float64's ``repr`` round-trips, so equal
+    strings are equal bits)."""
+    from spatialflink_tpu_torch import operators as tops
+    from spatialflink_tpu_torch import qserve as tqs
+    from spatialflink_tpu_torch.grid import UniformGrid
+    from spatialflink_tpu_torch.models.objects import Point, Polygon
+
+    grid = _grid()
+    conf = tops.QueryConfiguration(tops.QueryType.WindowBased,
+                                   window_size=10, slide_step=10)
+    pts, other = _points(41, 1_000), _points(42, 600, n_obj=32)
+    polys, rects = _squares(43, 40), _squares(44, 30, tag="b")
+    q, qpoly = Point(x=5.0, y=5.0), _squares(45, 1, size=0.5)[0]
+    ring = np.array([[3, 3], [6, 3], [6, 6], [3, 6], [3, 3]], float)
+
+    def op(cls, **kw):
+        return getattr(tops, cls)(conf, grid, device="cpu", **kw)
+
+    def pairs(res):
+        return [(w.start, w.end, sorted((str(a.obj_id), a.timestamp,
+                                         str(b.obj_id), d)
+                                        for a, b, d in w.pairs))
+                for w in res]
+
+    def knn(res):
+        return [(w.start, w.end, [(o, d) for o, d, _ in w.neighbors])
+                for w in res]
+
+    def objs(res):
+        return [(w.start, w.end, [o.obj_id for o in w.objects],
+                 np.asarray(w.dists).tolist()) for w in res]
+
+    def served():
+        sqs = [tqs.QServeCommand(
+            timestamp=0, action="register", uid=f"u{i}",
+            query=tqs.StandingQuery(
+                qid=f"q{i}", tenant="t", kind=("range", "knn")[i % 2],
+                x=1.0 + i, y=2.0 + i % 5, radius=0.8, k=4))
+            for i in range(8)]
+        try:
+            return [(w.start, w.end, sorted(w.rows)) for w in
+                    tqs.QServeOperator(conf, grid, device="cpu").run(
+                        iter(sqs + pts), mesh=mesh)]
+        finally:
+            tqs.uninstall()
+
+    calls = {
+        "range": lambda: objs(op("PointPointRangeQuery").run(
+            iter(pts), [q], 0.9, mesh=mesh)),
+        "range_geometry": lambda: objs(op("PolygonPolygonRangeQuery").run(
+            iter(polys), [qpoly], 1.0, mesh=mesh)),
+        "knn": lambda: knn(op("PointPolygonKNNQuery").run(
+            iter(pts), qpoly, 2.0, 5, mesh=mesh)),
+        "knn_geometry": lambda: knn(op("PolygonPointKNNQuery").run(
+            iter(polys), q, 4.0, 5, mesh=mesh)),
+        "join": lambda: pairs(op("PointPointJoinQuery", cap=16).run(
+            iter(pts), iter(other), 0.3, mesh=mesh)),
+        "join_point_geometry": lambda: pairs(op("PointPolygonJoinQuery").run(
+            iter(pts), iter(rects), 0.1, mesh=mesh)),
+        "join_geometry": lambda: pairs(op("PolygonPolygonJoinQuery").run(
+            iter(polys), iter(rects), 0.1, mesh=mesh)),
+        "trange": lambda: [(w.start, w.end, sorted(
+            tr.obj_id for tr in w.trajectories)) for w in op(
+                "TRangeQuery").run(iter(pts), [Polygon(rings=[ring])],
+                                   mesh=mesh)],
+        "tknn": lambda: knn(op("TKNNQuery").run(iter(pts), q, 2.0, 5,
+                                                mesh=mesh)),
+        "tjoin": lambda: pairs(op("TJoinQuery", cap=32).run(
+            iter(pts), iter(other), 0.1, mesh=mesh)),
+        "taggregate": lambda: [(w.start, w.end, sorted(w.cells.items()))
+                               for w in op("TAggregateQuery").run(
+                                   iter(pts), mesh=mesh)],
+        "tstats": lambda: [(w.start, w.end, sorted(w.stats.items()))
+                           for w in op("TStatsQuery").run(iter(pts),
+                                                          mesh=mesh)],
+        "qserve": served,
+        "partitioned": lambda: objs(tops.PointPointRangeQuery(
+            conf, UniformGrid(64, 0.0, 10.0, 0.0, 10.0),
+            device="cpu").run_partitioned(iter(pts), [q], 0.9, mesh)),
+    }
+    return {name: repr(call()) for name, call in calls.items()}
 
 
 def run_programs(mesh_for):
@@ -254,7 +370,76 @@ def run_programs(mesh_for):
             iter([dict(left)]), iter([dict(right)]), 0.4, num_segments=8,
             mesh=meshes["4"], backend="device")])
     out["tjoin_op"] = np.array(repr(windows))
+    from spatialflink_tpu_torch import precision
+
+    with precision.x64(True):
+        run_programs64(meshes, tally, put, out)
     return out
+
+
+def run_programs64(meshes, tally, put, out):
+    """The four gathering programs, ``run_multi``, the tJoin pane carry
+    operator and every other ``mesh=`` entry point in the float64 mode:
+    float64 coordinates, radii, minima and carries (``<name>64``
+    outputs)."""
+    from spatialflink_tpu_torch import operators as tops
+    from spatialflink_tpu_torch.models.objects import Point
+    from spatialflink_tpu_torch.operators import trajectory as ttraj
+    from spatialflink_tpu_torch.ops import tjoin_panes as ttp
+    from spatialflink_tpu_torch.parallel import mesh as tmesh
+    from spatialflink_tpu_torch.parallel import sharded as tsh
+
+    f64 = np.float64
+    rng_args = [t(a) for a in range_inputs(f64)]
+    for lay in ("2x2", "1x4"):
+        put(f"range64_{lay}", tally(f"range64_{lay}", lambda: (
+            tsh.sharded_range_query_2d(meshes[lay], *rng_args, R_RANGE))))
+    margs = [t(a) for a in multi_inputs(dtype=f64)]
+    for lay in LAYOUTS:
+        put(f"multi64_{lay}", tally(f"multi64_{lay}", lambda: (
+            tsh.sharded_knn_multi(meshes[lay], *margs, R_MULTI, k=K_MULTI,
+                                  num_segments=NSEG))))
+    rargs = [t(a) for a in (*multi_inputs(16, seed=38, dtype=f64),
+                            *registry_extra())]
+    put("registry64", tally("registry64", lambda: tsh.sharded_registry_bucket(
+        meshes["4"], *rargs, k=8, num_segments=NSEG)))
+    lf, rf = pane_inputs(f64)
+    kw = PANE_KW
+    for cap_c in (0, 8):
+        def scan():
+            carry = ttp.tjoin_pane_init(
+                kw["grid_n"] ** 2, kw["cap_w"], kw["ppw"], kw["num_ids"],
+                f64, device=tmesh.home_device(meshes["4"]))
+            return tsh.sharded_tjoin_pane_scan(
+                meshes["4"], carry, torch.arange(S_PANES),
+                tuple(map(t, lf)), tuple(map(t, rf)), R_TJOIN64, **kw,
+                cap_c=cap_c)
+
+        carry, wmins = tally(f"tjoin64_{cap_c}", scan)
+        out[f"tjoin64_{cap_c}_wmins"] = wmins.numpy()
+        put(f"tjoin64_{cap_c}_carry", carry)
+    pts = _points(6, 3_000)
+    qs = [Point(x=x, y=y) for x, y in ((2.0, 2.0), (5.0, 5.0), (8.0, 7.0))]
+    conf = tops.QueryConfiguration(tops.QueryType.WindowBased,
+                                   window_size=10, slide_step=10)
+    out["run_multi64"] = np.array(repr(tally("run_multi64", lambda: [
+        (res.start, res.end,
+         [[(o, d) for o, d, _ in r.neighbors] for r in res.results])
+        for res in tops.PointPointKNNQuery(conf, _grid(), device="cpu")
+        .run_multi(iter(pts), qs, 1.5, 6, mesh=meshes["2x2"])])))
+    left, right = tjoin_streams()
+    pconf = tops.QueryConfiguration(tops.QueryType.WindowBased,
+                                    window_size=1, slide_step=0.1)
+    out["tjoin_op64"] = np.array(repr(tally("tjoin_op64", lambda: [
+        (s, e, list(map(int, lo)), list(map(int, ro)), dd.tolist(), int(c),
+         int(ov))
+        for s, e, lo, ro, dd, c, ov in ttraj.TJoinQuery(
+            pconf, _grid(), device="cpu").run_soa_panes(
+            iter([dict(left)]), iter([dict(right)]), 0.4, num_segments=8,
+            mesh=meshes["4"], backend="device")])))
+    sites = tally("sites64", lambda: site_runs(meshes["4"]))
+    for name, text in sites.items():
+        out[f"site64_{name}"] = np.array(text)
 
 
 def _child(path):
@@ -445,10 +630,130 @@ def test_every_spanning_program_made_gloo_collectives(spanning):
     assert names == {f"gloo_{n}" for n in (
         "range_2x2", "range_1x4", "multi_2x2", "multi_1x4", "multi_4",
         "registry", "knn_1x4", "tjoin_0", "tjoin_8", "run_multi",
-        "tjoin_op")}
+        "tjoin_op", "range64_2x2", "range64_1x4", "multi64_2x2",
+        "multi64_1x4", "multi64_4", "registry64", "tjoin64_0", "tjoin64_8",
+        "run_multi64", "tjoin_op64", "sites64")}
     for k in names:
         calls, nbytes = got[k]
         assert calls > 0 and nbytes > 0, k
+
+
+# -- the float64 mode ------------------------------------------------------------
+
+#: The float64 outputs (``run_programs64``), by the prefix of their keys.
+F64 = ["range64_2x2_", "range64_1x4_", "multi64_2x2_", "multi64_1x4_",
+       "multi64_4_", "registry64_", "tjoin64_0_", "tjoin64_8_",
+       "run_multi64", "tjoin_op64"]
+#: The other ``mesh=`` entry points and ``run_partitioned`` (``site_runs``).
+SITES = ["range", "range_geometry", "knn", "knn_geometry", "join",
+         "join_point_geometry", "join_geometry", "trange", "tknn", "tjoin",
+         "taggregate", "tstats", "qserve", "partitioned"]
+
+
+@RANKS
+@pytest.mark.parametrize("prefix", F64)
+def test_float64_programs_spanning_equal_one_process(spanning, one_process,
+                                                     rank, prefix):
+    """Each float64 program on both ranks, bit-equal to its one-process
+    float64 run; its float outputs are float64."""
+    _same(spanning, one_process, rank, prefix)
+    floats = [a for k, a in spanning[rank].items()
+              if k.startswith(prefix) and a.dtype.kind == "f"]
+    assert all(a.dtype == np.float64 for a in floats)
+    if prefix.startswith(("range64", "multi64", "registry64", "tjoin64")):
+        assert floats
+
+
+@RANKS
+@pytest.mark.parametrize("site", SITES)
+def test_float64_entry_points_on_a_spanning_mesh(spanning, one_process,
+                                                 rank, site):
+    """Every other ``mesh=`` entry point and ``run_partitioned`` in the
+    float64 mode on a mesh spanning both ranks: the one-process run's
+    windows, bit for bit (``repr`` of float64 round-trips)."""
+    _same(spanning, one_process, rank, f"site64_{site}")
+    text = str(spanning[rank][f"site64_{site}"])
+    assert len(text) > 40
+    if site not in ("trange", "taggregate"):
+        floats = [float(v) for v in re.findall(r"\d+\.\d{9,}", text)]
+        assert any(float(np.float32(v)) != v for v in floats), site
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_float64_knn_merge_moves_8_byte_minima(spanning, layout):
+    """The multi-query kNN's merge over the group (``_merge_over_group``)
+    moves one table a rank, query lane and segment: an 8-byte float64
+    minimum and a 4-byte representative (4 + 4 in float32), from each of
+    the two ranks."""
+    world, nq = 2, 8
+    for name, per in ((f"multi64_{layout}", 8 + 4), (f"multi_{layout}",
+                                                     4 + 4)):
+        calls, nbytes = spanning[0][f"gloo_{name}"]
+        assert nbytes == world * nq * NSEG * per, name
+        assert calls == spanning[1][f"gloo_{name}"][0] > 0
+
+
+def _ulp64(got, want):
+    """Both float64; equal at the float64 max sentinel, else within 1
+    float64 ulp (a jitted JAX program may contract a multiply-add)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype == np.float64, (got.dtype, want.dtype)
+    big = want == np.finfo(np.float64).max
+    return (np.array_equal(got == np.finfo(np.float64).max, big)
+            and bool(np.all(np.abs(got[~big] - want[~big]) <= np.spacing(
+                np.abs(want[~big])))))
+
+
+@pytest.mark.parametrize("program", ["range_2x2", "range_1x4", "multi_2x2",
+                                     "multi_1x4", "multi_4", "registry",
+                                     "tjoin_0", "tjoin_8"])
+def test_float64_programs_match_jax(spanning, program):
+    """The four programs in float64 on the spanning mesh against the JAX
+    ``shard_map`` programs at x64 on the same layout: masks, ids, indices
+    and counts equal, float64 distances within 1 ulp."""
+    import jax.numpy as jnp
+
+    from spatialflink_tpu.ops import tjoin_panes as jtp
+    from spatialflink_tpu.parallel import sharded as jsh
+
+    got = spanning[0]
+    kind, _, lay = program.partition("_")
+    if kind == "range":
+        jk, jd = jsh.sharded_range_query_2d(
+            _jmesh(lay), *map(jnp.asarray, range_inputs(np.float64)),
+            R_RANGE)
+        assert np.array_equal(got[f"range64_{lay}_0"], np.asarray(jk))
+        assert _ulp64(got[f"range64_{lay}_1"], jd)
+    elif kind in ("multi", "registry"):
+        if kind == "multi":
+            jr = jsh.sharded_knn_multi(
+                _jmesh(lay), *map(jnp.asarray, multi_inputs(dtype=np.float64)),
+                R_MULTI, k=K_MULTI, num_segments=NSEG)
+            name, idx = f"multi64_{lay}", (1, 2, 3)
+        else:
+            args = [jnp.asarray(a) for a in (
+                *multi_inputs(16, seed=38, dtype=np.float64),
+                *registry_extra())]
+            jr = jsh.sharded_registry_bucket(_jmesh("4"), *args, k=8,
+                                             num_segments=NSEG)
+            name, idx = "registry64", (1, 2, 3, 4)
+        assert _ulp64(got[f"{name}_0"], jr.dist)
+        for i in idx:
+            assert np.array_equal(got[f"{name}_{i}"], np.asarray(jr[i]))
+    else:
+        lf, rf = pane_inputs(np.float64)
+        kw = PANE_KW
+        j0 = jtp.tjoin_pane_init(kw["grid_n"] ** 2, kw["cap_w"], kw["ppw"],
+                                 kw["num_ids"], jnp.float64)
+        jc, jw = jsh.sharded_tjoin_pane_scan(
+            _jmesh("4"), j0, jnp.arange(S_PANES, dtype=jnp.int32),
+            tuple(map(jnp.asarray, lf)), tuple(map(jnp.asarray, rf)),
+            R_TJOIN64, **kw, cap_c=int(lay))
+        jw = np.asarray(jw)
+        tw = got[f"tjoin64_{lay}_wmins"]
+        fin = np.isfinite(jw)
+        assert np.array_equal(np.isfinite(tw), fin) and fin.sum() > 50
+        assert _ulp64(tw[fin], jw[fin])
 
 
 # -- against the JAX shard_map programs ---------------------------------------

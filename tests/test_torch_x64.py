@@ -45,12 +45,13 @@ Contracts held:
 - the numpy failover twins compute in float64 as the device path does;
 - x64 off, or ``dtype=np.float32``: today's float32 results, bit for
   bit;
-- x64 on: of the 65 entry points that raised before the geometry slice,
-  the 45 it ports and the 16 of the trajectory and serving slice run in
-  float64 on a tiny stream, and the 4 of ROADMAP item A14.2c (the mesh
-  runs and ``run_partitioned``) raise ``NotImplementedError`` naming it
-  (the trajectory slice's parity with the JAX package is
-  ``tests/test_torch_x64_trajectory.py``);
+- x64 on: all 65 entry points that raised before the geometry slice run
+  in float64 on a tiny stream: the 45 it ports, the 16 of the trajectory
+  and serving slice and the 4 of ROADMAP item A14.2c (the mesh runs and
+  ``run_partitioned``, each equal to its unsharded run; the trajectory
+  slice's parity with the JAX package is
+  ``tests/test_torch_x64_trajectory.py``, the mesh's
+  ``tests/test_torch_x64_mesh.py``);
 - the switch itself, and the telemetry ledger's ``x64`` field.
 """
 
@@ -1408,14 +1409,12 @@ def test_x64_off_or_float32_gives_todays_float32_results():
 
 # ---------------------------------------------------------------------------
 # The 65 entry points that raised in float64 before A14.2a: the 45 it
-# ports and the 16 of A14.2b run in float64; the 4 of A14.2c still raise,
-# naming it
+# ports, the 16 of A14.2b and the 4 of A14.2c run in float64
 
 
 def _a14_2_calls():
     """(label, call) of every entry point whose float64 route was ROADMAP
-    item A14.2, each called as a user would on empty streams (a refusal
-    comes first)."""
+    item A14.2, each called as a user would on empty streams."""
     from spatialflink_tpu_torch import operators as ops
     from spatialflink_tpu_torch.ops.tjoin_panes import tjoin_pane_init
     from spatialflink_tpu_torch.parallel.mesh import make_mesh
@@ -1786,23 +1785,82 @@ def _a14_2b_runs():
 
 
 A14_2B = _a14_2b_runs()
-#: The calls still refused in float64: ROADMAP item A14.2c.
-A14_2 = [c for c in A14_2_CALLS
-         if c[0] not in {lb for lb, _ in A14_2A + A14_2B}]
+
+
+def _a14_2c_runs():
+    """(label, call) of the 4 calls of ROADMAP item A14.2c, under the
+    labels of ``A14_2_CALLS``, each run as a user would on a tiny
+    non-empty stream on a two-shard CPU mesh; a call returns (the mesh
+    run's distances, the unsharded run's), an array each."""
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.parallel.mesh import make_mesh
+
+    grid = UniformGrid(**BEIJING)
+    conf = QueryConfiguration(window_size=1.0, slide_step=1.0)
+    ring = np.array([[116.3, 40.1], [116.5, 40.1], [116.5, 40.3],
+                     [116.3, 40.3], [116.3, 40.1]])
+    pt = Point(obj_id="p", x=116.4, y=40.2)
+    poly = Polygon(obj_id="q", rings=[ring])
+    _, points = _tiny_data()
+    other = [Point(obj_id=f"o{i}", timestamp=p.timestamp, x=p.x + 0.01,
+                   y=p.y) for i, p in enumerate(points)]
+    mesh = make_mesh((2,), ("data",), devices=["cpu", "cpu"])
+    r = TINY_R
+
+    def op(cls, **kw):
+        return getattr(ops, cls)(conf, grid, device="cpu", **kw)
+
+    def both(run):
+        return tuple(np.array(run(m), np.float64) for m in (mesh, None))
+
+    return [
+        ("PointPointRangeQuery.run(mesh=)", lambda: both(lambda m: [
+            d for w in op("PointPointRangeQuery").run(
+                iter(points), [pt], r, mesh=m) for d in w.dists])),
+        ("PointPolygonKNNQuery.run(mesh=)", lambda: both(lambda m: [
+            n[1] for w in op("PointPolygonKNNQuery").run(
+                iter(points), poly, r, 3, mesh=m) for n in w.neighbors])),
+        # One neighbour layer, as A14_2A's query_panes: the plain grid
+        # join tests every slot pair of its planes.
+        ("PointPointJoinQuery.run(mesh=)", lambda: both(lambda m: sorted(
+            d for w in op("PointPointJoinQuery", cap=8).run(
+                iter(points), iter(other), 0.02, mesh=m)
+            for *_, d in w.pairs))),
+        # The halo route against the flag-table route on one device: one
+        # root of the same float64 sum at every kept point.
+        ("PointPointRangeQuery.run_partitioned", lambda: (
+            np.concatenate([w.dists for w in op(
+                "PointPointRangeQuery").run_partitioned(
+                    iter(points), [pt], r, mesh)]),
+            np.concatenate([w.dists for w in op("PointPointRangeQuery")
+                            .run(iter(points), [pt], r)]))),
+    ]
+
+
+A14_2C = _a14_2c_runs()
 
 
 def test_the_65_calls_split_61_and_4():
+    """The 65 calls that raised in float64 before A14.2a are the 45 it
+    ported, the 16 of A14.2b and the 4 of A14.2c, and every one of them
+    runs in float64 (the tests below)."""
     labels = [c[0] for c in A14_2_CALLS]
     assert len(labels) == len(set(labels)) == 65
-    assert len(A14_2A) == 45 and len(A14_2B) == 16 and len(A14_2) == 4
-    assert {lb for lb, _ in A14_2A + A14_2B} <= set(labels)
-    assert not {lb for lb, _ in A14_2A} & {lb for lb, _ in A14_2B}
+    assert len(A14_2A) == 45 and len(A14_2B) == 16 and len(A14_2C) == 4
+    ported = [lb for lb, _ in A14_2A + A14_2B + A14_2C]
+    assert len(ported) == len(set(ported)) and set(ported) == set(labels)
 
 
-@pytest.mark.parametrize("label,call", A14_2, ids=[c[0] for c in A14_2])
+@pytest.mark.parametrize("label,call", A14_2C, ids=[c[0] for c in A14_2C])
 def test_entry_points_outside_the_slice_raise_in_float64(label, call, x64):
-    with pytest.raises(NotImplementedError, match=r"A14\.2c"):
-        call()
+    """The 4 calls of A14.2c, refused in float64 before it, on a tiny
+    non-empty stream on a two-shard CPU mesh: they run, their distances
+    are float64 and hold a value no float32 holds, and they equal the
+    unsharded run's bit for bit (the join's as a set)."""
+    got, want = call()
+    assert got.size > 0, label
+    assert np.array_equal(got.view(np.int64), want.view(np.int64)), label
+    assert any(float(np.float32(d)) != d for d in got if d != 0), label
 
 
 @pytest.mark.parametrize("label,call", A14_2B, ids=[c[0] for c in A14_2B])

@@ -34,8 +34,8 @@ Contracts held:
   bytes;
 - the tStats device pane engine takes float64 lanes whenever x64 is on
   and float32 ones whenever it is off, as the JAX engine does; a
-  float64 mesh run, and the mesh scan of a float64 tJoin carry, raise
-  naming A14.2c.
+  float64 mesh run, and the mesh scan of a float64 tJoin carry, equal
+  their unsharded runs (the mesh in full: ``tests/test_torch_x64_mesh.py``).
 """
 
 import os
@@ -630,30 +630,75 @@ def test_an_empty_tjoin_window_is_float64(x64):
 
 
 # ---------------------------------------------------------------------------
-# The refusals that stay: A14.2c
+# The mesh runs: A14.2c
 
 
 def test_float64_mesh_runs_and_the_mesh_scan_raise_a14_2c(x64):
+    """The four calls this file held refused until A14.2c ported them, on
+    a two-shard CPU mesh in the float64 mode: tStats ``run``, tJoin's
+    ``run_soa_panes``, ``QServeOperator.run`` and the mesh scan of a
+    float64 tJoin carry each run and equal the unsharded run (tStats'
+    spatial sums within the float64 ``spatial_sum_bound``, the rest bit
+    for bit), their distances float64; float32 on the same mesh runs as
+    before."""
     from spatialflink_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh((2,), ("data",), devices=["cpu", "cpu"])
-    conf = TT._conf(1.0)[0]
+    conf = TT._conf(10.0)[0]
     grid = UniformGrid(**TT.GRID)
-    calls = [
-        lambda: list(PointTStatsQuery(conf, grid, device="cpu").run(
-            iter([]), mesh=mesh)),
-        lambda: list(PointPointTJoinQuery(conf, grid, device="cpu")
-                     .run_soa_panes(*_edge_chunks(), 0.001, 8,
-                                    mesh=mesh)),
-        lambda: list(qserve.QServeOperator(conf, grid, device="cpu").run(
-            iter([]), mesh=mesh)),
-        lambda: ttp.tjoin_pane_scan(
-            ttp.tjoin_pane_init(4, 2, 2, 2, np.float64, device="cpu"), [],
-            (), (), 1.0, 2, 2, 1, 2, 2, 1, mesh=mesh),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=r"A14\.2c"):
-            call()
+    pts, _ = TT._walks(np.random.default_rng(230), n_traj=4, pts_per=20)
+
+    def tstats(m):
+        return [(w.start, w.end, w.stats) for w in PointTStatsQuery(
+            conf, grid, device="cpu").run(iter(pts), mesh=m)]
+
+    got, want = tstats(mesh), tstats(None)
+    assert [w[:2] for w in got] == [w[:2] for w in want] and got
+    assert all(_stats_close64(g[2], w[2], len(pts))
+               for g, w in zip(got, want))
+    assert _not_f32([s[0] for w in got for s in w[2].values()])
+
+    def tjoin(m):
+        return [(w[3].tolist(), w[4]) for w in PointPointTJoinQuery(
+            TT._conf(1.0)[0], grid, device="cpu").run_soa_panes(
+                *_edge_chunks(), 0.001, 8, backend="device", mesh=m)
+            if w[5]]
+
+    got, want = tjoin(mesh), tjoin(None)
+    assert [g[0] for g in got] == [w[0] for w in want] and got
+    assert all(np.array_equal(_bits(g[1]), _bits(w[1]))
+               for g, w in zip(got, want))
+    assert all(g[1].dtype == np.float64 for g in got)
+
+    def served(m):
+        sq = qserve.StandingQuery(qid="q", tenant="t", kind="knn", x=5.0,
+                                  y=5.0, radius=3.0, k=3)
+        stream = [qserve.QServeCommand(timestamp=0, action="register",
+                                       uid="u", query=sq)] + pts
+        try:
+            return [row for res in qserve.QServeOperator(
+                conf, grid, device="cpu").run(iter(stream), mesh=m)
+                for row in res.rows]
+        finally:
+            qserve.uninstall()
+
+    got, want = served(mesh), served(None)
+    assert got == want and _not_f32([row[4] for row in got])
+
+    rng = np.random.default_rng(231)
+    lf = _tp_fields64(rng, 6, 16, 4, 4)
+    rf = _tp_fields64(rng, 6, 16, 4, 4)
+
+    def scan(m):
+        carry = ttp.tjoin_pane_init(16, 8, 2, 4, np.float64, device="cpu")
+        return ttp.tjoin_pane_scan(carry, range(6), TTP._tensors(lf),
+                                   TTP._tensors(rf), 0.8, 4, 8, 1, 2, 4, 16,
+                                   mesh=m)
+
+    (gc, gw), (wc, ww) = scan(mesh), scan(None)
+    assert gw.dtype == torch.float64 and torch.isfinite(gw).any()
+    assert np.array_equal(_bits(gw.numpy()), _bits(ww.numpy()))
+    assert all(torch.equal(a, b) for a, b in zip(gc, wc))
     # float32 on the same mesh is ported.
     assert list(PointTStatsQuery(conf, grid, device="cpu").run(
         iter([]), mesh=mesh, dtype=np.float32)) == []
